@@ -7,12 +7,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the ``sampler_decode`` kernel built from ``wavenet_torch/csrc``.
-2. Kernel against plain, teacher-forced, at the gc config's full width:
-   prefill ~3.5k random codes, teacher-force 256 more steps, and hold the
-   kernel's logits, ring and causal state against ``decode_reference``
-   on the card (rtol 1e-4, atol 1e-4: another summation order over
-   K <= 512), and at B <= 4 against the parallel ``forward_codes``. Also
-   times one decode step of both, at each batch size the server uses.
+2. Kernel against plain, teacher-forced, at full width (the paper
+   config at b1, the gc config at b1, b4, b64 and b512), with seeded
+   non-zero biases: prefill ~3.5k random codes, teacher-force 256 more
+   steps, and hold the kernel's logits, ring and causal state against
+   ``decode_reference`` on the card (rtol 1e-4, atol 1e-4: another
+   summation order over K <= 512), and at B <= 4 against the parallel
+   ``forward_codes``. Also times one decode step of both, at each batch
+   size the server uses.
 3. Sampling exactness: a 512-step free run of the kernel, replayed by
    ``decode_reference`` teacher-forced on its codes with the same Philox
    noise (>= 99.9% equal, every mismatch a near-tie), same-seed runs
@@ -29,7 +31,6 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -50,6 +51,10 @@ PREFILL = 3500
 TEACHER_STEPS = 256
 FREE_STEPS = 512
 SERVE_BATCH_SIZES = (1, 64, 512)
+# Phase 2's (config, batch) cases; those the server's batch sizes are
+# timed on, with the decode steps of one timed launch.
+TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 512))
+TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 512): 256}
 
 
 def emit(obj) -> None:
@@ -110,6 +115,20 @@ def weight_stream_bound_per_step(c, B: int):
     return 1e3 * t_ops, "operations"
 
 
+def seeded_params(c, seed: int, device):
+    """``init_params`` with seeded non-zero biases. ``init_params`` sets
+    every bias to 0 and a trained checkpoint's are not, so without them
+    no bias term of the kernel would be compared."""
+    import torch
+    from wavenet_torch.models.wavenet import init_params
+    p = init_params(seed, c, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k in sorted(p):
+        if k.endswith("_bias"):
+            p[k] = 0.1 * torch.randn(p[k].shape, generator=gen)
+    return {k: v.to(device) for k, v in p.items()}
+
+
 def cuda_ms(fn, reps: int = 1) -> float:
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -134,17 +153,18 @@ def setup(c, B: int, rng, seed_len: int, extra: int):
     return codes, gc_ids
 
 
-def phase_teacher_forced(c, params, rng, timing_steps):
+def phase_teacher_forced(cfgs, params, rng):
     import torch
     from wavenet_torch.kernels import sampler as ks
     from wavenet_torch.models.wavenet import embed_gc, forward_codes
 
     results = {}
-    for B in (1, 4) + SERVE_BATCH_SIZES[1:]:
+    for name, B in TEACHER_CASES:
+        c, p = cfgs[name], params[name]
         codes, gc_ids = setup(c, B, rng, PREFILL, TEACHER_STEPS)
-        carry = ks.prefill_carry(params, c, codes[:, :PREFILL], gc_ids)
-        packed = ks.pack_sampler_weights(params, c, B,
-                                         embed_gc(params, c, gc_ids))
+        gc_emb = None if gc_ids is None else embed_gc(p, c, gc_ids)
+        carry = ks.prefill_carry(p, c, codes[:, :PREFILL], gc_ids)
+        packed = ks.pack_sampler_weights(p, c, B, gc_emb)
         forced = codes[:, PREFILL - 1:PREFILL - 1 + TEACHER_STEPS].contiguous()
         ring_k, causal_k = carry.ring.clone(), carry.causal.clone()
         ring_r, causal_r = carry.ring.clone(), carry.causal.clone()
@@ -157,29 +177,30 @@ def phase_teacher_forced(c, params, rng, timing_steps):
                                             collect_logits=True)
         torch.cuda.synchronize()
         err = (lg_k - lg_r).abs().max().item()
-        check(torch.isfinite(lg_k).all().item(), f"B={B}: non-finite logits")
+        check(torch.isfinite(lg_k).all().item(),
+              f"{name} B={B}: non-finite logits")
         check(torch.allclose(lg_k, lg_r, rtol=1e-4, atol=1e-4),
-              f"B={B}: kernel logits differ from decode_reference "
+              f"{name} B={B}: kernel logits differ from decode_reference "
               f"(max |d| {err})")
         check(torch.allclose(ring_k, ring_r, rtol=1e-4, atol=1e-4),
-              f"B={B}: ring state differs")
-        check(torch.equal(causal_k, causal_r), f"B={B}: causal differs")
+              f"{name} B={B}: ring state differs")
+        check(torch.equal(causal_k, causal_r),
+              f"{name} B={B}: causal differs")
         check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
-              f"B={B}: forced codes not emitted")
-        row = {"phase": "teacher_forced", "batch": B, "steps": TEACHER_STEPS,
-               "max_abs_err_vs_plain": err}
+              f"{name} B={B}: forced codes not emitted")
+        row = {"phase": "teacher_forced", "config": name, "batch": B,
+               "steps": TEACHER_STEPS, "max_abs_err_vs_plain": err}
         if B <= 4:
-            full = forward_codes(params, c,
+            full = forward_codes(p, c,
                                  codes[:, :PREFILL - 1 + TEACHER_STEPS],
-                                 embed_gc(params, c, gc_ids),
-                                 head_from=PREFILL - 1)
+                                 gc_emb, head_from=PREFILL - 1)
             err_f = (lg_k - full).abs().max().item()
             check(torch.allclose(lg_k, full, rtol=1e-4, atol=1e-4),
-                  f"B={B}: kernel logits differ from forward_codes "
+                  f"{name} B={B}: kernel logits differ from forward_codes "
                   f"(max |d| {err_f})")
             row["max_abs_err_vs_forward"] = err_f
-        if B in SERVE_BATCH_SIZES:
-            steps = timing_steps[B]
+        if (name, B) in TIMED_STEPS:
+            steps = TIMED_STEPS[(name, B)]
             fk = forced[:, :1].contiguous()
             ms_k = cuda_ms(lambda: ks.decode(
                 packed, c, ring_k, causal_k, fk, steps, 0, 5)) / steps
@@ -192,10 +213,8 @@ def phase_teacher_forced(c, params, rng, timing_steps):
                        bound_ms_per_step=bound, bound_by=by,
                        weight_stream_bound_ms_per_step=ws_bound,
                        weight_stream_bound_by=ws_by, timed_steps=steps)
-            results[B] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                              bound_ms=bound, bound_by=by,
-                              weight_stream_bound_ms=ws_bound,
-                              weight_stream_bound_by=ws_by)
+            results[B] = dict(config=name, max_abs_err=err, ms=ms_k,
+                              plain_ms=ms_p, bound_ms=bound, bound_by=by)
         emit(row)
     return results
 
@@ -274,9 +293,7 @@ def post(url, payload):
 
 
 def phase_serving(cfgs, gpu):
-    import torch
     from wavenet_torch.kernels import sampler as ks
-    from wavenet_torch.models.wavenet import init_params
     from wavenet_torch.params import save_npz
     from wavenet_torch.serve import GenerationService
 
@@ -284,7 +301,7 @@ def phase_serving(cfgs, gpu):
     services = {}
     for name, c in cfgs.items():
         npz = os.path.join(tmp, f"{name}.npz")
-        save_npz(npz, init_params(7, c, device="cpu"))
+        save_npz(npz, seeded_params(c, 7, "cpu"))
         js = os.path.join(tmp, f"{name}.json")
         with open(js, "w") as f:
             json.dump(c.to_json_dict(), f)
@@ -338,12 +355,7 @@ def phase_serving(cfgs, gpu):
     return launches
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="build and run phase 2 at b1 only (bring-up)")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
               "(wavenet_torch/ not found)", file=sys.stderr)
@@ -360,7 +372,6 @@ def main(argv=None) -> int:
     import numpy as np
     from wavenet_torch.kernels import _build
     from wavenet_torch.models.config import gc_config, paper_config
-    from wavenet_torch.models.wavenet import init_params
 
     # Phase 1: device and build.
     gpu = gpu_line()
@@ -375,24 +386,18 @@ def main(argv=None) -> int:
           "ptxas": regs, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # Phase 2: kernel against plain, teacher-forced (gc config).
-    c = gc_config()
-    params = init_params(0, c, device="cuda")
+    # Phase 2: kernel against plain, teacher-forced.
+    cfgs = {"paper": paper_config(), "gc": gc_config()}
+    params = {name: seeded_params(c, i, "cuda")
+              for i, (name, c) in enumerate(cfgs.items())}
     rng = np.random.RandomState(0)
-    if args.quick:
-        global SERVE_BATCH_SIZES
-        SERVE_BATCH_SIZES = (1,)
-        phase_teacher_forced(c, params, rng, {1: 256})
-        return 0
-    timing = {1: 2048, 64: 1024, 512: 256}
-    measured = phase_teacher_forced(c, params, rng, timing)
+    measured = phase_teacher_forced(cfgs, params, rng)
 
     # Phase 3: sampling exactness.
-    phase_sampling(c, params, rng)
+    phase_sampling(cfgs["gc"], params["gc"], rng)
 
     # Phase 4: serving, the main path.
-    launches = phase_serving({"paper": paper_config(), "gc": gc_config()},
-                             gpu)
+    launches = phase_serving(cfgs, gpu)
     missing = [B for B in SERVE_BATCH_SIZES if not launches.get(B)]
     check(not missing, f"no kernel launch at batch sizes {missing}")
 
@@ -406,12 +411,10 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"sampler_decode_b{B}", "route": "cuda",
             "source": "wavenet_torch/csrc/sampler_decode.cu",
-            "replaces": replaces[B], "batch": B,
+            "replaces": replaces[B], "config": m["config"], "batch": B,
             "launches": launches[B], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "weight_stream_bound_ms": m["weight_stream_bound_ms"],
-            "weight_stream_bound_by": m["weight_stream_bound_by"],
             "library_ms": None, "unit": "per decode step", "gpu": gpu})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -31,7 +31,14 @@ def setup():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c = WaveNetConfig(**SMALL)
-    params = init_params(0, c, device="cuda")
+    # Seeded non-zero biases (init_params sets them to 0), so that every
+    # bias term of the kernel is compared.
+    params = init_params(0, c, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for k in sorted(params):
+        if k.endswith("_bias"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen)
+    params = {k: v.cuda() for k, v in params.items()}
     rng = np.random.RandomState(0)
     return c, params, rng
 

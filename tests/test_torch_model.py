@@ -20,6 +20,15 @@ from wavenet_torch.params import params_from_numpy
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+def _with_biases(params, seed):
+    """The numpy param dict with seeded non-zero biases: ``init_params``
+    sets every bias to 0, and a trained checkpoint's are not."""
+    rng = np.random.RandomState(seed)
+    return {k: ((0.1 * rng.randn(*v.shape)).astype(np.float32)
+                if k.endswith("_bias") else v)
+            for k, v in sorted(params.items())}
+
+
 def _pair(gc=False, **kw):
     d = dict(dilations=(1, 2, 4, 8, 1, 2), residual_channels=8,
              dilation_channels=6, skip_channels=16, quantization_channels=32)
@@ -27,9 +36,20 @@ def _pair(gc=False, **kw):
         d.update(gc_channels=4, gc_cardinality=5)
     d.update(kw)
     jc, tc = JConfig(**d), TConfig(**d)
-    jp = jw.init_params(jax.random.PRNGKey(1), jc)
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, "cpu")
-    return jc, tc, jp, tp
+    npp = _with_biases({k: np.asarray(v) for k, v in
+                        jw.init_params(jax.random.PRNGKey(1), jc).items()},
+                       1)
+    jp = {k: jnp.asarray(v) for k, v in npp.items()}
+    return jc, tc, jp, params_from_numpy(npp, "cpu")
+
+
+def test_parity_params_have_non_zero_biases():
+    jc, _, jp, tp = _pair(gc=True)
+    names = [k for k in tp if k.endswith("_bias")]
+    assert len(names) == 6 and jc.use_biases
+    for k in names:
+        assert (tp[k] != 0).all(), k
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
 
 
 def _gc(jp, jc, tp, tc, ids):

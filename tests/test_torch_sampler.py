@@ -36,14 +36,25 @@ RING_PACK = dict(dilations=(1, 2, 4, 8, 16, 32, 1, 2, 4, 8, 16, 32),
                  quantization_channels=64)
 
 
+def _with_biases(params, seed):
+    """The numpy param dict with seeded non-zero biases: ``init_params``
+    sets every bias to 0, and a trained checkpoint's are not."""
+    rng = np.random.RandomState(seed)
+    return {k: ((0.1 * rng.randn(*v.shape)).astype(np.float32)
+                if k.endswith("_bias") else v)
+            for k, v in sorted(params.items())}
+
+
 def _pair(base, gc=False, key=0):
     d = dict(base)
     if gc:
         d.update(gc_channels=4, gc_cardinality=4)
     jc, tc = JConfig(**d), TConfig(**d)
-    jp = jw.init_params(jax.random.PRNGKey(key), jc)
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, "cpu")
-    return jc, tc, jp, tp
+    npp = _with_biases({k: np.asarray(v) for k, v in
+                        jw.init_params(jax.random.PRNGKey(key), jc).items()},
+                       key)
+    jp = {k: jnp.asarray(v) for k, v in npp.items()}
+    return jc, tc, jp, params_from_numpy(npp, "cpu")
 
 
 def _t(x, dtype=None):

@@ -1,11 +1,12 @@
-"""Sampler selection, shared by the server (counterpart of
+"""Sampler naming, shared by the server (counterpart of
 ``wavenet_tpu/sampler_select.py``).
 
 The JAX package tries an ordered list of Pallas variants and falls back
 to a ``lax.scan`` sampler when one fails to compile. The port has one
-candidate: prefill + the ``sampler_decode`` kernel. On a GPU a failure
-raises; there is no fallback. On the CPU the same call runs the kernel's
-plain version (``decode_reference``), because the tensors lie there.
+sampler: prefill + the ``sampler_decode`` kernel (``generate_cuda``). On a
+GPU a failure raises; there is no fallback. On the CPU the same call runs
+the kernel's plain version (``decode_reference``), because the tensors
+lie there.
 """
 
 from __future__ import annotations
@@ -15,21 +16,3 @@ def sampler_name(device) -> str:
     if getattr(device, "type", str(device)) == "cuda":
         return "CUDA (prefill + sampler_decode kernel)"
     return "PyTorch reference (prefill + decode_reference)"
-
-
-def generate_with_fallback(params, config, n_samples: int, *,
-                           seed: int = 0, batch_size: int = 1, gc_ids=None,
-                           temperature: float = 1.0, seed_codes=None,
-                           log=print):
-    """-> (codes [B, n_samples], chosen_name, chosen_kwargs)."""
-    from wavenet_torch.kernels.sampler import generate_cuda
-
-    kw = dict(prefill=True)
-    codes = generate_cuda(params, config, n_samples, seed=seed,
-                          batch_size=batch_size, gc_ids=gc_ids,
-                          temperature=temperature, seed_codes=seed_codes,
-                          **kw)
-    name = sampler_name(codes.device)
-    if log is not None:
-        log(f"Using {name} sampler.")
-    return codes, name, kw

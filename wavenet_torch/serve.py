@@ -94,16 +94,16 @@ class GenerationService:
     def _decode(self, n_samples: int, batch: int, gc_ids, temperature,
                 seed) -> np.ndarray:
         from wavenet_torch.audio import mu_law_decode_np
-        from wavenet_torch.sampler_select import generate_with_fallback
+        from wavenet_torch.kernels.sampler import generate_cuda
 
         if not temperature > 0:
             raise ValueError(f"temperature must be > 0, got {temperature}")
         n_bucket = self.bucket_samples(n_samples)
         with self._lock:
-            codes, _, _ = generate_with_fallback(
+            codes = generate_cuda(
                 self.params, self.config, n_bucket, seed=seed,
                 batch_size=batch, gc_ids=gc_ids, temperature=temperature,
-                log=None)
+                prefill=True)
             codes = codes[:, :n_samples].cpu().numpy()
         return mu_law_decode_np(codes, self.config.quantization_channels)
 
