@@ -6,7 +6,8 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode`` kernel built from ``wavenet_torch/csrc``.
+   the ``sampler_decode`` and ``fused_stack`` kernels built from
+   ``wavenet_torch/csrc``, one nvcc each, in parallel.
 2. Kernel against plain, teacher-forced, at full width (the paper
    config at b1, the gc config at b1, b4, b64 and b512), with seeded
    non-zero biases: prefill ~3.5k random codes, teacher-force 256 more
@@ -19,10 +20,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``decode_reference`` teacher-forced on its codes with the same Philox
    noise (>= 99.9% equal, every mismatch a near-tie), same-seed runs
    bitwise equal, rows independent of the batch size.
-4. Serving (the main path): ``GenerationService`` behind a localhost
-   HTTP server answers /healthz, /generate at b1 (paper and gc config)
-   and /generate_batch at b64 and b512; the launch count shows that the
-   kernel served every request.
+4. Serving (the main path of generation): ``GenerationService`` behind
+   a localhost HTTP server answers /healthz, /generate at b1 (paper and
+   gc config) and /generate_batch at b64 and b512; the launch count shows
+   that the kernel served every request.
+5. Training (the main path of training), through the ``fused_stack``
+   kernel pair: its forward and backward against their plain versions at
+   the paper and gc configs, b8 x (receptive field + 16,000) audio
+   (forward within 1e-4 * max|ref| + 1e-5, gradients within
+   2e-3 * max|ref| + 2e-4: another summation order, and the backward
+   rebuilds each layer's input by subtraction), bitwise-equal repeated
+   backward calls, one gc train step fused against plain, then
+   ``python -m wavenet_torch.cli.train --use_pallas_stack`` on a
+   synthesised 109-speaker corpus: 8 steps with finite, falling loss and
+   the kernels launched every step, checkpoints 4 and 8, a resume to 10,
+   and a ``GenerationService`` that serves from the last checkpoint.
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -31,6 +43,8 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -55,6 +69,12 @@ SERVE_BATCH_SIZES = (1, 64, 512)
 # timed on, with the decode steps of one timed launch.
 TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 512))
 TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 512): 256}
+KERNELS = ("sampler_decode", "fused_stack")
+# Phase 5: the JAX package's train_b8 shape (bench.py).
+TRAIN_BATCH, TRAIN_SAMPLES = 8, 16000
+TRAIN_STEPS, RESUME_STEPS = 8, 10
+FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 
 
 def emit(obj) -> None:
@@ -355,6 +375,337 @@ def phase_serving(cfgs, gpu):
     return launches
 
 
+def median_cuda_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` single calls, each timed with CUDA events."""
+    import numpy as np
+    return float(np.median([cuda_ms(fn) for _ in range(reps)]))
+
+
+def within(got, ref, rtol: float, atol: float):
+    """(max |got - ref|, that over max |ref|, whether it is within
+    rtol * max|ref| + atol)."""
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    return err, err / scale if scale else err, err <= rtol * scale + atol
+
+
+def stack_inputs(c, params, rng):
+    """The stack's input and packed weights for a b8 train batch: the
+    causal layer of random codes, as ``forward_codes`` computes it."""
+    import torch
+    import torch.nn.functional as F
+    from wavenet_torch.kernels.fused_stack import pack_stack_weights
+    from wavenet_torch.models.wavenet import embed_gc
+    B, T = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES - 1
+    codes, gc_ids = setup(c, B, rng, T, 0)
+    w = params["causal_filter"]
+    x = F.embedding(codes.long(), w[1])
+    x[:, 1:] += F.embedding(codes[:, :-1].long(), w[0])
+    gc_emb = None if gc_ids is None else embed_gc(params, c, gc_ids)
+    w_fg, wd, add, bd = pack_stack_weights(params, c, gc_emb, B)
+    return (x.contiguous(), w_fg.contiguous(), wd.contiguous(),
+            add.contiguous(), bd.contiguous())
+
+
+def phase_stack_kernels(cfgs, params, rng, gpu):
+    """Fused stack forward and backward against the plain versions."""
+    import torch
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.utils.flops import bound_ms, fused_stack_cost
+
+    results = {}
+    for name in ("paper", "gc"):
+        c = cfgs[name]
+        L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+        args = stack_inputs(c, params[name], rng)
+        B, T = args[0].shape[:2]
+        dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
+                             device="cuda")
+        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                             device="cuda")
+        w_fg, wd, _, bd = args[1:]
+        out_k = fs.forward(*args, c)
+        out_p = fs.fused_stack_forward_reference(*args, c)
+        y, fg = out_p[0], out_p[1]
+        grads_k = fs.backward(y, dy, fg, dz, w_fg, wd, bd, c)
+        grads_k2 = fs.backward(y, dy, fg, dz, w_fg, wd, bd, c)
+        grads_p = fs.fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd,
+                                                    bd, c)
+        torch.cuda.synchronize()
+        row = {"phase": "train_stack", "config": name, "batch": B,
+               "positions": T, "gpu": gpu}
+        worst = {}
+        for label, got, ref, rtol, atol in (
+                [(n, a, b, FWD_RTOL, FWD_ATOL)
+                 for n, a, b in zip(("y", "fg", "z"), out_k, out_p)]
+                + [(n, a, b, GRAD_RTOL, GRAD_ATOL)
+                   for n, a, b in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                                      grads_k, grads_p)]):
+            check(torch.isfinite(got).all().item(), f"{name} {label}: "
+                  "non-finite kernel output")
+            err, rel, ok = within(got, ref, rtol, atol)
+            row[f"max_abs_err_{label}"] = err
+            row[f"max_rel_err_{label}"] = rel
+            check(ok, f"{name} {label}: kernel differs from the plain "
+                  f"version (max |d| {err}, {rel} of max |ref|)")
+            worst["fwd" if label in ("y", "fg", "z") else "bwd"] = max(
+                worst.get("fwd" if label in ("y", "fg", "z") else "bwd", 0.0),
+                err)
+        check(all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2)),
+              f"{name}: two backward calls on the same inputs differ")
+        row["bitwise_repeat_backward"] = True
+
+        timed = {
+            "fwd": (lambda: fs.forward(*args, c),
+                    lambda: fs.fused_stack_forward_reference(*args, c)),
+            "bwd": (lambda: fs.backward(y, dy, fg, dz, w_fg, wd, bd, c),
+                    lambda: fs.fused_stack_backward_reference(
+                        y, dy, fg, dz, w_fg, wd, bd, c)),
+        }
+        for kind, (kern, plain) in timed.items():
+            flops, nbytes = fused_stack_cost(c, B, T, backward=kind == "bwd")
+            bound, by = bound_ms(flops, nbytes)
+            ms_k, ms_p = median_cuda_ms(kern), median_cuda_ms(plain)
+            row.update({f"{kind}_ms": ms_k, f"{kind}_plain_ms": ms_p,
+                        f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
+                        f"{kind}_flops": flops, f"{kind}_bytes": nbytes,
+                        f"{kind}_gflop_per_s": flops / ms_k / 1e6,
+                        f"{kind}_cuda_launches_per_call":
+                            L if kind == "fwd" else 2 * L + 1})
+            results[(name, kind)] = dict(
+                config=name, max_abs_err=worst[kind], ms=ms_k, plain_ms=ms_p,
+                bound_ms=bound, bound_by=by)
+        emit(row)
+        del args, dy, dz, out_k, out_p, grads_k, grads_k2, grads_p
+        torch.cuda.empty_cache()
+    return results
+
+
+STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
+                 "bwd_reduce_kernel")
+
+
+def device_breakdown(fn):
+    """Device time of one call of ``fn`` by kernel family, and the
+    device's busy time against the wall time of the call (the profiler
+    adds host overhead, so the idle share is an upper bound), from a
+    ``torch.profiler`` trace. None when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = [(e.name.lower(), e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    fam = {"fused_stack_ms": 0.0, "gemm_ms": 0.0, "optimizer_ms": 0.0,
+           "other_ms": 0.0}
+    for name, start, end in spans:
+        ms = (end - start) / 1e3
+        if any(k in name for k in STACK_KERNELS):
+            fam["fused_stack_ms"] += ms
+        elif "gemm" in name:
+            fam["gemm_ms"] += ms
+        elif "multi_tensor" in name or "adam" in name:
+            fam["optimizer_ms"] += ms
+        else:
+            fam["other_ms"] += ms
+    busy_us, end_us = 0.0, None
+    for _, start, end in sorted(spans, key=lambda x: x[1]):
+        if end_us is None or start >= end_us:
+            busy_us += end - start
+            end_us = end
+        elif end > end_us:
+            busy_us += end - end_us
+            end_us = end
+    return dict(fam, kernels=len(spans), device_busy_ms=busy_us / 1e3,
+                wall_ms=wall_ms, idle_share=1.0 - busy_us / 1e3 / wall_ms)
+
+
+def phase_train_step(c, params, rng, gpu):
+    """One gc b8 train step with the fused stack against the plain one:
+    the loss and every gradient, and the step times."""
+    import dataclasses
+    import torch
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.models.wavenet import loss_fn
+
+    B, n = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / c.sample_rate
+    freqs = torch.as_tensor(rng.uniform(100, 400, (B, 1)).astype("float32"),
+                            device="cuda")
+    audio = 0.5 * torch.sin(2 * 3.14159265 * freqs * t) + 0.05 * torch.as_tensor(
+        rng.randn(B, n).astype("float32"), device="cuda")
+    gc_ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                             device="cuda")
+    out = {}
+    for fused in (True, False):
+        cfg = dataclasses.replace(c, use_pallas_stack=fused)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, _ = loss_fn(leaves, cfg, audio, gc_ids)
+        loss.backward()
+        state = tl.train_state_from_params(params,
+                                           tl.make_optimizer("adam", 1e-3))
+        step = tl.make_train_step(cfg)
+        step(state, audio, gc_ids)                       # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, m = step(state, audio, gc_ids)
+            m["loss"].item()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[fused] = (loss.item(), {k: v.grad for k, v in leaves.items()},
+                      sorted(times)[1],
+                      device_breakdown(
+                          lambda: step(state, audio, gc_ids)[1]["loss"].item()))
+        del state, leaves
+        torch.cuda.empty_cache()
+    (lf, gf, ms_f, bd_f), (lp, gp, ms_p, bd_p) = out[True], out[False]
+    check(abs(lf - lp) <= 1e-5 * abs(lp),
+          f"train step: fused loss {lf} differs from plain {lp}")
+    worst = 0.0
+    for k in sorted(gp):
+        err, rel, ok = within(gf[k], gp[k], GRAD_RTOL, GRAD_ATOL)
+        check(ok, f"train step: gradient {k} differs (max |d| {err})")
+        worst = max(worst, rel)
+    emit({"phase": "train_step", "config": "gc", "batch": B,
+          "audio_samples": n, "loss_fused": lf, "loss_plain": lp,
+          "max_grad_err_over_max_ref": worst, "step_ms_fused": ms_f,
+          "step_ms_plain": ms_p,
+          "device_fused": bd_f or "not measured (no device events)",
+          "device_plain": bd_p or "not measured (no device events)",
+          "gpu": gpu})
+
+
+def synth_corpus(root: str, speakers: int = 109, utterances: int = 2,
+                 seconds: float = 2.0, sr: int = 16000) -> None:
+    """p<speaker>_<utt>.wav: seeded sines plus noise, 16-bit PCM."""
+    import numpy as np
+    from wavenet_torch.audio import write_wav
+    rng = np.random.RandomState(0)
+    t = np.arange(int(sr * seconds)) / sr
+    for spk in range(speakers):
+        for utt in range(utterances):
+            f0 = rng.uniform(80, 400)
+            x = (0.5 * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6))
+                 + 0.02 * rng.randn(t.size))
+            write_wav(os.path.join(root, f"p{spk}_{utt:03d}.wav"), x, sr)
+
+
+def run_cli(argv):
+    """``wavenet_torch.cli.train.main(argv)`` in this process (so that
+    the kernels' launch counts see it), its output echoed and returned."""
+    from wavenet_torch.cli import train as cli
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"train CLI exited {rc}")
+    return buf.getvalue()
+
+
+def phase_train_cli(c, gpu):
+    """The main path of training: the train CLI with --use_pallas_stack."""
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.serve import GenerationService
+    from wavenet_torch.utils.flops import train_step_flops
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_train_")
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    synth_corpus(corpus)
+    pfile = os.path.join(tmp, "wavenet_params.json")
+    with open(pfile, "w") as f:
+        json.dump(c.to_json_dict(), f)
+    logdir = os.path.join(tmp, "logdir")
+    argv = ["--data_dir", corpus, "--wavenet_params", pfile,
+            "--logdir", logdir, "--gc_channels", str(c.gc_channels),
+            "--use_pallas_stack", "--batch_size", str(TRAIN_BATCH),
+            "--sample_size", str(TRAIN_SAMPLES), "--checkpoint_every", "4",
+            "--steps_per_dispatch", "4", "--seed", "0",
+            "--device", "cuda"]
+
+    fs.forward.launches = fs.backward.launches = 0   # the main path
+    t0 = time.perf_counter()
+    out = run_cli(argv + ["--num_steps", str(TRAIN_STEPS)])
+    seconds = time.perf_counter() - t0
+    launches = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
+    lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in lines]
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss lines")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches["fwd"] == TRAIN_STEPS and launches["bwd"] == TRAIN_STEPS,
+          f"fused_stack launches {launches}, expected one of each per step")
+    for step in (4, TRAIN_STEPS):
+        check(os.path.isdir(os.path.join(logdir, f"ckpt-{step}")),
+              f"no ckpt-{step}")
+    # Steady-state rate: the last dispatch's steps (the first pays the
+    # start-up), from the CLI's own sec/step in its metrics.jsonl.
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        sec_per_step = [r["value"] for r in map(json.loads, f)
+                        if r["tag"] == "sec_per_step"][-1]
+    aps = TRAIN_BATCH * (c.receptive_field + TRAIN_SAMPLES) / \
+        c.sample_rate / sec_per_step
+    flops = train_step_flops(c, TRAIN_BATCH, TRAIN_SAMPLES)
+    emit({"phase": "train_cli", "config": "gc", "batch": TRAIN_BATCH,
+          "sample_size": TRAIN_SAMPLES, "steps": TRAIN_STEPS,
+          "losses": losses, "seconds": seconds,
+          "sec_per_step_last": sec_per_step, "audio_sec_per_s": aps,
+          "model_tflop_per_s": flops / sec_per_step / 1e12,
+          "fused_stack_fwd_launches": launches["fwd"],
+          "fused_stack_bwd_launches": launches["bwd"], "gpu": gpu})
+
+    out = run_cli(argv + ["--num_steps", str(RESUME_STEPS)])
+    check(f"Restored model from step {TRAIN_STEPS}" in out,
+          "the rerun did not restore from the last checkpoint")
+    check(f"step {RESUME_STEPS} - loss = " in out, "the rerun did not train")
+    launches = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
+    check(launches["fwd"] == RESUME_STEPS and launches["bwd"] == RESUME_STEPS,
+          f"fused_stack launches after the resume {launches}")
+    check(tl.latest_checkpoint_step(logdir) == RESUME_STEPS,
+          "no checkpoint of the resumed run")
+
+    service = GenerationService(
+        os.path.join(logdir, f"ckpt-{RESUME_STEPS}", "params.npz"), pfile,
+        c.gc_channels, c.gc_cardinality, warm_samples=0, device="cuda")
+    httpd, url = start_server(service)
+    try:
+        before = ks.decode.launches
+        body = post(url + "/generate", {"samples": 1000, "seed": 5,
+                                        "gc_id": 3, "format": "codes"})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    codes = body["codes"]
+    check(len(codes) == 1000 and 0 <= min(codes)
+          and max(codes) < c.quantization_channels,
+          "the trained model's /generate answer is malformed")
+    check(ks.decode.launches == before + 1, "/generate did not launch the "
+          "decode kernel")
+    emit({"phase": "train_resume_serve", "restored_from": TRAIN_STEPS,
+          "steps": RESUME_STEPS, "generated": len(codes),
+          "fused_stack_fwd_launches": launches["fwd"],
+          "fused_stack_bwd_launches": launches["bwd"], "gpu": gpu})
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -373,18 +724,33 @@ def main() -> int:
     from wavenet_torch.kernels import _build
     from wavenet_torch.models.config import gc_config, paper_config
 
-    # Phase 1: device and build.
+    # Phase 1: device and build (one nvcc per source, all at once).
     gpu = gpu_line()
     print(gpu, flush=True)
     t = time.perf_counter()
-    _build.load("sampler_decode")
-    info = _build.BUILD_INFO["sampler_decode"]
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln]
-    emit({"phase": "build", "kernel": "sampler_decode",
-          "seconds": time.perf_counter() - t, "nvcc_seconds": info["seconds"],
-          "ptxas": regs, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+    errors = {}
+
+    def build(name):
+        try:
+            _build.load(name)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors[name] = e
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in KERNELS]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for name in KERNELS:
+        if name in errors:
+            raise errors[name]
+        info = _build.BUILD_INFO[name]
+        regs = [ln.strip() for ln in info["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name,
+              "seconds": time.perf_counter() - t,
+              "nvcc_seconds": info["seconds"], "ptxas": regs,
+              "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # Phase 2: kernel against plain, teacher-forced.
     cfgs = {"paper": paper_config(), "gc": gc_config()}
@@ -396,10 +762,15 @@ def main() -> int:
     # Phase 3: sampling exactness.
     phase_sampling(cfgs["gc"], params["gc"], rng)
 
-    # Phase 4: serving, the main path.
+    # Phase 4: serving, the main path of generation.
     launches = phase_serving(cfgs, gpu)
     missing = [B for B in SERVE_BATCH_SIZES if not launches.get(B)]
     check(not missing, f"no kernel launch at batch sizes {missing}")
+
+    # Phase 5: training, the main path of training.
+    stack = phase_stack_kernels(cfgs, params, rng, gpu)
+    phase_train_step(cfgs["gc"], params["gc"], rng, gpu)
+    train_launches = phase_train_cli(cfgs["gc"], gpu)
 
     replaces = {1: "wavenet_tpu/kernels/sampler.py:234",
                 64: "wavenet_tpu/kernels/sampler.py:1308",
@@ -416,6 +787,20 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "unit": "per decode step", "gpu": gpu})
+    # library_ms is null: no single PyTorch call computes a dilated stack
+    # (or its VJP); cuDNN's dilated conv covers one layer's taps only.
+    for kind, line in (("fwd", 105), ("bwd", 276)):
+        m = stack[("gc", kind)]
+        kernels.append({
+            "name": f"fused_stack_{kind}", "route": "cuda",
+            "source": "wavenet_torch/csrc/fused_stack.cu",
+            "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
+            "config": m["config"], "batch": TRAIN_BATCH,
+            "launches": train_launches[kind],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "unit": "per call (one train step's stack)", "gpu": gpu})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,11 @@ from wavenet_torch.models.wavenet import init_params
 from wavenet_torch.params import (
     load_npz, params_from_numpy, params_to_numpy, save_npz)
 
+# One intra-op thread: pytest-xdist runs several workers side by side, and
+# each would otherwise start a thread per core whose spin-waits starve
+# the other workers.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("name", sorted(jconfig.CONFIGS))
 def test_configs_match_and_round_trip(name, tmp_path):

@@ -1,7 +1,8 @@
-"""The ``sampler_decode`` CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels (``sampler_decode``, ``fused_stack``) against
+their plain versions, on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA GPU:
-the kernel has no CPU mode. The file imports no JAX, so on a machine with
+the kernels have no CPU mode. The file imports no JAX, so on a machine with
 a GPU and without JAX it runs alone:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from wavenet_torch.kernels import fused_stack as fs
 from wavenet_torch.kernels import sampler as ks
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import embed_gc, init_params
@@ -117,3 +119,95 @@ def test_wrapper_rejects_bad_inputs(setup):
     with pytest.raises(ValueError, match="contiguous"):
         ks.decode(packed, c, carry.ring.transpose(0, 1).contiguous()
                   .transpose(0, 1), carry.causal, forced, 4, carry.t_abs, 0)
+
+
+# Fused stack: another summation order; gradients also rebuild each
+# layer's input by subtraction (the tolerances of the JAX kernel's tests).
+FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+
+
+def _stack_inputs(W, dilations, B, T, seed=0):
+    c = WaveNetConfig(dilations=dilations, residual_channels=W,
+                      dilation_channels=W, skip_channels=16,
+                      quantization_channels=32)
+    L = c.num_layers
+    rng = np.random.RandomState(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
+                               device="cuda")
+
+    args = (rn(B, T, W, scale=0.5), rn(L, 2 * W, 2 * W, scale=0.2),
+            rn(L, W, W, scale=0.2), rn(L, B, 2 * W, scale=0.1),
+            rn(L, 1, W, scale=0.1))
+    cot = (rn(B, T, W), rn(B, T, L * W))
+    return c, args, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,dilations,B,T", [
+    (8, (1, 2, 4, 8, 16), 2, 150),
+    (16, (1, 64, 2, 512), 3, 700),
+    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500),
+])
+def test_fused_stack_matches_reference(setup, W, dilations, B, T):
+    c, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    f0, b0 = fs.forward.launches, fs.backward.launches
+    y, fg, z = fs.forward(*args, c)
+    yr, fgr, zr = fs.fused_stack_forward_reference(*args, c)
+    torch.cuda.synchronize()
+    assert fs.forward.launches == f0 + 1
+    for got, ref in ((y, yr), (fg, fgr), (z, zr)):
+        torch.testing.assert_close(got, ref, **FWD_TOL)
+    w_fg, wd, _, bd = args[1:]
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    ref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    torch.cuda.synchronize()
+    assert fs.backward.launches == b0 + 1
+    for name, got, want in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                               grads, ref):
+        torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
+    # Fixed-order partial sums, no atomics: a second call is bitwise equal.
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_fused_stack_op_gradients(setup):
+    """The autograd op on the card against autograd of the plain forward
+    written out layer by layer."""
+    c, args, (dy, dz) = _stack_inputs(16, (1, 2, 4, 8, 16, 32), 2, 300, 1)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y, z = fs.fused_stack3(*leaves, c)
+    (y * dy).sum().add((z * dz).sum()).backward()
+    got = [t.grad for t in leaves]
+    ref_leaves = [a.clone().requires_grad_(True) for a in args]
+    x, w_fg, wd, add, bd = ref_leaves
+    D = c.dilation_channels
+    zs = []
+    for l, d in enumerate(c.dilations):
+        past = torch.nn.functional.pad(x, (0, 0, d, 0))[:, :x.shape[1]]
+        fg = torch.cat([past, x], -1) @ w_fg[l] + add[l][:, None]
+        zz = torch.tanh(fg[..., :D]) * torch.sigmoid(fg[..., D:])
+        x = x + (zz @ wd[l] + bd[l])
+        zs.append(zz)
+    (x * dy).sum().add((torch.cat(zs, -1) * dz).sum()).backward()
+    for g, r in zip(got, ref_leaves):
+        torch.testing.assert_close(g, r.grad, **GRAD_TOL)
+
+
+@pytest.mark.gpu
+def test_fused_stack_rejects_bad_inputs(setup):
+    c, args, (dy, dz) = _stack_inputs(8, (1, 2), 2, 64)
+    x, w_fg, wd, add, bd = args
+    with pytest.raises(ValueError, match="x"):
+        fs.forward(x.double(), w_fg, wd, add, bd, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.forward(x.transpose(0, 1).contiguous().transpose(0, 1), w_fg, wd,
+                   add, bd, c)
+    wide = WaveNetConfig(dilations=(1, 2), residual_channels=8,
+                         dilation_channels=16, skip_channels=16,
+                         quantization_channels=32)
+    with pytest.raises(NotImplementedError, match="R == D"):
+        fs.forward(x, w_fg, wd, add, bd, wide)

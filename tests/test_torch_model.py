@@ -17,6 +17,11 @@ from wavenet_torch.models.config import WaveNetConfig as TConfig
 from wavenet_torch.ops import conv as tconv
 from wavenet_torch.params import params_from_numpy
 
+# One intra-op thread: pytest-xdist runs several workers side by side, and
+# each would otherwise start a thread per core whose spin-waits starve
+# the other workers.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 

@@ -27,6 +27,11 @@ from wavenet_torch.models import wavenet as tw
 from wavenet_torch.models.config import WaveNetConfig as TConfig
 from wavenet_torch.params import params_from_numpy
 
+# One intra-op thread: pytest-xdist runs several workers side by side, and
+# each would otherwise start a thread per core whose spin-waits starve
+# the other workers.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 SMALL = dict(dilations=(1, 2, 4, 8), residual_channels=4,

@@ -22,6 +22,11 @@ from wavenet_torch.models.wavenet import init_params
 from wavenet_torch.params import save_npz
 from wavenet_torch.serve import GenerationService, make_handler
 
+# One intra-op thread: pytest-xdist runs several workers side by side, and
+# each would otherwise start a thread per core whose spin-waits starve
+# the other workers.
+torch.set_num_threads(1)
+
 TINY = dict(dilations=(1, 2, 4), residual_channels=4, dilation_channels=4,
             skip_channels=8, quantization_channels=32, sample_rate=2000)
 

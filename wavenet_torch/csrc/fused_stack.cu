@@ -1,0 +1,679 @@
+// fused_stack: the whole dilated stack of a WaveNet training step, forward
+// and backward, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU (Pallas) kernel pair of the JAX package
+//   wavenet_tpu/kernels/fused_stack3.py:105  _fwd_kernel
+//   wavenet_tpu/kernels/fused_stack3.py:276  _bwd_kernel
+// tied together there by the custom VJP ``fused_stack3``.
+//
+// For each layer l with dilation d, over all rows (b, t):
+//   fg = [x(t-d) | x(t)] @ w_fg[l] + add[l, b]      (x(t-d) = 0 for t < d)
+//   z  = tanh(fg_f) * sigmoid(fg_g)
+//   x' = x + (z @ wd[l] + bd[l])
+// The forward emits y (the last layer's output), the preactivations
+// fg [B, T, L*2D] and the gate outputs z [B, T, L*D] (no lane padding: the
+// TPU kernel's 128-lane records are a TPU layout). The backward is the
+// map's VJP from (y, dy, fg, dz), recompute-free like the TPU kernel: each
+// layer's input is rebuilt by subtraction, x_l = x_{l+1} - z_l @ wd_l -
+// bd_l, and z_l from the saved fg_l.
+//
+// Design. Layer l+1's past tap reads rows of layer l's output that other
+// blocks write, so every layer is its own launch (ping-pong residual
+// buffers in device memory): L launches forward, 2L + 1 backward. A block
+// owns 64 consecutive time steps of one batch row, so a tap at t - d never
+// reaches into another batch row. The backward splits each layer in two
+// launches: (A) the gate gradient da, the rebuilt input x_l and the
+// partial sums of dwd, dbd and dadd; (B) dx_l, whose past-tap term
+// da(t + d) @ w_fg[l, :R]^T is a gather from the finished da of (A), and
+// the partial sums of dw_fg. Weight gradients reduce over B*T rows: each
+// block of (A) and (B) walks a fixed chunk of tiles and writes its own
+// partial sums; one last launch adds the partials in a fixed order. No
+// float atomics, so two calls on the same inputs give bitwise-equal
+// gradients.
+//
+// What bounds it. At the gc config (L=30, R=D=32) and b8 x 19,070 rows the
+// forward does 4.7e10 FP32 operations and moves ~1.8 GB, the backward
+// 1.0e11 and ~1.8 GB: both are bound by FP32 operations on the CUDA cores
+// (67 TFLOP/s), not by bytes. This first version is simple FP32 FMA
+// register tiling from shared memory (no tensor cores: f32 parity mode
+// allows no TF32); wgmma and TMA come later.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int TM = 64;    // rows (time steps of one batch row) per tile
+constexpr int NT = 256;   // threads per block
+
+// Thread map of a [TM, N] output tile: NG column groups (columns
+// interleaved with stride NG) times RG row groups (rows interleaved with
+// stride RG); each thread owns RM rows x CN columns.
+template <int N>
+struct TileMap {
+  static constexpr int NG = N < 16 ? N : 16;
+  static constexpr int CN = N / NG;
+  static constexpr int RG = NT / NG;
+  static constexpr int RM = TM / RG;
+  static_assert(N % NG == 0 && NT % NG == 0 && TM % RG == 0, "tile map");
+};
+
+// Thread map of a [K, N] weight-gradient block: thread tid owns column
+// tid % N of rows tid / N + q * (NT / N), q < Q.
+template <int K, int N>
+struct GradMap {
+  static_assert(NT % N == 0, "grad map");
+  static constexpr int P = NT / N;
+  static constexpr int Q = (K + P - 1) / P;
+};
+
+__device__ __forceinline__ float sigmoidf(float g) {
+  return 1.f / (1.f + expf(-g));
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one layer over all rows. grid (tiles of T, B).
+// ---------------------------------------------------------------------------
+
+template <int R, int D>
+__global__ void __launch_bounds__(NT) fwd_layer_kernel(
+    const float* __restrict__ x_in, float* __restrict__ x_out,
+    float* __restrict__ fg_out, float* __restrict__ z_out,
+    const float* __restrict__ w_fg, const float* __restrict__ wd,
+    const float* __restrict__ add, const float* __restrict__ bd,
+    int T, int d, int l, int L) {
+  constexpr int K1 = 2 * R, N1 = 2 * D;
+  constexpr int CS = K1 + 1;   // padded row strides (no bank conflicts)
+  constexpr int ZS = D + 1;
+  extern __shared__ float smem[];
+  float* s_w = smem;               // [K1][N1]  w_fg[l]
+  float* s_wd = s_w + K1 * N1;     // [D][R]    wd[l]
+  float* s_cat = s_wd + D * R;     // [TM][CS]  [x(t-d) | x(t)]
+  float* s_z = s_cat + TM * CS;    // [TM][ZS]
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TM;
+  const size_t base = (size_t)b * T;
+
+  for (int i = tid; i < K1 * N1; i += NT) s_w[i] = w_fg[i];
+  for (int i = tid; i < D * R; i += NT) s_wd[i] = wd[i];
+  for (int i = tid; i < TM * R; i += NT) {
+    const int r = i / R, c = i % R, t = t0 + r;
+    float cur = 0.f, past = 0.f;
+    if (t < T) {
+      cur = x_in[(base + t) * R + c];
+      if (t >= d) past = x_in[(base + t - d) * R + c];
+    }
+    s_cat[r * CS + c] = past;
+    s_cat[r * CS + R + c] = cur;
+  }
+  __syncthreads();
+
+  // fg = [past | cur] @ w_fg + add[b]: each thread owns filter column j
+  // and its gate column D + j, for RM rows.
+  using M1 = TileMap<D>;
+  {
+    const int cg = tid % M1::NG, rg = tid / M1::NG;
+    float af[M1::RM][M1::CN], ag[M1::RM][M1::CN];
+#pragma unroll
+    for (int i = 0; i < M1::RM; ++i)
+#pragma unroll
+      for (int c = 0; c < M1::CN; ++c) af[i][c] = ag[i][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K1; ++k) {
+      float a[M1::RM];
+#pragma unroll
+      for (int i = 0; i < M1::RM; ++i) a[i] = s_cat[(rg + i * M1::RG) * CS + k];
+#pragma unroll
+      for (int c = 0; c < M1::CN; ++c) {
+        const float wf = s_w[k * N1 + cg + c * M1::NG];
+        const float wg = s_w[k * N1 + D + cg + c * M1::NG];
+#pragma unroll
+        for (int i = 0; i < M1::RM; ++i) {
+          af[i][c] = fmaf(a[i], wf, af[i][c]);
+          ag[i][c] = fmaf(a[i], wg, ag[i][c]);
+        }
+      }
+    }
+    const float* add_b = add + (size_t)b * N1;
+#pragma unroll
+    for (int i = 0; i < M1::RM; ++i) {
+      const int r = rg + i * M1::RG, t = t0 + r;
+#pragma unroll
+      for (int c = 0; c < M1::CN; ++c) {
+        const int j = cg + c * M1::NG;
+        const float f = af[i][c] + add_b[j];
+        const float g = ag[i][c] + add_b[D + j];
+        const float zz = tanhf(f) * sigmoidf(g);
+        s_z[r * ZS + j] = zz;
+        if (t < T) {
+          const size_t row = base + t;
+          fg_out[row * (size_t)(L * N1) + l * N1 + j] = f;
+          fg_out[row * (size_t)(L * N1) + l * N1 + D + j] = g;
+          z_out[row * (size_t)(L * D) + l * D + j] = zz;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // x' = x + (z @ wd + bd)
+  using M2 = TileMap<R>;
+  {
+    const int cg = tid % M2::NG, rg = tid / M2::NG;
+    float acc[M2::RM][M2::CN];
+#pragma unroll
+    for (int i = 0; i < M2::RM; ++i)
+#pragma unroll
+      for (int c = 0; c < M2::CN; ++c) acc[i][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) {
+      float a[M2::RM];
+#pragma unroll
+      for (int i = 0; i < M2::RM; ++i) a[i] = s_z[(rg + i * M2::RG) * ZS + k];
+#pragma unroll
+      for (int c = 0; c < M2::CN; ++c) {
+        const float w = s_wd[k * R + cg + c * M2::NG];
+#pragma unroll
+        for (int i = 0; i < M2::RM; ++i) acc[i][c] = fmaf(a[i], w, acc[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < M2::RM; ++i) {
+      const int r = rg + i * M2::RG, t = t0 + r;
+      if (t >= T) continue;
+#pragma unroll
+      for (int c = 0; c < M2::CN; ++c) {
+        const int col = cg + c * M2::NG;
+        x_out[(base + t) * R + col] =
+            s_cat[r * CS + R + col] + (acc[i][c] + bd[col]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward (A): da, the rebuilt layer input, partial dwd / dbd / dadd.
+// grid (chunks of tiles, B); each block walks tiles_per_chunk tiles.
+// ---------------------------------------------------------------------------
+
+template <int R, int D>
+__global__ void __launch_bounds__(NT) bwd_da_kernel(
+    const float* __restrict__ x_next, const float* __restrict__ dx_next,
+    const float* __restrict__ fg, const float* __restrict__ dz,
+    const float* __restrict__ wd, const float* __restrict__ bd,
+    float* __restrict__ x_cur, float* __restrict__ da_out,
+    float* __restrict__ part_a, float* __restrict__ part_add,
+    int T, int l, int L, int tiles_per_chunk, int nchunk) {
+  constexpr int N1 = 2 * D;
+  constexpr int WS = R + 1, RS = R + 1, DS = D + 1, AS = N1 + 1;
+  extern __shared__ float smem[];
+  float* s_wd = smem;              // [D][WS]   wd[l]
+  float* s_dc = s_wd + D * WS;     // [TM][RS]  dx_{l+1}
+  float* s_t = s_dc + TM * RS;     // [TM][DS]  tanh(f)
+  float* s_s = s_t + TM * DS;      // [TM][DS]  sigmoid(g)
+  float* s_z = s_s + TM * DS;      // [TM][DS]  z
+  float* s_da = s_z + TM * DS;     // [TM][AS]  da
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * T;
+  const size_t fg_stride = (size_t)L * N1, z_stride = (size_t)L * D;
+
+  for (int i = tid; i < D * R; i += NT) s_wd[(i / R) * WS + i % R] = wd[i];
+
+  using GW = GradMap<D, R>;
+  float p_wd[GW::Q];
+#pragma unroll
+  for (int q = 0; q < GW::Q; ++q) p_wd[q] = 0.f;
+  float p_bd = 0.f, p_add = 0.f;
+
+  for (int tile = 0; tile < tiles_per_chunk; ++tile) {
+    const int t0 = (chunk * tiles_per_chunk + tile) * TM;
+    if (t0 >= T) break;
+    __syncthreads();   // the previous tile's shared reads are done
+    for (int i = tid; i < TM * R; i += NT) {
+      const int r = i / R, c = i % R, t = t0 + r;
+      s_dc[r * RS + c] = t < T ? dx_next[(base + t) * R + c] : 0.f;
+    }
+    for (int i = tid; i < TM * D; i += NT) {
+      const int r = i / D, j = i % D, t = t0 + r;
+      float f = 0.f, g = 0.f;
+      if (t < T) {
+        const float* fr = fg + (base + t) * fg_stride + l * N1;
+        f = fr[j];
+        g = fr[D + j];
+      }
+      const float th = tanhf(f), sg = sigmoidf(g);
+      s_t[r * DS + j] = th;
+      s_s[r * DS + j] = sg;
+      s_z[r * DS + j] = th * sg;   // 0 on rows past T (f = 0)
+    }
+    __syncthreads();
+
+    // dz_tot = dz + dx_{l+1} @ wd^T; da = dz_tot * (d z / d fg).
+    using M1 = TileMap<D>;
+    {
+      const int cg = tid % M1::NG, rg = tid / M1::NG;
+      float acc[M1::RM][M1::CN];
+#pragma unroll
+      for (int i = 0; i < M1::RM; ++i)
+#pragma unroll
+        for (int c = 0; c < M1::CN; ++c) acc[i][c] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < R; ++k) {
+        float a[M1::RM];
+#pragma unroll
+        for (int i = 0; i < M1::RM; ++i) a[i] = s_dc[(rg + i * M1::RG) * RS + k];
+#pragma unroll
+        for (int c = 0; c < M1::CN; ++c) {
+          const float w = s_wd[(cg + c * M1::NG) * WS + k];
+#pragma unroll
+          for (int i = 0; i < M1::RM; ++i) acc[i][c] = fmaf(a[i], w, acc[i][c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M1::RM; ++i) {
+        const int r = rg + i * M1::RG, t = t0 + r;
+#pragma unroll
+        for (int c = 0; c < M1::CN; ++c) {
+          const int j = cg + c * M1::NG;
+          const float dzt =
+              (t < T ? dz[(base + t) * z_stride + l * D + j] : 0.f) + acc[i][c];
+          const float th = s_t[r * DS + j], sg = s_s[r * DS + j];
+          const float daf = dzt * sg * (1.f - th * th);
+          const float dag = dzt * th * sg * (1.f - sg);
+          s_da[r * AS + j] = daf;
+          s_da[r * AS + D + j] = dag;
+          if (t < T) {
+            da_out[(base + t) * N1 + j] = daf;
+            da_out[(base + t) * N1 + D + j] = dag;
+          }
+        }
+      }
+    }
+
+    // x_l = x_{l+1} - z @ wd - bd
+    using M2 = TileMap<R>;
+    {
+      const int cg = tid % M2::NG, rg = tid / M2::NG;
+      float acc[M2::RM][M2::CN];
+#pragma unroll
+      for (int i = 0; i < M2::RM; ++i)
+#pragma unroll
+        for (int c = 0; c < M2::CN; ++c) acc[i][c] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < D; ++k) {
+        float a[M2::RM];
+#pragma unroll
+        for (int i = 0; i < M2::RM; ++i) a[i] = s_z[(rg + i * M2::RG) * DS + k];
+#pragma unroll
+        for (int c = 0; c < M2::CN; ++c) {
+          const float w = s_wd[k * WS + cg + c * M2::NG];
+#pragma unroll
+          for (int i = 0; i < M2::RM; ++i) acc[i][c] = fmaf(a[i], w, acc[i][c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M2::RM; ++i) {
+        const int r = rg + i * M2::RG, t = t0 + r;
+        if (t >= T) continue;
+#pragma unroll
+        for (int c = 0; c < M2::CN; ++c) {
+          const int col = cg + c * M2::NG;
+          const size_t o = (base + t) * R + col;
+          x_cur[o] = (x_next[o] - acc[i][c]) - bd[col];
+        }
+      }
+    }
+    __syncthreads();
+
+    // Partial sums over this tile's rows, in a fixed order.
+    {
+      const int j = tid % R;
+#pragma unroll
+      for (int q = 0; q < GW::Q; ++q) {
+        const int i = tid / R + q * GW::P;
+        if (i < D) {
+          float s = p_wd[q];
+          for (int r = 0; r < TM; ++r) s = fmaf(s_z[r * DS + i], s_dc[r * RS + j], s);
+          p_wd[q] = s;
+        }
+      }
+      if (tid < R)
+        for (int r = 0; r < TM; ++r) p_bd += s_dc[r * RS + tid];
+      if (tid < N1)
+        for (int r = 0; r < TM; ++r) p_add += s_da[r * AS + tid];
+    }
+  }
+
+  const size_t cta = (size_t)b * nchunk + chunk;
+  float* pa = part_a + cta * (D * R + R);
+  {
+    const int j = tid % R;
+#pragma unroll
+    for (int q = 0; q < GW::Q; ++q) {
+      const int i = tid / R + q * GW::P;
+      if (i < D) pa[i * R + j] = p_wd[q];
+    }
+  }
+  if (tid < R) pa[D * R + tid] = p_bd;
+  if (tid < N1) part_add[cta * N1 + tid] = p_add;
+}
+
+// ---------------------------------------------------------------------------
+// Backward (B): dx_l and partial dw_fg. Same grid as (A).
+// ---------------------------------------------------------------------------
+
+template <int R, int D>
+__global__ void __launch_bounds__(NT) bwd_dx_kernel(
+    const float* __restrict__ x_cur, const float* __restrict__ dx_next,
+    const float* __restrict__ da, const float* __restrict__ w_fg,
+    float* __restrict__ dx_cur, float* __restrict__ part_w,
+    int T, int d, int tiles_per_chunk, int nchunk) {
+  constexpr int K1 = 2 * R, N1 = 2 * D;
+  constexpr int WS = N1 + 1, AS = N1 + 1, CS = K1 + 1;
+  extern __shared__ float smem[];
+  float* s_w = smem;               // [K1][WS]  w_fg[l]
+  float* s_da = s_w + K1 * WS;     // [TM][AS]  da(t)
+  float* s_dan = s_da + TM * AS;   // [TM][AS]  da(t + d)
+  float* s_cat = s_dan + TM * AS;  // [TM][CS]  [x_l(t-d) | x_l(t)]
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * T;
+
+  for (int i = tid; i < K1 * N1; i += NT) s_w[(i / N1) * WS + i % N1] = w_fg[i];
+
+  // dw_fg partial sums: a 16 x 16 thread grid, each thread an MI x MJ
+  // register tile (rows and columns interleaved by 16).
+  constexpr int MI = K1 / 16, MJ = N1 / 16;
+  static_assert(K1 % 16 == 0 && N1 % 16 == 0 && NT == 256, "dw tile");
+  const int ti = tid / 16, tj = tid % 16;
+  float p_w[MI][MJ];
+#pragma unroll
+  for (int u = 0; u < MI; ++u)
+#pragma unroll
+    for (int v = 0; v < MJ; ++v) p_w[u][v] = 0.f;
+
+  for (int tile = 0; tile < tiles_per_chunk; ++tile) {
+    const int t0 = (chunk * tiles_per_chunk + tile) * TM;
+    if (t0 >= T) break;
+    __syncthreads();
+    for (int i = tid; i < TM * N1; i += NT) {
+      const int r = i / N1, j = i % N1, t = t0 + r;
+      s_da[r * AS + j] = t < T ? da[(base + t) * N1 + j] : 0.f;
+      s_dan[r * AS + j] = t + d < T ? da[(base + t + d) * N1 + j] : 0.f;
+    }
+    for (int i = tid; i < TM * R; i += NT) {
+      const int r = i / R, c = i % R, t = t0 + r;
+      float cur = 0.f, past = 0.f;
+      if (t < T) {
+        cur = x_cur[(base + t) * R + c];
+        if (t >= d) past = x_cur[(base + t - d) * R + c];
+      }
+      s_cat[r * CS + c] = past;
+      s_cat[r * CS + R + c] = cur;
+    }
+    __syncthreads();
+
+    // dx_l = dx_{l+1} + da(t) @ w_fg[R:]^T + da(t + d) @ w_fg[:R]^T
+    using M = TileMap<R>;
+    {
+      const int cg = tid % M::NG, rg = tid / M::NG;
+      float ac[M::RM][M::CN], ap[M::RM][M::CN];
+#pragma unroll
+      for (int i = 0; i < M::RM; ++i)
+#pragma unroll
+        for (int c = 0; c < M::CN; ++c) ac[i][c] = ap[i][c] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < N1; ++k) {
+        float a[M::RM], an[M::RM];
+#pragma unroll
+        for (int i = 0; i < M::RM; ++i) {
+          a[i] = s_da[(rg + i * M::RG) * AS + k];
+          an[i] = s_dan[(rg + i * M::RG) * AS + k];
+        }
+#pragma unroll
+        for (int c = 0; c < M::CN; ++c) {
+          const int col = cg + c * M::NG;
+          const float wc = s_w[(R + col) * WS + k];
+          const float wp = s_w[col * WS + k];
+#pragma unroll
+          for (int i = 0; i < M::RM; ++i) {
+            ac[i][c] = fmaf(a[i], wc, ac[i][c]);
+            ap[i][c] = fmaf(an[i], wp, ap[i][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M::RM; ++i) {
+        const int r = rg + i * M::RG, t = t0 + r;
+        if (t >= T) continue;
+#pragma unroll
+        for (int c = 0; c < M::CN; ++c) {
+          const size_t o = (base + t) * R + cg + c * M::NG;
+          dx_cur[o] = (dx_next[o] + ac[i][c]) + ap[i][c];
+        }
+      }
+    }
+
+    // dw_fg += [x_l(t-d) | x_l(t)]^T @ da(t)
+    for (int r = 0; r < TM; ++r) {
+      float a[MI], g[MJ];
+#pragma unroll
+      for (int u = 0; u < MI; ++u) a[u] = s_cat[r * CS + ti + 16 * u];
+#pragma unroll
+      for (int v = 0; v < MJ; ++v) g[v] = s_da[r * AS + tj + 16 * v];
+#pragma unroll
+      for (int u = 0; u < MI; ++u)
+#pragma unroll
+        for (int v = 0; v < MJ; ++v) p_w[u][v] = fmaf(a[u], g[v], p_w[u][v]);
+    }
+  }
+
+  float* pw = part_w + ((size_t)b * nchunk + chunk) * (K1 * N1);
+#pragma unroll
+  for (int u = 0; u < MI; ++u)
+#pragma unroll
+    for (int v = 0; v < MJ; ++v) pw[(ti + 16 * u) * N1 + tj + 16 * v] = p_w[u][v];
+}
+
+// Adds the blocks' partial sums in block order. grid (outputs / NT, L).
+__global__ void __launch_bounds__(NT) bwd_reduce_kernel(
+    const float* __restrict__ part_w, const float* __restrict__ part_a,
+    const float* __restrict__ part_add, float* __restrict__ dw_fg,
+    float* __restrict__ dwd, float* __restrict__ dbd,
+    float* __restrict__ dadd, int B, int nchunk, int R, int D) {
+  const int l = blockIdx.y;
+  int e = blockIdx.x * NT + threadIdx.x;
+  const int ncta = B * nchunk;
+  const int nw = 4 * R * D, na = D * R + R, nadd = B * 2 * D;
+  if (e < nw) {
+    const float* p = part_w + (size_t)l * ncta * nw + e;
+    float s = 0.f;
+    for (int k = 0; k < ncta; ++k) s += p[(size_t)k * nw];
+    dw_fg[(size_t)l * nw + e] = s;
+    return;
+  }
+  e -= nw;
+  if (e < na) {
+    const float* p = part_a + (size_t)l * ncta * na + e;
+    float s = 0.f;
+    for (int k = 0; k < ncta; ++k) s += p[(size_t)k * na];
+    if (e < D * R) dwd[(size_t)l * D * R + e] = s;
+    else dbd[(size_t)l * R + e - D * R] = s;
+    return;
+  }
+  e -= na;
+  if (e < nadd) {
+    const int bb = e / (2 * D), j = e % (2 * D);
+    const float* p = part_add + ((size_t)l * ncta + (size_t)bb * nchunk) * (2 * D) + j;
+    float s = 0.f;
+    for (int k = 0; k < nchunk; ++k) s += p[(size_t)k * 2 * D];
+    dadd[(size_t)l * nadd + e] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+struct Tiling {
+  int tiles_per_chunk, nchunk;
+};
+
+// The backward's grid: at most three blocks per SM (launch (B)'s shared
+// memory fits three), so every block runs in the first wave; each walks a
+// fixed chunk of consecutive tiles of one batch row.
+Tiling backward_tiling(int B, int T) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ntiles = (T + TM - 1) / TM;
+  int target = 3 * sms / B;
+  if (target < 1) target = 1;
+  const int tpc = (ntiles + target - 1) / target;
+  return {tpc, (ntiles + tpc - 1) / tpc};
+}
+
+template <int R, int D>
+int forward_impl(const float* x, const float* w_fg, const float* wd,
+                 const float* add, const float* bd, const int* dil, float* y,
+                 float* fg, float* z, float* xbuf, int B, int T, int L,
+                 cudaStream_t st) {
+  const int smem =
+      (int)sizeof(float) * (4 * R * D + D * R + TM * (2 * R + 1) + TM * (D + 1));
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd_layer_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T + TM - 1) / TM, B);
+  const size_t btr = (size_t)B * T * R;
+  for (int l = 0; l < L; ++l) {
+    const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
+    float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
+    fwd_layer_kernel<R, D><<<grid, NT, smem, st>>>(
+        in, out, fg, z, w_fg + (size_t)l * 4 * R * D, wd + (size_t)l * D * R,
+        add + (size_t)l * B * 2 * D, bd + (size_t)l * R, T, dil[l], l, L);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+template <int R, int D>
+int backward_impl(const float* y, const float* dy, const float* fg,
+                  const float* dz, const float* w_fg, const float* wd,
+                  const float* bd, const int* dil, float* dx, float* dw_fg,
+                  float* dwd, float* dadd, float* dbd, float* scratch, int B,
+                  int T, int L, cudaStream_t st) {
+  const Tiling tl = backward_tiling(B, T);
+  const size_t ncta = (size_t)B * tl.nchunk;
+  const size_t btr = (size_t)B * T * R;
+  float* xb = scratch;                          // 2 x [B, T, R]
+  float* dxb = xb + 2 * btr;                    // 2 x [B, T, R]
+  float* da = dxb + 2 * btr;                    // [B, T, 2D]
+  float* pw = da + (size_t)B * T * 2 * D;       // [L, ncta, 2R, 2D]
+  float* pa = pw + (size_t)L * ncta * 4 * R * D;  // [L, ncta, D*R + R]
+  float* padd = pa + (size_t)L * ncta * (D * R + R);  // [L, ncta, 2D]
+
+  const int smem_a = (int)sizeof(float) *
+                     (D * (R + 1) + TM * (R + 1) + 3 * TM * (D + 1) + TM * (2 * D + 1));
+  const int smem_b = (int)sizeof(float) *
+                     (2 * R * (2 * D + 1) + 2 * TM * (2 * D + 1) + TM * (2 * R + 1));
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_da_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
+      bwd_dx_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+  if (e != cudaSuccess) return (int)e;
+
+  const dim3 grid(tl.nchunk, B);
+  for (int l = L - 1; l >= 0; --l) {
+    const float* x_next = l == L - 1 ? y : xb + (size_t)((l + 1) & 1) * btr;
+    float* x_cur = xb + (size_t)(l & 1) * btr;
+    const float* dx_next = l == L - 1 ? dy : dxb + (size_t)((l + 1) & 1) * btr;
+    float* dx_cur = l == 0 ? dx : dxb + (size_t)(l & 1) * btr;
+    bwd_da_kernel<R, D><<<grid, NT, smem_a, st>>>(
+        x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R,
+        x_cur, da, pa + (size_t)l * ncta * (D * R + R),
+        padd + (size_t)l * ncta * 2 * D, T, l, L, tl.tiles_per_chunk,
+        tl.nchunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    bwd_dx_kernel<R, D><<<grid, NT, smem_b, st>>>(
+        x_cur, dx_next, da, w_fg + (size_t)l * 4 * R * D, dx_cur,
+        pw + (size_t)l * ncta * 4 * R * D, T, dil[l], tl.tiles_per_chunk,
+        tl.nchunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int per_layer = 4 * R * D + D * R + R + B * 2 * D;
+  bwd_reduce_kernel<<<dim3((per_layer + NT - 1) / NT, L), NT, 0, st>>>(
+      pw, pa, padd, dw_fg, dwd, dbd, dadd, B, tl.nchunk, R, D);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kUnsupportedWidth = 1000;
+
+}  // namespace
+
+extern "C" {
+
+// Widths the kernels are built for: R == D in {8, 16, 32}.
+int fused_stack_supports_width(int R, int D) {
+  return R == D && (R == 8 || R == 16 || R == 32);
+}
+
+// Floats of scratch device memory the backward needs.
+long long fused_stack_bwd_scratch_floats(int B, int T, int L, int R, int D) {
+  const Tiling tl = backward_tiling(B, T);
+  const long long bt = (long long)B * T, ncta = (long long)B * tl.nchunk;
+  return 4 * bt * R + bt * 2 * D +
+         (long long)L * ncta * (4LL * R * D + D * R + R + 2 * D);
+}
+
+// Forward launches (L of them). x [B,T,R]; w_fg [L,2R,2D]; wd [L,D,R];
+// add [L,B,2D]; bd [L,R]; dil: L dilations (host memory); outputs y
+// [B,T,R], fg [B,T,L*2D], z [B,T,L*D]; xbuf: 2*B*T*R floats of scratch.
+// Returns 0 or a CUDA error code.
+int fused_stack_fwd_f32(const float* x, const float* w_fg, const float* wd,
+                        const float* add, const float* bd, const int* dil,
+                        float* y, float* fg, float* z, float* xbuf, int B,
+                        int T, int L, int R, int D, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R == 32 && D == 32)
+    return forward_impl<32, 32>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
+  if (R == 16 && D == 16)
+    return forward_impl<16, 16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
+  if (R == 8 && D == 8)
+    return forward_impl<8, 8>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
+  return kUnsupportedWidth;
+}
+
+// Backward launches (2L + 1 of them). y, dy [B,T,R]; fg [B,T,L*2D];
+// dz [B,T,L*D]; weights as in the forward; outputs dx [B,T,R], dw_fg
+// [L,2R,2D], dwd [L,D,R], dadd [L,B,2D], dbd [L,R]; scratch as sized by
+// fused_stack_bwd_scratch_floats. Returns 0 or a CUDA error code.
+int fused_stack_bwd_f32(const float* y, const float* dy, const float* fg,
+                        const float* dz, const float* w_fg, const float* wd,
+                        const float* bd, const int* dil, float* dx,
+                        float* dw_fg, float* dwd, float* dadd, float* dbd,
+                        float* scratch, int B, int T, int L, int R, int D,
+                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R == 32 && D == 32)
+    return backward_impl<32, 32>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                                 dwd, dadd, dbd, scratch, B, T, L, st);
+  if (R == 16 && D == 16)
+    return backward_impl<16, 16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                                 dwd, dadd, dbd, scratch, B, T, L, st);
+  if (R == 8 && D == 8)
+    return backward_impl<8, 8>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                               dwd, dadd, dbd, scratch, B, T, L, st);
+  return kUnsupportedWidth;
+}
+
+}  // extern "C"

@@ -5,7 +5,8 @@ use with ``nvcc`` for ``sm_90a`` into a shared library, then loaded with
 ``ctypes``. The library's file name carries a hash of the source and the
 flags, so a changed source is rebuilt and an unchanged one is reused.
 The build directory is ``wavenet_torch/build/`` unless the environment
-variable ``WAVENET_TORCH_BUILD_DIR`` names another.
+variable ``WAVENET_TORCH_BUILD_DIR`` names another. Different sources
+build in parallel when loaded from several threads.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                      # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}   # one build at a time per source
 #: name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
 BUILD_INFO: Dict[str, dict] = {}
 
@@ -50,6 +52,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC, name + ".cu")

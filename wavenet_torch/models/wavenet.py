@@ -1,4 +1,4 @@
-"""Functional WaveNet, inference half: parameter init and forward pass.
+"""Functional WaveNet: parameter init, forward pass and training loss.
 
 Counterpart of ``wavenet_tpu/models/wavenet.py``. Parameters are the same
 flat dict of layer-stacked tensors (keys and shapes below), so one numpy
@@ -19,8 +19,10 @@ dict of weights runs in both packages (see ``wavenet_torch.params``).
 
 Every layer keeps the full time axis (causal left padding), and the skip
 projections are deferred to one matmul over all layers' gate outputs, as
-in the JAX package. The loss, LC (and its refinement), remat and the
-fused training-stack kernel are queued in ROADMAP.md.
+in the JAX package. With ``use_pallas_stack`` (the JAX flag's name) the
+dilated stack runs through the hand-written CUDA kernel pair of
+``kernels/fused_stack.py``. LC (and its refinement) is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from wavenet_torch import resolve_device
+from wavenet_torch.audio import mu_law_encode
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.ops.conv import causal_conv_padded, conv1x1
 
@@ -131,6 +135,28 @@ def embed_gc(params: Params, config: WaveNetConfig,
     return params["gc_embedding"][gc_ids.long()]
 
 
+class _EmbedRows(torch.autograd.Function):
+    """Row gather whose backward is one_hot(codes)^T @ dout, as the JAX
+    package's ``_embed_rows``: a matmul, deterministic on the card (the
+    gather's own backward adds rows with atomics there)."""
+
+    @staticmethod
+    def forward(ctx, table, codes):
+        ctx.save_for_backward(codes)
+        ctx.rows = table.shape[0]
+        return F.embedding(codes, table)
+
+    @staticmethod
+    def backward(ctx, dout):
+        codes, = ctx.saved_tensors
+        oh = F.one_hot(codes, ctx.rows).to(dout.dtype)
+        return torch.einsum("btq,btr->qr", oh, dout), None
+
+
+def _embed_rows(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    return _EmbedRows.apply(table, codes.long())
+
+
 def _check_supported(c: WaveNetConfig, lc) -> None:
     if c.compute_dtype != "float32":
         raise NotImplementedError(
@@ -139,10 +165,6 @@ def _check_supported(c: WaveNetConfig, lc) -> None:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "'LC in sampler_decode')")
-    if c.use_pallas_stack:
-        raise NotImplementedError(
-            "the fused training-stack kernel is not ported yet "
-            "(ROADMAP.md queue 2, kernel 5)")
 
 
 def forward(params: Params, config: WaveNetConfig,
@@ -169,13 +191,16 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
                    gc_embedding: Optional[torch.Tensor], head_from: int = 0,
                    collect_layer_inputs: Optional[Tuple[int, ...]] = None):
     """Gated dilation layers + deferred skip head + postprocessing."""
-    L, D, S = c.num_layers, c.dilation_channels, c.skip_channels
-    gate_outs = []
-    layer_inputs = []
-    for i, dilation in enumerate(c.dilations):
-        if collect_layer_inputs is not None:
-            keep = collect_layer_inputs[i]
-            layer_inputs.append(current[:, current.shape[1] - keep:])
+    if c.use_pallas_stack and collect_layer_inputs is None:
+        if c.filter_width != 2:
+            raise NotImplementedError(
+                "use_pallas_stack requires filter_width=2")
+        return _dilated_stack_pallas(params, c, current, gc_embedding,
+                                     head_from)
+    D = c.dilation_channels
+
+    def layer_fn(current, i):
+        dilation = c.dilations[i]
         w_f, w_g = params["filter"][i], params["gate"][i]
         if c.merged_filter_gate:
             conv_fg = causal_conv_padded(current, torch.cat([w_f, w_g], -1),
@@ -196,14 +221,33 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
         transformed = conv1x1(out, params["dense"][i])
         if c.use_biases:
             transformed = transformed + params["dense_bias"][i]
-        current = current + transformed
+        return current + transformed, out
+
+    gate_outs = []
+    layer_inputs = []
+    for i in range(c.num_layers):
+        if collect_layer_inputs is not None:
+            keep = collect_layer_inputs[i]
+            layer_inputs.append(current[:, current.shape[1] - keep:])
+        if c.remat and torch.is_grad_enabled():
+            # Recompute the layer in the backward instead of keeping its
+            # activations (the JAX package's jax.checkpoint).
+            current, out = torch.utils.checkpoint.checkpoint(
+                layer_fn, current, i, use_reentrant=False)
+        else:
+            current, out = layer_fn(current, i)
         if collect_layer_inputs is None:
             gate_outs.append(out)
     if collect_layer_inputs is not None:
         return layer_inputs
+    return _head(params, c, torch.cat(gate_outs, dim=-1), head_from)
 
-    # Deferred skip head: one matmul over all layers' gate outputs.
-    all_outs = torch.cat(gate_outs, dim=-1)                 # [B, T, L*D]
+
+def _head(params: Params, c: WaveNetConfig, all_outs: torch.Tensor,
+          head_from: int) -> torch.Tensor:
+    """Deferred skip head: one matmul over all layers' gate outputs
+    ``all_outs [B, T, L*D]``, then relu, 1x1, relu, 1x1."""
+    L, D, S = c.num_layers, c.dilation_channels, c.skip_channels
     if head_from:
         all_outs = all_outs[:, head_from:]
     skip_sum = all_outs @ params["skip"].reshape(L * D, S)
@@ -218,6 +262,35 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
     if c.use_biases:
         h = h + params["postprocess2_bias"]
     return h
+
+
+def _dilated_stack_pallas(params: Params, c: WaveNetConfig,
+                          current: torch.Tensor,
+                          gc_embedding: Optional[torch.Tensor],
+                          head_from: int = 0) -> torch.Tensor:
+    """Dilated stack through the fused kernel pair, then the deferred skip
+    head in plain PyTorch (the JAX package's ``_dilated_stack_pallas``,
+    version 3). The kernel's z has no lane padding, so the skip weights
+    are used as they are."""
+    if c.pallas_stack_version != 3:
+        kernel = {2: "6 (experiments/fused_stack2.py)",
+                  1: "7 (experiments/fused_stack.py)"}.get(
+                      c.pallas_stack_version,
+                      f"version {c.pallas_stack_version}")
+        raise NotImplementedError(
+            f"pallas_stack_version {c.pallas_stack_version} is the retired "
+            f"TPU kernel {kernel}, not ported yet (ROADMAP.md, TPU kernels)")
+    from wavenet_torch.kernels.fused_stack import (
+        fused_stack3, pack_stack_weights, supports)
+    if not supports(c):
+        raise NotImplementedError(
+            "use_pallas_stack requires filter_width=2 and max "
+            "dilation <= the kernel tile size")
+    w_fg, wd, add, bd = pack_stack_weights(params, c, gc_embedding,
+                                           current.shape[0])
+    _, all_outs = fused_stack3(current.to(torch.float32), w_fg, wd, add, bd,
+                               c)
+    return _head(params, c, all_outs, head_from)
 
 
 def forward_codes(params: Params, config: WaveNetConfig,
@@ -240,13 +313,81 @@ def forward_codes(params: Params, config: WaveNetConfig,
     fw = w.shape[0]
     T = codes.shape[1]
     idx = codes.long()
-    current = F.embedding(idx, w[fw - 1])                     # [B, T, R]
+    current = _embed_rows(w[fw - 1], idx)                     # [B, T, R]
     for k in range(fw - 1):
         shift = fw - 1 - k
         if shift >= T:
             continue
-        tap = F.embedding(idx[:, :T - shift], w[k])
+        tap = _embed_rows(w[k], idx[:, :T - shift])
         current = torch.cat([current[:, :shift],
                              current[:, shift:] + tap], dim=1)
     return _dilated_stack(params, c, current, gc_embedding, head_from,
                           collect_layer_inputs)
+
+
+def predict_proba(params: Params, config: WaveNetConfig,
+                  waveform: torch.Tensor,
+                  gc_ids: Optional[torch.Tensor] = None,
+                  lc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax probabilities [B, Q] of the sample after the window
+    ``waveform`` (int mu-law codes [B, T], or float amplitudes [B, T] in
+    scalar-input mode)."""
+    gc_emb = embed_gc(params, config, gc_ids) if gc_ids is not None else None
+    if config.scalar_input:
+        logits = forward(params, config,
+                         waveform[..., None].to(torch.float32), gc_emb, lc=lc)
+    else:
+        logits = forward_codes(params, config, waveform, gc_emb, lc=lc)
+    return torch.softmax(logits[:, -1, :], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: Params, config: WaveNetConfig,
+            audio_batch: torch.Tensor,
+            gc_ids: Optional[torch.Tensor] = None,
+            l2_regularization_strength: Optional[float] = None,
+            lc: Optional[torch.Tensor] = None):
+    """Teacher-forced cross-entropy, as the JAX package's ``loss_fn``.
+
+    ``audio_batch``: float waveform [B, T], left-padded with
+    receptive_field zeros by the data pipeline. Network input is
+    ``encoded[:, :T-1]``, predictions are outputs ``[rf-1:]`` (the head
+    runs only there, ``head_from``), targets ``encoded[:, rf:]``. L2 is
+    0.5 * sum(v^2) over every parameter whose key does not end in
+    ``_bias``. Returns (total_loss, aux) with ``ce_loss``,
+    ``total_loss`` and, with L2, ``l2_loss``.
+    """
+    c = config
+    if lc is not None:
+        raise NotImplementedError(
+            "local conditioning is not ported yet (ROADMAP.md queue 1, "
+            "'LC in sampler_decode')")
+    rf = c.receptive_field
+    if audio_batch.dim() == 3:
+        audio_batch = audio_batch[..., 0]
+    encoded = mu_law_encode(audio_batch, c.quantization_channels)
+    gc_emb = embed_gc(params, c, gc_ids) if gc_ids is not None else None
+    if c.scalar_input:
+        network_input = audio_batch[:, :-1, None].to(torch.float32)
+        prediction = forward(params, c, network_input, gc_emb,
+                             head_from=rf - 1)
+    else:
+        prediction = forward_codes(params, c, encoded[:, :-1], gc_emb,
+                                   head_from=rf - 1)
+    target = encoded[:, rf:]
+    logp = torch.log_softmax(prediction, dim=-1)
+    oh = one_hot(target, c.quantization_channels)
+    ce = -torch.mean(torch.sum(logp * oh, dim=-1))
+
+    aux = {"ce_loss": ce}
+    total = ce
+    if l2_regularization_strength:
+        l2 = sum(0.5 * torch.sum(torch.square(v)) for k, v in params.items()
+                 if not k.endswith("_bias"))
+        aux["l2_loss"] = l2
+        total = ce + l2_regularization_strength * l2
+    aux["total_loss"] = total
+    return total, aux

@@ -73,7 +73,7 @@ class GenerationService:
         if draft_params_npz:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue "
-                "1, item 7)")
+                "1, item 8)")
         self.params = load_npz(params_npz, self.device)
         self.max_batch = max_batch
         self.sampler_name = sampler_name(self.device)

@@ -1,0 +1,85 @@
+"""Analytic FLOPs and bytes of the network, and an H100's peaks.
+
+Counterpart of ``wavenet_tpu/utils/flops.py`` (same conventions: 1 MAC =
+2 FLOPs, a train step is 3x its forward, embedding gathers and folded
+conditioning adds count as zero), with the peaks of the card the port
+runs on instead of TPU peaks.
+"""
+
+from __future__ import annotations
+
+from wavenet_torch.models.config import WaveNetConfig
+
+# NVIDIA H100 SXM (NVIDIA's data sheet), at the full 700 W: FP32 on the
+# CUDA cores (the port's f32 mode uses no TF32) and HBM3 bandwidth.
+H100_FP32_FLOPS = 67e12
+H100_HBM_BYTES_PER_S = 3.35e12
+
+
+def stack_macs_per_position(config: WaveNetConfig) -> int:
+    """MACs per (batch element, position) of causal layer + dilated stack
+    (including the per-layer skip projection)."""
+    c = config
+    L, R, D, S = (c.num_layers, c.residual_channels, c.dilation_channels,
+                  c.skip_channels)
+    if c.scalar_input:
+        causal = c.initial_filter_width * 1 * R
+    else:
+        causal = c.filter_width * R
+    layer = c.filter_width * R * (2 * D) + D * R + D * S
+    if c.lc_enabled:
+        layer += c.lc_channels * (2 * D)
+    return causal + L * layer
+
+
+def head_macs_per_position(config: WaveNetConfig) -> int:
+    """MACs per position of the post-stack head (relu-1x1-relu-1x1)."""
+    c = config
+    return (c.skip_channels * c.skip_channels
+            + c.skip_channels * c.quantization_channels)
+
+
+def train_step_flops(config: WaveNetConfig, batch_size: int,
+                     sample_size: int) -> float:
+    """Model FLOPs of one train step (fwd + 2x bwd): stack over the full
+    rf + sample_size window, head over the loss positions."""
+    c = config
+    T = c.receptive_field + sample_size
+    stack = 2.0 * stack_macs_per_position(c) * batch_size * T
+    head = 2.0 * head_macs_per_position(c) * batch_size * sample_size
+    return 3.0 * (stack + head)
+
+
+def fused_stack_cost(config: WaveNetConfig, batch_size: int, positions: int,
+                     backward: bool = False):
+    """(FLOPs, bytes) of one call of the fused dilated-stack kernel on
+    [batch_size, positions] rows: its matmuls (forward: the filter|gate and
+    dense products; backward: the dense product twice more, the input
+    rebuild, dx over both taps and the two weight gradients), and each
+    input read once and each output written once, in float32."""
+    c = config
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    rows = batch_size * positions
+    weights = L * (2 * R * 2 * D + D * R + R)
+    if backward:
+        macs = L * rows * (2 * (2 * R * 2 * D) + 3 * D * R)
+        # y, dy, fg, dz in; dx out; weights in, their gradients and
+        # dadd out.
+        floats = rows * (3 * R + 3 * L * D) + 2 * weights \
+            + L * batch_size * 2 * D
+    else:
+        macs = L * rows * (2 * R * 2 * D + D * R)
+        # x and add in, y, fg, z out.
+        floats = rows * (2 * R + 3 * L * D) + weights \
+            + L * batch_size * 2 * D
+    return 2.0 * macs, 4.0 * floats
+
+
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = H100_FP32_FLOPS,
+             bytes_per_s: float = H100_HBM_BYTES_PER_S):
+    """Least time (ms) for the work on one H100, and what sets it."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / bytes_per_s
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
