@@ -257,6 +257,21 @@ def test_checkpoint_roundtrip_and_prune(tmp_path, use_async):
     assert tl.restore_params_only(str(tmp_path / "none")) is None
 
 
+def test_async_save_snapshots_the_state(tmp_path):
+    """A background save writes the state as it was at the call, though
+    training goes on updating the parameters in place."""
+    cfg, s = _tiny_state()
+    want = {k: v.detach().clone() for k, v in s.params.items()}
+    tl.save_checkpoint(str(tmp_path), s, use_async=True)
+    with torch.no_grad():
+        for v in s.params.values():
+            v.add_(1.0)
+    tl.wait_for_checkpoints()
+    got = tl.restore_params_only(str(tmp_path), device="cpu")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_partial_save_never_corrupts_latest(tmp_path):
     """A save killed midway leaves only its temporary directory, which
     neither ``latest_checkpoint_step`` nor pruning counts."""

@@ -32,7 +32,7 @@ import torch
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import Params, init_params, loss_fn
 from wavenet_torch.ops.optimizers import OptimizerFactory, optimizer_factory
-from wavenet_torch.params import load_npz, params_to_numpy
+from wavenet_torch.params import load_npz
 
 _CKPT = re.compile(r"ckpt-(\d+)")
 
@@ -222,8 +222,11 @@ def save_checkpoint(directory: str, state: TrainState,
     exiting."""
     root = os.path.abspath(directory)
     os.makedirs(root, exist_ok=True)
+    # Copies: on the CPU, .numpy() would share memory with parameters
+    # that the next step updates in place while a background save runs.
     snapshot = {"step": int(state.step),
-                "params": params_to_numpy(state.params),
+                "params": {k: v.numpy() for k, v in
+                           _to_cpu(state.params).items()},
                 "opt_state": _to_cpu(state.optimizer.state_dict())}
     if use_async:
         _ASYNC.save(root, snapshot, max_to_keep)
