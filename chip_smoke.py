@@ -33,8 +33,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    backward calls, one gc train step fused against plain, then
    ``python -m wavenet_torch.cli.train --use_pallas_stack`` on a
    synthesised 109-speaker corpus: 8 steps with finite, falling loss and
-   the kernels launched every step, checkpoints 4 and 8, a resume to 10,
-   and a ``GenerationService`` that serves from the last checkpoint.
+   the kernels launched every step (the ``kernels`` line's launches are
+   this run's), checkpoints 4 and 8, a resume to 10 (its 2 launches of
+   each counted apart), and a ``GenerationService`` that serves from the
+   last checkpoint.
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -53,6 +55,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -75,6 +78,9 @@ TRAIN_BATCH, TRAIN_SAMPLES = 8, 16000
 TRAIN_STEPS, RESUME_STEPS = 8, 10
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+# Each layer's (or batch row's) slice of a gradient, against its own
+# max |ref|; the measured worst over whole tensors is ~1e-6.
+SLICE_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -389,6 +395,20 @@ def within(got, ref, rtol: float, atol: float):
     return err, err / scale if scale else err, err <= rtol * scale + atol
 
 
+def worst_slice(got, ref, lead: int):
+    """The largest max |got - ref| / max |ref| over the slices that the
+    first ``lead`` dimensions index (a layer, a batch row): an error
+    confined to one small slice hides under a whole-tensor limit."""
+    n = 1
+    for s in ref.shape[:lead]:
+        n *= s
+    err = (got - ref).reshape(n, -1).abs().amax(dim=1)
+    scale = ref.reshape(n, -1).abs().amax(dim=1)
+    # An all-zero slice must come out exactly zero.
+    rel = (err / scale).nan_to_num(nan=0.0, posinf=float("inf"))
+    return rel.max().item()
+
+
 def stack_inputs(c, params, rng):
     """The stack's input and packed weights for a b8 train batch: the
     causal layer of random codes, as ``forward_codes`` computes it."""
@@ -451,6 +471,15 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
             worst["fwd" if label in ("y", "fg", "z") else "bwd"] = max(
                 worst.get("fwd" if label in ("y", "fg", "z") else "bwd", 0.0),
                 err)
+        # Each gradient again per slice: per batch row for dx, per layer
+        # for the weights, per (layer, batch row) for dadd.
+        for label, got, ref, lead in zip(
+                ("dx", "dw_fg", "dwd", "dadd", "dbd"), grads_k, grads_p,
+                (1, 1, 1, 2, 1)):
+            rel = worst_slice(got, ref, lead)
+            row[f"max_slice_rel_err_{label}"] = rel
+            check(rel <= SLICE_RTOL, f"{name} {label}: a slice differs from "
+                  f"the plain version by {rel} of its max |ref|")
         check(all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2)),
               f"{name}: two backward calls on the same inputs differ")
         row["bitwise_repeat_backward"] = True
@@ -466,12 +495,14 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
             flops, nbytes = fused_stack_cost(c, B, T, backward=kind == "bwd")
             bound, by = bound_ms(flops, nbytes)
             ms_k, ms_p = median_cuda_ms(kern), median_cuda_ms(plain)
+            trace = device_breakdown(kern)
             row.update({f"{kind}_ms": ms_k, f"{kind}_plain_ms": ms_p,
                         f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
                         f"{kind}_flops": flops, f"{kind}_bytes": nbytes,
                         f"{kind}_gflop_per_s": flops / ms_k / 1e6,
-                        f"{kind}_cuda_launches_per_call":
-                            L if kind == "fwd" else 2 * L + 1})
+                        f"{kind}_device_kernels_per_call":
+                            trace["stack_kernels"] if trace else
+                            "not measured (no device events)"})
             results[(name, kind)] = dict(
                 config=name, max_abs_err=worst[kind], ms=ms_k, plain_ms=ms_p,
                 bound_ms=bound, bound_by=by)
@@ -486,7 +517,8 @@ STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
 
 
 def device_breakdown(fn):
-    """Device time of one call of ``fn`` by kernel family, and the
+    """Device time of one call of ``fn`` by kernel family, the count of
+    the fused stack's device kernels in it (``stack_kernels``), and the
     device's busy time against the wall time of the call (the profiler
     adds host overhead, so the idle share is an upper bound), from a
     ``torch.profiler`` trace. None when the trace holds no device events."""
@@ -506,10 +538,12 @@ def device_breakdown(fn):
         return None
     fam = {"fused_stack_ms": 0.0, "gemm_ms": 0.0, "optimizer_ms": 0.0,
            "other_ms": 0.0}
+    stack_kernels = 0
     for name, start, end in spans:
         ms = (end - start) / 1e3
         if any(k in name for k in STACK_KERNELS):
             fam["fused_stack_ms"] += ms
+            stack_kernels += 1
         elif "gemm" in name:
             fam["gemm_ms"] += ms
         elif "multi_tensor" in name or "adam" in name:
@@ -524,7 +558,8 @@ def device_breakdown(fn):
         elif end > end_us:
             busy_us += end - end_us
             end_us = end
-    return dict(fam, kernels=len(spans), device_busy_ms=busy_us / 1e3,
+    return dict(fam, kernels=len(spans), stack_kernels=stack_kernels,
+                device_busy_ms=busy_us / 1e3,
                 wall_ms=wall_ms, idle_share=1.0 - busy_us / 1e3 / wall_ms)
 
 
@@ -672,13 +707,16 @@ def phase_train_cli(c, gpu):
           "fused_stack_fwd_launches": launches["fwd"],
           "fused_stack_bwd_launches": launches["bwd"], "gpu": gpu})
 
+    # The resume is a run of its own: its launches are counted apart.
+    fs.forward.launches = fs.backward.launches = 0
     out = run_cli(argv + ["--num_steps", str(RESUME_STEPS)])
     check(f"Restored model from step {TRAIN_STEPS}" in out,
           "the rerun did not restore from the last checkpoint")
     check(f"step {RESUME_STEPS} - loss = " in out, "the rerun did not train")
-    launches = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
-    check(launches["fwd"] == RESUME_STEPS and launches["bwd"] == RESUME_STEPS,
-          f"fused_stack launches after the resume {launches}")
+    resumed = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
+    n = RESUME_STEPS - TRAIN_STEPS
+    check(resumed["fwd"] == n and resumed["bwd"] == n,
+          f"fused_stack launches in the resume {resumed}, expected {n} each")
     check(tl.latest_checkpoint_step(logdir) == RESUME_STEPS,
           "no checkpoint of the resumed run")
 
@@ -701,8 +739,8 @@ def phase_train_cli(c, gpu):
           "decode kernel")
     emit({"phase": "train_resume_serve", "restored_from": TRAIN_STEPS,
           "steps": RESUME_STEPS, "generated": len(codes),
-          "fused_stack_fwd_launches": launches["fwd"],
-          "fused_stack_bwd_launches": launches["bwd"], "gpu": gpu})
+          "resume_fused_stack_fwd_launches": resumed["fwd"],
+          "resume_fused_stack_bwd_launches": resumed["bwd"], "gpu": gpu})
     return launches
 
 
@@ -728,22 +766,9 @@ def main() -> int:
     gpu = gpu_line()
     print(gpu, flush=True)
     t = time.perf_counter()
-    errors = {}
-
-    def build(name):
-        try:
-            _build.load(name)
-        except Exception as e:  # noqa: BLE001 - raised below
-            errors[name] = e
-
-    threads = [threading.Thread(target=build, args=(n,)) for n in KERNELS]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))   # re-raises a failed build
     for name in KERNELS:
-        if name in errors:
-            raise errors[name]
         info = _build.BUILD_INFO[name]
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
