@@ -37,6 +37,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
    this run's), checkpoints 4 and 8, a resume to 10 (its 2 launches of
    each counted apart), and a ``GenerationService`` that serves from the
    last checkpoint.
+6. Generation (the main path of this slice), at full width: kernel 4's
+   route (``decode_sequential``: a receptive field of random codes, or
+   amplitudes for the scalar-input wide config, stepped from a zero
+   ring, then 256 sampled steps) at the paper and wide configs, b1 and
+   b64, against ``decode_reference`` replaying the kernel's inputs
+   (logits of every step and a window, rtol 1e-4 and atol 1e-4; sampled
+   codes as in phase 3; same-seed runs and b1 against row 0 of b64
+   bitwise); the wide config through the prefill route the same way and
+   timed; then ``python -m wavenet_torch.cli.generate`` from phase 5's gc
+   checkpoint (b1 and b64 x 16,000 samples, ``--save_every`` equal to the
+   single run, ``--wav_seed``, ``--fast_generation false``) and from
+   seeded paper and wide checkpoints; last, the main path of kernel 4:
+   ``generate_cuda(prefill=False, ring_in_hbm=True)`` three times per
+   case, its launches counted from 0 (its ``kernels`` rows).
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -73,6 +87,10 @@ SERVE_BATCH_SIZES = (1, 64, 512)
 TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 512))
 TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 512): 256}
 KERNELS = ("sampler_decode", "fused_stack")
+# Phase 6: kernel 4's route (sequential, from a zero ring).
+SEQ_CASES = (("paper", 1), ("paper", 64), ("wide", 1), ("wide", 64))
+SEQ_SAMPLES, SEQ_WINDOW, SEQ_TIMED_SAMPLES = 256, 300, 1024
+GEN_SAMPLES = 16000
 # Phase 5: the JAX package's train_b8 shape (bench.py).
 TRAIN_BATCH, TRAIN_SAMPLES = 8, 16000
 TRAIN_STEPS, RESUME_STEPS = 8, 10
@@ -102,16 +120,23 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def causal_rows(c) -> int:
+    """Rows of the causal layer's weights: (kw_in - 1) * C_in + C_in."""
+    from wavenet_torch.kernels.sampler import causal_width
+    return causal_width(c) + c.input_channels
+
+
 def flops_per_row_step(c) -> int:
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
-    return 2 * (2 * Q * R + L * (4 * R * D + D * R + D * S) + S * S + S * Q)
+    return 2 * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S)
+                + S * S + S * Q)
 
 
 def weight_bytes(c) -> int:
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
-    return 4 * (2 * Q * R + L * (4 * R * D + D * R + D * S + R)
+    return 4 * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S + R)
                 + 2 * S + S * S + S * Q + Q)
 
 
@@ -125,6 +150,21 @@ def bound_per_step(c, B: int, steps: int):
               + 4 * B * steps)
     t_bytes = nbytes / HBM_BYTES_PER_S / steps
     t_ops = flops_per_row_step(c) * B * steps / FP32_FLOPS / steps
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def sequential_bound_per_step(c, B: int, n_forced: int, n_total: int):
+    """Least time per step of one sequential launch (kernel 4's route):
+    the weights, per-row adds and forced prefix read once and the codes
+    written once (the zero state is the kernel's own), or its FP32
+    operations at peak."""
+    L, D = c.num_layers, c.dilation_channels
+    nbytes = (weight_bytes(c) + 4 * L * B * 2 * D + 4 * B * n_forced
+              + 4 * B * n_total)
+    t_bytes = nbytes / HBM_BYTES_PER_S / n_total
+    t_ops = flops_per_row_step(c) * B / FP32_FLOPS
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
@@ -741,7 +781,321 @@ def phase_train_cli(c, gpu):
           "steps": RESUME_STEPS, "generated": len(codes),
           "resume_fused_stack_fwd_launches": resumed["fwd"],
           "resume_fused_stack_bwd_launches": resumed["bwd"], "gpu": gpu})
+    return launches, os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile
+
+
+def seq_prefix(c, B: int, rng):
+    """A receptive field of random inputs: codes, or amplitudes in scalar
+    mode."""
+    import torch
+    if c.scalar_input:
+        x = rng.uniform(-0.9, 0.9, (B, c.receptive_field)).astype("float32")
+        return torch.as_tensor(x, device="cuda")
+    return torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                       (B, c.receptive_field)),
+                           dtype=torch.int32, device="cuda")
+
+
+def replay_inputs(c, first, codes_k):
+    """``first`` [B, n] forced inputs, then the inputs a kernel run fed
+    itself from its sampled ``codes_k`` (decoded in scalar mode)."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    sampled = codes_k[:, first.shape[1] - 1:-1]
+    nxt = (ks.decode_amp(sampled, c.quantization_channels)
+           if c.scalar_input else sampled)
+    return torch.cat([first, nxt.to(first.dtype)], dim=1).contiguous()
+
+
+def sampled_codes_match(c, lg_r, codes_k, seed: int, step0: int, n: int):
+    """The kernel's last ``n`` sampled codes against the argmax of the
+    plain version's logits plus the same Philox noise: (match rate,
+    mismatches, largest top-2 margin at a mismatch)."""
+    from wavenet_torch.kernels import sampler as ks
+    B = codes_k.shape[0]
+    noise = ks.gumbel_noise(seed, B, step0, n, c.quantization_channels,
+                            "cuda")
+    scores = lg_r[:, -n:] + noise.transpose(0, 1)
+    top2 = scores.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    match = scores.argmax(dim=-1).to(codes_k.dtype) == codes_k[:, -n:]
+    worst = margin[~match].max().item() if (~match).any() else 0.0
+    rate = match.float().mean().item()
+    check(rate >= 0.999, f"only {rate:.5f} of sampled codes match")
+    check(worst < 1e-4, f"a mismatch sits at a top-2 margin of {worst}")
+    return rate, int((~match).sum().item()), worst
+
+
+def phase_sequential(cfgs, params, rng, gpu):
+    """Kernel 4's route against the plain version at b64 (and b1 against
+    row 0), replaying the kernel's inputs; times the plain replay."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+
+    results = {}
+    for name in ("paper", "wide"):
+        c, p = cfgs[name], params[name]
+        B, seed = 64, 21
+        prefix = seq_prefix(c, B, rng)
+        n_forced = prefix.shape[1]
+        n_total = n_forced - 1 + SEQ_SAMPLES
+        pk64 = ks.pack_sampler_weights(p, c, B)
+        pk1 = ks.pack_sampler_weights(p, c, 1)
+        codes64, lg64 = ks.decode_sequential(pk64, c, prefix, n_total, seed,
+                                             collect_logits=True)
+        again, win = ks.decode_sequential(pk64, c, prefix, n_total, seed,
+                                          collect_logits=SEQ_WINDOW)
+        codes1, lg1 = ks.decode_sequential(pk1, c, prefix[:1].contiguous(),
+                                           n_total, seed, collect_logits=True)
+        forced = replay_inputs(c, prefix, codes64)
+        ring, causal = ks.zero_state(c, B, "cuda")
+        out = []
+        plain_ms = cuda_ms(lambda: out.append(ks.decode_reference(
+            pk64, c, ring, causal, forced, n_total, 0, seed,
+            collect_logits=True))) / n_total
+        codes_r, lg_r = out[0]
+        # The plain version at b1, over the first steps of the same inputs.
+        ring1, causal1 = ks.zero_state(c, 1, "cuda")
+        plain_ms1 = cuda_ms(lambda: ks.decode_reference(
+            pk1, c, ring1, causal1, forced[:1].contiguous(), 64, 0,
+            seed)) / 64
+        torch.cuda.synchronize()
+        check(torch.isfinite(lg64).all().item(), f"{name}: non-finite logits")
+        err64 = (lg64 - lg_r).abs().max().item()
+        err1 = (lg1 - lg_r[:1]).abs().max().item()
+        check(torch.allclose(lg64, lg_r, rtol=1e-4, atol=1e-4),
+              f"{name} b64: sequential logits differ from the plain version "
+              f"(max |d| {err64})")
+        check(torch.allclose(lg1, lg_r[:1], rtol=1e-4, atol=1e-4),
+              f"{name} b1: sequential logits differ (max |d| {err1})")
+        check(torch.equal(codes64, again), f"{name}: same-seed runs differ")
+        check(torch.equal(win, lg64[:, -SEQ_WINDOW:]),
+              f"{name}: the logits window is not the tail of the full run")
+        check(torch.equal(codes1, codes64[:1]),
+              f"{name}: b1 codes differ from row 0 of b64")
+        check(torch.equal(codes64[:, :-1], codes_r[:, :-1]),
+              f"{name}: emitted codes differ from the plain replay")
+        rate, bad, worst = sampled_codes_match(c, lg_r, codes64, seed,
+                                               n_forced - 1, SEQ_SAMPLES)
+        emit({"phase": "sequential", "config": name, "batch": B,
+              "forced": n_forced, "steps": n_total,
+              "max_abs_err_b64": err64, "max_abs_err_b1": err1,
+              "sampled_match_rate": rate, "mismatches": bad,
+              "max_mismatch_margin": worst, "bitwise_repeat": True,
+              "b1_equals_row0": True, "window": SEQ_WINDOW,
+              "plain_ms_per_step": plain_ms, "plain_ms_per_step_b1": plain_ms1,
+              "gpu": gpu})
+        for b, err, ms in ((1, err1, plain_ms1), (64, err64, plain_ms)):
+            results[(name, b)] = dict(max_abs_err=err, plain_ms=ms)
+        del lg64, lg1, lg_r, win
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_wide_prefill(c, params, rng, gpu):
+    """The wide config through the prefill route: prefill a receptive
+    field of amplitudes, decode 256 sampled steps, replay on the plain
+    version; then time a decode step at b1 and b64."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+
+    B, seed = 64, 23
+    carry = ks.prefill_carry(params, c, seq_prefix(c, B, rng))
+    pk = ks.pack_sampler_weights(params, c, B)
+    first = carry.last[:, None].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    codes_k, lg_k = ks.decode(pk, c, rk, ck, first, SEQ_SAMPLES, carry.t_abs,
+                              seed, collect_logits=True)
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    t = time.perf_counter()
+    codes_r, lg_r = ks.decode_reference(pk, c, rr, cr,
+                                        replay_inputs(c, first, codes_k),
+                                        SEQ_SAMPLES, carry.t_abs, seed,
+                                        collect_logits=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t) / SEQ_SAMPLES
+    err = (lg_k - lg_r).abs().max().item()
+    check(torch.allclose(lg_k, lg_r, rtol=1e-4, atol=1e-4),
+          f"wide prefill route: logits differ (max |d| {err})")
+    check(torch.allclose(rk, rr, rtol=1e-4, atol=1e-4),
+          "wide prefill route: ring state differs")
+    check(torch.allclose(ck, cr, rtol=0, atol=1e-6),
+          "wide prefill route: causal register differs")
+    rate, bad, worst = sampled_codes_match(c, lg_r, codes_k, seed,
+                                           carry.t_abs, SEQ_SAMPLES)
+    row = {"phase": "wide_prefill", "batch": B, "prefill": c.receptive_field,
+           "steps": SEQ_SAMPLES, "max_abs_err": err,
+           "sampled_match_rate": rate, "mismatches": bad,
+           "max_mismatch_margin": worst, "plain_ms_per_step": plain_ms}
+    for b in (1, 64):
+        pkb = pk._replace(layer_add=pk.layer_add[:, :b].contiguous())
+        ring = carry.ring[:, :b].clone(memory_format=torch.contiguous_format)
+        causal = carry.causal[:b].clone()
+        fb = first[:b].contiguous()
+        ms = median_cuda_ms(lambda: ks.decode(
+            pkb, c, ring, causal, fb, SEQ_TIMED_SAMPLES, carry.t_abs, 5),
+            reps=3)
+        bound, by = bound_per_step(c, b, SEQ_TIMED_SAMPLES)
+        row.update({f"ms_per_step_b{b}": ms / SEQ_TIMED_SAMPLES,
+                    f"bound_ms_per_step_b{b}": bound,
+                    f"bound_by_b{b}": by})
+    row["gpu"] = gpu
+    emit(row)
+
+
+def run_generate_cli(argv):
+    """``wavenet_torch.cli.generate.main(argv)`` in this process (so that
+    the kernels' launch counts see it): (output, wall seconds)."""
+    from wavenet_torch.cli import generate as cli
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    buf = Tee()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t
+    check(rc == 0, f"generate CLI exited {rc}")
+    return buf.getvalue(), seconds
+
+
+def read_wavs(path: str, B: int, n: int):
+    """The int16 samples of the CLI's wav (or its ``-<i>`` files)."""
+    import numpy as np
+    from scipy.io import wavfile
+    root, ext = os.path.splitext(path)
+    paths = [path] if B == 1 else [f"{root}-{i}{ext}" for i in range(B)]
+    rows = []
+    for p in paths:
+        check(os.path.getsize(p) == 44 + 2 * n, f"{p}: wrong size")
+        rows.append(wavfile.read(p)[1])
+    x = np.stack(rows)
+    check(len(np.unique(x)) > 8, f"{path}: degenerate audio")
+    return x
+
+
+def write_checkpoint(root: str, c, params) -> str:
+    """A port checkpoint (``ckpt-0/``) and params JSON of ``params``."""
+    from wavenet_torch import train_lib as tl
+    tl.save_checkpoint(root, tl.train_state_from_params(
+        params, tl.make_optimizer("adam", 1e-3)))
+    pfile = os.path.join(root, "wavenet_params.json")
+    with open(pfile, "w") as f:
+        json.dump(c.to_json_dict(), f)
+    return pfile
+
+
+def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
+    """The generate CLI: phase 5's gc checkpoint at b1 and b64, in
+    segments, from a seed wav and on the slow path; seeded paper and
+    wide checkpoints. Every fast run launches ``decode`` once per
+    segment and ``decode_sequential`` never."""
+    import numpy as np
+    from wavenet_torch.audio import write_wav
+    from wavenet_torch.kernels import sampler as ks
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_generate_")
+    seed_wav = os.path.join(tmp, "seed.wav")
+    t = np.arange(8000) / 16000.0
+    write_wav(seed_wav, 0.5 * np.sin(2 * np.pi * 220.0 * t)
+              + 0.1 * np.sin(2 * np.pi * 1500.0 * t), 16000)
+    ckpts = {"gc": (gc_ckpt, gc_pfile,
+                    ["--gc_channels", str(cfgs["gc"].gc_channels),
+                     "--gc_cardinality", str(cfgs["gc"].gc_cardinality),
+                     "--gc_id", "5"])}
+    for name in ("paper", "wide"):
+        root = os.path.join(tmp, name)
+        ckpts[name] = (root, write_checkpoint(root, cfgs[name],
+                                              params[name]), [])
+    runs = [  # (label, model, batch, samples, extra flags, decode launches)
+        ("b1", "gc", 1, GEN_SAMPLES, [], 1),
+        ("b64", "gc", 64, GEN_SAMPLES, [], 1),
+        ("save_every", "gc", 1, GEN_SAMPLES, ["--save_every", "4000"], 4),
+        ("wav_seed", "gc", 1, 4000, ["--wav_seed", seed_wav], 1),
+        ("slow", "gc", 1, 36, ["--fast_generation", "false"], 0),
+        ("paper_b1", "paper", 1, 4000, [], 1),
+        ("wide_b1", "wide", 1, 4000, [], 1),
+        ("wide_b64", "wide", 64, 4000, [], 1),
+    ]
+    ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    wavs, rates = {}, {}
+    for label, model, B, n, extra, want in runs:
+        ckpt, pfile, gc_flags = ckpts[model]
+        wav = os.path.join(tmp, f"{label}.wav")
+        before = ks.decode.launches
+        out, seconds = run_generate_cli(
+            [ckpt, "--wavenet_params", pfile, "--samples", str(n),
+             "--batch_size", str(B), "--wav_out_path", wav, "--seed", "1",
+             "--device", "cuda"] + gc_flags + extra)
+        check("Finished generating." in out, f"{label}: no finish line")
+        wavs[label] = read_wavs(wav, B, n)
+        delta = ks.decode.launches - before
+        check(delta == want, f"{label}: {delta} decode launches, "
+              f"expected {want}")
+        rates[label] = B * n / seconds
+        emit({"phase": "generate_cli", "run": label, "config": model,
+              "batch": B, "samples": n, "seconds": seconds,
+              "samples_per_s": rates[label], "decode_launches": delta,
+              "gpu": gpu})
+    check((wavs["save_every"] == wavs["b1"]).all(),
+          "--save_every segments differ from the single run")
+    check(ks.decode_sequential.launches == 0,
+          "the CLI took the sequential route")
+    launches = ks.decode.launches
+    emit({"phase": "generate_cli", "decode_launches": launches,
+          "save_every_equals_one_run": True,
+          "samples_per_s_b1": rates["b1"], "samples_per_s_b64": rates["b64"],
+          "gpu": gpu})
     return launches
+
+
+def phase_sequential_main_path(cfgs, params, rng, gpu):
+    """Kernel 4's main path: ``generate_cuda(prefill=False,
+    ring_in_hbm=True)`` three times per case (the same seed: bitwise equal
+    codes), a receptive field of random inputs then 1,024 samples; the
+    median launch time per step."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+
+    results = {}
+    ks.decode_sequential.launches = 0          # the main path starts here
+    for name, B in SEQ_CASES:
+        c, p = cfgs[name], params[name]
+        prefix = seq_prefix(c, B, rng)
+        n_total = prefix.shape[1] - 1 + SEQ_TIMED_SAMPLES
+        before = ks.decode_sequential.launches
+        outs, times = [], []
+        for _ in range(3):
+            times.append(cuda_ms(lambda: outs.append(ks.generate_cuda(
+                p, c, SEQ_TIMED_SAMPLES, seed=31, batch_size=B,
+                seed_codes=prefix, prefill=False, ring_in_hbm=True))))
+        codes = outs[0]
+        check(all(torch.equal(codes, o) for o in outs[1:]),
+              f"{name} b{B}: same-seed runs differ")
+        check(codes.shape == (B, SEQ_TIMED_SAMPLES)
+              and 0 <= codes.min().item()
+              and codes.max().item() < c.quantization_channels
+              and len(torch.unique(codes)) > 8,
+              f"{name} b{B}: malformed codes")
+        launches = ks.decode_sequential.launches - before
+        ms = float(np.median(times)) / n_total
+        bound, by = sequential_bound_per_step(c, B, prefix.shape[1], n_total)
+        results[(name, B)] = dict(launches=launches, ms=ms, bound_ms=bound,
+                                  bound_by=by)
+        emit({"phase": "sequential_main_path", "config": name, "batch": B,
+              "steps": n_total, "launches": launches, "ms_per_step": ms,
+              "ms_per_step_runs": [x / n_total for x in times],
+              "bound_ms_per_step": bound, "bound_by": by,
+              "samples_per_s": B * n_total / (float(np.median(times)) / 1e3),
+              "gpu": gpu})
+    total = ks.decode_sequential.launches
+    check(total == 3 * len(SEQ_CASES),
+          f"decode_sequential launched {total} times on its main path")
+    return results
 
 
 def main() -> int:
@@ -760,7 +1114,8 @@ def main() -> int:
 
     import numpy as np
     from wavenet_torch.kernels import _build
-    from wavenet_torch.models.config import gc_config, paper_config
+    from wavenet_torch.models.config import (
+        gc_config, paper_config, wide_config)
 
     # Phase 1: device and build (one nvcc per source, all at once).
     gpu = gpu_line()
@@ -795,7 +1150,17 @@ def main() -> int:
     # Phase 5: training, the main path of training.
     stack = phase_stack_kernels(cfgs, params, rng, gpu)
     phase_train_step(cfgs["gc"], params["gc"], rng, gpu)
-    train_launches = phase_train_cli(cfgs["gc"], gpu)
+    train_launches, gc_ckpt, gc_pfile = phase_train_cli(cfgs["gc"], gpu)
+
+    # Phase 6: generation, kernel 4's route and the generate CLI.
+    gen_cfgs = {"paper": cfgs["paper"], "gc": cfgs["gc"],
+                "wide": wide_config()}
+    gen_params = dict(params, wide=seeded_params(gen_cfgs["wide"], 2,
+                                                 "cuda"))
+    seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
+    phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"], rng, gpu)
+    phase_generate_cli(gen_cfgs, gen_params, gc_ckpt, gc_pfile, gpu)
+    seq_main = phase_sequential_main_path(gen_cfgs, gen_params, rng, gpu)
 
     replaces = {1: "wavenet_tpu/kernels/sampler.py:234",
                 64: "wavenet_tpu/kernels/sampler.py:1308",
@@ -826,6 +1191,19 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "unit": "per call (one train step's stack)", "gpu": gpu})
+    # Kernel 4's route: the same kernel launched from a zero ring. Its
+    # library_ms is null for the reason of rows 1-3.
+    for name, B in SEQ_CASES:
+        m = dict(seq[(name, B)], **seq_main[(name, B)])
+        kernels.append({
+            "name": f"sampler_decode_sequential_{name}_b{B}",
+            "route": "cuda", "source": "wavenet_torch/csrc/sampler_decode.cu",
+            "replaces": "wavenet_tpu/kernels/sampler.py:1057",
+            "config": name, "batch": B, "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "unit": "per decode step", "gpu": gpu})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

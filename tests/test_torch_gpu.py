@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (``sampler_decode``, ``fused_stack``) against
-their plain versions, on the card.
+"""The port's CUDA kernels (``sampler_decode`` on its prefill and
+sequential routes, mu-law and scalar input; ``fused_stack``) against their
+plain versions, on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA GPU:
 the kernels have no CPU mode. The file imports no JAX, so on a machine with
@@ -119,6 +120,107 @@ def test_wrapper_rejects_bad_inputs(setup):
     with pytest.raises(ValueError, match="contiguous"):
         ks.decode(packed, c, carry.ring.transpose(0, 1).contiguous()
                   .transpose(0, 1), carry.causal, forced, 4, carry.t_abs, 0)
+
+
+# The wide config's widths (R=D=64, S=1024, scalar input, a 32-tap causal
+# layer) over a short dilation stack.
+WIDE_SMALL = dict(dilations=(1, 2, 4, 8, 16, 1, 2, 4), residual_channels=64,
+                  dilation_channels=64, skip_channels=1024,
+                  quantization_channels=256, scalar_input=True,
+                  initial_filter_width=32)
+
+
+def _seeded_params(c, seed=0):
+    params = init_params(seed, c, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k in sorted(params):
+        if k.endswith("_bias"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen)
+    return {k: v.cuda() for k, v in params.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 5, 1100])
+def test_scalar_kernel_matches_reference_at_wide_widths(setup, B):
+    """Scalar input at the wide widths, teacher-forced from a prefilled
+    state on 31 amplitudes; 1100 rows run eight to a block (~135 KB of
+    shared memory)."""
+    c = WaveNetConfig(**WIDE_SMALL)
+    params = _seeded_params(c)
+    rng = np.random.RandomState(B)
+    audio = torch.as_tensor(rng.uniform(-0.9, 0.9, (B, 100))
+                            .astype(np.float32), device="cuda")
+    carry = ks.prefill_carry(params, c, audio[:, :70])
+    packed = ks.pack_sampler_weights(params, c, B)
+    forced = audio[:, 69:].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    kk, lk = ks.decode(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                       collect_logits=True)
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    torch.testing.assert_close(ck, cr, rtol=0, atol=0)
+    # Forced amplitudes come back as their mu-law codes.
+    assert torch.equal(kk, kr)
+    assert torch.equal(kk, ks.mu_law_encode_f(forced[:, 1:],
+                                              c.quantization_channels))
+
+
+def _replay_sequential(c, packed, prefix, codes_k, n_total, seed, window):
+    """The plain version from a zero ring, teacher-forced on the inputs
+    that the kernel's run fed itself (its sampled codes, decoded in
+    scalar mode)."""
+    sampled = codes_k[:, prefix.shape[1] - 1:-1]
+    nxt = (ks.decode_amp(sampled, c.quantization_channels)
+           if c.scalar_input else sampled)
+    forced = torch.cat([prefix, nxt.to(prefix.dtype)], dim=1).contiguous()
+    ring, causal = ks.zero_state(c, prefix.shape[0], "cuda")
+    return ks.decode_reference(packed, c, ring, causal, forced, n_total, 0,
+                               seed, collect_logits=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_sequential_route_matches_reference(setup, wide):
+    """Kernel 4's route (``decode_sequential``: the forced prefix stepped
+    from a zero ring, then sampled steps) with a logits window, against
+    the plain version replaying the kernel's inputs; same-seed runs are
+    bitwise equal."""
+    c = WaveNetConfig(**WIDE_SMALL) if wide else setup[0]
+    params = _seeded_params(c) if wide else setup[1]
+    rng = np.random.RandomState(7)
+    B, n_samples, W = 3, 30, 12
+    if c.scalar_input:
+        prefix = torch.as_tensor(rng.uniform(-0.9, 0.9, (
+            B, c.receptive_field)).astype(np.float32), device="cuda")
+        gids = None
+    else:
+        prefix = torch.as_tensor(rng.randint(0, c.quantization_channels, (
+            B, c.receptive_field)), dtype=torch.int32, device="cuda")
+        gids = torch.as_tensor([0, 3, 1], device="cuda")
+    packed = ks.pack_sampler_weights(
+        params, c, B, None if gids is None else embed_gc(params, c, gids))
+    n_total = prefix.shape[1] - 1 + n_samples
+    before = ks.decode_sequential.launches
+    codes, lg = ks.decode_sequential(packed, c, prefix, n_total, 5,
+                                     collect_logits=W)
+    again, _ = ks.decode_sequential(packed, c, prefix, n_total, 5)
+    torch.cuda.synchronize()
+    assert ks.decode_sequential.launches == before + 2
+    assert torch.equal(codes, again)
+    assert lg.shape == (B, W, c.quantization_channels)
+    codes_r, lg_r = _replay_sequential(c, packed, prefix, codes, n_total, 5,
+                                       W)
+    torch.testing.assert_close(lg, lg_r, **TOL)
+    assert torch.equal(codes[:, :-1], codes_r[:, :-1])
+    # generate_cuda's route: the sampled tail of the same launch.
+    out = ks.generate_cuda(params, c, n_samples, seed=5, batch_size=B,
+                           gc_ids=gids, seed_codes=prefix, prefill=False,
+                           ring_in_hbm=True)
+    assert torch.equal(out, codes[:, prefix.shape[1] - 1:])
 
 
 # Fused stack: another summation order; gradients also rebuild each

@@ -47,8 +47,9 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     for m in ("kernels.sampler", "serve", "kernels.fused_stack",
               "kernels.stack_pack", "train_lib", "ops.optimizers",
-              "cli.train", "data.reader", "data.prefetch",
-              "utils.summaries", "utils.flops"):
+              "cli.train", "cli.generate", "sample", "sampler_select",
+              "data.reader", "data.prefetch", "utils.summaries",
+              "utils.flops"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -268,7 +268,218 @@ def test_unported_paths_raise():
         ts.generate_cuda(tp, TConfig(**{**SMALL, "filter_width": 3}), 4, 0)
     with pytest.raises(NotImplementedError):
         ts.generate_cuda(tp, tc, 4, 0, weight_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        ts.unseeded_seed_codes(TConfig(**{**SMALL, "scalar_input": True}),
-                               1, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.generate_cuda(tp, TConfig(**{**SMALL, "lc_channels": 2}), 4, 0)
+
+
+# ---------------------------------------------------------------------------
+# Scalar input, and TPU kernel #4 (the single-pass HBM-ring kernel)
+# ---------------------------------------------------------------------------
+
+SCALAR = dict(SMALL, scalar_input=True, initial_filter_width=4)
+
+
+def test_unseeded_seed_codes_scalar_is_silence():
+    tc = TConfig(**SCALAR)
+    got = ts.unseeded_seed_codes(tc, 3, 7)
+    ref = js.unseeded_seed_codes(JConfig(**SCALAR), 3, 7)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _sequential_replay(jc, tc, jp, tp, seed_codes, gc_ids, n_samples,
+                       collect, **route):
+    """TPU kernel run by ``generate_pallas(prefill=False, **route)`` in
+    interpret mode, then the port's sequential route teacher-forced on the
+    inputs that run fed itself; returns (JAX logits, port logits)."""
+    B = seed_codes.shape[0]
+    gids = None if gc_ids is None else _t(gc_ids, torch.int64)
+    codes, logits = js.generate_pallas(
+        jp, jc, n_samples=n_samples, seed=3, batch_size=B,
+        gc_ids=None if gc_ids is None else jnp.asarray(gc_ids),
+        seed_codes=jnp.asarray(seed_codes), collect_logits=collect,
+        interpret=True, **route)
+    codes = _t(codes, torch.int32)
+    dtype = ts.input_dtype(tc)
+    nxt = (ts.decode_amp(codes[:, :-1], tc.quantization_channels)
+           if tc.scalar_input else codes[:, :-1])
+    forced = torch.cat([_t(seed_codes, dtype), nxt.to(dtype)], dim=1)
+    packed = ts.pack_sampler_weights(
+        tp, tc, B, None if gids is None else tw.embed_gc(tp, tc, gids))
+    n_forced = seed_codes.shape[1]
+    got_codes, got = ts.decode_sequential(
+        packed, tc, forced.contiguous(), n_forced - 1 + n_samples, 0,
+        collect_logits=collect)
+    np.testing.assert_array_equal(got_codes[:, n_forced - 1:-1].numpy(),
+                                  codes[:, :-1].numpy())
+    return np.asarray(logits), got.numpy()
+
+
+@pytest.mark.parametrize("variant", ["mulaw", "gc", "scalar"])
+def test_matches_hbm_ring_kernel_on_its_codes(variant, rng):
+    """TPU kernel #4, ``_sampler_kernel_hbm`` (``ring_in_hbm=True``): the
+    forced prefix stepped from a zero ring, then sampled steps; every
+    step's logits (the twins of test_hbm_ring_matches_forward and
+    test_hbm_ring_variants)."""
+    base = SCALAR if variant == "scalar" else SMALL
+    jc, tc, jp, tp = _pair(base, gc=variant == "gc", key=5)
+    B = 3 if variant == "mulaw" else 2
+    T = jc.receptive_field + 5
+    if variant == "scalar":
+        seed_codes = rng.uniform(-1, 1, (B, T)).astype(np.float32)
+    else:
+        seed_codes = rng.randint(0, 32, (B, T))
+    gc_ids = np.array([1, 3]) if variant == "gc" else None
+    ref, got = _sequential_replay(jc, tc, jp, tp, seed_codes, gc_ids, 9,
+                                  True, ring_in_hbm=True)
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_hbm_ring_windowed_logits_match_full(rng):
+    """A window of the last W steps' logits (twin of
+    test_windowed_logits_hbm_ring): against the TPU kernel's window, and
+    equal to the tail of the port's full collection."""
+    jc, tc, jp, tp = _pair(SMALL)
+    B, W = 2, 5
+    seed_codes = rng.randint(0, 32, (B, jc.receptive_field + 11))
+    ref, got = _sequential_replay(jc, tc, jp, tp, seed_codes, None, 4, W,
+                                  ring_in_hbm=True)
+    np.testing.assert_allclose(got, ref, **TOL)
+    full = ts.generate_cuda(tp, tc, 4, seed=1, batch_size=B,
+                            seed_codes=_t(seed_codes), collect_logits=True,
+                            prefill=False, ring_in_hbm=True)[1]
+    win = ts.generate_cuda(tp, tc, 4, seed=1, batch_size=B,
+                           seed_codes=_t(seed_codes), collect_logits=W,
+                           prefill=False, ring_in_hbm=True)[1]
+    assert win.shape == (B, W, 32)
+    assert torch.equal(win, full[:, -W:])
+
+
+def test_scalar_matches_vmem_kernel_on_its_codes(rng):
+    """Scalar mode of TPU kernel #1 (``_sampler_kernel``, the twin of
+    test_scalar_input_pallas_matches_forward), and every teacher-forced
+    step against the JAX ``forward``."""
+    jc, tc, jp, tp = _pair(SCALAR, key=4)
+    B, T = 2, jc.receptive_field + 6
+    audio = rng.uniform(-1, 1, (B, T)).astype(np.float32)
+    ref, got = _sequential_replay(jc, tc, jp, tp, audio, None, 7, True)
+    np.testing.assert_allclose(got, ref, **TOL)
+    full = jw.forward(jp, jc, jnp.asarray(audio)[..., None])
+    np.testing.assert_allclose(got[:, :T], np.asarray(full), **TOL)
+
+
+@pytest.mark.parametrize("split", ["mid", "edge", "short"])
+def test_scalar_prefill_carry_matches_jax(split, rng):
+    jc, tc, jp, tp = _pair(SCALAR, key=1)
+    B = 2
+    audio = rng.uniform(-1, 1, (B, jc.receptive_field + 9)).astype(np.float32)
+    P = {"mid": jc.receptive_field + 2, "edge": jc.receptive_field - 2,
+         "short": 2}[split]
+    ref = js.prefill_carry(jp, jc, jnp.asarray(audio[:, :P]))
+    got = ts.prefill_carry(tp, tc, _t(audio[:, :P]))
+    R = tc.residual_channels
+    assert got.t_abs == ref.t_abs == P - 1
+    assert got.causal.shape == (B, tc.initial_filter_width - 1)
+    np.testing.assert_allclose(got.ring.numpy(),
+                               np.asarray(ref.ring)[:, :, :R], **TOL)
+    np.testing.assert_array_equal(got.causal.numpy(), np.asarray(ref.causal))
+    np.testing.assert_array_equal(got.last.numpy(), np.asarray(ref.last))
+
+
+def test_scalar_prefill_decode_matches_forward(rng):
+    """The prefill route in scalar mode: prefill the seed, then decode the
+    rest teacher-forced; every decoded step equals the JAX forward."""
+    jc, tc, jp, tp = _pair(SCALAR, key=2)
+    B, T = 2, jc.receptive_field + 12
+    audio = rng.uniform(-1, 1, (B, T)).astype(np.float32)
+    P = jc.receptive_field + 1
+    carry = ts.prefill_carry(tp, tc, _t(audio[:, :P]))
+    packed = ts.pack_sampler_weights(tp, tc, B)
+    forced = _t(audio[:, P - 1:]).contiguous()
+    _, logits = ts.decode(packed, tc, carry.ring, carry.causal, forced,
+                          T - P + 1, carry.t_abs, 0, collect_logits=True)
+    full = np.asarray(jw.forward(jp, jc, jnp.asarray(audio)[..., None]))
+    np.testing.assert_allclose(logits.numpy(), full[:, P - 1:], **TOL)
+
+
+def test_wide_shaped_params_cross_packages(rng):
+    """``params_from_numpy`` carries a parameter set of the wide config's
+    shapes (R=D=64, S=1024, scalar input, 32-tap causal layer; three
+    layers) across: the port's prefill + decode equals the JAX forward."""
+    d = dict(dilations=(1, 2, 4), residual_channels=64, dilation_channels=64,
+             skip_channels=1024, quantization_channels=256,
+             scalar_input=True, initial_filter_width=32)
+    jc, tc, jp, tp = _pair(d, key=6)
+    assert tp["causal_filter"].shape == (32, 1, 64)
+    B, T = 2, jc.receptive_field + 4
+    audio = rng.uniform(-1, 1, (B, T)).astype(np.float32)
+    _, logits = ts.generate_cuda(tp, tc, 1, seed=0, batch_size=B,
+                                 seed_codes=_t(audio[:, :T - 3]),
+                                 collect_logits=True)
+    full = np.asarray(jw.forward(jp, jc, jnp.asarray(audio)[..., None]))
+    np.testing.assert_allclose(logits[:, 0].numpy(), full[:, T - 4], **TOL)
+    np.testing.assert_allclose(
+        tw.forward(tp, tc, _t(audio)[..., None]).numpy(), full, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Resumable segments (generate_cuda_resumable)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scalar", [False, True])
+def test_resumable_segments_equal_one_run(scalar, rng):
+    """Two resumed segments == one long run from a zero ring, sample for
+    sample, at an argmax temperature (the twin of
+    test_resumable_stream_segments_equal_one_run)."""
+    jc, tc, jp, tp = _pair(SCALAR if scalar else SMALL)
+    B, rf = 2, tc.receptive_field
+    seed_codes = _t(rng.uniform(-1, 1, (B, rf)).astype(np.float32)
+                    if scalar else rng.randint(0, 32, (B, rf)))
+    full = ts.generate_cuda(tp, tc, 20, seed=0, batch_size=B,
+                            seed_codes=seed_codes, temperature=1e-6,
+                            prefill=False, ring_in_hbm=True, stream_io=True)
+    seg1, carry = ts.generate_cuda_resumable(
+        tp, tc, 9, seed=0, batch_size=B, seed_codes=seed_codes,
+        temperature=1e-6)
+    seg2, carry = ts.generate_cuda_resumable(
+        tp, tc, 11, seed=0, batch_size=B, temperature=1e-6, carry=carry)
+    assert carry.t_abs == rf - 1 + 20
+    assert torch.equal(torch.cat([seg1, seg2], dim=1), full)
+
+
+def test_resumable_three_segments_equal_one_run_at_any_temperature(rng):
+    """Three segments (twin of test_resumable_stream_three_segments);
+    the noise is keyed on the absolute step, so at temperature 1 too they
+    are bitwise the prefill route's single run."""
+    _, tc, _, tp = _pair(SMALL, key=1)
+    seed_codes = _t(rng.randint(0, 32, (1, tc.receptive_field)))
+    for temperature in (1e-6, 1.0):
+        full = ts.generate_cuda(tp, tc, 18, seed=4, seed_codes=seed_codes,
+                                temperature=temperature)
+        outs, carry = [], None
+        for n in (5, 6, 7):
+            seg, carry = ts.generate_cuda_resumable(
+                tp, tc, n, seed=4,
+                seed_codes=seed_codes if carry is None else None,
+                temperature=temperature, carry=carry)
+            outs.append(seg)
+        assert torch.equal(torch.cat(outs, dim=1), full)
+    with pytest.raises(ValueError, match="first segment"):
+        ts.generate_cuda_resumable(tp, tc, 2, seed=4, seed_codes=seed_codes,
+                                   carry=carry)
+
+
+def test_rows_per_block_respects_shared_memory():
+    wide = TConfig(dilations=(1,) * 30, residual_channels=64,
+                   dilation_channels=64, skip_channels=1024,
+                   quantization_channels=256, scalar_input=True)
+    assert ts._rows_per_block(2000, wide) == 8
+    assert ts._smem_bytes(wide, 8) <= ts._SMEM_LIMIT
+    assert [ts._rows_per_block(b, wide) for b in (1, 64, 263, 264, 528)] == \
+        [1, 1, 1, 2, 4]
+    huge = TConfig(dilations=(1,), residual_channels=64,
+                   dilation_channels=64, skip_channels=4096,
+                   quantization_channels=256)
+    assert ts._smem_bytes(huge, 8) > ts._SMEM_LIMIT
+    assert ts._rows_per_block(2000, huge) == 4
 

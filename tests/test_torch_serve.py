@@ -193,8 +193,24 @@ def test_gc_service_steers_output(tmp_path):
     np.testing.assert_array_equal(rows[0], a)
 
 
+def test_scalar_service_serves(tmp_path):
+    """A scalar-input model: the seed is silence amplitudes, the decode
+    feeds back decoded amplitudes, the output is mu-law codes."""
+    cfg = WaveNetConfig(**TINY, scalar_input=True, initial_filter_width=4)
+    npz, js = _write(tmp_path, cfg)
+    svc = GenerationService(npz, js, warm_samples=8, device="cpu")
+    a = svc.generate(64, seed=3)
+    assert a.shape == (64,) and np.all(np.abs(a) <= 1.0)
+    assert len(np.unique(a)) > 4
+    np.testing.assert_array_equal(svc.generate(64, seed=3), a)
+    rows = svc.generate_batch(64, batch=3, seed=3)
+    assert rows.shape == (3, 64)
+    np.testing.assert_array_equal(rows[0], a)
+
+
+# LC stays unported, for scalar-input models too.
 @pytest.mark.parametrize("extra", [{"lc_channels": 2},
-                                   {"scalar_input": True}])
+                                   {"scalar_input": True, "lc_channels": 2}])
 def test_unported_models_raise(tmp_path, extra):
     cfg = WaveNetConfig(**{**TINY, **extra})
     js = tmp_path / "m.json"

@@ -1,15 +1,22 @@
 // sampler_decode: whole-network autoregressive WaveNet decode, one launch
 // per generation, for NVIDIA Hopper (sm_90a).
 //
-// Replaces three TPU (Pallas) kernels of the JAX package, which compute
+// Replaces four TPU (Pallas) kernels of the JAX package, which compute
 // the same per-step network and differ only in where the TPU keeps the
-// layer ring:
+// layer ring and whether the forced prefix is primed in the kernel:
 //   wavenet_tpu/kernels/sampler.py:234         _sampler_kernel (ring in VMEM)
 //   wavenet_tpu/kernels/sampler.py:1308        _sampler_kernel_hbm_stream (ring in HBM rows)
 //   wavenet_tpu/kernels/sampler_packed.py:142  _decode_kernel_packed (quad-packed HBM ring)
+//   wavenet_tpu/kernels/sampler.py:1057        _sampler_kernel_hbm (one pass from a
+//                                              zero ring, forced prefix stepped in-kernel)
+// The last is this kernel launched on a zero ring and causal register
+// with the whole forced prefix (the wrapper decode_sequential).
 //
-// Per step t and batch row b (mu-law input, float32 weights and state):
-//   current = [causal | onehot(x)] @ causal_w
+// Per step t and batch row b (float32 weights and state):
+//   current = [causal | feature(x)] @ causal_w
+//     mu-law input: feature = onehot(x), causal holds the previous one-hot
+//     scalar input: feature = the amplitude x, causal holds the previous
+//                   initial_filter_width - 1 amplitudes (oldest first)
 //   for each layer l:  pos = offset_l + (t0 + t) % d_l
 //       past = ring[pos, b];  ring[pos, b] = current
 //       fg   = [past | current] @ layer_w[l] + layer_add[l, b]
@@ -17,7 +24,10 @@
 //       current += out @ dense_w[l] + dense_add[l];  skip += out @ skip_w[l]
 //   logits = relu(relu(skip + skip_b) @ post1 + b1) @ post2 + b2
 //   sampled = argmax(logits / T + Gumbel), ties to the lowest index
-// with a forced prefix of n_forced inputs, an optional window of the last
+// with a forced prefix of n_forced inputs (int codes, or float amplitudes
+// in scalar mode: a forced step then emits the amplitude's mu-law code and
+// a sampled code re-enters as its decoded amplitude), an optional window
+// of the last
 // n_log steps' logits, and resume from a given ring, causal register and
 // absolute phase t0 (the ring is updated in place).
 //
@@ -29,7 +39,8 @@
 //
 // What bounds it. Each step reads every weight once per block: about
 // 4.3 MB of float32 at the paper config (30 layers, R=D=32, S=512,
-// Q=256), and does about 2.1 MFLOP per batch row. Read from device memory
+// Q=256), and does about 2.1 MFLOP per batch row (the wide config, R=D=64,
+// S=1024: 15.6 MB and 7.8 MFLOP). Read from device memory
 // every step, the weights would bound b1 by bytes; kept on chip, the
 // launch is bound by FP32 operations, which grow with B. In practice a
 // step is a strict dependency chain of ~220 __syncthreads (seven per
@@ -44,7 +55,9 @@
 // Matvecs split K across thread groups and add the partial sums in a
 // fixed order, so a row's result does not depend on how many rows share
 // its block. Plain FP32 FMAs, no tensor cores: this is the simple, right
-// first version.
+// first version. At the wide widths the step is longer (0.63 against 0.21
+// ms at b1 on an H100): one block pulls 15.6 MB of weights from L2 per
+// step with a few 4-byte loads in flight per thread, ~25 GB/s per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,7 +69,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 struct DecodeArgs {
-  const float* causal_w;   // [2Q, R]  rows: previous input | current input
+  const float* causal_w;   // [KC + C_in, R]  rows: causal register | input
   const float* layer_w;    // [L, 2R, 2D]
   const float* layer_add;  // [L, B, 2D]
   const float* dense_w;    // [L, D, R]
@@ -69,11 +82,13 @@ struct DecodeArgs {
   const float* post2_b;    // [Q]
   const int* ring_meta;    // [2L]: ring row offsets, then dilations
   float* ring;             // [sum_d, B, R], updated in place
-  float* causal;           // [B, Q], updated in place
-  const int* forced;       // [B, n_forced]
+  float* causal;           // [B, KC], updated in place
+  const void* forced;      // [B, n_forced] int32, or float32 when scalar
   int* codes;              // [B, n_total]
   float* logits;           // [B, n_log, Q] or null
   int B, L, R, D, S, Q, n_total, n_forced, n_log;
+  int scalar;              // 1: scalar input (amplitudes), 0: mu-law codes
+  int KC;                  // causal register width: Q, or ifw - 1 if scalar
   long long t0;
   uint32_t key0, key1;
   float inv_temperature;
@@ -155,16 +170,40 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// The JAX kernels' mu-law formulas, op by op (no contraction into FMAs);
+// their constants are float32 roundings of double values, as there.
+__device__ __forceinline__ float decode_amp(int code, float mu) {
+  const float ln1p_mu = (float)log1p((double)mu);
+  const float inv_mu = (float)(1.0 / (double)mu);
+  const float sgn = __fsub_rn(__fmul_rn(2.f, __fdiv_rn((float)code, mu)), 1.f);
+  const float mag = __fmul_rn(
+      inv_mu, __fsub_rn(expf(__fmul_rn(fabsf(sgn), ln1p_mu)), 1.f));
+  return sgn > 0.f ? mag : (sgn < 0.f ? -mag : 0.f);
+}
+
+__device__ __forceinline__ int mu_law_encode(float amp, float mu) {
+  const float inv_ln1p_mu = (float)(1.0 / log1p((double)mu));
+  const float safe = fminf(fabsf(amp), 1.f);
+  const float mag = __fmul_rn(log1pf(__fmul_rn(mu, safe)), inv_ln1p_mu);
+  const float sig = amp > 0.f ? mag : (amp < 0.f ? -mag : 0.f);
+  return (int)__fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(sig, 1.f), 2.f), mu),
+                        0.5f);
+}
+
 template <int RB>
 __global__ void __launch_bounds__(kThreads)
 sampler_decode_kernel(const DecodeArgs a) {
   extern __shared__ float smem[];
   const int R = a.R, D = a.D, S = a.S, Q = a.Q, L = a.L, B = a.B;
+  const int KC = a.KC;
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * RB;
+  const float mu = (float)(Q - 1);
+  const int* forced_i = static_cast<const int*>(a.forced);
+  const float* forced_f = static_cast<const float*>(a.forced);
 
-  float* causal = smem;                  // [RB][Q]
-  float* xcat = causal + RB * Q;         // [RB][2R]
+  float* causal = smem;                  // [RB][KC]
+  float* xcat = causal + RB * KC;        // [RB][2R]
   float* cur = xcat + RB * 2 * R;        // [RB][R]
   float* fg = cur + RB * R;              // [RB][2D]
   float* out = fg + RB * 2 * D;          // [RB][D]
@@ -176,16 +215,19 @@ sampler_decode_kernel(const DecodeArgs a) {
   float* red_v = part + RB * kThreads;   // [kWarps]
   int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // [kWarps]
   int* meta = red_i + kWarps;            // [2L]
-  int* xin = meta + 2 * L;               // [RB]
+  int* xin = meta + 2 * L;               // [RB] current code (mu-law)
+  float* xamp = reinterpret_cast<float*>(xin + RB);  // [RB] amplitude (scalar)
 
   for (int i = tid; i < 2 * L; i += kThreads) meta[i] = a.ring_meta[i];
-  for (int i = tid; i < RB * Q; i += kThreads) {
-    const int row = row0 + i / Q;
-    causal[i] = row < B ? a.causal[(size_t)row * Q + i % Q] : 0.f;
+  for (int i = tid; i < RB * KC; i += kThreads) {
+    const int row = row0 + i / KC;
+    causal[i] = row < B ? a.causal[(size_t)row * KC + i % KC] : 0.f;
   }
   if (tid < RB) {
     const int row = row0 + tid;
-    xin[tid] = row < B ? a.forced[(size_t)row * a.n_forced] : 0;
+    const size_t at = (size_t)row * a.n_forced;
+    xin[tid] = (row < B && !a.scalar) ? forced_i[at] : 0;
+    xamp[tid] = (row < B && a.scalar) ? forced_f[at] : 0.f;
   }
   __syncthreads();
 
@@ -193,15 +235,30 @@ sampler_decode_kernel(const DecodeArgs a) {
   for (int t = 0; t < a.n_total; ++t) {
     const long long step = a.t0 + t;
 
-    // Causal layer: current = causal @ causal_w[:Q] + causal_w[Q + x].
-    matvec<RB>(causal, Q, Q, a.causal_w, R, part,
+    // Causal layer: current = causal @ causal_w[:KC] + the input's row
+    // (mu-law: row KC + x of the one-hot; scalar: x times row KC).
+    matvec<RB>(causal, KC, KC, a.causal_w, R, part,
                [&](int r, int n, float s) {
-                 cur[r * R + n] = s + __ldg(a.causal_w +
-                                            (size_t)(Q + xin[r]) * R + n);
+                 cur[r * R + n] =
+                     a.scalar ? fmaf(xamp[r],
+                                     __ldg(a.causal_w + (size_t)KC * R + n), s)
+                              : s + __ldg(a.causal_w +
+                                          (size_t)(KC + xin[r]) * R + n);
                });
     __syncthreads();
-    for (int i = tid; i < RB * Q; i += kThreads)
-      causal[i] = (i % Q == xin[i / Q]) ? 1.f : 0.f;
+    if (a.scalar) {
+      // Shift the amplitude register left by one and append x (through
+      // the free partial-sum scratch: the shift reads what it overwrites).
+      for (int i = tid; i < RB * KC; i += kThreads) {
+        const int r = i / KC, j = i % KC;
+        part[i] = j + 1 < KC ? causal[i + 1] : xamp[r];
+      }
+      __syncthreads();
+      for (int i = tid; i < RB * KC; i += kThreads) causal[i] = part[i];
+    } else {
+      for (int i = tid; i < RB * KC; i += kThreads)
+        causal[i] = (i % KC == xin[i / KC]) ? 1.f : 0.f;
+    }
     for (int i = tid; i < RB * S; i += kThreads) skip[i] = 0.f;
 
     for (int l = 0; l < L; ++l) {
@@ -320,30 +377,40 @@ sampler_decode_kernel(const DecodeArgs a) {
         if (tid == 0) {
           const int sampled = bi < Q ? bi : 0;
           int nx = sampled;
+          float amp = a.scalar ? decode_amp(sampled, mu) : 0.f;
           if (row < B) {
             // Body t consumes input t and emits input t + 1: forced while
             // t + 1 < n_forced, then the sampled code.
-            if (t + 1 < a.n_forced)
-              nx = a.forced[(size_t)row * a.n_forced + t + 1];
+            if (t + 1 < a.n_forced) {
+              const size_t at = (size_t)row * a.n_forced + t + 1;
+              if (a.scalar) {
+                amp = forced_f[at];
+                nx = mu_law_encode(amp, mu);
+              } else {
+                nx = forced_i[at];
+              }
+            }
             a.codes[(size_t)row * a.n_total + t] = nx;
           }
           xin[r] = nx;
+          xamp[r] = amp;
         }
       }
       __syncthreads();
     }
   }
 
-  for (int i = tid; i < RB * Q; i += kThreads) {
-    const int row = row0 + i / Q;
-    if (row < B) a.causal[(size_t)row * Q + i % Q] = causal[i];
+  for (int i = tid; i < RB * KC; i += kThreads) {
+    const int row = row0 + i / KC;
+    if (row < B) a.causal[(size_t)row * KC + i % KC] = causal[i];
   }
 }
 
 template <int RB>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t floats = (size_t)RB * (2 * a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
-                        (size_t)RB * kThreads + kWarps;
+  const size_t floats =
+      (size_t)RB * (a.KC + a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
+      (size_t)RB * kThreads + kWarps + RB;   // ..., part, red_v, xamp
   const size_t ints = kWarps + 2 * (size_t)a.L + RB;
   const size_t bytes = 4 * (floats + ints);
   if (bytes > 48 * 1024) {
@@ -364,10 +431,11 @@ extern "C" int sampler_decode_f32(
     const float* dense_w, const float* dense_add, const float* skip_w,
     const float* skip_b, const float* post1_w, const float* post1_b,
     const float* post2_w, const float* post2_b, const int* ring_meta,
-    float* ring, float* causal, const int* forced, int* codes, float* logits,
-    int B, int L, int R, int D, int S, int Q, int n_total, int n_forced,
-    int n_log, long long t0, unsigned long long seed, float inv_temperature,
-    int rows_per_block, void* stream) {
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, int B, int L, int R, int D, int S, int Q, int n_total,
+    int n_forced, int n_log, int scalar_input, int causal_width, long long t0,
+    unsigned long long seed, float inv_temperature, int rows_per_block,
+    void* stream) {
   DecodeArgs a;
   a.causal_w = causal_w;
   a.layer_w = layer_w;
@@ -395,11 +463,17 @@ extern "C" int sampler_decode_f32(
   a.n_total = n_total;
   a.n_forced = n_forced;
   a.n_log = n_log;
+  a.scalar = scalar_input;
+  a.KC = causal_width;
   a.t0 = t0;
   a.key0 = (uint32_t)(seed & 0xffffffffull);
   a.key1 = (uint32_t)(seed >> 32);
   a.inv_temperature = inv_temperature;
-  if (B < 1 || n_total < 1 || n_forced < 1) return (int)cudaErrorInvalidValue;
+  // The scalar register shifts through the partial-sum scratch, which
+  // holds kThreads floats per row.
+  if (B < 1 || n_total < 1 || n_forced < 1 || causal_width < 1 ||
+      (scalar_input && causal_width > kThreads))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (rows_per_block) {
     case 1: return (int)launch<1>(a, s);

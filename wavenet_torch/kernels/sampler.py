@@ -1,13 +1,23 @@
 """Autoregressive generation: prefill on PyTorch, decode in one CUDA kernel.
 
 Counterpart of ``wavenet_tpu/kernels/sampler.py`` (host side) and of its
-three decode kernels, which the one kernel ``csrc/sampler_decode.cu``
-replaces (its header says which and why). Generation is two phases:
+four decode kernels, which the one kernel ``csrc/sampler_decode.cu``
+replaces (its header says which and why). Generation takes one of two
+routes (``generate_cuda``):
 
-* prefill (``prefill_carry``): one parallel ``forward_codes`` over the
-  seed codes fills every layer's ring rows and the causal register;
-* decode (``decode``): one kernel launch runs every step of every row,
-  resuming from that state, sampling in the kernel.
+* prefill + decode (``prefill=True``, what the CLI and the server use):
+  one parallel forward over the seed fills every layer's ring rows and
+  the causal register (``prefill_carry``), then one launch of ``decode``
+  runs every step of every row from that state, sampling in the kernel;
+* sequential (``prefill=False``; with ``ring_in_hbm=True`` this is the
+  route of the JAX package's single-pass HBM-ring kernel): one launch of
+  ``decode_sequential`` from a zero ring steps the whole forced prefix
+  and then samples.
+
+Mu-law models take int32 codes; scalar-input models take float32
+amplitudes (the forced prefix, the seed and the carry's last input) and
+still emit mu-law codes, a sampled code re-entering as its decoded
+amplitude.
 
 Layouts differ from the TPU package where the TPU forced them: the ring
 is ``[sum_d, B, R]`` (no 128-lane padding), forced inputs are
@@ -16,7 +26,8 @@ step order. The b1 transposed weights, batch chunking and the ring
 packing were TPU layouts and have no counterpart.
 
 ``decode_reference`` is the plain PyTorch version of the kernel, with
-the same Philox4x32-10 noise; ``decode`` uses it only for CPU tensors.
+the same Philox4x32-10 noise; ``decode`` and ``decode_sequential`` use it
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,8 +42,8 @@ import torch.nn.functional as F
 
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import (
-    Params, embed_gc, forward_codes, one_hot)
-from wavenet_torch.sample import ring_slot_blocks
+    Params, embed_gc, forward, forward_codes, one_hot)
+from wavenet_torch.sample import _input_kernel_width, ring_slot_blocks
 
 
 class PackedSampler(NamedTuple):
@@ -42,7 +53,7 @@ class PackedSampler(NamedTuple):
     tanh gives both tanh(f) and sigmoid(g) = 0.5 + 0.5*tanh(g/2); bias and
     GC are folded into ``layer_add``; the per-layer skip biases are summed.
     """
-    causal_w: torch.Tensor     # [2 * Q, R]   (previous input | current input)
+    causal_w: torch.Tensor     # [kw_in * C_in, R]  (causal register | input)
     layer_w: torch.Tensor      # [L, 2R, 2D]  (K = past|current, N = filt|gate/2)
     layer_add: torch.Tensor    # [L, B, 2D]
     dense_w: torch.Tensor      # [L, D, R]
@@ -58,9 +69,31 @@ class PackedSampler(NamedTuple):
 class StreamSamplerCarry(NamedTuple):
     """Decode state: what ``decode`` resumes from."""
     ring: torch.Tensor         # [sum_d, B, R] float32
-    causal: torch.Tensor       # [B, Q] float32 causal shift register
+    causal: torch.Tensor       # [B, (kw_in - 1) * C_in] float32 register
     t_abs: int                 # absolute steps completed (ring phase)
-    last: torch.Tensor         # [B] int32, the first decode input
+    last: torch.Tensor         # [B] the first decode input: int32 code, or
+                               # float32 amplitude in scalar mode
+
+
+def causal_width(config: WaveNetConfig) -> int:
+    """Width of the causal shift register: (kw_in - 1) * C_in."""
+    return (_input_kernel_width(config) - 1) * config.input_channels
+
+
+def input_dtype(config: WaveNetConfig) -> torch.dtype:
+    """Forced inputs and seeds: float32 amplitudes in scalar mode, else
+    int32 mu-law codes."""
+    return torch.float32 if config.scalar_input else torch.int32
+
+
+def zero_state(config: WaveNetConfig, batch_size: int, device=None):
+    """(ring, causal) of a run that starts from silence: all zeros."""
+    c = config
+    ring = torch.zeros((sum(c.dilations), batch_size, c.residual_channels),
+                       dtype=torch.float32, device=device)
+    causal = torch.zeros((batch_size, causal_width(c)), dtype=torch.float32,
+                         device=device)
+    return ring, causal
 
 
 def _require_float32(weight_dtype) -> None:
@@ -124,12 +157,12 @@ def unseeded_seed_codes(config: WaveNetConfig, batch_size: int, seed: int,
 
     The same recipe as the JAX package; the random code comes from a
     ``torch.Generator`` seeded with ``seed``, so it differs from JAX's.
+    Scalar mode primes receptive_field amplitudes of silence (0.0).
     """
     c = config
     if c.scalar_input:
-        raise NotImplementedError(
-            "scalar input is not ported yet (ROADMAP.md, 'scalar input in "
-            "sampler_decode')")
+        return torch.zeros((batch_size, c.receptive_field),
+                           dtype=torch.float32, device=device)
     gen = torch.Generator().manual_seed(int(seed))
     first = torch.randint(0, c.quantization_channels, (batch_size, 1),
                           generator=gen, dtype=torch.int64)
@@ -170,21 +203,18 @@ def prefill_carry(params: Params, config: WaveNetConfig,
 
     The ring after teacher-forcing steps 0..T-2 is the residual stream
     entering each layer at its last d_l positions, which one parallel
-    ``forward_codes`` computes. The carry resumes decoding at absolute
+    forward computes (``forward_codes`` on mu-law codes, ``forward`` on
+    amplitudes in scalar mode). The carry resumes decoding at absolute
     step T-1 with ``seed_codes[:, -1]`` as the first input.
     """
     c = config
     if c.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
-    seed_codes = seed_codes.to(torch.int32)
+    seed_codes = seed_codes.to(input_dtype(c))
     B, T = seed_codes.shape
     last = seed_codes[:, -1].contiguous()
     if T == 1:
-        dev = seed_codes.device
-        ring = torch.zeros((sum(c.dilations), B, c.residual_channels),
-                           dtype=torch.float32, device=dev)
-        causal = torch.zeros((B, c.quantization_channels),
-                             dtype=torch.float32, device=dev)
+        ring, causal = zero_state(c, B, seed_codes.device)
         return StreamSamplerCarry(ring, causal, 0, last)
     ring, causal = _prefill_state(params, c, seed_codes, gc_ids)
     return StreamSamplerCarry(ring, causal, T - 1, last)
@@ -195,20 +225,33 @@ def _prefill_state(params: Params, config: WaveNetConfig,
                    gc_ids: Optional[torch.Tensor]):
     """(ring, causal) after teacher-forcing steps 0..T-2."""
     c = config
+    B = seed_codes.shape[0]
     T_pre = seed_codes.shape[1] - 1
     keep = tuple(min(d, T_pre) for d in c.dilations)
     with torch.no_grad(), _full_float32():
         gc_emb = (embed_gc(params, c, gc_ids.to(seed_codes.device))
                   if gc_ids is not None else None)
-        layer_ins = forward_codes(params, c, seed_codes[:, :T_pre], gc_emb,
-                                  collect_layer_inputs=keep)
+        if c.scalar_input:
+            layer_ins = forward(params, c, seed_codes[:, :T_pre, None],
+                                gc_emb, collect_layer_inputs=keep)
+        else:
+            layer_ins = forward_codes(params, c, seed_codes[:, :T_pre],
+                                      gc_emb, collect_layer_inputs=keep)
         # Ring row offsets[l] + tau % d holds x_l(tau) for the last
         # min(d, T_pre) positions tau < T_pre; other rows stay zero.
         ring = torch.cat(ring_slot_blocks(layer_ins, c.dilations, T_pre),
                          dim=0).contiguous()
-        # Causal register: the one-hot of input T_pre - 1.
-        causal = one_hot(seed_codes[:, T_pre - 1],
-                         c.quantization_channels).contiguous()
+        if c.scalar_input:
+            # Causal register: amplitudes T_pre-kw+1 .. T_pre-1, oldest
+            # first, zero-padded on the left.
+            n_tail = causal_width(c)
+            tail = seed_codes[:, max(0, T_pre - n_tail):T_pre]
+            causal = torch.cat([tail.new_zeros((B, n_tail - tail.shape[1])),
+                                tail], dim=1).contiguous()
+        else:
+            # Causal register: the one-hot of input T_pre - 1.
+            causal = one_hot(seed_codes[:, T_pre - 1],
+                             c.quantization_channels).contiguous()
     return ring, causal
 
 
@@ -268,7 +311,7 @@ def gumbel_noise(seed: int, batch_size: int, step0: int, n_steps: int,
 
 
 # ---------------------------------------------------------------------------
-# Decode: the kernel's wrapper and its plain version
+# Decode: the kernel's wrappers and its plain version
 # ---------------------------------------------------------------------------
 
 def _n_log(collect_logits, n_total: int) -> int:
@@ -279,6 +322,28 @@ def _n_log(collect_logits, n_total: int) -> int:
     return min(int(collect_logits), n_total)
 
 
+def decode_amp(code: torch.Tensor, quantization_channels: int) -> torch.Tensor:
+    """A sampled code as the next input of a scalar-input model: the JAX
+    kernels' mu-law decode (exp of |x| * log1p(mu)), which the CUDA
+    kernel repeats op by op."""
+    mu = float(quantization_channels - 1)
+    sgn = 2.0 * (code.to(torch.float32) / mu) - 1.0
+    mag = (1.0 / mu) * (torch.exp(torch.abs(sgn) * float(np.log1p(mu)))
+                        - 1.0)
+    return torch.sign(sgn) * mag
+
+
+def mu_law_encode_f(amp: torch.Tensor,
+                    quantization_channels: int) -> torch.Tensor:
+    """The code a forced amplitude emits in scalar mode (clamp |amp| <= 1,
+    then + 0.5 and truncate, as the JAX kernels do)."""
+    mu = float(quantization_channels - 1)
+    safe = torch.clamp(torch.abs(amp), max=1.0)
+    magnitude = torch.log1p(mu * safe) * float(1.0 / np.log1p(mu))
+    signal = torch.sign(amp) * magnitude
+    return ((signal + 1.0) / 2.0 * mu + 0.5).to(torch.int32)
+
+
 def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                      ring: torch.Tensor, causal: torch.Tensor,
                      forced: torch.Tensor, n_total: int, t0: int, seed: int,
@@ -287,6 +352,7 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     :func:`decode`): a Python loop over steps, batched over rows."""
     c = config
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
+    scalar, C_in = c.scalar_input, c.input_channels
     B, n_forced = forced.shape
     dev = ring.device
     offs, dil = ring_offsets(c), c.dilations
@@ -297,16 +363,18 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     logits = (torch.empty((B, n_log, Q), dtype=torch.float32, device=dev)
               if n_log else None)
     chunk = max(1, (1 << 20) // (B * Q))
-    x = forced[:, 0].long()
+    # The current input: an amplitude (scalar mode) or a code.
+    x = forced[:, 0].to(torch.float32) if scalar else forced[:, 0].long()
     with torch.no_grad(), _full_float32():
         for t in range(n_total):
             if t % chunk == 0:
                 noise = gumbel_noise(seed, B, t0 + t,
                                      min(chunk, n_total - t), Q, dev)
-            window = torch.cat([causal, F.one_hot(x, Q).to(torch.float32)],
-                               dim=-1)
+            feature = (x[:, None] if scalar
+                       else F.one_hot(x, Q).to(torch.float32))
+            window = torch.cat([causal, feature], dim=-1)
             cur = window @ packed.causal_w
-            causal.copy_(window[:, Q:])
+            causal.copy_(window[:, C_in:])
             skip = None
             for l in range(L):
                 pos = offs[l] + (t0 + t) % dil[l]
@@ -325,23 +393,48 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
             if n_log and t >= log_from:
                 logits[:, t - log_from] = lg
             sampled = torch.argmax(lg * inv_t + noise[t % chunk], dim=-1)
-            x = forced[:, t + 1].long() if t + 1 < n_forced else sampled
-            codes[:, t] = x.to(torch.int32)
+            if t + 1 < n_forced:
+                nxt = forced[:, t + 1]
+                code = mu_law_encode_f(nxt, Q) if scalar else nxt
+                x = nxt.to(torch.float32) if scalar else nxt.long()
+            else:
+                code = sampled
+                x = decode_amp(sampled, Q) if scalar else sampled
+            codes[:, t] = code.to(torch.int32)
     return codes, logits
 
 
-def _rows_per_block(batch_size: int) -> int:
+#: Dynamic shared memory an H100 block may opt in to (bytes).
+_SMEM_LIMIT = 232448
+_THREADS, _WARPS = 256, 8
+
+
+def _smem_bytes(config: WaveNetConfig, rows: int) -> int:
+    """The kernel's dynamic shared memory at ``rows`` rows per block (its
+    launcher's formula)."""
+    c = config
+    floats = (rows * (causal_width(c) + c.quantization_channels
+                      + 3 * c.residual_channels + 3 * c.dilation_channels
+                      + 3 * c.skip_channels)
+              + rows * _THREADS + _WARPS + rows)
+    ints = _WARPS + 2 * c.num_layers + rows
+    return 4 * (floats + ints)
+
+
+def _rows_per_block(batch_size: int, config: WaveNetConfig) -> int:
     """Rows sharing one block (and one read of the weights per step):
-    as many as keep the grid at least one block per SM of an H100."""
+    as many as keep the grid at least one block per SM of an H100 and
+    the block's shared memory within the card's limit."""
     for rb in (8, 4, 2):
-        if batch_size >= rb * 132:
+        if (batch_size >= rb * 132
+                and _smem_bytes(config, rb) <= _SMEM_LIMIT):
             return rb
     return 1
 
 
 def _bind(lib) -> None:
     fn = lib.sampler_decode_f32
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
                    + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -356,33 +449,16 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"sampler_decode: {name} must be contiguous")
 
 
-def decode(packed: PackedSampler, config: WaveNetConfig,
-           ring: torch.Tensor, causal: torch.Tensor, forced: torch.Tensor,
-           n_total: int, t0: int, seed: int, temperature: float = 1.0,
-           collect_logits=False):
-    """Run ``n_total`` decode steps for every row in one kernel launch.
-
-    ``ring`` [sum_d, B, R] and ``causal`` [B, Q] (float32) are the state
-    to resume from at absolute step ``t0``; both are updated in place.
-    ``forced`` [B, n_forced] int32: input 0 is forced[:, 0], and inputs
-    1..n_forced-1 are forced too; later inputs are the sampled codes.
-    Returns ``codes`` [B, n_total] int32 (code t is input t+1) and the
-    logits of the last ``n_log`` steps [B, n_log, Q] (``collect_logits``
-    True = all, int W = last W, False = None).
-
-    CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
-    or raise.
-    """
-    if ring.device.type == "cpu":
-        return decode_reference(packed, config, ring, causal, forced,
-                                n_total, t0, seed, temperature,
-                                collect_logits)
-    if ring.device.type != "cuda":
-        raise ValueError(f"sampler_decode: unsupported device {ring.device}")
+def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
+            causal: torch.Tensor, forced: torch.Tensor, n_total: int,
+            t0: int, seed: int, temperature: float, collect_logits):
+    """Check every operand and launch ``sampler_decode`` once on the
+    current stream; raises if the launch is refused."""
     c = config
-    if c.filter_width != 2 or c.scalar_input or c.lc_enabled:
+    if c.filter_width != 2 or c.lc_enabled:
         raise NotImplementedError(
-            "sampler_decode covers mu-law input, filter_width=2, no LC")
+            "sampler_decode covers filter_width=2 without LC (LC: "
+            "ROADMAP.md queue 1, item 2)")
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
     dev = ring.device
@@ -392,7 +468,9 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
         raise ValueError("sampler_decode needs n_total >= 1 and at least "
                          "one forced input")
     f32 = torch.float32
-    for name, shape in (("causal_w", (2 * Q, R)), ("layer_w", (L, 2 * R, 2 * D)),
+    KC = causal_width(c)
+    for name, shape in (("causal_w", (KC + c.input_channels, R)),
+                        ("layer_w", (L, 2 * R, 2 * D)),
                         ("layer_add", (L, B, 2 * D)), ("dense_w", (L, D, R)),
                         ("dense_add", (L, 1, R)), ("skip_w", (L, D, S)),
                         ("skip_b", (1, S)), ("post1_w", (S, S)),
@@ -400,8 +478,8 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
                         ("post2_b", (1, Q))):
         _check(name, getattr(packed, name), f32, shape, dev)
     _check("ring", ring, f32, (sum(c.dilations), B, R), dev)
-    _check("causal", causal, f32, (B, Q), dev)
-    _check("forced", forced, torch.int32, (B, n_forced), dev)
+    _check("causal", causal, f32, (B, KC), dev)
+    _check("forced", forced, input_dtype(c), (B, n_forced), dev)
 
     from wavenet_torch.kernels import _build
     lib = _build.load("sampler_decode")
@@ -418,17 +496,112 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
         meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
         forced.data_ptr(), codes.data_ptr(),
         logits.data_ptr() if logits is not None else None,
-        B, L, R, D, S, Q, n_total, n_forced, n_log, int(t0),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, float(np.float32(1.0 / temperature)),
-        _rows_per_block(B), stream)
+        B, L, R, D, S, Q, n_total, n_forced, n_log, int(c.scalar_input), KC,
+        int(t0), int(seed) & 0xFFFFFFFFFFFFFFFF,
+        float(np.float32(1.0 / temperature)), _rows_per_block(B, c), stream)
     if err != 0:
         raise RuntimeError(f"sampler_decode launch failed: CUDA error {err}")
-    decode.launches += 1
     return codes, logits
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sampler_decode: unsupported device {t.device}")
+    return t.device.type
+
+
+def decode(packed: PackedSampler, config: WaveNetConfig,
+           ring: torch.Tensor, causal: torch.Tensor, forced: torch.Tensor,
+           n_total: int, t0: int, seed: int, temperature: float = 1.0,
+           collect_logits=False):
+    """Run ``n_total`` decode steps for every row in one kernel launch.
+
+    ``ring`` [sum_d, B, R] and ``causal`` [B, (kw_in-1)*C_in] (float32)
+    are the state to resume from at absolute step ``t0``; both are
+    updated in place. ``forced`` [B, n_forced] (int32 codes, or float32
+    amplitudes in scalar mode): input 0 is forced[:, 0], and inputs
+    1..n_forced-1 are forced too; later inputs are the sampled codes.
+    Returns ``codes`` [B, n_total] int32 (code t is input t+1, a forced
+    amplitude as its mu-law code) and the logits of the last ``n_log``
+    steps [B, n_log, Q] (``collect_logits`` True = all, int W = last W,
+    False = None).
+
+    CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
+    or raise.
+    """
+    if _device_type(ring) == "cpu":
+        return decode_reference(packed, config, ring, causal, forced,
+                                n_total, t0, seed, temperature,
+                                collect_logits)
+    out = _launch(packed, config, ring, causal, forced, n_total, t0, seed,
+                  temperature, collect_logits)
+    decode.launches += 1
+    return out
 
 
 #: Kernel launches made by ``decode`` (read by chip_smoke.py).
 decode.launches = 0
+
+
+def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
+                      forced: torch.Tensor, n_total: int, seed: int,
+                      temperature: float = 1.0, collect_logits=False):
+    """Kernel 4's route: one launch from a zero ring and causal register.
+
+    The whole forced prefix ``forced`` [B, n_forced] is stepped inside
+    the launch, then the remaining ``n_total - n_forced + 1`` inputs are
+    sampled; the ring phase starts at step 0. Returns ``(codes, logits)``
+    as :func:`decode`. This is what the JAX package's single-pass
+    HBM-ring kernel computes (``generate_pallas(ring_in_hbm=True)``).
+    CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
+    or raise.
+    """
+    ring, causal = zero_state(config, forced.shape[0], forced.device)
+    if _device_type(forced) == "cpu":
+        return decode_reference(packed, config, ring, causal, forced,
+                                n_total, 0, seed, temperature,
+                                collect_logits)
+    out = _launch(packed, config, ring, causal, forced, n_total, 0, seed,
+                  temperature, collect_logits)
+    decode_sequential.launches += 1
+    return out
+
+
+#: Kernel launches made by ``decode_sequential`` (read by chip_smoke.py).
+decode_sequential.launches = 0
+
+
+def _check_generation(config: WaveNetConfig, weight_dtype) -> None:
+    if config.filter_width != 2:
+        raise NotImplementedError("sampler_decode requires filter_width=2")
+    if config.lc_enabled:
+        raise NotImplementedError(
+            "local conditioning is not ported yet (ROADMAP.md queue 1, "
+            "item 2, 'LC in sampler_decode')")
+    _require_float32(weight_dtype)
+
+
+def _packed_for(params: Params, config: WaveNetConfig, batch_size: int,
+                gc_ids, weight_dtype):
+    dev = params["postprocess2"].device
+    if gc_ids is not None:
+        gc_ids = torch.as_tensor(gc_ids, dtype=torch.int64).to(dev)
+    gc_emb = (embed_gc(params, config, gc_ids) if gc_ids is not None
+              else None)
+    packed = pack_sampler_weights(params, config, batch_size, gc_emb,
+                                  weight_dtype)
+    return packed, gc_ids, dev
+
+
+def _seed_inputs(config: WaveNetConfig, batch_size: int, seed: int,
+                 seed_codes, dev) -> torch.Tensor:
+    if seed_codes is None:
+        seed_codes = unseeded_seed_codes(config, batch_size, seed, dev)
+    seed_codes = torch.as_tensor(seed_codes).to(dev, input_dtype(config))
+    if seed_codes.shape[0] != batch_size:
+        raise ValueError(f"seed_codes batch {seed_codes.shape[0]} != "
+                         f"{batch_size}")
+    return seed_codes.contiguous()
 
 
 def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
@@ -437,55 +610,96 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
                   temperature: float = 1.0,
                   seed_codes: Optional[torch.Tensor] = None,
                   collect_logits=False, weight_dtype=torch.float32,
-                  prefill: bool = True):
+                  prefill: bool = True, ring_in_hbm: bool = False,
+                  stream_io: bool = False):
     """Generate mu-law codes [B, n_samples] with one decode launch.
 
-    ``seed_codes`` [B, T_seed] teacher-forces the start (default: the
-    unseeded recipe). ``prefill=True`` primes the rings with one parallel
-    forward (``prefill_carry``) and decodes n_samples steps; False runs
-    the forced steps through the kernel too. With ``collect_logits`` it
-    returns ``(codes, logits [B, n_log, Q])`` of the decoded steps.
-    The device is the parameters' device.
+    ``seed_codes`` [B, T_seed] teacher-forces the start (int codes, or
+    float amplitudes in scalar mode; default: the unseeded recipe).
+    Routes, as the JAX package's ``generate_pallas``:
+
+    * ``prefill=True``: one parallel forward primes the rings
+      (``prefill_carry``), then ``decode`` runs n_samples steps (the
+      TPU's kernels 1-3); ``ring_in_hbm``/``stream_io`` are ignored, as
+      there. With ``collect_logits`` only the decoded steps' logits exist.
+    * ``prefill=False``: ``decode_sequential`` steps the forced prefix
+      in the kernel too, from a zero ring, over n_forced-1+n_samples
+      steps. ``ring_in_hbm=True`` without ``stream_io`` is the single-pass
+      HBM-ring kernel's route (TPU kernel 4); with ``stream_io``, and
+      without either, the JAX package runs the same steps through its
+      streamed or VMEM kernels, and the port takes the same one launch.
+      With ``collect_logits`` the logits of every step (or the last W)
+      come back in step order.
+
+    Returns ``codes`` or ``(codes, logits [B, n_log, Q])``. The device is
+    the parameters' device.
     """
     c = config
-    if c.filter_width != 2:
-        raise NotImplementedError("sampler_decode requires filter_width=2")
-    if c.scalar_input:
-        raise NotImplementedError(
-            "scalar input is not ported yet (ROADMAP.md, 'scalar input in "
-            "sampler_decode')")
-    if c.lc_enabled:
-        raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md, 'LC in "
-            "sampler_decode')")
-    _require_float32(weight_dtype)
-    dev = params["postprocess2"].device
+    _check_generation(c, weight_dtype)
     B = batch_size
-    if gc_ids is not None:
-        gc_ids = torch.as_tensor(gc_ids, dtype=torch.int64).to(dev)
-    gc_emb = embed_gc(params, c, gc_ids) if gc_ids is not None else None
-    packed = pack_sampler_weights(params, c, B, gc_emb, weight_dtype)
-    if seed_codes is None:
-        seed_codes = unseeded_seed_codes(c, B, seed, dev)
-    seed_codes = torch.as_tensor(seed_codes).to(dev, torch.int32)
-    if seed_codes.shape[0] != B:
-        raise ValueError(f"seed_codes batch {seed_codes.shape[0]} != {B}")
+    packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
+    seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
     if prefill:
         carry = prefill_carry(params, c, seed_codes, gc_ids)
-        ring, causal, t0 = carry.ring, carry.causal, carry.t_abs
         forced = carry.last[:, None].contiguous()
-        n_total, skip_front = n_samples, 0
+        codes, logits = decode(packed, c, carry.ring, carry.causal, forced,
+                               n_samples, carry.t_abs, seed, temperature,
+                               collect_logits)
     else:
-        ring = torch.zeros((sum(c.dilations), B, c.residual_channels),
-                           dtype=torch.float32, device=dev)
-        causal = torch.zeros((B, c.quantization_channels),
-                             dtype=torch.float32, device=dev)
-        forced, t0 = seed_codes.contiguous(), 0
-        n_total = seed_codes.shape[1] - 1 + n_samples
-        skip_front = seed_codes.shape[1] - 1
-    codes, logits = decode(packed, c, ring, causal, forced, n_total, t0,
-                           seed, temperature, collect_logits)
-    codes = codes[:, skip_front:]
+        n_forced = seed_codes.shape[1]
+        codes, logits = decode_sequential(
+            packed, c, seed_codes, n_forced - 1 + n_samples, seed,
+            temperature, collect_logits)
+        codes = codes[:, n_forced - 1:]
     if collect_logits:
         return codes, logits
     return codes
+
+
+def generate_cuda_resumable(params: Params, config: WaveNetConfig,
+                            n_samples: int, seed: int, batch_size: int = 1,
+                            gc_ids: Optional[torch.Tensor] = None,
+                            temperature: float = 1.0,
+                            seed_codes: Optional[torch.Tensor] = None,
+                            carry: Optional[StreamSamplerCarry] = None,
+                            weight_dtype=torch.float32,
+                            prefill: bool = True):
+    """One segment of generation; returns ``(codes [B, n_samples],
+    carry')`` (the counterpart of ``generate_pallas_resumable``).
+
+    First call (``carry=None``): primes as :func:`generate_cuda` does
+    (``prefill``, or the forced prefix from a zero ring). Continuations
+    pass the returned carry; its ring and causal register are updated in
+    place (the JAX package donates them). The Philox noise is keyed on
+    the absolute step, so segments with the same ``seed`` equal one long
+    run sample for sample, at any temperature. In scalar mode the carry's
+    last input is the last code's decoded amplitude, by the kernel's own
+    formula (``decode_amp``).
+    """
+    c = config
+    _check_generation(c, weight_dtype)
+    B = batch_size
+    packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
+    if carry is None:
+        seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
+        if prefill:
+            carry = prefill_carry(params, c, seed_codes, gc_ids)
+            forced = carry.last[:, None]
+        else:
+            ring, causal = zero_state(c, B, dev)
+            carry = StreamSamplerCarry(ring, causal, 0, None)
+            forced = seed_codes
+    elif seed_codes is not None:
+        raise ValueError("seed_codes only apply to the first segment")
+    else:
+        forced = carry.last[:, None]
+    forced = forced.to(input_dtype(c)).contiguous()
+    n_forced = forced.shape[1]
+    n_total = n_forced - 1 + n_samples
+    codes, _ = decode(packed, c, carry.ring, carry.causal, forced, n_total,
+                      carry.t_abs, seed, temperature)
+    out = codes[:, n_forced - 1:]
+    last = decode_amp(out[:, -1], c.quantization_channels) \
+        if c.scalar_input else out[:, -1].contiguous()
+    return out, StreamSamplerCarry(carry.ring, carry.causal,
+                                   carry.t_abs + n_total, last)

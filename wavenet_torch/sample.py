@@ -1,14 +1,149 @@
-"""Ring-slot math shared by the sampler prefill.
+"""The scan sampler: one network step at a time over ring-buffered state.
 
-Counterpart of ``wavenet_tpu/sample.py:ring_slot_blocks``; the scan
-sampler of that module is queued in ROADMAP.md.
+Counterpart of ``wavenet_tpu/sample.py`` (its ``lax.scan`` becomes a
+Python loop of plain PyTorch steps). Each layer's past activations live
+in a ring ``[L, max_dilation, B, R]``: layer l reads and writes slot
+``t mod dilation_l``, the queue semantics of the reference's FIFOs. The
+causal input queue is a ``[B, kw-1, C_in]`` shift register (kw =
+initial_filter_width in scalar mode, else filter_width).
+
+This is the port's reference sampler for the CPU and what the CLI runs
+for ``--sampler scan``; the kernel path is ``kernels/sampler.py``.
+Differences from the JAX package: the step counter ``t`` is a Python
+int; a step updates the state's ring in place (the JAX package donates
+it); randomness comes from an explicit ``torch.Generator`` (the ``key``
+arguments), which a chunked run keeps drawing from, so chunks equal one
+run. Gumbel-argmax over logits/T samples the same distribution as
+``jax.random.categorical``, from other random numbers. The speculative
+decoding helpers (``extend_state``) and ``generate_sharded`` are queued
+in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+
+from wavenet_torch.audio import mu_law_decode
+from wavenet_torch.models.config import WaveNetConfig
+from wavenet_torch.models.wavenet import (
+    Params, embed_gc, forward, forward_codes)
+
+
+class SamplerState(NamedTuple):
+    """State between sampler steps."""
+    t: int                    # global step (ring-buffer clock)
+    causal_buf: torch.Tensor  # [B, kw-1, C_in] last kw-1 raw inputs
+    layer_bufs: torch.Tensor  # [L, max_dilation, B, R] past residual acts
+
+
+def _input_kernel_width(config: WaveNetConfig) -> int:
+    return (config.initial_filter_width if config.scalar_input
+            else config.filter_width)
+
+
+def init_sampler_state(config: WaveNetConfig, batch_size: int,
+                       device=None) -> SamplerState:
+    """All-zero queues."""
+    c = config
+    kw = _input_kernel_width(c)
+    return SamplerState(
+        t=0,
+        causal_buf=torch.zeros((batch_size, kw - 1, c.input_channels),
+                               device=device),
+        layer_bufs=torch.zeros((c.num_layers, max(c.dilations), batch_size,
+                                c.residual_channels), device=device))
+
+
+def _check_config(c: WaveNetConfig) -> None:
+    if c.filter_width != 2:
+        raise NotImplementedError(
+            "Incremental generation only implemented for filter_width=2 "
+            "(the reference has the same restriction).")
+    if c.lc_enabled:
+        raise NotImplementedError(
+            "local conditioning is not ported yet (ROADMAP.md queue 1, "
+            "item 2)")
+
+
+def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
+                 x: torch.Tensor,
+                 gc_embedding: Optional[torch.Tensor] = None):
+    """One incremental network evaluation: ``x`` [B, C_in] (one-hot, or
+    the amplitude [B, 1] in scalar mode) -> (new_state, logits [B, Q]).
+    The state's ring is updated in place."""
+    c = config
+    _check_config(c)
+    window = torch.cat([state.causal_buf, x[:, None, :].to(torch.float32)],
+                       dim=1)                                # [B, kw, C_in]
+    current = torch.einsum("bkc,kcr->br", window, params["causal_filter"])
+    bufs = state.layer_bufs
+    skip_sum = None
+    for i, dilation in enumerate(c.dilations):
+        pos = state.t % dilation
+        past = bufs[i, pos].clone()
+        # Enqueue the layer's input where it was read: it is dequeued
+        # again dilation steps from now.
+        bufs[i, pos] = current
+        w_f, w_g = params["filter"][i], params["gate"][i]    # [2, R, D]
+        conv_f = past @ w_f[0] + current @ w_f[1]
+        conv_g = past @ w_g[0] + current @ w_g[1]
+        if gc_embedding is not None:
+            conv_f = conv_f + gc_embedding @ params["gc_filter"][i]
+            conv_g = conv_g + gc_embedding @ params["gc_gate"][i]
+        if c.use_biases:
+            conv_f = conv_f + params["filter_bias"][i]
+            conv_g = conv_g + params["gate_bias"][i]
+        out = torch.tanh(conv_f) * torch.sigmoid(conv_g)
+        transformed = out @ params["dense"][i]
+        skip_c = out @ params["skip"][i]
+        if c.use_biases:
+            transformed = transformed + params["dense_bias"][i]
+            skip_c = skip_c + params["skip_bias"][i]
+        skip_sum = skip_c if skip_sum is None else skip_sum + skip_c
+        current = current + transformed
+
+    h = torch.relu(skip_sum)
+    h = h @ params["postprocess1"]
+    if c.use_biases:
+        h = h + params["postprocess1_bias"]
+    h = torch.relu(h)
+    h = h @ params["postprocess2"]
+    if c.use_biases:
+        h = h + params["postprocess2_bias"]
+    return SamplerState(state.t + 1, window[:, 1:], bufs), h
+
+
+def _featurize(code_or_amp: torch.Tensor,
+               config: WaveNetConfig) -> torch.Tensor:
+    if config.scalar_input:
+        return code_or_amp[..., None].to(torch.float32)     # [B] -> [B, 1]
+    return F.one_hot(code_or_amp.long(),
+                     config.quantization_channels).to(torch.float32)
+
+
+def _code_to_input(code: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
+    """Sampled class -> next-step input features (the decoded amplitude
+    in scalar mode)."""
+    if config.scalar_input:
+        return mu_law_decode(code, config.quantization_channels)[..., None]
+    return _featurize(code, config)
+
+
+def prime_state(params: Params, config: WaveNetConfig, state: SamplerState,
+                waveform: torch.Tensor,
+                gc_embedding: Optional[torch.Tensor] = None) -> SamplerState:
+    """Push a seed waveform [B, T] (int codes, or amplitudes in scalar
+    mode) through the queues, discarding the predictions: the sequential
+    oracle of :func:`prefill_state`."""
+    with torch.no_grad():
+        for t in range(waveform.shape[1]):
+            state, _ = sampler_step(params, config, state,
+                                    _featurize(waveform[:, t], config),
+                                    gc_embedding)
+    return state
 
 
 def ring_slot_blocks(layer_ins: Sequence[torch.Tensor],
@@ -30,3 +165,125 @@ def ring_slot_blocks(layer_ins: Sequence[torch.Tensor],
                           dim=0)
         blocks.append(torch.roll(w, T % d, dims=0))        # [d, B, R]
     return blocks
+
+
+def prefill_state(params: Params, config: WaveNetConfig,
+                  waveform: torch.Tensor,
+                  gc_embedding: Optional[torch.Tensor] = None
+                  ) -> SamplerState:
+    """:func:`prime_state` from zero in one parallel forward: each layer's
+    queue after teacher-forcing ``waveform`` [B, T] is the residual stream
+    entering that layer at its last dilation_l positions."""
+    c = config
+    _check_config(c)
+    B, T = waveform.shape
+    dev = waveform.device
+    if T == 0:
+        return init_sampler_state(c, B, dev)
+    max_d = max(c.dilations)
+    keep = tuple(min(d, T) for d in c.dilations)
+    with torch.no_grad():
+        if c.scalar_input:
+            layer_ins = forward(params, c,
+                                waveform[..., None].to(torch.float32),
+                                gc_embedding, collect_layer_inputs=keep)
+        else:
+            layer_ins = forward_codes(params, c, waveform, gc_embedding,
+                                      collect_layer_inputs=keep)
+        blocks = [F.pad(w, (0, 0, 0, 0, 0, max_d - d))
+                  for d, w in zip(c.dilations,
+                                  ring_slot_blocks(layer_ins, c.dilations,
+                                                   T))]
+        layer_bufs = torch.stack(blocks, dim=0)           # [L, max_d, B, R]
+        # Causal register: the raw input features of the last kw-1 steps.
+        n_tail = _input_kernel_width(c) - 1
+        feats = _featurize(waveform[:, max(0, T - n_tail):], c)
+        feats = F.pad(feats, (0, 0, n_tail - feats.shape[1], 0))
+    return SamplerState(T, feats, layer_bufs)
+
+
+def sample_gumbel(key: torch.Generator, shape) -> torch.Tensor:
+    """Gumbel noise of ``shape`` from ``key``, on its device."""
+    u = torch.rand(shape, generator=key, device=key.device)
+    return -torch.log(-torch.log(torch.clamp_min(u, 1e-20)))
+
+
+def generate_codes_resumable(params: Params, config: WaveNetConfig,
+                             state: SamplerState, first_input: torch.Tensor,
+                             n_samples: int, key: torch.Generator,
+                             temperature: float = 1.0,
+                             gc_embedding: Optional[torch.Tensor] = None):
+    """Sample ``n_samples`` codes from ``state`` with ``first_input``
+    [B, C_in] as the first input; returns (codes [B, n], state,
+    next_input) for a continuation."""
+    Q = config.quantization_channels
+    x = first_input
+    codes = []
+    with torch.no_grad():
+        for _ in range(n_samples):
+            state, logits = sampler_step(params, config, state, x,
+                                         gc_embedding)
+            code = torch.argmax(logits / temperature
+                                + sample_gumbel(key, (x.shape[0], Q)), dim=-1)
+            codes.append(code.to(torch.int32))
+            x = _code_to_input(code, config)
+    out = (torch.stack(codes, dim=1) if codes else
+           torch.empty((x.shape[0], 0), dtype=torch.int32, device=x.device))
+    return out, state, x
+
+
+def generate_codes(params: Params, config: WaveNetConfig,
+                   state: SamplerState, first_input: torch.Tensor,
+                   n_samples: int, key: torch.Generator,
+                   temperature: float = 1.0,
+                   gc_embedding: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Sample ``n_samples`` mu-law codes autoregressively: [B, n]."""
+    codes, _, _ = generate_codes_resumable(
+        params, config, state, first_input, n_samples, key, temperature,
+        gc_embedding)
+    return codes
+
+
+def unseeded_prime(config: WaveNetConfig, batch_size: int,
+                   key: torch.Generator):
+    """(silence [B, receptive_field - 1], first input [B]) of an unseeded
+    run: silence codes and one random code drawn from ``key``; scalar
+    mode primes amplitudes of 0.0 and starts from 0.0."""
+    c = config
+    n_prime = c.receptive_field - 1
+    dev = key.device
+    if c.scalar_input:
+        return (torch.zeros((batch_size, n_prime), device=dev),
+                torch.zeros((batch_size,), device=dev))
+    silence = torch.full((batch_size, n_prime), c.quantization_channels // 2,
+                         dtype=torch.int32, device=dev)
+    first = torch.randint(0, c.quantization_channels, (batch_size,),
+                          generator=key, device=dev, dtype=torch.int32)
+    return silence, first
+
+
+def generate(params: Params, config: WaveNetConfig, n_samples: int,
+             key: torch.Generator, batch_size: int = 1,
+             gc_ids: Optional[torch.Tensor] = None,
+             temperature: float = 1.0,
+             seed_codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """End-to-end generation -> mu-law codes [B, n_samples].
+
+    Without a seed the queues are primed with receptive_field-1 silence
+    steps and one random first code (scalar mode: amplitudes of 0.0);
+    with ``seed_codes`` [B, T] (int codes, or amplitudes in scalar mode)
+    the first T-1 prime the queues and the last is the first input. The
+    tensors live on ``key``'s device.
+    """
+    c = config
+    _check_config(c)
+    gc_emb = (embed_gc(params, c, torch.as_tensor(gc_ids, device=key.device))
+              if gc_ids is not None else None)
+    if seed_codes is None:
+        prime, first = unseeded_prime(c, batch_size, key)
+    else:
+        prime, first = seed_codes[:, :-1], seed_codes[:, -1]
+    state = prefill_state(params, c, prime, gc_emb)
+    return generate_codes(params, c, state, _featurize(first, c), n_samples,
+                          key, temperature, gc_emb)

@@ -21,8 +21,8 @@ API (stdlib-only server, JSON in / WAV or JSON out):
       (default 1024); "codes" responses are capped at CODES_RESPONSE_CAP
       total ints.
 
-Local conditioning, speculative decoding and scalar-input models are not
-ported yet (ROADMAP.md) and raise NotImplementedError at start-up.
+Local conditioning and speculative decoding are not ported yet
+(ROADMAP.md) and raise NotImplementedError at start-up.
 """
 
 from __future__ import annotations
@@ -66,10 +66,6 @@ class GenerationService:
             raise NotImplementedError(
                 "local conditioning is not ported yet (ROADMAP.md, 'LC in "
                 "sampler_decode')")
-        if self.config.scalar_input:
-            raise NotImplementedError(
-                "scalar-input models are not ported yet (ROADMAP.md, "
-                "'scalar input in sampler_decode')")
         if draft_params_npz:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue "
