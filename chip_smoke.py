@@ -45,12 +45,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (logits of every step and a window, rtol 1e-4 and atol 1e-4; sampled
    codes as in phase 3; same-seed runs and b1 against row 0 of b64
    bitwise); the wide config through the prefill route the same way and
-   timed; then ``python -m wavenet_torch.cli.generate`` from phase 5's gc
+   timed, with a probe of the kernel's own next amplitude (``next_amp``)
+   against ``decode_amp`` on the card; then ``python -m wavenet_torch.cli.generate`` from phase 5's gc
    checkpoint (b1 and b64 x 16,000 samples, ``--save_every`` equal to the
    single run, ``--wav_seed``, ``--fast_generation false``) and from
-   seeded paper and wide checkpoints; last, the main path of kernel 4:
-   ``generate_cuda(prefill=False, ring_in_hbm=True)`` three times per
-   case, its launches counted from 0 (its ``kernels`` rows).
+   seeded paper and wide checkpoints (the scalar-input wide one in
+   ``--save_every`` segments too, equal to its single run); last, the
+   main path of kernel 4: ``generate_cuda(prefill=False)`` three times
+   per case, its launches counted from 0 (its ``kernels`` rows).
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -939,8 +941,31 @@ def phase_wide_prefill(c, params, rng, gpu):
         row.update({f"ms_per_step_b{b}": ms / SEQ_TIMED_SAMPLES,
                     f"bound_ms_per_step_b{b}": bound,
                     f"bound_by_b{b}": by})
+    row.update(next_amp_probe(c, params))
     row["gpu"] = gpu
     emit(row)
+
+
+def next_amp_probe(c, params, n: int = 2048):
+    """One sampled step of ``n`` rows at a flat temperature: the kernel's
+    own amplitude for each sampled code (``next_amp``, what a resumed
+    segment starts from) against ``decode_amp`` recomputed on the card by
+    PyTorch. Reported, not checked: the port resumes from the former."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    pk = ks.pack_sampler_weights(params, c, n)
+    ring, causal = ks.zero_state(c, n, "cuda")
+    amp = torch.empty(n, device="cuda")
+    codes, _ = ks.decode(pk, c, ring, causal, torch.zeros((n, 1),
+                         device="cuda"), 1, 0, 29, temperature=1e3,
+                         next_amp=amp)
+    host = ks.decode_amp(codes[:, 0], c.quantization_channels)
+    check(torch.isfinite(amp).all().item(), "next_amp: non-finite")
+    differ = codes[:, 0][host != amp]
+    return {"next_amp_codes_seen": len(torch.unique(codes)),
+            "next_amp_codes_where_host_decode_differs":
+                len(torch.unique(differ)),
+            "next_amp_max_abs_diff": (host - amp).abs().max().item()}
 
 
 def run_generate_cli(argv):
@@ -1018,6 +1043,7 @@ def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
         ("slow", "gc", 1, 36, ["--fast_generation", "false"], 0),
         ("paper_b1", "paper", 1, 4000, [], 1),
         ("wide_b1", "wide", 1, 4000, [], 1),
+        ("wide_save_every", "wide", 1, 4000, ["--save_every", "1000"], 4),
         ("wide_b64", "wide", 64, 4000, [], 1),
     ]
     ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
@@ -1040,23 +1066,24 @@ def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
               "batch": B, "samples": n, "seconds": seconds,
               "samples_per_s": rates[label], "decode_launches": delta,
               "gpu": gpu})
-    check((wavs["save_every"] == wavs["b1"]).all(),
-          "--save_every segments differ from the single run")
+    for label in ("", "wide_"):
+        check((wavs[f"{label}save_every"] == wavs[f"{label}b1"]).all(),
+              f"{label}--save_every segments differ from the single run")
     check(ks.decode_sequential.launches == 0,
           "the CLI took the sequential route")
     launches = ks.decode.launches
     emit({"phase": "generate_cli", "decode_launches": launches,
           "save_every_equals_one_run": True,
+          "wide_save_every_equals_one_run": True,
           "samples_per_s_b1": rates["b1"], "samples_per_s_b64": rates["b64"],
           "gpu": gpu})
     return launches
 
 
 def phase_sequential_main_path(cfgs, params, rng, gpu):
-    """Kernel 4's main path: ``generate_cuda(prefill=False,
-    ring_in_hbm=True)`` three times per case (the same seed: bitwise equal
-    codes), a receptive field of random inputs then 1,024 samples; the
-    median launch time per step."""
+    """Kernel 4's main path: ``generate_cuda(prefill=False)`` three times
+    per case (the same seed: bitwise equal codes), a receptive field of
+    random inputs then 1,024 samples; the median launch time per step."""
     import numpy as np
     import torch
     from wavenet_torch.kernels import sampler as ks
@@ -1072,7 +1099,7 @@ def phase_sequential_main_path(cfgs, params, rng, gpu):
         for _ in range(3):
             times.append(cuda_ms(lambda: outs.append(ks.generate_cuda(
                 p, c, SEQ_TIMED_SAMPLES, seed=31, batch_size=B,
-                seed_codes=prefix, prefill=False, ring_in_hbm=True))))
+                seed_codes=prefix, prefill=False))))
         codes = outs[0]
         check(all(torch.equal(codes, o) for o in outs[1:]),
               f"{name} b{B}: same-seed runs differ")

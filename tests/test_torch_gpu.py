@@ -218,9 +218,32 @@ def test_sequential_route_matches_reference(setup, wide):
     assert torch.equal(codes[:, :-1], codes_r[:, :-1])
     # generate_cuda's route: the sampled tail of the same launch.
     out = ks.generate_cuda(params, c, n_samples, seed=5, batch_size=B,
-                           gc_ids=gids, seed_codes=prefix, prefill=False,
-                           ring_in_hbm=True)
+                           gc_ids=gids, seed_codes=prefix, prefill=False)
     assert torch.equal(out, codes[:, prefix.shape[1] - 1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+def test_scalar_resumable_segments_equal_one_run(setup, B):
+    """At the wide widths, three resumed segments at temperature 1 equal
+    one launch bit for bit: each segment starts from the amplitude that
+    the previous launch computed (``next_amp``)."""
+    c = WaveNetConfig(**WIDE_SMALL)
+    params = _seeded_params(c)
+    rng = np.random.RandomState(9)
+    prefix = torch.as_tensor(rng.uniform(-0.9, 0.9, (
+        B, c.receptive_field)).astype(np.float32), device="cuda")
+    full = ks.generate_cuda(params, c, 600, seed=4, batch_size=B,
+                            seed_codes=prefix)
+    outs, carry = [], None
+    for n in (200, 150, 250):
+        seg, carry = ks.generate_cuda_resumable(
+            params, c, n, seed=4, batch_size=B,
+            seed_codes=prefix if carry is None else None, carry=carry)
+        outs.append(seg)
+    torch.cuda.synchronize()
+    assert carry.last.dtype == torch.float32
+    assert torch.equal(torch.cat(outs, dim=1), full)
 
 
 # Fused stack: another summation order; gradients also rebuild each

@@ -347,10 +347,10 @@ def test_hbm_ring_windowed_logits_match_full(rng):
     np.testing.assert_allclose(got, ref, **TOL)
     full = ts.generate_cuda(tp, tc, 4, seed=1, batch_size=B,
                             seed_codes=_t(seed_codes), collect_logits=True,
-                            prefill=False, ring_in_hbm=True)[1]
+                            prefill=False)[1]
     win = ts.generate_cuda(tp, tc, 4, seed=1, batch_size=B,
                            seed_codes=_t(seed_codes), collect_logits=W,
-                           prefill=False, ring_in_hbm=True)[1]
+                           prefill=False)[1]
     assert win.shape == (B, W, 32)
     assert torch.equal(win, full[:, -W:])
 
@@ -437,7 +437,7 @@ def test_resumable_segments_equal_one_run(scalar, rng):
                     if scalar else rng.randint(0, 32, (B, rf)))
     full = ts.generate_cuda(tp, tc, 20, seed=0, batch_size=B,
                             seed_codes=seed_codes, temperature=1e-6,
-                            prefill=False, ring_in_hbm=True, stream_io=True)
+                            prefill=False)
     seg1, carry = ts.generate_cuda_resumable(
         tp, tc, 9, seed=0, batch_size=B, seed_codes=seed_codes,
         temperature=1e-6)
@@ -469,17 +469,25 @@ def test_resumable_three_segments_equal_one_run_at_any_temperature(rng):
                                    carry=carry)
 
 
-def test_rows_per_block_respects_shared_memory():
-    wide = TConfig(dilations=(1,) * 30, residual_channels=64,
-                   dilation_channels=64, skip_channels=1024,
-                   quantization_channels=256, scalar_input=True)
-    assert ts._rows_per_block(2000, wide) == 8
-    assert ts._smem_bytes(wide, 8) <= ts._SMEM_LIMIT
-    assert [ts._rows_per_block(b, wide) for b in (1, 64, 263, 264, 528)] == \
-        [1, 1, 1, 2, 4]
-    huge = TConfig(dilations=(1,), residual_channels=64,
-                   dilation_channels=64, skip_channels=4096,
-                   quantization_channels=256)
-    assert ts._smem_bytes(huge, 8) > ts._SMEM_LIMIT
-    assert ts._rows_per_block(2000, huge) == 4
-
+@pytest.mark.parametrize("split", [3, 8])
+def test_decode_next_amp_resumes_one_launch(split, rng):
+    """``next_amp`` receives the input after a launch's last step (a forced
+    amplitude when the launch ends inside the forced prefix, else the
+    decoded last code); a launch resumed from it continues the long one."""
+    _, tc, _, tp = _pair(SCALAR, key=3)
+    B, n_total = 2, 14
+    packed = ts.pack_sampler_weights(tp, tc, B)
+    forced = _t(rng.uniform(-1, 1, (B, 6)).astype(np.float32))
+    ring, causal = ts.zero_state(tc, B)
+    full, _ = ts.decode(packed, tc, ring, causal, forced, n_total, 0, 9)
+    ring, causal = ts.zero_state(tc, B)
+    nxt = torch.empty(B)
+    head, _ = ts.decode(packed, tc, ring, causal, forced, split, 0, 9,
+                        next_amp=nxt)
+    want = (forced[:, split] if split < forced.shape[1]
+            else ts.decode_amp(head[:, -1], tc.quantization_channels))
+    assert torch.equal(nxt, want)
+    rest = torch.cat([nxt[:, None], forced[:, split + 1:]], dim=1)
+    tail, _ = ts.decode(packed, tc, ring, causal, rest.contiguous(),
+                        n_total - split, split, 9)
+    assert torch.equal(torch.cat([head, tail], dim=1), full)

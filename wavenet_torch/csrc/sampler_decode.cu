@@ -29,7 +29,9 @@
 // a sampled code re-enters as its decoded amplitude), an optional window
 // of the last
 // n_log steps' logits, and resume from a given ring, causal register and
-// absolute phase t0 (the ring is updated in place).
+// absolute phase t0 (the ring is updated in place). In scalar mode the
+// launch can also return the amplitude of the input after its last step,
+// so that a resumed launch starts from the value this kernel computed.
 //
 // Random bits: Philox4x32-10 keyed on the 64-bit seed, counter
 // (class block, row within the request, absolute step lo, hi). A row's
@@ -86,6 +88,7 @@ struct DecodeArgs {
   const void* forced;      // [B, n_forced] int32, or float32 when scalar
   int* codes;              // [B, n_total]
   float* logits;           // [B, n_log, Q] or null
+  float* next_amp;         // [B] or null: the input after the last step (scalar)
   int B, L, R, D, S, Q, n_total, n_forced, n_log;
   int scalar;              // 1: scalar input (amplitudes), 0: mu-law codes
   int KC;                  // causal register width: Q, or ifw - 1 if scalar
@@ -404,15 +407,40 @@ sampler_decode_kernel(const DecodeArgs a) {
     const int row = row0 + i / KC;
     if (row < B) a.causal[(size_t)row * KC + i % KC] = causal[i];
   }
+  if (a.next_amp && tid < RB && row0 + tid < B)
+    a.next_amp[row0 + tid] = xamp[tid];
+}
+
+// Dynamic shared memory of one block at rb rows: the carve-up at the top
+// of sampler_decode_kernel.
+size_t smem_bytes(const DecodeArgs& a, int rb) {
+  const size_t floats =
+      (size_t)rb * (a.KC + a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
+      (size_t)rb * kThreads + kWarps + rb;   // ..., part, red_v, xamp
+  const size_t ints = kWarps + 2 * (size_t)a.L + rb;
+  return 4 * (floats + ints);
+}
+
+// Rows sharing one block (and one read of the weights per step): as many
+// as keep the grid at least one block per SM and the block's shared memory
+// within what a block may opt in to on this device.
+int rows_per_block(const DecodeArgs& a) {
+  int dev = 0, n_sm = 1, smem_max = 48 * 1024;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_max,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 1;
+  for (int rb = 8; rb > 1; rb >>= 1)
+    if (a.B >= rb * n_sm && smem_bytes(a, rb) <= (size_t)smem_max) return rb;
+  return 1;
 }
 
 template <int RB>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t floats =
-      (size_t)RB * (a.KC + a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
-      (size_t)RB * kThreads + kWarps + RB;   // ..., part, red_v, xamp
-  const size_t ints = kWarps + 2 * (size_t)a.L + RB;
-  const size_t bytes = 4 * (floats + ints);
+  const size_t bytes = smem_bytes(a, RB);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         sampler_decode_kernel<RB>,
@@ -432,9 +460,9 @@ extern "C" int sampler_decode_f32(
     const float* skip_b, const float* post1_w, const float* post1_b,
     const float* post2_w, const float* post2_b, const int* ring_meta,
     float* ring, float* causal, const void* forced, int* codes,
-    float* logits, int B, int L, int R, int D, int S, int Q, int n_total,
-    int n_forced, int n_log, int scalar_input, int causal_width, long long t0,
-    unsigned long long seed, float inv_temperature, int rows_per_block,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
     void* stream) {
   DecodeArgs a;
   a.causal_w = causal_w;
@@ -454,6 +482,7 @@ extern "C" int sampler_decode_f32(
   a.forced = forced;
   a.codes = codes;
   a.logits = logits;
+  a.next_amp = scalar_input ? next_amp : nullptr;
   a.B = B;
   a.L = L;
   a.R = R;
@@ -475,7 +504,7 @@ extern "C" int sampler_decode_f32(
       (scalar_input && causal_width > kThreads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (rows_per_block) {
+  switch (rows_per_block(a)) {
     case 1: return (int)launch<1>(a, s);
     case 2: return (int)launch<2>(a, s);
     case 4: return (int)launch<4>(a, s);

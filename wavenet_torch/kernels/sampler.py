@@ -9,10 +9,9 @@ routes (``generate_cuda``):
   one parallel forward over the seed fills every layer's ring rows and
   the causal register (``prefill_carry``), then one launch of ``decode``
   runs every step of every row from that state, sampling in the kernel;
-* sequential (``prefill=False``; with ``ring_in_hbm=True`` this is the
-  route of the JAX package's single-pass HBM-ring kernel): one launch of
-  ``decode_sequential`` from a zero ring steps the whole forced prefix
-  and then samples.
+* sequential (``prefill=False``, the route of the JAX package's
+  single-pass HBM-ring kernel): one launch of ``decode_sequential`` from
+  a zero ring steps the whole forced prefix and then samples.
 
 Mu-law models take int32 codes; scalar-input models take float32
 amplitudes (the forced prefix, the seed and the carry's last input) and
@@ -324,8 +323,10 @@ def _n_log(collect_logits, n_total: int) -> int:
 
 def decode_amp(code: torch.Tensor, quantization_channels: int) -> torch.Tensor:
     """A sampled code as the next input of a scalar-input model: the JAX
-    kernels' mu-law decode (exp of |x| * log1p(mu)), which the CUDA
-    kernel repeats op by op."""
+    kernels' mu-law decode (exp of |x| * log1p(mu)), the formula of the
+    CUDA kernel. On the card the two can differ in the last bits (PyTorch
+    divides by a scalar through its reciprocal), so a resumed launch
+    starts from the kernel's own value (``decode(next_amp=...)``)."""
     mu = float(quantization_channels - 1)
     sgn = 2.0 * (code.to(torch.float32) / mu) - 1.0
     mag = (1.0 / mu) * (torch.exp(torch.abs(sgn) * float(np.log1p(mu)))
@@ -347,7 +348,8 @@ def mu_law_encode_f(amp: torch.Tensor,
 def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                      ring: torch.Tensor, causal: torch.Tensor,
                      forced: torch.Tensor, n_total: int, t0: int, seed: int,
-                     temperature: float = 1.0, collect_logits=False):
+                     temperature: float = 1.0, collect_logits=False,
+                     next_amp: Optional[torch.Tensor] = None):
     """Plain PyTorch version of ``sampler_decode`` (same contract as
     :func:`decode`): a Python loop over steps, batched over rows."""
     c = config
@@ -401,42 +403,16 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                 code = sampled
                 x = decode_amp(sampled, Q) if scalar else sampled
             codes[:, t] = code.to(torch.int32)
+        if next_amp is not None:
+            next_amp.copy_(x)
     return codes, logits
-
-
-#: Dynamic shared memory an H100 block may opt in to (bytes).
-_SMEM_LIMIT = 232448
-_THREADS, _WARPS = 256, 8
-
-
-def _smem_bytes(config: WaveNetConfig, rows: int) -> int:
-    """The kernel's dynamic shared memory at ``rows`` rows per block (its
-    launcher's formula)."""
-    c = config
-    floats = (rows * (causal_width(c) + c.quantization_channels
-                      + 3 * c.residual_channels + 3 * c.dilation_channels
-                      + 3 * c.skip_channels)
-              + rows * _THREADS + _WARPS + rows)
-    ints = _WARPS + 2 * c.num_layers + rows
-    return 4 * (floats + ints)
-
-
-def _rows_per_block(batch_size: int, config: WaveNetConfig) -> int:
-    """Rows sharing one block (and one read of the weights per step):
-    as many as keep the grid at least one block per SM of an H100 and
-    the block's shared memory within the card's limit."""
-    for rb in (8, 4, 2):
-        if (batch_size >= rb * 132
-                and _smem_bytes(config, rb) <= _SMEM_LIMIT):
-            return rb
-    return 1
 
 
 def _bind(lib) -> None:
     fn = lib.sampler_decode_f32
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
                    + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -451,7 +427,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             causal: torch.Tensor, forced: torch.Tensor, n_total: int,
-            t0: int, seed: int, temperature: float, collect_logits):
+            t0: int, seed: int, temperature: float, collect_logits,
+            next_amp: Optional[torch.Tensor] = None):
     """Check every operand and launch ``sampler_decode`` once on the
     current stream; raises if the launch is refused."""
     c = config
@@ -480,6 +457,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     _check("ring", ring, f32, (sum(c.dilations), B, R), dev)
     _check("causal", causal, f32, (B, KC), dev)
     _check("forced", forced, input_dtype(c), (B, n_forced), dev)
+    if next_amp is not None:
+        _check("next_amp", next_amp, f32, (B,), dev)
 
     from wavenet_torch.kernels import _build
     lib = _build.load("sampler_decode")
@@ -496,9 +475,10 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
         forced.data_ptr(), codes.data_ptr(),
         logits.data_ptr() if logits is not None else None,
+        next_amp.data_ptr() if next_amp is not None else None,
         B, L, R, D, S, Q, n_total, n_forced, n_log, int(c.scalar_input), KC,
         int(t0), int(seed) & 0xFFFFFFFFFFFFFFFF,
-        float(np.float32(1.0 / temperature)), _rows_per_block(B, c), stream)
+        float(np.float32(1.0 / temperature)), stream)
     if err != 0:
         raise RuntimeError(f"sampler_decode launch failed: CUDA error {err}")
     return codes, logits
@@ -513,7 +493,7 @@ def _device_type(t: torch.Tensor) -> str:
 def decode(packed: PackedSampler, config: WaveNetConfig,
            ring: torch.Tensor, causal: torch.Tensor, forced: torch.Tensor,
            n_total: int, t0: int, seed: int, temperature: float = 1.0,
-           collect_logits=False):
+           collect_logits=False, next_amp: Optional[torch.Tensor] = None):
     """Run ``n_total`` decode steps for every row in one kernel launch.
 
     ``ring`` [sum_d, B, R] and ``causal`` [B, (kw_in-1)*C_in] (float32)
@@ -524,7 +504,9 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     Returns ``codes`` [B, n_total] int32 (code t is input t+1, a forced
     amplitude as its mu-law code) and the logits of the last ``n_log``
     steps [B, n_log, Q] (``collect_logits`` True = all, int W = last W,
-    False = None).
+    False = None). In scalar mode ``next_amp`` [B] float32, if given,
+    receives the amplitude of the input after the last step, as this
+    launch computed it (what a resumed launch must start from).
 
     CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
     or raise.
@@ -532,9 +514,9 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     if _device_type(ring) == "cpu":
         return decode_reference(packed, config, ring, causal, forced,
                                 n_total, t0, seed, temperature,
-                                collect_logits)
+                                collect_logits, next_amp)
     out = _launch(packed, config, ring, causal, forced, n_total, t0, seed,
-                  temperature, collect_logits)
+                  temperature, collect_logits, next_amp)
     decode.launches += 1
     return out
 
@@ -610,8 +592,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
                   temperature: float = 1.0,
                   seed_codes: Optional[torch.Tensor] = None,
                   collect_logits=False, weight_dtype=torch.float32,
-                  prefill: bool = True, ring_in_hbm: bool = False,
-                  stream_io: bool = False):
+                  prefill: bool = True):
     """Generate mu-law codes [B, n_samples] with one decode launch.
 
     ``seed_codes`` [B, T_seed] teacher-forces the start (int codes, or
@@ -620,16 +601,15 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
 
     * ``prefill=True``: one parallel forward primes the rings
       (``prefill_carry``), then ``decode`` runs n_samples steps (the
-      TPU's kernels 1-3); ``ring_in_hbm``/``stream_io`` are ignored, as
-      there. With ``collect_logits`` only the decoded steps' logits exist.
+      TPU's kernels 1-3). With ``collect_logits`` only the decoded steps'
+      logits exist.
     * ``prefill=False``: ``decode_sequential`` steps the forced prefix
       in the kernel too, from a zero ring, over n_forced-1+n_samples
-      steps. ``ring_in_hbm=True`` without ``stream_io`` is the single-pass
-      HBM-ring kernel's route (TPU kernel 4); with ``stream_io``, and
-      without either, the JAX package runs the same steps through its
-      streamed or VMEM kernels, and the port takes the same one launch.
-      With ``collect_logits`` the logits of every step (or the last W)
-      come back in step order.
+      steps: the single-pass HBM-ring kernel's route (TPU kernel 4,
+      ``generate_pallas(prefill=False, ring_in_hbm=True)``; the JAX
+      package's other ring and IO options compute the same steps, and the
+      port has one launch for all of them). With ``collect_logits`` the
+      logits of every step (or the last W) come back in step order.
 
     Returns ``codes`` or ``(codes, logits [B, n_log, Q])``. The device is
     the parameters' device.
@@ -662,19 +642,19 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
                             temperature: float = 1.0,
                             seed_codes: Optional[torch.Tensor] = None,
                             carry: Optional[StreamSamplerCarry] = None,
-                            weight_dtype=torch.float32,
-                            prefill: bool = True):
+                            weight_dtype=torch.float32):
     """One segment of generation; returns ``(codes [B, n_samples],
     carry')`` (the counterpart of ``generate_pallas_resumable``).
 
     First call (``carry=None``): primes as :func:`generate_cuda` does
-    (``prefill``, or the forced prefix from a zero ring). Continuations
-    pass the returned carry; its ring and causal register are updated in
-    place (the JAX package donates them). The Philox noise is keyed on
-    the absolute step, so segments with the same ``seed`` equal one long
-    run sample for sample, at any temperature. In scalar mode the carry's
-    last input is the last code's decoded amplitude, by the kernel's own
-    formula (``decode_amp``).
+    by default (``prefill_carry``). Continuations pass the returned carry;
+    its ring and causal register are updated in place (the JAX package
+    donates them). The Philox noise is keyed on the absolute step, so
+    segments with the same ``seed`` equal one long run sample for sample,
+    at any temperature. In scalar mode the carry's last input is the last
+    code's decoded amplitude as the launch itself computed it
+    (``decode(next_amp=...)``), so the next segment starts from the value
+    one long launch would have used.
     """
     c = config
     _check_generation(c, weight_dtype)
@@ -682,24 +662,14 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     if carry is None:
         seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
-        if prefill:
-            carry = prefill_carry(params, c, seed_codes, gc_ids)
-            forced = carry.last[:, None]
-        else:
-            ring, causal = zero_state(c, B, dev)
-            carry = StreamSamplerCarry(ring, causal, 0, None)
-            forced = seed_codes
+        carry = prefill_carry(params, c, seed_codes, gc_ids)
     elif seed_codes is not None:
         raise ValueError("seed_codes only apply to the first segment")
-    else:
-        forced = carry.last[:, None]
-    forced = forced.to(input_dtype(c)).contiguous()
-    n_forced = forced.shape[1]
-    n_total = n_forced - 1 + n_samples
-    codes, _ = decode(packed, c, carry.ring, carry.causal, forced, n_total,
-                      carry.t_abs, seed, temperature)
-    out = codes[:, n_forced - 1:]
-    last = decode_amp(out[:, -1], c.quantization_channels) \
-        if c.scalar_input else out[:, -1].contiguous()
-    return out, StreamSamplerCarry(carry.ring, carry.causal,
-                                   carry.t_abs + n_total, last)
+    forced = carry.last[:, None].to(input_dtype(c)).contiguous()
+    next_amp = (torch.empty(B, dtype=torch.float32, device=dev)
+                if c.scalar_input else None)
+    codes, _ = decode(packed, c, carry.ring, carry.causal, forced, n_samples,
+                      carry.t_abs, seed, temperature, next_amp=next_amp)
+    last = next_amp if c.scalar_input else codes[:, -1].contiguous()
+    return codes, StreamSamplerCarry(carry.ring, carry.causal,
+                                     carry.t_abs + n_samples, last)

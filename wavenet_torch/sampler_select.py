@@ -16,23 +16,19 @@ from __future__ import annotations
 import torch
 
 
-def sampler_name(device, route: str = "prefill") -> str:
-    """What generation runs on ``device``: ``route`` "prefill" (the CLI's
-    and the server's) or "sequential" (``generate_cuda(prefill=False)``,
-    the route of the JAX package's single-pass HBM-ring kernel)."""
-    how = {"prefill": "prefill + {}",
-           "sequential": "sequential {} from a zero ring"}[route]
+def sampler_name(device) -> str:
+    """What the CLI's and the server's generation runs on ``device``."""
     if getattr(device, "type", str(device)) == "cuda":
-        return f"CUDA ({how.format('sampler_decode kernel')})"
-    return f"PyTorch reference ({how.format('decode_reference')})"
+        return "CUDA (prefill + sampler_decode kernel)"
+    return "PyTorch reference (prefill + decode_reference)"
 
 
-def sampler_attempts(config, batch_size: int, n_total: int,
-                     sampler: str = "auto", precision: str = "float32",
-                     device="cuda"):
+def sampler_attempts(config, sampler: str = "auto",
+                     precision: str = "float32", device="cuda"):
     """Ordered (name, ``generate_cuda`` kwargs) candidates; empty means
     the scan sampler. One candidate at most: the port has no VMEM budget
-    to fall through, so ``batch_size`` and ``n_total`` prune nothing."""
+    to fall through, so neither the batch size nor the length prunes the
+    ladder as in the JAX package."""
     if precision == "bfloat16":
         raise NotImplementedError(
             "bfloat16 sampling is not ported yet (ROADMAP.md queue 1, "
@@ -55,10 +51,7 @@ def generate_with_fallback(params, config, n_samples: int, *,
     from wavenet_torch.sample import generate
 
     dev = params["postprocess2"].device
-    n_forced = (int(seed_codes.shape[1]) if seed_codes is not None
-                else config.receptive_field)
-    attempts = sampler_attempts(config, batch_size, n_samples + n_forced,
-                                sampler, precision, dev)
+    attempts = sampler_attempts(config, sampler, precision, dev)
     if attempts:
         name, kw = attempts[0]
         codes = generate_cuda(params, config, n_samples, seed=seed,
