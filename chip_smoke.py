@@ -6,8 +6,9 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode`` and ``fused_stack`` kernels built from
-   ``wavenet_torch/csrc``, one nvcc each, in parallel.
+   the ``sampler_decode``, ``fused_stack``, ``fused_stack_carry`` and
+   ``dilated_layer`` kernels built from ``wavenet_torch/csrc``, one nvcc
+   each, in parallel.
 2. Kernel against plain, teacher-forced, at full width (the paper
    config at b1, the gc config at b1, b4, b64 and b512), with seeded
    non-zero biases: prefill ~3.5k random codes, teacher-force 256 more
@@ -53,6 +54,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``--save_every`` segments too, equal to its single run); last, the
    main path of kernel 4: ``generate_cuda(prefill=False)`` three times
    per case, its launches counted from 0 (its ``kernels`` rows).
+7. The retired training stacks (TPU kernels 6-8), at the paper and gc
+   configs' full width, b8 x (receptive field + 16,000): the
+   ``fused_stack_carry`` kernel behind generations v1 and v2 against the
+   plain versions (phase 5's tolerances and per-slice check), bitwise
+   repeatable, and against kernel 5, each call timed; then the main path
+   of this slice: 4 Adam steps of the gc config through
+   ``train_lib.make_train_step`` at ``pallas_stack_version`` 1 and 2, from
+   the same params and batches as 4 version-3 steps (first loss within
+   1e-5, later within 1e-4 relative; finite and falling), the carry
+   kernel's launches counted from 0; last, the ``dilated_layer`` kernel at
+   each distinct dilation against its plain versions, timed, and a 30-call
+   ``fused_dilated_layer`` stack under autograd against kernel 5, its
+   launches counted from 0.
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -88,7 +102,8 @@ SERVE_BATCH_SIZES = (1, 64, 512)
 # timed on, with the decode steps of one timed launch.
 TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 512))
 TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 512): 256}
-KERNELS = ("sampler_decode", "fused_stack")
+KERNELS = ("sampler_decode", "fused_stack", "fused_stack_carry",
+           "dilated_layer")
 # Phase 6: kernel 4's route (sequential, from a zero ring).
 SEQ_CASES = (("paper", 1), ("paper", 64), ("wide", 1), ("wide", 64))
 SEQ_SAMPLES, SEQ_WINDOW, SEQ_TIMED_SAMPLES = 256, 300, 1024
@@ -101,6 +116,8 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 # Each layer's (or batch row's) slice of a gradient, against its own
 # max |ref|; the measured worst over whole tensors is ~1e-6.
 SLICE_RTOL = 1e-4
+# Phase 7: Adam steps per pallas_stack_version on the retired stacks.
+CARRY_TRAIN_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -451,6 +468,32 @@ def worst_slice(got, ref, lead: int):
     return rel.max().item()
 
 
+def hold(row, label, got, ref, rtol, atol, lead=None):
+    """Check ``got`` against ``ref`` within rtol * max|ref| + atol (and,
+    with ``lead``, each slice of the first ``lead`` dimensions within
+    SLICE_RTOL of its own max |ref|); record the errors in ``row``."""
+    import torch
+    where = f"{row['config']} {label}"
+    check(torch.isfinite(got).all().item(), f"{where}: non-finite output")
+    err, rel, ok = within(got, ref, rtol, atol)
+    row[f"max_abs_err_{label}"] = err
+    row[f"max_rel_err_{label}"] = rel
+    check(ok, f"{where}: differs from its reference by {err} ({rel} of "
+          "max |ref|)")
+    if lead:
+        srel = worst_slice(got, ref, lead)
+        row[f"max_slice_rel_err_{label}"] = srel
+        check(srel <= SLICE_RTOL, f"{where}: a slice differs by {srel} of "
+              "its max |ref|")
+    return err
+
+
+# Per-slice leading dimensions of the stack gradients (dx per batch row,
+# the weights per layer, dadd per layer and row).
+GRAD_LEADS = (1, 1, 1, 2, 1)
+GRAD_NAMES = ("dx", "dw_fg", "dwd", "dadd", "dbd")
+
+
 def stack_inputs(c, params, rng):
     """The stack's input and packed weights for a b8 train batch: the
     causal layer of random codes, as ``forward_codes`` computes it."""
@@ -496,32 +539,12 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
         torch.cuda.synchronize()
         row = {"phase": "train_stack", "config": name, "batch": B,
                "positions": T, "gpu": gpu}
-        worst = {}
-        for label, got, ref, rtol, atol in (
-                [(n, a, b, FWD_RTOL, FWD_ATOL)
-                 for n, a, b in zip(("y", "fg", "z"), out_k, out_p)]
-                + [(n, a, b, GRAD_RTOL, GRAD_ATOL)
-                   for n, a, b in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
-                                      grads_k, grads_p)]):
-            check(torch.isfinite(got).all().item(), f"{name} {label}: "
-                  "non-finite kernel output")
-            err, rel, ok = within(got, ref, rtol, atol)
-            row[f"max_abs_err_{label}"] = err
-            row[f"max_rel_err_{label}"] = rel
-            check(ok, f"{name} {label}: kernel differs from the plain "
-                  f"version (max |d| {err}, {rel} of max |ref|)")
-            worst["fwd" if label in ("y", "fg", "z") else "bwd"] = max(
-                worst.get("fwd" if label in ("y", "fg", "z") else "bwd", 0.0),
-                err)
-        # Each gradient again per slice: per batch row for dx, per layer
-        # for the weights, per (layer, batch row) for dadd.
-        for label, got, ref, lead in zip(
-                ("dx", "dw_fg", "dwd", "dadd", "dbd"), grads_k, grads_p,
-                (1, 1, 1, 2, 1)):
-            rel = worst_slice(got, ref, lead)
-            row[f"max_slice_rel_err_{label}"] = rel
-            check(rel <= SLICE_RTOL, f"{name} {label}: a slice differs from "
-                  f"the plain version by {rel} of its max |ref|")
+        worst = {"fwd": max(hold(row, n, a, b, FWD_RTOL, FWD_ATOL)
+                            for n, a, b in zip(("y", "fg", "z"), out_k,
+                                               out_p)),
+                 "bwd": max(hold(row, n, a, b, GRAD_RTOL, GRAD_ATOL, lead)
+                            for n, a, b, lead in zip(GRAD_NAMES, grads_k,
+                                                     grads_p, GRAD_LEADS))}
         check(all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2)),
               f"{name}: two backward calls on the same inputs differ")
         row["bitwise_repeat_backward"] = True
@@ -555,7 +578,7 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
 
 
 STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
-                 "bwd_reduce_kernel")
+                 "reduce_partials_kernel")
 
 
 def device_breakdown(fn):
@@ -1125,6 +1148,248 @@ def phase_sequential_main_path(cfgs, params, rng, gpu):
     return results
 
 
+def phase_carry_stacks(cfgs, params, rng, gpu):
+    """Phase 7 (a): the carry kernel behind v1 and v2 against the plain
+    versions and against kernel 5, each call timed."""
+    import torch
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.experiments import fused_stack2 as fs2
+    from wavenet_torch.kernels import fused_stack as fs3
+    from wavenet_torch.utils.flops import bound_ms, fused_stack_cost
+
+    results = {}
+    for name in ("paper", "gc"):
+        c = cfgs[name]
+        L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+        args = stack_inputs(c, params[name], rng)
+        B, T = args[0].shape[:2]
+        dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
+                             device="cuda")
+        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                             device="cuda")
+        w_fg, wd, _, bd = args[1:]
+        y1, fg1 = fs1.fused_stack_forward(*args, c)
+        y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
+        yp, fgp, zp = fs2.fused_stack2_forward_reference(*args, c)
+        y5, _, z5 = fs3.forward(*args, c)
+        g1 = fs1.fused_stack_backward(yp, fgp, dz, dy, w_fg, wd, bd, c)
+        g2 = fs2.fused_stack2_backward(yp, dy, fgp, dz, w_fg, wd, bd, c)
+        gp = fs2.fused_stack2_backward_reference(yp, dy, fgp, dz, w_fg, wd,
+                                                 bd, c)
+        g5 = fs3.backward(yp, dy, fgp, dz, w_fg, wd, bd, c)
+        torch.cuda.synchronize()
+        row = {"phase": "carry_stack", "config": name, "batch": B,
+               "positions": T, "gpu": gpu}
+        err = {"fwd_v1": max(hold(row, "y_v1", y1, yp, FWD_RTOL, FWD_ATOL),
+                             hold(row, "fg_v1", fg1, fgp, FWD_RTOL,
+                                  FWD_ATOL)),
+               "fwd_v2": max(hold(row, "y_v2", y2, yp, FWD_RTOL, FWD_ATOL),
+                             hold(row, "fg_v2", fg2, fgp, FWD_RTOL,
+                                  FWD_ATOL),
+                             hold(row, "z_v2", z2, zp, FWD_RTOL, FWD_ATOL)),
+               "bwd": 0.0}
+        for label, a, b, lead in zip(GRAD_NAMES, g1, gp, GRAD_LEADS):
+            b = b.reshape(a.shape)
+            err["bwd"] = max(err["bwd"], hold(row, label, a, b, GRAD_RTOL,
+                                              GRAD_ATOL, lead))
+        # One kernel behind both wrappers, sums in a fixed order.
+        check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+              f"{name}: two backward calls on the same inputs differ")
+        row["bitwise_repeat_backward"] = True
+        # Kernel 5 computes the same map by another design.
+        hold(row, "y_vs_kernel5", y2, y5, FWD_RTOL, FWD_ATOL)
+        hold(row, "z_vs_kernel5", z2, z5, FWD_RTOL, FWD_ATOL)
+        for label, a, b, lead in zip(GRAD_NAMES, g1, g5, GRAD_LEADS):
+            hold(row, f"{label}_vs_kernel5", a.reshape(b.shape), b,
+                 GRAD_RTOL, GRAD_ATOL, lead)
+        timed = {
+            "fwd_v1": (lambda: fs1.fused_stack_forward(*args, c),
+                       lambda: fs1.fused_stack_forward_reference(*args, c),
+                       False),
+            "fwd_v2": (lambda: fs2.fused_stack2_forward(*args, c),
+                       lambda: fs2.fused_stack2_forward_reference(*args, c),
+                       False),
+            "bwd": (lambda: fs2.fused_stack2_backward(yp, dy, fgp, dz, w_fg,
+                                                      wd, bd, c),
+                    lambda: fs2.fused_stack2_backward_reference(
+                        yp, dy, fgp, dz, w_fg, wd, bd, c), True),
+        }
+        for kind, (kern, plain, backward) in timed.items():
+            flops, nbytes = fused_stack_cost(c, B, T, backward=backward,
+                                             emit_z=kind != "fwd_v1")
+            bound, by = bound_ms(flops, nbytes)
+            ms_k, ms_p = median_cuda_ms(kern), median_cuda_ms(plain)
+            row.update({f"{kind}_ms": ms_k, f"{kind}_plain_ms": ms_p,
+                        f"{kind}_bound_ms": bound, f"{kind}_bound_by": by})
+            results[(name, kind)] = dict(max_abs_err=err[kind], ms=ms_k,
+                                         plain_ms=ms_p, bound_ms=bound,
+                                         bound_by=by)
+        row["kernel5_fwd_ms"] = median_cuda_ms(lambda: fs3.forward(*args, c))
+        row["kernel5_bwd_ms"] = median_cuda_ms(
+            lambda: fs3.backward(yp, dy, fgp, dz, w_fg, wd, bd, c))
+        emit(row)
+        del args, dy, dz, y1, fg1, y2, fg2, z2, yp, fgp, zp, y5, z5
+        del g1, g2, gp, g5
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_batches(c, rng, n_steps: int):
+    """``n_steps`` b8 batches of seeded sines plus noise, and GC ids."""
+    import torch
+    B, n = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / c.sample_rate
+    out = []
+    for _ in range(n_steps):
+        freqs = torch.as_tensor(rng.uniform(100, 400, (B, 1)).astype(
+            "float32"), device="cuda")
+        noise = torch.as_tensor(rng.randn(B, n).astype("float32"),
+                                device="cuda")
+        ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                              device="cuda")
+        out.append((0.5 * torch.sin(2 * 3.14159265 * freqs * t)
+                    + 0.05 * noise, ids))
+    return out
+
+
+def phase_carry_train(c, params, rng, gpu):
+    """Phase 7 (b), the main path of this slice: Adam steps through
+    ``train_lib.make_train_step`` with ``pallas_stack_version`` 1 and 2,
+    from the same params and batches as version 3's steps. Returns each
+    wrapper's launches, counted from 0 on its version's run."""
+    import dataclasses
+    import numpy as np
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.experiments import fused_stack2 as fs2
+
+    batches = train_batches(c, rng, CARRY_TRAIN_STEPS)
+    wrappers = (fs1.fused_stack_forward, fs1.fused_stack_backward,
+                fs2.fused_stack2_forward, fs2.fused_stack2_backward)
+    losses, times, launches = {}, {}, {}
+    for version in (3, 1, 2):
+        cfg = dataclasses.replace(c, use_pallas_stack=True,
+                                  pallas_stack_version=version)
+        state = tl.train_state_from_params(params,
+                                           tl.make_optimizer("adam", 1e-3))
+        step = tl.make_train_step(cfg)
+        for w in wrappers:
+            w.launches = 0                         # the main path starts
+        losses[version], times[version] = [], []
+        for audio, ids in batches:
+            t0 = time.perf_counter()
+            _, m = step(state, audio, ids)
+            losses[version].append(m["loss"].item())
+            times[version].append(1e3 * (time.perf_counter() - t0))
+        launches[version] = [w.launches for w in wrappers]
+        del state
+    n = CARRY_TRAIN_STEPS
+    check(launches[1] == [n, n, 0, 0] and launches[2] == [0, 0, n, n],
+          f"carry kernel launches {launches}, expected {n} forward and {n} "
+          "backward per version")
+    for version in (1, 2):
+        got, want = losses[version], losses[3]
+        check(all(np.isfinite(got)), f"v{version}: non-finite loss {got}")
+        check(got[-1] < got[0], f"v{version}: loss did not fall: {got}")
+        check(abs(got[0] - want[0]) <= 1e-5 * abs(want[0]),
+              f"v{version}: first loss {got[0]} against version 3's "
+              f"{want[0]}")
+        check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, want)),
+              f"v{version}: losses {got} against version 3's {want}")
+    emit({"phase": "carry_train", "config": "gc", "batch": TRAIN_BATCH,
+          "audio_samples": c.receptive_field + TRAIN_SAMPLES,
+          "losses": {f"v{v}": losses[v] for v in (3, 1, 2)},
+          "step_ms": {f"v{v}": times[v] for v in (3, 1, 2)},
+          "step_ms_median_after_first": {
+              f"v{v}": float(np.median(times[v][1:])) for v in (3, 1, 2)},
+          "launches": {"v1_fwd": launches[1][0], "v1_bwd": launches[1][1],
+                       "v2_fwd": launches[2][2], "v2_bwd": launches[2][3]},
+          "gpu": gpu})
+    return {"fwd_v1": launches[1][0], "fwd_v2": launches[2][2],
+            "bwd": launches[1][1] + launches[2][3]}
+
+
+def phase_dilated_layer(c, params, rng, gpu):
+    """Phase 7 (c): kernel 8 at each distinct dilation against its plain
+    versions, timed; then a stack of ``fused_dilated_layer`` calls under
+    autograd against kernel 5, its launches counted from 0."""
+    import numpy as np
+    import torch
+    from wavenet_torch.experiments import dilated_layer as dl
+    from wavenet_torch.kernels import fused_stack as fs3
+    from wavenet_torch.utils.flops import bound_ms, dilated_layer_cost
+
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    x, w_fg, wd, add, bd = stack_inputs(c, params, rng)
+    B, T = x.shape[:2]
+    dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
+    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                         device="cuda")
+    row = {"phase": "dilated_layer", "config": "gc", "batch": B,
+           "positions": T, "gpu": gpu}
+    err = {"fwd": 0.0, "bwd": 0.0}
+    ms = {"fwd": [], "bwd": [], "fwd_plain": [], "bwd_plain": []}
+    for d in sorted(set(c.dilations)):
+        l = c.dilations.index(d)
+        lay = (x, w_fg[l].view(2, R, 2 * D), wd[l], add[l], bd[l])
+        dzl = dz[..., D * l:D * (l + 1)].contiguous()
+        y, z = dl.forward(*lay, d)
+        yp, zp = dl.fused_dilated_layer_reference(*lay, d)
+        g = dl.backward(*lay[:4], dy, dzl, d)
+        gp = dl.fused_dilated_layer_backward_reference(*lay[:4], dy, dzl, d)
+        torch.cuda.synchronize()
+        err["fwd"] = max(err["fwd"],
+                         hold(row, f"y_d{d}", y, yp, FWD_RTOL, FWD_ATOL),
+                         hold(row, f"z_d{d}", z, zp, FWD_RTOL, FWD_ATOL))
+        for label, a, b in zip(("dx_local", "dpast", "dw", "dwd", "dadd",
+                                "dbd"), g, gp):
+            err["bwd"] = max(err["bwd"], hold(row, f"{label}_d{d}", a, b,
+                                              GRAD_RTOL, GRAD_ATOL))
+        ms["fwd"].append(median_cuda_ms(lambda: dl.forward(*lay, d)))
+        ms["bwd"].append(median_cuda_ms(
+            lambda: dl.backward(*lay[:4], dy, dzl, d)))
+        ms["fwd_plain"].append(median_cuda_ms(
+            lambda: dl.fused_dilated_layer_reference(*lay, d)))
+        ms["bwd_plain"].append(median_cuda_ms(
+            lambda: dl.fused_dilated_layer_backward_reference(
+                *lay[:4], dy, dzl, d)))
+    row.update({f"{k}_ms_per_dilation": v for k, v in ms.items()})
+
+    # The 30-call stack under autograd against kernel 5.
+    y5, fg5, z5 = fs3.forward(x, w_fg, wd, add, bd, c)
+    g5 = fs3.backward(y5, dy, fg5, dz, w_fg, wd, bd, c)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w_fg, wd, add, bd)]
+    lx, lw, lwd, ladd, lbd = leaves
+    dl.forward.launches = dl.backward.launches = 0   # the main path
+    cur, zs = lx, []
+    for l, d in enumerate(c.dilations):
+        cur, z = dl.fused_dilated_layer(cur, lw[l].view(2, R, 2 * D), lwd[l],
+                                        ladd[l], lbd[l], d)
+        zs.append(z)
+    zcat = torch.cat(zs, dim=-1)
+    ((cur * dy).sum() + (zcat * dz).sum()).backward()
+    torch.cuda.synchronize()
+    launches = {"fwd": dl.forward.launches, "bwd": dl.backward.launches}
+    check(launches == {"fwd": L, "bwd": L},
+          f"dilated_layer launches {launches} on a {L}-layer stack")
+    hold(row, "stack_y_vs_kernel5", cur.detach(), y5, FWD_RTOL, FWD_ATOL)
+    hold(row, "stack_z_vs_kernel5", zcat.detach(), z5, FWD_RTOL, FWD_ATOL)
+    for label, t, b, lead in zip(GRAD_NAMES, leaves, g5, GRAD_LEADS):
+        hold(row, f"stack_{label}_vs_kernel5", t.grad, b, GRAD_RTOL,
+             GRAD_ATOL, lead)
+    row["stack_launches"] = launches
+    emit(row)
+    out = {}
+    for kind in ("fwd", "bwd"):
+        flops, nbytes = dilated_layer_cost(R, D, B, T, backward=kind == "bwd")
+        bound, by = bound_ms(flops, nbytes)
+        out[kind] = dict(launches=launches[kind], max_abs_err=err[kind],
+                         ms=float(np.mean(ms[kind])),
+                         plain_ms=float(np.mean(ms[f"{kind}_plain"])),
+                         bound_ms=bound, bound_by=by)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -1145,6 +1410,7 @@ def main() -> int:
         gc_config, paper_config, wide_config)
 
     # Phase 1: device and build (one nvcc per source, all at once).
+    t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu, flush=True)
     t = time.perf_counter()
@@ -1189,6 +1455,14 @@ def main() -> int:
     phase_generate_cli(gen_cfgs, gen_params, gc_ckpt, gc_pfile, gpu)
     seq_main = phase_sequential_main_path(gen_cfgs, gen_params, rng, gpu)
 
+    # Phase 7: the retired training stacks (TPU kernels 6-8).
+    t7 = time.perf_counter()
+    carry = phase_carry_stacks(cfgs, params, rng, gpu)
+    carry_launches = phase_carry_train(cfgs["gc"], params["gc"], rng, gpu)
+    layer = phase_dilated_layer(cfgs["gc"], params["gc"], rng, gpu)
+    emit({"phase": "retired_stacks", "seconds": time.perf_counter() - t7,
+          "script_seconds": time.perf_counter() - t_start})
+
     replaces = {1: "wavenet_tpu/kernels/sampler.py:234",
                 64: "wavenet_tpu/kernels/sampler.py:1308",
                 512: "wavenet_tpu/kernels/sampler_packed.py:142"}
@@ -1231,6 +1505,36 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "unit": "per decode step", "gpu": gpu})
+    # The retired stacks (phase 7). library_ms is null for the reason of
+    # rows 4-5: no single PyTorch call computes a gated stack or layer or
+    # its VJP.
+    carry_replaces = {
+        "fwd_v1": "wavenet_tpu/experiments/fused_stack.py:69",
+        "fwd_v2": "wavenet_tpu/experiments/fused_stack2.py:85",
+        "bwd": "wavenet_tpu/experiments/fused_stack.py:170, "
+               "wavenet_tpu/experiments/fused_stack2.py:200"}
+    for kind, where in carry_replaces.items():
+        m = carry[("gc", kind)]
+        kernels.append({
+            "name": f"fused_stack_carry_{kind}", "route": "cuda",
+            "source": "wavenet_torch/csrc/fused_stack_carry.cu",
+            "replaces": where, "config": "gc", "batch": TRAIN_BATCH,
+            "launches": carry_launches[kind],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "unit": "per call (one train step's stack)", "gpu": gpu})
+    for kind, line in (("fwd", 68), ("bwd", 82)):
+        m = layer[kind]
+        kernels.append({
+            "name": f"dilated_layer_{kind}", "route": "cuda",
+            "source": "wavenet_torch/csrc/dilated_layer.cu",
+            "replaces": f"wavenet_tpu/experiments/dilated_layer.py:{line}",
+            "config": "gc", "batch": TRAIN_BATCH, "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "unit": "per call (one layer)", "gpu": gpu})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` on its prefill and
-sequential routes, mu-law and scalar input; ``fused_stack``) against their
-plain versions, on the card.
+sequential routes, mu-law and scalar input; ``fused_stack``;
+``fused_stack_carry`` behind the retired stack generations v1 and v2;
+``dilated_layer``) against their plain versions, on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA GPU:
 the kernels have no CPU mode. The file imports no JAX, so on a machine with
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from wavenet_torch.experiments import dilated_layer as dl
+from wavenet_torch.experiments import fused_stack as fs1
+from wavenet_torch.experiments import fused_stack2 as fs2
 from wavenet_torch.kernels import fused_stack as fs
 from wavenet_torch.kernels import sampler as ks
 from wavenet_torch.models.config import WaveNetConfig
@@ -336,3 +340,158 @@ def test_fused_stack_rejects_bad_inputs(setup):
                          quantization_channels=32)
     with pytest.raises(NotImplementedError, match="R == D"):
         fs.forward(x, w_fg, wd, add, bd, wide)
+
+
+_GRADS = ("dx", "dw", "dwd", "dadd", "dbd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,dilations,B,T", [
+    (8, (1, 2, 4, 8, 16, 512), 2, 1100),      # v1's limit, d = 512
+    (16, (1, 64, 2, 1024, 5), 3, 1500),       # v2's limit, d = 1024
+    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500),
+])
+def test_carry_stack_matches_reference(setup, W, dilations, B, T):
+    """v1's and v2's wrappers of the carry kernel against the plain
+    versions (T is not a multiple of the kernel's 128-step tile, and a
+    dilation reaches the generation's ``supports`` limit); the backward is
+    bitwise repeatable."""
+    c, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    counts = (fs1.fused_stack_forward.launches,
+              fs2.fused_stack2_forward.launches,
+              fs1.fused_stack_backward.launches,
+              fs2.fused_stack2_backward.launches)
+    y1, fg1 = fs1.fused_stack_forward(*args, c)
+    y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
+    yr, fgr, zr = fs2.fused_stack2_forward_reference(*args, c)
+    torch.cuda.synchronize()
+    for got, ref in ((y1, yr), (fg1, fgr), (y2, yr), (fg2, fgr), (z2, zr)):
+        torch.testing.assert_close(got, ref, **FWD_TOL)
+    w_fg, wd, _, bd = args[1:]
+    g1 = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c)
+    g2 = fs2.fused_stack2_backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    ref = fs2.fused_stack2_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd,
+                                              c)
+    torch.cuda.synchronize()
+    for name, got, want in zip(_GRADS, g1, ref):
+        torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
+    # One kernel behind both wrappers, fixed-order sums: bitwise equal.
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert (fs1.fused_stack_forward.launches,
+            fs2.fused_stack2_forward.launches,
+            fs1.fused_stack_backward.launches,
+            fs2.fused_stack2_backward.launches) == tuple(n + 1 for n in counts)
+
+
+@pytest.mark.gpu
+def test_carry_stack_ops_match_kernel5(setup):
+    """The autograd ops of v1 and v2 against kernel 5's op (an independent
+    kernel for the same map): outputs and every gradient."""
+    c, args, (dy, dz) = _stack_inputs(16, (1, 2, 4, 8, 16, 32, 200), 2, 900,
+                                      2)
+    results = []
+    for op in (fs.fused_stack3, fs1.fused_stack, fs2.fused_stack2):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y, z = op(*leaves, c)
+        (y * dy).sum().add((z * dz).sum()).backward()
+        results.append([y.detach(), z.detach()] + [t.grad for t in leaves])
+    for got in results[1:]:
+        for want_t, got_t in zip(results[0], got):
+            torch.testing.assert_close(got_t, want_t, **GRAD_TOL)
+
+
+def _layer_inputs(W, B, T, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
+                               device="cuda")
+
+    return ((rn(B, T, W, scale=0.5), rn(2, W, 2 * W, scale=0.3),
+             rn(W, W, scale=0.3), rn(B, 2 * W, scale=0.1),
+             rn(1, W, scale=0.1)), (rn(B, T, W), rn(B, T, W)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,d,B,T", [
+    (8, 1, 2, 150), (16, 64, 3, 700), (32, 512, 2, 1500), (32, 2000, 1, 1000),
+])
+def test_dilated_layer_matches_reference(setup, W, d, B, T):
+    """The layer kernel pair against the plain versions (T not a multiple
+    of the 64-step tile; d >= T in the last case); the backward is
+    bitwise repeatable."""
+    (x, w, wd, add, bd), (dy, dz) = _layer_inputs(W, B, T)
+    f0, b0 = dl.forward.launches, dl.backward.launches
+    y, z = dl.forward(x, w, wd, add, bd, d)
+    yr, zr = dl.fused_dilated_layer_reference(x, w, wd, add, bd, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, **FWD_TOL)
+    torch.testing.assert_close(z, zr, **FWD_TOL)
+    got = dl.backward(x, w, wd, add, dy, dz, d)
+    again = dl.backward(x, w, wd, add, dy, dz, d)
+    ref = dl.fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz, d)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx_local", "dpast", "dw", "dwd", "dadd", "dbd"),
+                          got, ref):
+        torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (dl.forward.launches, dl.backward.launches) == (f0 + 1, b0 + 2)
+
+
+@pytest.mark.gpu
+def test_dilated_layer_op_gradients(setup):
+    """``fused_dilated_layer`` on the card against autograd of the plain
+    forward (the tap-0 gradient shift-added by the op)."""
+    args, (dy, dz) = _layer_inputs(32, 2, 1000, 1)
+    grads = []
+    for fn in (dl.fused_dilated_layer, dl.fused_dilated_layer_reference):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y, z = fn(*leaves, 100)
+        (y * dy).sum().add((z * dz).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for name, g, r in zip(_GRADS, *grads):
+        torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+
+
+def _bad_stack_calls(c, args, dy, dz):
+    x, w_fg, wd, add, bd = args
+    y, fg, _ = fs2.fused_stack2_forward_reference(*args, c)
+    return {
+        "v1_fwd": lambda x_: fs1.fused_stack_forward(x_, w_fg, wd, add, bd, c),
+        "v2_fwd": lambda x_: fs2.fused_stack2_forward(x_, w_fg, wd, add, bd,
+                                                      c),
+        "v1_bwd": lambda y_: fs1.fused_stack_backward(y_, fg, dz, dy, w_fg,
+                                                      wd, bd, c),
+        "v2_bwd": lambda y_: fs2.fused_stack2_backward(y_, dy, fg, dz, w_fg,
+                                                       wd, bd, c),
+    }, x, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", ["v1_fwd", "v2_fwd", "v1_bwd", "v2_bwd",
+                                     "layer_fwd", "layer_bwd"])
+def test_new_wrappers_reject_bad_inputs(setup, wrapper):
+    if wrapper.startswith("layer"):
+        (x, w, wd, add, bd), (dy, dz) = _layer_inputs(8, 2, 64)
+        call = ((lambda x_: dl.forward(x_, w, wd, add, bd, 3))
+                if wrapper == "layer_fwd" else
+                (lambda x_: dl.backward(x_, w, wd, add, dy, dz, 3)))
+        lead = x
+        wide = lambda: dl.forward(x, torch.zeros((2, 8, 32), device="cuda"),
+                                  torch.zeros((16, 8), device="cuda"),
+                                  torch.zeros((2, 32), device="cuda"), bd, 3)
+    else:
+        c, args, (dy, dz) = _stack_inputs(8, (1, 2), 2, 64)
+        calls, x, y = _bad_stack_calls(c, args, dy, dz)
+        call = calls[wrapper]
+        lead = x if wrapper.endswith("fwd") else y
+        odd = WaveNetConfig(dilations=(1, 2), residual_channels=8,
+                            dilation_channels=16, skip_channels=16,
+                            quantization_channels=32)
+        wide = lambda: fs1.fused_stack_forward(*args, odd)
+    with pytest.raises(ValueError, match="float32"):
+        call(lead.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(lead.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(NotImplementedError, match="R == D"):
+        wide()

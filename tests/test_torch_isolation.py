@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
               "kernels.stack_pack", "train_lib", "ops.optimizers",
               "cli.train", "cli.generate", "sample", "sampler_select",
               "data.reader", "data.prefetch", "utils.summaries",
-              "utils.flops"):
+              "utils.flops", "experiments", "experiments.fused_stack",
+              "experiments.fused_stack2", "experiments.dilated_layer",
+              "kernels.fat", "kernels._launch"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

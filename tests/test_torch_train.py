@@ -93,14 +93,75 @@ def test_loss_and_grads_match_jax(pallas):
                                    rtol=2e-4, atol=1e-5, err_msg=k)
 
 
+_JAX_GRAD = jax.jit(jax.value_and_grad(jw.loss_fn, has_aux=True),
+                    static_argnums=(1, 4))
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_retired_stack_loss_matches_jax(version):
+    """``loss_fn`` with ``use_pallas_stack`` at a retired version (the
+    plain versions of ``experiments/fused_stack{,2}.py`` on the CPU)
+    against the JAX ``loss_fn`` on its plain stack: the loss and every
+    gradient, with the JAX package's tolerances
+    (``tests/test_dilated_layer.py``)."""
+    jcfg = JConfig(**BASE)
+    tcfg = TConfig(**BASE, use_pallas_stack=True,
+                   pallas_stack_version=version)
+    w = _weights(jcfg, version)
+    audio = _audio(jcfg, 2, 20, version)
+    ids = np.array([0, 3])
+    (l_j, _), g_j = _JAX_GRAD({k: jnp.asarray(v) for k, v in w.items()},
+                              jcfg, jnp.asarray(audio), jnp.asarray(ids),
+                              0.01)
+    tp = {k: v.requires_grad_(True)
+          for k, v in params_from_numpy(w, "cpu").items()}
+    l_t, _ = tw.loss_fn(tp, tcfg, torch.from_numpy(audio),
+                        torch.from_numpy(ids), 0.01)
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5)
+    assert set(g_j) == set(tp)
+    for k in g_j:
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(g_j[k]),
+                                   rtol=2e-4, atol=1e-5, err_msg=k)
+
+
 def test_routing_matches_jax():
     tcfg = TConfig(**BASE, use_pallas_stack=True)
     p = tw.init_params(0, tcfg, "cpu")
     codes = torch.zeros((1, 20), dtype=torch.int64)
-    for version in (1, 2):
-        bad = dataclasses.replace(tcfg, pallas_stack_version=version)
-        with pytest.raises(NotImplementedError, match="retired TPU kernel"):
-            tw.forward_codes(p, bad, codes)
+    # Version 3 runs kernels/fused_stack.py, 2 experiments/fused_stack2.py
+    # and any other version experiments/fused_stack.py, as in JAX.
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.experiments import fused_stack2 as fs2
+    from wavenet_torch.kernels import fused_stack as fs3
+    want = tw.forward_codes(p, dataclasses.replace(
+        tcfg, use_pallas_stack=False), codes)
+    seen = {}
+    for version, module, name in ((3, fs3, "fused_stack3"),
+                                  (2, fs2, "fused_stack2"),
+                                  (1, fs1, "fused_stack"),
+                                  (7, fs1, "fused_stack")):
+        op = getattr(module, name)
+        calls = []
+
+        def spy(*a, _op=op, _calls=calls):
+            _calls.append(1)
+            return _op(*a)
+
+        setattr(module, name, spy)
+        try:
+            got = tw.forward_codes(p, dataclasses.replace(
+                tcfg, pallas_stack_version=version), codes)
+        finally:
+            setattr(module, name, op)
+        seen[version] = len(calls)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert seen == {3: 1, 2: 1, 1: 1, 7: 1}
+    for version in (1, 2, 3):
+        deep = dataclasses.replace(tcfg, pallas_stack_version=version,
+                                   dilations=(1, 2048))
+        with pytest.raises(NotImplementedError, match="tile size"):
+            tw.forward_codes(tw.init_params(0, deep, "cpu"), deep, codes)
     with pytest.raises(NotImplementedError, match="filter_width"):
         wide = dataclasses.replace(tcfg, filter_width=3)
         tw.forward_codes(tw.init_params(0, wide, "cpu"), wide, codes)

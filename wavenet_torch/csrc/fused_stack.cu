@@ -42,35 +42,17 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "stack_common.cuh"
+
 namespace {
 
 constexpr int TM = 64;    // rows (time steps of one batch row) per tile
 constexpr int NT = 256;   // threads per block
 
-// Thread map of a [TM, N] output tile: NG column groups (columns
-// interleaved with stride NG) times RG row groups (rows interleaved with
-// stride RG); each thread owns RM rows x CN columns.
 template <int N>
-struct TileMap {
-  static constexpr int NG = N < 16 ? N : 16;
-  static constexpr int CN = N / NG;
-  static constexpr int RG = NT / NG;
-  static constexpr int RM = TM / RG;
-  static_assert(N % NG == 0 && NT % NG == 0 && TM % RG == 0, "tile map");
-};
-
-// Thread map of a [K, N] weight-gradient block: thread tid owns column
-// tid % N of rows tid / N + q * (NT / N), q < Q.
+using TileMap = TileMapT<TM, NT, N>;
 template <int K, int N>
-struct GradMap {
-  static_assert(NT % N == 0, "grad map");
-  static constexpr int P = NT / N;
-  static constexpr int Q = (K + P - 1) / P;
-};
-
-__device__ __forceinline__ float sigmoidf(float g) {
-  return 1.f / (1.f + expf(-g));
-}
+using GradMap = GradMapT<NT, K, N>;
 
 // ---------------------------------------------------------------------------
 // Forward: one layer over all rows. grid (tiles of T, B).
@@ -481,63 +463,13 @@ __global__ void __launch_bounds__(NT) bwd_dx_kernel(
     for (int v = 0; v < MJ; ++v) pw[(ti + 16 * u) * N1 + tj + 16 * v] = p_w[u][v];
 }
 
-// Adds the blocks' partial sums in block order. grid (outputs / NT, L).
-__global__ void __launch_bounds__(NT) bwd_reduce_kernel(
-    const float* __restrict__ part_w, const float* __restrict__ part_a,
-    const float* __restrict__ part_add, float* __restrict__ dw_fg,
-    float* __restrict__ dwd, float* __restrict__ dbd,
-    float* __restrict__ dadd, int B, int nchunk, int R, int D) {
-  const int l = blockIdx.y;
-  int e = blockIdx.x * NT + threadIdx.x;
-  const int ncta = B * nchunk;
-  const int nw = 4 * R * D, na = D * R + R, nadd = B * 2 * D;
-  if (e < nw) {
-    const float* p = part_w + (size_t)l * ncta * nw + e;
-    float s = 0.f;
-    for (int k = 0; k < ncta; ++k) s += p[(size_t)k * nw];
-    dw_fg[(size_t)l * nw + e] = s;
-    return;
-  }
-  e -= nw;
-  if (e < na) {
-    const float* p = part_a + (size_t)l * ncta * na + e;
-    float s = 0.f;
-    for (int k = 0; k < ncta; ++k) s += p[(size_t)k * na];
-    if (e < D * R) dwd[(size_t)l * D * R + e] = s;
-    else dbd[(size_t)l * R + e - D * R] = s;
-    return;
-  }
-  e -= na;
-  if (e < nadd) {
-    const int bb = e / (2 * D), j = e % (2 * D);
-    const float* p = part_add + ((size_t)l * ncta + (size_t)bb * nchunk) * (2 * D) + j;
-    float s = 0.f;
-    for (int k = 0; k < nchunk; ++k) s += p[(size_t)k * 2 * D];
-    dadd[(size_t)l * nadd + e] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-struct Tiling {
-  int tiles_per_chunk, nchunk;
-};
-
 // The backward's grid: at most three blocks per SM (launch (B)'s shared
-// memory fits three), so every block runs in the first wave; each walks a
-// fixed chunk of consecutive tiles of one batch row.
-Tiling backward_tiling(int B, int T) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int ntiles = (T + TM - 1) / TM;
-  int target = 3 * sms / B;
-  if (target < 1) target = 1;
-  const int tpc = (ntiles + target - 1) / target;
-  return {tpc, (ntiles + tpc - 1) / tpc};
-}
+// memory fits three), so every block runs in the first wave.
+Tiling backward_tiling(int B, int T) { return chunk_tiling(B, T, TM, 3); }
 
 template <int R, int D>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
@@ -610,10 +542,8 @@ int backward_impl(const float* y, const float* dy, const float* fg,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const int per_layer = 4 * R * D + D * R + R + B * 2 * D;
-  bwd_reduce_kernel<<<dim3((per_layer + NT - 1) / NT, L), NT, 0, st>>>(
-      pw, pa, padd, dw_fg, dwd, dbd, dadd, B, tl.nchunk, R, D);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce_partials<NT>(pw, pa, padd, dw_fg, dwd, dbd, dadd,
+                                         B, tl.nchunk, L, R, D, st);
 }
 
 constexpr int kUnsupportedWidth = 1000;

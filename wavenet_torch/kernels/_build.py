@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc`` for ``sm_90a`` into a shared library, then loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
+``ctypes``. The library's file name carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so a changed source is
+rebuilt and an unchanged one is reused.
 The build directory is ``wavenet_torch/build/`` unless the environment
 variable ``WAVENET_TORCH_BUILD_DIR`` names another.
 """
@@ -11,6 +12,7 @@ variable ``WAVENET_TORCH_BUILD_DIR`` names another.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -52,9 +54,12 @@ def _compile(name: str):
     Two threads that build one source at once each write a temporary file
     and rename it over the same library, so either result is whole."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The source and every header it may include from csrc/.
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, f"lib{name}-{digest}.so")

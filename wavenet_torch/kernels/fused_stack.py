@@ -29,6 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from wavenet_torch.kernels import _launch
 from wavenet_torch.kernels.stack_pack import pack_stack_weights, tap_offsets
 from wavenet_torch.models.config import WaveNetConfig
 
@@ -136,13 +137,7 @@ def _lib():
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if (t.dtype != torch.float32 or t.device != device
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(
-            f"fused_stack: {name} must be float32 {tuple(shape)} on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_stack: {name} must be contiguous")
+    _launch.check("fused_stack", name, t, shape, device)
 
 
 def _check_call(lib, config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
@@ -163,25 +158,12 @@ def _check_call(lib, config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
     return (ctypes.c_int * L)(*c.dilations)
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _dispatch(t: torch.Tensor) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"fused_stack: unsupported device {t.device}")
-    return True
-
-
 def forward(x, w_fg, wd, add, bd, config: WaveNetConfig):
     """Stack forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]).
 
     CPU tensors run ``fused_stack_forward_reference``; CUDA tensors launch
     the kernel or raise."""
-    if not _dispatch(x):
+    if not _launch.use_kernel("fused_stack", x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
@@ -197,7 +179,7 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig):
     err = lib.fused_stack_fwd_f32(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
-        z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _stream(x.device))
+        z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _launch.stream(x.device))
     if err != 0:
         raise RuntimeError(f"fused_stack forward launch failed: CUDA error "
                            f"{err}")
@@ -212,7 +194,7 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
     CPU tensors run ``fused_stack_backward_reference``; CUDA tensors
     launch the kernel or raise. The kernel sums the weight gradients in a
     fixed order (no atomics): repeated calls are bitwise equal."""
-    if not _dispatch(y):
+    if not _launch.use_kernel("fused_stack", y):
         return fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
                                               config)
     c = config
@@ -237,7 +219,7 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
         y.data_ptr(), dy.data_ptr(), fg.data_ptr(), dz.data_ptr(),
         w_fg.data_ptr(), wd.data_ptr(), bd.data_ptr(), ctypes.addressof(dil),
         dx.data_ptr(), dw_fg.data_ptr(), dwd.data_ptr(), dadd.data_ptr(),
-        dbd.data_ptr(), scratch.data_ptr(), B, T, L, R, D, _stream(dev))
+        dbd.data_ptr(), scratch.data_ptr(), B, T, L, R, D, _launch.stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_stack backward launch failed: CUDA error "
                            f"{err}")

@@ -20,9 +20,10 @@ dict of weights runs in both packages (see ``wavenet_torch.params``).
 Every layer keeps the full time axis (causal left padding), and the skip
 projections are deferred to one matmul over all layers' gate outputs, as
 in the JAX package. With ``use_pallas_stack`` (the JAX flag's name) the
-dilated stack runs through the hand-written CUDA kernel pair of
-``kernels/fused_stack.py``. LC (and its refinement) is queued in
-ROADMAP.md.
+dilated stack runs through a hand-written CUDA kernel pair:
+``kernels/fused_stack.py`` (``pallas_stack_version`` 3) or one of the
+retired generations in ``experiments/`` (versions 1 and 2). LC (and its
+refinement) is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -268,28 +269,29 @@ def _dilated_stack_pallas(params: Params, c: WaveNetConfig,
                           current: torch.Tensor,
                           gc_embedding: Optional[torch.Tensor],
                           head_from: int = 0) -> torch.Tensor:
-    """Dilated stack through the fused kernel pair, then the deferred skip
-    head in plain PyTorch (the JAX package's ``_dilated_stack_pallas``,
-    version 3). The kernel's z has no lane padding, so the skip weights
-    are used as they are."""
-    if c.pallas_stack_version != 3:
-        kernel = {2: "6 (experiments/fused_stack2.py)",
-                  1: "7 (experiments/fused_stack.py)"}.get(
-                      c.pallas_stack_version,
-                      f"version {c.pallas_stack_version}")
-        raise NotImplementedError(
-            f"pallas_stack_version {c.pallas_stack_version} is the retired "
-            f"TPU kernel {kernel}, not ported yet (ROADMAP.md, TPU kernels)")
-    from wavenet_torch.kernels.fused_stack import (
-        fused_stack3, pack_stack_weights, supports)
+    """Dilated stack through a whole-stack kernel pair, then the deferred
+    skip head in plain PyTorch (the JAX package's ``_dilated_stack_pallas``).
+    Version 3 (the default) runs ``kernels/fused_stack.py``, version 2
+    ``experiments/fused_stack2.py`` and any other version
+    ``experiments/fused_stack.py``, as in JAX. No route pads z to lanes,
+    so the skip weights are used as they are."""
+    if c.pallas_stack_version == 3:
+        from wavenet_torch.kernels.fused_stack import (
+            fused_stack3 as stack, supports)
+    elif c.pallas_stack_version == 2:
+        from wavenet_torch.experiments.fused_stack2 import (
+            fused_stack2 as stack, supports)
+    else:
+        from wavenet_torch.experiments.fused_stack import (
+            fused_stack as stack, supports)
     if not supports(c):
         raise NotImplementedError(
             "use_pallas_stack requires filter_width=2 and max "
             "dilation <= the kernel tile size")
+    from wavenet_torch.kernels.stack_pack import pack_stack_weights
     w_fg, wd, add, bd = pack_stack_weights(params, c, gc_embedding,
                                            current.shape[0])
-    _, all_outs = fused_stack3(current.to(torch.float32), w_fg, wd, add, bd,
-                               c)
+    _, all_outs = stack(current.to(torch.float32), w_fg, wd, add, bd, c)
     return _head(params, c, all_outs, head_from)
 
 

@@ -51,12 +51,13 @@ def train_step_flops(config: WaveNetConfig, batch_size: int,
 
 
 def fused_stack_cost(config: WaveNetConfig, batch_size: int, positions: int,
-                     backward: bool = False):
-    """(FLOPs, bytes) of one call of the fused dilated-stack kernel on
+                     backward: bool = False, emit_z: bool = True):
+    """(FLOPs, bytes) of one call of a fused dilated-stack kernel on
     [batch_size, positions] rows: its matmuls (forward: the filter|gate and
     dense products; backward: the dense product twice more, the input
     rebuild, dx over both taps and the two weight gradients), and each
-    input read once and each output written once, in float32."""
+    input read once and each output written once, in float32. A forward
+    with ``emit_z=False`` (generation v1) writes no z."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     rows = batch_size * positions
@@ -69,9 +70,30 @@ def fused_stack_cost(config: WaveNetConfig, batch_size: int, positions: int,
             + L * batch_size * 2 * D
     else:
         macs = L * rows * (2 * R * 2 * D + D * R)
-        # x and add in, y, fg, z out.
-        floats = rows * (2 * R + 3 * L * D) + weights \
+        # x and add in, y, fg (and z) out.
+        floats = rows * (2 * R + (3 if emit_z else 2) * L * D) + weights \
             + L * batch_size * 2 * D
+    return 2.0 * macs, 4.0 * floats
+
+
+def dilated_layer_cost(residual_channels: int, dilation_channels: int,
+                       batch_size: int, positions: int,
+                       backward: bool = False):
+    """(FLOPs, bytes) of one call of the one-layer kernel on [batch_size,
+    positions] rows. Forward: the filter|gate and dense products; x and
+    add in, y and z out. Backward: the filter|gate product again (the
+    recompute), dz from dy, dx_local and dpast, and the dw and dwd
+    gradients; x, dy, dz and add in, dx_local, dpast and the gradients
+    out. The weights are read once; float32."""
+    R, D = residual_channels, dilation_channels
+    rows = batch_size * positions
+    weights = 2 * R * 2 * D + D * R + R
+    if backward:
+        macs = rows * (3 * (2 * R * 2 * D) + 2 * D * R)
+        floats = rows * (4 * R + D) + 2 * weights + 2 * batch_size * 2 * D
+    else:
+        macs = rows * (2 * R * 2 * D + D * R)
+        floats = rows * (2 * R + D) + weights + batch_size * 2 * D
     return 2.0 * macs, 4.0 * floats
 
 
