@@ -118,6 +118,21 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 SLICE_RTOL = 1e-4
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
+KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
+# Phase 8: the probes. Steps of one b1_bisect launch (checked and timed)
+# and of the tool's own run; steps of one matvec_probe launch (timed) and
+# of the one held against its plain version.
+R3_STEPS, R3_MAIN_STEPS, R3_SEED = 2048, 1024, 7
+R4_STEPS, R4_CHECK_STEPS = 4000, 256
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the least time
+# of the bf16 variants' products, though the probes multiply on the FP32
+# cores.
+BF16_FLOPS = 989e12
+# bf16 operands against their plain version: another summation order flips
+# some bf16 roundings (2**-8 relative) and 30 layers carry them on (~0.3%
+# of the values' mean, up to ~5% of max |ref| at a point); an indexing
+# fault is O(1).
+PROBE_BF16_RTOL, PROBE_BF16_MEAN_RTOL = 1e-1, 1e-2
 
 
 def emit(obj) -> None:
@@ -1390,6 +1405,310 @@ def phase_dilated_layer(c, params, rng, gpu):
     return out
 
 
+def probe_hold(row, label, got, ref, bf16: bool) -> float:
+    """A probe's output against its plain version: within phase 5's
+    forward tolerance at float32; at bf16 within PROBE_BF16_RTOL of max
+    |ref| and, on the mean, PROBE_BF16_MEAN_RTOL of mean |ref|. Records
+    the errors in ``row``."""
+    import torch
+    got, ref = got.float(), ref.float()
+    where = " ".join(str(row[k]) for k in ("probe", "variant", "mode",
+                                           "tile", "dtype") if k in row)
+    where = f"{where} {label}"
+    check(torch.isfinite(got).all().item(), f"{where}: non-finite output")
+    rtol, atol = (PROBE_BF16_RTOL, 0.0) if bf16 else (FWD_RTOL, FWD_ATOL)
+    err, rel, ok = within(got, ref, rtol, atol)
+    row[f"max_abs_err_{label}"] = err
+    row[f"max_rel_err_{label}"] = rel
+    check(ok, f"{where}: differs from its plain version by {err} ({rel} "
+          "of max |ref|)")
+    if bf16:
+        mean = ((got - ref).abs().mean() / ref.abs().mean()).item()
+        row[f"mean_rel_err_{label}"] = mean
+        check(mean <= PROBE_BF16_MEAN_RTOL, f"{where}: mean error {mean} "
+              "of mean |ref|")
+    return err
+
+
+def probe_bound(flops: float, nbytes: float, bf16: bool):
+    from wavenet_torch.utils.flops import bound_ms
+    return bound_ms(flops, nbytes, BF16_FLOPS if bf16 else FP32_FLOPS,
+                    HBM_BYTES_PER_S)
+
+
+def fwd_bisect_cost(c, B: int, T: int, variant: str, bf16: bool):
+    """(FLOPs, bytes) of one r2 variant call: both products of every layer
+    (every variant runs them), x in and y out in float32, the weights in
+    the operand type, the adds, and the fg and z records where written."""
+    from wavenet_torch.tools import r2_fwd_bisect as r2
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    rows, esz = B * T, 2 if bf16 else 4
+    flops = 2.0 * rows * L * (2 * R * 2 * D + D * R)
+    nbytes = (8.0 * rows * R + esz * L * (4 * R * D + D * R)
+              + 4 * L * (B * 2 * D + R))
+    if r2.writes_records(variant):
+        nbytes += esz * rows * L * 3 * D
+    return flops, nbytes
+
+
+def fwd_bisect2_cost(c, B: int, T: int, variant: str, bf16: bool):
+    """(FLOPs, bytes) of one r2b variant launch: its products (act_only:
+    four operations an element a layer), x in and y out, its weights."""
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    rows, esz = B * T, 2 if bf16 else 4
+    if variant == "act_only":
+        return 4.0 * rows * L * R, 8.0 * rows * R
+    if variant.startswith("fat"):
+        k, n = 2 * R + 2 * D, 2 * D + R
+        return 2.0 * rows * L * k * n, 8.0 * rows * R + esz * L * k * n
+    per = 4 * R * D + D * R
+    return 2.0 * rows * L * per, 8.0 * rows * R + esz * L * per
+
+
+def phase_fwd_bisect(c, params, rng, gpu):
+    """Phase 8 (a): kernel 5's forward by r2 variant (TPU kernel 9a), and
+    its core math by r2b variant (9b), at the paper config, b8 x (rf +
+    16,000) (r2 on phase 5's stack inputs): each variant at float32 and
+    bf16 against its plain version and timed; ``full`` at float32 bitwise
+    kernel 5's forward."""
+    import torch
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.tools import DTYPE_NAMES
+    from wavenet_torch.tools import r2_fwd_bisect as r2
+    from wavenet_torch.tools import r2_fwd_bisect2 as r2b
+
+    args = stack_inputs(c, params, rng)
+    B, T = args[0].shape[:2]
+    want = fs.forward(*args, c)
+    got = r2.fwd_bisect(*args, c, "full")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "fwd_bisect full (float32) differs from kernel 5's forward")
+    emit({"phase": "probe", "probe": "r2_fwd_bisect", "config": "paper",
+          "full_f32_bitwise_kernel5": True, "gpu": gpu})
+    del got, want
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+        for v in r2.VARIANTS:
+            row = {"phase": "probe", "probe": "r2_fwd_bisect",
+                   "config": "paper", "variant": v, "dtype": dt,
+                   "batch": B, "positions": T}
+            got = r2.fwd_bisect(*args, c, v, dtype)
+            ref = r2.fwd_bisect_reference(*args, c, v, dtype)
+            torch.cuda.synchronize()
+            err = max(probe_hold(row, n, a, b, bf16) for n, a, b in
+                      zip(("y", "fg", "z"), got, ref) if a is not None)
+            del got, ref
+            ms = median_cuda_ms(lambda: r2.fwd_bisect(*args, c, v, dtype))
+            plain = median_cuda_ms(lambda: r2.fwd_bisect_reference(
+                *args, c, v, dtype), reps=3)
+            flops, nbytes = fwd_bisect_cost(c, B, T, v, bf16)
+            bound, by = probe_bound(flops, nbytes, bf16)
+            row.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                       flops=flops, bytes=nbytes, gpu=gpu)
+            emit(row)
+            results[f"{v}_{dt}"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain, bound_ms=bound,
+                                         bound_by=by)
+            torch.cuda.empty_cache()
+    del args
+    args = r2b.inputs(c, TRAIN_BATCH, TRAIN_SAMPLES, "cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+        for v in r2b.VARIANTS:
+            for tile in sorted(r2b.TILES):
+                row = {"phase": "probe", "probe": "r2_fwd_bisect2",
+                       "config": "paper", "variant": v, "tile": tile,
+                       "rows_per_block": r2b.TILES[tile], "dtype": dt,
+                       "batch": B, "positions": T}
+                got = r2b.fwd_bisect2(*args, v, tile, dtype)
+                ref = r2b.fwd_bisect2_reference(*args, v, tile, dtype)
+                torch.cuda.synchronize()
+                err = probe_hold(row, "y", got, ref, bf16)
+                ms = median_cuda_ms(lambda: r2b.fwd_bisect2(*args, v, tile,
+                                                            dtype))
+                plain = median_cuda_ms(lambda: r2b.fwd_bisect2_reference(
+                    *args, v, tile, dtype), reps=3)
+                flops, nbytes = fwd_bisect2_cost(c, B, T, v, bf16)
+                bound, by = probe_bound(flops, nbytes, bf16)
+                row.update(ms=ms, plain_ms=plain, bound_ms=bound,
+                           bound_by=by, gpu=gpu)
+                emit(row)
+                results[f"{v}_{tile}_{dt}"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by)
+    return results
+
+
+def b1_bisect_cost(c, mode: str, bf16: bool, n_steps: int):
+    """(FLOPs, bytes) per step of one b1_bisect launch: the products the
+    mode keeps, and the weights and adds read, the zero state in and out,
+    the first code in and the codes out once per launch."""
+    L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
+                     c.skip_channels, c.quantization_channels)
+    macs = {"feat": causal_rows(c) * R, "fg": L * 4 * R * D,
+            "dense": L * D * R, "skip": L * D * S, "head": S * S + S * Q}
+    off = {"no_skip": {"skip"}, "no_dense": {"dense"}, "no_fg": {"fg"},
+           "no_head": {"head"}, "no_feat": {"feat"},
+           "mm_only": {"skip", "head"}}.get(mode, set())
+    flops = 2.0 * sum(v for k, v in macs.items() if k not in off)
+    esz = 2 if bf16 else 4
+    w = causal_rows(c) * R + L * (4 * R * D + D * R + D * S) + S * S + S * Q
+    adds = L * (2 * D + R) + 2 * S + Q
+    state = sum(c.dilations) * R + Q
+    nbytes = esz * w + 4 * adds + 8 * state + 4 + 4 * n_steps
+    return flops, nbytes / n_steps
+
+
+def phase_b1_bisect(c, params, gpu):
+    """Phase 8 (b): the b1 decode step by r3 mode (TPU kernel 10a) at the
+    paper config, float32 and bf16 weights: R3_STEPS steps from a zero
+    state, three launches (bitwise equal), the codes replayed by the plain
+    version under the same Philox noise (>= 99.9% equal; its logits within
+    phase 5's forward tolerance, or the bf16 one), ``full`` at float32
+    bitwise ``decode_sequential``'s codes; ms per step."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.tools import DTYPE_NAMES
+    from wavenet_torch.tools import r3_b1_bisect as r3
+
+    Q, n = c.quantization_channels, R3_STEPS
+    first = torch.full((1, 1), Q // 2, dtype=torch.int32, device="cuda")
+    noise = ks.gumbel_noise(R3_SEED, 1, 0, n, Q, "cuda")[:, 0]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+        pk = ks.pack_sampler_weights(params, c, 1, weight_dtype=dtype)
+        if not bf16:
+            seq, _ = ks.decode_sequential(pk, c, first, n, R3_SEED)
+        for mode in r3.MODES:
+            row = {"phase": "probe", "probe": "r3_b1_bisect",
+                   "config": "paper", "mode": mode,
+                   "dtype": dt, "steps": n}
+            codes, lg_k = r3.b1_bisect(pk, c, mode, n, R3_SEED,
+                                       collect_logits=True)
+            outs = []
+            times = [cuda_ms(lambda: outs.append(r3.b1_bisect(
+                pk, c, mode, n, R3_SEED))) for _ in range(3)]
+            check(all(torch.equal(codes, o) for o in outs),
+                  f"b1_bisect {mode} {dt}: same-seed launches differ")
+            row["bitwise_repeat"] = True
+            check(0 <= codes.min().item() and codes.max().item() < Q,
+                  f"b1_bisect {mode} {dt}: codes out of range")
+            if mode == "full" and not bf16:
+                check(torch.equal(codes, seq), "b1_bisect full (float32) "
+                      "differs from decode_sequential")
+                row["bitwise_decode_sequential"] = True
+            # The plain version teacher-forced on the kernel's inputs.
+            lg = r3.b1_bisect_logits(pk, c, mode,
+                                     torch.cat([first, codes[:, :-1]], 1))
+            err = probe_hold(row, "logits", lg_k, lg, bf16)
+            lg = lg[0] if mode == "no_sample" else lg[0] + noise
+            top2 = lg.topk(2, dim=-1).values
+            match = lg.argmax(dim=-1) == codes[0].long()
+            rate = match.float().mean().item()
+            margin = (top2[:, 0] - top2[:, 1])[~match]
+            check(rate >= 0.999, f"b1_bisect {mode} {dt}: only {rate} of the "
+                  "codes equal the plain replay's")
+            ms = float(np.median(times)) / n
+            plain = cuda_ms(lambda: r3.b1_bisect_reference(
+                pk, c, mode, 2, R3_SEED)) / 2
+            flops, nbytes = b1_bisect_cost(c, mode, bf16, n)
+            bound, by = probe_bound(flops, nbytes, bf16)
+            row.update(match_rate=rate, mismatches=int((~match).sum()),
+                       max_mismatch_margin=margin.max().item()
+                       if len(margin) else 0.0,
+                       distinct_codes=len(torch.unique(codes)),
+                       ms_per_step=ms, ms_per_step_runs=[t / n for t in times],
+                       plain_ms_per_step=plain, bound_ms_per_step=bound,
+                       bound_by=by, gpu=gpu)
+            emit(row)
+            results[f"{mode}_{dt}"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain, bound_ms=bound,
+                                           bound_by=by)
+    return results
+
+
+def phase_matvec_probe(gpu):
+    """Phase 8 (c): the two product forms (TPU kernel 10b) at the tool's
+    C = 64 and L = 60, on 4 x orthogonal weights: each mode against its
+    plain version over R4_CHECK_STEPS steps, timed over R4_STEPS."""
+    import numpy as np
+    import torch
+    from wavenet_torch.tools import r4_matvec_probe as r4
+
+    C, L = r4.C, r4.L
+    w = r4.orthogonal_weights(L, C).cuda()
+    wt = w.transpose(1, 2).contiguous()
+    results = {}
+    for mode in r4.MODES:
+        row = {"phase": "probe", "probe": "r4_matvec_probe", "config": "C64",
+               "mode": mode, "C": C, "L": L}
+        got = r4.matvec_probe(w, wt, mode, R4_CHECK_STEPS)
+        ref = r4.matvec_probe_reference(w, wt, mode, R4_CHECK_STEPS)
+        torch.cuda.synchronize()
+        err = hold(row, "x", got, ref, 1e-4, 1e-7)
+        times = [cuda_ms(lambda: r4.matvec_probe(w, wt, mode, R4_STEPS))
+                 for _ in range(3)]
+        ms = float(np.median(times)) / R4_STEPS
+        plain = cuda_ms(lambda: r4.matvec_probe_reference(w, wt, mode,
+                                                          4)) / 4
+        flops = L * (2.0 * C * C + (C / 2 if mode.endswith("tanh") else 0))
+        nbytes = 4.0 * L * C * C * (2 if mode.startswith("vpu") else 1) + 4 * C
+        bound, by = probe_bound(flops, nbytes / R4_STEPS, False)
+        row.update(ms_per_step=ms, ns_per_product=1e6 * ms / L,
+                   plain_ms_per_step=plain, bound_ms_per_step=bound,
+                   bound_by=by, steps=R4_STEPS, gpu=gpu)
+        emit(row)
+        results[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bound, bound_by=by)
+    return results
+
+
+def phase_probe_main_path(gpu):
+    """Phase 8 (d), the main path of this slice: the four probe tools as a
+    user runs them (``python -m wavenet_torch.tools.<name>``, here their
+    ``main`` in this process), each wrapper's launches counted from 0.
+    Returns the launches by wrapper and variant."""
+    from wavenet_torch.tools import r2_fwd_bisect as r2
+    from wavenet_torch.tools import r2_fwd_bisect2 as r2b
+    from wavenet_torch.tools import r3_b1_bisect as r3
+    from wavenet_torch.tools import r4_matvec_probe as r4
+
+    wrappers = {"fwd_bisect": r2.fwd_bisect, "fwd_bisect2": r2b.fwd_bisect2,
+                "b1_bisect": r3.b1_bisect, "matvec_probe": r4.matvec_probe}
+    for fn in wrappers.values():           # the main path starts here
+        fn.launches = 0
+        fn.launches_by.clear()
+    runs = (("r2_fwd_bisect", r2.main, []), ("r2_fwd_bisect2", r2b.main, []),
+            ("r3_b1_bisect", r3.main, ["--steps", str(R3_MAIN_STEPS)]),
+            ("r3_b1_bisect --bf16", r3.main,
+             ["--steps", str(R3_MAIN_STEPS), "--bf16"]),
+            ("r4_matvec_probe", r4.main, ["--steps", str(R4_STEPS)]))
+    seconds = {}
+    for label, main_fn, argv in runs:
+        t = time.perf_counter()
+        rc = main_fn(argv)
+        seconds[label] = time.perf_counter() - t
+        check(rc == 0, f"{label} exited {rc}")
+    launches = {k: dict(fn.launches_by) for k, fn in wrappers.items()}
+    want = {"fwd_bisect": [f"{v}_{d}" for v in r2.VARIANTS
+                           for d in ("bf16", "f32")],
+            "fwd_bisect2": [f"{v}_{t}_{d}" for v, t in r2b.MAIN_CASES
+                            for d in ("bf16", "f32")],
+            "b1_bisect": [f"{m}_{d}" for m in r3.MODES
+                          for d in ("bf16", "f32")],
+            "matvec_probe": list(r4.MODES)}
+    for k, keys in want.items():
+        missing = [key for key in keys if not launches[k].get(key)]
+        check(not missing, f"{k}: no launch of {missing} on the main path")
+    emit({"phase": "probe_main_path", "seconds": seconds,
+          "launches": launches, "gpu": gpu})
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -1461,6 +1780,15 @@ def main() -> int:
     carry_launches = phase_carry_train(cfgs["gc"], params["gc"], rng, gpu)
     layer = phase_dilated_layer(cfgs["gc"], params["gc"], rng, gpu)
     emit({"phase": "retired_stacks", "seconds": time.perf_counter() - t7,
+          "script_seconds": time.perf_counter() - t_start})
+
+    # Phase 8: the probes (TPU kernels 9-10).
+    t8 = time.perf_counter()
+    r2_res = phase_fwd_bisect(cfgs["paper"], params["paper"], rng, gpu)
+    r3_res = phase_b1_bisect(cfgs["paper"], params["paper"], gpu)
+    r4_res = phase_matvec_probe(gpu)
+    probe_launches = phase_probe_main_path(gpu)
+    emit({"phase": "probes", "seconds": time.perf_counter() - t8,
           "script_seconds": time.perf_counter() - t_start})
 
     replaces = {1: "wavenet_tpu/kernels/sampler.py:234",
@@ -1535,6 +1863,41 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "unit": "per call (one layer)", "gpu": gpu})
+    # The probes (phase 8): one row per probe kernel, the other variants
+    # on the phase's "probe" lines. library_ms is null: no single PyTorch
+    # call computes a gated layer stack, a decode step or a dependent
+    # chain of matvecs.
+    probe_rows = (
+        ("fwd_bisect_full_bf16", "fwd_bisect", "full_bf16", r2_res,
+         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178",
+         "per call (30 layer launches)"),
+        ("fwd_bisect_full_f32", "fwd_bisect", "full_f32", r2_res,
+         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178",
+         "per call (30 layer launches)"),
+        ("fwd_bisect2_fat_1t", "fwd_bisect2", "fat_1t_1024_bf16", r2_res,
+         "fwd_bisect.cu", "tools/r2_fwd_bisect2.py:108", "per call"),
+        ("b1_bisect_full_f32", "b1_bisect", "full_f32", r3_res,
+         "b1_bisect.cu", "tools/r3_b1_bisect.py:158", "per decode step"),
+        ("b1_bisect_full_bf16", "b1_bisect", "full_bf16", r3_res,
+         "b1_bisect.cu", "tools/r3_b1_bisect.py:158", "per decode step"),
+        ("matvec_probe_mxu", "matvec_probe", "mxu", r4_res,
+         "matvec_probe.cu", "tools/r4_matvec_probe.py:96",
+         "per step (60 chained products)"),
+        ("matvec_probe_vpu", "matvec_probe", "vpu", r4_res,
+         "matvec_probe.cu", "tools/r4_matvec_probe.py:96",
+         "per step (60 chained products)"),
+    )
+    for name, wrapper, key, res, src, where, unit in probe_rows:
+        m = res[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"wavenet_torch/csrc/{src}", "replaces": where,
+            "config": "paper", "variant": key,
+            "launches": probe_launches[wrapper][key],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None, "unit": unit,
+            "gpu": gpu})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (``sampler_decode`` on its prefill and
 sequential routes, mu-law and scalar input; ``fused_stack``;
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
-``dilated_layer``) against their plain versions, on the card.
+``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
+``matvec_probe`` of ``wavenet_torch.tools``) against their plain versions,
+on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA GPU:
 the kernels have no CPU mode. The file imports no JAX, so on a machine with
@@ -495,3 +497,152 @@ def test_new_wrappers_reject_bad_inputs(setup, wrapper):
         call(lead.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(NotImplementedError, match="R == D"):
         wide()
+
+
+# ---------------------------------------------------------------------------
+# The probes (wavenet_torch.tools): TPU kernels 9 and 10
+# ---------------------------------------------------------------------------
+
+from wavenet_torch.tools import r2_fwd_bisect as r2  # noqa: E402
+from wavenet_torch.tools import r2_fwd_bisect2 as r2b  # noqa: E402
+from wavenet_torch.tools import r3_b1_bisect as r3  # noqa: E402
+from wavenet_torch.tools import r4_matvec_probe as r4  # noqa: E402
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# bf16 operands: another summation order can flip a bf16 rounding (one bf16
+# ulp, 2**-8 relative), which the following layers carry on.
+PROBE_TOL = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def _close(got, ref, rtol, what):
+    """|got - ref| <= rtol * max|ref| + rtol * 1e-2 everywhere."""
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all(), what
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= rtol * scale + rtol * 1e-2, f"{what}: {err} of {scale}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("variant", r2.VARIANTS)
+def test_fwd_bisect_matches_reference(setup, variant, dt):
+    """Every r2 variant at R = D = 16 over dilations on both sides of the
+    64-row tile (the rolled tile's halo shorter and longer than the tile);
+    T not a multiple of the tile."""
+    c, args, _ = _stack_inputs(16, (1, 2, 63, 64, 100, 512), 2, 700)
+    before = r2.fwd_bisect.launches
+    got = r2.fwd_bisect(*args, c, variant, DTYPES[dt])
+    ref = r2.fwd_bisect_reference(*args, c, variant, DTYPES[dt])
+    torch.cuda.synchronize()
+    assert r2.fwd_bisect.launches == before + 1
+    for name, a, b in zip(("y", "fg", "z"), got, ref):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype, name
+            _close(a, b, PROBE_TOL[dt], f"{variant} {dt} {name}")
+
+
+@pytest.mark.gpu
+def test_fwd_bisect_full_f32_is_kernel5(setup):
+    """At float32, ``full`` and ``rolled`` emit kernel 5's y, fg and z
+    bitwise (the same instantiation; the same FMA order)."""
+    c, args, _ = _stack_inputs(32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
+                               2, 1500)
+    want = fs.forward(*args, c)
+    for variant in ("full", "rolled"):
+        got = r2.fwd_bisect(*args, c, variant)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("tile", sorted(r2b.TILES))
+@pytest.mark.parametrize("variant", r2b.VARIANTS)
+def test_fwd_bisect2_matches_reference(setup, variant, tile, dt):
+    """Every r2b variant at both tiles (R = D = 32, the width it is built
+    for; 600 rows, not a multiple of the block)."""
+    rng = np.random.RandomState(4)
+    L, W = 3, 32
+
+    def rn(*shape, scale):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
+                               device="cuda")
+
+    args = (rn(2, 300, W, scale=1.0), rn(L, 2 * W, 2 * W, scale=0.2),
+            rn(L, W, W, scale=0.2), rn(L, 4 * W, 3 * W, scale=0.2))
+    before = r2b.fwd_bisect2.launches
+    got = r2b.fwd_bisect2(*args, variant, tile, DTYPES[dt])
+    ref = r2b.fwd_bisect2_reference(*args, variant, tile, DTYPES[dt])
+    torch.cuda.synchronize()
+    assert r2b.fwd_bisect2.launches == before + 1
+    _close(got, ref, PROBE_TOL[dt], f"{variant} {tile} {dt}")
+
+
+B1_SMALL = dict(dilations=(1, 2, 4, 8, 16, 1, 2, 4), residual_channels=16,
+                dilation_channels=16, skip_channels=64,
+                quantization_channels=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("mode", r3.MODES)
+def test_b1_bisect_matches_reference(setup, mode, dt):
+    """Every r3 mode: the kernel's codes replayed by the plain version
+    (teacher-forced logits plus the same Philox noise) agree, and at
+    float32 ``full`` emits ``decode_sequential``'s codes."""
+    c = WaveNetConfig(**B1_SMALL)
+    packed = ks.pack_sampler_weights(_seeded_params(c), c, 1,
+                                     weight_dtype=DTYPES[dt])
+    n, seed, Q = 400, 9, c.quantization_channels
+    before = r3.b1_bisect.launches
+    codes = r3.b1_bisect(packed, c, mode, n, seed)
+    torch.cuda.synchronize()
+    assert r3.b1_bisect.launches == before + 1
+    assert codes.shape == (1, n) and 0 <= codes.min() and codes.max() < Q
+    first = torch.full((1, 1), Q // 2, dtype=torch.int32, device="cuda")
+    lg = r3.b1_bisect_logits(packed, c, mode,
+                             torch.cat([first, codes[:, :-1]], dim=1))[0]
+    if mode != "no_sample":
+        lg = lg + ks.gumbel_noise(seed, 1, 0, n, Q, "cuda")[:, 0]
+    match = (lg.argmax(dim=-1) == codes[0].long()).float().mean().item()
+    assert match >= 0.995, match
+    if mode == "full" and dt == "f32":
+        want, _ = ks.decode_sequential(packed, c, first, n, seed)
+        assert torch.equal(codes, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("mode", r4.MODES)
+def test_matvec_probe_matches_reference(setup, mode, C):
+    w = r4.orthogonal_weights(8, C, seed=2).cuda()
+    wt = w.transpose(1, 2).contiguous()
+    before = r4.matvec_probe.launches
+    got = r4.matvec_probe(w, wt, mode, 20)
+    ref = r4.matvec_probe_reference(w, wt, mode, 20)
+    torch.cuda.synchronize()
+    assert r4.matvec_probe.launches == before + 1
+    assert ref.abs().max().item() > 1e-3
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_probes_reject_bad_inputs(setup):
+    c, args, _ = _stack_inputs(8, (1, 2), 2, 64)
+    with pytest.raises(NotImplementedError, match="R == D in"):
+        r2.fwd_bisect(*args, c, "full")
+    c16, args16, _ = _stack_inputs(16, (1, 2), 2, 64)
+    with pytest.raises(ValueError, match="float32"):
+        r2.fwd_bisect(args16[0].double(), *args16[1:], c16, "full")
+    with pytest.raises(NotImplementedError, match="R == D == 32"):
+        r2b.fwd_bisect2(args16[0], args16[1], args16[2],
+                        torch.zeros((2, 64, 48), device="cuda"), "fat")
+    w = r4.orthogonal_weights(4, 16).cuda()
+    with pytest.raises(NotImplementedError, match="C in"):
+        r4.matvec_probe(w, w, "mxu", 1)
+    cb = WaveNetConfig(**B1_SMALL)
+    packed = ks.pack_sampler_weights(_seeded_params(cb), cb, 2)
+    with pytest.raises(ValueError, match="layer_add"):
+        r3.b1_bisect(packed, cb, "full", 4)

@@ -51,7 +51,9 @@ def test_importing_the_port_loads_no_jax():
               "data.reader", "data.prefetch", "utils.summaries",
               "utils.flops", "experiments", "experiments.fused_stack",
               "experiments.fused_stack2", "experiments.dilated_layer",
-              "kernels.fat", "kernels._launch"):
+              "kernels.fat", "kernels._launch", "tools",
+              "tools.r2_fwd_bisect", "tools.r2_fwd_bisect2",
+              "tools.r3_b1_bisect", "tools.r4_matvec_probe"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -143,8 +143,19 @@ def test_pack_sampler_weights_matches_jax(rng):
                                    np.asarray(getattr(jpk, name)),
                                    rtol=0, atol=1e-7, err_msg=name)
     assert ts.ring_offsets(tc) == js.ring_offsets(jc)
-    with pytest.raises(NotImplementedError):
-        ts.pack_sampler_weights(tp, tc, 3, weight_dtype=torch.bfloat16)
+    # bf16 weights as the JAX packer stores them; the adds stay float32.
+    jpk = js.pack_sampler_weights(jp, jc, 3,
+                                  jw.embed_gc(jp, jc, jnp.asarray(ids)),
+                                  weight_dtype=jnp.bfloat16)
+    tpk = ts.pack_sampler_weights(tp, tc, 3,
+                                  tw.embed_gc(tp, tc, _t(ids)),
+                                  weight_dtype=torch.bfloat16)
+    for name in ts.PackedSampler._fields:
+        j = np.asarray(getattr(jpk, name))
+        t = getattr(tpk, name)
+        assert str(t.dtype).split(".")[-1] == str(j.dtype), name
+        np.testing.assert_allclose(t.float().numpy(), j.astype(np.float32),
+                                   rtol=0, atol=1e-7, err_msg=name)
 
 
 @pytest.mark.parametrize("gc", [False, True])

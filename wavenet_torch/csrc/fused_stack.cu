@@ -17,6 +17,10 @@
 // layer's input is rebuilt by subtraction, x_l = x_{l+1} - z_l @ wd_l -
 // bd_l, and z_l from the saved fg_l.
 //
+// The forward layer kernel lives in fused_stack_fwd.cuh, which its probe
+// (fwd_bisect.cu, the port of tools/r2_fwd_bisect.py) shares; this file
+// instantiates it at float32 with every part on.
+//
 // Design. Layer l+1's past tap reads rows of layer l's output that other
 // blocks write, so every layer is its own launch (ping-pong residual
 // buffers in device memory): L launches forward, 2L + 1 backward. A block
@@ -42,139 +46,18 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "fused_stack_fwd.cuh"
 #include "stack_common.cuh"
 
 namespace {
 
-constexpr int TM = 64;    // rows (time steps of one batch row) per tile
-constexpr int NT = 256;   // threads per block
+constexpr int TM = kFwdTM;   // rows (time steps of one batch row) per tile
+constexpr int NT = kFwdNT;   // threads per block
 
 template <int N>
 using TileMap = TileMapT<TM, NT, N>;
 template <int K, int N>
 using GradMap = GradMapT<NT, K, N>;
-
-// ---------------------------------------------------------------------------
-// Forward: one layer over all rows. grid (tiles of T, B).
-// ---------------------------------------------------------------------------
-
-template <int R, int D>
-__global__ void __launch_bounds__(NT) fwd_layer_kernel(
-    const float* __restrict__ x_in, float* __restrict__ x_out,
-    float* __restrict__ fg_out, float* __restrict__ z_out,
-    const float* __restrict__ w_fg, const float* __restrict__ wd,
-    const float* __restrict__ add, const float* __restrict__ bd,
-    int T, int d, int l, int L) {
-  constexpr int K1 = 2 * R, N1 = 2 * D;
-  constexpr int CS = K1 + 1;   // padded row strides (no bank conflicts)
-  constexpr int ZS = D + 1;
-  extern __shared__ float smem[];
-  float* s_w = smem;               // [K1][N1]  w_fg[l]
-  float* s_wd = s_w + K1 * N1;     // [D][R]    wd[l]
-  float* s_cat = s_wd + D * R;     // [TM][CS]  [x(t-d) | x(t)]
-  float* s_z = s_cat + TM * CS;    // [TM][ZS]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const size_t base = (size_t)b * T;
-
-  for (int i = tid; i < K1 * N1; i += NT) s_w[i] = w_fg[i];
-  for (int i = tid; i < D * R; i += NT) s_wd[i] = wd[i];
-  for (int i = tid; i < TM * R; i += NT) {
-    const int r = i / R, c = i % R, t = t0 + r;
-    float cur = 0.f, past = 0.f;
-    if (t < T) {
-      cur = x_in[(base + t) * R + c];
-      if (t >= d) past = x_in[(base + t - d) * R + c];
-    }
-    s_cat[r * CS + c] = past;
-    s_cat[r * CS + R + c] = cur;
-  }
-  __syncthreads();
-
-  // fg = [past | cur] @ w_fg + add[b]: each thread owns filter column j
-  // and its gate column D + j, for RM rows.
-  using M1 = TileMap<D>;
-  {
-    const int cg = tid % M1::NG, rg = tid / M1::NG;
-    float af[M1::RM][M1::CN], ag[M1::RM][M1::CN];
-#pragma unroll
-    for (int i = 0; i < M1::RM; ++i)
-#pragma unroll
-      for (int c = 0; c < M1::CN; ++c) af[i][c] = ag[i][c] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K1; ++k) {
-      float a[M1::RM];
-#pragma unroll
-      for (int i = 0; i < M1::RM; ++i) a[i] = s_cat[(rg + i * M1::RG) * CS + k];
-#pragma unroll
-      for (int c = 0; c < M1::CN; ++c) {
-        const float wf = s_w[k * N1 + cg + c * M1::NG];
-        const float wg = s_w[k * N1 + D + cg + c * M1::NG];
-#pragma unroll
-        for (int i = 0; i < M1::RM; ++i) {
-          af[i][c] = fmaf(a[i], wf, af[i][c]);
-          ag[i][c] = fmaf(a[i], wg, ag[i][c]);
-        }
-      }
-    }
-    const float* add_b = add + (size_t)b * N1;
-#pragma unroll
-    for (int i = 0; i < M1::RM; ++i) {
-      const int r = rg + i * M1::RG, t = t0 + r;
-#pragma unroll
-      for (int c = 0; c < M1::CN; ++c) {
-        const int j = cg + c * M1::NG;
-        const float f = af[i][c] + add_b[j];
-        const float g = ag[i][c] + add_b[D + j];
-        const float zz = tanhf(f) * sigmoidf(g);
-        s_z[r * ZS + j] = zz;
-        if (t < T) {
-          const size_t row = base + t;
-          fg_out[row * (size_t)(L * N1) + l * N1 + j] = f;
-          fg_out[row * (size_t)(L * N1) + l * N1 + D + j] = g;
-          z_out[row * (size_t)(L * D) + l * D + j] = zz;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // x' = x + (z @ wd + bd)
-  using M2 = TileMap<R>;
-  {
-    const int cg = tid % M2::NG, rg = tid / M2::NG;
-    float acc[M2::RM][M2::CN];
-#pragma unroll
-    for (int i = 0; i < M2::RM; ++i)
-#pragma unroll
-      for (int c = 0; c < M2::CN; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < D; ++k) {
-      float a[M2::RM];
-#pragma unroll
-      for (int i = 0; i < M2::RM; ++i) a[i] = s_z[(rg + i * M2::RG) * ZS + k];
-#pragma unroll
-      for (int c = 0; c < M2::CN; ++c) {
-        const float w = s_wd[k * R + cg + c * M2::NG];
-#pragma unroll
-        for (int i = 0; i < M2::RM; ++i) acc[i][c] = fmaf(a[i], w, acc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M2::RM; ++i) {
-      const int r = rg + i * M2::RG, t = t0 + r;
-      if (t >= T) continue;
-#pragma unroll
-      for (int c = 0; c < M2::CN; ++c) {
-        const int col = cg + c * M2::NG;
-        x_out[(base + t) * R + col] =
-            s_cat[r * CS + R + col] + (acc[i][c] + bd[col]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward (A): da, the rebuilt layer input, partial dwd / dbd / dadd.
@@ -476,17 +359,17 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
                  float* fg, float* z, float* xbuf, int B, int T, int L,
                  cudaStream_t st) {
-  const int smem =
-      (int)sizeof(float) * (4 * R * D + D * R + TM * (2 * R + 1) + TM * (D + 1));
+  constexpr int smem = fwd_layer_smem_bytes<R, D, float, kFwdFull>();
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_layer_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_layer_kernel<R, D, float, float, kFwdFull>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + TM - 1) / TM, B);
   const size_t btr = (size_t)B * T * R;
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
     float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
-    fwd_layer_kernel<R, D><<<grid, NT, smem, st>>>(
+    fwd_layer_kernel<R, D, float, float, kFwdFull><<<grid, NT, smem, st>>>(
         in, out, fg, z, w_fg + (size_t)l * 4 * R * D, wd + (size_t)l * D * R,
         add + (size_t)l * B * 2 * D, bd + (size_t)l * R, T, dil[l], l, L);
     e = cudaGetLastError();

@@ -1,0 +1,455 @@
+// The decode kernel of sampler_decode.cu, shared with its b1 probe
+// (b1_bisect.cu): one persistent block per group of RB rows runs every step
+// of the network (see sampler_decode.cu for what it computes and why it is
+// laid out so).
+//
+// Template parameters:
+//   RB     rows of the batch per block;
+//   kMask  the parts of the step an ablation removes (tools/r3_b1_bisect.py's
+//          modes; kFullStep: none). Each mode computes the JAX tool's math:
+//            kNoSkip    no skip product (the head reads a zero skip sum)
+//            kNoDense   current += out[:, :R], no dense product
+//            kNoFg      fg = [past | current], no filter/gate product
+//            kNoTanh    out = fg[:, :D] + fg[:, D:]
+//            kNoRing    past = current, no ring read or write
+//            kNoHead    logits = current[:, 0] in every class
+//            kNoSample  argmax of the logits, no Gumbel noise
+//            kNoFeat    current = x in every channel, no causal layer
+//   WT     the weights' type: float, or __nv_bfloat16 (the activations
+//          are then rounded to bf16 before each product, as the JAX kernels
+//          do; products and sums in float32, the adds float32).
+// sampler_decode.cu instantiates <RB, kFullStep, float>.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+enum : unsigned {
+  kNoSkip = 1,
+  kNoDense = 2,
+  kNoFg = 4,
+  kNoTanh = 8,
+  kNoRing = 16,
+  kNoHead = 32,
+  kNoSample = 64,
+  kNoFeat = 128,
+};
+constexpr unsigned kFullStep = 0;
+
+template <typename WT>
+struct DecodeArgsT {
+  const WT* causal_w;      // [KC + C_in, R]  rows: causal register | input
+  const WT* layer_w;       // [L, 2R, 2D]
+  const float* layer_add;  // [L, B, 2D]
+  const WT* dense_w;       // [L, D, R]
+  const float* dense_add;  // [L, R]
+  const WT* skip_w;        // [L, D, S]
+  const float* skip_b;     // [S]
+  const WT* post1_w;       // [S, S]
+  const float* post1_b;    // [S]
+  const WT* post2_w;       // [S, Q]
+  const float* post2_b;    // [Q]
+  const int* ring_meta;    // [2L]: ring row offsets, then dilations
+  float* ring;             // [sum_d, B, R], updated in place
+  float* causal;           // [B, KC], updated in place
+  const void* forced;      // [B, n_forced] int32, or float32 when scalar
+  int* codes;              // [B, n_total]
+  float* logits;           // [B, n_log, Q] or null
+  float* next_amp;         // [B] or null: the input after the last step (scalar)
+  int B, L, R, D, S, Q, n_total, n_forced, n_log;
+  int scalar;              // 1: scalar input (amplitudes), 0: mu-law codes
+  int KC;                  // causal register width: Q, or ifw - 1 if scalar
+  long long t0;
+  uint32_t key0, key1;
+  float inv_temperature;
+};
+
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// An activation as the operand of a product with WT weights.
+template <typename WT>
+__device__ __forceinline__ float opnd(float x) {
+  if constexpr (sizeof(WT) == sizeof(float)) return x;
+  else return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
+                                              uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
+    const uint32_t lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
+    const uint32_t lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0;
+    const uint32_t n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+}
+
+// y[r][n] = sum_k x[r*xs + k] * W[k*N + n] for the RB rows of the block,
+// handed to epi(r, n, sum). Wide outputs: one thread per column over the
+// whole K. Narrow outputs: G = kThreads / N groups take every G-th k and
+// the partial sums are added in group order. The caller synchronises
+// after the call before reading what epi wrote.
+template <int RB, typename WT, typename Epi>
+__device__ __forceinline__ void matvec(const float* x, int xs, int K,
+                                       const WT* __restrict__ W, int N,
+                                       float* part, Epi epi) {
+  const int tid = threadIdx.x;
+  if (N >= kThreads) {
+    for (int n = tid; n < N; n += kThreads) {
+      float acc[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+#pragma unroll 16
+      for (int k = 0; k < K; ++k) {
+        const float w = ldw(W + (size_t)k * N + n);
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          acc[r] = fmaf(opnd<WT>(x[r * xs + k]), w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) epi(r, n, acc[r]);
+    }
+    return;
+  }
+  const int G = kThreads / N;
+  const int n = tid % N;
+  const int g = tid / N;
+  if (g < G) {
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+#pragma unroll 8
+    for (int k = g; k < K; k += G) {
+      const float w = ldw(W + (size_t)k * N + n);
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        acc[r] = fmaf(opnd<WT>(x[r * xs + k]), w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) part[(g * RB + r) * N + n] = acc[r];
+  }
+  __syncthreads();
+  if (tid < N) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float s = 0.f;
+      for (int gg = 0; gg < G; ++gg) s += part[(gg * RB + r) * N + tid];
+      epi(r, tid, s);
+    }
+  }
+}
+
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// The JAX kernels' mu-law formulas, op by op (no contraction into FMAs);
+// their constants are float32 roundings of double values, as there.
+__device__ __forceinline__ float decode_amp(int code, float mu) {
+  const float ln1p_mu = (float)log1p((double)mu);
+  const float inv_mu = (float)(1.0 / (double)mu);
+  const float sgn = __fsub_rn(__fmul_rn(2.f, __fdiv_rn((float)code, mu)), 1.f);
+  const float mag = __fmul_rn(
+      inv_mu, __fsub_rn(expf(__fmul_rn(fabsf(sgn), ln1p_mu)), 1.f));
+  return sgn > 0.f ? mag : (sgn < 0.f ? -mag : 0.f);
+}
+
+__device__ __forceinline__ int mu_law_encode(float amp, float mu) {
+  const float inv_ln1p_mu = (float)(1.0 / log1p((double)mu));
+  const float safe = fminf(fabsf(amp), 1.f);
+  const float mag = __fmul_rn(log1pf(__fmul_rn(mu, safe)), inv_ln1p_mu);
+  const float sig = amp > 0.f ? mag : (amp < 0.f ? -mag : 0.f);
+  return (int)__fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(sig, 1.f), 2.f), mu),
+                        0.5f);
+}
+
+template <int RB, unsigned kMask, typename WT>
+__global__ void __launch_bounds__(kThreads)
+sampler_decode_kernel(const DecodeArgsT<WT> a) {
+  constexpr bool kSkip = !(kMask & kNoSkip), kDense = !(kMask & kNoDense);
+  constexpr bool kFg = !(kMask & kNoFg), kTanh = !(kMask & kNoTanh);
+  constexpr bool kRing = !(kMask & kNoRing), kHead = !(kMask & kNoHead);
+  constexpr bool kSample = !(kMask & kNoSample), kFeat = !(kMask & kNoFeat);
+  extern __shared__ float smem[];
+  const int R = a.R, D = a.D, S = a.S, Q = a.Q, L = a.L, B = a.B;
+  const int KC = a.KC;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * RB;
+  const float mu = (float)(Q - 1);
+  const int* forced_i = static_cast<const int*>(a.forced);
+  const float* forced_f = static_cast<const float*>(a.forced);
+
+  float* causal = smem;                  // [RB][KC]
+  float* xcat = causal + RB * KC;        // [RB][2R]
+  float* cur = xcat + RB * 2 * R;        // [RB][R]
+  float* fg = cur + RB * R;              // [RB][2D]
+  float* out = fg + RB * 2 * D;          // [RB][D]
+  float* skip = out + RB * D;            // [RB][S]
+  float* h1 = skip + RB * S;             // [RB][S]
+  float* h2 = h1 + RB * S;               // [RB][S]
+  float* lg = h2 + RB * S;               // [RB][Q]
+  float* part = lg + RB * Q;             // [RB * kThreads]
+  float* red_v = part + RB * kThreads;   // [kWarps]
+  int* red_i = reinterpret_cast<int*>(red_v + kWarps);  // [kWarps]
+  int* meta = red_i + kWarps;            // [2L]
+  int* xin = meta + 2 * L;               // [RB] current code (mu-law)
+  float* xamp = reinterpret_cast<float*>(xin + RB);  // [RB] amplitude (scalar)
+
+  for (int i = tid; i < 2 * L; i += kThreads) meta[i] = a.ring_meta[i];
+  for (int i = tid; i < RB * KC; i += kThreads) {
+    const int row = row0 + i / KC;
+    causal[i] = row < B ? a.causal[(size_t)row * KC + i % KC] : 0.f;
+  }
+  if (tid < RB) {
+    const int row = row0 + tid;
+    const size_t at = (size_t)row * a.n_forced;
+    xin[tid] = (row < B && !a.scalar) ? forced_i[at] : 0;
+    xamp[tid] = (row < B && a.scalar) ? forced_f[at] : 0.f;
+  }
+  __syncthreads();
+
+  const int log_from = a.n_total - a.n_log;
+  for (int t = 0; t < a.n_total; ++t) {
+    const long long step = a.t0 + t;
+
+    if constexpr (kFeat) {
+      // Causal layer: current = causal @ causal_w[:KC] + the input's row
+      // (mu-law: row KC + x of the one-hot; scalar: x times row KC).
+      matvec<RB>(causal, KC, KC, a.causal_w, R, part,
+                 [&](int r, int n, float s) {
+                   cur[r * R + n] =
+                       a.scalar ? fmaf(xamp[r],
+                                       ldw(a.causal_w + (size_t)KC * R + n), s)
+                                : s + ldw(a.causal_w +
+                                          (size_t)(KC + xin[r]) * R + n);
+                 });
+      __syncthreads();
+      if (a.scalar) {
+        // Shift the amplitude register left by one and append x (through
+        // the free partial-sum scratch: the shift reads what it overwrites).
+        for (int i = tid; i < RB * KC; i += kThreads) {
+          const int r = i / KC, j = i % KC;
+          part[i] = j + 1 < KC ? causal[i + 1] : xamp[r];
+        }
+        __syncthreads();
+        for (int i = tid; i < RB * KC; i += kThreads) causal[i] = part[i];
+      } else {
+        for (int i = tid; i < RB * KC; i += kThreads)
+          causal[i] = (i % KC == xin[i / KC]) ? 1.f : 0.f;
+      }
+    } else {
+      for (int i = tid; i < RB * R; i += kThreads) cur[i] = (float)xin[i / R];
+      __syncthreads();
+    }
+    for (int i = tid; i < RB * S; i += kThreads) skip[i] = 0.f;
+
+    for (int l = 0; l < L; ++l) {
+      const int pos = meta[l] + (int)(step % (long long)meta[L + l]);
+      for (int i = tid; i < RB * R; i += kThreads) {
+        const int r = i / R, j = i % R, row = row0 + r;
+        const float c = cur[i];
+        float p = c;
+        if constexpr (kRing) {
+          p = 0.f;
+          if (row < B) {
+            const size_t idx = ((size_t)pos * B + row) * R + j;
+            p = a.ring[idx];
+            a.ring[idx] = c;
+          }
+        }
+        xcat[r * 2 * R + j] = p;
+        xcat[r * 2 * R + R + j] = c;
+      }
+      __syncthreads();
+      if constexpr (kFg) {
+        const float* ladd = a.layer_add + (size_t)l * B * 2 * D;
+        matvec<RB>(xcat, 2 * R, 2 * R, a.layer_w + (size_t)l * 4 * R * D,
+                   2 * D, part, [&](int r, int n, float s) {
+                     const int row = row0 + r;
+                     fg[r * 2 * D + n] =
+                         s + (row < B ? ladd[(size_t)row * 2 * D + n] : 0.f);
+                   });
+      } else {
+        // R == D: fg is the layer's input pair itself.
+        for (int i = tid; i < RB * 2 * D; i += kThreads) fg[i] = xcat[i];
+      }
+      __syncthreads();
+      for (int i = tid; i < RB * D; i += kThreads) {
+        const int r = i / D, d = i % D;
+        if constexpr (kTanh)
+          out[i] = tanhf(fg[r * 2 * D + d]) *
+                   (0.5f + 0.5f * tanhf(fg[r * 2 * D + D + d]));
+        else
+          out[i] = fg[r * 2 * D + d] + fg[r * 2 * D + D + d];
+      }
+      __syncthreads();
+      if constexpr (kDense) {
+        const float* dadd = a.dense_add + (size_t)l * R;
+        matvec<RB>(out, D, D, a.dense_w + (size_t)l * D * R, R, part,
+                   [&](int r, int n, float s) {
+                     cur[r * R + n] = (cur[r * R + n] + s) + __ldg(dadd + n);
+                   });
+      } else {
+        // D >= R: current += out[:, :R].
+        for (int i = tid; i < RB * R; i += kThreads)
+          cur[i] += out[(i / R) * D + i % R];
+      }
+      __syncthreads();
+      if constexpr (kSkip) {
+        matvec<RB>(out, D, D, a.skip_w + (size_t)l * D * S, S, part,
+                   [&](int r, int n, float s) { skip[r * S + n] += s; });
+        __syncthreads();
+      }
+    }
+
+    if constexpr (kHead) {
+      // Head: relu(skip + skip_b) @ post1 + b1, relu, @ post2 + b2.
+      for (int i = tid; i < RB * S; i += kThreads)
+        h1[i] = fmaxf(skip[i] + __ldg(a.skip_b + i % S), 0.f);
+      __syncthreads();
+      matvec<RB>(h1, S, S, a.post1_w, S, part, [&](int r, int n, float s) {
+        h2[r * S + n] = fmaxf(s + __ldg(a.post1_b + n), 0.f);
+      });
+      __syncthreads();
+      matvec<RB>(h2, S, S, a.post2_w, Q, part, [&](int r, int n, float s) {
+        lg[r * Q + n] = s + __ldg(a.post2_b + n);
+      });
+    } else {
+      for (int i = tid; i < RB * Q; i += kThreads) lg[i] = cur[(i / Q) * R];
+    }
+    __syncthreads();
+
+    if (a.n_log > 0 && t >= log_from) {
+      for (int i = tid; i < RB * Q; i += kThreads) {
+        const int row = row0 + i / Q;
+        if (row < B)
+          a.logits[((size_t)row * a.n_log + (t - log_from)) * Q + i % Q] =
+              lg[i];
+      }
+    }
+
+    // Gumbel-argmax over logits / T, one row at a time.
+    for (int r = 0; r < RB; ++r) {
+      const int row = row0 + r;
+      float bv = -INFINITY;
+      int bi = Q;
+      if constexpr (kSample) {
+        for (int blk = tid; blk * 4 < Q; blk += kThreads) {
+          uint32_t c[4] = {(uint32_t)blk, (uint32_t)row, (uint32_t)step,
+                           (uint32_t)((unsigned long long)step >> 32)};
+          philox4x32_10(c, a.key0, a.key1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int q = 4 * blk + j;
+            if (q < Q) {
+              float u = __uint_as_float((c[j] >> 9) | 0x3F800000u) - 1.0f;
+              u = fmaxf(u, 1e-20f);
+              const float gmb = -logf(-logf(u));
+              const float sc =
+                  __fadd_rn(__fmul_rn(lg[r * Q + q], a.inv_temperature), gmb);
+              if (better(sc, q, bv, bi)) {
+                bv = sc;
+                bi = q;
+              }
+            }
+          }
+        }
+      } else {
+        for (int q = tid; q < Q; q += kThreads) {
+          const float sc = __fmul_rn(lg[r * Q + q], a.inv_temperature);
+          if (better(sc, q, bv, bi)) {
+            bv = sc;
+            bi = q;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if ((tid & 31) == 0) {
+        red_v[tid >> 5] = bv;
+        red_i[tid >> 5] = bi;
+      }
+      __syncthreads();
+      if (tid < 32) {
+        bv = tid < kWarps ? red_v[tid] : -INFINITY;
+        bi = tid < kWarps ? red_i[tid] : Q;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+          const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+          if (better(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (tid == 0) {
+          const int sampled = bi < Q ? bi : 0;
+          int nx = sampled;
+          float amp = a.scalar ? decode_amp(sampled, mu) : 0.f;
+          if (row < B) {
+            // Body t consumes input t and emits input t + 1: forced while
+            // t + 1 < n_forced, then the sampled code.
+            if (t + 1 < a.n_forced) {
+              const size_t at = (size_t)row * a.n_forced + t + 1;
+              if (a.scalar) {
+                amp = forced_f[at];
+                nx = mu_law_encode(amp, mu);
+              } else {
+                nx = forced_i[at];
+              }
+            }
+            a.codes[(size_t)row * a.n_total + t] = nx;
+          }
+          xin[r] = nx;
+          xamp[r] = amp;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < RB * KC; i += kThreads) {
+    const int row = row0 + i / KC;
+    if (row < B) a.causal[(size_t)row * KC + i % KC] = causal[i];
+  }
+  if (a.next_amp && tid < RB && row0 + tid < B)
+    a.next_amp[row0 + tid] = xamp[tid];
+}
+
+// Dynamic shared memory of one block at rb rows: the carve-up at the top
+// of sampler_decode_kernel.
+template <typename WT>
+size_t smem_bytes(const DecodeArgsT<WT>& a, int rb) {
+  const size_t floats =
+      (size_t)rb * (a.KC + a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
+      (size_t)rb * kThreads + kWarps + rb;   // ..., part, red_v, xamp
+  const size_t ints = kWarps + 2 * (size_t)a.L + rb;
+  return 4 * (floats + ints);
+}
+
+}  // namespace

@@ -106,8 +106,14 @@ def pack_sampler_weights(params: Params, config: WaveNetConfig,
                          batch_size: int,
                          gc_embedding: Optional[torch.Tensor] = None,
                          weight_dtype=torch.float32) -> PackedSampler:
-    """Rearrange the parameter dict into the kernel's layout."""
-    _require_float32(weight_dtype)
+    """Rearrange the parameter dict into the kernel's layout.
+
+    ``weight_dtype=torch.bfloat16`` stores the matmul weights in bf16, as
+    the JAX package does; the additive terms stay float32. ``decode`` and
+    ``generate_cuda`` still take float32 weights only (the b1 probe
+    ``wavenet_torch.tools.r3_b1_bisect`` reads the bf16 ones)."""
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weight_dtype {weight_dtype}: float32 or bfloat16")
     c = config
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
@@ -139,10 +145,12 @@ def pack_sampler_weights(params: Params, config: WaveNetConfig,
         skip_b = torch.zeros((1, S), dtype=f32, device=dev)
         post1_b = torch.zeros((1, S), dtype=f32, device=dev)
         post2_b = torch.zeros((1, Q), dtype=f32, device=dev)
+    wt = weight_dtype
     return PackedSampler(*(t.contiguous() for t in (
-        causal_w, layer_w, add, params["dense"].to(f32), dense_add,
-        params["skip"].to(f32), skip_b, params["postprocess1"].to(f32),
-        post1_b, params["postprocess2"].to(f32), post2_b)))
+        causal_w.to(wt), layer_w.to(wt), add, params["dense"].to(wt),
+        dense_add, params["skip"].to(wt), skip_b,
+        params["postprocess1"].to(wt), post1_b,
+        params["postprocess2"].to(wt), post2_b)))
 
 
 def ring_offsets(config: WaveNetConfig) -> Tuple[int, ...]:
