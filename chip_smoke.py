@@ -6,25 +6,32 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode``, ``fused_stack``, ``fused_stack_carry`` and
-   ``dilated_layer`` kernels built from ``wavenet_torch/csrc``, one nvcc
-   each, in parallel.
-2. Kernel against plain, teacher-forced, at full width (the paper
-   config at b1, the gc config at b1, b4, b64 and b512), with seeded
-   non-zero biases: prefill ~3.5k random codes, teacher-force 256 more
-   steps, and hold the kernel's logits, ring and causal state against
-   ``decode_reference`` on the card (rtol 1e-4, atol 1e-4: another
-   summation order over K <= 512), and at B <= 4 against the parallel
-   ``forward_codes``. Also times one decode step of both, at each batch
-   size the server uses.
-3. Sampling exactness: a 512-step free run of the kernel, replayed by
-   ``decode_reference`` teacher-forced on its codes with the same Philox
-   noise (>= 99.9% equal, every mismatch a near-tie), same-seed runs
-   bitwise equal, rows independent of the batch size.
+   the ``sampler_decode``, ``sampler_cluster``, ``fused_stack``,
+   ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
+   ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
+   lines.
+2. The two decode kernels against plain, teacher-forced, at full width
+   (the paper config at b1, the gc config at b1, b4, b64, b120 and b512), with
+   seeded non-zero biases: prefill ~3.5k random codes, teacher-force 256
+   more steps, and hold each kernel's logits, ring and causal state
+   against ``decode_reference`` on the card (rtol 1e-4, atol 1e-4:
+   another summation order over K <= 512), and at B <= 4 against the
+   parallel ``forward_codes``. ``sampler_decode`` runs at every case,
+   ``sampler_cluster`` at every case where ``cluster_plan`` routes to it,
+   each pinned; their teacher-forced codes are equal. Times a decode step
+   of both kernels and of the plain version in the same run (paper b1,
+   gc b1, gc b64, gc b120; sampler_decode alone at gc b512), and checks
+   that the kernel the route takes is the faster at each.
+3. Sampling exactness on the route as it stands (``kernel="auto"``): a
+   512-step free run, replayed by ``decode_reference`` teacher-forced on
+   its codes with the same Philox noise (>= 99.9% equal, every mismatch a
+   near-tie), same-seed runs bitwise equal, rows independent of the batch
+   size; prints which kernel served.
 4. Serving (the main path of generation): ``GenerationService`` behind
    a localhost HTTP server answers /healthz, /generate at b1 (paper and
-   gc config) and /generate_batch at b64 and b512; the launch count shows
-   that the kernel served every request.
+   gc config) and /generate_batch at b64 and b512; the launch counts show
+   which kernel served every request (the cluster kernel at b1 and b64,
+   ``sampler_decode`` at b512).
 5. Training (the main path of training), through the ``fused_stack``
    kernel pair: its forward and backward against their plain versions at
    the paper and gc configs, b8 x (receptive field + 16,000) audio
@@ -33,27 +40,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    rebuilds each layer's input by subtraction), bitwise-equal repeated
    backward calls, one gc train step fused against plain, then
    ``python -m wavenet_torch.cli.train --use_pallas_stack`` on a
-   synthesised 109-speaker corpus: 8 steps with finite, falling loss and
+   synthesised 109-speaker corpus, decoded by the native C++ library
+   (``wavenet_torch.data.native``): 8 steps with finite, falling loss and
    the kernels launched every step (the ``kernels`` line's launches are
    this run's), checkpoints 4 and 8, a resume to 10 (its 2 launches of
    each counted apart), and a ``GenerationService`` that serves from the
    last checkpoint.
-6. Generation (the main path of this slice), at full width: kernel 4's
-   route (``decode_sequential``: a receptive field of random codes, or
-   amplitudes for the scalar-input wide config, stepped from a zero
-   ring, then 256 sampled steps) at the paper and wide configs, b1 and
-   b64, against ``decode_reference`` replaying the kernel's inputs
+6. Generation, at full width: kernel 4's route (``decode_sequential``:
+   a receptive field of random codes, or amplitudes for the scalar-input
+   wide config, stepped from a zero ring, then 256 sampled steps) at the
+   paper and wide configs, b1 and b64 on ``sampler_decode`` and b1 and
+   the largest routed batch of b64, b32 and b16 on ``sampler_cluster``,
+   each pinned,
+   against ``decode_reference`` replaying the kernel's inputs
    (logits of every step and a window, rtol 1e-4 and atol 1e-4; sampled
    codes as in phase 3; same-seed runs and b1 against row 0 of b64
    bitwise); the wide config through the prefill route the same way and
-   timed, with a probe of the kernel's own next amplitude (``next_amp``)
+   timed (both kernels at b1 and at the largest batch the route sends
+   to the cluster kernel, the routed one the faster), with a probe of the kernel's own next amplitude (``next_amp``)
    against ``decode_amp`` on the card; then ``python -m wavenet_torch.cli.generate`` from phase 5's gc
    checkpoint (b1 and b64 x 16,000 samples, ``--save_every`` equal to the
    single run, ``--wav_seed``, ``--fast_generation false``) and from
    seeded paper and wide checkpoints (the scalar-input wide one in
    ``--save_every`` segments too, equal to its single run); last, the
    main path of kernel 4: ``generate_cuda(prefill=False)`` three times
-   per case, its launches counted from 0 (its ``kernels`` rows).
+   per case, its launches counted from 0 (its ``kernels`` rows). Every
+   CLI run and main-path case prints the kernel that served it, and the
+   phase checks that the native decoder was loaded.
 7. The retired training stacks (TPU kernels 6-8), at the paper and gc
    configs' full width, b8 x (receptive field + 16,000): the
    ``fused_stack_carry`` kernel behind generations v1 and v2 against the
@@ -100,10 +113,16 @@ FREE_STEPS = 512
 SERVE_BATCH_SIZES = (1, 64, 512)
 # Phase 2's (config, batch) cases; those the server's batch sizes are
 # timed on, with the decode steps of one timed launch.
-TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 512))
-TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 512): 256}
-KERNELS = ("sampler_decode", "fused_stack", "fused_stack_carry",
-           "dilated_layer")
+# gc b120 is the top of the cluster kernel's range on an H100 (15 clusters
+# of 8 rows).
+TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 120),
+                 ("gc", 512))
+TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
+               ("gc", 120): 1024, ("gc", 512): 256}
+KERNELS = ("sampler_decode", "sampler_cluster", "fused_stack",
+           "fused_stack_carry", "dilated_layer")
+# The decode kernels by the name their wrappers count them under.
+DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster"}
 # Phase 6: kernel 4's route (sequential, from a zero ring).
 SEQ_CASES = (("paper", 1), ("paper", 64), ("wide", 1), ("wide", 64))
 SEQ_SAMPLES, SEQ_WINDOW, SEQ_TIMED_SAMPLES = 256, 300, 1024
@@ -253,7 +272,9 @@ def setup(c, B: int, rng, seed_len: int, extra: int):
     return codes, gc_ids
 
 
-def phase_teacher_forced(cfgs, params, rng):
+def phase_teacher_forced(cfgs, params, rng, gpu):
+    """Both decode kernels, pinned, against the plain version: results by
+    (kernel, config, batch)."""
     import torch
     from wavenet_torch.kernels import sampler as ks
     from wavenet_torch.models.wavenet import embed_gc, forward_codes
@@ -261,62 +282,94 @@ def phase_teacher_forced(cfgs, params, rng):
     results = {}
     for name, B in TEACHER_CASES:
         c, p = cfgs[name], params[name]
+        plan = ks.device_plan(c, B)
+        kernels = ("decode",) + (("cluster",) if plan else ())
         codes, gc_ids = setup(c, B, rng, PREFILL, TEACHER_STEPS)
         gc_emb = None if gc_ids is None else embed_gc(p, c, gc_ids)
         carry = ks.prefill_carry(p, c, codes[:, :PREFILL], gc_ids)
         packed = ks.pack_sampler_weights(p, c, B, gc_emb)
         forced = codes[:, PREFILL - 1:PREFILL - 1 + TEACHER_STEPS].contiguous()
-        ring_k, causal_k = carry.ring.clone(), carry.causal.clone()
         ring_r, causal_r = carry.ring.clone(), carry.causal.clone()
-        codes_k, lg_k = ks.decode(packed, c, ring_k, causal_k, forced,
-                                  TEACHER_STEPS, carry.t_abs, 11,
-                                  collect_logits=True)
         codes_r, lg_r = ks.decode_reference(packed, c, ring_r, causal_r,
                                             forced, TEACHER_STEPS,
                                             carry.t_abs, 11,
                                             collect_logits=True)
-        torch.cuda.synchronize()
-        err = (lg_k - lg_r).abs().max().item()
-        check(torch.isfinite(lg_k).all().item(),
-              f"{name} B={B}: non-finite logits")
-        check(torch.allclose(lg_k, lg_r, rtol=1e-4, atol=1e-4),
-              f"{name} B={B}: kernel logits differ from decode_reference "
-              f"(max |d| {err})")
-        check(torch.allclose(ring_k, ring_r, rtol=1e-4, atol=1e-4),
-              f"{name} B={B}: ring state differs")
-        check(torch.equal(causal_k, causal_r),
-              f"{name} B={B}: causal differs")
-        check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
-              f"{name} B={B}: forced codes not emitted")
-        row = {"phase": "teacher_forced", "config": name, "batch": B,
-               "steps": TEACHER_STEPS, "max_abs_err_vs_plain": err}
-        if B <= 4:
-            full = forward_codes(p, c,
-                                 codes[:, :PREFILL - 1 + TEACHER_STEPS],
-                                 gc_emb, head_from=PREFILL - 1)
-            err_f = (lg_k - full).abs().max().item()
-            check(torch.allclose(lg_k, full, rtol=1e-4, atol=1e-4),
-                  f"{name} B={B}: kernel logits differ from forward_codes "
-                  f"(max |d| {err_f})")
-            row["max_abs_err_vs_forward"] = err_f
-        if (name, B) in TIMED_STEPS:
-            steps = TIMED_STEPS[(name, B)]
-            fk = forced[:, :1].contiguous()
-            ms_k = cuda_ms(lambda: ks.decode(
-                packed, c, ring_k, causal_k, fk, steps, 0, 5)) / steps
+        full = (forward_codes(p, c, codes[:, :PREFILL - 1 + TEACHER_STEPS],
+                              gc_emb, head_from=PREFILL - 1)
+                if B <= 4 else None)
+        timed = (name, B) in TIMED_STEPS
+        if timed:
             n_plain = 8
+            rp, cp = carry.ring.clone(), carry.causal.clone()
             ms_p = cuda_ms(lambda: ks.decode_reference(
-                packed, c, ring_r, causal_r, fk, n_plain, 0, 5)) / n_plain
-            bound, by = bound_per_step(c, B, steps)
-            ws_bound, ws_by = weight_stream_bound_per_step(c, B)
-            row.update(ms_per_step=ms_k, plain_ms_per_step=ms_p,
-                       bound_ms_per_step=bound, bound_by=by,
-                       weight_stream_bound_ms_per_step=ws_bound,
-                       weight_stream_bound_by=ws_by, timed_steps=steps)
-            results[B] = dict(config=name, max_abs_err=err, ms=ms_k,
-                              plain_ms=ms_p, bound_ms=bound, bound_by=by)
-        emit(row)
+                packed, c, rp, cp, forced[:, :1].contiguous(), n_plain, 0,
+                5)) / n_plain
+        emitted = {}
+        for kernel in kernels:
+            ring_k, causal_k = carry.ring.clone(), carry.causal.clone()
+            codes_k, lg_k = ks.decode(packed, c, ring_k, causal_k, forced,
+                                      TEACHER_STEPS, carry.t_abs, 11,
+                                      collect_logits=True, kernel=kernel)
+            torch.cuda.synchronize()
+            where = f"{DECODE_SOURCES[kernel]} {name} B={B}"
+            err = (lg_k - lg_r).abs().max().item()
+            check(torch.isfinite(lg_k).all().item(),
+                  f"{where}: non-finite logits")
+            check(torch.allclose(lg_k, lg_r, rtol=1e-4, atol=1e-4),
+                  f"{where}: kernel logits differ from decode_reference "
+                  f"(max |d| {err})")
+            check(torch.allclose(ring_k, ring_r, rtol=1e-4, atol=1e-4),
+                  f"{where}: ring state differs")
+            check(torch.equal(causal_k, causal_r), f"{where}: causal differs")
+            check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
+                  f"{where}: forced codes not emitted")
+            emitted[kernel] = codes_k
+            row = {"phase": "teacher_forced", "kernel": DECODE_SOURCES[kernel],
+                   "config": name, "batch": B, "steps": TEACHER_STEPS,
+                   "max_abs_err_vs_plain": err}
+            if kernel == "cluster":
+                row["plan"] = plan._asdict()
+            if full is not None:
+                err_f = (lg_k - full).abs().max().item()
+                check(torch.allclose(lg_k, full, rtol=1e-4, atol=1e-4),
+                      f"{where}: kernel logits differ from forward_codes "
+                      f"(max |d| {err_f})")
+                row["max_abs_err_vs_forward"] = err_f
+            if timed:
+                steps = TIMED_STEPS[(name, B)]
+                fk = forced[:, :1].contiguous()
+                ms_k = cuda_ms(lambda: ks.decode(
+                    packed, c, ring_k, causal_k, fk, steps, 0, 5,
+                    kernel=kernel)) / steps
+                bound, by = bound_per_step(c, B, steps)
+                ws_bound, ws_by = weight_stream_bound_per_step(c, B)
+                row.update(ms_per_step=ms_k, plain_ms_per_step=ms_p,
+                           bound_ms_per_step=bound, bound_by=by,
+                           weight_stream_bound_ms_per_step=ws_bound,
+                           weight_stream_bound_by=ws_by, timed_steps=steps)
+                results[(kernel, name, B)] = dict(
+                    config=name, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                    bound_ms=bound, bound_by=by)
+            row["gpu"] = gpu
+            emit(row)
+        if "cluster" in emitted:
+            check(torch.equal(emitted["cluster"], emitted["decode"]),
+                  f"{name} B={B}: the two kernels' teacher-forced codes "
+                  "differ")
+            if timed:
+                check_route_is_faster(results, name, B, "cluster")
     return results
+
+
+def check_route_is_faster(timed, name, B, routed: str) -> None:
+    """The kernel the route takes at (name, B) is the faster of the two,
+    as the same run timed them (keys (kernel, name, B))."""
+    ms = {k: timed[(k, name, B)]["ms"] for k in DECODE_SOURCES}
+    other = "decode" if routed == "cluster" else "cluster"
+    check(ms[routed] < ms[other],
+          f"{name} B={B}: the route takes {DECODE_SOURCES[routed]} "
+          f"({ms[routed]:.5f} ms/step), {DECODE_SOURCES[other]} is faster "
+          f"({ms[other]:.5f})")
 
 
 def phase_sampling(c, params, rng):
@@ -341,7 +394,11 @@ def phase_sampling(c, params, rng):
                            FREE_STEPS, carry.t_abs, seed)
         return out, ring, causal
 
+    before = dict(ks.decode.launches_by)
     k64, ring64, _ = run(B)
+    served = {k: v - before.get(k, 0)
+              for k, v in ks.decode.launches_by.items()
+              if v != before.get(k, 0)}
     k4a, ring4a, causal4a = run(4)
     k4b, ring4b, causal4b = run(4)
     check(torch.equal(k4a, k4b) and torch.equal(ring4a, ring4b)
@@ -371,6 +428,7 @@ def phase_sampling(c, params, rng):
     check(rate >= 0.999, f"only {rate:.5f} of sampled codes match")
     check(worst < 1e-4, f"a mismatch sits at a top-2 margin of {worst}")
     emit({"phase": "sampling", "batch": n, "steps": FREE_STEPS,
+          "b64_served_by": {DECODE_SOURCES[k]: v for k, v in served.items()},
           "match_rate": rate, "mismatches": int((~match).sum().item()),
           "max_mismatch_margin": worst, "bitwise_repeat": True,
           "rows_independent_of_batch": True})
@@ -428,8 +486,10 @@ def phase_serving(cfgs, gpu):
                                           "seed": 4}, 512),
         ]
         ks.decode.launches = 0          # the main path's count starts here
+        ks.decode.launches_by.clear()
         for name, path, payload, B in requests:
             before = ks.decode.launches
+            before_by = dict(ks.decode.launches_by)
             t = time.perf_counter()
             body = post(servers[name][1] + path, payload)
             dt = time.perf_counter() - t
@@ -443,11 +503,14 @@ def phase_serving(cfgs, gpu):
             check(len(set(flat)) > 8, f"{path}: degenerate codes")
             delta = ks.decode.launches - before
             check(delta == 1, f"{path} b{B}: {delta} kernel launches")
+            kernel = [k for k, v in ks.decode.launches_by.items()
+                      if v != before_by.get(k, 0)][0]
             launches[B] = launches.get(B, 0) + delta
             emit({"phase": "serving", "config": name, "endpoint": path,
                   "batch": B, "samples": n, "seconds": dt,
                   "samples_per_s": B * n / dt, "kernel_launches": delta,
-                  "gpu": gpu})
+                  "kernel": DECODE_SOURCES[kernel], "gpu": gpu})
+        launches["by_kernel"] = dict(ks.decode.launches_by)
     finally:
         for httpd, _ in servers.values():
             httpd.shutdown()
@@ -755,10 +818,15 @@ def phase_train_cli(c, gpu):
             "--steps_per_dispatch", "4", "--seed", "0",
             "--device", "cuda"]
 
+    from wavenet_torch.data import native
+    check(native.available(), "the native data library did not load")
+    decoded = native.read_wav.calls
     fs.forward.launches = fs.backward.launches = 0   # the main path
     t0 = time.perf_counter()
     out = run_cli(argv + ["--num_steps", str(TRAIN_STEPS)])
     seconds = time.perf_counter() - t0
+    decoded = native.read_wav.calls - decoded
+    check(decoded > 0, "the train CLI's reader decoded no file natively")
     launches = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
     lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
     losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in lines]
@@ -785,7 +853,9 @@ def phase_train_cli(c, gpu):
           "sec_per_step_last": sec_per_step, "audio_sec_per_s": aps,
           "model_tflop_per_s": flops / sec_per_step / 1e12,
           "fused_stack_fwd_launches": launches["fwd"],
-          "fused_stack_bwd_launches": launches["bwd"], "gpu": gpu})
+          "fused_stack_bwd_launches": launches["bwd"],
+          "native_decoder": native.library_path(),
+          "files_decoded_natively": decoded, "gpu": gpu})
 
     # The resume is a run of its own: its launches are counted apart.
     fs.forward.launches = fs.backward.launches = 0
@@ -867,68 +937,83 @@ def sampled_codes_match(c, lg_r, codes_k, seed: int, step0: int, n: int):
 
 
 def phase_sequential(cfgs, params, rng, gpu):
-    """Kernel 4's route against the plain version at b64 (and b1 against
-    row 0), replaying the kernel's inputs; times the plain replay."""
+    """Kernel 4's route on each decode kernel, pinned, against the plain
+    version at a batch (b64; the cluster kernel at the largest of b64, b32
+    and b16 that its plan routes) and b1 against row 0, replaying the kernel's
+    inputs; times the plain replay. Results by (kernel, config, batch)."""
     import torch
     from wavenet_torch.kernels import sampler as ks
 
     results = {}
     for name in ("paper", "wide"):
         c, p = cfgs[name], params[name]
-        B, seed = 64, 21
-        prefix = seq_prefix(c, B, rng)
-        n_forced = prefix.shape[1]
+        seed = 21
+        prefix64 = seq_prefix(c, 64, rng)
+        n_forced = prefix64.shape[1]
         n_total = n_forced - 1 + SEQ_SAMPLES
-        pk64 = ks.pack_sampler_weights(p, c, B)
         pk1 = ks.pack_sampler_weights(p, c, 1)
-        codes64, lg64 = ks.decode_sequential(pk64, c, prefix, n_total, seed,
-                                             collect_logits=True)
-        again, win = ks.decode_sequential(pk64, c, prefix, n_total, seed,
-                                          collect_logits=SEQ_WINDOW)
-        codes1, lg1 = ks.decode_sequential(pk1, c, prefix[:1].contiguous(),
-                                           n_total, seed, collect_logits=True)
-        forced = replay_inputs(c, prefix, codes64)
-        ring, causal = ks.zero_state(c, B, "cuda")
-        out = []
-        plain_ms = cuda_ms(lambda: out.append(ks.decode_reference(
-            pk64, c, ring, causal, forced, n_total, 0, seed,
-            collect_logits=True))) / n_total
-        codes_r, lg_r = out[0]
-        # The plain version at b1, over the first steps of the same inputs.
-        ring1, causal1 = ks.zero_state(c, 1, "cuda")
-        plain_ms1 = cuda_ms(lambda: ks.decode_reference(
-            pk1, c, ring1, causal1, forced[:1].contiguous(), 64, 0,
-            seed)) / 64
-        torch.cuda.synchronize()
-        check(torch.isfinite(lg64).all().item(), f"{name}: non-finite logits")
-        err64 = (lg64 - lg_r).abs().max().item()
-        err1 = (lg1 - lg_r[:1]).abs().max().item()
-        check(torch.allclose(lg64, lg_r, rtol=1e-4, atol=1e-4),
-              f"{name} b64: sequential logits differ from the plain version "
-              f"(max |d| {err64})")
-        check(torch.allclose(lg1, lg_r[:1], rtol=1e-4, atol=1e-4),
-              f"{name} b1: sequential logits differ (max |d| {err1})")
-        check(torch.equal(codes64, again), f"{name}: same-seed runs differ")
-        check(torch.equal(win, lg64[:, -SEQ_WINDOW:]),
-              f"{name}: the logits window is not the tail of the full run")
-        check(torch.equal(codes1, codes64[:1]),
-              f"{name}: b1 codes differ from row 0 of b64")
-        check(torch.equal(codes64[:, :-1], codes_r[:, :-1]),
-              f"{name}: emitted codes differ from the plain replay")
-        rate, bad, worst = sampled_codes_match(c, lg_r, codes64, seed,
-                                               n_forced - 1, SEQ_SAMPLES)
-        emit({"phase": "sequential", "config": name, "batch": B,
-              "forced": n_forced, "steps": n_total,
-              "max_abs_err_b64": err64, "max_abs_err_b1": err1,
-              "sampled_match_rate": rate, "mismatches": bad,
-              "max_mismatch_margin": worst, "bitwise_repeat": True,
-              "b1_equals_row0": True, "window": SEQ_WINDOW,
-              "plain_ms_per_step": plain_ms, "plain_ms_per_step_b1": plain_ms1,
-              "gpu": gpu})
-        for b, err, ms in ((1, err1, plain_ms1), (64, err64, plain_ms)):
-            results[(name, b)] = dict(max_abs_err=err, plain_ms=ms)
-        del lg64, lg1, lg_r, win
-        torch.cuda.empty_cache()
+        cluster_b = next((b for b in (64, 32, 16) if ks.device_plan(c, b)),
+                         None)
+        for kernel, B in (("decode", 64), ("cluster", cluster_b)):
+            if B is None:
+                continue
+            where = f"{DECODE_SOURCES[kernel]} {name}"
+            prefix = prefix64[:B].contiguous()
+            pkb = ks.pack_sampler_weights(p, c, B)
+            codesb, lgb = ks.decode_sequential(pkb, c, prefix, n_total, seed,
+                                               collect_logits=True,
+                                               kernel=kernel)
+            again, win = ks.decode_sequential(pkb, c, prefix, n_total, seed,
+                                              collect_logits=SEQ_WINDOW,
+                                              kernel=kernel)
+            codes1, lg1 = ks.decode_sequential(pk1, c, prefix[:1].contiguous(),
+                                               n_total, seed,
+                                               collect_logits=True,
+                                               kernel=kernel)
+            forced = replay_inputs(c, prefix, codesb)
+            ring, causal = ks.zero_state(c, B, "cuda")
+            out = []
+            plain_ms = cuda_ms(lambda: out.append(ks.decode_reference(
+                pkb, c, ring, causal, forced, n_total, 0, seed,
+                collect_logits=True))) / n_total
+            codes_r, lg_r = out[0]
+            # The plain version at b1, over the first steps of the inputs.
+            ring1, causal1 = ks.zero_state(c, 1, "cuda")
+            plain_ms1 = cuda_ms(lambda: ks.decode_reference(
+                pk1, c, ring1, causal1, forced[:1].contiguous(), 64, 0,
+                seed)) / 64
+            torch.cuda.synchronize()
+            check(torch.isfinite(lgb).all().item(),
+                  f"{where}: non-finite logits")
+            errb = (lgb - lg_r).abs().max().item()
+            err1 = (lg1 - lg_r[:1]).abs().max().item()
+            check(torch.allclose(lgb, lg_r, rtol=1e-4, atol=1e-4),
+                  f"{where} b{B}: sequential logits differ from the plain "
+                  f"version (max |d| {errb})")
+            check(torch.allclose(lg1, lg_r[:1], rtol=1e-4, atol=1e-4),
+                  f"{where} b1: sequential logits differ (max |d| {err1})")
+            check(torch.equal(codesb, again), f"{where}: same-seed runs differ")
+            check(torch.equal(win, lgb[:, -SEQ_WINDOW:]),
+                  f"{where}: the logits window is not the tail of the run")
+            check(torch.equal(codes1, codesb[:1]),
+                  f"{where}: b1 codes differ from row 0 of b{B}")
+            check(torch.equal(codesb[:, :-1], codes_r[:, :-1]),
+                  f"{where}: emitted codes differ from the plain replay")
+            rate, bad, worst = sampled_codes_match(c, lg_r, codesb, seed,
+                                                   n_forced - 1, SEQ_SAMPLES)
+            emit({"phase": "sequential", "kernel": DECODE_SOURCES[kernel],
+                  "config": name, "batch": B, "forced": n_forced,
+                  "steps": n_total, "max_abs_err_batch": errb,
+                  "max_abs_err_b1": err1, "sampled_match_rate": rate,
+                  "mismatches": bad, "max_mismatch_margin": worst,
+                  "bitwise_repeat": True, "b1_equals_row0": True,
+                  "window": SEQ_WINDOW, "plain_ms_per_step": plain_ms,
+                  "plain_ms_per_step_b1": plain_ms1, "gpu": gpu})
+            for b, err, ms in ((1, err1, plain_ms1), (B, errb, plain_ms)):
+                results[(kernel, name, b)] = dict(max_abs_err=err,
+                                                  plain_ms=ms)
+            del lgb, lg1, lg_r, win
+            torch.cuda.empty_cache()
     return results
 
 
@@ -967,21 +1052,34 @@ def phase_wide_prefill(c, params, rng, gpu):
            "steps": SEQ_SAMPLES, "max_abs_err": err,
            "sampled_match_rate": rate, "mismatches": bad,
            "max_mismatch_margin": worst, "plain_ms_per_step": plain_ms}
-    for b in (1, 64):
+    timed = {}
+    cases = [(1, "decode"), (64, "decode")]
+    routed = [b for b in range(1, B + 1) if ks.device_plan(c, b)]
+    if routed:
+        top = routed[-1]
+        cases += [(1, "cluster"), (top, "cluster"), (top, "decode")]
+        row["top_routed_batch"] = top
+    for b, kernel in cases:
         pkb = pk._replace(layer_add=pk.layer_add[:, :b].contiguous())
         ring = carry.ring[:, :b].clone(memory_format=torch.contiguous_format)
         causal = carry.causal[:b].clone()
         fb = first[:b].contiguous()
         ms = median_cuda_ms(lambda: ks.decode(
-            pkb, c, ring, causal, fb, SEQ_TIMED_SAMPLES, carry.t_abs, 5),
-            reps=3)
+            pkb, c, ring, causal, fb, SEQ_TIMED_SAMPLES, carry.t_abs, 5,
+            kernel=kernel), reps=3) / SEQ_TIMED_SAMPLES
         bound, by = bound_per_step(c, b, SEQ_TIMED_SAMPLES)
-        row.update({f"ms_per_step_b{b}": ms / SEQ_TIMED_SAMPLES,
-                    f"bound_ms_per_step_b{b}": bound,
-                    f"bound_by_b{b}": by})
+        key = f"b{b}_{DECODE_SOURCES[kernel]}"
+        row.update({f"ms_per_step_{key}": ms,
+                    f"bound_ms_per_step_{key}": bound,
+                    f"bound_by_{key}": by})
+        timed[(kernel, "wide", b)] = dict(ms=ms, bound_ms=bound, bound_by=by)
+    if routed:
+        for b in sorted({1, top}):
+            check_route_is_faster(timed, "wide", b, "cluster")
     row.update(next_amp_probe(c, params))
     row["gpu"] = gpu
     emit(row)
+    return timed
 
 
 def next_amp_probe(c, params, n: int = 2048):
@@ -1084,12 +1182,17 @@ def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
         ("wide_save_every", "wide", 1, 4000, ["--save_every", "1000"], 4),
         ("wide_b64", "wide", 64, 4000, [], 1),
     ]
+    from wavenet_torch.data import native
+    check(native.available() and os.path.exists(native.library_path()),
+          "the native data library is not loaded")
     ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    ks.decode.launches_by.clear()
     wavs, rates = {}, {}
     for label, model, B, n, extra, want in runs:
         ckpt, pfile, gc_flags = ckpts[model]
         wav = os.path.join(tmp, f"{label}.wav")
         before = ks.decode.launches
+        before_by = dict(ks.decode.launches_by)
         out, seconds = run_generate_cli(
             [ckpt, "--wavenet_params", pfile, "--samples", str(n),
              "--batch_size", str(B), "--wav_out_path", wav, "--seed", "1",
@@ -1100,17 +1203,23 @@ def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
         check(delta == want, f"{label}: {delta} decode launches, "
               f"expected {want}")
         rates[label] = B * n / seconds
+        served = {DECODE_SOURCES[k]: v - before_by.get(k, 0)
+                  for k, v in ks.decode.launches_by.items()
+                  if v != before_by.get(k, 0)}
         emit({"phase": "generate_cli", "run": label, "config": model,
               "batch": B, "samples": n, "seconds": seconds,
               "samples_per_s": rates[label], "decode_launches": delta,
-              "gpu": gpu})
+              "served_by": served, "gpu": gpu})
     for label in ("", "wide_"):
         check((wavs[f"{label}save_every"] == wavs[f"{label}b1"]).all(),
               f"{label}--save_every segments differ from the single run")
     check(ks.decode_sequential.launches == 0,
           "the CLI took the sequential route")
-    launches = ks.decode.launches
-    emit({"phase": "generate_cli", "decode_launches": launches,
+    launches = dict(ks.decode.launches_by)
+    emit({"phase": "generate_cli", "decode_launches": ks.decode.launches,
+          "decode_launches_by_kernel": {DECODE_SOURCES[k]: v
+                                        for k, v in launches.items()},
+          "native_decoder": native.library_path(),
           "save_every_equals_one_run": True,
           "wide_save_every_equals_one_run": True,
           "samples_per_s_b1": rates["b1"], "samples_per_s_b64": rates["b64"],
@@ -1128,11 +1237,13 @@ def phase_sequential_main_path(cfgs, params, rng, gpu):
 
     results = {}
     ks.decode_sequential.launches = 0          # the main path starts here
+    ks.decode_sequential.launches_by.clear()
     for name, B in SEQ_CASES:
         c, p = cfgs[name], params[name]
         prefix = seq_prefix(c, B, rng)
         n_total = prefix.shape[1] - 1 + SEQ_TIMED_SAMPLES
         before = ks.decode_sequential.launches
+        before_by = dict(ks.decode_sequential.launches_by)
         outs, times = [], []
         for _ in range(3):
             times.append(cuda_ms(lambda: outs.append(ks.generate_cuda(
@@ -1147,11 +1258,14 @@ def phase_sequential_main_path(cfgs, params, rng, gpu):
               and len(torch.unique(codes)) > 8,
               f"{name} b{B}: malformed codes")
         launches = ks.decode_sequential.launches - before
+        kernel, = [k for k, v in ks.decode_sequential.launches_by.items()
+                   if v != before_by.get(k, 0)]
         ms = float(np.median(times)) / n_total
         bound, by = sequential_bound_per_step(c, B, prefix.shape[1], n_total)
         results[(name, B)] = dict(launches=launches, ms=ms, bound_ms=bound,
-                                  bound_by=by)
+                                  bound_by=by, kernel=kernel)
         emit({"phase": "sequential_main_path", "config": name, "batch": B,
+              "kernel": DECODE_SOURCES[kernel],
               "steps": n_total, "launches": launches, "ms_per_step": ms,
               "ms_per_step_runs": [x / n_total for x in times],
               "bound_ms_per_step": bound, "bound_by": by,
@@ -1749,7 +1863,7 @@ def main() -> int:
     params = {name: seeded_params(c, i, "cuda")
               for i, (name, c) in enumerate(cfgs.items())}
     rng = np.random.RandomState(0)
-    measured = phase_teacher_forced(cfgs, params, rng)
+    measured = phase_teacher_forced(cfgs, params, rng, gpu)
 
     # Phase 3: sampling exactness.
     phase_sampling(cfgs["gc"], params["gc"], rng)
@@ -1758,6 +1872,8 @@ def main() -> int:
     launches = phase_serving(cfgs, gpu)
     missing = [B for B in SERVE_BATCH_SIZES if not launches.get(B)]
     check(not missing, f"no kernel launch at batch sizes {missing}")
+    check(all(launches["by_kernel"].get(k) for k in DECODE_SOURCES),
+          f"serving launched {launches['by_kernel']}: not both kernels")
 
     # Phase 5: training, the main path of training.
     stack = phase_stack_kernels(cfgs, params, rng, gpu)
@@ -1770,8 +1886,12 @@ def main() -> int:
     gen_params = dict(params, wide=seeded_params(gen_cfgs["wide"], 2,
                                                  "cuda"))
     seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
-    phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"], rng, gpu)
-    phase_generate_cli(gen_cfgs, gen_params, gc_ckpt, gc_pfile, gpu)
+    wide_timed = phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"],
+                                    rng, gpu)
+    gen_launches = phase_generate_cli(gen_cfgs, gen_params, gc_ckpt,
+                                      gc_pfile, gpu)
+    check(all(gen_launches.get(k) for k in DECODE_SOURCES),
+          f"the generate CLI launched {gen_launches}: not both kernels")
     seq_main = phase_sequential_main_path(gen_cfgs, gen_params, rng, gpu)
 
     # Phase 7: the retired training stacks (TPU kernels 6-8).
@@ -1791,21 +1911,53 @@ def main() -> int:
     emit({"phase": "probes", "seconds": time.perf_counter() - t8,
           "script_seconds": time.perf_counter() - t_start})
 
-    replaces = {1: "wavenet_tpu/kernels/sampler.py:234",
-                64: "wavenet_tpu/kernels/sampler.py:1308",
-                512: "wavenet_tpu/kernels/sampler_packed.py:142"}
     # library_ms is null: no single PyTorch call computes a decode step.
+    # Each row's launches are its kernel's on the serving path (phase 4:
+    # the cluster kernel at b1 and b64, sampler_decode at b512); the times
+    # of both kernels are phase 2's, pinned, in this run.
+    served = launches["by_kernel"]
     kernels = []
-    for B in SERVE_BATCH_SIZES:
-        m = measured[B]
+    m = measured[("cluster", "paper", 1)]
+    row = {"name": "sampler_cluster", "route": "cuda",
+           "source": "wavenet_torch/csrc/sampler_cluster.cu",
+           "replaces": "wavenet_tpu/kernels/sampler.py:234",
+           "config": "paper", "batch": 1, "launches": served["cluster"],
+           "max_abs_err": max(v["max_abs_err"] for k, v in measured.items()
+                              if k[0] == "cluster"),
+           "ms": m["ms"], "plain_ms": m["plain_ms"],
+           "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+           "library_ms": None, "unit": "per decode step (paper b1)"}
+    for key, name, B in (("gc_b1", "gc", 1), ("gc_b64", "gc", 64),
+                         ("gc_b120", "gc", 120)):
+        mk = measured[("cluster", name, B)]
+        row.update({f"ms_{key}": mk["ms"], f"bound_ms_{key}": mk["bound_ms"],
+                    f"plain_ms_{key}": mk["plain_ms"],
+                    f"sampler_decode_ms_{key}":
+                        measured[("decode", name, B)]["ms"]})
+    for kernel, name, B in sorted(wide_timed):
+        if kernel == "cluster":
+            mk = wide_timed[(kernel, name, B)]
+            row.update({f"ms_wide_b{B}": mk["ms"],
+                        f"bound_ms_wide_b{B}": mk["bound_ms"],
+                        f"sampler_decode_ms_wide_b{B}":
+                            wide_timed[("decode", name, B)]["ms"]})
+    row["gpu"] = gpu
+    kernels.append(row)
+    replaces = {("paper", 1): "wavenet_tpu/kernels/sampler.py:234",
+                ("gc", 64): "wavenet_tpu/kernels/sampler.py:1308",
+                ("gc", 512): "wavenet_tpu/kernels/sampler_packed.py:142"}
+    for (name, B), where in replaces.items():
+        m = measured[("decode", name, B)]
         kernels.append({
             "name": f"sampler_decode_b{B}", "route": "cuda",
             "source": "wavenet_torch/csrc/sampler_decode.cu",
-            "replaces": replaces[B], "config": m["config"], "batch": B,
-            "launches": launches[B], "max_abs_err": m["max_abs_err"],
+            "replaces": where, "config": name, "batch": B,
+            "launches": served["decode"], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": None, "unit": "per decode step", "gpu": gpu})
+            "library_ms": None, "unit": "per decode step",
+            "pinned": B != 512,
+            "gpu": gpu})
     # library_ms is null: no single PyTorch call computes a dilated stack
     # (or its VJP); cuDNN's dilated conv covers one layer's taps only.
     for kind, line in (("fwd", 105), ("bwd", 276)):
@@ -1820,13 +1972,15 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "unit": "per call (one train step's stack)", "gpu": gpu})
-    # Kernel 4's route: the same kernel launched from a zero ring. Its
-    # library_ms is null for the reason of rows 1-3.
+    # Kernel 4's route: the decode kernel that the route takes, launched
+    # from a zero ring. Its library_ms is null for the reason above.
     for name, B in SEQ_CASES:
-        m = dict(seq[(name, B)], **seq_main[(name, B)])
+        used = seq_main[(name, B)]["kernel"]
+        m = dict(seq[(used, name, B)], **seq_main[(name, B)])
+        src = DECODE_SOURCES[used]
         kernels.append({
-            "name": f"sampler_decode_sequential_{name}_b{B}",
-            "route": "cuda", "source": "wavenet_torch/csrc/sampler_decode.cu",
+            "name": f"{src}_sequential_{name}_b{B}",
+            "route": "cuda", "source": f"wavenet_torch/csrc/{src}.cu",
             "replaces": "wavenet_tpu/kernels/sampler.py:1057",
             "config": name, "batch": B, "launches": m["launches"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (``sampler_decode`` on its prefill and
-sequential routes, mu-law and scalar input; ``fused_stack``;
+"""The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
+their prefill and sequential routes, mu-law and scalar input, and the
+route between them; ``fused_stack``;
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
 ``matvec_probe`` of ``wavenet_torch.tools``) against their plain versions,
@@ -72,7 +73,7 @@ def test_kernel_matches_reference_teacher_forced(setup, B):
     rr, cr = carry.ring.clone(), carry.causal.clone()
     before = ks.decode.launches
     kk, lk = ks.decode(packed, c, rk, ck, forced, 24, carry.t_abs, 3,
-                       collect_logits=True)
+                       collect_logits=True, kernel="decode")
     kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 24,
                                  carry.t_abs, 3, collect_logits=True)
     torch.cuda.synchronize()
@@ -99,7 +100,8 @@ def test_kernel_sampling_is_deterministic_and_per_row(setup):
         pk = packed._replace(layer_add=packed.layer_add[:, :n].contiguous())
         out, lg = ks.decode(pk, c, ring, causal,
                             carry.last[:n, None].contiguous(), 64,
-                            carry.t_abs, 11, collect_logits=8)
+                            carry.t_abs, 11, collect_logits=8,
+                            kernel="decode")
         return out, lg
 
     a, la = run(300)
@@ -162,7 +164,7 @@ def test_scalar_kernel_matches_reference_at_wide_widths(setup, B):
     rk, ck = carry.ring.clone(), carry.causal.clone()
     rr, cr = carry.ring.clone(), carry.causal.clone()
     kk, lk = ks.decode(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
-                       collect_logits=True)
+                       collect_logits=True, kernel="decode")
     kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
                                  carry.t_abs, 3, collect_logits=True)
     torch.cuda.synchronize()
@@ -646,3 +648,345 @@ def test_probes_reject_bad_inputs(setup):
     packed = ks.pack_sampler_weights(_seeded_params(cb), cb, 2)
     with pytest.raises(ValueError, match="layer_add"):
         r3.b1_bisect(packed, cb, "full", 4)
+
+
+# ---------------------------------------------------------------------------
+# sampler_cluster: the decode with the layer chain's weights in the shared
+# memory of a thread-block cluster
+# ---------------------------------------------------------------------------
+
+def _cluster_case(width, B, seed=0):
+    """(config, params, packed, prefilled carry, teacher-forced inputs):
+    mu-law with GC at the small or the paper widths, or scalar input at the
+    wide widths."""
+    from wavenet_torch.models.config import gc_config
+    if width == "scalar_wide":
+        c = WaveNetConfig(**WIDE_SMALL)
+    elif width == "paper":
+        c = gc_config(gc_cardinality=8)
+    else:
+        c = WaveNetConfig(**SMALL)
+    params = _seeded_params(c, seed)
+    rng = np.random.RandomState(seed + B)
+    if c.scalar_input:
+        x = torch.as_tensor(rng.uniform(-0.9, 0.9, (B, 100))
+                            .astype(np.float32), device="cuda")
+        gids = None
+    else:
+        x = torch.as_tensor(rng.randint(0, c.quantization_channels, (B, 100)),
+                            dtype=torch.int32, device="cuda")
+        gids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                               device="cuda")
+    carry = ks.prefill_carry(params, c, x[:, :70], gids)
+    packed = ks.pack_sampler_weights(
+        params, c, B, None if gids is None else embed_gc(params, c, gids))
+    return c, params, packed, carry, x[:, 69:].contiguous()
+
+
+# Multi-CTA plans at the small widths, where the device's own plan takes
+# one CTA a cluster: the hand-off, the split skip sum and the split head.
+SMALL_PLANS = [ks.ClusterPlan(2, 1, (0, 4, 8)),
+               ks.ClusterPlan(4, 2, (0, 2, 4, 6, 8)),
+               ks.ClusterPlan(8, 4, tuple(range(9)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("width", ["small", "paper", "scalar_wide"])
+def test_cluster_kernel_matches_reference_teacher_forced(setup, width, B):
+    c, params, packed, carry, forced = _cluster_case(width, B)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    before = ks.decode.launches_by["cluster"]
+    kk, lk = ks.decode(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                       collect_logits=True, kernel="cluster")
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by["cluster"] == before + 1
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    torch.testing.assert_close(ck, cr, rtol=0, atol=0)
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", SMALL_PLANS, ids=lambda p: f"cs{p.CS}")
+def test_cluster_kernel_multi_cta_plans(setup, plan):
+    """Explicit plans at the small widths, with a window of logits and a
+    sampled tail replayed by the plain version."""
+    c, params, packed, carry, forced = _cluster_case("small", 5)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    codes, lg, used = ks._launch(packed, c, rk, ck, forced[:, :4].contiguous(),
+                                 40, carry.t_abs, 9, 1.0, 12,
+                                 kernel="cluster", plan=plan)
+    torch.cuda.synchronize()
+    assert used == "cluster" and lg.shape == (5, 12, c.quantization_channels)
+    replay = torch.cat([forced[:, :4], codes[:, 3:-1]], dim=1).contiguous()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    kr, lr = ks.decode_reference(packed, c, rr, cr, replay, 40, carry.t_abs,
+                                 9, collect_logits=12)
+    torch.testing.assert_close(lg, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    assert torch.equal(codes[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [ks.ClusterPlan(1, 2, (0, 3)),
+                                  ks.ClusterPlan(2, 1, (0, 2, 3))],
+                         ids=lambda p: f"cs{p.CS}")
+def test_cluster_kernel_head_columns_per_thread(setup, plan):
+    """S = 512 and Q = 256 over one or two CTAs: a CTA's post1 and post2
+    slices of >= 256 columns take the head's one-thread-per-column form."""
+    c = WaveNetConfig(dilations=(1, 2, 4), residual_channels=8,
+                      dilation_channels=8, skip_channels=512,
+                      quantization_channels=256)
+    params = _seeded_params(c)
+    B = 3
+    rng = np.random.RandomState(4)
+    x = torch.as_tensor(rng.randint(0, 256, (B, 40)), dtype=torch.int32,
+                        device="cuda")
+    carry = ks.prefill_carry(params, c, x[:, :20])
+    packed = ks.pack_sampler_weights(params, c, B)
+    forced = x[:, 19:].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    codes, lg, used = ks._launch(packed, c, rk, ck, forced, 21, carry.t_abs,
+                                 2, 1.0, True, kernel="cluster", plan=plan)
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 21, carry.t_abs,
+                                 2, collect_logits=True)
+    torch.cuda.synchronize()
+    assert used == "cluster"
+    torch.testing.assert_close(lg, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    assert torch.equal(codes[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+def test_cluster_kernel_logits_window_and_next_amp(setup):
+    c, params, packed, carry, forced = _cluster_case("scalar_wide", 4)
+    first = forced[:, :1].contiguous()
+    outs = {}
+    for kernel in ("cluster", "decode"):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        amp = torch.empty(4, device="cuda")
+        codes, win = ks.decode(packed, c, ring, causal, first, 50,
+                               carry.t_abs, 13, collect_logits=7,
+                               next_amp=amp, kernel=kernel)
+        ring2, causal2 = carry.ring.clone(), carry.causal.clone()
+        again, full = ks.decode(packed, c, ring2, causal2, first, 50,
+                                carry.t_abs, 13, collect_logits=True,
+                                kernel=kernel)
+        outs[kernel] = (codes, win, full, amp)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, again)
+        assert torch.equal(win, full[:, -7:])
+        # The kernel's own decode of the last code (PyTorch's may differ in
+        # the last bit: it divides by a scalar through its reciprocal).
+        torch.testing.assert_close(
+            amp, ks.decode_amp(codes[:, -1], c.quantization_channels),
+            rtol=0, atol=1e-6)
+    # The cluster kernel against the plain version on its own inputs.
+    codes, _, full, _ = outs["cluster"]
+    replay = torch.cat([first, ks.decode_amp(codes[:, :-1],
+                                             c.quantization_channels)],
+                       dim=1).contiguous()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    _, lr = ks.decode_reference(packed, c, rr, cr, replay, 50, carry.t_abs,
+                                13, collect_logits=True)
+    torch.testing.assert_close(full, lr, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["small", "paper"])
+def test_cluster_kernel_is_deterministic_and_per_row(setup, width):
+    """Same seed, same codes; row 0 of b64 (four rows a cluster) equals b1
+    (one row a cluster) bit for bit."""
+    c, params, packed, carry, _ = _cluster_case(width, 64)
+
+    def run(n):
+        ring = carry.ring[:, :n].clone(memory_format=torch.contiguous_format)
+        causal = carry.causal[:n].clone()
+        pk = packed._replace(layer_add=packed.layer_add[:, :n].contiguous())
+        return ks.decode(pk, c, ring, causal,
+                         carry.last[:n, None].contiguous(), 200,
+                         carry.t_abs, 17, collect_logits=16,
+                         kernel="cluster") + (ring,)
+
+    a, la, ra = run(64)
+    b, lb, rb = run(64)
+    s, ls, rs = run(1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(la, lb) and torch.equal(ra, rb)
+    assert torch.equal(a[:1], s) and torch.equal(la[:1], ls)
+    assert torch.equal(ra[:, :1], rs)
+    assert len(torch.unique(a)) > 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+def test_cluster_scalar_resumable_segments_equal_one_run(setup, B):
+    """At the wide widths, three segments resumed from the ring, the
+    register and the kernel's own next amplitude equal one launch."""
+    c, params, packed, carry, _ = _cluster_case("scalar_wide", B)
+    first = carry.last[:, None].contiguous()
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    full, _ = ks.decode(packed, c, ring, causal, first, 600, carry.t_abs, 4,
+                        kernel="cluster")
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    outs, x, t = [], first, carry.t_abs
+    for n in (200, 150, 250):
+        amp = torch.empty(B, device="cuda")
+        seg, _ = ks.decode(packed, c, ring, causal, x, n, t, 4, next_amp=amp,
+                           kernel="cluster")
+        outs.append(seg)
+        x, t = amp[:, None].contiguous(), t + n
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1), full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["small", "paper", "scalar_wide"])
+def test_cluster_teacher_forced_codes_equal_sampler_decode(setup, width):
+    c, params, packed, carry, forced = _cluster_case(width, 4)
+    got = {}
+    for kernel in ("cluster", "decode"):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        got[kernel] = ks.decode(packed, c, ring, causal, forced, 30,
+                                carry.t_abs, 3, collect_logits=True,
+                                kernel=kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(got["cluster"][0], got["decode"][0])
+    torch.testing.assert_close(got["cluster"][1], got["decode"][1], **TOL)
+
+
+@pytest.mark.gpu
+def test_cluster_wrapper_rejects_bad_inputs(setup):
+    c, params, packed, carry, forced = _cluster_case("small", 2)
+    first = forced[:, :1].contiguous()
+    with pytest.raises(ValueError, match="ring"):
+        ks.decode(packed, c, carry.ring.double(), carry.causal, first, 4,
+                  carry.t_abs, 0, kernel="cluster")
+    with pytest.raises(ValueError, match="forced"):
+        ks.decode(packed, c, carry.ring, carry.causal, first.long(), 4,
+                  carry.t_abs, 0, kernel="cluster")
+    with pytest.raises(ValueError, match="bad plan"):
+        ks._launch(packed, c, carry.ring, carry.causal, first, 4,
+                   carry.t_abs, 0, 1.0, False, kernel="cluster",
+                   plan=ks.ClusterPlan(2, 1, (0, 8, 8)))
+    with pytest.raises(ValueError, match="bad plan"):
+        # A CS that does not divide the skip channels.
+        ks._launch(packed, c, carry.ring, carry.causal, first, 4,
+                   carry.t_abs, 0, 1.0, False, kernel="cluster",
+                   plan=ks.ClusterPlan(3, 1, (0, 3, 6, 8)))
+    sharded = WaveNetConfig(dilations=(1, 2), residual_channels=256,
+                            dilation_channels=256, skip_channels=64,
+                            quantization_channels=64)
+    sp = _seeded_params(sharded)
+    pk = ks.pack_sampler_weights(sp, sharded, 1)
+    ring, causal = ks.zero_state(sharded, 1, "cuda")
+    with pytest.raises(ValueError, match="no cluster plan"):
+        ks.decode(pk, sharded, ring, causal,
+                  torch.zeros((1, 1), dtype=torch.int32, device="cuda"), 2,
+                  0, 0, kernel="cluster")
+
+
+@pytest.mark.gpu
+def test_decode_routes_by_the_plan(setup):
+    """``kernel="auto"``: the cluster kernel at paper b1, sampler_decode at
+    b512, as ``cluster_plan`` says on this device."""
+    from wavenet_torch.models.config import paper_config
+    c = paper_config()
+    params = _seeded_params(c)
+    for B, want in ((1, "cluster"), (512, "decode")):
+        assert (ks.device_plan(c, B) is None) == (want == "decode")
+        before = dict(ks.decode.launches_by)
+        codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B)
+        torch.cuda.synchronize()
+        after = dict(ks.decode.launches_by)
+        assert after.get(want, 0) == before.get(want, 0) + 1
+        other = "decode" if want == "cluster" else "cluster"
+        assert after.get(other, 0) == before.get(other, 0)
+        assert codes.shape == (B, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,RB", [(90, 6), (100, 7), (120, 8)])
+def test_cluster_kernel_at_the_top_of_its_range(setup, B, RB):
+    """Six to eight rows a cluster, 15 clusters of 8 CTAs at the gc widths:
+    the plans an H100 takes for gc b76-b120."""
+    c, params, packed, carry, forced = _cluster_case("paper", B)
+    plan = ks.ClusterPlan(8, RB, ks.layer_split(c.num_layers, 8))
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    kk, lk, used = ks._launch(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                              1.0, True, kernel="cluster", plan=plan)
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True)
+    torch.cuda.synchronize()
+    assert used == "cluster"
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    torch.testing.assert_close(ck, cr, rtol=0, atol=0)
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+def test_auto_route_rows_across_the_kernel_boundary(setup):
+    """``kernel="auto"`` at the gc widths: b1 and the largest B the plan
+    sends to the cluster kernel run it, the next B runs sampler_decode.
+    Within the cluster kernel's range row 0 is bitwise the same; across the
+    boundary the two kernels' sums differ in the last bits, so row 0's
+    logits agree within TOL up to the first code that differs, and that
+    code is a near-tie of the perturbed logits."""
+    from wavenet_torch.models.config import gc_config
+    c = gc_config(gc_cardinality=8)
+    hi = next(B for B in range(1, 1025) if ks.device_plan(c, B) is None)
+    c, params, packed, carry, _ = _cluster_case("paper", hi)
+    n, seed = 400, 23
+
+    def run(b, want):
+        ring = carry.ring[:, :b].clone(memory_format=torch.contiguous_format)
+        pk = packed._replace(layer_add=packed.layer_add[:, :b].contiguous())
+        before = ks.decode.launches_by[want]
+        out = ks.decode(pk, c, ring, carry.causal[:b].clone(),
+                        carry.last[:b, None].contiguous(), n, carry.t_abs,
+                        seed, collect_logits=True)
+        torch.cuda.synchronize()
+        assert ks.decode.launches_by[want] == before + 1
+        return out[0][0], out[1][0]
+
+    s, ls = run(1, "cluster")
+    lo, llo = run(hi - 1, "cluster")
+    d, ld = run(hi, "decode")
+    assert torch.equal(s, lo) and torch.equal(ls, llo)
+    differ = (s != d).nonzero()
+    t = differ[0, 0].item() if len(differ) else n - 1
+    torch.testing.assert_close(ls[:t + 1], ld[:t + 1], **TOL)
+    if len(differ):
+        noise = ks.gumbel_noise(seed, 1, carry.t_abs + t, 1,
+                                c.quantization_channels, "cuda")[0, 0]
+        score = ls[t] + noise
+        margin = (score[s[t].long()] - score[d[t].long()]).abs().item()
+        assert margin < 1e-4, (t, margin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["small", "paper", "scalar_wide"])
+def test_cluster_smem_bytes_match_the_kernel(setup, width):
+    """The plan's copy of the kernel's shared-memory formula against the
+    library's own, at every cluster size and row count."""
+    import ctypes
+    from wavenet_torch.kernels import _build
+    c = _cluster_case(width, 1)[0]
+    lib = _build.load("sampler_cluster")
+    ks._bind_cluster(lib)
+    for cs in ks.CLUSTER_SIZES:
+        if cs > c.num_layers:
+            continue
+        for rb in ks.CLUSTER_ROWS:
+            got = lib.sampler_cluster_smem_bytes(
+                c.residual_channels, c.dilation_channels, c.skip_channels,
+                c.quantization_channels, ks.causal_width(c), cs,
+                -(-c.num_layers // cs), rb)
+            assert got == ks.cluster_smem_bytes(c, cs, rb), (cs, rb)

@@ -7,8 +7,9 @@
 Counterpart of ``wavenet_tpu/cli/generate.py``. The checkpoint is the
 port's ``ckpt-STEP/`` (a directory of them, or one of them), read with
 ``train_lib.restore_params_only``. The fast path runs
-``sampler_select.generate_with_fallback``: prefill + one launch of the
-``sampler_decode`` kernel on the card (its plain version on the CPU), or
+``sampler_select.generate_with_fallback``: prefill + one launch of a
+decode kernel on the card (``sampler_cluster`` or ``sampler_decode``, as
+``kernels.sampler.cluster_plan`` routes; their plain version on the CPU), or
 the scan sampler with ``--sampler scan``. ``--save_every`` generates in
 resumable segments and rewrites the partial wav after each;
 ``--fast_generation false`` re-runs the full network per sample.
@@ -60,8 +61,8 @@ def get_arguments(argv=None):
                         help="float32 only (bfloat16 is not ported yet).")
     parser.add_argument("--sampler", type=str, default="auto",
                         choices=["auto", "pallas", "scan"],
-                        help="auto/pallas: prefill + the sampler_decode "
-                             "kernel; scan: the scan sampler.")
+                        help="auto/pallas: prefill + a decode kernel; "
+                             "scan: the scan sampler.")
     parser.add_argument("--draft_checkpoint", type=str, default=None,
                         help="Speculative decoding (not ported yet).")
     parser.add_argument("--draft_wavenet_params", type=str, default=None)
@@ -233,7 +234,7 @@ def _generate_fast(params, config, args, seed, gc_ids, seed_codes):
 def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
                            wavenet_params):
     """--save_every: generate in segments, rewriting the partial wav after
-    each; resumable ``sampler_decode`` segments, or the scan sampler with
+    each; resumable decode-kernel segments, or the scan sampler with
     ``--sampler scan``."""
     if args.sampler in ("auto", "pallas") and config.filter_width == 2:
         return _generate_chunked_pallas(params, config, args, seed, gc_ids,

@@ -5,8 +5,10 @@ semantics:
 
 * corpus walk and the VCTK speaker-id pattern (``p<speaker>_<utt>.wav``),
 * file order sampled WITH replacement (the reference's quirk),
-* scipy decode and polyphase resample (``wavenet_torch.audio.read_wav``),
-  RMS silence trim,
+* wav decode, polyphase resample and RMS silence trim through the
+  native C++ library (``data/native.py``) by default, as the JAX reader
+  does, and through scipy (``wavenet_torch.audio``) with
+  ``use_native=False`` or where the library cannot be built or loaded,
 * left zero-padding by receptive_field, then chunks of
   ``receptive_field + sample_size`` samples that overlap by
   receptive_field,
@@ -14,8 +16,7 @@ semantics:
 
 Whole-utterance mode (``sample_size=None``) pads each utterance to a
 geometric bucket ladder (bucket_size * 2^k), as the JAX package does.
-Not ported yet: the native C++ decoder (``data/native.py``, ROADMAP.md
-queue 1, item 4) and local conditioning (queue 1, item 2).
+Not ported yet: local conditioning (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -81,14 +82,27 @@ def not_all_have_id(files: List[str]) -> bool:
     return any(parse_speaker_id(os.path.basename(f)) is None for f in files)
 
 
+def _read_wav_any(filename: str, sample_rate: int,
+                  use_native: bool = True) -> np.ndarray:
+    """Decode+resample via the native C++ library, scipy as fallback."""
+    if use_native:
+        from wavenet_torch.data import native
+        loaded = native.read_wav(filename, sample_rate)
+        if loaded is not None:
+            return loaded[0]
+    audio, _ = read_wav(filename, sample_rate)
+    return audio
+
+
 def load_generic_audio(directory: str, sample_rate: int,
-                       rng: Optional[random.Random] = None):
+                       rng: Optional[random.Random] = None,
+                       use_native: bool = True):
     """Generator of (audio [T, 1] float32, filename, speaker_id)."""
     files = find_files(directory)
     if not files:
         raise ValueError(f"No wav files found in '{directory}'.")
     for filename in randomize_files(files, rng):
-        audio, _ = read_wav(filename, sample_rate)
+        audio = _read_wav_any(filename, sample_rate, use_native)
         category_id = parse_speaker_id(os.path.basename(filename))
         yield audio.reshape(-1, 1), filename, category_id
 
@@ -112,6 +126,7 @@ class AudioReader:
                  num_threads: int = 1,
                  seed: Optional[int] = None,
                  bucket_size: int = 16000,
+                 use_native: bool = True,
                  lc_enabled: bool = False):
         if lc_enabled:
             raise NotImplementedError(
@@ -124,6 +139,7 @@ class AudioReader:
         self.sample_size = sample_size
         self.silence_threshold = silence_threshold
         self.bucket_size = bucket_size
+        self.use_native = use_native
         self._seen_buckets: set = set()
         self._queue: "queue.Queue" = queue.Queue(maxsize=queue_size)
         self._threads: List[threading.Thread] = []
@@ -154,12 +170,11 @@ class AudioReader:
         rng = random.Random(None if self._seed is None
                             else self._seed + thread_index)
         for audio, filename, category_id in load_generic_audio(
-                self.audio_dir, self.sample_rate, rng):
+                self.audio_dir, self.sample_rate, rng, self.use_native):
             if self._stop.is_set():
                 return
             if self.silence_threshold is not None:
-                audio = trim_silence(audio[:, 0],
-                                     self.silence_threshold).reshape(-1, 1)
+                audio = self._trim(audio[:, 0]).reshape(-1, 1)
                 if audio.size == 0:
                     warnings.warn(
                         f"Warning: {filename} was ignored as it contains "
@@ -185,6 +200,14 @@ class AudioReader:
                 piece = np.pad(audio, [[0, self._bucket_length(n) - n],
                                        [0, 0]], mode="constant")
                 self._put((piece[:, 0].astype(np.float32), category_id))
+
+    def _trim(self, audio: np.ndarray) -> np.ndarray:
+        if self.use_native:
+            from wavenet_torch.data import native
+            trimmed = native.trim_silence(audio, self.silence_threshold)
+            if trimmed is not None:
+                return trimmed
+        return trim_silence(audio, self.silence_threshold)
 
     def _bucket_length(self, n: int) -> int:
         """Smallest bucket-ladder rung >= n (rungs: bucket_size * 2^k)."""

@@ -24,16 +24,32 @@ is ``[sum_d, B, R]`` (no 128-lane padding), forced inputs are
 step order. The b1 transposed weights, batch chunking and the ring
 packing were TPU layouts and have no counterpart.
 
-``decode_reference`` is the plain PyTorch version of the kernel, with
+Two CUDA kernels compute the decode, launched by the same wrappers:
+``csrc/sampler_cluster.cu`` keeps the fg and dense weights of the layer
+chain in the shared memory of a thread-block cluster (one cluster per
+group of rows; the JAX package's all-VMEM b1 kernel ``_sampler_kernel``
+is its TPU counterpart), and ``csrc/sampler_decode.cu`` streams every
+weight from L2 (one block per group of rows). ``cluster_plan`` decides
+which runs, before the launch, from the config, the batch size and the
+device: the cluster kernel wherever its weights fit and all its clusters
+are resident at once (paper/gc b1-b120 and wide b1-b28 on an H100),
+``sampler_decode`` elsewhere. ``kernel="cluster"`` or ``"decode"`` pins
+one. Each kernel's sums have a fixed order, so a row's codes do not depend
+on the batch size within one kernel's range; the two kernels' orders
+differ in the last bits, so across the boundary (gc b120 and b128 on an
+H100) a near-tie can draw another code.
+
+``decode_reference`` is the plain PyTorch version of both kernels, with
 the same Philox4x32-10 noise; ``decode`` and ``decode_sequential`` use it
 only for CPU tensors.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -416,12 +432,170 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     return codes, logits
 
 
+# ---------------------------------------------------------------------------
+# The route: which of the two decode kernels runs
+# ---------------------------------------------------------------------------
+
+#: Threads of a block of either kernel (``kThreads`` in the sources).
+THREADS = 256
+#: Cluster sizes the plan tries, smallest first; above 8 CTAs a cluster is
+#: "non-portable" (Hopper allows 16).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: Rows of the batch one cluster serves.
+CLUSTER_ROWS = tuple(range(1, 9))
+
+
+class ClusterPlan(NamedTuple):
+    """How ``sampler_cluster`` splits a launch: clusters of ``CS`` CTAs,
+    each serving ``RB`` rows; CTA k owns layers
+    ``layer_begin[k]:layer_begin[k + 1]``."""
+    CS: int
+    RB: int
+    layer_begin: Tuple[int, ...]
+
+
+def layer_split(num_layers: int, cs: int) -> Tuple[int, ...]:
+    """Contiguous layer ranges of ``cs`` CTAs, in order: ceil(L / cs) layers
+    each, the shortfall taken from the last CTAs (at least one layer each).
+    The last CTA's skip products sit on the step's critical path, so it
+    gets the fewest."""
+    base = -(-num_layers // cs)
+    sizes = [base] * cs
+    excess = base * cs - num_layers
+    for k in range(cs - 1, -1, -1):
+        take = min(excess, sizes[k] - 1)
+        sizes[k] -= take
+        excess -= take
+    return tuple(int(x) for x in np.cumsum([0] + sizes))
+
+
+def _chain_floats(R: int, D: int) -> Tuple[int, int]:
+    """Floats of one layer's filter/gate and dense weights as
+    ``sampler_cluster`` lays them out for its warps (``chain_shape``):
+    8 warps x 32 lanes x the K terms a lane adds."""
+    fg_groups, d_groups = 128 // D, 256 // R
+    return (256 * -(-2 * R // fg_groups), 256 * -(-D // d_groups))
+
+
+def cluster_smem_bytes(config: WaveNetConfig, cs: int, rb: int) -> int:
+    """Dynamic shared memory of one ``sampler_cluster`` CTA: the carve-up
+    at the top of its kernel (``cluster_smem_bytes`` there, which the
+    library exports as ``sampler_cluster_smem_bytes`` for the card's tests
+    to hold this copy against)."""
+    c = config
+    L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
+                     c.skip_channels, c.quantization_channels)
+    nl = -(-L // cs)
+    fg, dense = _chain_floats(R, D)
+    per_cta = nl * (fg + dense + R) + 2 * nl + 2 * cs * rb
+    per_row = (nl * (2 * D + 2 * R + D) + R + 3 * S + Q // cs
+               + causal_width(c) + R + THREADS + 2)
+    return 16 + 4 * (per_cta + rb * per_row)
+
+
+def cluster_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
+                 resident_clusters: Callable[[int, int, int], int]
+                 ) -> Optional[ClusterPlan]:
+    """The ``sampler_cluster`` launch for this config and batch on a device
+    with ``smem_optin`` bytes of shared memory per block that keeps
+    ``resident_clusters(CS, RB, smem bytes a CTA)`` clusters resident at
+    once, or None (``sampler_decode`` then runs).
+
+    The cluster size is a function of the config and the device alone, so
+    that a row's sums (the layer split, the head's column split) and hence
+    its codes do not depend on the batch size while the plan finds a
+    launch: the smallest CS whose CTA
+    holds the fg and dense weights of ceil(L / CS) layers and its scratch
+    at the largest RB that fits at any CS <= 16. The rows per cluster are
+    then the fewest that keep every cluster resident in one wave. Where
+    no RB does, None.
+    """
+    c = config
+    L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
+                     c.skip_channels, c.quantization_channels)
+    if (c.filter_width != 2 or c.lc_enabled or batch_size < 1
+            or D not in (8, 16, 32, 64, 128)
+            or R not in (8, 16, 32, 64, 128, 256)
+            or causal_width(c) > THREADS):
+        return None
+    for rb_max in sorted(CLUSTER_ROWS, reverse=True):
+        fits = [cs for cs in CLUSTER_SIZES
+                if cs <= L and S % cs == 0 and Q % (4 * cs) == 0
+                and cluster_smem_bytes(c, cs, rb_max) <= smem_optin]
+        if fits:
+            cs = fits[0]
+            break
+    else:
+        return None
+    for rb in CLUSTER_ROWS:
+        if rb > rb_max:
+            break
+        resident = resident_clusters(cs, rb, cluster_smem_bytes(c, cs, rb))
+        if -(-batch_size // rb) <= resident:
+            return ClusterPlan(cs, rb, layer_split(L, cs))
+    return None
+
+
+KERNEL_CHOICES = ("auto", "cluster", "decode")
+
+
 def _bind(lib) -> None:
     fn = lib.sampler_decode_f32
     fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
                    + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+def _bind_cluster(lib) -> None:
+    fn = lib.sampler_cluster_f32
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+                   + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.sampler_cluster_smem_optin.argtypes = [ctypes.c_void_p]
+    lib.sampler_cluster_smem_optin.restype = ctypes.c_int
+    lib.sampler_cluster_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.sampler_cluster_smem_bytes.restype = ctypes.c_longlong
+    lib.sampler_cluster_max_clusters.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.sampler_cluster_max_clusters.restype = ctypes.c_int
+
+
+_RESIDENT = {}   # (device, CS, RB, smem bytes) -> resident clusters
+
+
+def device_plan(config: WaveNetConfig, batch_size: int,
+                device=None) -> Optional[ClusterPlan]:
+    """``cluster_plan`` with the opt-in shared memory and the resident
+    clusters of the current CUDA device (as ``sampler_cluster`` reads
+    them)."""
+    from wavenet_torch.kernels import _build
+    lib = _build.load("sampler_cluster")
+    _bind_cluster(lib)
+    if device is not None:
+        torch.cuda.set_device(device)
+    dev = torch.cuda.current_device()
+    smem = ctypes.c_int(0)
+    err = lib.sampler_cluster_smem_optin(ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"sampler_cluster: CUDA error {err} reading the "
+                           "device's attributes")
+
+    def resident(cs: int, rb: int, nbytes: int) -> int:
+        key = (dev, cs, rb, nbytes)
+        if key not in _RESIDENT:
+            n = ctypes.c_int(0)
+            err = lib.sampler_cluster_max_clusters(cs, rb, nbytes,
+                                                   ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"sampler_cluster: CUDA error {err} "
+                                   "counting resident clusters")
+            _RESIDENT[key] = n.value
+        return _RESIDENT[key]
+
+    return cluster_plan(config, batch_size, smem.value, resident)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -433,12 +607,22 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"sampler_decode: {name} must be contiguous")
 
 
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNEL_CHOICES:
+        raise ValueError(f"kernel={kernel!r}: one of {KERNEL_CHOICES}")
+
+
 def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             causal: torch.Tensor, forced: torch.Tensor, n_total: int,
             t0: int, seed: int, temperature: float, collect_logits,
-            next_amp: Optional[torch.Tensor] = None):
-    """Check every operand and launch ``sampler_decode`` once on the
-    current stream; raises if the launch is refused."""
+            next_amp: Optional[torch.Tensor] = None, *,
+            kernel: str = "auto", plan: Optional[ClusterPlan] = None):
+    """Check every operand and launch one decode kernel once on the
+    current stream: ``sampler_cluster`` where ``kernel`` is "cluster", or
+    "auto" and ``cluster_plan`` (or the given ``plan``) finds a launch,
+    else ``sampler_decode``. Returns ``(codes, logits, kernel launched)``;
+    raises if the launch is refused."""
+    _check_kernel(kernel)
     c = config
     if c.filter_width != 2 or c.lc_enabled:
         raise NotImplementedError(
@@ -469,8 +653,14 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         _check("next_amp", next_amp, f32, (B,), dev)
 
     from wavenet_torch.kernels import _build
-    lib = _build.load("sampler_decode")
-    _bind(lib)
+    if kernel != "decode" and plan is None:
+        plan = device_plan(c, B, dev)
+        if plan is None and kernel == "cluster":
+            raise ValueError(
+                f"sampler_cluster: no cluster plan for this config at "
+                f"B={B} on {torch.cuda.get_device_name(dev)}")
+    use_cluster = kernel == "cluster" or (kernel == "auto"
+                                          and plan is not None)
     n_log = _n_log(collect_logits, n_total)
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=f32, device=dev)
@@ -478,18 +668,34 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     meta = torch.tensor(ring_offsets(c) + c.dilations, dtype=torch.int32,
                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sampler_decode_f32(
-        *(getattr(packed, k).data_ptr() for k in PackedSampler._fields),
-        meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
-        forced.data_ptr(), codes.data_ptr(),
-        logits.data_ptr() if logits is not None else None,
-        next_amp.data_ptr() if next_amp is not None else None,
-        B, L, R, D, S, Q, n_total, n_forced, n_log, int(c.scalar_input), KC,
-        int(t0), int(seed) & 0xFFFFFFFFFFFFFFFF,
-        float(np.float32(1.0 / temperature)), stream)
+    args = (*(getattr(packed, k).data_ptr() for k in PackedSampler._fields),
+            meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
+            forced.data_ptr(), codes.data_ptr(),
+            logits.data_ptr() if logits is not None else None,
+            next_amp.data_ptr() if next_amp is not None else None,
+            B, L, R, D, S, Q, n_total, n_forced, n_log, int(c.scalar_input),
+            KC, int(t0), int(seed) & 0xFFFFFFFFFFFFFFFF,
+            float(np.float32(1.0 / temperature)))
+    if use_cluster:
+        if (len(plan.layer_begin) != plan.CS + 1 or plan.layer_begin[0] != 0
+                or plan.layer_begin[-1] != L or S % plan.CS
+                or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS
+                or any(b <= a for a, b in zip(plan.layer_begin,
+                                              plan.layer_begin[1:]))):
+            raise ValueError(f"sampler_cluster: bad plan {plan}")
+        lib = _build.load("sampler_cluster")
+        _bind_cluster(lib)
+        begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
+        err = lib.sampler_cluster_f32(*args, plan.CS, plan.RB, begin, stream)
+        name = "sampler_cluster"
+    else:
+        lib = _build.load("sampler_decode")
+        _bind(lib)
+        err = lib.sampler_decode_f32(*args, stream)
+        name = "sampler_decode"
     if err != 0:
-        raise RuntimeError(f"sampler_decode launch failed: CUDA error {err}")
-    return codes, logits
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return codes, logits, "cluster" if use_cluster else "decode"
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -501,7 +707,8 @@ def _device_type(t: torch.Tensor) -> str:
 def decode(packed: PackedSampler, config: WaveNetConfig,
            ring: torch.Tensor, causal: torch.Tensor, forced: torch.Tensor,
            n_total: int, t0: int, seed: int, temperature: float = 1.0,
-           collect_logits=False, next_amp: Optional[torch.Tensor] = None):
+           collect_logits=False, next_amp: Optional[torch.Tensor] = None,
+           *, kernel: str = "auto"):
     """Run ``n_total`` decode steps for every row in one kernel launch.
 
     ``ring`` [sum_d, B, R] and ``causal`` [B, (kw_in-1)*C_in] (float32)
@@ -516,26 +723,33 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     receives the amplitude of the input after the last step, as this
     launch computed it (what a resumed launch must start from).
 
-    CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
-    or raise.
+    CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
+    (``kernel``: "auto" routes by ``cluster_plan``, "cluster" and
+    "decode" pin one) or raise.
     """
+    _check_kernel(kernel)
     if _device_type(ring) == "cpu":
         return decode_reference(packed, config, ring, causal, forced,
                                 n_total, t0, seed, temperature,
                                 collect_logits, next_amp)
-    out = _launch(packed, config, ring, causal, forced, n_total, t0, seed,
-                  temperature, collect_logits, next_amp)
+    codes, logits, used = _launch(
+        packed, config, ring, causal, forced, n_total, t0, seed,
+        temperature, collect_logits, next_amp, kernel=kernel)
     decode.launches += 1
-    return out
+    decode.launches_by[used] += 1
+    return codes, logits
 
 
-#: Kernel launches made by ``decode`` (read by chip_smoke.py).
+#: Kernel launches made by ``decode``, in all and by kernel ("cluster",
+#: "decode"; read by chip_smoke.py).
 decode.launches = 0
+decode.launches_by = collections.Counter()
 
 
 def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
                       forced: torch.Tensor, n_total: int, seed: int,
-                      temperature: float = 1.0, collect_logits=False):
+                      temperature: float = 1.0, collect_logits=False, *,
+                      kernel: str = "auto"):
     """Kernel 4's route: one launch from a zero ring and causal register.
 
     The whole forced prefix ``forced`` [B, n_forced] is stepped inside
@@ -543,22 +757,27 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
     sampled; the ring phase starts at step 0. Returns ``(codes, logits)``
     as :func:`decode`. This is what the JAX package's single-pass
     HBM-ring kernel computes (``generate_pallas(ring_in_hbm=True)``).
-    CPU tensors run ``decode_reference``; CUDA tensors launch the kernel
-    or raise.
+    CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
+    (``kernel`` as in :func:`decode`) or raise.
     """
+    _check_kernel(kernel)
     ring, causal = zero_state(config, forced.shape[0], forced.device)
     if _device_type(forced) == "cpu":
         return decode_reference(packed, config, ring, causal, forced,
                                 n_total, 0, seed, temperature,
                                 collect_logits)
-    out = _launch(packed, config, ring, causal, forced, n_total, 0, seed,
-                  temperature, collect_logits)
+    codes, logits, used = _launch(
+        packed, config, ring, causal, forced, n_total, 0, seed, temperature,
+        collect_logits, kernel=kernel)
     decode_sequential.launches += 1
-    return out
+    decode_sequential.launches_by[used] += 1
+    return codes, logits
 
 
-#: Kernel launches made by ``decode_sequential`` (read by chip_smoke.py).
+#: Kernel launches made by ``decode_sequential``, in all and by kernel
+#: (read by chip_smoke.py).
 decode_sequential.launches = 0
+decode_sequential.launches_by = collections.Counter()
 
 
 def _check_generation(config: WaveNetConfig, weight_dtype) -> None:

@@ -3,9 +3,9 @@
 
 The JAX package tries an ordered ladder of Pallas variants and falls
 back to its ``lax.scan`` sampler when one fails to compile. The port
-keeps the ladder's first rung only: prefill + one launch of the
-``sampler_decode`` kernel (``generate_cuda``), which serves any batch
-size in one launch. On a GPU a failure raises; there is no fallback. On
+keeps the ladder's first rung only: prefill + one launch of a decode
+kernel (``generate_cuda``: ``sampler_cluster`` or ``sampler_decode``, as
+``cluster_plan`` routes), which serves any batch size in one launch. On a GPU a failure raises; there is no fallback. On
 the CPU the same call runs the kernel's plain version
 (``decode_reference``), because the tensors lie there. ``sampler="scan"``
 runs the scan sampler of ``wavenet_torch.sample``.
@@ -19,7 +19,7 @@ import torch
 def sampler_name(device) -> str:
     """What the CLI's and the server's generation runs on ``device``."""
     if getattr(device, "type", str(device)) == "cuda":
-        return "CUDA (prefill + sampler_decode kernel)"
+        return "CUDA (prefill + sampler_cluster/sampler_decode kernel)"
     return "PyTorch reference (prefill + decode_reference)"
 
 
