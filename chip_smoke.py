@@ -6,22 +6,26 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode``, ``sampler_cluster``, ``fused_stack``,
+   the ``sampler_decode``, ``sampler_cluster``, ``sampler_tiles``,
+   ``fused_stack``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
-2. The two decode kernels against plain, teacher-forced, at full width
-   (the paper config at b1, the gc config at b1, b4, b64, b120 and b512), with
+2. The three decode kernels against plain, teacher-forced, at full width
+   (the paper config at b1, the gc config at b1, b4, b64, b120, b128, b256
+   and b512), with
    seeded non-zero biases: prefill ~3.5k random codes, teacher-force 256
    more steps, and hold each kernel's logits, ring and causal state
    against ``decode_reference`` on the card (rtol 1e-4, atol 1e-4:
    another summation order over K <= 512), and at B <= 4 against the
    parallel ``forward_codes``. ``sampler_decode`` runs at every case,
    ``sampler_cluster`` at every case where ``cluster_plan`` routes to it,
-   each pinned; their teacher-forced codes are equal. Times a decode step
-   of both kernels and of the plain version in the same run (paper b1,
-   gc b1, gc b64, gc b120; sampler_decode alone at gc b512), and checks
-   that the kernel the route takes is the faster at each.
+   ``sampler_tiles`` where ``tile_plan`` does (gc b128, b256, b512), each
+   pinned; their teacher-forced codes are equal. Times a decode step of
+   the kernels and of the plain version in the same run (paper b1, gc b1,
+   gc b64, gc b120: cluster and decode; gc b128, b256, b512: tiles and
+   decode), and checks that the kernel the route takes is the fastest at
+   each.
 3. Sampling exactness on the route as it stands (``kernel="auto"``): a
    512-step free run, replayed by ``decode_reference`` teacher-forced on
    its codes with the same Philox noise (>= 99.9% equal, every mismatch a
@@ -31,7 +35,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    a localhost HTTP server answers /healthz, /generate at b1 (paper and
    gc config) and /generate_batch at b64 and b512; the launch counts show
    which kernel served every request (the cluster kernel at b1 and b64,
-   ``sampler_decode`` at b512).
+   the tiles kernel at b512), and CUDA events around each launch give the
+   seconds of a request spent in the kernel (``decode_s``).
 5. Training (the main path of training), through the ``fused_stack``
    kernel pair: its forward and backward against their plain versions at
    the paper and gc configs, b8 x (receptive field + 16,000) audio
@@ -59,8 +64,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    timed (both kernels at b1 and at the largest batch the route sends
    to the cluster kernel, the routed one the faster), with a probe of the kernel's own next amplitude (``next_amp``)
    against ``decode_amp`` on the card; then ``python -m wavenet_torch.cli.generate`` from phase 5's gc
-   checkpoint (b1 and b64 x 16,000 samples, ``--save_every`` equal to the
-   single run, ``--wav_seed``, ``--fast_generation false``) and from
+   checkpoint (b1 and b64 x 16,000 samples, b128 x 4,000 on the tiles
+   kernel, ``--save_every`` equal to the single run, ``--wav_seed``,
+   ``--fast_generation false``) and from
    seeded paper and wide checkpoints (the scalar-input wide one in
    ``--save_every`` segments too, equal to its single run); last, the
    main path of kernel 4: ``generate_cuda(prefill=False)`` three times
@@ -115,14 +121,18 @@ SERVE_BATCH_SIZES = (1, 64, 512)
 # timed on, with the decode steps of one timed launch.
 # gc b120 is the top of the cluster kernel's range on an H100 (15 clusters
 # of 8 rows).
+# gc b128, b256 and b512 run the tiles kernel (the server's
+# /generate_batch shapes).
 TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 120),
-                 ("gc", 512))
+                 ("gc", 128), ("gc", 256), ("gc", 512))
 TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
-               ("gc", 120): 1024, ("gc", 512): 256}
-KERNELS = ("sampler_decode", "sampler_cluster", "fused_stack",
-           "fused_stack_carry", "dilated_layer")
+               ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
+               ("gc", 512): 512}
+KERNELS = ("sampler_decode", "sampler_cluster", "sampler_tiles",
+           "fused_stack", "fused_stack_carry", "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
-DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster"}
+DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
+                  "tiles": "sampler_tiles"}
 # Phase 6: kernel 4's route (sequential, from a zero ring).
 SEQ_CASES = (("paper", 1), ("paper", 64), ("wide", 1), ("wide", 64))
 SEQ_SAMPLES, SEQ_WINDOW, SEQ_TIMED_SAMPLES = 256, 300, 1024
@@ -273,7 +283,7 @@ def setup(c, B: int, rng, seed_len: int, extra: int):
 
 
 def phase_teacher_forced(cfgs, params, rng, gpu):
-    """Both decode kernels, pinned, against the plain version: results by
+    """The decode kernels, pinned, against the plain version: results by
     (kernel, config, batch)."""
     import torch
     from wavenet_torch.kernels import sampler as ks
@@ -283,7 +293,9 @@ def phase_teacher_forced(cfgs, params, rng, gpu):
     for name, B in TEACHER_CASES:
         c, p = cfgs[name], params[name]
         plan = ks.device_plan(c, B)
-        kernels = ("decode",) + (("cluster",) if plan else ())
+        tplan = ks.device_tile_plan(c, B)
+        kernels = (("decode",) + (("cluster",) if plan else ())
+                   + (("tiles",) if tplan else ()))
         codes, gc_ids = setup(c, B, rng, PREFILL, TEACHER_STEPS)
         gc_emb = None if gc_ids is None else embed_gc(p, c, gc_ids)
         carry = ks.prefill_carry(p, c, codes[:, :PREFILL], gc_ids)
@@ -327,8 +339,9 @@ def phase_teacher_forced(cfgs, params, rng, gpu):
             row = {"phase": "teacher_forced", "kernel": DECODE_SOURCES[kernel],
                    "config": name, "batch": B, "steps": TEACHER_STEPS,
                    "max_abs_err_vs_plain": err}
-            if kernel == "cluster":
-                row["plan"] = plan._asdict()
+            if kernel != "decode":
+                row["plan"] = (plan if kernel == "cluster" else
+                               tplan)._asdict()
             if full is not None:
                 err_f = (lg_k - full).abs().max().item()
                 check(torch.allclose(lg_k, full, rtol=1e-4, atol=1e-4),
@@ -352,24 +365,25 @@ def phase_teacher_forced(cfgs, params, rng, gpu):
                     bound_ms=bound, bound_by=by)
             row["gpu"] = gpu
             emit(row)
-        if "cluster" in emitted:
-            check(torch.equal(emitted["cluster"], emitted["decode"]),
-                  f"{name} B={B}: the two kernels' teacher-forced codes "
-                  "differ")
-            if timed:
-                check_route_is_faster(results, name, B, "cluster")
+        for kernel in emitted:
+            check(torch.equal(emitted[kernel], emitted["decode"]),
+                  f"{name} B={B}: {DECODE_SOURCES[kernel]}'s teacher-forced "
+                  "codes differ from sampler_decode's")
+        if timed and len(kernels) > 1:
+            check_route_is_faster(results, name, B, kernels[-1])
     return results
 
 
 def check_route_is_faster(timed, name, B, routed: str) -> None:
-    """The kernel the route takes at (name, B) is the faster of the two,
-    as the same run timed them (keys (kernel, name, B))."""
-    ms = {k: timed[(k, name, B)]["ms"] for k in DECODE_SOURCES}
-    other = "decode" if routed == "cluster" else "cluster"
-    check(ms[routed] < ms[other],
-          f"{name} B={B}: the route takes {DECODE_SOURCES[routed]} "
-          f"({ms[routed]:.5f} ms/step), {DECODE_SOURCES[other]} is faster "
-          f"({ms[other]:.5f})")
+    """The kernel the route takes at (name, B) is the fastest of those the
+    same run timed there (keys (kernel, name, B))."""
+    ms = {k: timed[(k, name, B)]["ms"] for k in DECODE_SOURCES
+          if (k, name, B) in timed}
+    for other, t in ms.items():
+        check(other == routed or ms[routed] < t,
+              f"{name} B={B}: the route takes {DECODE_SOURCES[routed]} "
+              f"({ms[routed]:.5f} ms/step), {DECODE_SOURCES[other]} is "
+              f"faster ({t:.5f})")
 
 
 def phase_sampling(c, params, rng):
@@ -450,7 +464,30 @@ def post(url, payload):
         return json.loads(resp.read())
 
 
+@contextlib.contextmanager
+def launch_events(ks):
+    """CUDA events around every decode launch made inside the block (on
+    the stream each launch runs on): the list of (start, end) pairs."""
+    import torch
+    events, launch = [], ks._launch
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+    ks._launch = timed
+    try:
+        yield events
+    finally:
+        ks._launch = launch
+
+
 def phase_serving(cfgs, gpu):
+    import torch
     from wavenet_torch.kernels import sampler as ks
     from wavenet_torch.params import save_npz
     from wavenet_torch.serve import GenerationService
@@ -490,9 +527,12 @@ def phase_serving(cfgs, gpu):
         for name, path, payload, B in requests:
             before = ks.decode.launches
             before_by = dict(ks.decode.launches_by)
-            t = time.perf_counter()
-            body = post(servers[name][1] + path, payload)
-            dt = time.perf_counter() - t
+            with launch_events(ks) as events:
+                t = time.perf_counter()
+                body = post(servers[name][1] + path, payload)
+                dt = time.perf_counter() - t
+            torch.cuda.synchronize()
+            decode_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
             n = payload["samples"]
             codes = body["codes"]
             rows = [codes] if B == 1 else codes
@@ -509,7 +549,8 @@ def phase_serving(cfgs, gpu):
             emit({"phase": "serving", "config": name, "endpoint": path,
                   "batch": B, "samples": n, "seconds": dt,
                   "samples_per_s": B * n / dt, "kernel_launches": delta,
-                  "kernel": DECODE_SOURCES[kernel], "gpu": gpu})
+                  "kernel": DECODE_SOURCES[kernel], "decode_s": decode_s,
+                  "outside_decode_s": dt - decode_s, "gpu": gpu})
         launches["by_kernel"] = dict(ks.decode.launches_by)
     finally:
         for httpd, _ in servers.values():
@@ -1174,6 +1215,7 @@ def phase_generate_cli(cfgs, params, gc_ckpt, gc_pfile, gpu):
     runs = [  # (label, model, batch, samples, extra flags, decode launches)
         ("b1", "gc", 1, GEN_SAMPLES, [], 1),
         ("b64", "gc", 64, GEN_SAMPLES, [], 1),
+        ("b128", "gc", 128, 4000, [], 1),
         ("save_every", "gc", 1, GEN_SAMPLES, ["--save_every", "4000"], 4),
         ("wav_seed", "gc", 1, 4000, ["--wav_seed", seed_wav], 1),
         ("slow", "gc", 1, 36, ["--fast_generation", "false"], 0),
@@ -1872,8 +1914,10 @@ def main() -> int:
     launches = phase_serving(cfgs, gpu)
     missing = [B for B in SERVE_BATCH_SIZES if not launches.get(B)]
     check(not missing, f"no kernel launch at batch sizes {missing}")
-    check(all(launches["by_kernel"].get(k) for k in DECODE_SOURCES),
-          f"serving launched {launches['by_kernel']}: not both kernels")
+    check(launches["by_kernel"].get("cluster")
+          and launches["by_kernel"].get("tiles"),
+          f"serving launched {launches['by_kernel']}: not the cluster "
+          "kernel (b1, b64) and the tiles kernel (b512)")
 
     # Phase 5: training, the main path of training.
     stack = phase_stack_kernels(cfgs, params, rng, gpu)
@@ -1891,7 +1935,8 @@ def main() -> int:
     gen_launches = phase_generate_cli(gen_cfgs, gen_params, gc_ckpt,
                                       gc_pfile, gpu)
     check(all(gen_launches.get(k) for k in DECODE_SOURCES),
-          f"the generate CLI launched {gen_launches}: not both kernels")
+          f"the generate CLI launched {gen_launches}: not all three "
+          "decode kernels")
     seq_main = phase_sequential_main_path(gen_cfgs, gen_params, rng, gpu)
 
     # Phase 7: the retired training stacks (TPU kernels 6-8).
@@ -1912,9 +1957,11 @@ def main() -> int:
           "script_seconds": time.perf_counter() - t_start})
 
     # library_ms is null: no single PyTorch call computes a decode step.
-    # Each row's launches are its kernel's on the serving path (phase 4:
-    # the cluster kernel at b1 and b64, sampler_decode at b512); the times
-    # of both kernels are phase 2's, pinned, in this run.
+    # The cluster and tiles rows' launches are their kernel's on the serving
+    # path (phase 4: the cluster kernel at b1 and b64, the tiles kernel at
+    # b512); sampler_decode's are on the generate CLI's path (phase 6: its
+    # wide b64 run), since serving no longer takes it. The times of every
+    # kernel are phase 2's, pinned, in this run.
     served = launches["by_kernel"]
     kernels = []
     m = measured[("cluster", "paper", 1)]
@@ -1952,11 +1999,27 @@ def main() -> int:
             "name": f"sampler_decode_b{B}", "route": "cuda",
             "source": "wavenet_torch/csrc/sampler_decode.cu",
             "replaces": where, "config": name, "batch": B,
-            "launches": served["decode"], "max_abs_err": m["max_abs_err"],
+            "launches": gen_launches["decode"],
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "unit": "per decode step", "pinned": True,
+            "gpu": gpu})
+    # The tiles kernel (TPU kernels 2 and 3 redesigned), pinned in phase 2
+    # at the server's batch shapes; b512 is the route's serving shape.
+    for B, where in ((128, "wavenet_tpu/kernels/sampler.py:1308"),
+                     (256, "wavenet_tpu/kernels/sampler.py:1308"),
+                     (512, "wavenet_tpu/kernels/sampler_packed.py:142")):
+        m = measured[("tiles", "gc", B)]
+        kernels.append({
+            "name": f"sampler_tiles_b{B}", "route": "cuda",
+            "source": "wavenet_torch/csrc/sampler_tiles.cu",
+            "replaces": where, "config": "gc", "batch": B,
+            "launches": served["tiles"], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "unit": "per decode step",
-            "pinned": B != 512,
+            "sampler_decode_ms": measured[("decode", "gc", B)]["ms"],
             "gpu": gpu})
     # library_ms is null: no single PyTorch call computes a dilated stack
     # (or its VJP); cuDNN's dilated conv covers one layer's taps only.

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
-their prefill and sequential routes, mu-law and scalar input, and the
-route between them; ``fused_stack``;
+their prefill and sequential routes, mu-law and scalar input,
+``sampler_tiles`` at the paper/gc widths, and the route between them;
+``fused_stack``;
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
 ``matvec_probe`` of ``wavenet_torch.tools``) against their plain versions,
@@ -664,6 +665,9 @@ def _cluster_case(width, B, seed=0):
         c = WaveNetConfig(**WIDE_SMALL)
     elif width == "paper":
         c = gc_config(gc_cardinality=8)
+    elif width == "paper_nogc":
+        from wavenet_torch.models.config import paper_config
+        c = paper_config()
     else:
         c = WaveNetConfig(**SMALL)
     params = _seeded_params(c, seed)
@@ -675,8 +679,8 @@ def _cluster_case(width, B, seed=0):
     else:
         x = torch.as_tensor(rng.randint(0, c.quantization_channels, (B, 100)),
                             dtype=torch.int32, device="cuda")
-        gids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
-                               device="cuda")
+        gids = (torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                                device="cuda") if c.gc_enabled else None)
     carry = ks.prefill_carry(params, c, x[:, :70], gids)
     packed = ks.pack_sampler_weights(
         params, c, B, None if gids is None else embed_gc(params, c, gids))
@@ -893,21 +897,24 @@ def test_cluster_wrapper_rejects_bad_inputs(setup):
 
 @pytest.mark.gpu
 def test_decode_routes_by_the_plan(setup):
-    """``kernel="auto"``: the cluster kernel at paper b1, sampler_decode at
-    b512, as ``cluster_plan`` says on this device."""
-    from wavenet_torch.models.config import paper_config
+    """``kernel="auto"``: the cluster kernel at paper b1, the tiles kernel
+    at b512 and sampler_decode at the wide config's b64, as ``cluster_plan``
+    and ``tile_plan`` say on this device."""
+    from wavenet_torch.models.config import paper_config, wide_config
     c = paper_config()
     params = _seeded_params(c)
-    for B, want in ((1, "cluster"), (512, "decode")):
-        assert (ks.device_plan(c, B) is None) == (want == "decode")
+    for B, want in ((1, "cluster"), (512, "tiles")):
+        assert (ks.device_plan(c, B) is None) == (want == "tiles")
+        assert (ks.device_tile_plan(c, B) is None) == (want == "cluster")
         before = dict(ks.decode.launches_by)
         codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B)
         torch.cuda.synchronize()
         after = dict(ks.decode.launches_by)
-        assert after.get(want, 0) == before.get(want, 0) + 1
-        other = "decode" if want == "cluster" else "cluster"
-        assert after.get(other, 0) == before.get(other, 0)
+        for k in ("cluster", "tiles", "decode"):
+            assert after.get(k, 0) == before.get(k, 0) + (k == want), k
         assert codes.shape == (B, 8)
+    assert ks.device_plan(wide_config(), 64) is None
+    assert ks.device_tile_plan(wide_config(), 64) is None
 
 
 @pytest.mark.gpu
@@ -934,7 +941,7 @@ def test_cluster_kernel_at_the_top_of_its_range(setup, B, RB):
 @pytest.mark.gpu
 def test_auto_route_rows_across_the_kernel_boundary(setup):
     """``kernel="auto"`` at the gc widths: b1 and the largest B the plan
-    sends to the cluster kernel run it, the next B runs sampler_decode.
+    sends to the cluster kernel run it, the next B runs the tiles kernel.
     Within the cluster kernel's range row 0 is bitwise the same; across the
     boundary the two kernels' sums differ in the last bits, so row 0's
     logits agree within TOL up to the first code that differs, and that
@@ -958,7 +965,7 @@ def test_auto_route_rows_across_the_kernel_boundary(setup):
 
     s, ls = run(1, "cluster")
     lo, llo = run(hi - 1, "cluster")
-    d, ld = run(hi, "decode")
+    d, ld = run(hi, "tiles")
     assert torch.equal(s, lo) and torch.equal(ls, llo)
     differ = (s != d).nonzero()
     t = differ[0, 0].item() if len(differ) else n - 1
@@ -990,3 +997,176 @@ def test_cluster_smem_bytes_match_the_kernel(setup, width):
                 c.quantization_channels, ks.causal_width(c), cs,
                 -(-c.num_layers // cs), rb)
             assert got == ks.cluster_smem_bytes(c, cs, rb), (cs, rb)
+
+
+# ---------------------------------------------------------------------------
+# sampler_tiles: the decode for b121 and up at the paper/gc widths, the
+# chain's weights in a cluster's shared memory, products register-tiled
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,B", [("paper", 128), ("paper", 240),
+                                     ("paper", 256), ("paper", 480),
+                                     ("paper", 512), ("paper_nogc", 512)],
+                         ids=["gc_b128", "gc_b240", "gc_b256", "gc_b480",
+                              "gc_b512", "paper_b512"])
+def test_tiles_kernel_matches_reference_teacher_forced(setup, width, B):
+    """gc b240 and b480 fill their clusters (16 and 32 rows, no padded
+    rows); the others leave rows of the padded tile empty."""
+    c, params, packed, carry, forced = _cluster_case(width, B)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    before = ks.decode.launches_by["tiles"]
+    kk, lk = ks.decode(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                       collect_logits=True, kernel="tiles")
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by["tiles"] == before + 1
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    torch.testing.assert_close(ck, cr, rtol=0, atol=0)
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [128, 512])
+def test_tiles_kernel_sampled_codes_replay(setup, B):
+    """A free run from a short forced prefix, replayed by the plain version
+    teacher-forced on the kernel's codes: the same logits, and the sampled
+    codes are the argmax of the plain logits plus the same noise (a
+    mismatch only at a near-tie)."""
+    c, params, packed, carry, forced = _cluster_case("paper", B)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    codes, lg = ks.decode(packed, c, rk, ck, forced[:, :3].contiguous(), 64,
+                          carry.t_abs, 9, collect_logits=True, kernel="tiles")
+    replay = torch.cat([forced[:, :3], codes[:, 2:-1]], dim=1).contiguous()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    _, lr = ks.decode_reference(packed, c, rr, cr, replay, 64, carry.t_abs,
+                                9, collect_logits=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lg, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    assert torch.equal(ck, cr)
+    noise = ks.gumbel_noise(9, B, carry.t_abs, 64, c.quantization_channels,
+                            "cuda").transpose(0, 1)
+    scores = (lr + noise)[:, 2:]
+    drawn = codes[:, 2:].long()
+    top = scores.max(dim=-1).values
+    margin = top - scores.gather(-1, drawn[..., None])[..., 0]
+    assert (margin < 1e-4).all(), margin.max().item()
+    assert (margin == 0).float().mean().item() > 0.999
+    assert len(torch.unique(codes)) > 8
+
+
+@pytest.mark.gpu
+def test_tiles_kernel_is_deterministic_and_per_row(setup):
+    """Same seed, same codes; rows 0-127 of b512 (35 rows a cluster) equal
+    b128 (9 rows a cluster) bit for bit."""
+    c, params, packed, carry, _ = _cluster_case("paper", 512)
+
+    def run(n):
+        ring = carry.ring[:, :n].clone(memory_format=torch.contiguous_format)
+        causal = carry.causal[:n].clone()
+        pk = packed._replace(layer_add=packed.layer_add[:, :n].contiguous())
+        return ks.decode(pk, c, ring, causal,
+                         carry.last[:n, None].contiguous(), 200,
+                         carry.t_abs, 17, collect_logits=16,
+                         kernel="tiles") + (ring, causal)
+
+    a, la, ra, ca = run(512)
+    b, lb, rb, cb = run(512)
+    s, ls, rs, cs = run(128)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(la, lb) and torch.equal(ra, rb)
+    assert torch.equal(ca, cb)
+    assert torch.equal(a[:128], s) and torch.equal(la[:128], ls)
+    assert torch.equal(ra[:, :128], rs) and torch.equal(ca[:128], cs)
+    assert len(torch.unique(a)) > 8
+
+
+@pytest.mark.gpu
+def test_tiles_segments_equal_one_run(setup):
+    """Three segments resumed from the ring, the causal register, t0 and
+    the last code (as ``--save_every`` runs them) equal one launch."""
+    c, params, packed, carry, _ = _cluster_case("paper", 256)
+    first = carry.last[:, None].contiguous()
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    full, _ = ks.decode(packed, c, ring, causal, first, 500, carry.t_abs, 4,
+                        kernel="tiles")
+    ring2, causal2 = carry.ring.clone(), carry.causal.clone()
+    outs, x, t = [], first, carry.t_abs
+    for n in (200, 150, 150):
+        seg, _ = ks.decode(packed, c, ring2, causal2, x, n, t, 4,
+                           kernel="tiles")
+        outs.append(seg)
+        x, t = seg[:, -1:].contiguous(), t + n
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    assert torch.equal(ring2, ring) and torch.equal(causal2, causal)
+
+
+@pytest.mark.gpu
+def test_tiles_kernel_logits_window(setup):
+    c, params, packed, carry, _ = _cluster_case("paper", 200)
+    first = carry.last[:, None].contiguous()
+    got = []
+    for window in (7, True):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        got.append(ks.decode(packed, c, ring, causal, first, 50, carry.t_abs,
+                             13, collect_logits=window, kernel="tiles"))
+    torch.cuda.synchronize()
+    (codes, win), (again, full) = got
+    assert torch.equal(codes, again)
+    assert win.shape == (200, 7, 256) and torch.equal(win, full[:, -7:])
+
+
+@pytest.mark.gpu
+def test_tiles_smem_bytes_match_the_kernel(setup):
+    """The plan's copy of the kernel's shared-memory formula against the
+    library's own, at every row count."""
+    from wavenet_torch.kernels import _build
+    lib = _build.load("sampler_tiles")
+    ks._bind_tiles(lib)
+    for rb in ks.TILE_ROWS:
+        assert lib.sampler_tiles_smem_bytes(rb) == ks.tile_smem_bytes(rb), rb
+
+
+@pytest.mark.gpu
+def test_tiles_wrapper_rejects_bad_inputs(setup):
+    c, params, packed, carry, forced = _cluster_case("paper", 130)
+    first = forced[:, :1].contiguous()
+    plan = ks.TilePlan(8, 9, ks.layer_split(30, 8))
+    with pytest.raises(ValueError, match="ring"):
+        ks.decode(packed, c, carry.ring.double(), carry.causal, first, 4,
+                  carry.t_abs, 0, kernel="tiles")
+    with pytest.raises(ValueError, match="forced"):
+        ks.decode(packed, c, carry.ring, carry.causal, first.long(), 4,
+                  carry.t_abs, 0, kernel="tiles")
+    for bad in (ks.TilePlan(4, 9, (0, 8, 16, 24, 30)),
+                ks.TilePlan(8, 36, plan.layer_begin),
+                ks.TilePlan(8, 9, (0, 8, 8, 12, 16, 20, 24, 28, 30))):
+        with pytest.raises(ValueError, match="bad plan"):
+            ks._launch(packed, c, carry.ring, carry.causal, first, 4,
+                       carry.t_abs, 0, 1.0, False, kernel="tiles", plan=bad)
+    with pytest.raises(ValueError, match="another kernel"):
+        ks._launch(packed, c, carry.ring, carry.causal, first, 4,
+                   carry.t_abs, 0, 1.0, False, kernel="tiles",
+                   plan=ks.ClusterPlan(8, 8, plan.layer_begin))
+    # A CTA of five layers (more than its shared memory holds): the kernel
+    # itself refuses the launch.
+    with pytest.raises(RuntimeError, match="sampler_tiles launch failed"):
+        ks._launch(packed, c, carry.ring, carry.causal, first, 4,
+                   carry.t_abs, 0, 1.0, 5, kernel="tiles",
+                   plan=ks.TilePlan(8, 9, (0, 5, 9, 13, 17, 21, 25, 29, 30)))
+    # Shapes outside the compiled one: no plan, and the kernel refuses them.
+    small = WaveNetConfig(**SMALL)
+    sp = _seeded_params(small)
+    pk = ks.pack_sampler_weights(sp, small, 2)
+    ring, causal = ks.zero_state(small, 2, "cuda")
+    x = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="no tiles plan"):
+        ks.decode(pk, small, ring, causal, x, 2, 0, 0, kernel="tiles")
+    with pytest.raises(RuntimeError, match="sampler_tiles launch failed"):
+        ks._launch(pk, small, ring, causal, x, 2, 0, 0, 1.0, False,
+                   kernel="tiles", plan=ks.TilePlan(8, 2, tuple(range(9))))

@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
               "experiments.fused_stack2", "experiments.dilated_layer",
               "kernels.fat", "kernels._launch", "tools",
               "tools.r2_fwd_bisect", "tools.r2_fwd_bisect2",
-              "tools.r3_b1_bisect", "tools.r4_matvec_probe"):
+              "tools.r3_b1_bisect", "tools.r4_matvec_probe",
+              "tools.tiles_variants"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

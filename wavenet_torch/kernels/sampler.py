@@ -24,24 +24,30 @@ is ``[sum_d, B, R]`` (no 128-lane padding), forced inputs are
 step order. The b1 transposed weights, batch chunking and the ring
 packing were TPU layouts and have no counterpart.
 
-Two CUDA kernels compute the decode, launched by the same wrappers:
+Three CUDA kernels compute the decode, launched by the same wrappers:
 ``csrc/sampler_cluster.cu`` keeps the fg and dense weights of the layer
 chain in the shared memory of a thread-block cluster (one cluster per
 group of rows; the JAX package's all-VMEM b1 kernel ``_sampler_kernel``
-is its TPU counterpart), and ``csrc/sampler_decode.cu`` streams every
-weight from L2 (one block per group of rows). ``cluster_plan`` decides
-which runs, before the launch, from the config, the batch size and the
-device: the cluster kernel wherever its weights fit and all its clusters
-are resident at once (paper/gc b1-b120 and wide b1-b28 on an H100),
-``sampler_decode`` elsewhere. ``kernel="cluster"`` or ``"decode"`` pins
+is its TPU counterpart); ``csrc/sampler_tiles.cu`` does the same for tens
+of rows a cluster at the paper/gc widths only, each thread owning a
+register tile of rows x columns (the JAX package's large-batch kernels
+``_sampler_kernel_hbm_stream`` and ``_decode_kernel_packed`` are its TPU
+counterparts); and ``csrc/sampler_decode.cu`` streams every weight from
+L2 (one block per group of rows). Before the launch, from the config, the
+batch size and the device, ``cluster_plan`` takes the cluster kernel
+wherever its weights fit and all its clusters are resident at once
+(paper/gc b1-b120 and wide b1-b28 on an H100), ``tile_plan`` takes the
+tiles kernel where the cluster kernel does not and the shape is its one
+compiled shape (paper/gc b121-b525 on an H100), and ``sampler_decode``
+runs elsewhere. ``kernel="cluster"``, ``"tiles"`` or ``"decode"`` pins
 one. Each kernel's sums have a fixed order, so a row's codes do not depend
-on the batch size within one kernel's range; the two kernels' orders
-differ in the last bits, so across the boundary (gc b120 and b128 on an
-H100) a near-tie can draw another code.
+on the batch size within one kernel's range; the kernels' orders differ in
+the last bits, so across a boundary (gc b120 and b121 on an H100) a
+near-tie can draw another code.
 
-``decode_reference`` is the plain PyTorch version of both kernels, with
-the same Philox4x32-10 noise; ``decode`` and ``decode_sequential`` use it
-only for CPU tensors.
+``decode_reference`` is the plain PyTorch version of the three kernels,
+with the same Philox4x32-10 noise; ``decode`` and ``decode_sequential``
+use it only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -536,7 +542,79 @@ def cluster_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
     return None
 
 
-KERNEL_CHOICES = ("auto", "cluster", "decode")
+class TilePlan(NamedTuple):
+    """How ``sampler_tiles`` splits a launch: clusters of ``CS`` (8) CTAs,
+    each serving ``RB`` rows; CTA k owns layers
+    ``layer_begin[k]:layer_begin[k + 1]``."""
+    CS: int
+    RB: int
+    layer_begin: Tuple[int, ...]
+
+
+#: The tiles kernel's cluster size, and the rows a cluster it takes (2 to
+#: 5 rows a thread over 8 row lanes): up to the 35 of gc b512 on an H100,
+#: the largest batch timed beside ``sampler_decode``.
+TILE_CS = 8
+TILE_ROWS = tuple(range(1, 36))
+
+
+def tile_shape(config: WaveNetConfig) -> bool:
+    """Whether ``config`` is the one shape ``sampler_tiles`` is compiled
+    for: the paper/gc widths (R = D = 32, S = 512, Q = 256), mu-law input,
+    filter width 2, no LC, 8 to 32 layers (at most 4 a CTA)."""
+    c = config
+    return (c.residual_channels == 32 and c.dilation_channels == 32
+            and c.skip_channels == 512 and c.quantization_channels == 256
+            and not c.scalar_input and c.filter_width == 2
+            and not c.lc_enabled and causal_width(c) == 256
+            and TILE_CS <= c.num_layers <= 4 * TILE_CS)
+
+
+def tile_smem_bytes(rb: int) -> int:
+    """Dynamic shared memory of one ``sampler_tiles`` CTA at ``rb`` rows a
+    cluster: the carve-up in the header of its source (``tiles_smem_bytes``
+    there, exported as ``sampler_tiles_smem_bytes`` for the card's tests to
+    hold this copy against). The rows are padded to 8 x rows a thread."""
+    rbp = 8 * (2 if rb <= 16 else -(-rb // 8))
+    per_cta = 4 * (2 * 32 * 2 * 32 + 32 * (32 + 4) + 32) + 2 * 4
+    per_row = (512 + 4) + (4 * 32 + 4) + 256 // 8 + 2 * 8 + 2
+    # outs and cur, or the head's 4 tiles of 1,024 floats over them.
+    stage = max(rbp * ((4 * 32 + 4) + (32 + 4)), 4 * 1024)
+    return 16 + 4 * (per_cta + rbp * per_row + stage)
+
+
+def tile_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
+              resident_clusters: Callable[[int, int, int], int],
+              cluster_resident: Callable[[int, int, int], int]
+              ) -> Optional[TilePlan]:
+    """The ``sampler_tiles`` launch for this config and batch on a device
+    with ``smem_optin`` bytes of shared memory per block that keeps
+    ``resident_clusters(8, RB, smem bytes a CTA)`` of its clusters resident
+    at once, or None.
+
+    None outside the kernel's compiled shape (``tile_shape``) and wherever
+    ``cluster_plan`` finds a launch with the device's count of the cluster
+    kernel's clusters (``cluster_resident``), so that b1-b120 keep
+    ``sampler_cluster`` and their codes. Else the fewest rows a cluster
+    that keep every cluster resident in one wave (15 clusters of 8 on an
+    H100: RB 9 at b121-b135, 35 at b512 and at the top, b525), and the
+    layer split ``layer_split(L, 8)``, which does not depend on B.
+    """
+    if (batch_size < 1 or not tile_shape(config)
+            or cluster_plan(config, batch_size, smem_optin,
+                            cluster_resident) is not None):
+        return None
+    for rb in TILE_ROWS:
+        nbytes = tile_smem_bytes(rb)
+        if nbytes > smem_optin:
+            return None
+        if -(-batch_size // rb) <= resident_clusters(TILE_CS, rb, nbytes):
+            return TilePlan(TILE_CS, rb,
+                            layer_split(config.num_layers, TILE_CS))
+    return None
+
+
+KERNEL_CHOICES = ("auto", "cluster", "tiles", "decode")
 
 
 def _bind(lib) -> None:
@@ -563,7 +641,71 @@ def _bind_cluster(lib) -> None:
     lib.sampler_cluster_max_clusters.restype = ctypes.c_int
 
 
-_RESIDENT = {}   # (device, CS, RB, smem bytes) -> resident clusters
+def _bind_tiles(lib) -> None:
+    fn = lib.sampler_tiles_f32
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+                   + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.sampler_tiles_smem_bytes.argtypes = [ctypes.c_int]
+    lib.sampler_tiles_smem_bytes.restype = ctypes.c_longlong
+    lib.sampler_tiles_max_clusters.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.sampler_tiles_max_clusters.restype = ctypes.c_int
+
+
+class _Device(NamedTuple):
+    """What the route reads of one CUDA device: its opt-in shared memory
+    per block, and ``resident(cs, rb, smem bytes)`` of either kernel, the
+    clusters it keeps resident at once."""
+    smem_optin: int
+    cluster_resident: Callable[[int, int, int], int]
+    tile_resident: Callable[[int, int, int], int]
+
+
+_DEVICES = {}    # CUDA device index -> _Device
+
+
+def _device(device) -> _Device:
+    """The route's reading of ``device`` (or the current CUDA device),
+    taken once per device; each count of resident clusters is taken at its
+    first use, and the tiles kernel's library is loaded only for its own."""
+    from wavenet_torch.kernels import _build
+    if device is not None:
+        torch.cuda.set_device(device)
+    dev = torch.cuda.current_device()
+    if dev in _DEVICES:
+        return _DEVICES[dev]
+    cluster_lib = _build.load("sampler_cluster")
+    _bind_cluster(cluster_lib)
+    smem = ctypes.c_int(0)
+    err = cluster_lib.sampler_cluster_smem_optin(ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"sampler_cluster: CUDA error {err} reading the "
+                           "device's attributes")
+    counts = {}
+
+    def count(kernel: str, cs: int, rb: int, nbytes: int) -> int:
+        key = (kernel, cs, rb, nbytes)
+        if key not in counts:
+            n = ctypes.c_int(0)
+            if kernel == "tiles":
+                lib = _build.load("sampler_tiles")
+                _bind_tiles(lib)
+                err = lib.sampler_tiles_max_clusters(rb, ctypes.byref(n))
+            else:
+                err = cluster_lib.sampler_cluster_max_clusters(
+                    cs, rb, nbytes, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"sampler_{kernel}: CUDA error {err} "
+                                   "counting resident clusters")
+            counts[key] = n.value
+        return counts[key]
+
+    _DEVICES[dev] = _Device(smem.value,
+                            lambda cs, rb, n: count("cluster", cs, rb, n),
+                            lambda cs, rb, n: count("tiles", cs, rb, n))
+    return _DEVICES[dev]
 
 
 def device_plan(config: WaveNetConfig, batch_size: int,
@@ -571,31 +713,17 @@ def device_plan(config: WaveNetConfig, batch_size: int,
     """``cluster_plan`` with the opt-in shared memory and the resident
     clusters of the current CUDA device (as ``sampler_cluster`` reads
     them)."""
-    from wavenet_torch.kernels import _build
-    lib = _build.load("sampler_cluster")
-    _bind_cluster(lib)
-    if device is not None:
-        torch.cuda.set_device(device)
-    dev = torch.cuda.current_device()
-    smem = ctypes.c_int(0)
-    err = lib.sampler_cluster_smem_optin(ctypes.byref(smem))
-    if err != 0:
-        raise RuntimeError(f"sampler_cluster: CUDA error {err} reading the "
-                           "device's attributes")
+    d = _device(device)
+    return cluster_plan(config, batch_size, d.smem_optin, d.cluster_resident)
 
-    def resident(cs: int, rb: int, nbytes: int) -> int:
-        key = (dev, cs, rb, nbytes)
-        if key not in _RESIDENT:
-            n = ctypes.c_int(0)
-            err = lib.sampler_cluster_max_clusters(cs, rb, nbytes,
-                                                   ctypes.byref(n))
-            if err != 0:
-                raise RuntimeError(f"sampler_cluster: CUDA error {err} "
-                                   "counting resident clusters")
-            _RESIDENT[key] = n.value
-        return _RESIDENT[key]
 
-    return cluster_plan(config, batch_size, smem.value, resident)
+def device_tile_plan(config: WaveNetConfig, batch_size: int,
+                     device=None) -> Optional[TilePlan]:
+    """``tile_plan`` with the opt-in shared memory of the current CUDA
+    device and its counts of resident clusters of either kernel."""
+    d = _device(device)
+    return tile_plan(config, batch_size, d.smem_optin, d.tile_resident,
+                     d.cluster_resident)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -616,12 +744,14 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             causal: torch.Tensor, forced: torch.Tensor, n_total: int,
             t0: int, seed: int, temperature: float, collect_logits,
             next_amp: Optional[torch.Tensor] = None, *,
-            kernel: str = "auto", plan: Optional[ClusterPlan] = None):
+            kernel: str = "auto", plan=None):
     """Check every operand and launch one decode kernel once on the
     current stream: ``sampler_cluster`` where ``kernel`` is "cluster", or
-    "auto" and ``cluster_plan`` (or the given ``plan``) finds a launch,
-    else ``sampler_decode``. Returns ``(codes, logits, kernel launched)``;
-    raises if the launch is refused."""
+    "auto" and ``cluster_plan`` finds a launch; ``sampler_tiles`` where
+    ``kernel`` is "tiles", or "auto" and ``tile_plan`` finds one; else
+    ``sampler_decode``. A given ``plan`` (a ``ClusterPlan`` or a
+    ``TilePlan``) replaces the device's. Returns ``(codes, logits, kernel
+    launched)``; raises if the launch is refused."""
     _check_kernel(kernel)
     c = config
     if c.filter_width != 2 or c.lc_enabled:
@@ -653,14 +783,24 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         _check("next_amp", next_amp, f32, (B,), dev)
 
     from wavenet_torch.kernels import _build
-    if kernel != "decode" and plan is None:
-        plan = device_plan(c, B, dev)
-        if plan is None and kernel == "cluster":
-            raise ValueError(
-                f"sampler_cluster: no cluster plan for this config at "
-                f"B={B} on {torch.cuda.get_device_name(dev)}")
-    use_cluster = kernel == "cluster" or (kernel == "auto"
-                                          and plan is not None)
+    if plan is None and kernel != "decode":
+        d = _device(dev)
+        if kernel in ("auto", "cluster"):
+            plan = cluster_plan(c, B, d.smem_optin, d.cluster_resident)
+        if plan is None and kernel in ("auto", "tiles"):
+            plan = tile_plan(c, B, d.smem_optin, d.tile_resident,
+                             d.cluster_resident)
+    if kernel == "decode":
+        plan = None
+    elif plan is None and kernel != "auto":
+        raise ValueError(
+            f"sampler_{kernel}: no {kernel} plan for this config at B={B} "
+            f"on {torch.cuda.get_device_name(dev)}")
+    used = ("decode" if plan is None else
+            "tiles" if isinstance(plan, TilePlan) else "cluster")
+    if kernel != "auto" and used != kernel:
+        raise ValueError(f"sampler_{kernel}: given a plan of another kernel, "
+                         f"{plan}")
     n_log = _n_log(collect_logits, n_total)
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=f32, device=dev)
@@ -676,26 +816,33 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             B, L, R, D, S, Q, n_total, n_forced, n_log, int(c.scalar_input),
             KC, int(t0), int(seed) & 0xFFFFFFFFFFFFFFFF,
             float(np.float32(1.0 / temperature)))
-    if use_cluster:
-        if (len(plan.layer_begin) != plan.CS + 1 or plan.layer_begin[0] != 0
-                or plan.layer_begin[-1] != L or S % plan.CS
-                or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS
-                or any(b <= a for a, b in zip(plan.layer_begin,
-                                              plan.layer_begin[1:]))):
+    if plan is not None and (
+            len(plan.layer_begin) != plan.CS + 1
+            or plan.layer_begin[0] != 0 or plan.layer_begin[-1] != L
+            or any(b <= a for a, b in zip(plan.layer_begin,
+                                          plan.layer_begin[1:]))):
+        raise ValueError(f"sampler_{used}: bad plan {plan}")
+    if used == "tiles":
+        if plan.CS != TILE_CS or plan.RB not in TILE_ROWS:
+            raise ValueError(f"sampler_tiles: bad plan {plan}")
+        lib = _build.load("sampler_tiles")
+        _bind_tiles(lib)
+        begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
+        err = lib.sampler_tiles_f32(*args, plan.CS, plan.RB, begin, stream)
+    elif used == "cluster":
+        if S % plan.CS or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS:
             raise ValueError(f"sampler_cluster: bad plan {plan}")
         lib = _build.load("sampler_cluster")
         _bind_cluster(lib)
         begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
         err = lib.sampler_cluster_f32(*args, plan.CS, plan.RB, begin, stream)
-        name = "sampler_cluster"
     else:
         lib = _build.load("sampler_decode")
         _bind(lib)
         err = lib.sampler_decode_f32(*args, stream)
-        name = "sampler_decode"
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return codes, logits, "cluster" if use_cluster else "decode"
+        raise RuntimeError(f"sampler_{used} launch failed: CUDA error {err}")
+    return codes, logits, used
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -724,8 +871,8 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     launch computed it (what a resumed launch must start from).
 
     CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
-    (``kernel``: "auto" routes by ``cluster_plan``, "cluster" and
-    "decode" pin one) or raise.
+    (``kernel``: "auto" routes by ``cluster_plan`` then ``tile_plan``;
+    "cluster", "tiles" and "decode" pin one) or raise.
     """
     _check_kernel(kernel)
     if _device_type(ring) == "cpu":
@@ -741,7 +888,7 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 
 
 #: Kernel launches made by ``decode``, in all and by kernel ("cluster",
-#: "decode"; read by chip_smoke.py).
+#: "tiles", "decode"; read by chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()
 

@@ -8,7 +8,10 @@ probe tools in ``tools/``).
 * ``r3_b1_bisect``: the b1 decode step with one part ablated
   (``tools/r3_b1_bisect.py``), ``csrc/b1_bisect.cu``;
 * ``r4_matvec_probe``: two forms of a dependent chain of 64-wide
-  products (``tools/r4_matvec_probe.py``), ``csrc/matvec_probe.cu``.
+  products (``tools/r4_matvec_probe.py``), ``csrc/matvec_probe.cu``;
+* ``tiles_variants`` (the port's own, no JAX counterpart):
+  ``csrc/sampler_tiles.cu`` beside its phase probe (SM clocks per phase),
+  timed in turns; GPU only, it prints JSON lines, not a table.
 
 Each module holds its kernel's wrapper (a plain PyTorch version of every
 variant, with the same signature, runs instead for CPU tensors) and a
