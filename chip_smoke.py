@@ -7,7 +7,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the ``sampler_decode``, ``sampler_cluster``, ``sampler_tiles``,
-   ``fused_stack``,
+   ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
@@ -37,20 +37,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
    which kernel served every request (the cluster kernel at b1 and b64,
    the tiles kernel at b512), and CUDA events around each launch give the
    seconds of a request spent in the kernel (``decode_s``).
-5. Training (the main path of training), through the ``fused_stack``
-   kernel pair: its forward and backward against their plain versions at
-   the paper and gc configs, b8 x (receptive field + 16,000) audio
-   (forward within 1e-4 * max|ref| + 1e-5, gradients within
-   2e-3 * max|ref| + 2e-4: another summation order, and the backward
-   rebuilds each layer's input by subtraction), bitwise-equal repeated
-   backward calls, one gc train step fused against plain, then
+5. Training (the main path of training), through the fused stack's two
+   kernel pairs (``fused_stack_mma``: 3xTF32 on the tensor cores, routed
+   at the paper/gc width; ``fused_stack``: FP32 cores, the narrower
+   widths): each forward and backward against the plain versions at the
+   paper and gc configs, b8 x (receptive field + 16,000) audio, and
+   ``fused_stack`` also at the tiny config (R = D = 16), b2 x (receptive
+   field + 4,000), the shape of its train CLI run below (forward
+   within 1e-4 * max|ref| + 1e-5, gradients within 2e-3 * max|ref| +
+   2e-4: another summation order, and the backward rebuilds each layer's
+   input by subtraction), bitwise-equal repeated calls, timed in
+   turns beside their bounds under the FP32 and the 3xTF32 peak with the
+   device ms of a call by kernel (the route must take the faster in each
+   direction); one gc train step
+   fused against plain, then
    ``python -m wavenet_torch.cli.train --use_pallas_stack`` on a
    synthesised 109-speaker corpus, decoded by the native C++ library
    (``wavenet_torch.data.native``): 8 steps with finite, falling loss and
-   the kernels launched every step (the ``kernels`` line's launches are
-   this run's), checkpoints 4 and 8, a resume to 10 (its 2 launches of
-   each counted apart), and a ``GenerationService`` that serves from the
-   last checkpoint.
+   the routed kernels launched every step (the ``kernels`` line's
+   launches are this run's), checkpoints 4 and 8, a resume to 10 (its 2
+   launches of each counted apart), a ``GenerationService`` that serves
+   from the last checkpoint, and 2 steps of the tiny config on
+   ``fused_stack``.
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -98,6 +106,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,7 +138,8 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
                ("gc", 512): 512}
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_tiles",
-           "fused_stack", "fused_stack_carry", "dilated_layer")
+           "fused_stack", "fused_stack_mma", "fused_stack_carry",
+           "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
 DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
                   "tiles": "sampler_tiles"}
@@ -142,6 +152,20 @@ TRAIN_BATCH, TRAIN_SAMPLES = 8, 16000
 TRAIN_STEPS, RESUME_STEPS = 8, 10
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+# The two stack kernels ("mma": csrc/fused_stack_mma.cu, 3xTF32 on the
+# tensor cores; "simt": csrc/fused_stack.cu, FP32 cores), the peak each
+# one's bound is taken at, and the rounds of (simt, mma, mma, simt).
+STACK_ROUTES = ("simt", "mma")
+STACK_PEAK = {"simt": "fp32", "mma": "tf32x3"}
+STACK_TIMED_ROUNDS = 3
+# Phase 5's run of the train CLI on fused_stack.cu, which keeps the widths
+# below 32: the repo's tiny config (10 layers, R = D = 16), its steps,
+# batch and sample size; phase 5 checks and times the kernel at that shape.
+NARROW_STEPS, NARROW_BATCH, NARROW_SAMPLES = 2, 2, 4000
+# Phase 5's stack shapes: config, batch, samples and the kernels timed.
+STACK_CASES = (("paper", TRAIN_BATCH, TRAIN_SAMPLES, STACK_ROUTES),
+               ("gc", TRAIN_BATCH, TRAIN_SAMPLES, STACK_ROUTES),
+               ("tiny", NARROW_BATCH, NARROW_SAMPLES, ("simt",)))
 # Each layer's (or batch row's) slice of a gradient, against its own
 # max |ref|; the measured worst over whole tensors is ~1e-6.
 SLICE_RTOL = 1e-4
@@ -613,14 +637,16 @@ GRAD_LEADS = (1, 1, 1, 2, 1)
 GRAD_NAMES = ("dx", "dw_fg", "dwd", "dadd", "dbd")
 
 
-def stack_inputs(c, params, rng):
-    """The stack's input and packed weights for a b8 train batch: the
-    causal layer of random codes, as ``forward_codes`` computes it."""
+def stack_inputs(c, params, rng, B: int = TRAIN_BATCH,
+                 samples: int = TRAIN_SAMPLES):
+    """The stack's input and packed weights for a train batch of B rows of
+    ``samples`` (the train CLI's shape): the causal layer of random codes,
+    as ``forward_codes`` computes it."""
     import torch
     import torch.nn.functional as F
     from wavenet_torch.kernels.fused_stack import pack_stack_weights
     from wavenet_torch.models.wavenet import embed_gc
-    B, T = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES - 1
+    T = c.receptive_field + samples - 1
     codes, gc_ids = setup(c, B, rng, T, 0)
     w = params["causal_filter"]
     x = F.embedding(codes.long(), w[1])
@@ -632,76 +658,128 @@ def stack_inputs(c, params, rng):
 
 
 def phase_stack_kernels(cfgs, params, rng, gpu):
-    """Fused stack forward and backward against the plain versions."""
+    """Both fused-stack kernels ("mma": 3xTF32 tensor cores, "simt": FP32
+    cores) against the plain versions, bitwise repeatable, timed in turns
+    (simt, mma, mma, simt) in each direction beside their bounds under the
+    FP32 and the 3xTF32 peak, with the device ms of one call by kernel; the
+    route must take the faster. At the paper and gc configs, b8, both
+    kernels; at the tiny config, at the tiny train CLI run's shape, the
+    simt kernel that the route gives it."""
+    import numpy as np
     import torch
     from wavenet_torch.kernels import fused_stack as fs
-    from wavenet_torch.utils.flops import bound_ms, fused_stack_cost
+    from wavenet_torch.models.config import tiny_config
+    from wavenet_torch.utils.flops import (H100_FP32_FLOPS,
+                                           H100_TF32X3_FLOPS, bound_ms,
+                                           fused_stack_cost)
 
+    cfgs = dict(cfgs, tiny=tiny_config())
+    params = dict(params, tiny=seeded_params(cfgs["tiny"], 3, "cuda"))
     results = {}
-    for name in ("paper", "gc"):
+    for name, B, samples, routes in STACK_CASES:
         c = cfgs[name]
         L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
-        args = stack_inputs(c, params[name], rng)
-        B, T = args[0].shape[:2]
+        args = stack_inputs(c, params[name], rng, B, samples)
+        T = args[0].shape[1]
         dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
                              device="cuda")
         dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
                              device="cuda")
         w_fg, wd, _, bd = args[1:]
-        out_k = fs.forward(*args, c)
         out_p = fs.fused_stack_forward_reference(*args, c)
         y, fg = out_p[0], out_p[1]
-        grads_k = fs.backward(y, dy, fg, dz, w_fg, wd, bd, c)
-        grads_k2 = fs.backward(y, dy, fg, dz, w_fg, wd, bd, c)
         grads_p = fs.fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd,
                                                     bd, c)
-        torch.cuda.synchronize()
+        routed = fs.stack_kernel_plan(c)
+        check(routed in routes, f"{name}: the route takes {routed}, which "
+              f"phase 5 does not time there")
         row = {"phase": "train_stack", "config": name, "batch": B,
-               "positions": T, "gpu": gpu}
-        worst = {"fwd": max(hold(row, n, a, b, FWD_RTOL, FWD_ATOL)
-                            for n, a, b in zip(("y", "fg", "z"), out_k,
-                                               out_p)),
-                 "bwd": max(hold(row, n, a, b, GRAD_RTOL, GRAD_ATOL, lead)
-                            for n, a, b, lead in zip(GRAD_NAMES, grads_k,
-                                                     grads_p, GRAD_LEADS))}
-        check(all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2)),
-              f"{name}: two backward calls on the same inputs differ")
-        row["bitwise_repeat_backward"] = True
+               "positions": T, "routed": routed, "gpu": gpu}
+        worst = {}
+        for k in routes:
+            out_k = [fs.forward(*args, c, kernel=k) for _ in range(2)]
+            grads_k = [fs.backward(y, dy, fg, dz, w_fg, wd, bd, c, kernel=k)
+                       for _ in range(2)]
+            torch.cuda.synchronize()
+            worst[("fwd", k)] = max(
+                hold(row, f"{n}_{k}", a, b, FWD_RTOL, FWD_ATOL)
+                for n, a, b in zip(("y", "fg", "z"), out_k[0], out_p))
+            worst[("bwd", k)] = max(
+                hold(row, f"{n}_{k}", a, b, GRAD_RTOL, GRAD_ATOL, lead)
+                for n, a, b, lead in zip(GRAD_NAMES, grads_k[0], grads_p,
+                                         GRAD_LEADS))
+            for kind, pair in (("forward", out_k), ("backward", grads_k)):
+                check(all(torch.equal(a, b) for a, b in zip(*pair)),
+                      f"{name} {k}: two {kind} calls on the same inputs "
+                      "differ")
+            row[f"bitwise_repeat_{k}"] = True
+            del out_k, grads_k
 
         timed = {
-            "fwd": (lambda: fs.forward(*args, c),
+            "fwd": (lambda k: fs.forward(*args, c, kernel=k),
                     lambda: fs.fused_stack_forward_reference(*args, c)),
-            "bwd": (lambda: fs.backward(y, dy, fg, dz, w_fg, wd, bd, c),
+            "bwd": (lambda k: fs.backward(y, dy, fg, dz, w_fg, wd, bd, c,
+                                          kernel=k),
                     lambda: fs.fused_stack_backward_reference(
                         y, dy, fg, dz, w_fg, wd, bd, c)),
         }
         for kind, (kern, plain) in timed.items():
             flops, nbytes = fused_stack_cost(c, B, T, backward=kind == "bwd")
-            bound, by = bound_ms(flops, nbytes)
-            ms_k, ms_p = median_cuda_ms(kern), median_cuda_ms(plain)
-            trace = device_breakdown(kern)
-            row.update({f"{kind}_ms": ms_k, f"{kind}_plain_ms": ms_p,
-                        f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
-                        f"{kind}_flops": flops, f"{kind}_bytes": nbytes,
-                        f"{kind}_gflop_per_s": flops / ms_k / 1e6,
-                        f"{kind}_device_kernels_per_call":
-                            trace["stack_kernels"] if trace else
-                            "not measured (no device events)"})
-            results[(name, kind)] = dict(
-                config=name, max_abs_err=worst[kind], ms=ms_k, plain_ms=ms_p,
-                bound_ms=bound, bound_by=by)
+            bounds = {"fp32": bound_ms(flops, nbytes, H100_FP32_FLOPS),
+                      "tf32x3": bound_ms(flops, nbytes, H100_TF32X3_FLOPS)}
+            ms = {k: [] for k in routes}
+            for _ in range(STACK_TIMED_ROUNDS):
+                for k in routes + routes[::-1]:
+                    ms[k].append(cuda_ms(lambda: kern(k)))
+            ms = {k: float(np.median(v)) for k, v in ms.items()}
+            ms_p = median_cuda_ms(plain)
+            check(all(ms[routed] <= v for v in ms.values()),
+                  f"{name} {kind}: the route takes {routed} "
+                  f"({ms[routed]:.5f} ms), the other kernel is faster "
+                  f"({ms})")
+            row.update({f"{kind}_plain_ms": ms_p, f"{kind}_flops": flops,
+                        f"{kind}_bytes": nbytes})
+            for label, (bound, by) in bounds.items():
+                row[f"{kind}_bound_ms_{label}"] = bound
+                row[f"{kind}_bound_by_{label}"] = by
+            for k in routes:
+                bound, by = bounds[STACK_PEAK[k]]
+                trace = device_breakdown(lambda: kern(k))
+                row.update({
+                    f"{kind}_ms_{k}": ms[k],
+                    f"{kind}_gflop_per_s_{k}": flops / ms[k] / 1e6,
+                    f"{kind}_device_ms_by_kernel_{k}":
+                        trace["by_kernel"] if trace else
+                        "not measured (no device events)"})
+                results[(name, kind, k)] = dict(
+                    config=name, batch=B, positions=T,
+                    max_abs_err=worst[(kind, k)], ms=ms[k], plain_ms=ms_p,
+                    bound_ms=bound, bound_by=by,
+                    bound_ms_fp32=bounds["fp32"][0],
+                    bound_ms_tf32x3=bounds["tf32x3"][0])
         emit(row)
-        del args, dy, dz, out_k, out_p, grads_k, grads_k2, grads_p
+        del args, dy, dz, out_p, grads_p
         torch.cuda.empty_cache()
     return results
 
 
 STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
+                 "fwd_mma_kernel", "bwd_da_mma_kernel", "bwd_dx_mma_kernel",
                  "reduce_partials_kernel")
 
 
+def kernel_base_name(name: str) -> str:
+    """The kernel's own name in a device event's demangled name, e.g.
+    ``fwd_layer_kernel`` of ``void (anonymous namespace)::
+    fwd_layer_kernel<32u, 32u>(float const*, ...)``."""
+    head = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""),
+                    maxsplit=1)[0].split("::")[-1].split()
+    return head[-1] if head else name
+
+
 def device_breakdown(fn):
-    """Device time of one call of ``fn`` by kernel family, the count of
+    """Device time of one call of ``fn`` by kernel family and by kernel
+    (``by_kernel``), the count of
     the fused stack's device kernels in it (``stack_kernels``), and the
     device's busy time against the wall time of the call (the profiler
     adds host overhead, so the idle share is an upper bound), from a
@@ -723,9 +801,12 @@ def device_breakdown(fn):
     fam = {"fused_stack_ms": 0.0, "gemm_ms": 0.0, "optimizer_ms": 0.0,
            "other_ms": 0.0}
     stack_kernels = 0
+    by_kernel = {}
     for name, start, end in spans:
         ms = (end - start) / 1e3
-        if any(k in name for k in STACK_KERNELS):
+        base = kernel_base_name(name)
+        by_kernel[base] = by_kernel.get(base, 0.0) + ms
+        if base in STACK_KERNELS:
             fam["fused_stack_ms"] += ms
             stack_kernels += 1
         elif "gemm" in name:
@@ -743,6 +824,7 @@ def device_breakdown(fn):
             busy_us += end - end_us
             end_us = end
     return dict(fam, kernels=len(spans), stack_kernels=stack_kernels,
+                by_kernel=by_kernel,
                 device_busy_ms=busy_us / 1e3,
                 wall_ms=wall_ms, idle_share=1.0 - busy_us / 1e3 / wall_ms)
 
@@ -763,7 +845,9 @@ def phase_train_step(c, params, rng, gpu):
         rng.randn(B, n).astype("float32"), device="cuda")
     gc_ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
                              device="cuda")
+    from wavenet_torch.kernels import fused_stack as fs
     out = {}
+    by_before = (dict(fs.forward.launches_by), dict(fs.backward.launches_by))
     for fused in (True, False):
         cfg = dataclasses.replace(c, use_pallas_stack=fused)
         leaves = {k: v.detach().clone().requires_grad_(True)
@@ -787,6 +871,15 @@ def phase_train_step(c, params, rng, gpu):
                           lambda: step(state, audio, gc_ids)[1]["loss"].item()))
         del state, leaves
         torch.cuda.empty_cache()
+    stack_by = {kind: {k: n - before.get(k, 0) for k, n in now.items()
+                       if n > before.get(k, 0)}
+                for kind, before, now in zip(
+                    ("fwd", "bwd"), by_before,
+                    (fs.forward.launches_by, fs.backward.launches_by))}
+    routed = fs.stack_kernel_plan(c)
+    check(set(stack_by["fwd"]) == {routed} and set(stack_by["bwd"]) == {routed},
+          f"train step: the fused stack ran {stack_by}, not the routed "
+          f"{routed}")
     (lf, gf, ms_f, bd_f), (lp, gp, ms_p, bd_p) = out[True], out[False]
     check(abs(lf - lp) <= 1e-5 * abs(lp),
           f"train step: fused loss {lf} differs from plain {lp}")
@@ -798,6 +891,7 @@ def phase_train_step(c, params, rng, gpu):
     emit({"phase": "train_step", "config": "gc", "batch": B,
           "audio_samples": n, "loss_fused": lf, "loss_plain": lp,
           "max_grad_err_over_max_ref": worst, "step_ms_fused": ms_f,
+          "stack_launches_by": stack_by,
           "step_ms_plain": ms_p,
           "device_fused": bd_f or "not measured (no device events)",
           "device_plain": bd_p or "not measured (no device events)",
@@ -837,10 +931,14 @@ def run_cli(argv):
 
 
 def phase_train_cli(c, gpu):
-    """The main path of training: the train CLI with --use_pallas_stack."""
+    """The main path of training: the train CLI with --use_pallas_stack
+    (the routed stack kernel), its resume and a server from its last
+    checkpoint; then a short run of the tiny config (R = D = 16:
+    ``fused_stack.cu``)."""
     from wavenet_torch import train_lib as tl
     from wavenet_torch.kernels import fused_stack as fs
     from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.config import tiny_config
     from wavenet_torch.serve import GenerationService
     from wavenet_torch.utils.flops import train_step_flops
 
@@ -862,13 +960,21 @@ def phase_train_cli(c, gpu):
     from wavenet_torch.data import native
     check(native.available(), "the native data library did not load")
     decoded = native.read_wav.calls
+    routed = fs.stack_kernel_plan(c)
     fs.forward.launches = fs.backward.launches = 0   # the main path
+    fs.forward.launches_by.clear()
+    fs.backward.launches_by.clear()
     t0 = time.perf_counter()
     out = run_cli(argv + ["--num_steps", str(TRAIN_STEPS)])
     seconds = time.perf_counter() - t0
     decoded = native.read_wav.calls - decoded
     check(decoded > 0, "the train CLI's reader decoded no file natively")
     launches = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
+    launches_by = {"fwd": dict(fs.forward.launches_by),
+                   "bwd": dict(fs.backward.launches_by)}
+    check(all(v == {routed: TRAIN_STEPS} for v in launches_by.values()),
+          f"the train CLI ran the stack kernels {launches_by}, not "
+          f"{routed} every step")
     lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
     losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in lines]
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss lines")
@@ -895,19 +1001,25 @@ def phase_train_cli(c, gpu):
           "model_tflop_per_s": flops / sec_per_step / 1e12,
           "fused_stack_fwd_launches": launches["fwd"],
           "fused_stack_bwd_launches": launches["bwd"],
+          "stack_kernel": routed, "stack_launches_by": launches_by,
           "native_decoder": native.library_path(),
           "files_decoded_natively": decoded, "gpu": gpu})
 
     # The resume is a run of its own: its launches are counted apart.
     fs.forward.launches = fs.backward.launches = 0
+    fs.forward.launches_by.clear()
+    fs.backward.launches_by.clear()
     out = run_cli(argv + ["--num_steps", str(RESUME_STEPS)])
     check(f"Restored model from step {TRAIN_STEPS}" in out,
           "the rerun did not restore from the last checkpoint")
     check(f"step {RESUME_STEPS} - loss = " in out, "the rerun did not train")
     resumed = {"fwd": fs.forward.launches, "bwd": fs.backward.launches}
     n = RESUME_STEPS - TRAIN_STEPS
-    check(resumed["fwd"] == n and resumed["bwd"] == n,
-          f"fused_stack launches in the resume {resumed}, expected {n} each")
+    check(resumed["fwd"] == n and resumed["bwd"] == n
+          and fs.forward.launches_by[routed] == n
+          and fs.backward.launches_by[routed] == n,
+          f"fused_stack launches in the resume {resumed}, expected {n} "
+          f"each of {routed}")
     check(tl.latest_checkpoint_step(logdir) == RESUME_STEPS,
           "no checkpoint of the resumed run")
 
@@ -932,7 +1044,38 @@ def phase_train_cli(c, gpu):
           "steps": RESUME_STEPS, "generated": len(codes),
           "resume_fused_stack_fwd_launches": resumed["fwd"],
           "resume_fused_stack_bwd_launches": resumed["bwd"], "gpu": gpu})
-    return launches, os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile
+
+    # The FP32-core kernel keeps the widths below 32: the train CLI at the
+    # repo's tiny config (R = D = 16) runs it every step, at the shape
+    # phase 5 checks and times it.
+    narrow = tiny_config()
+    check(fs.stack_kernel_plan(narrow) == "simt",
+          "the route does not send R = D = 16 to fused_stack.cu")
+    nfile = os.path.join(tmp, "tiny_params.json")
+    with open(nfile, "w") as f:
+        json.dump(narrow.to_json_dict(), f)
+    nargv = ["--data_dir", corpus, "--wavenet_params", nfile,
+             "--logdir", os.path.join(tmp, "tiny"), "--use_pallas_stack",
+             "--batch_size", str(NARROW_BATCH), "--sample_size",
+             str(NARROW_SAMPLES),
+             "--num_steps", str(NARROW_STEPS), "--checkpoint_every",
+             str(NARROW_STEPS), "--seed", "0", "--device", "cuda"]
+    fs.forward.launches_by.clear()
+    fs.backward.launches_by.clear()
+    out = run_cli(nargv)
+    narrow_by = {"fwd": dict(fs.forward.launches_by),
+                 "bwd": dict(fs.backward.launches_by)}
+    check(all(v == {"simt": NARROW_STEPS} for v in narrow_by.values()),
+          f"the tiny train CLI ran the stack kernels {narrow_by}, not "
+          f"simt every step")
+    check(f"step {NARROW_STEPS} - loss = " in out, "the tiny train CLI run "
+          "did not train")
+    emit({"phase": "train_cli_narrow", "config": "tiny",
+          "residual_channels": narrow.residual_channels,
+          "batch": NARROW_BATCH, "sample_size": NARROW_SAMPLES,
+          "steps": NARROW_STEPS, "stack_launches_by": narrow_by, "gpu": gpu})
+    return ({"main": launches_by, "narrow": narrow_by},
+            os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
 
 
 def seq_prefix(c, B: int, rng):
@@ -1635,7 +1778,7 @@ def phase_fwd_bisect(c, params, rng, gpu):
 
     args = stack_inputs(c, params, rng)
     B, T = args[0].shape[:2]
-    want = fs.forward(*args, c)
+    want = fs.forward(*args, c, kernel="simt")
     got = r2.fwd_bisect(*args, c, "full")
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -2022,19 +2165,38 @@ def main() -> int:
             "sampler_decode_ms": measured[("decode", "gc", B)]["ms"],
             "gpu": gpu})
     # library_ms is null: no single PyTorch call computes a dilated stack
-    # (or its VJP); cuDNN's dilated conv covers one layer's taps only.
-    for kind, line in (("fwd", 105), ("bwd", 276)):
-        m = stack[("gc", kind)]
-        kernels.append({
-            "name": f"fused_stack_{kind}", "route": "cuda",
-            "source": "wavenet_torch/csrc/fused_stack.cu",
-            "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
-            "config": m["config"], "batch": TRAIN_BATCH,
-            "launches": train_launches[kind],
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
-            "unit": "per call (one train step's stack)", "gpu": gpu})
+    # (or its VJP); cuDNN's dilated conv covers one layer's taps only. Each
+    # kernel's row is measured (phase 5) at the shape of the train CLI run
+    # whose route takes it, and its launches are that run's: fused_stack_mma
+    # at gc b8 (the main run), fused_stack at the tiny config's b2 run. Its
+    # bound is at the peak of its products' type (FP32 cores, or 3xTF32 on
+    # the tensor cores). The simt rows also carry phase 5's gc b8 timing,
+    # where the route's two kernels are compared.
+    for k, src, run in (("simt", "fused_stack", "narrow"),
+                        ("mma", "fused_stack_mma", "main")):
+        for kind, line in (("fwd", 105), ("bwd", 276)):
+            m = stack[("tiny" if k == "simt" else "gc", kind, k)]
+            row = {
+                "name": f"{src}_{kind}", "route": "cuda",
+                "source": f"wavenet_torch/csrc/{src}.cu",
+                "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
+                "config": m["config"], "batch": m["batch"],
+                "positions": m["positions"],
+                "launches": train_launches[run][kind].get(k, 0),
+                "launches_on": f"train CLI, {m['config']}",
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"],
+                "bound_ms_fp32": m["bound_ms_fp32"],
+                "bound_ms_tf32x3": m["bound_ms_tf32x3"], "library_ms": None,
+                "unit": "per call (one train step's stack)", "gpu": gpu}
+            if k == "simt":
+                g = stack[("gc", kind, k)]
+                row.update({"ms_gc_b8": g["ms"], "bound_ms_gc_b8":
+                            g["bound_ms"], "plain_ms_gc_b8": g["plain_ms"],
+                            "max_abs_err_gc_b8": g["max_abs_err"],
+                            "mma_ms_gc_b8": stack[("gc", kind, "mma")]["ms"]})
+            kernels.append(row)
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.
     for name, B in SEQ_CASES:

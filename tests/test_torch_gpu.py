@@ -1,7 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
 their prefill and sequential routes, mu-law and scalar input,
 ``sampler_tiles`` at the paper/gc widths, and the route between them;
-``fused_stack``;
+``fused_stack`` (the 3xTF32 "mma" kernel and the FP32-core "simt" one);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
 ``matvec_probe`` of ``wavenet_torch.tools``) against their plain versions,
@@ -279,41 +279,78 @@ def _stack_inputs(W, dilations, B, T, seed=0):
     return c, args, cot
 
 
+_DIL10 = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("W,dilations,B,T", [
-    (8, (1, 2, 4, 8, 16), 2, 150),
-    (16, (1, 64, 2, 512), 3, 700),
-    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500),
+@pytest.mark.parametrize("W,dilations,B,T,kernel", [
+    (8, (1, 2, 4, 8, 16), 2, 150, "auto"),
+    (16, (1, 64, 2, 512), 3, 700, "auto"),
+    (32, _DIL10, 2, 1500, "simt"),
+    (32, _DIL10, 2, 1500, "mma"),
+    (32, _DIL10, 3, 1500, "mma"),
+    (32, (512, 1, 100, 2), 3, 1000, "auto"),
 ])
-def test_fused_stack_matches_reference(setup, W, dilations, B, T):
+def test_fused_stack_matches_reference(setup, W, dilations, B, T, kernel):
+    """Each kernel against the plain versions (T is not a multiple of the
+    64-row tile); ``launches_by`` counts the kernel that ran, and repeated
+    calls are bitwise equal."""
     c, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    used = fs.stack_kernel_plan(c) if kernel == "auto" else kernel
     f0, b0 = fs.forward.launches, fs.backward.launches
-    y, fg, z = fs.forward(*args, c)
+    fb0, bb0 = fs.forward.launches_by[used], fs.backward.launches_by[used]
+    y, fg, z = fs.forward(*args, c, kernel=kernel)
     yr, fgr, zr = fs.fused_stack_forward_reference(*args, c)
     torch.cuda.synchronize()
     assert fs.forward.launches == f0 + 1
+    assert fs.forward.launches_by[used] == fb0 + 1
     for got, ref in ((y, yr), (fg, fgr), (z, zr)):
         torch.testing.assert_close(got, ref, **FWD_TOL)
+    again = fs.forward(*args, c, kernel=kernel)
+    assert all(torch.equal(a, b) for a, b in zip((y, fg, z), again))
     w_fg, wd, _, bd = args[1:]
-    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c, kernel=kernel)
     ref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
     torch.cuda.synchronize()
     assert fs.backward.launches == b0 + 1
+    assert fs.backward.launches_by[used] == bb0 + 1
     for name, got, want in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
                                grads, ref):
         torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
     # Fixed-order partial sums, no atomics: a second call is bitwise equal.
-    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c, kernel=kernel)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.gpu
-def test_fused_stack_op_gradients(setup):
+def test_fused_stack_mma_matches_simt(setup):
+    """The two kernels compute one map: "mma" against "simt" at W = 32,
+    within the tolerances each holds against the plain versions."""
+    c, args, (dy, dz) = _stack_inputs(32, _DIL10, 3, 1500, 3)
+    outs = {k: fs.forward(*args, c, kernel=k) for k in ("mma", "simt")}
+    for got, want in zip(outs["mma"], outs["simt"]):
+        torch.testing.assert_close(got, want, **FWD_TOL)
+    y, fg, _ = outs["simt"]
+    w_fg, wd, _, bd = args[1:]
+    grads = {k: fs.backward(y, dy, fg, dz, w_fg, wd, bd, c, kernel=k)
+             for k in ("mma", "simt")}
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                               grads["mma"], grads["simt"]):
+        torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,kernel", [(16, "auto"), (32, "mma")])
+def test_fused_stack_op_gradients(setup, W, kernel):
     """The autograd op on the card against autograd of the plain forward
     written out layer by layer."""
-    c, args, (dy, dz) = _stack_inputs(16, (1, 2, 4, 8, 16, 32), 2, 300, 1)
+    c, args, (dy, dz) = _stack_inputs(W, (1, 2, 4, 8, 16, 32, 512), 2, 700,
+                                      1)
+    b0 = fs.backward.launches_by[fs.stack_kernel_plan(c)
+                                 if kernel == "auto" else kernel]
     leaves = [a.clone().requires_grad_(True) for a in args]
-    y, z = fs.fused_stack3(*leaves, c)
+    y, z = fs.fused_stack3(*leaves, c, kernel=kernel)
     (y * dy).sum().add((z * dz).sum()).backward()
     got = [t.grad for t in leaves]
     ref_leaves = [a.clone().requires_grad_(True) for a in args]
@@ -329,6 +366,8 @@ def test_fused_stack_op_gradients(setup):
     (x * dy).sum().add((torch.cat(zs, -1) * dz).sum()).backward()
     for g, r in zip(got, ref_leaves):
         torch.testing.assert_close(g, r.grad, **GRAD_TOL)
+    assert fs.backward.launches_by[fs.stack_kernel_plan(c)
+                                   if kernel == "auto" else kernel] == b0 + 1
 
 
 @pytest.mark.gpu
@@ -345,9 +384,25 @@ def test_fused_stack_rejects_bad_inputs(setup):
                          quantization_channels=32)
     with pytest.raises(NotImplementedError, match="R == D"):
         fs.forward(x, w_fg, wd, add, bd, wide)
+    with pytest.raises(ValueError, match="kernel"):
+        fs.forward(x, w_fg, wd, add, bd, c, kernel="wgmma")
+    # The mma kernel is built for R == D == 32 only; no quiet switch.
+    c16, args16, (dy16, dz16) = _stack_inputs(16, (1, 2), 2, 64)
+    n = fs.forward.launches
+    with pytest.raises(NotImplementedError, match="fused_stack_mma"):
+        fs.forward(*args16, c16, kernel="mma")
+    y16, fg16, _ = fs.fused_stack_forward_reference(*args16, c16)
+    with pytest.raises(NotImplementedError, match="fused_stack_mma"):
+        fs.backward(y16, dy16, fg16, dz16, args16[1], args16[2], args16[4],
+                    c16, kernel="mma")
+    assert fs.forward.launches == n
+    # The pure plan's simt widths are those the library is built for.
+    lib, _ = fs._lib("simt")
+    assert tuple(W for W in (4, 8, 16, 32, 64)
+                 if lib.fused_stack_supports_width(W, W)) == fs.SIMT_WIDTHS
 
 
-_GRADS = ("dx", "dw", "dwd", "dadd", "dbd")
+_GRADS =("dx", "dw", "dwd", "dadd", "dbd")
 
 
 @pytest.mark.gpu
@@ -552,7 +607,7 @@ def test_fwd_bisect_full_f32_is_kernel5(setup):
     bitwise (the same instantiation; the same FMA order)."""
     c, args, _ = _stack_inputs(32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
                                2, 1500)
-    want = fs.forward(*args, c)
+    want = fs.forward(*args, c, kernel="simt")
     for variant in ("full", "rolled"):
         got = r2.fwd_bisect(*args, c, variant)
         torch.cuda.synchronize()

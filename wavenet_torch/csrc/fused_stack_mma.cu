@@ -1,0 +1,690 @@
+// fused_stack_mma: the whole dilated stack of a training step, forward and
+// backward, on Hopper's tensor cores at float32 parity (3xTF32), for the
+// paper/gc width R = D = 32 (filter_width 2, float32 in and out).
+//
+// Replaces, beside the FP32-core kernels of fused_stack.cu (which keep
+// widths 8 and 16), the TPU (Pallas) kernel pair of the JAX package
+//   wavenet_tpu/kernels/fused_stack3.py:105  _fwd_kernel
+//   wavenet_tpu/kernels/fused_stack3.py:276  _bwd_kernel
+// It computes what fused_stack.cu computes: per layer l with dilation d,
+//   fg = [x(t-d) | x(t)] @ w_fg[l] + add[l, b]      (x(t-d) = 0 for t < d)
+//   z  = tanh(fg_f) * sigmoid(fg_g)
+//   x' = x + (z @ wd[l] + bd[l])
+// emitting y, fg [B, T, L*2D] and z [B, T, L*D]; the backward rebuilds each
+// layer's input by subtraction and sums the weight gradients from per-block
+// partials in a fixed order (no float atomics: repeated calls are bitwise
+// equal). Launches as in fused_stack.cu: L forward, 2L + 1 backward.
+//
+// What bounds it. At gc b8 x 19,071 rows the forward does 4.7e10 FLOPs
+// and moves ~1.8 GB, the backward 1.0e11 and ~1.8 GB. On the FP32 cores
+// (67 TFLOP/s) both were bound by operations, and fused_stack.cu's
+// products by shared-memory loads (4-12 loads per 16 FMAs). The TPU
+// kernel multiplies through mxu_dot at Precision.HIGHEST, a multi-pass
+// bf16 product exact to float32; its counterpart here is 3xTF32
+// (tf32_mma.cuh): 495 / 3 = 165 TFLOP/s, which leaves the forward bound
+// by bytes (0.54 ms) and the backward by operations (0.63 ms). A launch
+// per layer also moves each layer's x in and out (and, backward, da and
+// the rebuilt x between (A) and (B)) through L2 and HBM, ~100-150 MB a
+// launch at gc b8: that traffic, not the products, is what this design
+// waits on (PERF.md §6).
+//
+// Design.
+// - Every product runs as mma.sync m16n8k8 TF32 in three passes (lo.hi,
+//   hi.lo, hi.hi), float32 accumulation. The weights are split once per
+//   block into hi/lo and stored in fragment order (one 16-byte load a
+//   lane per 8x8 fragment); activations are split as their fragments load.
+//   The passes run pass-major over a warp's n-tiles (and over two k-steps
+//   where a warp owns one tile), so that consecutive mma.sync never wait
+//   on each other's accumulator.
+// - Persistent blocks: each block walks a fixed chunk of 64-row tiles of
+//   one batch row (chunk_tiling), so a layer's weights are read ~240 times
+//   a layer, not once per tile (2,384 times at gc b8).
+// - cp.async double-buffers the next tile's rows (the current rows, the
+//   past tap x(t-d), the future gradient tap da(t+d), the fg slice),
+//   zero-filling rows outside [0, T), while the current tile multiplies.
+// - Shared row strides are 4 (mod 32) words, so row-major fragment loads
+//   are free of bank conflicts; the weight-gradient products, which read
+//   a tile transposed, take 2-way conflicts on their A operand.
+// - Eight warps a block; warp w owns rows 16 (w / 2) of the tile and half
+//   of each product's columns (the filter and gate columns a thread holds
+//   pair up, so the gate is computed in registers).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "stack_common.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+constexpr int R = 32, D = 32;          // the one compiled width
+constexpr int K1 = 2 * R, N1 = 2 * D;  // the fg product: [TM, K1] @ [K1, N1]
+constexpr int TM = 64;                 // rows (time steps of one batch row) a tile
+constexpr int NW = 8;                  // warps a block
+constexpr int NT = 32 * NW;
+constexpr int S32 = R + 4;             // row strides of 32- and 64-wide tiles:
+constexpr int S64 = N1 + 4;            //   4 (mod 32) words
+static_assert(R == D && S32 % 4 == 0 && S64 % 4 == 0, "layout");
+
+// Weights as B fragments in shared memory: for k-step ks and n-tile nt,
+// lane l holds {hi(b0), hi(b1), lo(b0), lo(b1)} of B[ks*8 + l%4 (+4)]
+// [nt*8 + l/4]. ``at(k, n)`` reads B from device memory; every load of a
+// thread is issued before the first split.
+template <int K, int N, typename F>
+__device__ __forceinline__ void stage_weights(uint4* dst, F at) {
+  constexpr int NTN = N / 8, IT = K * N / 2 / NT;
+  static_assert(K * N / 2 == IT * NT, "weight staging");
+  float v[IT][2];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int lane = i & 31, nt = (i >> 5) % NTN, ks = (i >> 5) / NTN;
+    const int k = ks * 8 + (lane & 3), n = nt * 8 + (lane >> 2);
+    v[it][0] = at(k, n);
+    v[it][1] = at(k + 4, n);
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    uint32_t h0, l0, h1, l1;
+    tf32_split(v[it][0], h0, l0);
+    tf32_split(v[it][1], h1, l1);
+    dst[it * NT + threadIdx.x] = make_uint4(h0, h1, l0, l1);
+  }
+}
+
+template <int NTN>
+__device__ __forceinline__ uint4 wfrag(const uint4* w, int ks, int nt,
+                                       int lane) {
+  return w[(ks * NTN + nt) * 32 + lane];
+}
+
+// A fragment of rows m0.. and columns k0.. of a row-major tile.
+template <int S>
+__device__ __forceinline__ void afrag(const float* s, int m0, int k0, int lane,
+                                      uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (m0 + g) * S + k0 + q;
+  tf32_split(p[0], hi[0], lo[0]);
+  tf32_split(p[8 * S], hi[1], lo[1]);
+  tf32_split(p[4], hi[2], lo[2]);
+  tf32_split(p[8 * S + 4], hi[3], lo[3]);
+}
+
+// A fragment of the transpose: A[m][k] = s[k][m] (rows m0.., k0..).
+template <int S>
+__device__ __forceinline__ void afrag_t(const float* s, int m0, int k0,
+                                        int lane, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + q) * S + m0 + g;
+  tf32_split(p[0], hi[0], lo[0]);
+  tf32_split(p[8], hi[1], lo[1]);
+  tf32_split(p[4 * S], hi[2], lo[2]);
+  tf32_split(p[4 * S + 8], hi[3], lo[3]);
+}
+
+// B fragment of a row-major activation tile: B[k][n] = s[k][n].
+template <int S>
+__device__ __forceinline__ uint4 bfrag(const float* s, int k0, int n0,
+                                       int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + q) * S + n0 + g;
+  uint4 b;
+  tf32_split(p[0], b.x, b.z);
+  tf32_split(p[4 * S], b.y, b.w);
+  return b;
+}
+
+__device__ __forceinline__ void zero(float (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+}
+
+// Rows [t0, t0 + TM) shifted by ``shift`` of a [B, T, W] row-major array
+// (row stride ``ld`` floats, column offset ``col``) into a [TM][S] tile,
+// zeros outside [0, T).
+template <int W, int S>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          size_t base, size_t ld, int col,
+                                          int t0, int shift, int T) {
+  constexpr int CH = W / 4;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < TM * CH; i += NT) {
+    const int r = i / CH, c = i % CH, t = t0 + r + shift;
+    const bool ok = t >= 0 && t < T;
+    cp_async16(dst + r * S + 4 * c,
+               ok ? src + (base + t) * ld + col + 4 * c : src, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one layer. grid (chunks, B).
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdStage = 2 * TM * S32;   // x(t - d), x(t)
+constexpr int kFwdSmem = (int)sizeof(uint4) * (K1 * N1 + D * R) / 2 +
+                         (int)sizeof(float) * (2 * kFwdStage + TM * S32);
+
+__global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
+    const float* __restrict__ x_in, float* __restrict__ x_out,
+    float* __restrict__ fg_out, float* __restrict__ z_out,
+    const float* __restrict__ w_fg, const float* __restrict__ wd,
+    const float* __restrict__ add, const float* __restrict__ bd, int T,
+    int d, int l, int L, int tiles_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* s_wfg = reinterpret_cast<uint4*>(smem_raw);   // B = w_fg [K1][N1]
+  uint4* s_wd = s_wfg + K1 * N1 / 2;                    // B = wd [D][R]
+  float* s_x = reinterpret_cast<float*>(s_wd + D * R / 2);  // 2 stages
+  float* s_z = s_x + 2 * kFwdStage;                     // [TM][S32]
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = w >> 1, h = w & 1;    // rows 16 mt..; column half h
+  const int b = blockIdx.y;
+  const size_t base = (size_t)b * T;
+  const int tile0 = blockIdx.x * tiles_per_chunk;
+  const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
+
+  auto issue = [&](int i) {
+    float* st = s_x + (i & 1) * kFwdStage;
+    const int t0 = (tile0 + i) * TM;
+    load_rows<R, S32>(st, x_in, base, R, 0, t0, -d, T);
+    load_rows<R, S32>(st + TM * S32, x_in, base, R, 0, t0, 0, T);
+  };
+  issue(0);
+  cp_async_commit();
+  stage_weights<K1, N1>(s_wfg, [&](int k, int n) { return w_fg[k * N1 + n]; });
+  stage_weights<D, R>(s_wd, [&](int k, int n) { return wd[k * R + n]; });
+  const float* add_b = add + (size_t)b * N1;
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile i (and the weights) visible to every warp
+    const float* past = s_x + (i & 1) * kFwdStage;
+    const float* cur = past + TM * S32;
+    const int t0 = (tile0 + i) * TM;
+
+    // fg = [past | cur] @ w_fg: this warp's filter n-tiles 2h, 2h + 1 and
+    // their gate n-tiles 4 + 2h, 5 + 2h.
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) zero(acc[j]);
+#pragma unroll
+    for (int ks = 0; ks < K1 / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      afrag<S32>(ks < 4 ? past : cur, 16 * mt, (ks & 3) * 8, lane, ah, al);
+      uint4 bw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bw[j] = wfrag<N1 / 8>(s_wfg, ks, (j >> 1) * 4 + 2 * h + (j & 1), lane);
+      mma3_tf32_n(acc, ah, al, bw);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = 16 * h + 8 * j + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half, t = t0 + r;
+        const float f0 = acc[j][2 * half] + add_b[col];
+        const float f1 = acc[j][2 * half + 1] + add_b[col + 1];
+        const float g0 = acc[j + 2][2 * half] + add_b[D + col];
+        const float g1 = acc[j + 2][2 * half + 1] + add_b[D + col + 1];
+        const float z0 = tanhf(f0) * sigmoidf(g0);
+        const float z1 = tanhf(f1) * sigmoidf(g1);
+        *reinterpret_cast<float2*>(s_z + r * S32 + col) = make_float2(z0, z1);
+        if (t < T) {
+          float* fr = fg_out + (base + t) * (size_t)(L * N1) + l * N1 + col;
+          *reinterpret_cast<float2*>(fr) = make_float2(f0, f1);
+          *reinterpret_cast<float2*>(fr + D) = make_float2(g0, g1);
+          *reinterpret_cast<float2*>(z_out + (base + t) * (size_t)(L * D) +
+                                     l * D + col) = make_float2(z0, z1);
+        }
+      }
+    }
+    __syncthreads();   // the z tile is whole
+
+    // x' = x + (z @ wd + bd): n-tiles 2h, 2h + 1 of R.
+    float acc2[2][4];
+    zero(acc2[0]);
+    zero(acc2[1]);
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      afrag<S32>(s_z, 16 * mt, ks * 8, lane, ah, al);
+      const uint4 bw[2] = {wfrag<R / 8>(s_wd, ks, 2 * h, lane),
+                           wfrag<R / 8>(s_wd, ks, 2 * h + 1, lane)};
+      mma3_tf32_n(acc2, ah, al, bw);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = 16 * h + 8 * j + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half, t = t0 + r;
+        if (t >= T) continue;
+        const float2 res = *reinterpret_cast<const float2*>(cur + r * S32 + col);
+        *reinterpret_cast<float2*>(x_out + (base + t) * R + col) = make_float2(
+            res.x + (acc2[j][2 * half] + bd[col]),
+            res.y + (acc2[j][2 * half + 1] + bd[col + 1]));
+      }
+    }
+    __syncthreads();   // stage i & 1 and the z tile are free again
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward (A): da, the rebuilt layer input, partial dwd / dbd / dadd.
+// grid (chunks, B); each block walks tiles_per_chunk tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int kAStage = TM * S32 + TM * S64;   // dx_{l+1}, fg slice
+constexpr int kASmem = (int)sizeof(uint4) * D * R +
+                       (int)sizeof(float) *
+                           (2 * kAStage + TM * S32 + TM * S64);
+
+__global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
+    const float* __restrict__ x_next, const float* __restrict__ dx_next,
+    const float* __restrict__ fg, const float* __restrict__ dz,
+    const float* __restrict__ wd, const float* __restrict__ bd,
+    float* __restrict__ x_cur, float* __restrict__ da_out,
+    float* __restrict__ part_a, float* __restrict__ part_add, int T, int l,
+    int L, int tiles_per_chunk, int nchunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* s_wdf = reinterpret_cast<uint4*>(smem_raw);   // B = wd [D][R]
+  uint4* s_wdt = s_wdf + D * R / 2;                     // B = wd^T [R][D]
+  float* s_st = reinterpret_cast<float*>(s_wdt + D * R / 2);  // 2 stages
+  float* s_z = s_st + 2 * kAStage;                      // [TM][S32]
+  float* s_da = s_z + TM * S32;                         // [TM][S64]
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = w >> 1, h = w & 1;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * T;
+  const size_t fg_ld = (size_t)L * N1, z_ld = (size_t)L * D;
+  const int tile0 = chunk * tiles_per_chunk;
+  const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
+
+  auto issue = [&](int i) {
+    float* st = s_st + (i & 1) * kAStage;
+    const int t0 = (tile0 + i) * TM;
+    load_rows<R, S32>(st, dx_next, base, R, 0, t0, 0, T);
+    load_rows<N1, S64>(st + TM * S32, fg, base, fg_ld, l * N1, t0, 0, T);
+  };
+  issue(0);
+  cp_async_commit();
+  stage_weights<D, R>(s_wdf, [&](int k, int n) { return wd[k * R + n]; });
+  stage_weights<R, D>(s_wdt, [&](int k, int n) { return wd[n * R + k]; });
+
+  // dwd [D][R] partial: m-tile w / 4, n-tile w % 4.
+  const int mw = w >> 2, nw = w & 3;
+  float p_wd[2][4];   // even and odd k-steps: two independent chains
+  zero(p_wd[0]);
+  zero(p_wd[1]);
+  float p_bd = 0.f, p_add = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* s_dc = s_st + (i & 1) * kAStage;   // [TM][S32]
+    float* s_ts = s_st + (i & 1) * kAStage + TM * S32;   // [TM][S64]
+    const int t0 = (tile0 + i) * TM;
+
+    // fg -> (tanh f, sigmoid g) in place, and z = tanh(f) * sigmoid(g)
+    // (0 on rows past T, where fg is 0).
+    for (int e = tid; e < TM * D; e += NT) {
+      float* p = s_ts + (e / D) * S64 + e % D;
+      const float th = tanhf(p[0]), sg = sigmoidf(p[D]);
+      p[0] = th;
+      p[D] = sg;
+      s_z[(e / D) * S32 + e % D] = th * sg;
+    }
+    __syncthreads();
+
+    // dz_tot = dz + dx_{l+1} @ wd^T; da = dz_tot * (d z / d fg).
+    {
+      float acc[2][4];
+      zero(acc[0]);
+      zero(acc[1]);
+#pragma unroll
+      for (int ks = 0; ks < R / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        afrag<S32>(s_dc, 16 * mt, ks * 8, lane, ah, al);
+        const uint4 bw[2] = {wfrag<D / 8>(s_wdt, ks, 2 * h, lane),
+                             wfrag<D / 8>(s_wdt, ks, 2 * h + 1, lane)};
+        mma3_tf32_n(acc, ah, al, bw);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * h + 8 * j + 2 * q;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * mt + g + 8 * half, t = t0 + r;
+          float2 dzv = make_float2(0.f, 0.f);
+          if (t < T)
+            dzv = *reinterpret_cast<const float2*>(dz + (base + t) * z_ld +
+                                                   l * D + col);
+          float daf[2], dag[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float dzt = (c ? dzv.y : dzv.x) + acc[j][2 * half + c];
+            const float th = s_ts[r * S64 + col + c];
+            const float sg = s_ts[r * S64 + D + col + c];
+            daf[c] = dzt * sg * (1.f - th * th);
+            dag[c] = dzt * th * sg * (1.f - sg);
+          }
+          *reinterpret_cast<float2*>(s_da + r * S64 + col) =
+              make_float2(daf[0], daf[1]);
+          *reinterpret_cast<float2*>(s_da + r * S64 + D + col) =
+              make_float2(dag[0], dag[1]);
+          if (t < T) {
+            float* o = da_out + (base + t) * N1 + col;
+            *reinterpret_cast<float2*>(o) = make_float2(daf[0], daf[1]);
+            *reinterpret_cast<float2*>(o + D) = make_float2(dag[0], dag[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the z and da tiles are whole
+
+    // x_l = x_{l+1} - z @ wd - bd
+    {
+      float acc[2][4];
+      zero(acc[0]);
+      zero(acc[1]);
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        afrag<S32>(s_z, 16 * mt, ks * 8, lane, ah, al);
+        const uint4 bw[2] = {wfrag<R / 8>(s_wdf, ks, 2 * h, lane),
+                             wfrag<R / 8>(s_wdf, ks, 2 * h + 1, lane)};
+        mma3_tf32_n(acc, ah, al, bw);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * h + 8 * j + 2 * q;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = t0 + 16 * mt + g + 8 * half;
+          if (t >= T) continue;
+          const size_t o = (base + t) * R + col;
+          const float2 xn = *reinterpret_cast<const float2*>(x_next + o);
+          *reinterpret_cast<float2*>(x_cur + o) =
+              make_float2((xn.x - acc[j][2 * half]) - bd[col],
+                          (xn.y - acc[j][2 * half + 1]) - bd[col + 1]);
+        }
+      }
+    }
+
+    // dwd += z^T @ dx_{l+1} over this tile's rows.
+#pragma unroll
+    for (int ks = 0; ks < TM / 8; ks += 2) {
+      uint32_t ah[2][4], al[2][4];
+      afrag_t<S32>(s_z, 16 * mw, ks * 8, lane, ah[0], al[0]);
+      afrag_t<S32>(s_z, 16 * mw, ks * 8 + 8, lane, ah[1], al[1]);
+      const uint4 b0 = bfrag<S32>(s_dc, ks * 8, 8 * nw, lane);
+      const uint4 b1 = bfrag<S32>(s_dc, ks * 8 + 8, 8 * nw, lane);
+      mma_tf32(p_wd[0], al[0], b0.x, b0.y);
+      mma_tf32(p_wd[1], al[1], b1.x, b1.y);
+      mma_tf32(p_wd[0], ah[0], b0.z, b0.w);
+      mma_tf32(p_wd[1], ah[1], b1.z, b1.w);
+      mma_tf32(p_wd[0], ah[0], b0.x, b0.y);
+      mma_tf32(p_wd[1], ah[1], b1.x, b1.y);
+    }
+    // dbd and dadd: column sums in row order.
+    if (tid < R)
+      for (int r = 0; r < TM; ++r) p_bd += s_dc[r * S32 + tid];
+    else if (tid >= 64 && tid < 64 + N1)
+      for (int r = 0; r < TM; ++r) p_add += s_da[r * S64 + tid - 64];
+    __syncthreads();   // the stage, z and da tiles are free again
+  }
+
+  const size_t cta = (size_t)b * nchunk + chunk;
+  float* pa = part_a + cta * (D * R + R);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = 16 * mw + g + 8 * half, col = 8 * nw + 2 * q;
+    pa[row * R + col] = p_wd[0][2 * half] + p_wd[1][2 * half];
+    pa[row * R + col + 1] = p_wd[0][2 * half + 1] + p_wd[1][2 * half + 1];
+  }
+  if (tid < R) pa[D * R + tid] = p_bd;
+  else if (tid >= 64 && tid < 64 + N1) part_add[cta * N1 + tid - 64] = p_add;
+}
+
+// ---------------------------------------------------------------------------
+// Backward (B): dx_l and partial dw_fg. Same grid as (A).
+// ---------------------------------------------------------------------------
+
+constexpr int kBStage = 2 * TM * S64 + 2 * TM * S32;  // da(t), da(t+d), x(t-d), x(t)
+constexpr int kBSmem = (int)sizeof(uint4) * N1 * R +
+                       (int)sizeof(float) * 2 * kBStage;
+
+__global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
+    const float* __restrict__ x_cur, const float* __restrict__ dx_next,
+    const float* __restrict__ da, const float* __restrict__ w_fg,
+    float* __restrict__ dx_cur, float* __restrict__ part_w, int T, int d,
+    int tiles_per_chunk, int nchunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* s_wc = reinterpret_cast<uint4*>(smem_raw);   // B = w_fg[R:]^T [N1][R]
+  uint4* s_wp = s_wc + N1 * R / 2;                     // B = w_fg[:R]^T [N1][R]
+  float* s_st = reinterpret_cast<float*>(s_wp + N1 * R / 2);  // 2 stages
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = w >> 1, h = w & 1;
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * T;
+  const int tile0 = chunk * tiles_per_chunk;
+  const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
+
+  auto issue = [&](int i) {
+    float* st = s_st + (i & 1) * kBStage;
+    const int t0 = (tile0 + i) * TM;
+    load_rows<N1, S64>(st, da, base, N1, 0, t0, 0, T);
+    load_rows<N1, S64>(st + TM * S64, da, base, N1, 0, t0, d, T);
+    load_rows<R, S32>(st + 2 * TM * S64, x_cur, base, R, 0, t0, -d, T);
+    load_rows<R, S32>(st + 2 * TM * S64 + TM * S32, x_cur, base, R, 0, t0, 0,
+                      T);
+  };
+  issue(0);
+  cp_async_commit();
+  stage_weights<N1, R>(s_wc, [&](int k, int n) { return w_fg[(R + n) * N1 + k]; });
+  stage_weights<N1, R>(s_wp, [&](int k, int n) { return w_fg[n * N1 + k]; });
+
+  // dw_fg [K1][N1] partial: m-tile w / 2 (cat columns 16 (w / 2)..), n-tiles
+  // 4 (w % 2) .. + 3.
+  float p_w[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) zero(p_w[j]);
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* s_da = s_st + (i & 1) * kBStage;   // [TM][S64] da(t)
+    const float* s_dan = s_da + TM * S64;           // [TM][S64] da(t + d)
+    const float* s_past = s_dan + TM * S64;         // [TM][S32] x_l(t - d)
+    const float* s_cur = s_past + TM * S32;         // [TM][S32] x_l(t)
+    const int t0 = (tile0 + i) * TM;
+
+    // dx_l = dx_{l+1} + da(t) @ w_fg[R:]^T + da(t + d) @ w_fg[:R]^T
+    {
+      float ac[2][4], ap[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        zero(ac[j]);
+        zero(ap[j]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < N1 / 8; ++ks) {
+        uint32_t ah[4], al[4], nh[4], nl[4];
+        afrag<S64>(s_da, 16 * mt, ks * 8, lane, ah, al);
+        afrag<S64>(s_dan, 16 * mt, ks * 8, lane, nh, nl);
+        const uint4 bc[2] = {wfrag<R / 8>(s_wc, ks, 2 * h, lane),
+                             wfrag<R / 8>(s_wc, ks, 2 * h + 1, lane)};
+        const uint4 bp[2] = {wfrag<R / 8>(s_wp, ks, 2 * h, lane),
+                             wfrag<R / 8>(s_wp, ks, 2 * h + 1, lane)};
+        mma3_tf32_n(ac, ah, al, bc);
+        mma3_tf32_n(ap, nh, nl, bp);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * h + 8 * j + 2 * q;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = t0 + 16 * mt + g + 8 * half;
+          if (t >= T) continue;
+          const size_t o = (base + t) * R + col;
+          const float2 dn = *reinterpret_cast<const float2*>(dx_next + o);
+          *reinterpret_cast<float2*>(dx_cur + o) = make_float2(
+              (dn.x + ac[j][2 * half]) + ap[j][2 * half],
+              (dn.y + ac[j][2 * half + 1]) + ap[j][2 * half + 1]);
+        }
+      }
+    }
+
+    // dw_fg += [x_l(t-d) | x_l(t)]^T @ da(t) over this tile's rows.
+    {
+      const float* cat = mt < 2 ? s_past : s_cur;
+      const int m0 = 16 * (mt & 1);
+#pragma unroll
+      for (int ks = 0; ks < TM / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        afrag_t<S32>(cat, m0, ks * 8, lane, ah, al);
+        uint4 bd4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bd4[j] = bfrag<S64>(s_da, ks * 8, 8 * (4 * h + j), lane);
+        mma3_tf32_n(p_w, ah, al, bd4);
+      }
+    }
+    __syncthreads();   // stage i & 1 is free again
+  }
+
+  float* pw = part_w + ((size_t)b * nchunk + chunk) * (K1 * N1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = 8 * (4 * h + j) + 2 * q;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * mt + g + 8 * half;
+      pw[row * N1 + col] = p_w[j][2 * half];
+      pw[row * N1 + col + 1] = p_w[j][2 * half + 1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// One grid for every launch: chunks sized for two blocks an SM (the
+// forward and (A) hold two; (B), one, runs it in two waves).
+Tiling mma_tiling(int B, int T) { return chunk_tiling(B, T, TM, 2); }
+
+int forward_impl(const float* x, const float* w_fg, const float* wd,
+                 const float* add, const float* bd, const int* dil, float* y,
+                 float* fg, float* z, float* xbuf, int B, int T, int L,
+                 cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
+  const Tiling tl = mma_tiling(B, T);
+  const dim3 grid(tl.nchunk, B);
+  const size_t btr = (size_t)B * T * R;
+  for (int l = 0; l < L; ++l) {
+    const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
+    float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
+    fwd_mma_kernel<<<grid, NT, kFwdSmem, st>>>(in, out, fg, z, w_fg + (size_t)l * K1 * N1, wd + (size_t)l * D * R, add + (size_t)l * B * N1, bd + (size_t)l * R, T, dil[l], l, L, tl.tiles_per_chunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+int backward_impl(const float* y, const float* dy, const float* fg,
+                  const float* dz, const float* w_fg, const float* wd,
+                  const float* bd, const int* dil, float* dx, float* dw_fg,
+                  float* dwd, float* dadd, float* dbd, float* scratch, int B,
+                  int T, int L, cudaStream_t st) {
+  const Tiling tl = mma_tiling(B, T);
+  const size_t ncta = (size_t)B * tl.nchunk;
+  const size_t btr = (size_t)B * T * R;
+  float* xb = scratch;                               // 2 x [B, T, R]
+  float* dxb = xb + 2 * btr;                         // 2 x [B, T, R]
+  float* dab = dxb + 2 * btr;                        // [B, T, 2D]
+  float* pw = dab + (size_t)B * T * N1;              // [L, ncta, 2R, 2D]
+  float* pa = pw + (size_t)L * ncta * K1 * N1;       // [L, ncta, D*R + R]
+  float* padd = pa + (size_t)L * ncta * (D * R + R); // [L, ncta, 2D]
+
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_da_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kASmem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
+      bwd_dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+  if (e != cudaSuccess) return (int)e;
+
+  const dim3 grid(tl.nchunk, B);
+  for (int l = L - 1; l >= 0; --l) {
+    const float* x_next = l == L - 1 ? y : xb + (size_t)((l + 1) & 1) * btr;
+    float* x_cur = xb + (size_t)(l & 1) * btr;
+    const float* dx_next = l == L - 1 ? dy : dxb + (size_t)((l + 1) & 1) * btr;
+    float* dx_cur = l == 0 ? dx : dxb + (size_t)(l & 1) * btr;
+    bwd_da_mma_kernel<<<grid, NT, kASmem, st>>>(x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R, x_cur, dab, pa + (size_t)l * ncta * (D * R + R), padd + (size_t)l * ncta * N1, T, l, L, tl.tiles_per_chunk, tl.nchunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    bwd_dx_mma_kernel<<<grid, NT, kBSmem, st>>>(x_cur, dx_next, dab, w_fg + (size_t)l * K1 * N1, dx_cur, pw + (size_t)l * ncta * K1 * N1, T, dil[l], tl.tiles_per_chunk, tl.nchunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)launch_reduce_partials<NT>(pw, pa, padd, dw_fg, dwd, dbd, dadd,
+                                         B, tl.nchunk, L, R, D, st);
+}
+
+constexpr int kUnsupportedWidth = 1000;
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch device memory the backward needs.
+long long fused_stack_mma_bwd_scratch_floats(int B, int T, int L, int r,
+                                             int d) {
+  if (r != R || d != D) return -1;
+  const Tiling tl = mma_tiling(B, T);
+  const long long bt = (long long)B * T, ncta = (long long)B * tl.nchunk;
+  return 4 * bt * R + bt * N1 +
+         (long long)L * ncta * (K1 * N1 + D * R + R + N1);
+}
+
+// Forward launches (L of them); the arguments of fused_stack_fwd_f32
+// (fused_stack.cu). Returns 0 or a CUDA error code.
+int fused_stack_mma_fwd_f32(const float* x, const float* w_fg, const float* wd,
+                            const float* add, const float* bd, const int* dil,
+                            float* y, float* fg, float* z, float* xbuf, int B,
+                            int T, int L, int r, int d, void* stream) {
+  if (r != R || d != D) return kUnsupportedWidth;
+  return forward_impl(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L,
+                      (cudaStream_t)stream);
+}
+
+// Backward launches (2L + 1 of them); the arguments of fused_stack_bwd_f32
+// (fused_stack.cu), scratch sized by fused_stack_mma_bwd_scratch_floats.
+// Returns 0 or a CUDA error code.
+int fused_stack_mma_bwd_f32(const float* y, const float* dy, const float* fg,
+                            const float* dz, const float* w_fg,
+                            const float* wd, const float* bd, const int* dil,
+                            float* dx, float* dw_fg, float* dwd, float* dadd,
+                            float* dbd, float* scratch, int B, int T, int L,
+                            int r, int d, void* stream) {
+  if (r != R || d != D) return kUnsupportedWidth;
+  return backward_impl(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd,
+                       dbd, scratch, B, T, L, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -16,14 +16,22 @@ The forward returns ``y`` (the last layer's output), the preactivations
 unpadded. The backward rebuilds each layer's input by subtraction, as the
 TPU kernel does: no recompute, no saved layer inputs.
 
-``forward`` and ``backward`` run the kernel (``csrc/fused_stack.cu``) for
-CUDA tensors and the plain versions for CPU tensors; each counts its
-kernel launches in ``forward.launches`` / ``backward.launches`` (one per
-call: the call runs L kernels forward, 2L + 1 backward).
+Two CUDA kernel pairs compute the map. ``csrc/fused_stack_mma.cu``
+("mma") multiplies on the tensor cores in 3xTF32 (the counterpart of the
+TPU kernel's ``mxu_dot`` at HIGHEST: float32 parity) and is built for
+R == D == 32 only; ``csrc/fused_stack.cu`` ("simt") multiplies on the
+FP32 cores at R == D in (8, 16, 32). ``stack_kernel_plan`` (pure) picks
+one. ``forward`` and ``backward`` run the routed kernel, or the one that
+``kernel=`` pins, for CUDA tensors and the plain versions for CPU tensors;
+each counts its kernel launches in ``forward.launches`` /
+``backward.launches`` (one per call: the call runs L kernels forward,
+2L + 1 backward) and by kernel in ``launches_by``. ``mma3_matmul`` repeats
+the mma kernel's product arithmetic in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -38,9 +46,16 @@ from wavenet_torch.models.config import WaveNetConfig
 _T_TILE_BWD = 1024
 _LANE = 128
 
-__all__ = ["supports", "fused_stack_forward_reference",
-           "fused_stack_backward_reference", "forward", "backward",
-           "fused_stack3", "pack_stack_weights", "tap_offsets"]
+#: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
+KERNEL_CHOICES = ("auto", "mma", "simt")
+#: Widths (R == D) each kernel source is built for, at float32.
+MMA_WIDTHS = (32,)
+SIMT_WIDTHS = (8, 16, 32)
+_SOURCES = {"mma": "fused_stack_mma", "simt": "fused_stack"}
+
+__all__ = ["supports", "stack_kernel_plan", "fused_stack_forward_reference",
+           "fused_stack_backward_reference", "mma3_matmul", "forward",
+           "backward", "fused_stack3", "pack_stack_weights", "tap_offsets"]
 
 
 def _lane_alignable(width: int) -> bool:
@@ -56,6 +71,23 @@ def supports(config: WaveNetConfig, t_tile: int = _T_TILE_BWD) -> bool:
             and c.filter_width == 2 and max(c.dilations) <= t_tile)
 
 
+def stack_kernel_plan(config: WaveNetConfig) -> str:
+    """The kernel that runs a stack of ``config`` on the card (both take
+    float32 only): "mma" at R == D == 32 (the paper and gc widths, where
+    the chip run timed it faster than "simt" in both directions), "simt"
+    at the other widths ``csrc/fused_stack.cu`` is built for; raises for
+    any other width (ROADMAP.md queue 2, a4). The simt library's own
+    ``fused_stack_supports_width`` is asked again at launch."""
+    R, D = config.residual_channels, config.dilation_channels
+    if R == D and R in MMA_WIDTHS:
+        return "mma"
+    if R == D and R in SIMT_WIDTHS:
+        return "simt"
+    raise NotImplementedError(
+        f"the fused_stack kernels are built for R == D in {SIMT_WIDTHS}; "
+        f"got R={R}, D={D}")
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -67,24 +99,37 @@ def _past(x: torch.Tensor, d: int) -> torch.Tensor:
 
 @torch.no_grad()
 def fused_stack_forward_reference(x, w_fg, wd, add, bd,
-                                  config: WaveNetConfig):
-    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D])."""
+                                  config: WaveNetConfig, matmul=torch.matmul):
+    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]). Every
+    product goes through ``matmul`` (``mma3_matmul`` repeats the mma
+    kernel's arithmetic)."""
     D = config.dilation_channels
     fgs, zs = [], []
     for l, d in enumerate(config.dilations):
-        fg = torch.cat([_past(x, d), x], dim=-1) @ w_fg[l] + add[l][:, None]
+        fg = matmul(torch.cat([_past(x, d), x], dim=-1), w_fg[l]) \
+            + add[l][:, None]
         z = torch.tanh(fg[..., :D]) * torch.sigmoid(fg[..., D:])
-        x = x + (z @ wd[l] + bd[l])
+        x = x + (matmul(z, wd[l]) + bd[l])
         fgs.append(fg)
         zs.append(z)
     return x, torch.cat(fgs, dim=-1), torch.cat(zs, dim=-1)
 
 
+def _contract_rows(u, v, matmul):
+    """u [B,T,K], v [B,T,N] -> [K,N]: the sum over rows (b, t) of
+    u[b, t, :, None] * v[b, t, None, :]."""
+    if matmul is torch.matmul:
+        return torch.einsum("btk,btn->kn", u, v)
+    return matmul(u.flatten(0, 1).T, v.flatten(0, 1))
+
+
 @torch.no_grad()
 def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
-                                   config: WaveNetConfig):
+                                   config: WaveNetConfig,
+                                   matmul=torch.matmul):
     """Plain backward: an explicit reverse sweep over the layers (not
-    autograd) that rebuilds each layer's input by subtraction.
+    autograd) that rebuilds each layer's input by subtraction, every
+    product through ``matmul``.
     -> (dx [B,T,R], dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
     dbd [L,1,R])."""
     c = config
@@ -101,15 +146,15 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
         t_ = torch.tanh(fg[..., 2 * D * l:2 * D * l + D])
         s_ = torch.sigmoid(fg[..., 2 * D * l + D:2 * D * (l + 1)])
         z = t_ * s_
-        dwd[l] = torch.einsum("btd,btr->dr", z, dcur)
+        dwd[l] = _contract_rows(z, dcur, matmul)
         dbd[l, 0] = dcur.sum(dim=(0, 1))
-        dzt = dz[..., D * l:D * (l + 1)] + dcur @ wd[l].T
+        dzt = dz[..., D * l:D * (l + 1)] + matmul(dcur, wd[l].T)
         da = torch.cat([dzt * s_ * (1.0 - t_ * t_),
                         dzt * t_ * s_ * (1.0 - s_)], dim=-1)
-        x = (x - z @ wd[l]) - bd[l]
-        dw_fg[l] = torch.einsum("btk,btn->kn",
-                                torch.cat([_past(x, d), x], dim=-1), da)
-        tmp = da @ w_fg[l].T                                 # [B, T, 2R]
+        x = (x - matmul(z, wd[l])) - bd[l]
+        dw_fg[l] = _contract_rows(torch.cat([_past(x, d), x], dim=-1), da,
+                                  matmul)
+        tmp = matmul(da, w_fg[l].T)                          # [B, T, 2R]
         dcur = dcur + tmp[..., R:]
         if d < T:
             dcur[:, :T - d] += tmp[:, d:, :R]
@@ -117,40 +162,94 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
     return dcur, dw_fg, dwd, dadd, dbd
 
 
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest,
+    ties away from zero, on the words' bits (``cvt.rna.tf32.f32``)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo): hi = tf32(a), lo = tf32(a - hi), as the mma kernel splits
+    each operand."""
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a [..., K], b [K, N], float32) as the mma kernel forms
+    it: 3xTF32 over k-steps of 8, each step adding lo.hi, hi.lo, then
+    hi.hi to a float32 sum (the tensor core sums a step's 8 terms in its
+    own order). For the tests; the kernel never calls it."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[1:], dtype=torch.float32,
+                      device=a.device)
+    for k in range(0, a.shape[-1], 8):
+        ks = slice(k, k + 8)
+        out = out + al[..., ks] @ bh[ks]
+        out = out + ah[..., ks] @ bl[ks]
+        out = out + ah[..., ks] @ bh[ks]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
+def _lib(kernel: str):
+    """The loaded library of ``kernel`` ("mma" or "simt") and the prefix
+    of its C functions; both take the same arguments."""
     from wavenet_torch.kernels import _build
-    lib = _build.load("fused_stack")
+    name = _SOURCES[kernel]
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_stack_supports_width.argtypes = [i, i]
-    lib.fused_stack_supports_width.restype = i
-    lib.fused_stack_bwd_scratch_floats.argtypes = [i] * 5
-    lib.fused_stack_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.fused_stack_fwd_f32.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.fused_stack_fwd_f32.restype = i
-    lib.fused_stack_bwd_f32.argtypes = [p] * 14 + [i] * 5 + [p]
-    lib.fused_stack_bwd_f32.restype = i
-    return lib
+    if kernel == "simt":
+        lib.fused_stack_supports_width.argtypes = [i, i]
+        lib.fused_stack_supports_width.restype = i
+    getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i] * 5
+    getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
+    getattr(lib, f"{name}_fwd_f32").argtypes = [p] * 10 + [i] * 5 + [p]
+    getattr(lib, f"{name}_fwd_f32").restype = i
+    getattr(lib, f"{name}_bwd_f32").argtypes = [p] * 14 + [i] * 5 + [p]
+    getattr(lib, f"{name}_bwd_f32").restype = i
+    return lib, name
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNEL_CHOICES:
+        raise ValueError(f"fused_stack: kernel={kernel!r}: one of "
+                         f"{KERNEL_CHOICES}")
+
+
+def _route(kernel: str, config: WaveNetConfig):
+    """The kernel a call runs (``stack_kernel_plan``'s for "auto", else the
+    pinned one), its library and the prefix of its C functions; raises at
+    a width the kernel is not built for (the simt library says which)."""
+    c = config
+    if not supports(c):
+        raise NotImplementedError(
+            "fused_stack needs filter_width=2 and max dilation <= "
+            f"{_T_TILE_BWD}")
+    used = stack_kernel_plan(c) if kernel == "auto" else kernel
+    lib, prefix = _lib(used)
+    R, D = c.residual_channels, c.dilation_channels
+    built = (lib.fused_stack_supports_width(R, D) if used == "simt"
+             else R == D and R in MMA_WIDTHS)
+    if not built:
+        raise NotImplementedError(
+            f"{prefix}: not built for R={R}, D={D} (R == D, see "
+            "stack_kernel_plan)")
+    return used, lib, prefix
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
     _launch.check("fused_stack", name, t, shape, device)
 
 
-def _check_call(lib, config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
+def _check_weights(config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
-    if not supports(c):
-        raise NotImplementedError(
-            "fused_stack needs filter_width=2 and max dilation <= "
-            f"{_T_TILE_BWD}")
-    if not lib.fused_stack_supports_width(R, D):
-        raise NotImplementedError(
-            f"the fused_stack kernel is built for R == D in (8, 16, 32); "
-            f"got R={R}, D={D}")
     dev = x.device
     _check("w_fg", w_fg, (L, 2 * R, 2 * D), dev)
     _check("wd", wd, (L, D, R), dev)
@@ -158,50 +257,56 @@ def _check_call(lib, config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
     return (ctypes.c_int * L)(*c.dilations)
 
 
-def forward(x, w_fg, wd, add, bd, config: WaveNetConfig):
+def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
     """Stack forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]).
 
-    CPU tensors run ``fused_stack_forward_reference``; CUDA tensors launch
-    the kernel or raise."""
+    CPU tensors run ``fused_stack_forward_reference`` whatever ``kernel``
+    says; CUDA tensors launch the kernel that ``stack_kernel_plan`` picks
+    ("auto") or that ``kernel`` pins ("mma", "simt"), or raise."""
+    _check_kernel(kernel)
     if not _launch.use_kernel("fused_stack", x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = x.shape[:2]
-    lib = _lib()
-    dil = _check_call(lib, c, x, w_fg, wd, bd)
+    used, lib, prefix = _route(kernel, c)
+    dil = _check_weights(c, x, w_fg, wd, bd)
     _check("x", x, (B, T, R), x.device)
     _check("add", add, (L, B, 2 * D), x.device)
     y = torch.empty_like(x)
     fg = torch.empty((B, T, L * 2 * D), dtype=torch.float32, device=x.device)
     z = torch.empty((B, T, L * D), dtype=torch.float32, device=x.device)
     xbuf = torch.empty((2, B, T, R), dtype=torch.float32, device=x.device)
-    err = lib.fused_stack_fwd_f32(
+    err = getattr(lib, f"{prefix}_fwd_f32")(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
         z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _launch.stream(x.device))
     if err != 0:
-        raise RuntimeError(f"fused_stack forward launch failed: CUDA error "
+        raise RuntimeError(f"{prefix} forward launch failed: CUDA error "
                            f"{err}")
     forward.launches += 1
+    forward.launches_by[used] += 1
     return y, fg, z
 
 
-def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
+def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
+             kernel="auto"):
     """Stack VJP -> (dx, dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
     dbd [L,1,R]).
 
-    CPU tensors run ``fused_stack_backward_reference``; CUDA tensors
-    launch the kernel or raise. The kernel sums the weight gradients in a
-    fixed order (no atomics): repeated calls are bitwise equal."""
+    CPU tensors run ``fused_stack_backward_reference`` whatever ``kernel``
+    says; CUDA tensors launch the routed or pinned kernel, as ``forward``
+    does, or raise. Both kernels sum the weight gradients in a fixed order
+    (no atomics): repeated calls are bitwise equal."""
+    _check_kernel(kernel)
     if not _launch.use_kernel("fused_stack", y):
         return fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
                                               config)
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = y.shape[:2]
-    lib = _lib()
-    dil = _check_call(lib, c, y, w_fg, wd, bd)
+    used, lib, prefix = _route(kernel, c)
+    dil = _check_weights(c, y, w_fg, wd, bd)
     dev = y.device
     for name, t, shape in (("y", y, (B, T, R)), ("dy", dy, (B, T, R)),
                            ("fg", fg, (B, T, L * 2 * D)),
@@ -214,22 +319,26 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
     dadd = torch.empty((L, B, 2 * D), **f32)
     dbd = torch.empty((L, 1, R), **f32)
     scratch = torch.empty(
-        (lib.fused_stack_bwd_scratch_floats(B, T, L, R, D),), **f32)
-    err = lib.fused_stack_bwd_f32(
+        (getattr(lib, f"{prefix}_bwd_scratch_floats")(B, T, L, R, D),), **f32)
+    err = getattr(lib, f"{prefix}_bwd_f32")(
         y.data_ptr(), dy.data_ptr(), fg.data_ptr(), dz.data_ptr(),
         w_fg.data_ptr(), wd.data_ptr(), bd.data_ptr(), ctypes.addressof(dil),
         dx.data_ptr(), dw_fg.data_ptr(), dwd.data_ptr(), dadd.data_ptr(),
         dbd.data_ptr(), scratch.data_ptr(), B, T, L, R, D, _launch.stream(dev))
     if err != 0:
-        raise RuntimeError(f"fused_stack backward launch failed: CUDA error "
+        raise RuntimeError(f"{prefix} backward launch failed: CUDA error "
                            f"{err}")
     backward.launches += 1
+    backward.launches_by[used] += 1
     return dx, dw_fg, dwd, dadd, dbd
 
 
-#: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py).
+#: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
+#: in all and by kernel ("mma", "simt").
 forward.launches = 0
 backward.launches = 0
+forward.launches_by = collections.Counter()
+backward.launches_by = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +348,11 @@ backward.launches = 0
 class _FusedStack3(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w_fg, wd, add, bd, config):
+    def forward(ctx, x, w_fg, wd, add, bd, config, kernel):
         y, fg, z = forward(x.contiguous(), w_fg.contiguous(),
                            wd.contiguous(), add.contiguous(),
-                           bd.contiguous(), config)
-        ctx.config = config
+                           bd.contiguous(), config, kernel)
+        ctx.config, ctx.kernel = config, kernel
         ctx.save_for_backward(y, fg, w_fg, wd, bd)
         return y, z
 
@@ -252,10 +361,13 @@ class _FusedStack3(torch.autograd.Function):
         y, fg, w_fg, wd, bd = ctx.saved_tensors
         dx, dw_fg, dwd, dadd, dbd = backward(
             y, dy.contiguous(), fg, dz.contiguous(), w_fg.contiguous(),
-            wd.contiguous(), bd.contiguous(), ctx.config)
-        return dx, dw_fg, dwd, dadd, dbd, None
+            wd.contiguous(), bd.contiguous(), ctx.config, ctx.kernel)
+        return dx, dw_fg, dwd, dadd, dbd, None, None
 
 
-def fused_stack3(x, w_fg, wd, add, bd, config: WaveNetConfig):
-    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D])."""
-    return _FusedStack3.apply(x, w_fg, wd, add, bd, config)
+def fused_stack3(x, w_fg, wd, add, bd, config: WaveNetConfig,
+                 kernel: str = "auto"):
+    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]);
+    ``kernel`` as in ``forward``."""
+    _check_kernel(kernel)
+    return _FusedStack3.apply(x, w_fg, wd, add, bd, config, kernel)

@@ -11,8 +11,12 @@ from __future__ import annotations
 from wavenet_torch.models.config import WaveNetConfig
 
 # NVIDIA H100 SXM (NVIDIA's data sheet), at the full 700 W: FP32 on the
-# CUDA cores (the port's f32 mode uses no TF32) and HBM3 bandwidth.
+# CUDA cores, dense TF32 on the tensor cores, and HBM3 bandwidth. f32 mode
+# uses no single-pass TF32; its tensor-core products are 3xTF32 (three
+# TF32 passes per product, ``csrc/tf32_mma.cuh``), a third of the TF32 rate.
 H100_FP32_FLOPS = 67e12
+H100_TF32_FLOPS = 495e12
+H100_TF32X3_FLOPS = H100_TF32_FLOPS / 3
 H100_HBM_BYTES_PER_S = 3.35e12
 
 
