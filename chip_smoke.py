@@ -58,7 +58,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    launches are this run's), checkpoints 4 and 8, a resume to 10 (its 2
    launches of each counted apart), a ``GenerationService`` that serves
    from the last checkpoint, and 2 steps of the tiny config on
-   ``fused_stack``.
+   ``fused_stack``. bf16 (``compute_dtype="bfloat16"``): the bf16 mode of
+   ``fused_stack_mma`` at gc b8, each forward layer from the kernel's own
+   input to it against the plain bf16 layer (worst point within 2**-5,
+   mean within 1e-4 of max |ref|), and the whole forward and backward
+   against the plain bf16 versions on the scale of their distance from
+   the plain float32 versions (mean error within the mean gap, the worst
+   within 1.5x the worst gap), bitwise
+   repeatable, timed in turns with the float32 mode beside its bound at
+   the bf16 peak; a paper b8 train step at bf16, plain and fused, against
+   the float32 step (loss within 1e-3 relative, gradients within 0.25 of
+   max |ref|) with its device breakdown; and the gc train CLI at
+   ``--compute_dtype bfloat16 --use_pallas_stack``, 8 steps, the bf16
+   mode launched every step (its ``kernels`` rows' launches).
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -169,6 +181,29 @@ STACK_CASES = (("paper", TRAIN_BATCH, TRAIN_SAMPLES, STACK_ROUTES),
 # Each layer's (or batch row's) slice of a gradient, against its own
 # max |ref|; the measured worst over whole tensors is ~1e-6.
 SLICE_RTOL = 1e-4
+# fused_stack_mma's bf16 mode against its plain bf16 version, in the working
+# type. Another float32 summation order flips a few bf16 roundings, and
+# every later layer carries a flip on, so over the 30 layers the two bf16
+# results drift apart by as much as bf16 lies from float32: at gc b8 y lay
+# 0.69 of the plain bf16 version's mean distance from float32 (chip call
+# 2, PR 11). So (1) each layer is held apart, from the kernel's own input
+# to that layer (rebuilt from its bf16 z records, no flip carried): the
+# layer's fg and z records within BF16_LAYER_MAX_RTOL of its max |ref| at
+# the worst point and BF16_LAYER_MEAN_RTOL on average, y within the
+# float32 forward tolerance of the rebuilt output; and (2) the whole
+# outputs and gradients against the plain bf16 versions on the scale of
+# their distance from the plain float32 versions: the mean error within
+# BF16_MEAN_RATIO of the mean gap, the worst within BF16_MAX_RATIO of the
+# worst gap. An indexing or rounding fault lies O(1) of the values away.
+BF16_LAYER_MAX_RTOL, BF16_LAYER_MEAN_RTOL = 2.0 ** -5, 1e-4
+BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.0, 1.5
+# A bf16 train step's loss against the float32 one on the same batch, and
+# each gradient within this share of its float32 max |ref|: bf16 rounds
+# every product's operands (2**-8 relative). At the paper config, b2 x
+# (rf + 2,000), on the CPU the bf16 loss lay 3.0e-5 (plain) / 3.2e-5
+# (fused) of itself from float32 and the gradients at most 0.068 / 0.042
+# of their max (causal_filter); a fault moves them by O(1).
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-3, 0.25
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
@@ -763,6 +798,173 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
     return results
 
 
+def hold_bf16(row, label, got, ref, ref32):
+    """A bf16-mode output against its plain bf16 version ``ref``, on the
+    scale of the plain bf16 version's distance from the plain float32 one
+    ``ref32``: the mean error within BF16_MEAN_RATIO of the mean gap, the
+    worst within BF16_MAX_RATIO of the worst gap; both recorded in
+    ``row``."""
+    import torch
+    got, ref, ref32 = got.float(), ref.float(), ref32.float()
+    where = f"{row['config']} bf16 {label}"
+    check(torch.isfinite(got).all().item(), f"{where}: non-finite output")
+    scale = ref.abs().max().item()
+    err, gap = (got - ref).abs(), (ref - ref32).abs()
+    mx, mean = err.max().item(), err.mean().item()
+    gmx, gmean = gap.max().item(), gap.mean().item()
+    row[f"max_abs_err_{label}"] = mx
+    row[f"max_rel_err_{label}"] = mx / scale
+    row[f"mean_rel_err_{label}"] = mean / scale
+    row[f"bf16_gap_max_rel_{label}"] = gmx / scale
+    row[f"bf16_gap_mean_rel_{label}"] = gmean / scale
+    check(mean <= BF16_MEAN_RATIO * gmean and mx <= BF16_MAX_RATIO * gmx,
+          f"{where}: differs from its plain bf16 version by {mx} at worst "
+          f"and {mean} on average, where the plain bf16 version lies {gmx} "
+          f"and {gmean} from float32")
+    return mx
+
+
+def teacher_forced_bf16(row, c16, args, y_k, fg_k, z_k):
+    """Each layer of the bf16 mode's forward from the kernel's own input to
+    that layer, rebuilt from its bf16 z records (which are the operands the
+    kernel multiplied): the plain bf16 layer's fg and z records against
+    the kernel's, per layer, and y against the rebuilt output; the worst
+    layer's errors recorded in ``row``."""
+    import torch
+    import torch.nn.functional as F
+    x, w_fg, wd, add, bd = args
+    D, T = c16.dilation_channels, x.shape[1]
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    w_fg_r, wd_r = r(w_fg), r(wd)
+    worst = {}
+    for l, d in enumerate(c16.dilations):
+        past = F.pad(x, (0, 0, d, 0))[:, :T]
+        fg = r(torch.cat([past, x], dim=-1)) @ w_fg_r[l] + add[l][:, None]
+        z = torch.tanh(fg[..., :D]) * torch.sigmoid(fg[..., D:])
+        zk = z_k[..., D * l:D * (l + 1)].float()
+        for name, ref, got in (("fg", fg, fg_k[..., 2 * D * l:2 * D * (l + 1)]),
+                               ("z", z, zk)):
+            ref, got = r(ref), got.float()
+            scale = ref.abs().max().item()
+            err = (got - ref).abs()
+            mx, mean = err.max().item() / scale, err.mean().item() / scale
+            w = worst.setdefault(name, [0.0, 0.0, -1])
+            if mx > w[0]:
+                w[0], w[2] = mx, l
+            w[1] = max(w[1], mean)
+        x = (x + zk @ wd_r[l]) + bd[l]
+    err, rel, ok = within(y_k, x, FWD_RTOL, FWD_ATOL)
+    row["layer_y_max_rel_err"] = rel
+    check(ok, f"gc bf16: y differs from the output rebuilt from the "
+          f"kernel's own z records by {err} ({rel} of max |ref|)")
+    for name, (mx, mean, l) in worst.items():
+        row[f"layer_max_rel_err_{name}"] = mx
+        row[f"layer_mean_rel_err_{name}"] = mean
+        check(mx <= BF16_LAYER_MAX_RTOL and mean <= BF16_LAYER_MEAN_RTOL,
+              f"gc bf16 layer {l}: the kernel's {name} record differs from "
+              f"the plain bf16 layer on its own input by {mx} of max |ref| "
+              f"at worst ({mean} on average at worst)")
+
+
+def phase_stack_bf16(c, params, rng, gpu):
+    """fused_stack_mma's bf16 mode (TPU kernel 5 at kernel_dtype bf16) at
+    gc b8 x (receptive field + 16,000): each forward layer on its own
+    input (``teacher_forced_bf16``), and forward and backward against the
+    plain bf16 versions on the scale of bf16's own distance from the
+    plain float32 versions (BF16_MEAN_RATIO, BF16_MAX_RATIO); bitwise-equal
+    repeats; timed
+    in turns with the float32 mode (f32, bf16, bf16, f32) beside its bound
+    at the bf16 peak with 2-byte records; the device ms of a call by
+    kernel."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.utils.flops import (H100_BF16_FLOPS, bound_ms,
+                                           fused_stack_cost)
+
+    c16 = dataclasses.replace(c, compute_dtype="bfloat16")
+    check(fs.stack_kernel_plan(c16) == "mma", "the bf16 route does not "
+          "take fused_stack_mma at the gc width")
+    B = TRAIN_BATCH
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    args = stack_inputs(c, params, rng, B, TRAIN_SAMPLES)
+    T = args[0].shape[1]
+    w_fg, wd, _, bd = args[1:]
+    dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
+    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                         device="cuda").to(torch.bfloat16)
+    out_p = fs.fused_stack_forward_reference(*args, c16)
+    y, fg = out_p[0], out_p[1]
+    grads_p = fs.fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
+                                                c16)
+    dz32 = dz.float()
+    out32 = fs.fused_stack_forward_reference(*args, c)
+    y32, fg32 = out32[0], out32[1]
+    grads32 = fs.fused_stack_backward_reference(y32, dy, fg32, dz32, w_fg, wd,
+                                                bd, c)
+    row = {"phase": "train_stack_bf16", "config": "gc", "batch": B,
+           "positions": T, "kernel": "mma_bf16", "gpu": gpu}
+    out_k = [fs.forward(*args, c16) for _ in range(2)]
+    grads_k = [fs.backward(y, dy, fg, dz, w_fg, wd, bd, c16)
+               for _ in range(2)]
+    torch.cuda.synchronize()
+    check(out_k[0][1].dtype == torch.bfloat16
+          and out_k[0][2].dtype == torch.bfloat16, "the bf16 mode's records "
+          "are not bf16")
+    teacher_forced_bf16(row, c16, args, *out_k[0])
+    worst = {"fwd": max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                        zip(("y", "fg", "z"), out_k[0], out_p, out32)),
+             "bwd": max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                        zip(GRAD_NAMES, grads_k[0], grads_p, grads32))}
+    for kind, pair in (("forward", out_k), ("backward", grads_k)):
+        check(all(torch.equal(a, b) for a, b in zip(*pair)),
+              f"gc bf16: two {kind} calls on the same inputs differ")
+    row["bitwise_repeat"] = True
+    del out_k, grads_k, grads32
+
+    timed = {
+        "fwd": (lambda m: fs.forward(*args, c16 if m == "bf16" else c),
+                lambda: fs.fused_stack_forward_reference(*args, c16)),
+        "bwd": (lambda m: (fs.backward(y, dy, fg, dz, w_fg, wd, bd, c16)
+                           if m == "bf16" else
+                           fs.backward(y32, dy, fg32, dz32, w_fg, wd, bd, c)),
+                lambda: fs.fused_stack_backward_reference(
+                    y, dy, fg, dz, w_fg, wd, bd, c16)),
+    }
+    results = {}
+    modes = ("f32", "bf16")
+    for kind, (kern, plain) in timed.items():
+        flops, nbytes = fused_stack_cost(c16, B, T, backward=kind == "bwd")
+        bound, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        ms = {m: [] for m in modes}
+        for _ in range(STACK_TIMED_ROUNDS):
+            for m in modes + modes[::-1]:
+                ms[m].append(cuda_ms(lambda: kern(m)))
+        ms = {m: float(np.median(v)) for m, v in ms.items()}
+        ms_p = median_cuda_ms(plain)
+        trace = device_breakdown(lambda: kern("bf16"))
+        row.update({
+            f"{kind}_ms_bf16": ms["bf16"], f"{kind}_ms_f32_mode": ms["f32"],
+            f"{kind}_plain_ms": ms_p, f"{kind}_flops": flops,
+            f"{kind}_bytes": nbytes, f"{kind}_bound_ms_bf16": bound,
+            f"{kind}_bound_by_bf16": by,
+            f"{kind}_device_ms_by_kernel_bf16":
+                trace["by_kernel"] if trace else
+                "not measured (no device events)"})
+        results[kind] = dict(config="gc", batch=B, positions=T,
+                             max_abs_err=worst[kind], ms=ms["bf16"],
+                             f32_mode_ms=ms["f32"], plain_ms=ms_p,
+                             bound_ms=bound, bound_by=by)
+    emit(row)
+    del args, dy, dz, dz32, out_p, grads_p, out32, y32, fg32
+    torch.cuda.empty_cache()
+    return results
+
+
 STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
                  "fwd_mma_kernel", "bwd_da_mma_kernel", "bwd_dx_mma_kernel",
                  "reduce_partials_kernel")
@@ -809,7 +1011,7 @@ def device_breakdown(fn):
         if base in STACK_KERNELS:
             fam["fused_stack_ms"] += ms
             stack_kernels += 1
-        elif "gemm" in name:
+        elif "gemm" in name or "nvjet" in name:   # nvjet: cuBLASLt's bf16 GEMMs
             fam["gemm_ms"] += ms
         elif "multi_tensor" in name or "adam" in name:
             fam["optimizer_ms"] += ms
@@ -898,6 +1100,85 @@ def phase_train_step(c, params, rng, gpu):
           "gpu": gpu})
 
 
+def phase_train_step_bf16(c, params, rng, gpu):
+    """A train step at compute_dtype bfloat16 at the paper config, b8 x
+    (receptive field + 16,000) (the JAX bench's train_b8 shape, bf16 as its
+    row), plain (bf16 cuBLAS GEMMs, reduced-precision reductions off) and
+    fused (fused_stack_mma's bf16 mode): each loss within BF16_LOSS_RTOL
+    and each gradient within BF16_GRAD_RTOL of max |ref| of the float32
+    plain step's; the step ms and the device breakdown (stack, GEMMs,
+    Adam, other)."""
+    import dataclasses
+    import torch
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.models.wavenet import loss_fn, matmul_precision
+
+    B, n = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / c.sample_rate
+    freqs = torch.as_tensor(rng.uniform(100, 400, (B, 1)).astype("float32"),
+                            device="cuda")
+    audio = 0.5 * torch.sin(2 * 3.14159265 * freqs * t) + 0.05 * torch.as_tensor(
+        rng.randn(B, n).astype("float32"), device="cuda")
+
+    def loss_and_grads(cfg):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        with matmul_precision(cfg):
+            loss, _ = loss_fn(leaves, cfg, audio)
+            loss.backward()
+        return loss.item(), {k: v.grad for k, v in leaves.items()}
+
+    loss32, g32 = loss_and_grads(dataclasses.replace(c,
+                                                     use_pallas_stack=False))
+    row = {"phase": "train_step_bf16", "config": "paper", "batch": B,
+           "audio_samples": n, "loss_f32_plain": loss32, "gpu": gpu}
+    for fused in (True, False):
+        label = "fused" if fused else "plain"
+        cfg = dataclasses.replace(c, use_pallas_stack=fused,
+                                  compute_dtype="bfloat16")
+        before = (dict(fs.forward.launches_by), dict(fs.backward.launches_by))
+        loss, grads = loss_and_grads(cfg)
+        check(loss == loss and abs(loss - loss32) <= BF16_LOSS_RTOL * loss32,
+              f"bf16 {label} step: loss {loss} against float32 {loss32}")
+        worst = 0.0
+        for k in sorted(g32):
+            err, rel, ok = within(grads[k], g32[k], BF16_GRAD_RTOL, 0.0)
+            check(ok and torch.isfinite(grads[k]).all().item(),
+                  f"bf16 {label} step: gradient {k} differs from float32 "
+                  f"by {err} ({rel} of max |ref|)")
+            worst = max(worst, rel)
+        state = tl.train_state_from_params(params,
+                                           tl.make_optimizer("adam", 1e-3))
+        step = tl.make_train_step(cfg)
+        step(state, audio)                               # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, m = step(state, audio)
+            m["loss"].item()
+            times.append(1e3 * (time.perf_counter() - t0))
+        trace = device_breakdown(lambda: step(state, audio)[1]["loss"].item())
+        ran = {kind: {k: v - b.get(k, 0) for k, v in now.items()
+                      if v > b.get(k, 0)}
+               for kind, b, now in zip(("fwd", "bwd"), before,
+                                       (fs.forward.launches_by,
+                                        fs.backward.launches_by))}
+        want = {"mma_bf16": 6} if fused else {}
+        check(ran["fwd"] == want and ran["bwd"] == want,
+              f"bf16 {label} step: the stack kernels ran {ran}, not {want}")
+        row.update({f"loss_{label}": loss,
+                    f"max_grad_err_over_max_f32_ref_{label}": worst,
+                    f"step_ms_{label}": sorted(times)[1],
+                    f"stack_launches_by_{label}": ran,
+                    f"device_{label}": trace or
+                    "not measured (no device events)"})
+        del state, grads
+        torch.cuda.empty_cache()
+    emit(row)
+
+
 def synth_corpus(root: str, speakers: int = 109, utterances: int = 2,
                  seconds: float = 2.0, sr: int = 16000) -> None:
     """p<speaker>_<utt>.wav: seeded sines plus noise, 16-bit PCM."""
@@ -934,7 +1215,9 @@ def phase_train_cli(c, gpu):
     """The main path of training: the train CLI with --use_pallas_stack
     (the routed stack kernel), its resume and a server from its last
     checkpoint; then a short run of the tiny config (R = D = 16:
-    ``fused_stack.cu``)."""
+    ``fused_stack.cu``); then the gc run at --compute_dtype bfloat16
+    (``fused_stack_mma``'s bf16 mode)."""
+    import numpy as np
     from wavenet_torch import train_lib as tl
     from wavenet_torch.kernels import fused_stack as fs
     from wavenet_torch.kernels import sampler as ks
@@ -1074,7 +1357,45 @@ def phase_train_cli(c, gpu):
           "residual_channels": narrow.residual_channels,
           "batch": NARROW_BATCH, "sample_size": NARROW_SAMPLES,
           "steps": NARROW_STEPS, "stack_launches_by": narrow_by, "gpu": gpu})
-    return ({"main": launches_by, "narrow": narrow_by},
+
+    # bf16: the gc run again at --compute_dtype bfloat16, a logdir of its
+    # own; the stack runs fused_stack_mma's bf16 mode every step.
+    blogdir = os.path.join(tmp, "logdir_bf16")
+    bargv = [a if a != logdir else blogdir for a in argv] + [
+        "--compute_dtype", "bfloat16", "--num_steps", str(TRAIN_STEPS)]
+    fs.forward.launches_by.clear()                      # the bf16 path
+    fs.backward.launches_by.clear()
+    t0 = time.perf_counter()
+    out = run_cli(bargv)
+    bseconds = time.perf_counter() - t0
+    bf16_by = {"fwd": dict(fs.forward.launches_by),
+               "bwd": dict(fs.backward.launches_by)}
+    check(all(v == {"mma_bf16": TRAIN_STEPS} for v in bf16_by.values()),
+          f"the bf16 train CLI ran the stack kernels {bf16_by}, not "
+          "mma_bf16 every step")
+    blosses = [float(ln.split("loss = ")[1].split(",")[0])
+               for ln in out.splitlines() if ln.startswith("step ")]
+    check(len(blosses) == TRAIN_STEPS
+          and all(x == x and abs(x) != float("inf") for x in blosses)
+          and blosses[-1] < blosses[0],
+          f"bf16 train CLI losses {blosses}: not {TRAIN_STEPS} finite, "
+          "falling values")
+    with open(os.path.join(blogdir, "metrics.jsonl")) as f:
+        bsec = [r["value"] for r in map(json.loads, f)
+                if r["tag"] == "sec_per_step"][-1]
+    with np.load(os.path.join(blogdir, f"ckpt-{TRAIN_STEPS}",
+                              "params.npz")) as z:
+        check({z[k].dtype for k in z.files} == {np.dtype(np.float32)},
+              "the bf16 run's checkpoint holds non-float32 params")
+    emit({"phase": "train_cli_bf16", "config": "gc", "batch": TRAIN_BATCH,
+          "sample_size": TRAIN_SAMPLES, "steps": TRAIN_STEPS,
+          "losses": blosses, "seconds": bseconds, "sec_per_step_last": bsec,
+          "audio_sec_per_s": TRAIN_BATCH * (c.receptive_field
+                                            + TRAIN_SAMPLES)
+          / c.sample_rate / bsec,
+          "audio_sec_per_s_f32": aps, "stack_launches_by": bf16_by,
+          "gpu": gpu})
+    return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by},
             os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
 
 
@@ -2064,7 +2385,9 @@ def main() -> int:
 
     # Phase 5: training, the main path of training.
     stack = phase_stack_kernels(cfgs, params, rng, gpu)
+    stack_bf16 = phase_stack_bf16(cfgs["gc"], params["gc"], rng, gpu)
     phase_train_step(cfgs["gc"], params["gc"], rng, gpu)
+    phase_train_step_bf16(cfgs["paper"], params["paper"], rng, gpu)
     train_launches, gc_ckpt, gc_pfile = phase_train_cli(cfgs["gc"], gpu)
 
     # Phase 6: generation, kernel 4's route and the generate CLI.
@@ -2197,6 +2520,25 @@ def main() -> int:
                             "max_abs_err_gc_b8": g["max_abs_err"],
                             "mma_ms_gc_b8": stack[("gc", kind, "mma")]["ms"]})
             kernels.append(row)
+    # fused_stack_mma's bf16 mode (kernel 5 at kernel_dtype bf16): phase 5's
+    # gc b8 check and timing, the launches of the bf16 train CLI run; its
+    # bound at the bf16 peak with 2-byte records. library_ms is null for
+    # the reason above.
+    for kind, line in (("fwd", 105), ("bwd", 276)):
+        m = stack_bf16[kind]
+        kernels.append({
+            "name": f"fused_stack_mma_bf16_{kind}", "route": "cuda",
+            "source": "wavenet_torch/csrc/fused_stack_mma.cu",
+            "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
+            "mode": "bf16", "config": m["config"], "batch": m["batch"],
+            "positions": m["positions"],
+            "launches": train_launches["bf16"][kind].get("mma_bf16", 0),
+            "launches_on": "train CLI, gc, --compute_dtype bfloat16",
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "f32_mode_ms": m["f32_mode_ms"],
+            "library_ms": None,
+            "unit": "per call (one train step's stack)", "gpu": gpu})
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.
     for name, B in SEQ_CASES:

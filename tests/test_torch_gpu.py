@@ -402,6 +402,126 @@ def test_fused_stack_rejects_bad_inputs(setup):
                  if lib.fused_stack_supports_width(W, W)) == fs.SIMT_WIDTHS
 
 
+# The mma kernel's bf16 mode against its plain bf16 version, in the working
+# type, on the scale of bf16's own distance from float32 (the plain
+# float32 version): another float32 summation order flips a few bf16
+# roundings, and every later layer carries a flip on, so the two bf16
+# results drift apart with depth. On the CPU, a float64-summed plain bf16
+# stack lay 0.01-0.05 (10 layers) and 0.04-0.25 (30 layers) of the bf16
+# gap from the float32-summed one on average, 0.02-0.64 at the worst
+# point; an indexing or rounding fault lies O(1) of the values away.
+BF16_MEAN_RATIO = 0.5
+BF16_MAX_RATIO = 1.5
+
+
+def _hold_bf16(got, ref, ref32, name):
+    got, ref, ref32 = got.float(), ref.float(), ref32.float()
+    err, gap = (got - ref).abs(), (ref - ref32).abs()
+    assert torch.isfinite(got).all(), name
+    assert err.mean() <= BF16_MEAN_RATIO * gap.mean(), (name, err.mean(),
+                                                        gap.mean())
+    assert err.max() <= BF16_MAX_RATIO * gap.max(), (name, err.max(),
+                                                     gap.max())
+
+
+def _bf16(c):
+    import dataclasses
+    return dataclasses.replace(c, compute_dtype="bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dilations,B,T", [
+    (_DIL10, 2, 1500),
+    ((512, 1, 100, 2), 3, 1000),
+    ((1, 64, 2), 1, 70),
+])
+def test_fused_stack_bf16_matches_reference(setup, dilations, B, T):
+    """The bf16 mode of fused_stack_mma against the plain bf16 versions:
+    bf16 records, float32 y and gradients; ``launches_by`` counts
+    "mma_bf16"; repeated calls are bitwise equal."""
+    c32, args, (dy, dz) = _stack_inputs(32, dilations, B, T)
+    c = _bf16(c32)
+    assert fs.stack_kernel_plan(c) == "mma"
+    f0, b0 = fs.forward.launches_by["mma_bf16"], fs.backward.launches_by[
+        "mma_bf16"]
+    y, fg, z = fs.forward(*args, c)
+    ref = fs.fused_stack_forward_reference(*args, c)
+    torch.cuda.synchronize()
+    assert fs.forward.launches_by["mma_bf16"] == f0 + 1
+    assert (y.dtype, fg.dtype, z.dtype) == (torch.float32, torch.bfloat16,
+                                            torch.bfloat16)
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    for name, got, want, want32 in zip(("y", "fg", "z"), (y, fg, z), ref,
+                                       ref32):
+        _hold_bf16(got, want, want32, name)
+    again = fs.forward(*args, c)
+    assert all(torch.equal(a, b) for a, b in zip((y, fg, z), again))
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    assert fs.backward.launches_by["mma_bf16"] == b0 + 1
+    for name, got, want, want32 in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                                       grads, gref, gref32):
+        assert got.dtype == torch.float32, name
+        _hold_bf16(got, want, want32, name)
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_fused_stack_bf16_rejects_what_it_lacks(setup):
+    c32, args, (dy, dz) = _stack_inputs(32, (1, 2), 2, 64)
+    c = _bf16(c32)
+    n = fs.forward.launches
+    with pytest.raises(NotImplementedError, match="a3"):
+        fs.forward(*args, c, kernel="simt")
+    c16, args16, _ = _stack_inputs(16, (1, 2), 2, 64)
+    with pytest.raises(NotImplementedError, match="a3 and a4"):
+        fs.forward(*args16, _bf16(c16))
+    y, fg, _ = fs.fused_stack_forward_reference(*args, c)
+    w_fg, wd, _, bd = args[1:]
+    with pytest.raises(ValueError, match="fg"):   # a float32 fg record
+        fs.backward(y, dy, fg.float(), dz, w_fg, wd, bd, c)
+    assert fs.forward.launches == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pallas", [False, True], ids=["plain", "stack"])
+def test_model_bf16_on_the_card_matches_the_cpu(setup, pallas):
+    """The model at bf16 on the card (the plain route's cuBLAS bf16 GEMMs,
+    or the stack kernel's bf16 mode) against the same model's plain bf16
+    on the CPU: its mean distance is a small part of bf16's own distance
+    from float32, and the logits come back float32."""
+    import dataclasses
+    from wavenet_torch.models import wavenet as tw
+    c32 = WaveNetConfig(dilations=(1, 2, 4, 8, 16, 1, 2, 4, 8, 16),
+                        residual_channels=32, dilation_channels=32,
+                        skip_channels=64, quantization_channels=64,
+                        gc_channels=4, gc_cardinality=4,
+                        use_pallas_stack=pallas)
+    c16 = dataclasses.replace(c32, compute_dtype="bfloat16")
+    params = init_params(0, c32, device="cpu")
+    rng = np.random.RandomState(0)
+    codes = torch.as_tensor(rng.randint(0, 64, (2, 400)))
+    ids = torch.as_tensor([1, 3])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        for name, c in (("32", c32), ("16", c16)):
+            with torch.no_grad(), tw.matmul_precision(c):
+                out[dev + name] = tw.forward_codes(
+                    p, c, codes.to(dev), tw.embed_gc(p, c, ids.to(dev))).cpu()
+    assert out["cuda16"].dtype == torch.float32
+    gap = (out["cpu16"] - out["cpu32"]).abs()
+    err = (out["cuda16"] - out["cpu16"]).abs()
+    assert err.mean() <= 0.25 * gap.mean(), (err.mean(), gap.mean())
+    assert err.max() <= gap.max(), (err.max(), gap.max())
+
+
 _GRADS =("dx", "dw", "dwd", "dadd", "dbd")
 
 

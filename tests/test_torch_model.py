@@ -12,6 +12,7 @@ import torch
 from wavenet_tpu.models import wavenet as jw
 from wavenet_tpu.models.config import WaveNetConfig as JConfig
 from wavenet_tpu.ops import conv as jconv
+from wavenet_torch.kernels import sampler as ks
 from wavenet_torch.models import wavenet as tw
 from wavenet_torch.models.config import WaveNetConfig as TConfig
 from wavenet_torch.ops import conv as tconv
@@ -118,8 +119,10 @@ def test_causal_conv_padded_matches_jax(rng):
 def test_unported_options_raise(rng):
     _, tc, _, tp = _pair()
     codes = torch.as_tensor(rng.randint(0, 32, (1, 8)))
-    with pytest.raises(NotImplementedError):
-        tw.forward_codes(tp, TConfig(**{**tc.__dict__,
+    # bf16 runs the model (tests/test_torch_bf16.py); its generation, the
+    # prefill included, is not ported yet.
+    with pytest.raises(NotImplementedError, match="step 1c"):
+        ks.prefill_carry(tp, TConfig(**{**tc.__dict__,
                                         "compute_dtype": "bfloat16"}), codes)
     with pytest.raises(NotImplementedError):
         tw.forward_codes(tp, tc, codes, lc=torch.zeros(1, 8, 2))

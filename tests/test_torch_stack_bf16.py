@@ -1,0 +1,149 @@
+"""The fused stack's plain bf16 versions against the JAX package's TPU
+kernel pair in its bf16 mode.
+
+At ``compute_dtype="bfloat16"`` the JAX model runs ``fused_stack3`` with
+``kernel_dtype = bfloat16``: bf16 weights and tap matrix, float32
+accumulation and residual, bf16 fg and z records, and a backward that
+rounds z, dx_{l+1} and da to bf16 before its products
+(``wavenet_tpu/kernels/fused_stack3.py``). ``wavenet_torch.kernels.
+fused_stack``'s plain versions round at the same points; here they are held
+against the TPU kernels run in interpret mode on the CPU, at the JAX kernel
+tests' small config (5 layers, R = D = 8), B2 x T150, gc and no gc, with
+inputs made by numpy from a seed.
+
+Tolerances: the JAX kernel's own bf16 result differs from its float32
+result by ~3e-3 of max |y| and 3e-3 to 8e-3 of max |grad| on these inputs
+(measured: y 9.5e-3 at max |y| 3.0; gradients 2.6e-3 to 7.5e-3 of their
+max). The port's bf16 is held to a tenth of that gap, and the bf16 records
+to one bf16 ulp. Measured: the two agree to float32 rounding (y within
+2.4e-7, records equal, gradients within 8.1e-5 of their max), since both
+round the same values at the same points and only the order of float32
+sums differs. The CUDA kernel's bf16 mode is held against these plain
+versions on the card (``tests/test_torch_gpu.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavenet_tpu.kernels import fused_stack3 as jfs
+from wavenet_tpu.models.wavenet import embed_gc as jembed_gc
+from wavenet_tpu.models.wavenet import init_params as jinit_params
+from wavenet_torch.kernels import fused_stack as tfs
+from wavenet_torch.models.config import WaveNetConfig as TConfig
+from wavenet_torch.params import params_from_numpy
+
+from test_fused_stack import small_cfg
+
+torch.set_num_threads(1)
+
+B, T = 2, 150   # several 64-row tiles of the JAX kernel, the last ragged
+GAP_FRACTION = 0.1      # of JAX's own bf16-vs-float32 gap
+NAMES = ("dx", "dw_fg", "dwd", "dadd", "dbd")
+
+
+def _setup(gc: bool):
+    jcfg = small_cfg(gc_channels=4 if gc else None,
+                     gc_cardinality=4 if gc else None)
+    jp = {k: np.asarray(v)
+          for k, v in jinit_params(jax.random.PRNGKey(0), jcfg).items()}
+    rng = np.random.RandomState(0)
+    for k in sorted(jp):            # init_params zeroes every bias
+        if k.endswith("_bias"):
+            jp[k] = (0.1 * rng.randn(*jp[k].shape)).astype(np.float32)
+    x = (rng.randn(B, T, jcfg.residual_channels) * 0.5).astype(np.float32)
+    ids = np.array([0, 3]) if gc else None
+    jparams = {k: jnp.asarray(v) for k, v in jp.items()}
+    jgc = None if ids is None else jembed_gc(jparams, jcfg, jnp.asarray(ids))
+    jpack = jfs.pack_stack_weights(jparams, jcfg, jgc, B)
+    tp = params_from_numpy(jp, "cpu")
+    tgc = None if ids is None else tp["gc_embedding"][torch.as_tensor(ids)]
+    c16 = TConfig(**{**{f.name: getattr(jcfg, f.name)
+                        for f in dataclasses.fields(TConfig)},
+                     "compute_dtype": "bfloat16"})
+    tpack = tfs.pack_stack_weights(tp, c16, tgc, B)
+    return jcfg, c16, x, jpack, tpack, rng
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value (2**-7 of its power-of-two floor)."""
+    e = np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.parametrize("gc", [False, True])
+def test_forward_matches_jax_bf16_kernel(gc):
+    jcfg, c, x, jpack, tpack, _ = _setup(gc)
+    L, D = c.num_layers, c.dilation_channels
+    want = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        y, fg, z = jfs.fused_stack3_forward(
+            jnp.asarray(x), *jpack, jcfg, dt, dt, 64, uniform_add=not gc,
+            interpret=True)
+        want[dt] = (np.asarray(y),
+                    np.asarray(fg.astype(jnp.float32))[:, :T, :L * 2 * D],
+                    np.asarray(z.astype(jnp.float32))[:, :T, :L * D])
+    y, fg, z = tfs.forward(torch.from_numpy(x), *tpack, c)
+    assert y.dtype == torch.float32
+    assert fg.dtype == z.dtype == torch.bfloat16
+    assert fg.shape == (B, T, L * 2 * D) and z.shape == (B, T, L * D)
+    for name, got, w16, w32 in zip(("y", "fg", "z"), (y, fg, z),
+                                   want[jnp.bfloat16], want[jnp.float32]):
+        got = got.float().numpy()
+        gap = np.abs(w16 - w32).max()
+        assert gap > 1e-3 * np.abs(w32).max(), name   # bf16 is in play
+        assert np.abs(got - w16).max() <= GAP_FRACTION * gap, name
+        if name != "y":   # the records: at most one bf16 ulp apart
+            assert np.all(np.abs(got - w16) <= _bf16_ulp(w16)), name
+
+
+@pytest.mark.parametrize("gc", [False, True])
+def test_backward_matches_jax_bf16_kernel(gc):
+    jcfg, c, x, jpack, tpack, rng = _setup(gc)
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    cy = rng.randn(B, T, R).astype(np.float32)
+    cz = rng.randn(B, T, L * D).astype(np.float32)
+    want = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        def loss(x, w_fg, wd, add, bd, dt=dt):
+            y, z = jfs.fused_stack3(x, w_fg, wd, add, bd, jcfg, dt, 64, 64,
+                                    False, True)
+            return (jnp.sum(y * cy)
+                    + jnp.sum(z[..., :L * D].astype(jnp.float32) * cz))
+        want[dt] = [np.asarray(g) for g in jax.grad(
+            loss, argnums=(0, 1, 2, 3, 4))(jnp.asarray(x), *jpack)]
+    leaves = [torch.from_numpy(x).requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for t in tpack]
+    y, z = tfs.fused_stack3(*leaves, c)
+    assert z.dtype == torch.bfloat16
+    (torch.sum(y * torch.from_numpy(cy))
+     + torch.sum(z.float() * torch.from_numpy(cz))).backward()
+    for name, leaf, w16, w32 in zip(NAMES, leaves, want[jnp.bfloat16],
+                                    want[jnp.float32]):
+        got = leaf.grad
+        assert got.dtype == torch.float32, name
+        gap = np.abs(w16 - w32).max()
+        assert gap > 1e-3 * np.abs(w32).max(), name
+        assert np.abs(got.numpy() - w16).max() <= GAP_FRACTION * gap, name
+
+
+def test_plain_bf16_backward_reads_the_records_in_bf16():
+    """The backward reads fg and dz as bf16 records: a float32 dz is
+    rounded first, as the TPU kernel's ``dz.astype(fg_dtype)``."""
+    _, c, x, _, tpack, rng = _setup(True)
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    y, fg, _ = tfs.fused_stack_forward_reference(torch.from_numpy(x), *tpack,
+                                                 c)
+    dy = torch.from_numpy(rng.randn(B, T, R).astype(np.float32))
+    dz = torch.from_numpy(rng.randn(B, T, L * D).astype(np.float32))
+    w_fg, wd, _, bd = tpack
+    a = tfs.backward(y, dy, fg, dz, w_fg, wd, bd, c)
+    b = tfs.backward(y, dy, fg, dz.to(torch.bfloat16), w_fg, wd, bd, c)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    f32 = dataclasses.replace(c, compute_dtype="float32")
+    c32 = tfs.backward(y, dy, fg.float(), dz, w_fg, wd, bd, f32)
+    assert not torch.equal(a[0], c32[0])   # the rounding is in play

@@ -458,7 +458,6 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
 
     for flag in (["--lc_channels", "4", "--lc_hop", "2"],
                  ["--model_parallelism", "2"], ["--num_processes", "2"],
-                 ["--compute_dtype", "bfloat16"],
                  ["--store_metadata", "true"], ["--histograms", "true"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(common + ["--num_steps", "6"] + flag)

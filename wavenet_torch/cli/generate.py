@@ -58,7 +58,8 @@ def get_arguments(argv=None):
     parser.add_argument("--fast_generation", type=_str_to_bool, default=True)
     parser.add_argument("--sampler_precision", type=str, default="float32",
                         choices=("float32", "bfloat16"),
-                        help="float32 only (bfloat16 is not ported yet).")
+                        help="float32 only (bfloat16 decode is not ported "
+                             "yet).")
     parser.add_argument("--sampler", type=str, default="auto",
                         choices=["auto", "pallas", "scan"],
                         help="auto/pallas: prefill + a decode kernel; "
@@ -102,7 +103,7 @@ def check_ported(args) -> None:
          or args.lc_hop is not None or args.lc_refine_width,
          "--lc_*: local conditioning", "queue 1, item 2"),
         (args.sampler_precision == "bfloat16", "--sampler_precision "
-         "bfloat16", "queue 1, item 1"),
+         "bfloat16", "queue 1, item 1, step 1c"),
     ]
     for bad, flag, owner in unported:
         if bad:

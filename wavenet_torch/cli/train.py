@@ -130,8 +130,6 @@ def check_ported(args) -> None:
          or args.num_processes is not None or args.process_id is not None,
          "--coordinator_address/--num_processes/--process_id",
          "queue 1, item 9"),
-        (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
-         "queue 1, item 1"),
         (args.store_metadata, "--store_metadata", "queue 1, item 10"),
         (args.histograms, "--histograms", "queue 1, item 10"),
     ]

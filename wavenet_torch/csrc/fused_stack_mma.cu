@@ -1,59 +1,83 @@
 // fused_stack_mma: the whole dilated stack of a training step, forward and
-// backward, on Hopper's tensor cores at float32 parity (3xTF32), for the
-// paper/gc width R = D = 32 (filter_width 2, float32 in and out).
+// backward, on Hopper's tensor cores, for the paper/gc width R = D = 32
+// (filter_width 2), in two modes of one source, the precision a template
+// parameter:
+// - f32 (float32 parity, 3xTF32; records float32): fused_stack_mma_*_f32;
+// - bf16 (bf16 operands, float32 accumulation and residual; fg and z
+//   records bf16): fused_stack_mma_*_bf16.
 //
 // Replaces, beside the FP32-core kernels of fused_stack.cu (which keep
-// widths 8 and 16), the TPU (Pallas) kernel pair of the JAX package
+// widths 8 and 16, float32 only), the TPU (Pallas) kernel pair of the JAX
+// package
 //   wavenet_tpu/kernels/fused_stack3.py:105  _fwd_kernel
 //   wavenet_tpu/kernels/fused_stack3.py:276  _bwd_kernel
-// It computes what fused_stack.cu computes: per layer l with dilation d,
+// in both of its compute dtypes. It computes what fused_stack.cu computes:
+// per layer l with dilation d,
 //   fg = [x(t-d) | x(t)] @ w_fg[l] + add[l, b]      (x(t-d) = 0 for t < d)
 //   z  = tanh(fg_f) * sigmoid(fg_g)
-//   x' = x + (z @ wd[l] + bd[l])
+//   x' = x + (z @ wd[l] + bd[l])                    (bf16: (x + z @ wd) + bd)
 // emitting y, fg [B, T, L*2D] and z [B, T, L*D]; the backward rebuilds each
 // layer's input by subtraction and sums the weight gradients from per-block
 // partials in a fixed order (no float atomics: repeated calls are bitwise
 // equal). Launches as in fused_stack.cu: L forward, 2L + 1 backward.
 //
+// bf16 mode, as the TPU kernel at kernel_dtype = bfloat16: the weights,
+// the tap matrix [x(t-d) | x(t)], z (the forward's and the one the
+// backward recomputes from the bf16 fg record), dx_{l+1} and da are
+// rounded to bf16 (to nearest even) before their products; x, y, fg's
+// float32 sum, the gate, dx and every gradient stay float32; dz is read in
+// bf16. The backward's rebuild x_l = x_{l+1} - bf16(z) @ bf16(wd) - bd
+// reads z recomputed from the fg record, as the TPU kernel does.
+//
 // What bounds it. At gc b8 x 19,071 rows the forward does 4.7e10 FLOPs
-// and moves ~1.8 GB, the backward 1.0e11 and ~1.8 GB. On the FP32 cores
-// (67 TFLOP/s) both were bound by operations, and fused_stack.cu's
-// products by shared-memory loads (4-12 loads per 16 FMAs). The TPU
-// kernel multiplies through mxu_dot at Precision.HIGHEST, a multi-pass
-// bf16 product exact to float32; its counterpart here is 3xTF32
-// (tf32_mma.cuh): 495 / 3 = 165 TFLOP/s, which leaves the forward bound
-// by bytes (0.54 ms) and the backward by operations (0.63 ms). A launch
-// per layer also moves each layer's x in and out (and, backward, da and
-// the rebuilt x between (A) and (B)) through L2 and HBM, ~100-150 MB a
-// launch at gc b8: that traffic, not the products, is what this design
-// waits on (PERF.md §6).
+// and moves ~1.8 GB in f32 (~1.0 GB in bf16: 2-byte records), the backward
+// 1.0e11 and ~1.8 GB (~1.1 GB). On the FP32 cores (67 TFLOP/s) both were
+// bound by operations, and fused_stack.cu's products by shared-memory
+// loads (4-12 loads per 16 FMAs). The TPU kernel multiplies through
+// mxu_dot: at float32, Precision.HIGHEST, a multi-pass bf16 product exact
+// to float32, whose counterpart here is 3xTF32 (tf32_mma.cuh): 495 / 3 =
+// 165 TFLOP/s, which leaves the forward bound by bytes (0.54 ms) and the
+// backward by operations (0.63 ms); at bf16 one native pass, here one bf16
+// mma.sync (bf16_mma.cuh, 989 TFLOP/s), which leaves both bound by bytes.
+// A launch per layer also moves each layer's x in and out (and, backward,
+// da and the rebuilt x between (A) and (B)) through L2 and HBM, ~100-150
+// MB a launch at gc b8 in f32: that traffic, not the products, is what
+// this design waits on (PERF.md §6).
 //
 // Design.
-// - Every product runs as mma.sync m16n8k8 TF32 in three passes (lo.hi,
-//   hi.lo, hi.hi), float32 accumulation. The weights are split once per
-//   block into hi/lo and stored in fragment order (one 16-byte load a
+// - f32: every product runs as mma.sync m16n8k8 TF32 in three passes
+//   (lo.hi, hi.lo, hi.hi), float32 accumulation. The weights are split once
+//   per block into hi/lo and stored in fragment order (one 16-byte load a
 //   lane per 8x8 fragment); activations are split as their fragments load.
 //   The passes run pass-major over a warp's n-tiles (and over two k-steps
 //   where a warp owns one tile), so that consecutive mma.sync never wait
 //   on each other's accumulator.
+// - bf16: every product runs as one mma.sync m16n8k16 bf16 pass. The
+//   weights are rounded once per block and stored in fragment order (one
+//   8-byte load a lane per 16x8 fragment); activations (float32 tiles, or
+//   the bf16 fg and da tiles) are rounded and paired along k as their
+//   fragments load, by hand for the tiles read transposed.
 // - Persistent blocks: each block walks a fixed chunk of 64-row tiles of
 //   one batch row (chunk_tiling), so a layer's weights are read ~240 times
 //   a layer, not once per tile (2,384 times at gc b8).
 // - cp.async double-buffers the next tile's rows (the current rows, the
 //   past tap x(t-d), the future gradient tap da(t+d), the fg slice),
 //   zero-filling rows outside [0, T), while the current tile multiplies.
-// - Shared row strides are 4 (mod 32) words, so row-major fragment loads
-//   are free of bank conflicts; the weight-gradient products, which read
-//   a tile transposed, take 2-way conflicts on their A operand.
+// - Shared row strides are 4 (mod 32) words (16 bytes of padding a row),
+//   so row-major fragment loads are free of bank conflicts; the
+//   weight-gradient products, which read a tile transposed, take 2-way
+//   conflicts on their A operand in f32.
 // - Eight warps a block; warp w owns rows 16 (w / 2) of the tile and half
 //   of each product's columns (the filter and gate columns a thread holds
 //   pair up, so the gate is computed in registers).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "stack_common.cuh"
 #include "tf32_mma.cuh"
 
@@ -64,14 +88,57 @@ constexpr int K1 = 2 * R, N1 = 2 * D;  // the fg product: [TM, K1] @ [K1, N1]
 constexpr int TM = 64;                 // rows (time steps of one batch row) a tile
 constexpr int NW = 8;                  // warps a block
 constexpr int NT = 32 * NW;
-constexpr int S32 = R + 4;             // row strides of 32- and 64-wide tiles:
-constexpr int S64 = N1 + 4;            //   4 (mod 32) words
+constexpr int S32 = R + 4;             // row strides of 32- and 64-wide float
+constexpr int S64 = N1 + 4;            //   tiles: 4 (mod 32) words
 static_assert(R == D && S32 % 4 == 0 && S64 % 4 == 0, "layout");
 
-// Weights as B fragments in shared memory: for k-step ks and n-tile nt,
-// lane l holds {hi(b0), hi(b1), lo(b0), lo(b1)} of B[ks*8 + l%4 (+4)]
-// [nt*8 + l/4]. ``at(k, n)`` reads B from device memory; every load of a
-// thread is issued before the first split.
+// The two modes. KS: the k of one mma.sync; W: a lane's part of a weight
+// fragment; WPER: weights a W holds; A: a lane's part of an A fragment;
+// Rec: the element of the fg and z records and of the da scratch.
+struct Tf32x3 {
+  static constexpr bool kBf16 = false;
+  static constexpr int KS = 8, WPER = 2;
+  using W = uint4;                     // {hi(b0), hi(b1), lo(b0), lo(b1)}
+  struct A { uint32_t hi[4], lo[4]; };
+  using Rec = float;
+};
+
+struct Bf16 {
+  static constexpr bool kBf16 = true;
+  static constexpr int KS = 16, WPER = 4;
+  using W = uint2;                     // {b0, b1}: bf16 pairs along k
+  struct A { uint32_t v[4]; };
+  using Rec = __nv_bfloat16;
+};
+
+// Row stride of a 64-wide tile of T elements: 16 bytes of padding a row.
+template <typename T>
+constexpr int stride64() { return N1 + 16 / (int)sizeof(T); }
+
+__device__ __forceinline__ float tof(float v) { return v; }
+__device__ __forceinline__ float tof(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Two adjacent elements as float2, and a float2 stored as two elements.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Weights as B fragments in shared memory, in fragment order. ``at(k, n)``
+// reads B from device memory; every load of a thread is issued before the
+// first split or rounding.
+// f32: for k-step ks (8) and n-tile nt, lane l holds {hi(b0), hi(b1),
+// lo(b0), lo(b1)} of B[ks*8 + l%4 (+4)][nt*8 + l/4].
 template <int K, int N, typename F>
 __device__ __forceinline__ void stage_weights(uint4* dst, F at) {
   constexpr int NTN = N / 8, IT = K * N / 2 / NT;
@@ -94,88 +161,206 @@ __device__ __forceinline__ void stage_weights(uint4* dst, F at) {
   }
 }
 
-template <int NTN>
-__device__ __forceinline__ uint4 wfrag(const uint4* w, int ks, int nt,
-                                       int lane) {
+// bf16: for k-step ks (16) and n-tile nt, lane l holds {b0, b1} =
+// {B[k, k+1][n], B[k+8, k+9][n]}, k = ks*16 + 2 (l%4), n = nt*8 + l/4.
+template <int K, int N, typename F>
+__device__ __forceinline__ void stage_weights(uint2* dst, F at) {
+  constexpr int NTN = N / 8, IT = K * N / 4 / NT;
+  static_assert(K * N / 4 == IT * NT, "weight staging");
+  float v[IT][4];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int lane = i & 31, nt = (i >> 5) % NTN, ks = (i >> 5) / NTN;
+    const int k = ks * 16 + 2 * (lane & 3), n = nt * 8 + (lane >> 2);
+    v[it][0] = at(k, n);
+    v[it][1] = at(k + 1, n);
+    v[it][2] = at(k + 8, n);
+    v[it][3] = at(k + 9, n);
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it)
+    dst[it * NT + threadIdx.x] = make_uint2(pack_bf16(v[it][0], v[it][1]),
+                                            pack_bf16(v[it][2], v[it][3]));
+}
+
+template <int NTN, typename W>
+__device__ __forceinline__ W wfrag(const W* w, int ks, int nt, int lane) {
   return w[(ks * NTN + nt) * 32 + lane];
 }
 
 // A fragment of rows m0.. and columns k0.. of a row-major tile.
 template <int S>
 __device__ __forceinline__ void afrag(const float* s, int m0, int k0, int lane,
-                                      uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                                      Tf32x3::A& a) {
   const int g = lane >> 2, q = lane & 3;
   const float* p = s + (m0 + g) * S + k0 + q;
-  tf32_split(p[0], hi[0], lo[0]);
-  tf32_split(p[8 * S], hi[1], lo[1]);
-  tf32_split(p[4], hi[2], lo[2]);
-  tf32_split(p[8 * S + 4], hi[3], lo[3]);
+  tf32_split(p[0], a.hi[0], a.lo[0]);
+  tf32_split(p[8 * S], a.hi[1], a.lo[1]);
+  tf32_split(p[4], a.hi[2], a.lo[2]);
+  tf32_split(p[8 * S + 4], a.hi[3], a.lo[3]);
+}
+
+template <int S, typename T>
+__device__ __forceinline__ void afrag(const T* s, int m0, int k0, int lane,
+                                      Bf16::A& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const T* p = s + (m0 + g) * S + k0 + 2 * q;
+  float2 v = load2(p);
+  a.v[0] = pack_bf16(v.x, v.y);
+  v = load2(p + 8 * S);
+  a.v[1] = pack_bf16(v.x, v.y);
+  v = load2(p + 8);
+  a.v[2] = pack_bf16(v.x, v.y);
+  v = load2(p + 8 * S + 8);
+  a.v[3] = pack_bf16(v.x, v.y);
 }
 
 // A fragment of the transpose: A[m][k] = s[k][m] (rows m0.., k0..).
 template <int S>
 __device__ __forceinline__ void afrag_t(const float* s, int m0, int k0,
-                                        int lane, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
+                                        int lane, Tf32x3::A& a) {
   const int g = lane >> 2, q = lane & 3;
   const float* p = s + (k0 + q) * S + m0 + g;
-  tf32_split(p[0], hi[0], lo[0]);
-  tf32_split(p[8], hi[1], lo[1]);
-  tf32_split(p[4 * S], hi[2], lo[2]);
-  tf32_split(p[4 * S + 8], hi[3], lo[3]);
+  tf32_split(p[0], a.hi[0], a.lo[0]);
+  tf32_split(p[8], a.hi[1], a.lo[1]);
+  tf32_split(p[4 * S], a.hi[2], a.lo[2]);
+  tf32_split(p[4 * S + 8], a.hi[3], a.lo[3]);
+}
+
+// bf16: the pairs along k are two rows of the tile, packed by hand.
+template <int S, typename T>
+__device__ __forceinline__ void afrag_t(const T* s, int m0, int k0, int lane,
+                                        Bf16::A& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const T* p = s + (k0 + 2 * q) * S + m0 + g;
+  a.v[0] = pack_bf16(tof(p[0]), tof(p[S]));
+  a.v[1] = pack_bf16(tof(p[8]), tof(p[S + 8]));
+  a.v[2] = pack_bf16(tof(p[8 * S]), tof(p[9 * S]));
+  a.v[3] = pack_bf16(tof(p[8 * S + 8]), tof(p[9 * S + 8]));
 }
 
 // B fragment of a row-major activation tile: B[k][n] = s[k][n].
 template <int S>
-__device__ __forceinline__ uint4 bfrag(const float* s, int k0, int n0,
-                                       int lane) {
+__device__ __forceinline__ void bfrag(const float* s, int k0, int n0,
+                                      int lane, uint4& b) {
   const int g = lane >> 2, q = lane & 3;
   const float* p = s + (k0 + q) * S + n0 + g;
-  uint4 b;
   tf32_split(p[0], b.x, b.z);
   tf32_split(p[4 * S], b.y, b.w);
-  return b;
+}
+
+template <int S, typename T>
+__device__ __forceinline__ void bfrag(const T* s, int k0, int n0, int lane,
+                                      uint2& b) {
+  const int g = lane >> 2, q = lane & 3;
+  const T* p = s + (k0 + 2 * q) * S + n0 + g;
+  b.x = pack_bf16(tof(p[0]), tof(p[S]));
+  b.y = pack_bf16(tof(p[8 * S]), tof(p[9 * S]));
+}
+
+// NJ n-tiles that share one A fragment.
+template <int NJ>
+__device__ __forceinline__ void mma_n(float (&c)[NJ][4], const Tf32x3::A& a,
+                                      const uint4 (&b)[NJ]) {
+  mma3_tf32_n(c, a.hi, a.lo, b);
+}
+
+template <int NJ>
+__device__ __forceinline__ void mma_n(float (&c)[NJ][4], const Bf16::A& a,
+                                      const uint2 (&b)[NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(c[j], a.v, b[j].x, b[j].y);
+}
+
+// Two k-steps into two accumulators (two independent chains); f32 runs
+// their passes interleaved.
+__device__ __forceinline__ void mma_2k(float (&c)[2][4], const Tf32x3::A& a0,
+                                       const uint4& b0, const Tf32x3::A& a1,
+                                       const uint4& b1) {
+  mma_tf32(c[0], a0.lo, b0.x, b0.y);
+  mma_tf32(c[1], a1.lo, b1.x, b1.y);
+  mma_tf32(c[0], a0.hi, b0.z, b0.w);
+  mma_tf32(c[1], a1.hi, b1.z, b1.w);
+  mma_tf32(c[0], a0.hi, b0.x, b0.y);
+  mma_tf32(c[1], a1.hi, b1.x, b1.y);
+}
+
+__device__ __forceinline__ void mma_2k(float (&c)[2][4], const Bf16::A& a0,
+                                       const uint2& b0, const Bf16::A& a1,
+                                       const uint2& b1) {
+  mma_bf16(c[0], a0.v, b0.x, b0.y);
+  mma_bf16(c[1], a1.v, b1.x, b1.y);
 }
 
 __device__ __forceinline__ void zero(float (&c)[4]) {
   c[0] = c[1] = c[2] = c[3] = 0.f;
 }
 
-// Rows [t0, t0 + TM) shifted by ``shift`` of a [B, T, W] row-major array
-// (row stride ``ld`` floats, column offset ``col``) into a [TM][S] tile,
-// zeros outside [0, T).
-template <int W, int S>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          size_t base, size_t ld, int col,
-                                          int t0, int shift, int T) {
-  constexpr int CH = W / 4;   // 16-byte chunks a row
+// Rows [t0, t0 + TM) shifted by ``shift`` of a [B, T, W] row-major array of
+// T elements (row stride ``ld`` elements, column offset ``col``) into a
+// [TM][S] tile, zeros outside [0, T).
+template <int W, int S, typename E>
+__device__ __forceinline__ void load_rows(E* dst, const E* src, size_t base,
+                                          size_t ld, int col, int t0,
+                                          int shift, int T) {
+  constexpr int PER = 16 / (int)sizeof(E);   // elements a 16-byte chunk
+  constexpr int CH = W / PER;                 // chunks a row
   for (int i = threadIdx.x; i < TM * CH; i += NT) {
     const int r = i / CH, c = i % CH, t = t0 + r + shift;
     const bool ok = t >= 0 && t < T;
-    cp_async16(dst + r * S + 4 * c,
-               ok ? src + (base + t) * ld + col + 4 * c : src, ok);
+    cp_async16(dst + r * S + PER * c,
+               ok ? src + (base + t) * ld + col + PER * c : src, ok);
   }
 }
+
+// Shared memory of each launch, in bytes (16-byte aligned parts).
+template <class P>
+struct Smem {
+  using W = typename P::W;
+  using Rec = typename P::Rec;
+  static constexpr int SR = stride64<Rec>();   // fg / da tile stride
+  static constexpr int kWfg = (int)sizeof(W) * K1 * N1 / P::WPER;
+  static constexpr int kWdr = (int)sizeof(W) * D * R / P::WPER;
+  static constexpr int kWb = (int)sizeof(W) * N1 * R / P::WPER;
+  static constexpr int kT32 = (int)sizeof(float) * TM * S32;
+  static constexpr int kT64 = (int)sizeof(float) * TM * S64;
+  static constexpr int kTR = (int)sizeof(Rec) * TM * SR;
+  // Forward: w_fg, wd; 2 stages of (x(t - d), x(t)); the z tile.
+  static constexpr int kFwd = kWfg + kWdr + 2 * (2 * kT32) + kT32;
+  // (A): wd, wd^T; 2 stages of (dx_{l+1}, the fg slice); z; da; and in
+  // bf16 the float32 (tanh f, sigmoid g) tile (f32 converts in place).
+  static constexpr int kAStage = kT32 + kTR;
+  static constexpr int kA = 2 * kWdr + 2 * kAStage + kT32 + kT64 +
+                            (P::kBf16 ? kT64 : 0);
+  // (B): the two transposed halves of w_fg; 2 stages of (da(t), da(t + d),
+  // x(t - d), x(t)).
+  static constexpr int kBStage = 2 * kTR + 2 * kT32;
+  static constexpr int kB = 2 * kWb + 2 * kBStage;
+  static_assert(kWfg % 16 == 0 && kWdr % 16 == 0 && kTR % 16 == 0 &&
+                kT32 % 16 == 0 && (SR * (int)sizeof(Rec)) % 16 == 0,
+                "16-byte aligned parts");
+};
 
 // ---------------------------------------------------------------------------
 // Forward: one layer. grid (chunks, B).
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdStage = 2 * TM * S32;   // x(t - d), x(t)
-constexpr int kFwdSmem = (int)sizeof(uint4) * (K1 * N1 + D * R) / 2 +
-                         (int)sizeof(float) * (2 * kFwdStage + TM * S32);
-
+template <class P>
 __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
     const float* __restrict__ x_in, float* __restrict__ x_out,
-    float* __restrict__ fg_out, float* __restrict__ z_out,
+    typename P::Rec* __restrict__ fg_out, typename P::Rec* __restrict__ z_out,
     const float* __restrict__ w_fg, const float* __restrict__ wd,
     const float* __restrict__ add, const float* __restrict__ bd, int T,
     int d, int l, int L, int tiles_per_chunk) {
+  using W = typename P::W;
+  using M = Smem<P>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* s_wfg = reinterpret_cast<uint4*>(smem_raw);   // B = w_fg [K1][N1]
-  uint4* s_wd = s_wfg + K1 * N1 / 2;                    // B = wd [D][R]
-  float* s_x = reinterpret_cast<float*>(s_wd + D * R / 2);  // 2 stages
-  float* s_z = s_x + 2 * kFwdStage;                     // [TM][S32]
+  W* s_wfg = reinterpret_cast<W*>(smem_raw);                 // B = w_fg [K1][N1]
+  W* s_wd = reinterpret_cast<W*>(smem_raw + M::kWfg);        // B = wd [D][R]
+  float* s_x = reinterpret_cast<float*>(smem_raw + M::kWfg + M::kWdr);
+  constexpr int kStage = 2 * TM * S32;                       // x(t - d), x(t)
+  float* s_z = s_x + 2 * kStage;                             // [TM][S32]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -186,7 +371,7 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
   const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
 
   auto issue = [&](int i) {
-    float* st = s_x + (i & 1) * kFwdStage;
+    float* st = s_x + (i & 1) * kStage;
     const int t0 = (tile0 + i) * TM;
     load_rows<R, S32>(st, x_in, base, R, 0, t0, -d, T);
     load_rows<R, S32>(st + TM * S32, x_in, base, R, 0, t0, 0, T);
@@ -202,7 +387,7 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();   // tile i (and the weights) visible to every warp
-    const float* past = s_x + (i & 1) * kFwdStage;
+    const float* past = s_x + (i & 1) * kStage;
     const float* cur = past + TM * S32;
     const int t0 = (tile0 + i) * TM;
 
@@ -212,14 +397,15 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) zero(acc[j]);
 #pragma unroll
-    for (int ks = 0; ks < K1 / 8; ++ks) {
-      uint32_t ah[4], al[4];
-      afrag<S32>(ks < 4 ? past : cur, 16 * mt, (ks & 3) * 8, lane, ah, al);
-      uint4 bw[4];
+    for (int ks = 0; ks < K1 / P::KS; ++ks) {
+      const int k = ks * P::KS;
+      typename P::A a;
+      afrag<S32>(k < R ? past : cur, 16 * mt, k % R, lane, a);
+      W bw[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         bw[j] = wfrag<N1 / 8>(s_wfg, ks, (j >> 1) * 4 + 2 * h + (j & 1), lane);
-      mma3_tf32_n(acc, ah, al, bw);
+      mma_n(acc, a, bw);
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -235,27 +421,27 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
         const float z1 = tanhf(f1) * sigmoidf(g1);
         *reinterpret_cast<float2*>(s_z + r * S32 + col) = make_float2(z0, z1);
         if (t < T) {
-          float* fr = fg_out + (base + t) * (size_t)(L * N1) + l * N1 + col;
-          *reinterpret_cast<float2*>(fr) = make_float2(f0, f1);
-          *reinterpret_cast<float2*>(fr + D) = make_float2(g0, g1);
-          *reinterpret_cast<float2*>(z_out + (base + t) * (size_t)(L * D) +
-                                     l * D + col) = make_float2(z0, z1);
+          typename P::Rec* fr =
+              fg_out + (base + t) * (size_t)(L * N1) + l * N1 + col;
+          store2(fr, f0, f1);
+          store2(fr + D, g0, g1);
+          store2(z_out + (base + t) * (size_t)(L * D) + l * D + col, z0, z1);
         }
       }
     }
     __syncthreads();   // the z tile is whole
 
-    // x' = x + (z @ wd + bd): n-tiles 2h, 2h + 1 of R.
+    // x' = x + (z @ wd + bd) (bf16: (x + z @ wd) + bd): n-tiles 2h, 2h + 1.
     float acc2[2][4];
     zero(acc2[0]);
     zero(acc2[1]);
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      uint32_t ah[4], al[4];
-      afrag<S32>(s_z, 16 * mt, ks * 8, lane, ah, al);
-      const uint4 bw[2] = {wfrag<R / 8>(s_wd, ks, 2 * h, lane),
-                           wfrag<R / 8>(s_wd, ks, 2 * h + 1, lane)};
-      mma3_tf32_n(acc2, ah, al, bw);
+    for (int ks = 0; ks < D / P::KS; ++ks) {
+      typename P::A a;
+      afrag<S32>(s_z, 16 * mt, ks * P::KS, lane, a);
+      const W bw[2] = {wfrag<R / 8>(s_wd, ks, 2 * h, lane),
+                       wfrag<R / 8>(s_wd, ks, 2 * h + 1, lane)};
+      mma_n(acc2, a, bw);
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -265,9 +451,13 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
         const int r = 16 * mt + g + 8 * half, t = t0 + r;
         if (t >= T) continue;
         const float2 res = *reinterpret_cast<const float2*>(cur + r * S32 + col);
-        *reinterpret_cast<float2*>(x_out + (base + t) * R + col) = make_float2(
-            res.x + (acc2[j][2 * half] + bd[col]),
-            res.y + (acc2[j][2 * half + 1] + bd[col + 1]));
+        const float m0 = acc2[j][2 * half], m1 = acc2[j][2 * half + 1];
+        float2 o;
+        if constexpr (P::kBf16)
+          o = make_float2((res.x + m0) + bd[col], (res.y + m1) + bd[col + 1]);
+        else
+          o = make_float2(res.x + (m0 + bd[col]), res.y + (m1 + bd[col + 1]));
+        *reinterpret_cast<float2*>(x_out + (base + t) * R + col) = o;
       }
     }
     __syncthreads();   // stage i & 1 and the z tile are free again
@@ -279,24 +469,28 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
 // grid (chunks, B); each block walks tiles_per_chunk tiles.
 // ---------------------------------------------------------------------------
 
-constexpr int kAStage = TM * S32 + TM * S64;   // dx_{l+1}, fg slice
-constexpr int kASmem = (int)sizeof(uint4) * D * R +
-                       (int)sizeof(float) *
-                           (2 * kAStage + TM * S32 + TM * S64);
-
+template <class P>
 __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     const float* __restrict__ x_next, const float* __restrict__ dx_next,
-    const float* __restrict__ fg, const float* __restrict__ dz,
-    const float* __restrict__ wd, const float* __restrict__ bd,
-    float* __restrict__ x_cur, float* __restrict__ da_out,
-    float* __restrict__ part_a, float* __restrict__ part_add, int T, int l,
-    int L, int tiles_per_chunk, int nchunk) {
+    const typename P::Rec* __restrict__ fg,
+    const typename P::Rec* __restrict__ dz, const float* __restrict__ wd,
+    const float* __restrict__ bd, float* __restrict__ x_cur,
+    typename P::Rec* __restrict__ da_out, float* __restrict__ part_a,
+    float* __restrict__ part_add, int T, int l, int L, int tiles_per_chunk,
+    int nchunk) {
+  using W = typename P::W;
+  using Rec = typename P::Rec;
+  using M = Smem<P>;
+  constexpr int SR = M::SR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* s_wdf = reinterpret_cast<uint4*>(smem_raw);   // B = wd [D][R]
-  uint4* s_wdt = s_wdf + D * R / 2;                     // B = wd^T [R][D]
-  float* s_st = reinterpret_cast<float*>(s_wdt + D * R / 2);  // 2 stages
-  float* s_z = s_st + 2 * kAStage;                      // [TM][S32]
-  float* s_da = s_z + TM * S32;                         // [TM][S64]
+  W* s_wdf = reinterpret_cast<W*>(smem_raw);                 // B = wd [D][R]
+  W* s_wdt = reinterpret_cast<W*>(smem_raw + M::kWdr);       // B = wd^T [R][D]
+  unsigned char* s_st = smem_raw + 2 * M::kWdr;              // 2 stages
+  float* s_z = reinterpret_cast<float*>(s_st + 2 * M::kAStage);  // [TM][S32]
+  float* s_da = s_z + TM * S32;                              // [TM][S64]
+  // (tanh f, sigmoid g) [TM][S64]: in bf16 a tile of its own, in f32 the
+  // stage's fg slice, converted in place.
+  float* s_tsb = s_da + TM * S64;
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -307,11 +501,16 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
   const int tile0 = chunk * tiles_per_chunk;
   const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
 
+  auto stage_dc = [&](int i) {
+    return reinterpret_cast<float*>(s_st + (i & 1) * M::kAStage);
+  };
+  auto stage_fg = [&](int i) {
+    return reinterpret_cast<Rec*>(s_st + (i & 1) * M::kAStage + M::kT32);
+  };
   auto issue = [&](int i) {
-    float* st = s_st + (i & 1) * kAStage;
     const int t0 = (tile0 + i) * TM;
-    load_rows<R, S32>(st, dx_next, base, R, 0, t0, 0, T);
-    load_rows<N1, S64>(st + TM * S32, fg, base, fg_ld, l * N1, t0, 0, T);
+    load_rows<R, S32>(stage_dc(i), dx_next, base, R, 0, t0, 0, T);
+    load_rows<N1, SR>(stage_fg(i), fg, base, fg_ld, l * N1, t0, 0, T);
   };
   issue(0);
   cp_async_commit();
@@ -330,18 +529,20 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* s_dc = s_st + (i & 1) * kAStage;   // [TM][S32]
-    float* s_ts = s_st + (i & 1) * kAStage + TM * S32;   // [TM][S64]
+    const float* s_dc = stage_dc(i);                          // [TM][S32]
+    const Rec* s_fg = stage_fg(i);                            // [TM][SR]
+    float* s_ts = P::kBf16 ? s_tsb : reinterpret_cast<float*>(stage_fg(i));
     const int t0 = (tile0 + i) * TM;
 
-    // fg -> (tanh f, sigmoid g) in place, and z = tanh(f) * sigmoid(g)
-    // (0 on rows past T, where fg is 0).
+    // fg -> (tanh f, sigmoid g), and z = tanh(f) * sigmoid(g) (0 on rows
+    // past T, where fg is 0).
     for (int e = tid; e < TM * D; e += NT) {
-      float* p = s_ts + (e / D) * S64 + e % D;
-      const float th = tanhf(p[0]), sg = sigmoidf(p[D]);
-      p[0] = th;
-      p[D] = sg;
-      s_z[(e / D) * S32 + e % D] = th * sg;
+      const int r = e / D, c = e % D;
+      const float th = tanhf(tof(s_fg[r * SR + c]));
+      const float sg = sigmoidf(tof(s_fg[r * SR + D + c]));
+      s_ts[r * S64 + c] = th;
+      s_ts[r * S64 + D + c] = sg;
+      s_z[r * S32 + c] = th * sg;
     }
     __syncthreads();
 
@@ -351,12 +552,12 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
       zero(acc[0]);
       zero(acc[1]);
 #pragma unroll
-      for (int ks = 0; ks < R / 8; ++ks) {
-        uint32_t ah[4], al[4];
-        afrag<S32>(s_dc, 16 * mt, ks * 8, lane, ah, al);
-        const uint4 bw[2] = {wfrag<D / 8>(s_wdt, ks, 2 * h, lane),
-                             wfrag<D / 8>(s_wdt, ks, 2 * h + 1, lane)};
-        mma3_tf32_n(acc, ah, al, bw);
+      for (int ks = 0; ks < R / P::KS; ++ks) {
+        typename P::A a;
+        afrag<S32>(s_dc, 16 * mt, ks * P::KS, lane, a);
+        const W bw[2] = {wfrag<D / 8>(s_wdt, ks, 2 * h, lane),
+                         wfrag<D / 8>(s_wdt, ks, 2 * h + 1, lane)};
+        mma_n(acc, a, bw);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -365,9 +566,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
         for (int half = 0; half < 2; ++half) {
           const int r = 16 * mt + g + 8 * half, t = t0 + r;
           float2 dzv = make_float2(0.f, 0.f);
-          if (t < T)
-            dzv = *reinterpret_cast<const float2*>(dz + (base + t) * z_ld +
-                                                   l * D + col);
+          if (t < T) dzv = load2(dz + (base + t) * z_ld + l * D + col);
           float daf[2], dag[2];
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
@@ -382,9 +581,9 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
           *reinterpret_cast<float2*>(s_da + r * S64 + D + col) =
               make_float2(dag[0], dag[1]);
           if (t < T) {
-            float* o = da_out + (base + t) * N1 + col;
-            *reinterpret_cast<float2*>(o) = make_float2(daf[0], daf[1]);
-            *reinterpret_cast<float2*>(o + D) = make_float2(dag[0], dag[1]);
+            Rec* o = da_out + (base + t) * N1 + col;
+            store2(o, daf[0], daf[1]);
+            store2(o + D, dag[0], dag[1]);
           }
         }
       }
@@ -397,12 +596,12 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
       zero(acc[0]);
       zero(acc[1]);
 #pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        uint32_t ah[4], al[4];
-        afrag<S32>(s_z, 16 * mt, ks * 8, lane, ah, al);
-        const uint4 bw[2] = {wfrag<R / 8>(s_wdf, ks, 2 * h, lane),
-                             wfrag<R / 8>(s_wdf, ks, 2 * h + 1, lane)};
-        mma3_tf32_n(acc, ah, al, bw);
+      for (int ks = 0; ks < D / P::KS; ++ks) {
+        typename P::A a;
+        afrag<S32>(s_z, 16 * mt, ks * P::KS, lane, a);
+        const W bw[2] = {wfrag<R / 8>(s_wdf, ks, 2 * h, lane),
+                         wfrag<R / 8>(s_wdf, ks, 2 * h + 1, lane)};
+        mma_n(acc, a, bw);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -422,18 +621,14 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
 
     // dwd += z^T @ dx_{l+1} over this tile's rows.
 #pragma unroll
-    for (int ks = 0; ks < TM / 8; ks += 2) {
-      uint32_t ah[2][4], al[2][4];
-      afrag_t<S32>(s_z, 16 * mw, ks * 8, lane, ah[0], al[0]);
-      afrag_t<S32>(s_z, 16 * mw, ks * 8 + 8, lane, ah[1], al[1]);
-      const uint4 b0 = bfrag<S32>(s_dc, ks * 8, 8 * nw, lane);
-      const uint4 b1 = bfrag<S32>(s_dc, ks * 8 + 8, 8 * nw, lane);
-      mma_tf32(p_wd[0], al[0], b0.x, b0.y);
-      mma_tf32(p_wd[1], al[1], b1.x, b1.y);
-      mma_tf32(p_wd[0], ah[0], b0.z, b0.w);
-      mma_tf32(p_wd[1], ah[1], b1.z, b1.w);
-      mma_tf32(p_wd[0], ah[0], b0.x, b0.y);
-      mma_tf32(p_wd[1], ah[1], b1.x, b1.y);
+    for (int ks = 0; ks < TM / P::KS; ks += 2) {
+      typename P::A a0, a1;
+      afrag_t<S32>(s_z, 16 * mw, ks * P::KS, lane, a0);
+      afrag_t<S32>(s_z, 16 * mw, ks * P::KS + P::KS, lane, a1);
+      W b0, b1;
+      bfrag<S32>(s_dc, ks * P::KS, 8 * nw, lane, b0);
+      bfrag<S32>(s_dc, ks * P::KS + P::KS, 8 * nw, lane, b1);
+      mma_2k(p_wd, a0, b0, a1, b1);
     }
     // dbd and dadd: column sums in row order.
     if (tid < R)
@@ -459,19 +654,20 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
 // Backward (B): dx_l and partial dw_fg. Same grid as (A).
 // ---------------------------------------------------------------------------
 
-constexpr int kBStage = 2 * TM * S64 + 2 * TM * S32;  // da(t), da(t+d), x(t-d), x(t)
-constexpr int kBSmem = (int)sizeof(uint4) * N1 * R +
-                       (int)sizeof(float) * 2 * kBStage;
-
+template <class P>
 __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
     const float* __restrict__ x_cur, const float* __restrict__ dx_next,
-    const float* __restrict__ da, const float* __restrict__ w_fg,
+    const typename P::Rec* __restrict__ da, const float* __restrict__ w_fg,
     float* __restrict__ dx_cur, float* __restrict__ part_w, int T, int d,
     int tiles_per_chunk, int nchunk) {
+  using W = typename P::W;
+  using Rec = typename P::Rec;
+  using M = Smem<P>;
+  constexpr int SR = M::SR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* s_wc = reinterpret_cast<uint4*>(smem_raw);   // B = w_fg[R:]^T [N1][R]
-  uint4* s_wp = s_wc + N1 * R / 2;                     // B = w_fg[:R]^T [N1][R]
-  float* s_st = reinterpret_cast<float*>(s_wp + N1 * R / 2);  // 2 stages
+  W* s_wc = reinterpret_cast<W*>(smem_raw);              // B = w_fg[R:]^T [N1][R]
+  W* s_wp = reinterpret_cast<W*>(smem_raw + M::kWb);     // B = w_fg[:R]^T [N1][R]
+  unsigned char* s_st = smem_raw + 2 * M::kWb;           // 2 stages
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -481,14 +677,20 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
   const int tile0 = chunk * tiles_per_chunk;
   const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
 
+  // Stage parts: da(t), da(t + d) [TM][SR]; x_l(t - d), x_l(t) [TM][S32].
+  auto stage_da = [&](int i, int k) {
+    return reinterpret_cast<Rec*>(s_st + (i & 1) * M::kBStage + k * M::kTR);
+  };
+  auto stage_x = [&](int i, int k) {
+    return reinterpret_cast<float*>(s_st + (i & 1) * M::kBStage +
+                                    2 * M::kTR + k * M::kT32);
+  };
   auto issue = [&](int i) {
-    float* st = s_st + (i & 1) * kBStage;
     const int t0 = (tile0 + i) * TM;
-    load_rows<N1, S64>(st, da, base, N1, 0, t0, 0, T);
-    load_rows<N1, S64>(st + TM * S64, da, base, N1, 0, t0, d, T);
-    load_rows<R, S32>(st + 2 * TM * S64, x_cur, base, R, 0, t0, -d, T);
-    load_rows<R, S32>(st + 2 * TM * S64 + TM * S32, x_cur, base, R, 0, t0, 0,
-                      T);
+    load_rows<N1, SR>(stage_da(i, 0), da, base, N1, 0, t0, 0, T);
+    load_rows<N1, SR>(stage_da(i, 1), da, base, N1, 0, t0, d, T);
+    load_rows<R, S32>(stage_x(i, 0), x_cur, base, R, 0, t0, -d, T);
+    load_rows<R, S32>(stage_x(i, 1), x_cur, base, R, 0, t0, 0, T);
   };
   issue(0);
   cp_async_commit();
@@ -506,10 +708,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* s_da = s_st + (i & 1) * kBStage;   // [TM][S64] da(t)
-    const float* s_dan = s_da + TM * S64;           // [TM][S64] da(t + d)
-    const float* s_past = s_dan + TM * S64;         // [TM][S32] x_l(t - d)
-    const float* s_cur = s_past + TM * S32;         // [TM][S32] x_l(t)
+    const Rec* s_da = stage_da(i, 0);       // da(t)
+    const Rec* s_dan = stage_da(i, 1);      // da(t + d)
+    const float* s_past = stage_x(i, 0);    // x_l(t - d)
+    const float* s_cur = stage_x(i, 1);     // x_l(t)
     const int t0 = (tile0 + i) * TM;
 
     // dx_l = dx_{l+1} + da(t) @ w_fg[R:]^T + da(t + d) @ w_fg[:R]^T
@@ -521,16 +723,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
         zero(ap[j]);
       }
 #pragma unroll
-      for (int ks = 0; ks < N1 / 8; ++ks) {
-        uint32_t ah[4], al[4], nh[4], nl[4];
-        afrag<S64>(s_da, 16 * mt, ks * 8, lane, ah, al);
-        afrag<S64>(s_dan, 16 * mt, ks * 8, lane, nh, nl);
-        const uint4 bc[2] = {wfrag<R / 8>(s_wc, ks, 2 * h, lane),
-                             wfrag<R / 8>(s_wc, ks, 2 * h + 1, lane)};
-        const uint4 bp[2] = {wfrag<R / 8>(s_wp, ks, 2 * h, lane),
-                             wfrag<R / 8>(s_wp, ks, 2 * h + 1, lane)};
-        mma3_tf32_n(ac, ah, al, bc);
-        mma3_tf32_n(ap, nh, nl, bp);
+      for (int ks = 0; ks < N1 / P::KS; ++ks) {
+        typename P::A a, n;
+        afrag<SR>(s_da, 16 * mt, ks * P::KS, lane, a);
+        afrag<SR>(s_dan, 16 * mt, ks * P::KS, lane, n);
+        const W bc[2] = {wfrag<R / 8>(s_wc, ks, 2 * h, lane),
+                         wfrag<R / 8>(s_wc, ks, 2 * h + 1, lane)};
+        const W bp[2] = {wfrag<R / 8>(s_wp, ks, 2 * h, lane),
+                         wfrag<R / 8>(s_wp, ks, 2 * h + 1, lane)};
+        mma_n(ac, a, bc);
+        mma_n(ap, n, bp);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -553,14 +755,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
       const float* cat = mt < 2 ? s_past : s_cur;
       const int m0 = 16 * (mt & 1);
 #pragma unroll
-      for (int ks = 0; ks < TM / 8; ++ks) {
-        uint32_t ah[4], al[4];
-        afrag_t<S32>(cat, m0, ks * 8, lane, ah, al);
-        uint4 bd4[4];
+      for (int ks = 0; ks < TM / P::KS; ++ks) {
+        typename P::A a;
+        afrag_t<S32>(cat, m0, ks * P::KS, lane, a);
+        W bd4[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          bd4[j] = bfrag<S64>(s_da, ks * 8, 8 * (4 * h + j), lane);
-        mma3_tf32_n(p_w, ah, al, bd4);
+          bfrag<SR>(s_da, ks * P::KS, 8 * (4 * h + j), lane, bd4[j]);
+        mma_n(p_w, a, bd4);
       }
     }
     __syncthreads();   // stage i & 1 is free again
@@ -587,12 +789,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
 // forward and (A) hold two; (B), one, runs it in two waves).
 Tiling mma_tiling(int B, int T) { return chunk_tiling(B, T, TM, 2); }
 
+template <class P>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
-                 float* fg, float* z, float* xbuf, int B, int T, int L,
-                 cudaStream_t st) {
+                 typename P::Rec* fg, typename P::Rec* z, float* xbuf, int B,
+                 int T, int L, cudaStream_t st) {
+  constexpr int smem = Smem<P>::kFwd;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+      fwd_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const Tiling tl = mma_tiling(B, T);
   const dim3 grid(tl.nchunk, B);
@@ -600,33 +804,40 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
     float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
-    fwd_mma_kernel<<<grid, NT, kFwdSmem, st>>>(in, out, fg, z, w_fg + (size_t)l * K1 * N1, wd + (size_t)l * D * R, add + (size_t)l * B * N1, bd + (size_t)l * R, T, dil[l], l, L, tl.tiles_per_chunk);
+    fwd_mma_kernel<P><<<grid, NT, smem, st>>>(in, out, fg, z, w_fg + (size_t)l * K1 * N1, wd + (size_t)l * D * R, add + (size_t)l * B * N1, bd + (size_t)l * R, T, dil[l], l, L, tl.tiles_per_chunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-int backward_impl(const float* y, const float* dy, const float* fg,
-                  const float* dz, const float* w_fg, const float* wd,
-                  const float* bd, const int* dil, float* dx, float* dw_fg,
-                  float* dwd, float* dadd, float* dbd, float* scratch, int B,
-                  int T, int L, cudaStream_t st) {
+template <class P>
+int backward_impl(const float* y, const float* dy,
+                  const typename P::Rec* fg, const typename P::Rec* dz,
+                  const float* w_fg, const float* wd, const float* bd,
+                  const int* dil, float* dx, float* dw_fg, float* dwd,
+                  float* dadd, float* dbd, float* scratch, int B, int T,
+                  int L, cudaStream_t st) {
+  using Rec = typename P::Rec;
+  using M = Smem<P>;
   const Tiling tl = mma_tiling(B, T);
   const size_t ncta = (size_t)B * tl.nchunk;
   const size_t btr = (size_t)B * T * R;
   float* xb = scratch;                               // 2 x [B, T, R]
   float* dxb = xb + 2 * btr;                         // 2 x [B, T, R]
-  float* dab = dxb + 2 * btr;                        // [B, T, 2D]
-  float* pw = dab + (size_t)B * T * N1;              // [L, ncta, 2R, 2D]
+  Rec* dab = reinterpret_cast<Rec*>(dxb + 2 * btr);  // [B, T, 2D] (the
+                                                     //   floats of f32)
+  float* pw = dxb + 2 * btr + (size_t)B * T * N1;    // [L, ncta, 2R, 2D]
   float* pa = pw + (size_t)L * ncta * K1 * N1;       // [L, ncta, D*R + R]
   float* padd = pa + (size_t)L * ncta * (D * R + R); // [L, ncta, 2D]
 
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_da_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kASmem);
+      bwd_da_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      M::kA);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(
-      bwd_dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+      bwd_dx_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      M::kB);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid(tl.nchunk, B);
@@ -635,10 +846,10 @@ int backward_impl(const float* y, const float* dy, const float* fg,
     float* x_cur = xb + (size_t)(l & 1) * btr;
     const float* dx_next = l == L - 1 ? dy : dxb + (size_t)((l + 1) & 1) * btr;
     float* dx_cur = l == 0 ? dx : dxb + (size_t)(l & 1) * btr;
-    bwd_da_mma_kernel<<<grid, NT, kASmem, st>>>(x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R, x_cur, dab, pa + (size_t)l * ncta * (D * R + R), padd + (size_t)l * ncta * N1, T, l, L, tl.tiles_per_chunk, tl.nchunk);
+    bwd_da_mma_kernel<P><<<grid, NT, M::kA, st>>>(x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R, x_cur, dab, pa + (size_t)l * ncta * (D * R + R), padd + (size_t)l * ncta * N1, T, l, L, tl.tiles_per_chunk, tl.nchunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    bwd_dx_mma_kernel<<<grid, NT, kBSmem, st>>>(x_cur, dx_next, dab, w_fg + (size_t)l * K1 * N1, dx_cur, pw + (size_t)l * ncta * K1 * N1, T, dil[l], tl.tiles_per_chunk, tl.nchunk);
+    bwd_dx_mma_kernel<P><<<grid, NT, M::kB, st>>>(x_cur, dx_next, dab, w_fg + (size_t)l * K1 * N1, dx_cur, pw + (size_t)l * ncta * K1 * N1, T, dil[l], tl.tiles_per_chunk, tl.nchunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -652,7 +863,7 @@ constexpr int kUnsupportedWidth = 1000;
 
 extern "C" {
 
-// Floats of scratch device memory the backward needs.
+// Floats of scratch device memory the backward needs (either mode).
 long long fused_stack_mma_bwd_scratch_floats(int B, int T, int L, int r,
                                              int d) {
   if (r != R || d != D) return -1;
@@ -669,8 +880,8 @@ int fused_stack_mma_fwd_f32(const float* x, const float* w_fg, const float* wd,
                             float* y, float* fg, float* z, float* xbuf, int B,
                             int T, int L, int r, int d, void* stream) {
   if (r != R || d != D) return kUnsupportedWidth;
-  return forward_impl(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L,
-                      (cudaStream_t)stream);
+  return forward_impl<Tf32x3>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B,
+                              T, L, (cudaStream_t)stream);
 }
 
 // Backward launches (2L + 1 of them); the arguments of fused_stack_bwd_f32
@@ -683,8 +894,37 @@ int fused_stack_mma_bwd_f32(const float* y, const float* dy, const float* fg,
                             float* dbd, float* scratch, int B, int T, int L,
                             int r, int d, void* stream) {
   if (r != R || d != D) return kUnsupportedWidth;
-  return backward_impl(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd,
-                       dbd, scratch, B, T, L, (cudaStream_t)stream);
+  return backward_impl<Tf32x3>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                               dwd, dadd, dbd, scratch, B, T, L,
+                               (cudaStream_t)stream);
+}
+
+// The bf16 mode: the arguments of fused_stack_mma_fwd_f32, with fg and z
+// bf16 [B, T, L*2D] and [B, T, L*D] (float32 weights, rounded in the
+// kernel).
+int fused_stack_mma_fwd_bf16(const float* x, const float* w_fg,
+                             const float* wd, const float* add,
+                             const float* bd, const int* dil, float* y,
+                             __nv_bfloat16* fg, __nv_bfloat16* z, float* xbuf,
+                             int B, int T, int L, int r, int d, void* stream) {
+  if (r != R || d != D) return kUnsupportedWidth;
+  return forward_impl<Bf16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
+                            L, (cudaStream_t)stream);
+}
+
+// The bf16 mode: the arguments of fused_stack_mma_bwd_f32, with fg and dz
+// bf16; every output float32.
+int fused_stack_mma_bwd_bf16(const float* y, const float* dy,
+                             const __nv_bfloat16* fg, const __nv_bfloat16* dz,
+                             const float* w_fg, const float* wd,
+                             const float* bd, const int* dil, float* dx,
+                             float* dw_fg, float* dwd, float* dadd, float* dbd,
+                             float* scratch, int B, int T, int L, int r,
+                             int d, void* stream) {
+  if (r != R || d != D) return kUnsupportedWidth;
+  return backward_impl<Bf16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                             dwd, dadd, dbd, scratch, B, T, L,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

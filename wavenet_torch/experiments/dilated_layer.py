@@ -214,5 +214,6 @@ def fused_dilated_layer(x, w, wd, add, bd, dilation: int,
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_dilated_layer runs float32 only; compute_dtype="
-            f"{compute_dtype} is queued in ROADMAP.md (queue item 1, bf16)")
+            f"{compute_dtype} is queued in ROADMAP.md (queue item 1, bf16: "
+            "queue 2, a3)")
     return _FusedDilatedLayer.apply(x, w, wd, add, bd, dilation)

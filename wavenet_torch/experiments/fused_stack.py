@@ -109,6 +109,7 @@ def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     if c.filter_width != 2:
         raise NotImplementedError("fused_stack_carry needs filter_width=2")
+    _stack.require_float32(c, "fused_stack_carry")
     if not lib.fused_stack_carry_supports(R, D, L):
         raise NotImplementedError(
             "the fused_stack_carry kernel is built for R == D in (8, 16, 32) "
@@ -245,4 +246,5 @@ class _FusedStack(torch.autograd.Function):
 
 def fused_stack(x, w_fg, wd, add, bd, config: WaveNetConfig):
     """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D])."""
+    _stack.require_float32(config, "fused_stack (pallas_stack_version 1)")
     return _FusedStack.apply(x, w_fg, wd, add, bd, config)

@@ -121,4 +121,5 @@ class _FusedStack2(torch.autograd.Function):
 def fused_stack2(x, w_fg, wd, add, bd, config: WaveNetConfig):
     """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]); z comes
     from the kernel."""
+    _stack.require_float32(config, "fused_stack2 (pallas_stack_version 2)")
     return _FusedStack2.apply(x, w_fg, wd, add, bd, config)

@@ -17,13 +17,15 @@ def use_kernel(op: str, t: torch.Tensor) -> bool:
     return True
 
 
-def check(op: str, name: str, t: torch.Tensor, shape, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+def check(op: str, name: str, t: torch.Tensor, shape, device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``."""
-    if (t.dtype != torch.float32 or t.device != device
+    if (t.dtype != dtype or t.device != device
             or tuple(t.shape) != tuple(shape)):
         raise ValueError(
-            f"{op}: {name} must be float32 {tuple(shape)} on {device}, got "
+            f"{op}: {name} must be {str(dtype).split('.')[-1]} "
+            f"{tuple(shape)} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")

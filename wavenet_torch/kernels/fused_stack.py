@@ -27,6 +27,16 @@ each counts its kernel launches in ``forward.launches`` /
 ``backward.launches`` (one per call: the call runs L kernels forward,
 2L + 1 backward) and by kernel in ``launches_by``. ``mma3_matmul`` repeats
 the mma kernel's product arithmetic in plain PyTorch, for the tests.
+
+The stack computes in the config's ``compute_dtype``. At "bfloat16" it
+rounds where the TPU kernel does (``fused_stack3.py`` with
+``kernel_dtype = bfloat16``): the weights, the tap matrix ``[x(t-d) | x(t)]``
+and the gate output z are rounded to bf16 before each product, which
+accumulates in float32; the residual x, y, dx and every gradient stay
+float32, and the fg and z records are bf16 tensors. The backward reads
+dz in bf16 and rounds dx_{l+1}, the rebuilt layer input and da to bf16
+before their products. Only the mma kernel has a bf16 mode (one bf16
+``mma.sync`` pass a product, ``csrc/bf16_mma.cuh``), at R == D == 32.
 """
 
 from __future__ import annotations
@@ -48,12 +58,16 @@ _LANE = 128
 
 #: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
 KERNEL_CHOICES = ("auto", "mma", "simt")
-#: Widths (R == D) each kernel source is built for, at float32.
+#: Widths (R == D) each kernel source is built for, at float32 (the mma
+#: kernel's bf16 mode has the same width).
 MMA_WIDTHS = (32,)
 SIMT_WIDTHS = (8, 16, 32)
+#: The compute dtypes of a stack, and the record dtype of each.
+RECORD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SOURCES = {"mma": "fused_stack_mma", "simt": "fused_stack"}
 
-__all__ = ["supports", "stack_kernel_plan", "fused_stack_forward_reference",
+__all__ = ["supports", "stack_kernel_plan", "record_dtype", "launch_key",
+           "require_float32", "fused_stack_forward_reference",
            "fused_stack_backward_reference", "mma3_matmul", "forward",
            "backward", "fused_stack3", "pack_stack_weights", "tap_offsets"]
 
@@ -71,14 +85,33 @@ def supports(config: WaveNetConfig, t_tile: int = _T_TILE_BWD) -> bool:
             and c.filter_width == 2 and max(c.dilations) <= t_tile)
 
 
+def record_dtype(config: WaveNetConfig) -> torch.dtype:
+    """The dtype of the fg and z records: the compute dtype."""
+    try:
+        return RECORD_DTYPES[config.compute_dtype]
+    except KeyError:
+        raise ValueError(f"fused_stack: compute_dtype "
+                         f"{config.compute_dtype!r}: one of "
+                         f"{tuple(RECORD_DTYPES)}") from None
+
+
 def stack_kernel_plan(config: WaveNetConfig) -> str:
-    """The kernel that runs a stack of ``config`` on the card (both take
-    float32 only): "mma" at R == D == 32 (the paper and gc widths, where
-    the chip run timed it faster than "simt" in both directions), "simt"
-    at the other widths ``csrc/fused_stack.cu`` is built for; raises for
-    any other width (ROADMAP.md queue 2, a4). The simt library's own
+    """The kernel that runs a stack of ``config`` on the card, by width and
+    compute dtype. At float32: "mma" at R == D == 32 (the paper and gc
+    widths, where the chip run timed it faster than "simt" in both
+    directions), "simt" at the other widths ``csrc/fused_stack.cu`` is
+    built for. At bfloat16: "mma" in its bf16 mode at R == D == 32, the
+    only bf16 stack kernel. Raises for any other width (ROADMAP.md queue
+    2, a4; at bf16, a3 and a4). The simt library's own
     ``fused_stack_supports_width`` is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
+    if record_dtype(config) == torch.bfloat16:
+        if R == D and R in MMA_WIDTHS:
+            return "mma"
+        raise NotImplementedError(
+            f"the bf16 fused_stack kernel is built for R == D in "
+            f"{MMA_WIDTHS}; got R={R}, D={D} (ROADMAP.md queue 2, a3 and "
+            "a4)")
     if R == D and R in MMA_WIDTHS:
         return "mma"
     if R == D and R in SIMT_WIDTHS:
@@ -86,6 +119,14 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     raise NotImplementedError(
         f"the fused_stack kernels are built for R == D in {SIMT_WIDTHS}; "
         f"got R={R}, D={D}")
+
+
+def require_float32(config: WaveNetConfig, op: str) -> None:
+    """Raise for a bf16 config in an op that has no bf16 mode."""
+    if record_dtype(config) != torch.float32:
+        raise NotImplementedError(
+            f"{op} runs float32 only; its bf16 mode is queued in "
+            "ROADMAP.md (queue 2, a3)")
 
 
 # ---------------------------------------------------------------------------
@@ -97,22 +138,42 @@ def _past(x: torch.Tensor, d: int) -> torch.Tensor:
     return F.pad(x, (0, 0, d, 0))[:, :x.shape[1]]
 
 
+def _rounding(config: WaveNetConfig):
+    """What the stack does to a product's operand: at bf16, round it to
+    bf16 and back to float32 (to nearest even, as ``astype``), so that a
+    float32 product of two operands is the bf16 product, exact; at float32
+    nothing."""
+    if record_dtype(config) == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).to(t.dtype)
+    return lambda t: t
+
+
 @torch.no_grad()
 def fused_stack_forward_reference(x, w_fg, wd, add, bd,
                                   config: WaveNetConfig, matmul=torch.matmul):
-    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]). Every
-    product goes through ``matmul`` (``mma3_matmul`` repeats the mma
-    kernel's arithmetic)."""
+    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]); fg and z
+    in the record dtype. Every product goes through ``matmul``
+    (``mma3_matmul`` repeats the mma kernel's arithmetic) on operands
+    rounded as the config's compute dtype says."""
     D = config.dilation_channels
+    bf16 = record_dtype(config) == torch.bfloat16
+    rnd = _rounding(config)
+    w_fg, wd = rnd(w_fg), rnd(wd)
     fgs, zs = [], []
     for l, d in enumerate(config.dilations):
-        fg = matmul(torch.cat([_past(x, d), x], dim=-1), w_fg[l]) \
+        fg = matmul(rnd(torch.cat([_past(x, d), x], dim=-1)), w_fg[l]) \
             + add[l][:, None]
         z = torch.tanh(fg[..., :D]) * torch.sigmoid(fg[..., D:])
-        x = x + (matmul(z, wd[l]) + bd[l])
+        if bf16:     # the TPU kernel's order: (x + z @ wd) + bd
+            x = (x + matmul(rnd(z), wd[l])) + bd[l]
+        else:
+            x = x + (matmul(z, wd[l]) + bd[l])
         fgs.append(fg)
         zs.append(z)
-    return x, torch.cat(fgs, dim=-1), torch.cat(zs, dim=-1)
+    fg, z = torch.cat(fgs, dim=-1), torch.cat(zs, dim=-1)
+    if bf16:
+        fg, z = fg.to(torch.bfloat16), z.to(torch.bfloat16)
+    return x, fg, z
 
 
 def _contract_rows(u, v, matmul):
@@ -129,12 +190,16 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
                                    matmul=torch.matmul):
     """Plain backward: an explicit reverse sweep over the layers (not
     autograd) that rebuilds each layer's input by subtraction, every
-    product through ``matmul``.
+    product through ``matmul``, its operands rounded as the compute dtype
+    says (the records fg and dz are read in their own dtype).
     -> (dx [B,T,R], dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
     dbd [L,1,R])."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     T = y.shape[1]
+    rnd = _rounding(c)
+    fg, dz = fg.to(y.dtype), rnd(dz.to(y.dtype))
+    w_fg_r, wd_r = rnd(w_fg), rnd(wd)
     x, dcur = y.clone(), dy.clone()
     dw_fg = torch.empty_like(w_fg)
     dwd = torch.empty_like(wd)
@@ -145,16 +210,18 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
         d = c.dilations[l]
         t_ = torch.tanh(fg[..., 2 * D * l:2 * D * l + D])
         s_ = torch.sigmoid(fg[..., 2 * D * l + D:2 * D * (l + 1)])
-        z = t_ * s_
-        dwd[l] = _contract_rows(z, dcur, matmul)
+        z = rnd(t_ * s_)
+        dc = rnd(dcur)
+        dwd[l] = _contract_rows(z, dc, matmul)
         dbd[l, 0] = dcur.sum(dim=(0, 1))
-        dzt = dz[..., D * l:D * (l + 1)] + matmul(dcur, wd[l].T)
+        dzt = dz[..., D * l:D * (l + 1)] + matmul(dc, wd_r[l].T)
         da = torch.cat([dzt * s_ * (1.0 - t_ * t_),
                         dzt * t_ * s_ * (1.0 - s_)], dim=-1)
-        x = (x - matmul(z, wd[l])) - bd[l]
-        dw_fg[l] = _contract_rows(torch.cat([_past(x, d), x], dim=-1), da,
-                                  matmul)
-        tmp = matmul(da, w_fg[l].T)                          # [B, T, 2R]
+        x = (x - matmul(z, wd_r[l])) - bd[l]
+        da_r = rnd(da)
+        dw_fg[l] = _contract_rows(rnd(torch.cat([_past(x, d), x], dim=-1)),
+                                  da_r, matmul)
+        tmp = matmul(da_r, w_fg_r[l].T)                      # [B, T, 2R]
         dcur = dcur + tmp[..., R:]
         if d < T:
             dcur[:, :T - d] += tmp[:, d:, :R]
@@ -199,7 +266,8 @@ def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _lib(kernel: str):
     """The loaded library of ``kernel`` ("mma" or "simt") and the prefix
-    of its C functions; both take the same arguments."""
+    of its C functions; every mode takes the same arguments (the mma
+    kernel's ``_bf16`` entry points take bf16 fg and z records)."""
     from wavenet_torch.kernels import _build
     name = _SOURCES[kernel]
     lib = _build.load(name)
@@ -209,10 +277,11 @@ def _lib(kernel: str):
         lib.fused_stack_supports_width.restype = i
     getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i] * 5
     getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
-    getattr(lib, f"{name}_fwd_f32").argtypes = [p] * 10 + [i] * 5 + [p]
-    getattr(lib, f"{name}_fwd_f32").restype = i
-    getattr(lib, f"{name}_bwd_f32").argtypes = [p] * 14 + [i] * 5 + [p]
-    getattr(lib, f"{name}_bwd_f32").restype = i
+    for mode in ("f32", "bf16") if kernel == "mma" else ("f32",):
+        getattr(lib, f"{name}_fwd_{mode}").argtypes = [p] * 10 + [i] * 5 + [p]
+        getattr(lib, f"{name}_fwd_{mode}").restype = i
+        getattr(lib, f"{name}_bwd_{mode}").argtypes = [p] * 14 + [i] * 5 + [p]
+        getattr(lib, f"{name}_bwd_{mode}").restype = i
     return lib, name
 
 
@@ -222,16 +291,31 @@ def _check_kernel(kernel: str) -> None:
                          f"{KERNEL_CHOICES}")
 
 
+def launch_key(kernel: str, config: WaveNetConfig) -> str:
+    """The ``launches_by`` key of a launch of ``kernel`` ("mma", "simt")
+    for ``config``: the kernel, with "_bf16" for the mma kernel's bf16
+    mode."""
+    return kernel + ("_bf16" if record_dtype(config) == torch.bfloat16
+                     else "")
+
+
 def _route(kernel: str, config: WaveNetConfig):
     """The kernel a call runs (``stack_kernel_plan``'s for "auto", else the
-    pinned one), its library and the prefix of its C functions; raises at
-    a width the kernel is not built for (the simt library says which)."""
+    pinned one), its library and the C function of its mode (e.g.
+    ``fused_stack_mma_fwd_bf16`` without the direction); raises at a width
+    or dtype the kernel is not built for (the simt library says which
+    widths), with no fallback to the other kernel."""
     c = config
     if not supports(c):
         raise NotImplementedError(
             "fused_stack needs filter_width=2 and max dilation <= "
             f"{_T_TILE_BWD}")
     used = stack_kernel_plan(c) if kernel == "auto" else kernel
+    bf16 = record_dtype(c) == torch.bfloat16
+    if bf16 and used != "mma":
+        raise NotImplementedError(
+            f"{_SOURCES[used]} has no bf16 mode; at bf16 the stack runs "
+            "fused_stack_mma (ROADMAP.md queue 2, a3)")
     lib, prefix = _lib(used)
     R, D = c.residual_channels, c.dilation_channels
     built = (lib.fused_stack_supports_width(R, D) if used == "simt"
@@ -240,11 +324,12 @@ def _route(kernel: str, config: WaveNetConfig):
         raise NotImplementedError(
             f"{prefix}: not built for R={R}, D={D} (R == D, see "
             "stack_kernel_plan)")
-    return used, lib, prefix
+    return used, lib, prefix, "bf16" if bf16 else "f32"
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    _launch.check("fused_stack", name, t, shape, device)
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
+    _launch.check("fused_stack", name, t, shape, device, dtype)
 
 
 def _check_weights(config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
@@ -258,7 +343,9 @@ def _check_weights(config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
 
 
 def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
-    """Stack forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]).
+    """Stack forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]); fg and z
+    in the record dtype (``record_dtype``), every input float32 (the
+    weights are rounded to bf16 in the kernel, at bf16).
 
     CPU tensors run ``fused_stack_forward_reference`` whatever ``kernel``
     says; CUDA tensors launch the kernel that ``stack_kernel_plan`` picks
@@ -269,15 +356,16 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = x.shape[:2]
-    used, lib, prefix = _route(kernel, c)
+    used, lib, prefix, mode = _route(kernel, c)
     dil = _check_weights(c, x, w_fg, wd, bd)
     _check("x", x, (B, T, R), x.device)
     _check("add", add, (L, B, 2 * D), x.device)
+    rec = dict(dtype=record_dtype(c), device=x.device)
     y = torch.empty_like(x)
-    fg = torch.empty((B, T, L * 2 * D), dtype=torch.float32, device=x.device)
-    z = torch.empty((B, T, L * D), dtype=torch.float32, device=x.device)
+    fg = torch.empty((B, T, L * 2 * D), **rec)
+    z = torch.empty((B, T, L * D), **rec)
     xbuf = torch.empty((2, B, T, R), dtype=torch.float32, device=x.device)
-    err = getattr(lib, f"{prefix}_fwd_f32")(
+    err = getattr(lib, f"{prefix}_fwd_{mode}")(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
         z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _launch.stream(x.device))
@@ -285,14 +373,15 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
         raise RuntimeError(f"{prefix} forward launch failed: CUDA error "
                            f"{err}")
     forward.launches += 1
-    forward.launches_by[used] += 1
+    forward.launches_by[launch_key(used, c)] += 1
     return y, fg, z
 
 
 def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
              kernel="auto"):
     """Stack VJP -> (dx, dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
-    dbd [L,1,R]).
+    dbd [L,1,R]), all float32; fg in the record dtype, dz read in it (a
+    float32 dz is rounded to bf16 at bf16, as the TPU kernel reads it).
 
     CPU tensors run ``fused_stack_backward_reference`` whatever ``kernel``
     says; CUDA tensors launch the routed or pinned kernel, as ``forward``
@@ -305,13 +394,17 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = y.shape[:2]
-    used, lib, prefix = _route(kernel, c)
+    used, lib, prefix, mode = _route(kernel, c)
     dil = _check_weights(c, y, w_fg, wd, bd)
     dev = y.device
-    for name, t, shape in (("y", y, (B, T, R)), ("dy", dy, (B, T, R)),
-                           ("fg", fg, (B, T, L * 2 * D)),
-                           ("dz", dz, (B, T, L * D))):
-        _check(name, t, shape, dev)
+    rec = record_dtype(c)
+    dz = dz.to(rec).contiguous()
+    for name, t, shape, dtype in (
+            ("y", y, (B, T, R), torch.float32),
+            ("dy", dy, (B, T, R), torch.float32),
+            ("fg", fg, (B, T, L * 2 * D), rec),
+            ("dz", dz, (B, T, L * D), rec)):
+        _check(name, t, shape, dev, dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((B, T, R), **f32)
     dw_fg = torch.empty((L, 2 * R, 2 * D), **f32)
@@ -320,7 +413,7 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
     dbd = torch.empty((L, 1, R), **f32)
     scratch = torch.empty(
         (getattr(lib, f"{prefix}_bwd_scratch_floats")(B, T, L, R, D),), **f32)
-    err = getattr(lib, f"{prefix}_bwd_f32")(
+    err = getattr(lib, f"{prefix}_bwd_{mode}")(
         y.data_ptr(), dy.data_ptr(), fg.data_ptr(), dz.data_ptr(),
         w_fg.data_ptr(), wd.data_ptr(), bd.data_ptr(), ctypes.addressof(dil),
         dx.data_ptr(), dw_fg.data_ptr(), dwd.data_ptr(), dadd.data_ptr(),
@@ -329,12 +422,12 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
         raise RuntimeError(f"{prefix} backward launch failed: CUDA error "
                            f"{err}")
     backward.launches += 1
-    backward.launches_by[used] += 1
+    backward.launches_by[launch_key(used, c)] += 1
     return dx, dw_fg, dwd, dadd, dbd
 
 
 #: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
-#: in all and by kernel ("mma", "simt").
+#: in all and by kernel and mode ("mma", "mma_bf16", "simt").
 forward.launches = 0
 backward.launches = 0
 forward.launches_by = collections.Counter()
@@ -367,7 +460,8 @@ class _FusedStack3(torch.autograd.Function):
 
 def fused_stack3(x, w_fg, wd, add, bd, config: WaveNetConfig,
                  kernel: str = "auto"):
-    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]);
-    ``kernel`` as in ``forward``."""
+    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]), z in the
+    record dtype (its cotangent comes back in it); ``kernel`` as in
+    ``forward``."""
     _check_kernel(kernel)
     return _FusedStack3.apply(x, w_fg, wd, add, bd, config, kernel)

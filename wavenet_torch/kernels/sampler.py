@@ -117,11 +117,23 @@ def zero_state(config: WaveNetConfig, batch_size: int, device=None):
     return ring, causal
 
 
+_BF16_DECODE = "ROADMAP.md queue 1, item 1, step 1c (bf16 decode)"
+
+
 def _require_float32(weight_dtype) -> None:
     if weight_dtype not in (None, torch.float32):
         raise NotImplementedError(
             "sampler_decode runs float32 weights only; bf16 weights are "
-            "queued in ROADMAP.md ('bf16 weights in sampler_decode')")
+            f"queued in {_BF16_DECODE}")
+
+
+def require_float32_generation(config: WaveNetConfig) -> None:
+    """Generation (prefill and decode) runs float32 only: raise for a
+    config that computes in bf16, which the model and training take."""
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"generation runs float32 only; compute_dtype="
+            f"{config.compute_dtype!r} is queued in {_BF16_DECODE}")
 
 
 def pack_sampler_weights(params: Params, config: WaveNetConfig,
@@ -239,6 +251,7 @@ def prefill_carry(params: Params, config: WaveNetConfig,
     c = config
     if c.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
+    require_float32_generation(c)
     seed_codes = seed_codes.to(input_dtype(c))
     B, T = seed_codes.shape
     last = seed_codes[:, -1].contiguous()
@@ -934,6 +947,7 @@ def _check_generation(config: WaveNetConfig, weight_dtype) -> None:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "item 2, 'LC in sampler_decode')")
+    require_float32_generation(config)
     _require_float32(weight_dtype)
 
 

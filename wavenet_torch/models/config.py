@@ -36,8 +36,9 @@ class WaveNetConfig:
     # upsampling refinement width (0 = off).
     lc_channels: Optional[int] = None
     lc_refine_width: int = 0
-    # Kept so both packages accept the same keyword set; the port runs
-    # float32 only (bf16 and the rest are queued in ROADMAP.md).
+    # "float32" or "bfloat16" (bf16 matmul operands and activations,
+    # float32 params): the model and training take both; generation runs
+    # float32 only (bf16 decode is queued in ROADMAP.md).
     compute_dtype: str = "float32"
     remat: bool = False
     use_pallas_stack: bool = False

@@ -24,10 +24,18 @@ dilated stack runs through a hand-written CUDA kernel pair:
 ``kernels/fused_stack.py`` (``pallas_stack_version`` 3) or one of the
 retired generations in ``experiments/`` (versions 1 and 2). LC (and its
 refinement) is queued in ROADMAP.md.
+
+``compute_dtype="bfloat16"`` follows the JAX package's two routes. The
+plain route casts the weights, biases, GC embedding and network input to
+bf16 (``_maybe_cast``, at the JAX package's points), so every activation,
+the residual included, is bf16; the stack route keeps the residual in
+float32 inside the kernel and returns bf16 gate outputs. Both heads run
+in bf16 and return float32 logits; params stay float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -159,13 +167,57 @@ def _embed_rows(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 
 def _check_supported(c: WaveNetConfig, lc) -> None:
-    if c.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the port runs float32 only; bf16 is queued in ROADMAP.md")
+    if c.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {c.compute_dtype!r}: float32 or "
+                         "bfloat16")
     if lc is not None or c.lc_enabled:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "'LC in sampler_decode')")
+
+
+def _maybe_cast(x: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
+    """``x`` in bf16 when the config computes in bf16 (the JAX package's
+    ``_maybe_cast``), else as it is. The model casts at exactly the JAX
+    package's points, not through ``torch.autocast``: the weights, biases,
+    GC embedding and network input, so every product takes bf16 operands
+    and every activation, the residual included, is bf16. Params (and
+    their gradients) stay float32."""
+    if config.compute_dtype == "bfloat16":
+        return x.to(torch.bfloat16)
+    return x
+
+
+def _bf16_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it in bf16: 1 / (1 + exp(-x)),
+    each op rounded to bf16 (``torch.sigmoid`` rounds once, from float32)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _gate(conv_filter: torch.Tensor, conv_gate: torch.Tensor):
+    """tanh(filter) * sigmoid(gate); in bf16 the sigmoid is XLA's."""
+    if conv_gate.dtype == torch.bfloat16:
+        return torch.tanh(conv_filter) * _bf16_sigmoid(conv_gate)
+    return torch.tanh(conv_filter) * torch.sigmoid(conv_gate)
+
+
+@contextlib.contextmanager
+def matmul_precision(config: WaveNetConfig):
+    """bf16 products accumulated in float32 on the card, as XLA does:
+    PyTorch lets cuBLAS reduce bf16 GEMMs in reduced precision by default
+    (``allow_bf16_reduced_precision_reduction``), so a bf16 config turns
+    that off for the block and restores it after. Wrap the forward and the
+    backward of a bf16 step in it; float32 configs change nothing."""
+    if config.compute_dtype != "bfloat16":
+        yield
+        return
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = saved
 
 
 def forward(params: Params, config: WaveNetConfig,
@@ -179,11 +231,15 @@ def forward(params: Params, config: WaveNetConfig,
     Output position t is the prediction for input position t+1. With
     ``collect_layer_inputs`` it returns, instead of logits, the list of
     each layer's last ``collect_layer_inputs[l]`` input positions (the
-    sampler prefill's ring contents).
+    sampler prefill's ring contents), in float32.
+
+    At ``compute_dtype="bfloat16"`` the input and weights are cast to bf16
+    (``_maybe_cast``) and the logits come back in float32.
     """
     _check_supported(config, lc)
-    current = causal_conv_padded(network_input.to(torch.float32),
-                                 params["causal_filter"], dilation=1)
+    current = causal_conv_padded(
+        _maybe_cast(network_input.to(torch.float32), config),
+        _maybe_cast(params["causal_filter"], config), dilation=1)
     return _dilated_stack(params, config, current, gc_embedding, head_from,
                           collect_layer_inputs)
 
@@ -199,10 +255,14 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
         return _dilated_stack_pallas(params, c, current, gc_embedding,
                                      head_from)
     D = c.dilation_channels
+    gc = None if gc_embedding is None else _maybe_cast(gc_embedding, c)
+
+    def p(key, i):
+        return _maybe_cast(params[key][i], c)
 
     def layer_fn(current, i):
         dilation = c.dilations[i]
-        w_f, w_g = params["filter"][i], params["gate"][i]
+        w_f, w_g = p("filter", i), p("gate", i)
         if c.merged_filter_gate:
             conv_fg = causal_conv_padded(current, torch.cat([w_f, w_g], -1),
                                          dilation)
@@ -210,18 +270,16 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
         else:
             conv_filter = causal_conv_padded(current, w_f, dilation)
             conv_gate = causal_conv_padded(current, w_g, dilation)
-        if gc_embedding is not None:
-            conv_filter = conv_filter + (
-                gc_embedding @ params["gc_filter"][i])[:, None, :]
-            conv_gate = conv_gate + (
-                gc_embedding @ params["gc_gate"][i])[:, None, :]
+        if gc is not None:
+            conv_filter = conv_filter + (gc @ p("gc_filter", i))[:, None, :]
+            conv_gate = conv_gate + (gc @ p("gc_gate", i))[:, None, :]
         if c.use_biases:
-            conv_filter = conv_filter + params["filter_bias"][i]
-            conv_gate = conv_gate + params["gate_bias"][i]
-        out = torch.tanh(conv_filter) * torch.sigmoid(conv_gate)
-        transformed = conv1x1(out, params["dense"][i])
+            conv_filter = conv_filter + p("filter_bias", i)
+            conv_gate = conv_gate + p("gate_bias", i)
+        out = _gate(conv_filter, conv_gate)
+        transformed = conv1x1(out, p("dense", i))
         if c.use_biases:
-            transformed = transformed + params["dense_bias"][i]
+            transformed = transformed + p("dense_bias", i)
         return current + transformed, out
 
     gate_outs = []
@@ -229,7 +287,8 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
     for i in range(c.num_layers):
         if collect_layer_inputs is not None:
             keep = collect_layer_inputs[i]
-            layer_inputs.append(current[:, current.shape[1] - keep:])
+            layer_inputs.append(
+                current[:, current.shape[1] - keep:].to(torch.float32))
         if c.remat and torch.is_grad_enabled():
             # Recompute the layer in the backward instead of keeping its
             # activations (the JAX package's jax.checkpoint).
@@ -247,22 +306,25 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
 def _head(params: Params, c: WaveNetConfig, all_outs: torch.Tensor,
           head_from: int) -> torch.Tensor:
     """Deferred skip head: one matmul over all layers' gate outputs
-    ``all_outs [B, T, L*D]``, then relu, 1x1, relu, 1x1."""
+    ``all_outs [B, T, L*D]``, then relu, 1x1, relu, 1x1; float32 logits.
+    At bf16 the gate outputs (the kernel's z records too) and the weights
+    are bf16, as in both JAX routes."""
     L, D, S = c.num_layers, c.dilation_channels, c.skip_channels
     if head_from:
         all_outs = all_outs[:, head_from:]
-    skip_sum = all_outs @ params["skip"].reshape(L * D, S)
+    skip_sum = _maybe_cast(all_outs, c) @ _maybe_cast(
+        params["skip"].reshape(L * D, S), c)
     if c.use_biases:
-        skip_sum = skip_sum + params["skip_bias"].sum(dim=0)
+        skip_sum = skip_sum + _maybe_cast(params["skip_bias"].sum(dim=0), c)
     h = torch.relu(skip_sum)
-    h = conv1x1(h, params["postprocess1"])
+    h = conv1x1(h, _maybe_cast(params["postprocess1"], c))
     if c.use_biases:
-        h = h + params["postprocess1_bias"]
+        h = h + _maybe_cast(params["postprocess1_bias"], c)
     h = torch.relu(h)
-    h = conv1x1(h, params["postprocess2"])
+    h = conv1x1(h, _maybe_cast(params["postprocess2"], c))
     if c.use_biases:
-        h = h + params["postprocess2_bias"]
-    return h
+        h = h + _maybe_cast(params["postprocess2_bias"], c)
+    return h.to(torch.float32)
 
 
 def _dilated_stack_pallas(params: Params, c: WaveNetConfig,
@@ -274,7 +336,9 @@ def _dilated_stack_pallas(params: Params, c: WaveNetConfig,
     Version 3 (the default) runs ``kernels/fused_stack.py``, version 2
     ``experiments/fused_stack2.py`` and any other version
     ``experiments/fused_stack.py``, as in JAX. No route pads z to lanes,
-    so the skip weights are used as they are."""
+    so the skip weights are used as they are. The residual enters the
+    stack in float32 whatever the compute dtype (the stack reads that
+    from the config), as in JAX."""
     if c.pallas_stack_version == 3:
         from wavenet_torch.kernels.fused_stack import (
             fused_stack3 as stack, supports)
@@ -304,7 +368,8 @@ def forward_codes(params: Params, config: WaveNetConfig,
     """Forward pass from integer mu-law codes [B, T] (no one-hot tensor).
 
     The causal layer over one-hot input is a row gather of the filter:
-    out[t] = W[fw-1][code[t]] + sum_k W[k][code[t - (fw-1-k)]].
+    out[t] = W[fw-1][code[t]] + sum_k W[k][code[t - (fw-1-k)]],
+    gathered and summed in float32, then cast to the compute dtype.
     """
     c = config
     if c.scalar_input:
@@ -323,6 +388,7 @@ def forward_codes(params: Params, config: WaveNetConfig,
         tap = _embed_rows(w[k], idx[:, :T - shift])
         current = torch.cat([current[:, :shift],
                              current[:, shift:] + tap], dim=1)
+    current = _maybe_cast(current, c)
     return _dilated_stack(params, c, current, gc_embedding, head_from,
                           collect_layer_inputs)
 

@@ -5,6 +5,8 @@ activations ``[batch, time, channels]``, filters ``[width, in, out]``.
 The conv is filter-tap-many shifted matmuls (not cuDNN), so in float32
 it runs in full float32 as long as TF32 matmuls are off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+The output has the operands' dtype, as in the JAX package: bf16 operands
+give a bf16 output, each tap's product rounded before the taps are added.
 """
 
 from __future__ import annotations

@@ -66,6 +66,8 @@ def _check_config(c: WaveNetConfig) -> None:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "item 2)")
+    from wavenet_torch.kernels.sampler import require_float32_generation
+    require_float32_generation(c)
 
 
 def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,

@@ -32,7 +32,7 @@ def sampler_attempts(config, sampler: str = "auto",
     if precision == "bfloat16":
         raise NotImplementedError(
             "bfloat16 sampling is not ported yet (ROADMAP.md queue 1, "
-            "item 1)")
+            "item 1, step 1c)")
     if sampler not in ("auto", "pallas") or config.filter_width != 2:
         return []
     return [(sampler_name(device), dict(prefill=True))]

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from wavenet_torch.models.config import WaveNetConfig
-from wavenet_torch.models.wavenet import Params, init_params, loss_fn
+from wavenet_torch.models.wavenet import (Params, init_params, loss_fn,
+                                          matmul_precision)
 from wavenet_torch.ops.optimizers import OptimizerFactory, optimizer_factory
 from wavenet_torch.params import load_npz
 
@@ -85,15 +86,19 @@ def make_train_step(config: WaveNetConfig,
     Updates ``state`` in place. Metrics are 0-d tensors on the params'
     device (loss, ce_loss, total_loss, l2_loss with L2, grad_norm); reading
     one waits for the step. A parameter that received no gradient gets a
-    zero one, as in the JAX step, so every optimizer state advances."""
+    zero one, as in the JAX step, so every optimizer state advances.
+    At bf16 (``config.compute_dtype``) the params, their gradients and the
+    optimizer state stay float32; only the model's products and
+    activations are bf16 (``models.wavenet._maybe_cast``)."""
 
     def train_step(state: TrainState, audio: torch.Tensor,
                    gc_ids: Optional[torch.Tensor] = None):
         for p in state.params.values():
             p.grad = None
-        total, aux = loss_fn(state.params, config, audio, gc_ids,
-                             l2_regularization_strength)
-        total.backward()
+        with matmul_precision(config):
+            total, aux = loss_fn(state.params, config, audio, gc_ids,
+                                 l2_regularization_strength)
+            total.backward()
         grads = []
         for k in sorted(state.params):
             p = state.params[k]

@@ -11,12 +11,14 @@ from __future__ import annotations
 from wavenet_torch.models.config import WaveNetConfig
 
 # NVIDIA H100 SXM (NVIDIA's data sheet), at the full 700 W: FP32 on the
-# CUDA cores, dense TF32 on the tensor cores, and HBM3 bandwidth. f32 mode
-# uses no single-pass TF32; its tensor-core products are 3xTF32 (three
-# TF32 passes per product, ``csrc/tf32_mma.cuh``), a third of the TF32 rate.
+# CUDA cores, dense TF32 and bf16 on the tensor cores, and HBM3 bandwidth.
+# f32 mode uses no single-pass TF32; its tensor-core products are 3xTF32
+# (three TF32 passes per product, ``csrc/tf32_mma.cuh``), a third of the
+# TF32 rate. bf16 mode multiplies in one bf16 pass (``csrc/bf16_mma.cuh``).
 H100_FP32_FLOPS = 67e12
 H100_TF32_FLOPS = 495e12
 H100_TF32X3_FLOPS = H100_TF32_FLOPS / 3
+H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 
@@ -60,24 +62,26 @@ def fused_stack_cost(config: WaveNetConfig, batch_size: int, positions: int,
     [batch_size, positions] rows: its matmuls (forward: the filter|gate and
     dense products; backward: the dense product twice more, the input
     rebuild, dx over both taps and the two weight gradients), and each
-    input read once and each output written once, in float32. A forward
-    with ``emit_z=False`` (generation v1) writes no z."""
+    input read once and each output written once: the fg, z and dz records
+    in the compute dtype (2 bytes at bfloat16), everything else in float32.
+    A forward with ``emit_z=False`` (generation v1) writes no z."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     rows = batch_size * positions
     weights = L * (2 * R * 2 * D + D * R + R)
+    rec_bytes = 2.0 if c.compute_dtype == "bfloat16" else 4.0
     if backward:
         macs = L * rows * (2 * (2 * R * 2 * D) + 3 * D * R)
-        # y, dy, fg, dz in; dx out; weights in, their gradients and
-        # dadd out.
-        floats = rows * (3 * R + 3 * L * D) + 2 * weights \
-            + L * batch_size * 2 * D
+        # y, dy in and dx out; the fg and dz records in; weights in, their
+        # gradients and dadd out.
+        floats = rows * 3 * R + 2 * weights + L * batch_size * 2 * D
+        records = rows * 3 * L * D
     else:
         macs = L * rows * (2 * R * 2 * D + D * R)
-        # x and add in, y, fg (and z) out.
-        floats = rows * (2 * R + (3 if emit_z else 2) * L * D) + weights \
-            + L * batch_size * 2 * D
-    return 2.0 * macs, 4.0 * floats
+        # x and add in, y out; the fg (and z) records out.
+        floats = rows * 2 * R + weights + L * batch_size * 2 * D
+        records = rows * (3 if emit_z else 2) * L * D
+    return 2.0 * macs, 4.0 * floats + rec_bytes * records
 
 
 def dilated_layer_cost(residual_channels: int, dilation_channels: int,
