@@ -6,8 +6,8 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode``, ``sampler_cluster``, ``sampler_tiles``,
-   ``fused_stack``, ``fused_stack_mma``,
+   the ``sampler_decode``, ``sampler_cluster`` (float32 and bf16 modes,
+   two libraries), ``sampler_tiles``, ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
@@ -93,6 +93,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
    per case, its launches counted from 0 (its ``kernels`` rows). Every
    CLI run and main-path case prints the kernel that served it, and the
    phase checks that the native decoder was loaded.
+6b. bf16-weight generation (TPU kernels 1-4 at ``weight_dtype=bfloat16``):
+   the bf16 modes of ``sampler_cluster`` (paper b1, gc b64) and
+   ``sampler_decode`` (gc b1, b128, b512), pinned, teacher-forced over 32
+   steps from a prefilled state, in one launch (counted under
+   ``cluster_bf16`` / ``decode_bf16``; same-seed repeats bitwise) and
+   one step a launch from the kernel's own state (bitwise the one launch),
+   each step held against bf16 ``decode_reference`` from that state on the
+   scale of bf16's own gap from float32 (``kernels.bf16_hold``: each row's
+   median error within 0.05 of its median gap, the mean within 0.2 of the
+   mean gap, the worst within 4x the worst gap: another float32 sum order
+   flips a few bf16 roundings); step times of each bf16 kernel and of the
+   float32 route's kernel at the shape in turns, with the plain version's
+   and the bound at 2-byte weights (bf16-operand products at the bf16
+   peak); kernel 4's route at paper b1 the same way; then the main path,
+   ``python -m wavenet_torch.cli.generate --sampler_precision bfloat16``
+   from phase 5's gc checkpoint at b1 and b64 x 16,000 (the cluster
+   kernel's bf16 mode) and b128 x 4,000 (``sampler_decode``'s), its
+   launches counted from 0; last, ``generate_with_fallback`` (the CLI's
+   fast path) on a bf16 config object, bitwise the float32 config's.
 7. The retired training stacks (TPU kernels 6-8), at the paper and gc
    configs' full width, b8 x (receptive field + 16,000): the
    ``fused_stack_carry`` kernel behind generations v1 and v2 against the
@@ -129,10 +148,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-# non-tensor-core FP32.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth,
+# non-tensor-core FP32 and dense bf16 tensor-core. The bf16 peak is the
+# least time of a product whose two operands are bf16, though the decode
+# kernels and the probes multiply them on the FP32 cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 PREFILL = 3500
 TEACHER_STEPS = 256
@@ -149,9 +171,9 @@ TEACHER_CASES = (("paper", 1), ("gc", 1), ("gc", 4), ("gc", 64), ("gc", 120),
 TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
                ("gc", 512): 512}
-KERNELS = ("sampler_decode", "sampler_cluster", "sampler_tiles",
-           "fused_stack", "fused_stack_mma", "fused_stack_carry",
-           "dilated_layer")
+KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
+           "sampler_tiles", "fused_stack", "fused_stack_mma",
+           "fused_stack_carry", "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
 DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
                   "tiles": "sampler_tiles"}
@@ -204,6 +226,25 @@ BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.0, 1.5
 # (fused) of itself from float32 and the gradients at most 0.068 / 0.042
 # of their max (causal_filter); a fault moves them by O(1).
 BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-3, 0.25
+# Phase 6b: the decode kernels' bf16 modes (config, batch, kernel pinned),
+# teacher-forced over a short window and held step by step on the scale of
+# bf16's own distance from float32 (``kernels.bf16_hold`` states the
+# limits and why). Each case's steps of one timed launch.
+BF16_TEACHER_CASES = (("paper", 1, "cluster"), ("gc", 64, "cluster"),
+                      ("gc", 1, "decode"), ("gc", 128, "decode"),
+                      ("gc", 512, "decode"))
+BF16_TEACHER_STEPS = 32
+BF16_TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 1): 1024,
+                    ("gc", 128): 1024, ("gc", 512): 512}
+# Kernel 4's route at bf16: a short forced prefix, then sampled steps.
+BF16_SEQ_PREFIX, BF16_SEQ_SAMPLES = 16, 16
+# The bf16 generate CLI's runs (label, batch, samples, the kernel that the
+# route takes, as launches_by counts it), and the samples of the runs from
+# a bf16 config.
+BF16_CLI_RUNS = (("b1", 1, GEN_SAMPLES, "cluster_bf16"),
+                 ("b64", 64, GEN_SAMPLES, "cluster_bf16"),
+                 ("b128", 128, 4000, "decode_bf16"))
+BF16_CONFIG_SAMPLES = 4000
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
@@ -212,10 +253,6 @@ KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
 # of the one held against its plain version.
 R3_STEPS, R3_MAIN_STEPS, R3_SEED = 2048, 1024, 7
 R4_STEPS, R4_CHECK_STEPS = 4000, 256
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the least time
-# of the bf16 variants' products, though the probes multiply on the FP32
-# cores.
-BF16_FLOPS = 989e12
 # bf16 operands against their plain version: another summation order flips
 # some bf16 roundings (2**-8 relative) and 30 layers carry them on (~0.3%
 # of the values' mean, up to ~5% of max |ref| at a point); an indexing
@@ -255,38 +292,69 @@ def flops_per_row_step(c) -> int:
                 + S * S + S * Q)
 
 
-def weight_bytes(c) -> int:
+def chain_flops_per_row_step(c) -> int:
+    """The layer chain's share of ``flops_per_row_step``: the filter/gate
+    ``[past | current]``, dense and skip products."""
+    L, R, D, S = (c.num_layers, c.residual_channels, c.dilation_channels,
+                  c.skip_channels)
+    return 2 * L * (4 * R * D + D * R + D * S)
+
+
+def ops_seconds_per_row_step(c, wbytes: int = 4,
+                             round_chain: bool = True) -> float:
+    """Least time of one row's products for one step, each at its
+    operands' peak: FP32 at float32 weights (``wbytes`` 4). At bf16
+    weights (2) a product whose activation operand is rounded has two bf16
+    operands and goes at the bf16 peak; that is every product but the
+    layer chain's where ``round_chain`` is false (the b1 prefill route's
+    float32 chain), which goes at FP32."""
+    total = flops_per_row_step(c)
+    if wbytes == 4:
+        return total / FP32_FLOPS
+    f32 = 0 if round_chain else chain_flops_per_row_step(c)
+    return (total - f32) / BF16_FLOPS + f32 / FP32_FLOPS
+
+
+def weight_bytes(c, wbytes: int = 4) -> int:
+    """Bytes of the decode's weights: the six matmul weights at ``wbytes``
+    each (4, or 2 in the bf16 mode), the biases at 4."""
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
-    return 4 * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S + R)
-                + 2 * S + S * S + S * Q + Q)
+    return (wbytes * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S)
+                      + S * S + S * Q)
+            + 4 * (L * R + 2 * S + Q))
 
 
-def bound_per_step(c, B: int, steps: int):
+def bound_per_step(c, B: int, steps: int, wbytes: int = 4,
+                   round_chain: bool = True):
     """Least time per step of one decode launch: every input read once and
-    every output written once (weights, per-row adds, ring and causal in
-    and out, forced in, codes out), or its FP32 operations at peak."""
+    every output written once (weights at ``wbytes`` each, per-row adds,
+    ring and causal in and out, forced in, codes out), or its operations
+    at their peaks (``ops_seconds_per_row_step``)."""
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
     state = 4 * B * (sum(c.dilations) * c.residual_channels + Q)
-    nbytes = (weight_bytes(c) + 4 * L * B * 2 * D + 2 * state + 4 * B
+    nbytes = (weight_bytes(c, wbytes) + 4 * L * B * 2 * D + 2 * state + 4 * B
               + 4 * B * steps)
     t_bytes = nbytes / HBM_BYTES_PER_S / steps
-    t_ops = flops_per_row_step(c) * B * steps / FP32_FLOPS / steps
+    t_ops = ops_seconds_per_row_step(c, wbytes, round_chain) * B
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
 
 
-def sequential_bound_per_step(c, B: int, n_forced: int, n_total: int):
+def sequential_bound_per_step(c, B: int, n_forced: int, n_total: int,
+                              wbytes: int = 4):
     """Least time per step of one sequential launch (kernel 4's route):
-    the weights, per-row adds and forced prefix read once and the codes
-    written once (the zero state is the kernel's own), or its FP32
-    operations at peak."""
+    the weights (``wbytes`` each), per-row adds and forced prefix read once
+    and the codes written once (the zero state is the kernel's own), or
+    its operations at their peaks (the chain rounded at every B)."""
+    from wavenet_torch.kernels.sampler import chain_rounded
     L, D = c.num_layers, c.dilation_channels
-    nbytes = (weight_bytes(c) + 4 * L * B * 2 * D + 4 * B * n_forced
+    nbytes = (weight_bytes(c, wbytes) + 4 * L * B * 2 * D + 4 * B * n_forced
               + 4 * B * n_total)
     t_bytes = nbytes / HBM_BYTES_PER_S / n_total
-    t_ops = flops_per_row_step(c) * B / FP32_FLOPS
+    t_ops = ops_seconds_per_row_step(c, wbytes,
+                                     chain_rounded("sequential", B)) * B
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
@@ -1783,6 +1851,252 @@ def phase_sequential_main_path(cfgs, params, rng, gpu):
     return results
 
 
+def bf16_packed(packed):
+    """``packed`` with its six matmul weights in bf16: what
+    ``pack_sampler_weights(..., weight_dtype=torch.bfloat16)`` stores."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    return packed._replace(**{k: getattr(packed, k).to(torch.bfloat16)
+                              for k in ks.WEIGHT_FIELDS})
+
+
+def phase_bf16_decode(cfgs, params, rng, gpu):
+    """The bf16 modes of the decode kernels (TPU kernels 1-4 at
+    weight_dtype=bfloat16), pinned: a teacher-forced window in one launch
+    (same-seed repeats bitwise; counted under the bf16 names), the same
+    window one step a launch from the kernel's own state (bitwise the one
+    launch) held step by step against bf16 ``decode_reference``, then
+    step times of the bf16 and the float32 route in turns; last, kernel
+    4's route at paper b1. Results by (kernel, config, batch)."""
+    import torch
+    from wavenet_torch.kernels import bf16_hold
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.wavenet import embed_gc
+
+    results = {}
+    for name, B, kernel in BF16_TEACHER_CASES:
+        c, p = cfgs[name], params[name]
+        where = f"{DECODE_SOURCES[kernel]} bf16 {name} B={B}"
+        n = BF16_TEACHER_STEPS
+        codes, gc_ids = setup(c, B, rng, PREFILL, n)
+        carry = ks.prefill_carry(p, c, codes[:, :PREFILL], gc_ids)
+        pk32 = ks.pack_sampler_weights(
+            p, c, B, None if gc_ids is None else embed_gc(p, c, gc_ids))
+        pk16 = bf16_packed(pk32)
+        forced = codes[:, PREFILL - 1:PREFILL - 1 + n].contiguous()
+        runs = []
+        for _ in range(2):
+            ring, causal = carry.ring.clone(), carry.causal.clone()
+            before = dict(ks.decode.launches_by)
+            out = ks.decode(pk16, c, ring, causal, forced, n, carry.t_abs,
+                            11, collect_logits=True, kernel=kernel)
+            torch.cuda.synchronize()
+            ran = {k: v - before.get(k, 0)
+                   for k, v in ks.decode.launches_by.items()
+                   if v != before.get(k, 0)}
+            check(ran == {f"{kernel}_bf16": 1},
+                  f"{where}: launches counted as {ran}")
+            runs.append(out + (ring, causal))
+        (codes_k, lg_k, ring_k, causal_k), again = runs
+        check(all(torch.equal(a, b) for a, b in zip(runs[0], again)),
+              f"{where}: same-seed runs differ")
+        check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
+              f"{where}: forced codes not emitted")
+
+        def step(ring, causal, x, t):
+            return ks.decode(pk16, c, ring, causal, x, 1, t, 11,
+                             collect_logits=True, kernel=kernel)[1]
+
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        rule = ks.chain_rounded("decode", B)
+        lg_s, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+            c, pk16, pk32, ring, causal, forced, carry.t_abs, 11, rule, step)
+        check(torch.equal(lg_s, lg_k) and torch.equal(ring, ring_k)
+              and torch.equal(causal, causal_k),
+              f"{where}: one step a launch differs from one launch")
+        held = bf16_hold.hold(where, lg_s, lg16, lg32)
+        held_ring = bf16_hold.hold(f"{where} ring", rk, r16, r32)
+        # The whole window against the plain version run on its own:
+        # reported, since a rounding flip carries on through the ring.
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        _, lg_w = ks.decode_reference(pk16, c, ring, causal, forced, n,
+                                      carry.t_abs, 11, collect_logits=True)
+        window_err = (lg_k - lg_w).abs()
+        # Step times in turns: this bf16 kernel, the float32 route's kernel
+        # at the same shape (cluster or tiles), and the plain bf16 version.
+        steps = BF16_TIMED_STEPS[(name, B)]
+        f32_kernel = ("cluster" if ks.device_plan(c, B) else
+                      "tiles" if ks.device_tile_plan(c, B) else "decode")
+        fk = forced[:, :1].contiguous()
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        timed = {"bf16": [], "f32": []}
+        for wt in ("f32", "bf16", "bf16", "f32"):
+            pk, k = (pk16, kernel) if wt == "bf16" else (pk32, f32_kernel)
+            timed[wt].append(cuda_ms(lambda: ks.decode(
+                pk, c, ring, causal, fk, steps, 0, 5, kernel=k)) / steps)
+        rp, cp = carry.ring.clone(), carry.causal.clone()
+        n_plain = 8
+        plain_ms = cuda_ms(lambda: ks.decode_reference(
+            pk16, c, rp, cp, fk, n_plain, 0, 5)) / n_plain
+        bound, by = bound_per_step(c, B, steps, wbytes=2, round_chain=rule)
+        ms = float(min(timed["bf16"]))
+        results[(kernel, name, B)] = dict(
+            max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, f32_route_ms=float(min(timed["f32"])),
+            f32_route_kernel=DECODE_SOURCES[f32_kernel])
+        emit({"phase": "bf16_decode", "kernel": DECODE_SOURCES[kernel],
+              "mode": "bf16", "config": name, "batch": B, "steps": n,
+              "round_chain": rule,
+              "max_abs_err_vs_plain": held["max_abs_err"],
+              "err_over_bf16_gap": {k: v for k, v in held.items()
+                                    if k != "max_abs_err"},
+              "ring_err_over_bf16_gap": {k: v for k, v in held_ring.items()
+                                         if k != "max_abs_err"},
+              "window_max_abs_err": window_err.max().item(),
+              "window_median_err": window_err.median().item(),
+              "bf16_gap_mean": (lg16 - lg32).abs().mean().item(),
+              "stepwise_equals_one_launch": True, "bitwise_repeat": True,
+              "launches_by": f"{kernel}_bf16", "ms_per_step": ms,
+              "ms_per_step_runs": timed["bf16"],
+              "f32_route_kernel": DECODE_SOURCES[f32_kernel],
+              "f32_route_ms_per_step_runs": timed["f32"],
+              "plain_ms_per_step": plain_ms, "bound_ms_per_step": bound,
+              "bound_by": by, "timed_steps": steps, "gpu": gpu})
+        del runs, lg_k, lg_s, lg16, lg32, lg_w, rk, r16, r32
+        torch.cuda.empty_cache()
+
+    # Kernel 4's route at bf16 (the chain rounded at every B, b1 included):
+    # paper b1 from a zero ring over a short random prefix, on the routed
+    # kernel; the kernel's inputs replayed one step a launch, each step
+    # against the plain version from the kernel's own state.
+    c, p = cfgs["paper"], params["paper"]
+    prefix = seq_prefix(c, 1, rng)[:, :BF16_SEQ_PREFIX].contiguous()
+    n_total = BF16_SEQ_PREFIX - 1 + BF16_SEQ_SAMPLES
+    pk32 = ks.pack_sampler_weights(p, c, 1)
+    pk16 = bf16_packed(pk32)
+    before = dict(ks.decode_sequential.launches_by)
+    codes_k, lg_k = ks.decode_sequential(pk16, c, prefix, n_total, 21,
+                                         collect_logits=True)
+    again, _ = ks.decode_sequential(pk16, c, prefix, n_total, 21)
+    torch.cuda.synchronize()
+    ran = {k: v - before.get(k, 0)
+           for k, v in ks.decode_sequential.launches_by.items()
+           if v != before.get(k, 0)}
+    check(ran == {"cluster_bf16": 2},
+          f"bf16 sequential paper b1: launches counted as {ran}")
+    check(torch.equal(codes_k, again), "bf16 sequential: same-seed runs "
+          "differ")
+
+    rule = ks.chain_rounded("sequential", 1)
+
+    def step(ring, causal, x, t):
+        return ks._launch(pk16, c, ring, causal, x, 1, t, 21, 1.0, True,
+                          route="sequential")[1]
+
+    ring, causal = ks.zero_state(c, 1, "cuda")
+    lg_s, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+        c, pk16, pk32, ring, causal, replay_inputs(c, prefix, codes_k), 0, 21,
+        rule, step)
+    check(torch.equal(lg_s, lg_k), "bf16 sequential: one step a launch "
+          "differs from the route's one launch")
+    held = bf16_hold.hold("bf16 sequential paper b1", lg_s, lg16, lg32)
+    held_ring = bf16_hold.hold("bf16 sequential paper b1 ring", rk, r16,
+                               r32)
+    # One timed launch of the route, SEQ_TIMED_SAMPLES sampled steps after
+    # the prefix (phase 6's length), and the plain version's step.
+    n_timed = BF16_SEQ_PREFIX - 1 + SEQ_TIMED_SAMPLES
+    ms = cuda_ms(lambda: ks.decode_sequential(pk16, c, prefix, n_timed,
+                                              21)) / n_timed
+    ring, causal = ks.zero_state(c, 1, "cuda")
+    plain_ms = cuda_ms(lambda: ks.decode_reference(
+        pk16, c, ring, causal, prefix, 8, 0, 21, round_chain=rule)) / 8
+    bound, by = sequential_bound_per_step(c, 1, BF16_SEQ_PREFIX, n_timed,
+                                          wbytes=2)
+    results[("sequential", "paper", 1)] = dict(
+        max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, launches=sum(ran.values()))
+    emit({"phase": "bf16_sequential", "kernel": "sampler_cluster",
+          "mode": "bf16", "config": "paper", "batch": 1,
+          "forced": BF16_SEQ_PREFIX, "steps": n_total,
+          "max_abs_err_vs_plain": held["max_abs_err"],
+          "err_over_bf16_gap": {k: v for k, v in held.items()
+                                if k != "max_abs_err"},
+          "ring_err_over_bf16_gap": {k: v for k, v in held_ring.items()
+                                     if k != "max_abs_err"},
+          "stepwise_equals_one_launch": True, "bitwise_repeat": True,
+          "launches_by": ran, "ms_per_step": ms, "timed_steps": n_timed,
+          "plain_ms_per_step": plain_ms, "bound_ms_per_step": bound,
+          "bound_by": by, "gpu": gpu})
+    return results
+
+
+def phase_bf16_generate(cfgs, params, gc_ckpt, gc_pfile, gpu):
+    """The main path of bf16-weight generation: ``python -m
+    wavenet_torch.cli.generate --sampler_precision bfloat16`` from phase
+    5's gc checkpoint at b1 and b64 x 16,000 (the cluster kernel's bf16
+    mode) and b128 x 4,000 (``sampler_decode``'s), its launches counted
+    from 0; then generation from a config whose ``compute_dtype`` is
+    bfloat16, which runs at float32 as in the JAX package:
+    ``generate_with_fallback`` (the CLI's fast path) on such a config
+    object, bitwise the float32 config's. The CLI itself cannot reach one:
+    the params format, as the JAX package's, has no ``compute_dtype``."""
+    import dataclasses
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.sampler_select import generate_with_fallback
+
+    c = cfgs["gc"]
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_bf16_")
+    gc_flags = ["--gc_channels", str(c.gc_channels), "--gc_cardinality",
+                str(c.gc_cardinality), "--gc_id", "5"]
+
+    ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    ks.decode.launches_by.clear()
+    ks.decode_sequential.launches_by.clear()
+    rates = {}
+    for label, B, n, want in BF16_CLI_RUNS:
+        before = dict(ks.decode.launches_by)
+        wav = os.path.join(tmp, f"{label}.wav")
+        out, seconds = run_generate_cli(
+            [gc_ckpt, "--wavenet_params", gc_pfile, "--samples", str(n),
+             "--batch_size", str(B), "--wav_out_path", wav, "--seed", "1",
+             "--device", "cuda", "--sampler_precision", "bfloat16"]
+            + gc_flags)
+        check("Finished generating." in out, f"{label}: no finish line")
+        check("bf16 weights" in out, f"{label}: not the bf16 sampler")
+        read_wavs(wav, B, n)
+        ran = {k: v - before.get(k, 0)
+               for k, v in ks.decode.launches_by.items()
+               if v != before.get(k, 0)}
+        check(ran == {want: 1}, f"{label}: launched {ran}, not {want}")
+        rates[label] = B * n / seconds
+        emit({"phase": "generate_cli_bf16", "run": label, "config": "gc",
+              "batch": B, "samples": n, "seconds": seconds,
+              "samples_per_s": rates[label], "served_by": ran, "gpu": gpu})
+    launches = dict(ks.decode.launches_by)
+    check(ks.decode_sequential.launches == 0,
+          "the bf16 CLI took the sequential route")
+
+    # A bf16 config object prefills and decodes at float32.
+    p = params["gc"]
+    c16 = dataclasses.replace(c, compute_dtype="bfloat16")
+    ids = torch.full((64,), 5, dtype=torch.int64, device="cuda")
+    same = {}
+    for precision in ("float32", "bfloat16"):
+        got = [generate_with_fallback(
+            p, cfg, BF16_CONFIG_SAMPLES, seed=3, batch_size=64, gc_ids=ids,
+            precision=precision, log=lambda _: None)[0] for cfg in (c, c16)]
+        same[precision] = torch.equal(got[0], got[1])
+        check(same[precision], f"generation from a bf16 config at "
+              f"{precision} weights differs from the float32 config's")
+    emit({"phase": "generate_cli_bf16", "decode_launches_by_kernel":
+          {k: v for k, v in launches.items()},
+          "bf16_config_equals_f32_config": same,
+          "samples_per_s_b1": rates["b1"], "samples_per_s_b64": rates["b64"],
+          "samples_per_s_b128": rates["b128"], "gpu": gpu})
+    return launches
+
+
 def phase_carry_stacks(cfgs, params, rng, gpu):
     """Phase 7 (a): the carry kernel behind v1 and v2 against the plain
     versions and against kernel 5, each call timed."""
@@ -2405,6 +2719,14 @@ def main() -> int:
           "decode kernels")
     seq_main = phase_sequential_main_path(gen_cfgs, gen_params, rng, gpu)
 
+    # Phase 6b: bf16-weight generation (TPU kernels 1-4 at bf16 weights).
+    t6b = time.perf_counter()
+    bf16_dec = phase_bf16_decode(cfgs, params, rng, gpu)
+    bf16_launches = phase_bf16_generate(cfgs, params, gc_ckpt, gc_pfile,
+                                        gpu)
+    emit({"phase": "bf16_generation", "seconds": time.perf_counter() - t6b,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 7: the retired training stacks (TPU kernels 6-8).
     t7 = time.perf_counter()
     carry = phase_carry_stacks(cfgs, params, rng, gpu)
@@ -2539,6 +2861,56 @@ def main() -> int:
             "bound_by": m["bound_by"], "f32_mode_ms": m["f32_mode_ms"],
             "library_ms": None,
             "unit": "per call (one train step's stack)", "gpu": gpu})
+    # The bf16 modes (phase 6b): times pinned at each case in this run,
+    # launches those of the bf16 generate CLI runs (the cluster kernel at
+    # gc b1 and b64, sampler_decode at b128); the bound with the weights at
+    # 2 bytes and the products of two bf16 operands at the bf16 peak.
+    # library_ms is null for the reason above.
+    for kernel, src, head, others in (
+            ("cluster", "sampler_cluster", ("paper", 1), (("gc", 64),)),
+            ("decode", "sampler_decode", ("gc", 128),
+             (("gc", 1), ("gc", 512)))):
+        m = bf16_dec[(kernel,) + head]
+        row = {"name": f"{src}_bf16", "route": "cuda",
+               "source": f"wavenet_torch/csrc/{src}"
+                         + ("_bf16.cu" if kernel == "cluster" else ".cu"),
+               "replaces": "wavenet_tpu/kernels/sampler.py:234, :1308, "
+                           ":1057; wavenet_tpu/kernels/sampler_packed.py:142"
+                           " (weight_dtype=bfloat16)",
+               "mode": "bf16", "config": head[0], "batch": head[1],
+               "launches": bf16_launches.get(f"{kernel}_bf16", 0),
+               "launches_on": "generate CLI, gc, --sampler_precision "
+                              "bfloat16",
+               "max_abs_err": max(v["max_abs_err"] for k, v in
+                                  bf16_dec.items() if k[0] == kernel),
+               "ms": m["ms"], "plain_ms": m["plain_ms"],
+               "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+               "f32_route_ms": m["f32_route_ms"],
+               "f32_route_kernel": m["f32_route_kernel"],
+               "library_ms": None, "unit": "per decode step", "gpu": gpu}
+        for name, B in others:
+            mk = bf16_dec[(kernel, name, B)]
+            key = f"{name}_b{B}"
+            row.update({f"ms_{key}": mk["ms"],
+                        f"bound_ms_{key}": mk["bound_ms"],
+                        f"plain_ms_{key}": mk["plain_ms"],
+                        f"f32_route_ms_{key}": mk["f32_route_ms"]})
+        kernels.append(row)
+    # Kernel 4's route at bf16 (phase 6b): the cluster kernel's bf16 mode
+    # from a zero ring at paper b1; its launches are the phase's two
+    # (the generate CLI takes the prefill route).
+    m = bf16_dec[("sequential", "paper", 1)]
+    kernels.append({
+        "name": "sampler_cluster_bf16_sequential_paper_b1", "route": "cuda",
+        "source": "wavenet_torch/csrc/sampler_cluster_bf16.cu",
+        "replaces": "wavenet_tpu/kernels/sampler.py:1057 "
+                    "(weight_dtype=bfloat16)",
+        "mode": "bf16", "config": "paper", "batch": 1,
+        "launches": m["launches"], "launches_on": "decode_sequential, "
+        "phase 6b", "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None,
+        "unit": "per decode step", "gpu": gpu})
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.
     for name, B in SEQ_CASES:

@@ -7,7 +7,8 @@ route on the same numpy-seeded params and inputs, with and without global
 conditioning; then the train CLI at ``--compute_dtype bfloat16`` (plain and
 ``--use_pallas_stack``), a short bf16-against-float32 loss curve (a
 non-slow mirror of ``tests/test_bf16_drift.py``), the bytes the stack's
-bound counts, and the bf16 paths that still raise.
+bound counts, the bf16 paths that still raise, and generation from a bf16
+config, which runs at float32 as in the JAX package.
 
 Tolerance. Both packages round to bf16 at the same points (the weights,
 biases, GC embedding and input; every product's output; the gate's
@@ -28,6 +29,7 @@ JAX's float32 (measured: at most 1.26, dense_bias; postprocess2_bias
 0.16 / 0.14, closer to float32 than JAX's bf16 is).
 """
 
+import dataclasses
 import json
 
 import jax
@@ -269,10 +271,19 @@ def _bf16_paths():
     from wavenet_torch.experiments import fused_stack2 as fs2
 
     _, c = _cfgs(False, "bfloat16")
+    c32 = dataclasses.replace(c, compute_dtype="float32")
     p = tw.init_params(0, c, device="cpu")
     stack = fs.pack_stack_weights(p, c, None, 1)
     x = torch.zeros(1, 8, c.residual_channels)
     codes = torch.zeros(1, 8, dtype=torch.int32)
+    # Generation runs at float32 whatever the config's compute_dtype, as in
+    # the JAX package: each entry, at the bf16 and the float32 config.
+    prefill = [lambda cfg=cfg: ks.prefill_carry(p, cfg, codes).ring
+               for cfg in (c, c32)]
+    generate = [lambda cfg=cfg: ks.generate_cuda(p, cfg, 4, 0)
+                for cfg in (c, c32)]
+    scan = [lambda cfg=cfg: sample.generate(
+        p, cfg, 4, torch.Generator().manual_seed(0)) for cfg in (c, c32)]
     return {
         "simt_pinned": (lambda: fs._route("simt", c), "a3"),
         "stack_v1": (lambda: fs1.fused_stack(x, *stack, c), "a3"),
@@ -280,10 +291,9 @@ def _bf16_paths():
         "dilated_layer": (lambda: dl.fused_dilated_layer(
             x, None, None, None, None, 1, compute_dtype=torch.bfloat16),
             "a3"),
-        "prefill": (lambda: ks.prefill_carry(p, c, codes), "step 1c"),
-        "generate_cuda": (lambda: ks.generate_cuda(p, c, 4, 0), "step 1c"),
-        "scan_sampler": (lambda: sample.generate(p, c, 4, torch.Generator()),
-                         "step 1c"),
+        "prefill": (prefill, None),
+        "generate_cuda": (generate, None),
+        "scan_sampler": (scan, None),
     }
 
 
@@ -292,7 +302,14 @@ def _bf16_paths():
                                   "generate_cuda", "scan_sampler"])
 def test_bf16_paths_without_a_port_raise(path):
     """Each bf16 path the port lacks raises, naming its ROADMAP item; none
-    falls back to float32."""
+    falls back to float32. Generation (prefill, ``generate_cuda``, the
+    scan sampler) is no such path: as in the JAX package it runs at
+    float32 whatever ``compute_dtype`` says, so a bf16 config's result is
+    the float32 config's, bitwise."""
     fn, item = _bf16_paths()[path]
+    if item is None:
+        got, ref = (f() for f in fn)
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+        return
     with pytest.raises(NotImplementedError, match=item):
         fn()

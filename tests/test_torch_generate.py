@@ -161,8 +161,13 @@ def test_sampler_select():
         tc, device=torch.device("cpu"))[0][0]
     assert tsel.sampler_attempts(tc, sampler="scan") == []
     assert tsel.sampler_attempts(TConfig(**SMALL, filter_width=3)) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsel.sampler_attempts(tc, precision="bfloat16")
+    (name, kw), = tsel.sampler_attempts(tc, precision="bfloat16")
+    assert kw == {"prefill": True, "weight_dtype": torch.bfloat16}
+    assert "bf16" in name
+    assert tsel.sampler_attempts(tc, sampler="scan",
+                                 precision="bfloat16") == []
+    with pytest.raises(ValueError):
+        tsel.sampler_attempts(tc, precision="float16")
     _, _, _, tp, _ = _pair(SMALL)
     logs = []
     codes, name, kw = tsel.generate_with_fallback(
@@ -293,7 +298,7 @@ def test_cli_flags_match_jax_cli():
 
 @pytest.mark.parametrize("flags", [
     ["--draft_checkpoint", "d"], ["--lc_channels", "2"],
-    ["--lc_file", "f.npy"], ["--sampler_precision", "bfloat16"]])
+    ["--lc_file", "f.npy"], ["--lc_hop", "80"]])
 def test_cli_unported_flags_raise(flags):
     from wavenet_torch.cli import generate as tgen
     with pytest.raises(NotImplementedError, match="ROADMAP"):

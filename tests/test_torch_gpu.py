@@ -1,6 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
-their prefill and sequential routes, mu-law and scalar input,
-``sampler_tiles`` at the paper/gc widths, and the route between them;
+their prefill and sequential routes, mu-law and scalar input, in float32
+and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths, and the
+route between them;
 ``fused_stack`` (the 3xTF32 "mma" kernel and the FP32-core "simt" one);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
@@ -21,6 +22,7 @@ import torch
 from wavenet_torch.experiments import dilated_layer as dl
 from wavenet_torch.experiments import fused_stack as fs1
 from wavenet_torch.experiments import fused_stack2 as fs2
+from wavenet_torch.kernels import bf16_hold
 from wavenet_torch.kernels import fused_stack as fs
 from wavenet_torch.kernels import sampler as ks
 from wavenet_torch.models.config import WaveNetConfig
@@ -181,14 +183,17 @@ def test_scalar_kernel_matches_reference_at_wide_widths(setup, B):
 def _replay_sequential(c, packed, prefix, codes_k, n_total, seed, window):
     """The plain version from a zero ring, teacher-forced on the inputs
     that the kernel's run fed itself (its sampled codes, decoded in
-    scalar mode)."""
+    scalar mode); with bf16 weights the chain rounded at every B, as
+    ``decode_sequential`` does."""
     sampled = codes_k[:, prefix.shape[1] - 1:-1]
     nxt = (ks.decode_amp(sampled, c.quantization_channels)
            if c.scalar_input else sampled)
     forced = torch.cat([prefix, nxt.to(prefix.dtype)], dim=1).contiguous()
     ring, causal = ks.zero_state(c, prefix.shape[0], "cuda")
     return ks.decode_reference(packed, c, ring, causal, forced, n_total, 0,
-                               seed, collect_logits=window)
+                               seed, collect_logits=window,
+                               round_chain=ks.chain_rounded(
+                                   "sequential", prefix.shape[0]))
 
 
 @pytest.mark.gpu
@@ -897,7 +902,7 @@ def test_cluster_kernel_multi_cta_plans(setup, plan):
     c, params, packed, carry, forced = _cluster_case("small", 5)
     rk, ck = carry.ring.clone(), carry.causal.clone()
     codes, lg, used = ks._launch(packed, c, rk, ck, forced[:, :4].contiguous(),
-                                 40, carry.t_abs, 9, 1.0, 12,
+                                 40, carry.t_abs, 9, 1.0, 12, route="decode",
                                  kernel="cluster", plan=plan)
     torch.cuda.synchronize()
     assert used == "cluster" and lg.shape == (5, 12, c.quantization_channels)
@@ -930,7 +935,8 @@ def test_cluster_kernel_head_columns_per_thread(setup, plan):
     forced = x[:, 19:].contiguous()
     rk, ck = carry.ring.clone(), carry.causal.clone()
     codes, lg, used = ks._launch(packed, c, rk, ck, forced, 21, carry.t_abs,
-                                 2, 1.0, True, kernel="cluster", plan=plan)
+                                 2, 1.0, True, route="decode",
+                                 kernel="cluster", plan=plan)
     rr, cr = carry.ring.clone(), carry.causal.clone()
     kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 21, carry.t_abs,
                                  2, collect_logits=True)
@@ -1051,13 +1057,13 @@ def test_cluster_wrapper_rejects_bad_inputs(setup):
                   carry.t_abs, 0, kernel="cluster")
     with pytest.raises(ValueError, match="bad plan"):
         ks._launch(packed, c, carry.ring, carry.causal, first, 4,
-                   carry.t_abs, 0, 1.0, False, kernel="cluster",
-                   plan=ks.ClusterPlan(2, 1, (0, 8, 8)))
+                   carry.t_abs, 0, 1.0, False, route="decode",
+                   kernel="cluster", plan=ks.ClusterPlan(2, 1, (0, 8, 8)))
     with pytest.raises(ValueError, match="bad plan"):
         # A CS that does not divide the skip channels.
         ks._launch(packed, c, carry.ring, carry.causal, first, 4,
-                   carry.t_abs, 0, 1.0, False, kernel="cluster",
-                   plan=ks.ClusterPlan(3, 1, (0, 3, 6, 8)))
+                   carry.t_abs, 0, 1.0, False, route="decode",
+                   kernel="cluster", plan=ks.ClusterPlan(3, 1, (0, 3, 6, 8)))
     sharded = WaveNetConfig(dilations=(1, 2), residual_channels=256,
                             dilation_channels=256, skip_channels=64,
                             quantization_channels=64)
@@ -1101,7 +1107,8 @@ def test_cluster_kernel_at_the_top_of_its_range(setup, B, RB):
     plan = ks.ClusterPlan(8, RB, ks.layer_split(c.num_layers, 8))
     rk, ck = carry.ring.clone(), carry.causal.clone()
     kk, lk, used = ks._launch(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
-                              1.0, True, kernel="cluster", plan=plan)
+                              1.0, True, route="decode", kernel="cluster",
+                              plan=plan)
     rr, cr = carry.ring.clone(), carry.causal.clone()
     kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
                                  carry.t_abs, 3, collect_logits=True)
@@ -1323,17 +1330,19 @@ def test_tiles_wrapper_rejects_bad_inputs(setup):
                 ks.TilePlan(8, 9, (0, 8, 8, 12, 16, 20, 24, 28, 30))):
         with pytest.raises(ValueError, match="bad plan"):
             ks._launch(packed, c, carry.ring, carry.causal, first, 4,
-                       carry.t_abs, 0, 1.0, False, kernel="tiles", plan=bad)
+                       carry.t_abs, 0, 1.0, False, route="decode",
+                       kernel="tiles", plan=bad)
     with pytest.raises(ValueError, match="another kernel"):
         ks._launch(packed, c, carry.ring, carry.causal, first, 4,
-                   carry.t_abs, 0, 1.0, False, kernel="tiles",
-                   plan=ks.ClusterPlan(8, 8, plan.layer_begin))
+                   carry.t_abs, 0, 1.0, False, route="decode",
+                   kernel="tiles", plan=ks.ClusterPlan(8, 8, plan.layer_begin))
     # A CTA of five layers (more than its shared memory holds): the kernel
     # itself refuses the launch.
     with pytest.raises(RuntimeError, match="sampler_tiles launch failed"):
         ks._launch(packed, c, carry.ring, carry.causal, first, 4,
-                   carry.t_abs, 0, 1.0, 5, kernel="tiles",
-                   plan=ks.TilePlan(8, 9, (0, 5, 9, 13, 17, 21, 25, 29, 30)))
+                   carry.t_abs, 0, 1.0, 5, route="decode", kernel="tiles",
+                   plan=ks.TilePlan(8, 9, (0, 5, 9, 13, 17, 21, 25, 29,
+                                           30)))
     # Shapes outside the compiled one: no plan, and the kernel refuses them.
     small = WaveNetConfig(**SMALL)
     sp = _seeded_params(small)
@@ -1344,4 +1353,210 @@ def test_tiles_wrapper_rejects_bad_inputs(setup):
         ks.decode(pk, small, ring, causal, x, 2, 0, 0, kernel="tiles")
     with pytest.raises(RuntimeError, match="sampler_tiles launch failed"):
         ks._launch(pk, small, ring, causal, x, 2, 0, 0, 1.0, False,
-                   kernel="tiles", plan=ks.TilePlan(8, 2, tuple(range(9))))
+                   route="decode", kernel="tiles",
+                   plan=ks.TilePlan(8, 2, tuple(range(9))))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 modes of sampler_cluster and sampler_decode (the JAX kernels at
+# weight_dtype=bfloat16): weights widened, activations rounded to bf16 where
+# the JAX kernels round them, the layer chain not at B = 1
+# ---------------------------------------------------------------------------
+
+def _bf16_case(width, B, seed=0):
+    """``_cluster_case`` with bf16 packed weights (what
+    ``pack_sampler_weights(..., weight_dtype=torch.bfloat16)`` stores), and
+    the float32 ones."""
+    c, params, packed, carry, forced = _cluster_case(width, B, seed)
+    pk16 = packed._replace(**{k: getattr(packed, k).to(torch.bfloat16)
+                              for k in ks.WEIGHT_FIELDS})
+    return c, params, pk16, packed, carry, forced
+
+
+def _bf16_stepwise(where, c, pk16, pk32, ring, causal, forced, t0, seed,
+                   round_chain, launch):
+    """``bf16_hold.stepwise``, its logits and written ring values held by
+    ``bf16_hold.hold``; returns the kernel's logits [B, n, Q]."""
+    lg, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+        c, pk16, pk32, ring, causal, forced, t0, seed, round_chain, launch)
+    torch.cuda.synchronize()
+    bf16_hold.hold(where, lg, lg16, lg32)
+    bf16_hold.hold(f"{where} ring", rk, r16, r32)
+    return lg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,width,B", [
+    ("cluster", "small", 1), ("cluster", "small", 4),
+    ("cluster", "paper", 1), ("cluster", "paper", 4),
+    ("cluster", "paper", 64), ("cluster", "scalar_wide", 1),
+    ("cluster", "scalar_wide", 4), ("decode", "small", 5),
+    ("decode", "paper", 1), ("decode", "paper", 128),
+    ("decode", "paper", 512), ("decode", "scalar_wide", 1),
+    ("decode", "scalar_wide", 5)])
+def test_bf16_kernel_matches_reference_teacher_forced(setup, kernel, width,
+                                                      B):
+    """Each kernel's bf16 mode, pinned, teacher-forced from a prefilled
+    state: the window in one launch (counted under ``"<kernel>_bf16"``)
+    equals it one step a launch, and each step is held against bf16
+    ``decode_reference`` from the kernel's own state (the chain rounded
+    unless B == 1)."""
+    c, params, pk16, pk32, carry, forced = _bf16_case(width, B)
+    forced = forced[:, :20].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    key = f"{kernel}_bf16"
+    before = ks.decode.launches_by[key]
+    kk, lk = ks.decode(pk16, c, rk, ck, forced, 20, carry.t_abs, 3,
+                       collect_logits=True, kernel=kernel)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by[key] == before + 1
+    # Forced amplitudes come back as their mu-law codes.
+    assert torch.equal(kk[:, :-1], ks.mu_law_encode_f(
+        forced[:, 1:], c.quantization_channels) if c.scalar_input
+        else forced[:, 1:])
+
+    def step(ring, causal, x, t):
+        return ks.decode(pk16, c, ring, causal, x, 1, t, 3,
+                         collect_logits=True, kernel=kernel)[1]
+
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    lg = _bf16_stepwise(f"{kernel} {width} B={B}", c, pk16, pk32, ring,
+                        causal, forced, carry.t_abs, 3,
+                        ks.chain_rounded("decode", B), step)
+    assert torch.equal(lg, lk) and torch.equal(ring, rk)
+    assert torch.equal(causal, ck)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["cluster", "decode"])
+@pytest.mark.parametrize("width", ["paper", "scalar_wide"])
+def test_bf16_kernel_is_deterministic_and_per_row(setup, kernel, width):
+    """Same seed, same codes; for B >= 2 a row's codes and logits do not
+    depend on B (both round the chain), where b1 (chain not rounded) is
+    another computation. Teacher-forced, the last two rows of b64 (in the
+    cluster kernel's partial last cluster) equal them run as b2."""
+    c, params, pk16, _, carry, forced = _bf16_case(width, 64)
+
+    def run(n):
+        ring = carry.ring[:, :n].clone(memory_format=torch.contiguous_format)
+        causal = carry.causal[:n].clone()
+        pk = pk16._replace(layer_add=pk16.layer_add[:, :n].contiguous())
+        return ks.decode(pk, c, ring, causal,
+                         carry.last[:n, None].contiguous(), 150,
+                         carry.t_abs, 17, collect_logits=16,
+                         kernel=kernel) + (ring,)
+
+    a, la, ra = run(64)
+    b, lb, rb = run(64)
+    s, ls, rs = run(2)
+    one, l1, _ = run(1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(la, lb) and torch.equal(ra, rb)
+    assert torch.equal(a[:2], s) and torch.equal(la[:2], ls)
+    assert torch.equal(ra[:, :2], rs)
+    assert not torch.equal(la[:1], l1)
+    assert len(torch.unique(a)) > 8
+
+    def forced_run(lo, hi):
+        ring = carry.ring[:, lo:hi].clone(
+            memory_format=torch.contiguous_format)
+        pk = pk16._replace(layer_add=pk16.layer_add[:, lo:hi].contiguous())
+        lg = ks.decode(pk, c, ring, carry.causal[lo:hi].clone(),
+                       forced[lo:hi, :20].contiguous(), 20, carry.t_abs, 17,
+                       collect_logits=True, kernel=kernel)[1]
+        return lg, ring
+
+    lf, rf = forced_run(0, 64)
+    lt, rt = forced_run(62, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(lf[62:], lt) and torch.equal(rf[:, 62:], rt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["paper", "scalar_wide"])
+def test_bf16_sequential_route_matches_reference(setup, width):
+    """Kernel 4's route at bf16 (``decode_sequential``: the chain rounded at
+    every B, b1 included) on the routed kernel: the launch equals the
+    kernel's inputs replayed one step a launch, each step held against the
+    plain version from the kernel's own state."""
+    c, params, _, _, _, _ = _bf16_case(width, 1)
+    rng = np.random.RandomState(7)
+    T = 16
+    for B in (1, 3):
+        if c.scalar_input:
+            prefix = torch.as_tensor(rng.uniform(-0.9, 0.9, (
+                B, T)).astype(np.float32), device="cuda")
+            gids = None
+        else:
+            prefix = torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                                 (B, T)),
+                                     dtype=torch.int32, device="cuda")
+            gids = torch.as_tensor([0, 3, 1][:B], device="cuda")
+        emb = None if gids is None else embed_gc(params, c, gids)
+        pk16 = ks.pack_sampler_weights(params, c, B, emb,
+                                       weight_dtype=torch.bfloat16)
+        pk32 = ks.pack_sampler_weights(params, c, B, emb)
+        n_total = T - 1 + 30
+        key = "cluster_bf16" if ks.device_plan(c, B) else "decode_bf16"
+        before = ks.decode_sequential.launches_by[key]
+        codes, lg = ks.decode_sequential(pk16, c, prefix, n_total, 5,
+                                         collect_logits=True)
+        again, _ = ks.decode_sequential(pk16, c, prefix, n_total, 5)
+        torch.cuda.synchronize()
+        assert ks.decode_sequential.launches_by[key] == before + 2
+        assert torch.equal(codes, again)
+        sampled = codes[:, T - 1:-1]
+        nxt = (ks.decode_amp(sampled, c.quantization_channels)
+               if c.scalar_input else sampled)
+        forced = torch.cat([prefix, nxt.to(prefix.dtype)], 1).contiguous()
+
+        def step(ring, causal, x, t):
+            return ks._launch(pk16, c, ring, causal, x, 1, t, 5, 1.0, True,
+                              route="sequential")[1]
+
+        ring, causal = ks.zero_state(c, B, "cuda")
+        steps = _bf16_stepwise(f"sequential {width} B={B}", c, pk16, pk32,
+                               ring, causal, forced, 0, 5,
+                               ks.chain_rounded("sequential", B), step)
+        # In scalar mode a sampled code re-enters as the launch's own
+        # amplitude, which PyTorch's decode_amp may miss by the last bit:
+        # bitwise, the forced prefix's steps.
+        n_same = T if c.scalar_input else n_total
+        assert torch.equal(steps[:, :n_same], lg[:, :n_same])
+        out = ks.generate_cuda(params, c, 30, seed=5, batch_size=B,
+                               gc_ids=gids, seed_codes=prefix, prefill=False,
+                               weight_dtype=torch.bfloat16)
+        assert torch.equal(out, codes[:, T - 1:])
+
+
+@pytest.mark.gpu
+def test_bf16_route_and_refusals(setup):
+    """``kernel="auto"`` at bf16: the cluster kernel at paper b1 and b64,
+    ``sampler_decode`` at b512 (``tile_plan`` takes float32 only); a pinned
+    ``kernel="tiles"`` raises; bf16 weights go in all six or none."""
+    from wavenet_torch.models.config import paper_config
+    c = paper_config()
+    params = _seeded_params(c)
+    for B, want in ((1, "cluster_bf16"), (64, "cluster_bf16"),
+                    (512, "decode_bf16")):
+        assert ks.device_tile_plan(c, B, weight_dtype=torch.bfloat16) is None
+        before = dict(ks.decode.launches_by)
+        codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B,
+                                 weight_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        after = dict(ks.decode.launches_by)
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == {want: 1}
+        assert codes.shape == (B, 8)
+    pk = ks.pack_sampler_weights(params, c, 2, weight_dtype=torch.bfloat16)
+    ring, causal = ks.zero_state(c, 2, "cuda")
+    x = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="sampler_tiles"):
+        ks.decode(pk, c, ring, causal, x, 2, 0, 0, kernel="tiles")
+    with pytest.raises(NotImplementedError, match="sampler_tiles"):
+        ks._launch(pk, c, ring, causal, x, 2, 0, 0, 1.0, False,
+                   route="decode",
+                   plan=ks.TilePlan(8, 9, ks.layer_split(30, 8)))
+    mixed = pk._replace(skip_w=pk.skip_w.float())
+    with pytest.raises(ValueError, match="skip_w"):
+        ks.decode(mixed, c, ring, causal, x, 2, 0, 0)

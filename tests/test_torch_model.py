@@ -116,14 +116,26 @@ def test_causal_conv_padded_matches_jax(rng):
         np.asarray(jconv.conv1x1(jnp.asarray(x), jnp.asarray(w1))), **TOL)
 
 
+def test_prefill_of_bf16_config_equals_float32(rng):
+    """A config that computes in bf16 (tests/test_torch_bf16.py) prefills
+    at float32, as the JAX package's ``cfg32``: its carry is bitwise the
+    float32 config's."""
+    _, tc, _, tp = _pair(gc=True)
+    codes = torch.as_tensor(rng.randint(0, 32, (2, 20)))
+    ids = torch.tensor([1, 4])
+    ref = ks.prefill_carry(tp, tc, codes, ids)
+    got = ks.prefill_carry(tp, TConfig(**{**tc.__dict__,
+                                          "compute_dtype": "bfloat16"}),
+                           codes, ids)
+    assert got.t_abs == ref.t_abs
+    for a, b in ((got.ring, ref.ring), (got.causal, ref.causal),
+                 (got.last, ref.last)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_unported_options_raise(rng):
     _, tc, _, tp = _pair()
     codes = torch.as_tensor(rng.randint(0, 32, (1, 8)))
-    # bf16 runs the model (tests/test_torch_bf16.py); its generation, the
-    # prefill included, is not ported yet.
-    with pytest.raises(NotImplementedError, match="step 1c"):
-        ks.prefill_carry(tp, TConfig(**{**tc.__dict__,
-                                        "compute_dtype": "bfloat16"}), codes)
     with pytest.raises(NotImplementedError):
         tw.forward_codes(tp, tc, codes, lc=torch.zeros(1, 8, 2))
     with pytest.raises(ValueError):

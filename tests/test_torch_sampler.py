@@ -277,8 +277,15 @@ def test_unported_paths_raise():
     _, tc, _, tp = _pair(SMALL)
     with pytest.raises(NotImplementedError):
         ts.generate_cuda(tp, TConfig(**{**SMALL, "filter_width": 3}), 4, 0)
-    with pytest.raises(NotImplementedError):
-        ts.generate_cuda(tp, tc, 4, 0, weight_dtype=torch.bfloat16)
+    # bf16 weights decode (tests/test_torch_sampler_bf16.py), but not on
+    # the float32-only tiles kernel, pinned on any device.
+    packed = ts.pack_sampler_weights(tp, tc, 1, weight_dtype=torch.bfloat16)
+    ring, causal = ts.zero_state(tc, 1)
+    forced = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="step 1d"):
+        ts.decode(packed, tc, ring, causal, forced, 4, 0, 0, kernel="tiles")
+    with pytest.raises(NotImplementedError, match="step 1d"):
+        ts.decode_sequential(packed, tc, forced, 4, 0, kernel="tiles")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.generate_cuda(tp, TConfig(**{**SMALL, "lc_channels": 2}), 4, 0)
 

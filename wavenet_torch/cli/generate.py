@@ -8,9 +8,17 @@ Counterpart of ``wavenet_tpu/cli/generate.py``. The checkpoint is the
 port's ``ckpt-STEP/`` (a directory of them, or one of them), read with
 ``train_lib.restore_params_only``. The fast path runs
 ``sampler_select.generate_with_fallback``: prefill + one launch of a
-decode kernel on the card (``sampler_cluster`` or ``sampler_decode``, as
-``kernels.sampler.cluster_plan`` routes; their plain version on the CPU), or
-the scan sampler with ``--sampler scan``. ``--save_every`` generates in
+decode kernel on the card (``sampler_cluster``, ``sampler_tiles`` or
+``sampler_decode``, as ``kernels.sampler.cluster_plan`` and ``tile_plan``
+route; their plain version on the CPU), or the scan sampler with
+``--sampler scan``. ``--sampler_precision bfloat16`` decodes with bf16
+weights (the bf16 modes of ``sampler_cluster`` and ``sampler_decode``), on
+the fast and the ``--save_every`` paths, as the JAX CLI does; the scan and
+slow paths ignore it. The params format, as the JAX CLI's, has no
+``compute_dtype``: the config is float32 whatever the file says (a bf16
+config object generates at float32 through ``generate_with_fallback``,
+and the slow path runs ``predict_proba`` on the config itself, as in
+JAX). ``--save_every`` generates in
 resumable segments and rewrites the partial wav after each;
 ``--fast_generation false`` re-runs the full network per sample.
 ``--device`` (default ``cuda``) picks the card or, for tests, the CPU.
@@ -58,8 +66,8 @@ def get_arguments(argv=None):
     parser.add_argument("--fast_generation", type=_str_to_bool, default=True)
     parser.add_argument("--sampler_precision", type=str, default="float32",
                         choices=("float32", "bfloat16"),
-                        help="float32 only (bfloat16 decode is not ported "
-                             "yet).")
+                        help="Weights of the decode kernel: float32, or "
+                             "bfloat16 (throughput mode).")
     parser.add_argument("--sampler", type=str, default="auto",
                         choices=["auto", "pallas", "scan"],
                         help="auto/pallas: prefill + a decode kernel; "
@@ -102,8 +110,6 @@ def check_ported(args) -> None:
         (args.lc_channels is not None or args.lc_file is not None
          or args.lc_hop is not None or args.lc_refine_width,
          "--lc_*: local conditioning", "queue 1, item 2"),
-        (args.sampler_precision == "bfloat16", "--sampler_precision "
-         "bfloat16", "queue 1, item 1, step 1c"),
     ]
     for bad, flag, owner in unported:
         if bad:
@@ -260,7 +266,7 @@ def _generate_chunked_pallas(params, config, args, seed, gc_ids, seed_codes,
     the run's seed: the kernel's noise is keyed on the absolute step, so
     the segments equal one run (the JAX package reseeds per segment)."""
     from wavenet_torch.kernels.sampler import generate_cuda_resumable
-    from wavenet_torch.sampler_select import sampler_name
+    from wavenet_torch.sampler_select import PRECISIONS, sampler_name
 
     chunks, carry, done = [], None, 0
     while done < args.samples:
@@ -268,9 +274,11 @@ def _generate_chunked_pallas(params, config, args, seed, gc_ids, seed_codes,
         codes, carry = generate_cuda_resumable(
             params, config, n, seed=seed, batch_size=args.batch_size,
             gc_ids=gc_ids, temperature=args.temperature,
-            seed_codes=seed_codes if carry is None else None, carry=carry)
+            seed_codes=seed_codes if carry is None else None, carry=carry,
+            weight_dtype=PRECISIONS[args.sampler_precision])
         if done == 0:
-            print(f"Using {sampler_name(codes.device)} sampler, resumable.")
+            print(f"Using {sampler_name(codes.device, args.sampler_precision)}"
+                  " sampler, resumable.")
         chunks.append(codes.cpu().numpy())
         done += n
         if args.wav_out_path:

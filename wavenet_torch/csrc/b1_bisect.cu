@@ -118,6 +118,8 @@ int run(int mode, const void* const* w, const float* layer_add,
   a.key0 = (uint32_t)(seed & 0xffffffffull);
   a.key1 = (uint32_t)(seed >> 32);
   a.inv_temperature = 1.f;
+  // The JAX tool's bf16 step rounds every product's activation operand.
+  a.round_chain = 1;
   return dispatch<WT>(mode, a, st);
 }
 

@@ -12,7 +12,8 @@
 // The last is this kernel launched on a zero ring and causal register
 // with the whole forced prefix (the wrapper decode_sequential).
 //
-// Per step t and batch row b (float32 weights and state):
+// Per step t and batch row b (float32 state; float32 weights, or bf16 ones
+// in the bf16 mode, see below):
 //   current = [causal | feature(x)] @ causal_w
 //     mu-law input: feature = onehot(x), causal holds the previous one-hot
 //     scalar input: feature = the amplitude x, causal holds the previous
@@ -65,8 +66,10 @@
 
 // The kernel itself, with the helpers it uses, lives in sampler_step.cuh,
 // which the b1 probe (b1_bisect.cu, the port of tools/r3_b1_bisect.py)
-// shares; this file instantiates it with every part on and float32
-// weights.
+// shares; this file instantiates it with every part on, with float32
+// weights (sampler_decode_f32) and with bf16 weights (sampler_decode_bf16:
+// weights widened on load, activations rounded to bf16 where the JAX
+// kernels round them, see sampler_step.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,12 +79,11 @@
 
 namespace {
 
-using DecodeArgs = DecodeArgsT<float>;
-
 // Rows sharing one block (and one read of the weights per step): as many
 // as keep the grid at least one block per SM and the block's shared memory
 // within what a block may opt in to on this device.
-int rows_per_block(const DecodeArgs& a) {
+template <typename WT>
+int rows_per_block(const DecodeArgsT<WT>& a) {
   int dev = 0, n_sm = 1, smem_max = 48 * 1024;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
@@ -95,34 +97,33 @@ int rows_per_block(const DecodeArgs& a) {
   return 1;
 }
 
-template <int RB>
-cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
+template <int RB, typename WT>
+cudaError_t launch(const DecodeArgsT<WT>& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes(a, RB);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sampler_decode_kernel<RB, kFullStep, float>,
+        sampler_decode_kernel<RB, kFullStep, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
   const int grid = (a.B + RB - 1) / RB;
-  sampler_decode_kernel<RB, kFullStep, float>
+  sampler_decode_kernel<RB, kFullStep, WT>
       <<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sampler_decode_f32(
-    const float* causal_w, const float* layer_w, const float* layer_add,
-    const float* dense_w, const float* dense_add, const float* skip_w,
-    const float* skip_b, const float* post1_w, const float* post1_b,
-    const float* post2_w, const float* post2_b, const int* ring_meta,
-    float* ring, float* causal, const void* forced, int* codes,
-    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
-    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
-    long long t0, unsigned long long seed, float inv_temperature,
-    void* stream) {
-  DecodeArgs a;
+// The arguments of the C entry points below, with WT weights.
+template <typename WT>
+int run(const WT* causal_w, const WT* layer_w, const float* layer_add,
+        const WT* dense_w, const float* dense_add, const WT* skip_w,
+        const float* skip_b, const WT* post1_w, const float* post1_b,
+        const WT* post2_w, const float* post2_b, const int* ring_meta,
+        float* ring, float* causal, const void* forced, int* codes,
+        float* logits, float* next_amp, int B, int L, int R, int D, int S,
+        int Q, int n_total, int n_forced, int n_log, int scalar_input,
+        int causal_width, long long t0, unsigned long long seed,
+        float inv_temperature, int round_chain, void* stream) {
+  DecodeArgsT<WT> a;
   a.causal_w = causal_w;
   a.layer_w = layer_w;
   a.layer_add = layer_add;
@@ -156,6 +157,7 @@ extern "C" int sampler_decode_f32(
   a.key0 = (uint32_t)(seed & 0xffffffffull);
   a.key1 = (uint32_t)(seed >> 32);
   a.inv_temperature = inv_temperature;
+  a.round_chain = round_chain;
   // The scalar register shifts through the partial-sum scratch, which
   // holds kThreads floats per row.
   if (B < 1 || n_total < 1 || n_forced < 1 || causal_width < 1 ||
@@ -169,4 +171,45 @@ extern "C" int sampler_decode_f32(
     case 8: return (int)launch<8>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int sampler_decode_f32(
+    const float* causal_w, const float* layer_w, const float* layer_add,
+    const float* dense_w, const float* dense_add, const float* skip_w,
+    const float* skip_b, const float* post1_w, const float* post1_b,
+    const float* post2_w, const float* post2_b, const int* ring_meta,
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
+    void* stream) {
+  return run<float>(causal_w, layer_w, layer_add, dense_w, dense_add, skip_w,
+                    skip_b, post1_w, post1_b, post2_w, post2_b, ring_meta,
+                    ring, causal, forced, codes, logits, next_amp, B, L, R, D,
+                    S, Q, n_total, n_forced, n_log, scalar_input,
+                    causal_width, t0, seed, inv_temperature, 1, stream);
+}
+
+// The bf16 mode (the JAX kernels at weight_dtype=bfloat16): the six matmul
+// weights bf16, everything else as sampler_decode_f32; round_chain as
+// DecodeArgsT's (1: round the layer chain's inputs to bf16).
+extern "C" int sampler_decode_bf16(
+    const __nv_bfloat16* causal_w, const __nv_bfloat16* layer_w,
+    const float* layer_add, const __nv_bfloat16* dense_w,
+    const float* dense_add, const __nv_bfloat16* skip_w, const float* skip_b,
+    const __nv_bfloat16* post1_w, const float* post1_b,
+    const __nv_bfloat16* post2_w, const float* post2_b, const int* ring_meta,
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
+    int round_chain, void* stream) {
+  return run<__nv_bfloat16>(
+      causal_w, layer_w, layer_add, dense_w, dense_add, skip_w, skip_b,
+      post1_w, post1_b, post2_w, post2_b, ring_meta, ring, causal, forced,
+      codes, logits, next_amp, B, L, R, D, S, Q, n_total, n_forced, n_log,
+      scalar_input, causal_width, t0, seed, inv_temperature, round_chain,
+      stream);
 }

@@ -15,10 +15,14 @@
 //            kNoHead    logits = current[:, 0] in every class
 //            kNoSample  argmax of the logits, no Gumbel noise
 //            kNoFeat    current = x in every channel, no causal layer
-//   WT     the weights' type: float, or __nv_bfloat16 (the activations
-//          are then rounded to bf16 before each product, as the JAX kernels
-//          do; products and sums in float32, the adds float32).
-// sampler_decode.cu instantiates <RB, kFullStep, float>.
+//   WT     the weights' type: float, or __nv_bfloat16 (the weights are
+//          widened to float and each product's activation operand is first
+//          rounded to bf16, as the JAX kernels do: the causal window and the
+//          head's two inputs always, the layer chain's three inputs (filter/
+//          gate [past | current], dense, skip) where DecodeArgsT::round_chain
+//          is set; products, sums and adds in float32).
+// sampler_decode.cu instantiates <RB, kFullStep, float> and
+// <RB, kFullStep, __nv_bfloat16>.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +73,10 @@ struct DecodeArgsT {
   long long t0;
   uint32_t key0, key1;
   float inv_temperature;
+  // bf16 weights: 1 rounds the layer chain's inputs to bf16, 0 keeps them
+  // float32 (the JAX prefill route at B = 1, whose VPU chain multiplies
+  // float32 activations by the widened weights). Float weights ignore it.
+  int round_chain;
 };
 
 __device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
@@ -76,11 +84,12 @@ __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
 
-// An activation as the operand of a product with WT weights.
+// An activation as the operand of a product with WT weights: rounded to
+// bf16 (to nearest even) when the weights are bf16 and `rnd` holds.
 template <typename WT>
-__device__ __forceinline__ float opnd(float x) {
+__device__ __forceinline__ float opnd(float x, bool rnd = true) {
   if constexpr (sizeof(WT) == sizeof(float)) return x;
-  else return __bfloat162float(__float2bfloat16(x));
+  else return rnd ? __bfloat162float(__float2bfloat16(x)) : x;
 }
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
@@ -103,14 +112,15 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
 }
 
 // y[r][n] = sum_k x[r*xs + k] * W[k*N + n] for the RB rows of the block,
-// handed to epi(r, n, sum). Wide outputs: one thread per column over the
-// whole K. Narrow outputs: G = kThreads / N groups take every G-th k and
-// the partial sums are added in group order. The caller synchronises
-// after the call before reading what epi wrote.
+// handed to epi(r, n, sum), x rounded as opnd<WT>(x, rnd). Wide outputs:
+// one thread per column over the whole K. Narrow outputs: G = kThreads / N
+// groups take every G-th k and the partial sums are added in group order.
+// The caller synchronises after the call before reading what epi wrote.
 template <int RB, typename WT, typename Epi>
 __device__ __forceinline__ void matvec(const float* x, int xs, int K,
                                        const WT* __restrict__ W, int N,
-                                       float* part, Epi epi) {
+                                       float* part, Epi epi,
+                                       bool rnd = true) {
   const int tid = threadIdx.x;
   if (N >= kThreads) {
     for (int n = tid; n < N; n += kThreads) {
@@ -122,7 +132,7 @@ __device__ __forceinline__ void matvec(const float* x, int xs, int K,
         const float w = ldw(W + (size_t)k * N + n);
 #pragma unroll
         for (int r = 0; r < RB; ++r)
-          acc[r] = fmaf(opnd<WT>(x[r * xs + k]), w, acc[r]);
+          acc[r] = fmaf(opnd<WT>(x[r * xs + k], rnd), w, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < RB; ++r) epi(r, n, acc[r]);
@@ -141,7 +151,7 @@ __device__ __forceinline__ void matvec(const float* x, int xs, int K,
       const float w = ldw(W + (size_t)k * N + n);
 #pragma unroll
       for (int r = 0; r < RB; ++r)
-        acc[r] = fmaf(opnd<WT>(x[r * xs + k]), w, acc[r]);
+        acc[r] = fmaf(opnd<WT>(x[r * xs + k], rnd), w, acc[r]);
     }
 #pragma unroll
     for (int r = 0; r < RB; ++r) part[(g * RB + r) * N + n] = acc[r];
@@ -236,7 +246,7 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
       matvec<RB>(causal, KC, KC, a.causal_w, R, part,
                  [&](int r, int n, float s) {
                    cur[r * R + n] =
-                       a.scalar ? fmaf(xamp[r],
+                       a.scalar ? fmaf(opnd<WT>(xamp[r]),
                                        ldw(a.causal_w + (size_t)KC * R + n), s)
                                 : s + ldw(a.causal_w +
                                           (size_t)(KC + xin[r]) * R + n);
@@ -286,7 +296,7 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
                      const int row = row0 + r;
                      fg[r * 2 * D + n] =
                          s + (row < B ? ladd[(size_t)row * 2 * D + n] : 0.f);
-                   });
+                   }, a.round_chain);
       } else {
         // R == D: fg is the layer's input pair itself.
         for (int i = tid; i < RB * 2 * D; i += kThreads) fg[i] = xcat[i];
@@ -306,7 +316,7 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
         matvec<RB>(out, D, D, a.dense_w + (size_t)l * D * R, R, part,
                    [&](int r, int n, float s) {
                      cur[r * R + n] = (cur[r * R + n] + s) + __ldg(dadd + n);
-                   });
+                   }, a.round_chain);
       } else {
         // D >= R: current += out[:, :R].
         for (int i = tid; i < RB * R; i += kThreads)
@@ -315,7 +325,8 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
       __syncthreads();
       if constexpr (kSkip) {
         matvec<RB>(out, D, D, a.skip_w + (size_t)l * D * S, S, part,
-                   [&](int r, int n, float s) { skip[r * S + n] += s; });
+                   [&](int r, int n, float s) { skip[r * S + n] += s; },
+                   a.round_chain);
         __syncthreads();
       }
     }

@@ -25,10 +25,11 @@ step order. The b1 transposed weights, batch chunking and the ring
 packing were TPU layouts and have no counterpart.
 
 Three CUDA kernels compute the decode, launched by the same wrappers:
-``csrc/sampler_cluster.cu`` keeps the fg and dense weights of the layer
-chain in the shared memory of a thread-block cluster (one cluster per
-group of rows; the JAX package's all-VMEM b1 kernel ``_sampler_kernel``
-is its TPU counterpart); ``csrc/sampler_tiles.cu`` does the same for tens
+``csrc/sampler_cluster.cu`` (the kernel in ``csrc/sampler_cluster.cuh``)
+keeps the fg and dense weights of the layer chain in the shared memory of
+a thread-block cluster (one cluster per group of rows; the JAX package's
+all-VMEM b1 kernel ``_sampler_kernel`` is its TPU counterpart);
+``csrc/sampler_tiles.cu`` does the same for tens
 of rows a cluster at the paper/gc widths only, each thread owning a
 register tile of rows x columns (the JAX package's large-batch kernels
 ``_sampler_kernel_hbm_stream`` and ``_decode_kernel_packed`` are its TPU
@@ -44,6 +45,17 @@ one. Each kernel's sums have a fixed order, so a row's codes do not depend
 on the batch size within one kernel's range; the kernels' orders differ in
 the last bits, so across a boundary (gc b120 and b121 on an H100) a
 near-tie can draw another code.
+
+bf16 weights (``weight_dtype=torch.bfloat16``, the JAX package's
+``weight_dtype=jnp.bfloat16``) run the bf16 mode of ``sampler_cluster``
+(``csrc/sampler_cluster_bf16.cu``) and of ``sampler_decode``; the tiles
+kernel is float32 only, so ``tile_plan`` leaves bf16 b121+ to
+``sampler_decode``. The weights are widened to float32 and each product's
+activation operand is rounded to bf16 first, at the JAX kernels' points
+(``decode_reference`` says where); the ring, the causal register and every
+sum stay float32. Generation from a config whose ``compute_dtype`` is
+bfloat16 prefills at float32 and decodes at the requested weight type, as
+the JAX package does.
 
 ``decode_reference`` is the plain PyTorch version of the three kernels,
 with the same Philox4x32-10 noise; ``decode`` and ``decode_sequential``
@@ -64,7 +76,8 @@ import torch.nn.functional as F
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import (
     Params, embed_gc, forward, forward_codes, one_hot)
-from wavenet_torch.sample import _input_kernel_width, ring_slot_blocks
+from wavenet_torch.sample import (
+    _input_kernel_width, float32_config, ring_slot_blocks)
 
 
 class PackedSampler(NamedTuple):
@@ -85,6 +98,11 @@ class PackedSampler(NamedTuple):
     post1_b: torch.Tensor      # [1, S]
     post2_w: torch.Tensor      # [S, Q]
     post2_b: torch.Tensor      # [1, Q]
+
+
+#: The packed fields that hold matmul weights: float32, or all six bf16.
+WEIGHT_FIELDS = ("causal_w", "layer_w", "dense_w", "skip_w", "post1_w",
+                 "post2_w")
 
 
 class StreamSamplerCarry(NamedTuple):
@@ -117,25 +135,6 @@ def zero_state(config: WaveNetConfig, batch_size: int, device=None):
     return ring, causal
 
 
-_BF16_DECODE = "ROADMAP.md queue 1, item 1, step 1c (bf16 decode)"
-
-
-def _require_float32(weight_dtype) -> None:
-    if weight_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "sampler_decode runs float32 weights only; bf16 weights are "
-            f"queued in {_BF16_DECODE}")
-
-
-def require_float32_generation(config: WaveNetConfig) -> None:
-    """Generation (prefill and decode) runs float32 only: raise for a
-    config that computes in bf16, which the model and training take."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"generation runs float32 only; compute_dtype="
-            f"{config.compute_dtype!r} is queued in {_BF16_DECODE}")
-
-
 def pack_sampler_weights(params: Params, config: WaveNetConfig,
                          batch_size: int,
                          gc_embedding: Optional[torch.Tensor] = None,
@@ -143,9 +142,8 @@ def pack_sampler_weights(params: Params, config: WaveNetConfig,
     """Rearrange the parameter dict into the kernel's layout.
 
     ``weight_dtype=torch.bfloat16`` stores the matmul weights in bf16, as
-    the JAX package does; the additive terms stay float32. ``decode`` and
-    ``generate_cuda`` still take float32 weights only (the b1 probe
-    ``wavenet_torch.tools.r3_b1_bisect`` reads the bf16 ones)."""
+    the JAX package does; the additive terms stay float32. ``decode`` then
+    runs the kernels' bf16 mode."""
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype {weight_dtype}: float32 or bfloat16")
     c = config
@@ -246,12 +244,13 @@ def prefill_carry(params: Params, config: WaveNetConfig,
     entering each layer at its last d_l positions, which one parallel
     forward computes (``forward_codes`` on mu-law codes, ``forward`` on
     amplitudes in scalar mode). The carry resumes decoding at absolute
-    step T-1 with ``seed_codes[:, -1]`` as the first input.
+    step T-1 with ``seed_codes[:, -1]`` as the first input. The forward
+    runs at float32 whatever the config's ``compute_dtype``
+    (``float32_config``), as the JAX package's prefill does.
     """
-    c = config
+    c = float32_config(config)
     if c.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
-    require_float32_generation(c)
     seed_codes = seed_codes.to(input_dtype(c))
     B, T = seed_codes.shape
     last = seed_codes[:, -1].contiguous()
@@ -388,13 +387,51 @@ def mu_law_encode_f(amp: torch.Tensor,
     return ((signal + 1.0) / 2.0 * mu + 0.5).to(torch.int32)
 
 
+def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """An activation as the operand of a product with bf16 weights: rounded
+    to bf16 (round to nearest even) and widened back, as the JAX kernels'
+    ``x.astype(w_ref.dtype)`` before ``mxu_dot``."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def weight_dtype_of(packed: PackedSampler) -> torch.dtype:
+    """The type of the packed matmul weights: float32 or bfloat16."""
+    return packed.layer_w.dtype
+
+
+def chain_rounded(route: str, B: int) -> bool:
+    """Whether a bf16 decode rounds the layer chain's inputs to bf16: on
+    ``route`` "decode" (:func:`decode`, the JAX package's prefill route,
+    kernels 1-3) unless B == 1, where JAX multiplies float32 activations by
+    the widened weights (its VPU chain); on "sequential"
+    (:func:`decode_sequential`, kernel 4, which has no b1 branch) at every
+    B."""
+    if route == "decode":
+        return B != 1
+    if route == "sequential":
+        return True
+    raise ValueError(f"chain_rounded: unknown route {route!r}")
+
+
 def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                      ring: torch.Tensor, causal: torch.Tensor,
                      forced: torch.Tensor, n_total: int, t0: int, seed: int,
                      temperature: float = 1.0, collect_logits=False,
-                     next_amp: Optional[torch.Tensor] = None):
+                     next_amp: Optional[torch.Tensor] = None,
+                     round_chain: Optional[bool] = None):
     """Plain PyTorch version of ``sampler_decode`` (same contract as
-    :func:`decode`): a Python loop over steps, batched over rows."""
+    :func:`decode`): a Python loop over steps, batched over rows.
+
+    With bf16 weights (``pack_sampler_weights(..., weight_dtype=
+    torch.bfloat16)``) it computes what the JAX kernels compute at
+    ``weight_dtype=bfloat16``: the weights are widened to float32 and the
+    activation operand of a product is rounded to bf16 first; products,
+    sums, adds, tanh, the ring and the causal register stay float32. The
+    causal window and the head's two inputs are always rounded; the layer
+    chain's three inputs (filter/gate ``[past | current]``, dense, skip)
+    only where ``round_chain`` is true; ``None`` takes :func:`decode`'s
+    rule (:func:`chain_rounded`). Float32 weights ignore ``round_chain``.
+    """
     c = config
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
     scalar, C_in = c.scalar_input, c.input_channels
@@ -404,6 +441,14 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     n_log = _n_log(collect_logits, n_total)
     log_from = n_total - n_log
     inv_t = float(np.float32(1.0 / temperature))
+    bf16 = weight_dtype_of(packed) == torch.bfloat16
+    if round_chain is None:
+        round_chain = chain_rounded("decode", B)
+    keep = lambda x: x                                    # noqa: E731
+    head_in = _bf16_operand if bf16 else keep
+    chain_in = _bf16_operand if bf16 and round_chain else keep
+    w = packed._replace(**{k: getattr(packed, k).to(torch.float32)
+                           for k in WEIGHT_FIELDS})
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=torch.float32, device=dev)
               if n_log else None)
@@ -418,23 +463,23 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
             feature = (x[:, None] if scalar
                        else F.one_hot(x, Q).to(torch.float32))
             window = torch.cat([causal, feature], dim=-1)
-            cur = window @ packed.causal_w
+            cur = head_in(window) @ w.causal_w
             causal.copy_(window[:, C_in:])
             skip = None
             for l in range(L):
                 pos = offs[l] + (t0 + t) % dil[l]
                 past = ring[pos].clone()
                 ring[pos] = cur
-                fg = (torch.cat([past, cur], dim=-1) @ packed.layer_w[l]
-                      + packed.layer_add[l])
+                fg = (chain_in(torch.cat([past, cur], dim=-1)) @ w.layer_w[l]
+                      + w.layer_add[l])
                 tg = torch.tanh(fg)
                 out = tg[:, :D] * (0.5 + 0.5 * tg[:, D:])
-                cur = cur + out @ packed.dense_w[l] + packed.dense_add[l]
-                s = out @ packed.skip_w[l]
+                cur = cur + chain_in(out) @ w.dense_w[l] + w.dense_add[l]
+                s = chain_in(out) @ w.skip_w[l]
                 skip = s if skip is None else skip + s
-            h = torch.relu(skip + packed.skip_b)
-            h = torch.relu(h @ packed.post1_w + packed.post1_b)
-            lg = h @ packed.post2_w + packed.post2_b
+            h = torch.relu(skip + w.skip_b)
+            h = torch.relu(head_in(h) @ w.post1_w + w.post1_b)
+            lg = head_in(h) @ w.post2_w + w.post2_b
             if n_log and t >= log_from:
                 logits[:, t - log_from] = lg
             sampled = torch.argmax(lg * inv_t + noise[t % chunk], dim=-1)
@@ -598,22 +643,26 @@ def tile_smem_bytes(rb: int) -> int:
 
 def tile_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
               resident_clusters: Callable[[int, int, int], int],
-              cluster_resident: Callable[[int, int, int], int]
+              cluster_resident: Callable[[int, int, int], int],
+              weight_dtype: torch.dtype = torch.float32
               ) -> Optional[TilePlan]:
     """The ``sampler_tiles`` launch for this config and batch on a device
     with ``smem_optin`` bytes of shared memory per block that keeps
     ``resident_clusters(8, RB, smem bytes a CTA)`` of its clusters resident
     at once, or None.
 
-    None outside the kernel's compiled shape (``tile_shape``) and wherever
-    ``cluster_plan`` finds a launch with the device's count of the cluster
-    kernel's clusters (``cluster_resident``), so that b1-b120 keep
-    ``sampler_cluster`` and their codes. Else the fewest rows a cluster
+    None for bf16 weights (the kernel's ``cp.async`` tiles carry float32
+    only; ROADMAP.md queue 1, item 1, step 1d), outside the kernel's
+    compiled shape (``tile_shape``) and wherever ``cluster_plan`` finds a
+    launch with the device's count of the cluster kernel's clusters
+    (``cluster_resident``), so that b1-b120 keep ``sampler_cluster`` and
+    their codes. Else the fewest rows a cluster
     that keep every cluster resident in one wave (15 clusters of 8 on an
     H100: RB 9 at b121-b135, 35 at b512 and at the top, b525), and the
     layer split ``layer_split(L, 8)``, which does not depend on B.
     """
-    if (batch_size < 1 or not tile_shape(config)
+    if (batch_size < 1 or weight_dtype != torch.float32
+            or not tile_shape(config)
             or cluster_plan(config, batch_size, smem_optin,
                             cluster_resident) is not None):
         return None
@@ -630,20 +679,33 @@ def tile_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
 KERNEL_CHOICES = ("auto", "cluster", "tiles", "decode")
 
 
+#: The arguments every decode entry point takes first: 18 pointers, 11
+#: ints, t0, the seed and 1 / temperature.
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+                    + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float])
+#: Then the bf16 entries' ``round_chain``; the cluster and tiles entries'
+#: plan (cs, rb, layer_begin); last, the stream.
+_ROUND = [ctypes.c_int]
+_PLAN = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def _bind(lib) -> None:
-    fn = lib.sampler_decode_f32
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
-                   + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.sampler_decode_f32.argtypes = _DECODE_ARGTYPES + [ctypes.c_void_p]
+    lib.sampler_decode_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND
+                                        + [ctypes.c_void_p])
+    lib.sampler_decode_f32.restype = ctypes.c_int
+    lib.sampler_decode_bf16.restype = ctypes.c_int
+
+
+def _bind_cluster_bf16(lib) -> None:
+    lib.sampler_cluster_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND + _PLAN
+                                         + [ctypes.c_void_p])
+    lib.sampler_cluster_bf16.restype = ctypes.c_int
 
 
 def _bind_cluster(lib) -> None:
     fn = lib.sampler_cluster_f32
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
-                   + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
+    fn.argtypes = _DECODE_ARGTYPES + _PLAN + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.sampler_cluster_smem_optin.argtypes = [ctypes.c_void_p]
     lib.sampler_cluster_smem_optin.restype = ctypes.c_int
@@ -656,10 +718,7 @@ def _bind_cluster(lib) -> None:
 
 def _bind_tiles(lib) -> None:
     fn = lib.sampler_tiles_f32
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
-                   + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
+    fn.argtypes = _DECODE_ARGTYPES + _PLAN + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.sampler_tiles_smem_bytes.argtypes = [ctypes.c_int]
     lib.sampler_tiles_smem_bytes.restype = ctypes.c_longlong
@@ -730,13 +789,14 @@ def device_plan(config: WaveNetConfig, batch_size: int,
     return cluster_plan(config, batch_size, d.smem_optin, d.cluster_resident)
 
 
-def device_tile_plan(config: WaveNetConfig, batch_size: int,
-                     device=None) -> Optional[TilePlan]:
+def device_tile_plan(config: WaveNetConfig, batch_size: int, device=None,
+                     weight_dtype: torch.dtype = torch.float32
+                     ) -> Optional[TilePlan]:
     """``tile_plan`` with the opt-in shared memory of the current CUDA
     device and its counts of resident clusters of either kernel."""
     d = _device(device)
     return tile_plan(config, batch_size, d.smem_optin, d.tile_resident,
-                     d.cluster_resident)
+                     d.cluster_resident, weight_dtype)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -748,24 +808,32 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"sampler_decode: {name} must be contiguous")
 
 
-def _check_kernel(kernel: str) -> None:
+def _check_kernel(kernel: str, packed: PackedSampler) -> None:
     if kernel not in KERNEL_CHOICES:
         raise ValueError(f"kernel={kernel!r}: one of {KERNEL_CHOICES}")
+    if kernel == "tiles" and weight_dtype_of(packed) != torch.float32:
+        raise NotImplementedError(
+            "sampler_tiles runs float32 weights only; its bf16 mode is "
+            "queued in ROADMAP.md queue 1, item 1, step 1d")
 
 
 def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             causal: torch.Tensor, forced: torch.Tensor, n_total: int,
             t0: int, seed: int, temperature: float, collect_logits,
             next_amp: Optional[torch.Tensor] = None, *,
-            kernel: str = "auto", plan=None):
+            route: str, kernel: str = "auto", plan=None):
     """Check every operand and launch one decode kernel once on the
     current stream: ``sampler_cluster`` where ``kernel`` is "cluster", or
     "auto" and ``cluster_plan`` finds a launch; ``sampler_tiles`` where
     ``kernel`` is "tiles", or "auto" and ``tile_plan`` finds one; else
     ``sampler_decode``. A given ``plan`` (a ``ClusterPlan`` or a
-    ``TilePlan``) replaces the device's. Returns ``(codes, logits, kernel
-    launched)``; raises if the launch is refused."""
-    _check_kernel(kernel)
+    ``TilePlan``) replaces the device's. bf16 weights launch the bf16 mode
+    of the cluster or decode kernel, which rounds the layer chain's inputs
+    where :func:`chain_rounded` says so for ``route`` ("decode" or
+    "sequential", the caller's; see :func:`decode_reference`). Returns
+    ``(codes, logits, kernel launched)``, the kernel's name with "_bf16"
+    in the bf16 mode; raises if the launch is refused."""
+    _check_kernel(kernel, packed)
     c = config
     if c.filter_width != 2 or c.lc_enabled:
         raise NotImplementedError(
@@ -780,6 +848,10 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         raise ValueError("sampler_decode needs n_total >= 1 and at least "
                          "one forced input")
     f32 = torch.float32
+    wt = weight_dtype_of(packed)
+    if wt not in (f32, torch.bfloat16):
+        raise ValueError(f"sampler_decode: weights of type {wt}: float32 "
+                         "or bfloat16")
     KC = causal_width(c)
     for name, shape in (("causal_w", (KC + c.input_channels, R)),
                         ("layer_w", (L, 2 * R, 2 * D)),
@@ -788,7 +860,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
                         ("skip_b", (1, S)), ("post1_w", (S, S)),
                         ("post1_b", (1, S)), ("post2_w", (S, Q)),
                         ("post2_b", (1, Q))):
-        _check(name, getattr(packed, name), f32, shape, dev)
+        _check(name, getattr(packed, name),
+               wt if name in WEIGHT_FIELDS else f32, shape, dev)
     _check("ring", ring, f32, (sum(c.dilations), B, R), dev)
     _check("causal", causal, f32, (B, KC), dev)
     _check("forced", forced, input_dtype(c), (B, n_forced), dev)
@@ -802,7 +875,7 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             plan = cluster_plan(c, B, d.smem_optin, d.cluster_resident)
         if plan is None and kernel in ("auto", "tiles"):
             plan = tile_plan(c, B, d.smem_optin, d.tile_resident,
-                             d.cluster_resident)
+                             d.cluster_resident, wt)
     if kernel == "decode":
         plan = None
     elif plan is None and kernel != "auto":
@@ -814,6 +887,11 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     if kernel != "auto" and used != kernel:
         raise ValueError(f"sampler_{kernel}: given a plan of another kernel, "
                          f"{plan}")
+    bf16 = wt == torch.bfloat16
+    if bf16 and used == "tiles":
+        raise NotImplementedError(
+            f"sampler_tiles runs float32 weights only, given the plan {plan} "
+            "(ROADMAP.md queue 1, item 1, step 1d)")
     n_log = _n_log(collect_logits, n_total)
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=f32, device=dev)
@@ -835,6 +913,7 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             or any(b <= a for a, b in zip(plan.layer_begin,
                                           plan.layer_begin[1:]))):
         raise ValueError(f"sampler_{used}: bad plan {plan}")
+    rnd = (int(chain_rounded(route, B)),) if bf16 else ()
     if used == "tiles":
         if plan.CS != TILE_CS or plan.RB not in TILE_ROWS:
             raise ValueError(f"sampler_tiles: bad plan {plan}")
@@ -845,17 +924,25 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     elif used == "cluster":
         if S % plan.CS or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS:
             raise ValueError(f"sampler_cluster: bad plan {plan}")
-        lib = _build.load("sampler_cluster")
-        _bind_cluster(lib)
         begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
-        err = lib.sampler_cluster_f32(*args, plan.CS, plan.RB, begin, stream)
+        if bf16:
+            lib = _build.load("sampler_cluster_bf16")
+            _bind_cluster_bf16(lib)
+            fn = lib.sampler_cluster_bf16
+        else:
+            lib = _build.load("sampler_cluster")
+            _bind_cluster(lib)
+            fn = lib.sampler_cluster_f32
+        err = fn(*args, *rnd, plan.CS, plan.RB, begin, stream)
     else:
         lib = _build.load("sampler_decode")
         _bind(lib)
-        err = lib.sampler_decode_f32(*args, stream)
+        fn = lib.sampler_decode_bf16 if bf16 else lib.sampler_decode_f32
+        err = fn(*args, *rnd, stream)
+    name = used + ("_bf16" if bf16 else "")
     if err != 0:
-        raise RuntimeError(f"sampler_{used} launch failed: CUDA error {err}")
-    return codes, logits, used
+        raise RuntimeError(f"sampler_{name} launch failed: CUDA error {err}")
+    return codes, logits, name
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -885,23 +972,29 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 
     CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
     (``kernel``: "auto" routes by ``cluster_plan`` then ``tile_plan``;
-    "cluster", "tiles" and "decode" pin one) or raise.
+    "cluster", "tiles" and "decode" pin one) or raise. bf16 weights
+    (``pack_sampler_weights(..., weight_dtype=torch.bfloat16)``) run the
+    bf16 mode of the cluster or decode kernel (``tile_plan`` takes float32
+    only, and a pinned "tiles" raises), the layer chain's inputs rounded
+    as :func:`chain_rounded` says for this route (unless B == 1).
     """
-    _check_kernel(kernel)
+    _check_kernel(kernel, packed)
     if _device_type(ring) == "cpu":
         return decode_reference(packed, config, ring, causal, forced,
                                 n_total, t0, seed, temperature,
                                 collect_logits, next_amp)
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, t0, seed,
-        temperature, collect_logits, next_amp, kernel=kernel)
+        temperature, collect_logits, next_amp, route="decode",
+        kernel=kernel)
     decode.launches += 1
     decode.launches_by[used] += 1
     return codes, logits
 
 
 #: Kernel launches made by ``decode``, in all and by kernel ("cluster",
-#: "tiles", "decode"; read by chip_smoke.py).
+#: "tiles", "decode", and "cluster_bf16", "decode_bf16" for the bf16
+#: modes; read by chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()
 
@@ -918,17 +1011,19 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
     as :func:`decode`. This is what the JAX package's single-pass
     HBM-ring kernel computes (``generate_pallas(ring_in_hbm=True)``).
     CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
-    (``kernel`` as in :func:`decode`) or raise.
+    (``kernel`` as in :func:`decode`) or raise. With bf16 weights the
+    layer chain's inputs are rounded at every B (:func:`chain_rounded`).
     """
-    _check_kernel(kernel)
+    _check_kernel(kernel, packed)
     ring, causal = zero_state(config, forced.shape[0], forced.device)
     if _device_type(forced) == "cpu":
-        return decode_reference(packed, config, ring, causal, forced,
-                                n_total, 0, seed, temperature,
-                                collect_logits)
+        return decode_reference(
+            packed, config, ring, causal, forced, n_total, 0, seed,
+            temperature, collect_logits,
+            round_chain=chain_rounded("sequential", forced.shape[0]))
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, 0, seed, temperature,
-        collect_logits, kernel=kernel)
+        collect_logits, route="sequential", kernel=kernel)
     decode_sequential.launches += 1
     decode_sequential.launches_by[used] += 1
     return codes, logits
@@ -940,15 +1035,13 @@ decode_sequential.launches = 0
 decode_sequential.launches_by = collections.Counter()
 
 
-def _check_generation(config: WaveNetConfig, weight_dtype) -> None:
+def _check_generation(config: WaveNetConfig) -> None:
     if config.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
     if config.lc_enabled:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "item 2, 'LC in sampler_decode')")
-    require_float32_generation(config)
-    _require_float32(weight_dtype)
 
 
 def _packed_for(params: Params, config: WaveNetConfig, batch_size: int,
@@ -999,11 +1092,15 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
       port has one launch for all of them). With ``collect_logits`` the
       logits of every step (or the last W) come back in step order.
 
-    Returns ``codes`` or ``(codes, logits [B, n_log, Q])``. The device is
-    the parameters' device.
+    ``weight_dtype=torch.bfloat16`` packs the matmul weights in bf16 and
+    decodes in the kernels' bf16 mode (the JAX package's
+    ``weight_dtype=jnp.bfloat16``); the prefill and the ring stay float32,
+    and a config's ``compute_dtype`` changes neither. Returns ``codes`` or
+    ``(codes, logits [B, n_log, Q])``. The device is the parameters'
+    device.
     """
     c = config
-    _check_generation(c, weight_dtype)
+    _check_generation(c)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
@@ -1042,10 +1139,11 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
     at any temperature. In scalar mode the carry's last input is the last
     code's decoded amplitude as the launch itself computed it
     (``decode(next_amp=...)``), so the next segment starts from the value
-    one long launch would have used.
+    one long launch would have used. ``weight_dtype`` as in
+    :func:`generate_cuda`.
     """
     c = config
-    _check_generation(c, weight_dtype)
+    _check_generation(c)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     if carry is None:

@@ -14,13 +14,16 @@ int; a step updates the state's ring in place (the JAX package donates
 it); randomness comes from an explicit ``torch.Generator`` (the ``key``
 arguments), which a chunked run keeps drawing from, so chunks equal one
 run. Gumbel-argmax over logits/T samples the same distribution as
-``jax.random.categorical``, from other random numbers. The speculative
+``jax.random.categorical``, from other random numbers. As in the JAX
+package, the sampler computes in float32 whatever the config's
+``compute_dtype`` (``float32_config``). The speculative
 decoding helpers (``extend_state``) and ``generate_sharded`` are queued
 in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -66,8 +69,14 @@ def _check_config(c: WaveNetConfig) -> None:
         raise NotImplementedError(
             "local conditioning is not ported yet (ROADMAP.md queue 1, "
             "item 2)")
-    from wavenet_torch.kernels.sampler import require_float32_generation
-    require_float32_generation(c)
+
+
+def float32_config(config: WaveNetConfig) -> WaveNetConfig:
+    """The config as generation's prefill runs it: float32 whatever its
+    ``compute_dtype``, on the plain stack (the JAX package's ``cfg32``).
+    The samplers' steps multiply the float32 params as they are."""
+    return dataclasses.replace(config, compute_dtype="float32",
+                               use_pallas_stack=False, remat=False)
 
 
 def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
@@ -175,8 +184,9 @@ def prefill_state(params: Params, config: WaveNetConfig,
                   ) -> SamplerState:
     """:func:`prime_state` from zero in one parallel forward: each layer's
     queue after teacher-forcing ``waveform`` [B, T] is the residual stream
-    entering that layer at its last dilation_l positions."""
-    c = config
+    entering that layer at its last dilation_l positions. The forward runs
+    at float32 whatever the config's ``compute_dtype``."""
+    c = float32_config(config)
     _check_config(c)
     B, T = waveform.shape
     dev = waveform.device

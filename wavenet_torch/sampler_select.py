@@ -4,23 +4,37 @@
 The JAX package tries an ordered ladder of Pallas variants and falls
 back to its ``lax.scan`` sampler when one fails to compile. The port
 keeps the ladder's first rung only: prefill + one launch of a decode
-kernel (``generate_cuda``: ``sampler_cluster`` or ``sampler_decode``, as
-``cluster_plan`` routes), which serves any batch size in one launch. On a GPU a failure raises; there is no fallback. On
-the CPU the same call runs the kernel's plain version
-(``decode_reference``), because the tensors lie there. ``sampler="scan"``
-runs the scan sampler of ``wavenet_torch.sample``.
+kernel (``generate_cuda``), which serves any batch size in one launch.
+The route (``kernels.sampler.cluster_plan``, then ``tile_plan``) takes
+``sampler_cluster`` (paper/gc b1-b120 and wide b1-b28 on an H100),
+``sampler_tiles`` (paper/gc b121-b525, float32 weights only) or
+``sampler_decode`` (the rest). ``precision="bfloat16"`` forwards
+``weight_dtype=torch.bfloat16``, as the JAX ladder's first rung does: the
+bf16 modes of ``sampler_cluster`` and ``sampler_decode`` run, the ring
+stays float32. On a GPU a failure raises; there is no fallback. On the
+CPU the same call runs the kernels' plain version (``decode_reference``),
+because the tensors lie there. ``sampler="scan"`` runs the scan sampler
+of ``wavenet_torch.sample``, which ignores the precision, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import torch
 
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-def sampler_name(device) -> str:
+
+def sampler_name(device, precision: str = "float32") -> str:
     """What the CLI's and the server's generation runs on ``device``."""
     if getattr(device, "type", str(device)) == "cuda":
-        return "CUDA (prefill + sampler_cluster/sampler_decode kernel)"
-    return "PyTorch reference (prefill + decode_reference)"
+        if precision == "bfloat16":
+            return ("CUDA (prefill + sampler_cluster/sampler_decode kernel, "
+                    "bf16 weights)")
+        return ("CUDA (prefill + sampler_cluster/sampler_tiles/"
+                "sampler_decode kernel)")
+    tag = ", bf16 weights" if precision == "bfloat16" else ""
+    return f"PyTorch reference (prefill + decode_reference{tag})"
 
 
 def sampler_attempts(config, sampler: str = "auto",
@@ -29,13 +43,15 @@ def sampler_attempts(config, sampler: str = "auto",
     the scan sampler. One candidate at most: the port has no VMEM budget
     to fall through, so neither the batch size nor the length prunes the
     ladder as in the JAX package."""
-    if precision == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 sampling is not ported yet (ROADMAP.md queue 1, "
-            "item 1, step 1c)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of "
+                         f"{tuple(PRECISIONS)}")
     if sampler not in ("auto", "pallas") or config.filter_width != 2:
         return []
-    return [(sampler_name(device), dict(prefill=True))]
+    kw = dict(prefill=True)
+    if precision == "bfloat16":
+        kw["weight_dtype"] = torch.bfloat16
+    return [(sampler_name(device, precision), kw)]
 
 
 def generate_with_fallback(params, config, n_samples: int, *,
