@@ -6,8 +6,8 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode``, ``sampler_cluster`` (float32 and bf16 modes,
-   two libraries), ``sampler_tiles``, ``fused_stack``, ``fused_stack_mma``,
+   the ``sampler_decode``, ``sampler_cluster`` (float32, bf16 and
+   local-conditioning modes, three libraries), ``sampler_tiles``, ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
@@ -112,6 +112,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel's bf16 mode) and b128 x 4,000 (``sampler_decode``'s), its
    launches counted from 0; last, ``generate_with_fallback`` (the CLI's
    fast path) on a bf16 config object, bitwise the float32 config's.
+6c. Local conditioning (the LC row of TPU kernels 1 and 2) at the JAX
+   bench's ``lc`` config, ``paper_config(lc_channels=80)``, seeded LC
+   weights and biases: the LC modes of ``sampler_cluster`` (paper-LC b1
+   and the top of the cluster plan's range) and ``sampler_decode`` (b64,
+   b512), pinned, from an LC prefill, teacher-forced over 32 steps on a
+   uniform(-1, 1) stream against ``decode_reference(lc=)`` (phase 2's
+   tolerance; b1 also against ``forward_codes``), same-seed repeats
+   bitwise, counted under ``cluster_lc`` / ``decode_lc``, and timed in
+   turns with the same kernel without LC; the bench's ``lc`` row,
+   ``generate_cuda`` at b1 x 16,000 (samples/s); then the main path, its
+   launches counted from 0: a ``GenerationService`` from a params file
+   with ``lc_channels: 80`` answers /generate with 80 log-mel frames of a
+   synthesized sound (``wavenet_torch.features``) at ``lc_hop`` 200 (other
+   frames give another waveform; seconds and ``decode_s``), and ``python
+   -m wavenet_torch.cli.generate --lc_channels 80 --lc_file ... --lc_hop
+   200`` at b1 x 16,000, b64 x 4,000 (``--save_every`` equal to the single
+   run) and b256 x 2,000 (``sampler_decode``'s LC mode).
 7. The retired training stacks (TPU kernels 6-8), at the paper and gc
    configs' full width, b8 x (receptive field + 16,000): the
    ``fused_stack_carry`` kernel behind generations v1 and v2 against the
@@ -172,7 +189,8 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
                ("gc", 512): 512}
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
-           "sampler_tiles", "fused_stack", "fused_stack_mma",
+           "sampler_cluster_lc", "sampler_tiles", "fused_stack",
+           "fused_stack_mma",
            "fused_stack_carry", "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
 DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
@@ -245,6 +263,25 @@ BF16_CLI_RUNS = (("b1", 1, GEN_SAMPLES, "cluster_bf16"),
                  ("b64", 64, GEN_SAMPLES, "cluster_bf16"),
                  ("b128", 128, 4000, "decode_bf16"))
 BF16_CONFIG_SAMPLES = 4000
+# Phase 6c: local conditioning at the JAX bench's ``lc`` config
+# (paper_config(lc_channels=80), bench.py:114-117), 80 log-mels at a
+# 200-sample hop. The pinned cases (kernel, batch; "top" is the largest
+# batch the cluster plan takes): the main path's shapes (the cluster
+# kernel at b1 and b64, sampler_decode at b256) and the ends of each
+# kernel's range; their teacher-forced steps and the steps of one timed
+# launch; the CLI's runs (label, batch, samples, extra flags, the LC
+# kernel the route takes and its launches).
+LC_CHANNELS, LC_HOP = 80, 200
+LC_CASES = (("cluster", 1), ("cluster", 64), ("cluster", "top"),
+            ("decode", 64), ("decode", 256), ("decode", 512))
+LC_TEACHER_STEPS = 32
+LC_TIMED_STEPS = {1: 2048, 64: 1024, 256: 512, 512: 512}
+LC_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_lc", 1),
+               ("b64", 64, 4000, [], "cluster_lc", 1),
+               ("b64_save_every", 64, 4000, ["--save_every", "1000"],
+                "cluster_lc", 4),
+               ("b256", 256, 2000, [], "decode_lc", 1))
+LC_SOURCES = {"cluster": "sampler_cluster_lc", "decode": "sampler_decode_lc"}
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
@@ -285,11 +322,19 @@ def causal_rows(c) -> int:
     return causal_width(c) + c.input_channels
 
 
+def lc_macs_per_row_step(c) -> int:
+    """An LC config's extra products a row and step: lc_t @ lc_w[l] for
+    every layer, C_lc x 2D each."""
+    if not c.lc_enabled:
+        return 0
+    return c.num_layers * c.lc_channels * 2 * c.dilation_channels
+
+
 def flops_per_row_step(c) -> int:
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
     return 2 * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S)
-                + S * S + S * Q)
+                + S * S + S * Q + lc_macs_per_row_step(c))
 
 
 def chain_flops_per_row_step(c) -> int:
@@ -317,24 +362,27 @@ def ops_seconds_per_row_step(c, wbytes: int = 4,
 
 def weight_bytes(c, wbytes: int = 4) -> int:
     """Bytes of the decode's weights: the six matmul weights at ``wbytes``
-    each (4, or 2 in the bf16 mode), the biases at 4."""
+    each (4, or 2 in the bf16 mode), an LC config's ``lc_w`` at 4 (float32
+    only), the biases at 4."""
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
     return (wbytes * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S)
                       + S * S + S * Q)
-            + 4 * (L * R + 2 * S + Q))
+            + 4 * (L * R + 2 * S + Q + lc_macs_per_row_step(c)))
 
 
 def bound_per_step(c, B: int, steps: int, wbytes: int = 4,
                    round_chain: bool = True):
     """Least time per step of one decode launch: every input read once and
     every output written once (weights at ``wbytes`` each, per-row adds,
-    ring and causal in and out, forced in, codes out), or its operations
-    at their peaks (``ops_seconds_per_row_step``)."""
+    ring and causal in and out, forced in, codes out, an LC config's
+    stream of B x C_lc floats a step in), or its operations at their peaks
+    (``ops_seconds_per_row_step``)."""
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
     state = 4 * B * (sum(c.dilations) * c.residual_channels + Q)
+    lc_stream = 4 * B * (c.lc_channels or 0) * steps
     nbytes = (weight_bytes(c, wbytes) + 4 * L * B * 2 * D + 2 * state + 4 * B
-              + 4 * B * steps)
+              + 4 * B * steps + lc_stream)
     t_bytes = nbytes / HBM_BYTES_PER_S / steps
     t_ops = ops_seconds_per_row_step(c, wbytes, round_chain) * B
     if t_bytes >= t_ops:
@@ -2097,6 +2145,264 @@ def phase_bf16_generate(cfgs, params, gc_ckpt, gc_pfile, gpu):
     return launches
 
 
+def lc_params(c, seed: int, device):
+    """``seeded_params`` of an LC config with its LC weights perturbed
+    from the seed too (the biases non-zero as there)."""
+    import torch
+    p = seeded_params(c, seed, "cpu")
+    gen = torch.Generator().manual_seed(seed + 2)
+    for k in ("lc_filter", "lc_gate"):
+        p[k] = p[k] + 0.05 * torch.randn(p[k].shape, generator=gen)
+    return {k: v.to(device) for k, v in p.items()}
+
+
+def mel_frames(seconds: float, f0: float, sr: int = 16000):
+    """80 standardized log-mel frames at a 200-sample hop of a synthesized
+    voiced sound (a harmonic series on ``f0`` with a slow vibrato), made by
+    the port's ``features.log_mel_spectrogram``."""
+    import numpy as np
+    from wavenet_torch.features import log_mel_spectrogram
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * f0 * (t + 0.002 * np.sin(2 * np.pi * 5 * t))
+    x = sum(0.3 / k * np.sin(k * phase) for k in range(1, 9))
+    mel = log_mel_spectrogram(x.astype(np.float32), sr, LC_CHANNELS, LC_HOP)
+    return (mel - mel.mean(0)) / np.maximum(mel.std(0), 1e-6)
+
+
+def phase_lc_decode(c, p, rng, gpu):
+    """The LC modes of ``sampler_cluster`` and ``sampler_decode``, pinned
+    (LC_CASES): an LC prefill, then a teacher-forced window in one launch
+    against ``decode_reference(lc=)`` (phase 2's tolerance; at b1 also
+    against the parallel ``forward_codes``), same-seed repeats bitwise,
+    counted under ``<kernel>_lc``; then step times in turns with the same
+    kernel without LC at the same batch, the plain version's step and the
+    bound. Results by (kernel, batch)."""
+    import dataclasses
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.wavenet import forward_codes
+
+    c0 = dataclasses.replace(c, lc_channels=None)
+    top = max(B for B in range(1, 257) if ks.device_plan(c, B) is not None)
+    check(ks.device_plan(c, top + 1) is None and ks.device_tile_plan(
+        c, top + 1) is None, f"paper-LC b{top + 1}: not sampler_decode")
+    results = {}
+    n = LC_TEACHER_STEPS
+    for kernel, B in LC_CASES:
+        B = top if B == "top" else B
+        where = f"{LC_SOURCES[kernel]} paper-LC B={B}"
+        codes, _ = setup(c, B, rng, PREFILL, n)
+        stream = torch.as_tensor(
+            rng.uniform(-1, 1, (B, PREFILL - 1 + n, LC_CHANNELS)),
+            dtype=torch.float32, device="cuda")
+        carry = ks.prefill_carry(p, c, codes[:, :PREFILL],
+                                 lc=stream[:, :PREFILL - 1])
+        packed = ks.pack_sampler_weights(p, c, B)
+        forced = codes[:, PREFILL - 1:PREFILL - 1 + n].contiguous()
+        lc = stream[:, PREFILL - 1:].transpose(0, 1).contiguous()
+        ring_r, causal_r = carry.ring.clone(), carry.causal.clone()
+        _, lg_r = ks.decode_reference(packed, c, ring_r, causal_r, forced, n,
+                                      carry.t_abs, 11, collect_logits=True,
+                                      lc=lc)
+        runs = []
+        for _ in range(2):
+            ring, causal = carry.ring.clone(), carry.causal.clone()
+            before = dict(ks.decode.launches_by)
+            out = ks.decode(packed, c, ring, causal, forced, n, carry.t_abs,
+                            11, collect_logits=True, kernel=kernel, lc=lc)
+            torch.cuda.synchronize()
+            ran = {k: v - before.get(k, 0)
+                   for k, v in ks.decode.launches_by.items()
+                   if v != before.get(k, 0)}
+            check(ran == {f"{kernel}_lc": 1},
+                  f"{where}: launches counted as {ran}")
+            runs.append(out + (ring, causal))
+        (codes_k, lg_k, ring_k, causal_k), again = runs
+        check(all(torch.equal(a, b) for a, b in zip(runs[0], again)),
+              f"{where}: same-seed runs differ")
+        err = (lg_k - lg_r).abs().max().item()
+        check(torch.isfinite(lg_k).all().item(), f"{where}: non-finite")
+        check(torch.allclose(lg_k, lg_r, rtol=1e-4, atol=1e-4),
+              f"{where}: logits differ from decode_reference (max |d| {err})")
+        check(torch.allclose(ring_k, ring_r, rtol=1e-4, atol=1e-4),
+              f"{where}: ring state differs")
+        check(torch.equal(causal_k, causal_r), f"{where}: causal differs")
+        check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
+              f"{where}: forced codes not emitted")
+        err_f = None
+        if B == 1:
+            full = forward_codes(p, c, codes[:, :PREFILL - 1 + n],
+                                 head_from=PREFILL - 1, lc=stream)
+            err_f = (lg_k - full).abs().max().item()
+            check(torch.allclose(lg_k, full, rtol=1e-4, atol=1e-4),
+                  f"{where}: logits differ from forward_codes ({err_f})")
+        # Step times in turns: without LC, with, with, without.
+        steps = LC_TIMED_STEPS.get(B, 1024)
+        fk = forced[:, :1].contiguous()
+        lc_t = torch.as_tensor(rng.uniform(-1, 1, (steps, B, LC_CHANNELS)),
+                               dtype=torch.float32, device="cuda")
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        timed = {"lc": [], "no_lc": []}
+        for mode in ("no_lc", "lc", "lc", "no_lc"):
+            cfg, stream_t = (c, lc_t) if mode == "lc" else (c0, None)
+            timed[mode].append(cuda_ms(lambda: ks.decode(
+                packed, cfg, ring, causal, fk, steps, 0, 5, kernel=kernel,
+                lc=stream_t)) / steps)
+        rp, cp = carry.ring.clone(), carry.causal.clone()
+        n_plain = 8
+        plain_ms = cuda_ms(lambda: ks.decode_reference(
+            packed, c, rp, cp, fk, n_plain, 0, 5, lc=lc_t[:n_plain])) / n_plain
+        bound, by = bound_per_step(c, B, steps)
+        ms = float(min(timed["lc"]))
+        results[(kernel, B)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, no_lc_ms=float(min(timed["no_lc"])))
+        plan = ks.device_plan(c, B) if kernel == "cluster" else None
+        emit({"phase": "lc_decode", "kernel": LC_SOURCES[kernel],
+              "config": "paper_lc", "batch": B, "steps": n,
+              "plan": plan._asdict() if plan else None,
+              "max_abs_err_vs_plain": err, "max_abs_err_vs_forward": err_f,
+              "bitwise_repeat": True, "launches_by": f"{kernel}_lc",
+              "ms_per_step": ms, "ms_per_step_runs": timed["lc"],
+              "no_lc_ms_per_step_runs": timed["no_lc"],
+              "lc_over_no_lc": ms / results[(kernel, B)]["no_lc_ms"],
+              "plain_ms_per_step": plain_ms, "bound_ms_per_step": bound,
+              "bound_by": by, "timed_steps": steps, "gpu": gpu})
+        del runs, lg_k, lg_r, stream, lc, lc_t
+        torch.cuda.empty_cache()
+    results["top"] = top
+    return results
+
+
+def phase_lc_generate(c, p, gpu):
+    """The JAX bench's ``lc`` generation row: ``generate_cuda`` on
+    paper-LC at b1 x 16,000, the prefill route, a uniform(-1, 1) stream
+    from a seed (bench.py:149-150); samples/s."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+
+    rng = np.random.RandomState(5)
+    lc = torch.as_tensor(rng.uniform(-1, 1, (1, GEN_SAMPLES, LC_CHANNELS)),
+                         dtype=torch.float32, device="cuda")
+    ks.generate_cuda(p, c, 256, seed=1, lc=lc[:, :256])     # warm
+    torch.cuda.synchronize()
+    before = dict(ks.decode.launches_by)
+    t = time.perf_counter()
+    codes = ks.generate_cuda(p, c, GEN_SAMPLES, seed=1, lc=lc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    ran = {k: v - before.get(k, 0) for k, v in ks.decode.launches_by.items()
+           if v != before.get(k, 0)}
+    check(ran == {"cluster_lc": 1}, f"lc generation launched {ran}")
+    check(tuple(codes.shape) == (1, GEN_SAMPLES)
+          and 0 <= codes.min().item() and codes.max().item() < 256
+          and len(torch.unique(codes)) > 8, "lc generation: bad codes")
+    rate = GEN_SAMPLES / seconds
+    emit({"phase": "lc_generate", "config": "paper_lc", "batch": 1,
+          "samples": GEN_SAMPLES, "seconds": seconds, "samples_per_s": rate,
+          "served_by": ran, "gpu": gpu})
+    return rate
+
+
+def phase_lc_main_path(c, p, gpu):
+    """The main path of LC generation, its launches counted from 0: a
+    ``GenerationService`` from a params file with ``lc_channels: 80``
+    answers /generate with 80 log-mel frames (``features.py`` of a
+    synthesized sound) at ``lc_hop`` 200, 16,000 samples, and other frames
+    give another waveform; then ``python -m wavenet_torch.cli.generate
+    --lc_channels 80 --lc_file ... --lc_hop 200`` (LC_CLI_RUNS), a
+    ``--save_every`` run equal to the single run."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.params import save_npz
+    from wavenet_torch.serve import GenerationService
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_lc_")
+    npz = os.path.join(tmp, "paper_lc.npz")
+    save_npz(npz, {k: v.cpu() for k, v in p.items()})
+    js = os.path.join(tmp, "paper_lc.json")
+    with open(js, "w") as f:
+        json.dump(dict(c.to_json_dict(), sample_rate=16000), f)
+    frames = {f0: mel_frames(GEN_SAMPLES / 16000, f0) for f0 in (110, 220)}
+    ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    ks.decode.launches_by.clear()
+    service = GenerationService(npz, js, warm_samples=256, device="cuda")
+    check("local conditioning" in service.sampler_name,
+          f"LC service runs {service.sampler_name}")
+    httpd, url = start_server(service)
+    served = {}
+    try:
+        for f0, fr in frames.items():
+            before = dict(ks.decode.launches_by)
+            with launch_events(ks) as events:
+                t = time.perf_counter()
+                body = post(url + "/generate", {
+                    "samples": GEN_SAMPLES, "seed": 3, "format": "codes",
+                    "lc": fr.tolist(), "lc_hop": LC_HOP})
+                dt = time.perf_counter() - t
+            torch.cuda.synchronize()
+            decode_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+            codes = body["codes"]
+            check(len(codes) == GEN_SAMPLES and len(set(codes)) > 8,
+                  f"/generate with LC frames ({f0} Hz): bad response")
+            ran = {k: v - before.get(k, 0)
+                   for k, v in ks.decode.launches_by.items()
+                   if v != before.get(k, 0)}
+            check(ran == {"cluster_lc": 1}, f"LC request launched {ran}")
+            served[f0] = codes
+            emit({"phase": "lc_serving", "config": "paper_lc",
+                  "endpoint": "/generate", "frames": list(fr.shape),
+                  "lc_hop": LC_HOP, "f0_hz": f0, "samples": GEN_SAMPLES,
+                  "seconds": dt, "samples_per_s": GEN_SAMPLES / dt,
+                  "decode_s": decode_s, "outside_decode_s": dt - decode_s,
+                  "served_by": ran, "gpu": gpu})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check(served[110] != served[220],
+          "other LC frames gave the same waveform")
+
+    feats = os.path.join(tmp, "f.lc.npy")
+    np.save(feats, frames[220])
+    ckpt = os.path.join(tmp, "ckpt")
+    pfile = write_checkpoint(ckpt, c, p)
+    wavs, rates = {}, {}
+    for label, B, n, extra, want, count in LC_CLI_RUNS:
+        wav = os.path.join(tmp, f"{label}.wav")
+        before = dict(ks.decode.launches_by)
+        out, seconds = run_generate_cli(
+            [ckpt, "--wavenet_params", pfile, "--samples", str(n),
+             "--batch_size", str(B), "--wav_out_path", wav, "--seed", "1",
+             "--device", "cuda", "--lc_channels", str(LC_CHANNELS),
+             "--lc_file", feats, "--lc_hop", str(LC_HOP)] + extra)
+        check("Finished generating." in out, f"LC CLI {label}: no finish")
+        check("local conditioning" in out, f"LC CLI {label}: not the LC "
+              "sampler")
+        wavs[label] = read_wavs(wav, B, n)
+        ran = {k: v - before.get(k, 0)
+               for k, v in ks.decode.launches_by.items()
+               if v != before.get(k, 0)}
+        check(ran == {want: count}, f"LC CLI {label}: launched {ran}")
+        rates[label] = B * n / seconds
+        emit({"phase": "generate_cli_lc", "run": label, "config": "paper_lc",
+              "batch": B, "samples": n, "seconds": seconds,
+              "samples_per_s": rates[label], "served_by": ran, "gpu": gpu})
+    check((wavs["b64_save_every"] == wavs["b64"]).all(),
+          "LC --save_every segments differ from the single run")
+    check(ks.decode_sequential.launches == 0,
+          "LC serving or the CLI took the sequential route")
+    launches = dict(ks.decode.launches_by)
+    check(set(launches) == {"cluster_lc", "decode_lc"},
+          f"the LC main path launched {launches}")
+    emit({"phase": "generate_cli_lc", "launches_by_kernel": launches,
+          "save_every_equals_one_run": True,
+          "other_frames_change_the_waveform": True,
+          "samples_per_s": rates, "gpu": gpu})
+    return launches
+
+
 def phase_carry_stacks(cfgs, params, rng, gpu):
     """Phase 7 (a): the carry kernel behind v1 and v2 against the plain
     versions and against kernel 5, each call timed."""
@@ -2727,6 +3033,17 @@ def main() -> int:
     emit({"phase": "bf16_generation", "seconds": time.perf_counter() - t6b,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 6c: local conditioning (the LC row of TPU kernels 1 and 2).
+    t6c = time.perf_counter()
+    c_lc = paper_config(lc_channels=LC_CHANNELS)
+    p_lc = lc_params(c_lc, 13, "cuda")
+    lc_dec = phase_lc_decode(c_lc, p_lc, rng, gpu)
+    lc_rate = phase_lc_generate(c_lc, p_lc, gpu)
+    lc_launches = phase_lc_main_path(c_lc, p_lc, gpu)
+    emit({"phase": "lc_generation", "seconds": time.perf_counter() - t6c,
+          "samples_per_s_b1": lc_rate,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 7: the retired training stacks (TPU kernels 6-8).
     t7 = time.perf_counter()
     carry = phase_carry_stacks(cfgs, params, rng, gpu)
@@ -2911,6 +3228,37 @@ def main() -> int:
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None,
         "unit": "per decode step", "gpu": gpu})
+    # The LC modes (phase 6c): times pinned in this run at paper-LC, in
+    # turns with the same kernel without LC; launches those of the LC main
+    # path (serving and the generate CLI: the cluster kernel at b1 and
+    # b64, sampler_decode at b256). The head batch is the main path's
+    # first shape of the kernel; the other pinned batches follow as
+    # ``<key>_b<B>``. The bound counts the LC products at FP32, lc_w's
+    # bytes and the stream's B x C_lc floats a step. library_ms is null
+    # for the reason above.
+    for kernel, line, head in (("cluster", 234, 1), ("decode", 1308, 256)):
+        m = lc_dec[(kernel, head)]
+        src = ("sampler_cluster_lc.cu" if kernel == "cluster"
+               else "sampler_decode.cu")
+        row = {
+            "name": LC_SOURCES[kernel], "route": "cuda",
+            "source": f"wavenet_torch/csrc/{src}",
+            "replaces": f"wavenet_tpu/kernels/sampler.py:{line} (has_lc)",
+            "mode": "lc", "config": "paper_lc", "batch": head,
+            "launches": lc_launches.get(f"{kernel}_lc", 0),
+            "launches_on": "LC serving b1 and the LC generate CLI",
+            "max_abs_err": max(v["max_abs_err"] for k, v in lc_dec.items()
+                               if k != "top" and k[0] == kernel),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "no_lc_ms": m["no_lc_ms"], "library_ms": None,
+            "unit": "per decode step", "gpu": gpu}
+        for (k, B), mo in sorted(
+                (k, v) for k, v in lc_dec.items()
+                if k != "top" and k[0] == kernel and k[1] != head):
+            row.update({f"{key}_b{B}": mo[key] for key in
+                        ("ms", "bound_ms", "plain_ms", "no_lc_ms")})
+        kernels.append(row)
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.
     for name, B in SEQ_CASES:

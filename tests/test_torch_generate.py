@@ -296,9 +296,14 @@ def test_cli_flags_match_jax_cli():
     assert tgen.SILENCE_THRESHOLD == jgen.SILENCE_THRESHOLD
 
 
+# LC runs (tests/test_torch_sampler_lc.py); LC at bf16 weights does not.
 @pytest.mark.parametrize("flags", [
-    ["--draft_checkpoint", "d"], ["--lc_channels", "2"],
-    ["--lc_file", "f.npy"], ["--lc_hop", "80"]])
+    ["--draft_checkpoint", "d"],
+    ["--lc_channels", "2", "--sampler_precision", "bfloat16"],
+    ["--lc_channels", "2", "--lc_file", "f.npy", "--sampler_precision",
+     "bfloat16"],
+    ["--lc_channels", "2", "--lc_hop", "80", "--sampler_precision",
+     "bfloat16"]])
 def test_cli_unported_flags_raise(flags):
     from wavenet_torch.cli import generate as tgen
     with pytest.raises(NotImplementedError, match="ROADMAP"):

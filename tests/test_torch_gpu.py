@@ -15,6 +15,8 @@ a GPU and without JAX it runs alone:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1560,3 +1562,242 @@ def test_bf16_route_and_refusals(setup):
     mixed = pk._replace(skip_w=pk.skip_w.float())
     with pytest.raises(ValueError, match="skip_w"):
         ks.decode(mixed, c, ring, causal, x, 2, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Local conditioning: the LC modes of sampler_cluster and sampler_decode
+# ---------------------------------------------------------------------------
+
+def _lc_config(width):
+    """An LC config: the small widths with GC (5 channels), the paper
+    config with 80 (the JAX bench's ``lc`` row) or the scalar-input wide
+    widths with 7."""
+    from wavenet_torch.models.config import paper_config
+    if width == "paper":
+        return paper_config(lc_channels=80)
+    if width == "scalar_wide":
+        return WaveNetConfig(**WIDE_SMALL, lc_channels=7)
+    return WaveNetConfig(**SMALL, lc_channels=5)
+
+
+def _lc_case(width, B, seed=0, zero_lc_w=False):
+    """(config, params, packed, prefilled carry, teacher-forced inputs, the
+    decode's stream [30, B, C_lc]) of an LC config, the prefill conditioned
+    on the stream's first 69 rows. ``zero_lc_w`` zeros the LC weights."""
+    c = _lc_config(width)
+    params = _seeded_params(c, seed)
+    if zero_lc_w:
+        params = dict(params, lc_filter=torch.zeros_like(params["lc_filter"]),
+                      lc_gate=torch.zeros_like(params["lc_gate"]))
+    rng = np.random.RandomState(seed + B)
+    if c.scalar_input:
+        x = torch.as_tensor(rng.uniform(-0.9, 0.9, (B, 100))
+                            .astype(np.float32), device="cuda")
+        gids = None
+    else:
+        x = torch.as_tensor(rng.randint(0, c.quantization_channels, (B, 100)),
+                            dtype=torch.int32, device="cuda")
+        gids = (torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                                device="cuda") if c.gc_enabled else None)
+    stream = torch.as_tensor(rng.uniform(-1, 1, (B, 99, c.lc_channels))
+                             .astype(np.float32), device="cuda")
+    carry = ks.prefill_carry(params, c, x[:, :70], gids, lc=stream[:, :69])
+    packed = ks.pack_sampler_weights(
+        params, c, B, None if gids is None else embed_gc(params, c, gids))
+    lc = stream[:, 69:].transpose(0, 1).contiguous()
+    return c, params, packed, carry, x[:, 69:].contiguous(), lc
+
+
+def _lc_top_batch(c):
+    """The largest batch that the device's cluster plan takes for ``c``."""
+    top = max(B for B in range(1, 257) if ks.device_plan(c, B) is not None)
+    assert ks.device_plan(c, top + 1) is None
+    return top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,width,B", [
+    ("cluster", "small", 1), ("cluster", "small", 4),
+    ("cluster", "paper", 1), ("cluster", "paper", 64),
+    ("cluster", "scalar_wide", 5), ("decode", "small", 1),
+    ("decode", "small", 300), ("decode", "paper", 64),
+    ("decode", "scalar_wide", 1100)])
+def test_lc_kernel_matches_reference_teacher_forced(setup, kernel, width, B):
+    """Each kernel's LC mode against ``decode_reference(lc=)``, teacher-
+    forced over 30 steps from an LC-prefilled state, counted under its
+    ``_lc`` name."""
+    c, params, packed, carry, forced, lc = _lc_case(width, B)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    before = ks.decode.launches_by[f"{kernel}_lc"]
+    kk, lk = ks.decode(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                       collect_logits=True, kernel=kernel, lc=lc)
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True, lc=lc)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by[f"{kernel}_lc"] == before + 1
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    torch.testing.assert_close(ck, cr, rtol=0, atol=0)
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", SMALL_PLANS, ids=lambda p: f"cs{p.CS}")
+def test_lc_cluster_multi_cta_plans(setup, plan):
+    """Explicit multi-CTA plans at the small widths with LC: CTA 0 computes
+    the next step's LC terms after its hand-off, the others theirs while
+    they wait for it."""
+    c, params, packed, carry, forced, lc = _lc_case("small", plan.RB + 1)
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    kk, lk, used = ks._launch(packed, c, rk, ck, forced, 30, carry.t_abs, 3,
+                              1.0, True, route="decode", kernel="cluster",
+                              plan=plan, lc=lc)
+    rr, cr = carry.ring.clone(), carry.causal.clone()
+    kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 30,
+                                 carry.t_abs, 3, collect_logits=True, lc=lc)
+    torch.cuda.synchronize()
+    assert used == "cluster_lc"
+    torch.testing.assert_close(lk, lr, **TOL)
+    torch.testing.assert_close(rk, rr, **TOL)
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["cluster", "decode"])
+@pytest.mark.parametrize("where", ["b1", "top"])
+def test_lc_with_zero_weights_is_the_no_lc_launch(setup, kernel, where):
+    """An LC launch whose ``lc_w`` is all zero is bitwise the same kernel's
+    launch without LC, at b1 and at the largest B of its range (the
+    cluster plan's top at the paper widths; 1100 rows, eight to a block,
+    for sampler_decode)."""
+    c = _lc_config("paper")
+    B = 1 if where == "b1" else (_lc_top_batch(c) if kernel == "cluster"
+                                 else 1100)
+    c, params, packed, carry, forced, lc = _lc_case("paper", B,
+                                                    zero_lc_w=True)
+    assert not packed.lc_w.any()
+    c0 = dataclasses.replace(c, lc_channels=None)
+    plan = ks.device_plan(c, B) if kernel == "cluster" else None
+    runs = []
+    for cfg, stream in ((c, lc), (c0, None)):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        kk, lk, used = ks._launch(packed, cfg, ring, causal, forced, 30,
+                                  carry.t_abs, 3, 1.0, True, route="decode",
+                                  kernel=kernel, plan=plan, lc=stream)
+        runs.append((kk, lk, ring, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["small", "paper", "scalar_wide"])
+def test_cluster_lc_smem_bytes_match_the_kernel(setup, width):
+    """The plan's count of an LC CTA's shared memory against the LC
+    library's own, at every cluster size and row count."""
+    from wavenet_torch.kernels import _build
+    c = _lc_config(width)
+    lib = _build.load("sampler_cluster_lc")
+    ks._bind_cluster_lc(lib)
+    for cs in ks.CLUSTER_SIZES:
+        if cs > c.num_layers:
+            continue
+        for rb in ks.CLUSTER_ROWS:
+            got = lib.sampler_cluster_lc_smem_bytes(
+                c.residual_channels, c.dilation_channels, c.skip_channels,
+                c.quantization_channels, ks.causal_width(c), cs,
+                -(-c.num_layers // cs), rb, c.lc_channels)
+            assert got == ks.cluster_smem_bytes(c, cs, rb), (cs, rb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,B", [("paper", 1), ("small", 300)])
+def test_lc_sequential_route_matches_reference(setup, width, B):
+    """``generate_cuda(prefill=False)`` with LC: one launch from a zero ring
+    over the forced prefix (conditioned by ``lc_prime``) and the sampled
+    steps, held against the plain version on the kernel's own inputs."""
+    c = _lc_config(width)
+    params = _seeded_params(c)
+    rng = np.random.RandomState(B)
+    prefix = torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                         (B, 40)),
+                             dtype=torch.int32, device="cuda")
+    n = 24
+    lc = torch.as_tensor(rng.uniform(-1, 1, (B, n, c.lc_channels))
+                         .astype(np.float32), device="cuda")
+    lc_prime = torch.as_tensor(rng.uniform(-1, 1, (B, 39, c.lc_channels))
+                               .astype(np.float32), device="cuda")
+    gids = (torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                            device="cuda") if c.gc_enabled else None)
+    before = sum(ks.decode_sequential.launches_by.values())
+    codes, logits = ks.generate_cuda(params, c, n, 9, batch_size=B,
+                                     gc_ids=gids, seed_codes=prefix,
+                                     collect_logits=True, prefill=False,
+                                     lc=lc, lc_prime=lc_prime)
+    torch.cuda.synchronize()
+    assert sum(ks.decode_sequential.launches_by.values()) == before + 1
+    packed = ks.pack_sampler_weights(
+        params, c, B, None if gids is None else embed_gc(params, c, gids))
+    forced = torch.cat([prefix, codes[:, :-1]], dim=1).contiguous()
+    ring, causal = ks.zero_state(c, B, "cuda")
+    stream = torch.cat([lc_prime, lc], dim=1).transpose(0, 1).contiguous()
+    kr, lr = ks.decode_reference(packed, c, ring, causal, forced,
+                                 39 + n, 0, 9, collect_logits=True,
+                                 lc=stream)
+    torch.testing.assert_close(logits, lr, **TOL)
+    assert torch.equal(codes[:, :-1], kr[:, 39:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64, 200])
+def test_lc_resumable_segments_equal_one_run(setup, B):
+    """``generate_cuda_resumable`` with the stream sliced per segment equals
+    one ``generate_cuda`` run, code for code (the cluster kernel at b1 and
+    b64, sampler_decode at b200)."""
+    c = _lc_config("paper")
+    params = _seeded_params(c)
+    rng = np.random.RandomState(B)
+    lc = torch.as_tensor(rng.uniform(-1, 1, (B, 60, 80)).astype(np.float32),
+                         device="cuda")
+    full = ks.generate_cuda(params, c, 60, 4, batch_size=B, lc=lc)
+    parts, carry = [], None
+    for a, b in ((0, 17), (17, 60)):
+        codes, carry = ks.generate_cuda_resumable(
+            params, c, b - a, 4, batch_size=B, carry=carry, lc=lc[:, a:b])
+        parts.append(codes)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), full)
+
+
+@pytest.mark.gpu
+def test_lc_route_and_refusals(setup):
+    """``kernel="auto"`` with LC: the cluster kernel's LC mode at b1 and at
+    the top of its range, ``sampler_decode``'s above it (``tile_plan``
+    refuses LC); LC at bf16 weights and a pinned tiles kernel raise."""
+    c = _lc_config("paper")
+    params = _seeded_params(c)
+    top = _lc_top_batch(c)
+    for B, want in ((1, "cluster_lc"), (top, "cluster_lc"),
+                    (top + 1, "decode_lc")):
+        assert ks.device_tile_plan(c, B) is None
+        lc = torch.zeros((B, 8, 80), device="cuda")
+        before = dict(ks.decode.launches_by)
+        codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B, lc=lc)
+        torch.cuda.synchronize()
+        after = dict(ks.decode.launches_by)
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == {want: 1}
+        assert codes.shape == (B, 8)
+    lc = torch.zeros((2, 8, 80), device="cuda")
+    with pytest.raises(NotImplementedError, match="step 2c"):
+        ks.generate_cuda(params, c, 8, seed=1, batch_size=2, lc=lc,
+                         weight_dtype=torch.bfloat16)
+    pk = ks.pack_sampler_weights(params, c, 2)
+    ring, causal = ks.zero_state(c, 2, "cuda")
+    x = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+    stream = torch.zeros((2, 2, 80), device="cuda")
+    with pytest.raises(NotImplementedError, match="step 2c"):
+        ks.decode(pk, c, ring, causal, x, 2, 0, 0, kernel="tiles", lc=stream)
+    with pytest.raises(ValueError, match="lc"):
+        ks.decode(pk, c, ring, causal, x, 2, 0, 0)

@@ -134,10 +134,13 @@ def test_prefill_of_bf16_config_equals_float32(rng):
 
 
 def test_unported_options_raise(rng):
+    # The forward takes LC (tests/test_torch_lc.py); training with it does
+    # not yet.
     _, tc, _, tp = _pair()
+    audio = torch.zeros((1, tc.receptive_field + 8))
+    with pytest.raises(NotImplementedError, match="step 2b"):
+        tw.loss_fn(tp, tc, audio, lc=torch.zeros(1, audio.shape[1], 2))
     codes = torch.as_tensor(rng.randint(0, 32, (1, 8)))
-    with pytest.raises(NotImplementedError):
-        tw.forward_codes(tp, tc, codes, lc=torch.zeros(1, 8, 2))
     with pytest.raises(ValueError):
         tw.forward_codes(tp, TConfig(**{**tc.__dict__,
                                         "scalar_input": True}), codes)

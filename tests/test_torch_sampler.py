@@ -138,7 +138,10 @@ def test_pack_sampler_weights_matches_jax(rng):
                                   jw.embed_gc(jp, jc, jnp.asarray(ids)))
     tpk = ts.pack_sampler_weights(tp, tc, 3,
                                   tw.embed_gc(tp, tc, _t(ids)))
-    for name in ts.PackedSampler._fields:
+    # A config without LC packs no lc_w in either package
+    # (tests/test_torch_sampler_lc.py compares an LC config's).
+    assert tpk.lc_w is None and jpk.lc_w is None
+    for name in ts.KERNEL_FIELDS:
         np.testing.assert_allclose(getattr(tpk, name).numpy(),
                                    np.asarray(getattr(jpk, name)),
                                    rtol=0, atol=1e-7, err_msg=name)
@@ -150,7 +153,7 @@ def test_pack_sampler_weights_matches_jax(rng):
     tpk = ts.pack_sampler_weights(tp, tc, 3,
                                   tw.embed_gc(tp, tc, _t(ids)),
                                   weight_dtype=torch.bfloat16)
-    for name in ts.PackedSampler._fields:
+    for name in ts.KERNEL_FIELDS:
         j = np.asarray(getattr(jpk, name))
         t = getattr(tpk, name)
         assert str(t.dtype).split(".")[-1] == str(j.dtype), name
@@ -286,8 +289,12 @@ def test_unported_paths_raise():
         ts.decode(packed, tc, ring, causal, forced, 4, 0, 0, kernel="tiles")
     with pytest.raises(NotImplementedError, match="step 1d"):
         ts.decode_sequential(packed, tc, forced, 4, 0, kernel="tiles")
+    # LC decodes (tests/test_torch_sampler_lc.py), but not at bf16 weights.
+    lc_c = TConfig(**{**SMALL, "lc_channels": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.generate_cuda(tp, TConfig(**{**SMALL, "lc_channels": 2}), 4, 0)
+        ts.generate_cuda(tw.init_params(0, lc_c, device="cpu"), lc_c, 4, 0,
+                         lc=torch.zeros(1, 4, 2),
+                         weight_dtype=torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

@@ -208,7 +208,8 @@ def test_scalar_service_serves(tmp_path):
     np.testing.assert_array_equal(rows[0], a)
 
 
-# LC stays unported, for scalar-input models too.
+# LC models serve (tests/test_torch_sampler_lc.py); speculative serving of
+# one stays unported, for scalar-input models too.
 @pytest.mark.parametrize("extra", [{"lc_channels": 2},
                                    {"scalar_input": True, "lc_channels": 2}])
 def test_unported_models_raise(tmp_path, extra):
@@ -218,7 +219,8 @@ def test_unported_models_raise(tmp_path, extra):
     npz = tmp_path / "m.npz"
     np.savez(str(npz), dummy=np.zeros(1, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationService(str(npz), str(js), warm_samples=0, device="cpu")
+        GenerationService(str(npz), str(js), warm_samples=0, device="cpu",
+                          draft_params_npz=str(npz))
 
 
 def test_speculative_is_not_ported(tmp_path):

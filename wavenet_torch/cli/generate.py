@@ -23,6 +23,15 @@ resumable segments and rewrites the partial wav after each;
 ``--fast_generation false`` re-runs the full network per sample.
 ``--device`` (default ``cuda``) picks the card or, for tests, the CPU.
 
+Local conditioning, as the JAX CLI: ``--lc_channels C --lc_file F.npy
+--lc_hop H`` loads frames [F, C] (``python -m wavenet_torch.features``
+writes them), upsamples them to sample rate (``--lc_upsample``), fits the
+stream to ``--samples`` and gives every batch row the same stream; on the
+card the LC modes of ``sampler_cluster`` and ``sampler_decode`` decode it.
+``--lc_refine_width`` refines the stream (once, the whole stream, before
+``--save_every`` slices it). LC at ``--sampler_precision bfloat16`` is not
+ported yet and raises (``kernels.sampler.check_lc_mode``).
+
 Flags whose path is not ported yet raise NotImplementedError naming the
 ROADMAP.md queue that owns them. ``--compilation_cache`` is accepted and
 has no effect: PyTorch compiles nothing ahead of a call.
@@ -86,7 +95,8 @@ def get_arguments(argv=None):
     parser.add_argument("--gc_id", type=int, default=None,
                         help="ID of category to generate, int value.")
     parser.add_argument("--lc_channels", type=int, default=None,
-                        help="Local conditioning (not ported yet).")
+                        help="Local conditioning: feature channels of "
+                             "--lc_file.")
     parser.add_argument("--lc_file", type=str, default=None)
     parser.add_argument("--lc_hop", type=int, default=None)
     parser.add_argument("--lc_upsample", type=str, default="repeat",
@@ -104,17 +114,15 @@ def get_arguments(argv=None):
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for flags whose path the port lacks."""
-    unported = [
-        (args.draft_checkpoint is not None,
-         "--draft_checkpoint: speculative decoding", "queue 1, item 8"),
-        (args.lc_channels is not None or args.lc_file is not None
-         or args.lc_hop is not None or args.lc_refine_width,
-         "--lc_*: local conditioning", "queue 1, item 2"),
-    ]
-    for bad, flag, owner in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md {owner})")
+    from wavenet_torch.kernels.sampler import check_lc_mode
+    from wavenet_torch.sampler_select import PRECISIONS
+
+    if args.draft_checkpoint is not None:
+        raise NotImplementedError(
+            "--draft_checkpoint: speculative decoding is not ported yet "
+            "(ROADMAP.md queue 1, item 8)")
+    if args.lc_channels is not None:
+        check_lc_mode(PRECISIONS[args.sampler_precision])
 
 
 def create_seed(filename, sample_rate, quantization_channels, window_size,
@@ -155,9 +163,16 @@ def main(argv=None):
                          "(training derived it from the data; generation "
                          "requires the flag, like the reference).")
 
+    if args.lc_channels is not None and (args.lc_file is None
+                                         or args.lc_hop is None):
+        raise ValueError("--lc_channels needs --lc_file and --lc_hop "
+                         "(per-timestep conditioning for the generated "
+                         "audio).")
+
     config = WaveNetConfig.from_json(
         wavenet_params, gc_channels=args.gc_channels,
-        gc_cardinality=args.gc_cardinality)
+        gc_cardinality=args.gc_cardinality, lc_channels=args.lc_channels,
+        lc_refine_width=args.lc_refine_width)
 
     ckpt_dir = args.checkpoint
     step = None
@@ -187,18 +202,32 @@ def main(argv=None):
         seed_codes = torch.as_tensor(codes, device=device)[None].repeat(
             args.batch_size, 1)
 
+    lc = None
+    if args.lc_channels is not None:
+        from wavenet_torch.lc import fit_lc_to_length, upsample_lc
+        feats = np.load(args.lc_file)
+        if feats.ndim == 1:
+            feats = feats[:, None]
+        if feats.shape[1] != args.lc_channels:
+            raise ValueError(f"--lc_file has {feats.shape[1]} channels, "
+                             f"expected --lc_channels={args.lc_channels}")
+        stream = fit_lc_to_length(
+            upsample_lc(feats, args.lc_hop, args.lc_upsample), args.samples)
+        lc = torch.as_tensor(stream, device=device)[None].repeat(
+            args.batch_size, 1, 1)
+
     seed = args.seed if args.seed is not None else 0
     if args.fast_generation and args.save_every:
         codes = _generate_fast_chunked(params, config, args, seed, gc_ids,
-                                       seed_codes, wavenet_params)
+                                       seed_codes, wavenet_params, lc)
     elif args.fast_generation:
         codes = _generate_fast(params, config, args, seed, gc_ids,
-                               seed_codes)
+                               seed_codes, lc)
     else:
         # Slow path: the full forward over the trailing receptive-field
         # window per sample.
         codes = _generate_slow(params, config, args, seed, gc_ids,
-                               seed_codes)
+                               seed_codes, lc)
 
     codes = np.asarray(torch.as_tensor(codes).cpu())
     waveform = mu_law_decode_np(codes, config.quantization_channels)
@@ -226,7 +255,8 @@ def main(argv=None):
     return 0
 
 
-def _generate_fast(params, config, args, seed, gc_ids, seed_codes):
+def _generate_fast(params, config, args, seed, gc_ids, seed_codes,
+                   lc=None):
     """The selected sampler (``sampler_select``, shared with the server)."""
     from wavenet_torch.sampler_select import generate_with_fallback
 
@@ -234,20 +264,27 @@ def _generate_fast(params, config, args, seed, gc_ids, seed_codes):
         params, config, args.samples, seed=seed,
         batch_size=args.batch_size, gc_ids=gc_ids,
         temperature=args.temperature, seed_codes=seed_codes,
-        sampler=args.sampler, precision=args.sampler_precision)
+        sampler=args.sampler, precision=args.sampler_precision, lc=lc)
     return codes
 
 
 def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
-                           wavenet_params):
+                           wavenet_params, lc=None):
     """--save_every: generate in segments, rewriting the partial wav after
     each; resumable decode-kernel segments, or the scan sampler with
-    ``--sampler scan``."""
+    ``--sampler scan``. An LC stream is refined once, whole, then sliced
+    per segment, so that segment boundaries see their full context."""
+    if lc is not None and config.lc_refine_width:
+        import torch
+
+        from wavenet_torch.models.wavenet import refine_lc
+        with torch.no_grad():
+            lc = refine_lc(params, config, lc)
     if args.sampler in ("auto", "pallas") and config.filter_width == 2:
         return _generate_chunked_pallas(params, config, args, seed, gc_ids,
-                                        seed_codes, wavenet_params)
+                                        seed_codes, wavenet_params, lc)
     return _generate_chunked_scan(params, config, args, seed, gc_ids,
-                                  seed_codes, wavenet_params)
+                                  seed_codes, wavenet_params, lc)
 
 
 def _write_partial(chunks, config, args, wavenet_params, done) -> None:
@@ -261,7 +298,7 @@ def _write_partial(chunks, config, args, wavenet_params, done) -> None:
 
 
 def _generate_chunked_pallas(params, config, args, seed, gc_ids, seed_codes,
-                             wavenet_params):
+                             wavenet_params, lc=None):
     """Resumable ``generate_cuda_resumable`` segments. Every segment uses
     the run's seed: the kernel's noise is keyed on the absolute step, so
     the segments equal one run (the JAX package reseeds per segment)."""
@@ -275,10 +312,12 @@ def _generate_chunked_pallas(params, config, args, seed, gc_ids, seed_codes,
             params, config, n, seed=seed, batch_size=args.batch_size,
             gc_ids=gc_ids, temperature=args.temperature,
             seed_codes=seed_codes if carry is None else None, carry=carry,
-            weight_dtype=PRECISIONS[args.sampler_precision])
+            weight_dtype=PRECISIONS[args.sampler_precision],
+            lc=None if lc is None else lc[:, done:done + n])
         if done == 0:
-            print(f"Using {sampler_name(codes.device, args.sampler_precision)}"
-                  " sampler, resumable.")
+            name = sampler_name(codes.device, args.sampler_precision,
+                                lc is not None)
+            print(f"Using {name} sampler, resumable.")
         chunks.append(codes.cpu().numpy())
         done += n
         if args.wav_out_path:
@@ -287,13 +326,14 @@ def _generate_chunked_pallas(params, config, args, seed, gc_ids, seed_codes,
 
 
 def _generate_chunked_scan(params, config, args, seed, gc_ids, seed_codes,
-                           wavenet_params):
+                           wavenet_params, lc=None):
     """Scan-sampler segments from one ``torch.Generator``."""
     import torch
 
     from wavenet_torch.models.wavenet import embed_gc
     from wavenet_torch.sample import (
-        _featurize, generate_codes_resumable, prefill_state, unseeded_prime)
+        _featurize, generate_codes_resumable, lc_for_prime, prefill_state,
+        unseeded_prime)
 
     c = config
     dev = params["postprocess2"].device
@@ -303,14 +343,16 @@ def _generate_chunked_scan(params, config, args, seed, gc_ids, seed_codes,
         prime, first = unseeded_prime(c, args.batch_size, key)
     else:
         prime, first = seed_codes[:, :-1], seed_codes[:, -1]
-    state = prefill_state(params, c, prime, gc_emb)
+    state = prefill_state(params, c, prime, gc_emb,
+                          lc_for_prime(lc, None, prime.shape[1]))
     x = _featurize(first, c)
     print("Using scan sampler, resumable.")
     chunks, done = [], 0
     while done < args.samples:
         n = min(args.save_every, args.samples - done)
         codes, state, x = generate_codes_resumable(
-            params, c, state, x, n, key, args.temperature, gc_emb)
+            params, c, state, x, n, key, args.temperature, gc_emb,
+            None if lc is None else lc[:, done:done + n])
         chunks.append(codes.cpu().numpy())
         done += n
         if args.wav_out_path:
@@ -318,10 +360,14 @@ def _generate_chunked_scan(params, config, args, seed, gc_ids, seed_codes,
     return np.concatenate(chunks, axis=1)
 
 
-def _generate_slow(params, config, args, seed, gc_ids, seed_codes):
+def _generate_slow(params, config, args, seed, gc_ids, seed_codes,
+                   lc=None):
     """O(receptive_field) per sample: ``predict_proba`` on the trailing
     window of raw inputs (int codes, or amplitudes in scalar mode, where
-    a sampled class re-enters decoded), left-padded with silence."""
+    a sampled class re-enters decoded), left-padded with silence. With
+    local conditioning a feature window rolls alongside, one row ahead of
+    the code window: its last row, ``lc[:, i]``, conditions draw i, and
+    the timeline before generation holds ``lc[:, 0]``, as in JAX."""
     import torch
 
     from wavenet_torch.audio import mu_law_decode
@@ -339,6 +385,8 @@ def _generate_slow(params, config, args, seed, gc_ids, seed_codes):
     else:
         window = torch.full((args.batch_size, 1), silence, dtype=win_dtype,
                             device=dev)
+    lc_hist = (None if lc is None else
+               lc[:, :1].repeat(1, window.shape[1], 1))
     out = []
     with torch.no_grad():
         for i in range(args.samples):
@@ -346,7 +394,15 @@ def _generate_slow(params, config, args, seed, gc_ids, seed_codes):
             if win.shape[1] < rf:
                 win = torch.nn.functional.pad(win, (rf - win.shape[1], 0),
                                               value=silence)
-            probs = predict_proba(params, c, win, gc_ids)
+            lc_win = None
+            if lc is not None:
+                lc_hist = torch.cat([lc_hist, lc[:, i:i + 1]], dim=1)
+                lc_win = lc_hist[:, -rf:]
+                if lc_win.shape[1] < rf:
+                    lc_win = torch.cat(
+                        [lc_win[:, :1].repeat(1, rf - lc_win.shape[1], 1),
+                         lc_win], dim=1)
+            probs = predict_proba(params, c, win, gc_ids, lc=lc_win)
             logits = torch.log(torch.clamp_min(probs, 1e-30))
             code = torch.argmax(logits / args.temperature
                                 + sample_gumbel(key, logits.shape), dim=-1)

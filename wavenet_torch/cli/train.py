@@ -123,7 +123,8 @@ def check_ported(args) -> None:
     unported = [
         (args.lc_channels is not None or args.lc_hop is not None
          or args.lc_refine_width or args.lc_host_upsample,
-         "--lc_*: local conditioning", "queue 1, item 2"),
+         "--lc_*: training with local conditioning",
+         "queue 1, item 2, step 2b"),
         (args.model_parallelism > 1, "--model_parallelism > 1",
          "queue 1, item 9"),
         (args.coordinator_address is not None

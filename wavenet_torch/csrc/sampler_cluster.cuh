@@ -3,9 +3,10 @@
 // shared memory of a thread-block cluster, for NVIDIA Hopper (sm_90a).
 //
 // The kernel, its launch and its C entry points' body, templated on the
-// weights' type; sampler_cluster.cu builds the float32 mode (and the
-// route's device queries), sampler_cluster_bf16.cu the bf16 mode, each its
-// own library, so that the two build in parallel.
+// weights' type and on local conditioning; sampler_cluster.cu builds the
+// float32 mode (and the route's device queries), sampler_cluster_bf16.cu
+// the bf16 mode, sampler_cluster_lc.cu the local-conditioning mode, each
+// its own library, so that the three build in parallel.
 //
 // Replaces the JAX package's all-VMEM decode kernel, whose weights and
 // ring stay on chip for the whole launch (its b1 production path):
@@ -81,6 +82,24 @@
 // B >= 2 keep the same rule and the same sum orders, so they are as
 // independent of B as in the float32 mode.
 //
+// Local-conditioning mode (kLc, float32 weights; the JAX kernel's has_lc):
+// each layer's filter/gate pre-activation gains lc_t @ lc_w[l] (lc_w
+// [L, C_lc, 2D] pre-scaled as layer_w; lc_t is row t of the stream
+// [n_total, B, C_lc]), added after layer_add, in the JAX kernel's order.
+// The term depends on the stream alone, never on the chain's state, so it
+// leaves the chain, as the skip products do, and lc_w stays in L2. Each CTA
+// computes its layers' terms where it waits: CTA 0, which waits for nobody
+// before its chain, those of step t + 1 after its own hand-off; at up to 4
+// rows a cluster also CTA k < CS / 2, which then waits at least CS / 2
+// CTAs' chains for the skip sums; every other CTA those of step t before
+// it waits for the hand-off (at least one CTA's chain, CS / 2 at up to 4
+// rows). Measured on an H100 at the paper widths, the split by halves
+// shortens the b1 step, while at 8 rows the terms of CTAs 1 to 3 after
+// their hand-off delay the skip sums. The terms of a
+// row [NL][2D] and the step's feature row sit
+// in shared memory (cluster_smem_bytes counts them), which leaves the plan
+// of the paper/gc widths as it is (CS 8, up to 8 rows a cluster on an H100).
+//
 // Clusters never wait on each other; nothing needs co-residency beyond the
 // CTAs of one cluster, which the hardware schedules together. The plan
 // keeps every cluster of a launch resident at once (the device's count of
@@ -143,7 +162,8 @@ __host__ __device__ inline ChainShape chain_shape(int R, int D) {
 // sampler_cluster_kernel (mirrored by cluster_smem_bytes in
 // kernels/sampler.py).
 // The layout does not depend on the weights' type: bf16 weights are widened
-// to float when they are stored to shared memory.
+// to float when they are stored to shared memory. C_lc is 0 outside the LC
+// mode.
 template <typename WT>
 size_t cluster_smem_bytes(const DecodeArgsT<WT>& a, int cs, int nl, int rb) {
   const ChainShape sh = chain_shape(a.R, a.D);
@@ -151,7 +171,8 @@ size_t cluster_smem_bytes(const DecodeArgsT<WT>& a, int cs, int nl, int rb) {
   const size_t per_cta =
       nl * ((size_t)sh.fg_floats + sh.d_floats + R) + 2 * nl + 2 * cs * rb;
   const size_t per_row = nl * (2 * D + 2 * R + D) + R + 3 * S + a.Q / cs +
-                         a.KC + R + kThreads + 2;
+                         a.KC + R + kThreads + 2 +
+                         (a.C_lc ? nl * 2 * D + a.C_lc : 0);  // lcp, lcr
   return 16 + 4 * (per_cta + rb * per_row);
 }
 
@@ -282,7 +303,7 @@ __device__ __forceinline__ float widen(__nv_bfloat16 w) {
   return __bfloat162float(w);
 }
 
-template <int RB, int kFixed, typename WT>
+template <int RB, int kFixed, typename WT, bool kLc = false>
 __global__ void __launch_bounds__(kThreads, 1)
 sampler_cluster_kernel(const ClusterArgs<WT> ca) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -340,6 +361,11 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
   int* meta = cand_i + CS * RB;     // [NL] ring offsets, [NL] dilations
   int* xin = meta + 2 * NL;         // [RB] current code (mu-law)
   float* xamp = reinterpret_cast<float*>(xin + RB);  // [RB] amplitude
+  float* lcr = xamp + RB;                            // [RB][C_lc] (kLc)
+  float* lcp = lcr + RB * a.C_lc;                    // [RB][NL][2D] (kLc)
+  // Whether this CTA computes the next step's LC terms after its hand-off,
+  // or this step's before it waits for the hand-off (see the header).
+  const bool lc_after = rank == 0 || (RB <= 4 && 2 * rank < CS);
 
   // Once per launch: this CTA's weights (in the lane order of the chain's
   // products), adds and ring rows.
@@ -395,6 +421,10 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
                [&](int r, int n, float s) { sprev[r * R + n] = s; });
     __syncthreads();
   }
+  // Step 0's LC terms in the CTAs that compute them after the hand-off.
+  if constexpr (kLc) {
+    if (lc_after) lc_terms<RB>(a, 0, row0, l0, nl, NL, D, lcr, lcp);
+  }
   cluster.sync();   // every mbarrier initialised before any remote arrive
 
   const int log_from = a.n_total - a.n_log;
@@ -439,6 +469,10 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       if (a.scalar)
         for (int i = tid; i < RB * KC; i += kThreads) causal[i] = part[i];
     } else {
+      // This step's LC terms, while the chain runs in the CTAs before.
+      if constexpr (kLc) {
+        if (!lc_after) lc_terms<RB>(a, t, row0, l0, nl, NL, D, lcr, lcp);
+      }
       if (tid == 0) mbar_expect_tx(bar, (uint32_t)(RB * R * 4));
       mbar_wait(bar, (uint32_t)(t & 1));
     }
@@ -477,8 +511,13 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             if (r % sh.fg_groups == fg_g) {
-              const float f = acc[r] + ad[r * NL * 2 * D + fdim];
-              const float g = gv[r] + ad[r * NL * 2 * D + D + fdim];
+              float f = acc[r] + ad[r * NL * 2 * D + fdim];
+              float g = gv[r] + ad[r * NL * 2 * D + D + fdim];
+              if constexpr (kLc) {
+                const float* lp = lcp + (r * NL + j) * 2 * D;
+                f += lp[fdim];
+                g += lp[D + fdim];
+              }
               outs[(r * NL + j) * D + fdim] =
                   opnd<WT>(tanhf(f) * (0.5f + 0.5f * tanhf(g)), rc);
             }
@@ -527,6 +566,11 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       // The next step's causal product, off the chain.
       matvec<RB>(causal, KC, KC, a.causal_w, R, part,
                  [&](int r, int n, float s) { sprev[r * R + n] = s; });
+    }
+    // The next step's LC terms in the CTAs that compute them here.
+    if constexpr (kLc) {
+      if (lc_after && t + 1 < a.n_total)
+        lc_terms<RB>(a, t + 1, row0, l0, nl, NL, D, lcr, lcp);
     }
 
     // Skip partial of this CTA's layers, in layer order; h1 starts as
@@ -713,10 +757,10 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
 
 // The launch of `clusters` clusters of cs CTAs, `bytes` of shared memory
 // each, with the kernel's attributes set for it.
-template <int RB, int kFixed, typename WT>
+template <int RB, int kFixed, typename WT, bool kLc = false>
 cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  auto kernel = sampler_cluster_kernel<RB, kFixed, WT>;
+  auto kernel = sampler_cluster_kernel<RB, kFixed, WT, kLc>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -739,15 +783,16 @@ cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <int RB, int kFixed, typename WT>
+template <int RB, int kFixed, typename WT, bool kLc>
 cudaError_t launch(const ClusterArgs<WT>& ca, size_t bytes,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<RB, kFixed, WT>(
+  cudaError_t e = configure<RB, kFixed, WT, kLc>(
       ca.cs, bytes, (ca.a.B + RB - 1) / RB, stream, cfg, attr);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, sampler_cluster_kernel<RB, kFixed, WT>, ca);
+  e = cudaLaunchKernelEx(&cfg, sampler_cluster_kernel<RB, kFixed, WT, kLc>,
+                         ca);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -785,8 +830,8 @@ cudaError_t with_rows(int rb, F f) {
 // The body of the C entry points: the arguments of sampler_decode_f32 with
 // WT weights, round_chain (bf16 only, as DecodeArgsT's), then the plan: cs
 // CTAs a cluster, rb rows a cluster, layer_begin[cs + 1] (host memory) the
-// layer ranges.
-template <typename WT>
+// layer ranges; in the LC mode (kLc) last lc_w, the stream and C_lc.
+template <typename WT, bool kLc = false>
 int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
                 const WT* dense_w, const float* dense_add, const WT* skip_w,
                 const float* skip_b, const WT* post1_w, const float* post1_b,
@@ -797,7 +842,8 @@ int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
                 int scalar_input, int causal_width, long long t0,
                 unsigned long long seed, float inv_temperature,
                 int round_chain, int cs, int rb, const int* layer_begin,
-                void* stream) {
+                void* stream, const WT* lc_w = nullptr,
+                const float* lc = nullptr, int C_lc = 0) {
   ClusterArgs<WT> ca;
   DecodeArgsT<WT>& a = ca.a;
   a.causal_w = causal_w;
@@ -834,7 +880,13 @@ int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
   a.key1 = (uint32_t)(seed >> 32);
   a.inv_temperature = inv_temperature;
   a.round_chain = round_chain;
+  if (kLc) {
+    a.lc_w = lc_w;
+    a.lc = lc;
+    a.C_lc = C_lc;
+  }
   if (B < 1 || n_total < 1 || n_forced < 1 || causal_width < 1 ||
+      (kLc && (C_lc < 1 || !lc_w || !lc)) ||
       (scalar_input && causal_width > kThreads) || cs < 1 ||
       cs > kMaxCluster || cs > L || S % cs != 0 || Q % (4 * cs) != 0 ||
       D < 8 || D > 128 || 128 % D != 0 || R < 8 || R > 256 ||
@@ -864,10 +916,15 @@ int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
     using F1 = Fixed<1>;
     using F2 = Fixed<2>;
     if (R == F1::R && D == F1::D && S == F1::S && Q == F1::Q && cs == F1::CS)
-      return launch<RB, 1, WT>(ca, bytes, s);
-    if (R == F2::R && D == F2::D && S == F2::S && Q == F2::Q && cs == F2::CS)
-      return launch<RB, 2, WT>(ca, bytes, s);
-    return launch<RB, 0, WT>(ca, bytes, s);
+      return launch<RB, 1, WT, kLc>(ca, bytes, s);
+    // The LC mode compiles the paper/gc widths only; the wide config's
+    // LC runs the kernel of runtime widths.
+    if constexpr (!kLc) {
+      if (R == F2::R && D == F2::D && S == F2::S && Q == F2::Q &&
+          cs == F2::CS)
+        return launch<RB, 2, WT, kLc>(ca, bytes, s);
+    }
+    return launch<RB, 0, WT, kLc>(ca, bytes, s);
   });
 }
 

@@ -1,0 +1,49 @@
+// sampler_cluster_lc: the local-conditioning mode of the cluster decode
+// kernel (sampler_cluster.cuh says what it computes and how the LC terms
+// leave the layer chain), the LC row of the JAX package's all-VMEM decode
+// kernel at float32 weights:
+//   wavenet_tpu/kernels/sampler.py:234   _sampler_kernel (has_lc,
+//                                        sampler.py:332-364)
+// Its own library, so that it builds in parallel with the float32 and bf16
+// modes. The plan (cs, rb, layer_begin) is the float32 mode's, with the LC
+// rows counted in the shared memory (sampler_cluster_lc_smem_bytes).
+
+#include "sampler_cluster.cuh"
+
+// cluster_smem_bytes in the LC mode, so that the host's copy of the formula
+// (kernels/sampler.py) can be held against this one.
+extern "C" long long sampler_cluster_lc_smem_bytes(int R, int D, int S, int Q,
+                                                   int causal_width, int cs,
+                                                   int nl, int rb,
+                                                   int lc_channels) {
+  DecodeArgsT<float> a{};
+  a.R = R;
+  a.D = D;
+  a.S = S;
+  a.Q = Q;
+  a.KC = causal_width;
+  a.C_lc = lc_channels;
+  return (long long)cluster_smem_bytes(a, cs, nl, rb);
+}
+
+// The arguments of sampler_cluster_f32, with lc_w [L, lc_channels, 2D]
+// (filter | gate pre-scaled by 0.5), the stream lc [n_total, B,
+// lc_channels] (row t conditions step t) and lc_channels before the plan.
+extern "C" int sampler_cluster_lc_f32(
+    const float* causal_w, const float* layer_w, const float* layer_add,
+    const float* dense_w, const float* dense_add, const float* skip_w,
+    const float* skip_b, const float* post1_w, const float* post1_b,
+    const float* post2_w, const float* post2_b, const int* ring_meta,
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
+    const float* lc_w, const float* lc, int lc_channels, int cs, int rb,
+    const int* layer_begin, void* stream) {
+  return cluster_run<float, true>(
+      causal_w, layer_w, layer_add, dense_w, dense_add, skip_w, skip_b,
+      post1_w, post1_b, post2_w, post2_b, ring_meta, ring, causal, forced,
+      codes, logits, next_amp, B, L, R, D, S, Q, n_total, n_forced, n_log,
+      scalar_input, causal_width, t0, seed, inv_temperature, 1, cs, rb,
+      layer_begin, stream, lc_w, lc, lc_channels);
+}

@@ -67,9 +67,15 @@
 // The kernel itself, with the helpers it uses, lives in sampler_step.cuh,
 // which the b1 probe (b1_bisect.cu, the port of tools/r3_b1_bisect.py)
 // shares; this file instantiates it with every part on, with float32
-// weights (sampler_decode_f32) and with bf16 weights (sampler_decode_bf16:
+// weights (sampler_decode_f32), with bf16 weights (sampler_decode_bf16:
 // weights widened on load, activations rounded to bf16 where the JAX
-// kernels round them, see sampler_step.cuh).
+// kernels round them, see sampler_step.cuh) and in the local-conditioning
+// mode at float32 weights (sampler_decode_lc_f32: the LC row of TPU kernels
+// 1 and 2, sampler.py:332-364 and :1479-1535, has_lc). The LC mode adds
+// lc_t @ lc_w[l] to every layer's filter/gate pre-activation; the terms of
+// all layers are computed at the top of each step, in one pass whose loads
+// are independent of each other, rather than as L more dependent products
+// on the chain (sampler_step.cuh: lc_terms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,23 +103,24 @@ int rows_per_block(const DecodeArgsT<WT>& a) {
   return 1;
 }
 
-template <int RB, typename WT>
+template <int RB, typename WT, bool kLc>
 cudaError_t launch(const DecodeArgsT<WT>& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes(a, RB);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sampler_decode_kernel<RB, kFullStep, WT>,
+        sampler_decode_kernel<RB, kFullStep, WT, kLc>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
   const int grid = (a.B + RB - 1) / RB;
-  sampler_decode_kernel<RB, kFullStep, WT>
+  sampler_decode_kernel<RB, kFullStep, WT, kLc>
       <<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The arguments of the C entry points below, with WT weights.
-template <typename WT>
+// The arguments of the C entry points below, with WT weights; in the LC
+// mode (kLc) also lc_w, the stream and C_lc.
+template <typename WT, bool kLc = false>
 int run(const WT* causal_w, const WT* layer_w, const float* layer_add,
         const WT* dense_w, const float* dense_add, const WT* skip_w,
         const float* skip_b, const WT* post1_w, const float* post1_b,
@@ -122,7 +129,8 @@ int run(const WT* causal_w, const WT* layer_w, const float* layer_add,
         float* logits, float* next_amp, int B, int L, int R, int D, int S,
         int Q, int n_total, int n_forced, int n_log, int scalar_input,
         int causal_width, long long t0, unsigned long long seed,
-        float inv_temperature, int round_chain, void* stream) {
+        float inv_temperature, int round_chain, void* stream,
+        const WT* lc_w = nullptr, const float* lc = nullptr, int C_lc = 0) {
   DecodeArgsT<WT> a;
   a.causal_w = causal_w;
   a.layer_w = layer_w;
@@ -158,17 +166,23 @@ int run(const WT* causal_w, const WT* layer_w, const float* layer_add,
   a.key1 = (uint32_t)(seed >> 32);
   a.inv_temperature = inv_temperature;
   a.round_chain = round_chain;
+  if (kLc) {
+    a.lc_w = lc_w;
+    a.lc = lc;
+    a.C_lc = C_lc;
+  }
   // The scalar register shifts through the partial-sum scratch, which
   // holds kThreads floats per row.
   if (B < 1 || n_total < 1 || n_forced < 1 || causal_width < 1 ||
-      (scalar_input && causal_width > kThreads))
+      (scalar_input && causal_width > kThreads) ||
+      (kLc && (C_lc < 1 || !lc_w || !lc)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (rows_per_block(a)) {
-    case 1: return (int)launch<1>(a, s);
-    case 2: return (int)launch<2>(a, s);
-    case 4: return (int)launch<4>(a, s);
-    case 8: return (int)launch<8>(a, s);
+    case 1: return (int)launch<1, WT, kLc>(a, s);
+    case 2: return (int)launch<2, WT, kLc>(a, s);
+    case 4: return (int)launch<4, WT, kLc>(a, s);
+    case 8: return (int)launch<8, WT, kLc>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -212,4 +226,26 @@ extern "C" int sampler_decode_bf16(
       codes, logits, next_amp, B, L, R, D, S, Q, n_total, n_forced, n_log,
       scalar_input, causal_width, t0, seed, inv_temperature, round_chain,
       stream);
+}
+
+// The local-conditioning mode (float32 weights): the arguments of
+// sampler_decode_f32, then lc_w [L, lc_channels, 2D] (filter | gate
+// pre-scaled by 0.5), the stream lc [n_total, B, lc_channels] (row t
+// conditions step t) and lc_channels.
+extern "C" int sampler_decode_lc_f32(
+    const float* causal_w, const float* layer_w, const float* layer_add,
+    const float* dense_w, const float* dense_add, const float* skip_w,
+    const float* skip_b, const float* post1_w, const float* post1_b,
+    const float* post2_w, const float* post2_b, const int* ring_meta,
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
+    const float* lc_w, const float* lc, int lc_channels, void* stream) {
+  return run<float, true>(causal_w, layer_w, layer_add, dense_w, dense_add,
+                          skip_w, skip_b, post1_w, post1_b, post2_w, post2_b,
+                          ring_meta, ring, causal, forced, codes, logits,
+                          next_amp, B, L, R, D, S, Q, n_total, n_forced,
+                          n_log, scalar_input, causal_width, t0, seed,
+                          inv_temperature, 1, stream, lc_w, lc, lc_channels);
 }

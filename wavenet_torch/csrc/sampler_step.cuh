@@ -21,8 +21,13 @@
 //          head's two inputs always, the layer chain's three inputs (filter/
 //          gate [past | current], dense, skip) where DecodeArgsT::round_chain
 //          is set; products, sums and adds in float32).
-// sampler_decode.cu instantiates <RB, kFullStep, float> and
-// <RB, kFullStep, __nv_bfloat16>.
+//   kLc    local conditioning (the JAX kernels' has_lc): each layer's
+//          filter/gate pre-activation gains lc_t @ lc_w[l], added after
+//          layer_add; lc_t is row t of the stream [n_total, B, C_lc]. The
+//          terms of all L layers are computed at the top of the step, off
+//          the layer chain (lc_terms).
+// sampler_decode.cu instantiates <RB, kFullStep, float>,
+// <RB, kFullStep, __nv_bfloat16> and <RB, kFullStep, float, true>.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +82,11 @@ struct DecodeArgsT {
   // float32 (the JAX prefill route at B = 1, whose VPU chain multiplies
   // float32 activations by the widened weights). Float weights ignore it.
   int round_chain;
+  // Local conditioning (the kernels' LC mode only): lc_w [L, C_lc, 2D]
+  // (filter | gate pre-scaled by 0.5, as layer_w), lc [n_total, B, C_lc].
+  const WT* lc_w = nullptr;
+  const float* lc = nullptr;
+  int C_lc = 0;
 };
 
 __device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
@@ -167,6 +177,52 @@ __device__ __forceinline__ void matvec(const float* x, int xs, int K,
   }
 }
 
+// The LC terms of layers [l0, l0 + nl) at step t of the launch:
+// lcp[(r * NL + j) * 2D + n] = sum over k of lc[t, row0 + r, k] *
+// lc_w[l0 + j, k, n], k in order. The step's feature rows are staged in
+// lcr [RB][C_lc] first. One thread a column, all RB rows at once, kBatch
+// weights loaded before their FMAs (lc_w streams from L2, so a column costs
+// ceil(C_lc / kBatch) L2 round trips: 3 at C_lc = 80 and up to 4 rows;
+// fewer weights at once above 4 rows, whose accumulators take the
+// registers). The terms depend on the stream alone, never on the layer
+// chain, so the callers compute them off it. The caller synchronises after
+// the call before reading lcp.
+template <int RB, typename WT>
+__device__ __forceinline__ void lc_terms(const DecodeArgsT<WT>& a, int t,
+                                         int row0, int l0, int nl, int NL,
+                                         int D, float* lcr, float* lcp) {
+  const int tid = threadIdx.x, C = a.C_lc, B = a.B, N2 = 2 * D;
+  for (int i = tid; i < RB * C; i += kThreads) {
+    const int row = row0 + i / C;
+    lcr[i] = row < B ? a.lc[((size_t)t * B + row) * C + i % C] : 0.f;
+  }
+  __syncthreads();
+  constexpr int kBatch = RB <= 4 ? 32 : 16;
+  for (int n = tid; n < nl * N2; n += kThreads) {
+    const int j = n / N2, col = n % N2;
+    const WT* W = a.lc_w + (size_t)(l0 + j) * C * N2 + col;
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < C; k0 += kBatch) {
+      float w[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        w[u] = k0 + u < C ? ldw(W + (size_t)(k0 + u) * N2) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k0 + u < C) {
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+            acc[r] = fmaf(lcr[r * C + k0 + u], w[u], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) lcp[(r * NL + j) * N2 + col] = acc[r];
+  }
+}
+
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
@@ -191,7 +247,7 @@ __device__ __forceinline__ int mu_law_encode(float amp, float mu) {
                         0.5f);
 }
 
-template <int RB, unsigned kMask, typename WT>
+template <int RB, unsigned kMask, typename WT, bool kLc = false>
 __global__ void __launch_bounds__(kThreads)
 sampler_decode_kernel(const DecodeArgsT<WT> a) {
   constexpr bool kSkip = !(kMask & kNoSkip), kDense = !(kMask & kNoDense);
@@ -222,6 +278,8 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
   int* meta = red_i + kWarps;            // [2L]
   int* xin = meta + 2 * L;               // [RB] current code (mu-law)
   float* xamp = reinterpret_cast<float*>(xin + RB);  // [RB] amplitude (scalar)
+  float* lcr = xamp + RB;                // [RB][C_lc] (kLc)
+  float* lcp = lcr + RB * a.C_lc;        // [RB][L][2D] (kLc)
 
   for (int i = tid; i < 2 * L; i += kThreads) meta[i] = a.ring_meta[i];
   for (int i = tid; i < RB * KC; i += kThreads) {
@@ -239,6 +297,9 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
   const int log_from = a.n_total - a.n_log;
   for (int t = 0; t < a.n_total; ++t) {
     const long long step = a.t0 + t;
+
+    // The LC terms of every layer, before the chain needs them.
+    if constexpr (kLc) lc_terms<RB>(a, t, row0, 0, L, L, D, lcr, lcp);
 
     if constexpr (kFeat) {
       // Causal layer: current = causal @ causal_w[:KC] + the input's row
@@ -294,8 +355,10 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
         matvec<RB>(xcat, 2 * R, 2 * R, a.layer_w + (size_t)l * 4 * R * D,
                    2 * D, part, [&](int r, int n, float s) {
                      const int row = row0 + r;
-                     fg[r * 2 * D + n] =
+                     float v =
                          s + (row < B ? ladd[(size_t)row * 2 * D + n] : 0.f);
+                     if constexpr (kLc) v += lcp[(r * L + l) * 2 * D + n];
+                     fg[r * 2 * D + n] = v;
                    }, a.round_chain);
       } else {
         // R == D: fg is the layer's input pair itself.
@@ -453,12 +516,13 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
 }
 
 // Dynamic shared memory of one block at rb rows: the carve-up at the top
-// of sampler_decode_kernel.
+// of sampler_decode_kernel (C_lc is 0 outside the LC mode).
 template <typename WT>
 size_t smem_bytes(const DecodeArgsT<WT>& a, int rb) {
   const size_t floats =
       (size_t)rb * (a.KC + a.Q + 3 * a.R + 3 * a.D + 3 * a.S) +
-      (size_t)rb * kThreads + kWarps + rb;   // ..., part, red_v, xamp
+      (size_t)rb * kThreads + kWarps + rb +   // ..., part, red_v, xamp
+      (size_t)rb * (a.C_lc ? a.C_lc + 2 * (size_t)a.L * a.D : 0);  // lcr, lcp
   const size_t ints = kWarps + 2 * (size_t)a.L + rb;
   return 4 * (floats + ints);
 }

@@ -16,7 +16,8 @@ semantics:
 
 Whole-utterance mode (``sample_size=None``) pads each utterance to a
 geometric bucket ladder (bucket_size * 2^k), as the JAX package does.
-Not ported yet: local conditioning (ROADMAP.md queue 1, item 2).
+Not ported yet: local conditioning's sidecars (LC training, ROADMAP.md
+queue 1, item 2, step 2b).
 """
 
 from __future__ import annotations
@@ -130,8 +131,8 @@ class AudioReader:
                  lc_enabled: bool = False):
         if lc_enabled:
             raise NotImplementedError(
-                "local conditioning is not ported yet (ROADMAP.md queue 1, "
-                "'LC in sampler_decode')")
+                "the reader's local conditioning sidecars are not ported "
+                "yet (LC training: ROADMAP.md queue 1, item 2, step 2b)")
         self.audio_dir = audio_dir
         self.sample_rate = sample_rate
         self.gc_enabled = gc_enabled

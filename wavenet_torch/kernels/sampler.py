@@ -57,6 +57,18 @@ sum stay float32. Generation from a config whose ``compute_dtype`` is
 bfloat16 prefills at float32 and decodes at the requested weight type, as
 the JAX package does.
 
+Local conditioning (an LC config and an ``lc`` stream, the JAX kernels'
+``has_lc`` mode) runs the LC mode of ``sampler_cluster``
+(``csrc/sampler_cluster_lc.cu``, its own library) and of
+``sampler_decode``, float32 weights only: row t of the stream
+``[n_total, B, C_lc]`` conditions step t, and each layer's filter/gate
+pre-activation gains ``lc_t @ lc_w[l]``. The term depends on the stream
+alone, never on the layer chain, so the kernels compute it off the chain
+(see their sources). ``tile_plan`` refuses LC, so an LC config runs the
+cluster kernel in its range and ``sampler_decode`` above it. LC at bf16
+weights and in ``sampler_tiles`` are queued (ROADMAP.md queue 1, item 2,
+step 2c).
+
 ``decode_reference`` is the plain PyTorch version of the three kernels,
 with the same Philox4x32-10 noise; ``decode`` and ``decode_sequential``
 use it only for CPU tensors.
@@ -75,9 +87,9 @@ import torch.nn.functional as F
 
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import (
-    Params, embed_gc, forward, forward_codes, one_hot)
+    Params, embed_gc, forward, forward_codes, maybe_refine_lc, one_hot)
 from wavenet_torch.sample import (
-    _input_kernel_width, float32_config, ring_slot_blocks)
+    _input_kernel_width, float32_config, lc_for_prime, ring_slot_blocks)
 
 
 class PackedSampler(NamedTuple):
@@ -86,6 +98,8 @@ class PackedSampler(NamedTuple):
     The gate half of ``layer_w``/``layer_add`` is pre-scaled by 0.5 so one
     tanh gives both tanh(f) and sigmoid(g) = 0.5 + 0.5*tanh(g/2); bias and
     GC are folded into ``layer_add``; the per-layer skip biases are summed.
+    ``lc_w`` (LC configs, else None) is ``[lc_filter | 0.5 * lc_gate]``,
+    pre-scaled as ``layer_w``.
     """
     causal_w: torch.Tensor     # [kw_in * C_in, R]  (causal register | input)
     layer_w: torch.Tensor      # [L, 2R, 2D]  (K = past|current, N = filt|gate/2)
@@ -98,11 +112,15 @@ class PackedSampler(NamedTuple):
     post1_b: torch.Tensor      # [1, S]
     post2_w: torch.Tensor      # [S, Q]
     post2_b: torch.Tensor      # [1, Q]
+    lc_w: Optional[torch.Tensor] = None   # [L, C_lc, 2D]
 
 
 #: The packed fields that hold matmul weights: float32, or all six bf16.
 WEIGHT_FIELDS = ("causal_w", "layer_w", "dense_w", "skip_w", "post1_w",
                  "post2_w")
+#: The fields every decode entry point takes first, in its order (the LC
+#: entries take ``lc_w`` later, with the stream).
+KERNEL_FIELDS = tuple(f for f in PackedSampler._fields if f != "lc_w")
 
 
 class StreamSamplerCarry(NamedTuple):
@@ -178,11 +196,16 @@ def pack_sampler_weights(params: Params, config: WaveNetConfig,
         post1_b = torch.zeros((1, S), dtype=f32, device=dev)
         post2_b = torch.zeros((1, Q), dtype=f32, device=dev)
     wt = weight_dtype
+    lc_w = None
+    if c.lc_enabled:
+        lc_w = torch.cat([params["lc_filter"].to(f32),
+                          0.5 * params["lc_gate"].to(f32)],
+                         dim=-1).to(wt).contiguous()      # [L, C_lc, 2D]
     return PackedSampler(*(t.contiguous() for t in (
         causal_w.to(wt), layer_w.to(wt), add, params["dense"].to(wt),
         dense_add, params["skip"].to(wt), skip_b,
         params["postprocess1"].to(wt), post1_b,
-        params["postprocess2"].to(wt), post2_b)))
+        params["postprocess2"].to(wt), post2_b)), lc_w=lc_w)
 
 
 def ring_offsets(config: WaveNetConfig) -> Tuple[int, ...]:
@@ -236,7 +259,8 @@ def _full_float32():
 
 def prefill_carry(params: Params, config: WaveNetConfig,
                   seed_codes: torch.Tensor,
-                  gc_ids: Optional[torch.Tensor] = None
+                  gc_ids: Optional[torch.Tensor] = None,
+                  lc: Optional[torch.Tensor] = None
                   ) -> StreamSamplerCarry:
     """Parallel queue priming: one forward replaces T-1 decode steps.
 
@@ -246,7 +270,9 @@ def prefill_carry(params: Params, config: WaveNetConfig,
     amplitudes in scalar mode). The carry resumes decoding at absolute
     step T-1 with ``seed_codes[:, -1]`` as the first input. The forward
     runs at float32 whatever the config's ``compute_dtype``
-    (``float32_config``), as the JAX package's prefill does.
+    (``float32_config``), as the JAX package's prefill does. ``lc``
+    [B, >= T-1, C_lc] conditions the primed steps (its first T-1 rows,
+    already refined).
     """
     c = float32_config(config)
     if c.filter_width != 2:
@@ -257,27 +283,31 @@ def prefill_carry(params: Params, config: WaveNetConfig,
     if T == 1:
         ring, causal = zero_state(c, B, seed_codes.device)
         return StreamSamplerCarry(ring, causal, 0, last)
-    ring, causal = _prefill_state(params, c, seed_codes, gc_ids)
+    ring, causal = _prefill_state(params, c, seed_codes, gc_ids, lc)
     return StreamSamplerCarry(ring, causal, T - 1, last)
 
 
 def _prefill_state(params: Params, config: WaveNetConfig,
                    seed_codes: torch.Tensor,
-                   gc_ids: Optional[torch.Tensor]):
+                   gc_ids: Optional[torch.Tensor],
+                   lc: Optional[torch.Tensor] = None):
     """(ring, causal) after teacher-forcing steps 0..T-2."""
     c = config
     B = seed_codes.shape[0]
     T_pre = seed_codes.shape[1] - 1
     keep = tuple(min(d, T_pre) for d in c.dilations)
+    lc_in = None if lc is None else lc[:, :T_pre].to(seed_codes.device)
     with torch.no_grad(), _full_float32():
         gc_emb = (embed_gc(params, c, gc_ids.to(seed_codes.device))
                   if gc_ids is not None else None)
         if c.scalar_input:
             layer_ins = forward(params, c, seed_codes[:, :T_pre, None],
-                                gc_emb, collect_layer_inputs=keep)
+                                gc_emb, collect_layer_inputs=keep,
+                                lc=lc_in)
         else:
             layer_ins = forward_codes(params, c, seed_codes[:, :T_pre],
-                                      gc_emb, collect_layer_inputs=keep)
+                                      gc_emb, collect_layer_inputs=keep,
+                                      lc=lc_in)
         # Ring row offsets[l] + tau % d holds x_l(tau) for the last
         # min(d, T_pre) positions tau < T_pre; other rows stay zero.
         ring = torch.cat(ring_slot_blocks(layer_ins, c.dilations, T_pre),
@@ -418,9 +448,13 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                      forced: torch.Tensor, n_total: int, t0: int, seed: int,
                      temperature: float = 1.0, collect_logits=False,
                      next_amp: Optional[torch.Tensor] = None,
-                     round_chain: Optional[bool] = None):
+                     round_chain: Optional[bool] = None,
+                     lc: Optional[torch.Tensor] = None):
     """Plain PyTorch version of ``sampler_decode`` (same contract as
-    :func:`decode`): a Python loop over steps, batched over rows.
+    :func:`decode`): a Python loop over steps, batched over rows. With
+    ``lc`` [n_total, B, C_lc] (an LC config) step t computes
+    ``fg = [past | current] @ layer_w[l] + layer_add[l] + lc[t] @ lc_w[l]``,
+    in the JAX kernels' order.
 
     With bf16 weights (``pack_sampler_weights(..., weight_dtype=
     torch.bfloat16)``) it computes what the JAX kernels compute at
@@ -442,6 +476,8 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     log_from = n_total - n_log
     inv_t = float(np.float32(1.0 / temperature))
     bf16 = weight_dtype_of(packed) == torch.bfloat16
+    check_lc(c, lc, weight_dtype_of(packed))
+    _check_lc_operands(packed, c, lc, n_total, B, dev)
     if round_chain is None:
         round_chain = chain_rounded("decode", B)
     keep = lambda x: x                                    # noqa: E731
@@ -472,6 +508,8 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                 ring[pos] = cur
                 fg = (chain_in(torch.cat([past, cur], dim=-1)) @ w.layer_w[l]
                       + w.layer_add[l])
+                if lc is not None:
+                    fg = fg + lc[t] @ packed.lc_w[l]
                 tg = torch.tanh(fg)
                 out = tg[:, :D] * (0.5 + 0.5 * tg[:, D:])
                 cur = cur + chain_in(out) @ w.dense_w[l] + w.dense_add[l]
@@ -545,7 +583,9 @@ def cluster_smem_bytes(config: WaveNetConfig, cs: int, rb: int) -> int:
     """Dynamic shared memory of one ``sampler_cluster`` CTA: the carve-up
     at the top of its kernel (``cluster_smem_bytes`` there, which the
     library exports as ``sampler_cluster_smem_bytes`` for the card's tests
-    to hold this copy against)."""
+    to hold this copy against). An LC config's CTA also holds, a row, its
+    layers' LC terms and the step's feature row (``sampler_cluster_lc``'s
+    export, ``sampler_cluster_lc_smem_bytes``)."""
     c = config
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
@@ -554,6 +594,8 @@ def cluster_smem_bytes(config: WaveNetConfig, cs: int, rb: int) -> int:
     per_cta = nl * (fg + dense + R) + 2 * nl + 2 * cs * rb
     per_row = (nl * (2 * D + 2 * R + D) + R + 3 * S + Q // cs
                + causal_width(c) + R + THREADS + 2)
+    if c.lc_enabled:
+        per_row += nl * 2 * D + c.lc_channels
     return 16 + 4 * (per_cta + rb * per_row)
 
 
@@ -577,7 +619,7 @@ def cluster_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
     c = config
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
-    if (c.filter_width != 2 or c.lc_enabled or batch_size < 1
+    if (c.filter_width != 2 or batch_size < 1
             or D not in (8, 16, 32, 64, 128)
             or R not in (8, 16, 32, 64, 128, 256)
             or causal_width(c) > THREADS):
@@ -683,9 +725,11 @@ KERNEL_CHOICES = ("auto", "cluster", "tiles", "decode")
 #: ints, t0, the seed and 1 / temperature.
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
                     + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float])
-#: Then the bf16 entries' ``round_chain``; the cluster and tiles entries'
-#: plan (cs, rb, layer_begin); last, the stream.
+#: Then the bf16 entries' ``round_chain``; the LC entries' ``lc_w``, stream
+#: and C_lc; the cluster and tiles entries' plan (cs, rb, layer_begin);
+#: last, the stream.
 _ROUND = [ctypes.c_int]
+_LC = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 _PLAN = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -693,14 +737,25 @@ def _bind(lib) -> None:
     lib.sampler_decode_f32.argtypes = _DECODE_ARGTYPES + [ctypes.c_void_p]
     lib.sampler_decode_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND
                                         + [ctypes.c_void_p])
+    lib.sampler_decode_lc_f32.argtypes = (_DECODE_ARGTYPES + _LC
+                                          + [ctypes.c_void_p])
     lib.sampler_decode_f32.restype = ctypes.c_int
     lib.sampler_decode_bf16.restype = ctypes.c_int
+    lib.sampler_decode_lc_f32.restype = ctypes.c_int
 
 
 def _bind_cluster_bf16(lib) -> None:
     lib.sampler_cluster_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND + _PLAN
                                          + [ctypes.c_void_p])
     lib.sampler_cluster_bf16.restype = ctypes.c_int
+
+
+def _bind_cluster_lc(lib) -> None:
+    lib.sampler_cluster_lc_f32.argtypes = (_DECODE_ARGTYPES + _LC + _PLAN
+                                           + [ctypes.c_void_p])
+    lib.sampler_cluster_lc_f32.restype = ctypes.c_int
+    lib.sampler_cluster_lc_smem_bytes.argtypes = [ctypes.c_int] * 9
+    lib.sampler_cluster_lc_smem_bytes.restype = ctypes.c_longlong
 
 
 def _bind_cluster(lib) -> None:
@@ -808,20 +863,73 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"sampler_decode: {name} must be contiguous")
 
 
-def _check_kernel(kernel: str, packed: PackedSampler) -> None:
+#: What the LC modes still lack, and the ROADMAP.md step that owns it.
+LC_STEP_2C = "ROADMAP.md queue 1, item 2, step 2c"
+
+
+def check_lc_mode(weight_dtype=torch.float32, kernel: str = "auto") -> None:
+    """What the LC modes run: float32 weights, on the cluster or decode
+    kernel. The rest raises NotImplementedError naming the ROADMAP.md step
+    that owns it."""
+    if weight_dtype != torch.float32:
+        raise NotImplementedError(
+            f"local conditioning at bf16 weights is not ported yet "
+            f"({LC_STEP_2C})")
+    if kernel == "tiles":
+        raise NotImplementedError(
+            f"sampler_tiles has no local-conditioning mode yet ({LC_STEP_2C})")
+
+
+def check_lc(config: WaveNetConfig, lc, weight_dtype=torch.float32,
+             kernel: str = "auto") -> None:
+    """The rules of local conditioning, for every entry point: an LC
+    config runs what :func:`check_lc_mode` allows, and takes a stream
+    ``lc``; any other config takes none (ValueError)."""
+    c = config
+    if c.lc_enabled:
+        check_lc_mode(weight_dtype, kernel)
+        if lc is None:
+            raise ValueError(
+                "this model was trained with local conditioning (config "
+                f"has lc_channels={c.lc_channels}): it needs an lc stream")
+    elif lc is not None:
+        raise ValueError("lc given, but this model was not trained with "
+                         "local conditioning (no lc_channels in config)")
+
+
+def _check_kernel(kernel: str, packed: PackedSampler, config: WaveNetConfig,
+                  lc: Optional[torch.Tensor]) -> None:
     if kernel not in KERNEL_CHOICES:
         raise ValueError(f"kernel={kernel!r}: one of {KERNEL_CHOICES}")
     if kernel == "tiles" and weight_dtype_of(packed) != torch.float32:
         raise NotImplementedError(
             "sampler_tiles runs float32 weights only; its bf16 mode is "
             "queued in ROADMAP.md queue 1, item 1, step 1d")
+    if config.lc_enabled or lc is not None:
+        check_lc(config, lc, weight_dtype_of(packed), kernel)
+
+
+def _check_lc_operands(packed: PackedSampler, config: WaveNetConfig,
+                       lc: Optional[torch.Tensor], n_total: int, B: int,
+                       device) -> None:
+    """An LC stream ``lc`` [n_total, B, C_lc] float32 and packed ``lc_w``
+    [L, C_lc, 2D] (the rules: :func:`check_lc`)."""
+    c = config
+    if lc is None:
+        return
+    if packed.lc_w is None:
+        raise ValueError("lc given but the packed weights have no lc_w")
+    _check("lc_w", packed.lc_w, torch.float32,
+           (c.num_layers, c.lc_channels, 2 * c.dilation_channels), device)
+    _check("lc", lc, torch.float32, (n_total, B, c.lc_channels), device)
 
 
 def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             causal: torch.Tensor, forced: torch.Tensor, n_total: int,
             t0: int, seed: int, temperature: float, collect_logits,
             next_amp: Optional[torch.Tensor] = None, *,
-            route: str, kernel: str = "auto", plan=None):
+            route: str, kernel: str = "auto", plan=None,
+            lc: Optional[torch.Tensor] = None):
     """Check every operand and launch one decode kernel once on the
     current stream: ``sampler_cluster`` where ``kernel`` is "cluster", or
     "auto" and ``cluster_plan`` finds a launch; ``sampler_tiles`` where
@@ -830,15 +938,15 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     ``TilePlan``) replaces the device's. bf16 weights launch the bf16 mode
     of the cluster or decode kernel, which rounds the layer chain's inputs
     where :func:`chain_rounded` says so for ``route`` ("decode" or
-    "sequential", the caller's; see :func:`decode_reference`). Returns
+    "sequential", the caller's; see :func:`decode_reference`). An ``lc``
+    stream launches the LC mode of the cluster or decode kernel. Returns
     ``(codes, logits, kernel launched)``, the kernel's name with "_bf16"
-    in the bf16 mode; raises if the launch is refused."""
-    _check_kernel(kernel, packed)
+    in the bf16 mode and "_lc" in the LC mode; raises if the launch is
+    refused."""
+    _check_kernel(kernel, packed, config, lc)
     c = config
-    if c.filter_width != 2 or c.lc_enabled:
-        raise NotImplementedError(
-            "sampler_decode covers filter_width=2 without LC (LC: "
-            "ROADMAP.md queue 1, item 2)")
+    if c.filter_width != 2:
+        raise NotImplementedError("sampler_decode covers filter_width=2")
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
     dev = ring.device
@@ -867,6 +975,7 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     _check("forced", forced, input_dtype(c), (B, n_forced), dev)
     if next_amp is not None:
         _check("next_amp", next_amp, f32, (B,), dev)
+    _check_lc_operands(packed, c, lc, n_total, B, dev)
 
     from wavenet_torch.kernels import _build
     if plan is None and kernel != "decode":
@@ -899,7 +1008,7 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     meta = torch.tensor(ring_offsets(c) + c.dilations, dtype=torch.int32,
                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (*(getattr(packed, k).data_ptr() for k in PackedSampler._fields),
+    args = (*(getattr(packed, k).data_ptr() for k in KERNEL_FIELDS),
             meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
             forced.data_ptr(), codes.data_ptr(),
             logits.data_ptr() if logits is not None else None,
@@ -914,6 +1023,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
                                           plan.layer_begin[1:]))):
         raise ValueError(f"sampler_{used}: bad plan {plan}")
     rnd = (int(chain_rounded(route, B)),) if bf16 else ()
+    lc_args = (() if lc is None else
+               (packed.lc_w.data_ptr(), lc.data_ptr(), c.lc_channels))
     if used == "tiles":
         if plan.CS != TILE_CS or plan.RB not in TILE_ROWS:
             raise ValueError(f"sampler_tiles: bad plan {plan}")
@@ -929,17 +1040,23 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             lib = _build.load("sampler_cluster_bf16")
             _bind_cluster_bf16(lib)
             fn = lib.sampler_cluster_bf16
+        elif lc is not None:
+            lib = _build.load("sampler_cluster_lc")
+            _bind_cluster_lc(lib)
+            fn = lib.sampler_cluster_lc_f32
         else:
             lib = _build.load("sampler_cluster")
             _bind_cluster(lib)
             fn = lib.sampler_cluster_f32
-        err = fn(*args, *rnd, plan.CS, plan.RB, begin, stream)
+        err = fn(*args, *rnd, *lc_args, plan.CS, plan.RB, begin, stream)
     else:
         lib = _build.load("sampler_decode")
         _bind(lib)
-        fn = lib.sampler_decode_bf16 if bf16 else lib.sampler_decode_f32
-        err = fn(*args, *rnd, stream)
-    name = used + ("_bf16" if bf16 else "")
+        fn = (lib.sampler_decode_bf16 if bf16 else
+              lib.sampler_decode_lc_f32 if lc is not None else
+              lib.sampler_decode_f32)
+        err = fn(*args, *rnd, *lc_args, stream)
+    name = used + ("_bf16" if bf16 else "") + ("" if lc is None else "_lc")
     if err != 0:
         raise RuntimeError(f"sampler_{name} launch failed: CUDA error {err}")
     return codes, logits, name
@@ -955,7 +1072,7 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
            ring: torch.Tensor, causal: torch.Tensor, forced: torch.Tensor,
            n_total: int, t0: int, seed: int, temperature: float = 1.0,
            collect_logits=False, next_amp: Optional[torch.Tensor] = None,
-           *, kernel: str = "auto"):
+           *, kernel: str = "auto", lc: Optional[torch.Tensor] = None):
     """Run ``n_total`` decode steps for every row in one kernel launch.
 
     ``ring`` [sum_d, B, R] and ``causal`` [B, (kw_in-1)*C_in] (float32)
@@ -976,17 +1093,20 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     (``pack_sampler_weights(..., weight_dtype=torch.bfloat16)``) run the
     bf16 mode of the cluster or decode kernel (``tile_plan`` takes float32
     only, and a pinned "tiles" raises), the layer chain's inputs rounded
-    as :func:`chain_rounded` says for this route (unless B == 1).
+    as :func:`chain_rounded` says for this route (unless B == 1). An LC
+    config takes ``lc`` [n_total, B, C_lc] float32 (row t conditions step
+    t, already refined) and runs the LC mode of the cluster or decode
+    kernel, at float32 weights only.
     """
-    _check_kernel(kernel, packed)
+    _check_kernel(kernel, packed, config, lc)
     if _device_type(ring) == "cpu":
         return decode_reference(packed, config, ring, causal, forced,
                                 n_total, t0, seed, temperature,
-                                collect_logits, next_amp)
+                                collect_logits, next_amp, lc=lc)
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, t0, seed,
         temperature, collect_logits, next_amp, route="decode",
-        kernel=kernel)
+        kernel=kernel, lc=lc)
     decode.launches += 1
     decode.launches_by[used] += 1
     return codes, logits
@@ -994,7 +1114,8 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 
 #: Kernel launches made by ``decode``, in all and by kernel ("cluster",
 #: "tiles", "decode", and "cluster_bf16", "decode_bf16" for the bf16
-#: modes; read by chip_smoke.py).
+#: modes, "cluster_lc", "decode_lc" for the LC modes; read by
+#: chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()
 
@@ -1002,7 +1123,8 @@ decode.launches_by = collections.Counter()
 def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
                       forced: torch.Tensor, n_total: int, seed: int,
                       temperature: float = 1.0, collect_logits=False, *,
-                      kernel: str = "auto"):
+                      kernel: str = "auto",
+                      lc: Optional[torch.Tensor] = None):
     """Kernel 4's route: one launch from a zero ring and causal register.
 
     The whole forced prefix ``forced`` [B, n_forced] is stepped inside
@@ -1013,17 +1135,21 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
     CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
     (``kernel`` as in :func:`decode`) or raise. With bf16 weights the
     layer chain's inputs are rounded at every B (:func:`chain_rounded`).
+    ``lc`` [n_total, B, C_lc] conditions every step, the forced ones
+    included, as in :func:`decode` (the JAX package's
+    ``generate_pallas(prefill=False)`` on kernel 1 takes LC; its HBM-ring
+    variant does not).
     """
-    _check_kernel(kernel, packed)
+    _check_kernel(kernel, packed, config, lc)
     ring, causal = zero_state(config, forced.shape[0], forced.device)
     if _device_type(forced) == "cpu":
         return decode_reference(
             packed, config, ring, causal, forced, n_total, 0, seed,
             temperature, collect_logits,
-            round_chain=chain_rounded("sequential", forced.shape[0]))
+            round_chain=chain_rounded("sequential", forced.shape[0]), lc=lc)
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, 0, seed, temperature,
-        collect_logits, route="sequential", kernel=kernel)
+        collect_logits, route="sequential", kernel=kernel, lc=lc)
     decode_sequential.launches += 1
     decode_sequential.launches_by[used] += 1
     return codes, logits
@@ -1035,13 +1161,27 @@ decode_sequential.launches = 0
 decode_sequential.launches_by = collections.Counter()
 
 
-def _check_generation(config: WaveNetConfig) -> None:
+def _check_generation(config: WaveNetConfig, lc, weight_dtype) -> None:
     if config.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
-    if config.lc_enabled:
-        raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md queue 1, "
-            "item 2, 'LC in sampler_decode')")
+    check_lc(config, lc, weight_dtype)
+
+
+def _lc_stream(lc, batch_size: int, n: int, config: WaveNetConfig, dev,
+               name: str = "lc") -> Optional[torch.Tensor]:
+    """``lc`` as float32 [B, n, C_lc] on ``dev``, or None."""
+    if lc is None:
+        return None
+    lc = torch.as_tensor(lc).to(dev, torch.float32)
+    shape = (batch_size, n, config.lc_channels)
+    if tuple(lc.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(lc.shape)}")
+    return lc
+
+
+def _time_major(lc: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[B, n, C] -> the kernels' [n, B, C] stream (row t, step t)."""
+    return None if lc is None else lc.transpose(0, 1).contiguous()
 
 
 def _packed_for(params: Params, config: WaveNetConfig, batch_size: int,
@@ -1073,7 +1213,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
                   temperature: float = 1.0,
                   seed_codes: Optional[torch.Tensor] = None,
                   collect_logits=False, weight_dtype=torch.float32,
-                  prefill: bool = True):
+                  prefill: bool = True, lc=None, lc_prime=None):
     """Generate mu-law codes [B, n_samples] with one decode launch.
 
     ``seed_codes`` [B, T_seed] teacher-forces the start (int codes, or
@@ -1098,23 +1238,44 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
     and a config's ``compute_dtype`` changes neither. Returns ``codes`` or
     ``(codes, logits [B, n_log, Q])``. The device is the parameters'
     device.
+
+    Local conditioning (an LC config; float32 weights only), with the scan
+    sampler's conventions: ``lc`` [B, n_samples, C_lc] conditions the
+    generated samples, ``lc_prime`` [B, T_seed - 1, C_lc] the priming
+    region (default ``lc[:, 0]`` held backward); both are refined here,
+    once, on the raw streams (``maybe_refine_lc``). With ``prefill=True``
+    the prefill forward takes the priming rows and decode step t row t of
+    ``lc``; with ``prefill=False`` step t takes row t of
+    ``[lc_prime | lc]``.
     """
     c = config
-    _check_generation(c)
+    _check_generation(c, lc, weight_dtype)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
+    n_forced = seed_codes.shape[1]
+    lc = _lc_stream(lc, B, n_samples, c, dev)
+    lc_p = None
+    if lc is not None:
+        with torch.no_grad(), _full_float32():
+            lc = maybe_refine_lc(params, c, lc)
+            lc_prime = _lc_stream(lc_prime, B, n_forced - 1, c, dev,
+                                  "lc_prime")
+            lc_p = lc_for_prime(lc, maybe_refine_lc(params, c, lc_prime),
+                                n_forced - 1)
     if prefill:
-        carry = prefill_carry(params, c, seed_codes, gc_ids)
+        carry = prefill_carry(params, c, seed_codes, gc_ids, lc=lc_p)
         forced = carry.last[:, None].contiguous()
         codes, logits = decode(packed, c, carry.ring, carry.causal, forced,
                                n_samples, carry.t_abs, seed, temperature,
-                               collect_logits)
+                               collect_logits, lc=_time_major(lc))
     else:
-        n_forced = seed_codes.shape[1]
+        n_total = n_forced - 1 + n_samples
+        lc_full = (None if lc is None else
+                   torch.cat([lc_p, lc], dim=1)[:, :n_total])
         codes, logits = decode_sequential(
-            packed, c, seed_codes, n_forced - 1 + n_samples, seed,
-            temperature, collect_logits)
+            packed, c, seed_codes, n_total, seed, temperature,
+            collect_logits, lc=_time_major(lc_full))
         codes = codes[:, n_forced - 1:]
     if collect_logits:
         return codes, logits
@@ -1127,7 +1288,8 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
                             temperature: float = 1.0,
                             seed_codes: Optional[torch.Tensor] = None,
                             carry: Optional[StreamSamplerCarry] = None,
-                            weight_dtype=torch.float32):
+                            weight_dtype=torch.float32, lc=None,
+                            lc_prime=None):
     """One segment of generation; returns ``(codes [B, n_samples],
     carry')`` (the counterpart of ``generate_pallas_resumable``).
 
@@ -1141,21 +1303,33 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
     (``decode(next_amp=...)``), so the next segment starts from the value
     one long launch would have used. ``weight_dtype`` as in
     :func:`generate_cuda`.
+
+    ``lc`` [B, n_samples, C_lc] conditions this segment's samples, taken
+    as given (already refined: slice one refined stream across the
+    segments, as the CLI does); ``lc_prime`` conditions the first
+    segment's priming region (default ``lc[:, 0]`` held backward).
     """
     c = config
-    _check_generation(c)
+    _check_generation(c, lc, weight_dtype)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
+    lc = _lc_stream(lc, B, n_samples, c, dev)
     if carry is None:
         seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
-        carry = prefill_carry(params, c, seed_codes, gc_ids)
+        n_prime = seed_codes.shape[1] - 1
+        lc_p = lc_for_prime(lc, _lc_stream(lc_prime, B, n_prime, c, dev,
+                                           "lc_prime"), n_prime)
+        carry = prefill_carry(params, c, seed_codes, gc_ids, lc=lc_p)
     elif seed_codes is not None:
         raise ValueError("seed_codes only apply to the first segment")
+    elif lc_prime is not None:
+        raise ValueError("lc_prime only applies to the first segment")
     forced = carry.last[:, None].to(input_dtype(c)).contiguous()
     next_amp = (torch.empty(B, dtype=torch.float32, device=dev)
                 if c.scalar_input else None)
     codes, _ = decode(packed, c, carry.ring, carry.causal, forced, n_samples,
-                      carry.t_abs, seed, temperature, next_amp=next_amp)
+                      carry.t_abs, seed, temperature, next_amp=next_amp,
+                      lc=_time_major(lc))
     last = next_amp if c.scalar_input else codes[:, -1].contiguous()
     return codes, StreamSamplerCarry(carry.ring, carry.causal,
                                      carry.t_abs + n_samples, last)

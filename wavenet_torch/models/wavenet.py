@@ -16,14 +16,20 @@ dict of weights runs in both packages (see ``wavenet_torch.params``).
     postprocess2              [S, Q]
     postprocess1_bias/2_bias  [S] / [Q]          (if use_biases)
     gc_embedding              [cardinality, G]   (if GC)
+    lc_filter, lc_gate        [L, C_lc, D]       (if LC)
+    lc_up_depth               [C_lc, W]          (if lc_refine_width W)
+    lc_up_point, lc_up_bias   [C_lc, C_lc] / [C_lc]
 
 Every layer keeps the full time axis (causal left padding), and the skip
 projections are deferred to one matmul over all layers' gate outputs, as
 in the JAX package. With ``use_pallas_stack`` (the JAX flag's name) the
 dilated stack runs through a hand-written CUDA kernel pair:
 ``kernels/fused_stack.py`` (``pallas_stack_version`` 3) or one of the
-retired generations in ``experiments/`` (versions 1 and 2). LC (and its
-refinement) is queued in ROADMAP.md.
+retired generations in ``experiments/`` (versions 1 and 2). A local
+conditioning stream ``lc`` [B, T, C_lc] sends the stack to the plain
+route, as in JAX (the kernels take no per-position stream); ``lc[:, t]``
+conditions output position t. Training with LC (``loss_fn(lc=...)``) is
+queued in ROADMAP.md (queue 1, item 2, step 2b).
 
 ``compute_dtype="bfloat16"`` follows the JAX package's two routes. The
 plain route casts the weights, biases, GC embedding and network input to
@@ -116,9 +122,18 @@ def init_params(seed: Union[int, torch.Generator], config: WaveNetConfig,
         p["gc_filter"] = _xavier_uniform(gen, (L, 1, G, D))[:, 0]
         p["gc_gate"] = _xavier_uniform(gen, (L, 1, G, D))[:, 0]
     if c.lc_enabled:
-        raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md queue 1, "
-            "'LC in sampler_decode')")
+        Cl = c.lc_channels
+        p["lc_filter"] = _xavier_uniform(gen, (L, 1, Cl, D))[:, 0]
+        p["lc_gate"] = _xavier_uniform(gen, (L, 1, Cl, D))[:, 0]
+        if c.lc_refine_width:
+            # Identity at init: a delta at the depthwise center tap, an
+            # identity mix and a zero bias (the JAX package's init).
+            w = c.lc_refine_width
+            depth = torch.zeros((Cl, w))
+            depth[:, w // 2] = 1.0
+            p["lc_up_depth"] = depth
+            p["lc_up_point"] = torch.eye(Cl)
+            p["lc_up_bias"] = torch.zeros((Cl,))
     if c.use_biases:
         p["filter_bias"] = torch.zeros((L, D))
         p["gate_bias"] = torch.zeros((L, D))
@@ -166,14 +181,35 @@ def _embed_rows(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return _EmbedRows.apply(table, codes.long())
 
 
-def _check_supported(c: WaveNetConfig, lc) -> None:
+def refine_lc(params: Params, config: WaveNetConfig,
+              lc: torch.Tensor) -> torch.Tensor:
+    """Learned LC upsampling refinement [B, T, C] -> [B, T, C]: a
+    depthwise conv of width ``lc_refine_width`` (zero-padded, centered)
+    then a pointwise C x C mix and a bias, in float32 (the JAX package's
+    ``refine_lc``). The entry points that take a whole stream refine it
+    once, before any slicing."""
+    c = config
+    w = c.lc_refine_width
+    x = lc.to(torch.float32).transpose(1, 2)                 # [B, C, T]
+    depth = params["lc_up_depth"].to(torch.float32)[:, None, :]
+    y = F.conv1d(x, depth, padding=w // 2, groups=c.lc_channels)
+    y = y.transpose(1, 2)                                    # [B, T, C]
+    return (y @ params["lc_up_point"].to(torch.float32)
+            + params["lc_up_bias"].to(torch.float32))
+
+
+def maybe_refine_lc(params: Params, config: WaveNetConfig, lc):
+    """``refine_lc`` when the config refines and a stream is given, else
+    the stream as it is."""
+    if lc is None or not config.lc_refine_width:
+        return lc
+    return refine_lc(params, config, lc)
+
+
+def _check_supported(c: WaveNetConfig) -> None:
     if c.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {c.compute_dtype!r}: float32 or "
                          "bfloat16")
-    if lc is not None or c.lc_enabled:
-        raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md queue 1, "
-            "'LC in sampler_decode')")
 
 
 def _maybe_cast(x: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
@@ -231,24 +267,37 @@ def forward(params: Params, config: WaveNetConfig,
     Output position t is the prediction for input position t+1. With
     ``collect_layer_inputs`` it returns, instead of logits, the list of
     each layer's last ``collect_layer_inputs[l]`` input positions (the
-    sampler prefill's ring contents), in float32.
+    sampler prefill's ring contents), in float32. ``lc`` [B, T, C_lc]:
+    ``lc[:, t]`` conditions output position t (the prediction of input
+    t + 1); it is used as given (``predict_proba`` refines it).
 
     At ``compute_dtype="bfloat16"`` the input and weights are cast to bf16
     (``_maybe_cast``) and the logits come back in float32.
     """
-    _check_supported(config, lc)
+    _check_supported(config)
     current = causal_conv_padded(
         _maybe_cast(network_input.to(torch.float32), config),
         _maybe_cast(params["causal_filter"], config), dilation=1)
     return _dilated_stack(params, config, current, gc_embedding, head_from,
-                          collect_layer_inputs)
+                          collect_layer_inputs, lc)
 
 
 def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
                    gc_embedding: Optional[torch.Tensor], head_from: int = 0,
-                   collect_layer_inputs: Optional[Tuple[int, ...]] = None):
+                   collect_layer_inputs: Optional[Tuple[int, ...]] = None,
+                   lc: Optional[torch.Tensor] = None):
     """Gated dilation layers + deferred skip head + postprocessing."""
-    if c.use_pallas_stack and collect_layer_inputs is None:
+    lc_c = None
+    if lc is not None:
+        if lc.shape[1] != current.shape[1]:
+            raise ValueError(
+                f"lc length {lc.shape[1]} must match the input length "
+                f"{current.shape[1]} (one conditioning vector per input "
+                "position)")
+        lc_c = _maybe_cast(lc.to(torch.float32), c)
+    # The stack kernels take no per-position stream: LC runs the plain
+    # route, as in JAX.
+    if c.use_pallas_stack and collect_layer_inputs is None and lc_c is None:
         if c.filter_width != 2:
             raise NotImplementedError(
                 "use_pallas_stack requires filter_width=2")
@@ -273,6 +322,9 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
         if gc is not None:
             conv_filter = conv_filter + (gc @ p("gc_filter", i))[:, None, :]
             conv_gate = conv_gate + (gc @ p("gc_gate", i))[:, None, :]
+        if lc_c is not None:
+            conv_filter = conv_filter + lc_c @ p("lc_filter", i)
+            conv_gate = conv_gate + lc_c @ p("lc_gate", i)
         if c.use_biases:
             conv_filter = conv_filter + p("filter_bias", i)
             conv_gate = conv_gate + p("gate_bias", i)
@@ -375,7 +427,7 @@ def forward_codes(params: Params, config: WaveNetConfig,
     if c.scalar_input:
         raise ValueError("forward_codes is the mu-law path; scalar input "
                          "uses forward() on raw amplitudes.")
-    _check_supported(c, lc)
+    _check_supported(c)
     w = params["causal_filter"]                              # [fw, Q, R]
     fw = w.shape[0]
     T = codes.shape[1]
@@ -390,7 +442,7 @@ def forward_codes(params: Params, config: WaveNetConfig,
                              current[:, shift:] + tap], dim=1)
     current = _maybe_cast(current, c)
     return _dilated_stack(params, c, current, gc_embedding, head_from,
-                          collect_layer_inputs)
+                          collect_layer_inputs, lc)
 
 
 def predict_proba(params: Params, config: WaveNetConfig,
@@ -399,8 +451,10 @@ def predict_proba(params: Params, config: WaveNetConfig,
                   lc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax probabilities [B, Q] of the sample after the window
     ``waveform`` (int mu-law codes [B, T], or float amplitudes [B, T] in
-    scalar-input mode)."""
+    scalar-input mode). ``lc`` [B, T, C_lc] is refined here
+    (``maybe_refine_lc``); the result is conditioned on ``lc[:, -1]``."""
     gc_emb = embed_gc(params, config, gc_ids) if gc_ids is not None else None
+    lc = maybe_refine_lc(params, config, lc)
     if config.scalar_input:
         logits = forward(params, config,
                          waveform[..., None].to(torch.float32), gc_emb, lc=lc)
@@ -431,8 +485,8 @@ def loss_fn(params: Params, config: WaveNetConfig,
     c = config
     if lc is not None:
         raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md queue 1, "
-            "'LC in sampler_decode')")
+            "training with local conditioning is not ported yet "
+            "(ROADMAP.md queue 1, item 2, step 2b)")
     rf = c.receptive_field
     if audio_batch.dim() == 3:
         audio_batch = audio_batch[..., 0]

@@ -16,9 +16,12 @@ arguments), which a chunked run keeps drawing from, so chunks equal one
 run. Gumbel-argmax over logits/T samples the same distribution as
 ``jax.random.categorical``, from other random numbers. As in the JAX
 package, the sampler computes in float32 whatever the config's
-``compute_dtype`` (``float32_config``). The speculative
-decoding helpers (``extend_state``) and ``generate_sharded`` are queued
-in ROADMAP.md.
+``compute_dtype`` (``float32_config``). Local conditioning follows the
+JAX package's conventions: ``lc_t`` [B, C_lc] conditions the sample a step
+predicts, ``generate`` refines the raw streams once and holds ``lc[:, 0]``
+backward over the priming region unless ``lc_prime`` is given. The
+speculative decoding helpers (``extend_state``) and ``generate_sharded``
+are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 from wavenet_torch.audio import mu_law_decode
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import (
-    Params, embed_gc, forward, forward_codes)
+    Params, embed_gc, forward, forward_codes, maybe_refine_lc)
 
 
 class SamplerState(NamedTuple):
@@ -65,10 +68,6 @@ def _check_config(c: WaveNetConfig) -> None:
         raise NotImplementedError(
             "Incremental generation only implemented for filter_width=2 "
             "(the reference has the same restriction).")
-    if c.lc_enabled:
-        raise NotImplementedError(
-            "local conditioning is not ported yet (ROADMAP.md queue 1, "
-            "item 2)")
 
 
 def float32_config(config: WaveNetConfig) -> WaveNetConfig:
@@ -81,10 +80,12 @@ def float32_config(config: WaveNetConfig) -> WaveNetConfig:
 
 def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
                  x: torch.Tensor,
-                 gc_embedding: Optional[torch.Tensor] = None):
+                 gc_embedding: Optional[torch.Tensor] = None,
+                 lc_t: Optional[torch.Tensor] = None):
     """One incremental network evaluation: ``x`` [B, C_in] (one-hot, or
     the amplitude [B, 1] in scalar mode) -> (new_state, logits [B, Q]).
-    The state's ring is updated in place."""
+    ``lc_t`` [B, C_lc] conditions the sample this step predicts. The
+    state's ring is updated in place."""
     c = config
     _check_config(c)
     window = torch.cat([state.causal_buf, x[:, None, :].to(torch.float32)],
@@ -104,6 +105,9 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
         if gc_embedding is not None:
             conv_f = conv_f + gc_embedding @ params["gc_filter"][i]
             conv_g = conv_g + gc_embedding @ params["gc_gate"][i]
+        if lc_t is not None:
+            conv_f = conv_f + lc_t @ params["lc_filter"][i]
+            conv_g = conv_g + lc_t @ params["lc_gate"][i]
         if c.use_biases:
             conv_f = conv_f + params["filter_bias"][i]
             conv_g = conv_g + params["gate_bias"][i]
@@ -145,15 +149,18 @@ def _code_to_input(code: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
 
 def prime_state(params: Params, config: WaveNetConfig, state: SamplerState,
                 waveform: torch.Tensor,
-                gc_embedding: Optional[torch.Tensor] = None) -> SamplerState:
+                gc_embedding: Optional[torch.Tensor] = None,
+                lc: Optional[torch.Tensor] = None) -> SamplerState:
     """Push a seed waveform [B, T] (int codes, or amplitudes in scalar
     mode) through the queues, discarding the predictions: the sequential
-    oracle of :func:`prefill_state`."""
+    oracle of :func:`prefill_state`. ``lc`` [B, T, C_lc]: row j
+    conditions the (discarded) prediction after input j."""
     with torch.no_grad():
         for t in range(waveform.shape[1]):
             state, _ = sampler_step(params, config, state,
                                     _featurize(waveform[:, t], config),
-                                    gc_embedding)
+                                    gc_embedding,
+                                    None if lc is None else lc[:, t])
     return state
 
 
@@ -180,12 +187,13 @@ def ring_slot_blocks(layer_ins: Sequence[torch.Tensor],
 
 def prefill_state(params: Params, config: WaveNetConfig,
                   waveform: torch.Tensor,
-                  gc_embedding: Optional[torch.Tensor] = None
-                  ) -> SamplerState:
+                  gc_embedding: Optional[torch.Tensor] = None,
+                  lc: Optional[torch.Tensor] = None) -> SamplerState:
     """:func:`prime_state` from zero in one parallel forward: each layer's
-    queue after teacher-forcing ``waveform`` [B, T] is the residual stream
-    entering that layer at its last dilation_l positions. The forward runs
-    at float32 whatever the config's ``compute_dtype``."""
+    queue after teacher-forcing ``waveform`` [B, T] (conditioned by ``lc``
+    [B, T, C_lc], as there) is the residual stream entering that layer at
+    its last dilation_l positions. The forward runs at float32 whatever
+    the config's ``compute_dtype``."""
     c = float32_config(config)
     _check_config(c)
     B, T = waveform.shape
@@ -198,10 +206,11 @@ def prefill_state(params: Params, config: WaveNetConfig,
         if c.scalar_input:
             layer_ins = forward(params, c,
                                 waveform[..., None].to(torch.float32),
-                                gc_embedding, collect_layer_inputs=keep)
+                                gc_embedding, collect_layer_inputs=keep,
+                                lc=lc)
         else:
             layer_ins = forward_codes(params, c, waveform, gc_embedding,
-                                      collect_layer_inputs=keep)
+                                      collect_layer_inputs=keep, lc=lc)
         blocks = [F.pad(w, (0, 0, 0, 0, 0, max_d - d))
                   for d, w in zip(c.dilations,
                                   ring_slot_blocks(layer_ins, c.dilations,
@@ -224,17 +233,20 @@ def generate_codes_resumable(params: Params, config: WaveNetConfig,
                              state: SamplerState, first_input: torch.Tensor,
                              n_samples: int, key: torch.Generator,
                              temperature: float = 1.0,
-                             gc_embedding: Optional[torch.Tensor] = None):
+                             gc_embedding: Optional[torch.Tensor] = None,
+                             lc: Optional[torch.Tensor] = None):
     """Sample ``n_samples`` codes from ``state`` with ``first_input``
     [B, C_in] as the first input; returns (codes [B, n], state,
-    next_input) for a continuation."""
+    next_input) for a continuation. ``lc`` [B, n_samples, C_lc]: row j
+    conditions generated sample j."""
     Q = config.quantization_channels
     x = first_input
     codes = []
     with torch.no_grad():
-        for _ in range(n_samples):
+        for j in range(n_samples):
             state, logits = sampler_step(params, config, state, x,
-                                         gc_embedding)
+                                         gc_embedding,
+                                         None if lc is None else lc[:, j])
             code = torch.argmax(logits / temperature
                                 + sample_gumbel(key, (x.shape[0], Q)), dim=-1)
             codes.append(code.to(torch.int32))
@@ -248,12 +260,12 @@ def generate_codes(params: Params, config: WaveNetConfig,
                    state: SamplerState, first_input: torch.Tensor,
                    n_samples: int, key: torch.Generator,
                    temperature: float = 1.0,
-                   gc_embedding: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   gc_embedding: Optional[torch.Tensor] = None,
+                   lc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample ``n_samples`` mu-law codes autoregressively: [B, n]."""
     codes, _, _ = generate_codes_resumable(
         params, config, state, first_input, n_samples, key, temperature,
-        gc_embedding)
+        gc_embedding, lc)
     return codes
 
 
@@ -275,11 +287,30 @@ def unseeded_prime(config: WaveNetConfig, batch_size: int,
     return silence, first
 
 
+def lc_for_prime(lc: Optional[torch.Tensor],
+                 lc_prime: Optional[torch.Tensor],
+                 n_prime: int) -> Optional[torch.Tensor]:
+    """Conditioning of the priming region [B, n_prime, C_lc]: ``lc_prime``
+    as given, else ``lc[:, 0]`` held backward in time (the JAX package's
+    ``_lc_for_prime``)."""
+    if lc is None:
+        return None
+    if lc_prime is not None:
+        if lc_prime.shape[1] != n_prime:
+            raise ValueError(f"lc_prime length {lc_prime.shape[1]} != "
+                             f"priming length {n_prime}")
+        return lc_prime
+    B, _, C = lc.shape
+    return lc[:, :1].expand(B, n_prime, C)
+
+
 def generate(params: Params, config: WaveNetConfig, n_samples: int,
              key: torch.Generator, batch_size: int = 1,
              gc_ids: Optional[torch.Tensor] = None,
              temperature: float = 1.0,
-             seed_codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+             seed_codes: Optional[torch.Tensor] = None,
+             lc: Optional[torch.Tensor] = None,
+             lc_prime: Optional[torch.Tensor] = None) -> torch.Tensor:
     """End-to-end generation -> mu-law codes [B, n_samples].
 
     Without a seed the queues are primed with receptive_field-1 silence
@@ -287,15 +318,27 @@ def generate(params: Params, config: WaveNetConfig, n_samples: int,
     with ``seed_codes`` [B, T] (int codes, or amplitudes in scalar mode)
     the first T-1 prime the queues and the last is the first input. The
     tensors live on ``key``'s device.
+
+    Local conditioning: ``lc`` [B, n_samples, C_lc], one row per generated
+    sample, required by an LC config; ``lc_prime`` [B, n_prime, C_lc]
+    conditions the priming region (default ``lc[:, 0]`` held backward).
+    Both are refined here, once (``maybe_refine_lc``).
     """
     c = config
     _check_config(c)
+    if c.lc_enabled and lc is None:
+        raise ValueError(
+            "config has lc_channels set: pass lc=[B, n_samples, "
+            f"{c.lc_channels}] (zeros for unconditioned sampling)")
+    lc = maybe_refine_lc(params, c, lc)
+    lc_prime = maybe_refine_lc(params, c, lc_prime)
     gc_emb = (embed_gc(params, c, torch.as_tensor(gc_ids, device=key.device))
               if gc_ids is not None else None)
     if seed_codes is None:
         prime, first = unseeded_prime(c, batch_size, key)
     else:
         prime, first = seed_codes[:, :-1], seed_codes[:, -1]
-    state = prefill_state(params, c, prime, gc_emb)
+    lc_p = lc_for_prime(lc, lc_prime, prime.shape[1])
+    state = prefill_state(params, c, prime, gc_emb, lc_p)
     return generate_codes(params, c, state, _featurize(first, c), n_samples,
-                          key, temperature, gc_emb)
+                          key, temperature, gc_emb, lc)

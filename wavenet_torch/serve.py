@@ -13,16 +13,23 @@ the JAX package's params saved with ``np.savez`` load unchanged).
 API (stdlib-only server, JSON in / WAV or JSON out):
   GET  /healthz         -> {"status": "ok", "sampler", "sample_rate", "config"}
   POST /generate        {"samples": 16000, "gc_id": 3, "temperature": 0.9,
-                         "seed": 7, "format": "wav" | "codes"}
+                         "seed": 7, "lc": [[...], ...], "lc_hop": 200,
+                         "lc_upsample": "repeat" | "linear",
+                         "format": "wav" | "codes"}
   POST /generate_batch  {"samples": 16000, "batch": 64 | "gc_ids": [...],
                          "temperature": 0.9, "seed": 7,
                          "format": "codes" | "wav_b64"}
       B streams from one decode launch. Bounds: batch <= --max_batch
       (default 1024); "codes" responses are capped at CODES_RESPONSE_CAP
-      total ints.
+      total ints. No "lc" here, as in the JAX server.
 
-Local conditioning and speculative decoding are not ported yet
-(ROADMAP.md) and raise NotImplementedError at start-up.
+Local conditioning (a params file with ``lc_channels``): ``lc`` is a
+[frames, lc_channels] array. With ``lc_hop`` the frames are upsampled to
+sample rate first (``wavenet_torch.lc.upsample_lc``); without it they must
+already be at sample rate. The stream is cropped or edge-extended to the
+request, then to its bucket, and decoded by the LC modes of
+``sampler_cluster`` and ``sampler_decode``. Speculative decoding is not
+ported yet (ROADMAP.md) and raises NotImplementedError at start-up.
 """
 
 from __future__ import annotations
@@ -62,21 +69,23 @@ class GenerationService:
         self.sample_rate = raw["sample_rate"]
         self.config = WaveNetConfig.from_json(
             raw, gc_channels=gc_channels, gc_cardinality=gc_cardinality)
-        if self.config.lc_enabled:
-            raise NotImplementedError(
-                "local conditioning is not ported yet (ROADMAP.md, 'LC in "
-                "sampler_decode')")
         if draft_params_npz:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue "
                 "1, item 8)")
         self.params = load_npz(params_npz, self.device)
         self.max_batch = max_batch
-        self.sampler_name = sampler_name(self.device)
+        self.sampler_name = sampler_name(self.device,
+                                         lc=self.config.lc_enabled)
         self._lock = threading.Lock()
         if warm_samples:
+            # An LC model warms on a zero stream.
+            warm_lc = (np.zeros((warm_samples, self.config.lc_channels),
+                                np.float32)
+                       if self.config.lc_enabled else None)
             self.generate(warm_samples,
-                          gc_id=0 if self.config.gc_enabled else None)
+                          gc_id=0 if self.config.gc_enabled else None,
+                          lc=warm_lc)
 
     @staticmethod
     def bucket_samples(n: int) -> int:
@@ -88,7 +97,7 @@ class GenerationService:
         return b
 
     def _decode(self, n_samples: int, batch: int, gc_ids, temperature,
-                seed) -> np.ndarray:
+                seed, lc=None) -> np.ndarray:
         from wavenet_torch.audio import mu_law_decode_np
         from wavenet_torch.kernels.sampler import generate_cuda
 
@@ -99,21 +108,35 @@ class GenerationService:
             codes = generate_cuda(
                 self.params, self.config, n_bucket, seed=seed,
                 batch_size=batch, gc_ids=gc_ids, temperature=temperature,
-                prefill=True)
+                prefill=True, lc=lc)
             codes = codes[:, :n_samples].cpu().numpy()
         return mu_law_decode_np(codes, self.config.quantization_channels)
 
     def generate(self, n_samples: int, gc_id: Optional[int] = None,
                  temperature: float = 1.0, seed: int = 0,
                  lc: Optional[np.ndarray] = None) -> np.ndarray:
-        """-> float waveform [n_samples] in [-1, 1]."""
+        """-> float waveform [n_samples] in [-1, 1].
+
+        ``lc``: sample-rate conditioning [n_samples, lc_channels] (the
+        handler upsamples frames), required by an LC model; it is
+        edge-extended to the bucket, as the request is.
+        """
+        from wavenet_torch.kernels.sampler import check_lc
+        from wavenet_torch.lc import fit_lc_to_length
+
+        c = self.config
+        check_lc(c, lc)
         if lc is not None:
-            raise ValueError("this model was not trained with local "
-                             "conditioning (no lc_channels in config)")
+            lc = np.asarray(lc, np.float32)
+            if lc.ndim != 2 or lc.shape != (n_samples, c.lc_channels):
+                raise ValueError(f"lc must be [{n_samples}, "
+                                 f"{c.lc_channels}], got {lc.shape}")
+            lc = torch.as_tensor(fit_lc_to_length(
+                lc, self.bucket_samples(n_samples)))[None]
         gc_ids = None
-        if gc_id is not None and self.config.gc_enabled:
+        if gc_id is not None and c.gc_enabled:
             gc_ids = torch.tensor([int(gc_id)], dtype=torch.int64)
-        return self._decode(n_samples, 1, gc_ids, temperature, seed)[0]
+        return self._decode(n_samples, 1, gc_ids, temperature, seed, lc)[0]
 
     def generate_batch(self, n_samples: int, batch: Optional[int] = None,
                        gc_ids: Optional[list] = None,
@@ -121,7 +144,12 @@ class GenerationService:
                        seed: int = 0) -> np.ndarray:
         """-> float waveforms [B, n_samples] in [-1, 1] from one decode
         launch. ``batch`` or ``len(gc_ids)`` sets B; one ``seed`` covers
-        the launch and rows draw independent Philox streams."""
+        the launch and rows draw independent Philox streams. Local
+        conditioning is a single-stream feature, refused here as in the
+        JAX server."""
+        if self.config.lc_enabled:
+            raise ValueError("/generate_batch takes no local conditioning; "
+                             "send LC requests to /generate")
         if batch is not None:
             batch = int(batch)
         if gc_ids is not None:
@@ -196,10 +224,27 @@ def make_handler(service: GenerationService):
                 return
             try:
                 req, n = self._request()
+                lc = None
+                if req.get("lc") is not None:
+                    from wavenet_torch.lc import fit_lc_to_length, upsample_lc
+
+                    lc = np.asarray(req["lc"], np.float32)
+                    if lc.ndim == 1:
+                        lc = lc[:, None]
+                    if lc.ndim != 2:
+                        raise ValueError(
+                            f"lc must be [frames, channels], got shape "
+                            f"{lc.shape}")
+                    hop = req.get("lc_hop")
+                    if hop is not None:
+                        lc = upsample_lc(
+                            lc, int(hop),
+                            mode=req.get("lc_upsample", "repeat"))
+                    lc = fit_lc_to_length(lc, n)
                 wave = service.generate(
                     n, gc_id=req.get("gc_id"),
                     temperature=float(req.get("temperature", 1.0)),
-                    seed=int(req.get("seed", 0)), lc=req.get("lc"))
+                    seed=int(req.get("seed", 0)), lc=lc)
             except (ValueError, KeyError, TypeError,
                     json.JSONDecodeError) as e:
                 self._json(400, {"error": str(e)})

@@ -42,8 +42,8 @@ import torch.nn.functional as F
 from wavenet_torch import resolve_device, tools
 from wavenet_torch.kernels import _launch
 from wavenet_torch.kernels.sampler import (
-    PackedSampler, gumbel_noise, pack_sampler_weights, ring_offsets,
-    zero_state)
+    KERNEL_FIELDS, PackedSampler, gumbel_noise, pack_sampler_weights,
+    ring_offsets, zero_state)
 from wavenet_torch.models.config import WaveNetConfig, paper_config
 
 B = 1
@@ -259,7 +259,7 @@ def b1_bisect(packed: PackedSampler, config: WaveNetConfig, mode: str,
                         device=dev)
     err = lib.b1_bisect_run(
         MODES.index(mode), int(wt == torch.bfloat16),
-        *(getattr(packed, k).data_ptr() for k in PackedSampler._fields),
+        *(getattr(packed, k).data_ptr() for k in KERNEL_FIELDS),
         meta.data_ptr(), ring.data_ptr(), causal.data_ptr(),
         forced.data_ptr(), codes.data_ptr(),
         logits.data_ptr() if logits is not None else None, L, R, D, S, Q,
