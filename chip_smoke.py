@@ -39,9 +39,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    seconds of a request spent in the kernel (``decode_s``).
 5. Training (the main path of training), through the fused stack's two
    kernel pairs (``fused_stack_mma``: 3xTF32 on the tensor cores, routed
-   at the paper/gc width; ``fused_stack``: FP32 cores, the narrower
-   widths): each forward and backward against the plain versions at the
-   paper and gc configs, b8 x (receptive field + 16,000) audio, and
+   at the paper/gc width R = D = 32 and the wide width 64; ``fused_stack``:
+   FP32 cores, the narrower widths): each forward and backward against
+   the plain versions at the paper and gc configs, b8 x (receptive field
+   + 16,000) audio, ``fused_stack_mma`` alone at the wide config (b8, the
+   causal layer of uniform amplitudes), and
    ``fused_stack`` also at the tiny config (R = D = 16), b2 x (receptive
    field + 4,000), the shape of its train CLI run below (forward
    within 1e-4 * max|ref| + 1e-5, gradients within 2e-3 * max|ref| +
@@ -49,8 +51,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    input by subtraction), bitwise-equal repeated calls, timed in
    turns beside their bounds under the FP32 and the 3xTF32 peak with the
    device ms of a call by kernel (the route must take the faster in each
-   direction); one gc train step
-   fused against plain, then
+   direction); one gc and one wide train step
+   fused against plain (loss within 1e-5, gradients within the
+   tolerances above; the device time by kernel family), then
    ``python -m wavenet_torch.cli.train --use_pallas_stack`` on a
    synthesised 109-speaker corpus, decoded by the native C++ library
    (``wavenet_torch.data.native``): 8 steps with finite, falling loss and
@@ -59,7 +62,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    launches of each counted apart), a ``GenerationService`` that serves
    from the last checkpoint, and 2 steps of the tiny config on
    ``fused_stack``. bf16 (``compute_dtype="bfloat16"``): the bf16 mode of
-   ``fused_stack_mma`` at gc b8, each forward layer from the kernel's own
+   ``fused_stack_mma`` at gc and wide b8, each forward layer from the kernel's own
    input to it against the plain bf16 layer (worst point within 2**-5,
    mean within 1e-4 of max |ref|), and the whole forward and backward
    against the plain bf16 versions on the scale of their distance from
@@ -70,7 +73,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the float32 step (loss within 1e-3 relative, gradients within 0.25 of
    max |ref|) with its device breakdown; and the gc train CLI at
    ``--compute_dtype bfloat16 --use_pallas_stack``, 8 steps, the bf16
-   mode launched every step (its ``kernels`` rows' launches).
+   mode launched every step (its ``kernels`` rows' launches). Last, the
+   wide config's train CLI (scalar input, R = D = 64), 4 steps each at
+   float32 and bfloat16, with ``--use_pallas_stack`` (``fused_stack_mma``
+   at width 64 every step, launches counted from 0; the f32 run resumed
+   for a fifth step) and without it, finite and falling losses, the
+   rates (``train_cli_wide`` rows).
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -217,7 +225,12 @@ NARROW_STEPS, NARROW_BATCH, NARROW_SAMPLES = 2, 2, 4000
 # Phase 5's stack shapes: config, batch, samples and the kernels timed.
 STACK_CASES = (("paper", TRAIN_BATCH, TRAIN_SAMPLES, STACK_ROUTES),
                ("gc", TRAIN_BATCH, TRAIN_SAMPLES, STACK_ROUTES),
-               ("tiny", NARROW_BATCH, NARROW_SAMPLES, ("simt",)))
+               ("tiny", NARROW_BATCH, NARROW_SAMPLES, ("simt",)),
+               ("wide", TRAIN_BATCH, TRAIN_SAMPLES, ("mma",)))
+# Phase 5's wide train CLI runs (R = D = 64, scalar input: fused_stack_mma
+# at width 64): steps and steps a dispatch of each, fused and plain, f32
+# and bf16.
+WIDE_STEPS, WIDE_STEPS_PER_DISPATCH = 4, 2
 # Each layer's (or batch row's) slice of a gradient, against its own
 # max |ref|; the measured worst over whole tensors is ~1e-6.
 SLICE_RTOL = 1e-4
@@ -792,16 +805,23 @@ def stack_inputs(c, params, rng, B: int = TRAIN_BATCH,
                  samples: int = TRAIN_SAMPLES):
     """The stack's input and packed weights for a train batch of B rows of
     ``samples`` (the train CLI's shape): the causal layer of random codes,
-    as ``forward_codes`` computes it."""
+    as ``forward_codes`` computes it, or of uniform(-1, 1) amplitudes for
+    scalar input, as ``forward`` does."""
     import torch
     import torch.nn.functional as F
     from wavenet_torch.kernels.fused_stack import pack_stack_weights
     from wavenet_torch.models.wavenet import embed_gc
+    from wavenet_torch.ops.conv import causal_conv_padded
     T = c.receptive_field + samples - 1
     codes, gc_ids = setup(c, B, rng, T, 0)
     w = params["causal_filter"]
-    x = F.embedding(codes.long(), w[1])
-    x[:, 1:] += F.embedding(codes[:, :-1].long(), w[0])
+    if c.scalar_input:
+        amp = torch.as_tensor(rng.uniform(-1, 1, (B, T, 1)).astype("float32"),
+                              device="cuda")
+        x = causal_conv_padded(amp, w, dilation=1)
+    else:
+        x = F.embedding(codes.long(), w[1])
+        x[:, 1:] += F.embedding(codes[:, :-1].long(), w[0])
     gc_emb = None if gc_ids is None else embed_gc(params, c, gc_ids)
     w_fg, wd, add, bd = pack_stack_weights(params, c, gc_emb, B)
     return (x.contiguous(), w_fg.contiguous(), wd.contiguous(),
@@ -815,7 +835,8 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
     FP32 and the 3xTF32 peak, with the device ms of one call by kernel; the
     route must take the faster. At the paper and gc configs, b8, both
     kernels; at the tiny config, at the tiny train CLI run's shape, the
-    simt kernel that the route gives it."""
+    simt kernel that the route gives it; at the wide config (R = D = 64),
+    b8, the mma kernel, the only one built at that width."""
     import numpy as np
     import torch
     from wavenet_torch.kernels import fused_stack as fs
@@ -974,20 +995,22 @@ def teacher_forced_bf16(row, c16, args, y_k, fg_k, z_k):
         x = (x + zk @ wd_r[l]) + bd[l]
     err, rel, ok = within(y_k, x, FWD_RTOL, FWD_ATOL)
     row["layer_y_max_rel_err"] = rel
-    check(ok, f"gc bf16: y differs from the output rebuilt from the "
+    where = f"{row['config']} bf16"
+    check(ok, f"{where}: y differs from the output rebuilt from the "
           f"kernel's own z records by {err} ({rel} of max |ref|)")
     for name, (mx, mean, l) in worst.items():
         row[f"layer_max_rel_err_{name}"] = mx
         row[f"layer_mean_rel_err_{name}"] = mean
         check(mx <= BF16_LAYER_MAX_RTOL and mean <= BF16_LAYER_MEAN_RTOL,
-              f"gc bf16 layer {l}: the kernel's {name} record differs from "
+              f"{where} layer {l}: the kernel's {name} record differs from "
               f"the plain bf16 layer on its own input by {mx} of max |ref| "
               f"at worst ({mean} on average at worst)")
 
 
-def phase_stack_bf16(c, params, rng, gpu):
+def phase_stack_bf16(name, c, params, rng, gpu):
     """fused_stack_mma's bf16 mode (TPU kernel 5 at kernel_dtype bf16) at
-    gc b8 x (receptive field + 16,000): each forward layer on its own
+    the ``name`` config (gc: R = D = 32; wide: 64), b8 x (receptive field +
+    16,000): each forward layer on its own
     input (``teacher_forced_bf16``), and forward and backward against the
     plain bf16 versions on the scale of bf16's own distance from the
     plain float32 versions (BF16_MEAN_RATIO, BF16_MAX_RATIO); bitwise-equal
@@ -1004,7 +1027,7 @@ def phase_stack_bf16(c, params, rng, gpu):
 
     c16 = dataclasses.replace(c, compute_dtype="bfloat16")
     check(fs.stack_kernel_plan(c16) == "mma", "the bf16 route does not "
-          "take fused_stack_mma at the gc width")
+          f"take fused_stack_mma at the {name} width")
     B = TRAIN_BATCH
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     args = stack_inputs(c, params, rng, B, TRAIN_SAMPLES)
@@ -1022,7 +1045,7 @@ def phase_stack_bf16(c, params, rng, gpu):
     y32, fg32 = out32[0], out32[1]
     grads32 = fs.fused_stack_backward_reference(y32, dy, fg32, dz32, w_fg, wd,
                                                 bd, c)
-    row = {"phase": "train_stack_bf16", "config": "gc", "batch": B,
+    row = {"phase": "train_stack_bf16", "config": name, "batch": B,
            "positions": T, "kernel": "mma_bf16", "gpu": gpu}
     out_k = [fs.forward(*args, c16) for _ in range(2)]
     grads_k = [fs.backward(y, dy, fg, dz, w_fg, wd, bd, c16)
@@ -1038,7 +1061,7 @@ def phase_stack_bf16(c, params, rng, gpu):
                         zip(GRAD_NAMES, grads_k[0], grads_p, grads32))}
     for kind, pair in (("forward", out_k), ("backward", grads_k)):
         check(all(torch.equal(a, b) for a, b in zip(*pair)),
-              f"gc bf16: two {kind} calls on the same inputs differ")
+              f"{name} bf16: two {kind} calls on the same inputs differ")
     row["bitwise_repeat"] = True
     del out_k, grads_k, grads32
 
@@ -1071,7 +1094,7 @@ def phase_stack_bf16(c, params, rng, gpu):
             f"{kind}_device_ms_by_kernel_bf16":
                 trace["by_kernel"] if trace else
                 "not measured (no device events)"})
-        results[kind] = dict(config="gc", batch=B, positions=T,
+        results[kind] = dict(config=name, batch=B, positions=T,
                              max_abs_err=worst[kind], ms=ms["bf16"],
                              f32_mode_ms=ms["f32"], plain_ms=ms_p,
                              bound_ms=bound, bound_by=by)
@@ -1147,9 +1170,10 @@ def device_breakdown(fn):
                 wall_ms=wall_ms, idle_share=1.0 - busy_us / 1e3 / wall_ms)
 
 
-def phase_train_step(c, params, rng, gpu):
-    """One gc b8 train step with the fused stack against the plain one:
-    the loss and every gradient, and the step times."""
+def phase_train_step(name, c, params, rng, gpu):
+    """One b8 train step of the ``name`` config (gc; wide: the stack at
+    width 64) with the fused stack against the plain one: the loss and
+    every gradient, the step times and the device breakdown."""
     import dataclasses
     import torch
     from wavenet_torch import train_lib as tl
@@ -1161,8 +1185,8 @@ def phase_train_step(c, params, rng, gpu):
                             device="cuda")
     audio = 0.5 * torch.sin(2 * 3.14159265 * freqs * t) + 0.05 * torch.as_tensor(
         rng.randn(B, n).astype("float32"), device="cuda")
-    gc_ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
-                             device="cuda")
+    gc_ids = (torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                              device="cuda") if c.gc_enabled else None)
     from wavenet_torch.kernels import fused_stack as fs
     out = {}
     by_before = (dict(fs.forward.launches_by), dict(fs.backward.launches_by))
@@ -1196,17 +1220,17 @@ def phase_train_step(c, params, rng, gpu):
                     (fs.forward.launches_by, fs.backward.launches_by))}
     routed = fs.stack_kernel_plan(c)
     check(set(stack_by["fwd"]) == {routed} and set(stack_by["bwd"]) == {routed},
-          f"train step: the fused stack ran {stack_by}, not the routed "
-          f"{routed}")
+          f"{name} train step: the fused stack ran {stack_by}, not the "
+          f"routed {routed}")
     (lf, gf, ms_f, bd_f), (lp, gp, ms_p, bd_p) = out[True], out[False]
     check(abs(lf - lp) <= 1e-5 * abs(lp),
-          f"train step: fused loss {lf} differs from plain {lp}")
+          f"{name} train step: fused loss {lf} differs from plain {lp}")
     worst = 0.0
     for k in sorted(gp):
         err, rel, ok = within(gf[k], gp[k], GRAD_RTOL, GRAD_ATOL)
-        check(ok, f"train step: gradient {k} differs (max |d| {err})")
+        check(ok, f"{name} train step: gradient {k} differs (max |d| {err})")
         worst = max(worst, rel)
-    emit({"phase": "train_step", "config": "gc", "batch": B,
+    emit({"phase": "train_step", "config": name, "batch": B,
           "audio_samples": n, "loss_fused": lf, "loss_plain": lp,
           "max_grad_err_over_max_ref": worst, "step_ms_fused": ms_f,
           "stack_launches_by": stack_by,
@@ -1327,12 +1351,14 @@ def run_cli(argv):
     return buf.getvalue()
 
 
-def phase_train_cli(c, gpu):
+def phase_train_cli(c, wide, gpu):
     """The main path of training: the train CLI with --use_pallas_stack
     (the routed stack kernel), its resume and a server from its last
     checkpoint; then a short run of the tiny config (R = D = 16:
     ``fused_stack.cu``); then the gc run at --compute_dtype bfloat16
-    (``fused_stack_mma``'s bf16 mode)."""
+    (``fused_stack_mma``'s bf16 mode); last, the ``wide`` config (R = D =
+    64, scalar input) at float32 and at bfloat16, fused (``fused_stack_mma``
+    at width 64; the f32 run also resumed) and plain, in turns."""
     import numpy as np
     from wavenet_torch import train_lib as tl
     from wavenet_torch.kernels import fused_stack as fs
@@ -1511,7 +1537,101 @@ def phase_train_cli(c, gpu):
           / c.sample_rate / bsec,
           "audio_sec_per_s_f32": aps, "stack_launches_by": bf16_by,
           "gpu": gpu})
-    return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by},
+
+    # The wide config: fused_stack_mma at width 64 every fused step, each
+    # run's launches counted from 0; the plain route beside it in the same
+    # process (a rate of its own, not a yardstick of the kernel).
+    check(fs.stack_kernel_plan(wide) == "mma", "the route does not send "
+          "R = D = 64 to fused_stack_mma")
+    wfile = os.path.join(tmp, "wide_params.json")
+    with open(wfile, "w") as f:
+        json.dump(wide.to_json_dict(), f)
+    wide_by = {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (True, False):
+            label = f"{dtype}_{'fused' if fused else 'plain'}"
+            wlogdir = os.path.join(tmp, f"wide_{label}")
+            wargv = ["--data_dir", corpus, "--wavenet_params", wfile,
+                     "--logdir", wlogdir, "--batch_size", str(TRAIN_BATCH),
+                     "--sample_size", str(TRAIN_SAMPLES),
+                     "--checkpoint_every", str(WIDE_STEPS_PER_DISPATCH),
+                     "--steps_per_dispatch", str(WIDE_STEPS_PER_DISPATCH),
+                     "--compute_dtype", dtype, "--seed", "0",
+                     "--device", "cuda"] + (["--use_pallas_stack"]
+                                            if fused else [])
+            fs.forward.launches_by.clear()             # this run's path
+            fs.backward.launches_by.clear()
+            t0 = time.perf_counter()
+            out = run_cli(wargv + ["--num_steps", str(WIDE_STEPS)])
+            wseconds = time.perf_counter() - t0
+            by = {"fwd": dict(fs.forward.launches_by),
+                  "bwd": dict(fs.backward.launches_by)}
+            key = "mma" if dtype == "float32" else "mma_bf16"
+            want = {key: WIDE_STEPS} if fused else {}
+            check(all(v == want for v in by.values()),
+                  f"the wide {label} train CLI ran the stack kernels {by}, "
+                  f"not {want}")
+            wlosses = [float(ln.split("loss = ")[1].split(",")[0])
+                       for ln in out.splitlines() if ln.startswith("step ")]
+            check(len(wlosses) == WIDE_STEPS
+                  and all(x == x and abs(x) != float("inf") for x in wlosses)
+                  and wlosses[-1] < wlosses[0],
+                  f"wide {label} train CLI losses {wlosses}: not "
+                  f"{WIDE_STEPS} finite, falling values")
+            check(os.path.isdir(os.path.join(wlogdir, f"ckpt-{WIDE_STEPS}")),
+                  f"wide {label}: no ckpt-{WIDE_STEPS}")
+            with open(os.path.join(wlogdir, "metrics.jsonl")) as f:
+                wsec = [r["value"] for r in map(json.loads, f)
+                        if r["tag"] == "sec_per_step"][-1]
+            row = {"phase": "train_cli_wide", "config": "wide",
+                   "compute_dtype": dtype, "use_pallas_stack": fused,
+                   "batch": TRAIN_BATCH, "sample_size": TRAIN_SAMPLES,
+                   "steps": WIDE_STEPS, "losses": wlosses,
+                   "seconds": wseconds, "sec_per_step_last": wsec,
+                   "audio_sec_per_s": TRAIN_BATCH * (wide.receptive_field
+                                                     + TRAIN_SAMPLES)
+                   / wide.sample_rate / wsec,
+                   "stack_launches_by": by, "gpu": gpu}
+            if fused:
+                wide_by[dtype] = by
+            if fused and dtype == "float32":   # the resume, counted apart
+                fs.forward.launches_by.clear()
+                fs.backward.launches_by.clear()
+                out = run_cli(wargv + ["--num_steps", str(WIDE_STEPS + 1)])
+                check(f"Restored model from step {WIDE_STEPS}" in out
+                      and f"step {WIDE_STEPS + 1} - loss = " in out,
+                      "the wide rerun did not restore and train")
+                check(fs.forward.launches_by == {"mma": 1}
+                      and fs.backward.launches_by == {"mma": 1},
+                      "the wide resume's stack launches: "
+                      f"{dict(fs.forward.launches_by)}, "
+                      f"{dict(fs.backward.launches_by)}")
+                row["resumed_to"] = WIDE_STEPS + 1
+            emit(row)
+    # A width the stack kernels are not built for (R = D = 128) raises on
+    # the card, naming its ROADMAP item, and launches nothing.
+    import dataclasses
+    bfile = os.path.join(tmp, "w128_params.json")
+    with open(bfile, "w") as f:
+        json.dump(dataclasses.replace(wide, residual_channels=128,
+                                      dilation_channels=128).to_json_dict(), f)
+    n = (fs.forward.launches, fs.backward.launches)
+    try:
+        run_cli(["--data_dir", corpus, "--wavenet_params", bfile,
+                 "--logdir", os.path.join(tmp, "w128"), "--batch_size", "1",
+                 "--sample_size", "4000", "--num_steps", "1",
+                 "--use_pallas_stack", "--seed", "0", "--device", "cuda"])
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    check("a4" in refused and (fs.forward.launches,
+                               fs.backward.launches) == n,
+          f"the train CLI at R = D = 128 with --use_pallas_stack did not "
+          f"raise naming ROADMAP a4 ({refused!r})")
+    emit({"phase": "train_cli_unbuilt_width", "residual_channels": 128,
+          "refused": refused, "gpu": gpu})
+    return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by,
+             "wide": wide_by["float32"], "wide_bf16": wide_by["bfloat16"]},
             os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
 
 
@@ -3003,18 +3123,22 @@ def main() -> int:
           f"serving launched {launches['by_kernel']}: not the cluster "
           "kernel (b1, b64) and the tiles kernel (b512)")
 
-    # Phase 5: training, the main path of training.
-    stack = phase_stack_kernels(cfgs, params, rng, gpu)
-    stack_bf16 = phase_stack_bf16(cfgs["gc"], params["gc"], rng, gpu)
-    phase_train_step(cfgs["gc"], params["gc"], rng, gpu)
-    phase_train_step_bf16(cfgs["paper"], params["paper"], rng, gpu)
-    train_launches, gc_ckpt, gc_pfile = phase_train_cli(cfgs["gc"], gpu)
-
-    # Phase 6: generation, kernel 4's route and the generate CLI.
-    gen_cfgs = {"paper": cfgs["paper"], "gc": cfgs["gc"],
-                "wide": wide_config()}
+    # Phase 5: training, the main path of training (the wide config's
+    # through fused_stack_mma at width 64 too).
+    gen_cfgs = dict(cfgs, wide=wide_config())
     gen_params = dict(params, wide=seeded_params(gen_cfgs["wide"], 2,
                                                  "cuda"))
+    stack = phase_stack_kernels(gen_cfgs, gen_params, rng, gpu)
+    stack_bf16 = {name: phase_stack_bf16(name, gen_cfgs[name],
+                                         gen_params[name], rng, gpu)
+                  for name in ("gc", "wide")}
+    for name in ("gc", "wide"):
+        phase_train_step(name, gen_cfgs[name], gen_params[name], rng, gpu)
+    phase_train_step_bf16(cfgs["paper"], params["paper"], rng, gpu)
+    train_launches, gc_ckpt, gc_pfile = phase_train_cli(
+        cfgs["gc"], gen_cfgs["wide"], gpu)
+
+    # Phase 6: generation, kernel 4's route and the generate CLI.
     seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
     wide_timed = phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"],
                                     rng, gpu)
@@ -3133,7 +3257,8 @@ def main() -> int:
     # at gc b8 (the main run), fused_stack at the tiny config's b2 run. Its
     # bound is at the peak of its products' type (FP32 cores, or 3xTF32 on
     # the tensor cores). The simt rows also carry phase 5's gc b8 timing,
-    # where the route's two kernels are compared.
+    # where the route's two kernels are compared; the mma rows its wide b8
+    # timing (width 64) and the wide f32 CLI run's launches.
     for k, src, run in (("simt", "fused_stack", "narrow"),
                         ("mma", "fused_stack_mma", "main")):
         for kind, line in (("fwd", 105), ("bwd", 276)):
@@ -3158,13 +3283,23 @@ def main() -> int:
                             g["bound_ms"], "plain_ms_gc_b8": g["plain_ms"],
                             "max_abs_err_gc_b8": g["max_abs_err"],
                             "mma_ms_gc_b8": stack[("gc", kind, "mma")]["ms"]})
+            else:   # width 64: phase 5's wide b8 and the wide CLI run
+                w = stack[("wide", kind, k)]
+                row.update({"ms_wide_b8": w["ms"],
+                            "bound_ms_wide_b8": w["bound_ms"],
+                            "bound_by_wide_b8": w["bound_by"],
+                            "plain_ms_wide_b8": w["plain_ms"],
+                            "max_abs_err_wide_b8": w["max_abs_err"],
+                            "launches_wide": train_launches["wide"][kind]
+                            .get(k, 0)})
             kernels.append(row)
     # fused_stack_mma's bf16 mode (kernel 5 at kernel_dtype bf16): phase 5's
-    # gc b8 check and timing, the launches of the bf16 train CLI run; its
-    # bound at the bf16 peak with 2-byte records. library_ms is null for
-    # the reason above.
+    # gc b8 check and timing, the launches of the bf16 train CLI run, and
+    # the same at wide b8 and the wide bf16 CLI run (width 64); its bound
+    # at the bf16 peak with 2-byte records. library_ms is null for the
+    # reason above.
     for kind, line in (("fwd", 105), ("bwd", 276)):
-        m = stack_bf16[kind]
+        m, w = stack_bf16["gc"][kind], stack_bf16["wide"][kind]
         kernels.append({
             "name": f"fused_stack_mma_bf16_{kind}", "route": "cuda",
             "source": "wavenet_torch/csrc/fused_stack_mma.cu",
@@ -3176,6 +3311,13 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "f32_mode_ms": m["f32_mode_ms"],
+            "ms_wide_b8": w["ms"], "bound_ms_wide_b8": w["bound_ms"],
+            "bound_by_wide_b8": w["bound_by"],
+            "plain_ms_wide_b8": w["plain_ms"],
+            "f32_mode_ms_wide_b8": w["f32_mode_ms"],
+            "max_abs_err_wide_b8": w["max_abs_err"],
+            "launches_wide": train_launches["wide_bf16"][kind].get(
+                "mma_bf16", 0),
             "library_ms": None,
             "unit": "per call (one train step's stack)", "gpu": gpu})
     # The bf16 modes (phase 6b): times pinned at each case in this run,

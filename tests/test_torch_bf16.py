@@ -250,7 +250,8 @@ def test_stack_cost_counts_bf16_records_at_two_bytes():
     assert tflops.H100_BF16_FLOPS == 989e12
 
 
-@pytest.mark.parametrize("W,want", [(32, "mma"), (16, None), (64, None)])
+@pytest.mark.parametrize("W,want", [(32, "mma"), (16, None), (64, "mma"),
+                                    (128, None)])
 def test_stack_kernel_plan_bf16(W, want):
     c = TConfig(dilations=(1, 2), residual_channels=W, dilation_channels=W,
                 skip_channels=16, quantization_channels=32,

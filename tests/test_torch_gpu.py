@@ -279,8 +279,11 @@ def _stack_inputs(W, dilations, B, T, seed=0):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
                                device="cuda")
 
-    args = (rn(B, T, W, scale=0.5), rn(L, 2 * W, 2 * W, scale=0.2),
-            rn(L, W, W, scale=0.2), rn(L, B, 2 * W, scale=0.1),
+    # Above W = 32 the weights shrink with the fan-in, as an init does, so
+    # that the activations stay at W = 32's size (see WIDE_SLICE_RTOL).
+    ws = 0.2 * min(1.0, (32 / W) ** 0.5)
+    args = (rn(B, T, W, scale=0.5), rn(L, 2 * W, 2 * W, scale=ws),
+            rn(L, W, W, scale=ws), rn(L, B, 2 * W, scale=0.1),
             rn(L, 1, W, scale=0.1))
     cot = (rn(B, T, W), rn(B, T, L * W))
     return c, args, cot
@@ -393,7 +396,8 @@ def test_fused_stack_rejects_bad_inputs(setup):
         fs.forward(x, w_fg, wd, add, bd, wide)
     with pytest.raises(ValueError, match="kernel"):
         fs.forward(x, w_fg, wd, add, bd, c, kernel="wgmma")
-    # The mma kernel is built for R == D == 32 only; no quiet switch.
+    # The mma kernel is built for R == D in (32, 64) only; no quiet
+    # switch.
     c16, args16, (dy16, dz16) = _stack_inputs(16, (1, 2), 2, 64)
     n = fs.forward.launches
     with pytest.raises(NotImplementedError, match="fused_stack_mma"):
@@ -477,6 +481,128 @@ def test_fused_stack_bf16_matches_reference(setup, dilations, B, T):
         _hold_bf16(got, want, want32, name)
     again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+# Width 64 in float32: the products sum 128 terms. With the W = 32 cases'
+# weight scale, fg reaches ~20-40 over 6-10 layers and its float32 sums
+# round by ~1e-4 (the kernel lies as far from the plain version as from
+# the 3xTF32 plain version ``mma3_matmul``), so the weights shrink with the
+# fan-in above W = 32 (``_stack_inputs``). Even so, a gradient element near
+# 0, rebuilt by subtraction, misses the elementwise atol (1 of 114,688 at
+# 1.4x). So the width-64 cases are held as chip_smoke.py's phase 5 holds
+# its full-size ones: within rtol * max |ref| + atol of the tolerances
+# above, and each batch row's (dx), layer's (weights) or (layer, row)'s
+# (dadd) slice within WIDE_SLICE_RTOL of its own max |ref|, so a fault
+# confined to one slice does not hide under the whole tensor's scale.
+WIDE_SLICE_RTOL = 1e-4
+_GRAD_LEADS = (1, 1, 1, 2, 1)
+
+
+def _hold_scaled(got, want, tol, lead, name):
+    err = (got - want).abs()
+    assert torch.isfinite(got).all(), name
+    assert err.max() <= tol["rtol"] * want.abs().max() + tol["atol"], (
+        name, err.max().item(), want.abs().max().item())
+    if lead:
+        n = int(np.prod(want.shape[:lead]))
+        rel = (err.reshape(n, -1).amax(1)
+               / want.reshape(n, -1).abs().amax(1)).nan_to_num(nan=0.0)
+        assert rel.max() <= WIDE_SLICE_RTOL, (name, rel.max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("gc", [False, True], ids=["no_gc", "gc"])
+def test_fused_stack_mma_width64(setup, bf16, gc):
+    """fused_stack_mma at R = D = 64 (the wide width: in f32 its weights
+    stay float pairs split as each fragment loads, and (B) holds one
+    stage) against the plain versions in both modes, with ``add`` per
+    batch row (gc) or one for all rows (no gc), T not a multiple of the
+    64-row tile, a dilation of a whole tile and one of several tiles, 10
+    layers; ``launches_by`` counts the mode that ran; repeats are bitwise
+    equal."""
+    c32, args, (dy, dz) = _stack_inputs(64, (1, 64, 2, 33, 512, 7, 128, 4,
+                                             256, 16), 2, 1100)
+    if not gc:
+        add = args[3]
+        args = args[:3] + (add[:, :1].expand_as(add).contiguous(),) + args[4:]
+    c = _bf16(c32) if bf16 else c32
+    key = "mma_bf16" if bf16 else "mma"
+    assert fs.stack_kernel_plan(c) == "mma"
+    f0, b0 = fs.forward.launches_by[key], fs.backward.launches_by[key]
+    out = fs.forward(*args, c)
+    ref = fs.fused_stack_forward_reference(*args, c)
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    torch.cuda.synchronize()
+    assert fs.forward.launches_by[key] == f0 + 1
+    for name, got, want, want32 in zip(("y", "fg", "z"), out, ref, ref32):
+        assert got.dtype == want.dtype, name
+        if bf16:
+            _hold_bf16(got, want, want32, name)
+        else:
+            _hold_scaled(got, want, FWD_TOL, 0, name)
+    again = fs.forward(*args, c)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    assert fs.backward.launches_by[key] == b0 + 1
+    for name, got, want, want32, lead in zip(
+            ("dx", "dw_fg", "dwd", "dadd", "dbd"), grads, gref, gref32,
+            _GRAD_LEADS):
+        assert got.dtype == torch.float32, name
+        if bf16:
+            _hold_bf16(got, want, want32, name)
+        else:
+            _hold_scaled(got, want, GRAD_TOL, lead, name)
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+    # The autograd op at width 64 (the route the model takes) against the
+    # wrappers it calls.
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y, z = fs.fused_stack3(*leaves, c)
+    (y * dy).sum().add((z.float() * dz).sum()).backward()
+    want = fs.backward(y.detach(), dy, out[1], dz.to(z.dtype), w_fg, wd,
+                       bd, c)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
+    """No fallback at the widths the kernels lack: "simt" pinned at 64,
+    and every kernel at 128 or R != D, raise and launch nothing."""
+    def cfg(R, D):
+        c = WaveNetConfig(dilations=(1, 2), residual_channels=R,
+                          dilation_channels=D, skip_channels=16,
+                          quantization_channels=32)
+        return _bf16(c) if bf16 else c
+
+    c64, args, _ = _stack_inputs(64, (1, 2), 2, 64)
+    n = (fs.forward.launches, fs.backward.launches)
+    with pytest.raises(NotImplementedError,
+                       match="a3" if bf16 else "not built for R=64"):
+        fs.forward(*args, cfg(64, 64), kernel="simt")
+    for R, D in ((128, 128), (64, 32)):
+        c = cfg(R, D)
+        rng = np.random.RandomState(0)
+        x = torch.as_tensor(rng.randn(2, 64, R).astype(np.float32),
+                            device="cuda")
+        w = (torch.zeros(2, 2 * R, 2 * D, device="cuda"),
+             torch.zeros(2, D, R, device="cuda"),
+             torch.zeros(2, 2, 2 * D, device="cuda"),
+             torch.zeros(2, 1, R, device="cuda"))
+        with pytest.raises(NotImplementedError, match="a4"):
+            fs.stack_kernel_plan(c)
+        for kernel in ("auto", "mma"):
+            with pytest.raises(NotImplementedError, match="a4"):
+                fs.forward(x, *w, c, kernel=kernel)
+    assert (fs.forward.launches, fs.backward.launches) == n
 
 
 @pytest.mark.gpu

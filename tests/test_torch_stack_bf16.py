@@ -20,6 +20,23 @@ to one bf16 ulp. Measured: the two agree to float32 rounding (y within
 round the same values at the same points and only the order of float32
 sums differs. The CUDA kernel's bf16 mode is held against these plain
 versions on the card (``tests/test_torch_gpu.py``).
+
+At the wide width (R = D = 64, 4 layers, gc) the products sum 128 terms,
+and the other float32 order flips a bf16 rounding in a small share of
+each layer's records (layer 0's fg records too, where both start from
+the same x), and every later layer carries a flip on: the port's own
+plain bf16 stack summed in float64 lies about as far from itself summed
+in float32 as it lies from JAX's, up to a quarter of the bf16 gap at the
+worst point of y. So there (1) each layer is held on the JAX kernel's
+own input to it, rebuilt from its bf16 z records, with no flip carried:
+its fg and z records within 2**-5 of the layer's max |ref| at the worst
+point and 1e-4 of it on average (``chip_smoke.py``'s per-layer rule: a
+flip of a bf16 tap moves a small fg by more than its own ulp), and y
+within the float32 forward tolerance of the rebuilt output; and (2) the
+whole outputs and gradients on the scale of the bf16 gap, as the card's
+tests hold two bf16 sum orders: the mean error within WIDE_MEAN_RATIO of
+the mean gap, the worst within WIDE_MAX_RATIO of the worst gap.
+An indexing or rounding fault lies O(1) of the values away.
 """
 
 import dataclasses
@@ -43,12 +60,24 @@ torch.set_num_threads(1)
 
 B, T = 2, 150   # several 64-row tiles of the JAX kernel, the last ragged
 GAP_FRACTION = 0.1      # of JAX's own bf16-vs-float32 gap
+WIDE_MEAN_RATIO, WIDE_MAX_RATIO = 0.5, 1.5
+LAYER_MAX_RTOL, LAYER_MEAN_RTOL = 2.0 ** -5, 1e-4
 NAMES = ("dx", "dw_fg", "dwd", "dadd", "dbd")
 
 
-def _setup(gc: bool):
+# The JAX kernel tests' small config, and the wide width R = D = 64 with a
+# tap of a whole 64-row tile (gc only: each interpret run takes seconds).
+WIDTHS = {"small": {}, "w64": dict(dilations=(1, 64, 2, 33),
+                                   residual_channels=64,
+                                   dilation_channels=64)}
+CASES = pytest.mark.parametrize("gc,width", [(False, "small"),
+                                             (True, "small"), (True, "w64")],
+                                ids=["False", "True", "w64"])
+
+
+def _setup(gc: bool, width: str = "small"):
     jcfg = small_cfg(gc_channels=4 if gc else None,
-                     gc_cardinality=4 if gc else None)
+                     gc_cardinality=4 if gc else None, **WIDTHS[width])
     jp = {k: np.asarray(v)
           for k, v in jinit_params(jax.random.PRNGKey(0), jcfg).items()}
     rng = np.random.RandomState(0)
@@ -75,9 +104,46 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
     return 2.0 ** (e - 7)
 
 
-@pytest.mark.parametrize("gc", [False, True])
-def test_forward_matches_jax_bf16_kernel(gc):
-    jcfg, c, x, jpack, tpack, _ = _setup(gc)
+def _hold(width, name, got, w16, w32):
+    """The port's bf16 output against JAX's (``w16``), on the scale of
+    JAX's own bf16-vs-float32 gap (``w32``): the small config's rule, or
+    the wide width's (the module docstring says why)."""
+    err, gap = np.abs(got - w16), np.abs(w16 - w32)
+    assert gap.max() > 1e-3 * np.abs(w32).max(), name   # bf16 is in play
+    if width == "small":
+        assert err.max() <= GAP_FRACTION * gap.max(), name
+    else:
+        assert err.mean() <= WIDE_MEAN_RATIO * gap.mean(), name
+        assert err.max() <= WIDE_MAX_RATIO * gap.max(), name
+
+
+def _hold_layers(c, x, tpack, y16, fg16, z16):
+    """Each layer of the plain bf16 forward on the JAX kernel's own input
+    to it, rebuilt from JAX's bf16 z records as the kernel adds them: the
+    fg and z records within LAYER_MAX_RTOL of the layer's max |ref| at the
+    worst point and LAYER_MEAN_RTOL on average, y within the float32
+    forward tolerance of the rebuilt output."""
+    w_fg, wd, add, bd = tpack
+    D = c.dilation_channels
+    xl = torch.from_numpy(x)
+    for l, d in enumerate(c.dilations):
+        one = dataclasses.replace(c, dilations=(d,))
+        _, fg, z = tfs.fused_stack_forward_reference(
+            xl, w_fg[l:l + 1], wd[l:l + 1], add[l:l + 1], bd[l:l + 1], one)
+        for name, got, want in (("fg", fg, fg16[..., 2 * D * l:2 * D * (l + 1)]),
+                                ("z", z, z16[..., D * l:D * (l + 1)])):
+            err = np.abs(got.float().numpy() - want)
+            scale = np.abs(want).max()
+            assert err.max() <= LAYER_MAX_RTOL * scale, (name, l)
+            assert err.mean() <= LAYER_MEAN_RTOL * scale, (name, l)
+        zr = torch.from_numpy(np.array(z16[..., D * l:D * (l + 1)]))
+        xl = (xl + zr @ wd[l].to(torch.bfloat16).float()) + bd[l]
+    np.testing.assert_allclose(xl.numpy(), y16, rtol=1e-4, atol=1e-5)
+
+
+@CASES
+def test_forward_matches_jax_bf16_kernel(gc, width):
+    jcfg, c, x, jpack, tpack, _ = _setup(gc, width)
     L, D = c.num_layers, c.dilation_channels
     want = {}
     for dt in (jnp.float32, jnp.bfloat16):
@@ -94,16 +160,16 @@ def test_forward_matches_jax_bf16_kernel(gc):
     for name, got, w16, w32 in zip(("y", "fg", "z"), (y, fg, z),
                                    want[jnp.bfloat16], want[jnp.float32]):
         got = got.float().numpy()
-        gap = np.abs(w16 - w32).max()
-        assert gap > 1e-3 * np.abs(w32).max(), name   # bf16 is in play
-        assert np.abs(got - w16).max() <= GAP_FRACTION * gap, name
-        if name != "y":   # the records: at most one bf16 ulp apart
+        _hold(width, name, got, w16, w32)
+        if name != "y" and width == "small":   # one bf16 ulp apart
             assert np.all(np.abs(got - w16) <= _bf16_ulp(w16)), name
+    if width != "small":
+        _hold_layers(c, x, tpack, *want[jnp.bfloat16])
 
 
-@pytest.mark.parametrize("gc", [False, True])
-def test_backward_matches_jax_bf16_kernel(gc):
-    jcfg, c, x, jpack, tpack, rng = _setup(gc)
+@CASES
+def test_backward_matches_jax_bf16_kernel(gc, width):
+    jcfg, c, x, jpack, tpack, rng = _setup(gc, width)
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     cy = rng.randn(B, T, R).astype(np.float32)
     cz = rng.randn(B, T, L * D).astype(np.float32)
@@ -126,9 +192,7 @@ def test_backward_matches_jax_bf16_kernel(gc):
                                     want[jnp.float32]):
         got = leaf.grad
         assert got.dtype == torch.float32, name
-        gap = np.abs(w16 - w32).max()
-        assert gap > 1e-3 * np.abs(w32).max(), name
-        assert np.abs(got.numpy() - w16).max() <= GAP_FRACTION * gap, name
+        _hold(width, name, got.numpy(), w16, w32)
 
 
 def test_plain_bf16_backward_reads_the_records_in_bf16():

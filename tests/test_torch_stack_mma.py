@@ -12,6 +12,9 @@ held against the plain versions on the card (``tests/test_torch_gpu.py``).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,11 +50,11 @@ def _width(W, **kw):
 
 
 @pytest.mark.parametrize("W,want", [(8, "simt"), (16, "simt"), (32, "mma"),
-                                    (64, None)])
+                                    (64, "mma"), (128, None)])
 def test_stack_kernel_plan(W, want):
     c = _width(W)
     if want is None:
-        with pytest.raises(NotImplementedError, match="R == D"):
+        with pytest.raises(NotImplementedError, match="R == D.*a4"):
             tfs.stack_kernel_plan(c)
     else:
         assert tfs.stack_kernel_plan(c) == want
@@ -142,10 +145,11 @@ def _setup(gc: bool, seed: int, **kw):
 
 
 # The JAX kernel tests' small config (5 layers, R = D = 8) and the kernel's
-# own width, R = D = 32, with a tap of a whole 64-row tile.
-WIDTHS = {"small": {}, "w32": dict(dilations=(1, 64, 2, 33),
-                                   residual_channels=32,
-                                   dilation_channels=32)}
+# own widths, R = D = 32 (paper, gc) and 64 (wide), with a tap of a whole
+# 64-row tile.
+WIDTHS = {"small": {}}
+WIDTHS.update({f"w{W}": dict(dilations=(1, 64, 2, 33), residual_channels=W,
+                             dilation_channels=W) for W in (32, 64)})
 
 
 @pytest.mark.parametrize("width", sorted(WIDTHS))
@@ -239,3 +243,16 @@ def test_cpu_runs_the_plain_versions_whatever_kernel_says(kernel, W):
     assert counts == (tfs.forward.launches, tfs.backward.launches,
                       dict(tfs.forward.launches_by),
                       dict(tfs.backward.launches_by))
+
+
+def test_stack_times_tool_refuses_the_cpu():
+    """``python -m wavenet_torch.tools.stack_times`` times each checkout
+    in a process of its own on the card; without one it fails rather than
+    time anything else."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavenet_torch.tools.stack_times", "--trees",
+         root, "--reps", "1"], capture_output=True, text=True, cwd=root,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "needs a CUDA GPU" in proc.stderr

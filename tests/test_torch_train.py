@@ -26,6 +26,7 @@ from wavenet_tpu.train_lib import make_train_step as jmake_train_step
 from wavenet_tpu.utils import flops as jflops
 from wavenet_torch.data.prefetch import DevicePrefetcher
 from wavenet_torch.data.reader import AudioReader
+from wavenet_torch.kernels.fused_stack import stack_kernel_plan
 from wavenet_torch.models import wavenet as tw
 from wavenet_torch.models.config import WaveNetConfig as TConfig
 from wavenet_torch.ops.optimizers import optimizer_factory as toptimizers
@@ -117,6 +118,38 @@ def test_retired_stack_loss_matches_jax(version):
           for k, v in params_from_numpy(w, "cpu").items()}
     l_t, _ = tw.loss_fn(tp, tcfg, torch.from_numpy(audio),
                         torch.from_numpy(ids), 0.01)
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5)
+    assert set(g_j) == set(tp)
+    for k in g_j:
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(g_j[k]),
+                                   rtol=2e-4, atol=1e-5, err_msg=k)
+
+
+# The wide config's shape (scalar input, initial_filter_width 32, R = D =
+# 64, S = 1024) cut to 4 layers and S = 128: the width fused_stack_mma
+# gained for the wide config's training.
+WIDE = dict(dilations=(1, 2, 4, 8), residual_channels=64,
+            dilation_channels=64, skip_channels=128, quantization_channels=256,
+            use_biases=True, scalar_input=True, initial_filter_width=32)
+
+
+def test_wide_stack_loss_matches_jax():
+    """``loss_fn`` with ``use_pallas_stack`` at the wide width (the fused
+    stack's plain versions on the CPU, the shape ``stack_kernel_plan``
+    sends to ``fused_stack_mma``) against the JAX ``loss_fn`` on its plain
+    XLA route at float32: the loss within 1e-5 relative and every gradient
+    within the file's tolerances."""
+    jcfg = JConfig(**WIDE)
+    tcfg = TConfig(**WIDE, use_pallas_stack=True)
+    assert stack_kernel_plan(tcfg) == "mma"
+    w = _weights(jcfg, 7)
+    audio = _audio(jcfg, 2, 40, 7)
+    (l_j, _), g_j = _JAX_GRAD({k: jnp.asarray(v) for k, v in w.items()},
+                              jcfg, jnp.asarray(audio), None, 0.01)
+    tp = {k: v.requires_grad_(True)
+          for k, v in params_from_numpy(w, "cpu").items()}
+    l_t, _ = tw.loss_fn(tp, tcfg, torch.from_numpy(audio), None, 0.01)
     l_t.backward()
     np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5)
     assert set(g_j) == set(tp)

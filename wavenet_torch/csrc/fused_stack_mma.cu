@@ -1,10 +1,13 @@
 // fused_stack_mma: the whole dilated stack of a training step, forward and
-// backward, on Hopper's tensor cores, for the paper/gc width R = D = 32
-// (filter_width 2), in two modes of one source, the precision a template
-// parameter:
+// backward, on Hopper's tensor cores (filter_width 2), for the widths
+// R = D = 32 (the paper and gc configs) and R = D = 64 (wide), the width a
+// template parameter, in two modes of one source, the precision a template
+// parameter too:
 // - f32 (float32 parity, 3xTF32; records float32): fused_stack_mma_*_f32;
 // - bf16 (bf16 operands, float32 accumulation and residual; fg and z
 //   records bf16): fused_stack_mma_*_bf16.
+// The C entry points dispatch on (r, d); any other width returns
+// kUnsupportedWidth.
 //
 // Replaces, beside the FP32-core kernels of fused_stack.cu (which keep
 // widths 8 and 16, float32 only), the TPU (Pallas) kernel pair of the JAX
@@ -31,18 +34,22 @@
 //
 // What bounds it. At gc b8 x 19,071 rows the forward does 4.7e10 FLOPs
 // and moves ~1.8 GB in f32 (~1.0 GB in bf16: 2-byte records), the backward
-// 1.0e11 and ~1.8 GB (~1.1 GB). On the FP32 cores (67 TFLOP/s) both were
-// bound by operations, and fused_stack.cu's products by shared-memory
-// loads (4-12 loads per 16 FMAs). The TPU kernel multiplies through
-// mxu_dot: at float32, Precision.HIGHEST, a multi-pass bf16 product exact
-// to float32, whose counterpart here is 3xTF32 (tf32_mma.cuh): 495 / 3 =
-// 165 TFLOP/s, which leaves the forward bound by bytes (0.54 ms) and the
-// backward by operations (0.63 ms); at bf16 one native pass, here one bf16
-// mma.sync (bf16_mma.cuh, 989 TFLOP/s), which leaves both bound by bytes.
-// A launch per layer also moves each layer's x in and out (and, backward,
-// da and the rebuilt x between (A) and (B)) through L2 and HBM, ~100-150
-// MB a launch at gc b8 in f32: that traffic, not the products, is what
-// this design waits on (PERF.md §6).
+// 1.0e11 and ~1.8 GB (~1.1 GB); at wide b8 x 19,100 rows (R = D = 64) four
+// times the products and twice the bytes: forward 1.9e11 FLOPs and 3.6 GB
+// (1.8 GB in bf16), backward 4.1e11 and 3.6 GB (1.9 GB). On the FP32 cores
+// (67 TFLOP/s) both were bound by operations, and fused_stack.cu's
+// products by shared-memory loads (4-12 loads per 16 FMAs). The TPU kernel
+// multiplies through mxu_dot: at float32, Precision.HIGHEST, a multi-pass
+// bf16 product exact to float32, whose counterpart here is 3xTF32
+// (tf32_mma.cuh): 495 / 3 = 165 TFLOP/s, which leaves the gc forward bound
+// by bytes (0.54 ms) and its backward by operations (0.63 ms), and both
+// wide directions by operations (1.14 and 2.50 ms); at bf16 one native
+// pass, here one bf16 mma.sync (bf16_mma.cuh, 989 TFLOP/s), which leaves
+// every one bound by bytes (wide: 0.55 and 0.56 ms). A launch per layer
+// also moves each layer's x in and out (and, backward, da and the rebuilt
+// x between (A) and (B)) through L2 and HBM, ~100-150 MB a launch at gc b8
+// in f32: that traffic, not the products, is what this design waits on at
+// R = D = 32 (PERF.md §6).
 //
 // Design.
 // - f32: every product runs as mma.sync m16n8k8 TF32 in three passes
@@ -57,9 +64,21 @@
 //   8-byte load a lane per 16x8 fragment); activations (float32 tiles, or
 //   the bf16 fg and da tiles) are rounded and paired along k as their
 //   fragments load, by hand for the tiles read transposed.
+// - Width 64 (Cfg below decides each from the shared-memory budget, 227 KB
+//   a block): every tile and product is twice as wide and the products'
+//   operands four times as many, so one block an SM. In f32 the split
+//   weights do not fit (the forward's w_fg alone is 128 KB as hi/lo): the
+//   weights are kept as float pairs in fragment order (8 bytes a lane) and
+//   split as each fragment loads, and (B), whose two stages of float32 da
+//   and x tiles are 200 KB, holds one stage (the next tile loads after the
+//   current one's products). Each warp owns four times the accumulators of
+//   width 32 in the weight-gradient products (dw_fg: two m-tiles by eight
+//   n-tiles, 64 floats a thread).
 // - Persistent blocks: each block walks a fixed chunk of 64-row tiles of
-//   one batch row (chunk_tiling), so a layer's weights are read ~240 times
-//   a layer, not once per tile (2,384 times at gc b8).
+//   one batch row (chunk_tiling, as many blocks an SM as the forward's and
+//   (A)'s shared memory allows, at most 2), so a layer's weights are read
+//   ~240 times a layer at width 32, not once per tile (2,384 times at gc
+//   b8).
 // - cp.async double-buffers the next tile's rows (the current rows, the
 //   past tap x(t-d), the future gradient tap da(t+d), the fg slice),
 //   zero-filling rows outside [0, T), while the current tile multiplies.
@@ -70,6 +89,11 @@
 // - Eight warps a block; warp w owns rows 16 (w / 2) of the tile and half
 //   of each product's columns (the filter and gate columns a thread holds
 //   pair up, so the gate is computed in registers).
+//
+// Registers a thread (ptxas -v for sm_90a, chip_smoke.py's build lines), no
+// spills in any instantiation: forward / (A) / (B) at width 32 f32 112 /
+// 95 / 133, bf16 69 / 114 / 83; at width 64 f32 136 / 168 / 218, bf16
+// 120 / 129 / 152.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,20 +101,20 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bf16_mma.cuh"
 #include "stack_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int R = 32, D = 32;          // the one compiled width
-constexpr int K1 = 2 * R, N1 = 2 * D;  // the fg product: [TM, K1] @ [K1, N1]
 constexpr int TM = 64;                 // rows (time steps of one batch row) a tile
 constexpr int NW = 8;                  // warps a block
 constexpr int NT = 32 * NW;
-constexpr int S32 = R + 4;             // row strides of 32- and 64-wide float
-constexpr int S64 = N1 + 4;            //   tiles: 4 (mod 32) words
-static_assert(R == D && S32 % 4 == 0 && S64 % 4 == 0, "layout");
+// Shared memory a block may opt in to, and an SM's (each resident block
+// also takes 1 KB of the SM's), on the H100.
+constexpr int kBlockSmem = 232448, kSmSmem = 233472, kBlockReserve = 1024;
 
 // The two modes. KS: the k of one mma.sync; W: a lane's part of a weight
 // fragment; WPER: weights a W holds; A: a lane's part of an A fragment;
@@ -111,9 +135,64 @@ struct Bf16 {
   using Rec = __nv_bfloat16;
 };
 
-// Row stride of a 64-wide tile of T elements: 16 bytes of padding a row.
-template <typename T>
-constexpr int stride64() { return N1 + 16 / (int)sizeof(T); }
+// Row stride of a tile N elements wide of T: 16 bytes of padding a row.
+template <int N, typename T>
+constexpr int padded() { return N + 16 / (int)sizeof(T); }
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The layout of mode P at width R (= D): tile strides, the form of the
+// weights in shared memory, each launch's shared memory in bytes
+// (16-byte aligned parts), (B)'s stages and the forward's and (A)'s
+// blocks an SM.
+template <class P, int R_>
+struct Cfg {
+  static constexpr int R = R_, D = R_;
+  static constexpr int K1 = 2 * R, N1 = 2 * D;  // the fg product: [TM, K1] @ [K1, N1]
+  using Rec = typename P::Rec;
+  static constexpr int SR = padded<R, float>();     // R-wide float tiles (x, z)
+  static constexpr int S2D = padded<N1, float>();   // 2D-wide float tiles
+  static constexpr int SRec = padded<N1, Rec>();    // fg / da record tiles
+  static constexpr int kTR = (int)sizeof(float) * TM * SR;
+  static constexpr int kT2D = (int)sizeof(float) * TM * S2D;
+  static constexpr int kTRec = (int)sizeof(Rec) * TM * SRec;
+  // Forward tiles: 2 stages of (x(t - d), x(t)); the z tile.
+  static constexpr int kFwdTiles = 2 * (2 * kTR) + kTR;
+  // Weights in the operands' form (f32: split hi/lo; bf16: rounded pairs)
+  // where the forward's fit, else as float pairs (f32 only), split as
+  // each fragment loads.
+  static constexpr bool kSplit =
+      (int)sizeof(typename P::W) * (K1 * N1 + D * R) / P::WPER + kFwdTiles <=
+      kBlockSmem;
+  static_assert(kSplit || !P::kBf16, "bf16 weights always fit");
+  using WS = std::conditional_t<kSplit, typename P::W, float2>;
+  static constexpr int kWfg = (int)sizeof(WS) * K1 * N1 / P::WPER;
+  static constexpr int kWdr = (int)sizeof(WS) * D * R / P::WPER;
+  static constexpr int kWb = (int)sizeof(WS) * N1 * R / P::WPER;
+  // Forward: w_fg, wd and the tiles.
+  static constexpr int kFwd = kWfg + kWdr + kFwdTiles;
+  // (A): wd, wd^T; 2 stages of (dx_{l+1}, the fg slice); z; da; and in
+  // bf16 the float32 (tanh f, sigmoid g) tile (f32 converts in place).
+  static constexpr int kAStage = kTR + kTRec;
+  static constexpr int kA =
+      2 * kWdr + 2 * kAStage + kTR + kT2D + (P::kBf16 ? kT2D : 0);
+  // (B): the two transposed halves of w_fg; stages of (da(t), da(t + d),
+  // x(t - d), x(t)), two where they fit, else one.
+  static constexpr int kBStage = 2 * kTRec + 2 * kTR;
+  static constexpr int kBStages =
+      2 * kWb + 2 * kBStage <= kBlockSmem ? 2 : 1;
+  static constexpr int kB = 2 * kWb + kBStages * kBStage;
+  // Blocks an SM of the forward and (A) (at most 2; (B) holds one).
+  static constexpr int kPerSm =
+      cmin(2, kSmSmem / (cmax(kFwd, kA) + kBlockReserve));
+  static_assert(kFwd <= kBlockSmem && kA <= kBlockSmem &&
+                kB <= kBlockSmem && kPerSm >= 1, "shared memory");
+  static_assert(kWfg % 16 == 0 && kWdr % 16 == 0 && kWb % 16 == 0 &&
+                kTR % 16 == 0 && kT2D % 16 == 0 && kTRec % 16 == 0,
+                "16-byte aligned parts");
+  static_assert(R % 16 == 0 && R <= 64 && 64 + N1 <= NT, "thread maps");
+};
 
 __device__ __forceinline__ float tof(float v) { return v; }
 __device__ __forceinline__ float tof(__nv_bfloat16 v) {
@@ -161,6 +240,21 @@ __device__ __forceinline__ void stage_weights(uint4* dst, F at) {
   }
 }
 
+// f32 where the split weights do not fit: the same fragment order, lane l
+// holding the float pair {b0, b1}, split as the fragment loads (operand).
+template <int K, int N, typename F>
+__device__ __forceinline__ void stage_weights(float2* dst, F at) {
+  constexpr int NTN = N / 8, IT = K * N / 2 / NT;
+  static_assert(K * N / 2 == IT * NT, "weight staging");
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int lane = i & 31, nt = (i >> 5) % NTN, ks = (i >> 5) / NTN;
+    const int k = ks * 8 + (lane & 3), n = nt * 8 + (lane >> 2);
+    dst[i] = make_float2(at(k, n), at(k + 4, n));
+  }
+}
+
 // bf16: for k-step ks (16) and n-tile nt, lane l holds {b0, b1} =
 // {B[k, k+1][n], B[k+8, k+9][n]}, k = ks*16 + 2 (l%4), n = nt*8 + l/4.
 template <int K, int N, typename F>
@@ -184,9 +278,19 @@ __device__ __forceinline__ void stage_weights(uint2* dst, F at) {
                                             pack_bf16(v[it][2], v[it][3]));
 }
 
-template <int NTN, typename W>
-__device__ __forceinline__ W wfrag(const W* w, int ks, int nt, int lane) {
-  return w[(ks * NTN + nt) * 32 + lane];
+// A stored weight fragment as the mma operand.
+__device__ __forceinline__ uint4 operand(uint4 w) { return w; }
+__device__ __forceinline__ uint2 operand(uint2 w) { return w; }
+__device__ __forceinline__ uint4 operand(float2 w) {
+  uint4 b;
+  tf32_split(w.x, b.x, b.z);
+  tf32_split(w.y, b.y, b.w);
+  return b;
+}
+
+template <int NTN, typename WS>
+__device__ __forceinline__ auto wfrag(const WS* w, int ks, int nt, int lane) {
+  return operand(w[(ks * NTN + nt) * 32 + lane]);
 }
 
 // A fragment of rows m0.. and columns k0.. of a row-major tile.
@@ -314,53 +418,28 @@ __device__ __forceinline__ void load_rows(E* dst, const E* src, size_t base,
   }
 }
 
-// Shared memory of each launch, in bytes (16-byte aligned parts).
-template <class P>
-struct Smem {
-  using W = typename P::W;
-  using Rec = typename P::Rec;
-  static constexpr int SR = stride64<Rec>();   // fg / da tile stride
-  static constexpr int kWfg = (int)sizeof(W) * K1 * N1 / P::WPER;
-  static constexpr int kWdr = (int)sizeof(W) * D * R / P::WPER;
-  static constexpr int kWb = (int)sizeof(W) * N1 * R / P::WPER;
-  static constexpr int kT32 = (int)sizeof(float) * TM * S32;
-  static constexpr int kT64 = (int)sizeof(float) * TM * S64;
-  static constexpr int kTR = (int)sizeof(Rec) * TM * SR;
-  // Forward: w_fg, wd; 2 stages of (x(t - d), x(t)); the z tile.
-  static constexpr int kFwd = kWfg + kWdr + 2 * (2 * kT32) + kT32;
-  // (A): wd, wd^T; 2 stages of (dx_{l+1}, the fg slice); z; da; and in
-  // bf16 the float32 (tanh f, sigmoid g) tile (f32 converts in place).
-  static constexpr int kAStage = kT32 + kTR;
-  static constexpr int kA = 2 * kWdr + 2 * kAStage + kT32 + kT64 +
-                            (P::kBf16 ? kT64 : 0);
-  // (B): the two transposed halves of w_fg; 2 stages of (da(t), da(t + d),
-  // x(t - d), x(t)).
-  static constexpr int kBStage = 2 * kTR + 2 * kT32;
-  static constexpr int kB = 2 * kWb + 2 * kBStage;
-  static_assert(kWfg % 16 == 0 && kWdr % 16 == 0 && kTR % 16 == 0 &&
-                kT32 % 16 == 0 && (SR * (int)sizeof(Rec)) % 16 == 0,
-                "16-byte aligned parts");
-};
-
 // ---------------------------------------------------------------------------
 // Forward: one layer. grid (chunks, B).
 // ---------------------------------------------------------------------------
 
-template <class P>
-__global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
+template <class P, int R>
+__global__ void __launch_bounds__(NT, (Cfg<P, R>::kPerSm)) fwd_mma_kernel(
     const float* __restrict__ x_in, float* __restrict__ x_out,
     typename P::Rec* __restrict__ fg_out, typename P::Rec* __restrict__ z_out,
     const float* __restrict__ w_fg, const float* __restrict__ wd,
     const float* __restrict__ add, const float* __restrict__ bd, int T,
     int d, int l, int L, int tiles_per_chunk) {
+  using C = Cfg<P, R>;
   using W = typename P::W;
-  using M = Smem<P>;
+  using WS = typename C::WS;
+  constexpr int D = R, K1 = C::K1, N1 = C::N1, SR = C::SR;
+  constexpr int NQ = D / 16;   // n-tiles of a warp's column half (D or R wide)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* s_wfg = reinterpret_cast<W*>(smem_raw);                 // B = w_fg [K1][N1]
-  W* s_wd = reinterpret_cast<W*>(smem_raw + M::kWfg);        // B = wd [D][R]
-  float* s_x = reinterpret_cast<float*>(smem_raw + M::kWfg + M::kWdr);
-  constexpr int kStage = 2 * TM * S32;                       // x(t - d), x(t)
-  float* s_z = s_x + 2 * kStage;                             // [TM][S32]
+  WS* s_wfg = reinterpret_cast<WS*>(smem_raw);               // B = w_fg [K1][N1]
+  WS* s_wd = reinterpret_cast<WS*>(smem_raw + C::kWfg);      // B = wd [D][R]
+  float* s_x = reinterpret_cast<float*>(smem_raw + C::kWfg + C::kWdr);
+  constexpr int kStage = 2 * TM * SR;                        // x(t - d), x(t)
+  float* s_z = s_x + 2 * kStage;                             // [TM][SR]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -373,8 +452,8 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
   auto issue = [&](int i) {
     float* st = s_x + (i & 1) * kStage;
     const int t0 = (tile0 + i) * TM;
-    load_rows<R, S32>(st, x_in, base, R, 0, t0, -d, T);
-    load_rows<R, S32>(st + TM * S32, x_in, base, R, 0, t0, 0, T);
+    load_rows<R, SR>(st, x_in, base, R, 0, t0, -d, T);
+    load_rows<R, SR>(st + TM * SR, x_in, base, R, 0, t0, 0, T);
   };
   issue(0);
   cp_async_commit();
@@ -388,38 +467,39 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
     cp_async_wait<1>();
     __syncthreads();   // tile i (and the weights) visible to every warp
     const float* past = s_x + (i & 1) * kStage;
-    const float* cur = past + TM * S32;
+    const float* cur = past + TM * SR;
     const int t0 = (tile0 + i) * TM;
 
-    // fg = [past | cur] @ w_fg: this warp's filter n-tiles 2h, 2h + 1 and
-    // their gate n-tiles 4 + 2h, 5 + 2h.
-    float acc[4][4];
+    // fg = [past | cur] @ w_fg: this warp's filter n-tiles NQ h .. + NQ - 1
+    // and their gate n-tiles D / 8 + NQ h ...
+    float acc[2 * NQ][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) zero(acc[j]);
+    for (int j = 0; j < 2 * NQ; ++j) zero(acc[j]);
 #pragma unroll
     for (int ks = 0; ks < K1 / P::KS; ++ks) {
       const int k = ks * P::KS;
       typename P::A a;
-      afrag<S32>(k < R ? past : cur, 16 * mt, k % R, lane, a);
-      W bw[4];
+      afrag<SR>(k < R ? past : cur, 16 * mt, k % R, lane, a);
+      W bw[2 * NQ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bw[j] = wfrag<N1 / 8>(s_wfg, ks, (j >> 1) * 4 + 2 * h + (j & 1), lane);
+      for (int j = 0; j < 2 * NQ; ++j)
+        bw[j] = wfrag<N1 / 8>(s_wfg, ks, (j / NQ) * (D / 8) + NQ * h + j % NQ,
+                              lane);
       mma_n(acc, a, bw);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = 16 * h + 8 * j + 2 * q;
+    for (int j = 0; j < NQ; ++j) {
+      const int col = (D / 2) * h + 8 * j + 2 * q;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = 16 * mt + g + 8 * half, t = t0 + r;
         const float f0 = acc[j][2 * half] + add_b[col];
         const float f1 = acc[j][2 * half + 1] + add_b[col + 1];
-        const float g0 = acc[j + 2][2 * half] + add_b[D + col];
-        const float g1 = acc[j + 2][2 * half + 1] + add_b[D + col + 1];
+        const float g0 = acc[j + NQ][2 * half] + add_b[D + col];
+        const float g1 = acc[j + NQ][2 * half + 1] + add_b[D + col + 1];
         const float z0 = tanhf(f0) * sigmoidf(g0);
         const float z1 = tanhf(f1) * sigmoidf(g1);
-        *reinterpret_cast<float2*>(s_z + r * S32 + col) = make_float2(z0, z1);
+        *reinterpret_cast<float2*>(s_z + r * SR + col) = make_float2(z0, z1);
         if (t < T) {
           typename P::Rec* fr =
               fg_out + (base + t) * (size_t)(L * N1) + l * N1 + col;
@@ -431,26 +511,28 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
     }
     __syncthreads();   // the z tile is whole
 
-    // x' = x + (z @ wd + bd) (bf16: (x + z @ wd) + bd): n-tiles 2h, 2h + 1.
-    float acc2[2][4];
-    zero(acc2[0]);
-    zero(acc2[1]);
+    // x' = x + (z @ wd + bd) (bf16: (x + z @ wd) + bd): n-tiles NQ h ...
+    float acc2[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) zero(acc2[j]);
 #pragma unroll
     for (int ks = 0; ks < D / P::KS; ++ks) {
       typename P::A a;
-      afrag<S32>(s_z, 16 * mt, ks * P::KS, lane, a);
-      const W bw[2] = {wfrag<R / 8>(s_wd, ks, 2 * h, lane),
-                       wfrag<R / 8>(s_wd, ks, 2 * h + 1, lane)};
+      afrag<SR>(s_z, 16 * mt, ks * P::KS, lane, a);
+      W bw[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        bw[j] = wfrag<R / 8>(s_wd, ks, NQ * h + j, lane);
       mma_n(acc2, a, bw);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = 16 * h + 8 * j + 2 * q;
+    for (int j = 0; j < NQ; ++j) {
+      const int col = (R / 2) * h + 8 * j + 2 * q;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = 16 * mt + g + 8 * half, t = t0 + r;
         if (t >= T) continue;
-        const float2 res = *reinterpret_cast<const float2*>(cur + r * S32 + col);
+        const float2 res = *reinterpret_cast<const float2*>(cur + r * SR + col);
         const float m0 = acc2[j][2 * half], m1 = acc2[j][2 * half + 1];
         float2 o;
         if constexpr (P::kBf16)
@@ -469,8 +551,8 @@ __global__ void __launch_bounds__(NT, 2) fwd_mma_kernel(
 // grid (chunks, B); each block walks tiles_per_chunk tiles.
 // ---------------------------------------------------------------------------
 
-template <class P>
-__global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
+template <class P, int R>
+__global__ void __launch_bounds__(NT, (Cfg<P, R>::kPerSm)) bwd_da_mma_kernel(
     const float* __restrict__ x_next, const float* __restrict__ dx_next,
     const typename P::Rec* __restrict__ fg,
     const typename P::Rec* __restrict__ dz, const float* __restrict__ wd,
@@ -478,19 +560,21 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     typename P::Rec* __restrict__ da_out, float* __restrict__ part_a,
     float* __restrict__ part_add, int T, int l, int L, int tiles_per_chunk,
     int nchunk) {
+  using C = Cfg<P, R>;
   using W = typename P::W;
+  using WS = typename C::WS;
   using Rec = typename P::Rec;
-  using M = Smem<P>;
-  constexpr int SR = M::SR;
+  constexpr int D = R, N1 = C::N1, SR = C::SR, S2D = C::S2D, SRec = C::SRec;
+  constexpr int NQ = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* s_wdf = reinterpret_cast<W*>(smem_raw);                 // B = wd [D][R]
-  W* s_wdt = reinterpret_cast<W*>(smem_raw + M::kWdr);       // B = wd^T [R][D]
-  unsigned char* s_st = smem_raw + 2 * M::kWdr;              // 2 stages
-  float* s_z = reinterpret_cast<float*>(s_st + 2 * M::kAStage);  // [TM][S32]
-  float* s_da = s_z + TM * S32;                              // [TM][S64]
-  // (tanh f, sigmoid g) [TM][S64]: in bf16 a tile of its own, in f32 the
+  WS* s_wdf = reinterpret_cast<WS*>(smem_raw);               // B = wd [D][R]
+  WS* s_wdt = reinterpret_cast<WS*>(smem_raw + C::kWdr);     // B = wd^T [R][D]
+  unsigned char* s_st = smem_raw + 2 * C::kWdr;              // 2 stages
+  float* s_z = reinterpret_cast<float*>(s_st + 2 * C::kAStage);  // [TM][SR]
+  float* s_da = s_z + TM * SR;                               // [TM][S2D]
+  // (tanh f, sigmoid g) [TM][S2D]: in bf16 a tile of its own, in f32 the
   // stage's fg slice, converted in place.
-  float* s_tsb = s_da + TM * S64;
+  float* s_tsb = s_da + TM * S2D;
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -502,26 +586,29 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
   const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
 
   auto stage_dc = [&](int i) {
-    return reinterpret_cast<float*>(s_st + (i & 1) * M::kAStage);
+    return reinterpret_cast<float*>(s_st + (i & 1) * C::kAStage);
   };
   auto stage_fg = [&](int i) {
-    return reinterpret_cast<Rec*>(s_st + (i & 1) * M::kAStage + M::kT32);
+    return reinterpret_cast<Rec*>(s_st + (i & 1) * C::kAStage + C::kTR);
   };
   auto issue = [&](int i) {
     const int t0 = (tile0 + i) * TM;
-    load_rows<R, S32>(stage_dc(i), dx_next, base, R, 0, t0, 0, T);
-    load_rows<N1, SR>(stage_fg(i), fg, base, fg_ld, l * N1, t0, 0, T);
+    load_rows<R, SR>(stage_dc(i), dx_next, base, R, 0, t0, 0, T);
+    load_rows<N1, SRec>(stage_fg(i), fg, base, fg_ld, l * N1, t0, 0, T);
   };
   issue(0);
   cp_async_commit();
   stage_weights<D, R>(s_wdf, [&](int k, int n) { return wd[k * R + n]; });
   stage_weights<R, D>(s_wdt, [&](int k, int n) { return wd[n * R + k]; });
 
-  // dwd [D][R] partial: m-tile w / 4, n-tile w % 4.
-  const int mw = w >> 2, nw = w & 3;
-  float p_wd[2][4];   // even and odd k-steps: two independent chains
-  zero(p_wd[0]);
-  zero(p_wd[1]);
+  // dwd [D][R] partial: m-tile mw, n-tiles nw0 .. nw0 + NJW - 1 (at width
+  // 32 one n-tile, summed in two chains of even and odd k-steps).
+  constexpr int WPM = NW / (D / 16);   // warps an m-tile
+  constexpr int NJW = (R / 8) / WPM;   // n-tiles a warp
+  const int mw = w / WPM, nw0 = (w % WPM) * NJW;
+  float p_wd[NJW == 1 ? 2 : NJW][4];
+#pragma unroll
+  for (int j = 0; j < (NJW == 1 ? 2 : NJW); ++j) zero(p_wd[j]);
   float p_bd = 0.f, p_add = 0.f;
 
   for (int i = 0; i < ntiles; ++i) {
@@ -529,8 +616,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float* s_dc = stage_dc(i);                          // [TM][S32]
-    const Rec* s_fg = stage_fg(i);                            // [TM][SR]
+    const float* s_dc = stage_dc(i);                          // [TM][SR]
+    const Rec* s_fg = stage_fg(i);                            // [TM][SRec]
     float* s_ts = P::kBf16 ? s_tsb : reinterpret_cast<float*>(stage_fg(i));
     const int t0 = (tile0 + i) * TM;
 
@@ -538,30 +625,32 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     // past T, where fg is 0).
     for (int e = tid; e < TM * D; e += NT) {
       const int r = e / D, c = e % D;
-      const float th = tanhf(tof(s_fg[r * SR + c]));
-      const float sg = sigmoidf(tof(s_fg[r * SR + D + c]));
-      s_ts[r * S64 + c] = th;
-      s_ts[r * S64 + D + c] = sg;
-      s_z[r * S32 + c] = th * sg;
+      const float th = tanhf(tof(s_fg[r * SRec + c]));
+      const float sg = sigmoidf(tof(s_fg[r * SRec + D + c]));
+      s_ts[r * S2D + c] = th;
+      s_ts[r * S2D + D + c] = sg;
+      s_z[r * SR + c] = th * sg;
     }
     __syncthreads();
 
     // dz_tot = dz + dx_{l+1} @ wd^T; da = dz_tot * (d z / d fg).
     {
-      float acc[2][4];
-      zero(acc[0]);
-      zero(acc[1]);
+      float acc[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) zero(acc[j]);
 #pragma unroll
       for (int ks = 0; ks < R / P::KS; ++ks) {
         typename P::A a;
-        afrag<S32>(s_dc, 16 * mt, ks * P::KS, lane, a);
-        const W bw[2] = {wfrag<D / 8>(s_wdt, ks, 2 * h, lane),
-                         wfrag<D / 8>(s_wdt, ks, 2 * h + 1, lane)};
+        afrag<SR>(s_dc, 16 * mt, ks * P::KS, lane, a);
+        W bw[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+          bw[j] = wfrag<D / 8>(s_wdt, ks, NQ * h + j, lane);
         mma_n(acc, a, bw);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 16 * h + 8 * j + 2 * q;
+      for (int j = 0; j < NQ; ++j) {
+        const int col = (D / 2) * h + 8 * j + 2 * q;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = 16 * mt + g + 8 * half, t = t0 + r;
@@ -571,14 +660,14 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const float dzt = (c ? dzv.y : dzv.x) + acc[j][2 * half + c];
-            const float th = s_ts[r * S64 + col + c];
-            const float sg = s_ts[r * S64 + D + col + c];
+            const float th = s_ts[r * S2D + col + c];
+            const float sg = s_ts[r * S2D + D + col + c];
             daf[c] = dzt * sg * (1.f - th * th);
             dag[c] = dzt * th * sg * (1.f - sg);
           }
-          *reinterpret_cast<float2*>(s_da + r * S64 + col) =
+          *reinterpret_cast<float2*>(s_da + r * S2D + col) =
               make_float2(daf[0], daf[1]);
-          *reinterpret_cast<float2*>(s_da + r * S64 + D + col) =
+          *reinterpret_cast<float2*>(s_da + r * S2D + D + col) =
               make_float2(dag[0], dag[1]);
           if (t < T) {
             Rec* o = da_out + (base + t) * N1 + col;
@@ -592,20 +681,22 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
 
     // x_l = x_{l+1} - z @ wd - bd
     {
-      float acc[2][4];
-      zero(acc[0]);
-      zero(acc[1]);
+      float acc[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) zero(acc[j]);
 #pragma unroll
       for (int ks = 0; ks < D / P::KS; ++ks) {
         typename P::A a;
-        afrag<S32>(s_z, 16 * mt, ks * P::KS, lane, a);
-        const W bw[2] = {wfrag<R / 8>(s_wdf, ks, 2 * h, lane),
-                         wfrag<R / 8>(s_wdf, ks, 2 * h + 1, lane)};
+        afrag<SR>(s_z, 16 * mt, ks * P::KS, lane, a);
+        W bw[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+          bw[j] = wfrag<R / 8>(s_wdf, ks, NQ * h + j, lane);
         mma_n(acc, a, bw);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 16 * h + 8 * j + 2 * q;
+      for (int j = 0; j < NQ; ++j) {
+        const int col = (R / 2) * h + 8 * j + 2 * q;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int t = t0 + 16 * mt + g + 8 * half;
@@ -620,31 +711,52 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
     }
 
     // dwd += z^T @ dx_{l+1} over this tile's rows.
+    if constexpr (NJW == 1) {
 #pragma unroll
-    for (int ks = 0; ks < TM / P::KS; ks += 2) {
-      typename P::A a0, a1;
-      afrag_t<S32>(s_z, 16 * mw, ks * P::KS, lane, a0);
-      afrag_t<S32>(s_z, 16 * mw, ks * P::KS + P::KS, lane, a1);
-      W b0, b1;
-      bfrag<S32>(s_dc, ks * P::KS, 8 * nw, lane, b0);
-      bfrag<S32>(s_dc, ks * P::KS + P::KS, 8 * nw, lane, b1);
-      mma_2k(p_wd, a0, b0, a1, b1);
+      for (int ks = 0; ks < TM / P::KS; ks += 2) {
+        typename P::A a0, a1;
+        afrag_t<SR>(s_z, 16 * mw, ks * P::KS, lane, a0);
+        afrag_t<SR>(s_z, 16 * mw, ks * P::KS + P::KS, lane, a1);
+        W b0, b1;
+        bfrag<SR>(s_dc, ks * P::KS, 8 * nw0, lane, b0);
+        bfrag<SR>(s_dc, ks * P::KS + P::KS, 8 * nw0, lane, b1);
+        mma_2k(p_wd, a0, b0, a1, b1);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < TM / P::KS; ++ks) {
+        typename P::A a;
+        afrag_t<SR>(s_z, 16 * mw, ks * P::KS, lane, a);
+        W bz[NJW];
+#pragma unroll
+        for (int j = 0; j < NJW; ++j)
+          bfrag<SR>(s_dc, ks * P::KS, 8 * (nw0 + j), lane, bz[j]);
+        mma_n(p_wd, a, bz);
+      }
     }
     // dbd and dadd: column sums in row order.
     if (tid < R)
-      for (int r = 0; r < TM; ++r) p_bd += s_dc[r * S32 + tid];
+      for (int r = 0; r < TM; ++r) p_bd += s_dc[r * SR + tid];
     else if (tid >= 64 && tid < 64 + N1)
-      for (int r = 0; r < TM; ++r) p_add += s_da[r * S64 + tid - 64];
+      for (int r = 0; r < TM; ++r) p_add += s_da[r * S2D + tid - 64];
     __syncthreads();   // the stage, z and da tiles are free again
   }
 
   const size_t cta = (size_t)b * nchunk + chunk;
   float* pa = part_a + cta * (D * R + R);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = 16 * mw + g + 8 * half, col = 8 * nw + 2 * q;
-    pa[row * R + col] = p_wd[0][2 * half] + p_wd[1][2 * half];
-    pa[row * R + col + 1] = p_wd[0][2 * half + 1] + p_wd[1][2 * half + 1];
+  for (int j = 0; j < NJW; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * mw + g + 8 * half, col = 8 * (nw0 + j) + 2 * q;
+      float v0 = p_wd[j][2 * half], v1 = p_wd[j][2 * half + 1];
+      if constexpr (NJW == 1) {   // the odd k-steps' chain
+        v0 += p_wd[1][2 * half];
+        v1 += p_wd[1][2 * half + 1];
+      }
+      pa[row * R + col] = v0;
+      pa[row * R + col + 1] = v1;
+    }
   }
   if (tid < R) pa[D * R + tid] = p_bd;
   else if (tid >= 64 && tid < 64 + N1) part_add[cta * N1 + tid - 64] = p_add;
@@ -654,20 +766,22 @@ __global__ void __launch_bounds__(NT, 2) bwd_da_mma_kernel(
 // Backward (B): dx_l and partial dw_fg. Same grid as (A).
 // ---------------------------------------------------------------------------
 
-template <class P>
+template <class P, int R>
 __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
     const float* __restrict__ x_cur, const float* __restrict__ dx_next,
     const typename P::Rec* __restrict__ da, const float* __restrict__ w_fg,
     float* __restrict__ dx_cur, float* __restrict__ part_w, int T, int d,
     int tiles_per_chunk, int nchunk) {
+  using C = Cfg<P, R>;
   using W = typename P::W;
+  using WS = typename C::WS;
   using Rec = typename P::Rec;
-  using M = Smem<P>;
-  constexpr int SR = M::SR;
+  constexpr int K1 = C::K1, N1 = C::N1, SR = C::SR, SRec = C::SRec;
+  constexpr int NQ = R / 16, NS = C::kBStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* s_wc = reinterpret_cast<W*>(smem_raw);              // B = w_fg[R:]^T [N1][R]
-  W* s_wp = reinterpret_cast<W*>(smem_raw + M::kWb);     // B = w_fg[:R]^T [N1][R]
-  unsigned char* s_st = smem_raw + 2 * M::kWb;           // 2 stages
+  WS* s_wc = reinterpret_cast<WS*>(smem_raw);            // B = w_fg[R:]^T [N1][R]
+  WS* s_wp = reinterpret_cast<WS*>(smem_raw + C::kWb);   // B = w_fg[:R]^T [N1][R]
+  unsigned char* s_st = smem_raw + 2 * C::kWb;           // NS stages
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -677,36 +791,41 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
   const int tile0 = chunk * tiles_per_chunk;
   const int ntiles = min(tiles_per_chunk, (T + TM - 1) / TM - tile0);
 
-  // Stage parts: da(t), da(t + d) [TM][SR]; x_l(t - d), x_l(t) [TM][S32].
+  // Stage parts: da(t), da(t + d) [TM][SRec]; x_l(t - d), x_l(t) [TM][SR].
   auto stage_da = [&](int i, int k) {
-    return reinterpret_cast<Rec*>(s_st + (i & 1) * M::kBStage + k * M::kTR);
+    return reinterpret_cast<Rec*>(s_st + (i % NS) * C::kBStage + k * C::kTRec);
   };
   auto stage_x = [&](int i, int k) {
-    return reinterpret_cast<float*>(s_st + (i & 1) * M::kBStage +
-                                    2 * M::kTR + k * M::kT32);
+    return reinterpret_cast<float*>(s_st + (i % NS) * C::kBStage +
+                                    2 * C::kTRec + k * C::kTR);
   };
   auto issue = [&](int i) {
     const int t0 = (tile0 + i) * TM;
-    load_rows<N1, SR>(stage_da(i, 0), da, base, N1, 0, t0, 0, T);
-    load_rows<N1, SR>(stage_da(i, 1), da, base, N1, 0, t0, d, T);
-    load_rows<R, S32>(stage_x(i, 0), x_cur, base, R, 0, t0, -d, T);
-    load_rows<R, S32>(stage_x(i, 1), x_cur, base, R, 0, t0, 0, T);
+    load_rows<N1, SRec>(stage_da(i, 0), da, base, N1, 0, t0, 0, T);
+    load_rows<N1, SRec>(stage_da(i, 1), da, base, N1, 0, t0, d, T);
+    load_rows<R, SR>(stage_x(i, 0), x_cur, base, R, 0, t0, -d, T);
+    load_rows<R, SR>(stage_x(i, 1), x_cur, base, R, 0, t0, 0, T);
   };
   issue(0);
   cp_async_commit();
   stage_weights<N1, R>(s_wc, [&](int k, int n) { return w_fg[(R + n) * N1 + k]; });
   stage_weights<N1, R>(s_wp, [&](int k, int n) { return w_fg[n * N1 + k]; });
 
-  // dw_fg [K1][N1] partial: m-tile w / 2 (cat columns 16 (w / 2)..), n-tiles
-  // 4 (w % 2) .. + 3.
-  float p_w[4][4];
+  // dw_fg [K1][N1] partial: m-tiles MPW (w / 2) .. + MPW - 1 (cat columns
+  // 16 of them each), n-tiles NJ (w % 2) .. + NJ - 1.
+  constexpr int MPW = K1 / 16 / (NW / 2), NJ = N1 / 8 / 2;
+  float p_w[MPW][NJ][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) zero(p_w[j]);
+  for (int m = 0; m < MPW; ++m)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) zero(p_w[m][j]);
 
   for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles) issue(i + 1);
+    // Two stages: tile i + 1 loads under tile i's products. One: it loads
+    // after them (below), and this commit closes its group.
+    if (NS == 2 && i + 1 < ntiles) issue(i + 1);
     cp_async_commit();
-    cp_async_wait<1>();
+    cp_async_wait<NS - 1>();
     __syncthreads();
     const Rec* s_da = stage_da(i, 0);       // da(t)
     const Rec* s_dan = stage_da(i, 1);      // da(t + d)
@@ -716,27 +835,29 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
 
     // dx_l = dx_{l+1} + da(t) @ w_fg[R:]^T + da(t + d) @ w_fg[:R]^T
     {
-      float ac[2][4], ap[2][4];
+      float ac[NQ][4], ap[NQ][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NQ; ++j) {
         zero(ac[j]);
         zero(ap[j]);
       }
 #pragma unroll
       for (int ks = 0; ks < N1 / P::KS; ++ks) {
         typename P::A a, n;
-        afrag<SR>(s_da, 16 * mt, ks * P::KS, lane, a);
-        afrag<SR>(s_dan, 16 * mt, ks * P::KS, lane, n);
-        const W bc[2] = {wfrag<R / 8>(s_wc, ks, 2 * h, lane),
-                         wfrag<R / 8>(s_wc, ks, 2 * h + 1, lane)};
-        const W bp[2] = {wfrag<R / 8>(s_wp, ks, 2 * h, lane),
-                         wfrag<R / 8>(s_wp, ks, 2 * h + 1, lane)};
+        afrag<SRec>(s_da, 16 * mt, ks * P::KS, lane, a);
+        afrag<SRec>(s_dan, 16 * mt, ks * P::KS, lane, n);
+        W bc[NQ], bp[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          bc[j] = wfrag<R / 8>(s_wc, ks, NQ * h + j, lane);
+          bp[j] = wfrag<R / 8>(s_wp, ks, NQ * h + j, lane);
+        }
         mma_n(ac, a, bc);
         mma_n(ap, n, bp);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 16 * h + 8 * j + 2 * q;
+      for (int j = 0; j < NQ; ++j) {
+        const int col = (R / 2) * h + 8 * j + 2 * q;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int t = t0 + 16 * mt + g + 8 * half;
@@ -751,32 +872,36 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
     }
 
     // dw_fg += [x_l(t-d) | x_l(t)]^T @ da(t) over this tile's rows.
-    {
-      const float* cat = mt < 2 ? s_past : s_cur;
-      const int m0 = 16 * (mt & 1);
 #pragma unroll
-      for (int ks = 0; ks < TM / P::KS; ++ks) {
+    for (int ks = 0; ks < TM / P::KS; ++ks) {
+      W bd[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        bfrag<SRec>(s_da, ks * P::KS, 8 * (NJ * h + j), lane, bd[j]);
+#pragma unroll
+      for (int m = 0; m < MPW; ++m) {
+        const int m16 = 16 * (MPW * mt + m);   // cat column of the m-tile
         typename P::A a;
-        afrag_t<S32>(cat, m0, ks * P::KS, lane, a);
-        W bd4[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bfrag<SR>(s_da, ks * P::KS, 8 * (4 * h + j), lane, bd4[j]);
-        mma_n(p_w, a, bd4);
+        afrag_t<SR>(m16 < R ? s_past : s_cur, m16 % R, ks * P::KS, lane, a);
+        mma_n(p_w[m], a, bd);
       }
     }
-    __syncthreads();   // stage i & 1 is free again
+    __syncthreads();   // stage i % NS is free again
+    if (NS == 1 && i + 1 < ntiles) issue(i + 1);
   }
 
   float* pw = part_w + ((size_t)b * nchunk + chunk) * (K1 * N1);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = 8 * (4 * h + j) + 2 * q;
+  for (int m = 0; m < MPW; ++m) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = 16 * mt + g + 8 * half;
-      pw[row * N1 + col] = p_w[j][2 * half];
-      pw[row * N1 + col + 1] = p_w[j][2 * half + 1];
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * (NJ * h + j) + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * (MPW * mt + m) + g + 8 * half;
+        pw[row * N1 + col] = p_w[m][j][2 * half];
+        pw[row * N1 + col + 1] = p_w[m][j][2 * half + 1];
+      }
     }
   }
 }
@@ -785,33 +910,40 @@ __global__ void __launch_bounds__(NT, 1) bwd_dx_mma_kernel(
 // Host side
 // ---------------------------------------------------------------------------
 
-// One grid for every launch: chunks sized for two blocks an SM (the
-// forward and (A) hold two; (B), one, runs it in two waves).
-Tiling mma_tiling(int B, int T) { return chunk_tiling(B, T, TM, 2); }
+// One grid for every launch and both modes: chunks sized for the forward's
+// and (A)'s blocks an SM ((B), one an SM, runs it in that many waves).
+template <int R>
+Tiling mma_tiling(int B, int T) {
+  static_assert(Cfg<Tf32x3, R>::kPerSm == Cfg<Bf16, R>::kPerSm,
+                "one grid for both modes");
+  return chunk_tiling(B, T, TM, Cfg<Tf32x3, R>::kPerSm);
+}
 
-template <class P>
+template <class P, int R>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
                  typename P::Rec* fg, typename P::Rec* z, float* xbuf, int B,
                  int T, int L, cudaStream_t st) {
-  constexpr int smem = Smem<P>::kFwd;
+  using C = Cfg<P, R>;
+  constexpr int smem = C::kFwd, D = R, K1 = C::K1, N1 = C::N1;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_mma_kernel<P, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  const Tiling tl = mma_tiling(B, T);
+  const Tiling tl = mma_tiling<R>(B, T);
   const dim3 grid(tl.nchunk, B);
   const size_t btr = (size_t)B * T * R;
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
     float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
-    fwd_mma_kernel<P><<<grid, NT, smem, st>>>(in, out, fg, z, w_fg + (size_t)l * K1 * N1, wd + (size_t)l * D * R, add + (size_t)l * B * N1, bd + (size_t)l * R, T, dil[l], l, L, tl.tiles_per_chunk);
+    fwd_mma_kernel<P, R><<<grid, NT, smem, st>>>(in, out, fg, z, w_fg + (size_t)l * K1 * N1, wd + (size_t)l * D * R, add + (size_t)l * B * N1, bd + (size_t)l * R, T, dil[l], l, L, tl.tiles_per_chunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-template <class P>
+template <class P, int R>
 int backward_impl(const float* y, const float* dy,
                   const typename P::Rec* fg, const typename P::Rec* dz,
                   const float* w_fg, const float* wd, const float* bd,
@@ -819,8 +951,9 @@ int backward_impl(const float* y, const float* dy,
                   float* dadd, float* dbd, float* scratch, int B, int T,
                   int L, cudaStream_t st) {
   using Rec = typename P::Rec;
-  using M = Smem<P>;
-  const Tiling tl = mma_tiling(B, T);
+  using C = Cfg<P, R>;
+  constexpr int D = R, K1 = C::K1, N1 = C::N1;
+  const Tiling tl = mma_tiling<R>(B, T);
   const size_t ncta = (size_t)B * tl.nchunk;
   const size_t btr = (size_t)B * T * R;
   float* xb = scratch;                               // 2 x [B, T, R]
@@ -832,12 +965,12 @@ int backward_impl(const float* y, const float* dy,
   float* padd = pa + (size_t)L * ncta * (D * R + R); // [L, ncta, 2D]
 
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_da_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      M::kA);
+      bwd_da_mma_kernel<P, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kA);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(
-      bwd_dx_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      M::kB);
+      bwd_dx_mma_kernel<P, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kB);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid(tl.nchunk, B);
@@ -846,10 +979,10 @@ int backward_impl(const float* y, const float* dy,
     float* x_cur = xb + (size_t)(l & 1) * btr;
     const float* dx_next = l == L - 1 ? dy : dxb + (size_t)((l + 1) & 1) * btr;
     float* dx_cur = l == 0 ? dx : dxb + (size_t)(l & 1) * btr;
-    bwd_da_mma_kernel<P><<<grid, NT, M::kA, st>>>(x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R, x_cur, dab, pa + (size_t)l * ncta * (D * R + R), padd + (size_t)l * ncta * N1, T, l, L, tl.tiles_per_chunk, tl.nchunk);
+    bwd_da_mma_kernel<P, R><<<grid, NT, C::kA, st>>>(x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R, x_cur, dab, pa + (size_t)l * ncta * (D * R + R), padd + (size_t)l * ncta * N1, T, l, L, tl.tiles_per_chunk, tl.nchunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    bwd_dx_mma_kernel<P><<<grid, NT, M::kB, st>>>(x_cur, dx_next, dab, w_fg + (size_t)l * K1 * N1, dx_cur, pw + (size_t)l * ncta * K1 * N1, T, dil[l], tl.tiles_per_chunk, tl.nchunk);
+    bwd_dx_mma_kernel<P, R><<<grid, NT, C::kB, st>>>(x_cur, dx_next, dab, w_fg + (size_t)l * K1 * N1, dx_cur, pw + (size_t)l * ncta * K1 * N1, T, dil[l], tl.tiles_per_chunk, tl.nchunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -857,20 +990,30 @@ int backward_impl(const float* y, const float* dy,
                                          B, tl.nchunk, L, R, D, st);
 }
 
+template <int R>
+long long scratch_floats(int B, int T, int L) {
+  constexpr int D = R, K1 = 2 * R, N1 = 2 * D;
+  const Tiling tl = mma_tiling<R>(B, T);
+  const long long bt = (long long)B * T, ncta = (long long)B * tl.nchunk;
+  return 4 * bt * R + bt * N1 +
+         (long long)L * ncta * (K1 * N1 + D * R + R + N1);
+}
+
 constexpr int kUnsupportedWidth = 1000;
+
+// The built widths (R == D).
+bool built(int r, int d) { return r == d && (r == 32 || r == 64); }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch device memory the backward needs (either mode).
+// Floats of scratch device memory the backward needs (either mode); -1 at
+// a width not built.
 long long fused_stack_mma_bwd_scratch_floats(int B, int T, int L, int r,
                                              int d) {
-  if (r != R || d != D) return -1;
-  const Tiling tl = mma_tiling(B, T);
-  const long long bt = (long long)B * T, ncta = (long long)B * tl.nchunk;
-  return 4 * bt * R + bt * N1 +
-         (long long)L * ncta * (K1 * N1 + D * R + R + N1);
+  if (!built(r, d)) return -1;
+  return r == 32 ? scratch_floats<32>(B, T, L) : scratch_floats<64>(B, T, L);
 }
 
 // Forward launches (L of them); the arguments of fused_stack_fwd_f32
@@ -879,9 +1022,10 @@ int fused_stack_mma_fwd_f32(const float* x, const float* w_fg, const float* wd,
                             const float* add, const float* bd, const int* dil,
                             float* y, float* fg, float* z, float* xbuf, int B,
                             int T, int L, int r, int d, void* stream) {
-  if (r != R || d != D) return kUnsupportedWidth;
-  return forward_impl<Tf32x3>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B,
-                              T, L, (cudaStream_t)stream);
+  if (!built(r, d)) return kUnsupportedWidth;
+  auto* f = r == 32 ? &forward_impl<Tf32x3, 32> : &forward_impl<Tf32x3, 64>;
+  return f(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L,
+           (cudaStream_t)stream);
 }
 
 // Backward launches (2L + 1 of them); the arguments of fused_stack_bwd_f32
@@ -893,10 +1037,10 @@ int fused_stack_mma_bwd_f32(const float* y, const float* dy, const float* fg,
                             float* dx, float* dw_fg, float* dwd, float* dadd,
                             float* dbd, float* scratch, int B, int T, int L,
                             int r, int d, void* stream) {
-  if (r != R || d != D) return kUnsupportedWidth;
-  return backward_impl<Tf32x3>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
-                               dwd, dadd, dbd, scratch, B, T, L,
-                               (cudaStream_t)stream);
+  if (!built(r, d)) return kUnsupportedWidth;
+  auto* f = r == 32 ? &backward_impl<Tf32x3, 32> : &backward_impl<Tf32x3, 64>;
+  return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
+           scratch, B, T, L, (cudaStream_t)stream);
 }
 
 // The bf16 mode: the arguments of fused_stack_mma_fwd_f32, with fg and z
@@ -907,9 +1051,10 @@ int fused_stack_mma_fwd_bf16(const float* x, const float* w_fg,
                              const float* bd, const int* dil, float* y,
                              __nv_bfloat16* fg, __nv_bfloat16* z, float* xbuf,
                              int B, int T, int L, int r, int d, void* stream) {
-  if (r != R || d != D) return kUnsupportedWidth;
-  return forward_impl<Bf16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
-                            L, (cudaStream_t)stream);
+  if (!built(r, d)) return kUnsupportedWidth;
+  auto* f = r == 32 ? &forward_impl<Bf16, 32> : &forward_impl<Bf16, 64>;
+  return f(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L,
+           (cudaStream_t)stream);
 }
 
 // The bf16 mode: the arguments of fused_stack_mma_bwd_f32, with fg and dz
@@ -921,10 +1066,10 @@ int fused_stack_mma_bwd_bf16(const float* y, const float* dy,
                              float* dw_fg, float* dwd, float* dadd, float* dbd,
                              float* scratch, int B, int T, int L, int r,
                              int d, void* stream) {
-  if (r != R || d != D) return kUnsupportedWidth;
-  return backward_impl<Bf16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
-                             dwd, dadd, dbd, scratch, B, T, L,
-                             (cudaStream_t)stream);
+  if (!built(r, d)) return kUnsupportedWidth;
+  auto* f = r == 32 ? &backward_impl<Bf16, 32> : &backward_impl<Bf16, 64>;
+  return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
+           scratch, B, T, L, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,7 @@ TPU kernel does: no recompute, no saved layer inputs.
 Two CUDA kernel pairs compute the map. ``csrc/fused_stack_mma.cu``
 ("mma") multiplies on the tensor cores in 3xTF32 (the counterpart of the
 TPU kernel's ``mxu_dot`` at HIGHEST: float32 parity) and is built for
-R == D == 32 only; ``csrc/fused_stack.cu`` ("simt") multiplies on the
+R == D in (32, 64); ``csrc/fused_stack.cu`` ("simt") multiplies on the
 FP32 cores at R == D in (8, 16, 32). ``stack_kernel_plan`` (pure) picks
 one. ``forward`` and ``backward`` run the routed kernel, or the one that
 ``kernel=`` pins, for CUDA tensors and the plain versions for CPU tensors;
@@ -36,7 +36,7 @@ accumulates in float32; the residual x, y, dx and every gradient stay
 float32, and the fg and z records are bf16 tensors. The backward reads
 dz in bf16 and rounds dx_{l+1}, the rebuilt layer input and da to bf16
 before their products. Only the mma kernel has a bf16 mode (one bf16
-``mma.sync`` pass a product, ``csrc/bf16_mma.cuh``), at R == D == 32.
+``mma.sync`` pass a product, ``csrc/bf16_mma.cuh``), at its widths.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ _LANE = 128
 #: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
 KERNEL_CHOICES = ("auto", "mma", "simt")
 #: Widths (R == D) each kernel source is built for, at float32 (the mma
-#: kernel's bf16 mode has the same width).
-MMA_WIDTHS = (32,)
+#: kernel's bf16 mode has the same widths).
+MMA_WIDTHS = (32, 64)
 SIMT_WIDTHS = (8, 16, 32)
 #: The compute dtypes of a stack, and the record dtype of each.
 RECORD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -97,12 +97,13 @@ def record_dtype(config: WaveNetConfig) -> torch.dtype:
 
 def stack_kernel_plan(config: WaveNetConfig) -> str:
     """The kernel that runs a stack of ``config`` on the card, by width and
-    compute dtype. At float32: "mma" at R == D == 32 (the paper and gc
-    widths, where the chip run timed it faster than "simt" in both
-    directions), "simt" at the other widths ``csrc/fused_stack.cu`` is
-    built for. At bfloat16: "mma" in its bf16 mode at R == D == 32, the
-    only bf16 stack kernel. Raises for any other width (ROADMAP.md queue
-    2, a4; at bf16, a3 and a4). The simt library's own
+    compute dtype. At float32: "mma" at R == D in ``MMA_WIDTHS`` (the
+    paper and gc widths, where the chip run timed it faster than "simt"
+    in both directions, and the wide width, which "simt" lacks), "simt"
+    at the other widths ``csrc/fused_stack.cu`` is built for. At
+    bfloat16: "mma" in its bf16 mode at the same widths, the only bf16
+    stack kernel. Raises for any other width (ROADMAP.md queue 2, a4; at
+    bf16, a3 and a4). The simt library's own
     ``fused_stack_supports_width`` is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
     if record_dtype(config) == torch.bfloat16:
@@ -117,8 +118,9 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     if R == D and R in SIMT_WIDTHS:
         return "simt"
     raise NotImplementedError(
-        f"the fused_stack kernels are built for R == D in {SIMT_WIDTHS}; "
-        f"got R={R}, D={D}")
+        f"the fused_stack kernels are built for R == D in "
+        f"{tuple(sorted(set(SIMT_WIDTHS + MMA_WIDTHS)))}; got R={R}, D={D} "
+        "(ROADMAP.md queue 2, a4)")
 
 
 def require_float32(config: WaveNetConfig, op: str) -> None:
@@ -323,7 +325,7 @@ def _route(kernel: str, config: WaveNetConfig):
     if not built:
         raise NotImplementedError(
             f"{prefix}: not built for R={R}, D={D} (R == D, see "
-            "stack_kernel_plan)")
+            "stack_kernel_plan; ROADMAP.md queue 2, a4)")
     return used, lib, prefix, "bf16" if bf16 else "f32"
 
 
