@@ -139,9 +139,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    run) and b256 x 2,000 (``sampler_decode``'s LC mode).
 7. The retired training stacks (TPU kernels 6-8), at the paper and gc
    configs' full width, b8 x (receptive field + 16,000): the
-   ``fused_stack_carry`` kernel behind generations v1 and v2 against the
+   ``fused_stack_carry`` kernel behind generations v1 and v2 (a wavefront
+   across time tiles on the grid ``carry_plan`` sizes, printed with the
+   card's resident blocks; 3xTF32 on the tensor cores) against the
    plain versions (phase 5's tolerances and per-slice check), bitwise
-   repeatable, and against kernel 5, each call timed; then the main path
+   repeatable in both directions, and against kernel 5, each call timed
+   beside its bound under the 3xTF32 peak and kernel 5's two kernels'
+   times; then the main path
    of this slice: 4 Adam steps of the gc config through
    ``train_lib.make_train_step`` at ``pallas_stack_version`` 1 and 2, from
    the same params and batches as 4 version-3 steps (first loss within
@@ -2524,13 +2528,17 @@ def phase_lc_main_path(c, p, gpu):
 
 
 def phase_carry_stacks(cfgs, params, rng, gpu):
-    """Phase 7 (a): the carry kernel behind v1 and v2 against the plain
-    versions and against kernel 5, each call timed."""
+    """Phase 7 (a): the carry kernel behind v1 and v2 (a wavefront across
+    time tiles on the grid that ``carry_plan`` sizes from the card's
+    resident blocks; 3xTF32 on the tensor cores) against the plain
+    versions and against kernel 5, bitwise repeatable in both directions,
+    each call timed beside kernel 5's two kernels."""
     import torch
     from wavenet_torch.experiments import fused_stack as fs1
     from wavenet_torch.experiments import fused_stack2 as fs2
     from wavenet_torch.kernels import fused_stack as fs3
-    from wavenet_torch.utils.flops import bound_ms, fused_stack_cost
+    from wavenet_torch.utils.flops import (H100_TF32X3_FLOPS, bound_ms,
+                                           fused_stack_cost)
 
     results = {}
     for name in ("paper", "gc"):
@@ -2545,6 +2553,7 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
         w_fg, wd, _, bd = args[1:]
         y1, fg1 = fs1.fused_stack_forward(*args, c)
         y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
+        again = fs2.fused_stack2_forward(*args, c)
         yp, fgp, zp = fs2.fused_stack2_forward_reference(*args, c)
         y5, _, z5 = fs3.forward(*args, c)
         g1 = fs1.fused_stack_backward(yp, fgp, dz, dy, w_fg, wd, bd, c)
@@ -2555,6 +2564,12 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
         torch.cuda.synchronize()
         row = {"phase": "carry_stack", "config": name, "batch": B,
                "positions": T, "gpu": gpu}
+        for kind, backward in (("fwd", False), ("bwd", True)):
+            resident, plan = fs1.device_carry_plan(c, B, backward)
+            row[f"plan_{kind}"] = {"resident_blocks": resident,
+                                   "nchunk": plan.nchunk,
+                                   "grid": list(plan.grid),
+                                   "tiles": -(-T // fs1.CARRY_TILE)}
         err = {"fwd_v1": max(hold(row, "y_v1", y1, yp, FWD_RTOL, FWD_ATOL),
                              hold(row, "fg_v1", fg1, fgp, FWD_RTOL,
                                   FWD_ATOL)),
@@ -2568,8 +2583,13 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
             err["bwd"] = max(err["bwd"], hold(row, label, a, b, GRAD_RTOL,
                                               GRAD_ATOL, lead))
         # One kernel behind both wrappers, sums in a fixed order.
+        check(torch.equal(y1, y2) and torch.equal(fg1, fg2)
+              and all(torch.equal(a, b) for a, b in zip((y2, fg2, z2),
+                                                       again)),
+              f"{name}: two forward calls on the same inputs differ")
         check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
               f"{name}: two backward calls on the same inputs differ")
+        row["bitwise_repeat_forward"] = True
         row["bitwise_repeat_backward"] = True
         # Kernel 5 computes the same map by another design.
         hold(row, "y_vs_kernel5", y2, y5, FWD_RTOL, FWD_ATOL)
@@ -2592,18 +2612,22 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
         for kind, (kern, plain, backward) in timed.items():
             flops, nbytes = fused_stack_cost(c, B, T, backward=backward,
                                              emit_z=kind != "fwd_v1")
-            bound, by = bound_ms(flops, nbytes)
+            # The carry kernel multiplies in 3xTF32 on the tensor cores.
+            bound, by = bound_ms(flops, nbytes, H100_TF32X3_FLOPS)
             ms_k, ms_p = median_cuda_ms(kern), median_cuda_ms(plain)
             row.update({f"{kind}_ms": ms_k, f"{kind}_plain_ms": ms_p,
                         f"{kind}_bound_ms": bound, f"{kind}_bound_by": by})
             results[(name, kind)] = dict(max_abs_err=err[kind], ms=ms_k,
                                          plain_ms=ms_p, bound_ms=bound,
                                          bound_by=by)
-        row["kernel5_fwd_ms"] = median_cuda_ms(lambda: fs3.forward(*args, c))
-        row["kernel5_bwd_ms"] = median_cuda_ms(
-            lambda: fs3.backward(yp, dy, fgp, dz, w_fg, wd, bd, c))
+        for k in STACK_ROUTES:
+            row[f"kernel5_{k}_fwd_ms"] = median_cuda_ms(
+                lambda: fs3.forward(*args, c, kernel=k))
+            row[f"kernel5_{k}_bwd_ms"] = median_cuda_ms(
+                lambda: fs3.backward(yp, dy, fgp, dz, w_fg, wd, bd, c,
+                                     kernel=k))
         emit(row)
-        del args, dy, dz, y1, fg1, y2, fg2, z2, yp, fgp, zp, y5, z5
+        del args, dy, dz, y1, fg1, y2, fg2, z2, again, yp, fgp, zp, y5, z5
         del g1, g2, gp, g5
         torch.cuda.empty_cache()
     return results

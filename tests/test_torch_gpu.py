@@ -659,41 +659,117 @@ _GRADS =("dx", "dw", "dwd", "dadd", "dbd")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W,dilations,B,T", [
-    (8, (1, 2, 4, 8, 16, 512), 2, 1100),      # v1's limit, d = 512
-    (16, (1, 64, 2, 1024, 5), 3, 1500),       # v2's limit, d = 1024
-    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500),
+@pytest.mark.parametrize("W,dilations,B,T,nchunk,ref64", [
+    (8, (1, 2, 4, 8, 16, 512), 2, 1100, None, False),   # v1's limit, d = 512
+    (16, (1, 64, 2, 1024, 5), 3, 1500, None, False),    # v2's limit, d = 1024
+    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500, None, False),
+    # A deep wavefront: one row of 157 tiles spread over the card. Each
+    # weight gradient sums 20,000 rows, and the float32 plain version's
+    # own rounding error is then a sizeable part of GRAD_TOL at a
+    # near-zero element: the reference is the plain version in float64.
+    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 1, 20000, None, True),
+    # More rows than resident blocks: one block a row (nchunk 1).
+    (8, (1, 2, 4, 8, 16, 32), "over", 300, None, False),
+    # A pinned plan: 3 blocks a row over 8 tiles (not a multiple of 3).
+    (16, (1, 200, 3, 64, 7), 2, 946, 3, False),
 ])
-def test_carry_stack_matches_reference(setup, W, dilations, B, T):
+def test_carry_stack_matches_reference(setup, W, dilations, B, T, nchunk,
+                                       ref64):
     """v1's and v2's wrappers of the carry kernel against the plain
     versions (T is not a multiple of the kernel's 128-step tile, and a
-    dilation reaches the generation's ``supports`` limit); the backward is
-    bitwise repeatable."""
+    dilation reaches the generation's ``supports`` limit), on the plan's
+    grid or a pinned one; the backward is bitwise repeatable."""
+    if B == "over":
+        c = _stack_inputs(W, dilations, 1, 1)[0]
+        B = 1 + max(fs1.device_carry_plan(c, 1, bw)[0] for bw in (0, 1))
+        assert all(fs1.device_carry_plan(c, B, bw)[1].nchunk == 1
+                   for bw in (0, 1))
     c, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    dt = torch.float64 if ref64 else torch.float32
+    plan = None if nchunk is None else fs1.CarryPlan(nchunk, (nchunk, B))
     counts = (fs1.fused_stack_forward.launches,
               fs2.fused_stack2_forward.launches,
               fs1.fused_stack_backward.launches,
               fs2.fused_stack2_backward.launches)
-    y1, fg1 = fs1.fused_stack_forward(*args, c)
-    y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
-    yr, fgr, zr = fs2.fused_stack2_forward_reference(*args, c)
+    y1, fg1 = fs1.fused_stack_forward(*args, c, _plan=plan)
+    y2, fg2, z2 = fs2.fused_stack2_forward(*args, c, _plan=plan)
+    yr, fgr, zr = fs2.fused_stack2_forward_reference(
+        *[a.to(dt) for a in args], c)
     torch.cuda.synchronize()
     for got, ref in ((y1, yr), (fg1, fgr), (y2, yr), (fg2, fgr), (z2, zr)):
-        torch.testing.assert_close(got, ref, **FWD_TOL)
+        torch.testing.assert_close(got.to(dt), ref, **FWD_TOL)
     w_fg, wd, _, bd = args[1:]
-    g1 = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c)
-    g2 = fs2.fused_stack2_backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
-    ref = fs2.fused_stack2_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd,
-                                              c)
+    yr, fgr = yr.float(), fgr.float()
+    g1 = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c,
+                                  _plan=plan)
+    g2 = fs2.fused_stack2_backward(yr, dy, fgr, dz, w_fg, wd, bd, c,
+                                   _plan=plan)
+    ref = fs2.fused_stack2_backward_reference(
+        *[t.to(dt) for t in (yr, dy, fgr, dz, w_fg, wd, bd)], c)
     torch.cuda.synchronize()
     for name, got, want in zip(_GRADS, g1, ref):
-        torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
+        torch.testing.assert_close(got.to(dt), want, **GRAD_TOL, msg=name)
     # One kernel behind both wrappers, fixed-order sums: bitwise equal.
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert torch.equal(y1, y2) and torch.equal(fg1, fg2)
     assert (fs1.fused_stack_forward.launches,
             fs2.fused_stack2_forward.launches,
             fs1.fused_stack_backward.launches,
             fs2.fused_stack2_backward.launches) == tuple(n + 1 for n in counts)
+
+
+@pytest.mark.gpu
+def test_carry_plan_matches_library(setup):
+    """``carry_plan`` (pure) against the library's own rule, on the
+    library's resident counts of each direction and width, and
+    ``carry_scratch_floats`` (the size the wrappers allocate) against the
+    library's."""
+    lib = fs1._lib()
+    for W in (8, 16, 32):
+        for backward in (0, 1):
+            n = lib.fused_stack_carry_resident_blocks(backward, W, W)
+            assert n >= 1, (W, backward, n)
+            for B in (1, 2, 8, 64, n - 1, n, n + 1, 3 * n):
+                if B >= 1:
+                    nchunk = fs1.carry_plan(B, n).nchunk
+                    assert nchunk == lib.fused_stack_carry_nchunk(
+                        backward, B, W, W), (W, B)
+                    for L, sum_d in ((1, 1), (10, 1023), (30, 3069)):
+                        assert (fs1.carry_scratch_floats(
+                            bool(backward), B, L, W, W, sum_d, nchunk)
+                            == lib.fused_stack_carry_scratch_floats(
+                                backward, B, L, W, W, sum_d, nchunk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [8, 32])
+def test_carry_stack_across_plans(setup, W):
+    """The same stack on grids of 1, 2, 3, 5 and 20 blocks a row (14
+    tiles: 20 leaves blocks without a tile) and on the card's plan: y, fg,
+    z and dx bitwise equal (a position's arithmetic does not depend on the
+    block that computes it), the weight gradients within GRAD_TOL (summed
+    by chunk, in a fixed order), and each grid's repeats bitwise equal."""
+    B, T = 2, 1700
+    c, args, (dy, dz) = _stack_inputs(W, (1, 2, 4, 8, 130, 3, 700), B, T, 3)
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = fs2.fused_stack2_forward_reference(*args, c)
+    plans = [fs1.CarryPlan(n, (n, B)) for n in (1, 2, 3, 5, 20)] + [None]
+    outs, grads = [], []
+    for plan in plans:
+        pair = [fs2.fused_stack2_forward(*args, c, _plan=plan)
+                for _ in range(2)]
+        gpair = [fs2.fused_stack2_backward(yr, dy, fgr, dz, w_fg, wd, bd, c,
+                                           _plan=plan) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*pair)), plan
+        assert all(torch.equal(a, b) for a, b in zip(*gpair)), plan
+        outs.append(pair[0])
+        grads.append(gpair[0])
+    for out, g, plan in zip(outs[1:], grads[1:], plans[1:]):
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0])), plan
+        assert torch.equal(g[0], grads[0][0]), plan
+        for name, got, want in zip(_GRADS[1:], g[1:], grads[0][1:]):
+            torch.testing.assert_close(got, want, **GRAD_TOL, msg=name)
 
 
 @pytest.mark.gpu

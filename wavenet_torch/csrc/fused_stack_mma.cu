@@ -123,7 +123,7 @@ struct Tf32x3 {
   static constexpr bool kBf16 = false;
   static constexpr int KS = 8, WPER = 2;
   using W = uint4;                     // {hi(b0), hi(b1), lo(b0), lo(b1)}
-  struct A { uint32_t hi[4], lo[4]; };
+  using A = Tf32Frag;                  // afrag, afrag_t, bfrag: tf32_mma.cuh
   using Rec = float;
 };
 
@@ -293,18 +293,8 @@ __device__ __forceinline__ auto wfrag(const WS* w, int ks, int nt, int lane) {
   return operand(w[(ks * NTN + nt) * 32 + lane]);
 }
 
-// A fragment of rows m0.. and columns k0.. of a row-major tile.
-template <int S>
-__device__ __forceinline__ void afrag(const float* s, int m0, int k0, int lane,
-                                      Tf32x3::A& a) {
-  const int g = lane >> 2, q = lane & 3;
-  const float* p = s + (m0 + g) * S + k0 + q;
-  tf32_split(p[0], a.hi[0], a.lo[0]);
-  tf32_split(p[8 * S], a.hi[1], a.lo[1]);
-  tf32_split(p[4], a.hi[2], a.lo[2]);
-  tf32_split(p[8 * S + 4], a.hi[3], a.lo[3]);
-}
-
+// bf16 fragment loaders (the f32 ones are tf32_mma.cuh's): a fragment of
+// rows m0.. and columns k0.. of a row-major tile.
 template <int S, typename T>
 __device__ __forceinline__ void afrag(const T* s, int m0, int k0, int lane,
                                       Bf16::A& a) {
@@ -320,18 +310,6 @@ __device__ __forceinline__ void afrag(const T* s, int m0, int k0, int lane,
   a.v[3] = pack_bf16(v.x, v.y);
 }
 
-// A fragment of the transpose: A[m][k] = s[k][m] (rows m0.., k0..).
-template <int S>
-__device__ __forceinline__ void afrag_t(const float* s, int m0, int k0,
-                                        int lane, Tf32x3::A& a) {
-  const int g = lane >> 2, q = lane & 3;
-  const float* p = s + (k0 + q) * S + m0 + g;
-  tf32_split(p[0], a.hi[0], a.lo[0]);
-  tf32_split(p[8], a.hi[1], a.lo[1]);
-  tf32_split(p[4 * S], a.hi[2], a.lo[2]);
-  tf32_split(p[4 * S + 8], a.hi[3], a.lo[3]);
-}
-
 // bf16: the pairs along k are two rows of the tile, packed by hand.
 template <int S, typename T>
 __device__ __forceinline__ void afrag_t(const T* s, int m0, int k0, int lane,
@@ -342,16 +320,6 @@ __device__ __forceinline__ void afrag_t(const T* s, int m0, int k0, int lane,
   a.v[1] = pack_bf16(tof(p[8]), tof(p[S + 8]));
   a.v[2] = pack_bf16(tof(p[8 * S]), tof(p[9 * S]));
   a.v[3] = pack_bf16(tof(p[8 * S + 8]), tof(p[9 * S + 8]));
-}
-
-// B fragment of a row-major activation tile: B[k][n] = s[k][n].
-template <int S>
-__device__ __forceinline__ void bfrag(const float* s, int k0, int n0,
-                                      int lane, uint4& b) {
-  const int g = lane >> 2, q = lane & 3;
-  const float* p = s + (k0 + q) * S + n0 + g;
-  tf32_split(p[0], b.x, b.z);
-  tf32_split(p[4 * S], b.y, b.w);
 }
 
 template <int S, typename T>

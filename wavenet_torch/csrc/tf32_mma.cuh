@@ -1,5 +1,6 @@
 // Tensor-core and copy primitives of the stack's 3xTF32 kernels
-// (fused_stack_mma.cu), as inline PTX for sm_90a.
+// (fused_stack_mma.cu, fused_stack_carry.cu), as inline PTX for sm_90a,
+// and the fragment loaders of their float32 shared-memory tiles.
 //
 // 3xTF32 is the Hopper counterpart of the JAX package's mxu_dot at
 // Precision.HIGHEST (wavenet_tpu/kernels/mxu.py): each float32 operand is
@@ -52,6 +53,47 @@ __device__ __forceinline__ void mma3_tf32_n(float (&c)[NJ][4],
   for (int j = 0; j < NJ; ++j) mma_tf32(c[j], ah, b[j].z, b[j].w);
 #pragma unroll
   for (int j = 0; j < NJ; ++j) mma_tf32(c[j], ah, b[j].x, b[j].y);
+}
+
+// An A fragment (m16 x k8) split into its TF32 parts.
+struct Tf32Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// A fragment of rows m0.. and columns k0.. of a row-major tile of row
+// stride S.
+template <int S>
+__device__ __forceinline__ void afrag(const float* s, int m0, int k0, int lane,
+                                      Tf32Frag& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (m0 + g) * S + k0 + q;
+  tf32_split(p[0], a.hi[0], a.lo[0]);
+  tf32_split(p[8 * S], a.hi[1], a.lo[1]);
+  tf32_split(p[4], a.hi[2], a.lo[2]);
+  tf32_split(p[8 * S + 4], a.hi[3], a.lo[3]);
+}
+
+// A fragment of the transpose: A[m][k] = s[k][m] (rows m0.., k0..).
+template <int S>
+__device__ __forceinline__ void afrag_t(const float* s, int m0, int k0,
+                                        int lane, Tf32Frag& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + q) * S + m0 + g;
+  tf32_split(p[0], a.hi[0], a.lo[0]);
+  tf32_split(p[8], a.hi[1], a.lo[1]);
+  tf32_split(p[4 * S], a.hi[2], a.lo[2]);
+  tf32_split(p[4 * S + 8], a.hi[3], a.lo[3]);
+}
+
+// B fragment of a row-major activation tile: B[k][n] = s[k][n], split
+// {hi(b0), hi(b1), lo(b0), lo(b1)}.
+template <int S>
+__device__ __forceinline__ void bfrag(const float* s, int k0, int n0,
+                                      int lane, uint4& b) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + q) * S + n0 + g;
+  tf32_split(p[0], b.x, b.z);
+  tf32_split(p[4 * S], b.y, b.w);
 }
 
 // 16 bytes from global to shared memory, asynchronously; zeros where

@@ -12,12 +12,15 @@ in JAX. The backward takes dz and is recompute-free.
 ``fused_stack_forward`` and ``fused_stack_backward`` run the carry kernel
 (``csrc/fused_stack_carry.cu``, shared with v2: ``carry_forward``,
 ``carry_backward``) for CUDA tensors and the plain versions for CPU
-tensors; each counts its launches in ``.launches``.
+tensors; each counts its launches in ``.launches``. The kernel runs a
+wavefront across time tiles on a grid (nchunk, B) that ``carry_plan``
+sizes from the blocks the card keeps resident.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,7 +36,12 @@ _T_TILE = 512
 __all__ = ["supports", "fused_stack_forward_reference",
            "fused_stack_backward_reference", "fused_stack_forward",
            "fused_stack_backward", "fused_stack", "carry_forward",
-           "carry_backward", "pack_stack_weights", "tap_offsets"]
+           "carry_backward", "CarryPlan", "carry_plan", "device_carry_plan",
+           "carry_scratch_floats", "CARRY_TILE", "pack_stack_weights",
+           "tap_offsets"]
+
+#: Time steps of one tile of the carry kernel (csrc/fused_stack_carry.cu).
+CARRY_TILE = 128
 
 
 def supports(config: WaveNetConfig, t_tile: int = _T_TILE) -> bool:
@@ -63,20 +71,23 @@ def _fg_to_z(fg: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fused_stack_forward_reference(x, w_fg, wd, add, bd,
-                                  config: WaveNetConfig):
-    """Plain forward -> (y [B,T,R], fg [B,T,L*2D])."""
+                                  config: WaveNetConfig, matmul=torch.matmul):
+    """Plain forward -> (y [B,T,R], fg [B,T,L*2D]); every product through
+    ``matmul`` (``kernels.fused_stack.mma3_matmul`` repeats the carry
+    kernel's 3xTF32 arithmetic)."""
     y, fg, _ = _stack.fused_stack_forward_reference(x, w_fg, wd, add, bd,
-                                                    config)
+                                                    config, matmul=matmul)
     return y, fg
 
 
 def fused_stack_backward_reference(y, fg, dz, dy, w_fg, wd, bd,
-                                   config: WaveNetConfig):
+                                   config: WaveNetConfig,
+                                   matmul=torch.matmul):
     """Plain backward (an explicit reverse sweep that rebuilds each
-    layer's input by subtraction) -> (dx, dw [L,2,R,2D], dwd [L,D,R],
-    dadd [L,B,2D], dbd [L,1,R])."""
+    layer's input by subtraction; every product through ``matmul``) ->
+    (dx, dw [L,2,R,2D], dwd [L,D,R], dadd [L,B,2D], dbd [L,1,R])."""
     dx, dw_fg, dwd, dadd, dbd = _stack.fused_stack_backward_reference(
-        y, dy, fg, dz, w_fg, wd, bd, config)
+        y, dy, fg, dz, w_fg, wd, bd, config, matmul=matmul)
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
 
@@ -87,19 +98,84 @@ def fused_stack_backward_reference(y, fg, dz, dy, w_fg, wd, bd,
 _OP = "fused_stack_carry"
 
 
+class CarryPlan(NamedTuple):
+    """A carry launch's grid: ``nchunk`` blocks a batch row, grid
+    ``(nchunk, B)``. Block ``c`` of a row takes the row's tiles ``j = c,
+    c + nchunk, ...`` of its walk (the backward's walk runs from the last
+    tile)."""
+    nchunk: int
+    grid: Tuple[int, int]
+
+    def tiles(self, chunk: int, ntiles: int):
+        """The walk's tiles that block ``chunk`` of a row takes, in
+        order."""
+        return range(chunk, ntiles, self.nchunk)
+
+
+def carry_plan(B: int, resident_blocks: int) -> CarryPlan:
+    """The carry kernel's grid for B rows on a card that keeps
+    ``resident_blocks`` blocks of the kernel resident at once (pure; the
+    library's ``fused_stack_carry_nchunk`` applies the same rule). Each
+    row gets ``max(1, resident_blocks // B)`` blocks, so that where there
+    are several they all fit at once (a block waits on the block of the
+    tile before its own); where B alone fills the card, one block a row
+    walks all its tiles."""
+    if B < 1 or resident_blocks < 1:
+        raise ValueError(f"carry_plan: B={B}, resident_blocks="
+                         f"{resident_blocks}")
+    nchunk = max(1, resident_blocks // B)
+    return CarryPlan(nchunk, (nchunk, B))
+
+
+def carry_scratch_floats(backward: bool, B: int, L: int, R: int, D: int,
+                         sum_d: int, nchunk: int) -> int:
+    """Floats of scratch device memory one carry launch takes (the
+    library's ``fused_stack_carry_scratch_floats``, which a test on the
+    card holds this against): the progress counters [B, L] (padded to 4
+    floats), each row's rings (``sum_d`` rows of x, R wide, forward; of
+    da, 2D wide, backward) and, backward, one partial sum of dw_fg, dwd,
+    dbd and dadd per (layer, row, chunk)."""
+    n = -(-B * L // 4) * 4
+    if not backward:
+        return n + B * sum_d * R
+    return (n + B * sum_d * 2 * D
+            + L * B * nchunk * (4 * R * D + D * R + R + 2 * D))
+
+
 def _lib():
     from wavenet_torch.kernels import _build
     lib = _build.load("fused_stack_carry")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_stack_carry_supports.argtypes = [i, i, i]
     lib.fused_stack_carry_supports.restype = i
-    lib.fused_stack_carry_scratch_floats.argtypes = [i] * 6
+    lib.fused_stack_carry_resident_blocks.argtypes = [i, i, i]
+    lib.fused_stack_carry_resident_blocks.restype = i
+    lib.fused_stack_carry_nchunk.argtypes = [i, i, i, i]
+    lib.fused_stack_carry_nchunk.restype = i
+    lib.fused_stack_carry_scratch_floats.argtypes = [i] * 7
     lib.fused_stack_carry_scratch_floats.restype = ctypes.c_longlong
-    lib.fused_stack_carry_fwd_f32.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.fused_stack_carry_fwd_f32.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fused_stack_carry_fwd_f32.restype = i
-    lib.fused_stack_carry_bwd_f32.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.fused_stack_carry_bwd_f32.argtypes = [p] * 14 + [i] * 6 + [p]
     lib.fused_stack_carry_bwd_f32.restype = i
     return lib
+
+
+_RESIDENT = {}   # (device, backward, R, D) -> resident blocks
+
+
+def device_carry_plan(config: WaveNetConfig, B: int, backward: bool):
+    """(resident blocks, plan) of a direction's kernel on the current
+    card at the config's width (builds the kernel)."""
+    R, D = config.residual_channels, config.dilation_channels
+    key = (torch.cuda.current_device(), bool(backward), R, D)
+    if key not in _RESIDENT:
+        n = _lib().fused_stack_carry_resident_blocks(int(backward), R, D)
+        if n < 1:
+            raise RuntimeError(f"fused_stack_carry: no resident block at "
+                               f"R={R}, D={D} (code {n})")
+        _RESIDENT[key] = n
+    return _RESIDENT[key], carry_plan(B, _RESIDENT[key])
 
 
 def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
@@ -122,14 +198,16 @@ def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
 
 
 def carry_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
-                  emit_z: bool):
+                  emit_z: bool, _plan: Optional[CarryPlan] = None):
     """One launch of the carry kernel's forward on CUDA tensors -> (y, fg,
-    z or None): z [B,T,L*D] only when ``emit_z`` (v2)."""
+    z or None): z [B,T,L*D] only when ``emit_z`` (v2). ``_plan`` pins the
+    grid (tests); by default ``device_carry_plan``'s."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = x.shape[:2]
     lib = _lib()
     dil = _check_call(lib, c, x, w_fg, wd, bd)
+    plan = _plan or device_carry_plan(c, B, backward=False)[1]
     dev = x.device
     _launch.check(_OP, "x", x, (B, T, R), dev)
     _launch.check(_OP, "add", add, (L, B, 2 * D), dev)
@@ -137,28 +215,31 @@ def carry_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
     y = torch.empty((B, T, R), **f32)
     fg = torch.empty((B, T, L * 2 * D), **f32)
     z = torch.empty((B, T, L * D), **f32) if emit_z else None
-    scratch = torch.empty((lib.fused_stack_carry_scratch_floats(
-        0, B, L, R, D, sum(c.dilations)),), **f32)
+    scratch = torch.empty((carry_scratch_floats(
+        False, B, L, R, D, sum(c.dilations), plan.nchunk),), **f32)
     err = lib.fused_stack_carry_fwd_f32(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
         None if z is None else z.data_ptr(), scratch.data_ptr(), B, T, L, R,
-        D, _launch.stream(dev))
+        D, plan.nchunk, _launch.stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_stack_carry forward launch failed: CUDA "
                            f"error {err}")
     return y, fg, z
 
 
-def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
+def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
+                   _plan: Optional[CarryPlan] = None):
     """The carry kernel's backward on CUDA tensors -> (dx, dw_fg [L,2R,2D],
     dwd, dadd [L,B,2D], dbd [L,1,R]); gradients summed in a fixed order,
-    so repeated calls are bitwise equal."""
+    so repeated calls on one grid are bitwise equal. ``_plan`` as in
+    ``carry_forward``."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = y.shape[:2]
     lib = _lib()
     dil = _check_call(lib, c, y, w_fg, wd, bd)
+    plan = _plan or device_carry_plan(c, B, backward=True)[1]
     dev = y.device
     for name, t, shape in (("y", y, (B, T, R)), ("dy", dy, (B, T, R)),
                            ("fg", fg, (B, T, L * 2 * D)),
@@ -170,13 +251,13 @@ def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
     dwd = torch.empty((L, D, R), **f32)
     dadd = torch.empty((L, B, 2 * D), **f32)
     dbd = torch.empty((L, 1, R), **f32)
-    scratch = torch.empty((lib.fused_stack_carry_scratch_floats(
-        1, B, L, R, D, sum(c.dilations)),), **f32)
+    scratch = torch.empty((carry_scratch_floats(
+        True, B, L, R, D, sum(c.dilations), plan.nchunk),), **f32)
     err = lib.fused_stack_carry_bwd_f32(
         y.data_ptr(), dy.data_ptr(), fg.data_ptr(), dz.data_ptr(),
         w_fg.data_ptr(), wd.data_ptr(), bd.data_ptr(), ctypes.addressof(dil),
         dx.data_ptr(), dw_fg.data_ptr(), dwd.data_ptr(), dadd.data_ptr(),
-        dbd.data_ptr(), scratch.data_ptr(), B, T, L, R, D,
+        dbd.data_ptr(), scratch.data_ptr(), B, T, L, R, D, plan.nchunk,
         _launch.stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_stack_carry backward launch failed: CUDA "
@@ -188,30 +269,33 @@ def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig):
 # v1's wrappers and differentiable op
 # ---------------------------------------------------------------------------
 
-def fused_stack_forward(x, w_fg, wd, add, bd, config: WaveNetConfig):
+def fused_stack_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
+                        _plan: Optional[CarryPlan] = None):
     """Whole stack -> (y [B,T,R], fg [B,T,L*2D]).
 
     CPU tensors run ``fused_stack_forward_reference``; CUDA tensors launch
-    the carry kernel (without z) or raise."""
+    the carry kernel (without z; ``_plan`` pins its grid) or raise."""
     if not _launch.use_kernel(_OP, x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
-    y, fg, _ = carry_forward(x, w_fg, wd, add, bd, config, emit_z=False)
+    y, fg, _ = carry_forward(x, w_fg, wd, add, bd, config, emit_z=False,
+                             _plan=_plan)
     fused_stack_forward.launches += 1
     return y, fg
 
 
 def fused_stack_backward(y, fg, dz, dy, w_fg, wd, bd,
-                         config: WaveNetConfig):
+                         config: WaveNetConfig,
+                         _plan: Optional[CarryPlan] = None):
     """VJP of the stack from saved (y, fg) -> (dx, dw [L,2,R,2D], dwd,
     dadd [L,B,2D], dbd [L,1,R]) (the JAX argument order).
 
     CPU tensors run ``fused_stack_backward_reference``; CUDA tensors
-    launch the carry kernel or raise."""
+    launch the carry kernel (``_plan`` pins its grid) or raise."""
     if not _launch.use_kernel(_OP, y):
         return fused_stack_backward_reference(y, fg, dz, dy, w_fg, wd, bd,
                                               config)
     dx, dw_fg, dwd, dadd, dbd = carry_backward(y, dy, fg, dz, w_fg, wd, bd,
-                                               config)
+                                               config, _plan=_plan)
     fused_stack_backward.launches += 1
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 

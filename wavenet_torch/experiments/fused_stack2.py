@@ -19,10 +19,12 @@ plain versions for CPU tensors; each counts its launches in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from wavenet_torch.experiments.fused_stack import (
-    _OP, _dw_split, carry_backward, carry_forward)
+    _OP, CarryPlan, _dw_split, carry_backward, carry_forward)
 from wavenet_torch.kernels import _launch
 from wavenet_torch.kernels import fused_stack as _stack
 from wavenet_torch.kernels.stack_pack import pack_stack_weights
@@ -48,44 +50,51 @@ def supports(config: WaveNetConfig, t_tile: int = _T_TILE_BWD) -> bool:
 
 
 def fused_stack2_forward_reference(x, w_fg, wd, add, bd,
-                                   config: WaveNetConfig):
-    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D])."""
-    return _stack.fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
+                                   config: WaveNetConfig,
+                                   matmul=torch.matmul):
+    """Plain forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]); every
+    product through ``matmul``."""
+    return _stack.fused_stack_forward_reference(x, w_fg, wd, add, bd, config,
+                                                matmul=matmul)
 
 
 def fused_stack2_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
-                                    config: WaveNetConfig):
+                                    config: WaveNetConfig,
+                                    matmul=torch.matmul):
     """Plain backward -> (dx, dw [L,2,R,2D], dwd [L,D,R], dadd [L,B,2D],
-    dbd [L,1,R])."""
+    dbd [L,1,R]); every product through ``matmul``."""
     dx, dw_fg, dwd, dadd, dbd = _stack.fused_stack_backward_reference(
-        y, dy, fg, dz, w_fg, wd, bd, config)
+        y, dy, fg, dz, w_fg, wd, bd, config, matmul=matmul)
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
 
-def fused_stack2_forward(x, w_fg, wd, add, bd, config: WaveNetConfig):
+def fused_stack2_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
+                         _plan: Optional[CarryPlan] = None):
     """Whole stack -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]).
 
     CPU tensors run ``fused_stack2_forward_reference``; CUDA tensors
-    launch the carry kernel (with z) or raise."""
+    launch the carry kernel (with z; ``_plan`` pins its grid) or raise."""
     if not _launch.use_kernel(_OP, x):
         return fused_stack2_forward_reference(x, w_fg, wd, add, bd, config)
-    out = carry_forward(x, w_fg, wd, add, bd, config, emit_z=True)
+    out = carry_forward(x, w_fg, wd, add, bd, config, emit_z=True,
+                        _plan=_plan)
     fused_stack2_forward.launches += 1
     return out
 
 
 def fused_stack2_backward(y, dy, fg, dz, w_fg, wd, bd,
-                          config: WaveNetConfig):
+                          config: WaveNetConfig,
+                          _plan: Optional[CarryPlan] = None):
     """VJP of the stack from saved (y, fg) -> (dx, dw [L,2,R,2D], dwd,
     dadd [L,B,2D], dbd [L,1,R]) (the JAX argument order).
 
     CPU tensors run ``fused_stack2_backward_reference``; CUDA tensors
-    launch the carry kernel or raise."""
+    launch the carry kernel (``_plan`` pins its grid) or raise."""
     if not _launch.use_kernel(_OP, y):
         return fused_stack2_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
                                                config)
     dx, dw_fg, dwd, dadd, dbd = carry_backward(y, dy, fg, dz, w_fg, wd, bd,
-                                               config)
+                                               config, _plan=_plan)
     fused_stack2_backward.launches += 1
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
