@@ -155,6 +155,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``fused_dilated_layer`` stack under autograd against kernel 5, its
    launches counted from 0.
 
+8. The probes (TPU kernels 9-10): the r2 and r2b tools' kernels on the
+   FP32 cores (``fwd_bisect``) and on the tensor cores
+   (``fwd_bisect_mma``: ``fused_stack_mma``'s forward with parts masked,
+   at the paper and wide configs; r2b's core math in one launch), every
+   variant at float32 and bf16 against its plain version, timed beside
+   its bound (FP32 / bf16 peak on the FP32 cores, 3xTF32 / bf16 on the
+   tensor cores), the tensor-core ones repeated bitwise and their
+   ``full`` and ``rolled`` bitwise ``fused_stack.forward(kernel="mma")``;
+   the r3 decode-step bisect and the r4 matvec forms; then the main path,
+   each tool's own ``main`` (r2 at both configs), launches counted from
+   0, every variant of each kernel launched.
+
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
 outside a checkout of the repository.
@@ -301,7 +313,8 @@ LC_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_lc", 1),
 LC_SOURCES = {"cluster": "sampler_cluster_lc", "decode": "sampler_decode_lc"}
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
-KERNELS = KERNELS + ("fwd_bisect", "b1_bisect", "matvec_probe")
+KERNELS = KERNELS + ("fwd_bisect", "fwd_bisect_mma", "b1_bisect",
+                     "matvec_probe")
 # Phase 8: the probes. Steps of one b1_bisect launch (checked and timed)
 # and of the tool's own run; steps of one matvec_probe launch (timed) and
 # of the one held against its plain version.
@@ -2796,8 +2809,9 @@ def probe_hold(row, label, got, ref, bf16: bool) -> float:
     the errors in ``row``."""
     import torch
     got, ref = got.float(), ref.float()
-    where = " ".join(str(row[k]) for k in ("probe", "variant", "mode",
-                                           "tile", "dtype") if k in row)
+    where = " ".join(str(row[k]) for k in ("probe", "kernel", "config",
+                                           "variant", "mode", "tile",
+                                           "dtype") if k in row)
     where = f"{where} {label}"
     check(torch.isfinite(got).all().item(), f"{where}: non-finite output")
     rtol, atol = (PROBE_BF16_RTOL, 0.0) if bf16 else (FWD_RTOL, FWD_ATOL)
@@ -2814,10 +2828,22 @@ def probe_hold(row, label, got, ref, bf16: bool) -> float:
     return err
 
 
-def probe_bound(flops: float, nbytes: float, bf16: bool):
+def probe_bound(flops: float, nbytes: float, peak: float):
+    """(bound ms, "bytes" or "operations") at the operations' ``peak``."""
     from wavenet_torch.utils.flops import bound_ms
-    return bound_ms(flops, nbytes, BF16_FLOPS if bf16 else FP32_FLOPS,
-                    HBM_BYTES_PER_S)
+    return bound_ms(flops, nbytes, peak, HBM_BYTES_PER_S)
+
+
+def simt_peak(bf16: bool) -> float:
+    """The peak of the FP32-core probes: FP32, or the bf16 one for bf16
+    operands (rows 9a/9b, 10)."""
+    return BF16_FLOPS if bf16 else FP32_FLOPS
+
+
+def mma_peak(bf16: bool) -> float:
+    """The peak of the tensor-core probes (rows 9c/9d): 3xTF32, or bf16."""
+    from wavenet_torch.utils.flops import H100_BF16_FLOPS, H100_TF32X3_FLOPS
+    return H100_BF16_FLOPS if bf16 else H100_TF32X3_FLOPS
 
 
 def fwd_bisect_cost(c, B: int, T: int, variant: str, bf16: bool):
@@ -2849,46 +2875,53 @@ def fwd_bisect2_cost(c, B: int, T: int, variant: str, bf16: bool):
     return 2.0 * rows * L * per, 8.0 * rows * R + esz * L * per
 
 
-def phase_fwd_bisect(c, params, rng, gpu):
-    """Phase 8 (a): kernel 5's forward by r2 variant (TPU kernel 9a), and
-    its core math by r2b variant (9b), at the paper config, b8 x (rf +
-    16,000) (r2 on phase 5's stack inputs): each variant at float32 and
-    bf16 against its plain version and timed; ``full`` at float32 bitwise
-    kernel 5's forward."""
+def phase_fwd_bisect(cfgs, params, rng, gpu):
+    """Phase 8 (a): the stack's forward by r2 variant and its core math by
+    r2b variant, b8 x (rf + 16,000) (r2 on phase 5's stack inputs), each
+    variant at float32 and bf16 against its plain version and timed: on
+    the FP32 cores (TPU kernels 9a, 9b) at the paper config, ``full`` at
+    float32 bitwise kernel 5's forward; on the tensor cores (9c at the
+    paper and wide configs, 9d at the paper config), each repeated
+    bitwise, ``full`` and ``rolled`` bitwise ``fused_stack.forward(kernel=
+    "mma")`` in both modes, bounds under 3xTF32 and bf16."""
+    import dataclasses
+
     import torch
     from wavenet_torch.kernels import fused_stack as fs
     from wavenet_torch.tools import DTYPE_NAMES
     from wavenet_torch.tools import r2_fwd_bisect as r2
     from wavenet_torch.tools import r2_fwd_bisect2 as r2b
 
-    args = stack_inputs(c, params, rng)
+    c = cfgs["paper"]
+    args = stack_inputs(c, params["paper"], rng)
     B, T = args[0].shape[:2]
     want = fs.forward(*args, c, kernel="simt")
-    got = r2.fwd_bisect(*args, c, "full")
+    got = r2.fwd_bisect(*args, c, "full", kernel="simt")
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "fwd_bisect full (float32) differs from kernel 5's forward")
     emit({"phase": "probe", "probe": "r2_fwd_bisect", "config": "paper",
-          "full_f32_bitwise_kernel5": True, "gpu": gpu})
+          "kernel": "simt", "full_f32_bitwise_kernel5": True, "gpu": gpu})
     del got, want
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
         for v in r2.VARIANTS:
             row = {"phase": "probe", "probe": "r2_fwd_bisect",
-                   "config": "paper", "variant": v, "dtype": dt,
-                   "batch": B, "positions": T}
-            got = r2.fwd_bisect(*args, c, v, dtype)
-            ref = r2.fwd_bisect_reference(*args, c, v, dtype)
+                   "kernel": "simt", "config": "paper", "variant": v,
+                   "dtype": dt, "batch": B, "positions": T}
+            got = r2.fwd_bisect(*args, c, v, dtype, kernel="simt")
+            ref = r2.fwd_bisect_reference(*args, c, v, dtype, kernel="simt")
             torch.cuda.synchronize()
             err = max(probe_hold(row, n, a, b, bf16) for n, a, b in
                       zip(("y", "fg", "z"), got, ref) if a is not None)
             del got, ref
-            ms = median_cuda_ms(lambda: r2.fwd_bisect(*args, c, v, dtype))
+            ms = median_cuda_ms(lambda: r2.fwd_bisect(*args, c, v, dtype,
+                                                      kernel="simt"))
             plain = median_cuda_ms(lambda: r2.fwd_bisect_reference(
-                *args, c, v, dtype), reps=3)
+                *args, c, v, dtype, kernel="simt"), reps=3)
             flops, nbytes = fwd_bisect_cost(c, B, T, v, bf16)
-            bound, by = probe_bound(flops, nbytes, bf16)
+            bound, by = probe_bound(flops, nbytes, simt_peak(bf16))
             row.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                        flops=flops, bytes=nbytes, gpu=gpu)
             emit(row)
@@ -2897,31 +2930,98 @@ def phase_fwd_bisect(c, params, rng, gpu):
                                          bound_by=by)
             torch.cuda.empty_cache()
     del args
-    args = r2b.inputs(c, TRAIN_BATCH, TRAIN_SAMPLES, "cuda")
-    for dtype in (torch.bfloat16, torch.float32):
-        dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
-        for v in r2b.VARIANTS:
-            for tile in sorted(r2b.TILES):
-                row = {"phase": "probe", "probe": "r2_fwd_bisect2",
-                       "config": "paper", "variant": v, "tile": tile,
-                       "rows_per_block": r2b.TILES[tile], "dtype": dt,
-                       "batch": B, "positions": T}
-                got = r2b.fwd_bisect2(*args, v, tile, dtype)
-                ref = r2b.fwd_bisect2_reference(*args, v, tile, dtype)
+    # 9c: fused_stack_mma's forward with parts masked, at both widths.
+    for name, sfx in (("paper", ""), ("wide", "_w64")):
+        cw = cfgs[name]
+        args = stack_inputs(cw, params[name], rng)
+        B, T = args[0].shape[:2]
+        for dtype in (torch.bfloat16, torch.float32):
+            dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+            cm = dataclasses.replace(cw, compute_dtype="bfloat16") if bf16 \
+                else cw
+            want = fs.forward(*args, cm, kernel="mma")
+            for v in ("full", "rolled"):
+                got = r2.fwd_bisect(*args, cw, v, dtype, kernel="mma")
                 torch.cuda.synchronize()
-                err = probe_hold(row, "y", got, ref, bf16)
-                ms = median_cuda_ms(lambda: r2b.fwd_bisect2(*args, v, tile,
-                                                            dtype))
-                plain = median_cuda_ms(lambda: r2b.fwd_bisect2_reference(
-                    *args, v, tile, dtype), reps=3)
-                flops, nbytes = fwd_bisect2_cost(c, B, T, v, bf16)
-                bound, by = probe_bound(flops, nbytes, bf16)
-                row.update(ms=ms, plain_ms=plain, bound_ms=bound,
-                           bound_by=by, gpu=gpu)
+                check(all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in zip(got, want)),
+                      f"fwd_bisect mma {v} {dt} ({name}) differs from "
+                      "fused_stack.forward(kernel='mma')")
+                del got
+            emit({"phase": "probe", "probe": "r2_fwd_bisect",
+                  "kernel": "mma", "config": name, "dtype": dt,
+                  "full_rolled_bitwise_stack_mma": True, "gpu": gpu})
+            del want
+            for v in r2.VARIANTS:
+                row = {"phase": "probe", "probe": "r2_fwd_bisect",
+                       "kernel": "mma", "config": name, "variant": v,
+                       "dtype": dt, "batch": B, "positions": T}
+                got = r2.fwd_bisect(*args, cw, v, dtype, kernel="mma")
+                again = r2.fwd_bisect(*args, cw, v, dtype, kernel="mma")
+                torch.cuda.synchronize()
+                check(all(a is None or torch.equal(a, b)
+                          for a, b in zip(got, again)),
+                      f"fwd_bisect mma {v} {dt} ({name}): repeats differ")
+                del again
+                ref = r2.fwd_bisect_reference(*args, cw, v, dtype,
+                                              kernel="mma")
+                torch.cuda.synchronize()
+                err = max(probe_hold(row, n, a, b, bf16) for n, a, b in
+                          zip(("y", "fg", "z"), got, ref) if a is not None)
+                del got, ref
+                ms = median_cuda_ms(lambda: r2.fwd_bisect(
+                    *args, cw, v, dtype, kernel="mma"))
+                plain = median_cuda_ms(lambda: r2.fwd_bisect_reference(
+                    *args, cw, v, dtype, kernel="mma"), reps=1)
+                flops, nbytes = fwd_bisect_cost(cw, B, T, v, bf16)
+                bound, by = probe_bound(flops, nbytes, mma_peak(bf16))
+                row.update(bitwise_repeat=True, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, flops=flops,
+                           bytes=nbytes, gpu=gpu)
                 emit(row)
-                results[f"{v}_{tile}_{dt}"] = dict(
+                results[f"mma_{v}_{dt}{sfx}"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                     bound_by=by)
+                torch.cuda.empty_cache()
+        del args
+    args = r2b.inputs(c, TRAIN_BATCH, TRAIN_SAMPLES, "cuda")
+    B, T = args[0].shape[:2]
+    for kernel in ("simt", "mma"):
+        peak = simt_peak if kernel == "simt" else mma_peak
+        pre = "" if kernel == "simt" else "mma_"
+        for dtype in (torch.bfloat16, torch.float32):
+            dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+            for v in r2b.VARIANTS:
+                for tile in sorted(r2b.TILES):
+                    row = {"phase": "probe", "probe": "r2_fwd_bisect2",
+                           "kernel": kernel, "config": "paper", "variant": v,
+                           "tile": tile, "rows_per_block": r2b.TILES[tile],
+                           "dtype": dt, "batch": B, "positions": T}
+                    got = r2b.fwd_bisect2(*args, v, tile, dtype, kernel)
+                    if kernel == "mma":
+                        again = r2b.fwd_bisect2(*args, v, tile, dtype,
+                                                kernel)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, again), f"fwd_bisect2 mma {v} "
+                              f"{tile} {dt}: repeats differ")
+                        row["bitwise_repeat"] = True
+                    ref = r2b.fwd_bisect2_reference(*args, v, tile, dtype,
+                                                    kernel)
+                    torch.cuda.synchronize()
+                    err = probe_hold(row, "y", got, ref, bf16)
+                    ms = median_cuda_ms(lambda: r2b.fwd_bisect2(
+                        *args, v, tile, dtype, kernel))
+                    plain = median_cuda_ms(lambda: r2b.fwd_bisect2_reference(
+                        *args, v, tile, dtype, kernel),
+                        reps=3 if kernel == "simt" else 1)
+                    flops, nbytes = fwd_bisect2_cost(c, B, T, v, bf16)
+                    bound, by = probe_bound(flops, nbytes, peak(bf16))
+                    row.update(ms=ms, plain_ms=plain, bound_ms=bound,
+                               bound_by=by, gpu=gpu)
+                    emit(row)
+                    results[f"{pre}{v}_{tile}_{dt}"] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound, bound_by=by)
     return results
 
 
@@ -3000,7 +3100,7 @@ def phase_b1_bisect(c, params, gpu):
             plain = cuda_ms(lambda: r3.b1_bisect_reference(
                 pk, c, mode, 2, R3_SEED)) / 2
             flops, nbytes = b1_bisect_cost(c, mode, bf16, n)
-            bound, by = probe_bound(flops, nbytes, bf16)
+            bound, by = probe_bound(flops, nbytes, simt_peak(bf16))
             row.update(match_rate=rate, mismatches=int((~match).sum()),
                        max_mismatch_margin=margin.max().item()
                        if len(margin) else 0.0,
@@ -3041,7 +3141,7 @@ def phase_matvec_probe(gpu):
                                                           4)) / 4
         flops = L * (2.0 * C * C + (C / 2 if mode.endswith("tanh") else 0))
         nbytes = 4.0 * L * C * C * (2 if mode.startswith("vpu") else 1) + 4 * C
-        bound, by = probe_bound(flops, nbytes / R4_STEPS, False)
+        bound, by = probe_bound(flops, nbytes / R4_STEPS, simt_peak(False))
         row.update(ms_per_step=ms, ns_per_product=1e6 * ms / L,
                    plain_ms_per_step=plain, bound_ms_per_step=bound,
                    bound_by=by, steps=R4_STEPS, gpu=gpu)
@@ -3054,8 +3154,9 @@ def phase_matvec_probe(gpu):
 def phase_probe_main_path(gpu):
     """Phase 8 (d), the main path of this slice: the four probe tools as a
     user runs them (``python -m wavenet_torch.tools.<name>``, here their
-    ``main`` in this process), each wrapper's launches counted from 0.
-    Returns the launches by wrapper and variant."""
+    ``main`` in this process; r2 also at ``--config wide``), each
+    wrapper's launches counted from 0. Returns the launches by wrapper and
+    key, in all and by run."""
     from wavenet_torch.tools import r2_fwd_bisect as r2
     from wavenet_torch.tools import r2_fwd_bisect2 as r2b
     from wavenet_torch.tools import r3_b1_bisect as r3
@@ -3066,21 +3167,29 @@ def phase_probe_main_path(gpu):
     for fn in wrappers.values():           # the main path starts here
         fn.launches = 0
         fn.launches_by.clear()
-    runs = (("r2_fwd_bisect", r2.main, []), ("r2_fwd_bisect2", r2b.main, []),
+    runs = (("r2_fwd_bisect", r2.main, []),
+            ("r2_fwd_bisect --config wide", r2.main, ["--config", "wide"]),
+            ("r2_fwd_bisect2", r2b.main, []),
             ("r3_b1_bisect", r3.main, ["--steps", str(R3_MAIN_STEPS)]),
             ("r3_b1_bisect --bf16", r3.main,
              ["--steps", str(R3_MAIN_STEPS), "--bf16"]),
             ("r4_matvec_probe", r4.main, ["--steps", str(R4_STEPS)]))
-    seconds = {}
+    seconds, by_run = {}, {}
     for label, main_fn, argv in runs:
+        before = {k: dict(fn.launches_by) for k, fn in wrappers.items()}
         t = time.perf_counter()
         rc = main_fn(argv)
         seconds[label] = time.perf_counter() - t
         check(rc == 0, f"{label} exited {rc}")
+        by_run[label] = {k: {key: n - before[k].get(key, 0)
+                             for key, n in fn.launches_by.items()
+                             if n > before[k].get(key, 0)}
+                         for k, fn in wrappers.items()}
     launches = {k: dict(fn.launches_by) for k, fn in wrappers.items()}
-    want = {"fwd_bisect": [f"{v}_{d}" for v in r2.VARIANTS
-                           for d in ("bf16", "f32")],
-            "fwd_bisect2": [f"{v}_{t}_{d}" for v, t in r2b.MAIN_CASES
+    want = {"fwd_bisect": [f"{p}{v}_{d}" for p in ("", "mma_")
+                           for v in r2.VARIANTS for d in ("bf16", "f32")],
+            "fwd_bisect2": [f"{p}{v}_{t}_{d}" for p in ("", "mma_")
+                            for v, t in r2b.MAIN_CASES
                             for d in ("bf16", "f32")],
             "b1_bisect": [f"{m}_{d}" for m in r3.MODES
                           for d in ("bf16", "f32")],
@@ -3088,9 +3197,14 @@ def phase_probe_main_path(gpu):
     for k, keys in want.items():
         missing = [key for key in keys if not launches[k].get(key)]
         check(not missing, f"{k}: no launch of {missing} on the main path")
+    wide = by_run["r2_fwd_bisect --config wide"]["fwd_bisect"]
+    missing = [f"mma_{v}_{d}" for v in r2.VARIANTS for d in ("bf16", "f32")
+               if not wide.get(f"mma_{v}_{d}")]
+    check(not missing, f"fwd_bisect: no launch of {missing} at the wide "
+          "config on the main path")
     emit({"phase": "probe_main_path", "seconds": seconds,
-          "launches": launches, "gpu": gpu})
-    return launches
+          "launches": launches, "launches_by_run": by_run, "gpu": gpu})
+    return launches, by_run
 
 
 def main() -> int:
@@ -3202,10 +3316,10 @@ def main() -> int:
 
     # Phase 8: the probes (TPU kernels 9-10).
     t8 = time.perf_counter()
-    r2_res = phase_fwd_bisect(cfgs["paper"], params["paper"], rng, gpu)
+    r2_res = phase_fwd_bisect(gen_cfgs, gen_params, rng, gpu)
     r3_res = phase_b1_bisect(cfgs["paper"], params["paper"], gpu)
     r4_res = phase_matvec_probe(gpu)
-    probe_launches = phase_probe_main_path(gpu)
+    probe_launches, probe_runs = phase_probe_main_path(gpu)
     emit({"phase": "probes", "seconds": time.perf_counter() - t8,
           "script_seconds": time.perf_counter() - t_start})
 
@@ -3473,16 +3587,30 @@ def main() -> int:
     # The probes (phase 8): one row per probe kernel, the other variants
     # on the phase's "probe" lines. library_ms is null: no single PyTorch
     # call computes a gated layer stack, a decode step or a dependent
-    # chain of matvecs.
+    # chain of matvecs. The tensor-core rows (fwd_bisect_mma.cu) count the
+    # launches of the tool run at their config; the others all of phase
+    # 8 (d)'s.
+    r2_unit = "per call (30 layer launches)"
     probe_rows = (
         ("fwd_bisect_full_bf16", "fwd_bisect", "full_bf16", r2_res,
-         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178",
-         "per call (30 layer launches)"),
+         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178", r2_unit),
         ("fwd_bisect_full_f32", "fwd_bisect", "full_f32", r2_res,
-         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178",
-         "per call (30 layer launches)"),
+         "fwd_bisect.cu", "tools/r2_fwd_bisect.py:178", r2_unit),
         ("fwd_bisect2_fat_1t", "fwd_bisect2", "fat_1t_1024_bf16", r2_res,
          "fwd_bisect.cu", "tools/r2_fwd_bisect2.py:108", "per call"),
+        ("fwd_bisect_mma_full_f32", "fwd_bisect", "mma_full_f32", r2_res,
+         "fwd_bisect_mma.cu", "tools/r2_fwd_bisect.py:178", r2_unit),
+        ("fwd_bisect_mma_full_bf16", "fwd_bisect", "mma_full_bf16", r2_res,
+         "fwd_bisect_mma.cu", "tools/r2_fwd_bisect.py:178", r2_unit),
+        ("fwd_bisect_mma_full_f32_w64", "fwd_bisect", "mma_full_f32_w64",
+         r2_res, "fwd_bisect_mma.cu", "tools/r2_fwd_bisect.py:178",
+         r2_unit),
+        ("fwd_bisect_mma_full_bf16_w64", "fwd_bisect", "mma_full_bf16_w64",
+         r2_res, "fwd_bisect_mma.cu", "tools/r2_fwd_bisect.py:178",
+         r2_unit),
+        ("fwd_bisect2_mma_fat_1t", "fwd_bisect2", "mma_fat_1t_1024_bf16",
+         r2_res, "fwd_bisect_mma.cu", "tools/r2_fwd_bisect2.py:108",
+         "per call"),
         ("b1_bisect_full_f32", "b1_bisect", "full_f32", r3_res,
          "b1_bisect.cu", "tools/r3_b1_bisect.py:158", "per decode step"),
         ("b1_bisect_full_bf16", "b1_bisect", "full_bf16", r3_res,
@@ -3496,11 +3624,19 @@ def main() -> int:
     )
     for name, wrapper, key, res, src, where, unit in probe_rows:
         m = res[key]
+        config, run = "paper", None
+        if src == "fwd_bisect_mma.cu":
+            wide = key.endswith("_w64")
+            config = "wide" if wide else "paper"
+            run = probe_runs[{"fwd_bisect": "r2_fwd_bisect",
+                              "fwd_bisect2": "r2_fwd_bisect2"}[wrapper]
+                             + (" --config wide" if wide else "")][wrapper]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"wavenet_torch/csrc/{src}", "replaces": where,
-            "config": "paper", "variant": key,
-            "launches": probe_launches[wrapper][key],
+            "config": config, "variant": key,
+            "launches": (probe_launches[wrapper][key] if run is None
+                         else run.get(key.removesuffix("_w64"), 0)),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None, "unit": unit,

@@ -4,9 +4,9 @@ and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths, and the
 route between them;
 ``fused_stack`` (the 3xTF32 "mma" kernel and the FP32-core "simt" one);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
-``dilated_layer``; the probes ``fwd_bisect``, ``b1_bisect`` and
-``matvec_probe`` of ``wavenet_torch.tools``) against their plain versions,
-on the card.
+``dilated_layer``; the probes ``fwd_bisect`` and ``fwd_bisect2`` (on the
+FP32 cores and on the tensor cores), ``b1_bisect`` and ``matvec_probe`` of
+``wavenet_torch.tools``) against their plain versions, on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA GPU:
 the kernels have no CPU mode. The file imports no JAX, so on a machine with
@@ -919,8 +919,9 @@ def test_fwd_bisect_matches_reference(setup, variant, dt):
     T not a multiple of the tile."""
     c, args, _ = _stack_inputs(16, (1, 2, 63, 64, 100, 512), 2, 700)
     before = r2.fwd_bisect.launches
-    got = r2.fwd_bisect(*args, c, variant, DTYPES[dt])
-    ref = r2.fwd_bisect_reference(*args, c, variant, DTYPES[dt])
+    got = r2.fwd_bisect(*args, c, variant, DTYPES[dt], kernel="simt")
+    ref = r2.fwd_bisect_reference(*args, c, variant, DTYPES[dt],
+                                  kernel="simt")
     torch.cuda.synchronize()
     assert r2.fwd_bisect.launches == before + 1
     for name, a, b in zip(("y", "fg", "z"), got, ref):
@@ -938,9 +939,21 @@ def test_fwd_bisect_full_f32_is_kernel5(setup):
                                2, 1500)
     want = fs.forward(*args, c, kernel="simt")
     for variant in ("full", "rolled"):
-        got = r2.fwd_bisect(*args, c, variant)
+        got = r2.fwd_bisect(*args, c, variant, kernel="simt")
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), variant
+
+
+def _r2b_args(seed, L=3, W=32):
+    """r2b's inputs at R = D = 32: x [2, 300, W], w_fg, wd, wfat."""
+    rng = np.random.RandomState(seed)
+
+    def rn(*shape, scale):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
+                               device="cuda")
+
+    return (rn(2, 300, W, scale=1.0), rn(L, 2 * W, 2 * W, scale=0.2),
+            rn(L, W, W, scale=0.2), rn(L, 4 * W, 3 * W, scale=0.2))
 
 
 @pytest.mark.gpu
@@ -950,21 +963,81 @@ def test_fwd_bisect_full_f32_is_kernel5(setup):
 def test_fwd_bisect2_matches_reference(setup, variant, tile, dt):
     """Every r2b variant at both tiles (R = D = 32, the width it is built
     for; 600 rows, not a multiple of the block)."""
-    rng = np.random.RandomState(4)
-    L, W = 3, 32
-
-    def rn(*shape, scale):
-        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
-                               device="cuda")
-
-    args = (rn(2, 300, W, scale=1.0), rn(L, 2 * W, 2 * W, scale=0.2),
-            rn(L, W, W, scale=0.2), rn(L, 4 * W, 3 * W, scale=0.2))
+    args = _r2b_args(4)
     before = r2b.fwd_bisect2.launches
-    got = r2b.fwd_bisect2(*args, variant, tile, DTYPES[dt])
-    ref = r2b.fwd_bisect2_reference(*args, variant, tile, DTYPES[dt])
+    got = r2b.fwd_bisect2(*args, variant, tile, DTYPES[dt], kernel="simt")
+    ref = r2b.fwd_bisect2_reference(*args, variant, tile, DTYPES[dt],
+                                    kernel="simt")
     torch.cuda.synchronize()
     assert r2b.fwd_bisect2.launches == before + 1
     _close(got, ref, PROBE_TOL[dt], f"{variant} {tile} {dt}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("W", [32, 64])
+@pytest.mark.parametrize("variant", r2.VARIANTS)
+def test_fwd_bisect_mma_matches_reference(setup, variant, W, dt):
+    """Every r2 variant on the tensor cores (fused_stack_mma's forward with
+    parts masked) at both widths, over dilations on both sides of the
+    64-row tile (the rolled halo shorter and longer than the tile), T not
+    a multiple of the tile: against its plain version, repeats bitwise,
+    counted under "mma_<variant>_<dtype>"."""
+    c, args, _ = _stack_inputs(W, (1, 2, 63, 64, 100, 512), 2, 700)
+    key = f"mma_{variant}_{dt}"
+    before = r2.fwd_bisect.launches_by[key]
+    got = r2.fwd_bisect(*args, c, variant, DTYPES[dt], kernel="mma")
+    again = r2.fwd_bisect(*args, c, variant, DTYPES[dt], kernel="mma")
+    ref = r2.fwd_bisect_reference(*args, c, variant, DTYPES[dt],
+                                  kernel="mma")
+    torch.cuda.synchronize()
+    assert r2.fwd_bisect.launches_by[key] == before + 2
+    for name, a, a2, b in zip(("y", "fg", "z"), got, again, ref):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype, name
+            assert torch.equal(a, a2), f"{variant} {dt} {name}: repeats"
+            _close(a, b, PROBE_TOL[dt], f"{variant} W{W} {dt} {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("W", [32, 64])
+def test_fwd_bisect_mma_full_is_stack_mma(setup, W, dt):
+    """On mma, ``full`` and ``rolled`` emit ``fused_stack.forward(kernel=
+    "mma")``'s y, fg and z bitwise in the mode of the dtype (the same
+    instantiation at the full mask; the same products in the same
+    order)."""
+    c, args, _ = _stack_inputs(W, _DIL10, 2, 1500)
+    cm = c if dt == "f32" else dataclasses.replace(
+        c, compute_dtype="bfloat16")
+    want = fs.forward(*args, cm, kernel="mma")
+    for variant in ("full", "rolled"):
+        got = r2.fwd_bisect(*args, c, variant, DTYPES[dt], kernel="mma")
+        torch.cuda.synchronize()
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want)), variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("tile", sorted(r2b.TILES))
+@pytest.mark.parametrize("variant", r2b.VARIANTS)
+def test_fwd_bisect2_mma_matches_reference(setup, variant, tile, dt):
+    """Every r2b variant on the tensor cores at both tiles (600 rows, not a
+    multiple of the block): against its plain version, repeats bitwise,
+    counted under "mma_<variant>_<tile>_<dtype>"."""
+    args = _r2b_args(5)
+    key = f"mma_{variant}_{tile}_{dt}"
+    before = r2b.fwd_bisect2.launches_by[key]
+    got = r2b.fwd_bisect2(*args, variant, tile, DTYPES[dt], kernel="mma")
+    again = r2b.fwd_bisect2(*args, variant, tile, DTYPES[dt], kernel="mma")
+    ref = r2b.fwd_bisect2_reference(*args, variant, tile, DTYPES[dt],
+                                    kernel="mma")
+    torch.cuda.synchronize()
+    assert r2b.fwd_bisect2.launches_by[key] == before + 2
+    assert torch.equal(got, again), f"{variant} {tile} {dt}: repeats"
+    _close(got, ref, PROBE_TOL[dt], f"mma {variant} {tile} {dt}")
 
 
 B1_SMALL = dict(dilations=(1, 2, 4, 8, 16, 1, 2, 4), residual_channels=16,
@@ -1019,13 +1092,15 @@ def test_matvec_probe_matches_reference(setup, mode, C):
 def test_probes_reject_bad_inputs(setup):
     c, args, _ = _stack_inputs(8, (1, 2), 2, 64)
     with pytest.raises(NotImplementedError, match="R == D in"):
-        r2.fwd_bisect(*args, c, "full")
+        r2.fwd_bisect(*args, c, "full", kernel="simt")
     c16, args16, _ = _stack_inputs(16, (1, 2), 2, 64)
     with pytest.raises(ValueError, match="float32"):
-        r2.fwd_bisect(args16[0].double(), *args16[1:], c16, "full")
+        r2.fwd_bisect(args16[0].double(), *args16[1:], c16, "full",
+                      kernel="simt")
     with pytest.raises(NotImplementedError, match="R == D == 32"):
         r2b.fwd_bisect2(args16[0], args16[1], args16[2],
-                        torch.zeros((2, 64, 48), device="cuda"), "fat")
+                        torch.zeros((2, 64, 48), device="cuda"), "fat",
+                        kernel="simt")
     w = r4.orthogonal_weights(4, 16).cuda()
     with pytest.raises(NotImplementedError, match="C in"):
         r4.matvec_probe(w, w, "mxu", 1)

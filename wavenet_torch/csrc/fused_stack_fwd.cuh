@@ -11,9 +11,10 @@
 //          tiles: float, or __nv_bfloat16 (converted on load; products and
 //          sums in float32, the residual in float32);
 //   RecT   the type of the fg and z records;
-//   kMask  the parts of the layer that run (kFwdFull: all of them). The
-//          probe's variants drop parts; an ablated operand is a zero that
-//          the kernel writes to shared memory, so nothing is folded away.
+//   kMask  the parts of the layer that run (stack_common.cuh's kFwd*;
+//          kFwdFull: all of them). The probe's variants drop parts; an
+//          ablated operand is a zero that the kernel writes to shared
+//          memory, so nothing is folded away.
 // fused_stack.cu instantiates <R, D, float, float, kFwdFull>.
 #pragma once
 
@@ -28,16 +29,6 @@ namespace {
 
 constexpr int kFwdTM = 64;    // rows (time steps of one batch row) per tile
 constexpr int kFwdNT = 256;   // threads per block
-
-// Parts of the forward layer (tools/r2_fwd_bisect.py's toggles).
-enum : unsigned {
-  kFwdCat = 1,      // refresh the current half of the cat tile from x
-  kFwdShift = 2,    // gather the past tap x(t - d) (else it reads zeros)
-  kFwdRecords = 4,  // write the fg and z records
-  kFwdRolled = 8,   // with kFwdShift: one load of the tile and its d-row
-                    // halo, not two row reads per element
-};
-constexpr unsigned kFwdFull = kFwdCat | kFwdShift | kFwdRecords;
 
 __device__ __forceinline__ float op_to_f(float v) { return v; }
 __device__ __forceinline__ float op_to_f(__nv_bfloat16 v) {

@@ -1,15 +1,27 @@
 // Device and host helpers shared by the dilated-stack kernels
-// (fused_stack.cu, fused_stack_carry.cu, dilated_layer.cu): thread maps of
-// register tiles over a time tile, the gate's sigmoid, the fixed-order
-// reduction of per-block weight-gradient partial sums, and the backward's
-// chunked grid. Each .cu is its own library, so the header's definitions
-// sit in an anonymous namespace.
+// (fused_stack.cu, fused_stack_mma.cu, fused_stack_carry.cu,
+// dilated_layer.cu) and their probes: the forward layer's part mask,
+// thread maps of register tiles over a time tile, the gate's sigmoid, the
+// fixed-order reduction of per-block weight-gradient partial sums, and
+// the backward's chunked grid. Each .cu is its own library, so the
+// header's definitions sit in an anonymous namespace.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
+
+// Parts of a forward layer (tools/r2_fwd_bisect.py's toggles), the part
+// masks of fused_stack_fwd.cuh and fused_stack_mma_fwd.cuh.
+enum : unsigned {
+  kFwdCat = 1,      // refresh the current half of the tap tile from x
+  kFwdShift = 2,    // load the past tap x(t - d) (else it reads zeros)
+  kFwdRecords = 4,  // write the fg and z records
+  kFwdRolled = 8,   // with kFwdShift: one load of the tile and its d-row
+                    // halo, not a second row stream
+};
+constexpr unsigned kFwdFull = kFwdCat | kFwdShift | kFwdRecords;
 
 // Thread map of a [TM, N] output tile computed by NT threads: NG column
 // groups (columns interleaved with stride NG) times RG row groups (rows

@@ -1,10 +1,14 @@
 """Probes of the port's own kernels (counterpart of the JAX package's TPU
 probe tools in ``tools/``).
 
-* ``r2_fwd_bisect``: kernel 5's forward layer with parts toggled off
-  (``tools/r2_fwd_bisect.py``), ``csrc/fwd_bisect.cu``;
+* ``r2_fwd_bisect``: the stack's forward layer with parts toggled off
+  (``tools/r2_fwd_bisect.py``), on the kernel the stack route runs
+  (``kernel="auto"``): ``fused_stack_mma``'s forward on the tensor cores,
+  ``csrc/fwd_bisect_mma.cu``, or kernel 5's FP32-core one,
+  ``csrc/fwd_bisect.cu``;
 * ``r2_fwd_bisect2``: the forward's core math, all layers of a tile in one
-  launch (``tools/r2_fwd_bisect2.py``), the same source;
+  launch (``tools/r2_fwd_bisect2.py``), on the tensor cores
+  (``kernel="mma"``) or the FP32 cores (``"simt"``), the same sources;
 * ``r3_b1_bisect``: the b1 decode step with one part ablated
   (``tools/r3_b1_bisect.py``), ``csrc/b1_bisect.cu``;
 * ``r4_matvec_probe``: two forms of a dependent chain of 64-wide
@@ -15,8 +19,8 @@ probe tools in ``tools/``).
 
 Each module holds its kernel's wrapper (a plain PyTorch version of every
 variant, with the same signature, runs instead for CPU tensors) and a
-``main()`` that prints the JAX tool's table, one line per variant, after
-the card's name and power limit: ``python -m wavenet_torch.tools.<name>``
+``main()`` that prints the JAX tool's table, one line per variant (the r2
+tools: one table per kernel), after the card's name and power limit: ``python -m wavenet_torch.tools.<name>``
 (``--device cpu`` times the plain versions on the host). A variant that
 fails to build or launch is reported in the table, and the run then exits
 non-zero.
