@@ -150,10 +150,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``train_lib.make_train_step`` at ``pallas_stack_version`` 1 and 2, from
    the same params and batches as 4 version-3 steps (first loss within
    1e-5, later within 1e-4 relative; finite and falling), the carry
-   kernel's launches counted from 0; last, the ``dilated_layer`` kernel at
-   each distinct dilation against its plain versions, timed, and a 30-call
-   ``fused_dilated_layer`` stack under autograd against kernel 5, its
-   launches counted from 0.
+   kernel's launches counted from 0; last, the ``dilated_layer`` kernel
+   (3xTF32 on the tensor cores; its grid printed beside the library's
+   resident blocks) at each distinct dilation against its plain versions,
+   its backward bitwise repeatable, timed beside its bounds under the
+   3xTF32 peak, and a 30-call ``fused_dilated_layer`` stack under autograd
+   against kernel 5, its launches counted from 0.
 
 8. The probes (TPU kernels 9-10): the r2 and r2b tools' kernels on the
    FP32 cores (``fwd_bisect``) and on the tensor cores
@@ -2722,14 +2724,16 @@ def phase_carry_train(c, params, rng, gpu):
 
 
 def phase_dilated_layer(c, params, rng, gpu):
-    """Phase 7 (c): kernel 8 at each distinct dilation against its plain
-    versions, timed; then a stack of ``fused_dilated_layer`` calls under
-    autograd against kernel 5, its launches counted from 0."""
+    """Phase 7 (c): kernel 8 (3xTF32 on the tensor cores) at each distinct
+    dilation against its plain versions, its backward bitwise repeatable,
+    timed; then a stack of ``fused_dilated_layer`` calls under autograd
+    against kernel 5, its launches counted from 0."""
     import numpy as np
     import torch
     from wavenet_torch.experiments import dilated_layer as dl
     from wavenet_torch.kernels import fused_stack as fs3
-    from wavenet_torch.utils.flops import bound_ms, dilated_layer_cost
+    from wavenet_torch.utils.flops import (H100_TF32X3_FLOPS, bound_ms,
+                                           dilated_layer_cost)
 
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     x, w_fg, wd, add, bd = stack_inputs(c, params, rng)
@@ -2739,6 +2743,16 @@ def phase_dilated_layer(c, params, rng, gpu):
                          device="cuda")
     row = {"phase": "dilated_layer", "config": "gc", "batch": B,
            "positions": T, "gpu": gpu}
+    # The grid of each direction: resident blocks, chunks a row, tiles a
+    # chunk (the library's count, held against the pure mirror).
+    lib = dl._lib()
+    for kind, backward in (("fwd", False), ("bwd", True)):
+        n, tl = dl.device_layer_tiling(backward, B, T, R, D)
+        check(tl.nchunk == lib.dilated_layer_nchunk(int(backward), B, T, R,
+                                                    D),
+              f"dilated_layer {kind}: layer_tiling differs from the library")
+        row[f"plan_{kind}"] = {"resident_blocks": n, "nchunk": tl.nchunk,
+                               "tiles_per_chunk": tl.tiles_per_chunk}
     err = {"fwd": 0.0, "bwd": 0.0}
     ms = {"fwd": [], "bwd": [], "fwd_plain": [], "bwd_plain": []}
     for d in sorted(set(c.dilations)):
@@ -2748,8 +2762,11 @@ def phase_dilated_layer(c, params, rng, gpu):
         y, z = dl.forward(*lay, d)
         yp, zp = dl.fused_dilated_layer_reference(*lay, d)
         g = dl.backward(*lay[:4], dy, dzl, d)
+        again = dl.backward(*lay[:4], dy, dzl, d)
         gp = dl.fused_dilated_layer_backward_reference(*lay[:4], dy, dzl, d)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(g, again)),
+              f"dilated_layer d={d}: two backward calls differ")
         err["fwd"] = max(err["fwd"],
                          hold(row, f"y_d{d}", y, yp, FWD_RTOL, FWD_ATOL),
                          hold(row, f"z_d{d}", z, zp, FWD_RTOL, FWD_ATOL))
@@ -2765,6 +2782,7 @@ def phase_dilated_layer(c, params, rng, gpu):
         ms["bwd_plain"].append(median_cuda_ms(
             lambda: dl.fused_dilated_layer_backward_reference(
                 *lay[:4], dy, dzl, d)))
+    row["bitwise_repeat_backward"] = True
     row.update({f"{k}_ms_per_dilation": v for k, v in ms.items()})
 
     # The 30-call stack under autograd against kernel 5.
@@ -2794,7 +2812,8 @@ def phase_dilated_layer(c, params, rng, gpu):
     out = {}
     for kind in ("fwd", "bwd"):
         flops, nbytes = dilated_layer_cost(R, D, B, T, backward=kind == "bwd")
-        bound, by = bound_ms(flops, nbytes)
+        # The kernel multiplies in 3xTF32 on the tensor cores.
+        bound, by = bound_ms(flops, nbytes, H100_TF32X3_FLOPS)
         out[kind] = dict(launches=launches[kind], max_abs_err=err[kind],
                          ms=float(np.mean(ms[kind])),
                          plain_ms=float(np.mean(ms[f"{kind}_plain"])),

@@ -802,29 +802,80 @@ def _layer_inputs(W, B, T, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W,d,B,T", [
-    (8, 1, 2, 150), (16, 64, 3, 700), (32, 512, 2, 1500), (32, 2000, 1, 1000),
+@pytest.mark.parametrize("W,d,B,T,ref64", [
+    (8, 1, 2, 150, False), (16, 64, 3, 700, False),
+    (32, 512, 2, 1500, False), (32, 2000, 1, 1000, False),   # d >= T
+    (32, 5, 2, 100, False),      # T below one 128-step tile
+    (32, 1, 3, 1000, False),     # d = 1, T not a multiple of the tile
+    (16, 300, 2, 300, False),    # d = T: the past tap all zero padding
+    (8, 129, 4, 129, False),     # one tile and one row
+    # One long row: many tiles a chunk. Each weight gradient sums 150,000
+    # rows, where the float32 plain version's own rounding is a sizeable
+    # part of GRAD_TOL at a near-zero element: the reference is float64.
+    (32, 100, 1, 150000, True),
 ])
-def test_dilated_layer_matches_reference(setup, W, d, B, T):
-    """The layer kernel pair against the plain versions (T not a multiple
-    of the 64-step tile; d >= T in the last case); the backward is
-    bitwise repeatable."""
+def test_dilated_layer_matches_reference(setup, W, d, B, T, ref64):
+    """The layer kernel pair against the plain versions at the edges of
+    its 128-step tile and of the dilation; the backward is bitwise
+    repeatable."""
     (x, w, wd, add, bd), (dy, dz) = _layer_inputs(W, B, T)
+    dt = torch.float64 if ref64 else torch.float32
     f0, b0 = dl.forward.launches, dl.backward.launches
     y, z = dl.forward(x, w, wd, add, bd, d)
-    yr, zr = dl.fused_dilated_layer_reference(x, w, wd, add, bd, d)
+    yr, zr = dl.fused_dilated_layer_reference(
+        *[t.to(dt) for t in (x, w, wd, add, bd)], d)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, yr, **FWD_TOL)
-    torch.testing.assert_close(z, zr, **FWD_TOL)
+    torch.testing.assert_close(y.to(dt), yr, **FWD_TOL)
+    torch.testing.assert_close(z.to(dt), zr, **FWD_TOL)
     got = dl.backward(x, w, wd, add, dy, dz, d)
     again = dl.backward(x, w, wd, add, dy, dz, d)
-    ref = dl.fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz, d)
+    ref = dl.fused_dilated_layer_backward_reference(
+        *[t.to(dt) for t in (x, w, wd, add, dy, dz)], d)
     torch.cuda.synchronize()
     for name, g, r in zip(("dx_local", "dpast", "dw", "dwd", "dadd", "dbd"),
                           got, ref):
-        torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+        torch.testing.assert_close(g.to(dt), r, **GRAD_TOL, msg=name)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert (dl.forward.launches, dl.backward.launches) == (f0 + 1, b0 + 2)
+
+
+@pytest.mark.gpu
+def test_dilated_layer_refuses_misaligned(setup):
+    """The kernel copies x, w, wd and dy by 16-byte cp.async: a view that
+    starts off a 16-byte boundary raises instead of launching."""
+    (x, w, wd, add, bd), (dy, dz) = _layer_inputs(8, 2, 150)
+    flat = torch.zeros(x.numel() + 1, device="cuda")
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        dl.forward(shifted, w, wd, add, bd, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        dl.backward(x, w, wd, add, shifted, dz, 2)
+
+
+@pytest.mark.gpu
+def test_dilated_layer_tiling_matches_library(setup):
+    """``layer_tiling`` (pure) against the library's own grid, on the
+    library's resident counts of each direction and width, and the
+    backward's scratch size against the grid it implies."""
+    lib = dl._lib()
+    for W in (8, 16, 32):
+        for backward in (0, 1):
+            n = lib.dilated_layer_resident_blocks(backward, W, W)
+            assert n >= 1, (W, backward, n)
+            for B in (1, 2, 8, n - 1, n, n + 1, 3 * n):
+                for T in (1, 100, 128, 129, 19070, 150000):
+                    if B < 1:
+                        continue
+                    tl = dl.layer_tiling(B, T, n)
+                    assert tl.nchunk == lib.dilated_layer_nchunk(
+                        backward, B, T, W, W), (W, backward, B, T)
+                    if backward:
+                        assert lib.dilated_layer_bwd_scratch_floats(
+                            B, T, W, W) == B * tl.nchunk * (
+                                5 * W * W + 3 * W), (W, B, T)
+    assert lib.dilated_layer_nchunk(0, 1, 100, 24, 24) < 0
+    assert lib.dilated_layer_nchunk(0, 1, 0, 32, 32) < 0
 
 
 @pytest.mark.gpu
@@ -840,6 +891,51 @@ def test_dilated_layer_op_gradients(setup):
         grads.append([t.grad for t in leaves])
     for name, g, r in zip(_GRADS, *grads):
         torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["w", "x"])
+@pytest.mark.parametrize("kernel", ["stack_mma", "carry", "layer_fwd",
+                                    "layer_bwd"])
+def test_tf32_kernels_keep_device_nan(setup, kernel, where):
+    """A NaN made on the card (0 / 0, whose bits 0x7fffffff the TF32
+    rounding's carry would wrap round to -0) in one weight or one x element
+    of a 3xTF32 kernel: each output is non-finite exactly where the plain
+    version's is, so a diverged weight is not hidden as a finite output."""
+    nan = torch.zeros(1, device="cuda") / 0
+    assert torch.isnan(nan).item()
+    W = 32
+    if kernel.startswith("layer"):
+        d = 5
+        (x, w, wd, add, bd), (dy, dz) = _layer_inputs(W, 2, 300)
+        if where == "w":
+            w[1, 3, 5] = nan[0]          # the current tap's weight
+        else:
+            x[0, 100, 3] = nan[0]
+        if kernel == "layer_fwd":
+            got = dl.forward(x, w, wd, add, bd, d)
+            ref = dl.fused_dilated_layer_reference(x, w, wd, add, bd, d)
+        else:
+            got = dl.backward(x, w, wd, add, dy, dz, d)
+            ref = dl.fused_dilated_layer_backward_reference(
+                x, w, wd, add, dy, dz, d)
+    else:
+        c, (x, w_fg, wd, add, bd), _ = _stack_inputs(W, (1, 2, 4), 2, 300)
+        if where == "w":
+            w_fg[1, W + 3, 5] = nan[0]   # layer 1, the current tap's row
+        else:
+            x[0, 100, 3] = nan[0]
+        args = (x, w_fg, wd, add, bd)
+        if kernel == "stack_mma":
+            got = fs.forward(*args, c, kernel="mma")
+        else:
+            got = fs1.carry_forward(*args, c, True)
+        ref = fs.fused_stack_forward_reference(*args, c)
+    torch.cuda.synchronize()
+    bads = [~torch.isfinite(r) for r in ref]
+    assert all(b.any() for b in bads[:3])    # dbd (sum of dy) stays finite
+    for i, (g, bad) in enumerate(zip(got, bads)):
+        assert torch.equal(~torch.isfinite(g), bad), i
 
 
 def _bad_stack_calls(c, args, dy, dz):

@@ -104,6 +104,30 @@ def test_tf32_split_reconstructs():
         == -(1.0 + 2.0 ** -10)
 
 
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000,
+                                  0x7F800001, 0x7F800000, 0xFF800000],
+                         ids=["nan_all_ones", "neg_nan_all_ones", "nan_quiet",
+                              "nan_low_bit", "inf", "neg_inf"])
+def test_tf32_split_keeps_non_finite(bits):
+    """A non-finite operand stays non-finite: a NaN's lo is NaN (its hi may
+    not be: the rounding's carry wraps an all-ones mantissa round to
+    zero), an infinity's hi is that infinity and its lo NaN, so a product
+    that takes either is non-finite where the float32 product is."""
+    a = torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+    hi, lo = tfs.tf32_split(a)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert torch.isnan(lo).item()
+    if not torch.isnan(a).item():
+        assert hi.item() == a.item()
+    m = torch.ones(2, 8)
+    m[1, 3] = a[0]               # the bits as they are
+    out = tfs.mma3_matmul(m, torch.ones(8, 8))
+    assert torch.isfinite(out[0]).all()
+    assert not torch.isfinite(out[1]).any()
+
+
 def test_mma3_matmul_within_float32_bound():
     """A 64 x 64 x 64 product against float64: within the float32 sum's own
     bound, K * 2^-24 * (|a| @ |b|) = 2^-18 * (|a| @ |b|), which the split's

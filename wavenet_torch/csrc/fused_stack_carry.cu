@@ -77,7 +77,7 @@
 // the partial sums' read-modify-writes (~42 KB a tile and layer).
 //
 // Registers a thread (ptxas -v for sm_90a): forward / backward at width 32
-// 128 / 255 (4 and 20 bytes spilled), 16 91 / 128, 8 64 / 165.
+// 128 / 250 (4 bytes spilled in the forward), 16 85 / 112, 8 62 / 167.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -219,65 +219,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     cp_async16(dst + r * S + 4 * c, ok ? src + (base + t) * W + 4 * c : src,
                ok);
   }
-}
-
-// A fragment of the transpose of a tile whose rows m >= M are not there
-// (M = 8 < 16 at width 8: their elements are zero).
-template <int S, int M>
-__device__ __forceinline__ void afrag_tm(const float* s, int m0, int k0,
-                                         int lane, Tf32Frag& a) {
-  if constexpr (M >= 16) {
-    afrag_t<S>(s, m0, k0, lane, a);
-  } else {
-    const int g = lane >> 2, q = lane & 3;
-    const float* p = s + (k0 + q) * S + m0 + g;
-    tf32_split(p[0], a.hi[0], a.lo[0]);
-    tf32_split(p[4 * S], a.hi[2], a.lo[2]);
-    a.hi[1] = a.lo[1] = a.hi[3] = a.lo[3] = 0u;
-  }
-}
-
-// The A fragment of a warp's 16 x 8 accumulator tile c (rows g, g + 8;
-// columns 2q, 2q + 1 a lane), split: its columns q and q + 4 live in lanes
-// 4g + q/2 and 4g + q/2 + 2.
-__device__ __forceinline__ void acc_afrag(const float (&c)[4], int lane,
-                                          Tf32Frag& a) {
-  const int src = (lane & ~3) | ((lane & 3) >> 1);
-  const bool odd = lane & 1;
-  float u[4], v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    u[i] = __shfl_sync(0xffffffffu, c[i], src);
-    v[i] = __shfl_sync(0xffffffffu, c[i], src + 2);
-  }
-  tf32_split(odd ? u[1] : u[0], a.hi[0], a.lo[0]);
-  tf32_split(odd ? u[3] : u[2], a.hi[1], a.lo[1]);
-  tf32_split(odd ? v[1] : v[0], a.hi[2], a.lo[2]);
-  tf32_split(odd ? v[3] : v[2], a.hi[3], a.lo[3]);
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&c)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-// acc += A B over one k-step of 8 rows: the tensor core sums the step in
-// a zeroed accumulator, and acc takes it by a float32 add (round to
-// nearest). A weight gradient sums every step of every row; the tensor
-// core's own float32 accumulation of so many terms strays several times
-// as far from float64 as a plain float32 sum.
-template <int NJ>
-__device__ __forceinline__ void mma3_step_rn(float (&acc)[NJ][4],
-                                             const Tf32Frag& a,
-                                             const uint4 (&b)[NJ]) {
-  float c[NJ][4];
-  zero(c);
-  mma3_tf32_n(c, a.hi, a.lo, b);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] += c[j][i];
 }
 
 // The sum of a tile's column (rows of stride S), in four chains.

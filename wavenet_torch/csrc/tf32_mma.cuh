@@ -1,6 +1,7 @@
-// Tensor-core and copy primitives of the stack's 3xTF32 kernels
-// (fused_stack_mma.cu, fused_stack_carry.cu), as inline PTX for sm_90a,
-// and the fragment loaders of their float32 shared-memory tiles.
+// Tensor-core and copy primitives of the 3xTF32 kernels (fused_stack_mma.cu,
+// fused_stack_carry.cu, dilated_layer.cu), as inline PTX for sm_90a, the
+// fragment loaders of their float32 shared-memory tiles and accumulators,
+// and the row-contracting step of their weight gradients.
 //
 // 3xTF32 is the Hopper counterpart of the JAX package's mxu_dot at
 // Precision.HIGHEST (wavenet_tpu/kernels/mxu.py): each float32 operand is
@@ -16,17 +17,29 @@
 namespace {
 
 // Round to TF32 (10 explicit mantissa bits), to nearest, ties away from
-// zero; the low 13 bits of the result are zero.
+// zero; the low 13 bits of the result are zero. Two integer operations on
+// the bits give cvt.rna.tf32.f32's result for every finite x and for +-inf
+// (a carry out of the mantissa steps the exponent, as rounding does),
+// without the compares and selects that the compiler emits for that
+// instruction. A NaN whose mantissa is all ones in its top ten bits wraps
+// round to -0 or +0; tf32_split keeps such a NaN in lo.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// hi = tf32(x), lo = tf32(x - hi). A NaN x keeps its NaN in lo: x - hi is
+// then the device's NaN 0x7fffffff (its float32 arithmetic makes no
+// other), which the signed min holds below the carry's wrap (0x7fffefff
+// rounds to the TF32 NaN 0x7fffe000), so every product that takes x is
+// NaN, as the float32 product is. The min leaves every other word as it
+// is: a positive finite or infinite word is below 0x7fffefff, a negative
+// one below 0. One min, where a compare and a select on both roundings
+// cost kernel 5's f32 backward 16% on an H100 (PERF.md).
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  const int d = __float_as_int(x - __uint_as_float(hi));
+  lo = (static_cast<uint32_t>(min(d, 0x7fffefff)) + 0x1000u) & 0xffffe000u;
 }
 
 // D = A B + D for one warp: A m16 x k8 (row), B k8 x n8 (col), float32 D.
@@ -94,6 +107,65 @@ __device__ __forceinline__ void bfrag(const float* s, int k0, int n0,
   const float* p = s + (k0 + q) * S + n0 + g;
   tf32_split(p[0], b.x, b.z);
   tf32_split(p[4 * S], b.y, b.w);
+}
+
+// A fragment of the transpose of a tile whose rows m >= M are not there
+// (M = 8 < 16 at width 8: their elements are zero).
+template <int S, int M>
+__device__ __forceinline__ void afrag_tm(const float* s, int m0, int k0,
+                                         int lane, Tf32Frag& a) {
+  if constexpr (M >= 16) {
+    afrag_t<S>(s, m0, k0, lane, a);
+  } else {
+    const int g = lane >> 2, q = lane & 3;
+    const float* p = s + (k0 + q) * S + m0 + g;
+    tf32_split(p[0], a.hi[0], a.lo[0]);
+    tf32_split(p[4 * S], a.hi[2], a.lo[2]);
+    a.hi[1] = a.lo[1] = a.hi[3] = a.lo[3] = 0u;
+  }
+}
+
+// The A fragment of a warp's 16 x 8 accumulator tile c (rows g, g + 8;
+// columns 2q, 2q + 1 a lane), split: its columns q and q + 4 live in lanes
+// 4g + q/2 and 4g + q/2 + 2.
+__device__ __forceinline__ void acc_afrag(const float (&c)[4], int lane,
+                                          Tf32Frag& a) {
+  const int src = (lane & ~3) | ((lane & 3) >> 1);
+  const bool odd = lane & 1;
+  float u[4], v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    u[i] = __shfl_sync(0xffffffffu, c[i], src);
+    v[i] = __shfl_sync(0xffffffffu, c[i], src + 2);
+  }
+  tf32_split(odd ? u[1] : u[0], a.hi[0], a.lo[0]);
+  tf32_split(odd ? u[3] : u[2], a.hi[1], a.lo[1]);
+  tf32_split(odd ? v[1] : v[0], a.hi[2], a.lo[2]);
+  tf32_split(odd ? v[3] : v[2], a.hi[3], a.lo[3]);
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero(float (&c)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// acc += A B over one k-step of 8 rows: the tensor core sums the step in
+// a zeroed accumulator, and acc takes it by a float32 add (round to
+// nearest). A weight gradient sums every step of every row; the tensor
+// core's own float32 accumulation of so many terms strays several times
+// as far from float64 as a plain float32 sum.
+template <int NJ>
+__device__ __forceinline__ void mma3_step_rn(float (&acc)[NJ][4],
+                                             const Tf32Frag& a,
+                                             const uint4 (&b)[NJ]) {
+  float c[NJ][4];
+  zero(c);
+  mma3_tf32_n(c, a.hi, a.lo, b);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += c[j][i];
 }
 
 // 16 bytes from global to shared memory, asynchronously; zeros where

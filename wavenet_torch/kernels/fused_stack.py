@@ -233,16 +233,22 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
 
 def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 (10 explicit mantissa bits), to nearest,
-    ties away from zero, on the words' bits (``cvt.rna.tf32.f32``)."""
+    ties away from zero, on the words' bits (``cvt.rna.tf32.f32`` for
+    every finite or infinite word)."""
     bits = a.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def tf32_split(a: torch.Tensor):
     """(hi, lo): hi = tf32(a), lo = tf32(a - hi), as the mma kernel splits
-    each operand."""
+    each operand (``csrc/tf32_mma.cuh``). A NaN is kept in lo: a - hi is
+    made the device's NaN 0x7fffffff (the card's float32 arithmetic makes
+    no other), which a signed min holds below the rounding's wrap."""
     hi = _tf32_rna(a)
-    return hi, _tf32_rna(a - hi)
+    d = (a - hi).contiguous().view(torch.int32)
+    d = torch.where(d.view(torch.float32).isnan(), 0x7FFFFFFF, d)
+    lo = (torch.clamp(d, max=0x7FFFEFFF) + 0x1000) & -0x2000
+    return hi, lo.view(torch.float32)
 
 
 def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,16 @@ checkouts of the repository in turns, on one card: ``--stack mma`` (the
 default) times ``fused_stack_mma`` (forward and backward, f32 and bf16
 modes), ``--stack carry`` the carry kernel behind the retired generations
 (``experiments.fused_stack.carry_forward`` without z, as v1 calls it, and
-with z, as v2 does, and ``carry_backward``).
+with z, as v2 does, and ``carry_backward``), ``--stack layer`` the
+one-layer kernel (``experiments.dilated_layer.forward`` and ``backward``,
+names every tree since the layer kernel has) at each distinct dilation of
+the config, with the mean over them.
 
     python -m wavenet_torch.tools.stack_times --config gc \\
         --trees parent/ . . parent/
     python -m wavenet_torch.tools.stack_times --stack carry --config gc \\
+        --trees parent/ . . parent/
+    python -m wavenet_torch.tools.stack_times --stack layer --config gc \\
         --trees parent/ . . parent/
 
 Each tree runs in a process of its own whose working directory and
@@ -91,6 +96,9 @@ def _time_tree(label: str, config: str, reps: int, stack: str) -> dict:
 
     row = {"tree": label, "stack": stack, "config": config, "batch": B,
            "positions": T, "gpu": torch.cuda.get_device_name(0)}
+    if stack == "layer":
+        return _time_layers(row, c32, x, w_fg, wd, add, bd, dy,
+                            rn(B, T, D), ms)
     if stack == "carry":
         from wavenet_torch.experiments import fused_stack as fs1
         yp, fgp, _ = fs.fused_stack_forward_reference(x, w_fg, wd, add, bd,
@@ -125,13 +133,87 @@ def _time_tree(label: str, config: str, reps: int, stack: str) -> dict:
     return row
 
 
+def _device_ms(fn, calls: int = 20, runs: int = 3) -> float:
+    """Device time (ms) of one call of ``fn``, the median over ``runs``
+    runs of ``calls`` calls back to back: CUDA events around each run,
+    queued behind a spin kernel (``torch.cuda._sleep``) that holds the card
+    until the host has queued the whole run, so that a call's host work
+    (the wrapper's checks and allocations) does not show; the gaps between
+    the calls' kernels do. Raises if the host took longer to queue a run
+    than the spin held the card."""
+    import time
+
+    import numpy as np
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()          # the spin starts after t0
+        s.record()
+        torch.cuda._sleep(50_000_000)     # ~25 ms at the H100's 1.98 GHz
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if host_ms >= s.elapsed_time(a):
+            raise SystemExit("stack_times: the spin ended before the host "
+                             "had queued the run")
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def _time_layers(row, c, x, w_fg, wd, add, bd, dy, dz, ms) -> dict:
+    """The one-layer kernel at each distinct dilation of ``c`` (the
+    weights of its first layer of that dilation): the median ms of each
+    direction per dilation and their mean, by CUDA events around one call
+    (host work of the wrapper included) and as device time (``*_device_ms``,
+    ``_device_ms``: calls queued back to back behind a held card), and
+    one digest of each output over the dilations in order."""
+    import hashlib
+
+    import numpy as np
+
+    from wavenet_torch.experiments import dilated_layer as dl
+
+    R, D = c.residual_channels, c.dilation_channels
+    names = ("y", "z", "dx_local", "dpast", "dw", "dwd", "dadd", "dbd")
+    digests = {n: hashlib.sha256() for n in names}
+    dils = sorted(set(c.dilations))
+    fwd, bwd, dev_fwd, dev_bwd = [], [], [], []
+    for d in dils:
+        l = c.dilations.index(d)
+        lay = (x, w_fg[l].view(2, R, 2 * D), wd[l], add[l], bd[l])
+        outs = dl.forward(*lay, d) + tuple(dl.backward(*lay[:4], dy, dz, d))
+        for n, t in zip(names, outs):
+            digests[n].update(_digest(t).encode())
+        fwd.append(ms(lambda: dl.forward(*lay, d)))
+        bwd.append(ms(lambda: dl.backward(*lay[:4], dy, dz, d)))
+        dev_fwd.append(_device_ms(lambda: dl.forward(*lay, d)))
+        dev_bwd.append(_device_ms(lambda: dl.backward(*lay[:4], dy, dz, d)))
+    row.update({"dilations": dils, "fwd_ms_per_dilation": fwd,
+                "bwd_ms_per_dilation": bwd, "fwd_ms": float(np.mean(fwd)),
+                "bwd_ms": float(np.mean(bwd)),
+                "fwd_device_ms_per_dilation": dev_fwd,
+                "bwd_device_ms_per_dilation": dev_bwd,
+                "fwd_device_ms": float(np.mean(dev_fwd)),
+                "bwd_device_ms": float(np.mean(dev_bwd))})
+    row.update({f"digest_{n}": h.hexdigest()[:16]
+                for n, h in digests.items()})
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="gc",
                     help="a models.config name: paper, gc, wide")
     ap.add_argument("--trees", nargs="+", default=["."],
                     help="checkouts to time, in this order")
-    ap.add_argument("--stack", default="mma", choices=("mma", "carry"),
+    ap.add_argument("--stack", default="mma",
+                    choices=("mma", "carry", "layer"),
                     help="the kernel to time")
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
