@@ -165,9 +165,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
    its bound (FP32 / bf16 peak on the FP32 cores, 3xTF32 / bf16 on the
    tensor cores), the tensor-core ones repeated bitwise and their
    ``full`` and ``rolled`` bitwise ``fused_stack.forward(kernel="mma")``;
-   the r3 decode-step bisect and the r4 matvec forms; then the main path,
-   each tool's own ``main`` (r2 at both configs), launches counted from
-   0, every variant of each kernel launched.
+   the r3 decode-step bisect on the cluster kernel (``b1_bisect_cluster``,
+   the kernel b1 generation runs, its ``full`` bitwise
+   ``decode_sequential(kernel="cluster")`` and timed in turns with it, its
+   phase clock by CTA) and on ``sampler_decode``'s step, each mode replayed
+   by its kernel's plain version; the r4 matvec forms on the cluster
+   kernel (``matvec_probe_cluster``: ns a product from one CTA, ns a
+   hand-off) and with weights in L2; then the main path, each tool's own
+   ``main`` (r2 at both configs), launches counted from 0, every variant
+   of each kernel launched.
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -316,12 +322,17 @@ LC_SOURCES = {"cluster": "sampler_cluster_lc", "decode": "sampler_decode_lc"}
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 KERNELS = KERNELS + ("fwd_bisect", "fwd_bisect_mma", "b1_bisect",
-                     "matvec_probe")
+                     "matvec_probe", "b1_bisect_cluster",
+                     "b1_bisect_cluster_bf16", "matvec_probe_cluster")
 # Phase 8: the probes. Steps of one b1_bisect launch (checked and timed)
 # and of the tool's own run; steps of one matvec_probe launch (timed) and
 # of the one held against its plain version.
 R3_STEPS, R3_MAIN_STEPS, R3_SEED = 2048, 1024, 7
 R4_STEPS, R4_CHECK_STEPS = 4000, 256
+# The r3 probe's kernels, the routed one (cluster, on an H100) first; rounds
+# of the cluster probe's `full` in turns with the production launch; how
+# far a CTA's phases may fall short of its step loop (the loop's overhead).
+R3_KERNELS, R3_TURNS, PHASE_SUM_RTOL = ("cluster", "decode"), 3, 0.05
 # bf16 operands against their plain version: another summation order flips
 # some bf16 roundings (2**-8 relative) and 30 layers carry them on (~0.3%
 # of the values' mean, up to ~5% of max |ref| at a point); an indexing
@@ -3066,11 +3077,16 @@ def b1_bisect_cost(c, mode: str, bf16: bool, n_steps: int):
 
 def phase_b1_bisect(c, params, gpu):
     """Phase 8 (b): the b1 decode step by r3 mode (TPU kernel 10a) at the
-    paper config, float32 and bf16 weights: R3_STEPS steps from a zero
-    state, three launches (bitwise equal), the codes replayed by the plain
-    version under the same Philox noise (>= 99.9% equal; its logits within
-    phase 5's forward tolerance, or the bf16 one), ``full`` at float32
-    bitwise ``decode_sequential``'s codes; ms per step."""
+    paper config on both kernels (the cluster kernel on the route's plan,
+    row 10c, and sampler_decode's step, row 10a), float32 and bf16 weights:
+    R3_STEPS steps from a zero state, three launches (bitwise equal), the
+    codes replayed by the kernel's plain version (its order of sums) under
+    the same Philox noise (>= 99.9% equal; its logits within phase 5's
+    forward tolerance, or the bf16 one), ``full`` bitwise
+    ``decode_sequential(kernel=<the same>)``'s codes; ms per step. The
+    cluster kernel's ``full`` is timed in turns with the production launch
+    (the clock's cost), and its phase clock read by CTA (one
+    ``phase_cycles`` row per weight type)."""
     import numpy as np
     import torch
     from wavenet_torch.kernels import sampler as ks
@@ -3078,66 +3094,144 @@ def phase_b1_bisect(c, params, gpu):
     from wavenet_torch.tools import r3_b1_bisect as r3
 
     Q, n = c.quantization_channels, R3_STEPS
+    plan = ks.device_plan(c, 1)
+    check(plan is not None, "paper b1: no cluster plan on this card")
     first = torch.full((1, 1), Q // 2, dtype=torch.int32, device="cuda")
     noise = ks.gumbel_noise(R3_SEED, 1, 0, n, Q, "cuda")[:, 0]
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
-        pk = ks.pack_sampler_weights(params, c, 1, weight_dtype=dtype)
-        if not bf16:
-            seq, _ = ks.decode_sequential(pk, c, first, n, R3_SEED)
-        for mode in r3.MODES:
-            row = {"phase": "probe", "probe": "r3_b1_bisect",
-                   "config": "paper", "mode": mode,
-                   "dtype": dt, "steps": n}
-            codes, lg_k = r3.b1_bisect(pk, c, mode, n, R3_SEED,
-                                       collect_logits=True)
-            outs = []
-            times = [cuda_ms(lambda: outs.append(r3.b1_bisect(
-                pk, c, mode, n, R3_SEED))) for _ in range(3)]
-            check(all(torch.equal(codes, o) for o in outs),
-                  f"b1_bisect {mode} {dt}: same-seed launches differ")
-            row["bitwise_repeat"] = True
-            check(0 <= codes.min().item() and codes.max().item() < Q,
-                  f"b1_bisect {mode} {dt}: codes out of range")
-            if mode == "full" and not bf16:
-                check(torch.equal(codes, seq), "b1_bisect full (float32) "
-                      "differs from decode_sequential")
-                row["bitwise_decode_sequential"] = True
-            # The plain version teacher-forced on the kernel's inputs.
-            lg = r3.b1_bisect_logits(pk, c, mode,
-                                     torch.cat([first, codes[:, :-1]], 1))
-            err = probe_hold(row, "logits", lg_k, lg, bf16)
-            lg = lg[0] if mode == "no_sample" else lg[0] + noise
-            top2 = lg.topk(2, dim=-1).values
-            match = lg.argmax(dim=-1) == codes[0].long()
-            rate = match.float().mean().item()
-            margin = (top2[:, 0] - top2[:, 1])[~match]
-            check(rate >= 0.999, f"b1_bisect {mode} {dt}: only {rate} of the "
-                  "codes equal the plain replay's")
-            ms = float(np.median(times)) / n
-            plain = cuda_ms(lambda: r3.b1_bisect_reference(
-                pk, c, mode, 2, R3_SEED)) / 2
-            flops, nbytes = b1_bisect_cost(c, mode, bf16, n)
-            bound, by = probe_bound(flops, nbytes, simt_peak(bf16))
-            row.update(match_rate=rate, mismatches=int((~match).sum()),
-                       max_mismatch_margin=margin.max().item()
-                       if len(margin) else 0.0,
-                       distinct_codes=len(torch.unique(codes)),
-                       ms_per_step=ms, ms_per_step_runs=[t / n for t in times],
-                       plain_ms_per_step=plain, bound_ms_per_step=bound,
-                       bound_by=by, gpu=gpu)
-            emit(row)
-            results[f"{mode}_{dt}"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain, bound_ms=bound,
-                                           bound_by=by)
+    for kernel in R3_KERNELS:
+        kplan = plan if kernel == "cluster" else None
+        for dtype in (torch.float32, torch.bfloat16):
+            dt, bf16 = DTYPE_NAMES[dtype], dtype == torch.bfloat16
+            pk = ks.pack_sampler_weights(params, c, 1, weight_dtype=dtype)
+            seq, _ = ks.decode_sequential(pk, c, first, n, R3_SEED,
+                                          kernel=kernel)
+            for mode in r3.MODES:
+                row = {"phase": "probe", "probe": "r3_b1_bisect",
+                       "kernel": kernel, "config": "paper", "mode": mode,
+                       "dtype": dt, "steps": n}
+                if kplan is not None:
+                    row["plan"] = list(kplan)
+
+                def launch(**kw):
+                    return r3.b1_bisect(pk, c, mode, n, R3_SEED,
+                                        kernel=kernel, **kw)
+
+                codes, lg_k = launch(collect_logits=True)
+                outs = []
+                times = [cuda_ms(lambda: outs.append(launch()))
+                         for _ in range(3)]
+                check(all(torch.equal(codes, o) for o in outs),
+                      f"b1_bisect {kernel} {mode} {dt}: same-seed launches "
+                      "differ")
+                row["bitwise_repeat"] = True
+                check(0 <= codes.min().item() and codes.max().item() < Q,
+                      f"b1_bisect {kernel} {mode} {dt}: codes out of range")
+                if mode == "full":
+                    check(torch.equal(codes, seq), f"b1_bisect {kernel} full "
+                          f"({dt}) differs from decode_sequential")
+                    row["bitwise_decode_sequential"] = True
+                # The plain version teacher-forced on the kernel's inputs.
+                lg = r3.b1_bisect_logits(
+                    pk, c, mode, torch.cat([first, codes[:, :-1]], 1),
+                    kernel=kernel, plan=kplan)
+                err = probe_hold(row, "logits", lg_k, lg, bf16)
+                lg = lg[0] if mode == "no_sample" else lg[0] + noise
+                top2 = lg.topk(2, dim=-1).values
+                match = lg.argmax(dim=-1) == codes[0].long()
+                rate = match.float().mean().item()
+                margin = (top2[:, 0] - top2[:, 1])[~match]
+                check(rate >= 0.999, f"b1_bisect {kernel} {mode} {dt}: only "
+                      f"{rate} of the codes equal the plain replay's")
+                ms = float(np.median(times)) / n
+                plain = cuda_ms(lambda: r3.b1_bisect_reference(
+                    pk, c, mode, 2, R3_SEED, kernel=kernel,
+                    plan=kplan)) / 2
+                flops, nbytes = b1_bisect_cost(c, mode, bf16, n)
+                bound, by = probe_bound(flops, nbytes, simt_peak(bf16))
+                row.update(match_rate=rate, mismatches=int((~match).sum()),
+                           max_mismatch_margin=margin.max().item()
+                           if len(margin) else 0.0,
+                           distinct_codes=len(torch.unique(codes)),
+                           ms_per_step=ms,
+                           ms_per_step_runs=[t / n for t in times],
+                           plain_ms_per_step=plain, bound_ms_per_step=bound,
+                           bound_by=by, gpu=gpu)
+                res = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by)
+                if kernel == "cluster" and mode == "full":
+                    res.update(b1_cluster_turns_and_clock(
+                        c, pk, plan, dtype, launch, row, gpu))
+                emit(row)
+                key = f"{mode}_{dt}"
+                results[key if kernel == "decode" else f"cluster_{key}"] = res
     return results
 
 
+def b1_cluster_turns_and_clock(c, pk, plan, dtype, launch, row, gpu):
+    """The cluster probe's ``full`` (``launch``) in turns with the
+    production launch of the same steps (production, probe, probe,
+    production, R3_TURNS times), recorded in ``row``; then one launch with
+    its phase clock read, emitted as a ``phase_cycles`` row whose phases
+    add up to each CTA's step loop within PHASE_SUM_RTOL."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.tools import DTYPE_NAMES
+    from wavenet_torch.tools import r3_b1_bisect as r3
+
+    n = R3_STEPS
+    first = torch.full((1, 1), c.quantization_channels // 2,
+                       dtype=torch.int32, device="cuda")
+
+    def production():
+        ks.decode_sequential(pk, c, first, n, R3_SEED, kernel="cluster")
+
+    prod, probe = [], []
+    for _ in range(R3_TURNS):
+        prod.append(cuda_ms(production) / n)
+        probe.extend(cuda_ms(launch) / n for _ in range(2))
+        prod.append(cuda_ms(production) / n)
+    cost = float(np.median(probe)) / float(np.median(prod)) - 1.0
+    row.update(production_ms_per_step=float(np.median(prod)),
+               turns_production=prod, turns_probe=probe, clock_cost=cost)
+    r3.b1_bisect_phase_cycles(plan.CS, dtype)          # zero the clock
+    ms = cuda_ms(launch) / n
+    phases, steps = r3.b1_bisect_phase_cycles(plan.CS, dtype)
+    per = phases.astype(np.float64) / n
+    loop = steps.astype(np.float64) / n
+    for k in range(plan.CS):
+        check(abs(per[k].sum() - loop[k]) <= PHASE_SUM_RTOL * loop[k],
+              f"phase clock CTA {k}: phases {per[k].sum()} against its step "
+              f"{loop[k]}")
+    # The last CTA's timeline: its wait holds the chain of the CTAs before.
+    last = per[-1]
+    chain = last[:r3.PHASES.index("dense_sync") + 1].sum()
+    head = last[r3.PHASES.index("barrier1"):].sum()
+    clock = {"phase": "probe", "probe": "phase_cycles",
+             "kernel": "cluster", "dtype": DTYPE_NAMES[dtype],
+             "plan": list(plan), "steps": n, "ms_per_step": ms,
+             "clocks_per_ms": float(loop.max() / ms),
+             "step_clocks": loop.tolist(),
+             "clocks_per_step": {f"cta{k}": dict(zip(r3.PHASES,
+                                                     per[k].tolist()))
+                                 for k in range(plan.CS)},
+             "chain_share_of_last_cta_step": float(chain / loop[-1]),
+             "head_share_of_last_cta_step": float(head / loop[-1]),
+             "phases_sum_within": PHASE_SUM_RTOL, "gpu": gpu}
+    emit(clock)
+    return {"production_ms": float(np.median(prod)), "clock_cost": cost,
+            "step_clocks": float(loop.max())}
+
+
 def phase_matvec_probe(gpu):
-    """Phase 8 (c): the two product forms (TPU kernel 10b) at the tool's
-    C = 64 and L = 60, on 4 x orthogonal weights: each mode against its
-    plain version over R4_CHECK_STEPS steps, timed over R4_STEPS."""
+    """Phase 8 (c): the product forms (TPU kernel 10b) at the tool's
+    C = 64 and L = 60, on 4 x orthogonal weights, on both kernels (the
+    cluster form, row 10d, on the fewest CTAs that hold the weights; the
+    L2 form, row 10b): each mode against its plain version over
+    R4_CHECK_STEPS steps, timed over R4_STEPS. The cluster rows also give
+    ns a product (a one-CTA launch of r4.ONE_CTA_L products) and ns a
+    hand-off ((a step - L products) / CS)."""
     import numpy as np
     import torch
     from wavenet_torch.tools import r4_matvec_probe as r4
@@ -3145,28 +3239,53 @@ def phase_matvec_probe(gpu):
     C, L = r4.C, r4.L
     w = r4.orthogonal_weights(L, C).cuda()
     wt = w.transpose(1, 2).contiguous()
+    w1, wt1 = w[:r4.ONE_CTA_L].contiguous(), wt[:r4.ONE_CTA_L].contiguous()
+    cs = r4.cluster_split(L, C, r4.cluster_smem_optin())[0]
     results = {}
-    for mode in r4.MODES:
-        row = {"phase": "probe", "probe": "r4_matvec_probe", "config": "C64",
-               "mode": mode, "C": C, "L": L}
-        got = r4.matvec_probe(w, wt, mode, R4_CHECK_STEPS)
-        ref = r4.matvec_probe_reference(w, wt, mode, R4_CHECK_STEPS)
-        torch.cuda.synchronize()
-        err = hold(row, "x", got, ref, 1e-4, 1e-7)
-        times = [cuda_ms(lambda: r4.matvec_probe(w, wt, mode, R4_STEPS))
-                 for _ in range(3)]
-        ms = float(np.median(times)) / R4_STEPS
-        plain = cuda_ms(lambda: r4.matvec_probe_reference(w, wt, mode,
-                                                          4)) / 4
-        flops = L * (2.0 * C * C + (C / 2 if mode.endswith("tanh") else 0))
-        nbytes = 4.0 * L * C * C * (2 if mode.startswith("vpu") else 1) + 4 * C
-        bound, by = probe_bound(flops, nbytes / R4_STEPS, simt_peak(False))
-        row.update(ms_per_step=ms, ns_per_product=1e6 * ms / L,
-                   plain_ms_per_step=plain, bound_ms_per_step=bound,
-                   bound_by=by, steps=R4_STEPS, gpu=gpu)
-        emit(row)
-        results[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bound, bound_by=by)
+    for kernel in r4.KERNELS:
+        for mode in r4.MODES:
+            row = {"phase": "probe", "probe": "r4_matvec_probe",
+                   "kernel": kernel, "config": "C64", "mode": mode, "C": C,
+                   "L": L}
+            got = r4.matvec_probe(w, wt, mode, R4_CHECK_STEPS, kernel)
+            ref = r4.matvec_probe_reference(w, wt, mode, R4_CHECK_STEPS)
+            torch.cuda.synchronize()
+            err = hold(row, "x", got, ref, 1e-4, 1e-7)
+            times = [cuda_ms(lambda: r4.matvec_probe(w, wt, mode, R4_STEPS,
+                                                     kernel))
+                     for _ in range(3)]
+            ms = float(np.median(times)) / R4_STEPS
+            plain = cuda_ms(lambda: r4.matvec_probe_reference(w, wt, mode,
+                                                              4)) / 4
+            flops = L * (2.0 * C * C + (C / 2 if mode.endswith("tanh")
+                                        else 0))
+            nbytes = (4.0 * L * C * C * (2 if mode.startswith("vpu") else 1)
+                      + 4 * C)
+            bound, by = probe_bound(flops, nbytes / R4_STEPS,
+                                    simt_peak(False))
+            row.update(ms_per_step=ms, ns_per_product=1e6 * ms / L,
+                       plain_ms_per_step=plain, bound_ms_per_step=bound,
+                       bound_by=by, steps=R4_STEPS, gpu=gpu)
+            res = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by)
+            if kernel == "cluster":
+                got1 = r4.matvec_probe(w1, wt1, mode, R4_CHECK_STEPS,
+                                       kernel, cs=1)
+                ref1 = r4.matvec_probe_reference(w1, wt1, mode,
+                                                 R4_CHECK_STEPS)
+                torch.cuda.synchronize()
+                hold(row, "x_one_cta", got1, ref1, 1e-4, 1e-7)
+                one = float(np.median([cuda_ms(lambda: r4.matvec_probe(
+                    w1, wt1, mode, R4_STEPS, kernel, cs=1))
+                    for _ in range(3)])) / R4_STEPS / r4.ONE_CTA_L
+                handoff = (ms - L * one) / cs
+                row.update(cs=cs, ns_per_product=1e6 * one,
+                           ns_per_product_one_cta_L=r4.ONE_CTA_L,
+                           ns_per_handoff=1e6 * handoff)
+                res.update(cs=cs, ns_per_product=1e6 * one,
+                           ns_per_handoff=1e6 * handoff)
+            emit(row)
+            results[mode if kernel == "decode" else f"cluster_{mode}"] = res
     return results
 
 
@@ -3210,9 +3329,10 @@ def phase_probe_main_path(gpu):
             "fwd_bisect2": [f"{p}{v}_{t}_{d}" for p in ("", "mma_")
                             for v, t in r2b.MAIN_CASES
                             for d in ("bf16", "f32")],
-            "b1_bisect": [f"{m}_{d}" for m in r3.MODES
-                          for d in ("bf16", "f32")],
-            "matvec_probe": list(r4.MODES)}
+            "b1_bisect": [f"{k}{m}_{d}" for k in ("", "cluster_")
+                          for m in r3.MODES for d in ("bf16", "f32")],
+            "matvec_probe": [f"{k}{m}" for k in ("", "cluster_")
+                             for m in r4.MODES]}
     for k, keys in want.items():
         missing = [key for key in keys if not launches[k].get(key)]
         check(not missing, f"{k}: no launch of {missing} on the main path")
@@ -3608,7 +3728,8 @@ def main() -> int:
     # call computes a gated layer stack, a decode step or a dependent
     # chain of matvecs. The tensor-core rows (fwd_bisect_mma.cu) count the
     # launches of the tool run at their config; the others all of phase
-    # 8 (d)'s.
+    # 8 (d)'s. The cluster rows carry the production launch's step in
+    # turns and the clock's cost (r3), or ns a product and a hand-off (r4).
     r2_unit = "per call (30 layer launches)"
     probe_rows = (
         ("fwd_bisect_full_bf16", "fwd_bisect", "full_bf16", r2_res,
@@ -3634,11 +3755,23 @@ def main() -> int:
          "b1_bisect.cu", "tools/r3_b1_bisect.py:158", "per decode step"),
         ("b1_bisect_full_bf16", "b1_bisect", "full_bf16", r3_res,
          "b1_bisect.cu", "tools/r3_b1_bisect.py:158", "per decode step"),
+        ("b1_bisect_cluster_full_f32", "b1_bisect", "cluster_full_f32",
+         r3_res, "b1_bisect_cluster.cu", "tools/r3_b1_bisect.py:158",
+         "per decode step"),
+        ("b1_bisect_cluster_full_bf16", "b1_bisect", "cluster_full_bf16",
+         r3_res, "b1_bisect_cluster_bf16.cu", "tools/r3_b1_bisect.py:158",
+         "per decode step"),
         ("matvec_probe_mxu", "matvec_probe", "mxu", r4_res,
          "matvec_probe.cu", "tools/r4_matvec_probe.py:96",
          "per step (60 chained products)"),
         ("matvec_probe_vpu", "matvec_probe", "vpu", r4_res,
          "matvec_probe.cu", "tools/r4_matvec_probe.py:96",
+         "per step (60 chained products)"),
+        ("matvec_probe_cluster_mxu", "matvec_probe", "cluster_mxu", r4_res,
+         "matvec_probe_cluster.cu", "tools/r4_matvec_probe.py:96",
+         "per step (60 chained products)"),
+        ("matvec_probe_cluster_vpu", "matvec_probe", "cluster_vpu", r4_res,
+         "matvec_probe_cluster.cu", "tools/r4_matvec_probe.py:96",
          "per step (60 chained products)"),
     )
     for name, wrapper, key, res, src, where, unit in probe_rows:
@@ -3659,7 +3792,9 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None, "unit": unit,
-            "gpu": gpu})
+            "gpu": gpu, **{k: m[k] for k in (
+                "production_ms", "clock_cost", "step_clocks", "cs",
+                "ns_per_product", "ns_per_handoff") if k in m}})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

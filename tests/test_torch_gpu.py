@@ -1153,7 +1153,7 @@ def test_b1_bisect_matches_reference(setup, mode, dt):
                                      weight_dtype=DTYPES[dt])
     n, seed, Q = 400, 9, c.quantization_channels
     before = r3.b1_bisect.launches
-    codes = r3.b1_bisect(packed, c, mode, n, seed)
+    codes = r3.b1_bisect(packed, c, mode, n, seed, kernel="decode")
     torch.cuda.synchronize()
     assert r3.b1_bisect.launches == before + 1
     assert codes.shape == (1, n) and 0 <= codes.min() and codes.max() < Q
@@ -1164,9 +1164,124 @@ def test_b1_bisect_matches_reference(setup, mode, dt):
         lg = lg + ks.gumbel_noise(seed, 1, 0, n, Q, "cuda")[:, 0]
     match = (lg.argmax(dim=-1) == codes[0].long()).float().mean().item()
     assert match >= 0.995, match
-    if mode == "full" and dt == "f32":
-        want, _ = ks.decode_sequential(packed, c, first, n, seed)
+    if mode == "full":
+        want, _ = ks.decode_sequential(packed, c, first, n, seed,
+                                       kernel="decode")
         assert torch.equal(codes, want)
+
+
+# The cluster kernel's plans at B1_SMALL: the device's (one CTA there), and
+# 2 and 4 CTAs, whose hand-offs, skip partials and head split the step.
+B1_PLANS = [None, ks.ClusterPlan(2, 1, (0, 4, 8)),
+            ks.ClusterPlan(4, 1, (0, 2, 4, 6, 8))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("mode", r3.MODES)
+@pytest.mark.parametrize("plan", B1_PLANS,
+                         ids=lambda p: "device" if p is None else f"cs{p.CS}")
+def test_b1_bisect_cluster_matches_reference(setup, plan, mode, dt):
+    """Every r3 mode on the cluster kernel: its codes replayed by the plain
+    version in the cluster kernel's order (teacher-forced logits plus the
+    same Philox noise) agree, and ``full`` emits the production launch's
+    codes (``decode_sequential(kernel="cluster")`` on the device's plan)
+    at both weight types."""
+    c = WaveNetConfig(**B1_SMALL)
+    packed = ks.pack_sampler_weights(_seeded_params(c), c, 1,
+                                     weight_dtype=DTYPES[dt])
+    n, seed, Q = 400, 9, c.quantization_channels
+    key = f"cluster_{mode}_{dt}"
+    before = r3.b1_bisect.launches_by[key]
+    codes = r3.b1_bisect(packed, c, mode, n, seed, kernel="cluster",
+                         plan=plan)
+    torch.cuda.synchronize()
+    assert r3.b1_bisect.launches_by[key] == before + 1
+    assert codes.shape == (1, n) and 0 <= codes.min() and codes.max() < Q
+    used = plan or ks.device_plan(c, 1)
+    first = torch.full((1, 1), Q // 2, dtype=torch.int32, device="cuda")
+    lg = r3.b1_bisect_logits(packed, c, mode,
+                             torch.cat([first, codes[:, :-1]], dim=1),
+                             kernel="cluster", plan=used)[0]
+    if mode != "no_sample":
+        lg = lg + ks.gumbel_noise(seed, 1, 0, n, Q, "cuda")[:, 0]
+    match = (lg.argmax(dim=-1) == codes[0].long()).float().mean().item()
+    assert match >= 0.995, match
+    if mode == "full":
+        ring, causal = ks.zero_state(c, 1, "cuda")
+        want, _, name = ks._launch(packed, c, ring, causal, first, n, 0,
+                                   seed, 1.0, False, route="sequential",
+                                   kernel="cluster", plan=used)
+        assert name.startswith("cluster") and torch.equal(codes, want)
+        if plan is None:
+            want, _ = ks.decode_sequential(packed, c, first, n, seed,
+                                           kernel="cluster")
+            assert torch.equal(codes, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_b1_bisect_cluster_phase_clock(setup, dt):
+    """The phase clock at the paper widths on the device's plan (the
+    compiled widths): each CTA's phases add up to its step loop within 5%,
+    every CTA waits for its hand-off or runs the causal product, and a read
+    zeroes the clock."""
+    from wavenet_torch.models.config import paper_config
+    c = paper_config()
+    plan = ks.device_plan(c, 1)
+    packed = ks.pack_sampler_weights(_seeded_params(c), c, 1,
+                                     weight_dtype=DTYPES[dt])
+    r3.b1_bisect_phase_cycles(plan.CS, DTYPES[dt])            # zero it
+    n = 300
+    r3.b1_bisect(packed, c, "full", n, kernel="cluster")
+    phases, steps = r3.b1_bisect_phase_cycles(plan.CS, DTYPES[dt])
+    assert phases.shape == (plan.CS, len(r3.PHASES))
+    total = phases.astype(np.float64).sum(axis=1)
+    assert (steps > 0).all()
+    np.testing.assert_allclose(total, steps.astype(np.float64), rtol=0.05)
+    ring_wait = phases[:, r3.PHASES.index("ring_wait")]
+    assert (ring_wait > 0).all()
+    again, steps2 = r3.b1_bisect_phase_cycles(plan.CS, DTYPES[dt])
+    assert not again.any() and not steps2.any()
+
+
+from wavenet_torch.tools import decode_turns  # noqa: E402
+
+# decode_turns' digests of the tree before the ablation mask and the phase
+# clock entered sampler_cluster.cuh (commit 0a6887c, on an H100 80GB HBM3):
+# the production modes must compute the same codes and logits bit for bit.
+PARENT_DIGESTS = {
+    "paper_b1_f32": "ac112a206f322c99", "paper_b1_bf16": "3cb3b9d7494cbf59",
+    "gc_b64_f32": "521c79637c03ff5f", "gc_b64_bf16": "3d49f35570c61e72",
+    "wide_b1_f32": "2f33e4267389f3e3", "wide_b1_bf16": "656182c6574b76fd",
+    "lc_b1_f32": "8da970ac2a18ac09"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", sorted(f"{n}_{d}" for n, ds in
+                                       decode_turns.CASES for d in ds))
+def test_cluster_kernels_keep_their_digests(setup, key):
+    name, dt = key.rsplit("_", 1)
+    assert decode_turns.digest(name, dt) == PARENT_DIGESTS[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [1, 4])
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("mode", r4.MODES)
+def test_matvec_probe_cluster_matches_reference(setup, mode, C, cs):
+    """The cluster form at both widths, on one CTA and on four (one pair
+    each, four hand-offs a step)."""
+    w = r4.orthogonal_weights(8, C, seed=2).cuda()
+    wt = w.transpose(1, 2).contiguous()
+    key = f"cluster_{mode}"
+    before = r4.matvec_probe.launches_by[key]
+    got = r4.matvec_probe(w, wt, mode, 20, kernel="cluster", cs=cs)
+    ref = r4.matvec_probe_reference(w, wt, mode, 20)
+    torch.cuda.synchronize()
+    assert r4.matvec_probe.launches_by[key] == before + 1
+    assert ref.abs().max().item() > 1e-3
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.gpu
@@ -1176,7 +1291,7 @@ def test_matvec_probe_matches_reference(setup, mode, C):
     w = r4.orthogonal_weights(8, C, seed=2).cuda()
     wt = w.transpose(1, 2).contiguous()
     before = r4.matvec_probe.launches
-    got = r4.matvec_probe(w, wt, mode, 20)
+    got = r4.matvec_probe(w, wt, mode, 20, kernel="decode")
     ref = r4.matvec_probe_reference(w, wt, mode, 20)
     torch.cuda.synchronize()
     assert r4.matvec_probe.launches == before + 1
@@ -1198,12 +1313,23 @@ def test_probes_reject_bad_inputs(setup):
                         torch.zeros((2, 64, 48), device="cuda"), "fat",
                         kernel="simt")
     w = r4.orthogonal_weights(4, 16).cuda()
-    with pytest.raises(NotImplementedError, match="C in"):
-        r4.matvec_probe(w, w, "mxu", 1)
+    for kernel in r4.KERNELS:
+        with pytest.raises(NotImplementedError, match="C in"):
+            r4.matvec_probe(w, w, "mxu", 1, kernel=kernel)
+    w = r4.orthogonal_weights(60, 64).cuda()
+    with pytest.raises(ValueError, match="no cluster"):
+        r4.matvec_probe(w, w, "mxu", 1, kernel="cluster", cs=2)
     cb = WaveNetConfig(**B1_SMALL)
     packed = ks.pack_sampler_weights(_seeded_params(cb), cb, 2)
     with pytest.raises(ValueError, match="layer_add"):
         r3.b1_bisect(packed, cb, "full", 4)
+    packed = ks.pack_sampler_weights(_seeded_params(cb), cb, 1)
+    with pytest.raises(ValueError, match="cover the L"):
+        r3.b1_bisect(packed, cb, "full", 4, kernel="cluster",
+                     plan=ks.ClusterPlan(2, 1, (0, 4, 6)))
+    with pytest.raises(ValueError, match="a plan is the cluster"):
+        r3.b1_bisect(packed, cb, "full", 4, kernel="decode",
+                     plan=ks.ClusterPlan(2, 1, (0, 4, 8)))
 
 
 # ---------------------------------------------------------------------------

@@ -196,3 +196,19 @@ def test_wrappers_reject_an_unknown_kernel():
     with pytest.raises(ValueError, match="kernel"):
         ks.decode_sequential(None, c, torch.zeros((1, 1), dtype=torch.int32),
                              1, 0, kernel="fast")
+
+
+def test_decode_turns_tool_refuses_the_cpu():
+    """``python -m wavenet_torch.tools.decode_turns`` takes the cluster
+    kernel's digests and times in a process of its own for each checkout,
+    on the card; without one it fails rather than run anything else."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavenet_torch.tools.decode_turns", "--trees",
+         root, "--reps", "1"], capture_output=True, text=True, cwd=root,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "needs a CUDA GPU" in proc.stderr

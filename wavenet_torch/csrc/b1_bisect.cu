@@ -28,8 +28,11 @@
 // config (2.1 MB at bf16) from L2 on one SM and does 2.1 MFLOP: the probe
 // measures how the step's time splits between those bytes, its
 // dependency chain of block barriers, and the rest. On an H100 (PERF.md)
-// neither bytes nor barriers set it: the 30 filter/gate products, each
-// waiting for its weights from L2, are 43% of the step.
+// neither bytes nor barriers set sampler_decode's step: its 30 filter/gate
+// products, each waiting for its weights from L2, are 43% of it. b1
+// generation runs sampler_cluster instead, whose chain weights sit in
+// shared memory; its own probe (b1_bisect_cluster.cuh) finds those
+// products 12% of its 7x shorter step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,19 +42,6 @@
 
 namespace {
 
-constexpr unsigned kModes[] = {
-    kFullStep,                               // full
-    kNoSkip,                                 // no_skip
-    kNoDense,                                // no_dense
-    kNoFg,                                   // no_fg
-    kNoTanh,                                 // no_tanh
-    kNoRing,                                 // no_ring
-    kNoHead,                                 // no_head
-    kNoSample,                               // no_sample
-    kNoFeat,                                 // no_feat
-    kNoRing | kNoTanh | kNoSkip | kNoHead,   // mm_only
-};
-constexpr int kNumModes = 10;
 constexpr int kUnsupported = 1000;
 
 template <unsigned kMask, typename WT>
@@ -69,8 +59,8 @@ int launch(const DecodeArgsT<WT>& a, cudaStream_t st) {
 
 template <typename WT, int M = 0>
 int dispatch(int mode, const DecodeArgsT<WT>& a, cudaStream_t st) {
-  if constexpr (M < kNumModes) {
-    if (mode == M) return launch<kModes[M], WT>(a, st);
+  if constexpr (M < kR3NumModes) {
+    if (mode == M) return launch<kR3Modes[M], WT>(a, st);
     return dispatch<WT, M + 1>(mode, a, st);
   } else {
     return kUnsupported;

@@ -21,10 +21,15 @@
 // products (filter/gate, then dense, for each of L layers), then the skip
 // sum and the head. sampler_decode streams every weight of that chain from
 // L2 in one block, and each product waits for its weights before the next
-// can start; the b1 probe (tools/r3_b1_bisect.py) finds the 30 filter/gate
-// products alone 43% of its step, on 11% of its bytes. Neither bytes nor
-// FLOPs bound the step (0.21 ms against a 3e-5 ms bound at paper b1 on an
-// H100); the latency of the chain does. This kernel shortens the chain:
+// can start; the r3 probe of sampler_decode (b1_bisect.cu) finds the 30
+// filter/gate products alone 43% of its step, on 11% of its bytes. Neither
+// bytes nor FLOPs bound the step (0.21 ms against a 3e-5 ms bound at paper
+// b1 on an H100); the latency of the chain does. This kernel shortens the
+// chain to 0.03 ms a step. Its own probe (b1_bisect_cluster.cuh; PERF.md)
+// finds the filter/gate products 12% of that step; on the last CTA's
+// timeline the chain (the wait for the CTAs before it, then its own
+// layers) is 56%, the head from the first cluster barrier on 39%, post1
+// alone 18%:
 //
 // * One cluster of CS CTAs serves RB rows; CTA k owns the contiguous
 //   layers [layer_begin[k], layer_begin[k+1]) and copies their filter/gate
@@ -104,6 +109,37 @@
 // CTAs of one cluster, which the hardware schedules together. The plan
 // keeps every cluster of a launch resident at once (the device's count of
 // resident clusters), so that a launch runs in one wave.
+//
+// Ablations (kMask, sampler_step.cuh's bits; kFullStep in every production
+// library, where each `if constexpr` below keeps the full step). The r3
+// probe (b1_bisect_cluster.cuh) instantiates them at RB = 1 without LC;
+// each computes its JAX mode's math (tools/r3_b1_bisect.py) and keeps every
+// cluster barrier, mbarrier hand-off and block barrier of the full step
+// unless said:
+//   kNoRing    past = cur (the layer's input): no ring read before the
+//              wait, no ring write after the hand-off
+//   kNoFg      fg = [past | cur] (R == D): no filter/gate product or its
+//              shuffles; past is then kept unrounded (bf16), as fg
+//   kNoDense   cur += out[:, :R]: no dense product or its shuffles; out is
+//              then kept unrounded (bf16) and rounded where the skip
+//              product reads it
+//   kNoTanh    out = f + g
+//   kNoSkip    no skip partial (psum holds zeros, written once a launch);
+//              the head adds them to skip_b, so it reads skip_b alone
+//   kNoHead    no skip sum, post1 or post2, and no barrier B2: after B1
+//              every CTA reads the last CTA's cur[0] (its chain is done,
+//              and nothing writes it before B3) as the logit of each of
+//              its classes
+//   kNoSample  argmax of the logits, no Philox noise
+//   kNoFeat    CTA 0 sets cur = x in every channel: no causal product (at
+//              launch or after the hand-off) and no register update
+//
+// Phase clock (SAMPLER_CLUSTER_PROBE, defined by the probe's sources only):
+// thread 0 of each CTA of the first cluster keeps, in registers, the SM
+// clocks (clock64) of each phase of every step (ClusterPhase) and of the
+// whole step loop, and adds them to g_phase_cycles[rank] when the launch
+// ends. A CTA's phases add up to its steps, less the loop's own overhead.
+// Without the macro CLUSTER_PHASE compiles to nothing.
 
 #pragma once
 
@@ -123,6 +159,36 @@ namespace {
 
 constexpr int kMaxCluster = 16;
 constexpr int kSkipCols = 2;    // skip columns a thread carries at once
+
+// The phases of a step, in order (one CTA's timeline):
+//   kPhRingWait      past rows; CTA 0: cur and the register, else the
+//                    mbarrier wait for the hand-off
+//   kPhFgProduct ... kPhDenseSync   each layer's products and block
+//                    barriers, summed over the CTA's layers
+//   kPhHandoff       st.async to the next CTA, the ring write, CTA 0's next
+//                    causal product (and the LC terms)
+//   kPhSkipPartial, kPhBarrier1, kPhSkipSum, kPhPost1Gather, kPhBarrier2,
+//   kPhPost2Logits, kPhGumbelArgmax, kPhBarrier3Pick   the head
+enum ClusterPhase {
+  kPhRingWait, kPhFgProduct, kPhFgSync, kPhDenseProduct, kPhDenseSync,
+  kPhHandoff, kPhSkipPartial, kPhBarrier1, kPhSkipSum, kPhPost1Gather,
+  kPhBarrier2, kPhPost2Logits, kPhGumbelArgmax, kPhBarrier3Pick,
+  kClusterPhases
+};
+#ifdef SAMPLER_CLUSTER_PROBE
+// [rank][phase]; the last column is the step loop's whole.
+__device__ unsigned long long g_phase_cycles[kMaxCluster][kClusterPhases + 1];
+#define CLUSTER_PHASE(k)                          \
+  do {                                            \
+    if (probe_thread) {                           \
+      const long long now_ = clock64();           \
+      phase_cycles[k] += (unsigned long long)(now_ - phase_prev); \
+      phase_prev = now_;                          \
+    }                                             \
+  } while (0)
+#else
+#define CLUSTER_PHASE(k) ((void)0)
+#endif
 
 template <typename WT>
 struct ClusterArgs {
@@ -303,9 +369,15 @@ __device__ __forceinline__ float widen(__nv_bfloat16 w) {
   return __bfloat162float(w);
 }
 
-template <int RB, int kFixed, typename WT, bool kLc = false>
+template <int RB, int kFixed, typename WT, bool kLc = false,
+          unsigned kMask = kFullStep>
 __global__ void __launch_bounds__(kThreads, 1)
 sampler_cluster_kernel(const ClusterArgs<WT> ca) {
+  constexpr bool kSkip = !(kMask & kNoSkip), kDense = !(kMask & kNoDense);
+  constexpr bool kFg = !(kMask & kNoFg), kTanh = !(kMask & kNoTanh);
+  constexpr bool kRing = !(kMask & kNoRing), kHead = !(kMask & kNoHead);
+  constexpr bool kSample = !(kMask & kNoSample), kFeat = !(kMask & kNoFeat);
+  static_assert(!kLc || kMask == kFullStep, "the LC mode has no ablations");
   cg::cluster_group cluster = cg::this_cluster();
   const DecodeArgsT<WT>& a = ca.a;
   // bf16 weights: whether the layer chain's inputs are rounded (the causal
@@ -367,9 +439,15 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
   // or this step's before it waits for the hand-off (see the header).
   const bool lc_after = rank == 0 || (RB <= 4 && 2 * rank < CS);
 
+#ifdef SAMPLER_CLUSTER_PROBE
+  const bool probe_thread = tid == 0 && (int)blockIdx.x < CS;
+  unsigned long long phase_cycles[kClusterPhases] = {};
+  long long phase_prev = 0;
+#endif
+
   // Once per launch: this CTA's weights (in the lane order of the chain's
   // products), adds and ring rows.
-  for (int i = tid; i < nl * sh.fg_floats; i += kThreads) {
+  for (int i = tid; i < (kFg ? nl * sh.fg_floats : 0); i += kThreads) {
     const int j = i / sh.fg_floats, e = i % sh.fg_floats;
     const int w = e / (sh.fg_it * 32), it = (e / 32) % sh.fg_it, l = e % 32;
     const int cl = l % sh.fcols, k = l / sh.fcols + it * sh.fg_groups;
@@ -380,7 +458,7 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
                                    col])
                  : 0.f;
   }
-  for (int i = tid; i < nl * sh.d_floats; i += kThreads) {
+  for (int i = tid; i < (kDense ? nl * sh.d_floats : 0); i += kThreads) {
     const int j = i / sh.d_floats, e = i % sh.d_floats;
     const int w = e / (sh.d_it * 32), it = (e / 32) % sh.d_it, l = e % 32;
     const int k = l / sh.dcols + it * sh.d_groups;
@@ -412,9 +490,12 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       xamp[tid] = (row < B && a.scalar) ? forced_f[at] : 0.f;
     }
   }
+  if constexpr (!kSkip) {
+    for (int i = tid; i < RB * S; i += kThreads) psum[i] = 0.f;
+  }
   if (tid == 0) mbar_init(bar, 1);
   __syncthreads();
-  if (rank == 0) {
+  if (kFeat && rank == 0) {
     // The causal product of step 0's register (the input row is added when
     // the step starts).
     matvec<RB>(causal, KC, KC, a.causal_w, R, part,
@@ -428,45 +509,59 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
   cluster.sync();   // every mbarrier initialised before any remote arrive
 
   const int log_from = a.n_total - a.n_log;
+#ifdef SAMPLER_CLUSTER_PROBE
+  const long long loop_start = clock64();
+#endif
   for (int t = 0; t < a.n_total; ++t) {
     const long long step = a.t0 + t;
+#ifdef SAMPLER_CLUSTER_PROBE
+    if (probe_thread) phase_prev = clock64();
+#endif
 
-    // The past rows of this CTA's layers, before waiting for the chain.
-    for (int i = tid; i < RB * nl * R; i += kThreads) {
+    // The past rows of this CTA's layers, before waiting for the chain
+    // (kept unrounded where fg is [past | cur] itself).
+    for (int i = tid; i < (kRing ? RB * nl * R : 0); i += kThreads) {
       const int r = i / (nl * R), j = (i / R) % nl, q = i % R;
       const int row = row0 + r;
       const int pos = meta[j] + (int)(step % (long long)meta[NL + j]);
       past[(r * NL + j) * R + q] = opnd<WT>(
-          row < B ? a.ring[((size_t)pos * B + row) * R + q] : 0.f, rc);
+          row < B ? a.ring[((size_t)pos * B + row) * R + q] : 0.f,
+          kFg && rc);
     }
     if (rank == 0) {
       // current = causal product + the input's row (mu-law: row KC + x of
       // the one-hot; scalar: x times row KC), as sampler_decode's epilogue.
       for (int i = tid; i < RB * R; i += kThreads) {
         const int r = i / R, n = i % R;
-        cur[i] = a.scalar
-                     ? fmaf(opnd<WT>(xamp[r]),
-                            ldw(a.causal_w + (size_t)KC * R + n), sprev[i])
-                     : sprev[i] +
-                           ldw(a.causal_w + (size_t)(KC + xin[r]) * R + n);
+        if constexpr (kFeat) {
+          cur[i] = a.scalar
+                       ? fmaf(opnd<WT>(xamp[r]),
+                              ldw(a.causal_w + (size_t)KC * R + n), sprev[i])
+                       : sprev[i] +
+                             ldw(a.causal_w + (size_t)(KC + xin[r]) * R + n);
+        } else {
+          cur[i] = (float)xin[r];
+        }
       }
       // The register of step t + 1 (scalar: shifted through the free
       // partial-sum scratch).
-      if (a.scalar) {
-        for (int i = tid; i < RB * KC; i += kThreads) {
-          const int r = i / KC, j = i % KC;
-          part[i] = j + 1 < KC ? causal[i + 1] : xamp[r];
+      if constexpr (kFeat) {
+        if (a.scalar) {
+          for (int i = tid; i < RB * KC; i += kThreads) {
+            const int r = i / KC, j = i % KC;
+            part[i] = j + 1 < KC ? causal[i + 1] : xamp[r];
+          }
+        } else {
+          for (int i = tid; i < RB * KC; i += kThreads)
+            causal[i] = (i % KC == xin[i / KC]) ? 1.f : 0.f;
         }
-      } else {
-        for (int i = tid; i < RB * KC; i += kThreads)
-          causal[i] = (i % KC == xin[i / KC]) ? 1.f : 0.f;
       }
       // The codes emitted by the last step (written here, after the
       // step's first barrier, rather than before the hand-off's fence).
       if (t > 0 && tid < RB && row0 + tid < B)
         a.codes[(size_t)(row0 + tid) * a.n_total + t - 1] = xin[tid];
       __syncthreads();
-      if (a.scalar)
+      if (kFeat && a.scalar)
         for (int i = tid; i < RB * KC; i += kThreads) causal[i] = part[i];
     } else {
       // This step's LC terms, while the chain runs in the CTAs before.
@@ -477,55 +572,74 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       mbar_wait(bar, (uint32_t)(t & 1));
     }
     __syncthreads();
+    CLUSTER_PHASE(kPhRingWait);
 
     // This CTA's layers, weights from shared memory. Each warp computes
     // whole output columns: its lanes split K into groups and add their
     // partial sums with shuffles, so a layer takes two block barriers.
     for (int j = 0; j < nl; ++j) {
-      for (int i = tid; i < RB * R; i += kThreads)
-        ins[((i / R) * NL + j) * R + i % R] = cur[i];
+      if constexpr (kRing) {
+        for (int i = tid; i < RB * R; i += kThreads)
+          ins[((i / R) * NL + j) * R + i % R] = cur[i];
+      }
       {
         // fg = [past | current] @ layer_w[l] + layer_add[l, row]
-        float acc[RB];
+        float acc[RB], gv[RB];
+        if constexpr (kFg) {
 #pragma unroll
-        for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-        const float* W = wfg + (size_t)j * sh.fg_floats +
-                         warp * sh.fg_it * 32 + lane;
-        // k = fg_g + it * fg_groups: the past half, then the current half.
-        const int G = sh.fg_groups;
-        const int n_past = fg_g < R ? (R - fg_g + G - 1) / G : 0;
-        const int n_all = fg_g < 2 * R ? (2 * R - fg_g + G - 1) / G : 0;
-        lane_dot<RB, WT>(W, past + j * R + fg_g, NL * R, G, n_past, acc,
-                         false);
-        lane_dot<RB, WT>(W + n_past * 32, cur + fg_g - R + n_past * G, R, G,
-                         n_all - n_past, acc, rc);
-        float gv[RB];
+          for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+          const float* W = wfg + (size_t)j * sh.fg_floats +
+                           warp * sh.fg_it * 32 + lane;
+          // k = fg_g + it * fg_groups: the past half, then the current half.
+          const int G = sh.fg_groups;
+          const int n_past = fg_g < R ? (R - fg_g + G - 1) / G : 0;
+          const int n_all = fg_g < 2 * R ? (2 * R - fg_g + G - 1) / G : 0;
+          if constexpr (kRing)
+            lane_dot<RB, WT>(W, past + j * R + fg_g, NL * R, G, n_past, acc,
+                             false);
+          else   // past = cur
+            lane_dot<RB, WT>(W, cur + fg_g, R, G, n_past, acc, rc);
+          lane_dot<RB, WT>(W + n_past * 32, cur + fg_g - R + n_past * G, R,
+                           G, n_all - n_past, acc, rc);
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          for (int off = sh.fcols; off < 32; off <<= 1)
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-          gv[r] = __shfl_down_sync(0xffffffffu, acc[r], sh.fcols / 2);
+          for (int r = 0; r < RB; ++r) {
+            for (int off = sh.fcols; off < 32; off <<= 1)
+              acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+            gv[r] = __shfl_down_sync(0xffffffffu, acc[r], sh.fcols / 2);
+          }
         }
         if (!gate_lane) {
           const float* ad = addb + j * 2 * D;
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             if (r % sh.fg_groups == fg_g) {
-              float f = acc[r] + ad[r * NL * 2 * D + fdim];
-              float g = gv[r] + ad[r * NL * 2 * D + D + fdim];
+              float f, g;
+              if constexpr (kFg) {
+                f = acc[r] + ad[r * NL * 2 * D + fdim];
+                g = gv[r] + ad[r * NL * 2 * D + D + fdim];
+              } else {   // R == D: fg = [past | cur]
+                g = cur[r * R + fdim];
+                f = kRing ? past[(r * NL + j) * R + fdim] : g;
+              }
               if constexpr (kLc) {
                 const float* lp = lcp + (r * NL + j) * 2 * D;
                 f += lp[fdim];
                 g += lp[D + fdim];
               }
-              outs[(r * NL + j) * D + fdim] =
-                  opnd<WT>(tanhf(f) * (0.5f + 0.5f * tanhf(g)), rc);
+              if constexpr (kTanh)
+                outs[(r * NL + j) * D + fdim] =
+                    opnd<WT>(tanhf(f) * (0.5f + 0.5f * tanhf(g)),
+                             kDense && rc);
+              else
+                outs[(r * NL + j) * D + fdim] = opnd<WT>(f + g, kDense && rc);
             }
           }
         }
       }
+      CLUSTER_PHASE(kPhFgProduct);
       __syncthreads();
-      {
+      CLUSTER_PHASE(kPhFgSync);
+      if constexpr (kDense) {
         // current += out @ dense_w[l] + dense_add[l]
         float acc[RB];
 #pragma unroll
@@ -542,8 +656,13 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
           if (r % sh.d_groups == d_g)
             cur[r * R + dn] = (cur[r * R + dn] + acc[r]) + dadd[j * R + dn];
         }
+      } else {   // R <= D: current += out[:, :R]
+        for (int i = tid; i < RB * R; i += kThreads)
+          cur[i] += outs[((i / R) * NL + j) * D + i % R];
       }
+      CLUSTER_PHASE(kPhDenseProduct);
       __syncthreads();
+      CLUSTER_PHASE(kPhDenseSync);
     }
 
     // Hand the residual to the next CTA of the chain: asynchronous stores
@@ -555,14 +674,14 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
         st_async(dst + 4 * i, cur[i], rbar);
     }
     // The ring rows of this CTA's layers: this step's inputs.
-    for (int i = tid; i < RB * nl * R; i += kThreads) {
+    for (int i = tid; i < (kRing ? RB * nl * R : 0); i += kThreads) {
       const int r = i / (nl * R), j = (i / R) % nl, q = i % R;
       const int row = row0 + r;
       const int pos = meta[j] + (int)(step % (long long)meta[NL + j]);
       if (row < B)
         a.ring[((size_t)pos * B + row) * R + q] = ins[(r * NL + j) * R + q];
     }
-    if (rank == 0) {
+    if (kFeat && rank == 0) {
       // The next step's causal product, off the chain.
       matvec<RB>(causal, KC, KC, a.causal_w, R, part,
                  [&](int r, int n, float s) { sprev[r * R + n] = s; });
@@ -572,9 +691,11 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       if (lc_after && t + 1 < a.n_total)
         lc_terms<RB>(a, t + 1, row0, l0, nl, NL, D, lcr, lcp);
     }
+    CLUSTER_PHASE(kPhHandoff);
 
     // Skip partial of this CTA's layers, in layer order; h1 starts as
-    // skip_b (the head adds the partials to it).
+    // skip_b (the head adds the partials to it). Without the skip product,
+    // psum keeps its zeros.
     for (int n0 = 0; n0 < S; n0 += kSkipCols * kThreads) {
       float acc[kSkipCols][RB];
 #pragma unroll
@@ -583,7 +704,7 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
         for (int r = 0; r < RB; ++r) acc[c][r] = 0.f;
       // This CTA's layers in order, kBatch terms of k loaded at once.
       constexpr int kBatch = 16;
-      for (int j = 0; j < nl; ++j) {
+      for (int j = 0; j < (kSkip ? nl : 0); ++j) {
         const WT* W = a.skip_w + (size_t)(l0 + j) * D * S + n0 + tid;
         const float* o = outs + j * D;
         for (int k0 = 0; k0 < D; k0 += kBatch) {
@@ -602,8 +723,10 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
               for (int c = 0; c < kSkipCols; ++c)
 #pragma unroll
                 for (int r = 0; r < RB; ++r)
-                  acc[c][r] =
-                      fmaf(o[r * NL * D + k0 + u], w[u][c], acc[c][r]);
+                  acc[c][r] = fmaf(kDense ? o[r * NL * D + k0 + u]
+                                          : opnd<WT>(o[r * NL * D + k0 + u],
+                                                     rc),
+                                   w[u][c], acc[c][r]);
             }
           }
         }
@@ -615,17 +738,19 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
           const float b = __ldg(a.skip_b + n);
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
-            psum[r * S + n] = acc[c][r];
+            if constexpr (kSkip) psum[r * S + n] = acc[c][r];
             h1[r * S + n] = b;
           }
         }
       }
     }
+    CLUSTER_PHASE(kPhSkipPartial);
     cluster.sync();   // B1: every partial skip sum written
+    CLUSTER_PHASE(kPhBarrier1);
 
     // h1 = relu(partials in rank order + skip_b), the whole S per row; two
     // elements a thread at once, every partial loaded before the adds.
-    for (int i = tid; i < RB * S; i += 2 * kThreads) {
+    for (int i = tid; i < (kHead ? RB * S : 0); i += 2 * kThreads) {
       const int i2 = i + kThreads;
       float v[2][kMaxCluster];
 #pragma unroll
@@ -648,22 +773,31 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       if (i2 < RB * S) h1[i2] = opnd<WT>(fmaxf(s1 + h1[i2], 0.f));
     }
     __syncthreads();
-    // This CTA's columns of post1, stored into every CTA's h2.
-    head_matvec<RB>(h1, S, a.post1_w + c0, S, Sl,
-                    a.post1_b + c0, part,
-                    [&](int r, int n, float s, float b) {
-                      const float v = opnd<WT>(fmaxf(s + b, 0.f));
-                      for (int q = 0; q < CS; ++q)
-                        cluster.map_shared_rank(h2, q)[r * S + c0 + n] = v;
-                    });
-    cluster.sync();   // B2: h2 whole in every CTA
+    CLUSTER_PHASE(kPhSkipSum);
+    if constexpr (kHead) {
+      // This CTA's columns of post1, stored into every CTA's h2.
+      head_matvec<RB>(h1, S, a.post1_w + c0, S, Sl,
+                      a.post1_b + c0, part,
+                      [&](int r, int n, float s, float b) {
+                        const float v = opnd<WT>(fmaxf(s + b, 0.f));
+                        for (int q = 0; q < CS; ++q)
+                          cluster.map_shared_rank(h2, q)[r * S + c0 + n] = v;
+                      });
+      CLUSTER_PHASE(kPhPost1Gather);
+      cluster.sync();   // B2: h2 whole in every CTA
+      CLUSTER_PHASE(kPhBarrier2);
 
-    // This CTA's classes of the logits.
-    head_matvec<RB>(h2, S, a.post2_w + q0, Q, Ql,
-                    a.post2_b + q0, part,
-                    [&](int r, int n, float s, float b) {
-                      lg[r * Ql + n] = s + b;
-                    });
+      // This CTA's classes of the logits.
+      head_matvec<RB>(h2, S, a.post2_w + q0, Q, Ql,
+                      a.post2_b + q0, part,
+                      [&](int r, int n, float s, float b) {
+                        lg[r * Ql + n] = s + b;
+                      });
+    } else {
+      // Every class's logit: the last CTA's cur[0] (final since B1).
+      const float* last = cluster.map_shared_rank(cur, CS - 1);
+      for (int i = tid; i < RB * Ql; i += kThreads) lg[i] = last[(i / Ql) * R];
+    }
     __syncthreads();
     if (a.n_log > 0 && t >= log_from) {
       for (int i = tid; i < RB * Ql; i += kThreads) {
@@ -673,6 +807,7 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
                    i % Ql] = lg[i];
       }
     }
+    CLUSTER_PHASE(kPhPost2Logits);
     // Gumbel-argmax over this CTA's classes, one warp per row; the best
     // goes to CTA 0.
     if (warp < RB) {
@@ -682,15 +817,17 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       for (int blk = q0 / 4 + lane; blk * 4 < q0 + Ql; blk += 32) {
         uint32_t c[4] = {(uint32_t)blk, (uint32_t)row, (uint32_t)step,
                          (uint32_t)((unsigned long long)step >> 32)};
-        philox4x32_10(c, a.key0, a.key1);
+        if constexpr (kSample) philox4x32_10(c, a.key0, a.key1);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int q = 4 * blk + j;
-          float u = __uint_as_float((c[j] >> 9) | 0x3F800000u) - 1.0f;
-          u = fmaxf(u, 1e-20f);
-          const float gmb = -logf(-logf(u));
-          const float sc = __fadd_rn(
-              __fmul_rn(lg[r * Ql + q - q0], a.inv_temperature), gmb);
+          float sc = __fmul_rn(lg[r * Ql + q - q0], a.inv_temperature);
+          if constexpr (kSample) {
+            float u = __uint_as_float((c[j] >> 9) | 0x3F800000u) - 1.0f;
+            u = fmaxf(u, 1e-20f);
+            const float gmb = -logf(-logf(u));
+            sc = __fadd_rn(sc, gmb);
+          }
           if (better(sc, q, bv, bi)) {
             bv = sc;
             bi = q;
@@ -711,6 +848,7 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
         cluster.map_shared_rank(cand_i, 0)[rank * RB + r] = bi;
       }
     }
+    CLUSTER_PHASE(kPhGumbelArgmax);
     cluster.sync();   // B3: every candidate in CTA 0
 
     if (rank == 0 && tid < RB) {
@@ -740,7 +878,17 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       xamp[r] = amp;
     }
     __syncthreads();
+    CLUSTER_PHASE(kPhBarrier3Pick);
   }
+#ifdef SAMPLER_CLUSTER_PROBE
+  if (probe_thread) {
+#pragma unroll
+    for (int k = 0; k < kClusterPhases; ++k)
+      g_phase_cycles[rank][k] += phase_cycles[k];
+    g_phase_cycles[rank][kClusterPhases] +=
+        (unsigned long long)(clock64() - loop_start);
+  }
+#endif
 
   if (rank == 0) {
     for (int i = tid; i < RB * KC; i += kThreads) {
@@ -757,10 +905,11 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
 
 // The launch of `clusters` clusters of cs CTAs, `bytes` of shared memory
 // each, with the kernel's attributes set for it.
-template <int RB, int kFixed, typename WT, bool kLc = false>
+template <int RB, int kFixed, typename WT, bool kLc = false,
+          unsigned kMask = kFullStep>
 cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  auto kernel = sampler_cluster_kernel<RB, kFixed, WT, kLc>;
+  auto kernel = sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -783,16 +932,17 @@ cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <int RB, int kFixed, typename WT, bool kLc>
+template <int RB, int kFixed, typename WT, bool kLc,
+          unsigned kMask = kFullStep>
 cudaError_t launch(const ClusterArgs<WT>& ca, size_t bytes,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<RB, kFixed, WT, kLc>(
+  cudaError_t e = configure<RB, kFixed, WT, kLc, kMask>(
       ca.cs, bytes, (ca.a.B + RB - 1) / RB, stream, cfg, attr);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, sampler_cluster_kernel<RB, kFixed, WT, kLc>,
-                         ca);
+  e = cudaLaunchKernelEx(
+      &cfg, sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask>, ca);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -826,6 +976,41 @@ cudaError_t with_rows(int rb, F f) {
   }
 }
 
+
+// The plan of a launch whose arguments ca.a are set: cs CTAs a cluster,
+// rb rows a cluster, layer_begin[cs + 1] (host memory) the layer ranges.
+// Checks the widths and the plan, fills ca's plan and sets *bytes to the
+// shared memory a CTA takes. Returns 0 or a CUDA error code.
+template <typename WT>
+int cluster_prepare(ClusterArgs<WT>& ca, int cs, int rb,
+                    const int* layer_begin, size_t* bytes) {
+  const DecodeArgsT<WT>& a = ca.a;
+  const int L = a.L, R = a.R, D = a.D;
+  if (a.B < 1 || a.n_total < 1 || a.n_forced < 1 || a.KC < 1 ||
+      (a.scalar && a.KC > kThreads) || cs < 1 || cs > kMaxCluster ||
+      cs > L || a.S % cs != 0 || a.Q % (4 * cs) != 0 || D < 8 || D > 128 ||
+      128 % D != 0 || R < 8 || R > 256 || 256 % R != 0 ||
+      layer_begin[0] != 0 || layer_begin[cs] != L)
+    return (int)cudaErrorInvalidValue;
+  ca.cs = cs;
+  ca.nl = 0;
+  for (int k = 0; k <= kMaxCluster; ++k)
+    ca.layer_begin[k] = k <= cs ? layer_begin[k] : L;
+  for (int k = 0; k < cs; ++k) {
+    const int n = layer_begin[k + 1] - layer_begin[k];
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    if (n > ca.nl) ca.nl = n;
+  }
+  int dev = 0, smem_max = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_max,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return (int)cudaErrorInvalidDevice;
+  *bytes = cluster_smem_bytes(a, cs, ca.nl, rb);
+  if (*bytes > (size_t)smem_max) return (int)cudaErrorInvalidConfiguration;
+  return 0;
+}
 
 // The body of the C entry points: the arguments of sampler_decode_f32 with
 // WT weights, round_chain (bf16 only, as DecodeArgsT's), then the plan: cs
@@ -885,31 +1070,10 @@ int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
     a.lc = lc;
     a.C_lc = C_lc;
   }
-  if (B < 1 || n_total < 1 || n_forced < 1 || causal_width < 1 ||
-      (kLc && (C_lc < 1 || !lc_w || !lc)) ||
-      (scalar_input && causal_width > kThreads) || cs < 1 ||
-      cs > kMaxCluster || cs > L || S % cs != 0 || Q % (4 * cs) != 0 ||
-      D < 8 || D > 128 || 128 % D != 0 || R < 8 || R > 256 ||
-      256 % R != 0 || layer_begin[0] != 0 ||
-      layer_begin[cs] != L)
-    return (int)cudaErrorInvalidValue;
-  ca.cs = cs;
-  ca.nl = 0;
-  for (int k = 0; k <= kMaxCluster; ++k)
-    ca.layer_begin[k] = k <= cs ? layer_begin[k] : L;
-  for (int k = 0; k < cs; ++k) {
-    const int n = layer_begin[k + 1] - layer_begin[k];
-    if (n < 1) return (int)cudaErrorInvalidValue;
-    if (n > ca.nl) ca.nl = n;
-  }
-  int dev = 0, smem_max = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&smem_max,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return (int)cudaErrorInvalidDevice;
-  const size_t bytes = cluster_smem_bytes(a, cs, ca.nl, rb);
-  if (bytes > (size_t)smem_max) return (int)cudaErrorInvalidConfiguration;
+  if (kLc && (C_lc < 1 || !lc_w || !lc)) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  const int err = cluster_prepare(ca, cs, rb, layer_begin, &bytes);
+  if (err != 0) return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)with_rows(rb, [&](auto k) {
     constexpr int RB = decltype(k)::value;

@@ -51,6 +51,15 @@ enum : unsigned {
   kNoFeat = 128,
 };
 constexpr unsigned kFullStep = 0;
+// The r3 probe's modes (tools/r3_b1_bisect.py's MODES, in order): full,
+// no_skip, no_dense, no_fg, no_tanh, no_ring, no_head, no_sample, no_feat,
+// mm_only. b1_bisect.cu instantiates them on this kernel,
+// b1_bisect_cluster.cuh on sampler_cluster's.
+[[maybe_unused]] constexpr unsigned kR3Modes[] = {
+    kFullStep, kNoSkip, kNoDense, kNoFg, kNoTanh, kNoRing, kNoHead,
+    kNoSample, kNoFeat, kNoRing | kNoTanh | kNoSkip | kNoHead,
+};
+[[maybe_unused]] constexpr int kR3NumModes = 10;
 
 template <typename WT>
 struct DecodeArgsT {

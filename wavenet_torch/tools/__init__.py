@@ -10,17 +10,27 @@ probe tools in ``tools/``).
   launch (``tools/r2_fwd_bisect2.py``), on the tensor cores
   (``kernel="mma"``) or the FP32 cores (``"simt"``), the same sources;
 * ``r3_b1_bisect``: the b1 decode step with one part ablated
-  (``tools/r3_b1_bisect.py``), ``csrc/b1_bisect.cu``;
+  (``tools/r3_b1_bisect.py``), on the kernel b1 generation runs
+  (``kernel="auto"``): ``sampler_cluster``'s step with its phase clock,
+  ``csrc/b1_bisect_cluster.cu`` / ``_bf16.cu``, or ``sampler_decode``'s,
+  ``csrc/b1_bisect.cu``;
 * ``r4_matvec_probe``: two forms of a dependent chain of 64-wide
-  products (``tools/r4_matvec_probe.py``), ``csrc/matvec_probe.cu``;
+  products (``tools/r4_matvec_probe.py``), weights resident in a
+  cluster's shared memory (``kernel="cluster"``,
+  ``csrc/matvec_probe_cluster.cu``) or in L2 (``"decode"``,
+  ``csrc/matvec_probe.cu``);
 * ``tiles_variants`` (the port's own, no JAX counterpart):
   ``csrc/sampler_tiles.cu`` beside its phase probe (SM clocks per phase),
-  timed in turns; GPU only, it prints JSON lines, not a table.
+  timed in turns; GPU only, it prints JSON lines, not a table;
+* ``stack_times`` and ``decode_turns`` (the port's own): a stack kernel's
+  times, or the cluster decode kernel's output digests and b1 step, for
+  several checkouts in turns; GPU only, JSON lines.
 
 Each module holds its kernel's wrapper (a plain PyTorch version of every
 variant, with the same signature, runs instead for CPU tensors) and a
-``main()`` that prints the JAX tool's table, one line per variant (the r2
-tools: one table per kernel), after the card's name and power limit: ``python -m wavenet_torch.tools.<name>``
+``main()`` that prints the JAX tool's table, one line per variant (the
+r2, r3 and r4 tools: one table per kernel), after the card's name and
+power limit: ``python -m wavenet_torch.tools.<name>``
 (``--device cpu`` times the plain versions on the host). A variant that
 fails to build or launch is reported in the table, and the run then exits
 non-zero.
@@ -29,7 +39,9 @@ non-zero.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
+import sys
 import time
 from typing import Callable, Iterable, List
 
@@ -100,3 +112,17 @@ def run_table(labels: Iterable[str], line: Callable[[str], str]) -> int:
         print(text, flush=True)
     return 1 if failed else 0
 
+
+def run_in_trees(script: str, trees: Iterable[str], argv) -> int:
+    """Run ``python <script> --child <tree> *argv`` for each checkout in
+    ``trees``, in order, each in a process whose working directory and
+    ``PYTHONPATH`` are that tree, so that it imports (and builds) that
+    tree's ``wavenet_torch``. Returns the first non-zero exit code, or 0."""
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(script), "--child", tree,
+             *argv], cwd=tree, env=dict(os.environ, PYTHONPATH=tree))
+        if proc.returncode != 0:
+            return proc.returncode
+    return 0

@@ -1,0 +1,177 @@
+"""Output digests and step times of the cluster decode kernel's production
+modes, for one or more checkouts of the repository in turns, on one card.
+
+Each case is one launch of ``decode_sequential(..., kernel="cluster")``
+from a zero state on seeded weights (non-zero biases), the first
+``PREFIX`` inputs forced and the rest sampled, with every step's logits:
+
+    paper_b1   the paper config at b1, float32 and bf16 weights
+    gc_b64     the gc config (global conditioning) at b64, both types
+    wide_b1    the wide config (scalar input) at b1, both types
+    lc_b1      the paper config with local conditioning (80 channels) at
+               b1, float32 (the LC mode has no bf16 weights)
+
+so ``sampler_cluster``, ``sampler_cluster_bf16`` and ``sampler_cluster_lc``
+each run at their compiled widths and at runtime widths. A digest is the
+SHA-256 (16 hex digits) of the codes' and the logits' bytes: two trees'
+kernels compute the same thing where every digest agrees. The paper b1
+step is then timed at both weight types (CUDA events, the median of
+``--reps`` launches of ``STEPS`` steps).
+
+    python -m wavenet_torch.tools.decode_turns --trees parent/ . . parent/
+
+Each tree runs in a process of its own whose working directory and
+``PYTHONPATH`` are that tree, so it imports and builds that tree's
+``wavenet_torch`` (as ``stack_times`` does); the order given is the order
+run (parent, change, change, parent compares two commits on one card).
+Only names that every tree since the LC mode has are used
+(``kernels.sampler``'s ``pack_sampler_weights``, ``decode_sequential``,
+``models.config``, ``models.wavenet``'s ``init_params`` and ``embed_gc``).
+Each tree prints one JSON line. Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+
+PREFIX, STEPS_DIGEST, STEPS = 8, 512, 2048
+SEED = 5
+LC_CHANNELS = 80
+#: (case, weight types) whose digests are taken.
+CASES = (("paper_b1", ("f32", "bf16")), ("gc_b64", ("f32", "bf16")),
+         ("wide_b1", ("f32", "bf16")), ("lc_b1", ("f32",)))
+
+
+def _digest(*tensors) -> str:
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        h.update(raw.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _params(c, seed: int):
+    """``init_params(seed)`` with N(0, 0.1) biases (and LC weights
+    perturbed by N(0, 0.05)) from torch seed ``seed + 1``, on the card."""
+    import torch
+    from wavenet_torch.models.wavenet import init_params
+    p = init_params(seed, c, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k in sorted(p):
+        if k.endswith("_bias"):
+            p[k] = 0.1 * torch.randn(p[k].shape, generator=gen)
+    for k in ("lc_filter", "lc_gate"):
+        if k in p:
+            p[k] = p[k] + 0.05 * torch.randn(p[k].shape, generator=gen)
+    return {k: v.cuda() for k, v in p.items()}
+
+
+def case(name: str, dt: str, n: int = STEPS_DIGEST):
+    """(config, packed weights, forced inputs, lc stream or None) of a
+    case at ``dt`` weights, seeded from SEED."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models import config as cfgs
+    from wavenet_torch.models.wavenet import embed_gc
+    c = {"paper_b1": cfgs.paper_config, "gc_b64": cfgs.gc_config,
+         "wide_b1": cfgs.wide_config,
+         "lc_b1": lambda: cfgs.paper_config(lc_channels=LC_CHANNELS)}[name]()
+    B = 64 if name == "gc_b64" else 1
+    params = _params(c, SEED)
+    rng = np.random.RandomState(SEED)
+    if c.scalar_input:
+        forced = torch.as_tensor(rng.uniform(-0.9, 0.9, (B, PREFIX))
+                                 .astype(np.float32), device="cuda")
+    else:
+        forced = torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                             (B, PREFIX)),
+                                 dtype=torch.int32, device="cuda")
+    gc = None
+    if c.gc_enabled:
+        ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                              device="cuda")
+        gc = embed_gc(params, c, ids)
+    lc = None
+    if c.lc_enabled:
+        lc = torch.as_tensor(rng.uniform(-1, 1, (n, B, c.lc_channels))
+                             .astype(np.float32), device="cuda")
+    wt = torch.bfloat16 if dt == "bf16" else torch.float32
+    packed = ks.pack_sampler_weights(params, c, B, gc, weight_dtype=wt)
+    return c, packed, forced, lc
+
+
+def digest(name: str, dt: str) -> str:
+    """The digest of a case's codes and logits (``STEPS_DIGEST`` steps, one
+    launch)."""
+    from wavenet_torch.kernels import sampler as ks
+    c, packed, forced, lc = case(name, dt)
+    kw = {} if lc is None else {"lc": lc}
+    codes, logits = ks.decode_sequential(
+        packed, c, forced, STEPS_DIGEST, SEED, collect_logits=True,
+        kernel="cluster", **kw)
+    return _digest(codes, logits)
+
+
+def digests() -> dict:
+    """``{"<case>_<f32|bf16>": digest}`` of every case."""
+    return {f"{name}_{dt}": digest(name, dt)
+            for name, dts in CASES for dt in dts}
+
+
+def step_ms(dt: str, reps: int) -> float:
+    """The median ms a step of ``STEPS``-step paper b1 launches."""
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    c, packed, forced, _ = case("paper_b1", dt)
+
+    def run():
+        ks.decode_sequential(packed, c, forced, STEPS, SEED,
+                             kernel="cluster")
+
+    run()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / STEPS)
+    return float(np.median(times))
+
+
+def _tree_row(label: str, reps: int) -> dict:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_turns: needs a CUDA GPU")
+    row = {"tree": label, "gpu": torch.cuda.get_device_name(0)}
+    row["digests"] = digests()
+    row.update({f"paper_b1_{dt}_ms_per_step": step_ms(dt, reps)
+                for dt in ("f32", "bf16")})
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", default=["."],
+                    help="checkouts to run, in this order")
+    ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child is not None:   # inside one tree's process
+        print(json.dumps(_tree_row(args.child, args.reps)), flush=True)
+        return 0
+    from wavenet_torch.tools import run_in_trees
+    return run_in_trees(__file__, args.trees, ["--reps", str(args.reps)])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,26 @@
 """Probe: can a dependent chain of 64-wide products avoid the block barrier?
 
 Counterpart of ``tools/r4_matvec_probe.py`` (TPU kernel ``kernel``), ported
-into ``csrc/matvec_probe.cu``. The b1 decode step is a chain of ~60
-dependent [1, 64] x [64, 64] products (the fg and dense products of 30
-layers). One launch runs N_STEPS steps of L chained products
-x <- x @ w[i] * 0.25 from x = 0.01 and returns x:
+twice. The b1 decode step is a chain of ~60 dependent [1, 64] x [64, 64]
+products (the fg and dense products of 30 layers). One launch runs N_STEPS
+steps of L chained products x <- x @ w[i] * 0.25 from x = 0.01 and returns
+x, on one of two kernels:
+
+``kernel="cluster"`` (the default; ``csrc/matvec_probe_cluster.cu``): the
+form of the cluster decode kernel that b1 generation runs. The products
+are split in pairs over a cluster of CS CTAs (``cluster_split``: the
+fewest CTAs whose shares of the weights fit shared memory; CS = 8 at
+C = 64, L = 60), each CTA's weights resident in its shared memory, x
+handed from CTA to CTA by ``st.async`` on an mbarrier, the last CTA back
+to CTA 0 for the next step (CS hand-offs a step):
+
+    mxu       the cluster kernel's chain form: 8 warps own C / 8 columns
+              each, lanes split K, a shuffle tree, one block barrier a
+              product
+    vpu       one warp a CTA holds the chain in registers, alternating two
+              layouts (below): shuffles only, no block barrier
+
+``kernel="decode"`` (``csrc/matvec_probe.cu``): weights in L2, one block:
 
     mxu       the decode step's product form (``csrc/sampler_step.cuh``'s
               matvec at N = 64): 256 threads, K split over groups, partial
@@ -14,12 +30,16 @@ x <- x @ w[i] * 0.25 from x = 0.01 and returns x:
               every lane -> y distributed (w), then x distributed -> y
               replicated by a butterfly of shuffles (the transposed wt);
               no transposes, no shared memory, no block barrier
-    mxu_tanh  mxu with tanh after every even product
-    vpu_tanh  vpu with the same tanh
+
+and on both ``mxu_tanh`` / ``vpu_tanh``, the same with tanh after every
+even product.
 
 The JAX tool's weights, uniform(-0.1, 0.1), take the chain to zero within
 a few steps; ``main`` keeps them, and the functions take any weights (the
 checks use 4 x random orthogonal matrices, which keep |x| in place).
+
+``main`` prints the cluster table (ns a product from a one-CTA run, ns a
+hand-off from the cluster's step), then the decode table:
 
     python -m wavenet_torch.tools.r4_matvec_probe [--device cpu]
 """
@@ -28,17 +48,25 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from wavenet_torch import resolve_device, tools
 from wavenet_torch.kernels import _launch
+from wavenet_torch.kernels.sampler import CLUSTER_SIZES, layer_split
 
 C = 64          # chain width (the fg product's width at the paper config)
 L = 60          # chained products per step (30 fg + 30 dense)
 N_STEPS = 16000
 MODES = ("mxu", "vpu", "mxu_tanh", "vpu_tanh")
+KERNELS = ("cluster", "decode")
+#: Widths the kernels are built for.
+WIDTHS = (32, 64)
+#: Products of the one-CTA cluster run that ``main`` reads ns a product
+#: from (4 pairs: a CTA's share at C = 64, L = 60, CS = 8).
+ONE_CTA_L = 8
 
 
 def _check(mode: str, w: torch.Tensor) -> None:
@@ -76,38 +104,112 @@ def matvec_probe_reference(w: torch.Tensor, wt: torch.Tensor, mode: str,
     return x
 
 
+def pair_split(n_prod: int, cs: int):
+    """The cluster kernel's split of ``n_prod`` products over ``cs`` CTAs:
+    pair_begin [cs + 1], CTA k owning products [2 pair_begin[k],
+    2 pair_begin[k + 1]); ``layer_split`` of the n_prod / 2 pairs (the
+    fewest on the last CTAs)."""
+    return layer_split(n_prod // 2, cs)
+
+
+def cluster_smem_bytes(c: int, n_pairs: int) -> int:
+    """Shared memory of a cluster CTA that owns ``n_pairs`` pairs of C x C
+    products: the mbarrier, x twice and the weights
+    (``chain_smem_bytes`` in ``csrc/matvec_probe_cluster.cu``)."""
+    return 16 + 4 * (2 * c + 2 * n_pairs * c * c)
+
+
+def cluster_split(n_prod: int, c: int, smem_optin: int,
+                  cs: Optional[int] = None):
+    """(CS, pair_begin) of the cluster kernel for ``n_prod`` products of
+    width ``c`` on a device with ``smem_optin`` bytes of shared memory a
+    block: ``cs`` if given, else the fewest CTAs (``CLUSTER_SIZES``) whose
+    largest share fits. Raises for an odd chain, a width not built
+    (``WIDTHS``), or where no cluster (or the given one) holds the
+    split."""
+    if n_prod < 2 or n_prod % 2:
+        raise ValueError(f"matvec_probe: L must be even, got {n_prod}")
+    if c not in WIDTHS:
+        raise NotImplementedError(
+            f"matvec_probe is built for C in {WIDTHS}; got {c}")
+    for k in (CLUSTER_SIZES if cs is None else (cs,)):
+        if not 1 <= k <= min(CLUSTER_SIZES[-1], n_prod // 2):
+            continue
+        begin = pair_split(n_prod, k)
+        most = max(b - a for a, b in zip(begin, begin[1:]))
+        if cluster_smem_bytes(c, most) <= smem_optin:
+            return k, begin
+    raise ValueError(
+        f"matvec_probe: no cluster of {CLUSTER_SIZES if cs is None else cs}"
+        f" CTAs holds {n_prod} products of width {c} in {smem_optin} bytes "
+        "of shared memory a CTA")
+
+
+def cluster_smem_optin() -> int:
+    """The current CUDA device's opt-in shared memory a block, as the
+    cluster kernel's library reads it (builds the library at first use)."""
+    from wavenet_torch.kernels import _build
+    lib = _build.load("matvec_probe_cluster")
+    fn = lib.matvec_probe_cluster_smem_optin
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"matvec_probe: CUDA error {err} reading the "
+                           "device's shared memory")
+    return n.value
+
+
 def matvec_probe(w: torch.Tensor, wt: torch.Tensor, mode: str,
-                 n_steps: int) -> torch.Tensor:
-    """One launch of mode ``mode``: w [L, C, C], wt = w transposed per
-    product, float32, L even -> x [1, C]. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (C in (32, 64)) or raise."""
+                 n_steps: int, kernel: str = "cluster",
+                 cs: Optional[int] = None) -> torch.Tensor:
+    """One launch of mode ``mode`` on ``kernel`` ("cluster" or "decode"):
+    w [L, C, C], wt = w transposed per product, float32, L even -> x
+    [1, C]; ``cs`` pins the cluster's CTAs (see ``cluster_split``). CPU
+    tensors run the plain version; CUDA tensors launch the kernel (C in
+    ``WIDTHS``) or raise."""
     _check(mode, w)
+    if kernel not in KERNELS:
+        raise ValueError(f"matvec_probe: kernel {kernel!r} not in {KERNELS}")
     if not _launch.use_kernel("matvec_probe", w):
         return matvec_probe_reference(w, wt, mode, n_steps)
     n_prod, c = w.shape[0], w.shape[1]
-    if c not in (32, 64):
+    if c not in WIDTHS:
         raise NotImplementedError(
-            f"matvec_probe is built for C in (32, 64); got {c}")
+            f"matvec_probe is built for C in {WIDTHS}; got {c}")
     for name, t in (("w", w), ("wt", wt)):
         _launch.check("matvec_probe", name, t, (n_prod, c, c), w.device)
     from wavenet_torch.kernels import _build
-    lib = _build.load("matvec_probe")
-    fn = lib.matvec_probe_run
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, i, i, i, p]
-    fn.restype = i
     out = torch.empty((1, c), dtype=torch.float32, device=w.device)
-    err = fn(MODES.index(mode), w.data_ptr(), wt.data_ptr(), out.data_ptr(),
-             c, n_prod, n_steps, _launch.stream(w.device))
+    args = (MODES.index(mode), w.data_ptr(), wt.data_ptr(), out.data_ptr(),
+            c, n_prod, n_steps)
+    if kernel == "cluster":
+        k, begin = cluster_split(n_prod, c, cluster_smem_optin(), cs)
+        lib = _build.load("matvec_probe_cluster")
+        fn = lib.matvec_probe_cluster_run
+        fn.argtypes = [i, p, p, p, i, i, i, i, p, p]
+        fn.restype = i
+        err = fn(*args, k, (ctypes.c_int * len(begin))(*begin),
+                 _launch.stream(w.device))
+    else:
+        lib = _build.load("matvec_probe")
+        fn = lib.matvec_probe_run
+        fn.argtypes = [i, p, p, p, i, i, i, p]
+        fn.restype = i
+        err = fn(*args, _launch.stream(w.device))
     if err != 0:
-        raise RuntimeError(f"matvec_probe {mode} launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"matvec_probe {kernel} {mode} launch failed: "
+                           f"CUDA error {err}")
     matvec_probe.launches += 1
-    matvec_probe.launches_by[mode] += 1
+    matvec_probe.launches_by[mode if kernel == "decode"
+                             else f"cluster_{mode}"] += 1
     return out
 
 
-#: Launches made by ``matvec_probe``, in all and by mode (read by
+#: Launches made by ``matvec_probe``, in all and by mode ("<mode>" on the
+#: decode kernel, "cluster_<mode>" on the cluster kernel; read by
 #: chip_smoke.py).
 matvec_probe.launches = 0
 matvec_probe.launches_by = collections.Counter()
@@ -133,16 +235,39 @@ def main(argv=None) -> int:
     w = torch.as_tensor(rng.uniform(-0.1, 0.1, (L, C, C)).astype(np.float32),
                         device=dev)
     wt = w.transpose(1, 2).contiguous()
+    w1, wt1 = w[:ONE_CTA_L].contiguous(), wt[:ONE_CTA_L].contiguous()
     n = args.steps
 
-    def line(mode):
-        ms = float(np.median(tools.timed_ms(
-            lambda: matvec_probe(w, wt, mode, n), dev)))
+    def ms_of(kernel, mode, ww, wwt, cs=None):
+        return float(np.median(tools.timed_ms(
+            lambda: matvec_probe(ww, wwt, mode, n, kernel, cs), dev)))
+
+    def cluster_line(label):
+        mode = label.split()[1]
+        cs = (None if dev.type == "cpu" else
+              cluster_split(L, C, cluster_smem_optin())[0])
+        ms = ms_of("cluster", mode, w, wt)
+        one = ms_of("cluster", mode, w1, wt1, 1) / ONE_CTA_L   # a product
         us = ms / n * 1e3
-        return (f"{mode:10s} {ms:8.1f} ms  {us:6.2f} us/step  "
+        hand = ("" if cs is None else
+                f"  {(us - L * one / n * 1e3) / cs * 1e3:6.1f} ns/hand-off "
+                f"(CS {cs})")
+        return (f"[cluster] {mode:10s} {ms:8.1f} ms  {us:6.2f} us/step  "
+                f"{one / n * 1e6:6.1f} ns/product{hand}")
+
+    def decode_line(label):
+        mode = label.split()[1]
+        ms = ms_of("decode", mode, w, wt)
+        us = ms / n * 1e3
+        return (f"[decode ] {mode:10s} {ms:8.1f} ms  {us:6.2f} us/step  "
                 f"{us / L * 1e3:6.1f} ns/product")
 
-    return tools.run_table(MODES, line)
+    print(f"cluster: ns/product = a one-CTA launch of the first {ONE_CTA_L} "
+          f"products (CS 1) / {ONE_CTA_L}; ns/hand-off = (a step of all {L} "
+          f"products on the cluster - {L} x ns/product) / CS", flush=True)
+    rc = tools.run_table([f"cluster {m}" for m in MODES], cluster_line)
+    print(f"decode: ns/product = a step / {L}", flush=True)
+    return tools.run_table([f"decode {m}" for m in MODES], decode_line) or rc
 
 
 if __name__ == "__main__":

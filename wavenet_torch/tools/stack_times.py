@@ -37,8 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
 
 
@@ -222,17 +220,10 @@ def main(argv=None) -> int:
         print(json.dumps(_time_tree(args.child, args.config, args.reps,
                                     args.stack)), flush=True)
         return 0
-    for tree in args.trees:
-        tree = os.path.abspath(tree)
-        env = dict(os.environ, PYTHONPATH=tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", tree,
-             "--config", args.config, "--reps", str(args.reps),
-             "--stack", args.stack],
-            cwd=tree, env=env)
-        if proc.returncode != 0:
-            return proc.returncode
-    return 0
+    from wavenet_torch.tools import run_in_trees
+    return run_in_trees(__file__, args.trees,
+                        ["--config", args.config, "--reps", str(args.reps),
+                         "--stack", args.stack])
 
 
 if __name__ == "__main__":
