@@ -78,7 +78,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    float32 and bfloat16, with ``--use_pallas_stack`` (``fused_stack_mma``
    at width 64 every step, launches counted from 0; the f32 run resumed
    for a fifth step) and without it, finite and falling losses, the
-   rates (``train_cli_wide`` rows).
+   rates (``train_cli_wide`` rows). Then LC training: ``python -m
+   wavenet_torch.cli.train --lc_channels 80 --lc_hop 200`` at the paper
+   config, b8 x 16,000, on a synthesised corpus with log-mel sidecars
+   (``wavenet_torch.features``), 4 steps each with the frame windows
+   upsampled on the card (the default), with ``--lc_host_upsample`` and
+   with ``--use_pallas_stack``: finite, falling losses, the first step's
+   equal across the three within 1e-5, and no stack kernel launched (LC
+   takes the plain route, as in JAX).
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -174,6 +181,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
    hand-off) and with weights in L2; then the main path, each tool's own
    ``main`` (r2 at both configs), launches counted from 0, every variant
    of each kernel launched.
+9. The bench (``python -m wavenet_torch.bench``'s rows, ``bench.run`` at
+   ``bench.SHORT``: generation at 2,000 samples and one rep, the scan
+   rows at 200, two train steps, the train CLI's ten), its decode
+   launches counted from 0: every
+   number of the payload finite and positive, each generation row served
+   by the kernel that the route takes on this card (the cluster kernel,
+   its bf16 and LC modes, ``sampler_decode``'s bf16 mode at b128-b512),
+   and the compact line with every key of the JAX bench's non-null in at
+   most 1,900 characters. The ``kernels`` rows of those kernels carry the
+   run's launches (``launches_bench``).
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -319,8 +336,28 @@ LC_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_lc", 1),
                 "cluster_lc", 4),
                ("b256", 256, 2000, [], "decode_lc", 1))
 LC_SOURCES = {"cluster": "sampler_cluster_lc", "decode": "sampler_decode_lc"}
+# Phase 5's LC training check: the train CLI's steps a run, and the
+# speakers of its corpus (two 2-second utterances each, log-mel sidecars).
+LC_TRAIN_STEPS, LC_TRAIN_SPEAKERS = 4, 4
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
+# Phase 9: the bench's generation rows by payload key (config, batch, bf16
+# weights, LC, the wrapper that the row's route launches), the main
+# payload's and each config row's.
+BENCH_GEN_ROWS = {
+    "gen_samples_per_s_b1_paper": ("paper", 1, False, False, "decode"),
+    "gen_samples_per_s_b1_sequential_vmem":
+        ("paper", 1, False, False, "decode_sequential"),
+    "gen_samples_per_s_b8_prefill_f32": ("paper", 8, False, False, "decode"),
+    "gen_samples_per_s_b64_prefill_f32":
+        ("paper", 64, False, False, "decode"),
+    **{f"gen_samples_per_s_b{B}_{rate}_bf16w":
+       ("paper", B, True, False, "decode")
+       for B in (64, 128, 256, 512) for rate in ("device", "prefill")},
+}
+BENCH_CONFIG_GEN_ROWS = {"gc": ("gc", 1, False, False, "decode"),
+                         "wide": ("wide", 1, False, False, "decode"),
+                         "lc": ("lc", 1, False, True, "decode")}
 KERNELS = KERNELS + ("fwd_bisect", "fwd_bisect_mma", "b1_bisect",
                      "matvec_probe", "b1_bisect_cluster",
                      "b1_bisect_cluster_bf16", "matvec_probe_cluster")
@@ -1663,6 +1700,71 @@ def phase_train_cli(c, wide, gpu):
     return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by,
              "wide": wide_by["float32"], "wide_bf16": wide_by["bfloat16"]},
             os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
+
+
+def phase_lc_train(gpu):
+    """Phase 5's LC training check: ``python -m wavenet_torch.cli.train
+    --lc_channels 80 --lc_hop 200`` (in this process) at the paper config,
+    b8 x 16,000, on a synthesised corpus with log-mel sidecars
+    (``wavenet_torch.features``), LC_TRAIN_STEPS steps each: the frame
+    windows upsampled on the card (the default), ``--lc_host_upsample``,
+    and ``--use_pallas_stack``. Losses finite and falling, the first step's
+    equal across the runs within 1e-5 (the same batches; the two upsamples
+    give the same stream), and no stack kernel launched: LC takes the
+    plain route, as in JAX."""
+    from wavenet_torch.features import write_sidecars
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.models.config import paper_config
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_lc_train_")
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    synth_corpus(corpus, speakers=LC_TRAIN_SPEAKERS)
+    write_sidecars(corpus, 16000, LC_CHANNELS, LC_HOP, log=lambda _: None)
+    pfile = os.path.join(tmp, "wavenet_params.json")
+    with open(pfile, "w") as f:
+        json.dump(dict(paper_config().to_json_dict(), sample_rate=16000), f)
+    argv = ["--data_dir", corpus, "--wavenet_params", pfile,
+            "--lc_channels", str(LC_CHANNELS), "--lc_hop", str(LC_HOP),
+            "--batch_size", str(TRAIN_BATCH), "--sample_size",
+            str(TRAIN_SAMPLES), "--num_steps", str(LC_TRAIN_STEPS),
+            "--checkpoint_every", str(LC_TRAIN_STEPS), "--seed", "0",
+            "--device", "cuda"]
+    first = {}
+    for label, extra in (("device_upsample", []),
+                         ("host_upsample", ["--lc_host_upsample"]),
+                         ("use_pallas_stack", ["--use_pallas_stack"])):
+        fs.forward.launches = fs.backward.launches = 0
+        fs.forward.launches_by.clear()
+        fs.backward.launches_by.clear()
+        logdir = os.path.join(tmp, label)
+        t0 = time.perf_counter()
+        out = run_cli(argv + ["--logdir", logdir] + extra)
+        seconds = time.perf_counter() - t0
+        losses = [float(ln.split("loss = ")[1].split(",")[0])
+                  for ln in out.splitlines() if ln.startswith("step ")]
+        check(len(losses) == LC_TRAIN_STEPS
+              and all(x == x and abs(x) != float("inf") for x in losses)
+              and losses[-1] < losses[0],
+              f"LC train CLI ({label}) losses {losses}: not "
+              f"{LC_TRAIN_STEPS} finite, falling values")
+        stack = (fs.forward.launches, fs.backward.launches)
+        check(stack == (0, 0), f"LC train CLI ({label}) launched the stack "
+              f"kernels {stack}: LC takes the plain route")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            sec = [r["value"] for r in map(json.loads, f)
+                   if r["tag"] == "sec_per_step"][-1]
+        first[label] = losses[0]
+        emit({"phase": "train_cli_lc", "run": label, "config": "paper_lc",
+              "lc_channels": LC_CHANNELS, "lc_hop": LC_HOP,
+              "batch": TRAIN_BATCH, "sample_size": TRAIN_SAMPLES,
+              "losses": losses, "seconds": seconds, "sec_per_step_last": sec,
+              "stack_launches": list(stack), "gpu": gpu})
+    spread = max(first.values()) - min(first.values())
+    check(spread <= 1e-5, f"LC train CLI first-step losses {first} differ "
+          "by more than 1e-5")
+    emit({"phase": "train_cli_lc", "first_step_losses": first,
+          "spread": spread, "gpu": gpu})
 
 
 def seq_prefix(c, B: int, rng):
@@ -3346,6 +3448,91 @@ def phase_probe_main_path(gpu):
     return launches, by_run
 
 
+def routed_decode(c, B: int, bf16: bool, lc: bool) -> str:
+    """The decode kernel (and mode) that ``kernel="auto"`` launches for
+    ``c`` at batch B on this card, as ``launches_by`` names it."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+    kernel = ("cluster" if ks.device_plan(c, B) else
+              "tiles" if ks.device_tile_plan(
+                  c, B, weight_dtype=torch.bfloat16 if bf16
+                  else torch.float32) else "decode")
+    return kernel + ("_bf16" if bf16 else "") + ("_lc" if lc else "")
+
+
+def positive_numbers(obj, where: str = "payload"):
+    """Every number under ``obj`` is finite and positive, and no value is
+    null."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            positive_numbers(v, f"{where}.{k}")
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            positive_numbers(v, f"{where}[{i}]")
+    elif isinstance(obj, bool) or isinstance(obj, str):
+        return
+    else:
+        check(isinstance(obj, (int, float)) and obj == obj
+              and 0 < obj < float("inf"), f"{where} = {obj!r}")
+
+
+def phase_bench(gpu):
+    """Phase 9: the bench (``wavenet_torch.bench.run``) on the card at
+    short length (``bench.SHORT``: generation at 2,000 samples and one
+    rep, the scan rows at 200, two train steps, the train CLI's ten), the
+    decode counts set to 0
+    just before. Every number of its payload finite and positive; each
+    generation row served by the kernel the route takes on this card, and
+    every one of those kernels launched in the run; the compact line built
+    from it has every key of the JAX bench's non-null, in at most 1,900
+    characters. Returns the run's launches by kernel."""
+    import collections
+    from wavenet_torch import bench
+    from wavenet_torch.kernels import sampler as ks
+
+    ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    ks.decode.launches_by.clear()
+    ks.decode_sequential.launches_by.clear()
+    t0 = time.perf_counter()
+    payload, parts = bench.run(bench.SHORT, "cuda")
+    seconds = time.perf_counter() - t0
+    launches = (collections.Counter(ks.decode.launches_by)
+                + collections.Counter(ks.decode_sequential.launches_by))
+    extra = payload["extra"]
+    positive_numbers({k: v for k, v in payload.items() if k != "extra"})
+    positive_numbers(extra, "extra")
+    rows = [(key, extra["decode_kernels"][key], spec)
+            for key, spec in BENCH_GEN_ROWS.items()]
+    rows += [(f"configs.{name}", extra["configs"][name]["decode_kernels"][
+        "gen_samples_per_s_b1_prefill"], spec)
+        for name, spec in BENCH_CONFIG_GEN_ROWS.items()]
+    calls = 1 + bench.SHORT.gen_reps        # the warm-up and the reps
+    for key, served, (name, B, bf16, lc, wrapper) in rows:
+        want = routed_decode(bench._make_config(name), B, bf16, lc)
+        reps = calls if "prefill_bf16w" not in key else 1 + max(
+            1, bench.SHORT.gen_reps - 1)
+        check(served == {wrapper: {want: reps}},
+              f"bench row {key} was served by {served}, not {want} "
+              f"({wrapper}, {reps} launches)")
+    routed = {want for _, _, spec in rows
+              for want in [routed_decode(bench._make_config(spec[0]),
+                                         *spec[1:4])]}
+    check(all(launches.get(k) for k in routed),
+          f"the bench launched {dict(launches)}, not every one of {routed}")
+    line = bench.compact_line(**parts)
+    compact = json.loads(line)
+    check(len(line) <= bench.COMPACT_LIMIT and "gen_b64" in compact["extra"],
+          f"the compact line takes {len(line)} characters")
+    positive_numbers(compact, "compact")
+    emit({"phase": "bench", "scale": extra["scale"], "seconds": seconds,
+          "seconds_by_part": extra["seconds_by_part"],
+          "compact_chars": len(line), "launches_by_kernel": dict(launches),
+          "gpu": gpu})
+    emit({"phase": "bench_payload", "payload": payload, "gpu": gpu})
+    emit({"phase": "bench_compact", "compact": compact, "gpu": gpu})
+    return dict(launches)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3414,6 +3601,10 @@ def main() -> int:
     phase_train_step_bf16(cfgs["paper"], params["paper"], rng, gpu)
     train_launches, gc_ckpt, gc_pfile = phase_train_cli(
         cfgs["gc"], gen_cfgs["wide"], gpu)
+    t5lc = time.perf_counter()
+    phase_lc_train(gpu)
+    emit({"phase": "lc_training", "seconds": time.perf_counter() - t5lc,
+          "script_seconds": time.perf_counter() - t_start})
 
     # Phase 6: generation, kernel 4's route and the generate CLI.
     seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
@@ -3460,6 +3651,12 @@ def main() -> int:
     r4_res = phase_matvec_probe(gpu)
     probe_launches, probe_runs = phase_probe_main_path(gpu)
     emit({"phase": "probes", "seconds": time.perf_counter() - t8,
+          "script_seconds": time.perf_counter() - t_start})
+
+    # Phase 9: the bench (every row at short length).
+    t9 = time.perf_counter()
+    bench_launches = phase_bench(gpu)
+    emit({"phase": "bench", "seconds": time.perf_counter() - t9,
           "script_seconds": time.perf_counter() - t_start})
 
     # library_ms is null: no single PyTorch call computes a decode step.
@@ -3795,6 +3992,15 @@ def main() -> int:
             "gpu": gpu, **{k: m[k] for k in (
                 "production_ms", "clock_cost", "step_clocks", "cs",
                 "ns_per_product", "ns_per_handoff") if k in m}})
+    # The decode kernels that the bench's generation rows launch (phase 9),
+    # with that run's launches beside the main path's.
+    for row in kernels:
+        key = {"sampler_cluster": "cluster",
+               "sampler_cluster_bf16": "cluster_bf16",
+               "sampler_decode_bf16": "decode_bf16",
+               "sampler_cluster_lc": "cluster_lc"}.get(row["name"])
+        if key is not None:
+            row["launches_bench"] = bench_launches.get(key, 0)
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

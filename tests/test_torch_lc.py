@@ -223,11 +223,16 @@ def test_lc_length_must_match_the_input(rng):
 
 
 def test_lc_training_is_refused_naming_its_step(rng):
-    _, tc, _, tp = pair()
-    audio = torch.as_tensor(rng.uniform(-1, 1, (2, tc.receptive_field + 8))
-                            .astype(np.float32))
-    with pytest.raises(NotImplementedError, match="step 2b"):
-        tw.loss_fn(tp, tc, audio, lc=torch.zeros(2, audio.shape[1], 3))
+    """The call that raised before LC training was ported (step 2b) now
+    returns the JAX package's loss (the gradients: test_torch_lc_train)."""
+    jc, tc, jp, tp = pair()
+    audio = rng.uniform(-1, 1, (2, tc.receptive_field + 8)).astype(
+        np.float32)
+    lc = np.zeros((2, audio.shape[1], 3), np.float32)
+    got, _ = tw.loss_fn(tp, tc, torch.as_tensor(audio),
+                        lc=torch.as_tensor(lc))
+    want, _ = jw.loss_fn(jp, jc, jnp.asarray(audio), lc=jnp.asarray(lc))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_flops_count_lc_as_jax_does():

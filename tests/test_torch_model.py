@@ -134,11 +134,12 @@ def test_prefill_of_bf16_config_equals_float32(rng):
 
 
 def test_unported_options_raise(rng):
-    # The forward takes LC (tests/test_torch_lc.py); training with it does
-    # not yet.
+    # The forward and the loss take LC (tests/test_torch_lc.py,
+    # tests/test_torch_lc_train.py); a stream for a model without LC
+    # weights raises, as in JAX.
     _, tc, _, tp = _pair()
     audio = torch.zeros((1, tc.receptive_field + 8))
-    with pytest.raises(NotImplementedError, match="step 2b"):
+    with pytest.raises(KeyError, match="lc_filter"):
         tw.loss_fn(tp, tc, audio, lc=torch.zeros(1, audio.shape[1], 2))
     codes = torch.as_tensor(rng.randint(0, 32, (1, 8)))
     with pytest.raises(ValueError):

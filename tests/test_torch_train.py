@@ -425,7 +425,7 @@ def test_reader_chunks_and_gc(tmp_path):
         ids = reader.dequeue_gc(3)
     assert a.shape == (3, 110) and a.dtype == np.float32
     assert set(ids.tolist()) <= {1, 2, 3}
-    with pytest.raises(NotImplementedError, match="local conditioning"):
+    with pytest.raises(ValueError, match="lc_channels and lc_hop"):
         AudioReader(data, 2000, lc_enabled=True)
 
 
@@ -489,8 +489,11 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert "step 5 - loss = " in out
     assert tl.latest_checkpoint_step(logdir) == 5
 
-    for flag in (["--lc_channels", "4", "--lc_hop", "2"],
-                 ["--model_parallelism", "2"], ["--num_processes", "2"],
+    # LC trains (tests/test_torch_lc_train.py); without --lc_hop the CLI
+    # stops as the JAX CLI does.
+    assert cli.main(common + ["--num_steps", "6", "--lc_channels", "4"]) == 1
+    assert "--lc_channels requires --lc_hop" in capsys.readouterr().out
+    for flag in (["--model_parallelism", "2"], ["--num_processes", "2"],
                  ["--store_metadata", "true"], ["--histograms", "true"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(common + ["--num_steps", "6"] + flag)

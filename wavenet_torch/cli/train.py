@@ -9,7 +9,10 @@ saving a non-finite state, checkpoints every ``--checkpoint_every`` steps
 and at the end, and a restart from the newest checkpoint ("Restored model
 from step N"). ``--use_pallas_stack`` runs the dilated stack through the
 hand-written CUDA kernel pair (``kernels/fused_stack.py``). ``--device``
-(default ``cuda``) picks the card or, for tests, the CPU.
+(default ``cuda``) picks the card or, for tests, the CPU. ``--lc_channels``
+with ``--lc_hop`` trains with local conditioning from ``<stem>.lc.npy``
+sidecars: the reader ships frame windows that the step upsamples on the
+device, or with ``--lc_host_upsample`` the upsampled stream.
 
 Flags whose path is not ported yet raise NotImplementedError naming the
 ROADMAP.md queue that owns them. ``--compilation_cache`` is accepted and
@@ -75,12 +78,24 @@ def get_arguments(argv=None):
                         help="Global condition channels; enables speaker "
                              "conditioning.")
     parser.add_argument("--lc_channels", type=int, default=None,
-                        help="Local conditioning (not ported yet).")
-    parser.add_argument("--lc_hop", type=int, default=None)
+                        help="Local condition channels: per-timestep "
+                             "conditioning from <stem>.lc.npy sidecar "
+                             "files ([frames, lc_channels]) next to each "
+                             "wav.")
+    parser.add_argument("--lc_hop", type=int, default=None,
+                        help="Output samples per LC frame (at the model "
+                             "sample_rate). Required with --lc_channels.")
     parser.add_argument("--lc_upsample", type=str, default="repeat",
-                        choices=["repeat", "linear"])
-    parser.add_argument("--lc_host_upsample", action="store_true")
-    parser.add_argument("--lc_refine_width", type=int, default=0)
+                        choices=["repeat", "linear"],
+                        help="How LC frames are upsampled to sample rate.")
+    parser.add_argument("--lc_host_upsample", action="store_true",
+                        help="Ship the upsampled LC stream to the device "
+                             "instead of frame windows (C_lc floats a "
+                             "sample against one frame a hop).")
+    parser.add_argument("--lc_refine_width", type=int, default=0,
+                        help="Odd depthwise-conv width of a trainable "
+                             "refinement of the upsampled stream (try "
+                             "2*lc_hop+1). 0 disables.")
     parser.add_argument("--max_checkpoints", type=int, default=MAX_TO_KEEP)
     parser.add_argument("--async_checkpoint", type=_str_to_bool,
                         default=True,
@@ -121,10 +136,6 @@ def get_arguments(argv=None):
 def check_ported(args) -> None:
     """Raise NotImplementedError for flags whose path the port lacks."""
     unported = [
-        (args.lc_channels is not None or args.lc_hop is not None
-         or args.lc_refine_width or args.lc_host_upsample,
-         "--lc_*: training with local conditioning",
-         "queue 1, item 2, step 2b"),
         (args.model_parallelism > 1, "--model_parallelism > 1",
          "queue 1, item 9"),
         (args.coordinator_address is not None
@@ -186,6 +197,7 @@ def main(argv=None):
     from wavenet_torch import resolve_device
     from wavenet_torch.data.prefetch import DevicePrefetcher, to_device
     from wavenet_torch.data.reader import AudioReader
+    from wavenet_torch.lc import LCFrameChunk
     from wavenet_torch.models.config import WaveNetConfig
     from wavenet_torch.train_lib import (
         StepTimer, audio_seconds_per_second, create_train_state,
@@ -204,6 +216,11 @@ def main(argv=None):
     with open(args.wavenet_params, "r") as f:
         wavenet_params = json.load(f)
     gc_enabled = args.gc_channels is not None
+    lc_enabled = args.lc_channels is not None
+    if lc_enabled and args.lc_hop is None:
+        print("Some arguments are wrong:\n--lc_channels requires --lc_hop "
+              "(output samples per conditioning frame).")
+        return 1
     probe = WaveNetConfig.from_json(wavenet_params)
     reader = AudioReader(
         args.data_dir,
@@ -215,11 +232,18 @@ def main(argv=None):
                            if args.silence_threshold > 0 else None),
         seed=args.seed,
         num_threads=args.num_threads,
+        lc_enabled=lc_enabled,
+        lc_channels=args.lc_channels,
+        lc_hop=args.lc_hop,
+        lc_upsample=args.lc_upsample,
+        lc_device_upsample=lc_enabled and not args.lc_host_upsample,
     )
     config = WaveNetConfig.from_json(
         wavenet_params,
         gc_channels=args.gc_channels,
         gc_cardinality=reader.gc_category_cardinality if gc_enabled else None,
+        lc_channels=args.lc_channels,
+        lc_refine_width=args.lc_refine_width,
         compute_dtype=args.compute_dtype,
         remat=args.remat,
         use_pallas_stack=args.use_pallas_stack,
@@ -236,8 +260,9 @@ def main(argv=None):
         print("No checkpoint found; starting new training.")
 
     dispatch_k = max(1, args.steps_per_dispatch)
-    train_step = (make_train_multistep(config, l2, dispatch_k)
-                  if dispatch_k > 1 else make_train_step(config, l2))
+    lc_kw = dict(lc_hop=args.lc_hop, lc_upsample=args.lc_upsample)
+    train_step = (make_train_multistep(config, l2, dispatch_k, **lc_kw)
+                  if dispatch_k > 1 else make_train_step(config, l2, **lc_kw))
     single_step = train_step if dispatch_k == 1 else None
 
     os.makedirs(logdir, exist_ok=True)
@@ -247,21 +272,29 @@ def main(argv=None):
     def fill(k=dispatch_k, stacked=dispatch_k > 1):
         """One dispatch's input on the device (in the prefetch thread:
         the copy overlaps the running step)."""
-        auds, gcs = [], []
+        auds, gcs, lcs = [], [], []
         for _ in range(k):
             auds.append(reader.dequeue(args.batch_size))
             if gc_enabled:
                 gcs.append(reader.dequeue_gc(args.batch_size).astype(
                     np.int64))
+            if lc_enabled:
+                lcs.append(reader.dequeue_lc(args.batch_size))
         if stacked:
             audio = np.stack(auds)
             gc_ids = np.stack(gcs) if gc_enabled else None
+            lc = None
+            if lc_enabled:    # a stream, or each field of a frame chunk
+                lc = (LCFrameChunk(*map(np.stack, zip(*lcs)))
+                      if isinstance(lcs[0], LCFrameChunk)
+                      else np.stack(lcs))
         else:
             audio, gc_ids = auds[0], (gcs[0] if gc_enabled else None)
+            lc = lcs[0] if lc_enabled else None
         n_samples = int(np.prod(audio.shape[-2:]))   # per train step
         return (to_device(audio, device),
                 None if gc_ids is None else to_device(gc_ids, device),
-                n_samples)
+                None if lc is None else to_device(lc, device), n_samples)
 
     saved_global_step = state.step
     n_dispatches = max(0, args.num_steps - saved_global_step) // dispatch_k
@@ -317,14 +350,14 @@ def main(argv=None):
                     prefetcher.stop()
                     prefetcher = None
                 if single_step is None:
-                    single_step = make_train_step(config, l2)
-                audio, gc_ids, n_samples = fill(k=1, stacked=False)
-                state, metrics = single_step(state, audio, gc_ids)
+                    single_step = make_train_step(config, l2, **lc_kw)
+                audio, gc_ids, lc, n_samples = fill(k=1, stacked=False)
+                state, metrics = single_step(state, audio, gc_ids, lc)
                 k = 1
             else:
-                audio, gc_ids, n_samples = (
+                audio, gc_ids, lc, n_samples = (
                     prefetcher.get() if prefetcher is not None else fill())
-                state, metrics = train_step(state, audio, gc_ids)
+                state, metrics = train_step(state, audio, gc_ids, lc)
                 k = dispatch_k
             step += k
 

@@ -16,12 +16,17 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from wavenet_torch.lc import LCFrameChunk
+
 _SENTINEL = object()
 
 
-def to_device(array, device: torch.device) -> torch.Tensor:
+def to_device(array, device: torch.device):
     """numpy array -> tensor on ``device``; a CUDA copy starts from pinned
-    memory and does not block the calling thread."""
+    memory and does not block the calling thread. An ``LCFrameChunk``
+    moves field by field."""
+    if isinstance(array, LCFrameChunk):
+        return LCFrameChunk(*(to_device(f, device) for f in array))
     t = torch.from_numpy(array)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)

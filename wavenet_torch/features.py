@@ -3,7 +3,8 @@
 Counterpart of ``wavenet_tpu/features.py`` (NumPy/SciPy only): an STFT
 log-mel spectrogram and a CLI that walks a corpus and writes the
 ``<stem>.lc.npy`` sidecars (``wavenet_torch.lc``'s convention, one frame
-per ``hop`` samples) that generation and serving take as conditioning.
+per ``hop`` samples) that training, generation and serving take as
+conditioning.
 
 Typical use, 16 kHz corpus, 80 mels at a 12.5 ms hop::
 

@@ -1,23 +1,24 @@
 """Local conditioning: frame-rate features -> sample-rate streams.
 
-Counterpart of ``wavenet_tpu/lc.py`` (its host functions; NumPy only).
-Local conditioning (WaveNet paper arXiv:1609.03499 §2.5) feeds a second,
-slower time series h (mel frames, linguistic features, F0) into every
-layer's filter/gate pre-activations. The network consumes the upsampled
-stream ``[B, T, lc_channels]``; this module holds the non-learned
-mappings to sample rate (``repeat`` and ``linear``), the crop/pad to a
-length and the ``<stem>.lc.npy`` sidecar reader.
+Counterpart of ``wavenet_tpu/lc.py``. Local conditioning (WaveNet paper
+arXiv:1609.03499 §2.5) feeds a second, slower time series h (mel frames,
+linguistic features, F0) into every layer's filter/gate pre-activations.
+The network consumes the upsampled stream ``[B, T, lc_channels]``; this
+module holds the non-learned mappings to sample rate (``repeat`` and
+``linear``), the crop/pad to a length and the ``<stem>.lc.npy`` sidecar
+reader, in NumPy; and, for training, the frame chunks that the reader
+ships instead of the upsampled stream (``LCFrameChunk``) and their
+upsampling on the device (``upsample_chunk``, in the train step).
 
-Alignment convention (shared by the forward pass and every sampler): the
-upsampled stream rides the audio timeline; ``lc[t]`` conditions the
-prediction of sample t. The training-side frame chunks and their device
-upsampling wait for LC training (ROADMAP.md queue 1, item 2, step 2b).
+Alignment convention (shared by the forward pass, the loss and every
+sampler): the upsampled stream rides the audio timeline; ``lc[t]``
+conditions the prediction of sample t.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
@@ -79,3 +80,85 @@ def load_lc_sidecar(wav_path: str) -> Optional[np.ndarray]:
     if arr.ndim == 1:
         arr = arr[:, None]
     return np.ascontiguousarray(arr, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Frame chunks, upsampled on the device
+# ---------------------------------------------------------------------------
+#
+# The upsampled stream costs C x 4 bytes a sample on the way to the device
+# (~54 MB a paper-config b8 x 16k batch at 80 mels); at hop 200 the frames
+# are ~0.5% of that. The reader can ship a chunk's frame window and its
+# alignment instead, and the train step rebuilds the host's stream on the
+# device: a gather for ``repeat``, a gather and a lerp for ``linear``.
+
+
+class LCFrameChunk(NamedTuple):
+    """One chunk's frame window and alignment, batched ``[B, ...]``
+    (numpy arrays from the reader, tensors on the device).
+
+    Chunk position t lies at ``orig_start + t`` on the untrimmed
+    utterance's sample timeline. Row 0 of ``frames`` is utterance frame
+    ``f0``; ``f_valid`` is the utterance's frame count (the edge hold
+    clips to it). Positions with orig < ``zero_before`` (the
+    receptive-field zero pad, before the trim start) or t >= ``n_valid``
+    (the last short chunk's zero tail) are zero.
+    """
+    frames: Any        # [B, Fw, C] float32
+    orig_start: Any    # [B] int32
+    f0: Any            # [B] int32
+    f_valid: Any       # [B] int32 (>= 1)
+    n_valid: Any       # [B] int32
+    zero_before: Any   # [B] int32 (the trim start)
+
+
+def frame_window_size(width: int, hop: int) -> int:
+    """Frame-window rows a ``width``-sample chunk needs."""
+    return width // hop + 3
+
+
+def upsample_chunk(chunk: LCFrameChunk, hop: int, mode: str, width: int):
+    """``LCFrameChunk`` -> upsampled stream ``[B, width, C]`` float32, on
+    the device of ``chunk.frames``.
+
+    Equals the reader's host chain (``upsample_lc``, ``fit_lc_to_length``,
+    the trim slice, the zero pad and the chunking): bit for bit in
+    ``repeat`` mode, to float32 rounding in ``linear``. The counterpart
+    of the JAX package's ``upsample_chunk_jax``, step for step.
+    """
+    import torch
+
+    frames = torch.as_tensor(chunk.frames).to(torch.float32)
+    dev = frames.device
+
+    def col(x):
+        return torch.as_tensor(x, device=dev).to(torch.int64)[:, None]
+
+    n_rows, C = frames.shape[1], frames.shape[2]
+    t = torch.arange(width, device=dev)[None, :]                # [1, W]
+    orig = col(chunk.orig_start) + t                            # [B, W]
+    last, f0 = col(chunk.f_valid) - 1, col(chunk.f0)
+
+    def take(idx):
+        """Frame rows at utterance frames ``idx`` (clipped to the
+        utterance, then to the window)."""
+        idx = torch.minimum(idx.clamp(min=0), last) - f0
+        idx = idx.clamp(0, n_rows - 1)
+        return torch.gather(frames, 1, idx[:, :, None].expand(-1, -1, C))
+
+    if mode == "repeat":
+        out = take(torch.div(orig, hop, rounding_mode="floor"))
+    elif mode == "linear":
+        # Between frame centres f*hop + hop//2, edges held: where the two
+        # clipped ends coincide the lerp is a no-op, as np.interp is
+        # outside its range.
+        x = (orig - hop // 2) / hop                             # float32
+        xf = torch.floor(x)
+        w = (x - xf)[:, :, None]
+        i0 = xf.to(torch.int64)
+        v0, v1 = take(i0), take(i0 + 1)
+        out = v0 + (v1 - v0) * w
+    else:
+        raise ValueError(f"unknown upsample mode '{mode}'")
+    keep = (orig >= col(chunk.zero_before)) & (t < col(chunk.n_valid))
+    return torch.where(keep[:, :, None], out, torch.zeros((), device=dev))

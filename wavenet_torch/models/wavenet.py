@@ -28,8 +28,8 @@ dilated stack runs through a hand-written CUDA kernel pair:
 retired generations in ``experiments/`` (versions 1 and 2). A local
 conditioning stream ``lc`` [B, T, C_lc] sends the stack to the plain
 route, as in JAX (the kernels take no per-position stream); ``lc[:, t]``
-conditions output position t. Training with LC (``loss_fn(lc=...)``) is
-queued in ROADMAP.md (queue 1, item 2, step 2b).
+conditions output position t. ``loss_fn(lc=...)`` trains with LC, on the
+plain route too.
 
 ``compute_dtype="bfloat16"`` follows the JAX package's two routes. The
 plain route casts the weights, biases, GC embedding and network input to
@@ -481,24 +481,33 @@ def loss_fn(params: Params, config: WaveNetConfig,
     0.5 * sum(v^2) over every parameter whose key does not end in
     ``_bias``. Returns (total_loss, aux) with ``ce_loss``,
     ``total_loss`` and, with L2, ``l2_loss``.
+
+    ``lc`` [B, T, C_lc] rides the audio timeline (``lc[:, t]`` conditions
+    the prediction of sample t). It is refined over the whole timeline
+    (``maybe_refine_lc``, so its gradients reach the refiner), then the
+    forward, whose output j predicts input j+1, takes ``lc[:, 1:]``.
     """
     c = config
-    if lc is not None:
-        raise NotImplementedError(
-            "training with local conditioning is not ported yet "
-            "(ROADMAP.md queue 1, item 2, step 2b)")
     rf = c.receptive_field
     if audio_batch.dim() == 3:
         audio_batch = audio_batch[..., 0]
     encoded = mu_law_encode(audio_batch, c.quantization_channels)
     gc_emb = embed_gc(params, c, gc_ids) if gc_ids is not None else None
+    lc_in = None
+    if lc is not None:
+        if tuple(lc.shape[:2]) != tuple(audio_batch.shape[:2]):
+            raise ValueError(
+                f"lc shape {tuple(lc.shape)} must align with the audio "
+                f"batch {tuple(audio_batch.shape)} (one conditioning "
+                "vector per sample)")
+        lc_in = maybe_refine_lc(params, c, lc)[:, 1:]
     if c.scalar_input:
         network_input = audio_batch[:, :-1, None].to(torch.float32)
         prediction = forward(params, c, network_input, gc_emb,
-                             head_from=rf - 1)
+                             head_from=rf - 1, lc=lc_in)
     else:
         prediction = forward_codes(params, c, encoded[:, :-1], gc_emb,
-                                   head_from=rf - 1)
+                                   head_from=rf - 1, lc=lc_in)
     target = encoded[:, rf:]
     logp = torch.log_softmax(prediction, dim=-1)
     oh = one_hot(target, c.quantization_channels)

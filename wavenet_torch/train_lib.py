@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wavenet_torch.lc import LCFrameChunk, upsample_chunk
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import (Params, init_params, loss_fn,
                                           matmul_precision)
@@ -79,10 +80,27 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
 
 
-def make_train_step(config: WaveNetConfig,
-                    l2_regularization_strength: Optional[float] = None):
-    """(state, audio [B, T], gc_ids [B] | None) -> (state, metrics).
+def _lc_stream(lc, lc_hop: Optional[int], lc_upsample: str, width: int):
+    """The conditioning stream [B, width, C] of a step's ``lc``: a tensor
+    as it is, an ``LCFrameChunk`` upsampled on its device."""
+    if not isinstance(lc, LCFrameChunk):
+        return lc
+    if lc_hop is None:
+        raise ValueError("LCFrameChunk input needs lc_hop at "
+                         "make_train_step time")
+    return upsample_chunk(lc, lc_hop, lc_upsample, width)
 
+
+def make_train_step(config: WaveNetConfig,
+                    l2_regularization_strength: Optional[float] = None,
+                    lc_hop: Optional[int] = None,
+                    lc_upsample: str = "repeat"):
+    """(state, audio [B, T], gc_ids [B] | None, lc | None) ->
+    (state, metrics).
+
+    ``lc`` is the conditioning stream [B, T, C_lc] or an
+    ``lc.LCFrameChunk``, which the step upsamples on its device
+    (``lc.upsample_chunk``, ``lc_hop`` and ``lc_upsample`` as the reader's).
     Updates ``state`` in place. Metrics are 0-d tensors on the params'
     device (loss, ce_loss, total_loss, l2_loss with L2, grad_norm); reading
     one waits for the step. A parameter that received no gradient gets a
@@ -92,12 +110,13 @@ def make_train_step(config: WaveNetConfig,
     activations are bf16 (``models.wavenet._maybe_cast``)."""
 
     def train_step(state: TrainState, audio: torch.Tensor,
-                   gc_ids: Optional[torch.Tensor] = None):
+                   gc_ids: Optional[torch.Tensor] = None, lc=None):
+        lc = _lc_stream(lc, lc_hop, lc_upsample, audio.shape[1])
         for p in state.params.values():
             p.grad = None
         with matmul_precision(config):
             total, aux = loss_fn(state.params, config, audio, gc_ids,
-                                 l2_regularization_strength)
+                                 l2_regularization_strength, lc)
             total.backward()
         grads = []
         for k in sorted(state.params):
@@ -118,20 +137,27 @@ def make_train_step(config: WaveNetConfig,
 
 def make_train_multistep(config: WaveNetConfig,
                          l2_regularization_strength: Optional[float] = None,
-                         steps_per_dispatch: int = 1):
-    """K train steps per call: audio [K, B, T], gc_ids [K, B] | None ->
-    (state, metrics with every entry stacked [K])."""
-    step = make_train_step(config, l2_regularization_strength)
+                         steps_per_dispatch: int = 1,
+                         lc_hop: Optional[int] = None,
+                         lc_upsample: str = "repeat"):
+    """K train steps per call: audio [K, B, T], gc_ids [K, B] | None, lc
+    (a stream [K, B, T, C] or an ``LCFrameChunk`` whose fields lead with
+    K) | None -> (state, metrics with every entry stacked [K])."""
+    step = make_train_step(config, l2_regularization_strength, lc_hop,
+                           lc_upsample)
 
     def train_multistep(state: TrainState, audio: torch.Tensor,
-                        gc_ids: Optional[torch.Tensor] = None):
+                        gc_ids: Optional[torch.Tensor] = None, lc=None):
         if audio.shape[0] != steps_per_dispatch:
             raise ValueError(f"audio has {audio.shape[0]} steps, expected "
                              f"{steps_per_dispatch}")
         out = []
         for k in range(steps_per_dispatch):
+            lc_k = (None if lc is None else
+                    LCFrameChunk(*(f[k] for f in lc))
+                    if isinstance(lc, LCFrameChunk) else lc[k])
             state, m = step(state, audio[k],
-                            None if gc_ids is None else gc_ids[k])
+                            None if gc_ids is None else gc_ids[k], lc_k)
             out.append(m)
         return state, {key: torch.stack([m[key] for m in out])
                        for key in out[0]}
