@@ -7,7 +7,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the ``sampler_decode``, ``sampler_cluster`` (float32, bf16 and
-   local-conditioning modes, three libraries), ``sampler_tiles``, ``fused_stack``, ``fused_stack_mma``,
+   local-conditioning modes, three libraries), ``sampler_tiles`` (float32
+   and bf16 modes, two libraries), ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
@@ -109,11 +110,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    CLI run and main-path case prints the kernel that served it, and the
    phase checks that the native decoder was loaded.
 6b. bf16-weight generation (TPU kernels 1-4 at ``weight_dtype=bfloat16``):
-   the bf16 modes of ``sampler_cluster`` (paper b1, gc b64) and
-   ``sampler_decode`` (gc b1, b128, b512), pinned, teacher-forced over 32
-   steps from a prefilled state, in one launch (counted under
-   ``cluster_bf16`` / ``decode_bf16``; same-seed repeats bitwise) and
-   one step a launch from the kernel's own state (bitwise the one launch),
+   the bf16 modes of ``sampler_cluster`` (paper b1, gc b64),
+   ``sampler_tiles`` (gc b128, b512, paper b525: the route's bf16 range
+   b121-b525) and ``sampler_decode`` (gc b1, b128, b512), pinned,
+   teacher-forced over 32 steps from a prefilled state, in one launch
+   (counted under ``cluster_bf16`` / ``tiles_bf16`` / ``decode_bf16``;
+   same-seed repeats bitwise) and one step a launch from the kernel's own
+   state (bitwise the one launch),
    each step held against bf16 ``decode_reference`` from that state on the
    scale of bf16's own gap from float32 (``kernels.bf16_hold``: each row's
    median error within 0.05 of its median gap, the mean within 0.2 of the
@@ -124,9 +127,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    peak); kernel 4's route at paper b1 the same way; then the main path,
    ``python -m wavenet_torch.cli.generate --sampler_precision bfloat16``
    from phase 5's gc checkpoint at b1 and b64 x 16,000 (the cluster
-   kernel's bf16 mode) and b128 x 4,000 (``sampler_decode``'s), its
-   launches counted from 0; last, ``generate_with_fallback`` (the CLI's
-   fast path) on a bf16 config object, bitwise the float32 config's.
+   kernel's bf16 mode), b128 x 4,000 (the tiles kernel's) and b600 x 1,000
+   (``sampler_decode``'s, above the tiles range), its launches counted from
+   0; last, ``generate_with_fallback`` (the CLI's fast path) on a bf16
+   config object, bitwise the float32 config's.
 6c. Local conditioning (the LC row of TPU kernels 1 and 2) at the JAX
    bench's ``lc`` config, ``paper_config(lc_channels=80)``, seeded LC
    weights and biases: the LC modes of ``sampler_cluster`` (paper-LC b1
@@ -187,7 +191,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    launches counted from 0: every
    number of the payload finite and positive, each generation row served
    by the kernel that the route takes on this card (the cluster kernel,
-   its bf16 and LC modes, ``sampler_decode``'s bf16 mode at b128-b512),
+   its bf16 and LC modes, the tiles kernel's bf16 mode at b128-b512),
    and the compact line with every key of the JAX bench's non-null in at
    most 1,900 characters. The ``kernels`` rows of those kernels carry the
    run's launches (``launches_bench``).
@@ -238,9 +242,9 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
                ("gc", 512): 512}
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
-           "sampler_cluster_lc", "sampler_tiles", "fused_stack",
-           "fused_stack_mma",
-           "fused_stack_carry", "dilated_layer")
+           "sampler_cluster_lc", "sampler_tiles", "sampler_tiles_bf16",
+           "fused_stack", "fused_stack_mma", "fused_stack_carry",
+           "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
 DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
                   "tiles": "sampler_tiles"}
@@ -301,13 +305,17 @@ BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-3, 0.25
 # Phase 6b: the decode kernels' bf16 modes (config, batch, kernel pinned),
 # teacher-forced over a short window and held step by step on the scale of
 # bf16's own distance from float32 (``kernels.bf16_hold`` states the
-# limits and why). Each case's steps of one timed launch.
+# limits and why). Each case's steps of one timed launch. The tiles cases
+# are the route's at bf16 (b121-b525); sampler_decode is pinned at the same
+# shapes, since it still serves b526+.
 BF16_TEACHER_CASES = (("paper", 1, "cluster"), ("gc", 64, "cluster"),
+                      ("gc", 128, "tiles"), ("gc", 512, "tiles"),
+                      ("paper", 525, "tiles"),
                       ("gc", 1, "decode"), ("gc", 128, "decode"),
                       ("gc", 512, "decode"))
 BF16_TEACHER_STEPS = 32
 BF16_TIMED_STEPS = {("paper", 1): 2048, ("gc", 64): 1024, ("gc", 1): 1024,
-                    ("gc", 128): 1024, ("gc", 512): 512}
+                    ("gc", 128): 1024, ("gc", 512): 512, ("paper", 525): 512}
 # Kernel 4's route at bf16: a short forced prefix, then sampled steps.
 BF16_SEQ_PREFIX, BF16_SEQ_SAMPLES = 16, 16
 # The bf16 generate CLI's runs (label, batch, samples, the kernel that the
@@ -315,7 +323,8 @@ BF16_SEQ_PREFIX, BF16_SEQ_SAMPLES = 16, 16
 # a bf16 config.
 BF16_CLI_RUNS = (("b1", 1, GEN_SAMPLES, "cluster_bf16"),
                  ("b64", 64, GEN_SAMPLES, "cluster_bf16"),
-                 ("b128", 128, 4000, "decode_bf16"))
+                 ("b128", 128, 4000, "tiles_bf16"),
+                 ("b600", 600, 1000, "decode_bf16"))
 BF16_CONFIG_SAMPLES = 4000
 # Phase 6c: local conditioning at the JAX bench's ``lc`` config
 # (paper_config(lc_channels=80), bench.py:114-117), 80 log-mels at a
@@ -2334,9 +2343,10 @@ def phase_bf16_generate(cfgs, params, gc_ckpt, gc_pfile, gpu):
     """The main path of bf16-weight generation: ``python -m
     wavenet_torch.cli.generate --sampler_precision bfloat16`` from phase
     5's gc checkpoint at b1 and b64 x 16,000 (the cluster kernel's bf16
-    mode) and b128 x 4,000 (``sampler_decode``'s), its launches counted
-    from 0; then generation from a config whose ``compute_dtype`` is
-    bfloat16, which runs at float32 as in the JAX package:
+    mode), b128 x 4,000 (the tiles kernel's) and b600 x 1,000
+    (``sampler_decode``'s), its launches counted from 0; then generation
+    from a config whose ``compute_dtype`` is bfloat16, which runs at
+    float32 as in the JAX package:
     ``generate_with_fallback`` (the CLI's fast path) on such a config
     object, bitwise the float32 config's. The CLI itself cannot reach one:
     the params format, as the JAX package's, has no ``compute_dtype``."""
@@ -2393,7 +2403,8 @@ def phase_bf16_generate(cfgs, params, gc_ckpt, gc_pfile, gpu):
           {k: v for k, v in launches.items()},
           "bf16_config_equals_f32_config": same,
           "samples_per_s_b1": rates["b1"], "samples_per_s_b64": rates["b64"],
-          "samples_per_s_b128": rates["b128"], "gpu": gpu})
+          "samples_per_s_b128": rates["b128"],
+          "samples_per_s_b600": rates["b600"], "gpu": gpu})
     return launches
 
 
@@ -3796,9 +3807,9 @@ def main() -> int:
             "unit": "per call (one train step's stack)", "gpu": gpu})
     # The bf16 modes (phase 6b): times pinned at each case in this run,
     # launches those of the bf16 generate CLI runs (the cluster kernel at
-    # gc b1 and b64, sampler_decode at b128); the bound with the weights at
-    # 2 bytes and the products of two bf16 operands at the bf16 peak.
-    # library_ms is null for the reason above.
+    # gc b1 and b64, the tiles kernel at b128, sampler_decode at b600); the
+    # bound with the weights at 2 bytes and the products of two bf16
+    # operands at the bf16 peak. library_ms is null for the reason above.
     for kernel, src, head, others in (
             ("cluster", "sampler_cluster", ("paper", 1), (("gc", 64),)),
             ("decode", "sampler_decode", ("gc", 128),
@@ -3827,6 +3838,36 @@ def main() -> int:
             row.update({f"ms_{key}": mk["ms"],
                         f"bound_ms_{key}": mk["bound_ms"],
                         f"plain_ms_{key}": mk["plain_ms"],
+                        f"f32_route_ms_{key}": mk["f32_route_ms"]})
+        kernels.append(row)
+    # The tiles kernel's bf16 mode (TPU kernels 2 and 3 at bf16 weights,
+    # redesigned), one row per shape of the TPU kernel it replaces; its f32
+    # mode and sampler_decode's bf16 mode at the same shape in this run.
+    for B, where, others in (
+            (128, "wavenet_tpu/kernels/sampler.py:1308", ()),
+            (512, "wavenet_tpu/kernels/sampler_packed.py:142",
+             (("paper", 525),))):
+        m = bf16_dec[("tiles", "gc", B)]
+        row = {"name": f"sampler_tiles_bf16_b{B}", "route": "cuda",
+               "source": "wavenet_torch/csrc/sampler_tiles_bf16.cu",
+               "replaces": f"{where} (weight_dtype=bfloat16)",
+               "mode": "bf16", "config": "gc", "batch": B,
+               "launches": bf16_launches.get("tiles_bf16", 0),
+               "launches_on": "generate CLI, gc b128, --sampler_precision "
+                              "bfloat16",
+               "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+               "bound_by": m["bound_by"], "f32_route_ms": m["f32_route_ms"],
+               "f32_route_kernel": m["f32_route_kernel"],
+               "sampler_decode_bf16_ms": bf16_dec[("decode", "gc", B)]["ms"],
+               "library_ms": None, "unit": "per decode step", "gpu": gpu}
+        for name, Bo in others:
+            mk = bf16_dec[("tiles", name, Bo)]
+            key = f"{name}_b{Bo}"
+            row.update({f"ms_{key}": mk["ms"],
+                        f"bound_ms_{key}": mk["bound_ms"],
+                        f"plain_ms_{key}": mk["plain_ms"],
+                        f"max_abs_err_{key}": mk["max_abs_err"],
                         f"f32_route_ms_{key}": mk["f32_route_ms"]})
         kernels.append(row)
     # Kernel 4's route at bf16 (phase 6b): the cluster kernel's bf16 mode
@@ -3997,10 +4038,14 @@ def main() -> int:
     for row in kernels:
         key = {"sampler_cluster": "cluster",
                "sampler_cluster_bf16": "cluster_bf16",
+               "sampler_tiles_bf16_b128": "tiles_bf16",
+               "sampler_tiles_bf16_b512": "tiles_bf16",
                "sampler_decode_bf16": "decode_bf16",
                "sampler_cluster_lc": "cluster_lc"}.get(row["name"])
         if key is not None:
             row["launches_bench"] = bench_launches.get(key, 0)
+    idle = [row["name"] for row in kernels if not row["launches"]]
+    check(not idle, f"kernels launched no time on their main path: {idle}")
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

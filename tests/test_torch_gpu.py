@@ -1,7 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
 their prefill and sequential routes, mu-law and scalar input, in float32
-and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths, and the
-route between them;
+and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths in both
+modes, and the route between them;
 ``fused_stack`` (the 3xTF32 "mma" kernel and the FP32-core "simt" one);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect`` and ``fwd_bisect2`` (on the
@@ -1265,6 +1265,21 @@ def test_cluster_kernels_keep_their_digests(setup, key):
     assert decode_turns.digest(name, dt) == PARENT_DIGESTS[key]
 
 
+# decode_turns' float32 tiles digests of the tree before the tiles kernel's
+# body became a template of the weight type (commit 99adafc, on an H100 80GB
+# HBM3): the float32 mode must compute the same codes and logits bit for bit.
+PARENT_TILE_DIGESTS = {"gc_b128_f32": "d50e280f990acd8d",
+                       "gc_b512_f32": "b7aaa7d36c69e944"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", sorted(PARENT_TILE_DIGESTS))
+def test_tiles_f32_keeps_its_digests(setup, key):
+    name, dt = key.rsplit("_", 1)
+    kernel = dict(decode_turns.TILE_CASES)[name][dt]
+    assert decode_turns.digest(name, dt, kernel) == PARENT_TILE_DIGESTS[key]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cs", [1, 4])
 @pytest.mark.parametrize("C", [32, 64])
@@ -1859,9 +1874,9 @@ def test_tiles_wrapper_rejects_bad_inputs(setup):
 
 
 # ---------------------------------------------------------------------------
-# The bf16 modes of sampler_cluster and sampler_decode (the JAX kernels at
-# weight_dtype=bfloat16): weights widened, activations rounded to bf16 where
-# the JAX kernels round them, the layer chain not at B = 1
+# The bf16 modes of sampler_cluster, sampler_tiles and sampler_decode (the JAX
+# kernels at weight_dtype=bfloat16): weights widened, activations rounded to
+# bf16 where the JAX kernels round them, the layer chain not at B = 1
 # ---------------------------------------------------------------------------
 
 def _bf16_case(width, B, seed=0):
@@ -1894,7 +1909,9 @@ def _bf16_stepwise(where, c, pk16, pk32, ring, causal, forced, t0, seed,
     ("cluster", "scalar_wide", 4), ("decode", "small", 5),
     ("decode", "paper", 1), ("decode", "paper", 128),
     ("decode", "paper", 512), ("decode", "scalar_wide", 1),
-    ("decode", "scalar_wide", 5)])
+    ("decode", "scalar_wide", 5), ("tiles", "paper", 121),
+    ("tiles", "paper", 128), ("tiles", "paper", 512),
+    ("tiles", "paper", 525), ("tiles", "paper_nogc", 512)])
 def test_bf16_kernel_matches_reference_teacher_forced(setup, kernel, width,
                                                       B):
     """Each kernel's bf16 mode, pinned, teacher-forced from a prefilled
@@ -2031,18 +2048,178 @@ def test_bf16_sequential_route_matches_reference(setup, width):
 
 
 @pytest.mark.gpu
+def test_bf16_tiles_kernel_is_deterministic_and_per_row(setup):
+    """The tiles kernel's bf16 mode: same seed, same codes; rows 0-127 of
+    b512 (35 rows a cluster) equal b128 (9 rows a cluster) bit for bit,
+    ring and causal register included (both round the chain)."""
+    c, params, pk16, _, carry, _ = _bf16_case("paper", 512)
+
+    def run(n):
+        ring = carry.ring[:, :n].clone(memory_format=torch.contiguous_format)
+        causal = carry.causal[:n].clone()
+        pk = pk16._replace(layer_add=pk16.layer_add[:, :n].contiguous())
+        return ks.decode(pk, c, ring, causal,
+                         carry.last[:n, None].contiguous(), 200,
+                         carry.t_abs, 17, collect_logits=16,
+                         kernel="tiles") + (ring, causal)
+
+    before = ks.decode.launches_by["tiles_bf16"]
+    a, la, ra, ca = run(512)
+    b, lb, rb, cb = run(512)
+    s, ls, rs, cs = run(128)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by["tiles_bf16"] == before + 3
+    assert torch.equal(a, b) and torch.equal(la, lb) and torch.equal(ra, rb)
+    assert torch.equal(ca, cb)
+    assert torch.equal(a[:128], s) and torch.equal(la[:128], ls)
+    assert torch.equal(ra[:, :128], rs) and torch.equal(ca[:128], cs)
+    assert len(torch.unique(a)) > 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [128, 512])
+def test_bf16_tiles_sampled_codes_replay(setup, B):
+    """A free run of the tiles kernel's bf16 mode from a short forced
+    prefix: each sampled code is the argmax of the launch's own logits plus
+    the same noise (a mismatch only at a near-tie), and its inputs replayed
+    one step a launch give the same logits, each step held against bf16
+    ``decode_reference`` from the kernel's own state."""
+    c, params, pk16, pk32, carry, forced = _bf16_case("paper", B)
+    n = 40
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    codes, lg = ks.decode(pk16, c, rk, ck, forced[:, :3].contiguous(), n,
+                          carry.t_abs, 9, collect_logits=True, kernel="tiles")
+    noise = ks.gumbel_noise(9, B, carry.t_abs, n, c.quantization_channels,
+                            "cuda").transpose(0, 1)
+    scores = (lg + noise)[:, 2:]
+    drawn = codes[:, 2:].long()
+    top = scores.max(dim=-1).values
+    margin = top - scores.gather(-1, drawn[..., None])[..., 0]
+    assert (margin < 1e-4).all(), margin.max().item()
+    assert (margin == 0).float().mean().item() > 0.999
+    assert len(torch.unique(codes)) > 8
+    replay = torch.cat([forced[:, :3], codes[:, 2:-1]], dim=1).contiguous()
+
+    def step(ring, causal, x, t):
+        return ks.decode(pk16, c, ring, causal, x, 1, t, 9,
+                         collect_logits=True, kernel="tiles")[1]
+
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    steps = _bf16_stepwise(f"tiles replay B={B}", c, pk16, pk32, ring,
+                           causal, replay, carry.t_abs, 9,
+                           ks.chain_rounded("decode", B), step)
+    assert torch.equal(steps, lg) and torch.equal(ring, rk)
+    assert torch.equal(causal, ck)
+
+
+@pytest.mark.gpu
+def test_bf16_tiles_segments_equal_one_run(setup):
+    """Three segments of the tiles kernel's bf16 mode resumed from the
+    ring, the causal register, t0 and the last code (as ``--save_every``
+    runs them) equal one launch."""
+    c, params, pk16, _, carry, _ = _bf16_case("paper", 256)
+    first = carry.last[:, None].contiguous()
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    full, _ = ks.decode(pk16, c, ring, causal, first, 500, carry.t_abs, 4,
+                        kernel="tiles")
+    ring2, causal2 = carry.ring.clone(), carry.causal.clone()
+    outs, x, t = [], first, carry.t_abs
+    for n in (200, 150, 150):
+        seg, _ = ks.decode(pk16, c, ring2, causal2, x, n, t, 4,
+                           kernel="tiles")
+        outs.append(seg)
+        x, t = seg[:, -1:].contiguous(), t + n
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    assert torch.equal(ring2, ring) and torch.equal(causal2, causal)
+
+
+@pytest.mark.gpu
+def test_bf16_tiles_kernel_logits_window(setup):
+    c, params, pk16, _, carry, _ = _bf16_case("paper", 200)
+    first = carry.last[:, None].contiguous()
+    got = []
+    for window in (7, True):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        got.append(ks.decode(pk16, c, ring, causal, first, 50, carry.t_abs,
+                             13, collect_logits=window, kernel="tiles"))
+    torch.cuda.synchronize()
+    (codes, win), (again, full) = got
+    assert torch.equal(codes, again)
+    assert win.shape == (200, 7, 256) and torch.equal(win, full[:, -7:])
+
+
+@pytest.mark.gpu
+def test_bf16_tiles_library_matches_the_plan(setup):
+    """The bf16 library's shared memory and resident clusters at every row
+    count are the float32 library's, which the plan takes."""
+    import ctypes
+    from wavenet_torch.kernels import _build
+    libs = [_build.load(n) for n in ("sampler_tiles", "sampler_tiles_bf16")]
+    for lib, bf16 in zip(libs, (False, True)):
+        ks._bind_tiles(lib, bf16)
+    for rb in ks.TILE_ROWS:
+        counts = []
+        for lib in libs:
+            assert lib.sampler_tiles_smem_bytes(rb) == ks.tile_smem_bytes(rb)
+            n = ctypes.c_int(0)
+            assert lib.sampler_tiles_max_clusters(rb, ctypes.byref(n)) == 0
+            counts.append(n.value)
+        assert counts[0] == counts[1] > 0, (rb, counts)
+
+
+@pytest.mark.gpu
+def test_bf16_tiles_pinned_b1_plan_rounds_as_the_route_says(setup):
+    """A pinned tiles plan at B = 1: on the decode route the layer chain
+    stays float32 (the JAX prefill route's b1 rule), on the sequential
+    route it is rounded; each held one step a launch against the plain
+    version under its rule, and the two differ."""
+    c, params, pk16, pk32, carry, forced = _bf16_case("paper", 1)
+    plan = ks.TilePlan(8, 1, ks.layer_split(c.num_layers, 8))
+    forced = forced[:, :20].contiguous()
+    got = {}
+    for route in ("decode", "sequential"):
+        rk, ck = carry.ring.clone(), carry.causal.clone()
+        _, lk, used = ks._launch(pk16, c, rk, ck, forced, 20, carry.t_abs,
+                                 3, 1.0, True, route=route, kernel="tiles",
+                                 plan=plan)
+        assert used == "tiles_bf16"
+
+        def step(ring, causal, x, t):
+            return ks._launch(pk16, c, ring, causal, x, 1, t, 3, 1.0, True,
+                              route=route, kernel="tiles", plan=plan)[1]
+
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        got[route] = _bf16_stepwise(
+            f"tiles b1 {route}", c, pk16, pk32, ring, causal, forced,
+            carry.t_abs, 3, ks.chain_rounded(route, 1), step)
+        assert torch.equal(got[route], lk) and torch.equal(ring, rk)
+    assert not ks.chain_rounded("decode", 1)
+    assert not torch.equal(got["decode"], got["sequential"])
+
+
+@pytest.mark.gpu
 def test_bf16_route_and_refusals(setup):
     """``kernel="auto"`` at bf16: the cluster kernel at paper b1 and b64,
-    ``sampler_decode`` at b512 (``tile_plan`` takes float32 only); a pinned
-    ``kernel="tiles"`` raises; bf16 weights go in all six or none."""
-    from wavenet_torch.models.config import paper_config
+    the tiles kernel at b512 (``tile_plan`` gives the float32 plan),
+    ``sampler_decode`` at b600 and at the wide config's b64 (above its
+    cluster range); a pinned ``kernel="tiles"`` where the device has no
+    tiles plan raises as at float32; bf16 weights go in all six or none."""
+    from wavenet_torch.models.config import paper_config, wide_config
     c = paper_config()
     params = _seeded_params(c)
-    for B, want in ((1, "cluster_bf16"), (64, "cluster_bf16"),
-                    (512, "decode_bf16")):
-        assert ks.device_tile_plan(c, B, weight_dtype=torch.bfloat16) is None
+    wide = wide_config()
+    cases = [(c, params, B, want) for B, want in (
+        (1, "cluster_bf16"), (64, "cluster_bf16"), (512, "tiles_bf16"),
+        (600, "decode_bf16"))]
+    cases.append((wide, _seeded_params(wide), 64, "decode_bf16"))
+    for cfg, p, B, want in cases:
+        assert (ks.device_tile_plan(cfg, B, weight_dtype=torch.bfloat16)
+                == ks.device_tile_plan(cfg, B))
+        assert ((ks.device_tile_plan(cfg, B) is not None)
+                == (want == "tiles_bf16"))
         before = dict(ks.decode.launches_by)
-        codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B,
+        codes = ks.generate_cuda(p, cfg, 8, seed=1, batch_size=B,
                                  weight_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         after = dict(ks.decode.launches_by)
@@ -2052,12 +2229,12 @@ def test_bf16_route_and_refusals(setup):
     pk = ks.pack_sampler_weights(params, c, 2, weight_dtype=torch.bfloat16)
     ring, causal = ks.zero_state(c, 2, "cuda")
     x = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="sampler_tiles"):
+    with pytest.raises(ValueError, match="no tiles plan"):
         ks.decode(pk, c, ring, causal, x, 2, 0, 0, kernel="tiles")
-    with pytest.raises(NotImplementedError, match="sampler_tiles"):
-        ks._launch(pk, c, ring, causal, x, 2, 0, 0, 1.0, False,
-                   route="decode",
-                   plan=ks.TilePlan(8, 9, ks.layer_split(30, 8)))
+    _, _, used = ks._launch(pk, c, ring, causal, x, 2, 0, 0, 1.0, False,
+                            route="decode",
+                            plan=ks.TilePlan(8, 9, ks.layer_split(30, 8)))
+    assert used == "tiles_bf16"
     mixed = pk._replace(skip_w=pk.skip_w.float())
     with pytest.raises(ValueError, match="skip_w"):
         ks.decode(mixed, c, ring, causal, x, 2, 0, 0)

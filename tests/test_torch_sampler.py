@@ -280,15 +280,25 @@ def test_unported_paths_raise():
     _, tc, _, tp = _pair(SMALL)
     with pytest.raises(NotImplementedError):
         ts.generate_cuda(tp, TConfig(**{**SMALL, "filter_width": 3}), 4, 0)
-    # bf16 weights decode (tests/test_torch_sampler_bf16.py), but not on
-    # the float32-only tiles kernel, pinned on any device.
+    # bf16 weights decode (tests/test_torch_sampler_bf16.py) on every
+    # kernel, the tiles kernel pinned included: on the CPU that is the
+    # plain version, decode_reference, on either route.
     packed = ts.pack_sampler_weights(tp, tc, 1, weight_dtype=torch.bfloat16)
-    ring, causal = ts.zero_state(tc, 1)
     forced = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="step 1d"):
-        ts.decode(packed, tc, ring, causal, forced, 4, 0, 0, kernel="tiles")
-    with pytest.raises(NotImplementedError, match="step 1d"):
-        ts.decode_sequential(packed, tc, forced, 4, 0, kernel="tiles")
+    ring, causal = ts.zero_state(tc, 1)
+    got = ts.decode(packed, tc, ring, causal, forced, 4, 0, 0, kernel="tiles",
+                    collect_logits=True)
+    ring_r, causal_r = ts.zero_state(tc, 1)
+    ref = ts.decode_reference(packed, tc, ring_r, causal_r, forced, 4, 0, 0,
+                              collect_logits=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(ring, ring_r) and torch.equal(causal, causal_r)
+    got = ts.decode_sequential(packed, tc, forced, 4, 0, kernel="tiles",
+                               collect_logits=True)
+    ring_r, causal_r = ts.zero_state(tc, 1)
+    ref = ts.decode_reference(packed, tc, ring_r, causal_r, forced, 4, 0, 0,
+                              collect_logits=True, round_chain=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
     # LC decodes (tests/test_torch_sampler_lc.py), but not at bf16 weights.
     lc_c = TConfig(**{**SMALL, "lc_channels": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

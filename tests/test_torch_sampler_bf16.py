@@ -5,8 +5,8 @@ by activations rounded to bf16 (``x.astype(w_ref.dtype)`` before
 ``mxu_dot``), except on the prefill route at B = 1, whose VPU chain
 multiplies float32 activations by the widened weights in the layer chain.
 The port's ``decode_reference`` (the plain twin of the bf16 modes of
-``sampler_cluster`` and ``sampler_decode``) follows that rule
-(``round_chain``). Each TPU kernel runs here in interpret mode on bf16
+``sampler_cluster``, ``sampler_tiles`` and ``sampler_decode``) follows that
+rule (``round_chain``). Each TPU kernel runs here in interpret mode on bf16
 weights, and the port is teacher-forced on that run's codes: its logits
 must equal the JAX kernel's at every step within rtol 1e-4, atol 1e-5,
 the tolerance of tests/test_torch_sampler.py.
@@ -14,7 +14,7 @@ the tolerance of tests/test_torch_sampler.py.
 Also here: generation from a config whose ``compute_dtype`` is bfloat16
 (float32 prefill and decode, as the JAX package), the bf16 rung of the
 sampler ladder, the generate CLI at ``--sampler_precision bfloat16`` and
-the route's rule that the float32-only tiles kernel takes no bf16 launch.
+the route's rule that bf16 weights take the float32 mode's plans.
 The kernels themselves are held against ``decode_reference`` on the card
 in tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -129,11 +129,12 @@ def test_swapped_b1_rule_misses_jax(B, rng):
     assert not np.allclose(swapped.numpy(), np.asarray(logits), **TOL)
 
 
-@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("B", [1, 2, 16])
 def test_matches_hbm_stream_kernel_bf16(B, rng):
     """TPU kernel #2, ``_sampler_kernel_hbm_stream``, at bf16 weights,
     through its resume path from a prefilled carry (the VPU chain at b1:
-    the b1 packing carries its transposed weights)."""
+    the b1 packing carries its transposed weights; b16 has as many rows as
+    a cluster of the tiles kernel's bf16 mode holds at b240)."""
     jc, tc, jp, tp = _pair(SMALL, gc=True, key=2)
     n = 11
     seed_codes = rng.randint(0, 32, (B, jc.receptive_field + 6))
@@ -378,16 +379,20 @@ def _h100_resident(cs, rb, nbytes):
     return {8: 15, 16: 7}[cs]
 
 
-@pytest.mark.parametrize("B", [1, 64, 120, 128, 512])
+@pytest.mark.parametrize("B", [1, 64, 120, 121, 128, 512, 525])
 def test_tile_plan_takes_no_bf16_and_cluster_plan_is_unchanged(B):
-    """bf16 b121+ runs ``sampler_decode``: ``tile_plan`` returns None for
-    bf16 weights; ``cluster_plan`` takes no weight type, so b1-b120 keep
-    the cluster kernel at bf16 with the float32 mode's plan."""
+    """bf16 b121-b525 runs ``sampler_tiles``' bf16 mode on the float32
+    plan: ``tile_plan`` at bf16 weights returns the float32 plan there and
+    None where the cluster kernel runs; ``cluster_plan`` takes no weight
+    type, so b1-b120 keep the cluster kernel at bf16 with the float32
+    mode's plan. Another weight type has no plan."""
     from wavenet_torch.models.config import gc_config
     c = gc_config()
     args = (c, B, H100_SMEM, _h100_resident, _h100_resident)
-    assert (ts.tile_plan(*args) is not None) == (B > 120)
-    assert ts.tile_plan(*args, weight_dtype=BF16) is None
+    plan32 = ts.tile_plan(*args)
+    assert (plan32 is not None) == (B > 120)
+    assert ts.tile_plan(*args, weight_dtype=BF16) == plan32
+    assert ts.tile_plan(*args, weight_dtype=torch.float16) is None
     plan = ts.cluster_plan(c, B, H100_SMEM, _h100_resident)
     assert (plan is not None) == (B <= 120)
 

@@ -1,5 +1,6 @@
 """The route to the port's third decode kernel (``tile_plan``, which sends
-paper/gc b121 and up to ``csrc/sampler_tiles.cu``) and the wrappers'
+paper/gc b121 and up to ``csrc/sampler_tiles.cu``, or at bf16 weights to
+``csrc/sampler_tiles_bf16.cu``, on the same plan) and the wrappers'
 ``kernel="tiles"``, on the CPU. The kernel itself runs on the card only
 (``tests/test_torch_gpu.py``); its plain version is ``decode_reference``,
 held against the JAX package in ``tests/test_torch_sampler.py``."""
@@ -120,31 +121,37 @@ def test_smem_bytes_grow_with_padded_rows():
 
 @pytest.mark.parametrize("sequential", [False, True])
 def test_wrappers_run_the_plain_version_on_the_cpu(sequential):
-    """``kernel="tiles"`` on CPU tensors is ``decode_reference``, and the
-    CPU launches no kernel."""
+    """``kernel="tiles"`` on CPU tensors is ``decode_reference``, at float32
+    and at bf16 weights (the chain rounded on both routes at B = 3), and
+    the CPU launches no kernel."""
     c = paper_config(dilations=(1, 2, 4, 8, 16, 32, 1, 2), skip_channels=64,
                      quantization_channels=64)
     from wavenet_torch.models.wavenet import init_params
     params = init_params(0, c, device="cpu")
     B = 3
-    packed = ks.pack_sampler_weights(params, c, B)
     rng = np.random.RandomState(0)
     forced = torch.as_tensor(rng.randint(0, c.quantization_channels, (B, 4)),
                              dtype=torch.int32)
     before = (ks.decode.launches, dict(ks.decode.launches_by),
               ks.decode_sequential.launches)
-    ring_r, causal_r = ks.zero_state(c, B)
-    codes_r, lg_r = ks.decode_reference(packed, c, ring_r, causal_r, forced,
-                                        6, 0, 3, collect_logits=3)
-    if sequential:
-        codes, lg = ks.decode_sequential(packed, c, forced, 6, 3,
-                                         collect_logits=3, kernel="tiles")
-    else:
-        ring, causal = ks.zero_state(c, B)
-        codes, lg = ks.decode(packed, c, ring, causal, forced, 6, 0, 3,
-                              collect_logits=3, kernel="tiles")
-        assert torch.equal(ring, ring_r) and torch.equal(causal, causal_r)
-    assert torch.equal(codes, codes_r) and torch.equal(lg, lg_r)
+    logits = {}
+    for wt in (torch.float32, torch.bfloat16):
+        packed = ks.pack_sampler_weights(params, c, B, weight_dtype=wt)
+        ring_r, causal_r = ks.zero_state(c, B)
+        codes_r, lg_r = ks.decode_reference(packed, c, ring_r, causal_r,
+                                            forced, 6, 0, 3, collect_logits=3,
+                                            round_chain=True)
+        if sequential:
+            codes, lg = ks.decode_sequential(packed, c, forced, 6, 3,
+                                             collect_logits=3, kernel="tiles")
+        else:
+            ring, causal = ks.zero_state(c, B)
+            codes, lg = ks.decode(packed, c, ring, causal, forced, 6, 0, 3,
+                                  collect_logits=3, kernel="tiles")
+            assert torch.equal(ring, ring_r) and torch.equal(causal, causal_r)
+        assert torch.equal(codes, codes_r) and torch.equal(lg, lg_r)
+        logits[wt] = lg
+    assert not torch.equal(logits[torch.float32], logits[torch.bfloat16])
     assert (ks.decode.launches, dict(ks.decode.launches_by),
             ks.decode_sequential.launches) == before
     assert "tiles" in ks.KERNEL_CHOICES

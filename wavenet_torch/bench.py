@@ -93,9 +93,10 @@ class Scale:
 SHORT = Scale(gen_samples=2000, scan_samples=200, gen_reps=1, train_steps=2,
               train_reps=1, cfg_train_steps=2, cfg_train_steps_k4=4,
               e2e_steps=10)
-# The decode kernels that the generation rows launch.
+# The decode kernels that the generation rows launch (``sampler_tiles``
+# also for the route's residency counts of its bf16 mode).
 DECODE_KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
-                  "sampler_cluster_lc")
+                  "sampler_cluster_lc", "sampler_tiles", "sampler_tiles_bf16")
 
 
 def tf1_baseline_samples_per_s(path: Optional[str] = None):

@@ -12,9 +12,9 @@ decode kernel on the card (``sampler_cluster``, ``sampler_tiles`` or
 ``sampler_decode``, as ``kernels.sampler.cluster_plan`` and ``tile_plan``
 route; their plain version on the CPU), or the scan sampler with
 ``--sampler scan``. ``--sampler_precision bfloat16`` decodes with bf16
-weights (the bf16 modes of ``sampler_cluster`` and ``sampler_decode``), on
-the fast and the ``--save_every`` paths, as the JAX CLI does; the scan and
-slow paths ignore it. The params format, as the JAX CLI's, has no
+weights (the bf16 mode of the routed kernel), on the fast and the
+``--save_every`` paths, as the JAX CLI does; the scan and slow paths
+ignore it. The params format, as the JAX CLI's, has no
 ``compute_dtype``: the config is float32 whatever the file says (a bf16
 config object generates at float32 through ``generate_with_fallback``,
 and the slow path runs ``predict_proba`` on the config itself, as in

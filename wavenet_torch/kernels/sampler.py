@@ -29,13 +29,14 @@ Three CUDA kernels compute the decode, launched by the same wrappers:
 keeps the fg and dense weights of the layer chain in the shared memory of
 a thread-block cluster (one cluster per group of rows; the JAX package's
 all-VMEM b1 kernel ``_sampler_kernel`` is its TPU counterpart);
-``csrc/sampler_tiles.cu`` does the same for tens
-of rows a cluster at the paper/gc widths only, each thread owning a
-register tile of rows x columns (the JAX package's large-batch kernels
-``_sampler_kernel_hbm_stream`` and ``_decode_kernel_packed`` are its TPU
-counterparts); and ``csrc/sampler_decode.cu`` streams every weight from
-L2 (one block per group of rows). Before the launch, from the config, the
-batch size and the device, ``cluster_plan`` takes the cluster kernel
+``csrc/sampler_tiles.cu`` (the kernel in ``csrc/sampler_tiles.cuh``) does
+the same for tens of rows a cluster at the paper/gc widths only, each
+thread owning a register tile of rows x columns (the JAX package's
+large-batch kernels ``_sampler_kernel_hbm_stream`` and
+``_decode_kernel_packed`` are its TPU counterparts); and
+``csrc/sampler_decode.cu`` streams every weight from L2 (one block per
+group of rows). Before the launch, from the config, the batch size and
+the device, ``cluster_plan`` takes the cluster kernel
 wherever its weights fit and all its clusters are resident at once
 (paper/gc b1-b120 and wide b1-b28 on an H100), ``tile_plan`` takes the
 tiles kernel where the cluster kernel does not and the shape is its one
@@ -47,15 +48,15 @@ the last bits, so across a boundary (gc b120 and b121 on an H100) a
 near-tie can draw another code.
 
 bf16 weights (``weight_dtype=torch.bfloat16``, the JAX package's
-``weight_dtype=jnp.bfloat16``) run the bf16 mode of ``sampler_cluster``
-(``csrc/sampler_cluster_bf16.cu``) and of ``sampler_decode``; the tiles
-kernel is float32 only, so ``tile_plan`` leaves bf16 b121+ to
-``sampler_decode``. The weights are widened to float32 and each product's
-activation operand is rounded to bf16 first, at the JAX kernels' points
-(``decode_reference`` says where); the ring, the causal register and every
-sum stay float32. Generation from a config whose ``compute_dtype`` is
-bfloat16 prefills at float32 and decodes at the requested weight type, as
-the JAX package does.
+``weight_dtype=jnp.bfloat16``) run the bf16 mode of each kernel
+(``csrc/sampler_cluster_bf16.cu``, ``csrc/sampler_tiles_bf16.cu``, each its
+own library, and ``sampler_decode_bf16``), on the float32 mode's plans, so
+the route's ranges are the same at either weight type. The weights are
+widened to float32 and each product's activation operand is rounded to
+bf16 first, at the JAX kernels' points (``decode_reference`` says where);
+the ring, the causal register and every sum stay float32. Generation from
+a config whose ``compute_dtype`` is bfloat16 prefills at float32 and
+decodes at the requested weight type, as the JAX package does.
 
 Local conditioning (an LC config and an ``lc`` stream, the JAX kernels'
 ``has_lc`` mode) runs the LC mode of ``sampler_cluster``
@@ -693,17 +694,19 @@ def tile_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
     ``resident_clusters(8, RB, smem bytes a CTA)`` of its clusters resident
     at once, or None.
 
-    None for bf16 weights (the kernel's ``cp.async`` tiles carry float32
-    only; ROADMAP.md queue 1, item 1, step 1d), outside the kernel's
-    compiled shape (``tile_shape``) and wherever ``cluster_plan`` finds a
-    launch with the device's count of the cluster kernel's clusters
-    (``cluster_resident``), so that b1-b120 keep ``sampler_cluster`` and
-    their codes. Else the fewest rows a cluster
+    None outside the kernel's compiled shape (``tile_shape``), for a
+    weight type other than float32 or bfloat16, and wherever
+    ``cluster_plan`` finds a launch with the device's count of the cluster
+    kernel's clusters (``cluster_resident``), so that b1-b120 keep
+    ``sampler_cluster`` and their codes. Else the fewest rows a cluster
     that keep every cluster resident in one wave (15 clusters of 8 on an
     H100: RB 9 at b121-b135, 35 at b512 and at the top, b525), and the
-    layer split ``layer_split(L, 8)``, which does not depend on B.
+    layer split ``layer_split(L, 8)``, which does not depend on B. Both
+    weight types take the same plan: the bf16 mode widens the layer
+    weights into the float32 mode's shared memory.
     """
-    if (batch_size < 1 or weight_dtype != torch.float32
+    if (batch_size < 1
+            or weight_dtype not in (torch.float32, torch.bfloat16)
             or not tile_shape(config)
             or cluster_plan(config, batch_size, smem_optin,
                             cluster_resident) is not None):
@@ -771,9 +774,16 @@ def _bind_cluster(lib) -> None:
     lib.sampler_cluster_max_clusters.restype = ctypes.c_int
 
 
-def _bind_tiles(lib) -> None:
-    fn = lib.sampler_tiles_f32
-    fn.argtypes = _DECODE_ARGTYPES + _PLAN + [ctypes.c_void_p]
+def _bind_tiles(lib, bf16: bool = False) -> None:
+    """Bind a tiles library: ``sampler_tiles`` (``sampler_tiles_f32``) or,
+    with ``bf16``, ``sampler_tiles_bf16`` (which takes ``round_chain``);
+    both export the shared-memory and residency queries."""
+    if bf16:
+        fn = lib.sampler_tiles_bf16
+        fn.argtypes = _DECODE_ARGTYPES + _ROUND + _PLAN + [ctypes.c_void_p]
+    else:
+        fn = lib.sampler_tiles_f32
+        fn.argtypes = _DECODE_ARGTYPES + _PLAN + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.sampler_tiles_smem_bytes.argtypes = [ctypes.c_int]
     lib.sampler_tiles_smem_bytes.restype = ctypes.c_longlong
@@ -901,10 +911,6 @@ def _check_kernel(kernel: str, packed: PackedSampler, config: WaveNetConfig,
                   lc: Optional[torch.Tensor]) -> None:
     if kernel not in KERNEL_CHOICES:
         raise ValueError(f"kernel={kernel!r}: one of {KERNEL_CHOICES}")
-    if kernel == "tiles" and weight_dtype_of(packed) != torch.float32:
-        raise NotImplementedError(
-            "sampler_tiles runs float32 weights only; its bf16 mode is "
-            "queued in ROADMAP.md queue 1, item 1, step 1d")
     if config.lc_enabled or lc is not None:
         check_lc(config, lc, weight_dtype_of(packed), kernel)
 
@@ -936,8 +942,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     ``kernel`` is "tiles", or "auto" and ``tile_plan`` finds one; else
     ``sampler_decode``. A given ``plan`` (a ``ClusterPlan`` or a
     ``TilePlan``) replaces the device's. bf16 weights launch the bf16 mode
-    of the cluster or decode kernel, which rounds the layer chain's inputs
-    where :func:`chain_rounded` says so for ``route`` ("decode" or
+    of the kernel, which rounds the layer chain's inputs where
+    :func:`chain_rounded` says so for ``route`` ("decode" or
     "sequential", the caller's; see :func:`decode_reference`). An ``lc``
     stream launches the LC mode of the cluster or decode kernel. Returns
     ``(codes, logits, kernel launched)``, the kernel's name with "_bf16"
@@ -997,10 +1003,6 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         raise ValueError(f"sampler_{kernel}: given a plan of another kernel, "
                          f"{plan}")
     bf16 = wt == torch.bfloat16
-    if bf16 and used == "tiles":
-        raise NotImplementedError(
-            f"sampler_tiles runs float32 weights only, given the plan {plan} "
-            "(ROADMAP.md queue 1, item 1, step 1d)")
     n_log = _n_log(collect_logits, n_total)
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=f32, device=dev)
@@ -1028,10 +1030,11 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     if used == "tiles":
         if plan.CS != TILE_CS or plan.RB not in TILE_ROWS:
             raise ValueError(f"sampler_tiles: bad plan {plan}")
-        lib = _build.load("sampler_tiles")
-        _bind_tiles(lib)
+        lib = _build.load("sampler_tiles_bf16" if bf16 else "sampler_tiles")
+        _bind_tiles(lib, bf16)
+        fn = lib.sampler_tiles_bf16 if bf16 else lib.sampler_tiles_f32
         begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
-        err = lib.sampler_tiles_f32(*args, plan.CS, plan.RB, begin, stream)
+        err = fn(*args, *rnd, plan.CS, plan.RB, begin, stream)
     elif used == "cluster":
         if S % plan.CS or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS:
             raise ValueError(f"sampler_cluster: bad plan {plan}")
@@ -1091,12 +1094,11 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     (``kernel``: "auto" routes by ``cluster_plan`` then ``tile_plan``;
     "cluster", "tiles" and "decode" pin one) or raise. bf16 weights
     (``pack_sampler_weights(..., weight_dtype=torch.bfloat16)``) run the
-    bf16 mode of the cluster or decode kernel (``tile_plan`` takes float32
-    only, and a pinned "tiles" raises), the layer chain's inputs rounded
-    as :func:`chain_rounded` says for this route (unless B == 1). An LC
-    config takes ``lc`` [n_total, B, C_lc] float32 (row t conditions step
-    t, already refined) and runs the LC mode of the cluster or decode
-    kernel, at float32 weights only.
+    bf16 mode of the routed (or pinned) kernel, on the float32 mode's
+    plan, the layer chain's inputs rounded as :func:`chain_rounded` says
+    for this route (unless B == 1). An LC config takes ``lc`` [n_total,
+    B, C_lc] float32 (row t conditions step t, already refined) and runs
+    the LC mode of the cluster or decode kernel, at float32 weights only.
     """
     _check_kernel(kernel, packed, config, lc)
     if _device_type(ring) == "cpu":
@@ -1113,8 +1115,8 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 
 
 #: Kernel launches made by ``decode``, in all and by kernel ("cluster",
-#: "tiles", "decode", and "cluster_bf16", "decode_bf16" for the bf16
-#: modes, "cluster_lc", "decode_lc" for the LC modes; read by
+#: "tiles", "decode", and "cluster_bf16", "tiles_bf16", "decode_bf16" for
+#: the bf16 modes, "cluster_lc", "decode_lc" for the LC modes; read by
 #: chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()

@@ -38,7 +38,8 @@ class WaveNetConfig:
     lc_refine_width: int = 0
     # "float32" or "bfloat16" (bf16 matmul operands and activations,
     # float32 params): the model and training take both; generation runs
-    # float32 only (bf16 decode is queued in ROADMAP.md).
+    # at float32 whatever this says, as the JAX package's does (bf16
+    # weights are the decode's own option, ``weight_dtype``).
     compute_dtype: str = "float32"
     remat: bool = False
     use_pallas_stack: bool = False

@@ -7,13 +7,12 @@ keeps the ladder's first rung only: prefill + one launch of a decode
 kernel (``generate_cuda``), which serves any batch size in one launch.
 The route (``kernels.sampler.cluster_plan``, then ``tile_plan``) takes
 ``sampler_cluster`` (paper/gc b1-b120 and wide b1-b28 on an H100),
-``sampler_tiles`` (paper/gc b121-b525, float32 weights only) or
-``sampler_decode`` (the rest). ``precision="bfloat16"`` forwards
-``weight_dtype=torch.bfloat16``, as the JAX ladder's first rung does: the
-bf16 modes of ``sampler_cluster`` and ``sampler_decode`` run, the ring
-stays float32. A local-conditioning stream (``lc``) runs the LC modes of
-``sampler_cluster`` and ``sampler_decode`` (float32 weights only; the
-tiles kernel has none, so LC above the cluster range runs
+``sampler_tiles`` (paper/gc b121-b525) or ``sampler_decode`` (the rest).
+``precision="bfloat16"`` forwards ``weight_dtype=torch.bfloat16``, as the
+JAX ladder's first rung does: the bf16 mode of the same kernel runs, the
+ring stays float32. A local-conditioning stream (``lc``) runs the LC
+modes of ``sampler_cluster`` and ``sampler_decode`` (float32 weights only;
+the tiles kernel has none, so LC above the cluster range runs
 ``sampler_decode``). On a GPU a failure raises; there is no fallback. On
 the CPU the same call runs the kernels' plain version
 (``decode_reference``), because the tensors lie there.
@@ -34,8 +33,8 @@ def sampler_name(device, precision: str = "float32",
     ``lc``: with a local-conditioning stream."""
     if getattr(device, "type", str(device)) == "cuda":
         if precision == "bfloat16":
-            return ("CUDA (prefill + sampler_cluster/sampler_decode kernel, "
-                    "bf16 weights)")
+            return ("CUDA (prefill + sampler_cluster/sampler_tiles/"
+                    "sampler_decode kernel, bf16 weights)")
         if lc:
             return ("CUDA (prefill + sampler_cluster/sampler_decode kernel, "
                     "local conditioning)")

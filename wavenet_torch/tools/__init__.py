@@ -19,12 +19,13 @@ probe tools in ``tools/``).
   cluster's shared memory (``kernel="cluster"``,
   ``csrc/matvec_probe_cluster.cu``) or in L2 (``"decode"``,
   ``csrc/matvec_probe.cu``);
-* ``tiles_variants`` (the port's own, no JAX counterpart):
-  ``csrc/sampler_tiles.cu`` beside its phase probe (SM clocks per phase),
-  timed in turns; GPU only, it prints JSON lines, not a table;
+* ``tiles_variants`` (the port's own, no JAX counterpart): the tiles
+  decode kernel's float32 and bf16 modes (``csrc/sampler_tiles.cuh``)
+  beside their phase probes (SM clocks per phase), timed in turns; GPU
+  only, it prints JSON lines, not a table;
 * ``stack_times`` and ``decode_turns`` (the port's own): a stack kernel's
-  times, or the cluster decode kernel's output digests and b1 step, for
-  several checkouts in turns; GPU only, JSON lines.
+  times, or the cluster and tiles decode kernels' output digests and step
+  times, for several checkouts in turns; GPU only, JSON lines.
 
 Each module holds its kernel's wrapper (a plain PyTorch version of every
 variant, with the same signature, runs instead for CPU tensors) and a

@@ -1,9 +1,11 @@
-"""Output digests and step times of the cluster decode kernel's production
-modes, for one or more checkouts of the repository in turns, on one card.
+"""Output digests and step times of the cluster and tiles decode kernels'
+production modes, for one or more checkouts of the repository in turns, on
+one card.
 
-Each case is one launch of ``decode_sequential(..., kernel="cluster")``
-from a zero state on seeded weights (non-zero biases), the first
-``PREFIX`` inputs forced and the rest sampled, with every step's logits:
+Each case is one launch of ``decode_sequential`` from a zero state on
+seeded weights (non-zero biases), the first ``PREFIX`` inputs forced and
+the rest sampled, with every step's logits. On the cluster kernel
+(``kernel="cluster"``):
 
     paper_b1   the paper config at b1, float32 and bf16 weights
     gc_b64     the gc config (global conditioning) at b64, both types
@@ -12,11 +14,21 @@ from a zero state on seeded weights (non-zero biases), the first
                b1, float32 (the LC mode has no bf16 weights)
 
 so ``sampler_cluster``, ``sampler_cluster_bf16`` and ``sampler_cluster_lc``
-each run at their compiled widths and at runtime widths. A digest is the
-SHA-256 (16 hex digits) of the codes' and the logits' bytes: two trees'
-kernels compute the same thing where every digest agrees. The paper b1
-step is then timed at both weight types (CUDA events, the median of
-``--reps`` launches of ``STEPS`` steps).
+each run at their compiled widths and at runtime widths. On the tiles
+kernel's range (``TILE_CASES``):
+
+    gc_b128    the gc config at b128, float32 on ``kernel="tiles"`` and
+               bf16 on ``kernel="auto"`` (the kernel the route takes:
+               ``sampler_decode``'s bf16 mode before the tiles kernel had
+               one, ``sampler_tiles_bf16`` since)
+    gc_b512    the same at b512
+
+A digest is the SHA-256 (16 hex digits) of the codes' and the logits'
+bytes: two trees' kernels compute the same thing where every digest
+agrees (a bf16 digest on ``kernel="auto"`` changes where the route does).
+The paper b1 step (cluster) and each tiles case's step are then timed at
+both weight types (CUDA events, the median of ``--reps`` launches of
+``STEPS`` steps), and each row names the kernel every case launched.
 
     python -m wavenet_torch.tools.decode_turns --trees parent/ . . parent/
 
@@ -40,9 +52,12 @@ import sys
 PREFIX, STEPS_DIGEST, STEPS = 8, 512, 2048
 SEED = 5
 LC_CHANNELS = 80
-#: (case, weight types) whose digests are taken.
+#: (case, weight types) whose digests are taken on the cluster kernel.
 CASES = (("paper_b1", ("f32", "bf16")), ("gc_b64", ("f32", "bf16")),
          ("wide_b1", ("f32", "bf16")), ("lc_b1", ("f32",)))
+#: (case, {weight type: the kernel pinned}) in the tiles kernel's range.
+TILE_CASES = (("gc_b128", {"f32": "tiles", "bf16": "auto"}),
+              ("gc_b512", {"f32": "tiles", "bf16": "auto"}))
 
 
 def _digest(*tensors) -> str:
@@ -78,10 +93,11 @@ def case(name: str, dt: str, n: int = STEPS_DIGEST):
     from wavenet_torch.kernels import sampler as ks
     from wavenet_torch.models import config as cfgs
     from wavenet_torch.models.wavenet import embed_gc
-    c = {"paper_b1": cfgs.paper_config, "gc_b64": cfgs.gc_config,
-         "wide_b1": cfgs.wide_config,
-         "lc_b1": lambda: cfgs.paper_config(lc_channels=LC_CHANNELS)}[name]()
-    B = 64 if name == "gc_b64" else 1
+    config, batch = name.split("_b")
+    c = {"paper": cfgs.paper_config, "gc": cfgs.gc_config,
+         "wide": cfgs.wide_config,
+         "lc": lambda: cfgs.paper_config(lc_channels=LC_CHANNELS)}[config]()
+    B = int(batch)
     params = _params(c, SEED)
     rng = np.random.RandomState(SEED)
     if c.scalar_input:
@@ -105,15 +121,26 @@ def case(name: str, dt: str, n: int = STEPS_DIGEST):
     return c, packed, forced, lc
 
 
-def digest(name: str, dt: str) -> str:
+def _launched(fn):
+    """``fn()``, and the kernel it launched as ``decode_sequential`` counts
+    it (its ``launches_by`` key)."""
+    from wavenet_torch.kernels import sampler as ks
+    before = dict(ks.decode_sequential.launches_by)
+    out = fn()
+    ran = [k for k, v in ks.decode_sequential.launches_by.items()
+           if v != before.get(k, 0)]
+    return out, ",".join(sorted(ran))
+
+
+def digest(name: str, dt: str, kernel: str = "cluster") -> str:
     """The digest of a case's codes and logits (``STEPS_DIGEST`` steps, one
-    launch)."""
+    launch on ``kernel``)."""
     from wavenet_torch.kernels import sampler as ks
     c, packed, forced, lc = case(name, dt)
     kw = {} if lc is None else {"lc": lc}
     codes, logits = ks.decode_sequential(
         packed, c, forced, STEPS_DIGEST, SEED, collect_logits=True,
-        kernel="cluster", **kw)
+        kernel=kernel, **kw)
     return _digest(codes, logits)
 
 
@@ -123,16 +150,16 @@ def digests() -> dict:
             for name, dts in CASES for dt in dts}
 
 
-def step_ms(dt: str, reps: int) -> float:
-    """The median ms a step of ``STEPS``-step paper b1 launches."""
+def step_ms(dt: str, reps: int, name: str = "paper_b1",
+            kernel: str = "cluster") -> float:
+    """The median ms a step of ``STEPS``-step launches of a case."""
     import numpy as np
     import torch
     from wavenet_torch.kernels import sampler as ks
-    c, packed, forced, _ = case("paper_b1", dt)
+    c, packed, forced, _ = case(name, dt)
 
     def run():
-        ks.decode_sequential(packed, c, forced, STEPS, SEED,
-                             kernel="cluster")
+        ks.decode_sequential(packed, c, forced, STEPS, SEED, kernel=kernel)
 
     run()
     times = []
@@ -156,6 +183,13 @@ def _tree_row(label: str, reps: int) -> dict:
     row["digests"] = digests()
     row.update({f"paper_b1_{dt}_ms_per_step": step_ms(dt, reps)
                 for dt in ("f32", "bf16")})
+    row["tile_digests"], row["tile_kernels"] = {}, {}
+    for name, kernels in TILE_CASES:
+        for dt, kernel in kernels.items():
+            key = f"{name}_{dt}"
+            row["tile_digests"][key], row["tile_kernels"][key] = _launched(
+                lambda: digest(name, dt, kernel))
+            row[f"{key}_ms_per_step"] = step_ms(dt, reps, name, kernel)
     return row
 
 
