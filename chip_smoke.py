@@ -195,6 +195,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and the compact line with every key of the JAX bench's non-null in at
    most 1,900 characters. The ``kernels`` rows of those kernels carry the
    run's launches (``launches_bench``).
+10. Scoring and speculative decoding (plain PyTorch, as the JAX package
+   runs them in XLA, but for the scored forward at ``use_pallas_stack``):
+   ``sample.extend_state`` at the paper config from a prefill of 3,500
+   codes, one 64-code window against 64 ``sampler_step`` calls on the card
+   (logits, ring and causal register within rtol 1e-4, atol 1e-4 at v = 64
+   and a partial v; the state given is not written); ``score.log_likelihood``
+   at the paper and gc configs, b1 x 16,000 uniform(-1, 1) samples,
+   one-shot, streaming in 4,096-code windows and one-shot at
+   ``use_pallas_stack`` (``fused_stack_mma``'s forward, its launches counted
+   from 0), held against each other within the CPU tests' tolerances
+   (per sample atol 1e-4; totals rtol 1e-5 and atol 1e-3, streaming atol
+   1e-4); ``python -m wavenet_torch.score`` from phase 5's gc checkpoint on
+   two synthesised wavs (one past ``--streaming_chunk 8192``) with
+   ``--gc_from_filename``, its totals against the library's one-shot
+   scorer; a ``GenerationService`` with a draft at the paper config (the
+   target's npz, then a lightly perturbed copy) answering /generate at b1
+   x 2,048 with k = 8 (well-formed codes, every proposal accepted from the
+   identical draft, no decode kernel launched, /generate_batch refused);
+   ``python -m wavenet_torch.cli.generate --draft_checkpoint`` from the gc
+   checkpoint at b1 x 2,000 and in ``--save_every 500`` segments (equal to
+   the single run); ``distill.distill_draft`` at the tiny config for 4
+   steps (finite loss, the draft on the card). Prints the scored audio s
+   per wall s, the speculative samples/s and the mean accepted length.
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -375,6 +398,18 @@ KERNELS = KERNELS + ("fwd_bisect", "fwd_bisect_mma", "b1_bisect",
 # of the one held against its plain version.
 R3_STEPS, R3_MAIN_STEPS, R3_SEED = 2048, 1024, 7
 R4_STEPS, R4_CHECK_STEPS = 4000, 256
+# Phase 10: scoring and speculative decoding (see the docstring). The
+# draft of the perturbed service is the target plus SPEC_PERTURB x each
+# tensor's std of Gaussian noise, the JAX end-to-end test's aligned draft.
+EXTEND_K, EXTEND_PARTIAL_V = 64, 23
+EXTEND_RTOL, EXTEND_ATOL = 1e-4, 1e-4
+SCORE_SAMPLES, SCORE_CHUNK, SCORE_CLI_CHUNK = 16000, 4096, 8192
+SCORE_CLI_SAMPLES = (4000, 12000)
+SCORE_PER_SAMPLE_ATOL, SCORE_TOTAL_RTOL, SCORE_TOTAL_ATOL = 1e-4, 1e-5, 1e-3
+SCORE_STREAM_ATOL = 1e-4
+SPEC_SAMPLES, SPEC_K, SPEC_PERTURB = 2048, 8, 0.01
+SPEC_CLI_SAMPLES, SPEC_CLI_SAVE_EVERY = 2000, 500
+DISTILL_STEPS, DISTILL_CLIPS, DISTILL_CLIP_SAMPLES = 4, 2, 2000
 # The r3 probe's kernels, the routed one (cluster, on an H100) first; rounds
 # of the cluster probe's `full` in turns with the production launch; how
 # far a CTA's phases may fall short of its step loop (the loop's overhead).
@@ -1410,10 +1445,10 @@ def synth_corpus(root: str, speakers: int = 109, utterances: int = 2,
             write_wav(os.path.join(root, f"p{spk}_{utt:03d}.wav"), x, sr)
 
 
-def run_cli(argv):
-    """``wavenet_torch.cli.train.main(argv)`` in this process (so that
-    the kernels' launch counts see it), its output echoed and returned."""
-    from wavenet_torch.cli import train as cli
+def tee_main(main_fn, argv):
+    """``main_fn(argv)`` in this process (so that the kernels' launch
+    counts see it), its output echoed and returned with the wall seconds
+    it took."""
 
     class Tee(io.StringIO):
         def write(self, text):
@@ -1421,10 +1456,19 @@ def run_cli(argv):
             return super().write(text)
 
     buf = Tee()
+    t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
-    check(rc == 0, f"train CLI exited {rc}")
-    return buf.getvalue()
+        rc = main_fn(argv)
+    seconds = time.perf_counter() - t
+    check(rc == 0, f"{main_fn.__module__} exited {rc}")
+    return buf.getvalue(), seconds
+
+
+def run_cli(argv):
+    """``wavenet_torch.cli.train.main(argv)`` in this process: its
+    output."""
+    from wavenet_torch.cli import train as cli
+    return tee_main(cli.main, argv)[0]
 
 
 def phase_train_cli(c, wide, gpu):
@@ -1987,22 +2031,10 @@ def next_amp_probe(c, params, n: int = 2048):
 
 
 def run_generate_cli(argv):
-    """``wavenet_torch.cli.generate.main(argv)`` in this process (so that
-    the kernels' launch counts see it): (output, wall seconds)."""
+    """``wavenet_torch.cli.generate.main(argv)`` in this process:
+    (output, wall seconds)."""
     from wavenet_torch.cli import generate as cli
-
-    class Tee(io.StringIO):
-        def write(self, text):
-            sys.__stdout__.write(text)
-            return super().write(text)
-
-    buf = Tee()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
-    seconds = time.perf_counter() - t
-    check(rc == 0, f"generate CLI exited {rc}")
-    return buf.getvalue(), seconds
+    return tee_main(cli.main, argv)
 
 
 def read_wavs(path: str, B: int, n: int):
@@ -3544,6 +3576,346 @@ def phase_bench(gpu):
     return dict(launches)
 
 
+def close_row(row, label, got, ref, rtol, atol):
+    """Check ``got`` against ``ref`` elementwise, |got - ref| <= atol +
+    rtol |ref| (the CPU tests' ``assert_allclose``); record the largest
+    error in ``row``."""
+    import torch
+    where = f"{row['config']} {label}"
+    got, ref = got.double(), ref.double()
+    check(torch.isfinite(got).all().item(), f"{where}: non-finite output")
+    err = (got - ref).abs()
+    row[f"max_abs_err_{label}"] = err.max().item()
+    excess = (err - atol - rtol * ref.abs()).max().item()
+    check(excess <= 0, f"{where}: differs from its reference by "
+          f"{err.max().item()} (over the limit by {excess})")
+    return err.max().item()
+
+
+def phase_extend_state(c, params, rng, gpu):
+    """``extend_state`` at full width: one window from a prefilled state
+    against the same steps of ``sampler_step``, on the card."""
+    import torch
+    from wavenet_torch import sample as ts
+
+    codes = torch.as_tensor(
+        rng.randint(0, c.quantization_channels, (1, PREFILL + EXTEND_K)),
+        dtype=torch.int32, device="cuda")
+    win = codes[:, PREFILL:]
+    st = ts.prefill_state(params, c, codes[:, :PREFILL])
+    ring0 = st.layer_bufs.clone()
+
+    def steps():
+        s = st._replace(layer_bufs=st.layer_bufs.clone())
+        logits, states = [], {}
+        with torch.no_grad():
+            for j in range(EXTEND_K):
+                s, lg = ts.sampler_step(params, c, s,
+                                        ts._featurize(win[:, j], c))
+                logits.append(lg)
+                if j + 1 == EXTEND_PARTIAL_V:
+                    states[j + 1] = s._replace(
+                        layer_bufs=s.layer_bufs.clone())
+        states[EXTEND_K] = s
+        return torch.stack(logits, 1), states
+
+    ref, states = steps()
+    row = {"phase": "extend_state", "config": "paper", "batch": 1,
+           "prefill": PREFILL, "k": EXTEND_K}
+    for v in (EXTEND_PARTIAL_V, EXTEND_K):
+        lg, new = ts.extend_state(params, c, st, win, valid_len=v)
+        check(new.t == states[v].t == PREFILL + v, f"extend_state v={v}: t")
+        hold(row, f"logits_v{v}", lg, ref, EXTEND_RTOL, EXTEND_ATOL)
+        hold(row, f"ring_v{v}", new.layer_bufs, states[v].layer_bufs,
+             EXTEND_RTOL, EXTEND_ATOL)
+        hold(row, f"causal_v{v}", new.causal_buf, states[v].causal_buf,
+             EXTEND_RTOL, EXTEND_ATOL)
+    check(torch.equal(st.layer_bufs, ring0),
+          "extend_state wrote the state it was given")
+    row["extend_ms"] = median_cuda_ms(
+        lambda: ts.extend_state(params, c, st, win))
+    row["steps_ms"] = median_cuda_ms(steps, reps=3)
+    row["gpu"] = gpu
+    emit(row)
+    return row
+
+
+def phase_scoring(cfgs, params, rng, gpu):
+    """``score.log_likelihood`` at b1 x SCORE_SAMPLES at the paper and gc
+    configs: one-shot, streaming, and one-shot at ``use_pallas_stack``
+    (``fused_stack_mma``'s forward), against each other."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from wavenet_torch import score
+    from wavenet_torch.kernels import fused_stack as fs
+
+    rows = {}
+    for name in ("paper", "gc"):
+        c, p = cfgs[name], params[name]
+        audio = torch.as_tensor(
+            rng.uniform(-1, 1, (1, SCORE_SAMPLES)).astype(np.float32),
+            device="cuda")
+        gc = torch.tensor([5], device="cuda") if c.gc_enabled else None
+        cp = dataclasses.replace(c, use_pallas_stack=True)
+        check(fs.stack_kernel_plan(cp) == "mma",
+              f"{name}: the stack route is not fused_stack_mma")
+        row = {"phase": "scoring", "config": name, "batch": 1,
+               "samples": SCORE_SAMPLES, "chunk": SCORE_CHUNK}
+        one = score.log_likelihood(p, c, audio, gc)
+        stream = score.log_likelihood_streaming(p, c, audio, gc,
+                                                chunk=SCORE_CHUNK)
+        fs.forward.launches = 0          # the scoring route's count
+        fs.forward.launches_by.clear()
+        fused = score.log_likelihood(p, cp, audio, gc)
+        torch.cuda.synchronize()
+        row["stack_launches_by"] = dict(fs.forward.launches_by)
+        check(fs.forward.launches_by.get("mma", 0) > 0,
+              f"{name}: scoring at use_pallas_stack launched "
+              f"{dict(fs.forward.launches_by)}, not fused_stack_mma")
+        close_row(row, "per_sample_fused", fused["logp_per_sample"],
+                  one["logp_per_sample"], 0.0, SCORE_PER_SAMPLE_ATOL)
+        close_row(row, "total_fused", fused["total_logp"],
+                  one["total_logp"], SCORE_TOTAL_RTOL, SCORE_TOTAL_ATOL)
+        close_row(row, "total_streaming", stream["total_logp"],
+                  one["total_logp"], SCORE_TOTAL_RTOL, SCORE_STREAM_ATOL)
+        bits = one["bits_per_sample"].item()
+        check(np.isfinite(bits) and bits > 0, f"{name}: bits {bits}")
+        row["bits_per_sample"] = bits
+        row["total_logp"] = one["total_logp"].item()
+        for key, fn in (
+                ("one_shot", lambda: score.log_likelihood(p, c, audio, gc)),
+                ("streaming", lambda: score.log_likelihood_streaming(
+                    p, c, audio, gc, chunk=SCORE_CHUNK)),
+                ("fused", lambda: score.log_likelihood(p, cp, audio, gc))):
+            ms = median_cuda_ms(fn, reps=3)
+            row[f"{key}_ms"] = ms
+            row[f"{key}_audio_s_per_s"] = (SCORE_SAMPLES / 16000.0) / (
+                ms / 1e3)
+        row["gpu"] = gpu
+        emit(row)
+        rows[name] = row
+    return rows
+
+
+def phase_score_cli(c, gc_ckpt, gc_pfile, gpu):
+    """``python -m wavenet_torch.score`` from phase 5's gc checkpoints (a
+    directory of ``ckpt-STEP``) on two wavs named by speaker, one past
+    ``--streaming_chunk``; its totals against the library's one-shot
+    scorer."""
+    import numpy as np
+    import torch
+    from wavenet_torch import score
+    from wavenet_torch.audio import read_wav, write_wav
+    from wavenet_torch.train_lib import restore_params_only
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_score_")
+    wavs, spk = [], (5, 7)
+    rng = np.random.RandomState(3)
+    for i, n in enumerate(SCORE_CLI_SAMPLES):
+        t = np.arange(n) / 16000.0
+        x = (0.4 * np.sin(2 * np.pi * (180.0 + 60 * i) * t)
+             + 0.05 * rng.randn(n))
+        path = os.path.join(tmp, f"p{spk[i]}_{i:03d}.wav")
+        write_wav(path, x, 16000)
+        wavs.append(path)
+    check(SCORE_CLI_SAMPLES[-1] > SCORE_CLI_CHUNK > SCORE_CLI_SAMPLES[0],
+          "the score CLI's files do not straddle --streaming_chunk")
+    out, seconds = tee_main(score.main, [
+        gc_ckpt] + wavs + [
+        "--wavenet_params", gc_pfile, "--gc_channels", str(c.gc_channels),
+        "--gc_cardinality", str(c.gc_cardinality), "--gc_from_filename",
+        "--streaming_chunk", str(SCORE_CLI_CHUNK), "--device", "cuda"])
+    lines = [json.loads(ln) for ln in out.splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == 2, f"score CLI printed {len(lines)} result lines")
+    params = restore_params_only(gc_ckpt, device="cuda")
+    row = {"phase": "score_cli", "config": "gc", "files": len(lines),
+           "seconds": seconds, "audio_s_per_s":
+               sum(SCORE_CLI_SAMPLES) / 16000.0 / seconds}
+    for i, res in enumerate(lines):
+        check(set(res) == {"file", "samples", "total_logp",
+                           "bits_per_sample", "nll_nats_per_sample"},
+              f"score CLI fields {sorted(res)}")
+        check(res["samples"] == SCORE_CLI_SAMPLES[i] and
+              np.isfinite(res["total_logp"]) and res["bits_per_sample"] > 0,
+              f"score CLI line {res}")
+        audio, _ = read_wav(wavs[i], 16000)
+        ref = score.log_likelihood(
+            params, c, torch.as_tensor(audio, device="cuda")[None],
+            torch.tensor([spk[i]], device="cuda"))["total_logp"].item()
+        err = abs(res["total_logp"] - ref)
+        # The CLI prints totals to 3 decimals.
+        check(err <= SCORE_TOTAL_RTOL * abs(ref) + SCORE_TOTAL_ATOL + 5e-4,
+              f"score CLI {res['file']}: {res['total_logp']} against the "
+              f"one-shot {ref}")
+        row[f"total_logp_{i}"] = res["total_logp"]
+        row[f"max_abs_err_total_{i}"] = err
+        row[f"streamed_{i}"] = SCORE_CLI_SAMPLES[i] > SCORE_CLI_CHUNK
+    row["gpu"] = gpu
+    emit(row)
+    return row
+
+
+def phase_speculative_serving(c, gpu):
+    """A ``GenerationService`` with a draft at the paper config (the
+    target's npz, then a perturbed copy): /generate at b1 x SPEC_SAMPLES.
+    ``speculative.generate_speculative`` is wrapped to record each call's
+    (segments, accepted, emitted); the codes it returns are its own."""
+    import torch
+    from wavenet_torch import speculative as sp
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.params import save_npz
+    from wavenet_torch.serve import GenerationService
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_spec_")
+    p = seeded_params(c, 7, "cpu")
+    gen = torch.Generator().manual_seed(17)
+    npzs = {"identical": os.path.join(tmp, "target.npz"),
+            "perturbed": os.path.join(tmp, "perturbed.npz")}
+    save_npz(npzs["identical"], p)
+    save_npz(npzs["perturbed"], {
+        k: v + SPEC_PERTURB * (v.std() if v.numel() > 1 else 0.0)
+        * torch.randn(v.shape, generator=gen) for k, v in p.items()})
+    js = os.path.join(tmp, "paper.json")
+    with open(js, "w") as f:
+        json.dump(c.to_json_dict(), f)
+    Q = c.quantization_channels
+    stats = []
+    real = sp.generate_speculative
+
+    def recording(*args, **kwargs):
+        codes, st = real(*args, return_stats=True, **kwargs)
+        stats.append(st)
+        return codes
+
+    rows = {}
+    sp.generate_speculative = recording
+    try:
+        for label, draft in npzs.items():
+            svc = GenerationService(
+                npzs["identical"], js, warm_samples=0, device="cuda",
+                draft_params_npz=draft, speculative_k=SPEC_K)
+            check(svc.sampler_name == f"speculative (k={SPEC_K})",
+                  f"sampler_name {svc.sampler_name}")
+            try:
+                svc.generate_batch(16, batch=2)
+                check(False, "/generate_batch with a draft did not raise")
+            except ValueError:
+                pass
+            httpd, url = start_server(svc)
+            try:
+                ks.decode.launches = 0
+                ks.decode.launches_by.clear()
+                del stats[:]
+                t = time.perf_counter()
+                body = post(url + "/generate", {
+                    "samples": SPEC_SAMPLES, "seed": 3, "format": "codes"})
+                dt = time.perf_counter() - t
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            codes = body["codes"]
+            check(len(codes) == SPEC_SAMPLES and min(codes) >= 0
+                  and max(codes) < Q and len(set(codes)) > 8,
+                  f"speculative {label}: malformed codes")
+            check(ks.decode.launches == 0,
+                  f"speculative {label}: {ks.decode.launches} decode "
+                  "launches (the JAX server runs none)")
+            check(len(stats) == 1, f"speculative {label}: {len(stats)} "
+                  "calls of generate_speculative")
+            n_seg, n_acc, n_out = stats[0]
+            acceptance = n_acc / (n_seg * SPEC_K)
+            if label == "identical":
+                check(n_acc == n_seg * SPEC_K, "the identical draft was "
+                      f"refused {n_seg * SPEC_K - n_acc} proposals")
+            rows[label] = {
+                "phase": "speculative_serving", "config": "paper",
+                "draft": label, "k": SPEC_K, "batch": 1,
+                "samples": SPEC_SAMPLES, "seconds": dt,
+                "samples_per_s": SPEC_SAMPLES / dt, "segments": n_seg,
+                "accepted": n_acc, "emitted": n_out,
+                "acceptance": acceptance,
+                "mean_accepted_length": n_acc / n_seg,
+                "samples_per_pass": n_out / n_seg,
+                "decode_launches": ks.decode.launches, "gpu": gpu}
+            emit(rows[label])
+    finally:
+        sp.generate_speculative = real
+    return rows
+
+
+def phase_speculative_cli(c, gc_ckpt, gc_pfile, gpu):
+    """``python -m wavenet_torch.cli.generate --draft_checkpoint`` from
+    phase 5's gc checkpoints (a directory of ``ckpt-STEP``; the draft is
+    the same checkpoint): b1 x SPEC_CLI_SAMPLES, then in ``--save_every``
+    segments, equal."""
+    from wavenet_torch.kernels import sampler as ks
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_spec_cli_")
+    wavs, rows = {}, {}
+    for label, extra in (("single", []),
+                         ("save_every", ["--save_every",
+                                         str(SPEC_CLI_SAVE_EVERY)])):
+        wav = os.path.join(tmp, f"{label}.wav")
+        ks.decode.launches = 0
+        out, seconds = run_generate_cli(
+            [gc_ckpt, "--wavenet_params", gc_pfile, "--samples",
+             str(SPEC_CLI_SAMPLES), "--wav_out_path", wav, "--seed", "1",
+             "--gc_channels", str(c.gc_channels), "--gc_cardinality",
+             str(c.gc_cardinality), "--gc_id", "5", "--draft_checkpoint",
+             gc_ckpt, "--speculative_k", str(SPEC_K), "--device", "cuda"]
+            + extra)
+        check("Finished generating." in out, f"{label}: no finish line")
+        check(ks.decode.launches == 0, f"{label}: decode launched")
+        wavs[label] = read_wavs(wav, 1, SPEC_CLI_SAMPLES)
+        rows[label] = {"phase": "speculative_cli", "config": "gc",
+                       "run": label, "samples": SPEC_CLI_SAMPLES,
+                       "seconds": seconds,
+                       "samples_per_s": SPEC_CLI_SAMPLES / seconds}
+        if label == "single":
+            m = re.search(r"(\d+) segments, draft acceptance ([\d.]+)%",
+                          out)
+            check(m is not None and float(m.group(2)) == 100.0,
+                  "the CLI's identical draft was not fully accepted")
+            rows[label]["segments"] = int(m.group(1))
+        else:
+            check(out.count("partial wav updated") >= 1,
+                  "--save_every wrote no partial wav")
+    check((wavs["save_every"] == wavs["single"]).all(),
+          "--save_every segments with a draft differ from the single run")
+    for row in rows.values():
+        row.update({"save_every_equals_one_run": True, "gpu": gpu})
+        emit(row)
+    return rows
+
+
+def phase_distill(gpu):
+    """``distill.distill_draft`` at the tiny config, a few steps on the
+    card."""
+    import math
+    import torch
+    from wavenet_torch.distill import distill_draft
+    from wavenet_torch.models.config import tiny_config
+
+    c = tiny_config()
+    dc = tiny_config(dilations=(1, 2, 4, 8, 16, 32))
+    p = seeded_params(c, 3, "cuda")
+    key = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    dp, loss = distill_draft(p, c, dc, key, n_clips=DISTILL_CLIPS,
+                             clip_samples=DISTILL_CLIP_SAMPLES,
+                             steps=DISTILL_STEPS)
+    seconds = time.perf_counter() - t
+    check(math.isfinite(loss), f"distill loss {loss}")
+    check(all(v.is_cuda for v in dp.values()), "the draft is not on the card")
+    row = {"phase": "distill", "config": "tiny", "steps": DISTILL_STEPS,
+           "clips": DISTILL_CLIPS, "clip_samples": DISTILL_CLIP_SAMPLES,
+           "loss": loss, "seconds": seconds, "gpu": gpu}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3670,6 +4042,29 @@ def main() -> int:
     emit({"phase": "bench", "seconds": time.perf_counter() - t9,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 10: scoring and speculative decoding.
+    t10 = time.perf_counter()
+    phase_extend_state(cfgs["paper"], params["paper"], rng, gpu)
+    scoring = phase_scoring(cfgs, params, rng, gpu)
+    # The score CLI and --draft_checkpoint read a directory of ckpt-STEP
+    # checkpoints (the latest), as the JAX package's do: phase 5's logdir.
+    gc_logdir = os.path.dirname(os.path.normpath(gc_ckpt))
+    phase_score_cli(cfgs["gc"], gc_logdir, gc_pfile, gpu)
+    spec = phase_speculative_serving(cfgs["paper"], gpu)
+    phase_speculative_cli(cfgs["gc"], gc_logdir, gc_pfile, gpu)
+    phase_distill(gpu)
+    emit({"phase": "scoring_and_speculative",
+          "seconds": time.perf_counter() - t10,
+          "scored_audio_s_per_s": {
+              f"{name}_{key}": scoring[name][f"{key}_audio_s_per_s"]
+              for name in scoring
+              for key in ("one_shot", "streaming", "fused")},
+          "speculative_samples_per_s": {
+              k: v["samples_per_s"] for k, v in spec.items()},
+          "mean_accepted_length": {
+              k: v["mean_accepted_length"] for k, v in spec.items()},
+          "script_seconds": time.perf_counter() - t_start, "gpu": gpu})
+
     # library_ms is null: no single PyTorch call computes a decode step.
     # The cluster and tiles rows' launches are their kernel's on the serving
     # path (phase 4: the cluster kernel at b1 and b64, the tiles kernel at
@@ -3778,6 +4173,14 @@ def main() -> int:
                             "launches_wide": train_launches["wide"][kind]
                             .get(k, 0)})
             kernels.append(row)
+    # fused_stack_mma's forward on the scoring route (phase 10): the
+    # launches of each scored config's one-shot call at use_pallas_stack.
+    for row in kernels:
+        if row["name"] == "fused_stack_mma_fwd":
+            row["launches_scoring"] = {
+                name: r["stack_launches_by"].get("mma", 0)
+                for name, r in scoring.items()}
+            row["scoring_ms_paper_b1_16000"] = scoring["paper"]["fused_ms"]
     # fused_stack_mma's bf16 mode (kernel 5 at kernel_dtype bf16): phase 5's
     # gc b8 check and timing, the launches of the bf16 train CLI run, and
     # the same at wide b8 and the wide bf16 CLI run (width 64); its bound

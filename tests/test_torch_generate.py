@@ -297,8 +297,8 @@ def test_cli_flags_match_jax_cli():
 
 
 # LC runs (tests/test_torch_sampler_lc.py); LC at bf16 weights does not.
+# --draft_checkpoint runs (tests/test_torch_speculative.py).
 @pytest.mark.parametrize("flags", [
-    ["--draft_checkpoint", "d"],
     ["--lc_channels", "2", "--sampler_precision", "bfloat16"],
     ["--lc_channels", "2", "--lc_file", "f.npy", "--sampler_precision",
      "bfloat16"],

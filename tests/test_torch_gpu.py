@@ -2477,3 +2477,99 @@ def test_lc_route_and_refusals(setup):
         ks.decode(pk, c, ring, causal, x, 2, 0, 0, kernel="tiles", lc=stream)
     with pytest.raises(ValueError, match="lc"):
         ks.decode(pk, c, ring, causal, x, 2, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Scoring and speculative decoding on the card (plain PyTorch, and the
+# fused stack's forward where the scored config has use_pallas_stack)
+# ---------------------------------------------------------------------------
+
+def _to_cpu(params):
+    return {k: v.cpu() for k, v in params.items()}
+
+
+@pytest.mark.gpu
+def test_extend_state_on_card_matches_cpu(setup):
+    """``sample.extend_state`` from a prefilled state on the card against
+    the same call on the CPU, at v = 0, a partial v and k."""
+    from wavenet_torch import sample as ts
+    c, params, rng = setup
+    pc = _to_cpu(params)
+    B, k = 2, 16
+    codes = torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                        (B, c.receptive_field + k)),
+                            dtype=torch.int32)
+    gids = torch.tensor([1, 3])
+    prefix, win = codes[:, :c.receptive_field], codes[:, c.receptive_field:]
+    st_g = ts.prefill_state(params, c, prefix.cuda(),
+                            embed_gc(params, c, gids.cuda()))
+    st_c = ts.prefill_state(pc, c, prefix, embed_gc(pc, c, gids))
+    for v in (0, 7, k):
+        lg, sg = ts.extend_state(params, c, st_g, win.cuda(),
+                                 embed_gc(params, c, gids.cuda()),
+                                 valid_len=v)
+        lc_, sc = ts.extend_state(pc, c, st_c, win, embed_gc(pc, c, gids),
+                                  valid_len=v)
+        assert lg.is_cuda and sg.layer_bufs.is_cuda and sg.t == sc.t
+        np.testing.assert_allclose(lg.cpu().numpy(), lc_.numpy(), **TOL)
+        np.testing.assert_allclose(sg.layer_bufs.cpu().numpy(),
+                                   sc.layer_bufs.numpy(), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(sg.causal_buf.cpu().numpy(),
+                                   sc.causal_buf.numpy(), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["plain", "pallas_stack", "streaming"])
+def test_log_likelihood_on_card_matches_cpu(setup, route):
+    """``score.log_likelihood`` on the card (the plain forward, or the
+    fused stack's forward at ``use_pallas_stack``, which must launch) and
+    ``log_likelihood_streaming`` against the one-shot call on the CPU."""
+    from wavenet_torch import score
+    c, params, rng = setup
+    pc = _to_cpu(params)
+    B, T = 2, 3000
+    audio = torch.as_tensor(rng.uniform(-1, 1, (B, T)).astype(np.float32))
+    gids = torch.tensor([0, 2])
+    ref = score.log_likelihood(pc, c, audio, gids)
+    cg = dataclasses.replace(c, use_pallas_stack=route == "pallas_stack")
+    before = fs.forward.launches
+    if route == "streaming":
+        got = score.log_likelihood_streaming(params, cg, audio.cuda(),
+                                             gids.cuda(), chunk=512)
+    else:
+        got = score.log_likelihood(params, cg, audio.cuda(), gids.cuda())
+        np.testing.assert_allclose(got["logp_per_sample"].cpu().numpy(),
+                                   ref["logp_per_sample"].numpy(), rtol=0,
+                                   atol=1e-4)
+    assert (fs.forward.launches > before) == (route == "pallas_stack")
+    np.testing.assert_allclose(got["total_logp"].cpu().numpy(),
+                               ref["total_logp"].numpy(), rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_speculative_on_card_accepts_an_identical_draft(setup):
+    """Speculative decoding on the card with the target as its own draft:
+    every proposal accepted, no decode kernel launched, and the committed
+    state equal to the CPU's prefill of the consumed stream."""
+    from wavenet_torch import sample as ts
+    from wavenet_torch.speculative import _speculative_loop
+    c, params, rng = setup
+    seed = torch.as_tensor(rng.randint(0, c.quantization_channels,
+                                       (1, c.receptive_field)),
+                           dtype=torch.int32, device="cuda")
+    gid = torch.tensor([1], device="cuda")
+    emb = embed_gc(params, c, gid)
+    st = ts.prefill_state(params, c, seed[:, :-1], emb)
+    key = torch.Generator(device="cuda").manual_seed(5)
+    before = ks.decode.launches
+    codes, t_st, d_st, _, (n_seg, n_acc, n_out) = _speculative_loop(
+        params, c, params, c, st, st, seed[:, -1], key, 200, 8, 1.0, emb,
+        emb)
+    assert ks.decode.launches == before
+    assert n_acc == 8 * n_seg and codes.shape == (1, n_out)
+    stream = torch.cat([seed[0], codes[0]])[:t_st.t].cpu()[None]
+    pc = _to_cpu(params)
+    ref = ts.prefill_state(pc, c, stream, embed_gc(pc, c, gid.cpu()))
+    np.testing.assert_allclose(t_st.layer_bufs.cpu().numpy(),
+                               ref.layer_bufs.numpy(), rtol=0, atol=1e-4)

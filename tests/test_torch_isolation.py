@@ -54,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
               "kernels.fat", "kernels._launch", "tools",
               "tools.r2_fwd_bisect", "tools.r2_fwd_bisect2",
               "tools.r3_b1_bisect", "tools.r4_matvec_probe",
-              "tools.tiles_variants", "lc", "features", "bench"):
+              "tools.tiles_variants", "lc", "features", "bench", "score",
+              "speculative", "distill"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -208,23 +208,50 @@ def test_scalar_service_serves(tmp_path):
     np.testing.assert_array_equal(rows[0], a)
 
 
-# LC models serve (tests/test_torch_sampler_lc.py); speculative serving of
-# one stays unported, for scalar-input models too.
-@pytest.mark.parametrize("extra", [{"lc_channels": 2},
-                                   {"scalar_input": True, "lc_channels": 2}])
-def test_unported_models_raise(tmp_path, extra):
-    cfg = WaveNetConfig(**{**TINY, **extra})
-    js = tmp_path / "m.json"
-    js.write_text(json.dumps(cfg.to_json_dict()))
-    npz = tmp_path / "m.npz"
-    np.savez(str(npz), dummy=np.zeros(1, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationService(str(npz), str(js), warm_samples=0, device="cpu",
-                          draft_params_npz=str(npz))
-
-
-def test_speculative_is_not_ported(tmp_path):
-    npz, js = _write(tmp_path, WaveNetConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# A draft model: the JAX server's errors, with its exception types (LC is
+# refused before the draft is read, as there).
+@pytest.mark.parametrize("extra,exc", [
+    ({"lc_channels": 2}, ValueError),
+    ({"scalar_input": True, "lc_channels": 2}, ValueError),
+    ({"scalar_input": True, "initial_filter_width": 4}, NotImplementedError)])
+def test_draft_refusals_match_jax(tmp_path, extra, exc):
+    npz, js = _write(tmp_path, WaveNetConfig(**{**TINY, **extra}))
+    with pytest.raises(exc, match="speculative"):
         GenerationService(npz, js, warm_samples=0, device="cpu",
                           draft_params_npz=npz)
+
+
+def test_speculative_service(tmp_path):
+    """A draft npz (draft == target) turns /generate into speculative
+    decoding: well-formed wav and codes, deterministic per seed;
+    /generate_batch refuses a draft model."""
+    npz, js = _write(tmp_path, WaveNetConfig(**TINY))
+    svc = GenerationService(npz, js, warm_samples=8, device="cpu",
+                            draft_params_npz=npz, speculative_k=3)
+    assert svc.sampler_name == "speculative (k=3)"
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            assert json.loads(r.read())["sampler"] == "speculative (k=3)"
+        status, ctype, body = _post(url + "/generate",
+                                    {"samples": 20, "seed": 4})
+        assert status == 200 and ctype == "audio/wav"
+        assert len(body) == 44 + 2 * 20
+        s1, _, b1 = _post(url + "/generate",
+                          {"samples": 24, "seed": 4, "format": "codes"})
+        s2, _, b2 = _post(url + "/generate",
+                          {"samples": 24, "seed": 4, "format": "codes"})
+        assert s1 == s2 == 200
+        codes = json.loads(b1)["codes"]
+        assert codes == json.loads(b2)["codes"] and len(codes) == 24
+        assert all(0 <= c < 32 for c in codes)
+        status, _, body = _post(url + "/generate_batch",
+                                {"samples": 16, "batch": 2})
+        assert status == 400
+        assert "speculative" in json.loads(body)["error"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()

@@ -32,6 +32,14 @@ card the LC modes of ``sampler_cluster`` and ``sampler_decode`` decode it.
 ``--save_every`` slices it). LC at ``--sampler_precision bfloat16`` is not
 ported yet and raises (``kernels.sampler.check_lc_mode``).
 
+Speculative decoding, as the JAX CLI: ``--draft_checkpoint D`` (the
+draft's ``ckpt-STEP/`` directory, its config from
+``--draft_wavenet_params``, default ``--wavenet_params``) runs
+``speculative.generate_speculative`` with ``--speculative_k`` proposals a
+segment, batches as independent lanes, and prints the draft's acceptance.
+With ``--save_every`` it generates in resumable segments at batch 1 from
+one generator, so the segments equal one run. It takes no LC stream.
+
 Flags whose path is not ported yet raise NotImplementedError naming the
 ROADMAP.md queue that owns them. ``--compilation_cache`` is accepted and
 has no effect: PyTorch compiles nothing ahead of a call.
@@ -82,9 +90,17 @@ def get_arguments(argv=None):
                         help="auto/pallas: prefill + a decode kernel; "
                              "scan: the scan sampler.")
     parser.add_argument("--draft_checkpoint", type=str, default=None,
-                        help="Speculative decoding (not ported yet).")
-    parser.add_argument("--draft_wavenet_params", type=str, default=None)
-    parser.add_argument("--speculative_k", type=int, default=8)
+                        help="Checkpoint dir of a draft model: speculative "
+                             "decoding (the draft proposes "
+                             "--speculative_k samples, the target verifies "
+                             "them in one parallel pass; the output is "
+                             "distributed as the target's). Mu-law models "
+                             "only; batches run as independent streams.")
+    parser.add_argument("--draft_wavenet_params", type=str, default=None,
+                        help="Model params JSON for --draft_checkpoint "
+                             "(defaults to --wavenet_params).")
+    parser.add_argument("--speculative_k", type=int, default=8,
+                        help="Draft proposals per verify pass.")
     parser.add_argument("--wav_seed", type=str, default=None)
     parser.add_argument("--batch_size", type=int, default=1,
                         help="Generate this many waveforms at once "
@@ -117,10 +133,6 @@ def check_ported(args) -> None:
     from wavenet_torch.kernels.sampler import check_lc_mode
     from wavenet_torch.sampler_select import PRECISIONS
 
-    if args.draft_checkpoint is not None:
-        raise NotImplementedError(
-            "--draft_checkpoint: speculative decoding is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
     if args.lc_channels is not None:
         check_lc_mode(PRECISIONS[args.sampler_precision])
 
@@ -141,6 +153,11 @@ def create_seed(filename, sample_rate, quantization_channels, window_size,
 
 def main(argv=None):
     args = get_arguments(argv)
+    if (args.draft_checkpoint and args.save_every
+            and args.batch_size != 1):
+        raise ValueError("--save_every with --draft_checkpoint runs at "
+                         "batch size 1 (acceptance makes emitted counts "
+                         "ragged across lanes)")
     check_ported(args)
 
     import torch
@@ -163,11 +180,14 @@ def main(argv=None):
                          "(training derived it from the data; generation "
                          "requires the flag, like the reference).")
 
-    if args.lc_channels is not None and (args.lc_file is None
-                                         or args.lc_hop is None):
-        raise ValueError("--lc_channels needs --lc_file and --lc_hop "
-                         "(per-timestep conditioning for the generated "
-                         "audio).")
+    if args.lc_channels is not None:
+        if args.lc_file is None or args.lc_hop is None:
+            raise ValueError("--lc_channels needs --lc_file and --lc_hop "
+                             "(per-timestep conditioning for the generated "
+                             "audio).")
+        if args.draft_checkpoint:
+            raise ValueError("--draft_checkpoint (speculative decoding) "
+                             "does not support local conditioning yet.")
 
     config = WaveNetConfig.from_json(
         wavenet_params, gc_channels=args.gc_channels,
@@ -217,7 +237,10 @@ def main(argv=None):
             args.batch_size, 1, 1)
 
     seed = args.seed if args.seed is not None else 0
-    if args.fast_generation and args.save_every:
+    if args.draft_checkpoint:
+        codes = _generate_speculative(params, config, args, seed, gc_ids,
+                                      seed_codes, wavenet_params, device)
+    elif args.fast_generation and args.save_every:
         codes = _generate_fast_chunked(params, config, args, seed, gc_ids,
                                        seed_codes, wavenet_params, lc)
     elif args.fast_generation:
@@ -253,6 +276,63 @@ def main(argv=None):
                 print(f"Updated wav file at {path}")
     print("Finished generating.")
     return 0
+
+
+def _load_draft(args, device):
+    from wavenet_torch.models.config import WaveNetConfig
+    from wavenet_torch.train_lib import restore_params_only
+
+    with open(args.draft_wavenet_params or args.wavenet_params) as f:
+        draft_json = json.load(f)
+    draft_config = WaveNetConfig.from_json(
+        draft_json, gc_channels=args.gc_channels,
+        gc_cardinality=args.gc_cardinality)
+    draft_params = restore_params_only(args.draft_checkpoint, device=device)
+    if draft_params is None:
+        raise FileNotFoundError(
+            f"No draft checkpoint in {args.draft_checkpoint}")
+    print(f"Restoring draft model from {args.draft_checkpoint}")
+    return draft_params, draft_config
+
+
+def _generate_speculative(params, config, args, seed, gc_ids, seed_codes,
+                          wavenet_params, device):
+    """Speculative decoding: the draft proposes, the target verifies
+    (``speculative.py``); the codes are distributed as the target's. With
+    --save_every, resumable segments from one generator, rewriting the
+    partial wav after each."""
+    import torch
+
+    from wavenet_torch.speculative import generate_speculative
+
+    draft_params, draft_config = _load_draft(args, device)
+    key = torch.Generator(device=device).manual_seed(seed)
+    common = dict(k=args.speculative_k, temperature=args.temperature,
+                  gc_ids=gc_ids, draft_gc_ids=gc_ids)
+    if not args.save_every:
+        codes, (n_seg, n_acc, n_out) = generate_speculative(
+            params, config, draft_params, draft_config, args.samples, key,
+            seed_codes=seed_codes, batch_size=args.batch_size,
+            return_stats=True, **common)
+        rate = n_acc / max(1, n_seg * args.speculative_k)
+        print(f"Speculative decode: {n_seg} segments, draft acceptance "
+              f"{100 * rate:.1f}%, "
+              f"{n_out / max(1, n_seg):.2f} samples/pass.")
+        return codes.cpu().numpy()
+
+    carry, chunks, done = None, [], 0
+    while done < args.samples:
+        part, carry = generate_speculative(
+            params, config, draft_params, draft_config, args.save_every, key,
+            seed_codes=seed_codes if carry is None else None, carry=carry,
+            return_carry=True, **common)
+        chunks.append(part.cpu().numpy())
+        done += part.shape[1]
+        if args.wav_out_path:
+            _write_partial([np.concatenate(chunks, axis=1)[:, :args.samples]],
+                            config, args, wavenet_params,
+                            min(done, args.samples))
+    return np.concatenate(chunks, axis=1)[:, :args.samples]
 
 
 def _generate_fast(params, config, args, seed, gc_ids, seed_codes,

@@ -19,9 +19,13 @@ package, the sampler computes in float32 whatever the config's
 ``compute_dtype`` (``float32_config``). Local conditioning follows the
 JAX package's conventions: ``lc_t`` [B, C_lc] conditions the sample a step
 predicts, ``generate`` refines the raw streams once and holds ``lc[:, 0]``
-backward over the priming region unless ``lc_prime`` is given. The
-speculative decoding helpers (``extend_state``) and ``generate_sharded``
-are queued in ROADMAP.md.
+backward over the priming region unless ``lc_prime`` is given.
+
+``extend_state`` advances a state by a window of known inputs in one
+parallel pass (the verifier of ``speculative.py`` and the streaming
+scorer of ``score.py``). Unlike ``sampler_step`` it leaves the state it is
+given as it is: the committed ring is a new tensor. ``generate_sharded``
+is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -81,11 +85,15 @@ def float32_config(config: WaveNetConfig) -> WaveNetConfig:
 def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
                  x: torch.Tensor,
                  gc_embedding: Optional[torch.Tensor] = None,
-                 lc_t: Optional[torch.Tensor] = None):
+                 lc_t: Optional[torch.Tensor] = None,
+                 collect_layer_inputs: bool = False):
     """One incremental network evaluation: ``x`` [B, C_in] (one-hot, or
     the amplitude [B, 1] in scalar mode) -> (new_state, logits [B, Q]).
     ``lc_t`` [B, C_lc] conditions the sample this step predicts. The
-    state's ring is updated in place."""
+    state's ring is updated in place. With ``collect_layer_inputs`` a
+    third result is each layer's input (the residual stream), stacked
+    [L, B, R]: speculative decoding commits the draft's state from them
+    without a second stack pass."""
     c = config
     _check_config(c)
     window = torch.cat([state.causal_buf, x[:, None, :].to(torch.float32)],
@@ -93,7 +101,10 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
     current = torch.einsum("bkc,kcr->br", window, params["causal_filter"])
     bufs = state.layer_bufs
     skip_sum = None
+    layer_inputs = []
     for i, dilation in enumerate(c.dilations):
+        if collect_layer_inputs:
+            layer_inputs.append(current)
         pos = state.t % dilation
         past = bufs[i, pos].clone()
         # Enqueue the layer's input where it was read: it is dequeued
@@ -128,7 +139,10 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
     h = h @ params["postprocess2"]
     if c.use_biases:
         h = h + params["postprocess2_bias"]
-    return SamplerState(state.t + 1, window[:, 1:], bufs), h
+    new_state = SamplerState(state.t + 1, window[:, 1:], bufs)
+    if collect_layer_inputs:
+        return new_state, h, torch.stack(layer_inputs)
+    return new_state, h
 
 
 def _featurize(code_or_amp: torch.Tensor,
@@ -221,6 +235,134 @@ def prefill_state(params: Params, config: WaveNetConfig,
         feats = _featurize(waveform[:, max(0, T - n_tail):], c)
         feats = F.pad(feats, (0, 0, n_tail - feats.shape[1], 0))
     return SamplerState(T, feats, layer_bufs)
+
+
+def extend_state(params: Params, config: WaveNetConfig,
+                 state: SamplerState, codes: torch.Tensor,
+                 gc_embedding: Optional[torch.Tensor] = None,
+                 valid_len: Optional[int] = None,
+                 lc: Optional[torch.Tensor] = None):
+    """Advance the state by up to k teacher-forced steps in one parallel
+    pass: (logits [B, k, Q], new_state).
+
+    ``codes`` [B, k] (int codes, or amplitudes in scalar mode) are
+    consumed at positions t .. t+k-1; ``logits[:, j]`` predicts position
+    t+j+1, as k calls of ``sampler_step`` would, but each layer's left
+    context comes from the ring, so the k positions go through the stack
+    together. ``lc`` [B, k, C_lc]: column j conditions the prediction at
+    window position j.
+
+    ``valid_len`` (an int, 0 <= v <= k, default k) commits the state as if
+    only the first v inputs had been consumed; logits are returned for
+    all k positions. Every ring row is written with the value it holds
+    after v steps, gathered from [old ring | window], the causal register
+    is the input window's slice at v, and t advances by v. The state
+    passed in is left as it is.
+    """
+    with torch.no_grad():
+        logits, parts = _extend_forward(params, config, state, codes,
+                                        gc_embedding, lc)
+        v = codes.shape[1] if valid_len is None else int(valid_len)
+        return logits, _extend_commit(config, state, parts, v)
+
+
+def _ordered_ring(layer_bufs: torch.Tensor, l: int, d: int,
+                  t: int) -> torch.Tensor:
+    """Layer l's ring rows in time order: out[i] = x_l(t - d + i), [d, B, R]
+    (a copy)."""
+    idx = torch.remainder(
+        torch.arange(d, device=layer_bufs.device) + t, d)
+    return layer_bufs[l, :d].index_select(0, idx)
+
+
+def _extend_forward(params: Params, config: WaveNetConfig,
+                    state: SamplerState, codes: torch.Tensor,
+                    gc_embedding: Optional[torch.Tensor],
+                    lc: Optional[torch.Tensor] = None):
+    """Stack pass of ``extend_state``: (logits [B, k, Q], parts). Reads
+    the state and writes nothing.
+
+    ``parts`` = (the input features [causal register | window] [B,
+    kw-1+k, C_in], each layer's [old ring | window inputs] [B, d_l+k, R]):
+    all that ``_extend_commit`` needs to write the state for any valid
+    length without another stack pass (speculative decoding chooses the
+    length from these logits). Products in float32, as the JAX package's
+    at ``Precision.HIGHEST``.
+    """
+    c = config
+    if c.filter_width != 2:
+        raise NotImplementedError(
+            "extend_state requires filter_width=2 (the restriction of "
+            "every incremental path: the dilated taps are past|current)")
+    B, k = codes.shape
+    L, D, S = c.num_layers, c.dilation_channels, c.skip_channels
+    kw = _input_kernel_width(c)
+    x = _featurize(codes, c)                                 # [B, k, C_in]
+    full_in = torch.cat([state.causal_buf, x], dim=1)
+    # full_in column j holds the features of position t - (kw-1) + j.
+    w = params["causal_filter"]                              # [kw, C_in, R]
+    cur = full_in[:, 0:k] @ w[0]
+    for tap in range(1, kw):
+        cur = cur + full_in[:, tap:tap + k] @ w[tap]         # [B, k, R]
+
+    gate_outs, arrs = [], []
+    for l, d in enumerate(c.dilations):
+        ordered = _ordered_ring(state.layer_bufs, l, d, state.t)
+        # arr column i holds x_l at time t - d + i (ring, then window).
+        arr = torch.cat([ordered.transpose(0, 1), cur], dim=1)
+        arrs.append(arr)
+        past = arr[:, :k]                          # times t-d .. t-d+k-1
+        w_f, w_g = params["filter"][l], params["gate"][l]    # [2, R, D]
+        conv_f = past @ w_f[0] + cur @ w_f[1]
+        conv_g = past @ w_g[0] + cur @ w_g[1]
+        if gc_embedding is not None:
+            conv_f = conv_f + (gc_embedding @ params["gc_filter"][l])[:, None]
+            conv_g = conv_g + (gc_embedding @ params["gc_gate"][l])[:, None]
+        if lc is not None:
+            conv_f = conv_f + lc @ params["lc_filter"][l]
+            conv_g = conv_g + lc @ params["lc_gate"][l]
+        if c.use_biases:
+            conv_f = conv_f + params["filter_bias"][l]
+            conv_g = conv_g + params["gate_bias"][l]
+        out = torch.tanh(conv_f) * torch.sigmoid(conv_g)
+        gate_outs.append(out)
+        transformed = out @ params["dense"][l]
+        if c.use_biases:
+            transformed = transformed + params["dense_bias"][l]
+        cur = cur + transformed
+
+    h = torch.cat(gate_outs, dim=-1) @ params["skip"].reshape(L * D, S)
+    if c.use_biases:
+        h = h + params["skip_bias"].sum(dim=0)
+    h = torch.relu(h) @ params["postprocess1"]
+    if c.use_biases:
+        h = h + params["postprocess1_bias"]
+    h = torch.relu(h) @ params["postprocess2"]
+    if c.use_biases:
+        h = h + params["postprocess2_bias"]
+    return h.to(torch.float32), (full_in, arrs)
+
+
+def _extend_commit(config: WaveNetConfig, state: SamplerState, parts,
+                   v: int) -> SamplerState:
+    """The state after consuming the first ``v`` inputs of the window that
+    ``parts`` holds, in a new ring (``state`` is not written)."""
+    c = config
+    full_in, arrs = parts
+    kw = _input_kernel_width(c)
+    t, v = state.t, int(v)
+    # After v steps the register holds positions t+v-(kw-1) .. t+v-1 =
+    # full_in columns v .. v+kw-2.
+    new_causal = full_in[:, v:v + kw - 1]
+    new_bufs = state.layer_bufs.clone()
+    for l, d in enumerate(c.dilations):
+        # Row r holds x_l(tau_r), tau_r = the latest time < t+v congruent
+        # to r mod d: arr column v + ((r - t - v) mod d). Rows whose time
+        # predates the window take their old value from arr's ring part.
+        r_ids = torch.arange(d, device=full_in.device)
+        cols = v + torch.remainder(r_ids - t - v, d)
+        new_bufs[l, :d] = arrs[l].index_select(1, cols).transpose(0, 1)
+    return SamplerState(t + v, new_causal, new_bufs)
 
 
 def sample_gumbel(key: torch.Generator, shape) -> torch.Tensor:

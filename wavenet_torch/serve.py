@@ -5,7 +5,8 @@ requests with the device serialized behind a lock.
 
     python -m wavenet_torch.serve --params_npz params.npz \
         --wavenet_params wavenet_params.json [--port 8765] \
-        [--gc_channels 32 --gc_cardinality 109]
+        [--gc_channels 32 --gc_cardinality 109] \
+        [--draft_params_npz draft.npz --speculative_k 8]
 
 Weights are an npz of the flat parameter dict (``wavenet_torch.params``;
 the JAX package's params saved with ``np.savez`` load unchanged).
@@ -28,8 +29,17 @@ Local conditioning (a params file with ``lc_channels``): ``lc`` is a
 sample rate first (``wavenet_torch.lc.upsample_lc``); without it they must
 already be at sample rate. The stream is cropped or edge-extended to the
 request, then to its bucket, and decoded by the LC modes of
-``sampler_cluster`` and ``sampler_decode``. Speculative decoding is not
-ported yet (ROADMAP.md) and raises NotImplementedError at start-up.
+``sampler_cluster`` and ``sampler_decode``.
+
+Speculative decoding (``--draft_params_npz``, an npz of the draft's
+weights, with ``--draft_wavenet_params`` for its config, default the
+target's, and ``--speculative_k``): every /generate runs
+``speculative.generate_speculative`` (the draft proposes k codes a
+segment, the target verifies them in one window pass; the codes are
+distributed as the target's), in plain PyTorch and with no decode kernel,
+as the JAX server runs it. An LC model with a draft raises ValueError at
+start-up, a scalar-input one NotImplementedError, and /generate_batch
+with a draft is a 400, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -57,7 +67,9 @@ class GenerationService:
                  gc_channels: Optional[int] = None,
                  gc_cardinality: Optional[int] = None,
                  warm_samples: int = 256, max_batch: int = 1024,
-                 draft_params_npz: Optional[str] = None, device=None):
+                 draft_params_npz: Optional[str] = None, device=None,
+                 draft_wavenet_params: Optional[str] = None,
+                 speculative_k: int = 8):
         from wavenet_torch import resolve_device
         from wavenet_torch.models.config import WaveNetConfig
         from wavenet_torch.params import load_npz
@@ -69,15 +81,31 @@ class GenerationService:
         self.sample_rate = raw["sample_rate"]
         self.config = WaveNetConfig.from_json(
             raw, gc_channels=gc_channels, gc_cardinality=gc_cardinality)
-        if draft_params_npz:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue "
-                "1, item 8)")
         self.params = load_npz(params_npz, self.device)
         self.max_batch = max_batch
         self.sampler_name = sampler_name(self.device,
                                          lc=self.config.lc_enabled)
         self._lock = threading.Lock()
+        # Optional speculative decoding: a draft turns every /generate
+        # into draft-propose / target-verify (``speculative.py``).
+        self.draft_params = None
+        self.draft_config = None
+        self.speculative_k = speculative_k
+        if draft_params_npz:
+            from wavenet_torch.speculative import check_models
+            if self.config.lc_enabled:
+                raise ValueError(
+                    "speculative serving does not support lc-trained "
+                    "models (speculative.py carries no feature stream); "
+                    "serve without --draft_params_npz")
+            with open(draft_wavenet_params or wavenet_params) as f:
+                draw = json.load(f)
+            self.draft_config = WaveNetConfig.from_json(
+                draw, gc_channels=gc_channels,
+                gc_cardinality=gc_cardinality)
+            check_models(self.config, self.draft_config)
+            self.draft_params = load_npz(draft_params_npz, self.device)
+            self.sampler_name = f"speculative (k={speculative_k})"
         if warm_samples:
             # An LC model warms on a zero stream.
             warm_lc = (np.zeros((warm_samples, self.config.lc_channels),
@@ -104,11 +132,31 @@ class GenerationService:
         if not temperature > 0:
             raise ValueError(f"temperature must be > 0, got {temperature}")
         n_bucket = self.bucket_samples(n_samples)
+        if self.draft_params is not None:
+            return self._decode_speculative(n_samples, n_bucket, gc_ids,
+                                            temperature, seed)
         with self._lock:
             codes = generate_cuda(
                 self.params, self.config, n_bucket, seed=seed,
                 batch_size=batch, gc_ids=gc_ids, temperature=temperature,
                 prefill=True, lc=lc)
+            codes = codes[:, :n_samples].cpu().numpy()
+        return mu_law_decode_np(codes, self.config.quantization_channels)
+
+    def _decode_speculative(self, n_samples: int, n_bucket: int, gc_ids,
+                            temperature, seed) -> np.ndarray:
+        from wavenet_torch.audio import mu_law_decode_np
+        from wavenet_torch.speculative import generate_speculative
+
+        key = torch.Generator(device=self.device).manual_seed(int(seed))
+        if gc_ids is not None:
+            gc_ids = gc_ids.to(self.device)
+        with self._lock:
+            codes = generate_speculative(
+                self.params, self.config, self.draft_params,
+                self.draft_config, n_bucket, key, k=self.speculative_k,
+                temperature=temperature, gc_ids=gc_ids,
+                draft_gc_ids=gc_ids)
             codes = codes[:, :n_samples].cpu().numpy()
         return mu_law_decode_np(codes, self.config.quantization_channels)
 
@@ -146,7 +194,10 @@ class GenerationService:
         launch. ``batch`` or ``len(gc_ids)`` sets B; one ``seed`` covers
         the launch and rows draw independent Philox streams. Local
         conditioning is a single-stream feature, refused here as in the
-        JAX server."""
+        JAX server, and so is a draft model."""
+        if self.draft_params is not None:
+            raise ValueError("speculative serving does not support "
+                             "batched generation")
         if self.config.lc_enabled:
             raise ValueError("/generate_batch takes no local conditioning; "
                              "send LC requests to /generate")
@@ -307,14 +358,26 @@ def main(argv=None):
     ap.add_argument("--max_batch", type=int, default=1024,
                     help="Largest /generate_batch batch accepted "
                          "(requests past it get a 400).")
+    ap.add_argument("--draft_params_npz", default=None,
+                    help="npz of a draft model's weights: serve with "
+                         "speculative decoding (target-exact "
+                         "distribution).")
+    ap.add_argument("--draft_wavenet_params", default=None,
+                    help="Model params JSON of the draft (defaults to "
+                         "--wavenet_params).")
+    ap.add_argument("--speculative_k", type=int, default=8,
+                    help="Draft proposals per verify pass.")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch decode)")
     args = ap.parse_args(argv)
 
     print("Loading + warming model...")
-    service = GenerationService(args.params_npz, args.wavenet_params,
-                                args.gc_channels, args.gc_cardinality,
-                                max_batch=args.max_batch, device=args.device)
+    service = GenerationService(
+        args.params_npz, args.wavenet_params, args.gc_channels,
+        args.gc_cardinality, max_batch=args.max_batch, device=args.device,
+        draft_params_npz=args.draft_params_npz,
+        draft_wavenet_params=args.draft_wavenet_params,
+        speculative_k=args.speculative_k)
     server = ThreadingHTTPServer((args.host, args.port),
                                  make_handler(service))
     print(f"Serving on http://{args.host}:{args.port} "
