@@ -6,8 +6,9 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the ``sampler_decode``, ``sampler_cluster`` (float32, bf16 and
-   local-conditioning modes, three libraries), ``sampler_tiles`` (float32
+   the ``sampler_decode``, ``sampler_cluster`` (float32, bf16,
+   local-conditioning and bf16 local-conditioning modes, four libraries),
+   ``sampler_tiles`` (float32
    and bf16 modes, two libraries), ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
@@ -148,6 +149,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    -m wavenet_torch.cli.generate --lc_channels 80 --lc_file ... --lc_hop
    200`` at b1 x 16,000, b64 x 4,000 (``--save_every`` equal to the single
    run) and b256 x 2,000 (``sampler_decode``'s LC mode).
+6d. Local conditioning at bf16 weights (the LC row of TPU kernels 1 and 2
+   at ``weight_dtype=bfloat16``), at 6c's config and weights: the bf16 LC
+   modes of ``sampler_cluster`` (paper-LC b1, b64 and the top of the
+   cluster plan's range) and ``sampler_decode`` (b256, b512), pinned, from
+   an LC prefill, teacher-forced over 32 steps on a uniform(-1, 1) stream
+   in one launch (same-seed repeats bitwise, counted under
+   ``cluster_bf16_lc`` / ``decode_bf16_lc``) and one step a launch from the
+   kernel's own state (bitwise the one launch), each step held against
+   bf16 ``decode_reference(lc=)`` with 6b's limits (``kernels.bf16_hold``);
+   step times in turns with the float32 LC mode and the bf16 mode without
+   LC of the same kernel, the plain version's and the bound at 2-byte
+   weights; then the main path, its launches counted from 0: ``python -m
+   wavenet_torch.cli.generate --lc_channels 80 --lc_file ... --lc_hop 200
+   --sampler_precision bfloat16`` at b1 x 16,000, b64 x 4,000
+   (``--save_every`` equal to the single run) and b256 x 2,000.
 7. The retired training stacks (TPU kernels 6-8), at the paper and gc
    configs' full width, b8 x (receptive field + 16,000): the
    ``fused_stack_carry`` kernel behind generations v1 and v2 (a wavefront
@@ -265,7 +281,8 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 120): 1024, ("gc", 128): 1024, ("gc", 256): 512,
                ("gc", 512): 512}
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
-           "sampler_cluster_lc", "sampler_tiles", "sampler_tiles_bf16",
+           "sampler_cluster_lc", "sampler_cluster_lc_bf16", "sampler_tiles",
+           "sampler_tiles_bf16",
            "fused_stack", "fused_stack_mma", "fused_stack_carry",
            "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
@@ -368,6 +385,19 @@ LC_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_lc", 1),
                 "cluster_lc", 4),
                ("b256", 256, 2000, [], "decode_lc", 1))
 LC_SOURCES = {"cluster": "sampler_cluster_lc", "decode": "sampler_decode_lc"}
+# Phase 6d: local conditioning at bf16 weights, at phase 6c's config. The
+# pinned cases (kernel, batch; "top" as in LC_CASES), teacher-forced over
+# LC_TEACHER_STEPS and timed at LC_TIMED_STEPS; the bf16 CLI's runs (as
+# LC_CLI_RUNS).
+LC_BF16_CASES = (("cluster", 1), ("cluster", 64), ("cluster", "top"),
+                 ("decode", 256), ("decode", 512))
+LC_BF16_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_bf16_lc", 1),
+                    ("b64", 64, 4000, [], "cluster_bf16_lc", 1),
+                    ("b64_save_every", 64, 4000, ["--save_every", "1000"],
+                     "cluster_bf16_lc", 4),
+                    ("b256", 256, 2000, [], "decode_bf16_lc", 1))
+LC_BF16_SOURCES = {"cluster": "sampler_cluster_lc_bf16",
+                   "decode": "sampler_decode_lc_bf16"}
 # Phase 5's LC training check: the train CLI's steps a run, and the
 # speakers of its corpus (two 2-second utterances each, log-mel sidecars).
 LC_TRAIN_STEPS, LC_TRAIN_SPEAKERS = 4, 4
@@ -485,14 +515,14 @@ def ops_seconds_per_row_step(c, wbytes: int = 4,
 
 
 def weight_bytes(c, wbytes: int = 4) -> int:
-    """Bytes of the decode's weights: the six matmul weights at ``wbytes``
-    each (4, or 2 in the bf16 mode), an LC config's ``lc_w`` at 4 (float32
-    only), the biases at 4."""
+    """Bytes of the decode's weights: the matmul weights (an LC config's
+    ``lc_w`` among them) at ``wbytes`` each (4, or 2 in the bf16 mode), the
+    biases at 4."""
     L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
                      c.skip_channels, c.quantization_channels)
     return (wbytes * (causal_rows(c) * R + L * (4 * R * D + D * R + D * S)
-                      + S * S + S * Q)
-            + 4 * (L * R + 2 * S + Q + lc_macs_per_row_step(c)))
+                      + S * S + S * Q + lc_macs_per_row_step(c))
+            + 4 * (L * R + 2 * S + Q))
 
 
 def bound_per_step(c, B: int, steps: int, wbytes: int = 4,
@@ -2698,6 +2728,191 @@ def phase_lc_main_path(c, p, gpu):
     return launches
 
 
+def phase_lc_bf16_decode(c, p, rng, gpu):
+    """The bf16 LC modes of ``sampler_cluster`` and ``sampler_decode``
+    (TPU kernels 1 and 2 with has_lc at weight_dtype=bfloat16), pinned
+    (LC_BF16_CASES): an LC prefill, then a teacher-forced window in one
+    launch (same-seed repeats bitwise; counted under
+    ``<kernel>_bf16_lc``) and one step a launch from the kernel's own state
+    (bitwise the one launch), each step held against bf16
+    ``decode_reference(lc=)`` from that state on the scale of bf16's gap
+    from float32 (``kernels.bf16_hold``); then step times in turns with
+    the float32 LC mode and the bf16 mode without LC of the same kernel,
+    the plain version's step and the bound at 2-byte weights. Results by
+    (kernel, batch)."""
+    import dataclasses
+    import torch
+    from wavenet_torch.kernels import bf16_hold
+    from wavenet_torch.kernels import sampler as ks
+
+    c0 = dataclasses.replace(c, lc_channels=None)
+    top = max(B for B in range(1, 257) if ks.device_plan(c, B) is not None)
+    results = {}
+    n = LC_TEACHER_STEPS
+    for kernel, B in LC_BF16_CASES:
+        B = top if B == "top" else B
+        where = f"{LC_BF16_SOURCES[kernel]} paper-LC B={B}"
+        key = f"{kernel}_bf16_lc"
+        codes, _ = setup(c, B, rng, PREFILL, n)
+        stream = torch.as_tensor(
+            rng.uniform(-1, 1, (B, PREFILL - 1 + n, LC_CHANNELS)),
+            dtype=torch.float32, device="cuda")
+        carry = ks.prefill_carry(p, c, codes[:, :PREFILL],
+                                 lc=stream[:, :PREFILL - 1])
+        pk32 = ks.pack_sampler_weights(p, c, B)
+        pk16 = ks.pack_sampler_weights(p, c, B, weight_dtype=torch.bfloat16)
+        forced = codes[:, PREFILL - 1:PREFILL - 1 + n].contiguous()
+        lc = stream[:, PREFILL - 1:].transpose(0, 1).contiguous()
+        runs = []
+        for _ in range(2):
+            ring, causal = carry.ring.clone(), carry.causal.clone()
+            before = dict(ks.decode.launches_by)
+            out = ks.decode(pk16, c, ring, causal, forced, n, carry.t_abs,
+                            11, collect_logits=True, kernel=kernel, lc=lc)
+            torch.cuda.synchronize()
+            ran = {k: v - before.get(k, 0)
+                   for k, v in ks.decode.launches_by.items()
+                   if v != before.get(k, 0)}
+            check(ran == {key: 1}, f"{where}: launches counted as {ran}")
+            runs.append(out + (ring, causal))
+        (codes_k, lg_k, ring_k, causal_k), again = runs
+        check(all(torch.equal(a, b) for a, b in zip(runs[0], again)),
+              f"{where}: same-seed runs differ")
+        check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
+              f"{where}: forced codes not emitted")
+
+        def step(ring, causal, x, t):
+            i = t - carry.t_abs
+            return ks.decode(pk16, c, ring, causal, x, 1, t, 11,
+                             collect_logits=True, kernel=kernel,
+                             lc=lc[i:i + 1])[1]
+
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        rule = ks.chain_rounded("decode", B, lc=True)
+        lg_s, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+            c, pk16, pk32, ring, causal, forced, carry.t_abs, 11, rule, step,
+            lc=lc)
+        check(torch.equal(lg_s, lg_k) and torch.equal(ring, ring_k)
+              and torch.equal(causal, causal_k),
+              f"{where}: one step a launch differs from one launch")
+        held = bf16_hold.hold(where, lg_s, lg16, lg32)
+        held_ring = bf16_hold.hold(f"{where} ring", rk, r16, r32)
+        # The whole window against the plain version run on its own:
+        # reported, since a rounding flip carries on through the ring.
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        _, lg_w = ks.decode_reference(pk16, c, ring, causal, forced, n,
+                                      carry.t_abs, 11, collect_logits=True,
+                                      lc=lc)
+        window_err = (lg_k - lg_w).abs()
+        # Step times in turns: the float32 LC mode, the bf16 LC mode and
+        # the bf16 mode without LC of the same kernel, each twice.
+        steps = LC_TIMED_STEPS.get(B, 1024)
+        fk = forced[:, :1].contiguous()
+        lc_t = torch.as_tensor(rng.uniform(-1, 1, (steps, B, LC_CHANNELS)),
+                               dtype=torch.float32, device="cuda")
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        modes = {"f32_lc": (pk32, c, lc_t), "bf16_lc": (pk16, c, lc_t),
+                 "bf16": (pk16, c0, None)}
+        timed = {m: [] for m in modes}
+        for mode in ("f32_lc", "bf16_lc", "bf16", "bf16", "bf16_lc",
+                     "f32_lc"):
+            pk, cfg, stream_t = modes[mode]
+            timed[mode].append(cuda_ms(lambda: ks.decode(
+                pk, cfg, ring, causal, fk, steps, 0, 5, kernel=kernel,
+                lc=stream_t)) / steps)
+        rp, cp = carry.ring.clone(), carry.causal.clone()
+        n_plain = 8
+        plain_ms = cuda_ms(lambda: ks.decode_reference(
+            pk16, c, rp, cp, fk, n_plain, 0, 5,
+            lc=lc_t[:n_plain])) / n_plain
+        bound, by = bound_per_step(c, B, steps, wbytes=2, round_chain=rule)
+        ms = float(min(timed["bf16_lc"]))
+        res = results[(kernel, B)] = dict(
+            max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by,
+            f32_lc_ms=float(min(timed["f32_lc"])),
+            bf16_ms=float(min(timed["bf16"])))
+        emit({"phase": "lc_bf16_decode", "kernel": LC_BF16_SOURCES[kernel],
+              "mode": "bf16_lc", "config": "paper_lc", "batch": B,
+              "steps": n, "round_chain": rule,
+              "max_abs_err_vs_plain": held["max_abs_err"],
+              "err_over_bf16_gap": {k: v for k, v in held.items()
+                                    if k != "max_abs_err"},
+              "ring_err_over_bf16_gap": {k: v for k, v in held_ring.items()
+                                         if k != "max_abs_err"},
+              "window_max_abs_err": window_err.max().item(),
+              "window_median_err": window_err.median().item(),
+              "bf16_gap_mean": (lg16 - lg32).abs().mean().item(),
+              "stepwise_equals_one_launch": True, "bitwise_repeat": True,
+              "launches_by": key, "ms_per_step": ms,
+              "ms_per_step_runs": timed["bf16_lc"],
+              "f32_lc_ms_per_step_runs": timed["f32_lc"],
+              "bf16_no_lc_ms_per_step_runs": timed["bf16"],
+              "over_f32_lc": ms / res["f32_lc_ms"],
+              "over_bf16_no_lc": ms / res["bf16_ms"],
+              "plain_ms_per_step": plain_ms, "bound_ms_per_step": bound,
+              "bound_by": by, "timed_steps": steps, "gpu": gpu})
+        del runs, lg_k, lg_s, lg16, lg32, lg_w, rk, r16, r32, stream, lc
+        del lc_t
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_lc_bf16_main_path(c, p, gpu):
+    """The main path of LC generation at bf16 weights, its launches
+    counted from 0: ``python -m wavenet_torch.cli.generate --lc_channels 80
+    --lc_file ... --lc_hop 200 --sampler_precision bfloat16``
+    (LC_BF16_CLI_RUNS: the cluster kernel's bf16 LC mode at b1 x 16,000
+    and b64, a ``--save_every`` run equal to the single run, and
+    ``sampler_decode``'s at b256)."""
+    import numpy as np
+    from wavenet_torch.kernels import sampler as ks
+
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_lc_bf16_")
+    feats = os.path.join(tmp, "f.lc.npy")
+    np.save(feats, mel_frames(GEN_SAMPLES / 16000, 220))
+    ckpt = os.path.join(tmp, "ckpt")
+    pfile = write_checkpoint(ckpt, c, p)
+    ks.decode.launches = ks.decode_sequential.launches = 0  # the main path
+    ks.decode.launches_by.clear()
+    ks.decode_sequential.launches_by.clear()
+    wavs, rates = {}, {}
+    for label, B, n, extra, want, count in LC_BF16_CLI_RUNS:
+        wav = os.path.join(tmp, f"{label}.wav")
+        before = dict(ks.decode.launches_by)
+        out, seconds = run_generate_cli(
+            [ckpt, "--wavenet_params", pfile, "--samples", str(n),
+             "--batch_size", str(B), "--wav_out_path", wav, "--seed", "1",
+             "--device", "cuda", "--lc_channels", str(LC_CHANNELS),
+             "--lc_file", feats, "--lc_hop", str(LC_HOP),
+             "--sampler_precision", "bfloat16"] + extra)
+        check("Finished generating." in out, f"LC bf16 CLI {label}: no "
+              "finish")
+        check("bf16 weights, local conditioning" in out,
+              f"LC bf16 CLI {label}: not the bf16 LC sampler")
+        wavs[label] = read_wavs(wav, B, n)
+        ran = {k: v - before.get(k, 0)
+               for k, v in ks.decode.launches_by.items()
+               if v != before.get(k, 0)}
+        check(ran == {want: count}, f"LC bf16 CLI {label}: launched {ran}")
+        rates[label] = B * n / seconds
+        emit({"phase": "generate_cli_lc_bf16", "run": label,
+              "config": "paper_lc", "batch": B, "samples": n,
+              "seconds": seconds, "samples_per_s": rates[label],
+              "served_by": ran, "gpu": gpu})
+    check((wavs["b64_save_every"] == wavs["b64"]).all(),
+          "LC bf16 --save_every segments differ from the single run")
+    check(ks.decode_sequential.launches == 0,
+          "the LC bf16 CLI took the sequential route")
+    launches = dict(ks.decode.launches_by)
+    check(set(launches) == {"cluster_bf16_lc", "decode_bf16_lc"},
+          f"the LC bf16 main path launched {launches}")
+    emit({"phase": "generate_cli_lc_bf16", "launches_by_kernel": launches,
+          "save_every_equals_one_run": True, "samples_per_s": rates,
+          "gpu": gpu})
+    return launches
+
+
 def phase_carry_stacks(cfgs, params, rng, gpu):
     """Phase 7 (a): the carry kernel behind v1 and v2 (a wavefront across
     time tiles on the grid that ``carry_plan`` sizes from the card's
@@ -4019,6 +4234,14 @@ def main() -> int:
           "samples_per_s_b1": lc_rate,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 6d: local conditioning at bf16 weights.
+    t6d = time.perf_counter()
+    lc_bf16_dec = phase_lc_bf16_decode(c_lc, p_lc, rng, gpu)
+    lc_bf16_launches = phase_lc_bf16_main_path(c_lc, p_lc, gpu)
+    emit({"phase": "lc_bf16_generation",
+          "seconds": time.perf_counter() - t6d,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 7: the retired training stacks (TPU kernels 6-8).
     t7 = time.perf_counter()
     carry = phase_carry_stacks(cfgs, params, rng, gpu)
@@ -4318,6 +4541,40 @@ def main() -> int:
                 if k != "top" and k[0] == kernel and k[1] != head):
             row.update({f"{key}_b{B}": mo[key] for key in
                         ("ms", "bound_ms", "plain_ms", "no_lc_ms")})
+        kernels.append(row)
+    # The LC modes at bf16 weights (phase 6d): times pinned in this run at
+    # paper-LC, in turns with the float32 LC mode and the bf16 mode without
+    # LC of the same kernel; launches those of the bf16 LC generate CLI
+    # (the cluster kernel at b1 and b64, sampler_decode at b256). The bound
+    # at 2-byte weights, lc_w's included, with the products of two bf16
+    # operands (the LC row always, the chain unless b1) at the bf16 peak.
+    # library_ms is null for the reason above.
+    for kernel, line, head in (("cluster", 234, 1), ("decode", 1308, 256)):
+        m = lc_bf16_dec[(kernel, head)]
+        src = ("sampler_cluster_lc_bf16.cu" if kernel == "cluster"
+               else "sampler_decode.cu")
+        row = {
+            "name": LC_BF16_SOURCES[kernel], "route": "cuda",
+            "source": f"wavenet_torch/csrc/{src}",
+            "replaces": f"wavenet_tpu/kernels/sampler.py:{line} (has_lc, "
+                        "weight_dtype=bfloat16)",
+            "mode": "bf16_lc", "config": "paper_lc", "batch": head,
+            "launches": lc_bf16_launches.get(f"{kernel}_bf16_lc", 0),
+            "launches_on": "the LC generate CLI at --sampler_precision "
+                           "bfloat16",
+            "max_abs_err": max(v["max_abs_err"]
+                               for k, v in lc_bf16_dec.items()
+                               if k[0] == kernel),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "f32_lc_ms": m["f32_lc_ms"], "bf16_no_lc_ms": m["bf16_ms"],
+            "library_ms": None, "unit": "per decode step", "gpu": gpu}
+        for (k, B), mo in sorted(
+                (k, v) for k, v in lc_bf16_dec.items()
+                if k[0] == kernel and k[1] != head):
+            row.update({f"{key}_b{B}": mo[key] for key in
+                        ("ms", "bound_ms", "plain_ms", "f32_lc_ms",
+                         "bf16_ms", "max_abs_err")})
         kernels.append(row)
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.

@@ -11,6 +11,7 @@ weights make sampling an argmax: the codes of every path must be equal.
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -296,8 +297,10 @@ def test_cli_flags_match_jax_cli():
     assert tgen.SILENCE_THRESHOLD == jgen.SILENCE_THRESHOLD
 
 
-# LC runs (tests/test_torch_sampler_lc.py); LC at bf16 weights does not.
-# --draft_checkpoint runs (tests/test_torch_speculative.py).
+# LC runs at either precision (tests/test_torch_sampler_lc.py,
+# tests/test_torch_sampler_lc_bf16.py) and --draft_checkpoint runs
+# (tests/test_torch_speculative.py): no flag of the CLI is refused as
+# unported. At bf16, LC without its stream or hop is the CLI's own error.
 @pytest.mark.parametrize("flags", [
     ["--lc_channels", "2", "--sampler_precision", "bfloat16"],
     ["--lc_channels", "2", "--lc_file", "f.npy", "--sampler_precision",
@@ -306,8 +309,11 @@ def test_cli_flags_match_jax_cli():
      "bfloat16"]])
 def test_cli_unported_flags_raise(flags):
     from wavenet_torch.cli import generate as tgen
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.main(["ckpt", "--device", "cpu"] + flags)
+    params = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "wavenet_params.json")
+    with pytest.raises(ValueError, match="--lc_file and --lc_hop"):
+        tgen.main(["ckpt", "--wavenet_params", params, "--device", "cpu"]
+                  + flags)
 
 
 def test_cli_errors_and_warning(models, tmp_path, capsys):

@@ -1258,11 +1258,28 @@ PARENT_DIGESTS = {
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("key", sorted(f"{n}_{d}" for n, ds in
-                                       decode_turns.CASES for d in ds))
+@pytest.mark.parametrize("key", sorted(PARENT_DIGESTS))
 def test_cluster_kernels_keep_their_digests(setup, key):
     name, dt = key.rsplit("_", 1)
     assert decode_turns.digest(name, dt) == PARENT_DIGESTS[key]
+
+
+# decode_turns' digests of the LC modes on an H100 80GB HBM3: the float32
+# one on sampler_decode is the tree's before the bf16 LC modes (commit
+# e23ff56; its cluster twin, lc_b1_f32, is in PARENT_DIGESTS), the bf16 ones
+# those of the first tree that had the bf16 LC modes.
+LC_DIGESTS = {"lc_b256_f32": "1dd3e547ffe10554",
+              "lc_b256_bf16": "f1e6bb62f5462938",
+              "lc_b1_bf16": "2479e8a10ab0600a"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", sorted(LC_DIGESTS))
+def test_lc_modes_keep_their_digests(setup, key):
+    name, dt = key.rsplit("_", 1)
+    kernel = ("decode" if name in dict(decode_turns.DECODE_CASES)
+              else "cluster")
+    assert decode_turns.digest(name, dt, kernel) == LC_DIGESTS[key]
 
 
 # decode_turns' float32 tiles digests of the tree before the tiles kernel's
@@ -2450,7 +2467,9 @@ def test_lc_resumable_segments_equal_one_run(setup, B):
 def test_lc_route_and_refusals(setup):
     """``kernel="auto"`` with LC: the cluster kernel's LC mode at b1 and at
     the top of its range, ``sampler_decode``'s above it (``tile_plan``
-    refuses LC); LC at bf16 weights and a pinned tiles kernel raise."""
+    refuses LC); at bf16 weights the bf16 LC mode of the cluster kernel at
+    b2 (``test_lc_bf16_route`` holds the rest of its route); a pinned tiles
+    kernel raises."""
     c = _lc_config("paper")
     params = _seeded_params(c)
     top = _lc_top_batch(c)
@@ -2466,9 +2485,12 @@ def test_lc_route_and_refusals(setup):
                 if after[k] != before.get(k, 0)} == {want: 1}
         assert codes.shape == (B, 8)
     lc = torch.zeros((2, 8, 80), device="cuda")
-    with pytest.raises(NotImplementedError, match="step 2c"):
-        ks.generate_cuda(params, c, 8, seed=1, batch_size=2, lc=lc,
-                         weight_dtype=torch.bfloat16)
+    before = ks.decode.launches_by["cluster_bf16_lc"]
+    codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=2, lc=lc,
+                             weight_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert codes.shape == (2, 8)
+    assert ks.decode.launches_by["cluster_bf16_lc"] == before + 1
     pk = ks.pack_sampler_weights(params, c, 2)
     ring, causal = ks.zero_state(c, 2, "cuda")
     x = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
@@ -2477,6 +2499,154 @@ def test_lc_route_and_refusals(setup):
         ks.decode(pk, c, ring, causal, x, 2, 0, 0, kernel="tiles", lc=stream)
     with pytest.raises(ValueError, match="lc"):
         ks.decode(pk, c, ring, causal, x, 2, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Local conditioning at bf16 weights: the bf16 LC modes of sampler_cluster
+# and sampler_decode (the LC row rounded to bf16 at every B)
+# ---------------------------------------------------------------------------
+
+def _lc_bf16_case(B, seed=0):
+    """``_lc_case("paper", B)`` with bf16 packed weights (``lc_w`` too), and
+    the float32 ones."""
+    c, params, packed, carry, forced, lc = _lc_case("paper", B, seed)
+    pk16 = packed._replace(**{k: getattr(packed, k).to(torch.bfloat16)
+                              for k in ks.WEIGHT_FIELDS + ("lc_w",)})
+    return c, params, pk16, packed, carry, forced, lc
+
+
+def _lc_bf16_batch(c, where):
+    top = _lc_top_batch(c)
+    return {"top": top, "top+1": top + 1}.get(where, where)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,where", [
+    ("cluster", 1), ("cluster", 64), ("cluster", "top"),
+    ("decode", "top+1"), ("decode", 256)])
+def test_lc_bf16_kernel_matches_reference_stepwise(setup, kernel, where):
+    """Each kernel's bf16 LC mode, pinned, teacher-forced from an
+    LC-prefilled state at paper-LC: the window in one launch (counted under
+    ``"<kernel>_bf16_lc"``) equals it one step a launch, and each step is
+    held against bf16 ``decode_reference(lc=)`` from the kernel's own state
+    (``bf16_hold``'s limits; the chain rounded unless B == 1, the LC row
+    always)."""
+    B = _lc_bf16_batch(_lc_config("paper"), where)
+    c, _, pk16, pk32, carry, forced, lc = _lc_bf16_case(B)
+    n = 20
+    forced, lc = forced[:, :n].contiguous(), lc[:n].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    key = f"{kernel}_bf16_lc"
+    before = ks.decode.launches_by[key]
+    kk, lk = ks.decode(pk16, c, rk, ck, forced, n, carry.t_abs, 3,
+                       collect_logits=True, kernel=kernel, lc=lc)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by[key] == before + 1
+    assert torch.equal(kk[:, :-1], forced[:, 1:])
+
+    def step(ring, causal, x, t):
+        i = t - carry.t_abs
+        return ks.decode(pk16, c, ring, causal, x, 1, t, 3,
+                         collect_logits=True, kernel=kernel,
+                         lc=lc[i:i + 1].contiguous())[1]
+
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    lg, lg16, lg32, rkk, r16, r32 = bf16_hold.stepwise(
+        c, pk16, pk32, ring, causal, forced, carry.t_abs, 3,
+        ks.chain_rounded("decode", B, lc=True), step, lc=lc)
+    torch.cuda.synchronize()
+    bf16_hold.hold(f"{key} B={B}", lg, lg16, lg32)
+    bf16_hold.hold(f"{key} B={B} ring", rkk, r16, r32)
+    assert torch.equal(lg, lk) and torch.equal(ring, rk)
+    assert torch.equal(causal, ck)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,B", [("cluster", 64), ("decode", 256)])
+def test_lc_bf16_kernel_is_deterministic(setup, kernel, B):
+    """Same seed, same codes, logits and ring, sampled from an LC-prefilled
+    state over 40 steps; the bf16 LC logits are not the float32 ones."""
+    c, _, pk16, pk32, carry, _, lc = _lc_bf16_case(B, seed=1)
+    x = carry.last[:, None].contiguous()
+    runs = []
+    for pk in (pk16, pk16, pk32):
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        runs.append(ks.decode(pk, c, ring, causal, x, 30, carry.t_abs, 9,
+                              collect_logits=True, kernel=kernel, lc=lc)
+                    + (ring,))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert not torch.equal(runs[0][1], runs[2][1])
+    assert len(torch.unique(runs[0][0])) > 8
+
+
+@pytest.mark.gpu
+def test_lc_bf16_route(setup):
+    """``kernel="auto"`` with LC at bf16 weights: ``cluster_bf16_lc`` at b1
+    and at the top of the cluster plan, ``decode_bf16_lc`` above it, on the
+    prefill route and (b1, the chain not rounded) from a zero ring; the
+    sequential b1 launch held step by step against the plain version."""
+    c = _lc_config("paper")
+    params = _seeded_params(c)
+    top = _lc_top_batch(c)
+    for B, want, prefill in ((1, "cluster_bf16_lc", True),
+                             (top, "cluster_bf16_lc", True),
+                             (top + 1, "decode_bf16_lc", True),
+                             (1, "cluster_bf16_lc", False)):
+        lc = torch.zeros((B, 8, 80), device="cuda")
+        counter = ks.decode if prefill else ks.decode_sequential
+        before = dict(counter.launches_by)
+        codes = ks.generate_cuda(params, c, 8, seed=1, batch_size=B, lc=lc,
+                                 weight_dtype=torch.bfloat16,
+                                 prefill=prefill)
+        torch.cuda.synchronize()
+        after = dict(counter.launches_by)
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == {want: 1}
+        assert codes.shape == (B, 8)
+    _, _, pk16, pk32, _, _, _ = _lc_bf16_case(1)
+    rng = np.random.RandomState(3)
+    prefix = torch.as_tensor(rng.randint(0, 256, (1, 12)), dtype=torch.int32,
+                             device="cuda")
+    lc = torch.as_tensor(rng.uniform(-1, 1, (27, 1, 80)).astype(np.float32),
+                         device="cuda")
+    codes, lk = ks.decode_sequential(pk16, c, prefix, 27, 21,
+                                     collect_logits=True, lc=lc)
+    rule = ks.chain_rounded("sequential", 1, lc=True)
+    assert not rule
+
+    def step(ring, causal, x, t):
+        return ks._launch(pk16, c, ring, causal, x, 1, t, 21, 1.0, True,
+                          route="sequential", lc=lc[t:t + 1])[1]
+
+    forced = torch.cat([prefix, codes[:, 11:-1]], dim=1).contiguous()
+    ring, causal = ks.zero_state(c, 1, "cuda")
+    lg, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+        c, pk16, pk32, ring, causal, forced, 0, 21, rule, step, lc=lc)
+    torch.cuda.synchronize()
+    assert torch.equal(lg, lk)
+    bf16_hold.hold("sequential cluster_bf16_lc b1", lg, lg16, lg32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["small", "paper", "scalar_wide"])
+def test_cluster_lc_bf16_smem_bytes_match_the_kernel(setup, width):
+    """The plan's count of an LC CTA's shared memory against the bf16 LC
+    library's own, at every cluster size and row count: the float32 LC
+    mode's, since the weights are widened into the same layout."""
+    from wavenet_torch.kernels import _build
+    c = _lc_config(width)
+    lib = _build.load("sampler_cluster_lc_bf16")
+    ks._bind_cluster_lc(lib, bf16=True)
+    for cs in ks.CLUSTER_SIZES:
+        if cs > c.num_layers:
+            continue
+        for rb in ks.CLUSTER_ROWS:
+            got = lib.sampler_cluster_lc_bf16_smem_bytes(
+                c.residual_channels, c.dilation_channels, c.skip_channels,
+                c.quantization_channels, ks.causal_width(c), cs,
+                -(-c.num_layers // cs), rb, c.lc_channels)
+            assert got == ks.cluster_smem_bytes(c, cs, rb), (cs, rb)
 
 
 # ---------------------------------------------------------------------------

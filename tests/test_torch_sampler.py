@@ -299,12 +299,18 @@ def test_unported_paths_raise():
     ref = ts.decode_reference(packed, tc, ring_r, causal_r, forced, 4, 0, 0,
                               collect_logits=True, round_chain=True)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    # LC decodes (tests/test_torch_sampler_lc.py), but not at bf16 weights.
+    # LC decodes at either weight type (tests/test_torch_sampler_lc.py,
+    # tests/test_torch_sampler_lc_bf16.py), but not on a pinned tiles
+    # kernel.
     lc_c = TConfig(**{**SMALL, "lc_channels": 2})
+    lc_p = tw.init_params(0, lc_c, device="cpu")
+    assert ts.generate_cuda(lc_p, lc_c, 4, 0, lc=torch.zeros(1, 4, 2),
+                            weight_dtype=torch.bfloat16).shape == (1, 4)
+    lc_packed = ts.pack_sampler_weights(lc_p, lc_c, 1,
+                                        weight_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.generate_cuda(tw.init_params(0, lc_c, device="cpu"), lc_c, 4, 0,
-                         lc=torch.zeros(1, 4, 2),
-                         weight_dtype=torch.bfloat16)
+        ts.decode(lc_packed, lc_c, *ts.zero_state(lc_c, 1), forced, 4, 0, 0,
+                  kernel="tiles", lc=torch.zeros(4, 1, 2))
 
 
 # ---------------------------------------------------------------------------

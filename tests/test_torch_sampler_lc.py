@@ -372,22 +372,25 @@ def test_resumable_lc_segments_equal_one_run(explicit_prime, rng):
 
 
 def test_lc_refusals():
-    """LC at bf16 weights raises naming its ROADMAP step, on every entry
-    point; a missing, extra or misshapen stream raises ValueError."""
+    """LC at bf16 weights runs on every entry point (the bf16 LC modes;
+    tests/test_torch_sampler_lc_bf16.py holds them against JAX); a pinned
+    tiles kernel raises naming its ROADMAP step; a missing, extra or
+    misshapen stream raises ValueError."""
     _, tc, _, tp, _ = _pair()
     lc = torch.zeros((2, 4, 3))
-    with pytest.raises(NotImplementedError, match="step 2c"):
-        ts.generate_cuda(tp, tc, 4, 0, batch_size=2, lc=lc,
-                         weight_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="step 2c"):
-        ts.generate_cuda_resumable(tp, tc, 4, 0, batch_size=2, lc=lc,
-                                   weight_dtype=torch.bfloat16)
+    assert ts.generate_cuda(tp, tc, 4, 0, batch_size=2, lc=lc,
+                            weight_dtype=torch.bfloat16).shape == (2, 4)
+    codes, _ = ts.generate_cuda_resumable(tp, tc, 4, 0, batch_size=2, lc=lc,
+                                          weight_dtype=torch.bfloat16)
+    assert codes.shape == (2, 4)
     pk16 = ts.pack_sampler_weights(tp, tc, 2, weight_dtype=torch.bfloat16)
+    assert pk16.lc_w.dtype == torch.bfloat16
     ring, causal = ts.zero_state(tc, 2)
     x = torch.zeros((2, 1), dtype=torch.int32)
     stream = torch.zeros((4, 2, 3))
-    with pytest.raises(NotImplementedError, match="step 2c"):
-        ts.decode(pk16, tc, ring, causal, x, 4, 0, 0, lc=stream)
+    codes, _ = ts.decode(pk16, tc, ring, causal, x, 4, 0, 0, lc=stream)
+    assert codes.shape == (2, 4)
+    ring, causal = ts.zero_state(tc, 2)
     pk = ts.pack_sampler_weights(tp, tc, 2)
     with pytest.raises(NotImplementedError, match="step 2c"):
         ts.decode(pk, tc, ring, causal, x, 4, 0, 0, lc=stream,
@@ -504,9 +507,11 @@ def test_cli_lc_stream_steers_and_bad_files_raise(lc_model, tmp_path):
     with pytest.raises(ValueError, match="--lc_file and --lc_hop"):
         tgen.main([lc_model["tdir"], "--wavenet_params",
                    lc_model["pfile"], "--device", "cpu"] + LC_FLAGS[:2])
-    with pytest.raises(NotImplementedError, match="step 2c"):
-        tgen.main(base + ["--lc_file", lc_model["feats"],
-                          "--sampler_precision", "bfloat16"])
+    wav = str(tmp_path / "bf16.wav")
+    assert tgen.main(base + ["--lc_file", lc_model["feats"],
+                             "--sampler_precision", "bfloat16",
+                             "--wav_out_path", wav]) == 0
+    assert _codes_of(wav, 32).shape == (24,)
 
 
 # ---------------------------------------------------------------------------

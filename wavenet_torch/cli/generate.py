@@ -29,8 +29,8 @@ writes them), upsamples them to sample rate (``--lc_upsample``), fits the
 stream to ``--samples`` and gives every batch row the same stream; on the
 card the LC modes of ``sampler_cluster`` and ``sampler_decode`` decode it.
 ``--lc_refine_width`` refines the stream (once, the whole stream, before
-``--save_every`` slices it). LC at ``--sampler_precision bfloat16`` is not
-ported yet and raises (``kernels.sampler.check_lc_mode``).
+``--save_every`` slices it). At ``--sampler_precision bfloat16`` the LC
+modes run at bf16 weights, as the JAX CLI passes both to its sampler.
 
 Speculative decoding, as the JAX CLI: ``--draft_checkpoint D`` (the
 draft's ``ckpt-STEP/`` directory, its config from
@@ -40,9 +40,8 @@ segment, batches as independent lanes, and prints the draft's acceptance.
 With ``--save_every`` it generates in resumable segments at batch 1 from
 one generator, so the segments equal one run. It takes no LC stream.
 
-Flags whose path is not ported yet raise NotImplementedError naming the
-ROADMAP.md queue that owns them. ``--compilation_cache`` is accepted and
-has no effect: PyTorch compiles nothing ahead of a call.
+``--compilation_cache`` is accepted and has no effect: PyTorch compiles
+nothing ahead of a call.
 """
 
 from __future__ import annotations
@@ -128,15 +127,6 @@ def get_arguments(argv=None):
     return parser.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for flags whose path the port lacks."""
-    from wavenet_torch.kernels.sampler import check_lc_mode
-    from wavenet_torch.sampler_select import PRECISIONS
-
-    if args.lc_channels is not None:
-        check_lc_mode(PRECISIONS[args.sampler_precision])
-
-
 def create_seed(filename, sample_rate, quantization_channels, window_size,
                 silence_threshold=SILENCE_THRESHOLD, scalar_input=False):
     """Load and trim a seed wav: mu-law codes, or the trimmed amplitudes
@@ -158,7 +148,6 @@ def main(argv=None):
         raise ValueError("--save_every with --draft_checkpoint runs at "
                          "batch size 1 (acceptance makes emitted counts "
                          "ragged across lanes)")
-    check_ported(args)
 
     import torch
 

@@ -5,8 +5,9 @@
 // The kernel, its launch and its C entry points' body, templated on the
 // weights' type and on local conditioning; sampler_cluster.cu builds the
 // float32 mode (and the route's device queries), sampler_cluster_bf16.cu
-// the bf16 mode, sampler_cluster_lc.cu the local-conditioning mode, each
-// its own library, so that the three build in parallel.
+// the bf16 mode, sampler_cluster_lc.cu the local-conditioning mode and
+// sampler_cluster_lc_bf16.cu that mode at bf16 weights, each its own
+// library, so that the four build in parallel.
 //
 // Replaces the JAX package's all-VMEM decode kernel, whose weights and
 // ring stay on chip for the whole launch (its b1 production path):
@@ -87,7 +88,8 @@
 // B >= 2 keep the same rule and the same sum orders, so they are as
 // independent of B as in the float32 mode.
 //
-// Local-conditioning mode (kLc, float32 weights; the JAX kernel's has_lc):
+// Local-conditioning mode (kLc, float32 or bf16 weights; the JAX kernel's
+// has_lc):
 // each layer's filter/gate pre-activation gains lc_t @ lc_w[l] (lc_w
 // [L, C_lc, 2D] pre-scaled as layer_w; lc_t is row t of the stream
 // [n_total, B, C_lc]), added after layer_add, in the JAX kernel's order.
@@ -104,6 +106,11 @@
 // row [NL][2D] and the step's feature row sit
 // in shared memory (cluster_smem_bytes counts them), which leaves the plan
 // of the paper/gc widths as it is (CS 8, up to 8 rows a cluster on an H100).
+// At bf16 weights lc_w is read as bf16 and widened in registers, and the
+// feature row is rounded to bf16 when it is staged, at every B (the JAX
+// kernel casts it to lc_w's type before either branch): lc_terms in
+// sampler_step.cuh. The shared memory and the plan are the float32 LC
+// mode's.
 //
 // Clusters never wait on each other; nothing needs co-residency beyond the
 // CTAs of one cluster, which the hardware schedules together. The plan

@@ -1,12 +1,12 @@
 // sampler_cluster_lc: the local-conditioning mode of the cluster decode
 // kernel (sampler_cluster.cuh says what it computes and how the LC terms
 // leave the layer chain), the LC row of the JAX package's all-VMEM decode
-// kernel at float32 weights:
+// kernel at float32 weights (sampler_cluster_lc_bf16.cu: at bf16 weights):
 //   wavenet_tpu/kernels/sampler.py:234   _sampler_kernel (has_lc,
 //                                        sampler.py:332-364)
-// Its own library, so that it builds in parallel with the float32 and bf16
-// modes. The plan (cs, rb, layer_begin) is the float32 mode's, with the LC
-// rows counted in the shared memory (sampler_cluster_lc_smem_bytes).
+// Its own library, so that it builds in parallel with the other modes.
+// The plan (cs, rb, layer_begin) is the float32 mode's, with the LC rows
+// counted in the shared memory (sampler_cluster_lc_smem_bytes).
 
 #include "sampler_cluster.cuh"
 

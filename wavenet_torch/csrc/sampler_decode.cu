@@ -70,8 +70,11 @@
 // weights (sampler_decode_f32), with bf16 weights (sampler_decode_bf16:
 // weights widened on load, activations rounded to bf16 where the JAX
 // kernels round them, see sampler_step.cuh) and in the local-conditioning
-// mode at float32 weights (sampler_decode_lc_f32: the LC row of TPU kernels
-// 1 and 2, sampler.py:332-364 and :1479-1535, has_lc). The LC mode adds
+// mode at float32 and at bf16 weights (sampler_decode_lc_f32,
+// sampler_decode_lc_bf16: the LC row of TPU kernels 1 and 2,
+// sampler.py:332-364 and :1479-1535, has_lc; at bf16 the stream's row is
+// rounded to bf16 at every B, as the JAX kernels cast it to lc_w's type
+// at :334 and :1483). The LC mode adds
 // lc_t @ lc_w[l] to every layer's filter/gate pre-activation; the terms of
 // all layers are computed at the top of each step, in one pass whose loads
 // are independent of each other, rather than as L more dependent products
@@ -248,4 +251,27 @@ extern "C" int sampler_decode_lc_f32(
                           next_amp, B, L, R, D, S, Q, n_total, n_forced,
                           n_log, scalar_input, causal_width, t0, seed,
                           inv_temperature, 1, stream, lc_w, lc, lc_channels);
+}
+
+// The local-conditioning mode at bf16 weights: the arguments of
+// sampler_decode_bf16 (round_chain included), then lc_w [L, lc_channels,
+// 2D] in bf16, the stream and lc_channels as sampler_decode_lc_f32's.
+extern "C" int sampler_decode_lc_bf16(
+    const __nv_bfloat16* causal_w, const __nv_bfloat16* layer_w,
+    const float* layer_add, const __nv_bfloat16* dense_w,
+    const float* dense_add, const __nv_bfloat16* skip_w, const float* skip_b,
+    const __nv_bfloat16* post1_w, const float* post1_b,
+    const __nv_bfloat16* post2_w, const float* post2_b, const int* ring_meta,
+    float* ring, float* causal, const void* forced, int* codes,
+    float* logits, float* next_amp, int B, int L, int R, int D, int S, int Q,
+    int n_total, int n_forced, int n_log, int scalar_input, int causal_width,
+    long long t0, unsigned long long seed, float inv_temperature,
+    int round_chain, const __nv_bfloat16* lc_w, const float* lc,
+    int lc_channels, void* stream) {
+  return run<__nv_bfloat16, true>(
+      causal_w, layer_w, layer_add, dense_w, dense_add, skip_w, skip_b,
+      post1_w, post1_b, post2_w, post2_b, ring_meta, ring, causal, forced,
+      codes, logits, next_amp, B, L, R, D, S, Q, n_total, n_forced, n_log,
+      scalar_input, causal_width, t0, seed, inv_temperature, round_chain,
+      stream, lc_w, lc, lc_channels);
 }

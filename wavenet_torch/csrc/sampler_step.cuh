@@ -25,9 +25,11 @@
 //          filter/gate pre-activation gains lc_t @ lc_w[l], added after
 //          layer_add; lc_t is row t of the stream [n_total, B, C_lc]. The
 //          terms of all L layers are computed at the top of the step, off
-//          the layer chain (lc_terms).
+//          the layer chain (lc_terms). With bf16 weights lc_w is bf16 and
+//          lc_t is rounded to bf16 at every B, round_chain or not.
 // sampler_decode.cu instantiates <RB, kFullStep, float>,
-// <RB, kFullStep, __nv_bfloat16> and <RB, kFullStep, float, true>.
+// <RB, kFullStep, __nv_bfloat16>, <RB, kFullStep, float, true> and
+// <RB, kFullStep, __nv_bfloat16, true>.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -189,7 +191,10 @@ __device__ __forceinline__ void matvec(const float* x, int xs, int K,
 // The LC terms of layers [l0, l0 + nl) at step t of the launch:
 // lcp[(r * NL + j) * 2D + n] = sum over k of lc[t, row0 + r, k] *
 // lc_w[l0 + j, k, n], k in order. The step's feature rows are staged in
-// lcr [RB][C_lc] first. One thread a column, all RB rows at once, kBatch
+// lcr [RB][C_lc] first, as the product's operand: at bf16 weights rounded
+// to bf16 at every B (the JAX kernels cast the row to lc_w's type before
+// either of their branches, sampler.py:334 and :1483), at float32 as they
+// are. One thread a column, all RB rows at once, kBatch
 // weights loaded before their FMAs (lc_w streams from L2, so a column costs
 // ceil(C_lc / kBatch) L2 round trips: 3 at C_lc = 80 and up to 4 rows;
 // fewer weights at once above 4 rows, whose accumulators take the
@@ -203,7 +208,8 @@ __device__ __forceinline__ void lc_terms(const DecodeArgsT<WT>& a, int t,
   const int tid = threadIdx.x, C = a.C_lc, B = a.B, N2 = 2 * D;
   for (int i = tid; i < RB * C; i += kThreads) {
     const int row = row0 + i / C;
-    lcr[i] = row < B ? a.lc[((size_t)t * B + row) * C + i % C] : 0.f;
+    lcr[i] = opnd<WT>(row < B ? a.lc[((size_t)t * B + row) * C + i % C]
+                              : 0.f);
   }
   __syncthreads();
   constexpr int kBatch = RB <= 4 ? 32 : 16;

@@ -64,12 +64,14 @@ def hold(where: str, got: torch.Tensor, ref: torch.Tensor,
 
 
 def stepwise(c, pk16, pk32, ring, causal, forced, t0, seed, round_chain,
-             launch):
+             launch, lc=None):
     """A bf16 window one step a launch: ``launch(ring, causal, x, t)`` runs
     the kernel one step from its own state (updated in place) and returns
     that step's logits; each step is compared with one step of the plain
     version at bf16 and at float32 weights from the same state, so no
-    rounding flip of an earlier step carries into a later one. Raises
+    rounding flip of an earlier step carries into a later one. An LC
+    config's stream ``lc`` [n, B, C_lc] conditions the window (row t of it
+    step ``t0 + t``; ``launch`` takes the same row). Raises
     AssertionError where the kernel's causal register differs from the
     plain one's or it changed a ring row that the step does not write.
     Returns (logits: kernel, bf16 plain, float32 plain, each [B, n, Q];
@@ -85,7 +87,8 @@ def stepwise(c, pk16, pk32, ring, causal, forced, t0, seed, round_chain,
             r, cz = ring0.clone(), causal0.clone()
             out[k].append(ks.decode_reference(
                 pk, c, r, cz, x, 1, t0 + t, seed, collect_logits=True,
-                round_chain=round_chain)[1])
+                round_chain=round_chain,
+                lc=None if lc is None else lc[t:t + 1])[1])
             rings.append(r)
             if k == 1 and not torch.equal(cz, causal):
                 raise AssertionError("bf16 step: causal register differs")

@@ -60,15 +60,17 @@ decodes at the requested weight type, as the JAX package does.
 
 Local conditioning (an LC config and an ``lc`` stream, the JAX kernels'
 ``has_lc`` mode) runs the LC mode of ``sampler_cluster``
-(``csrc/sampler_cluster_lc.cu``, its own library) and of
-``sampler_decode``, float32 weights only: row t of the stream
-``[n_total, B, C_lc]`` conditions step t, and each layer's filter/gate
-pre-activation gains ``lc_t @ lc_w[l]``. The term depends on the stream
-alone, never on the layer chain, so the kernels compute it off the chain
-(see their sources). ``tile_plan`` refuses LC, so an LC config runs the
-cluster kernel in its range and ``sampler_decode`` above it. LC at bf16
-weights and in ``sampler_tiles`` are queued (ROADMAP.md queue 1, item 2,
-step 2c).
+(``csrc/sampler_cluster_lc.cu`` and, at bf16 weights,
+``csrc/sampler_cluster_lc_bf16.cu``, each its own library) and of
+``sampler_decode``: row t of the stream ``[n_total, B, C_lc]`` conditions
+step t, and each layer's filter/gate pre-activation gains
+``lc_t @ lc_w[l]``. The term depends on the stream alone, never on the
+layer chain, so the kernels compute it off the chain (see their sources).
+At bf16 weights ``lc_w`` is bf16 and ``lc_t`` is rounded to bf16 at every
+B, as the JAX kernels cast it to ``lc_w``'s type before either branch.
+``tile_plan`` refuses LC, so an LC config runs the cluster kernel in its
+range and ``sampler_decode`` above it. LC in ``sampler_tiles`` is queued
+(ROADMAP.md queue 1, item 2, step 2c).
 
 ``decode_reference`` is the plain PyTorch version of the three kernels,
 with the same Philox4x32-10 noise; ``decode`` and ``decode_sequential``
@@ -100,7 +102,7 @@ class PackedSampler(NamedTuple):
     tanh gives both tanh(f) and sigmoid(g) = 0.5 + 0.5*tanh(g/2); bias and
     GC are folded into ``layer_add``; the per-layer skip biases are summed.
     ``lc_w`` (LC configs, else None) is ``[lc_filter | 0.5 * lc_gate]``,
-    pre-scaled as ``layer_w``.
+    pre-scaled as ``layer_w``, at the matmul weights' type.
     """
     causal_w: torch.Tensor     # [kw_in * C_in, R]  (causal register | input)
     layer_w: torch.Tensor      # [L, 2R, 2D]  (K = past|current, N = filt|gate/2)
@@ -160,9 +162,9 @@ def pack_sampler_weights(params: Params, config: WaveNetConfig,
                          weight_dtype=torch.float32) -> PackedSampler:
     """Rearrange the parameter dict into the kernel's layout.
 
-    ``weight_dtype=torch.bfloat16`` stores the matmul weights in bf16, as
-    the JAX package does; the additive terms stay float32. ``decode`` then
-    runs the kernels' bf16 mode."""
+    ``weight_dtype=torch.bfloat16`` stores the matmul weights (``lc_w``
+    too) in bf16, as the JAX package does; the additive terms stay
+    float32. ``decode`` then runs the kernels' bf16 mode."""
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype {weight_dtype}: float32 or bfloat16")
     c = config
@@ -430,14 +432,16 @@ def weight_dtype_of(packed: PackedSampler) -> torch.dtype:
     return packed.layer_w.dtype
 
 
-def chain_rounded(route: str, B: int) -> bool:
+def chain_rounded(route: str, B: int, lc: bool = False) -> bool:
     """Whether a bf16 decode rounds the layer chain's inputs to bf16: on
     ``route`` "decode" (:func:`decode`, the JAX package's prefill route,
     kernels 1-3) unless B == 1, where JAX multiplies float32 activations by
     the widened weights (its VPU chain); on "sequential"
     (:func:`decode_sequential`, kernel 4, which has no b1 branch) at every
-    B."""
-    if route == "decode":
+    B. With local conditioning (``lc``) the sequential route follows the
+    decode rule: kernel 4 takes no LC, and JAX runs an LC run from a zero
+    ring on kernel 1 or 2, whose b1 branch is the VPU chain."""
+    if route == "decode" or (route == "sequential" and lc):
         return B != 1
     if route == "sequential":
         return True
@@ -465,7 +469,10 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     causal window and the head's two inputs are always rounded; the layer
     chain's three inputs (filter/gate ``[past | current]``, dense, skip)
     only where ``round_chain`` is true; ``None`` takes :func:`decode`'s
-    rule (:func:`chain_rounded`). Float32 weights ignore ``round_chain``.
+    rule (:func:`chain_rounded`). The LC row ``lc[t]`` is always rounded,
+    whatever ``round_chain`` says: the JAX kernels cast it to ``lc_w``'s
+    type before either of their branches, the b1 VPU chain included.
+    Float32 weights ignore ``round_chain``.
     """
     c = config
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
@@ -477,15 +484,19 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     log_from = n_total - n_log
     inv_t = float(np.float32(1.0 / temperature))
     bf16 = weight_dtype_of(packed) == torch.bfloat16
-    check_lc(c, lc, weight_dtype_of(packed))
+    check_lc(c, lc)
     _check_lc_operands(packed, c, lc, n_total, B, dev)
     if round_chain is None:
         round_chain = chain_rounded("decode", B)
     keep = lambda x: x                                    # noqa: E731
-    head_in = _bf16_operand if bf16 else keep
+    # The operands rounded at every B (the causal window, the LC row, the
+    # head's inputs), and the layer chain's.
+    always_in = _bf16_operand if bf16 else keep
     chain_in = _bf16_operand if bf16 and round_chain else keep
     w = packed._replace(**{k: getattr(packed, k).to(torch.float32)
                            for k in WEIGHT_FIELDS})
+    if lc is not None:
+        w = w._replace(lc_w=packed.lc_w.to(torch.float32))
     codes = torch.empty((B, n_total), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, n_log, Q), dtype=torch.float32, device=dev)
               if n_log else None)
@@ -500,7 +511,7 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
             feature = (x[:, None] if scalar
                        else F.one_hot(x, Q).to(torch.float32))
             window = torch.cat([causal, feature], dim=-1)
-            cur = head_in(window) @ w.causal_w
+            cur = always_in(window) @ w.causal_w
             causal.copy_(window[:, C_in:])
             skip = None
             for l in range(L):
@@ -510,15 +521,15 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
                 fg = (chain_in(torch.cat([past, cur], dim=-1)) @ w.layer_w[l]
                       + w.layer_add[l])
                 if lc is not None:
-                    fg = fg + lc[t] @ packed.lc_w[l]
+                    fg = fg + always_in(lc[t]) @ w.lc_w[l]
                 tg = torch.tanh(fg)
                 out = tg[:, :D] * (0.5 + 0.5 * tg[:, D:])
                 cur = cur + chain_in(out) @ w.dense_w[l] + w.dense_add[l]
                 s = chain_in(out) @ w.skip_w[l]
                 skip = s if skip is None else skip + s
             h = torch.relu(skip + w.skip_b)
-            h = torch.relu(head_in(h) @ w.post1_w + w.post1_b)
-            lg = head_in(h) @ w.post2_w + w.post2_b
+            h = torch.relu(always_in(h) @ w.post1_w + w.post1_b)
+            lg = always_in(h) @ w.post2_w + w.post2_b
             if n_log and t >= log_from:
                 logits[:, t - log_from] = lg
             sampled = torch.argmax(lg * inv_t + noise[t % chunk], dim=-1)
@@ -742,9 +753,11 @@ def _bind(lib) -> None:
                                         + [ctypes.c_void_p])
     lib.sampler_decode_lc_f32.argtypes = (_DECODE_ARGTYPES + _LC
                                           + [ctypes.c_void_p])
-    lib.sampler_decode_f32.restype = ctypes.c_int
-    lib.sampler_decode_bf16.restype = ctypes.c_int
-    lib.sampler_decode_lc_f32.restype = ctypes.c_int
+    lib.sampler_decode_lc_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND + _LC
+                                           + [ctypes.c_void_p])
+    for fn in (lib.sampler_decode_f32, lib.sampler_decode_bf16,
+               lib.sampler_decode_lc_f32, lib.sampler_decode_lc_bf16):
+        fn.restype = ctypes.c_int
 
 
 def _bind_cluster_bf16(lib) -> None:
@@ -753,12 +766,23 @@ def _bind_cluster_bf16(lib) -> None:
     lib.sampler_cluster_bf16.restype = ctypes.c_int
 
 
-def _bind_cluster_lc(lib) -> None:
-    lib.sampler_cluster_lc_f32.argtypes = (_DECODE_ARGTYPES + _LC + _PLAN
-                                           + [ctypes.c_void_p])
-    lib.sampler_cluster_lc_f32.restype = ctypes.c_int
-    lib.sampler_cluster_lc_smem_bytes.argtypes = [ctypes.c_int] * 9
-    lib.sampler_cluster_lc_smem_bytes.restype = ctypes.c_longlong
+def _bind_cluster_lc(lib, bf16: bool = False) -> None:
+    """Bind an LC cluster library: ``sampler_cluster_lc``
+    (``sampler_cluster_lc_f32``) or, with ``bf16``,
+    ``sampler_cluster_lc_bf16`` (which takes ``round_chain``); each exports
+    its shared-memory size."""
+    if bf16:
+        fn, smem = (lib.sampler_cluster_lc_bf16,
+                    lib.sampler_cluster_lc_bf16_smem_bytes)
+        fn.argtypes = (_DECODE_ARGTYPES + _ROUND + _LC + _PLAN
+                       + [ctypes.c_void_p])
+    else:
+        fn, smem = (lib.sampler_cluster_lc_f32,
+                    lib.sampler_cluster_lc_smem_bytes)
+        fn.argtypes = _DECODE_ARGTYPES + _LC + _PLAN + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 9
+    smem.restype = ctypes.c_longlong
 
 
 def _bind_cluster(lib) -> None:
@@ -873,31 +897,23 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"sampler_decode: {name} must be contiguous")
 
 
-#: What the LC modes still lack, and the ROADMAP.md step that owns it.
-LC_STEP_2C = "ROADMAP.md queue 1, item 2, step 2c"
-
-
-def check_lc_mode(weight_dtype=torch.float32, kernel: str = "auto") -> None:
-    """What the LC modes run: float32 weights, on the cluster or decode
-    kernel. The rest raises NotImplementedError naming the ROADMAP.md step
-    that owns it."""
-    if weight_dtype != torch.float32:
-        raise NotImplementedError(
-            f"local conditioning at bf16 weights is not ported yet "
-            f"({LC_STEP_2C})")
+def check_lc_mode(kernel: str = "auto") -> None:
+    """What the LC modes run: the cluster or decode kernel, at float32 or
+    bf16 weights. A pinned tiles kernel raises NotImplementedError naming
+    the ROADMAP.md step that owns it."""
     if kernel == "tiles":
         raise NotImplementedError(
-            f"sampler_tiles has no local-conditioning mode yet ({LC_STEP_2C})")
+            "sampler_tiles has no local-conditioning mode yet (ROADMAP.md "
+            "queue 1, item 2, step 2c)")
 
 
-def check_lc(config: WaveNetConfig, lc, weight_dtype=torch.float32,
-             kernel: str = "auto") -> None:
+def check_lc(config: WaveNetConfig, lc, kernel: str = "auto") -> None:
     """The rules of local conditioning, for every entry point: an LC
     config runs what :func:`check_lc_mode` allows, and takes a stream
     ``lc``; any other config takes none (ValueError)."""
     c = config
     if c.lc_enabled:
-        check_lc_mode(weight_dtype, kernel)
+        check_lc_mode(kernel)
         if lc is None:
             raise ValueError(
                 "this model was trained with local conditioning (config "
@@ -912,20 +928,21 @@ def _check_kernel(kernel: str, packed: PackedSampler, config: WaveNetConfig,
     if kernel not in KERNEL_CHOICES:
         raise ValueError(f"kernel={kernel!r}: one of {KERNEL_CHOICES}")
     if config.lc_enabled or lc is not None:
-        check_lc(config, lc, weight_dtype_of(packed), kernel)
+        check_lc(config, lc, kernel)
 
 
 def _check_lc_operands(packed: PackedSampler, config: WaveNetConfig,
                        lc: Optional[torch.Tensor], n_total: int, B: int,
                        device) -> None:
     """An LC stream ``lc`` [n_total, B, C_lc] float32 and packed ``lc_w``
-    [L, C_lc, 2D] (the rules: :func:`check_lc`)."""
+    [L, C_lc, 2D] at the matmul weights' type (the rules:
+    :func:`check_lc`)."""
     c = config
     if lc is None:
         return
     if packed.lc_w is None:
         raise ValueError("lc given but the packed weights have no lc_w")
-    _check("lc_w", packed.lc_w, torch.float32,
+    _check("lc_w", packed.lc_w, weight_dtype_of(packed),
            (c.num_layers, c.lc_channels, 2 * c.dilation_channels), device)
     _check("lc", lc, torch.float32, (n_total, B, c.lc_channels), device)
 
@@ -945,7 +962,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     of the kernel, which rounds the layer chain's inputs where
     :func:`chain_rounded` says so for ``route`` ("decode" or
     "sequential", the caller's; see :func:`decode_reference`). An ``lc``
-    stream launches the LC mode of the cluster or decode kernel. Returns
+    stream launches the LC mode of the cluster or decode kernel, at bf16
+    weights its bf16 LC mode. Returns
     ``(codes, logits, kernel launched)``, the kernel's name with "_bf16"
     in the bf16 mode and "_lc" in the LC mode; raises if the launch is
     refused."""
@@ -1024,7 +1042,7 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             or any(b <= a for a, b in zip(plan.layer_begin,
                                           plan.layer_begin[1:]))):
         raise ValueError(f"sampler_{used}: bad plan {plan}")
-    rnd = (int(chain_rounded(route, B)),) if bf16 else ()
+    rnd = (int(chain_rounded(route, B, lc is not None)),) if bf16 else ()
     lc_args = (() if lc is None else
                (packed.lc_w.data_ptr(), lc.data_ptr(), c.lc_channels))
     if used == "tiles":
@@ -1039,14 +1057,16 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
         if S % plan.CS or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS:
             raise ValueError(f"sampler_cluster: bad plan {plan}")
         begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
-        if bf16:
+        if lc is not None:
+            lib = _build.load("sampler_cluster_lc_bf16" if bf16
+                              else "sampler_cluster_lc")
+            _bind_cluster_lc(lib, bf16)
+            fn = (lib.sampler_cluster_lc_bf16 if bf16
+                  else lib.sampler_cluster_lc_f32)
+        elif bf16:
             lib = _build.load("sampler_cluster_bf16")
             _bind_cluster_bf16(lib)
             fn = lib.sampler_cluster_bf16
-        elif lc is not None:
-            lib = _build.load("sampler_cluster_lc")
-            _bind_cluster_lc(lib)
-            fn = lib.sampler_cluster_lc_f32
         else:
             lib = _build.load("sampler_cluster")
             _bind_cluster(lib)
@@ -1055,9 +1075,10 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     else:
         lib = _build.load("sampler_decode")
         _bind(lib)
-        fn = (lib.sampler_decode_bf16 if bf16 else
-              lib.sampler_decode_lc_f32 if lc is not None else
-              lib.sampler_decode_f32)
+        fn = {(False, False): lib.sampler_decode_f32,
+              (True, False): lib.sampler_decode_bf16,
+              (False, True): lib.sampler_decode_lc_f32,
+              (True, True): lib.sampler_decode_lc_bf16}[bf16, lc is not None]
         err = fn(*args, *rnd, *lc_args, stream)
     name = used + ("_bf16" if bf16 else "") + ("" if lc is None else "_lc")
     if err != 0:
@@ -1098,7 +1119,8 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     plan, the layer chain's inputs rounded as :func:`chain_rounded` says
     for this route (unless B == 1). An LC config takes ``lc`` [n_total,
     B, C_lc] float32 (row t conditions step t, already refined) and runs
-    the LC mode of the cluster or decode kernel, at float32 weights only.
+    the LC mode of the cluster or decode kernel, at either weight type
+    (at bf16 the LC row rounded to bf16 at every B).
     """
     _check_kernel(kernel, packed, config, lc)
     if _device_type(ring) == "cpu":
@@ -1116,8 +1138,9 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 
 #: Kernel launches made by ``decode``, in all and by kernel ("cluster",
 #: "tiles", "decode", and "cluster_bf16", "tiles_bf16", "decode_bf16" for
-#: the bf16 modes, "cluster_lc", "decode_lc" for the LC modes; read by
-#: chip_smoke.py).
+#: the bf16 modes, "cluster_lc", "decode_lc" for the LC modes,
+#: "cluster_bf16_lc", "decode_bf16_lc" for the LC modes at bf16 weights;
+#: read by chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()
 
@@ -1136,7 +1159,8 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
     HBM-ring kernel computes (``generate_pallas(ring_in_hbm=True)``).
     CPU tensors run ``decode_reference``; CUDA tensors launch a kernel
     (``kernel`` as in :func:`decode`) or raise. With bf16 weights the
-    layer chain's inputs are rounded at every B (:func:`chain_rounded`).
+    layer chain's inputs are rounded at every B, with LC unless B == 1
+    (:func:`chain_rounded`).
     ``lc`` [n_total, B, C_lc] conditions every step, the forced ones
     included, as in :func:`decode` (the JAX package's
     ``generate_pallas(prefill=False)`` on kernel 1 takes LC; its HBM-ring
@@ -1148,7 +1172,8 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
         return decode_reference(
             packed, config, ring, causal, forced, n_total, 0, seed,
             temperature, collect_logits,
-            round_chain=chain_rounded("sequential", forced.shape[0]), lc=lc)
+            round_chain=chain_rounded("sequential", forced.shape[0],
+                                      lc is not None), lc=lc)
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, 0, seed, temperature,
         collect_logits, route="sequential", kernel=kernel, lc=lc)
@@ -1163,10 +1188,10 @@ decode_sequential.launches = 0
 decode_sequential.launches_by = collections.Counter()
 
 
-def _check_generation(config: WaveNetConfig, lc, weight_dtype) -> None:
+def _check_generation(config: WaveNetConfig, lc) -> None:
     if config.filter_width != 2:
         raise NotImplementedError("sampler_decode requires filter_width=2")
-    check_lc(config, lc, weight_dtype)
+    check_lc(config, lc)
 
 
 def _lc_stream(lc, batch_size: int, n: int, config: WaveNetConfig, dev,
@@ -1241,7 +1266,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
     ``(codes, logits [B, n_log, Q])``. The device is the parameters'
     device.
 
-    Local conditioning (an LC config; float32 weights only), with the scan
+    Local conditioning (an LC config; either weight type), with the scan
     sampler's conventions: ``lc`` [B, n_samples, C_lc] conditions the
     generated samples, ``lc_prime`` [B, T_seed - 1, C_lc] the priming
     region (default ``lc[:, 0]`` held backward); both are refined here,
@@ -1251,7 +1276,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
     ``[lc_prime | lc]``.
     """
     c = config
-    _check_generation(c, lc, weight_dtype)
+    _check_generation(c, lc)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
@@ -1312,7 +1337,7 @@ def generate_cuda_resumable(params: Params, config: WaveNetConfig,
     segment's priming region (default ``lc[:, 0]`` held backward).
     """
     c = config
-    _check_generation(c, lc, weight_dtype)
+    _check_generation(c, lc)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     lc = _lc_stream(lc, B, n_samples, c, dev)

@@ -11,8 +11,8 @@ The route (``kernels.sampler.cluster_plan``, then ``tile_plan``) takes
 ``precision="bfloat16"`` forwards ``weight_dtype=torch.bfloat16``, as the
 JAX ladder's first rung does: the bf16 mode of the same kernel runs, the
 ring stays float32. A local-conditioning stream (``lc``) runs the LC
-modes of ``sampler_cluster`` and ``sampler_decode`` (float32 weights only;
-the tiles kernel has none, so LC above the cluster range runs
+modes of ``sampler_cluster`` and ``sampler_decode``, at either precision
+(the tiles kernel has none, so LC above the cluster range runs
 ``sampler_decode``). On a GPU a failure raises; there is no fallback. On
 the CPU the same call runs the kernels' plain version
 (``decode_reference``), because the tensors lie there.
@@ -31,17 +31,12 @@ def sampler_name(device, precision: str = "float32",
                  lc: bool = False) -> str:
     """What the CLI's and the server's generation runs on ``device``;
     ``lc``: with a local-conditioning stream."""
-    if getattr(device, "type", str(device)) == "cuda":
-        if precision == "bfloat16":
-            return ("CUDA (prefill + sampler_cluster/sampler_tiles/"
-                    "sampler_decode kernel, bf16 weights)")
-        if lc:
-            return ("CUDA (prefill + sampler_cluster/sampler_decode kernel, "
-                    "local conditioning)")
-        return ("CUDA (prefill + sampler_cluster/sampler_tiles/"
-                "sampler_decode kernel)")
     tag = (", bf16 weights" if precision == "bfloat16" else "") + (
         ", local conditioning" if lc else "")
+    if getattr(device, "type", str(device)) == "cuda":
+        kernels = ("sampler_cluster/sampler_decode" if lc else
+                   "sampler_cluster/sampler_tiles/sampler_decode")
+        return f"CUDA (prefill + {kernels} kernel{tag})"
     return f"PyTorch reference (prefill + decode_reference{tag})"
 
 

@@ -11,11 +11,17 @@ the rest sampled, with every step's logits. On the cluster kernel
     gc_b64     the gc config (global conditioning) at b64, both types
     wide_b1    the wide config (scalar input) at b1, both types
     lc_b1      the paper config with local conditioning (80 channels) at
-               b1, float32 (the LC mode has no bf16 weights)
+               b1, both types
 
-so ``sampler_cluster``, ``sampler_cluster_bf16`` and ``sampler_cluster_lc``
-each run at their compiled widths and at runtime widths. On the tiles
-kernel's range (``TILE_CASES``):
+so ``sampler_cluster``, ``sampler_cluster_bf16``, ``sampler_cluster_lc``
+and ``sampler_cluster_lc_bf16`` each run at their compiled widths and at
+runtime widths. On ``sampler_decode`` (``kernel="decode"``,
+``DECODE_CASES``):
+
+    lc_b256    the LC config at b256, both types (the LC modes of
+               ``sampler_decode``, which serve LC above the cluster range)
+
+On the tiles kernel's range (``TILE_CASES``):
 
     gc_b128    the gc config at b128, float32 on ``kernel="tiles"`` and
                bf16 on ``kernel="auto"`` (the kernel the route takes:
@@ -26,6 +32,8 @@ kernel's range (``TILE_CASES``):
 A digest is the SHA-256 (16 hex digits) of the codes' and the logits'
 bytes: two trees' kernels compute the same thing where every digest
 agrees (a bf16 digest on ``kernel="auto"`` changes where the route does).
+A tree that refuses a case (LC at bf16 weights before its modes existed)
+gets ``null`` there.
 The paper b1 step (cluster) and each tiles case's step are then timed at
 both weight types (CUDA events, the median of ``--reps`` launches of
 ``STEPS`` steps), and each row names the kernel every case launched.
@@ -54,7 +62,9 @@ SEED = 5
 LC_CHANNELS = 80
 #: (case, weight types) whose digests are taken on the cluster kernel.
 CASES = (("paper_b1", ("f32", "bf16")), ("gc_b64", ("f32", "bf16")),
-         ("wide_b1", ("f32", "bf16")), ("lc_b1", ("f32",)))
+         ("wide_b1", ("f32", "bf16")), ("lc_b1", ("f32", "bf16")))
+#: (case, weight types) whose digests are taken on sampler_decode.
+DECODE_CASES = (("lc_b256", ("f32", "bf16")),)
 #: (case, {weight type: the kernel pinned}) in the tiles kernel's range.
 TILE_CASES = (("gc_b128", {"f32": "tiles", "bf16": "auto"}),
               ("gc_b512", {"f32": "tiles", "bf16": "auto"}))
@@ -144,9 +154,17 @@ def digest(name: str, dt: str, kernel: str = "cluster") -> str:
     return _digest(codes, logits)
 
 
+def _digest_or_none(name: str, dt: str, kernel: str):
+    """``digest``, or None where the tree refuses the case."""
+    try:
+        return digest(name, dt, kernel)
+    except NotImplementedError:
+        return None
+
+
 def digests() -> dict:
-    """``{"<case>_<f32|bf16>": digest}`` of every case."""
-    return {f"{name}_{dt}": digest(name, dt)
+    """``{"<case>_<f32|bf16>": digest}`` of every cluster case."""
+    return {f"{name}_{dt}": _digest_or_none(name, dt, "cluster")
             for name, dts in CASES for dt in dts}
 
 
@@ -183,6 +201,12 @@ def _tree_row(label: str, reps: int) -> dict:
     row["digests"] = digests()
     row.update({f"paper_b1_{dt}_ms_per_step": step_ms(dt, reps)
                 for dt in ("f32", "bf16")})
+    row["decode_digests"], row["decode_kernels"] = {}, {}
+    for name, dts in DECODE_CASES:
+        for dt in dts:
+            key = f"{name}_{dt}"
+            row["decode_digests"][key], row["decode_kernels"][key] = (
+                _launched(lambda: _digest_or_none(name, dt, "decode")))
     row["tile_digests"], row["tile_kernels"] = {}, {}
     for name, kernels in TILE_CASES:
         for dt, kernel in kernels.items():
