@@ -164,20 +164,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
    wavenet_torch.cli.generate --lc_channels 80 --lc_file ... --lc_hop 200
    --sampler_precision bfloat16`` at b1 x 16,000, b64 x 4,000
    (``--save_every`` equal to the single run) and b256 x 2,000.
-7. The retired training stacks (TPU kernels 6-8), at the paper and gc
-   configs' full width, b8 x (receptive field + 16,000): the
-   ``fused_stack_carry`` kernel behind generations v1 and v2 (a wavefront
+7. The retired training stacks (TPU kernels 6-8; 6-7 also at bf16), at
+   the paper and gc configs' full width, b8 x (receptive field + 16,000):
+   the ``fused_stack_carry`` kernel behind generations v1 and v2 (a wavefront
    across time tiles on the grid ``carry_plan`` sizes, printed with the
    card's resident blocks; 3xTF32 on the tensor cores) against the
    plain versions (phase 5's tolerances and per-slice check), bitwise
    repeatable in both directions, and against kernel 5, each call timed
    beside its bound under the 3xTF32 peak and kernel 5's two kernels'
-   times; then the main path
+   times; (d) the carry kernel's bf16 mode (TPU kernels 6-7 at
+   kernel_dtype bf16: one bf16 ``mma.sync`` pass a product, bf16 fg and z
+   records) at the same shapes: each forward layer on its own input, the
+   forward without z (v1) and with it (v2) and the backward against the
+   plain bf16 versions on the scale of bf16's distance from float32 (5's
+   rule), bitwise repeatable, timed in turns with the float32 mode beside
+   its bound at the bf16 peak and kernel 5's bf16 times; then the main path
    of this slice: 4 Adam steps of the gc config through
    ``train_lib.make_train_step`` at ``pallas_stack_version`` 1 and 2, from
-   the same params and batches as 4 version-3 steps (first loss within
-   1e-5, later within 1e-4 relative; finite and falling), the carry
-   kernel's launches counted from 0; last, the ``dilated_layer`` kernel
+   the same params and batches as 4 version-3 steps, at float32 (first
+   loss within 1e-5, later within 1e-4 relative) and at bf16 (every loss
+   within bf16's own gap, version 3's largest bf16-to-float32 distance;
+   the bf16 mode launched every step), finite and falling, the carry
+   kernel's launches counted from 0 by mode; last, the ``dilated_layer`` kernel
    (3xTF32 on the tensor cores; its grid printed beside the library's
    resident blocks) at each distinct dilation against its plain versions,
    its backward bitwise repeatable, timed beside its bounds under the
@@ -3019,6 +3027,123 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
     return results
 
 
+def phase_carry_bf16(cfgs, params, rng, gpu):
+    """Phase 7 (d): the carry kernel's bf16 mode (TPU kernels 6-7 at
+    kernel_dtype bf16) behind v1 (without z) and v2 (with z), at the paper
+    and gc configs, b8 x (receptive field + 16,000): each forward layer on
+    its own input (``teacher_forced_bf16``, on v2's records), forward and
+    backward against the plain bf16 versions on the scale of bf16's own
+    distance from the plain float32 versions (``hold_bf16``), v1's y and
+    fg bitwise v2's, bitwise-equal repeats; each call timed in turns with
+    the float32 mode (f32, bf16, bf16, f32) beside its bound at the bf16
+    peak with 2-byte records, with kernel 5's bf16 mode's times."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.experiments import fused_stack2 as fs2
+    from wavenet_torch.kernels import fused_stack as fs3
+    from wavenet_torch.utils.flops import (H100_BF16_FLOPS, bound_ms,
+                                           fused_stack_cost)
+
+    results = {}
+    for name in ("paper", "gc"):
+        c = cfgs[name]
+        c16 = dataclasses.replace(c, compute_dtype="bfloat16")
+        L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+        args = stack_inputs(c, params[name], rng)
+        B, T = args[0].shape[:2]
+        w_fg, wd, _, bd = args[1:]
+        dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
+                             device="cuda")
+        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                             device="cuda").to(torch.bfloat16)
+        dz32 = dz.float()
+        yp, fgp, zp = out_p = fs2.fused_stack2_forward_reference(*args, c16)
+        out32 = fs2.fused_stack2_forward_reference(*args, c)
+        gp = fs2.fused_stack2_backward_reference(yp, dy, fgp, dz, w_fg, wd,
+                                                 bd, c16)
+        g32 = fs2.fused_stack2_backward_reference(out32[0], dy, out32[1],
+                                                  dz32, w_fg, wd, bd, c)
+        y1, fg1 = fs1.fused_stack_forward(*args, c16)
+        out_k = [fs2.fused_stack2_forward(*args, c16) for _ in range(2)]
+        g1 = fs1.fused_stack_backward(yp, fgp, dz, dy, w_fg, wd, bd, c16)
+        g2 = [fs2.fused_stack2_backward(yp, dy, fgp, dz, w_fg, wd, bd, c16)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        row = {"phase": "carry_stack_bf16", "config": name, "batch": B,
+               "positions": T, "kernel": "carry_bf16", "gpu": gpu}
+        for kind, backward in (("fwd", False), ("bwd", True)):
+            resident, plan = fs1.device_carry_plan(c16, B, backward)
+            row[f"plan_{kind}"] = {"resident_blocks": resident,
+                                   "nchunk": plan.nchunk,
+                                   "grid": list(plan.grid)}
+        check(fg1.dtype == out_k[0][1].dtype == out_k[0][2].dtype
+              == torch.bfloat16, f"{name}: the carry kernel's bf16 records "
+              "are not bf16")
+        teacher_forced_bf16(row, c16, args, *out_k[0])
+        fwd = max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                  zip(("y", "fg", "z"), out_k[0], out_p, out32))
+        err = {"fwd_v1": fwd, "fwd_v2": fwd,
+               "bwd": max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                          zip(GRAD_NAMES, g1, gp, g32))}
+        check(torch.equal(y1, out_k[0][0]) and torch.equal(fg1, out_k[0][1]),
+              f"{name} bf16: v1's y and fg differ from v2's")
+        check(all(torch.equal(a, b) for a, b in zip(*out_k)),
+              f"{name} bf16: two forward calls on the same inputs differ")
+        check(all(torch.equal(a, b) for a, b in zip(g1, g2[0]))
+              and all(torch.equal(a, b) for a, b in zip(*g2)),
+              f"{name} bf16: two backward calls on the same inputs differ")
+        row["bitwise_repeat"] = True
+        del out_k, g1, g2, gp, g32
+
+        y32, fg32 = out32[0], out32[1]
+        timed = {
+            "fwd_v1": (lambda m: fs1.fused_stack_forward(
+                *args, c16 if m == "bf16" else c),
+                lambda: fs2.fused_stack2_forward_reference(*args, c16),
+                lambda: fs3.forward(*args, c16), False, False),
+            "fwd_v2": (lambda m: fs2.fused_stack2_forward(
+                *args, c16 if m == "bf16" else c),
+                lambda: fs2.fused_stack2_forward_reference(*args, c16),
+                lambda: fs3.forward(*args, c16), False, True),
+            "bwd": (lambda m: (
+                fs2.fused_stack2_backward(yp, dy, fgp, dz, w_fg, wd, bd, c16)
+                if m == "bf16" else fs2.fused_stack2_backward(
+                    y32, dy, fg32, dz32, w_fg, wd, bd, c)),
+                lambda: fs2.fused_stack2_backward_reference(
+                    yp, dy, fgp, dz, w_fg, wd, bd, c16),
+                lambda: fs3.backward(yp, dy, fgp, dz, w_fg, wd, bd, c16),
+                True, True),
+        }
+        modes = ("f32", "bf16")
+        for kind, (kern, plain, k5, backward, emit_z) in timed.items():
+            flops, nbytes = fused_stack_cost(c16, B, T, backward=backward,
+                                             emit_z=emit_z)
+            bound, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+            ms = {m: [] for m in modes}
+            for _ in range(STACK_TIMED_ROUNDS):
+                for m in modes + modes[::-1]:
+                    ms[m].append(cuda_ms(lambda: kern(m)))
+            ms = {m: float(np.median(v)) for m, v in ms.items()}
+            ms_p, ms_5 = median_cuda_ms(plain), median_cuda_ms(k5)
+            row.update({f"{kind}_ms_bf16": ms["bf16"],
+                        f"{kind}_ms_f32_mode": ms["f32"],
+                        f"{kind}_plain_ms": ms_p,
+                        f"{kind}_kernel5_bf16_ms": ms_5,
+                        f"{kind}_flops": flops, f"{kind}_bytes": nbytes,
+                        f"{kind}_bound_ms_bf16": bound,
+                        f"{kind}_bound_by_bf16": by})
+            results[(name, kind)] = dict(
+                max_abs_err=err[kind], ms=ms["bf16"], f32_mode_ms=ms["f32"],
+                plain_ms=ms_p, kernel5_bf16_ms=ms_5, bound_ms=bound,
+                bound_by=by)
+        emit(row)
+        del args, dy, dz, dz32, out_p, out32, yp, fgp, zp, y32, fg32, y1, fg1
+        torch.cuda.empty_cache()
+    return results
+
+
 def train_batches(c, rng, n_steps: int):
     """``n_steps`` b8 batches of seeded sines plus noise, and GC ids."""
     import torch
@@ -3040,8 +3165,16 @@ def train_batches(c, rng, n_steps: int):
 def phase_carry_train(c, params, rng, gpu):
     """Phase 7 (b), the main path of this slice: Adam steps through
     ``train_lib.make_train_step`` with ``pallas_stack_version`` 1 and 2,
-    from the same params and batches as version 3's steps. Returns each
-    wrapper's launches, counted from 0 on its version's run."""
+    from the same params and batches as version 3's steps, at float32 and
+    at bf16 (``compute_dtype="bfloat16"``: the carry kernel's bf16 mode
+    behind v1 and v2, kernel 5's behind v3). Each version's losses against
+    version 3's: at float32 within 1e-5 (first) and 1e-4 relative; at bf16
+    within bf16's own gap, the largest distance of version 3's bf16 losses
+    from its float32 ones over the steps (another float32 sum order flips
+    bf16 roundings, and v1 returns a z rounded once more, as in JAX: the
+    CPU tests measure v1 at ~0.25 of that gap from v3 in both packages).
+    Returns each wrapper's launches by dtype, counted from 0 on its
+    version's run."""
     import dataclasses
     import numpy as np
     from wavenet_torch import train_lib as tl
@@ -3051,29 +3184,40 @@ def phase_carry_train(c, params, rng, gpu):
     batches = train_batches(c, rng, CARRY_TRAIN_STEPS)
     wrappers = (fs1.fused_stack_forward, fs1.fused_stack_backward,
                 fs2.fused_stack2_forward, fs2.fused_stack2_backward)
-    losses, times, launches = {}, {}, {}
-    for version in (3, 1, 2):
-        cfg = dataclasses.replace(c, use_pallas_stack=True,
-                                  pallas_stack_version=version)
-        state = tl.train_state_from_params(params,
-                                           tl.make_optimizer("adam", 1e-3))
-        step = tl.make_train_step(cfg)
-        for w in wrappers:
-            w.launches = 0                         # the main path starts
-        losses[version], times[version] = [], []
-        for audio, ids in batches:
-            t0 = time.perf_counter()
-            _, m = step(state, audio, ids)
-            losses[version].append(m["loss"].item())
-            times[version].append(1e3 * (time.perf_counter() - t0))
-        launches[version] = [w.launches for w in wrappers]
-        del state
     n = CARRY_TRAIN_STEPS
-    check(launches[1] == [n, n, 0, 0] and launches[2] == [0, 0, n, n],
-          f"carry kernel launches {launches}, expected {n} forward and {n} "
-          "backward per version")
+    losses, times, launches = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        key = "carry_bf16" if dtype == "bfloat16" else "carry"
+        for version in (3, 1, 2):
+            cfg = dataclasses.replace(c, use_pallas_stack=True,
+                                      pallas_stack_version=version,
+                                      compute_dtype=dtype)
+            state = tl.train_state_from_params(
+                params, tl.make_optimizer("adam", 1e-3))
+            step = tl.make_train_step(cfg)
+            for w in wrappers:
+                w.launches = 0                     # the main path starts
+                w.launches_by.clear()
+            run = (dtype, version)
+            losses[run], times[run] = [], []
+            for audio, ids in batches:
+                t0 = time.perf_counter()
+                _, m = step(state, audio, ids)
+                losses[run].append(m["loss"].item())
+                times[run].append(1e3 * (time.perf_counter() - t0))
+            launches[run] = [w.launches_by[key] for w in wrappers]
+            check([w.launches for w in wrappers] == launches[run],
+                  f"{dtype} v{version}: carry launches in another mode: "
+                  f"{[dict(w.launches_by) for w in wrappers]}")
+            del state
+        check(launches[(dtype, 1)] == [n, n, 0, 0]
+              and launches[(dtype, 2)] == [0, 0, n, n]
+              and launches[(dtype, 3)] == [0, 0, 0, 0],
+              f"{dtype}: carry kernel launches "
+              f"{ {v: launches[(dtype, v)] for v in (3, 1, 2)} }, expected "
+              f"{n} forward and {n} backward per version")
     for version in (1, 2):
-        got, want = losses[version], losses[3]
+        got, want = losses[("float32", version)], losses[("float32", 3)]
         check(all(np.isfinite(got)), f"v{version}: non-finite loss {got}")
         check(got[-1] < got[0], f"v{version}: loss did not fall: {got}")
         check(abs(got[0] - want[0]) <= 1e-5 * abs(want[0]),
@@ -3081,17 +3225,38 @@ def phase_carry_train(c, params, rng, gpu):
               f"{want[0]}")
         check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, want)),
               f"v{version}: losses {got} against version 3's {want}")
+    l16_3, l32_3 = losses[("bfloat16", 3)], losses[("float32", 3)]
+    gap = max(abs(a - b) for a, b in zip(l16_3, l32_3))
+    bf16_dist = {}
+    for version in (3, 1, 2):
+        got = losses[("bfloat16", version)]
+        check(all(np.isfinite(got)), f"bf16 v{version}: non-finite loss "
+              f"{got}")
+        check(got[-1] < got[0], f"bf16 v{version}: loss did not fall: {got}")
+        dist = max(abs(a - b) for a, b in zip(got, l16_3))
+        bf16_dist[f"v{version}"] = dist
+        check(dist <= gap, f"bf16 v{version}: losses {got} lie {dist} from "
+              f"version 3's bf16 losses {l16_3}, beyond bf16's own gap "
+              f"{gap} (version 3 at float32: {l32_3})")
+    runs = [(d, v) for d in ("float32", "bfloat16") for v in (3, 1, 2)]
+    tag = {"float32": "", "bfloat16": "_bf16"}
     emit({"phase": "carry_train", "config": "gc", "batch": TRAIN_BATCH,
           "audio_samples": c.receptive_field + TRAIN_SAMPLES,
-          "losses": {f"v{v}": losses[v] for v in (3, 1, 2)},
-          "step_ms": {f"v{v}": times[v] for v in (3, 1, 2)},
+          "losses": {f"v{v}{tag[d]}": losses[(d, v)] for d, v in runs},
+          "step_ms": {f"v{v}{tag[d]}": times[(d, v)] for d, v in runs},
           "step_ms_median_after_first": {
-              f"v{v}": float(np.median(times[v][1:])) for v in (3, 1, 2)},
-          "launches": {"v1_fwd": launches[1][0], "v1_bwd": launches[1][1],
-                       "v2_fwd": launches[2][2], "v2_bwd": launches[2][3]},
+              f"v{v}{tag[d]}": float(np.median(times[(d, v)][1:]))
+              for d, v in runs},
+          "bf16_gap_of_v3": gap, "bf16_loss_distance_from_v3": bf16_dist,
+          "launches": {f"v{v}_{k}{tag[d]}": launches[(d, v)][i]
+                       for d in ("float32", "bfloat16")
+                       for v, k, i in ((1, "fwd", 0), (1, "bwd", 1),
+                                       (2, "fwd", 2), (2, "bwd", 3))},
           "gpu": gpu})
-    return {"fwd_v1": launches[1][0], "fwd_v2": launches[2][2],
-            "bwd": launches[1][1] + launches[2][3]}
+    return {("bf16" if d == "bfloat16" else "f32"): {
+        "fwd_v1": launches[(d, 1)][0], "fwd_v2": launches[(d, 2)][2],
+        "bwd": launches[(d, 1)][1] + launches[(d, 2)][3]}
+        for d in ("float32", "bfloat16")}
 
 
 def phase_dilated_layer(c, params, rng, gpu):
@@ -4245,6 +4410,7 @@ def main() -> int:
     # Phase 7: the retired training stacks (TPU kernels 6-8).
     t7 = time.perf_counter()
     carry = phase_carry_stacks(cfgs, params, rng, gpu)
+    carry_bf16 = phase_carry_bf16(cfgs, params, rng, gpu)
     carry_launches = phase_carry_train(cfgs["gc"], params["gc"], rng, gpu)
     layer = phase_dilated_layer(cfgs["gc"], params["gc"], rng, gpu)
     emit({"phase": "retired_stacks", "seconds": time.perf_counter() - t7,
@@ -4605,10 +4771,28 @@ def main() -> int:
             "name": f"fused_stack_carry_{kind}", "route": "cuda",
             "source": "wavenet_torch/csrc/fused_stack_carry.cu",
             "replaces": where, "config": "gc", "batch": TRAIN_BATCH,
-            "launches": carry_launches[kind],
+            "launches": carry_launches["f32"][kind],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
+            "unit": "per call (one train step's stack)", "gpu": gpu})
+    # The carry kernel's bf16 mode (phase 7 (d)), at kernel_dtype bf16: its
+    # launches are the bf16 steps' of phase 7 (b); its bound at the bf16
+    # peak with 2-byte records.
+    for kind, where in carry_replaces.items():
+        m = carry_bf16[("gc", kind)]
+        kernels.append({
+            "name": f"fused_stack_carry_bf16_{kind}", "route": "cuda",
+            "source": "wavenet_torch/csrc/fused_stack_carry.cu",
+            "replaces": where, "mode": "bf16", "config": "gc",
+            "batch": TRAIN_BATCH,
+            "launches": carry_launches["bf16"][kind],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "f32_mode_ms": m["f32_mode_ms"],
+            "kernel5_bf16_ms": m["kernel5_bf16_ms"],
+            "ms_paper_b8": carry_bf16[("paper", kind)]["ms"],
             "unit": "per call (one train step's stack)", "gpu": gpu})
     for kind, line in (("fwd", 68), ("bwd", 82)):
         m = layer[kind]

@@ -7,8 +7,9 @@ route on the same numpy-seeded params and inputs, with and without global
 conditioning; then the train CLI at ``--compute_dtype bfloat16`` (plain and
 ``--use_pallas_stack``), a short bf16-against-float32 loss curve (a
 non-slow mirror of ``tests/test_bf16_drift.py``), the bytes the stack's
-bound counts, the bf16 paths that still raise, and generation from a bf16
-config, which runs at float32 as in the JAX package.
+bound counts, the bf16 paths that still raise, the retired stacks (v1,
+v2), which now run, and generation from a bf16 config, which runs at
+float32 as in the JAX package.
 
 Tolerance. Both packages round to bf16 at the same points (the weights,
 biases, GC embedding and input; every product's output; the gate's
@@ -287,8 +288,11 @@ def _bf16_paths():
         p, cfg, 4, torch.Generator().manual_seed(0)) for cfg in (c, c32)]
     return {
         "simt_pinned": (lambda: fs._route("simt", c), "a3"),
-        "stack_v1": (lambda: fs1.fused_stack(x, *stack, c), "a3"),
-        "stack_v2": (lambda: fs2.fused_stack2(x, *stack, c), "a3"),
+        # The retired stacks run at bf16 (ROADMAP a3 step 1), each with its
+        # z: v1's float32 from the bf16 fg record, v2's the bf16 record.
+        "stack_v1": (lambda: fs1.fused_stack(x, *stack, c), torch.float32),
+        "stack_v2": (lambda: fs2.fused_stack2(x, *stack, c),
+                     torch.bfloat16),
         "dilated_layer": (lambda: dl.fused_dilated_layer(
             x, None, None, None, None, 1, compute_dtype=torch.bfloat16),
             "a3"),
@@ -306,8 +310,16 @@ def test_bf16_paths_without_a_port_raise(path):
     falls back to float32. Generation (prefill, ``generate_cuda``, the
     scan sampler) is no such path: as in the JAX package it runs at
     float32 whatever ``compute_dtype`` says, so a bf16 config's result is
-    the float32 config's, bitwise."""
+    the float32 config's, bitwise. The retired stacks v1 and v2 were such
+    paths and now run on the CPU (the plain versions): a float32 y and
+    each version's z (``tests/test_torch_stack_retired_bf16.py`` holds them
+    against JAX)."""
     fn, item = _bf16_paths()[path]
+    if isinstance(item, torch.dtype):
+        y, z = fn()
+        assert y.dtype == torch.float32 and z.dtype == item
+        assert torch.isfinite(y).all() and torch.isfinite(z.float()).all()
+        return
     if item is None:
         got, ref = (f() for f in fn)
         assert got.dtype == ref.dtype and torch.equal(got, ref)

@@ -16,6 +16,7 @@ a GPU and without JAX it runs alone:
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -658,27 +659,41 @@ def test_model_bf16_on_the_card_matches_the_cpu(setup, pallas):
 _GRADS =("dx", "dw", "dwd", "dadd", "dbd")
 
 
+_CARRY_DIL = {8: (1, 2, 4, 8, 16, 512), 16: (1, 64, 2, 1024, 5),
+              32: _DIL10}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("W,dilations,B,T,nchunk,ref64", [
-    (8, (1, 2, 4, 8, 16, 512), 2, 1100, None, False),   # v1's limit, d = 512
-    (16, (1, 64, 2, 1024, 5), 3, 1500, None, False),    # v2's limit, d = 1024
-    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 2, 1500, None, False),
+@pytest.mark.parametrize("W,dilations,B,T,nchunk,ref64,bf16", [
+    (8, _CARRY_DIL[8], 2, 1100, None, False, False),   # v1's limit, d = 512
+    (16, _CARRY_DIL[16], 3, 1500, None, False, False),  # v2's, d = 1024
+    (32, _CARRY_DIL[32], 2, 1500, None, False, False),
     # A deep wavefront: one row of 157 tiles spread over the card. Each
     # weight gradient sums 20,000 rows, and the float32 plain version's
     # own rounding error is then a sizeable part of GRAD_TOL at a
     # near-zero element: the reference is the plain version in float64.
-    (32, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512), 1, 20000, None, True),
+    (32, _DIL10, 1, 20000, None, True, False),
     # More rows than resident blocks: one block a row (nchunk 1).
-    (8, (1, 2, 4, 8, 16, 32), "over", 300, None, False),
+    (8, (1, 2, 4, 8, 16, 32), "over", 300, None, False, False),
     # A pinned plan: 3 blocks a row over 8 tiles (not a multiple of 3).
-    (16, (1, 200, 3, 64, 7), 2, 946, 3, False),
+    (16, (1, 200, 3, 64, 7), 2, 946, 3, False, False),
+    # The bf16 mode at each width (half a k-step at 8), held on bf16's
+    # gap from float32 (_hold_bf16).
+    (8, _CARRY_DIL[8], 2, 1100, None, False, True),
+    (16, _CARRY_DIL[16], 3, 1500, None, False, True),
+    (32, _CARRY_DIL[32], 2, 1500, None, False, True),
 ])
 def test_carry_stack_matches_reference(setup, W, dilations, B, T, nchunk,
-                                       ref64):
+                                       ref64, bf16):
     """v1's and v2's wrappers of the carry kernel against the plain
     versions (T is not a multiple of the kernel's 128-step tile, and a
     dilation reaches the generation's ``supports`` limit), on the plan's
-    grid or a pinned one; the backward is bitwise repeatable."""
+    grid or a pinned one; the backward is bitwise repeatable. In the bf16
+    mode the records are bf16 and every output is held against the plain
+    bf16 versions on the scale of their distance from the float32 ones,
+    repeats bitwise, launches counted under "carry_bf16"."""
+    if bf16:
+        return _carry_bf16_matches_reference(W, dilations, B, T)
     if B == "over":
         c = _stack_inputs(W, dilations, 1, 1)[0]
         B = 1 + max(fs1.device_carry_plan(c, 1, bw)[0] for bw in (0, 1))
@@ -718,39 +733,85 @@ def test_carry_stack_matches_reference(setup, W, dilations, B, T, nchunk,
             fs2.fused_stack2_backward.launches) == tuple(n + 1 for n in counts)
 
 
+_CARRY_WRAPPERS = (fs1.fused_stack_forward, fs2.fused_stack2_forward,
+                   fs1.fused_stack_backward, fs2.fused_stack2_backward)
+
+
+def _carry_bf16_matches_reference(W, dilations, B, T):
+    c32, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    c = _bf16(c32)
+    counts = [w.launches_by["carry_bf16"] for w in _CARRY_WRAPPERS]
+    y1, fg1 = fs1.fused_stack_forward(*args, c)
+    y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
+    again = fs2.fused_stack2_forward(*args, c)
+    ref = fs2.fused_stack2_forward_reference(*args, c)
+    ref32 = fs2.fused_stack2_forward_reference(*args, c32)
+    torch.cuda.synchronize()
+    assert (fg1.dtype, fg2.dtype, z2.dtype) == (torch.bfloat16,) * 3
+    for name, got, want, want32 in zip(("y", "fg", "z"), (y2, fg2, z2), ref,
+                                       ref32):
+        _hold_bf16(got, want, want32, name)
+    assert torch.equal(y1, y2) and torch.equal(fg1, fg2)
+    assert all(torch.equal(a, b) for a, b in zip((y2, fg2, z2), again))
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    g1 = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c)
+    g2 = fs2.fused_stack2_backward(yr, dy, fgr, dz.to(torch.bfloat16), w_fg,
+                                   wd, bd, c)
+    gref = fs2.fused_stack2_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd,
+                                               c)
+    gref32 = fs2.fused_stack2_backward_reference(ref32[0], dy, ref32[1], dz,
+                                                 w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    for name, got, want, want32 in zip(_GRADS, g1, gref, gref32):
+        assert got.dtype == torch.float32, name
+        _hold_bf16(got, want, want32, name)
+    # A float32 dz is read as its bf16 rounding; fixed-order sums.
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert [w.launches_by["carry_bf16"] for w in _CARRY_WRAPPERS] == [
+        counts[0] + 1, counts[1] + 2, counts[2] + 1, counts[3] + 1]
+
+
 @pytest.mark.gpu
 def test_carry_plan_matches_library(setup):
     """``carry_plan`` (pure) against the library's own rule, on the
-    library's resident counts of each direction and width, and
+    library's resident counts of each direction, width and mode (which
+    ``device_carry_plan`` reads), and
     ``carry_scratch_floats`` (the size the wrappers allocate) against the
     library's."""
     lib = fs1._lib()
-    for W in (8, 16, 32):
-        for backward in (0, 1):
-            n = lib.fused_stack_carry_resident_blocks(backward, W, W)
-            assert n >= 1, (W, backward, n)
-            for B in (1, 2, 8, 64, n - 1, n, n + 1, 3 * n):
-                if B >= 1:
-                    nchunk = fs1.carry_plan(B, n).nchunk
-                    assert nchunk == lib.fused_stack_carry_nchunk(
-                        backward, B, W, W), (W, B)
-                    for L, sum_d in ((1, 1), (10, 1023), (30, 3069)):
-                        assert (fs1.carry_scratch_floats(
-                            bool(backward), B, L, W, W, sum_d, nchunk)
-                            == lib.fused_stack_carry_scratch_floats(
-                                backward, B, L, W, W, sum_d, nchunk))
+    for W, backward, bf16 in itertools.product((8, 16, 32), (0, 1), (0, 1)):
+        n = lib.fused_stack_carry_resident_blocks(backward, W, W, bf16)
+        assert n >= 1, (W, backward, bf16, n)
+        c = _stack_inputs(W, (1,), 1, 1)[0]
+        assert fs1.device_carry_plan(_bf16(c) if bf16 else c, 1,
+                                     backward)[0] == n
+        for B in (1, 2, 8, 64, n - 1, n, n + 1, 3 * n):
+            if B >= 1:
+                nchunk = fs1.carry_plan(B, n).nchunk
+                assert nchunk == lib.fused_stack_carry_nchunk(
+                    backward, B, W, W, bf16), (W, B, bf16)
+                for L, sum_d in ((1, 1), (10, 1023), (30, 3069)):
+                    assert (fs1.carry_scratch_floats(
+                        bool(backward), B, L, W, W, sum_d, nchunk)
+                        == lib.fused_stack_carry_scratch_floats(
+                            backward, B, L, W, W, sum_d, nchunk))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("W", [8, 32])
-def test_carry_stack_across_plans(setup, W):
+def test_carry_stack_across_plans(setup, W, bf16):
     """The same stack on grids of 1, 2, 3, 5 and 20 blocks a row (14
     tiles: 20 leaves blocks without a tile) and on the card's plan: y, fg,
     z and dx bitwise equal (a position's arithmetic does not depend on the
     block that computes it), the weight gradients within GRAD_TOL (summed
-    by chunk, in a fixed order), and each grid's repeats bitwise equal."""
+    by chunk, in a fixed order), and each grid's repeats bitwise equal; in
+    both modes."""
     B, T = 2, 1700
     c, args, (dy, dz) = _stack_inputs(W, (1, 2, 4, 8, 130, 3, 700), B, T, 3)
+    if bf16:
+        c = _bf16(c)
     w_fg, wd, _, bd = args[1:]
     yr, fgr, _ = fs2.fused_stack2_forward_reference(*args, c)
     plans = [fs1.CarryPlan(n, (n, B)) for n in (1, 2, 3, 5, 20)] + [None]
@@ -773,20 +834,38 @@ def test_carry_stack_across_plans(setup, W):
 
 
 @pytest.mark.gpu
-def test_carry_stack_ops_match_kernel5(setup):
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_carry_stack_ops_match_kernel5(setup, bf16):
     """The autograd ops of v1 and v2 against kernel 5's op (an independent
-    kernel for the same map): outputs and every gradient."""
-    c, args, (dy, dz) = _stack_inputs(16, (1, 2, 4, 8, 16, 32, 200), 2, 900,
+    kernel for the same map): outputs and every gradient. At bf16, v2's op
+    (whose z is the bf16 record, as kernel 5's) against kernel 5's bf16
+    mode (R = D = 32, its bf16 width) on the scale of bf16's gap from
+    kernel 5's float32 op; v1's z is float32 from the bf16 fg record."""
+    W = 32 if bf16 else 16
+    c, args, (dy, dz) = _stack_inputs(W, (1, 2, 4, 8, 16, 32, 200), 2, 900,
                                       2)
+    ops = (fs.fused_stack3, fs1.fused_stack, fs2.fused_stack2)
     results = []
-    for op in (fs.fused_stack3, fs1.fused_stack, fs2.fused_stack2):
+    for op, cfg in [(op, c) for op in ops] + ([(fs.fused_stack3, _bf16(c)),
+                                               (fs2.fused_stack2, _bf16(c)),
+                                               (fs1.fused_stack, _bf16(c))]
+                                              if bf16 else []):
         leaves = [a.clone().requires_grad_(True) for a in args]
-        y, z = op(*leaves, c)
-        (y * dy).sum().add((z * dz).sum()).backward()
+        y, z = op(*leaves, cfg)
+        (y * dy).sum().add((z.float() * dz).sum()).backward()
         results.append([y.detach(), z.detach()] + [t.grad for t in leaves])
-    for got in results[1:]:
+    for got in results[1:3]:
         for want_t, got_t in zip(results[0], got):
             torch.testing.assert_close(got_t, want_t, **GRAD_TOL)
+    if bf16:
+        k5, v2, v1 = results[3:]
+        assert v2[1].dtype == k5[1].dtype == torch.bfloat16
+        assert v1[1].dtype == torch.float32
+        for i, (got, want, want32) in enumerate(zip(v2, k5, results[0])):
+            _hold_bf16(got, want, want32, i)
+        for i, (got, want, want32) in enumerate(zip(v1, k5, results[0])):
+            if i != 1:      # v1's z is another function of the records
+                _hold_bf16(got, want, want32, i)
 
 
 def _layer_inputs(W, B, T, seed=0):

@@ -77,13 +77,37 @@
 // the partial sums' read-modify-writes (~42 KB a tile and layer).
 //
 // Registers a thread (ptxas -v for sm_90a): forward / backward at width 32
-// 128 / 250 (4 bytes spilled in the forward), 16 85 / 112, 8 62 / 167.
+// 128 / 250 (4 bytes spilled in the forward), 16 85 / 112, 8 62 / 167; in
+// the bf16 mode 126 / 212, 67 / 122, 95 / 127, none spilled.
+//
+// The bf16 mode (fused_stack_carry_{fwd,bwd}_bf16), the counterpart of the
+// same TPU kernels at kernel_dtype = bfloat16: every product is one bf16
+// mma.sync m16n8k16 pass (bf16_mma.cuh) with float32 accumulation, its
+// operands rounded to bf16 to nearest even as they load (the weights once a
+// layer, as split_weights stores them; the tap rows, z, dx_{l+1}, da and
+// the rebuilt layer input at each fragment); the residual, the rings (x
+// forward, da backward), y, dx and every gradient stay float32, as the TPU
+// kernels' carries do. The forward adds the residual in the TPU kernels'
+// order, (x + z @ wd) + bd, and stores fg (and z) as bf16 records; the
+// backward reads fg and dz as bf16. z enters z @ wd without shuffles: the
+// gate's accumulators of n-tiles 2k and 2k + 1 are, packed in pairs, the A
+// fragment of k-step k. At width 8 a product of K = 8 is half a k-step,
+// its upper k zeros; the forward's fg product takes the past tap's 8
+// columns and the current tap's 8 as one k-step. The mode's weight
+// fragments take a quarter of the f32 mode's shared memory, so each mode
+// has its own resident blocks and plan (on an H100 the same as the f32
+// mode's: two forward blocks an SM, held by registers, one backward). y,
+// fg, z and dx do not depend on the grid in either mode. At the bf16 peak
+// (989 TFLOP/s) and 2-byte records every direction is bound by bytes: at
+// gc b8 0.19 ms forward without z, 0.27 with it, 0.28 backward.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "stack_common.cuh"
 #include "tf32_mma.cuh"
 
@@ -100,44 +124,79 @@ struct Layers {
   int o[kMaxLayers];
 };
 
+// The two modes. KS: the k of one mma.sync; WF: a lane's part of a weight
+// fragment (f32: {hi(b0), hi(b1), lo(b0), lo(b1)} of a k-step of 8; bf16:
+// {b0, b1}, bf16 pairs along k of a k-step of 16); Rec: the element of the
+// fg, z and dz records.
+template <bool BF>
+struct Mode {
+  static constexpr int KS = 8;
+  using WF = uint4;
+  using Rec = float;
+};
+
+template <>
+struct Mode<true> {
+  static constexpr int KS = 16;
+  using WF = uint2;
+  using Rec = __nv_bfloat16;
+};
+
+// Lanes' weight fragments of a [K][N] B in mode BF: k-steps (the last
+// padded with zero rows where K < KS), n-tiles of 8, 32 lanes.
+template <bool BF>
+__host__ __device__ constexpr int frags(int K, int N) {
+  return (K + Mode<BF>::KS - 1) / Mode<BF>::KS * (N / 8) * 32;
+}
+
 // A launch's arguments. prog [B][L]: ring writes of row b's layer l
 // published so far, one a warp (zeroed by the launcher); nchunk blocks a
 // row.
-struct FwdArgs {
+template <typename Rec>
+struct FwdArgsT {
   const float *x, *w_fg, *wd, *add, *bd;
-  float *y, *fg, *z, *rings;
+  float* y;
+  Rec *fg, *z;
+  float* rings;
   int* prog;
   int B, T, L, sum_d, nchunk;
   Layers lay;
 };
 
-struct BwdArgs {
-  const float *y, *dy, *fg, *dz, *w_fg, *wd, *bd;
+template <typename Rec>
+struct BwdArgsT {
+  const float *y, *dy;
+  const Rec *fg, *dz;
+  const float *w_fg, *wd, *bd;
   float *dx, *part_w, *part_a, *part_add, *rings;
   int* prog;
   int B, T, L, sum_d, nchunk;
   Layers lay;
 };
 
-// The layout at width W = R = D: activation tiles of row stride W + 4 and
-// 2W + 4 floats (A-fragment loads free of bank conflicts); the weights of
-// a layer raw as cp.async lands them ([w_fg | wd]) and split into TF32
-// hi/lo in fragment order (one 16-byte load a lane per 8x8 fragment).
-template <int W>
+// The layout at width W = R = D in mode BF: activation tiles of row stride
+// W + 4 and 2W + 4 floats (A-fragment loads free of bank conflicts); the
+// weights of a layer raw as cp.async lands them ([w_fg | wd]) and as
+// fragments in fragment order (f32: split into TF32 hi/lo, one 16-byte
+// load a lane per 8x8 fragment; bf16: rounded, one 8-byte load a lane per
+// 16x8 fragment).
+template <int W, bool BF>
 struct Geo {
   static constexpr int R = W, D = W, K1 = 2 * W, N1 = 2 * W;
   static constexpr int SX = W + 4, SA = N1 + 4;
   static constexpr int kRaw = K1 * N1 + D * R;
+  static constexpr int kWF = (int)sizeof(typename Mode<BF>::WF);
   // Forward: w_fg and wd as fragments, the raw weights, the x tile
   // [2TM][SX] (rows TM - e.. hold the past tap from the ring, rows TM..
   // the tile's x).
-  static constexpr int kFwd =
-      16 * (K1 * N1 + D * R) / 2 + 4 * kRaw + 4 * 2 * TM * SX;
+  static constexpr int kFwd = kWF * (frags<BF>(K1, N1) + frags<BF>(D, R)) +
+                              4 * kRaw + 4 * 2 * TM * SX;
   // Backward: wd^T, wd, w_fg[R:]^T and w_fg[:R]^T as fragments, the raw
   // weights, x, two dx and z tiles [TM][SX], the da tile [2TM][SA] (rows
   // TM.. hold da past the tile, from the ring).
-  static constexpr int kBwd = 16 * (2 * D * R + 2 * N1 * R) / 2 +
-                              4 * kRaw + 4 * 4 * TM * SX + 4 * 2 * TM * SA;
+  static constexpr int kBwd =
+      kWF * (frags<BF>(R, D) + frags<BF>(D, R) + 2 * frags<BF>(N1, R)) +
+      4 * kRaw + 4 * 4 * TM * SX + 4 * 2 * TM * SA;
   static_assert(W % 8 == 0 && W <= 32, "widths 8, 16, 32");
   static_assert(kFwd <= 232448 && kBwd <= 232448, "shared memory");
 };
@@ -184,7 +243,7 @@ __device__ __forceinline__ void publish_warp(int* p, int lane) {
 template <int W>
 __device__ __forceinline__ void prefetch_weights(float* raw, const float* w_fg,
                                               const float* wd, int l) {
-  using G = Geo<W>;
+  using G = Geo<W, false>;   // the raw weights are float32 in both modes
   constexpr int C1 = G::K1 * G::N1 / 4, C2 = G::D * G::R / 4;
   const float* f = w_fg + (size_t)l * G::K1 * G::N1;
   const float* v = wd + (size_t)l * G::D * G::R;
@@ -205,6 +264,117 @@ __device__ __forceinline__ void split_weights(uint4* dst, F at) {
     tf32_split(at(k + 4, n), h1, l1);
     dst[i] = make_uint4(h0, h1, l0, l1);
   }
+}
+
+// bf16: for k-step ks (16) and n-tile nt, lane l holds {b0, b1} = the bf16
+// pairs {B[k, k+1][n], B[k+8, k+9][n]}, k = 16ks + 2 (l%4), n = 8nt + l/4,
+// rounded to nearest even; rows k >= K (K = 8: half a k-step) are zeros.
+template <int K, int N, typename F>
+__device__ __forceinline__ void split_weights(uint2* dst, F at) {
+  constexpr int NTN = N / 8;
+  for (int i = threadIdx.x; i < frags<true>(K, N); i += NT) {
+    const int lane = i & 31, nt = (i >> 5) % NTN, ks = (i >> 5) / NTN;
+    const int k = ks * 16 + 2 * (lane & 3), n = nt * 8 + (lane >> 2);
+    uint32_t b1 = 0u;
+    if constexpr (K % 16 == 0) b1 = pack_bf16(at(k + 8, n), at(k + 9, n));
+    dst[i] = make_uint2(pack_bf16(at(k, n), at(k + 1, n)), b1);
+  }
+}
+
+// A bf16 A fragment (m16 x k16): register i of a lane as bf16_mma.cuh
+// lays it out.
+struct Bf16Frag {
+  uint32_t v[4];
+};
+
+// The bf16 A fragment of 16 rows of float tiles of row stride S: its
+// columns 0..7 from lo's, 8..15 from hi's (each pointing at the first
+// row's first column); without hi (kHi false: K = 8) columns 8..15 are
+// zeros.
+template <int S, bool kHi = true>
+__device__ __forceinline__ void afrag16(const float* lo, const float* hi,
+                                        int lane, Bf16Frag& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const float2 v0 = *reinterpret_cast<const float2*>(lo + g * S + 2 * q);
+  const float2 v1 = *reinterpret_cast<const float2*>(lo + (g + 8) * S + 2 * q);
+  a.v[0] = pack_bf16(v0.x, v0.y);
+  a.v[1] = pack_bf16(v1.x, v1.y);
+  if constexpr (kHi) {
+    const float2 v2 = *reinterpret_cast<const float2*>(hi + g * S + 2 * q);
+    const float2 v3 =
+        *reinterpret_cast<const float2*>(hi + (g + 8) * S + 2 * q);
+    a.v[2] = pack_bf16(v2.x, v2.y);
+    a.v[3] = pack_bf16(v3.x, v3.y);
+  } else {
+    a.v[2] = a.v[3] = 0u;
+  }
+}
+
+// The bf16 A fragment of the transpose, A[m][k] = s[k][m] (rows m0.. of A,
+// columns k0..): the pairs along k are two rows of s; rows m >= M of A are
+// not there (M = 8 < 16 at width 8: zeros).
+template <int S, int M>
+__device__ __forceinline__ void afrag16_t(const float* s, int m0, int k0,
+                                          int lane, Bf16Frag& a) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + 2 * q) * S + m0 + g;
+  a.v[0] = pack_bf16(p[0], p[S]);
+  a.v[2] = pack_bf16(p[8 * S], p[9 * S]);
+  if constexpr (M >= 16) {
+    a.v[1] = pack_bf16(p[8], p[S + 8]);
+    a.v[3] = pack_bf16(p[8 * S + 8], p[9 * S + 8]);
+  } else {
+    a.v[1] = a.v[3] = 0u;
+  }
+}
+
+// The bf16 B fragment of a row-major float tile, B[k][n] = s[k][n].
+template <int S>
+__device__ __forceinline__ void bfrag16(const float* s, int k0, int n0,
+                                        int lane, uint2& b) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (k0 + 2 * q) * S + n0 + g;
+  b.x = pack_bf16(p[0], p[S]);
+  b.y = pack_bf16(p[8 * S], p[9 * S]);
+}
+
+// One bf16 pass for NJ n-tiles that share A.
+template <int NJ>
+__device__ __forceinline__ void mma_bf16_n(float (&c)[NJ][4],
+                                           const Bf16Frag& a,
+                                           const uint2 (&b)[NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(c[j], a.v, b[j].x, b[j].y);
+}
+
+// acc += A B over one k-step of 16 rows, as mma3_step_rn: a zeroed
+// accumulator, then a float32 add (round to nearest).
+template <int NJ>
+__device__ __forceinline__ void mma_bf16_step_rn(float (&acc)[NJ][4],
+                                                 const Bf16Frag& a,
+                                                 const uint2 (&b)[NJ]) {
+  float c[NJ][4];
+  zero(c);
+  mma_bf16_n(c, a, b);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += c[j][i];
+}
+
+// Two adjacent record elements stored from floats, or read (read-only
+// path) as a float2.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
 // Rows [t0, t0 + TM) of row b (base = b T) of a [B, T, W] array into a
@@ -250,16 +420,17 @@ __device__ __forceinline__ void accumulate2(float* p, float a, float b,
 // c + nchunk, ... in time order, all L layers a tile.
 // ---------------------------------------------------------------------------
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
-    const __grid_constant__ FwdArgs args) {
-  using G = Geo<W>;
+    const __grid_constant__ FwdArgsT<typename Mode<BF>::Rec> args) {
+  using G = Geo<W, BF>;
+  using WF = typename Mode<BF>::WF;
   constexpr int R = W, D = W, K1 = G::K1, N1 = G::N1, SX = G::SX;
   constexpr int NF = N1 / 8, NQ = D / 8, NR = R / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* s_wf = reinterpret_cast<uint4*>(smem_raw);           // B = w_fg [K1][N1]
-  uint4* s_wd = s_wf + K1 * N1 / 2;                           // B = wd [D][R]
-  float* s_raw = reinterpret_cast<float*>(s_wd + D * R / 2);  // next [w_fg | wd]
+  WF* s_wf = reinterpret_cast<WF*>(smem_raw);                       // B = w_fg [K1][N1]
+  WF* s_wd = s_wf + frags<BF>(K1, N1);                              // B = wd [D][R]
+  float* s_raw = reinterpret_cast<float*>(s_wd + frags<BF>(D, R));  // next [w_fg | wd]
   float* s_x = s_raw + G::kRaw;                               // [2TM][SX]
   float* cur = s_x + TM * SX;                                 // the tile's x rows
 
@@ -320,15 +491,35 @@ __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
       // column; filter column j and gate column D + j meet in a lane.
       float acc[NF][4];
       zero(acc);
+      if constexpr (BF) {
+        // k-steps of 16 columns of [past | cur]; at width 8 one step holds
+        // both taps' 8 columns.
+        const float* past = s_x + (TM - e + 16 * w) * SX;
+        const float* now = cur + 16 * w * SX;
 #pragma unroll
-      for (int ks = 0; ks < K1 / 8; ++ks) {
-        Tf32Frag af;
-        if (ks < R / 8) afrag<SX>(s_x, TM - e + 16 * w, 8 * ks, lane, af);
-        else afrag<SX>(cur, 16 * w, 8 * ks - R, lane, af);
-        uint4 bw[NF];
+        for (int ks = 0; ks < K1 / 16; ++ks) {
+          Bf16Frag af;
+          if constexpr (R == 8) afrag16<SX>(past, now, lane, af);
+          else if (16 * ks < R)
+            afrag16<SX>(past + 16 * ks, past + 16 * ks + 8, lane, af);
+          else
+            afrag16<SX>(now + 16 * ks - R, now + 16 * ks - R + 8, lane, af);
+          uint2 bw[NF];
 #pragma unroll
-        for (int j = 0; j < NF; ++j) bw[j] = s_wf[(ks * NF + j) * 32 + lane];
-        mma3_tf32_n(acc, af.hi, af.lo, bw);
+          for (int j = 0; j < NF; ++j) bw[j] = s_wf[(ks * NF + j) * 32 + lane];
+          mma_bf16_n(acc, af, bw);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < K1 / 8; ++ks) {
+          Tf32Frag af;
+          if (ks < R / 8) afrag<SX>(s_x, TM - e + 16 * w, 8 * ks, lane, af);
+          else afrag<SX>(cur, 16 * w, 8 * ks - R, lane, af);
+          uint4 bw[NF];
+#pragma unroll
+          for (int j = 0; j < NF; ++j) bw[j] = s_wf[(ks * NF + j) * 32 + lane];
+          mma3_tf32_n(acc, af.hi, af.lo, bw);
+        }
       }
       const float* add_b = args.add + ((size_t)l * B + b) * N1;
       float zr[NQ][4];
@@ -345,13 +536,12 @@ __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
           zr[j][2 * h] = tanhf(f0) * sigmoidf(g0);
           zr[j][2 * h + 1] = tanhf(f1) * sigmoidf(g1);
           if (t < T) {
-            float* fr = args.fg + (base + t) * fg_ld + (size_t)l * N1 + col;
-            *reinterpret_cast<float2*>(fr) = make_float2(f0, f1);
-            *reinterpret_cast<float2*>(fr + D) = make_float2(g0, g1);
+            auto* fr = args.fg + (base + t) * fg_ld + (size_t)l * N1 + col;
+            store2(fr, f0, f1);
+            store2(fr + D, g0, g1);
             if (args.z)
-              *reinterpret_cast<float2*>(args.z + (base + t) * z_ld +
-                                         (size_t)l * D + col) =
-                  make_float2(zr[j][2 * h], zr[j][2 * h + 1]);
+              store2(args.z + (base + t) * z_ld + (size_t)l * D + col,
+                     zr[j][2 * h], zr[j][2 * h + 1]);
           }
         }
       }
@@ -359,17 +549,39 @@ __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
       // must be read before any warp updates its rows.
       if (d < TM) __syncthreads();
 
-      // x_{l+1} = x_l + (z @ wd + bd), z from the registers, in place.
+      // x_{l+1} = x_l + (z @ wd + bd) (bf16: (x_l + z @ wd) + bd, the
+      // TPU kernels' order), z from the registers, in place.
       float acc2[NR][4];
       zero(acc2);
+      if constexpr (BF) {
+        // The gate's accumulators of n-tiles 2ks, 2ks + 1 are k-step ks's
+        // A fragment (at D = 8 one n-tile: the upper k zeros).
 #pragma unroll
-      for (int ks = 0; ks < NQ; ++ks) {
-        Tf32Frag af;
-        acc_afrag(zr[ks], lane, af);
-        uint4 bw[NR];
+        for (int ks = 0; ks < (D + 15) / 16; ++ks) {
+          Bf16Frag af;
+          af.v[0] = pack_bf16(zr[2 * ks][0], zr[2 * ks][1]);
+          af.v[1] = pack_bf16(zr[2 * ks][2], zr[2 * ks][3]);
+          if constexpr (D == 8) {
+            af.v[2] = af.v[3] = 0u;
+          } else {
+            af.v[2] = pack_bf16(zr[2 * ks + 1][0], zr[2 * ks + 1][1]);
+            af.v[3] = pack_bf16(zr[2 * ks + 1][2], zr[2 * ks + 1][3]);
+          }
+          uint2 bw[NR];
 #pragma unroll
-        for (int j = 0; j < NR; ++j) bw[j] = s_wd[(ks * NR + j) * 32 + lane];
-        mma3_tf32_n(acc2, af.hi, af.lo, bw);
+          for (int j = 0; j < NR; ++j) bw[j] = s_wd[(ks * NR + j) * 32 + lane];
+          mma_bf16_n(acc2, af, bw);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < NQ; ++ks) {
+          Tf32Frag af;
+          acc_afrag(zr[ks], lane, af);
+          uint4 bw[NR];
+#pragma unroll
+          for (int j = 0; j < NR; ++j) bw[j] = s_wd[(ks * NR + j) * 32 + lane];
+          mma3_tf32_n(acc2, af.hi, af.lo, bw);
+        }
       }
       const float* bd = args.bd + (size_t)l * R;
 #pragma unroll
@@ -379,8 +591,12 @@ __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
         for (int h = 0; h < 2; ++h) {
           float2* xp = reinterpret_cast<float2*>(cur + (16 * w + g + 8 * h) * SX + col);
           const float2 v = *xp;
-          *xp = make_float2(v.x + (acc2[j][2 * h] + bd[col]),
-                            v.y + (acc2[j][2 * h + 1] + bd[col + 1]));
+          if constexpr (BF)
+            *xp = make_float2((v.x + acc2[j][2 * h]) + bd[col],
+                              (v.y + acc2[j][2 * h + 1]) + bd[col + 1]);
+          else
+            *xp = make_float2(v.x + (acc2[j][2 * h] + bd[col]),
+                              v.y + (acc2[j][2 * h + 1] + bd[col + 1]));
         }
       }
     }
@@ -402,18 +618,19 @@ __global__ void __launch_bounds__(NT, 2) carry_fwd_kernel(
 // sums of dw_fg, dwd, dbd and dadd.
 // ---------------------------------------------------------------------------
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
-    const __grid_constant__ BwdArgs args) {
-  using G = Geo<W>;
+    const __grid_constant__ BwdArgsT<typename Mode<BF>::Rec> args) {
+  using G = Geo<W, BF>;
+  using WF = typename Mode<BF>::WF;
   constexpr int R = W, D = W, K1 = G::K1, N1 = G::N1, SX = G::SX, SA = G::SA;
   constexpr int NQ = D / 8, NR = R / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* s_wdt = reinterpret_cast<uint4*>(smem_raw);   // B = wd^T [R][D]
-  uint4* s_wdb = s_wdt + R * D / 2;                    // B = wd [D][R]
-  uint4* s_wct = s_wdb + D * R / 2;                    // B = w_fg[R:]^T [N1][R]
-  uint4* s_wpt = s_wct + N1 * R / 2;                   // B = w_fg[:R]^T [N1][R]
-  float* s_raw = reinterpret_cast<float*>(s_wpt + N1 * R / 2);
+  WF* s_wdt = reinterpret_cast<WF*>(smem_raw);   // B = wd^T [R][D]
+  WF* s_wdb = s_wdt + frags<BF>(R, D);           // B = wd [D][R]
+  WF* s_wct = s_wdb + frags<BF>(D, R);           // B = w_fg[R:]^T [N1][R]
+  WF* s_wpt = s_wct + frags<BF>(N1, R);          // B = w_fg[:R]^T [N1][R]
+  float* s_raw = reinterpret_cast<float*>(s_wpt + frags<BF>(N1, R));
   float* s_x = s_raw + G::kRaw;          // [TM][SX]  x_{l+1}, then x_l
   float* s_dc = s_x + TM * SX;           // 2 x [TM][SX]  dx_{l+1}, dx_l in turns
   float* s_z = s_dc + 2 * TM * SX;       // [TM][SX]  z
@@ -505,24 +722,36 @@ __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
             const int t = t0 + 16 * w + g + 8 * h, col = 8 * j + 2 * q;
             f[j][h] = gg[j][h] = dzv[j][h] = make_float2(0.f, 0.f);
             if (t < T) {
-              const float* fr = args.fg + (base + t) * fg_ld + (size_t)l * N1 + col;
-              f[j][h] = __ldg(reinterpret_cast<const float2*>(fr));
-              gg[j][h] = __ldg(reinterpret_cast<const float2*>(fr + D));
-              dzv[j][h] = __ldg(reinterpret_cast<const float2*>(
-                  args.dz + (base + t) * z_ld + (size_t)l * D + col));
+              const auto* fr = args.fg + (base + t) * fg_ld + (size_t)l * N1 + col;
+              f[j][h] = ldg2(fr);
+              gg[j][h] = ldg2(fr + D);
+              dzv[j][h] = ldg2(args.dz + (base + t) * z_ld + (size_t)l * D + col);
             }
           }
         }
         float acc[NQ][4];
         zero(acc);
+        if constexpr (BF) {
 #pragma unroll
-        for (int ks = 0; ks < R / 8; ++ks) {
-          Tf32Frag af;
-          afrag<SX>(dcn, 16 * w, 8 * ks, lane, af);
-          uint4 bw[NQ];
+          for (int ks = 0; ks < (R + 15) / 16; ++ks) {
+            Bf16Frag af;
+            const float* p = dcn + 16 * w * SX + 16 * ks;
+            afrag16<SX, R % 16 == 0>(p, p + 8, lane, af);
+            uint2 bw[NQ];
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) bw[j] = s_wdt[(ks * NQ + j) * 32 + lane];
-          mma3_tf32_n(acc, af.hi, af.lo, bw);
+            for (int j = 0; j < NQ; ++j) bw[j] = s_wdt[(ks * NQ + j) * 32 + lane];
+            mma_bf16_n(acc, af, bw);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < R / 8; ++ks) {
+            Tf32Frag af;
+            afrag<SX>(dcn, 16 * w, 8 * ks, lane, af);
+            uint4 bw[NQ];
+#pragma unroll
+            for (int j = 0; j < NQ; ++j) bw[j] = s_wdt[(ks * NQ + j) * 32 + lane];
+            mma3_tf32_n(acc, af.hi, af.lo, bw);
+          }
         }
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
@@ -548,14 +777,27 @@ __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
       {
         float acc[NR][4];
         zero(acc);
+        if constexpr (BF) {
 #pragma unroll
-        for (int ks = 0; ks < D / 8; ++ks) {
-          Tf32Frag af;
-          afrag<SX>(s_z, 16 * w, 8 * ks, lane, af);
-          uint4 bw[NR];
+          for (int ks = 0; ks < (D + 15) / 16; ++ks) {
+            Bf16Frag af;
+            const float* p = s_z + 16 * w * SX + 16 * ks;
+            afrag16<SX, D % 16 == 0>(p, p + 8, lane, af);
+            uint2 bw[NR];
 #pragma unroll
-          for (int j = 0; j < NR; ++j) bw[j] = s_wdb[(ks * NR + j) * 32 + lane];
-          mma3_tf32_n(acc, af.hi, af.lo, bw);
+            for (int j = 0; j < NR; ++j) bw[j] = s_wdb[(ks * NR + j) * 32 + lane];
+            mma_bf16_n(acc, af, bw);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < D / 8; ++ks) {
+            Tf32Frag af;
+            afrag<SX>(s_z, 16 * w, 8 * ks, lane, af);
+            uint4 bw[NR];
+#pragma unroll
+            for (int j = 0; j < NR; ++j) bw[j] = s_wdb[(ks * NR + j) * 32 + lane];
+            mma3_tf32_n(acc, af.hi, af.lo, bw);
+          }
         }
         const float* bd = args.bd + (size_t)l * R;
 #pragma unroll
@@ -590,19 +832,38 @@ __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
         float ac[NR][4], ap[NR][4];
         zero(ac);
         zero(ap);
+        if constexpr (BF) {
 #pragma unroll
-        for (int ks = 0; ks < N1 / 8; ++ks) {
-          Tf32Frag a1, a2;
-          afrag<SA>(s_da, 16 * w, 8 * ks, lane, a1);
-          afrag<SA>(s_da, 16 * w + e, 8 * ks, lane, a2);
-          uint4 bc[NR], bp[NR];
+          for (int ks = 0; ks < N1 / 16; ++ks) {
+            Bf16Frag a1, a2;
+            const float* p1 = s_da + 16 * w * SA + 16 * ks;
+            const float* p2 = s_da + (16 * w + e) * SA + 16 * ks;
+            afrag16<SA>(p1, p1 + 8, lane, a1);
+            afrag16<SA>(p2, p2 + 8, lane, a2);
+            uint2 bc[NR], bp[NR];
 #pragma unroll
-          for (int j = 0; j < NR; ++j) {
-            bc[j] = s_wct[(ks * NR + j) * 32 + lane];
-            bp[j] = s_wpt[(ks * NR + j) * 32 + lane];
+            for (int j = 0; j < NR; ++j) {
+              bc[j] = s_wct[(ks * NR + j) * 32 + lane];
+              bp[j] = s_wpt[(ks * NR + j) * 32 + lane];
+            }
+            mma_bf16_n(ac, a1, bc);
+            mma_bf16_n(ap, a2, bp);
           }
-          mma3_tf32_n(ac, a1.hi, a1.lo, bc);
-          mma3_tf32_n(ap, a2.hi, a2.lo, bp);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < N1 / 8; ++ks) {
+            Tf32Frag a1, a2;
+            afrag<SA>(s_da, 16 * w, 8 * ks, lane, a1);
+            afrag<SA>(s_da, 16 * w + e, 8 * ks, lane, a2);
+            uint4 bc[NR], bp[NR];
+#pragma unroll
+            for (int j = 0; j < NR; ++j) {
+              bc[j] = s_wct[(ks * NR + j) * 32 + lane];
+              bp[j] = s_wpt[(ks * NR + j) * 32 + lane];
+            }
+            mma3_tf32_n(ac, a1.hi, a1.lo, bc);
+            mma3_tf32_n(ap, a2.hi, a2.lo, bp);
+          }
         }
 #pragma unroll
         for (int j = 0; j < NR; ++j) {
@@ -622,13 +883,24 @@ __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
       if (w < kVw) {
         float p[1][4];
         zero(p);
+        if constexpr (BF) {
 #pragma unroll 4
-        for (int ks = 0; ks < TM / 8; ++ks) {
-          Tf32Frag af;
-          uint4 bw[1];
-          afrag_tm<SX, D>(s_z, 16 * mv, 8 * ks, lane, af);
-          bfrag<SX>(dcn, 8 * ks, 8 * nv, lane, bw[0]);
-          mma3_step_rn(p, af, bw);
+          for (int ks = 0; ks < TM / 16; ++ks) {
+            Bf16Frag af;
+            uint2 bw[1];
+            afrag16_t<SX, D>(s_z, 16 * mv, 16 * ks, lane, af);
+            bfrag16<SX>(dcn, 16 * ks, 8 * nv, lane, bw[0]);
+            mma_bf16_step_rn(p, af, bw);
+          }
+        } else {
+#pragma unroll 4
+          for (int ks = 0; ks < TM / 8; ++ks) {
+            Tf32Frag af;
+            uint4 bw[1];
+            afrag_tm<SX, D>(s_z, 16 * mv, 8 * ks, lane, af);
+            bfrag<SX>(dcn, 8 * ks, 8 * nv, lane, bw[0]);
+            mma3_step_rn(p, af, bw);
+          }
         }
         float* pa = args.part_a + slot * (D * R + R);
 #pragma unroll
@@ -645,14 +917,27 @@ __global__ void __launch_bounds__(NT, 1) carry_bwd_kernel(
         float p[NJ][4];
         zero(p);
         const float* bsrc = hw == 0 ? s_da + e * SA : s_da;
+        if constexpr (BF) {
 #pragma unroll 4
-        for (int ks = 0; ks < TM / 8; ++ks) {
-          Tf32Frag af;
-          afrag_tm<SX, R>(s_x, 16 * mw, 8 * ks, lane, af);
-          uint4 bw[NJ];
+          for (int ks = 0; ks < TM / 16; ++ks) {
+            Bf16Frag af;
+            afrag16_t<SX, R>(s_x, 16 * mw, 16 * ks, lane, af);
+            uint2 bw[NJ];
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) bfrag<SA>(bsrc, 8 * ks, 8 * (nw0 + j), lane, bw[j]);
-          mma3_step_rn(p, af, bw);
+            for (int j = 0; j < NJ; ++j)
+              bfrag16<SA>(bsrc, 16 * ks, 8 * (nw0 + j), lane, bw[j]);
+            mma_bf16_step_rn(p, af, bw);
+          }
+        } else {
+#pragma unroll 4
+          for (int ks = 0; ks < TM / 8; ++ks) {
+            Tf32Frag af;
+            afrag_tm<SX, R>(s_x, 16 * mw, 8 * ks, lane, af);
+            uint4 bw[NJ];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) bfrag<SA>(bsrc, 8 * ks, 8 * (nw0 + j), lane, bw[j]);
+            mma3_step_rn(p, af, bw);
+          }
         }
         float* pw = args.part_w + slot * (K1 * N1);
 #pragma unroll
@@ -707,31 +992,35 @@ Layers make_layers(const int* dil, int L, int* sum_d) {
   return lay;
 }
 
-// The kernel of a direction at width W = R = D, with its shared memory set.
-template <int W>
+// The kernel of a direction at width W = R = D in mode BF, with its shared
+// memory set.
+template <int W, bool BF>
 cudaError_t prepare(int backward, const void** fn, int* smem) {
   if (backward) {
-    *fn = (const void*)carry_bwd_kernel<W>;
-    *smem = Geo<W>::kBwd;
+    *fn = (const void*)carry_bwd_kernel<W, BF>;
+    *smem = Geo<W, BF>::kBwd;
   } else {
-    *fn = (const void*)carry_fwd_kernel<W>;
-    *smem = Geo<W>::kFwd;
+    *fn = (const void*)carry_fwd_kernel<W, BF>;
+    *smem = Geo<W, BF>::kFwd;
   }
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *smem);
 }
 
+template <bool BF>
 cudaError_t prepare_width(int backward, int R, const void** fn, int* smem) {
-  if (R == 32) return prepare<32>(backward, fn, smem);
-  if (R == 16) return prepare<16>(backward, fn, smem);
-  return prepare<8>(backward, fn, smem);
+  if (R == 32) return prepare<32, BF>(backward, fn, smem);
+  if (R == 16) return prepare<16, BF>(backward, fn, smem);
+  return prepare<8, BF>(backward, fn, smem);
 }
 
-// Blocks of a direction's kernel that the device keeps resident at once.
-cudaError_t resident_blocks(int backward, int R, int* n) {
+// Blocks of a direction's kernel in a mode that the device keeps resident
+// at once.
+cudaError_t resident_blocks(int backward, int R, int bf16, int* n) {
   const void* fn;
   int smem, dev, sms, per;
-  cudaError_t e = prepare_width(backward, R, &fn, &smem);
+  cudaError_t e = bf16 ? prepare_width<true>(backward, R, &fn, &smem)
+                       : prepare_width<false>(backward, R, &fn, &smem);
   if (e != cudaSuccess) return e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -773,17 +1062,17 @@ cudaError_t launch(void (*kernel)(Args), const Args& args, int smem,
   return cudaGetLastError();
 }
 
-template <int W>
+template <int W, bool BF, typename Rec = typename Mode<BF>::Rec>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
-                 float* fg, float* z, float* scratch, int B, int T, int L,
+                 Rec* fg, Rec* z, float* scratch, int B, int T, int L,
                  int nchunk, cudaStream_t st) {
   constexpr int R = W;
-  FwdArgs a;
+  FwdArgsT<Rec> a;
   a.lay = make_layers(dil, L, &a.sum_d);
   const void* fn;
   int smem;
-  cudaError_t e = prepare<W>(0, &fn, &smem);
+  cudaError_t e = prepare<W, BF>(0, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   const size_t np = prog_floats(B, L);
   e = cudaMemsetAsync(scratch, 0,
@@ -794,21 +1083,21 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
   a.prog = reinterpret_cast<int*>(scratch);
   a.rings = scratch + np;
   a.B = B; a.T = T; a.L = L; a.nchunk = nchunk;
-  return (int)launch(carry_fwd_kernel<W>, a, smem, st);
+  return (int)launch(carry_fwd_kernel<W, BF>, a, smem, st);
 }
 
-template <int W>
-int backward_impl(const float* y, const float* dy, const float* fg,
-                  const float* dz, const float* w_fg, const float* wd,
+template <int W, bool BF, typename Rec = typename Mode<BF>::Rec>
+int backward_impl(const float* y, const float* dy, const Rec* fg,
+                  const Rec* dz, const float* w_fg, const float* wd,
                   const float* bd, const int* dil, float* dx, float* dw_fg,
                   float* dwd, float* dadd, float* dbd, float* scratch, int B,
                   int T, int L, int nchunk, cudaStream_t st) {
   constexpr int R = W, D = W;
-  BwdArgs a;
+  BwdArgsT<Rec> a;
   a.lay = make_layers(dil, L, &a.sum_d);
   const void* fn;
   int smem;
-  cudaError_t e = prepare<W>(1, &fn, &smem);
+  cudaError_t e = prepare<W, BF>(1, &fn, &smem);
   if (e != cudaSuccess) return (int)e;
   const size_t np = prog_floats(B, L), ncta = (size_t)B * nchunk;
   a.prog = reinterpret_cast<int*>(scratch);
@@ -822,7 +1111,7 @@ int backward_impl(const float* y, const float* dy, const float* fg,
   a.y = y; a.dy = dy; a.fg = fg; a.dz = dz; a.w_fg = w_fg; a.wd = wd;
   a.bd = bd; a.dx = dx;
   a.B = B; a.T = T; a.L = L; a.nchunk = nchunk;
-  e = launch(carry_bwd_kernel<W>, a, smem, st);
+  e = launch(carry_bwd_kernel<W, BF>, a, smem, st);
   if (e != cudaSuccess) return (int)e;
   // One partial sum per (layer, row, chunk), added in a fixed order.
   return (int)launch_reduce_partials<NT>(a.part_w, a.part_a, a.part_add,
@@ -843,19 +1132,20 @@ int fused_stack_carry_supports(int R, int D, int L) {
 }
 
 // Blocks of the forward (backward = 0) or backward (1) kernel at width
-// R = D that the device keeps resident at once (occupancy x SMs); a
-// negative CUDA error code on failure, -kUnsupported at a width not built.
-int fused_stack_carry_resident_blocks(int backward, int R, int D) {
+// R = D in the f32 (bf16 = 0) or bf16 (1) mode that the device keeps
+// resident at once (occupancy x SMs); a negative CUDA error code on
+// failure, -kUnsupported at a width not built.
+int fused_stack_carry_resident_blocks(int backward, int R, int D, int bf16) {
   if (!fused_stack_carry_supports(R, D, 1)) return -kUnsupported;
   int n = 0;
-  const cudaError_t e = resident_blocks(backward, R, &n);
+  const cudaError_t e = resident_blocks(backward, R, bf16, &n);
   return e == cudaSuccess ? n : -(int)e;
 }
 
 // The library's own plan: blocks a batch row (nchunk) of a direction's
-// grid (nchunk, B) on this device; the rule of carry_plan.
-int fused_stack_carry_nchunk(int backward, int B, int R, int D) {
-  const int n = fused_stack_carry_resident_blocks(backward, R, D);
+// grid (nchunk, B) in a mode on this device; the rule of carry_plan.
+int fused_stack_carry_nchunk(int backward, int B, int R, int D, int bf16) {
+  const int n = fused_stack_carry_resident_blocks(backward, R, D, bf16);
   return n < 0 ? n : plan_nchunk(B, n);
 }
 
@@ -884,8 +1174,25 @@ int fused_stack_carry_fwd_f32(const float* x, const float* w_fg,
   if (!fused_stack_carry_supports(R, D, L)) return kUnsupported;
   if (nchunk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto* f = R == 32 ? &forward_impl<32>
-          : R == 16 ? &forward_impl<16> : &forward_impl<8>;
+  auto* f = R == 32 ? &forward_impl<32, false>
+          : R == 16 ? &forward_impl<16, false> : &forward_impl<8, false>;
+  return f(x, w_fg, wd, add, bd, dil, y, fg, z, scratch, B, T, L, nchunk, st);
+}
+
+// The bf16 mode: the arguments of fused_stack_carry_fwd_f32, with fg and z
+// bf16 records [B,T,L*2D] and [B,T,L*D] (float32 weights, rounded in the
+// kernel).
+int fused_stack_carry_fwd_bf16(const float* x, const float* w_fg,
+                               const float* wd, const float* add,
+                               const float* bd, const int* dil, float* y,
+                               __nv_bfloat16* fg, __nv_bfloat16* z,
+                               float* scratch, int B, int T, int L, int R,
+                               int D, int nchunk, void* stream) {
+  if (!fused_stack_carry_supports(R, D, L)) return kUnsupported;
+  if (nchunk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto* f = R == 32 ? &forward_impl<32, true>
+          : R == 16 ? &forward_impl<16, true> : &forward_impl<8, true>;
   return f(x, w_fg, wd, add, bd, dil, y, fg, z, scratch, B, T, L, nchunk, st);
 }
 
@@ -903,8 +1210,27 @@ int fused_stack_carry_bwd_f32(const float* y, const float* dy,
   if (!fused_stack_carry_supports(R, D, L)) return kUnsupported;
   if (nchunk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto* f = R == 32 ? &backward_impl<32>
-          : R == 16 ? &backward_impl<16> : &backward_impl<8>;
+  auto* f = R == 32 ? &backward_impl<32, false>
+          : R == 16 ? &backward_impl<16, false> : &backward_impl<8, false>;
+  return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
+           scratch, B, T, L, nchunk, st);
+}
+
+// The bf16 mode: the arguments of fused_stack_carry_bwd_f32, with fg and dz
+// bf16 records; every output float32.
+int fused_stack_carry_bwd_bf16(const float* y, const float* dy,
+                               const __nv_bfloat16* fg,
+                               const __nv_bfloat16* dz, const float* w_fg,
+                               const float* wd, const float* bd,
+                               const int* dil, float* dx, float* dw_fg,
+                               float* dwd, float* dadd, float* dbd,
+                               float* scratch, int B, int T, int L, int R,
+                               int D, int nchunk, void* stream) {
+  if (!fused_stack_carry_supports(R, D, L)) return kUnsupported;
+  if (nchunk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto* f = R == 32 ? &backward_impl<32, true>
+          : R == 16 ? &backward_impl<16, true> : &backward_impl<8, true>;
   return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
            scratch, B, T, L, nchunk, st);
 }

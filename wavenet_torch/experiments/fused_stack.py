@@ -12,13 +12,24 @@ in JAX. The backward takes dz and is recompute-free.
 ``fused_stack_forward`` and ``fused_stack_backward`` run the carry kernel
 (``csrc/fused_stack_carry.cu``, shared with v2: ``carry_forward``,
 ``carry_backward``) for CUDA tensors and the plain versions for CPU
-tensors; each counts its launches in ``.launches``. The kernel runs a
-wavefront across time tiles on a grid (nchunk, B) that ``carry_plan``
-sizes from the blocks the card keeps resident.
+tensors; each counts its launches in ``.launches`` and by mode in
+``.launches_by`` ("carry", "carry_bf16"). The kernel runs a wavefront
+across time tiles on a grid (nchunk, B) that ``carry_plan`` sizes from
+the blocks the card keeps resident.
+
+At ``compute_dtype="bfloat16"`` the stack rounds where the TPU kernels do
+at ``kernel_dtype = bfloat16`` (``kernels/fused_stack.py``'s plain versions
+and the carry kernel's bf16 mode): bf16 weights and product operands,
+float32 accumulation and residual, added as ``(x + z @ wd) + bd``, and a
+bf16 fg record. v1's op then returns z in float32, computed outside the
+kernel from the bf16 fg record (JAX's ``_fg_to_z``); v2's returns the
+kernel's bf16 z record, computed from the float32 fg. Both backwards read
+dz in bf16.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,8 +48,8 @@ __all__ = ["supports", "fused_stack_forward_reference",
            "fused_stack_backward_reference", "fused_stack_forward",
            "fused_stack_backward", "fused_stack", "carry_forward",
            "carry_backward", "CarryPlan", "carry_plan", "device_carry_plan",
-           "carry_scratch_floats", "CARRY_TILE", "pack_stack_weights",
-           "tap_offsets"]
+           "carry_scratch_floats", "carry_key", "CARRY_TILE",
+           "pack_stack_weights", "tap_offsets"]
 
 #: Time steps of one tile of the carry kernel (csrc/fused_stack_carry.cu).
 CARRY_TILE = 128
@@ -58,7 +69,9 @@ def _dw_split(dw_fg: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
 
 
 def _fg_to_z(fg: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
-    """z [B, T, L*D] from the preactivations fg [B, T, L*2D]."""
+    """z [B, T, L*D] from the preactivations fg [B, T, L*2D], in fg's
+    dtype (v1's op passes a bf16 record widened to float32, as JAX's
+    ``_fg_to_z`` computes)."""
     L, D = config.num_layers, config.dilation_channels
     B, T = fg.shape[:2]
     f = fg.view(B, T, L, 2 * D)
@@ -148,32 +161,49 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_stack_carry_supports.argtypes = [i, i, i]
     lib.fused_stack_carry_supports.restype = i
-    lib.fused_stack_carry_resident_blocks.argtypes = [i, i, i]
+    lib.fused_stack_carry_resident_blocks.argtypes = [i] * 4
     lib.fused_stack_carry_resident_blocks.restype = i
-    lib.fused_stack_carry_nchunk.argtypes = [i, i, i, i]
+    lib.fused_stack_carry_nchunk.argtypes = [i] * 5
     lib.fused_stack_carry_nchunk.restype = i
     lib.fused_stack_carry_scratch_floats.argtypes = [i] * 7
     lib.fused_stack_carry_scratch_floats.restype = ctypes.c_longlong
-    lib.fused_stack_carry_fwd_f32.argtypes = [p] * 10 + [i] * 6 + [p]
-    lib.fused_stack_carry_fwd_f32.restype = i
-    lib.fused_stack_carry_bwd_f32.argtypes = [p] * 14 + [i] * 6 + [p]
-    lib.fused_stack_carry_bwd_f32.restype = i
+    for mode in ("f32", "bf16"):
+        getattr(lib, f"fused_stack_carry_fwd_{mode}").argtypes = (
+            [p] * 10 + [i] * 6 + [p])
+        getattr(lib, f"fused_stack_carry_fwd_{mode}").restype = i
+        getattr(lib, f"fused_stack_carry_bwd_{mode}").argtypes = (
+            [p] * 14 + [i] * 6 + [p])
+        getattr(lib, f"fused_stack_carry_bwd_{mode}").restype = i
     return lib
 
 
-_RESIDENT = {}   # (device, backward, R, D) -> resident blocks
+def _bf16(config: WaveNetConfig) -> bool:
+    return _stack.record_dtype(config) == torch.bfloat16
+
+
+def carry_key(config: WaveNetConfig) -> str:
+    """The ``launches_by`` key of a carry launch for ``config``: "carry",
+    or "carry_bf16" for the bf16 mode."""
+    return "carry_bf16" if _bf16(config) else "carry"
+
+
+_RESIDENT = {}   # (device, backward, R, D, bf16) -> resident blocks
 
 
 def device_carry_plan(config: WaveNetConfig, B: int, backward: bool):
-    """(resident blocks, plan) of a direction's kernel on the current
-    card at the config's width (builds the kernel)."""
+    """(resident blocks, plan) of a direction's kernel in the config's
+    mode on the current card at the config's width (builds the kernel).
+    The bf16 mode's smaller weight fragments may keep more blocks
+    resident, so each mode has its own plan."""
     R, D = config.residual_channels, config.dilation_channels
-    key = (torch.cuda.current_device(), bool(backward), R, D)
+    bf16 = _bf16(config)
+    key = (torch.cuda.current_device(), bool(backward), R, D, bf16)
     if key not in _RESIDENT:
-        n = _lib().fused_stack_carry_resident_blocks(int(backward), R, D)
+        n = _lib().fused_stack_carry_resident_blocks(int(backward), R, D,
+                                                     int(bf16))
         if n < 1:
             raise RuntimeError(f"fused_stack_carry: no resident block at "
-                               f"R={R}, D={D} (code {n})")
+                               f"R={R}, D={D}, bf16={bf16} (code {n})")
         _RESIDENT[key] = n
     return _RESIDENT[key], carry_plan(B, _RESIDENT[key])
 
@@ -185,7 +215,6 @@ def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     if c.filter_width != 2:
         raise NotImplementedError("fused_stack_carry needs filter_width=2")
-    _stack.require_float32(c, "fused_stack_carry")
     if not lib.fused_stack_carry_supports(R, D, L):
         raise NotImplementedError(
             "the fused_stack_carry kernel is built for R == D in (8, 16, 32) "
@@ -200,8 +229,9 @@ def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
 def carry_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
                   emit_z: bool, _plan: Optional[CarryPlan] = None):
     """One launch of the carry kernel's forward on CUDA tensors -> (y, fg,
-    z or None): z [B,T,L*D] only when ``emit_z`` (v2). ``_plan`` pins the
-    grid (tests); by default ``device_carry_plan``'s."""
+    z or None): z [B,T,L*D] only when ``emit_z`` (v2); fg and z in the
+    record dtype (bf16 at bf16, the kernel's bf16 mode). ``_plan`` pins
+    the grid (tests); by default ``device_carry_plan``'s."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = x.shape[:2]
@@ -212,12 +242,15 @@ def carry_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
     _launch.check(_OP, "x", x, (B, T, R), dev)
     _launch.check(_OP, "add", add, (L, B, 2 * D), dev)
     f32 = dict(dtype=torch.float32, device=dev)
+    rec = dict(dtype=_stack.record_dtype(c), device=dev)
     y = torch.empty((B, T, R), **f32)
-    fg = torch.empty((B, T, L * 2 * D), **f32)
-    z = torch.empty((B, T, L * D), **f32) if emit_z else None
+    fg = torch.empty((B, T, L * 2 * D), **rec)
+    z = torch.empty((B, T, L * D), **rec) if emit_z else None
     scratch = torch.empty((carry_scratch_floats(
         False, B, L, R, D, sum(c.dilations), plan.nchunk),), **f32)
-    err = lib.fused_stack_carry_fwd_f32(
+    fn = getattr(lib, "fused_stack_carry_fwd_"
+                 + ("bf16" if _bf16(c) else "f32"))
+    err = fn(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
         None if z is None else z.data_ptr(), scratch.data_ptr(), B, T, L, R,
@@ -231,8 +264,10 @@ def carry_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
 def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
                    _plan: Optional[CarryPlan] = None):
     """The carry kernel's backward on CUDA tensors -> (dx, dw_fg [L,2R,2D],
-    dwd, dadd [L,B,2D], dbd [L,1,R]); gradients summed in a fixed order,
-    so repeated calls on one grid are bitwise equal. ``_plan`` as in
+    dwd, dadd [L,B,2D], dbd [L,1,R]), all float32; fg in the record dtype,
+    dz read in it (a float32 dz is rounded to bf16 at bf16, as the TPU
+    kernels read it). Gradients are summed in a fixed order, so repeated
+    calls on one grid are bitwise equal. ``_plan`` as in
     ``carry_forward``."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
@@ -241,10 +276,14 @@ def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
     dil = _check_call(lib, c, y, w_fg, wd, bd)
     plan = _plan or device_carry_plan(c, B, backward=True)[1]
     dev = y.device
-    for name, t, shape in (("y", y, (B, T, R)), ("dy", dy, (B, T, R)),
-                           ("fg", fg, (B, T, L * 2 * D)),
-                           ("dz", dz, (B, T, L * D))):
-        _launch.check(_OP, name, t, shape, dev)
+    rec = _stack.record_dtype(c)
+    dz = dz.to(rec).contiguous()
+    for name, t, shape, dtype in (
+            ("y", y, (B, T, R), torch.float32),
+            ("dy", dy, (B, T, R), torch.float32),
+            ("fg", fg, (B, T, L * 2 * D), rec),
+            ("dz", dz, (B, T, L * D), rec)):
+        _launch.check(_OP, name, t, shape, dev, dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((B, T, R), **f32)
     dw_fg = torch.empty((L, 2 * R, 2 * D), **f32)
@@ -253,7 +292,9 @@ def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
     dbd = torch.empty((L, 1, R), **f32)
     scratch = torch.empty((carry_scratch_floats(
         True, B, L, R, D, sum(c.dilations), plan.nchunk),), **f32)
-    err = lib.fused_stack_carry_bwd_f32(
+    fn = getattr(lib, "fused_stack_carry_bwd_"
+                 + ("bf16" if _bf16(c) else "f32"))
+    err = fn(
         y.data_ptr(), dy.data_ptr(), fg.data_ptr(), dz.data_ptr(),
         w_fg.data_ptr(), wd.data_ptr(), bd.data_ptr(), ctypes.addressof(dil),
         dx.data_ptr(), dw_fg.data_ptr(), dwd.data_ptr(), dadd.data_ptr(),
@@ -280,6 +321,7 @@ def fused_stack_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
     y, fg, _ = carry_forward(x, w_fg, wd, add, bd, config, emit_z=False,
                              _plan=_plan)
     fused_stack_forward.launches += 1
+    fused_stack_forward.launches_by[carry_key(config)] += 1
     return y, fg
 
 
@@ -297,12 +339,16 @@ def fused_stack_backward(y, fg, dz, dy, w_fg, wd, bd,
     dx, dw_fg, dwd, dadd, dbd = carry_backward(y, dy, fg, dz, w_fg, wd, bd,
                                                config, _plan=_plan)
     fused_stack_backward.launches += 1
+    fused_stack_backward.launches_by[carry_key(config)] += 1
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
 
-#: Kernel launches made by each wrapper (read by chip_smoke.py).
+#: Kernel launches made by each wrapper (read by chip_smoke.py), in all
+#: and by mode ("carry", "carry_bf16").
 fused_stack_forward.launches = 0
 fused_stack_backward.launches = 0
+fused_stack_forward.launches_by = collections.Counter()
+fused_stack_backward.launches_by = collections.Counter()
 
 
 class _FusedStack(torch.autograd.Function):
@@ -314,7 +360,8 @@ class _FusedStack(torch.autograd.Function):
                                     bd.contiguous(), config)
         ctx.config = config
         ctx.save_for_backward(y, fg, w_fg, wd, bd)
-        return y, _fg_to_z(fg, config)
+        # JAX computes z in float32 from the fg record (bf16 at bf16).
+        return y, _fg_to_z(fg.float(), config)
 
     @staticmethod
     def backward(ctx, dy, dz):
@@ -329,6 +376,6 @@ class _FusedStack(torch.autograd.Function):
 
 
 def fused_stack(x, w_fg, wd, add, bd, config: WaveNetConfig):
-    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D])."""
-    _stack.require_float32(config, "fused_stack (pallas_stack_version 1)")
+    """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]); z is
+    float32 in both compute dtypes, computed from the fg record."""
     return _FusedStack.apply(x, w_fg, wd, add, bd, config)

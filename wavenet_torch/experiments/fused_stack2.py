@@ -14,17 +14,21 @@ TPU; the port returns them unpadded: fg ``[B, T, L*2D]`` and z
 ``fused_stack2_forward`` and ``fused_stack2_backward`` run the carry
 kernel (``csrc/fused_stack_carry.cu``, with z) for CUDA tensors and the
 plain versions for CPU tensors; each counts its launches in
-``.launches``.
+``.launches`` and by mode in ``.launches_by`` ("carry", "carry_bf16").
+At ``compute_dtype="bfloat16"`` the fg and z records are bf16 and the op
+returns the bf16 z record, which the kernel computed from the float32
+fg, as JAX's ``_extract_z`` returns it (v1's op differs here).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
 
 from wavenet_torch.experiments.fused_stack import (
-    _OP, CarryPlan, _dw_split, carry_backward, carry_forward)
+    _OP, CarryPlan, _dw_split, carry_backward, carry_forward, carry_key)
 from wavenet_torch.kernels import _launch
 from wavenet_torch.kernels import fused_stack as _stack
 from wavenet_torch.kernels.stack_pack import pack_stack_weights
@@ -70,7 +74,8 @@ def fused_stack2_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
 
 def fused_stack2_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
                          _plan: Optional[CarryPlan] = None):
-    """Whole stack -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]).
+    """Whole stack -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]); fg and z
+    in the record dtype.
 
     CPU tensors run ``fused_stack2_forward_reference``; CUDA tensors
     launch the carry kernel (with z; ``_plan`` pins its grid) or raise."""
@@ -79,6 +84,7 @@ def fused_stack2_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
     out = carry_forward(x, w_fg, wd, add, bd, config, emit_z=True,
                         _plan=_plan)
     fused_stack2_forward.launches += 1
+    fused_stack2_forward.launches_by[carry_key(config)] += 1
     return out
 
 
@@ -96,12 +102,16 @@ def fused_stack2_backward(y, dy, fg, dz, w_fg, wd, bd,
     dx, dw_fg, dwd, dadd, dbd = carry_backward(y, dy, fg, dz, w_fg, wd, bd,
                                                config, _plan=_plan)
     fused_stack2_backward.launches += 1
+    fused_stack2_backward.launches_by[carry_key(config)] += 1
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
 
-#: Kernel launches made by each wrapper (read by chip_smoke.py).
+#: Kernel launches made by each wrapper (read by chip_smoke.py), in all
+#: and by mode ("carry", "carry_bf16").
 fused_stack2_forward.launches = 0
 fused_stack2_backward.launches = 0
+fused_stack2_forward.launches_by = collections.Counter()
+fused_stack2_backward.launches_by = collections.Counter()
 
 
 class _FusedStack2(torch.autograd.Function):
@@ -129,6 +139,6 @@ class _FusedStack2(torch.autograd.Function):
 
 def fused_stack2(x, w_fg, wd, add, bd, config: WaveNetConfig):
     """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]); z comes
-    from the kernel."""
-    _stack.require_float32(config, "fused_stack2 (pallas_stack_version 2)")
+    from the kernel, in the record dtype (its cotangent comes back in
+    it)."""
     return _FusedStack2.apply(x, w_fg, wd, add, bd, config)

@@ -67,7 +67,7 @@ RECORD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SOURCES = {"mma": "fused_stack_mma", "simt": "fused_stack"}
 
 __all__ = ["supports", "stack_kernel_plan", "record_dtype", "launch_key",
-           "require_float32", "fused_stack_forward_reference",
+           "fused_stack_forward_reference",
            "fused_stack_backward_reference", "mma3_matmul", "forward",
            "backward", "fused_stack3", "pack_stack_weights", "tap_offsets"]
 
@@ -102,8 +102,8 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     in both directions, and the wide width, which "simt" lacks), "simt"
     at the other widths ``csrc/fused_stack.cu`` is built for. At
     bfloat16: "mma" in its bf16 mode at the same widths, the only bf16
-    stack kernel. Raises for any other width (ROADMAP.md queue 2, a4; at
-    bf16, a3 and a4). The simt library's own
+    kernel of this generation. Raises for any other width (ROADMAP.md
+    queue 2, a4; at bf16, a3 and a4). The simt library's own
     ``fused_stack_supports_width`` is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
     if record_dtype(config) == torch.bfloat16:
@@ -121,14 +121,6 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
         f"the fused_stack kernels are built for R == D in "
         f"{tuple(sorted(set(SIMT_WIDTHS + MMA_WIDTHS)))}; got R={R}, D={D} "
         "(ROADMAP.md queue 2, a4)")
-
-
-def require_float32(config: WaveNetConfig, op: str) -> None:
-    """Raise for a bf16 config in an op that has no bf16 mode."""
-    if record_dtype(config) != torch.float32:
-        raise NotImplementedError(
-            f"{op} runs float32 only; its bf16 mode is queued in "
-            "ROADMAP.md (queue 2, a3)")
 
 
 # ---------------------------------------------------------------------------
