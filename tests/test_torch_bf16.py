@@ -251,18 +251,18 @@ def test_stack_cost_counts_bf16_records_at_two_bytes():
     assert tflops.H100_BF16_FLOPS == 989e12
 
 
-@pytest.mark.parametrize("W,want", [(32, "mma"), (16, None), (64, "mma"),
-                                    (128, None)])
+@pytest.mark.parametrize("W,want", [(32, "mma"), (16, "simt"), (64, "mma"),
+                                    (128, None), (8, "simt")])
 def test_stack_kernel_plan_bf16(W, want):
     c = TConfig(dilations=(1, 2), residual_channels=W, dilation_channels=W,
                 skip_channels=16, quantization_channels=32,
                 compute_dtype="bfloat16")
     if want is None:
-        with pytest.raises(NotImplementedError, match="a3 and a4"):
+        with pytest.raises(NotImplementedError, match="a4"):
             fs.stack_kernel_plan(c)
     else:
         assert fs.stack_kernel_plan(c) == want
-        assert fs.launch_key(want, c) == "mma_bf16"
+        assert fs.launch_key(want, c) == f"{want}_bf16"
         assert fs.record_dtype(c) == torch.bfloat16
 
 
@@ -286,16 +286,22 @@ def _bf16_paths():
                 for cfg in (c, c32)]
     scan = [lambda cfg=cfg: sample.generate(
         p, cfg, 4, torch.Generator().manual_seed(0)) for cfg in (c, c32)]
+    R, D = c.residual_channels, c.dilation_channels
+    w_fg, wd, add, bd = stack
+    layer = (x, w_fg[0].view(2, R, 2 * D), wd[0], add[0], bd[0], 1)
     return {
-        "simt_pinned": (lambda: fs._route("simt", c), "a3"),
+        # fused_stack.cu's bf16 mode (ROADMAP a3 step 3) and the layer op
+        # at bf16 (a3 step 2) run: on the CPU the plain bf16 versions, a
+        # float32 y and the bf16 z record, or the layer's float32 z.
+        "simt_pinned": (lambda: fs.fused_stack3(x, *stack, c, kernel="simt"),
+                        torch.bfloat16),
         # The retired stacks run at bf16 (ROADMAP a3 step 1), each with its
         # z: v1's float32 from the bf16 fg record, v2's the bf16 record.
         "stack_v1": (lambda: fs1.fused_stack(x, *stack, c), torch.float32),
         "stack_v2": (lambda: fs2.fused_stack2(x, *stack, c),
                      torch.bfloat16),
         "dilated_layer": (lambda: dl.fused_dilated_layer(
-            x, None, None, None, None, 1, compute_dtype=torch.bfloat16),
-            "a3"),
+            *layer, compute_dtype=torch.bfloat16), torch.float32),
         "prefill": (prefill, None),
         "generate_cuda": (generate, None),
         "scan_sampler": (scan, None),
@@ -310,10 +316,12 @@ def test_bf16_paths_without_a_port_raise(path):
     falls back to float32. Generation (prefill, ``generate_cuda``, the
     scan sampler) is no such path: as in the JAX package it runs at
     float32 whatever ``compute_dtype`` says, so a bf16 config's result is
-    the float32 config's, bitwise. The retired stacks v1 and v2 were such
-    paths and now run on the CPU (the plain versions): a float32 y and
-    each version's z (``tests/test_torch_stack_retired_bf16.py`` holds them
-    against JAX)."""
+    the float32 config's, bitwise. The retired stacks v1 and v2, the simt
+    stack kernel pinned and the one-layer op were such paths and now run
+    on the CPU (the plain versions): a float32 y and each path's z
+    (``tests/test_torch_stack_retired_bf16.py``,
+    ``tests/test_torch_stack_bf16.py`` and
+    ``tests/test_torch_dilated_layer_bf16.py`` hold them against JAX)."""
     fn, item = _bf16_paths()[path]
     if isinstance(item, torch.dtype):
         y, z = fn()

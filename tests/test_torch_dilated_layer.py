@@ -109,10 +109,19 @@ def test_shifts_match_jax():
 
 
 def test_bf16_and_unsupported_device_raise():
+    """bf16 runs (on the CPU its plain version: float32 outputs that
+    differ from the float32 op's; ``tests/test_torch_dilated_layer_bf16.py``
+    holds it against JAX); a dtype the op lacks and an unsupported device
+    raise."""
     args, _, _ = _inputs(8)
     t = [torch.from_numpy(a) for a in args]
-    with pytest.raises(NotImplementedError, match="queue item 1"):
-        tdl.fused_dilated_layer(*t, 4, compute_dtype=torch.bfloat16)
+    y16, z16 = tdl.fused_dilated_layer(*t, 4, compute_dtype=torch.bfloat16)
+    y32, z32 = tdl.fused_dilated_layer(*t, 4)
+    assert y16.dtype == z16.dtype == torch.float32
+    assert torch.isfinite(y16).all() and torch.isfinite(z16).all()
+    assert not torch.equal(y16, y32) and not torch.equal(z16, z32)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tdl.fused_dilated_layer(*t, 4, compute_dtype=torch.float16)
     x = torch.empty((1, 4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tdl.forward(x, None, None, None, None, 1)

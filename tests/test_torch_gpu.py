@@ -484,6 +484,74 @@ def test_fused_stack_bf16_matches_reference(setup, dilations, B, T):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,dilations,B,T", [
+    (8, (1, 2, 4, 8, 16), 2, 150),
+    (16, (1, 64, 2, 512), 3, 700),
+    (32, _DIL10, 2, 1500),
+])
+def test_fused_stack_simt_bf16_matches_reference(setup, W, dilations, B, T):
+    """The bf16 mode of fused_stack.cu (pinned "simt"; the route at 8 and
+    16) against the plain bf16 versions on bf16's gap: bf16 records,
+    float32 y and gradients; ``launches_by`` counts "simt_bf16"; repeated
+    calls are bitwise equal."""
+    c32, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    c = _bf16(c32)
+    if W < 32:
+        assert fs.stack_kernel_plan(c) == "simt"
+    f0, b0 = (fs.forward.launches_by["simt_bf16"],
+              fs.backward.launches_by["simt_bf16"])
+    y, fg, z = fs.forward(*args, c, kernel="simt")
+    ref = fs.fused_stack_forward_reference(*args, c)
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    torch.cuda.synchronize()
+    assert fs.forward.launches_by["simt_bf16"] == f0 + 1
+    assert (y.dtype, fg.dtype, z.dtype) == (torch.float32, torch.bfloat16,
+                                            torch.bfloat16)
+    for name, got, want, want32 in zip(("y", "fg", "z"), (y, fg, z), ref,
+                                       ref32):
+        _hold_bf16(got, want, want32, name)
+    again = fs.forward(*args, c, kernel="simt")
+    assert all(torch.equal(a, b) for a, b in zip((y, fg, z), again))
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c, kernel="simt")
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    assert fs.backward.launches_by["simt_bf16"] == b0 + 1
+    for name, got, want, want32 in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                                       grads, gref, gref32):
+        assert got.dtype == torch.float32, name
+        _hold_bf16(got, want, want32, name)
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c, kernel="simt")
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_fused_stack_simt_bf16_matches_mma_bf16(setup):
+    """The two kernels' bf16 modes compute one map: "simt" against "mma"
+    at W = 32, on bf16's gap from the plain float32 versions."""
+    c32, args, (dy, dz) = _stack_inputs(32, _DIL10, 3, 1500, 3)
+    c = _bf16(c32)
+    outs = {k: fs.forward(*args, c, kernel=k) for k in ("mma", "simt")}
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    for name, got, want, want32 in zip(("y", "fg", "z"), outs["simt"],
+                                       outs["mma"], ref32):
+        _hold_bf16(got, want, want32, name)
+    y, fg, _ = outs["mma"]
+    w_fg, wd, _, bd = args[1:]
+    grads = {k: fs.backward(y, dy, fg, dz, w_fg, wd, bd, c, kernel=k)
+             for k in ("mma", "simt")}
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    for name, got, want, want32 in zip(("dx", "dw_fg", "dwd", "dadd", "dbd"),
+                                       grads["simt"], grads["mma"], gref32):
+        _hold_bf16(got, want, want32, name)
+
+
 # Width 64 in float32: the products sum 128 terms. With the W = 32 cases'
 # weight scale, fg reaches ~20-40 over 6-10 layers and its float32 sums
 # round by ~1e-4 (the kernel lies as far from the plain version as from
@@ -586,8 +654,7 @@ def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
 
     c64, args, _ = _stack_inputs(64, (1, 2), 2, 64)
     n = (fs.forward.launches, fs.backward.launches)
-    with pytest.raises(NotImplementedError,
-                       match="a3" if bf16 else "not built for R=64"):
+    with pytest.raises(NotImplementedError, match="not built for R=64"):
         fs.forward(*args, cfg(64, 64), kernel="simt")
     for R, D in ((128, 128), (64, 32)):
         c = cfg(R, D)
@@ -608,14 +675,23 @@ def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
 
 @pytest.mark.gpu
 def test_fused_stack_bf16_rejects_what_it_lacks(setup):
+    """At bf16 the widths still lacking (R = D = 128, R != D) raise,
+    naming ROADMAP a4, on every kernel; a float32 fg record is refused."""
     c32, args, (dy, dz) = _stack_inputs(32, (1, 2), 2, 64)
     c = _bf16(c32)
     n = fs.forward.launches
-    with pytest.raises(NotImplementedError, match="a3"):
-        fs.forward(*args, c, kernel="simt")
-    c16, args16, _ = _stack_inputs(16, (1, 2), 2, 64)
-    with pytest.raises(NotImplementedError, match="a3 and a4"):
-        fs.forward(*args16, _bf16(c16))
+    for R, D in ((128, 128), (16, 8)):
+        cw = _bf16(WaveNetConfig(dilations=(1, 2), residual_channels=R,
+                                 dilation_channels=D, skip_channels=16,
+                                 quantization_channels=32))
+        x = torch.zeros(2, 64, R, device="cuda")
+        w = (torch.zeros(2, 2 * R, 2 * D, device="cuda"),
+             torch.zeros(2, D, R, device="cuda"),
+             torch.zeros(2, 2, 2 * D, device="cuda"),
+             torch.zeros(2, 1, R, device="cuda"))
+        for kernel in ("auto", "mma", "simt"):
+            with pytest.raises(NotImplementedError, match="a4"):
+                fs.forward(x, *w, cw, kernel=kernel)
     y, fg, _ = fs.fused_stack_forward_reference(*args, c)
     w_fg, wd, _, bd = args[1:]
     with pytest.raises(ValueError, match="fg"):   # a float32 fg record
@@ -881,6 +957,7 @@ def _layer_inputs(W, B, T, seed=0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
 @pytest.mark.parametrize("W,d,B,T,ref64", [
     (8, 1, 2, 150, False), (16, 64, 3, 700, False),
     (32, 512, 2, 1500, False), (32, 2000, 1, 1000, False),   # d >= T
@@ -893,29 +970,45 @@ def _layer_inputs(W, B, T, seed=0):
     # part of GRAD_TOL at a near-zero element: the reference is float64.
     (32, 100, 1, 150000, True),
 ])
-def test_dilated_layer_matches_reference(setup, W, d, B, T, ref64):
+def test_dilated_layer_matches_reference(setup, W, d, B, T, ref64, mode):
     """The layer kernel pair against the plain versions at the edges of
-    its 128-step tile and of the dilation; the backward is bitwise
+    its 128-step tile and of the dilation, in each mode (bf16 on bf16's gap
+    from the plain float32 versions); the backward is bitwise
     repeatable."""
     (x, w, wd, add, bd), (dy, dz) = _layer_inputs(W, B, T)
     dt = torch.float64 if ref64 else torch.float32
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[mode]
     f0, b0 = dl.forward.launches, dl.backward.launches
-    y, z = dl.forward(x, w, wd, add, bd, d)
+    m0 = dl.forward.launches_by[mode], dl.backward.launches_by[mode]
+    y, z = dl.forward(x, w, wd, add, bd, d, cd)
     yr, zr = dl.fused_dilated_layer_reference(
-        *[t.to(dt) for t in (x, w, wd, add, bd)], d)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y.to(dt), yr, **FWD_TOL)
-    torch.testing.assert_close(z.to(dt), zr, **FWD_TOL)
-    got = dl.backward(x, w, wd, add, dy, dz, d)
-    again = dl.backward(x, w, wd, add, dy, dz, d)
+        *[t.to(dt) for t in (x, w, wd, add, bd)], d, compute_dtype=cd)
+    got = dl.backward(x, w, wd, add, dy, dz, d, cd)
+    again = dl.backward(x, w, wd, add, dy, dz, d, cd)
     ref = dl.fused_dilated_layer_backward_reference(
-        *[t.to(dt) for t in (x, w, wd, add, dy, dz)], d)
+        *[t.to(dt) for t in (x, w, wd, add, dy, dz)], d, compute_dtype=cd)
     torch.cuda.synchronize()
-    for name, g, r in zip(("dx_local", "dpast", "dw", "dwd", "dadd", "dbd"),
-                          got, ref):
-        torch.testing.assert_close(g.to(dt), r, **GRAD_TOL, msg=name)
+    names = ("dx_local", "dpast", "dw", "dwd", "dadd", "dbd")
+    if mode == "f32":
+        torch.testing.assert_close(y.to(dt), yr, **FWD_TOL)
+        torch.testing.assert_close(z.to(dt), zr, **FWD_TOL)
+        for name, g, r in zip(names, got, ref):
+            torch.testing.assert_close(g.to(dt), r, **GRAD_TOL, msg=name)
+    else:
+        assert y.dtype == z.dtype == torch.float32
+        y32, z32 = dl.fused_dilated_layer_reference(
+            *[t.to(dt) for t in (x, w, wd, add, bd)], d)
+        ref32 = dl.fused_dilated_layer_backward_reference(
+            *[t.to(dt) for t in (x, w, wd, add, dy, dz)], d)
+        for name, g, r, r32 in zip(("y", "z") + names, (y, z) + tuple(got),
+                                   (yr, zr) + tuple(ref),
+                                   (y32, z32) + tuple(ref32)):
+            assert g.dtype == torch.float32, name
+            _hold_bf16(g.to(dt), r, r32, name)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert (dl.forward.launches, dl.backward.launches) == (f0 + 1, b0 + 2)
+    assert (dl.forward.launches_by[mode],
+            dl.backward.launches_by[mode]) == (m0[0] + 1, m0[1] + 2)
 
 
 @pytest.mark.gpu
@@ -933,43 +1026,61 @@ def test_dilated_layer_refuses_misaligned(setup):
 
 
 @pytest.mark.gpu
-def test_dilated_layer_tiling_matches_library(setup):
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+def test_dilated_layer_tiling_matches_library(setup, bf16):
     """``layer_tiling`` (pure) against the library's own grid, on the
-    library's resident counts of each direction and width, and the
+    library's resident counts of each mode, direction and width, and the
     backward's scratch size against the grid it implies."""
     lib = dl._lib()
+    cd = (torch.float32, torch.bfloat16)[bf16]
     for W in (8, 16, 32):
         for backward in (0, 1):
-            n = lib.dilated_layer_resident_blocks(backward, W, W)
+            n = lib.dilated_layer_resident_blocks(backward, W, W, bf16)
             assert n >= 1, (W, backward, n)
+            assert dl.device_layer_tiling(bool(backward), 8, 19070, W, W,
+                                          cd)[0] == n
             for B in (1, 2, 8, n - 1, n, n + 1, 3 * n):
                 for T in (1, 100, 128, 129, 19070, 150000):
                     if B < 1:
                         continue
                     tl = dl.layer_tiling(B, T, n)
                     assert tl.nchunk == lib.dilated_layer_nchunk(
-                        backward, B, T, W, W), (W, backward, B, T)
+                        backward, B, T, W, W, bf16), (W, backward, B, T)
                     if backward:
                         assert lib.dilated_layer_bwd_scratch_floats(
-                            B, T, W, W) == B * tl.nchunk * (
+                            B, T, W, W, bf16) == B * tl.nchunk * (
                                 5 * W * W + 3 * W), (W, B, T)
-    assert lib.dilated_layer_nchunk(0, 1, 100, 24, 24) < 0
-    assert lib.dilated_layer_nchunk(0, 1, 0, 32, 32) < 0
+    assert lib.dilated_layer_nchunk(0, 1, 100, 24, 24, bf16) < 0
+    assert lib.dilated_layer_nchunk(0, 1, 0, 32, 32, bf16) < 0
 
 
 @pytest.mark.gpu
-def test_dilated_layer_op_gradients(setup):
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_dilated_layer_op_gradients(setup, mode):
     """``fused_dilated_layer`` on the card against autograd of the plain
-    forward (the tap-0 gradient shift-added by the op)."""
+    forward (the tap-0 gradient shift-added by the op); at bf16 against the
+    op's plain bf16 versions on the CPU, on bf16's gap from the float32
+    op there."""
     args, (dy, dz) = _layer_inputs(32, 2, 1000, 1)
+    if mode == "f32":
+        grads = []
+        for fn in (dl.fused_dilated_layer, dl.fused_dilated_layer_reference):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            y, z = fn(*leaves, 100)
+            (y * dy).sum().add((z * dz).sum()).backward()
+            grads.append([t.grad for t in leaves])
+        for name, g, r in zip(_GRADS, *grads):
+            torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+        return
     grads = []
-    for fn in (dl.fused_dilated_layer, dl.fused_dilated_layer_reference):
-        leaves = [a.clone().requires_grad_(True) for a in args]
-        y, z = fn(*leaves, 100)
-        (y * dy).sum().add((z * dz).sum()).backward()
-        grads.append([t.grad for t in leaves])
-    for name, g, r in zip(_GRADS, *grads):
-        torch.testing.assert_close(g, r, **GRAD_TOL, msg=name)
+    for dev, cd in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                    ("cpu", torch.float32)):
+        leaves = [a.to(dev).clone().requires_grad_(True) for a in args]
+        y, z = dl.fused_dilated_layer(*leaves, 100, compute_dtype=cd)
+        (y * dy.to(dev)).sum().add((z * dz.to(dev)).sum()).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for name, g, r, r32 in zip(_GRADS, *grads):
+        _hold_bf16(g, r, r32, name)
 
 
 @pytest.mark.gpu

@@ -8,8 +8,10 @@ rounds z, dx_{l+1} and da to bf16 before its products
 (``wavenet_tpu/kernels/fused_stack3.py``). ``wavenet_torch.kernels.
 fused_stack``'s plain versions round at the same points; here they are held
 against the TPU kernels run in interpret mode on the CPU, at the JAX kernel
-tests' small config (5 layers, R = D = 8), B2 x T150, gc and no gc, with
-inputs made by numpy from a seed.
+tests' small config (5 layers, R = D = 8) and at its layers with R = D = 16
+(the tiny config's width, where the card runs ``csrc/fused_stack.cu``'s
+bf16 mode), B2 x T150, gc and no gc, with inputs made by numpy from a
+seed.
 
 Tolerances: the JAX kernel's own bf16 result differs from its float32
 result by ~3e-3 of max |y| and 3e-3 to 8e-3 of max |grad| on these inputs
@@ -21,8 +23,9 @@ round the same values at the same points and only the order of float32
 sums differs. The CUDA kernel's bf16 mode is held against these plain
 versions on the card (``tests/test_torch_gpu.py``).
 
-At the wide width (R = D = 64, 4 layers, gc) the products sum 128 terms,
-and the other float32 order flips a bf16 rounding in a small share of
+At the wide width (R = D = 64, 4 layers, gc) the products sum 128 terms
+(and at R = D = 16 32 terms, enough for the same), and the other float32
+order flips a bf16 rounding in a small share of
 each layer's records (layer 0's fg records too, where both start from
 the same x), and every later layer carries a flip on: the port's own
 plain bf16 stack summed in float64 lies about as far from itself summed
@@ -65,14 +68,19 @@ LAYER_MAX_RTOL, LAYER_MEAN_RTOL = 2.0 ** -5, 1e-4
 NAMES = ("dx", "dw_fg", "dwd", "dadd", "dbd")
 
 
-# The JAX kernel tests' small config, and the wide width R = D = 64 with a
-# tap of a whole 64-row tile (gc only: each interpret run takes seconds).
-WIDTHS = {"small": {}, "w64": dict(dilations=(1, 64, 2, 33),
-                                   residual_channels=64,
-                                   dilation_channels=64)}
-CASES = pytest.mark.parametrize("gc,width", [(False, "small"),
-                                             (True, "small"), (True, "w64")],
-                                ids=["False", "True", "w64"])
+# The JAX kernel tests' small config, its layers at R = D = 16, and the
+# wide width R = D = 64 with a tap of a whole 64-row tile (gc only: each
+# interpret run takes seconds). From R = D = 16 (K = 32 terms a product)
+# the other float32 order flips bf16 roundings too, so the wide rule holds
+# there.
+WIDTHS = {"small": {}, "w16": dict(residual_channels=16,
+                                   dilation_channels=16),
+          "w64": dict(dilations=(1, 64, 2, 33), residual_channels=64,
+                      dilation_channels=64)}
+CASES = pytest.mark.parametrize(
+    "gc,width", [(False, "small"), (True, "small"), (False, "w16"),
+                 (True, "w16"), (True, "w64")],
+    ids=["False", "True", "w16", "w16_gc", "w64"])
 
 
 def _setup(gc: bool, width: str = "small"):

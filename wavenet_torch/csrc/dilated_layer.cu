@@ -54,8 +54,20 @@
 //   adds them in a fixed order. No float atomics: repeated calls on one
 //   card are bitwise equal, and y, z, dx_local and dpast do not depend on
 //   the grid.
-// - The precision is a template parameter (Cfg<P, W>), so that a bf16 mode
-//   can come beside 3xTF32 without a rewrite.
+// - The precision is a template parameter (Cfg<P, W>): Tf32x3, the float32
+//   mode, or Bf16, the counterpart of the TPU kernels at compute_dtype =
+//   bfloat16 (dilated_layer_{fwd,bwd}_bf16). There every product is one
+//   bf16 mma.sync m16n8k16 pass (bf16_mma.cuh) with float32 accumulation,
+//   its operands rounded to bf16 to nearest even as their fragments are
+//   packed: the weights once a block (in fragment order, one 8-byte load a
+//   lane), x (the residual too: y = (bf16(x) + z @ wd) + bd, the TPU
+//   kernel's order, since its wrapper rounds x itself), z, dy and da. dy
+//   and dz are rounded on load, as the TPU wrapper rounds them: dx_local =
+//   bf16(dy) + da @ w[1]^T and dbd sums bf16(dy). dadd sums the float32 da;
+//   y, z and every gradient stay float32. At width 8, a product over 8
+//   channels is half a k-step, its upper half zeros. z enters z @ wd from
+//   the registers without shuffles: the accumulator of n-tiles 2k and 2k +
+//   1 is the A fragment of k-step k.
 //
 // What bounds it. At the gc widths (R = D = 32) and b8 x 19,070 rows a
 // layer's forward is 1.6e9 operations against 58.6 MB moved, the backward
@@ -68,13 +80,17 @@
 // block and, in the backward, one block an SM (203 KB of shared memory).
 //
 // Registers a thread (ptxas -v for sm_90a): forward / backward at width
-// 32 120 / 205, 16 93 / 121, 8 66 / 83; no spills.
+// 32 120 / 205, 16 93 / 121, 8 66 / 83; in the bf16 mode 101 / 163, 66 /
+// 94, 51 / 90; no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "stack_common.cuh"
 #include "tf32_mma.cuh"
 
@@ -84,8 +100,10 @@ constexpr int TM = 128;   // time steps a tile
 constexpr int NW = 8;     // warps a block; warp w owns rows 16w..16w+15
 constexpr int NT = 32 * NW;
 
-// The products' precision: three TF32 passes (the float32 mode).
+// The products' precision: three TF32 passes (the float32 mode), or one
+// bf16 pass (the bf16 mode).
 struct Tf32x3 {};
+struct Bf16 {};
 
 // The layout at precision P and width W = R = D: row strides in floats
 // (the tap tile x(t - d) | x(t), dy, da and z; A-fragment loads of a row
@@ -112,6 +130,34 @@ struct Cfg<Tf32x3, W> {
   static_assert(NW * (N1 + R) <= TM * SA, "column sums");
   static_assert(kFwdSmem <= 232448 && kBwdSmem <= 232448, "shared memory");
 };
+
+// The bf16 mode: the same tiles; the weights as bf16 fragments in fragment
+// order (uint2 a lane, bf16_mma.cuh): the forward's w [K1][N1] and wd
+// [D][R], the backward's w, wd^T [R][D] and [w[1]^T | w[0]^T] [N1][2R].
+template <int W>
+struct Cfg<Bf16, W> {
+  static constexpr int R = W, D = W, K1 = 2 * W, N1 = 2 * W;
+  static constexpr int SC = K1 + 4, SY = R + 4, SA = N1 + 8, SZ = D + 8;
+  static constexpr int kRaw = K1 * N1 + D * R;
+  static constexpr int kFragW = bf16_frags(K1, N1), kFragD = bf16_frags(D, R);
+  static constexpr int kFragDt = bf16_frags(R, D), kFragWt = bf16_frags(N1, 2 * R);
+  static constexpr int kFwdBuf = TM * SC;
+  static constexpr int kBwdBuf = TM * (SC + SY);
+  static constexpr int kFwdSmem = 8 * (kFragW + kFragD) + 4 * 2 * kFwdBuf;
+  static constexpr int kBwdSmem = 8 * (kFragW + kFragDt + kFragWt) +
+                                  4 * (2 * kBwdBuf + TM * SA + TM * SZ);
+  static_assert(W % 8 == 0 && W <= 32, "widths 8, 16, 32");
+  static_assert(kRaw <= kFwdBuf && kRaw <= kBwdBuf, "raw weights");
+  static_assert(NW * (N1 + R) <= TM * SA, "column sums");
+  static_assert(kFwdSmem <= 232448 && kBwdSmem <= 232448, "shared memory");
+};
+
+template <typename P>
+constexpr bool kIsBf16 = std::is_same_v<P, Bf16>;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 // w | wd raw into raw, by cp.async (every thread).
 template <class C>
@@ -207,6 +253,42 @@ __device__ __forceinline__ void fg_product(float (&acc)[C::N1 / 8][4],
   }
 }
 
+// The same product in the bf16 mode, from w's fragments.
+template <class C>
+__device__ __forceinline__ void fg_product_bf16(float (&acc)[C::N1 / 8][4],
+                                                const float* tap,
+                                                const uint2* fw, int wp,
+                                                int lane) {
+  constexpr int NF = C::N1 / 8;
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < C::K1 / 16; ++ks) {
+    const float* a0 = tap + 16 * wp * C::SC + 16 * ks;
+    Bf16Frag af;
+    afrag16<C::SC>(a0, a0 + 8, lane, af);
+    uint2 bw[NF];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) bw[j] = fw[(ks * NF + j) * 32 + lane];
+    mma_bf16_n(acc, af, bw);
+  }
+}
+
+// The A fragment of k-step ks (16) of a warp's accumulator tiles c (8
+// columns each): tiles 2ks and 2ks + 1, the latter zeros where the product
+// has only NQ = 1 tile (width 8).
+template <int NQ>
+__device__ __forceinline__ void acc_afrag16(const float (&c)[NQ][4], int ks,
+                                            Bf16Frag& a) {
+  a.v[0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
+  a.v[1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
+  if constexpr (NQ > 1) {
+    a.v[2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    a.v[3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+  } else {
+    a.v[2] = a.v[3] = 0u;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Forward: grid (nchunk, B); block c of row b walks tiles c * tpc, ... of
 // row b; each warp its own rows of each tile.
@@ -219,13 +301,22 @@ __global__ void __launch_bounds__(NT, 2) layer_fwd_kernel(
     const float* __restrict__ bd, float* __restrict__ y,
     float* __restrict__ z, int T, int d, int tiles_per_chunk) {
   using C = Cfg<P, W>;
+  constexpr bool kBF = kIsBf16<P>;
   constexpr int R = C::R, D = C::D, N1 = C::N1, SC = C::SC;
   constexpr int NF = N1 / 8, NQ = D / 8, NR = R / 8;
   static_assert(R == D, "y and z rows leave together");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint2* s_pw = reinterpret_cast<uint2*>(smem_raw);   // w [K1][SWF]
-  uint2* s_pd = s_pw + C::K1 * C::SWF;                // wd [D][SWD]
-  float* s_tap = reinterpret_cast<float*>(s_pd + D * C::SWD);   // 2 x [TM][SC]
+  // w and wd: f32 planes [K1][SWF] and [D][SWD]; bf16 fragments.
+  uint2* s_pw = reinterpret_cast<uint2*>(smem_raw);
+  uint2* s_pd;
+  float* s_tap;                                       // 2 x [TM][SC]
+  if constexpr (kBF) {
+    s_pd = s_pw + C::kFragW;
+    s_tap = reinterpret_cast<float*>(s_pd + C::kFragD);
+  } else {
+    s_pd = s_pw + C::K1 * C::SWF;
+    s_tap = reinterpret_cast<float*>(s_pd + D * C::SWD);
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -241,7 +332,15 @@ __global__ void __launch_bounds__(NT, 2) layer_fwd_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_planes<C>(s_pw, s_pd, s_tap + C::kFwdBuf);
+  if constexpr (kBF) {
+    const float* raw = s_tap + C::kFwdBuf;
+    pack_bf16_frags<NT, C::K1, N1>(
+        s_pw, [&](int k, int n) { return raw[k * N1 + n]; });
+    pack_bf16_frags<NT, D, R>(
+        s_pd, [&](int k, int n) { return raw[C::K1 * N1 + k * R + n]; });
+  } else {
+    split_planes<C>(s_pw, s_pd, s_tap + C::kFwdBuf);
+  }
   __syncthreads();
 
   for (int i = 0; i < n; ++i) {
@@ -255,7 +354,8 @@ __global__ void __launch_bounds__(NT, 2) layer_fwd_kernel(
     float* tap = s_tap + (i & 1) * C::kFwdBuf;
 
     float acc[NF][4];
-    fg_product<C>(acc, tap, s_pw, wp, lane);
+    if constexpr (kBF) fg_product_bf16<C>(acc, tap, s_pw, wp, lane);
+    else fg_product<C>(acc, tap, s_pw, wp, lane);
     float zr[NQ][4];
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
@@ -270,16 +370,29 @@ __global__ void __launch_bounds__(NT, 2) layer_fwd_kernel(
     // z @ wd, z from the registers.
     float acc2[NR][4];
     zero(acc2);
+    if constexpr (kBF) {
 #pragma unroll
-    for (int ks = 0; ks < NQ; ++ks) {
-      Tf32Frag af;
-      acc_afrag(zr[ks], lane, af);
-      uint4 bw[NR];
+      for (int ks = 0; ks < (NQ + 1) / 2; ++ks) {
+        Bf16Frag af;
+        acc_afrag16(zr, ks, af);
+        uint2 bw[NR];
 #pragma unroll
-      for (int j = 0; j < NR; ++j) bw[j] = bplane<C::SWD>(s_pd, 8 * ks, 8 * j, lane);
-      mma3_tf32_n(acc2, af.hi, af.lo, bw);
+        for (int j = 0; j < NR; ++j) bw[j] = s_pd[(ks * NR + j) * 32 + lane];
+        mma_bf16_n(acc2, af, bw);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < NQ; ++ks) {
+        Tf32Frag af;
+        acc_afrag(zr[ks], lane, af);
+        uint4 bw[NR];
+#pragma unroll
+        for (int j = 0; j < NR; ++j) bw[j] = bplane<C::SWD>(s_pd, 8 * ks, 8 * j, lane);
+        mma3_tf32_n(acc2, af.hi, af.lo, bw);
+      }
     }
-    // y = x + (z @ wd + bd) over x(t), z over x(t - d): the warp's rows.
+    // y = x + (z @ wd + bd) (bf16: (bf16(x) + z @ wd) + bd) over x(t), z
+    // over x(t - d): the warp's rows.
     __syncwarp();   // every lane's fragment reads of the rows are done
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
@@ -289,8 +402,12 @@ __global__ void __launch_bounds__(NT, 2) layer_fwd_kernel(
         float* row = tap + (16 * wp + g + 8 * h) * SC;
         float2* xp = reinterpret_cast<float2*>(row + R + col);
         const float2 v = *xp;
-        *xp = make_float2(v.x + (acc2[j][2 * h] + bd[col]),
-                          v.y + (acc2[j][2 * h + 1] + bd[col + 1]));
+        if constexpr (kBF)
+          *xp = make_float2((bf16_round(v.x) + acc2[j][2 * h]) + bd[col],
+                            (bf16_round(v.y) + acc2[j][2 * h + 1]) + bd[col + 1]);
+        else
+          *xp = make_float2(v.x + (acc2[j][2 * h] + bd[col]),
+                            v.y + (acc2[j][2 * h + 1] + bd[col + 1]));
         *reinterpret_cast<float2*>(row + col) =
             make_float2(zr[j][2 * h], zr[j][2 * h + 1]);
       }
@@ -325,13 +442,26 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
     float* __restrict__ part_add, int T, int d, int tiles_per_chunk,
     int nchunk) {
   using C = Cfg<P, W>;
+  constexpr bool kBF = kIsBf16<P>;
   constexpr int R = C::R, D = C::D, K1 = C::K1, N1 = C::N1;
   constexpr int SC = C::SC, SY = C::SY, SA = C::SA, SZ = C::SZ;
   constexpr int NF = N1 / 8, NQ = D / 8, NR = R / 8;
+  constexpr int KS = kBF ? 16 : 8;   // rows of a weight-gradient k-step
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint2* s_pw = reinterpret_cast<uint2*>(smem_raw);   // w [K1][SWF]
-  uint2* s_pd = s_pw + K1 * C::SWF;                   // wd [D][SWD]
-  float* s_buf = reinterpret_cast<float*>(s_pd + D * C::SWD);
+  // f32: w [K1][SWF] and wd [D][SWD] planes; bf16: the fragments of w, of
+  // wd^T (s_pd) and of [w[1]^T | w[0]^T] (s_pt).
+  uint2* s_pw = reinterpret_cast<uint2*>(smem_raw);
+  uint2 *s_pd, *s_pt;
+  float* s_buf;
+  if constexpr (kBF) {
+    s_pd = s_pw + C::kFragW;
+    s_pt = s_pd + C::kFragDt;
+    s_buf = reinterpret_cast<float*>(s_pt + C::kFragWt);
+  } else {
+    s_pd = s_pw + K1 * C::SWF;
+    s_pt = nullptr;
+    s_buf = reinterpret_cast<float*>(s_pd + D * C::SWD);
+  }
   // 2 x {taps [TM][SC], dy [TM][SY]}, then da [TM][SA] and z [TM][SZ].
   float* s_da = s_buf + 2 * C::kBwdBuf;
   float* s_z = s_da + TM * SA;
@@ -370,7 +500,20 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_planes<C>(s_pw, s_pd, s_buf + C::kBwdBuf);
+  if constexpr (kBF) {
+    const float* raw = s_buf + C::kBwdBuf;
+    const float* rawd = raw + K1 * N1;   // wd [D][R]
+    pack_bf16_frags<NT, K1, N1>(
+        s_pw, [&](int k, int n) { return raw[k * N1 + n]; });
+    pack_bf16_frags<NT, R, D>(
+        s_pd, [&](int k, int n) { return rawd[n * R + k]; });
+    // Output column n < R is w row R + n, n >= R w row n - R.
+    pack_bf16_frags<NT, N1, 2 * R>(s_pt, [&](int k, int n) {
+      return raw[(n < R ? R + n : n - R) * N1 + k];
+    });
+  } else {
+    split_planes<C>(s_pw, s_pd, s_buf + C::kBwdBuf);
+  }
 
   for (int i = 0; i < n; ++i) {
     const int t0 = (j0 + i) * TM;
@@ -395,20 +538,37 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
         dzv[j][h] = t < T ? __ldg(reinterpret_cast<const float2*>(
                                 dz + (base + t) * D + 8 * j + 2 * q))
                           : make_float2(0.f, 0.f);
+        if constexpr (kBF)
+          dzv[j][h] = make_float2(bf16_round(dzv[j][h].x),
+                                  bf16_round(dzv[j][h].y));
       }
     float acc[NF][4];
-    fg_product<C>(acc, tap, s_pw, wp, lane);
+    if constexpr (kBF) fg_product_bf16<C>(acc, tap, s_pw, wp, lane);
+    else fg_product<C>(acc, tap, s_pw, wp, lane);
     // dy @ wd^T
     float acc2[NQ][4];
     zero(acc2);
+    if constexpr (kBF) {
 #pragma unroll
-    for (int ks = 0; ks < R / 8; ++ks) {
-      Tf32Frag af;
-      afrag<SY>(dyt, 16 * wp, 8 * ks, lane, af);
-      uint4 bw[NQ];
+      for (int ks = 0; ks < (R + 15) / 16; ++ks) {
+        const float* a0 = dyt + 16 * wp * SY + 16 * ks;
+        Bf16Frag af;
+        afrag16<SY, (R >= 16)>(a0, a0 + 8, lane, af);
+        uint2 bw[NQ];
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) bw[j] = bplane_t<C::SWD>(s_pd, 8 * ks, 8 * j, lane);
-      mma3_tf32_n(acc2, af.hi, af.lo, bw);
+        for (int j = 0; j < NQ; ++j) bw[j] = s_pd[(ks * NQ + j) * 32 + lane];
+        mma_bf16_n(acc2, af, bw);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < R / 8; ++ks) {
+        Tf32Frag af;
+        afrag<SY>(dyt, 16 * wp, 8 * ks, lane, af);
+        uint4 bw[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) bw[j] = bplane_t<C::SWD>(s_pd, 8 * ks, 8 * j, lane);
+        mma3_tf32_n(acc2, af.hi, af.lo, bw);
+      }
     }
     // z, and da = dz_tot * (d z / d fg). Rows past T have dy = dz = 0, so
     // da = 0 there.
@@ -442,16 +602,30 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
     {
       float acc3[2 * NR][4];
       zero(acc3);
+      if constexpr (kBF) {
 #pragma unroll
-      for (int ks = 0; ks < N1 / 8; ++ks) {
-        Tf32Frag af;
-        afrag<SA>(s_da, 16 * wp, 8 * ks, lane, af);
-        uint4 bw[2 * NR];
+        for (int ks = 0; ks < N1 / 16; ++ks) {
+          const float* a0 = s_da + 16 * wp * SA + 16 * ks;
+          Bf16Frag af;
+          afrag16<SA>(a0, a0 + 8, lane, af);
+          uint2 bw[2 * NR];
 #pragma unroll
-        for (int j = 0; j < 2 * NR; ++j)
-          bw[j] = bplane_t<C::SWF>(s_pw, 8 * ks, j < NR ? R + 8 * j : 8 * j - R,
-                                   lane);
-        mma3_tf32_n(acc3, af.hi, af.lo, bw);
+          for (int j = 0; j < 2 * NR; ++j)
+            bw[j] = s_pt[(ks * 2 * NR + j) * 32 + lane];
+          mma_bf16_n(acc3, af, bw);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < N1 / 8; ++ks) {
+          Tf32Frag af;
+          afrag<SA>(s_da, 16 * wp, 8 * ks, lane, af);
+          uint4 bw[2 * NR];
+#pragma unroll
+          for (int j = 0; j < 2 * NR; ++j)
+            bw[j] = bplane_t<C::SWF>(s_pw, 8 * ks, j < NR ? R + 8 * j : 8 * j - R,
+                                     lane);
+          mma3_tf32_n(acc3, af.hi, af.lo, bw);
+        }
       }
 #pragma unroll
       for (int j = 0; j < NR; ++j) {
@@ -459,7 +633,8 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = 16 * wp + g + 8 * h, t = t0 + r;
-          const float2 v = *reinterpret_cast<const float2*>(dyt + r * SY + col);
+          float2 v = *reinterpret_cast<const float2*>(dyt + r * SY + col);
+          if constexpr (kBF) v = make_float2(bf16_round(v.x), bf16_round(v.y));
           c_bd[j][0] += v.x;
           c_bd[j][1] += v.y;
           if (t < T) {
@@ -478,23 +653,41 @@ __global__ void __launch_bounds__(NT, 1) layer_bwd_kernel(
     // rows.
     if (wp < kFw) {
 #pragma unroll 4
-      for (int ks = 0; ks < TM / 8; ++ks) {
-        Tf32Frag af;
-        afrag_t<SC>(tap, 16 * mw, 8 * ks, lane, af);
-        uint4 bw[NJ];
+      for (int ks = 0; ks < TM / KS; ++ks) {
+        if constexpr (kBF) {
+          Bf16Frag af;
+          afrag16_t<SC, K1>(tap, 16 * mw, 16 * ks, lane, af);
+          uint2 bw[NJ];
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) bfrag<SA>(s_da, 8 * ks, 8 * (nw0 + jj), lane, bw[jj]);
-        mma3_step_rn(p_w, af, bw);
+          for (int jj = 0; jj < NJ; ++jj)
+            bfrag16<SA>(s_da, 16 * ks, 8 * (nw0 + jj), lane, bw[jj]);
+          mma_bf16_step_rn(p_w, af, bw);
+        } else {
+          Tf32Frag af;
+          afrag_t<SC>(tap, 16 * mw, 8 * ks, lane, af);
+          uint4 bw[NJ];
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) bfrag<SA>(s_da, 8 * ks, 8 * (nw0 + jj), lane, bw[jj]);
+          mma3_step_rn(p_w, af, bw);
+        }
       }
     }
     if (wp < kVw) {
 #pragma unroll 4
-      for (int ks = 0; ks < TM / 8; ++ks) {
-        Tf32Frag af;
-        afrag_tm<SZ, D>(s_z, 16 * mv, 8 * ks, lane, af);
-        uint4 bw[1];
-        bfrag<SY>(dyt, 8 * ks, 8 * nv, lane, bw[0]);
-        mma3_step_rn(p_wd, af, bw);
+      for (int ks = 0; ks < TM / KS; ++ks) {
+        if constexpr (kBF) {
+          Bf16Frag af;
+          afrag16_t<SZ, D>(s_z, 16 * mv, 16 * ks, lane, af);
+          uint2 bw[1];
+          bfrag16<SY>(dyt, 16 * ks, 8 * nv, lane, bw[0]);
+          mma_bf16_step_rn(p_wd, af, bw);
+        } else {
+          Tf32Frag af;
+          afrag_tm<SZ, D>(s_z, 16 * mv, 8 * ks, lane, af);
+          uint4 bw[1];
+          bfrag<SY>(dyt, 8 * ks, 8 * nv, lane, bw[0]);
+          mma3_step_rn(p_wd, af, bw);
+        }
       }
     }
   }
@@ -576,23 +769,26 @@ cudaError_t prepare(int backward, const void** fn, int* smem) {
                               *smem);
 }
 
+template <typename P>
 cudaError_t prepare_width(int backward, int R, const void** fn, int* smem) {
-  if (R == 32) return prepare<Tf32x3, 32>(backward, fn, smem);
-  if (R == 16) return prepare<Tf32x3, 16>(backward, fn, smem);
-  return prepare<Tf32x3, 8>(backward, fn, smem);
+  if (R == 32) return prepare<P, 32>(backward, fn, smem);
+  if (R == 16) return prepare<P, 16>(backward, fn, smem);
+  return prepare<P, 8>(backward, fn, smem);
 }
 
 // Blocks of a direction's kernel that one SM keeps resident, found (and
-// the kernel's shared memory set) once a device, direction and width.
+// the kernel's shared memory set) once a device, mode, direction and
+// width.
 constexpr int kMaxDevices = 64;
-int g_per_sm[kMaxDevices][2][3];   // 0: not found yet
+int g_per_sm[kMaxDevices][2][2][3];   // 0: not found yet
 
-cudaError_t blocks_per_sm(int backward, int R, int* per) {
+cudaError_t blocks_per_sm(int backward, int R, int bf16, int* per) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   int* known = dev < kMaxDevices
-                   ? &g_per_sm[dev][backward][R == 32 ? 2 : R == 16 ? 1 : 0]
+                   ? &g_per_sm[dev][bf16 != 0][backward]
+                              [R == 32 ? 2 : R == 16 ? 1 : 0]
                    : nullptr;
   if (known && *known > 0) {
     *per = *known;
@@ -600,7 +796,8 @@ cudaError_t blocks_per_sm(int backward, int R, int* per) {
   }
   const void* fn;
   int smem;
-  e = prepare_width(backward, R, &fn, &smem);
+  e = bf16 ? prepare_width<Bf16>(backward, R, &fn, &smem)
+           : prepare_width<Tf32x3>(backward, R, &fn, &smem);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per, fn, NT, smem);
   if (e == cudaSuccess && *per < 1) e = cudaErrorInvalidConfiguration;
@@ -610,28 +807,29 @@ cudaError_t blocks_per_sm(int backward, int R, int* per) {
 
 // The grid of a direction: chunks of tiles a row, so that every block runs
 // in the first wave (layer_tiling in experiments/dilated_layer.py).
-cudaError_t layer_tiling(int backward, int B, int T, int R, Tiling* tl) {
+cudaError_t layer_tiling(int backward, int B, int T, int R, int bf16,
+                         Tiling* tl) {
   if (B < 1 || T < 1) return cudaErrorInvalidValue;
   int per = 0;
-  const cudaError_t e = blocks_per_sm(backward, R, &per);
+  const cudaError_t e = blocks_per_sm(backward, R, bf16, &per);
   if (e == cudaSuccess) *tl = chunk_tiling(B, T, TM, per);
   return e;
 }
 
-template <int W>
+template <typename P, int W>
 int forward_impl(const float* x, const float* w, const float* wd,
                  const float* add, const float* bd, float* y, float* z, int B,
                  int T, int d, cudaStream_t st) {
   Tiling tl;
-  cudaError_t e = layer_tiling(0, B, T, W, &tl);
+  cudaError_t e = layer_tiling(0, B, T, W, kIsBf16<P>, &tl);
   if (e != cudaSuccess) return (int)e;
-  layer_fwd_kernel<Tf32x3, W>
-      <<<dim3(tl.nchunk, B), NT, Cfg<Tf32x3, W>::kFwdSmem, st>>>(
+  layer_fwd_kernel<P, W>
+      <<<dim3(tl.nchunk, B), NT, Cfg<P, W>::kFwdSmem, st>>>(
           x, w, wd, add, bd, y, z, T, d, tl.tiles_per_chunk);
   return (int)cudaGetLastError();
 }
 
-template <int W>
+template <typename P, int W>
 int backward_impl(const float* x, const float* w, const float* wd,
                   const float* add, const float* dy, const float* dz,
                   float* dx_local, float* dpast, float* dw, float* dwd,
@@ -639,14 +837,14 @@ int backward_impl(const float* x, const float* w, const float* wd,
                   int d, cudaStream_t st) {
   constexpr int R = W, D = W;
   Tiling tl;
-  cudaError_t e = layer_tiling(1, B, T, W, &tl);
+  cudaError_t e = layer_tiling(1, B, T, W, kIsBf16<P>, &tl);
   if (e != cudaSuccess) return (int)e;
   const size_t ncta = (size_t)B * tl.nchunk;
   float* pw = scratch;                              // [ncta, 2R, 2D]
   float* pa = pw + ncta * 4 * R * D;                // [ncta, D*R + R]
   float* padd = pa + ncta * (D * R + R);            // [ncta, 2D]
-  layer_bwd_kernel<Tf32x3, W>
-      <<<dim3(tl.nchunk, B), NT, Cfg<Tf32x3, W>::kBwdSmem, st>>>(
+  layer_bwd_kernel<P, W>
+      <<<dim3(tl.nchunk, B), NT, Cfg<P, W>::kBwdSmem, st>>>(
           x, w, wd, add, dy, dz, dx_local, dpast, pw, pa, padd, T, d,
           tl.tiles_per_chunk, tl.nchunk);
   e = cudaGetLastError();
@@ -667,13 +865,13 @@ int dilated_layer_supports_width(int R, int D) {
 }
 
 // Blocks of the forward (backward = 0) or backward (1) kernel at width
-// R = D that the device keeps resident at once (blocks an SM x SMs); a
-// negative CUDA error code on failure, -kUnsupportedWidth at a width not
-// built.
-int dilated_layer_resident_blocks(int backward, int R, int D) {
+// R = D in the f32 (bf16 = 0) or bf16 (1) mode that the device keeps
+// resident at once (blocks an SM x SMs); a negative CUDA error code on
+// failure, -kUnsupportedWidth at a width not built.
+int dilated_layer_resident_blocks(int backward, int R, int D, int bf16) {
   if (!dilated_layer_supports_width(R, D)) return -kUnsupportedWidth;
   int per = 0, dev = 0, sms = 0;
-  cudaError_t e = blocks_per_sm(backward, R, &per);
+  cudaError_t e = blocks_per_sm(backward, R, bf16, &per);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -681,18 +879,20 @@ int dilated_layer_resident_blocks(int backward, int R, int D) {
 }
 
 // The library's own grid: chunks a batch row (nchunk) of a direction's
-// grid (nchunk, B) on this device; the rule of layer_tiling.
-int dilated_layer_nchunk(int backward, int B, int T, int R, int D) {
+// grid (nchunk, B) in a mode on this device; the rule of layer_tiling.
+int dilated_layer_nchunk(int backward, int B, int T, int R, int D,
+                         int bf16) {
   if (!dilated_layer_supports_width(R, D)) return -kUnsupportedWidth;
   Tiling tl;
-  const cudaError_t e = layer_tiling(backward, B, T, R, &tl);
+  const cudaError_t e = layer_tiling(backward, B, T, R, bf16, &tl);
   return e == cudaSuccess ? tl.nchunk : -(int)e;
 }
 
-// Floats of scratch device memory the backward needs (negative on
-// failure, as dilated_layer_nchunk).
-long long dilated_layer_bwd_scratch_floats(int B, int T, int R, int D) {
-  const int nchunk = dilated_layer_nchunk(1, B, T, R, D);
+// Floats of scratch device memory the backward of a mode needs (negative
+// on failure, as dilated_layer_nchunk).
+long long dilated_layer_bwd_scratch_floats(int B, int T, int R, int D,
+                                           int bf16) {
+  const int nchunk = dilated_layer_nchunk(1, B, T, R, D, bf16);
   if (nchunk < 0) return nchunk;
   return (long long)B * nchunk * (4LL * R * D + D * R + R + 2 * D);
 }
@@ -706,8 +906,21 @@ int dilated_layer_fwd_f32(const float* x, const float* w, const float* wd,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!dilated_layer_supports_width(R, D)) return kUnsupportedWidth;
-  auto* f = R == 32 ? &forward_impl<32>
-          : R == 16 ? &forward_impl<16> : &forward_impl<8>;
+  auto* f = R == 32 ? &forward_impl<Tf32x3, 32>
+          : R == 16 ? &forward_impl<Tf32x3, 16> : &forward_impl<Tf32x3, 8>;
+  return f(x, w, wd, add, bd, y, z, B, T, dilation, st);
+}
+
+// The bf16 mode: the arguments of dilated_layer_fwd_f32 (every array
+// float32; x, w and wd rounded to bf16 in the kernel).
+int dilated_layer_fwd_bf16(const float* x, const float* w, const float* wd,
+                           const float* add, const float* bd, float* y,
+                           float* z, int B, int T, int R, int D, int dilation,
+                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!dilated_layer_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &forward_impl<Bf16, 32>
+          : R == 16 ? &forward_impl<Bf16, 16> : &forward_impl<Bf16, 8>;
   return f(x, w, wd, add, bd, y, z, B, T, dilation, st);
 }
 
@@ -724,8 +937,25 @@ int dilated_layer_bwd_f32(const float* x, const float* w, const float* wd,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!dilated_layer_supports_width(R, D)) return kUnsupportedWidth;
-  auto* f = R == 32 ? &backward_impl<32>
-          : R == 16 ? &backward_impl<16> : &backward_impl<8>;
+  auto* f = R == 32 ? &backward_impl<Tf32x3, 32>
+          : R == 16 ? &backward_impl<Tf32x3, 16> : &backward_impl<Tf32x3, 8>;
+  return f(x, w, wd, add, dy, dz, dx_local, dpast, dw, dwd, dadd, dbd,
+           scratch, B, T, dilation, st);
+}
+
+// The bf16 mode: the arguments of dilated_layer_bwd_f32 (dy and dz float32,
+// rounded to bf16 in the kernel; every output float32; scratch as sized
+// for the bf16 mode).
+int dilated_layer_bwd_bf16(const float* x, const float* w, const float* wd,
+                           const float* add, const float* dy, const float* dz,
+                           float* dx_local, float* dpast, float* dw,
+                           float* dwd, float* dadd, float* dbd,
+                           float* scratch, int B, int T, int R, int D,
+                           int dilation, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!dilated_layer_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &backward_impl<Bf16, 32>
+          : R == 16 ? &backward_impl<Bf16, 16> : &backward_impl<Bf16, 8>;
   return f(x, w, wd, add, dy, dz, dx_local, dpast, dw, dwd, dadd, dbd,
            scratch, B, T, dilation, st);
 }

@@ -19,7 +19,22 @@
 //
 // The forward layer kernel lives in fused_stack_fwd.cuh, which its probe
 // (fwd_bisect.cu, the port of tools/r2_fwd_bisect.py) shares; this file
-// instantiates it at float32 with every part on.
+// instantiates it with every part on, in each mode.
+//
+// Two modes. float32 (fused_stack_{fwd,bwd}_f32) and bf16
+// (fused_stack_{fwd,bwd}_bf16), the counterpart of the same TPU kernels at
+// kernel_dtype = bfloat16: each product operand is rounded to bf16 (to
+// nearest even) where the TPU kernel rounds it, as it is staged into
+// shared memory, and multiplied by FP32 FMA (the product of two bf16
+// values is exact in float32) into float32 sums in the float32 mode's
+// order. The forward rounds the weights, the tap matrix [x(t-d) | x(t)]
+// and z before z @ wd, adds the residual in the TPU kernel's order (x + z
+// @ wd) + bd, and stores fg and z as bf16 records. The backward reads fg
+// and dz as bf16 records and rounds the weights, dx_{l+1} (for dwd and for
+// dx_{l+1} @ wd^T), z (for dwd and the rebuild x_l = x_{l+1} - z @ wd -
+// bd), the rebuilt tap matrix and da (for dw_fg and dx_l); dbd and dadd
+// sum the unrounded float32 values. The same grid, scratch and reduction
+// in both modes, so repeats are bitwise equal in both.
 //
 // Design. Layer l+1's past tap reads rows of layer l's output that other
 // blocks write, so every layer is its own launch (ping-pong residual
@@ -42,9 +57,12 @@
 // register tiling from shared memory (no tensor cores: f32 parity mode
 // allows no TF32); wgmma and TMA come later.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "fused_stack_fwd.cuh"
 #include "stack_common.cuh"
@@ -59,15 +77,27 @@ using TileMap = TileMapT<TM, NT, N>;
 template <int K, int N>
 using GradMap = GradMapT<NT, K, N>;
 
+// The mode's record type (fg, z, dz) and its rounding of a product
+// operand: to bf16 and back (to nearest even) in the bf16 mode, nothing in
+// the float32 mode.
+template <bool BF>
+using Rec = std::conditional_t<BF, __nv_bfloat16, float>;
+
+template <bool BF>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (BF) return __bfloat162float(__float2bfloat16(v));
+  else return v;
+}
+
 // ---------------------------------------------------------------------------
 // Backward (A): da, the rebuilt layer input, partial dwd / dbd / dadd.
 // grid (chunks of tiles, B); each block walks tiles_per_chunk tiles.
 // ---------------------------------------------------------------------------
 
-template <int R, int D>
+template <int R, int D, bool BF>
 __global__ void __launch_bounds__(NT) bwd_da_kernel(
     const float* __restrict__ x_next, const float* __restrict__ dx_next,
-    const float* __restrict__ fg, const float* __restrict__ dz,
+    const Rec<BF>* __restrict__ fg, const Rec<BF>* __restrict__ dz,
     const float* __restrict__ wd, const float* __restrict__ bd,
     float* __restrict__ x_cur, float* __restrict__ da_out,
     float* __restrict__ part_a, float* __restrict__ part_add,
@@ -81,13 +111,16 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
   float* s_s = s_t + TM * DS;      // [TM][DS]  sigmoid(g)
   float* s_z = s_s + TM * DS;      // [TM][DS]  z
   float* s_da = s_z + TM * DS;     // [TM][AS]  da
+  // The products' dx_{l+1}: rounded, [TM][RS] (bf16), or s_dc itself.
+  float* s_dcp = BF ? s_da + TM * AS : s_dc;
 
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x, b = blockIdx.y;
   const size_t base = (size_t)b * T;
   const size_t fg_stride = (size_t)L * N1, z_stride = (size_t)L * D;
 
-  for (int i = tid; i < D * R; i += NT) s_wd[(i / R) * WS + i % R] = wd[i];
+  for (int i = tid; i < D * R; i += NT)
+    s_wd[(i / R) * WS + i % R] = rnd<BF>(wd[i]);
 
   using GW = GradMap<D, R>;
   float p_wd[GW::Q];
@@ -101,20 +134,22 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
     __syncthreads();   // the previous tile's shared reads are done
     for (int i = tid; i < TM * R; i += NT) {
       const int r = i / R, c = i % R, t = t0 + r;
-      s_dc[r * RS + c] = t < T ? dx_next[(base + t) * R + c] : 0.f;
+      const float v = t < T ? dx_next[(base + t) * R + c] : 0.f;
+      s_dc[r * RS + c] = v;
+      if constexpr (BF) s_dcp[r * RS + c] = rnd<BF>(v);
     }
     for (int i = tid; i < TM * D; i += NT) {
       const int r = i / D, j = i % D, t = t0 + r;
       float f = 0.f, g = 0.f;
       if (t < T) {
-        const float* fr = fg + (base + t) * fg_stride + l * N1;
-        f = fr[j];
-        g = fr[D + j];
+        const Rec<BF>* fr = fg + (base + t) * fg_stride + l * N1;
+        f = op_to_f(fr[j]);
+        g = op_to_f(fr[D + j]);
       }
       const float th = tanhf(f), sg = sigmoidf(g);
       s_t[r * DS + j] = th;
       s_s[r * DS + j] = sg;
-      s_z[r * DS + j] = th * sg;   // 0 on rows past T (f = 0)
+      s_z[r * DS + j] = rnd<BF>(th * sg);   // 0 on rows past T (f = 0)
     }
     __syncthreads();
 
@@ -131,7 +166,7 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
       for (int k = 0; k < R; ++k) {
         float a[M1::RM];
 #pragma unroll
-        for (int i = 0; i < M1::RM; ++i) a[i] = s_dc[(rg + i * M1::RG) * RS + k];
+        for (int i = 0; i < M1::RM; ++i) a[i] = s_dcp[(rg + i * M1::RG) * RS + k];
 #pragma unroll
         for (int c = 0; c < M1::CN; ++c) {
           const float w = s_wd[(cg + c * M1::NG) * WS + k];
@@ -146,15 +181,16 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
         for (int c = 0; c < M1::CN; ++c) {
           const int j = cg + c * M1::NG;
           const float dzt =
-              (t < T ? dz[(base + t) * z_stride + l * D + j] : 0.f) + acc[i][c];
+              (t < T ? op_to_f(dz[(base + t) * z_stride + l * D + j]) : 0.f) +
+              acc[i][c];
           const float th = s_t[r * DS + j], sg = s_s[r * DS + j];
           const float daf = dzt * sg * (1.f - th * th);
           const float dag = dzt * th * sg * (1.f - sg);
           s_da[r * AS + j] = daf;
           s_da[r * AS + D + j] = dag;
-          if (t < T) {
-            da_out[(base + t) * N1 + j] = daf;
-            da_out[(base + t) * N1 + D + j] = dag;
+          if (t < T) {   // (B) multiplies da only: rounded here
+            da_out[(base + t) * N1 + j] = rnd<BF>(daf);
+            da_out[(base + t) * N1 + D + j] = rnd<BF>(dag);
           }
         }
       }
@@ -203,7 +239,7 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
         const int i = tid / R + q * GW::P;
         if (i < D) {
           float s = p_wd[q];
-          for (int r = 0; r < TM; ++r) s = fmaf(s_z[r * DS + i], s_dc[r * RS + j], s);
+          for (int r = 0; r < TM; ++r) s = fmaf(s_z[r * DS + i], s_dcp[r * RS + j], s);
           p_wd[q] = s;
         }
       }
@@ -232,7 +268,7 @@ __global__ void __launch_bounds__(NT) bwd_da_kernel(
 // Backward (B): dx_l and partial dw_fg. Same grid as (A).
 // ---------------------------------------------------------------------------
 
-template <int R, int D>
+template <int R, int D, bool BF>
 __global__ void __launch_bounds__(NT) bwd_dx_kernel(
     const float* __restrict__ x_cur, const float* __restrict__ dx_next,
     const float* __restrict__ da, const float* __restrict__ w_fg,
@@ -250,7 +286,8 @@ __global__ void __launch_bounds__(NT) bwd_dx_kernel(
   const int chunk = blockIdx.x, b = blockIdx.y;
   const size_t base = (size_t)b * T;
 
-  for (int i = tid; i < K1 * N1; i += NT) s_w[(i / N1) * WS + i % N1] = w_fg[i];
+  for (int i = tid; i < K1 * N1; i += NT)
+    s_w[(i / N1) * WS + i % N1] = rnd<BF>(w_fg[i]);
 
   // dw_fg partial sums: a 16 x 16 thread grid, each thread an MI x MJ
   // register tile (rows and columns interleaved by 16).
@@ -279,8 +316,8 @@ __global__ void __launch_bounds__(NT) bwd_dx_kernel(
         cur = x_cur[(base + t) * R + c];
         if (t >= d) past = x_cur[(base + t - d) * R + c];
       }
-      s_cat[r * CS + c] = past;
-      s_cat[r * CS + R + c] = cur;
+      s_cat[r * CS + c] = rnd<BF>(past);
+      s_cat[r * CS + R + c] = rnd<BF>(cur);
     }
     __syncthreads();
 
@@ -354,14 +391,19 @@ __global__ void __launch_bounds__(NT) bwd_dx_kernel(
 // memory fits three), so every block runs in the first wave.
 Tiling backward_tiling(int B, int T) { return chunk_tiling(B, T, TM, 3); }
 
-template <int R, int D>
+// The forward: fwd_layer_kernel with float32 operands and records, or
+// (bf16) bf16 ones from the float32 weights with the TPU kernel's residual
+// order.
+template <int R, int D, bool BF>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
-                 float* fg, float* z, float* xbuf, int B, int T, int L,
+                 Rec<BF>* fg, Rec<BF>* z, float* xbuf, int B, int T, int L,
                  cudaStream_t st) {
-  constexpr int smem = fwd_layer_smem_bytes<R, D, float, kFwdFull>();
+  using Op = Rec<BF>;
+  constexpr unsigned kMask = BF ? (kFwdFull | kFwdTpuResidual) : kFwdFull;
+  constexpr int smem = fwd_layer_smem_bytes<R, D, Op, kMask>();
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_layer_kernel<R, D, float, float, kFwdFull>,
+      fwd_layer_kernel<R, D, Op, Op, kMask, float>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + TM - 1) / TM, B);
@@ -369,7 +411,7 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xbuf + (size_t)((l - 1) & 1) * btr;
     float* out = l == L - 1 ? y : xbuf + (size_t)(l & 1) * btr;
-    fwd_layer_kernel<R, D, float, float, kFwdFull><<<grid, NT, smem, st>>>(
+    fwd_layer_kernel<R, D, Op, Op, kMask, float><<<grid, NT, smem, st>>>(
         in, out, fg, z, w_fg + (size_t)l * 4 * R * D, wd + (size_t)l * D * R,
         add + (size_t)l * B * 2 * D, bd + (size_t)l * R, T, dil[l], l, L);
     e = cudaGetLastError();
@@ -378,9 +420,9 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
   return 0;
 }
 
-template <int R, int D>
-int backward_impl(const float* y, const float* dy, const float* fg,
-                  const float* dz, const float* w_fg, const float* wd,
+template <int R, int D, bool BF>
+int backward_impl(const float* y, const float* dy, const Rec<BF>* fg,
+                  const Rec<BF>* dz, const float* w_fg, const float* wd,
                   const float* bd, const int* dil, float* dx, float* dw_fg,
                   float* dwd, float* dadd, float* dbd, float* scratch, int B,
                   int T, int L, cudaStream_t st) {
@@ -395,14 +437,17 @@ int backward_impl(const float* y, const float* dy, const float* fg,
   float* padd = pa + (size_t)L * ncta * (D * R + R);  // [L, ncta, 2D]
 
   const int smem_a = (int)sizeof(float) *
-                     (D * (R + 1) + TM * (R + 1) + 3 * TM * (D + 1) + TM * (2 * D + 1));
+                     (D * (R + 1) + (BF ? 2 : 1) * TM * (R + 1) +
+                      3 * TM * (D + 1) + TM * (2 * D + 1));
   const int smem_b = (int)sizeof(float) *
                      (2 * R * (2 * D + 1) + 2 * TM * (2 * D + 1) + TM * (2 * R + 1));
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_da_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+      bwd_da_kernel<R, D, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_a);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(
-      bwd_dx_kernel<R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+      bwd_dx_kernel<R, D, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_b);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid(tl.nchunk, B);
@@ -411,14 +456,14 @@ int backward_impl(const float* y, const float* dy, const float* fg,
     float* x_cur = xb + (size_t)(l & 1) * btr;
     const float* dx_next = l == L - 1 ? dy : dxb + (size_t)((l + 1) & 1) * btr;
     float* dx_cur = l == 0 ? dx : dxb + (size_t)(l & 1) * btr;
-    bwd_da_kernel<R, D><<<grid, NT, smem_a, st>>>(
+    bwd_da_kernel<R, D, BF><<<grid, NT, smem_a, st>>>(
         x_next, dx_next, fg, dz, wd + (size_t)l * D * R, bd + (size_t)l * R,
         x_cur, da, pa + (size_t)l * ncta * (D * R + R),
         padd + (size_t)l * ncta * 2 * D, T, l, L, tl.tiles_per_chunk,
         tl.nchunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    bwd_dx_kernel<R, D><<<grid, NT, smem_b, st>>>(
+    bwd_dx_kernel<R, D, BF><<<grid, NT, smem_b, st>>>(
         x_cur, dx_next, da, w_fg + (size_t)l * 4 * R * D, dx_cur,
         pw + (size_t)l * ncta * 4 * R * D, T, dil[l], tl.tiles_per_chunk,
         tl.nchunk);
@@ -457,19 +502,31 @@ int fused_stack_fwd_f32(const float* x, const float* w_fg, const float* wd,
                         float* y, float* fg, float* z, float* xbuf, int B,
                         int T, int L, int R, int D, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R == 32 && D == 32)
-    return forward_impl<32, 32>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
-  if (R == 16 && D == 16)
-    return forward_impl<16, 16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
-  if (R == 8 && D == 8)
-    return forward_impl<8, 8>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
-  return kUnsupportedWidth;
+  if (!fused_stack_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &forward_impl<32, 32, false>
+          : R == 16 ? &forward_impl<16, 16, false> : &forward_impl<8, 8, false>;
+  return f(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
+}
+
+// The bf16 mode: the arguments of fused_stack_fwd_f32, with fg and z bf16
+// records (float32 weights, rounded in the kernel).
+int fused_stack_fwd_bf16(const float* x, const float* w_fg, const float* wd,
+                         const float* add, const float* bd, const int* dil,
+                         float* y, __nv_bfloat16* fg, __nv_bfloat16* z,
+                         float* xbuf, int B, int T, int L, int R, int D,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!fused_stack_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &forward_impl<32, 32, true>
+          : R == 16 ? &forward_impl<16, 16, true> : &forward_impl<8, 8, true>;
+  return f(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T, L, st);
 }
 
 // Backward launches (2L + 1 of them). y, dy [B,T,R]; fg [B,T,L*2D];
 // dz [B,T,L*D]; weights as in the forward; outputs dx [B,T,R], dw_fg
 // [L,2R,2D], dwd [L,D,R], dadd [L,B,2D], dbd [L,R]; scratch as sized by
-// fused_stack_bwd_scratch_floats. Returns 0 or a CUDA error code.
+// fused_stack_bwd_scratch_floats (either mode). Returns 0 or a CUDA error
+// code.
 int fused_stack_bwd_f32(const float* y, const float* dy, const float* fg,
                         const float* dz, const float* w_fg, const float* wd,
                         const float* bd, const int* dil, float* dx,
@@ -477,16 +534,29 @@ int fused_stack_bwd_f32(const float* y, const float* dy, const float* fg,
                         float* scratch, int B, int T, int L, int R, int D,
                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R == 32 && D == 32)
-    return backward_impl<32, 32>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
-                                 dwd, dadd, dbd, scratch, B, T, L, st);
-  if (R == 16 && D == 16)
-    return backward_impl<16, 16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
-                                 dwd, dadd, dbd, scratch, B, T, L, st);
-  if (R == 8 && D == 8)
-    return backward_impl<8, 8>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
-                               dwd, dadd, dbd, scratch, B, T, L, st);
-  return kUnsupportedWidth;
+  if (!fused_stack_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &backward_impl<32, 32, false>
+          : R == 16 ? &backward_impl<16, 16, false>
+                    : &backward_impl<8, 8, false>;
+  return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
+           scratch, B, T, L, st);
+}
+
+// The bf16 mode: the arguments of fused_stack_bwd_f32, with fg and dz bf16
+// records; every output float32.
+int fused_stack_bwd_bf16(const float* y, const float* dy,
+                         const __nv_bfloat16* fg, const __nv_bfloat16* dz,
+                         const float* w_fg, const float* wd, const float* bd,
+                         const int* dil, float* dx, float* dw_fg, float* dwd,
+                         float* dadd, float* dbd, float* scratch, int B,
+                         int T, int L, int R, int D, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!fused_stack_supports_width(R, D)) return kUnsupportedWidth;
+  auto* f = R == 32 ? &backward_impl<32, 32, true>
+          : R == 16 ? &backward_impl<16, 16, true>
+                    : &backward_impl<8, 8, true>;
+  return f(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd, dadd, dbd,
+           scratch, B, T, L, st);
 }
 
 }  // extern "C"

@@ -12,16 +12,23 @@
 //          sums in float32, the residual in float32);
 //   RecT   the type of the fg and z records;
 //   kMask  the parts of the layer that run (stack_common.cuh's kFwd*;
-//          kFwdFull: all of them). The probe's variants drop parts; an
-//          ablated operand is a zero that the kernel writes to shared
-//          memory, so nothing is folded away.
-// fused_stack.cu instantiates <R, D, float, float, kFwdFull>.
+//          kFwdFull: all of them), and with kFwdTpuResidual the TPU
+//          kernel's order of the residual add. The probe's variants drop
+//          parts; an ablated operand is a zero that the kernel writes to
+//          shared memory, so nothing is folded away;
+//   WT     the type of the weights in device memory (default OpT), rounded
+//          to OpT as they load.
+// fused_stack.cu instantiates <R, D, float, float, kFwdFull> and, in its
+// bf16 mode, <R, D, __nv_bfloat16, __nv_bfloat16, kFwdFull |
+// kFwdTpuResidual, float>.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "stack_common.cuh"
 
@@ -42,6 +49,12 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 op_from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+// A value of type From as a To (to nearest even where To is narrower).
+template <typename To, typename From>
+__device__ __forceinline__ To op_cast(From v) {
+  if constexpr (std::is_same_v<To, From>) return v;
+  else return op_from_f<To>(op_to_f(v));
+}
 
 // Shared memory of one block: weights, the cat tile (or the rolled tile
 // with its halo), the z tile, and at bf16 a float32 copy of the residual.
@@ -55,11 +68,12 @@ constexpr int fwd_layer_smem_bytes() {
          (kSepRes ? (int)sizeof(float) * TM * R : 0);
 }
 
-template <int R, int D, typename OpT, typename RecT, unsigned kMask>
+template <int R, int D, typename OpT, typename RecT, unsigned kMask,
+          typename WT = OpT>
 __global__ void __launch_bounds__(kFwdNT) fwd_layer_kernel(
     const float* __restrict__ x_in, float* __restrict__ x_out,
     RecT* __restrict__ fg_out, RecT* __restrict__ z_out,
-    const OpT* __restrict__ w_fg, const OpT* __restrict__ wd,
+    const WT* __restrict__ w_fg, const WT* __restrict__ wd,
     const float* __restrict__ add, const float* __restrict__ bd,
     int T, int d, int l, int L) {
   constexpr int TM = kFwdTM, NT = kFwdNT;
@@ -68,6 +82,7 @@ __global__ void __launch_bounds__(kFwdNT) fwd_layer_kernel(
   constexpr bool kRecords = (kMask & kFwdRecords) != 0;
   constexpr bool kRolled = kShift && (kMask & kFwdRolled) != 0;
   constexpr bool kSepRes = sizeof(OpT) != sizeof(float);
+  constexpr bool kTpuRes = (kMask & kFwdTpuResidual) != 0;
   constexpr int K1 = 2 * R, N1 = 2 * D;
   constexpr int CS = K1 + 1;   // padded row strides (no bank conflicts)
   constexpr int ZS = D + 1;
@@ -87,8 +102,8 @@ __global__ void __launch_bounds__(kFwdNT) fwd_layer_kernel(
   // The rolled tile: past of row r at row r, current at row r + e.
   const int e = d < TM ? d : TM;
 
-  for (int i = tid; i < K1 * N1; i += NT) s_w[i] = w_fg[i];
-  for (int i = tid; i < D * R; i += NT) s_wd[i] = wd[i];
+  for (int i = tid; i < K1 * N1; i += NT) s_w[i] = op_cast<OpT>(w_fg[i]);
+  for (int i = tid; i < D * R; i += NT) s_wd[i] = op_cast<OpT>(wd[i]);
   if (kRolled) {
     for (int i = tid; i < (TM + e) * R; i += NT) {
       const int r = i / R, c = i % R;
@@ -187,7 +202,7 @@ __global__ void __launch_bounds__(kFwdNT) fwd_layer_kernel(
   }
   __syncthreads();
 
-  // x' = x + (z @ wd + bd)
+  // x' = x + (z @ wd + bd), or with kTpuRes (x + z @ wd) + bd
   using M2 = TileMapT<TM, NT, R>;
   {
     const int cg = tid % M2::NG, rg = tid / M2::NG;
@@ -223,7 +238,8 @@ __global__ void __launch_bounds__(kFwdNT) fwd_layer_kernel(
         else if (kSepRes) res = s_res[r * R + col];
         else if (kRolled) res = op_to_f(s_cat[(r + e) * XS + col]);
         else res = op_to_f(s_cat[r * CS + R + col]);
-        x_out[(base + t) * R + col] = res + (acc[i][c] + bd[col]);
+        x_out[(base + t) * R + col] = kTpuRes ? (res + acc[i][c]) + bd[col]
+                                              : res + (acc[i][c] + bd[col]);
       }
     }
   }

@@ -20,6 +20,8 @@ enum : unsigned {
   kFwdRecords = 4,  // write the fg and z records
   kFwdRolled = 8,   // with kFwdShift: one load of the tile and its d-row
                     // halo, not a second row stream
+  kFwdTpuResidual = 16,  // x' = (x + z @ wd) + bd, the TPU kernel's order
+                         // (kernel 5's bf16 mode), not x + (z @ wd + bd)
 };
 constexpr unsigned kFwdFull = kFwdCat | kFwdShift | kFwdRecords;
 

@@ -19,7 +19,17 @@ express a halo, and the port builds none.
 
 ``forward`` and ``backward`` run the kernel (``csrc/dilated_layer.cu``,
 3xTF32 on the tensor cores) for CUDA tensors and the plain versions for
-CPU tensors; each counts its launches in ``.launches``. The kernel's grid
+CPU tensors; each counts its launches in ``.launches``, and by mode
+("f32", "bf16") in ``.launches_by``.
+
+At ``compute_dtype=torch.bfloat16`` (the JAX op's ``compute_dtype=
+jnp.bfloat16``) the layer rounds where the JAX wrapper and TPU kernels do:
+x itself (so the residual too: y = (bf16(x) + bf16(z) @ wd) + bd), w and
+wd before the products, z before z @ wd; the backward rounds dy and dz on
+entry (dbd sums the rounded dy, dx_local = bf16(dy) + da @ w[1]^T) and da
+before each product, and sums dadd from the float32 da. Products
+accumulate in float32, and y, z and every gradient are float32. The
+kernel's bf16 mode runs one bf16 ``mma.sync`` pass a product. The kernel's grid
 is ``(nchunk, B)``: each block walks a chunk of consecutive tiles of
 ``TM`` time steps of one batch row, and ``layer_tiling`` (pure) mirrors
 the library's rule for it. The plain versions take ``matmul=``:
@@ -29,6 +39,7 @@ arithmetic on the CPU.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Tuple
 
@@ -36,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from wavenet_torch.kernels import _launch
-from wavenet_torch.kernels.fused_stack import _contract_rows
+from wavenet_torch.kernels.fused_stack import _contract_rows, _rounding
 
 _OP = "dilated_layer"
 
@@ -46,6 +57,16 @@ __all__ = ["fused_dilated_layer", "fused_dilated_layer_reference",
 
 #: Time steps of one batch row in a tile of the kernel.
 TM = 128
+#: The compute dtypes of the layer, by their ``launches_by`` key.
+MODES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _mode(compute_dtype) -> str:
+    try:
+        return MODES[compute_dtype]
+    except KeyError:
+        raise ValueError(f"{_OP}: compute_dtype {compute_dtype}: one of "
+                         f"{tuple(MODES)}") from None
 
 
 def _shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -64,24 +85,35 @@ def _shift_left_add(base: torch.Tensor, contrib: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def fused_dilated_layer_reference(x, w, wd, add, bd, dilation: int,
-                                  matmul=torch.matmul):
+                                  matmul=torch.matmul,
+                                  compute_dtype=torch.float32):
     """Plain forward -> (y [B,T,R], z [B,T,D]); every product through
-    ``matmul``."""
+    ``matmul``, its operands rounded as ``compute_dtype`` says."""
     R, D = x.shape[-1], wd.shape[0]
+    bf16 = _mode(compute_dtype) == "bf16"
+    rnd = _rounding(compute_dtype)
+    x, w, wd = rnd(x), rnd(w), rnd(wd)
     cat = torch.cat([_shift_right(x, dilation), x], dim=-1)
     fg = matmul(cat, w.reshape(2 * R, 2 * D)) + add[:, None, :]
     z = torch.tanh(fg[..., :D]) * torch.sigmoid(fg[..., D:])
+    if bf16:   # the TPU kernel's order
+        return (x + matmul(rnd(z), wd)) + bd[0], z
     return x + (matmul(z, wd) + bd[0]), z
 
 
 @torch.no_grad()
 def fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz,
                                            dilation: int,
-                                           matmul=torch.matmul):
+                                           matmul=torch.matmul,
+                                           compute_dtype=torch.float32):
     """Plain backward, recomputing fg and z from the inputs -> (dx_local
     [B,T,R], dpast [B,T,R], dw [2,R,2D], dwd [D,R], dadd [B,2D], dbd
-    [1,R]); every product through ``matmul``."""
+    [1,R]); every product through ``matmul``, its operands rounded as
+    ``compute_dtype`` says (dy and dz on entry)."""
     R, D = x.shape[-1], wd.shape[0]
+    _mode(compute_dtype)
+    rnd = _rounding(compute_dtype)
+    x, w, wd, dy, dz = rnd(x), rnd(w), rnd(wd), rnd(dy), rnd(dz)
     past = _shift_right(x, dilation)
     fg = matmul(torch.cat([past, x], dim=-1), w.reshape(2 * R, 2 * D)) \
         + add[:, None, :]
@@ -90,10 +122,11 @@ def fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz,
     dzt = dz + matmul(dy, wd.T)
     da = torch.cat([dzt * s_ * (1.0 - t_ * t_),
                     dzt * t_ * s_ * (1.0 - s_)], dim=-1)
-    dw = torch.stack([_contract_rows(past, da, matmul),
-                      _contract_rows(x, da, matmul)])
-    return (dy + matmul(da, w[1].T), matmul(da, w[0].T), dw,
-            _contract_rows(t_ * s_, dy, matmul), da.sum(dim=1),
+    da_r = rnd(da)
+    dw = torch.stack([_contract_rows(past, da_r, matmul),
+                      _contract_rows(x, da_r, matmul)])
+    return (dy + matmul(da_r, w[1].T), matmul(da_r, w[0].T), dw,
+            _contract_rows(rnd(t_ * s_), dy, matmul), da.sum(dim=1),
             dy.sum(dim=(0, 1))[None])
 
 
@@ -126,11 +159,13 @@ def layer_tiling(B: int, T: int, resident_blocks: int) -> LayerTiling:
     return LayerTiling(-(-ntiles // tpc), tpc)
 
 
-def device_layer_tiling(backward: bool, B: int, T: int, R: int,
-                        D: int) -> Tuple[int, LayerTiling]:
-    """(resident blocks, grid) of a direction's kernel on the current card,
-    from the library's resident count."""
-    n = _lib().dilated_layer_resident_blocks(int(backward), R, D)
+def device_layer_tiling(backward: bool, B: int, T: int, R: int, D: int,
+                        compute_dtype=torch.float32
+                        ) -> Tuple[int, LayerTiling]:
+    """(resident blocks, grid) of a direction's kernel in a mode on the
+    current card, from the library's resident count."""
+    n = _lib().dilated_layer_resident_blocks(
+        int(backward), R, D, int(_mode(compute_dtype) == "bf16"))
     if n < 1:
         raise RuntimeError(f"dilated_layer_resident_blocks failed: {n}")
     return n, layer_tiling(B, T, n)
@@ -153,16 +188,19 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dilated_layer_supports_width.argtypes = [i, i]
     lib.dilated_layer_supports_width.restype = i
-    lib.dilated_layer_resident_blocks.argtypes = [i] * 3
+    lib.dilated_layer_resident_blocks.argtypes = [i] * 4
     lib.dilated_layer_resident_blocks.restype = i
-    lib.dilated_layer_nchunk.argtypes = [i] * 5
+    lib.dilated_layer_nchunk.argtypes = [i] * 6
     lib.dilated_layer_nchunk.restype = i
-    lib.dilated_layer_bwd_scratch_floats.argtypes = [i] * 4
+    lib.dilated_layer_bwd_scratch_floats.argtypes = [i] * 5
     lib.dilated_layer_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.dilated_layer_fwd_f32.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.dilated_layer_fwd_f32.restype = i
-    lib.dilated_layer_bwd_f32.argtypes = [p] * 13 + [i] * 5 + [p]
-    lib.dilated_layer_bwd_f32.restype = i
+    for mode in MODES.values():
+        fwd = getattr(lib, f"dilated_layer_fwd_{mode}")
+        fwd.argtypes = [p] * 7 + [i] * 5 + [p]
+        fwd.restype = i
+        bwd = getattr(lib, f"dilated_layer_bwd_{mode}")
+        bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+        bwd.restype = i
     _LIB = lib
     return lib
 
@@ -197,40 +235,48 @@ def _check_aligned(**tensors):
                              "boundary")
 
 
-def forward(x, w, wd, add, bd, dilation: int):
-    """Layer forward -> (y [B,T,R], z [B,T,D]).
+def forward(x, w, wd, add, bd, dilation: int, compute_dtype=torch.float32):
+    """Layer forward -> (y [B,T,R], z [B,T,D]), float32, every input
+    float32 (rounded in the kernel at bf16).
 
     CPU tensors run ``fused_dilated_layer_reference``; CUDA tensors launch
-    the kernel or raise."""
+    the kernel's mode of ``compute_dtype`` or raise."""
+    mode = _mode(compute_dtype)
     if not _launch.use_kernel(_OP, x):
         with torch.no_grad():
-            return fused_dilated_layer_reference(x, w, wd, add, bd, dilation)
+            return fused_dilated_layer_reference(
+                x, w, wd, add, bd, dilation, compute_dtype=compute_dtype)
     lib = _lib()
     B, T, R, D = _check_call(lib, x, w, wd, add, dilation)
     _launch.check(_OP, "bd", bd, (1, R), x.device)
     y = torch.empty_like(x)
     z = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
-    err = lib.dilated_layer_fwd_f32(
+    err = getattr(lib, f"dilated_layer_fwd_{mode}")(
         x.data_ptr(), w.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), y.data_ptr(), z.data_ptr(), B, T, R, D, dilation,
         _launch.stream(x.device))
     if err != 0:
-        raise RuntimeError(f"dilated_layer forward launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"dilated_layer forward ({mode}) launch failed: "
+                           f"CUDA error {err}")
     forward.launches += 1
+    forward.launches_by[mode] += 1
     return y, z
 
 
-def backward(x, w, wd, add, dy, dz, dilation: int):
+def backward(x, w, wd, add, dy, dz, dilation: int,
+             compute_dtype=torch.float32):
     """Layer VJP from the saved inputs -> (dx_local, dpast, dw [2,R,2D],
-    dwd [D,R], dadd [B,2D], dbd [1,R]).
+    dwd [D,R], dadd [B,2D], dbd [1,R]), float32 (dy and dz rounded in the
+    kernel at bf16).
 
     CPU tensors run ``fused_dilated_layer_backward_reference``; CUDA
-    tensors launch the kernel or raise. The kernel sums the weight
-    gradients in a fixed order: repeated calls are bitwise equal."""
+    tensors launch the kernel's mode of ``compute_dtype`` or raise. The
+    kernel sums the weight gradients in a fixed order: repeated calls are
+    bitwise equal."""
+    mode = _mode(compute_dtype)
     if not _launch.use_kernel(_OP, x):
-        return fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz,
-                                                      dilation)
+        return fused_dilated_layer_backward_reference(
+            x, w, wd, add, dy, dz, dilation, compute_dtype=compute_dtype)
     lib = _lib()
     B, T, R, D = _check_call(lib, x, w, wd, add, dilation)
     dev = x.device
@@ -244,26 +290,31 @@ def backward(x, w, wd, add, dy, dz, dilation: int):
     dwd = torch.empty((D, R), **f32)
     dadd = torch.empty((B, 2 * D), **f32)
     dbd = torch.empty((1, R), **f32)
-    n_scratch = lib.dilated_layer_bwd_scratch_floats(B, T, R, D)
+    n_scratch = lib.dilated_layer_bwd_scratch_floats(B, T, R, D,
+                                                     int(mode == "bf16"))
     if n_scratch < 0:
         raise RuntimeError(f"dilated_layer backward: scratch size failed: "
                            f"CUDA error {-n_scratch}")
     scratch = torch.empty((n_scratch,), **f32)
-    err = lib.dilated_layer_bwd_f32(
+    err = getattr(lib, f"dilated_layer_bwd_{mode}")(
         x.data_ptr(), w.data_ptr(), wd.data_ptr(), add.data_ptr(),
         dy.data_ptr(), dz.data_ptr(), dx_local.data_ptr(), dpast.data_ptr(),
         dw.data_ptr(), dwd.data_ptr(), dadd.data_ptr(), dbd.data_ptr(),
         scratch.data_ptr(), B, T, R, D, dilation, _launch.stream(dev))
     if err != 0:
-        raise RuntimeError(f"dilated_layer backward launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"dilated_layer backward ({mode}) launch failed: "
+                           f"CUDA error {err}")
     backward.launches += 1
+    backward.launches_by[mode] += 1
     return dx_local, dpast, dw, dwd, dadd, dbd
 
 
-#: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py).
+#: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
+#: in all and by mode ("f32", "bf16").
 forward.launches = 0
 backward.launches = 0
+forward.launches_by = collections.Counter()
+backward.launches_by = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -273,30 +324,28 @@ backward.launches = 0
 class _FusedDilatedLayer(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, wd, add, bd, dilation):
+    def forward(ctx, x, w, wd, add, bd, dilation, compute_dtype):
         args = (x.contiguous(), w.contiguous(), wd.contiguous(),
                 add.contiguous(), bd.contiguous())
-        ctx.dilation = dilation
+        ctx.dilation, ctx.compute_dtype = dilation, compute_dtype
         ctx.save_for_backward(*args[:4])
-        return forward(*args, dilation)
+        return forward(*args, dilation, compute_dtype)
 
     @staticmethod
     def backward(ctx, dy, dz):
         x, w, wd, add = ctx.saved_tensors
         dx_local, dpast, dw, dwd, dadd, dbd = backward(
-            x, w, wd, add, dy.contiguous(), dz.contiguous(), ctx.dilation)
+            x, w, wd, add, dy.contiguous(), dz.contiguous(), ctx.dilation,
+            ctx.compute_dtype)
         dx = _shift_left_add(dx_local, dpast, ctx.dilation)
-        return dx, dw, dwd, dadd, dbd, None
+        return dx, dw, dwd, dadd, dbd, None, None
 
 
 def fused_dilated_layer(x, w, wd, add, bd, dilation: int,
                         compute_dtype=torch.float32):
-    """(y [B,T,R], z [B,T,D]) for one gated dilated layer; differentiable
-    in x, w, wd, add and bd. float32 only: bf16 operands are ROADMAP.md
-    queue item 1."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused_dilated_layer runs float32 only; compute_dtype="
-            f"{compute_dtype} is queued in ROADMAP.md (queue item 1, bf16: "
-            "queue 2, a3)")
-    return _FusedDilatedLayer.apply(x, w, wd, add, bd, dilation)
+    """(y [B,T,R], z [B,T,D]) for one gated dilated layer, float32;
+    differentiable in x, w, wd, add and bd. ``compute_dtype`` (float32 or
+    bfloat16) is the JAX op's: the operands' type."""
+    _mode(compute_dtype)
+    return _FusedDilatedLayer.apply(x, w, wd, add, bd, dilation,
+                                    compute_dtype)

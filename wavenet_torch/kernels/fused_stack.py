@@ -35,8 +35,10 @@ and the gate output z are rounded to bf16 before each product, which
 accumulates in float32; the residual x, y, dx and every gradient stay
 float32, and the fg and z records are bf16 tensors. The backward reads
 dz in bf16 and rounds dx_{l+1}, the rebuilt layer input and da to bf16
-before their products. Only the mma kernel has a bf16 mode (one bf16
-``mma.sync`` pass a product, ``csrc/bf16_mma.cuh``), at its widths.
+before their products. Both kernels have a bf16 mode at their widths: the
+mma kernel's one bf16 ``mma.sync`` pass a product (``csrc/bf16_mma.cuh``),
+the simt kernel's FP32 FMA on operands rounded to bf16 as they are staged
+into shared memory.
 """
 
 from __future__ import annotations
@@ -58,8 +60,7 @@ _LANE = 128
 
 #: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
 KERNEL_CHOICES = ("auto", "mma", "simt")
-#: Widths (R == D) each kernel source is built for, at float32 (the mma
-#: kernel's bf16 mode has the same widths).
+#: Widths (R == D) each kernel source is built for, in either mode.
 MMA_WIDTHS = (32, 64)
 SIMT_WIDTHS = (8, 16, 32)
 #: The compute dtypes of a stack, and the record dtype of each.
@@ -101,18 +102,11 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     paper and gc widths, where the chip run timed it faster than "simt"
     in both directions, and the wide width, which "simt" lacks), "simt"
     at the other widths ``csrc/fused_stack.cu`` is built for. At
-    bfloat16: "mma" in its bf16 mode at the same widths, the only bf16
-    kernel of this generation. Raises for any other width (ROADMAP.md
-    queue 2, a4; at bf16, a3 and a4). The simt library's own
+    bfloat16 the same kernels in their bf16 mode. Raises for any other
+    width (ROADMAP.md queue 2, a4). The simt library's own
     ``fused_stack_supports_width`` is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
-    if record_dtype(config) == torch.bfloat16:
-        if R == D and R in MMA_WIDTHS:
-            return "mma"
-        raise NotImplementedError(
-            f"the bf16 fused_stack kernel is built for R == D in "
-            f"{MMA_WIDTHS}; got R={R}, D={D} (ROADMAP.md queue 2, a3 and "
-            "a4)")
+    record_dtype(config)    # raises at a compute dtype the stack lacks
     if R == D and R in MMA_WIDTHS:
         return "mma"
     if R == D and R in SIMT_WIDTHS:
@@ -132,12 +126,12 @@ def _past(x: torch.Tensor, d: int) -> torch.Tensor:
     return F.pad(x, (0, 0, d, 0))[:, :x.shape[1]]
 
 
-def _rounding(config: WaveNetConfig):
-    """What the stack does to a product's operand: at bf16, round it to
-    bf16 and back to float32 (to nearest even, as ``astype``), so that a
-    float32 product of two operands is the bf16 product, exact; at float32
-    nothing."""
-    if record_dtype(config) == torch.bfloat16:
+def _rounding(dtype: torch.dtype):
+    """What a product's operand goes through at compute dtype ``dtype``:
+    at bf16, rounded to bf16 and back to float32 (to nearest even, as
+    ``astype``), so that a float32 product of two operands is the bf16
+    product, exact; at float32 nothing."""
+    if dtype == torch.bfloat16:
         return lambda t: t.to(torch.bfloat16).to(t.dtype)
     return lambda t: t
 
@@ -151,7 +145,7 @@ def fused_stack_forward_reference(x, w_fg, wd, add, bd,
     rounded as the config's compute dtype says."""
     D = config.dilation_channels
     bf16 = record_dtype(config) == torch.bfloat16
-    rnd = _rounding(config)
+    rnd = _rounding(record_dtype(config))
     w_fg, wd = rnd(w_fg), rnd(wd)
     fgs, zs = [], []
     for l, d in enumerate(config.dilations):
@@ -191,7 +185,7 @@ def fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     T = y.shape[1]
-    rnd = _rounding(c)
+    rnd = _rounding(record_dtype(c))
     fg, dz = fg.to(y.dtype), rnd(dz.to(y.dtype))
     w_fg_r, wd_r = rnd(w_fg), rnd(wd)
     x, dcur = y.clone(), dy.clone()
@@ -266,8 +260,8 @@ def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _lib(kernel: str):
     """The loaded library of ``kernel`` ("mma" or "simt") and the prefix
-    of its C functions; every mode takes the same arguments (the mma
-    kernel's ``_bf16`` entry points take bf16 fg and z records)."""
+    of its C functions; every mode takes the same arguments (the ``_bf16``
+    entry points take bf16 fg and z records)."""
     from wavenet_torch.kernels import _build
     name = _SOURCES[kernel]
     lib = _build.load(name)
@@ -277,7 +271,7 @@ def _lib(kernel: str):
         lib.fused_stack_supports_width.restype = i
     getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i] * 5
     getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
-    for mode in ("f32", "bf16") if kernel == "mma" else ("f32",):
+    for mode in ("f32", "bf16"):
         getattr(lib, f"{name}_fwd_{mode}").argtypes = [p] * 10 + [i] * 5 + [p]
         getattr(lib, f"{name}_fwd_{mode}").restype = i
         getattr(lib, f"{name}_bwd_{mode}").argtypes = [p] * 14 + [i] * 5 + [p]
@@ -293,8 +287,7 @@ def _check_kernel(kernel: str) -> None:
 
 def launch_key(kernel: str, config: WaveNetConfig) -> str:
     """The ``launches_by`` key of a launch of ``kernel`` ("mma", "simt")
-    for ``config``: the kernel, with "_bf16" for the mma kernel's bf16
-    mode."""
+    for ``config``: the kernel, with "_bf16" for its bf16 mode."""
     return kernel + ("_bf16" if record_dtype(config) == torch.bfloat16
                      else "")
 
@@ -312,10 +305,6 @@ def _route(kernel: str, config: WaveNetConfig):
             f"{_T_TILE_BWD}")
     used = stack_kernel_plan(c) if kernel == "auto" else kernel
     bf16 = record_dtype(c) == torch.bfloat16
-    if bf16 and used != "mma":
-        raise NotImplementedError(
-            f"{_SOURCES[used]} has no bf16 mode; at bf16 the stack runs "
-            "fused_stack_mma (ROADMAP.md queue 2, a3)")
     lib, prefix = _lib(used)
     R, D = c.residual_channels, c.dilation_channels
     built = (lib.fused_stack_supports_width(R, D) if used == "simt"
@@ -427,7 +416,7 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
 
 
 #: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
-#: in all and by kernel and mode ("mma", "mma_bf16", "simt").
+#: in all and by kernel and mode ("mma", "mma_bf16", "simt", "simt_bf16").
 forward.launches = 0
 backward.launches = 0
 forward.launches_by = collections.Counter()

@@ -1,12 +1,16 @@
 """Times of a stack kernel at a config's b8 train shape, for one or more
 checkouts of the repository in turns, on one card: ``--stack mma`` (the
-default) times ``fused_stack_mma`` (forward and backward, f32 and bf16
-modes), ``--stack carry`` the carry kernel behind the retired generations
+default) times ``fused_stack_mma`` (forward and backward, in the modes of
+``--modes``: f32 and bf16), ``--stack simt`` ``fused_stack.cu`` the same
+way (pinned, ``kernel="simt"``), ``--stack carry`` the carry kernel behind
+the retired generations
 (``experiments.fused_stack.carry_forward`` without z, as v1 calls it, and
 with z, as v2 does, and ``carry_backward``), ``--stack layer`` the
 one-layer kernel (``experiments.dilated_layer.forward`` and ``backward``,
 names every tree since the layer kernel has) at each distinct dilation of
-the config, with the mean over them.
+the config, with the mean over them, in the modes of ``--modes`` (f32 by
+default: a tree before the layer kernel's bf16 mode has no other).
+``--modes f32`` compares a tree whose kernel has no bf16 mode yet.
 
     python -m wavenet_torch.tools.stack_times --config gc \\
         --trees parent/ . . parent/
@@ -14,6 +18,8 @@ the config, with the mean over them.
         --trees parent/ . . parent/
     python -m wavenet_torch.tools.stack_times --stack layer --config gc \\
         --trees parent/ . . parent/
+    python -m wavenet_torch.tools.stack_times --stack simt --config tiny \\
+        --modes f32 --trees parent/ . . parent/
 
 Each tree runs in a process of its own whose working directory and
 ``PYTHONPATH`` are that tree, so it imports and builds that tree's
@@ -47,7 +53,8 @@ def _digest(t) -> str:
     return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
 
 
-def _time_tree(label: str, config: str, reps: int, stack: str) -> dict:
+def _time_tree(label: str, config: str, reps: int, stack: str,
+               modes=("f32", "bf16")) -> dict:
     """In the tree's own process: the medians of each direction and mode."""
     import dataclasses
 
@@ -96,7 +103,7 @@ def _time_tree(label: str, config: str, reps: int, stack: str) -> dict:
            "positions": T, "gpu": torch.cuda.get_device_name(0)}
     if stack == "layer":
         return _time_layers(row, c32, x, w_fg, wd, add, bd, dy,
-                            rn(B, T, D), ms)
+                            rn(B, T, D), ms, modes)
     if stack == "carry":
         from wavenet_torch.experiments import fused_stack as fs1
         yp, fgp, _ = fs.fused_stack_forward_reference(x, w_fg, wd, add, bd,
@@ -115,19 +122,21 @@ def _time_tree(label: str, config: str, reps: int, stack: str) -> dict:
         row["bwd_ms"] = ms(lambda: fs1.carry_backward(yp, dy, fgp, dz, w_fg,
                                                       wd, bd, c32))
         return row
-    for mode in ("f32", "bf16"):
+    # mma: the route every tree takes at gc and wide; simt pinned.
+    kw = {"kernel": "simt"} if stack == "simt" else {}
+    for mode in modes:
         c = c32 if mode == "f32" else dataclasses.replace(
             c32, compute_dtype="bfloat16")
-        y, fg, z = fs.forward(x, w_fg, wd, add, bd, c)
+        y, fg, z = fs.forward(x, w_fg, wd, add, bd, c, **kw)
         dzm = dz.to(fs.record_dtype(c))
-        grads = fs.backward(y, dy, fg, dzm, w_fg, wd, bd, c)
+        grads = fs.backward(y, dy, fg, dzm, w_fg, wd, bd, c, **kw)
         for name, t in zip(("y", "fg", "z", "dx", "dw_fg", "dwd", "dadd",
                             "dbd"), (y, fg, z) + tuple(grads)):
             row[f"digest_{name}_{mode}"] = _digest(t)
         row[f"fwd_ms_{mode}"] = ms(lambda: fs.forward(x, w_fg, wd, add, bd,
-                                                      c))
+                                                      c, **kw))
         row[f"bwd_ms_{mode}"] = ms(lambda: fs.backward(y, dy, fg, dzm, w_fg,
-                                                       wd, bd, c))
+                                                       wd, bd, c, **kw))
     return row
 
 
@@ -164,18 +173,36 @@ def _device_ms(fn, calls: int = 20, runs: int = 3) -> float:
     return float(np.median(times))
 
 
-def _time_layers(row, c, x, w_fg, wd, add, bd, dy, dz, ms) -> dict:
+def _time_layers(row, c, x, w_fg, wd, add, bd, dy, dz, ms, modes) -> dict:
     """The one-layer kernel at each distinct dilation of ``c`` (the
-    weights of its first layer of that dilation): the median ms of each
-    direction per dilation and their mean, by CUDA events around one call
-    (host work of the wrapper included) and as device time (``*_device_ms``,
-    ``_device_ms``: calls queued back to back behind a held card), and
-    one digest of each output over the dilations in order."""
+    weights of its first layer of that dilation), in each mode of
+    ``modes`` (keys of the bf16 mode end in ``_bf16``): the median ms of
+    each direction per dilation and their mean, by CUDA events around one
+    call (host work of the wrapper included) and as device time
+    (``*_device_ms``, ``_device_ms``: calls queued back to back behind a
+    held card), and one digest of each output over the dilations in
+    order."""
+    base = dict(row)
+    for mode in modes:
+        sfx = "" if mode == "f32" else f"_{mode}"
+        part = _time_layers_mode(dict(base), c, x, w_fg, wd, add, bd, dy, dz,
+                                 ms, mode)
+        row.update({k + sfx: v for k, v in part.items() if k not in base})
+    return row
+
+
+def _time_layers_mode(row, c, x, w_fg, wd, add, bd, dy, dz, ms,
+                      mode) -> dict:
+    """``_time_layers`` in one mode (f32: the call every tree takes, with
+    no compute_dtype)."""
     import hashlib
 
     import numpy as np
+    import torch
 
     from wavenet_torch.experiments import dilated_layer as dl
+
+    kw = {} if mode == "f32" else {"compute_dtype": torch.bfloat16}
 
     R, D = c.residual_channels, c.dilation_channels
     names = ("y", "z", "dx_local", "dpast", "dw", "dwd", "dadd", "dbd")
@@ -185,13 +212,15 @@ def _time_layers(row, c, x, w_fg, wd, add, bd, dy, dz, ms) -> dict:
     for d in dils:
         l = c.dilations.index(d)
         lay = (x, w_fg[l].view(2, R, 2 * D), wd[l], add[l], bd[l])
-        outs = dl.forward(*lay, d) + tuple(dl.backward(*lay[:4], dy, dz, d))
+        outs = dl.forward(*lay, d, **kw) + tuple(
+            dl.backward(*lay[:4], dy, dz, d, **kw))
         for n, t in zip(names, outs):
             digests[n].update(_digest(t).encode())
-        fwd.append(ms(lambda: dl.forward(*lay, d)))
-        bwd.append(ms(lambda: dl.backward(*lay[:4], dy, dz, d)))
-        dev_fwd.append(_device_ms(lambda: dl.forward(*lay, d)))
-        dev_bwd.append(_device_ms(lambda: dl.backward(*lay[:4], dy, dz, d)))
+        fwd.append(ms(lambda: dl.forward(*lay, d, **kw)))
+        bwd.append(ms(lambda: dl.backward(*lay[:4], dy, dz, d, **kw)))
+        dev_fwd.append(_device_ms(lambda: dl.forward(*lay, d, **kw)))
+        dev_bwd.append(_device_ms(
+            lambda: dl.backward(*lay[:4], dy, dz, d, **kw)))
     row.update({"dilations": dils, "fwd_ms_per_dilation": fwd,
                 "bwd_ms_per_dilation": bwd, "fwd_ms": float(np.mean(fwd)),
                 "bwd_ms": float(np.mean(bwd)),
@@ -211,19 +240,24 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", nargs="+", default=["."],
                     help="checkouts to time, in this order")
     ap.add_argument("--stack", default="mma",
-                    choices=("mma", "carry", "layer"),
+                    choices=("mma", "simt", "carry", "layer"),
                     help="the kernel to time")
+    ap.add_argument("--modes", nargs="+", choices=("f32", "bf16"),
+                    default=None, help="modes of mma, simt and layer "
+                    "(default: f32 and bf16; layer: f32)")
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    modes = args.modes or (["f32"] if args.stack == "layer"
+                           else ["f32", "bf16"])
     if args.child is not None:   # inside one tree's process
         print(json.dumps(_time_tree(args.child, args.config, args.reps,
-                                    args.stack)), flush=True)
+                                    args.stack, modes)), flush=True)
         return 0
     from wavenet_torch.tools import run_in_trees
     return run_in_trees(__file__, args.trees,
                         ["--config", args.config, "--reps", str(args.reps),
-                         "--stack", args.stack])
+                         "--stack", args.stack, "--modes", *modes])
 
 
 if __name__ == "__main__":
