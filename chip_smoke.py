@@ -90,7 +90,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    upsampled on the card (the default), with ``--lc_host_upsample`` and
    with ``--use_pallas_stack``: finite, falling losses, the first step's
    equal across the three within 1e-5, and no stack kernel launched (LC
-   takes the plain route, as in JAX).
+   takes the plain route, as in JAX). The wide config at R = D = 128
+   trains one step on ``fused_stack_tiled`` and one at R = 128, D = 64
+   raises naming ROADMAP a4 step 2, launching nothing.
+5t. The sharded config's stack (80 layers, R = D = 256:
+   ``fused_stack_tiled``, tiled products whose weights stream through
+   shared memory): forward and backward in both modes at the train shape
+   b1 x (receptive field + 16,000 - 1) against the plain versions (f32
+   within the tolerances of phase 5 and per slice, bf16 each forward
+   layer on its own input and the whole on the bf16 gap's scale),
+   bitwise-equal repeats, timed in turns (f32, bf16, bf16, f32) beside
+   their bounds at the 3xTF32 and the bf16 peak with the plain versions'
+   times; then the train CLI on a written ``sharded_params.json`` with
+   ``--use_pallas_stack --batch_size 1 --sample_size 16000``, 4 steps at
+   float32 and 4 at bfloat16, finite losses, every stack call on the
+   tiled kernel's mode (its ``kernels`` rows' launches, counted from 0).
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -262,6 +276,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -298,8 +313,8 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
            "sampler_cluster_lc", "sampler_cluster_lc_bf16", "sampler_tiles",
            "sampler_tiles_bf16",
-           "fused_stack", "fused_stack_mma", "fused_stack_carry",
-           "dilated_layer")
+           "fused_stack", "fused_stack_mma", "fused_stack_tiled",
+           "fused_stack_carry", "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
 DECODE_SOURCES = {"decode": "sampler_decode", "cluster": "sampler_cluster",
                   "tiles": "sampler_tiles"}
@@ -427,6 +442,10 @@ LC_BF16_SOURCES = {"cluster": "sampler_cluster_lc_bf16",
 # Phase 5's LC training check: the train CLI's steps a run, and the
 # speakers of its corpus (two 2-second utterances each, log-mel sidecars).
 LC_TRAIN_STEPS, LC_TRAIN_SPEAKERS = 4, 4
+# Phase 5t: the sharded config's train CLI runs on fused_stack_tiled (batch,
+# samples, steps of each dtype) and the speakers of their corpus (two
+# 2-second utterances each).
+TILED_BATCH, TILED_SAMPLES, TILED_STEPS, TILED_SPEAKERS = 1, 16000, 4, 4
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 # Phase 9: the bench's generation rows by payload key (config, batch, bf16
@@ -1280,7 +1299,7 @@ def phase_stack_bf16(name, c, params, rng, gpu):
 
 STACK_KERNELS = ("fwd_layer_kernel", "bwd_da_kernel", "bwd_dx_kernel",
                  "fwd_mma_kernel", "bwd_da_mma_kernel", "bwd_dx_mma_kernel",
-                 "reduce_partials_kernel")
+                 "reduce_partials_kernel", "tiled_kernel", "reduce_kernel")
 
 
 def kernel_base_name(name: str) -> str:
@@ -1831,32 +1850,247 @@ def phase_train_cli(c, wide, gpu):
                       f"{dict(fs.backward.launches_by)}")
                 row["resumed_to"] = WIDE_STEPS + 1
             emit(row)
-    # A width the stack kernels are not built for (R = D = 128) raises on
-    # the card, naming its ROADMAP item, and launches nothing.
-    import dataclasses
-    bfile = os.path.join(tmp, "w128_params.json")
-    with open(bfile, "w") as f:
-        json.dump(dataclasses.replace(wide, residual_channels=128,
-                                      dilation_channels=128).to_json_dict(), f)
-    n = (fs.forward.launches, fs.backward.launches)
-    try:
-        run_cli(["--data_dir", corpus, "--wavenet_params", bfile,
-                 "--logdir", os.path.join(tmp, "w128"), "--batch_size", "1",
-                 "--sample_size", "4000", "--num_steps", "1",
-                 "--use_pallas_stack", "--seed", "0", "--device", "cuda"])
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    check("a4" in refused and (fs.forward.launches,
-                               fs.backward.launches) == n,
-          f"the train CLI at R = D = 128 with --use_pallas_stack did not "
-          f"raise naming ROADMAP a4 ({refused!r})")
-    emit({"phase": "train_cli_unbuilt_width", "residual_channels": 128,
-          "refused": refused, "gpu": gpu})
+    w128_by = phase_train_cli_w128(wide, corpus, tmp, gpu)
     return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by,
              "narrow_bf16": narrow_bf16_by,
-             "wide": wide_by["float32"], "wide_bf16": wide_by["bfloat16"]},
+             "wide": wide_by["float32"], "wide_bf16": wide_by["bfloat16"],
+             "w128": w128_by},
             os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
+
+
+def phase_stack_tiled(rng, gpu):
+    """TPU kernel 5 at the sharded config's width (80 layers, R = D = 256)
+    on ``csrc/fused_stack_tiled.cu``, the kernel the route takes there, at
+    the train CLI's shape b1 x (receptive field + 16,000 - 1): in each
+    mode, forward and backward against the plain versions (f32 within the
+    tolerances of phase 5, each gradient's layer or row slice within
+    SLICE_RTOL; bf16 each forward layer on its own input, then the whole
+    on the scale of bf16's distance from the plain float32 versions),
+    bitwise-equal repeats, timed in turns (f32, bf16, bf16, f32) beside the
+    bounds at the 3xTF32 and the bf16 peak, the plain versions' times and
+    the device ms of a call by kernel; then the train CLI at
+    ``--use_pallas_stack --batch_size 1 --sample_size 16000`` on a written
+    ``sharded_params.json``, 4 steps at float32 and 4 at bfloat16, every
+    stack call on the tiled kernel (counted from 0). Returns
+    ({(mode, kind): the kernels line's numbers}, {mode: launches_by})."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.models.config import sharded_config
+    from wavenet_torch.utils.flops import (H100_BF16_FLOPS,
+                                           H100_TF32X3_FLOPS, bound_ms,
+                                           fused_stack_cost)
+
+    c32 = sharded_config()
+    c16 = dataclasses.replace(c32, compute_dtype="bfloat16")
+    cfg = {"f32": c32, "bf16": c16}
+    peak = {"f32": H100_TF32X3_FLOPS, "bf16": H100_BF16_FLOPS}
+    check(all(fs.stack_kernel_plan(c) == "tiled" for c in cfg.values()),
+          "the route does not send R = D = 256 to fused_stack_tiled")
+    B, L = TILED_BATCH, c32.num_layers
+    R, D = c32.residual_channels, c32.dilation_channels
+    args = stack_inputs(c32, seeded_params(c32, 5, "cuda"), rng, B,
+                        TILED_SAMPLES)
+    T = args[0].shape[1]
+    w_fg, wd, _, bd = args[1:]
+    dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
+    # dz in bf16's values, so that the float32 gradients are the bf16
+    # gradients' yardstick on the same cotangent.
+    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
+                         device="cuda").to(torch.bfloat16)
+    dz32 = dz.float()
+    row = {"phase": "stack_tiled", "config": "sharded", "batch": B,
+           "positions": T, "layers": L, "width": R, "gpu": gpu}
+    out32 = fs.fused_stack_forward_reference(*args, c32)
+    g32 = fs.fused_stack_backward_reference(out32[0], dy, out32[1], dz32,
+                                            w_fg, wd, bd, c32)
+    worst = {}
+    out_k = [fs.forward(*args, c32) for _ in range(2)]
+    torch.cuda.synchronize()
+    worst[("f32", "fwd")] = max(
+        hold(row, f"{n}_f32", a, b, FWD_RTOL, FWD_ATOL)
+        for n, a, b in zip(("y", "fg", "z"), out_k[0], out32))
+    check(all(torch.equal(a, b) for a, b in zip(*out_k)),
+          "sharded f32: two forward calls on the same inputs differ")
+    del out_k
+    g_k = [fs.backward(out32[0], dy, out32[1], dz32, w_fg, wd, bd, c32)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    worst[("f32", "bwd")] = max(
+        hold(row, f"{n}_f32", a, b, GRAD_RTOL, GRAD_ATOL, lead)
+        for n, a, b, lead in zip(GRAD_NAMES, g_k[0], g32, GRAD_LEADS))
+    check(all(torch.equal(a, b) for a, b in zip(*g_k)),
+          "sharded f32: two backward calls on the same inputs differ")
+    del g_k
+    torch.cuda.empty_cache()
+
+    out16 = fs.fused_stack_forward_reference(*args, c16)
+    out_k = [fs.forward(*args, c16) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(out_k[0][1].dtype == out_k[0][2].dtype == torch.bfloat16,
+          "the tiled bf16 mode's records are not bf16")
+    teacher_forced_bf16(row, c16, args, *out_k[0])
+    worst[("bf16", "fwd")] = max(
+        hold_bf16(row, n, a, b, r) for n, a, b, r in
+        zip(("y", "fg", "z"), out_k[0], out16, out32))
+    check(all(torch.equal(a, b) for a, b in zip(*out_k)),
+          "sharded bf16: two forward calls on the same inputs differ")
+    del out_k
+    y16, fg16 = out16[0], out16[1]
+    g16 = fs.fused_stack_backward_reference(y16, dy, fg16, dz, w_fg, wd, bd,
+                                            c16)
+    g_k = [fs.backward(y16, dy, fg16, dz, w_fg, wd, bd, c16)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    worst[("bf16", "bwd")] = max(
+        hold_bf16(row, n, a, b, r) for n, a, b, r in
+        zip(GRAD_NAMES, g_k[0], g16, g32))
+    check(all(torch.equal(a, b) for a, b in zip(*g_k)),
+          "sharded bf16: two backward calls on the same inputs differ")
+    row["bitwise_repeat"] = True
+    del g_k, g16, g32, out16
+    torch.cuda.empty_cache()
+
+    y32, fg32 = out32[0], out32[1]
+    calls = {
+        "fwd": lambda m: fs.forward(*args, cfg[m]),
+        "bwd": lambda m: (fs.backward(y32, dy, fg32, dz32, w_fg, wd, bd,
+                                      c32) if m == "f32" else
+                          fs.backward(y16, dy, fg16, dz, w_fg, wd, bd, c16)),
+    }
+    plain = {
+        "fwd": lambda m: fs.fused_stack_forward_reference(*args, cfg[m]),
+        "bwd": lambda m: (fs.fused_stack_backward_reference(
+            y32, dy, fg32, dz32, w_fg, wd, bd, c32) if m == "f32" else
+            fs.fused_stack_backward_reference(y16, dy, fg16, dz, w_fg, wd,
+                                              bd, c16)),
+    }
+    modes = ("f32", "bf16")
+    results = {}
+    for kind in ("fwd", "bwd"):
+        ms = {m: [] for m in modes}
+        for _ in range(STACK_TIMED_ROUNDS):
+            for m in modes + modes[::-1]:
+                ms[m].append(cuda_ms(lambda: calls[kind](m)))
+        for m in modes:
+            flops, nbytes = fused_stack_cost(cfg[m], B, T,
+                                             backward=kind == "bwd")
+            bound, by = bound_ms(flops, nbytes, peak[m])
+            t = float(np.median(ms[m]))
+            ms_p = median_cuda_ms(lambda: plain[kind](m), reps=3)
+            trace = device_breakdown(lambda: calls[kind](m))
+            row.update({
+                f"{kind}_ms_{m}": t, f"{kind}_plain_ms_{m}": ms_p,
+                f"{kind}_flops": flops, f"{kind}_bytes_{m}": nbytes,
+                f"{kind}_bound_ms_{m}": bound, f"{kind}_bound_by_{m}": by,
+                f"{kind}_share_of_bound_{m}": bound / t,
+                f"{kind}_device_ms_by_kernel_{m}":
+                    trace["by_kernel"] if trace else
+                    "not measured (no device events)"})
+            results[(m, kind)] = dict(
+                config="sharded", batch=B, positions=T,
+                max_abs_err=worst[(m, kind)], ms=t, plain_ms=ms_p,
+                bound_ms=bound, bound_by=by)
+    emit(row)
+    del args, dy, dz, dz32, out32, y32, fg32, y16, fg16
+    torch.cuda.empty_cache()
+
+    # The main path: the train CLI on the sharded config, each dtype's run
+    # counted from 0.
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_sharded_")
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    synth_corpus(corpus, speakers=TILED_SPEAKERS)
+    pfile = os.path.join(tmp, "sharded_params.json")
+    with open(pfile, "w") as f:
+        json.dump(c32.to_json_dict(), f)
+    launches = {}
+    for m, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        logdir = os.path.join(tmp, f"logdir_{m}")
+        fs.forward.launches_by.clear()
+        fs.backward.launches_by.clear()
+        t0 = time.perf_counter()
+        out = run_cli(["--data_dir", corpus, "--wavenet_params", pfile,
+                       "--logdir", logdir, "--use_pallas_stack",
+                       "--batch_size", str(TILED_BATCH),
+                       "--sample_size", str(TILED_SAMPLES),
+                       "--num_steps", str(TILED_STEPS),
+                       "--checkpoint_every", str(TILED_STEPS),
+                       "--compute_dtype", dtype, "--seed", "0",
+                       "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        by = {"fwd": dict(fs.forward.launches_by),
+              "bwd": dict(fs.backward.launches_by)}
+        want = {fs.launch_key("tiled", cfg[m]): TILED_STEPS}
+        check(all(v == want for v in by.values()),
+              f"the sharded {dtype} train CLI ran the stack kernels {by}, "
+              f"not {want}")
+        losses = [float(ln.split("loss = ")[1].split(",")[0])
+                  for ln in out.splitlines() if ln.startswith("step ")]
+        check(len(losses) == TILED_STEPS
+              and all(x == x and abs(x) != float("inf") for x in losses),
+              f"sharded {dtype} train CLI losses {losses}: not "
+              f"{TILED_STEPS} finite values")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            sec = [r["value"] for r in map(json.loads, f)
+                   if r["tag"] == "sec_per_step"][-1]
+        launches[m] = by
+        emit({"phase": "train_cli_sharded", "config": "sharded",
+              "compute_dtype": dtype, "batch": TILED_BATCH,
+              "sample_size": TILED_SAMPLES, "steps": TILED_STEPS,
+              "losses": losses, "seconds": seconds,
+              "sec_per_step_last": sec, "stack_launches_by": by,
+              "gpu": gpu})
+    shutil.rmtree(tmp, ignore_errors=True)
+    return results, launches
+
+
+def phase_train_cli_w128(wide, corpus, tmp, gpu):
+    """The wide config at R = D = 128 trains one step on fused_stack_tiled
+    (counted from 0); R != D (R = 128, D = 64), which no kernel takes,
+    raises on the card naming its ROADMAP item, and launches nothing.
+    Returns the R = D = 128 run's launches_by."""
+    import dataclasses
+    from wavenet_torch.kernels import fused_stack as fs
+    w128_by = {}
+    for R, D in ((128, 128), (128, 64)):
+        label = f"w{R}" if R == D else f"w{R}_d{D}"
+        bfile = os.path.join(tmp, f"{label}_params.json")
+        with open(bfile, "w") as f:
+            json.dump(dataclasses.replace(wide, residual_channels=R,
+                                          dilation_channels=D)
+                      .to_json_dict(), f)
+        fs.forward.launches_by.clear()
+        fs.backward.launches_by.clear()
+        n = (fs.forward.launches, fs.backward.launches)
+        argv_w = ["--data_dir", corpus, "--wavenet_params", bfile,
+                  "--logdir", os.path.join(tmp, label), "--batch_size", "1",
+                  "--sample_size", "4000", "--num_steps", "1",
+                  "--use_pallas_stack", "--seed", "0", "--device", "cuda"]
+        if R == D:
+            out = run_cli(argv_w)
+            w128_by = {"fwd": dict(fs.forward.launches_by),
+                       "bwd": dict(fs.backward.launches_by)}
+            check(all(v == {"tiled": 1} for v in w128_by.values())
+                  and "step 1 - loss = " in out,
+                  f"the train CLI at R = D = 128 ran the stack kernels "
+                  f"{w128_by}, not one tiled launch each way")
+            emit({"phase": "train_cli_w128", "residual_channels": R,
+                  "stack_launches_by": w128_by, "gpu": gpu})
+            continue
+        try:
+            run_cli(argv_w)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        check("a4 step 2" in refused and (fs.forward.launches,
+                                          fs.backward.launches) == n,
+              f"the train CLI at R = {R}, D = {D} with --use_pallas_stack "
+              f"did not raise naming ROADMAP a4 step 2 ({refused!r})")
+        emit({"phase": "train_cli_unbuilt_width", "residual_channels": R,
+              "dilation_channels": D, "refused": refused, "gpu": gpu})
+    return w128_by
 
 
 def phase_lc_train(gpu):
@@ -4596,6 +4830,12 @@ def main() -> int:
     emit({"phase": "lc_training", "seconds": time.perf_counter() - t5lc,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 5t: the sharded config's stack on fused_stack_tiled.
+    t5t = time.perf_counter()
+    tiled, tiled_launches = phase_stack_tiled(rng, gpu)
+    emit({"phase": "sharded_training", "seconds": time.perf_counter() - t5t,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 6: generation, kernel 4's route and the generate CLI.
     seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
     wide_timed = phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"],
@@ -5150,6 +5390,30 @@ def main() -> int:
                "sampler_cluster_lc": "cluster_lc"}.get(row["name"])
         if key is not None:
             row["launches_bench"] = bench_launches.get(key, 0)
+    # fused_stack_tiled (kernel 5 at R = D = 128 and up): phase 5t's
+    # sharded b1 check and timing in each mode, the launches of that mode's
+    # sharded train CLI run (and of phase 5's w128 run, f32); its bound at
+    # the 3xTF32 or the bf16 peak. library_ms is null for the reason above.
+    for m, suffix in (("f32", ""), ("bf16", "_bf16")):
+        for kind, line in (("fwd", 105), ("bwd", 276)):
+            t = tiled[(m, kind)]
+            row = {
+                "name": f"fused_stack_tiled{suffix}_{kind}", "route": "cuda",
+                "source": "wavenet_torch/csrc/fused_stack_tiled.cu",
+                "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
+                "mode": m, "config": t["config"], "batch": t["batch"],
+                "positions": t["positions"],
+                "launches": tiled_launches[m][kind].get(
+                    "tiled" + suffix, 0),
+                "launches_on": f"train CLI, sharded, {m}",
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "unit": "per call (one train step's stack)", "gpu": gpu}
+            if m == "f32":
+                row["launches_w128"] = train_launches["w128"][kind].get(
+                    "tiled", 0)
+            kernels.append(row)
     idle = [row["name"] for row in kernels if not row["launches"]]
     check(not idle, f"kernels launched no time on their main path: {idle}")
     print(gpu, flush=True)

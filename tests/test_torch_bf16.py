@@ -252,9 +252,11 @@ def test_stack_cost_counts_bf16_records_at_two_bytes():
 
 
 @pytest.mark.parametrize("W,want", [(32, "mma"), (16, "simt"), (64, "mma"),
-                                    (128, None), (8, "simt")])
+                                    (128, "tiled"), (8, "simt"),
+                                    ((256, 128), None)])
 def test_stack_kernel_plan_bf16(W, want):
-    c = TConfig(dilations=(1, 2), residual_channels=W, dilation_channels=W,
+    R, D = W if isinstance(W, tuple) else (W, W)
+    c = TConfig(dilations=(1, 2), residual_channels=R, dilation_channels=D,
                 skip_channels=16, quantization_channels=32,
                 compute_dtype="bfloat16")
     if want is None:

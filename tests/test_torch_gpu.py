@@ -2,7 +2,8 @@
 their prefill and sequential routes, mu-law and scalar input, in float32
 and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths in both
 modes, and the route between them;
-``fused_stack`` (the 3xTF32 "mma" kernel and the FP32-core "simt" one);
+``fused_stack`` (the 3xTF32 "mma" kernel, the FP32-core "simt" one and
+the "tiled" one of the widths from 128);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect`` and ``fwd_bisect2`` (on the
 FP32 cores and on the tensor cores), ``b1_bisect`` and ``matvec_probe`` of
@@ -641,11 +642,21 @@ def test_fused_stack_mma_width64(setup, bf16, gc):
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
 
 
+def _zero_stack(R, D, L=2, B=2, T=64):
+    x = torch.zeros(B, T, R, device="cuda")
+    w = (torch.zeros(L, 2 * R, 2 * D, device="cuda"),
+         torch.zeros(L, D, R, device="cuda"),
+         torch.zeros(L, B, 2 * D, device="cuda"),
+         torch.zeros(L, 1, R, device="cuda"))
+    return x, w
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
     """No fallback at the widths the kernels lack: "simt" pinned at 64,
-    and every kernel at 128 or R != D, raise and launch nothing."""
+    "mma" and "simt" pinned at 128 (which the route sends to "tiled"),
+    and every kernel at R != D, raise and launch nothing."""
     def cfg(R, D):
         c = WaveNetConfig(dilations=(1, 2), residual_channels=R,
                           dilation_channels=D, skip_channels=16,
@@ -656,18 +667,16 @@ def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
     n = (fs.forward.launches, fs.backward.launches)
     with pytest.raises(NotImplementedError, match="not built for R=64"):
         fs.forward(*args, cfg(64, 64), kernel="simt")
-    for R, D in ((128, 128), (64, 32)):
+    x, w = _zero_stack(128, 128)
+    for kernel in ("mma", "simt"):
+        with pytest.raises(NotImplementedError, match="not built for R=128"):
+            fs.forward(x, *w, cfg(128, 128), kernel=kernel)
+    for R, D in ((128, 64), (64, 32)):
         c = cfg(R, D)
-        rng = np.random.RandomState(0)
-        x = torch.as_tensor(rng.randn(2, 64, R).astype(np.float32),
-                            device="cuda")
-        w = (torch.zeros(2, 2 * R, 2 * D, device="cuda"),
-             torch.zeros(2, D, R, device="cuda"),
-             torch.zeros(2, 2, 2 * D, device="cuda"),
-             torch.zeros(2, 1, R, device="cuda"))
+        x, w = _zero_stack(R, D)
         with pytest.raises(NotImplementedError, match="a4"):
             fs.stack_kernel_plan(c)
-        for kernel in ("auto", "mma"):
+        for kernel in ("auto", "mma", "tiled"):
             with pytest.raises(NotImplementedError, match="a4"):
                 fs.forward(x, *w, c, kernel=kernel)
     assert (fs.forward.launches, fs.backward.launches) == n
@@ -675,28 +684,137 @@ def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
 
 @pytest.mark.gpu
 def test_fused_stack_bf16_rejects_what_it_lacks(setup):
-    """At bf16 the widths still lacking (R = D = 128, R != D) raise,
-    naming ROADMAP a4, on every kernel; a float32 fg record is refused."""
+    """At bf16 the widths still lacking (R != D) raise, naming ROADMAP
+    a4, on every kernel; R = D = 128 runs on "tiled_bf16", and "mma" or
+    "simt" pinned there raise; a float32 fg record is refused."""
     c32, args, (dy, dz) = _stack_inputs(32, (1, 2), 2, 64)
     c = _bf16(c32)
     n = fs.forward.launches
-    for R, D in ((128, 128), (16, 8)):
+    for R, D in ((128, 64), (16, 8)):
         cw = _bf16(WaveNetConfig(dilations=(1, 2), residual_channels=R,
                                  dilation_channels=D, skip_channels=16,
                                  quantization_channels=32))
-        x = torch.zeros(2, 64, R, device="cuda")
-        w = (torch.zeros(2, 2 * R, 2 * D, device="cuda"),
-             torch.zeros(2, D, R, device="cuda"),
-             torch.zeros(2, 2, 2 * D, device="cuda"),
-             torch.zeros(2, 1, R, device="cuda"))
-        for kernel in ("auto", "mma", "simt"):
+        x, w = _zero_stack(R, D)
+        for kernel in ("auto", "mma", "simt", "tiled"):
             with pytest.raises(NotImplementedError, match="a4"):
                 fs.forward(x, *w, cw, kernel=kernel)
+    c128 = _bf16(WaveNetConfig(dilations=(1, 2), residual_channels=128,
+                               dilation_channels=128, skip_channels=16,
+                               quantization_channels=32))
+    x, w = _zero_stack(128, 128)
+    for kernel in ("mma", "simt"):
+        with pytest.raises(NotImplementedError, match="not built for R=128"):
+            fs.forward(x, *w, c128, kernel=kernel)
     y, fg, _ = fs.fused_stack_forward_reference(*args, c)
     w_fg, wd, _, bd = args[1:]
     with pytest.raises(ValueError, match="fg"):   # a float32 fg record
         fs.backward(y, dy, fg.float(), dz, w_fg, wd, bd, c)
     assert fs.forward.launches == n
+    t0 = fs.forward.launches_by["tiled_bf16"]
+    _, fg128, _ = fs.forward(x, *w, c128)
+    torch.cuda.synchronize()
+    assert fg128.dtype == torch.bfloat16
+    assert fs.forward.launches_by["tiled_bf16"] == t0 + 1
+
+
+def _tiled_case(W, dilations, B, T, gc, bf16):
+    c32, args, (dy, dz) = _stack_inputs(W, dilations, B, T)
+    if not gc:
+        add = args[3]
+        args = args[:3] + (add[:, :1].expand_as(add).contiguous(),) + args[4:]
+    return c32, (_bf16(c32) if bf16 else c32), args, dy, dz
+
+
+def _hold_tiled(out, ref, ref32, grads, gref, gref32, bf16):
+    for name, got, want, want32 in zip(("y", "fg", "z"), out, ref, ref32):
+        assert got.dtype == want.dtype, name
+        if bf16:
+            _hold_bf16(got, want, want32, name)
+        else:
+            _hold_scaled(got, want, FWD_TOL, 0, name)
+    for name, got, want, want32, lead in zip(
+            ("dx", "dw_fg", "dwd", "dadd", "dbd"), grads, gref, gref32,
+            _GRAD_LEADS):
+        assert got.dtype == torch.float32, name
+        if bf16:
+            _hold_bf16(got, want, want32, name)
+        else:
+            _hold_scaled(got, want, GRAD_TOL, lead, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("W,dilations,B,T,gc", [
+    (128, (1, 2, 64, 512, 7), 3, 700, True),
+    (256, (1, 33, 4, 128), 1, 1100, False),
+    (384, (1, 2, 4), 3, 150, True),
+])
+def test_fused_stack_tiled_matches_reference(setup, W, dilations, B, T, gc,
+                                             bf16):
+    """csrc/fused_stack_tiled.cu at R = D = 128, 256 (the sharded width)
+    and 384 against the plain versions in both modes: T not a multiple
+    of the 64-row tile, B 1 and 3 (row tiles that cross batch rows), a
+    dilation of several tiles, ``add`` per batch row (gc) or one for all
+    rows; forward, backward and the op, each output held as
+    test_fused_stack_mma_width64 holds it; launches_by counts the mode
+    that ran; repeats are bitwise equal."""
+    c32, c, args, dy, dz = _tiled_case(W, dilations, B, T, gc, bf16)
+    key = "tiled_bf16" if bf16 else "tiled"
+    assert fs.stack_kernel_plan(c) == "tiled"
+    f0, b0 = fs.forward.launches_by[key], fs.backward.launches_by[key]
+    out = fs.forward(*args, c)
+    ref = fs.fused_stack_forward_reference(*args, c)
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    assert fs.forward.launches_by[key] == f0 + 1
+    assert fs.backward.launches_by[key] == b0 + 1
+    _hold_tiled(out, ref, ref32, grads, gref, gref32, bf16)
+    again = fs.forward(*args, c)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    again = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y, z = fs.fused_stack3(*leaves, c)
+    (y * dy).sum().add((z.float() * dz).sum()).backward()
+    want = fs.backward(y.detach(), dy, out[1], dz.to(z.dtype), w_fg, wd,
+                       bd, c)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_stack_tiled_matches_mma_at_64(setup, bf16):
+    """The tiled kernel pinned at R = D = 64, where fused_stack_mma (an
+    independent design: weights resident, one launch a layer forward)
+    computes the same stack: both within their tolerances of the plain
+    versions and of each other."""
+    c32, c, args, dy, dz = _tiled_case(64, (1, 64, 2, 33, 512, 7), 2, 1100,
+                                       True, bf16)
+    ref = fs.fused_stack_forward_reference(*args, c)
+    ref32 = fs.fused_stack_forward_reference(*args, c32)
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr, _ = ref
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    got = {}
+    for k in ("tiled", "mma"):
+        out = fs.forward(*args, c, kernel=k)
+        grads = fs.backward(yr, dy, fgr, dz, w_fg, wd, bd, c, kernel=k)
+        torch.cuda.synchronize()
+        _hold_tiled(out, ref, ref32, grads, gref, gref32, bf16)
+        got[k] = list(out) + list(grads)
+    if not bf16:
+        for i, (a, b) in enumerate(zip(got["tiled"], got["mma"])):
+            _hold_scaled(a, b, FWD_TOL if i < 3 else GRAD_TOL, 0,
+                         "tiled vs mma")
 
 
 @pytest.mark.gpu

@@ -44,13 +44,15 @@ def _tcfg(jcfg):
 
 
 def _width(W, **kw):
-    return TConfig(dilations=(1, 2), residual_channels=W,
-                   dilation_channels=W, skip_channels=16,
+    R, D = W if isinstance(W, tuple) else (W, W)
+    return TConfig(dilations=(1, 2), residual_channels=R,
+                   dilation_channels=D, skip_channels=16,
                    quantization_channels=32, **kw)
 
 
 @pytest.mark.parametrize("W,want", [(8, "simt"), (16, "simt"), (32, "mma"),
-                                    (64, "mma"), (128, None)])
+                                    (64, "mma"), (128, "tiled"),
+                                    ((128, 64), None)])
 def test_stack_kernel_plan(W, want):
     c = _width(W)
     if want is None:

@@ -1,0 +1,870 @@
+// fused_stack_tiled: the whole dilated stack of a training step, forward
+// and backward, on Hopper's tensor cores (filter_width 2), at the widths
+// whose weights do not stay in shared memory: R = D = 128, 256 and any
+// other multiple of 64 (the widths are runtime arguments; the tiles are
+// fixed). Two modes of one source, the precision a template parameter:
+// - f32 (float32 parity, 3xTF32; records float32): fused_stack_tiled_*_f32;
+// - bf16 (bf16 operands, float32 accumulation and residual; fg and z
+//   records bf16): fused_stack_tiled_*_bf16.
+// The C entry points return kUnsupportedWidth at a width they do not take
+// (fused_stack_tiled_supports_width says which).
+//
+// Replaces, at those widths, the TPU (Pallas) kernel pair of the JAX
+// package
+//   wavenet_tpu/kernels/fused_stack3.py:105  _fwd_kernel
+//   wavenet_tpu/kernels/fused_stack3.py:276  _bwd_kernel
+// in both of its compute dtypes, beside fused_stack_mma.cu (R = D = 32,
+// 64) and fused_stack.cu (8, 16), whose weights stay resident in shared
+// memory. It computes what they compute: per layer l with dilation d,
+//   fg = [x(t-d) | x(t)] @ w_fg[l] + add[l, b]      (x(t-d) = 0 for t < d)
+//   z  = tanh(fg_f) * sigmoid(fg_g)
+//   x' = x + (z @ wd[l] + bd[l])                    (bf16: (x + z @ wd) + bd)
+// emitting y, fg [B, T, L*2D] and z [B, T, L*D]; the backward rebuilds each
+// layer's input by subtraction, x = (x' - z @ wd) - bd, with z recomputed
+// from the fg record, and sums the weight gradients over rows in a fixed
+// order (per-block partial sums, then a pass that adds them in block
+// order; no float atomics: repeated calls are bitwise equal). bf16 mode,
+// as the TPU kernel at kernel_dtype = bfloat16: every product's operands
+// (the weights, the tap matrix, z, dx_{l+1}, the rebuilt input, da) are
+// rounded to bf16 to nearest even as their fragments load; the residual,
+// fg's sum, the gate, da, dx and every gradient stay float32.
+//
+// What bounds it. At the sharded config (80 layers, R = D = 256) on
+// b1 x 24,186 rows the forward does 1.27e12 FLOPs and the backward 2.79e12;
+// they move 6.1 and 6.2 GB in f32 (3.1 and 3.3 GB in bf16). Both are bound
+// by operations in both modes: at 3xTF32 (495 / 3 = 165 TFLOP/s) 7.7 and
+// 16.9 ms, at bf16 (989 TFLOP/s) 1.3 and 2.8 ms (PERF.md §6). At these
+// widths w_fg alone is 1 MB a layer in f32 (256 KB at 128), so the weights
+// cannot stay resident as the narrower kernels keep them: every product is
+// a tiled matrix product whose operands stream through shared memory in
+// k-tiles, and each layer is a few such products of GEMM shape (M = B*T
+// rows, K and N the widths).
+//
+// Design: one tiled kernel template (tiled_kernel) and one operation
+// struct per product, which says where an operand tile's rows come from
+// (the gather of the tap matrix, the shifted gradient tap) and what the
+// epilogue does. A block computes a 64 x 64 tile of the output with 4 warps
+// (2 x 2, each 32 x 32: two m16 by four n8 mma.sync tiles), over k-tiles of
+// 32 that cp.async brings into a 3-stage ring of shared memory, zero-filled
+// where a row lies outside its batch row, its chunk or [0, T). Operands
+// stay float32 in shared memory; the f32 mode splits each fragment into
+// TF32 hi/lo as it loads (tf32_mma.cuh) and runs three mma.sync m16n8k8
+// passes, the bf16 mode rounds and pairs it (bf16_mma.cuh) for one
+// mma.sync m16n8k16 pass. The tensor core sums one k-tile in a zeroed
+// accumulator, which a float32 add takes into the block's sum (the row
+// contractions sum ~24k rows; the tensor core's own accumulation strays
+// further from float64 than a float32 sum). Shared rows are padded to 4
+// (mod 32) or 8 (mod 32) words, so the fragment loads of f32 are free of
+// bank conflicts.
+// - Forward, two launches a layer. (F1) fg: the A tile is gathered as
+//   [x(t-d) | x(t)] from the layer's input; a block owns 32 filter columns
+//   and the 32 gate columns that pair with them, a warp 16 of each, so the
+//   gate is the epilogue, which writes the fg and z records (and, in bf16,
+//   z as float32 for (F2)). (F2) x' = x + z @ wd + bd, reading z from the
+//   record (f32) or its float copy (bf16: the rounded z that the TPU kernel
+//   multiplies); y is the running x, updated in place.
+// - Backward, seven launches a layer: (A) dz_tot = dz + dx_{l+1} @ wd^T,
+//   epilogue da = dz_tot * dz/dfg and z from the fg record, both to scratch;
+//   (X) x_l = (x_{l+1} - z @ wd) - bd in place; (W1) dwd = z^T @ dx_{l+1}
+//   and dbd = sum dx_{l+1}, and (W2) dw_fg = [x(t-d) | x]^T @ da and dadd =
+//   sum_t da, as per-block partials over chunks of one batch row's rows;
+//   (DX) dx_l = dx_{l+1} + [da(t) | da(t+d)] @ [w_fg[R:]^T ; w_fg[:R]^T],
+//   one product of depth 4D whose A tile gathers the shifted tap (no tmp
+//   scratch), dx the running gradient, updated in place; (R1), (R2) add the
+//   partials in block order into dwd, dbd and dw_fg, dadd.
+// So a call launches 2L kernels forward and 7L backward; the wrapper
+// counts one launch a call. Making it fast (wgmma, TMA, a persistent
+// schedule, fewer launches) is later work (ROADMAP b2).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "bf16_mma.cuh"
+#include "stack_common.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+constexpr int BM = 64, BN = 64, BK = 32;   // output tile, k-tile
+constexpr int NT = 128;                    // 4 warps: 2 (rows) x 2 (columns)
+constexpr int NSTAGE = 3;
+constexpr int SA = BK + 4;                 // row stride of a [64][BK] tile
+constexpr int ST = BM + 8;                 // row stride of a [BK][64] tile
+constexpr int kTileFloats = BM * SA;       // either tile form
+static_assert(BM * SA == BK * ST, "both tile forms take one slot");
+constexpr int kSmemBytes = NSTAGE * 2 * kTileFloats * (int)sizeof(float);
+// Blocks a row contraction aims at across its chunks (two waves of 132).
+constexpr int kContractBlocks = 264;
+
+// The two modes. KS: the k of one mma.sync; A, Bf: a lane's fragments;
+// Rec: the element of the fg and z records.
+struct F32 {
+  static constexpr bool kBf16 = false;
+  static constexpr int KS = 8;
+  using A = Tf32Frag;
+  using Bf = uint4;                        // {hi(b0), hi(b1), lo(b0), lo(b1)}
+  using Rec = float;
+};
+
+struct BF16 {
+  static constexpr bool kBf16 = true;
+  static constexpr int KS = 16;
+  using A = Bf16Frag;
+  using Bf = uint2;                        // {b0, b1}: bf16 pairs along k
+  using Rec = __nv_bfloat16;
+};
+
+__device__ __forceinline__ float tof(float v) { return v; }
+__device__ __forceinline__ float tof(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// A fragment of rows m0.. and columns k0.. of the A operand, from a
+// row-major [64][SA] tile (kT false) or a k-major [BK][ST] tile, A[m][k] =
+// s[k][m] (kT true).
+template <bool kT>
+__device__ __forceinline__ void load_a(const float* s, int m0, int k0,
+                                       int lane, Tf32Frag& a) {
+  if constexpr (kT) afrag_t<ST>(s, m0, k0, lane, a);
+  else afrag<SA>(s, m0, k0, lane, a);
+}
+
+template <bool kT>
+__device__ __forceinline__ void load_a(const float* s, int m0, int k0,
+                                       int lane, Bf16Frag& a) {
+  if constexpr (kT) {
+    afrag16_t<ST, 16>(s, m0, k0, lane, a);
+  } else {
+    const float* p = s + m0 * SA + k0;
+    afrag16<SA>(p, p + 8, lane, a);
+  }
+}
+
+// A B fragment of rows k0.. and columns n0.. of the B operand, from a
+// k-major [BK][ST] tile, B[k][n] = s[k][n] (kT false), or an n-major
+// [64][SA] tile, B[k][n] = s[n][k] (kT true).
+template <bool kT>
+__device__ __forceinline__ void load_b(const float* s, int k0, int n0,
+                                       int lane, uint4& b) {
+  if constexpr (kT) {
+    const int g = lane >> 2, q = lane & 3;
+    const float* p = s + (n0 + g) * SA + k0 + q;
+    tf32_split(p[0], b.x, b.z);
+    tf32_split(p[4], b.y, b.w);
+  } else {
+    bfrag<ST>(s, k0, n0, lane, b);
+  }
+}
+
+template <bool kT>
+__device__ __forceinline__ void load_b(const float* s, int k0, int n0,
+                                       int lane, uint2& b) {
+  if constexpr (kT) {
+    const int g = lane >> 2, q = lane & 3;
+    const float* p = s + (n0 + g) * SA + k0 + 2 * q;
+    b.x = pack_bf16(p[0], p[1]);
+    b.y = pack_bf16(p[8], p[9]);
+  } else {
+    bfrag16<ST>(s, k0, n0, lane, b);
+  }
+}
+
+__device__ __forceinline__ void mma_n(float (&c)[4][4], const Tf32Frag& a,
+                                      const uint4 (&b)[4]) {
+  mma3_tf32_n<4>(c, a.hi, a.lo, b);
+}
+__device__ __forceinline__ void mma_n(float (&c)[4][4], const Bf16Frag& a,
+                                      const uint2 (&b)[4]) {
+  mma_bf16_n<4>(c, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The tiled product. Op says:
+//   kAT / kBT: the tile forms of A and B (see load_a, load_b);
+//   kPair: the block's 64 columns are 32 filter and the 32 gate columns
+//     that pair with them (a warp holds 16 of each, so a thread holds both
+//     halves of a gate);
+//   kColSum: the blocks of the first row of the grid also sum B's columns
+//     over their rows (the bias gradients), in row order;
+//   k_range(kb, ke): the k extent of this block (a product's depth, or a
+//     row contraction's chunk of one batch row);
+//   a_src(m, k, ke): the 4 floats A[m][k..k+3] (kAT false) or
+//     A[m..m+3][k] (kAT true), or nullptr for zeros; b_src(k, n, ke)
+//     likewise for B;
+//   store(m, n, v0, v1) the outputs (m, n), (m, n + 1); with kPair
+//     store_pair(m, j, f0, f1, g0, g1), j the filter column;
+//   col_sums(n, s) with kColSum.
+// ---------------------------------------------------------------------------
+
+template <class P, class Op>
+__global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int wm = w >> 1, wn = w & 1;
+  const int g = lane >> 2, q = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  int kb, ke;
+  op.k_range(kb, ke);
+  const int nk = (ke - kb + BK - 1) / BK;
+  const bool colsum = Op::kColSum && blockIdx.y == 0;
+
+  auto tile_a = [&](int kt) { return smem + (kt % NSTAGE) * 2 * kTileFloats; };
+  auto tile_b = [&](int kt) { return tile_a(kt) + kTileFloats; };
+  // 16 bytes from src, or zeros where there is no src.
+  auto copy = [](float* dst, const float* src) {
+    if (src) cp_async16(dst, src, true);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto issue = [&](int kt) {
+    const int k0 = kb + kt * BK;
+    float* sa = tile_a(kt);
+    float* sb = tile_b(kt);
+    for (int c = tid; c < BM * BK / 4; c += NT) {
+      if constexpr (Op::kAT) {
+        const int kr = c >> 4, mq = (c & 15) * 4;
+        copy(sa + kr * ST + mq, op.a_src(m0 + mq, k0 + kr, ke));
+      } else {
+        const int r = c >> 3, kq = (c & 7) * 4;
+        copy(sa + r * SA + kq, op.a_src(m0 + r, k0 + kq, ke));
+      }
+      if constexpr (Op::kBT) {
+        const int n = c >> 3, kq = (c & 7) * 4;
+        copy(sb + n * SA + kq, op.b_src(k0 + kq, n0 + n, ke));
+      } else {
+        const int kr = c >> 4, nq = (c & 15) * 4;
+        copy(sb + kr * ST + nq, op.b_src(k0 + kr, n0 + nq, ke));
+      }
+    }
+  };
+
+  // The warp's n8 tiles (block columns 8 * ntile(j)).
+  auto ntile = [&](int j) {
+    if constexpr (Op::kPair) return j < 2 ? 2 * wn + j : 4 + 2 * wn + j - 2;
+    else return 4 * wn + j;
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) zero(acc[i]);
+  float cs = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();   // tile kt is in; every warp is done with kt - 1
+    if (kt + NSTAGE - 1 < nk) issue(kt + NSTAGE - 1);
+    cp_async_commit();
+    const float* sa = tile_a(kt);
+    const float* sb = tile_b(kt);
+    if (colsum && tid < BN)
+      for (int r = 0; r < BK; ++r) cs += sb[r * ST + tid];
+    float c[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) zero(c[i]);
+#pragma unroll
+    for (int ks = 0; ks < BK / P::KS; ++ks) {
+      typename P::A a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        load_a<Op::kAT>(sa, 32 * wm + 16 * i, ks * P::KS, lane, a[i]);
+      typename P::Bf b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        load_b<Op::kBT>(sb, ks * P::KS, 8 * ntile(j), lane, b[j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma_n(c[i], a[i], b);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += c[i][j][e];
+  }
+  cp_async_wait<0>();
+
+  if constexpr (Op::kColSum) {
+    if (colsum && tid < BN) op.col_sums(n0 + tid, cs);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + 32 * wm + 16 * i + g + 8 * half;
+      if constexpr (Op::kPair) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          op.store_pair(m, blockIdx.x * (BN / 2) + 16 * wn + 8 * j + 2 * q,
+                        acc[i][j][2 * half], acc[i][j][2 * half + 1],
+                        acc[i][j + 2][2 * half], acc[i][j + 2][2 * half + 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          op.store(m, n0 + 8 * ntile(j) + 2 * q, acc[i][j][2 * half],
+                   acc[i][j][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// Rows of a row-major [B*T] operand, as a GEMM's M.
+struct RowsOp {
+  int M, K;
+  __device__ void k_range(int& kb, int& ke) const {
+    kb = 0;
+    ke = K;
+  }
+};
+
+// (F1): fg = [x(t-d) | x(t)] @ w_fg + add, z = tanh(f) sigmoid(g). The
+// GEMM's N order is the blocks' (filter 32, gate 32) pairs.
+template <class P>
+struct FwdGateOp : RowsOp {
+  static constexpr bool kAT = false, kBT = false, kPair = true,
+                        kColSum = false;
+  using Rec = typename P::Rec;
+  const float* x;        // [B*T, R], the layer's input
+  const float* w;        // w_fg[l] [2R][2D]
+  const float* add;      // add[l] [B][2D]
+  Rec* fg;               // the layer's fg record columns, row stride fg_ld
+  Rec* z;                // the layer's z record columns, row stride z_ld
+  float* zf;             // bf16: z rounded, as float [B*T, D]
+  int T, R, D, d;
+  size_t fg_ld, z_ld;
+  __device__ const float* a_src(int m, int k, int) const {
+    if (m >= M) return nullptr;
+    if (k >= R) return x + (size_t)m * R + (k - R);
+    return m % T >= d ? x + (size_t)(m - d) * R + k : nullptr;
+  }
+  __device__ const float* b_src(int k, int n, int) const {
+    const int blk = n / BN, nl = n % BN;
+    const int col = nl < BN / 2 ? blk * (BN / 2) + nl
+                                : D + blk * (BN / 2) + nl - BN / 2;
+    return w + (size_t)k * 2 * D + col;
+  }
+  __device__ void store_pair(int m, int j, float f0, float f1, float g0,
+                             float g1) const {
+    if (m >= M) return;
+    const float* ab = add + (size_t)(m / T) * 2 * D;
+    const float fv[2] = {f0 + ab[j], f1 + ab[j + 1]};
+    const float gv[2] = {g0 + ab[D + j], g1 + ab[D + j + 1]};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float zv = tanhf(fv[c]) * sigmoidf(gv[c]);
+      put(fg + (size_t)m * fg_ld + j + c, fv[c]);
+      put(fg + (size_t)m * fg_ld + D + j + c, gv[c]);
+      put(z + (size_t)m * z_ld + j + c, zv);
+      if constexpr (P::kBf16)
+        zf[(size_t)m * D + j + c] = __bfloat162float(__float2bfloat16_rn(zv));
+    }
+  }
+};
+
+// (F2): x' = x + (z @ wd + bd) (f32) or (x + z @ wd) + bd (bf16, the TPU
+// kernel's order); x' may be x.
+template <class P>
+struct FwdResOp : RowsOp {
+  static constexpr bool kAT = false, kBT = false, kPair = false,
+                        kColSum = false;
+  const float* zs;       // z as float, row stride z_ld
+  const float* wd;       // wd[l] [D][R]
+  const float* bd;       // bd[l] [R]
+  const float* xin;      // [B*T, R]
+  float* xout;
+  int R;
+  size_t z_ld;
+  __device__ const float* a_src(int m, int k, int) const {
+    return m < M ? zs + (size_t)m * z_ld + k : nullptr;
+  }
+  __device__ const float* b_src(int k, int n, int) const {
+    return wd + (size_t)k * R + n;
+  }
+  __device__ void store(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    const size_t o = (size_t)m * R + n;
+    const float x0 = xin[o], x1 = xin[o + 1];
+    if constexpr (P::kBf16) {
+      xout[o] = (x0 + v0) + bd[n];
+      xout[o + 1] = (x1 + v1) + bd[n + 1];
+    } else {
+      xout[o] = x0 + (v0 + bd[n]);
+      xout[o + 1] = x1 + (v1 + bd[n + 1]);
+    }
+  }
+};
+
+// (A): dz_tot = dz + dx_{l+1} @ wd^T; da = dz_tot * d z / d fg, and z from
+// the fg record, both float32 to scratch.
+template <class P>
+struct BwdGateOp : RowsOp {
+  static constexpr bool kAT = false, kBT = true, kPair = false,
+                        kColSum = false;
+  using Rec = typename P::Rec;
+  const float* dc;       // dx_{l+1} [B*T, R]
+  const float* wd;       // wd[l] [D][R]: B[k][n] = wd[n][k]
+  const Rec* fg;         // the layer's fg record columns, row stride fg_ld
+  const Rec* dz;         // the layer's dz columns, row stride z_ld
+  float* da;             // [B*T, 2D]
+  float* zs;             // [B*T, D]
+  int R, D;
+  size_t fg_ld, z_ld;
+  __device__ const float* a_src(int m, int k, int) const {
+    return m < M ? dc + (size_t)m * R + k : nullptr;
+  }
+  __device__ const float* b_src(int k, int n, int) const {
+    return wd + (size_t)n * R + k;
+  }
+  __device__ void store(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = n + c;
+      const float dzt = tof(dz[(size_t)m * z_ld + j]) + v[c];
+      const float th = tanhf(tof(fg[(size_t)m * fg_ld + j]));
+      const float sg = sigmoidf(tof(fg[(size_t)m * fg_ld + D + j]));
+      da[(size_t)m * 2 * D + j] = dzt * sg * (1.f - th * th);
+      da[(size_t)m * 2 * D + D + j] = dzt * th * sg * (1.f - sg);
+      zs[(size_t)m * D + j] = th * sg;
+    }
+  }
+};
+
+// (X): x_l = (x_{l+1} - z @ wd) - bd; x_l may be x_{l+1}.
+struct BwdInputOp : RowsOp {
+  static constexpr bool kAT = false, kBT = false, kPair = false,
+                        kColSum = false;
+  const float* zs;       // [B*T, D]
+  const float* wd;       // wd[l] [D][R]
+  const float* bd;       // bd[l] [R]
+  const float* xin;
+  float* xout;
+  int R, D;
+  __device__ const float* a_src(int m, int k, int) const {
+    return m < M ? zs + (size_t)m * D + k : nullptr;
+  }
+  __device__ const float* b_src(int k, int n, int) const {
+    return wd + (size_t)k * R + n;
+  }
+  __device__ void store(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    const size_t o = (size_t)m * R + n;
+    xout[o] = (xin[o] - v0) - bd[n];
+    xout[o + 1] = (xin[o + 1] - v1) - bd[n + 1];
+  }
+};
+
+// (DX): dx_l = dx_{l+1} + [da(t) | da(t+d)] @ [w_fg[R:]^T ; w_fg[:R]^T]
+// (da(t+d) = 0 past the batch row's end); dx_l may be dx_{l+1}.
+struct BwdDxOp : RowsOp {
+  static constexpr bool kAT = false, kBT = true, kPair = false,
+                        kColSum = false;
+  const float* da;       // [B*T, 2D]
+  const float* w;        // w_fg[l] [2R][2D]
+  const float* din;
+  float* dout;
+  int T, R, D, d;
+  __device__ const float* a_src(int m, int k, int) const {
+    if (m >= M) return nullptr;
+    if (k < 2 * D) return da + (size_t)m * 2 * D + k;
+    return m % T + d < T ? da + (size_t)(m + d) * 2 * D + (k - 2 * D)
+                         : nullptr;
+  }
+  __device__ const float* b_src(int k, int n, int) const {
+    return k < 2 * D ? w + (size_t)(R + n) * 2 * D + k
+                     : w + (size_t)n * 2 * D + (k - 2 * D);
+  }
+  __device__ void store(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    const size_t o = (size_t)m * R + n;
+    dout[o] = din[o] + v0;
+    dout[o + 1] = din[o + 1] + v1;
+  }
+};
+
+// A row contraction C[K1][N] = sum over rows of U[row]^T V[row], over the
+// chunk of one batch row's rows that blockIdx.z names (z = b * nchunk + c,
+// rows [c * rpc, min(T, (c + 1) * rpc))): a partial [K1][N] per z, and the
+// column sums of V.
+struct ContractOp {
+  static constexpr bool kAT = true, kBT = false, kPair = false,
+                        kColSum = true;
+  int T, nchunk, rpc, N;
+  float* part;           // [B * nchunk][K1][N]
+  float* csum;           // [B * nchunk][N]
+  size_t part_stride;    // K1 * N
+  __device__ size_t row0() const {
+    return (size_t)(blockIdx.z / nchunk) * T;
+  }
+  __device__ void k_range(int& kb, int& ke) const {
+    const int c = blockIdx.z % nchunk;
+    kb = c * rpc;
+    ke = min(T, kb + rpc);
+  }
+  __device__ void store(int m, int n, float v0, float v1) const {
+    float* p = part + blockIdx.z * part_stride + (size_t)m * N + n;
+    p[0] = v0;
+    p[1] = v1;
+  }
+  __device__ void col_sums(int n, float s) const {
+    csum[(size_t)blockIdx.z * N + n] = s;
+  }
+};
+
+// (W1): dwd = z^T @ dx_{l+1}, dbd = sum dx_{l+1}.
+struct DwdOp : ContractOp {
+  const float* zs;       // [B*T, D]
+  const float* dc;       // [B*T, R]
+  int D;
+  __device__ const float* a_src(int m, int t, int te) const {
+    return t < te ? zs + (row0() + t) * D + m : nullptr;
+  }
+  __device__ const float* b_src(int t, int n, int te) const {
+    return t < te ? dc + (row0() + t) * N + n : nullptr;
+  }
+};
+
+// (W2): dw_fg = [x(t-d) | x(t)]^T @ da, dadd = sum_t da.
+struct DwfgOp : ContractOp {
+  const float* x;        // x_l [B*T, R]
+  const float* da;       // [B*T, 2D]
+  int R, d;
+  __device__ const float* a_src(int m, int t, int te) const {
+    if (t >= te) return nullptr;
+    if (m >= R) return x + (row0() + t) * R + (m - R);
+    return t >= d ? x + (row0() + t - d) * R + m : nullptr;
+  }
+  __device__ const float* b_src(int t, int n, int te) const {
+    return t < te ? da + (row0() + t) * N + n : nullptr;
+  }
+};
+
+// (R1), (R2): out[e] = sum over z of part[z][e] (e < nw), then the column
+// sums: cs_out[grp][n] = sum over the grp's nper blocks of csum[.][n].
+__global__ void __launch_bounds__(256) reduce_kernel(
+    const float* __restrict__ part, const float* __restrict__ csum,
+    float* __restrict__ out, float* __restrict__ cs_out, int nsplit, int nw,
+    int N, int ngrp, int nper) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e < nw) {
+    float s = 0.f;
+    for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * nw + e];
+    out[e] = s;
+    return;
+  }
+  const int f = e - nw;
+  if (f >= ngrp * N) return;
+  const int grp = f / N, n = f % N;
+  const float* p = csum + (size_t)grp * nper * N + n;
+  float s = 0.f;
+  for (int k = 0; k < nper; ++k) s += p[(size_t)k * N];
+  cs_out[f] = s;
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+template <class P, class Op>
+cudaError_t launch(dim3 grid, const Op& op, cudaStream_t st) {
+  auto* k = &tiled_kernel<P, Op>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  k<<<grid, NT, kSmemBytes, st>>>(op);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_reduce(const float* part, const float* csum, float* out,
+                          float* cs_out, int nsplit, int nw, int N, int ngrp,
+                          int nper, cudaStream_t st) {
+  const int n = nw + ngrp * N;
+  reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, csum, out, cs_out,
+                                                   nsplit, nw, N, ngrp, nper);
+  return cudaGetLastError();
+}
+
+int row_tiles(int M) { return (M + BM - 1) / BM; }
+
+// A row contraction's chunks of one batch row: as many as bring the grid
+// (tiles output tiles a chunk, B batch rows) to kContractBlocks, each a
+// whole number of k-tiles. Fixed by the shape alone.
+struct Chunks {
+  int nchunk, rpc;
+};
+Chunks contract_chunks(int B, int T, int tiles) {
+  int want = (kContractBlocks + tiles * B - 1) / (tiles * B);
+  if (want < 1) want = 1;
+  int rpc = (T + want - 1) / want;
+  rpc = (rpc + BK - 1) / BK * BK;
+  return {(T + rpc - 1) / rpc, rpc};
+}
+
+constexpr int kUnsupportedWidth = 1000;
+
+bool supported(int r, int d) {
+  return r == d && r > 0 && r % 64 == 0;
+}
+
+template <class P>
+int forward_impl(const float* x, const float* w_fg, const float* wd,
+                 const float* add, const float* bd, const int* dil, float* y,
+                 typename P::Rec* fg, typename P::Rec* z, float* xbuf, int B,
+                 int T, int L, int R, int D, cudaStream_t st) {
+  const int M = B * T;
+  const size_t fg_ld = (size_t)L * 2 * D, z_ld = (size_t)L * D;
+  for (int l = 0; l < L; ++l) {
+    const float* xin = l == 0 ? x : y;
+    FwdGateOp<P> f1;
+    f1.M = M;
+    f1.K = 2 * R;
+    f1.x = xin;
+    f1.w = w_fg + (size_t)l * 2 * R * 2 * D;
+    f1.add = add + (size_t)l * B * 2 * D;
+    f1.fg = fg + (size_t)l * 2 * D;
+    f1.z = z + (size_t)l * D;
+    f1.zf = xbuf;
+    f1.T = T;
+    f1.R = R;
+    f1.D = D;
+    f1.d = dil[l];
+    f1.fg_ld = fg_ld;
+    f1.z_ld = z_ld;
+    cudaError_t e = launch<P>(dim3(2 * D / BN, row_tiles(M)), f1, st);
+    if (e != cudaSuccess) return (int)e;
+    FwdResOp<P> f2;
+    f2.M = M;
+    f2.K = D;
+    if constexpr (P::kBf16) {
+      f2.zs = xbuf;
+      f2.z_ld = D;
+    } else {
+      f2.zs = z + (size_t)l * D;
+      f2.z_ld = z_ld;
+    }
+    f2.wd = wd + (size_t)l * D * R;
+    f2.bd = bd + (size_t)l * R;
+    f2.xin = xin;
+    f2.xout = y;
+    f2.R = R;
+    e = launch<P>(dim3(R / BN, row_tiles(M)), f2, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The scratch of the backward, in floats: x_l, z, da, and the partials of
+// the two row contractions (weights, then column sums).
+struct BwdScratch {
+  Chunks c1, c2;         // (W1), (W2)
+  size_t xs, zs, da, p1, s1, p2, s2, total;
+};
+BwdScratch bwd_scratch(int B, int T, int R, int D) {
+  BwdScratch s;
+  const size_t M = (size_t)B * T;
+  s.c1 = contract_chunks(B, T, (D / BM) * (R / BN));
+  s.c2 = contract_chunks(B, T, (2 * R / BM) * (2 * D / BN));
+  const size_t n1 = (size_t)B * s.c1.nchunk, n2 = (size_t)B * s.c2.nchunk;
+  s.xs = 0;
+  s.zs = s.xs + M * R;
+  s.da = s.zs + M * D;
+  s.p1 = s.da + M * 2 * D;
+  s.s1 = s.p1 + n1 * D * R;
+  s.p2 = s.s1 + n1 * R;
+  s.s2 = s.p2 + n2 * 4 * R * D;
+  s.total = s.s2 + n2 * 2 * D;
+  return s;
+}
+
+template <class P>
+int backward_impl(const float* y, const float* dy,
+                  const typename P::Rec* fg, const typename P::Rec* dz,
+                  const float* w_fg, const float* wd, const float* bd,
+                  const int* dil, float* dx, float* dw_fg, float* dwd,
+                  float* dadd, float* dbd, float* scratch, int B, int T,
+                  int L, int R, int D, cudaStream_t st) {
+  const int M = B * T;
+  const BwdScratch s = bwd_scratch(B, T, R, D);
+  float* xs = scratch + s.xs;
+  float* zs = scratch + s.zs;
+  float* da = scratch + s.da;
+  const size_t fg_ld = (size_t)L * 2 * D, z_ld = (size_t)L * D;
+  const int n1 = B * s.c1.nchunk, n2 = B * s.c2.nchunk;
+  for (int l = L - 1; l >= 0; --l) {
+    const float* dc = l == L - 1 ? dy : dx;
+    const float* x_next = l == L - 1 ? y : xs;
+    const float* wdl = wd + (size_t)l * D * R;
+    const float* wl = w_fg + (size_t)l * 2 * R * 2 * D;
+    const int d = dil[l];
+
+    BwdGateOp<P> a;
+    a.M = M;
+    a.K = R;
+    a.dc = dc;
+    a.wd = wdl;
+    a.fg = fg + (size_t)l * 2 * D;
+    a.dz = dz + (size_t)l * D;
+    a.da = da;
+    a.zs = zs;
+    a.R = R;
+    a.D = D;
+    a.fg_ld = fg_ld;
+    a.z_ld = z_ld;
+    cudaError_t e = launch<P>(dim3(D / BN, row_tiles(M)), a, st);
+    if (e != cudaSuccess) return (int)e;
+
+    BwdInputOp xo;
+    xo.M = M;
+    xo.K = D;
+    xo.zs = zs;
+    xo.wd = wdl;
+    xo.bd = bd + (size_t)l * R;
+    xo.xin = x_next;
+    xo.xout = xs;
+    xo.R = R;
+    xo.D = D;
+    e = launch<P>(dim3(R / BN, row_tiles(M)), xo, st);
+    if (e != cudaSuccess) return (int)e;
+
+    DwdOp w1;
+    w1.T = T;
+    w1.nchunk = s.c1.nchunk;
+    w1.rpc = s.c1.rpc;
+    w1.N = R;
+    w1.part = scratch + s.p1;
+    w1.csum = scratch + s.s1;
+    w1.part_stride = (size_t)D * R;
+    w1.zs = zs;
+    w1.dc = dc;
+    w1.D = D;
+    e = launch<P>(dim3(R / BN, D / BM, n1), w1, st);
+    if (e != cudaSuccess) return (int)e;
+
+    DwfgOp w2;
+    w2.T = T;
+    w2.nchunk = s.c2.nchunk;
+    w2.rpc = s.c2.rpc;
+    w2.N = 2 * D;
+    w2.part = scratch + s.p2;
+    w2.csum = scratch + s.s2;
+    w2.part_stride = (size_t)4 * R * D;
+    w2.x = xs;
+    w2.da = da;
+    w2.R = R;
+    w2.d = d;
+    e = launch<P>(dim3(2 * D / BN, 2 * R / BM, n2), w2, st);
+    if (e != cudaSuccess) return (int)e;
+
+    BwdDxOp x2;
+    x2.M = M;
+    x2.K = 4 * D;
+    x2.da = da;
+    x2.w = wl;
+    x2.din = dc;
+    x2.dout = dx;
+    x2.T = T;
+    x2.R = R;
+    x2.D = D;
+    x2.d = d;
+    e = launch<P>(dim3(R / BN, row_tiles(M)), x2, st);
+    if (e != cudaSuccess) return (int)e;
+
+    e = launch_reduce(scratch + s.p1, scratch + s.s1, dwd + (size_t)l * D * R,
+                      dbd + (size_t)l * R, n1, D * R, R, 1, n1, st);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_reduce(scratch + s.p2, scratch + s.s2,
+                      dw_fg + (size_t)l * 4 * R * D,
+                      dadd + (size_t)l * B * 2 * D, n2, 4 * R * D, 2 * D, B,
+                      s.c2.nchunk, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 where the kernels take R = r, D = d (R == D, a multiple of 64), else 0.
+int fused_stack_tiled_supports_width(int r, int d) { return supported(r, d); }
+
+// Floats of scratch device memory the backward needs (either mode); -1 at
+// a width not taken.
+long long fused_stack_tiled_bwd_scratch_floats(int B, int T, int L, int r,
+                                               int d) {
+  (void)L;
+  if (!supported(r, d)) return -1;
+  return (long long)bwd_scratch(B, T, r, d).total;
+}
+
+// Forward launches (2L of them); the arguments of fused_stack_fwd_f32
+// (fused_stack.cu): xbuf [2, B, T, R] floats. Returns 0 or a CUDA error
+// code.
+int fused_stack_tiled_fwd_f32(const float* x, const float* w_fg,
+                              const float* wd, const float* add,
+                              const float* bd, const int* dil, float* y,
+                              float* fg, float* z, float* xbuf, int B, int T,
+                              int L, int r, int d, void* stream) {
+  if (!supported(r, d)) return kUnsupportedWidth;
+  return forward_impl<F32>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
+                           L, r, d, (cudaStream_t)stream);
+}
+
+// Backward launches (7L of them); the arguments of fused_stack_bwd_f32
+// (fused_stack.cu), scratch sized by fused_stack_tiled_bwd_scratch_floats.
+// Returns 0 or a CUDA error code.
+int fused_stack_tiled_bwd_f32(const float* y, const float* dy,
+                              const float* fg, const float* dz,
+                              const float* w_fg, const float* wd,
+                              const float* bd, const int* dil, float* dx,
+                              float* dw_fg, float* dwd, float* dadd,
+                              float* dbd, float* scratch, int B, int T, int L,
+                              int r, int d, void* stream) {
+  if (!supported(r, d)) return kUnsupportedWidth;
+  return backward_impl<F32>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd,
+                            dadd, dbd, scratch, B, T, L, r, d,
+                            (cudaStream_t)stream);
+}
+
+// The bf16 mode: the arguments of fused_stack_tiled_fwd_f32, with fg and z
+// bf16 [B, T, L*2D] and [B, T, L*D] (float32 weights, rounded in the
+// kernel).
+int fused_stack_tiled_fwd_bf16(const float* x, const float* w_fg,
+                               const float* wd, const float* add,
+                               const float* bd, const int* dil, float* y,
+                               __nv_bfloat16* fg, __nv_bfloat16* z,
+                               float* xbuf, int B, int T, int L, int r, int d,
+                               void* stream) {
+  if (!supported(r, d)) return kUnsupportedWidth;
+  return forward_impl<BF16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
+                            L, r, d, (cudaStream_t)stream);
+}
+
+// The bf16 mode: the arguments of fused_stack_tiled_bwd_f32, with fg and dz
+// bf16; every output float32.
+int fused_stack_tiled_bwd_bf16(const float* y, const float* dy,
+                               const __nv_bfloat16* fg,
+                               const __nv_bfloat16* dz, const float* w_fg,
+                               const float* wd, const float* bd,
+                               const int* dil, float* dx, float* dw_fg,
+                               float* dwd, float* dadd, float* dbd,
+                               float* scratch, int B, int T, int L, int r,
+                               int d, void* stream) {
+  if (!supported(r, d)) return kUnsupportedWidth;
+  return backward_impl<BF16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                             dwd, dadd, dbd, scratch, B, T, L, r, d,
+                             (cudaStream_t)stream);
+}
+
+}  // extern "C"

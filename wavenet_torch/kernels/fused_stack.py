@@ -16,17 +16,22 @@ The forward returns ``y`` (the last layer's output), the preactivations
 unpadded. The backward rebuilds each layer's input by subtraction, as the
 TPU kernel does: no recompute, no saved layer inputs.
 
-Two CUDA kernel pairs compute the map. ``csrc/fused_stack_mma.cu``
+Three CUDA kernel pairs compute the map. ``csrc/fused_stack_mma.cu``
 ("mma") multiplies on the tensor cores in 3xTF32 (the counterpart of the
 TPU kernel's ``mxu_dot`` at HIGHEST: float32 parity) and is built for
-R == D in (32, 64); ``csrc/fused_stack.cu`` ("simt") multiplies on the
-FP32 cores at R == D in (8, 16, 32). ``stack_kernel_plan`` (pure) picks
-one. ``forward`` and ``backward`` run the routed kernel, or the one that
-``kernel=`` pins, for CUDA tensors and the plain versions for CPU tensors;
-each counts its kernel launches in ``forward.launches`` /
-``backward.launches`` (one per call: the call runs L kernels forward,
-2L + 1 backward) and by kernel in ``launches_by``. ``mma3_matmul`` repeats
-the mma kernel's product arithmetic in plain PyTorch, for the tests.
+R == D in (32, 64), with every weight of a layer resident in shared
+memory; ``csrc/fused_stack.cu`` ("simt") multiplies on the FP32 cores at
+R == D in (8, 16, 32); ``csrc/fused_stack_tiled.cu`` ("tiled") runs each
+layer as tiled matrix products on the tensor cores whose weights stream
+through shared memory, at R == D a multiple of 64 (routed at 128 and
+above, where the weights no longer fit). ``stack_kernel_plan`` (pure)
+picks one. ``forward`` and ``backward`` run the routed kernel, or the one
+that ``kernel=`` pins, for CUDA tensors and the plain versions for CPU
+tensors; each counts its kernel launches in ``forward.launches`` /
+``backward.launches`` (one per call: the call runs L kernels forward and
+2L + 1 backward on "mma" and "simt", 2L and 7L on "tiled") and by kernel
+in ``launches_by``. ``mma3_matmul`` repeats the 3xTF32 product arithmetic
+in plain PyTorch, for the tests.
 
 The stack computes in the config's ``compute_dtype``. At "bfloat16" it
 rounds where the TPU kernel does (``fused_stack3.py`` with
@@ -35,10 +40,10 @@ and the gate output z are rounded to bf16 before each product, which
 accumulates in float32; the residual x, y, dx and every gradient stay
 float32, and the fg and z records are bf16 tensors. The backward reads
 dz in bf16 and rounds dx_{l+1}, the rebuilt layer input and da to bf16
-before their products. Both kernels have a bf16 mode at their widths: the
-mma kernel's one bf16 ``mma.sync`` pass a product (``csrc/bf16_mma.cuh``),
-the simt kernel's FP32 FMA on operands rounded to bf16 as they are staged
-into shared memory.
+before their products. Every kernel has a bf16 mode at its widths: the
+mma and tiled kernels' one bf16 ``mma.sync`` pass a product
+(``csrc/bf16_mma.cuh``), the simt kernel's FP32 FMA on operands rounded to
+bf16 as they are staged into shared memory.
 """
 
 from __future__ import annotations
@@ -59,13 +64,17 @@ _T_TILE_BWD = 1024
 _LANE = 128
 
 #: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
-KERNEL_CHOICES = ("auto", "mma", "simt")
-#: Widths (R == D) each kernel source is built for, in either mode.
+KERNEL_CHOICES = ("auto", "mma", "simt", "tiled")
+#: Widths (R == D) each kernel source is built for, in either mode. The
+#: tiled kernel takes more (its library says which); the route sends it
+#: R == D a multiple of 128, the widths above 64 that the TPU kernel's
+#: 128-lane records take.
 MMA_WIDTHS = (32, 64)
 SIMT_WIDTHS = (8, 16, 32)
 #: The compute dtypes of a stack, and the record dtype of each.
 RECORD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_SOURCES = {"mma": "fused_stack_mma", "simt": "fused_stack"}
+_SOURCES = {"mma": "fused_stack_mma", "simt": "fused_stack",
+            "tiled": "fused_stack_tiled"}
 
 __all__ = ["supports", "stack_kernel_plan", "record_dtype", "launch_key",
            "fused_stack_forward_reference",
@@ -101,20 +110,25 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     compute dtype. At float32: "mma" at R == D in ``MMA_WIDTHS`` (the
     paper and gc widths, where the chip run timed it faster than "simt"
     in both directions, and the wide width, which "simt" lacks), "simt"
-    at the other widths ``csrc/fused_stack.cu`` is built for. At
-    bfloat16 the same kernels in their bf16 mode. Raises for any other
-    width (ROADMAP.md queue 2, a4). The simt library's own
-    ``fused_stack_supports_width`` is asked again at launch."""
+    at the other widths ``csrc/fused_stack.cu`` is built for, "tiled" at
+    R == D a multiple of 128 (the sharded config's 256; weights too large
+    to stay in shared memory). At bfloat16 the same kernels in their bf16
+    mode. Raises for any other width: R != D (ROADMAP.md queue 2, a4 step
+    2) and R == D in (1, 2, 4) (a4 step 4). Each library's own
+    ``*_supports_width`` ("simt", "tiled") is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
     record_dtype(config)    # raises at a compute dtype the stack lacks
     if R == D and R in MMA_WIDTHS:
         return "mma"
     if R == D and R in SIMT_WIDTHS:
         return "simt"
+    if R == D and R % _LANE == 0:
+        return "tiled"
+    step = " step 2" if R != D else " step 4"
     raise NotImplementedError(
-        f"the fused_stack kernels are built for R == D in "
-        f"{tuple(sorted(set(SIMT_WIDTHS + MMA_WIDTHS)))}; got R={R}, D={D} "
-        "(ROADMAP.md queue 2, a4)")
+        f"the fused_stack kernels take R == D in "
+        f"{tuple(sorted(set(SIMT_WIDTHS + MMA_WIDTHS)))} or a multiple of "
+        f"{_LANE}; got R={R}, D={D} (ROADMAP.md queue 2, a4{step})")
 
 
 # ---------------------------------------------------------------------------
@@ -259,16 +273,16 @@ def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _lib(kernel: str):
-    """The loaded library of ``kernel`` ("mma" or "simt") and the prefix
-    of its C functions; every mode takes the same arguments (the ``_bf16``
-    entry points take bf16 fg and z records)."""
+    """The loaded library of ``kernel`` ("mma", "simt" or "tiled") and
+    the prefix of its C functions; every mode takes the same arguments
+    (the ``_bf16`` entry points take bf16 fg and z records)."""
     from wavenet_torch.kernels import _build
     name = _SOURCES[kernel]
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if kernel == "simt":
-        lib.fused_stack_supports_width.argtypes = [i, i]
-        lib.fused_stack_supports_width.restype = i
+    if kernel in ("simt", "tiled"):
+        getattr(lib, f"{name}_supports_width").argtypes = [i, i]
+        getattr(lib, f"{name}_supports_width").restype = i
     getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i] * 5
     getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
     for mode in ("f32", "bf16"):
@@ -286,7 +300,8 @@ def _check_kernel(kernel: str) -> None:
 
 
 def launch_key(kernel: str, config: WaveNetConfig) -> str:
-    """The ``launches_by`` key of a launch of ``kernel`` ("mma", "simt")
+    """The ``launches_by`` key of a launch of ``kernel`` ("mma", "simt",
+    "tiled")
     for ``config``: the kernel, with "_bf16" for its bf16 mode."""
     return kernel + ("_bf16" if record_dtype(config) == torch.bfloat16
                      else "")
@@ -296,8 +311,8 @@ def _route(kernel: str, config: WaveNetConfig):
     """The kernel a call runs (``stack_kernel_plan``'s for "auto", else the
     pinned one), its library and the C function of its mode (e.g.
     ``fused_stack_mma_fwd_bf16`` without the direction); raises at a width
-    or dtype the kernel is not built for (the simt library says which
-    widths), with no fallback to the other kernel."""
+    or dtype the kernel is not built for (the simt and tiled libraries say
+    which widths), with no fallback to another kernel."""
     c = config
     if not supports(c):
         raise NotImplementedError(
@@ -307,8 +322,8 @@ def _route(kernel: str, config: WaveNetConfig):
     bf16 = record_dtype(c) == torch.bfloat16
     lib, prefix = _lib(used)
     R, D = c.residual_channels, c.dilation_channels
-    built = (lib.fused_stack_supports_width(R, D) if used == "simt"
-             else R == D and R in MMA_WIDTHS)
+    built = (R == D and R in MMA_WIDTHS if used == "mma"
+             else getattr(lib, f"{prefix}_supports_width")(R, D))
     if not built:
         raise NotImplementedError(
             f"{prefix}: not built for R={R}, D={D} (R == D, see "
@@ -338,7 +353,7 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
 
     CPU tensors run ``fused_stack_forward_reference`` whatever ``kernel``
     says; CUDA tensors launch the kernel that ``stack_kernel_plan`` picks
-    ("auto") or that ``kernel`` pins ("mma", "simt"), or raise."""
+    ("auto") or that ``kernel`` pins ("mma", "simt", "tiled"), or raise."""
     _check_kernel(kernel)
     if not _launch.use_kernel("fused_stack", x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
@@ -374,7 +389,7 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
 
     CPU tensors run ``fused_stack_backward_reference`` whatever ``kernel``
     says; CUDA tensors launch the routed or pinned kernel, as ``forward``
-    does, or raise. Both kernels sum the weight gradients in a fixed order
+    does, or raise. Every kernel sums the weight gradients in a fixed order
     (no atomics): repeated calls are bitwise equal."""
     _check_kernel(kernel)
     if not _launch.use_kernel("fused_stack", y):
@@ -416,7 +431,8 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
 
 
 #: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
-#: in all and by kernel and mode ("mma", "mma_bf16", "simt", "simt_bf16").
+#: in all and by kernel and mode ("mma", "mma_bf16", "simt", "simt_bf16",
+#: "tiled", "tiled_bf16").
 forward.launches = 0
 backward.launches = 0
 forward.launches_by = collections.Counter()

@@ -2,7 +2,10 @@
 checkouts of the repository in turns, on one card: ``--stack mma`` (the
 default) times ``fused_stack_mma`` (forward and backward, in the modes of
 ``--modes``: f32 and bf16), ``--stack simt`` ``fused_stack.cu`` the same
-way (pinned, ``kernel="simt"``), ``--stack carry`` the carry kernel behind
+way (pinned, ``kernel="simt"``), ``--stack tiled``
+``fused_stack_tiled.cu`` the same way (pinned, at b1: the sharded
+config's train shape; ``--config sharded`` or ``w128``, the wide config
+at R = D = 128), ``--stack carry`` the carry kernel behind
 the retired generations
 (``experiments.fused_stack.carry_forward`` without z, as v1 calls it, and
 with z, as v2 does, and ``carry_backward``), ``--stack layer`` the
@@ -20,6 +23,8 @@ default: a tree before the layer kernel's bf16 mode has no other).
         --trees parent/ . . parent/
     python -m wavenet_torch.tools.stack_times --stack simt --config tiny \\
         --modes f32 --trees parent/ . . parent/
+    python -m wavenet_torch.tools.stack_times --stack tiled --config sharded
+    python -m wavenet_torch.tools.stack_times --stack tiled --config w128
 
 Each tree runs in a process of its own whose working directory and
 ``PYTHONPATH`` are that tree, so it imports and builds that tree's
@@ -68,8 +73,12 @@ def _time_tree(label: str, config: str, reps: int, stack: str,
     if not torch.cuda.is_available():
         raise SystemExit("stack_times: needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    c32 = getattr(cfgs, f"{config}_config")()
-    B, T = 8, c32.receptive_field + 16000 - 1
+    if config == "w128":
+        c32 = cfgs.wide_config(residual_channels=128, dilation_channels=128)
+    else:
+        c32 = getattr(cfgs, f"{config}_config")()
+    B = 1 if stack == "tiled" else 8
+    T = c32.receptive_field + 16000 - 1
     L, R, D = c32.num_layers, c32.residual_channels, c32.dilation_channels
     params = {k: v.cuda() for k, v in init_params(0, c32, device="cpu").items()}
     rng = np.random.RandomState(0)
@@ -122,8 +131,8 @@ def _time_tree(label: str, config: str, reps: int, stack: str,
         row["bwd_ms"] = ms(lambda: fs1.carry_backward(yp, dy, fgp, dz, w_fg,
                                                       wd, bd, c32))
         return row
-    # mma: the route every tree takes at gc and wide; simt pinned.
-    kw = {"kernel": "simt"} if stack == "simt" else {}
+    # mma: the route every tree takes at gc and wide; simt and tiled pinned.
+    kw = {"kernel": stack} if stack in ("simt", "tiled") else {}
     for mode in modes:
         c = c32 if mode == "f32" else dataclasses.replace(
             c32, compute_dtype="bfloat16")
@@ -236,14 +245,15 @@ def _time_layers_mode(row, c, x, w_fg, wd, add, bd, dy, dz, ms,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="gc",
-                    help="a models.config name: paper, gc, wide")
+                    help="a models.config name (paper, gc, wide, "
+                    "sharded) or w128")
     ap.add_argument("--trees", nargs="+", default=["."],
                     help="checkouts to time, in this order")
     ap.add_argument("--stack", default="mma",
-                    choices=("mma", "simt", "carry", "layer"),
+                    choices=("mma", "simt", "tiled", "carry", "layer"),
                     help="the kernel to time")
     ap.add_argument("--modes", nargs="+", choices=("f32", "bf16"),
-                    default=None, help="modes of mma, simt and layer "
+                    default=None, help="modes of mma, simt, tiled and layer "
                     "(default: f32 and bf16; layer: f32)")
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
