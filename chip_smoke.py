@@ -90,9 +90,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    upsampled on the card (the default), with ``--lc_host_upsample`` and
    with ``--use_pallas_stack``: finite, falling losses, the first step's
    equal across the three within 1e-5, and no stack kernel launched (LC
-   takes the plain route, as in JAX). The wide config at R = D = 128
-   trains one step on ``fused_stack_tiled`` and one at R = 128, D = 64
-   raises naming ROADMAP a4 step 2, launching nothing.
+   takes the plain route, as in JAX). The wide config at R = D = 128,
+   at R = 128, D = 64 and at R = 48, D = 128 (ragged tiles) trains one
+   step each on ``fused_stack_tiled``.
 5t. The sharded config's stack (80 layers, R = D = 256:
    ``fused_stack_tiled``, tiled products whose weights stream through
    shared memory): forward and backward in both modes at the train shape
@@ -105,6 +105,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``--use_pallas_stack --batch_size 1 --sample_size 16000``, 4 steps at
    float32 and 4 at bfloat16, finite losses, every stack call on the
    tiled kernel's mode (its ``kernels`` rows' launches, counted from 0).
+5r. Kernel 5 at R != D on ``fused_stack_tiled``: the wide config's depth
+   and length (30 layers, S = 1024, scalar input) at (R, D) = (128, 64)
+   and (64, 128) (whole tiles) and (6, 16) (ragged tiles, every edge
+   checked), b8 x (receptive field + 16,000 - 1),
+   checked and timed as phase 5t (both modes against the plain versions,
+   bitwise repeats, turns f32, bf16, bf16, f32); the train CLI at
+   (128, 64), b8 x 16,000, 4 steps each dtype, finite losses, every stack
+   call on the tiled mode (the ``fused_stack_tiled_r_ne_d*`` rows'
+   launches, counted from 0). Then the sharded config's generation, where
+   the JAX ladder offers no Pallas rung: the generate CLI runs the scan
+   sampler and launches no decode kernel (the server's route is
+   ``tests/test_torch_gpu.py``'s ``test_sharded_generation_runs_scan``).
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -256,10 +268,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``--gc_from_filename``, its totals against the library's one-shot
    scorer; a ``GenerationService`` with a draft at the paper config (the
    target's npz, then a lightly perturbed copy) answering /generate at b1
-   x 2,048 with k = 8 (well-formed codes, every proposal accepted from the
+   x 1,024 with k = 8 (well-formed codes, every proposal accepted from the
    identical draft, no decode kernel launched, /generate_batch refused);
    ``python -m wavenet_torch.cli.generate --draft_checkpoint`` from the gc
-   checkpoint at b1 x 2,000 and in ``--save_every 500`` segments (equal to
+   checkpoint at b1 x 800 and in ``--save_every 200`` segments (equal to
    the single run); ``distill.distill_draft`` at the tiny config for 4
    steps (finite loss, the draft on the card). Prints the scored audio s
    per wall s, the speculative samples/s and the mean accepted length.
@@ -446,6 +458,19 @@ LC_TRAIN_STEPS, LC_TRAIN_SPEAKERS = 4, 4
 # samples, steps of each dtype) and the speakers of their corpus (two
 # 2-second utterances each).
 TILED_BATCH, TILED_SAMPLES, TILED_STEPS, TILED_SPEAKERS = 1, 16000, 4, 4
+# Phase 5r: the widths (R, D) at the wide config's depth and length that
+# kernel 5 takes on fused_stack_tiled at R != D: two multiples of 64 (the
+# kernel's whole-tile mode) and one that is not (every edge checked, 4
+# bytes a copy; R = 6 puts the rows off 16 bytes and D = 16 makes a block
+# mask half of its filter and gate pairs; (48, 128) cost 25 s more on an
+# H100 and runs in phase 5's one-step CLI instead); and its train CLI runs
+# at the first (steps of each dtype, at the train shape, on a corpus of
+# two 2-second utterances a speaker).
+RAGGED_WIDTHS = ((128, 64), (64, 128), (6, 16))
+RAGGED_STEPS, RAGGED_SPEAKERS = 4, 8
+# Phase 5r: the samples of the sharded config's generate CLI run, on the
+# scan sampler.
+SHARDED_GEN_SAMPLES = 64
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
 # Phase 9: the bench's generation rows by payload key (config, batch, bf16
@@ -476,14 +501,18 @@ R4_STEPS, R4_CHECK_STEPS = 4000, 256
 # Phase 10: scoring and speculative decoding (see the docstring). The
 # draft of the perturbed service is the target plus SPEC_PERTURB x each
 # tensor's std of Gaussian noise, the JAX end-to-end test's aligned draft.
+# Its runs are host-bound (~55-80 samples/s on an H100): at 2,048 server
+# and 2,000 CLI samples phase 10 took 172 s and the script 1,061 s of its
+# 1,200 s limit, at 1,024 (one server bucket) and 800 in four segments
+# 82 s and 868 s (chip runs of the tree that cut them).
 EXTEND_K, EXTEND_PARTIAL_V = 64, 23
 EXTEND_RTOL, EXTEND_ATOL = 1e-4, 1e-4
 SCORE_SAMPLES, SCORE_CHUNK, SCORE_CLI_CHUNK = 16000, 4096, 8192
 SCORE_CLI_SAMPLES = (4000, 12000)
 SCORE_PER_SAMPLE_ATOL, SCORE_TOTAL_RTOL, SCORE_TOTAL_ATOL = 1e-4, 1e-5, 1e-3
 SCORE_STREAM_ATOL = 1e-4
-SPEC_SAMPLES, SPEC_K, SPEC_PERTURB = 2048, 8, 0.01
-SPEC_CLI_SAMPLES, SPEC_CLI_SAVE_EVERY = 2000, 500
+SPEC_SAMPLES, SPEC_K, SPEC_PERTURB = 1024, 8, 0.01
+SPEC_CLI_SAMPLES, SPEC_CLI_SAVE_EVERY = 800, 200
 DISTILL_STEPS, DISTILL_CLIPS, DISTILL_CLIP_SAMPLES = 4, 2, 2000
 # The r3 probe's kernels, the routed one (cluster, on an H100) first; rounds
 # of the cluster probe's `full` in turns with the production launch; how
@@ -1313,7 +1342,8 @@ def kernel_base_name(name: str) -> str:
 
 def device_breakdown(fn):
     """Device time of one call of ``fn`` by kernel family and by kernel
-    (``by_kernel``), the count of
+    (``by_kernel``; the tiled stack's one kernel by the product it runs,
+    e.g. ``tiled_kernel:bwdgateop``), the count of
     the fused stack's device kernels in it (``stack_kernels``), and the
     device's busy time against the wall time of the call (the profiler
     adds host overhead, so the idle share is an upper bound), from a
@@ -1339,7 +1369,10 @@ def device_breakdown(fn):
     for name, start, end in spans:
         ms = (end - start) / 1e3
         base = kernel_base_name(name)
-        by_kernel[base] = by_kernel.get(base, 0.0) + ms
+        op = re.search(r"tiled_kernel<[^,]*, (?:\(anonymous namespace\)::)?"
+                       r"(\w+)", name)
+        key = f"{base}:{op.group(1)}" if op else base
+        by_kernel[key] = by_kernel.get(key, 0.0) + ms
         if base in STACK_KERNELS:
             fam["fused_stack_ms"] += ms
             stack_kernels += 1
@@ -1854,44 +1887,40 @@ def phase_train_cli(c, wide, gpu):
     return ({"main": launches_by, "narrow": narrow_by, "bf16": bf16_by,
              "narrow_bf16": narrow_bf16_by,
              "wide": wide_by["float32"], "wide_bf16": wide_by["bfloat16"],
-             "w128": w128_by},
+             "w128": w128_by["w128"], "w128_d64": w128_by["w128_d64"],
+             "w48_d128": w128_by["w48_d128"]},
             os.path.join(logdir, f"ckpt-{RESUME_STEPS}"), pfile)
 
 
-def phase_stack_tiled(rng, gpu):
-    """TPU kernel 5 at the sharded config's width (80 layers, R = D = 256)
-    on ``csrc/fused_stack_tiled.cu``, the kernel the route takes there, at
-    the train CLI's shape b1 x (receptive field + 16,000 - 1): in each
+def tiled_stack_check(name, c32, B, samples, rng, gpu):
+    """TPU kernel 5 on ``csrc/fused_stack_tiled.cu`` at the ``name``
+    config ``c32`` (float32; the kernel the route takes there), at the
+    train CLI's shape B x (receptive field + ``samples`` - 1): in each
     mode, forward and backward against the plain versions (f32 within the
     tolerances of phase 5, each gradient's layer or row slice within
     SLICE_RTOL; bf16 each forward layer on its own input, then the whole
     on the scale of bf16's distance from the plain float32 versions),
     bitwise-equal repeats, timed in turns (f32, bf16, bf16, f32) beside the
     bounds at the 3xTF32 and the bf16 peak, the plain versions' times and
-    the device ms of a call by kernel; then the train CLI at
-    ``--use_pallas_stack --batch_size 1 --sample_size 16000`` on a written
-    ``sharded_params.json``, 4 steps at float32 and 4 at bfloat16, every
-    stack call on the tiled kernel (counted from 0). Returns
-    ({(mode, kind): the kernels line's numbers}, {mode: launches_by})."""
+    the device ms of a call by kernel; one ``stack_tiled`` row. Returns
+    {(mode, kind): the kernels line's numbers}."""
     import dataclasses
     import numpy as np
     import torch
     from wavenet_torch.kernels import fused_stack as fs
-    from wavenet_torch.models.config import sharded_config
     from wavenet_torch.utils.flops import (H100_BF16_FLOPS,
                                            H100_TF32X3_FLOPS, bound_ms,
                                            fused_stack_cost)
 
-    c32 = sharded_config()
     c16 = dataclasses.replace(c32, compute_dtype="bfloat16")
     cfg = {"f32": c32, "bf16": c16}
     peak = {"f32": H100_TF32X3_FLOPS, "bf16": H100_BF16_FLOPS}
-    check(all(fs.stack_kernel_plan(c) == "tiled" for c in cfg.values()),
-          "the route does not send R = D = 256 to fused_stack_tiled")
-    B, L = TILED_BATCH, c32.num_layers
+    L = c32.num_layers
     R, D = c32.residual_channels, c32.dilation_channels
-    args = stack_inputs(c32, seeded_params(c32, 5, "cuda"), rng, B,
-                        TILED_SAMPLES)
+    check(all(fs.stack_kernel_plan(c) == "tiled" for c in cfg.values()),
+          f"the route does not send {name} (R = {R}, D = {D}) to "
+          "fused_stack_tiled")
+    args = stack_inputs(c32, seeded_params(c32, 5, "cuda"), rng, B, samples)
     T = args[0].shape[1]
     w_fg, wd, _, bd = args[1:]
     dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
@@ -1900,8 +1929,9 @@ def phase_stack_tiled(rng, gpu):
     dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
                          device="cuda").to(torch.bfloat16)
     dz32 = dz.float()
-    row = {"phase": "stack_tiled", "config": "sharded", "batch": B,
-           "positions": T, "layers": L, "width": R, "gpu": gpu}
+    row = {"phase": "stack_tiled", "config": name, "batch": B,
+           "positions": T, "layers": L, "residual_channels": R,
+           "dilation_channels": D, "gpu": gpu}
     out32 = fs.fused_stack_forward_reference(*args, c32)
     g32 = fs.fused_stack_backward_reference(out32[0], dy, out32[1], dz32,
                                             w_fg, wd, bd, c32)
@@ -1912,7 +1942,7 @@ def phase_stack_tiled(rng, gpu):
         hold(row, f"{n}_f32", a, b, FWD_RTOL, FWD_ATOL)
         for n, a, b in zip(("y", "fg", "z"), out_k[0], out32))
     check(all(torch.equal(a, b) for a, b in zip(*out_k)),
-          "sharded f32: two forward calls on the same inputs differ")
+          f"{name} f32: two forward calls on the same inputs differ")
     del out_k
     g_k = [fs.backward(out32[0], dy, out32[1], dz32, w_fg, wd, bd, c32)
            for _ in range(2)]
@@ -1921,7 +1951,7 @@ def phase_stack_tiled(rng, gpu):
         hold(row, f"{n}_f32", a, b, GRAD_RTOL, GRAD_ATOL, lead)
         for n, a, b, lead in zip(GRAD_NAMES, g_k[0], g32, GRAD_LEADS))
     check(all(torch.equal(a, b) for a, b in zip(*g_k)),
-          "sharded f32: two backward calls on the same inputs differ")
+          f"{name} f32: two backward calls on the same inputs differ")
     del g_k
     torch.cuda.empty_cache()
 
@@ -1935,7 +1965,7 @@ def phase_stack_tiled(rng, gpu):
         hold_bf16(row, n, a, b, r) for n, a, b, r in
         zip(("y", "fg", "z"), out_k[0], out16, out32))
     check(all(torch.equal(a, b) for a, b in zip(*out_k)),
-          "sharded bf16: two forward calls on the same inputs differ")
+          f"{name} bf16: two forward calls on the same inputs differ")
     del out_k
     y16, fg16 = out16[0], out16[1]
     g16 = fs.fused_stack_backward_reference(y16, dy, fg16, dz, w_fg, wd, bd,
@@ -1947,7 +1977,7 @@ def phase_stack_tiled(rng, gpu):
         hold_bf16(row, n, a, b, r) for n, a, b, r in
         zip(GRAD_NAMES, g_k[0], g16, g32))
     check(all(torch.equal(a, b) for a, b in zip(*g_k)),
-          "sharded bf16: two backward calls on the same inputs differ")
+          f"{name} bf16: two backward calls on the same inputs differ")
     row["bitwise_repeat"] = True
     del g_k, g16, g32, out16
     torch.cuda.empty_cache()
@@ -1989,20 +2019,34 @@ def phase_stack_tiled(rng, gpu):
                     trace["by_kernel"] if trace else
                     "not measured (no device events)"})
             results[(m, kind)] = dict(
-                config="sharded", batch=B, positions=T,
-                max_abs_err=worst[(m, kind)], ms=t, plain_ms=ms_p,
-                bound_ms=bound, bound_by=by)
+                config=name, batch=B, positions=T, residual_channels=R,
+                dilation_channels=D, max_abs_err=worst[(m, kind)], ms=t,
+                plain_ms=ms_p, bound_ms=bound, bound_by=by)
     emit(row)
     del args, dy, dz, dz32, out32, y32, fg32, y16, fg16
     torch.cuda.empty_cache()
+    return results
 
-    # The main path: the train CLI on the sharded config, each dtype's run
-    # counted from 0.
-    tmp = tempfile.mkdtemp(prefix="wavenet_torch_sharded_")
+
+def tiled_train_cli(name, c32, B, samples, steps, speakers, gpu):
+    """The main path of the tiled stack: the train CLI on a written
+    ``<name>_params.json`` with ``--use_pallas_stack``, ``steps`` steps at
+    float32 and at bfloat16 (B x ``samples``, a synthesised corpus of
+    ``speakers``), finite losses, every stack call on the tiled kernel's
+    mode (counted from 0 in each run). One step a dispatch, so that each
+    step has its own time (the CLI's default dispatch of 4 steps would
+    time them together, the first step's warm-up included): the rate is
+    the median of the steps between the first, which warms up, and the
+    last, whose time only waits out work already queued. Returns {mode:
+    launches_by}."""
+    import dataclasses
+    import numpy as np
+    from wavenet_torch.kernels import fused_stack as fs
+    tmp = tempfile.mkdtemp(prefix=f"wavenet_torch_{name}_")
     corpus = os.path.join(tmp, "corpus")
     os.makedirs(corpus)
-    synth_corpus(corpus, speakers=TILED_SPEAKERS)
-    pfile = os.path.join(tmp, "sharded_params.json")
+    synth_corpus(corpus, speakers=speakers)
+    pfile = os.path.join(tmp, f"{name}_params.json")
     with open(pfile, "w") as f:
         json.dump(c32.to_json_dict(), f)
     launches = {}
@@ -2013,48 +2057,93 @@ def phase_stack_tiled(rng, gpu):
         t0 = time.perf_counter()
         out = run_cli(["--data_dir", corpus, "--wavenet_params", pfile,
                        "--logdir", logdir, "--use_pallas_stack",
-                       "--batch_size", str(TILED_BATCH),
-                       "--sample_size", str(TILED_SAMPLES),
-                       "--num_steps", str(TILED_STEPS),
-                       "--checkpoint_every", str(TILED_STEPS),
+                       "--batch_size", str(B), "--sample_size", str(samples),
+                       "--num_steps", str(steps),
+                       "--steps_per_dispatch", "1",
+                       "--checkpoint_every", str(steps),
                        "--compute_dtype", dtype, "--seed", "0",
                        "--device", "cuda"])
         seconds = time.perf_counter() - t0
         by = {"fwd": dict(fs.forward.launches_by),
               "bwd": dict(fs.backward.launches_by)}
-        want = {fs.launch_key("tiled", cfg[m]): TILED_STEPS}
+        key = fs.launch_key(
+            "tiled", dataclasses.replace(c32, compute_dtype=dtype))
+        want = {key: steps}
         check(all(v == want for v in by.values()),
-              f"the sharded {dtype} train CLI ran the stack kernels {by}, "
+              f"the {name} {dtype} train CLI ran the stack kernels {by}, "
               f"not {want}")
         losses = [float(ln.split("loss = ")[1].split(",")[0])
                   for ln in out.splitlines() if ln.startswith("step ")]
-        check(len(losses) == TILED_STEPS
+        check(len(losses) == steps
               and all(x == x and abs(x) != float("inf") for x in losses),
-              f"sharded {dtype} train CLI losses {losses}: not "
-              f"{TILED_STEPS} finite values")
+              f"{name} {dtype} train CLI losses {losses}: not {steps} "
+              "finite values")
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
-            sec = [r["value"] for r in map(json.loads, f)
-                   if r["tag"] == "sec_per_step"][-1]
+            secs = [r["value"] for r in map(json.loads, f)
+                    if r["tag"] == "sec_per_step"]
+        sec = float(np.median(secs[1:-1]))
         launches[m] = by
-        emit({"phase": "train_cli_sharded", "config": "sharded",
-              "compute_dtype": dtype, "batch": TILED_BATCH,
-              "sample_size": TILED_SAMPLES, "steps": TILED_STEPS,
-              "losses": losses, "seconds": seconds,
-              "sec_per_step_last": sec, "stack_launches_by": by,
-              "gpu": gpu})
+        emit({"phase": f"train_cli_{name}", "config": name,
+              "residual_channels": c32.residual_channels,
+              "dilation_channels": c32.dilation_channels,
+              "compute_dtype": dtype, "batch": B, "sample_size": samples,
+              "steps": steps, "losses": losses, "seconds": seconds,
+              "sec_per_step": secs, "sec_per_step_median": sec,
+              "audio_sec_per_s": B * (c32.receptive_field + samples)
+              / c32.sample_rate / sec,
+              "stack_launches_by": by, "gpu": gpu})
     shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_stack_tiled(rng, gpu):
+    """Phase 5t: the sharded config's stack (80 layers, R = D = 256) on
+    ``fused_stack_tiled`` at the train CLI's shape b1 x (receptive field +
+    16,000 - 1), then that train CLI, 4 steps a dtype. Returns
+    ({(mode, kind): the kernels line's numbers}, {mode: launches_by})."""
+    from wavenet_torch.models.config import sharded_config
+    c32 = sharded_config()
+    results = tiled_stack_check("sharded", c32, TILED_BATCH, TILED_SAMPLES,
+                                rng, gpu)
+    launches = tiled_train_cli("sharded", c32, TILED_BATCH, TILED_SAMPLES,
+                               TILED_STEPS, TILED_SPEAKERS, gpu)
+    return results, launches
+
+
+def phase_stack_ragged(wide, rng, gpu):
+    """Phase 5r: TPU kernel 5 at R != D on ``fused_stack_tiled`` (ragged
+    edges: widths the route takes there), at the wide config's depth and
+    length (30 layers, S = 1024, scalar input) and the train shape b8 x
+    (receptive field + 16,000 - 1), at each of RAGGED_WIDTHS: the checks
+    and times of ``tiled_stack_check``; then the train CLI at the first
+    of them, 4 steps a dtype. Returns ({(R, D, mode, kind): the kernels
+    line's numbers}, {mode: launches_by})."""
+    import dataclasses
+    results = {}
+    for R, D in RAGGED_WIDTHS:
+        c = dataclasses.replace(wide, residual_channels=R,
+                                dilation_channels=D)
+        for (m, kind), v in tiled_stack_check(
+                f"wide_r{R}_d{D}", c, TRAIN_BATCH, TRAIN_SAMPLES, rng,
+                gpu).items():
+            results[(R, D, m, kind)] = v
+    R, D = RAGGED_WIDTHS[0]
+    c = dataclasses.replace(wide, residual_channels=R, dilation_channels=D)
+    launches = tiled_train_cli(f"wide_r{R}_d{D}", c, TRAIN_BATCH,
+                               TRAIN_SAMPLES, RAGGED_STEPS, RAGGED_SPEAKERS,
+                               gpu)
     return results, launches
 
 
 def phase_train_cli_w128(wide, corpus, tmp, gpu):
-    """The wide config at R = D = 128 trains one step on fused_stack_tiled
-    (counted from 0); R != D (R = 128, D = 64), which no kernel takes,
-    raises on the card naming its ROADMAP item, and launches nothing.
-    Returns the R = D = 128 run's launches_by."""
+    """The wide config at R = D = 128, at R = 128, D = 64 (R != D in whole
+    tiles) and at R = 48, D = 128 (ragged tiles, every edge checked)
+    trains one step each on fused_stack_tiled (counted from 0). Returns
+    {label: launches_by}."""
     import dataclasses
     from wavenet_torch.kernels import fused_stack as fs
-    w128_by = {}
-    for R, D in ((128, 128), (128, 64)):
+    runs = {}
+    for R, D in ((128, 128), (128, 64), (48, 128)):
         label = f"w{R}" if R == D else f"w{R}_d{D}"
         bfile = os.path.join(tmp, f"{label}_params.json")
         with open(bfile, "w") as f:
@@ -2063,34 +2152,62 @@ def phase_train_cli_w128(wide, corpus, tmp, gpu):
                       .to_json_dict(), f)
         fs.forward.launches_by.clear()
         fs.backward.launches_by.clear()
-        n = (fs.forward.launches, fs.backward.launches)
-        argv_w = ["--data_dir", corpus, "--wavenet_params", bfile,
-                  "--logdir", os.path.join(tmp, label), "--batch_size", "1",
-                  "--sample_size", "4000", "--num_steps", "1",
-                  "--use_pallas_stack", "--seed", "0", "--device", "cuda"]
-        if R == D:
-            out = run_cli(argv_w)
-            w128_by = {"fwd": dict(fs.forward.launches_by),
-                       "bwd": dict(fs.backward.launches_by)}
-            check(all(v == {"tiled": 1} for v in w128_by.values())
-                  and "step 1 - loss = " in out,
-                  f"the train CLI at R = D = 128 ran the stack kernels "
-                  f"{w128_by}, not one tiled launch each way")
-            emit({"phase": "train_cli_w128", "residual_channels": R,
-                  "stack_launches_by": w128_by, "gpu": gpu})
-            continue
-        try:
-            run_cli(argv_w)
-            refused = ""
-        except NotImplementedError as e:
-            refused = str(e)
-        check("a4 step 2" in refused and (fs.forward.launches,
-                                          fs.backward.launches) == n,
-              f"the train CLI at R = {R}, D = {D} with --use_pallas_stack "
-              f"did not raise naming ROADMAP a4 step 2 ({refused!r})")
-        emit({"phase": "train_cli_unbuilt_width", "residual_channels": R,
-              "dilation_channels": D, "refused": refused, "gpu": gpu})
-    return w128_by
+        out = run_cli(["--data_dir", corpus, "--wavenet_params", bfile,
+                       "--logdir", os.path.join(tmp, label),
+                       "--batch_size", "1", "--sample_size", "4000",
+                       "--num_steps", "1", "--use_pallas_stack", "--seed",
+                       "0", "--device", "cuda"])
+        by = {"fwd": dict(fs.forward.launches_by),
+              "bwd": dict(fs.backward.launches_by)}
+        check(all(v == {"tiled": 1} for v in by.values())
+              and "step 1 - loss = " in out,
+              f"the train CLI at R = {R}, D = {D} ran the stack kernels "
+              f"{by}, not one tiled launch each way")
+        emit({"phase": "train_cli_w128", "residual_channels": R,
+              "dilation_channels": D, "stack_launches_by": by, "gpu": gpu})
+        runs[label] = by
+    return runs
+
+
+def phase_sharded_generation(gpu):
+    """Generation at the sharded config (80 layers, R = D = 256), where
+    the JAX ladder offers no Pallas rung at any batch: the generate CLI
+    (b1 x SHARDED_GEN_SAMPLES) runs the scan sampler and launches no
+    decode kernel (counted from 0). The server's route is left to
+    ``tests/test_torch_gpu.py``'s ``test_sharded_generation_runs_scan``: a
+    request steps its whole bucket of 1,024 samples, ~38 s on the scan
+    sampler."""
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.config import sharded_config
+    from wavenet_torch.sampler_select import sampler_attempts
+
+    c = sharded_config()
+    check(not sampler_attempts(c, batch_size=1,
+                               n_total=c.receptive_field + GEN_SAMPLES),
+          "the sampler ladder offers a decode kernel at the sharded config")
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_sharded_gen_")
+    params = seeded_params(c, 9, "cpu")
+    root = os.path.join(tmp, "ckpt")
+    pfile = write_checkpoint(root, c, params)
+    ks.decode.launches = ks.decode_sequential.launches = 0  # this path
+    ks.decode.launches_by.clear()
+    wav = os.path.join(tmp, "sharded.wav")
+    out, seconds = run_generate_cli(
+        [root, "--wavenet_params", pfile, "--samples",
+         str(SHARDED_GEN_SAMPLES), "--wav_out_path", wav, "--seed", "1",
+         "--device", "cuda"])
+    check("Using scan sampler." in out and "Finished generating." in out,
+          "the sharded generate CLI did not run the scan sampler")
+    read_wavs(wav, 1, SHARDED_GEN_SAMPLES)
+    launched = (ks.decode.launches, ks.decode_sequential.launches,
+                dict(ks.decode.launches_by))
+    check(launched == (0, 0, {}),
+          f"sharded generation launched decode kernels: {launched}")
+    emit({"phase": "sharded_generation", "sampler": "scan",
+          "samples": SHARDED_GEN_SAMPLES, "cli_seconds": seconds,
+          "samples_per_s": SHARDED_GEN_SAMPLES / seconds,
+          "decode_launches": 0, "gpu": gpu})
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_lc_train(gpu):
@@ -4836,6 +4953,14 @@ def main() -> int:
     emit({"phase": "sharded_training", "seconds": time.perf_counter() - t5t,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 5r: kernel 5 at R != D on fused_stack_tiled (ragged tiles),
+    # and the sharded config's generation on the scan sampler.
+    t5r = time.perf_counter()
+    ragged, ragged_launches = phase_stack_ragged(gen_cfgs["wide"], rng, gpu)
+    phase_sharded_generation(gpu)
+    emit({"phase": "ragged_training", "seconds": time.perf_counter() - t5r,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 6: generation, kernel 4's route and the generate CLI.
     seq = phase_sequential(gen_cfgs, gen_params, rng, gpu)
     wide_timed = phase_wide_prefill(gen_cfgs["wide"], gen_params["wide"],
@@ -5413,6 +5538,42 @@ def main() -> int:
             if m == "f32":
                 row["launches_w128"] = train_launches["w128"][kind].get(
                     "tiled", 0)
+            kernels.append(row)
+    # fused_stack_tiled at R != D: phase 5r's wide-depth b8 check and
+    # timing in each mode at the first of RAGGED_WIDTHS (the others'
+    # numbers beside them; "edges" names the kernel's edge mode at each),
+    # the launches of that mode's train CLI run at that width (and of phase
+    # 5's one-step runs at R = 128, D = 64 and R = 48, D = 128, f32).
+    R0, D0 = RAGGED_WIDTHS[0]
+    for m, suffix in (("f32", ""), ("bf16", "_bf16")):
+        for kind, line in (("fwd", 105), ("bwd", 276)):
+            t = ragged[(R0, D0, m, kind)]
+            row = {
+                "name": f"fused_stack_tiled_r_ne_d{suffix}_{kind}",
+                "route": "cuda",
+                "source": "wavenet_torch/csrc/fused_stack_tiled.cu",
+                "replaces": f"wavenet_tpu/kernels/fused_stack3.py:{line}",
+                "mode": m, "config": t["config"], "batch": t["batch"],
+                "positions": t["positions"], "residual_channels": R0,
+                "dilation_channels": D0,
+                "launches": ragged_launches[m][kind].get("tiled" + suffix,
+                                                         0),
+                "launches_on": f"train CLI, {t['config']}, {m}",
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "unit": "per call (one train step's stack)", "gpu": gpu,
+                "edges": {f"r{R}_d{D}": "checked" if R % 64 or D % 64
+                          else "whole" for R, D in RAGGED_WIDTHS}}
+            for R, D in RAGGED_WIDTHS[1:]:
+                o = ragged[(R, D, m, kind)]
+                row.update({f"{k}_r{R}_d{D}": o[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")})
+            if m == "f32":
+                for label in ("w128_d64", "w48_d128"):
+                    row[f"launches_{label}"] = train_launches[label][
+                        kind].get("tiled", 0)
             kernels.append(row)
     idle = [row["name"] for row in kernels if not row["launches"]]
     check(not idle, f"kernels launched no time on their main path: {idle}")

@@ -253,14 +253,14 @@ def test_stack_cost_counts_bf16_records_at_two_bytes():
 
 @pytest.mark.parametrize("W,want", [(32, "mma"), (16, "simt"), (64, "mma"),
                                     (128, "tiled"), (8, "simt"),
-                                    ((256, 128), None)])
+                                    ((256, 128), "tiled"), (96, None)])
 def test_stack_kernel_plan_bf16(W, want):
     R, D = W if isinstance(W, tuple) else (W, W)
     c = TConfig(dilations=(1, 2), residual_channels=R, dilation_channels=D,
                 skip_channels=16, quantization_channels=32,
                 compute_dtype="bfloat16")
     if want is None:
-        with pytest.raises(NotImplementedError, match="a4"):
+        with pytest.raises(NotImplementedError, match="TPU kernel's widths"):
             fs.stack_kernel_plan(c)
     else:
         assert fs.stack_kernel_plan(c) == want

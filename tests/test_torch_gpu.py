@@ -3,7 +3,7 @@ their prefill and sequential routes, mu-law and scalar input, in float32
 and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths in both
 modes, and the route between them;
 ``fused_stack`` (the 3xTF32 "mma" kernel, the FP32-core "simt" one and
-the "tiled" one of the widths from 128);
+the "tiled" one of the other widths: 128 and up, R != D, 1, 2, 4);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
 ``dilated_layer``; the probes ``fwd_bisect`` and ``fwd_bisect2`` (on the
 FP32 cores and on the tensor cores), ``b1_bisect`` and ``matvec_probe`` of
@@ -264,6 +264,42 @@ def test_scalar_resumable_segments_equal_one_run(setup, B):
     assert torch.equal(torch.cat(outs, dim=1), full)
 
 
+@pytest.mark.gpu
+def test_sharded_generation_runs_scan(setup, tmp_path, capsys):
+    """At the sharded config (80 layers, R = D = 256) the JAX ladder
+    offers no Pallas rung, so the generate CLI and the server run the scan
+    sampler, name it, and launch no decode kernel."""
+    import json
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.cli import generate as cli
+    from wavenet_torch.models.config import sharded_config
+    from wavenet_torch.params import save_npz
+    from wavenet_torch.serve import GenerationService
+    c = sharded_config()
+    params = init_params(0, c, device="cpu")
+    logdir = str(tmp_path / "logdir")
+    tl.save_checkpoint(logdir, tl.train_state_from_params(
+        params, tl.make_optimizer("adam", 1e-3)))
+    pfile = tmp_path / "sharded.json"
+    pfile.write_text(json.dumps(c.to_json_dict()))
+    npz = str(tmp_path / "sharded.npz")
+    save_npz(npz, params)
+    before = (ks.decode.launches, ks.decode_sequential.launches,
+              dict(ks.decode.launches_by))
+    assert cli.main([logdir, "--wavenet_params", str(pfile), "--samples",
+                     "16", "--wav_out_path", str(tmp_path / "out.wav"),
+                     "--device", "cuda"]) == 0
+    assert "Using scan sampler." in capsys.readouterr().out
+    service = GenerationService(npz, str(pfile), warm_samples=0,
+                                device="cuda")
+    assert service.sampler_name == "scan"
+    wave = service.generate(16, seed=2)
+    assert wave.shape == (16,) and np.isfinite(wave).all()
+    assert service.sampler_name == "scan"
+    assert (ks.decode.launches, ks.decode_sequential.launches,
+            dict(ks.decode.launches_by)) == before
+
+
 # Fused stack: another summation order; gradients also rebuild each
 # layer's input by subtraction (the tolerances of the JAX kernel's tests).
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -271,8 +307,10 @@ GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
 
 
 def _stack_inputs(W, dilations, B, T, seed=0):
-    c = WaveNetConfig(dilations=dilations, residual_channels=W,
-                      dilation_channels=W, skip_channels=16,
+    """A stack's inputs and cotangents at W = R = D, or W = (R, D)."""
+    R, D = W if isinstance(W, tuple) else (W, W)
+    c = WaveNetConfig(dilations=dilations, residual_channels=R,
+                      dilation_channels=D, skip_channels=16,
                       quantization_channels=32)
     L = c.num_layers
     rng = np.random.RandomState(seed)
@@ -281,13 +319,15 @@ def _stack_inputs(W, dilations, B, T, seed=0):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
                                device="cuda")
 
-    # Above W = 32 the weights shrink with the fan-in, as an init does, so
-    # that the activations stay at W = 32's size (see WIDE_SLICE_RTOL).
-    ws = 0.2 * min(1.0, (32 / W) ** 0.5)
-    args = (rn(B, T, W, scale=0.5), rn(L, 2 * W, 2 * W, scale=ws),
-            rn(L, W, W, scale=ws), rn(L, B, 2 * W, scale=0.1),
-            rn(L, 1, W, scale=0.1))
-    cot = (rn(B, T, W), rn(B, T, L * W))
+    # Above a width of 32 the weights shrink with the fan-in, as an init
+    # does, so that the activations stay at 32's size (see WIDE_SLICE_RTOL).
+    def ws(fan):
+        return 0.2 * min(1.0, (32 / fan) ** 0.5)
+
+    args = (rn(B, T, R, scale=0.5), rn(L, 2 * R, 2 * D, scale=ws(R)),
+            rn(L, D, R, scale=ws(D)), rn(L, B, 2 * D, scale=0.1),
+            rn(L, 1, R, scale=0.1))
+    cot = (rn(B, T, R), rn(B, T, L * D))
     return c, args, cot
 
 
@@ -391,10 +431,12 @@ def test_fused_stack_rejects_bad_inputs(setup):
     with pytest.raises(ValueError, match="contiguous"):
         fs.forward(x.transpose(0, 1).contiguous().transpose(0, 1), w_fg, wd,
                    add, bd, c)
+    # R = 8, D = 16 routes to the tiled kernel, which checks the weights'
+    # shapes against the config before a launch.
     wide = WaveNetConfig(dilations=(1, 2), residual_channels=8,
                          dilation_channels=16, skip_channels=16,
                          quantization_channels=32)
-    with pytest.raises(NotImplementedError, match="R == D"):
+    with pytest.raises(ValueError, match="w_fg"):
         fs.forward(x, w_fg, wd, add, bd, wide)
     with pytest.raises(ValueError, match="kernel"):
         fs.forward(x, w_fg, wd, add, bd, c, kernel="wgmma")
@@ -654,9 +696,10 @@ def _zero_stack(R, D, L=2, B=2, T=64):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
-    """No fallback at the widths the kernels lack: "simt" pinned at 64,
-    "mma" and "simt" pinned at 128 (which the route sends to "tiled"),
-    and every kernel at R != D, raise and launch nothing."""
+    """No fallback at the widths a kernel lacks: "simt" pinned at 64,
+    "mma" and "simt" pinned at 128 and at R != D (which the route sends to
+    "tiled", and "tiled" runs), and every kernel at a D the TPU kernel's
+    records do not pack, raise and launch nothing."""
     def cfg(R, D):
         c = WaveNetConfig(dilations=(1, 2), residual_channels=R,
                           dilation_channels=D, skip_channels=16,
@@ -671,22 +714,42 @@ def test_fused_stack_refuses_unbuilt_widths(setup, bf16):
     for kernel in ("mma", "simt"):
         with pytest.raises(NotImplementedError, match="not built for R=128"):
             fs.forward(x, *w, cfg(128, 128), kernel=kernel)
-    for R, D in ((128, 64), (64, 32)):
+    for R, D in ((128, 64), (64, 32), (16, 8)):
         c = cfg(R, D)
         x, w = _zero_stack(R, D)
-        with pytest.raises(NotImplementedError, match="a4"):
-            fs.stack_kernel_plan(c)
-        for kernel in ("auto", "mma", "tiled"):
-            with pytest.raises(NotImplementedError, match="a4"):
+        assert fs.stack_kernel_plan(c) == "tiled"
+        for kernel in ("mma", "simt"):
+            with pytest.raises(NotImplementedError,
+                               match=f"not built for R={R}, D={D}"):
                 fs.forward(x, *w, c, kernel=kernel)
+    c = cfg(48, 48)
+    x, w = _zero_stack(48, 48)
+    with pytest.raises(NotImplementedError, match="TPU kernel's widths"):
+        fs.stack_kernel_plan(c)
+    for kernel in ("auto", "mma", "simt", "tiled"):
+        with pytest.raises(NotImplementedError, match="TPU kernel's supports"):
+            fs.forward(x, *w, c, kernel=kernel)
     assert (fs.forward.launches, fs.backward.launches) == n
+    lib, _ = fs._lib("tiled")
+    assert all(lib.fused_stack_tiled_supports_width(R, D)
+               for R, D in ((1, 1), (6, 16), (128, 64), (3, 256)))
+    assert not any(lib.fused_stack_tiled_supports_width(R, D)
+                   for R, D in ((0, 8), (8, 0), (48, 48), (64, 192)))
+    key = "tiled_bf16" if bf16 else "tiled"
+    for R, D in ((128, 64), (64, 32), (16, 8)):
+        t0 = fs.forward.launches_by[key]
+        x, w = _zero_stack(R, D)
+        y, _, _ = fs.forward(x, *w, cfg(R, D), kernel="auto")
+        torch.cuda.synchronize()
+        assert torch.equal(y, x)
+        assert fs.forward.launches_by[key] == t0 + 1
 
 
 @pytest.mark.gpu
 def test_fused_stack_bf16_rejects_what_it_lacks(setup):
-    """At bf16 the widths still lacking (R != D) raise, naming ROADMAP
-    a4, on every kernel; R = D = 128 runs on "tiled_bf16", and "mma" or
-    "simt" pinned there raise; a float32 fg record is refused."""
+    """At bf16, R != D raises on the kernels that lack it ("mma",
+    "simt"); R = D = 128 runs on "tiled_bf16", and "mma" or "simt" pinned
+    there raise; a float32 fg record is refused."""
     c32, args, (dy, dz) = _stack_inputs(32, (1, 2), 2, 64)
     c = _bf16(c32)
     n = fs.forward.launches
@@ -695,8 +758,8 @@ def test_fused_stack_bf16_rejects_what_it_lacks(setup):
                                  dilation_channels=D, skip_channels=16,
                                  quantization_channels=32))
         x, w = _zero_stack(R, D)
-        for kernel in ("auto", "mma", "simt", "tiled"):
-            with pytest.raises(NotImplementedError, match="a4"):
+        for kernel in ("mma", "simt"):
+            with pytest.raises(NotImplementedError, match="not built for"):
                 fs.forward(x, *w, cw, kernel=kernel)
     c128 = _bf16(WaveNetConfig(dilations=(1, 2), residual_channels=128,
                                dilation_channels=128, skip_channels=16,
@@ -748,14 +811,27 @@ def _hold_tiled(out, ref, ref32, grads, gref, gref32, bf16):
     (128, (1, 2, 64, 512, 7), 3, 700, True),
     (256, (1, 33, 4, 128), 1, 1100, False),
     (384, (1, 2, 4), 3, 150, True),
+    ((16, 8), (1, 2, 4), 2, 150, True),
+    ((6, 16), (1, 2, 4), 2, 150, False),      # R = 6: rows off 16 bytes
+    ((48, 128), (1, 65, 2), 3, 700, True),
+    ((128, 64), (1, 2, 64, 512, 7), 3, 700, True),
+    ((64, 128), (1, 33, 4, 128), 1, 1100, False),
+    ((1, 1), (1, 2, 4, 8), 3, 300, True),     # rows off 16 bytes
+    ((2, 2), (1, 2, 4), 2, 150, False),
+    ((4, 4), (1, 2, 4, 64), 2, 700, True),
+    ((3, 256), (1, 2), 2, 150, False),
 ])
 def test_fused_stack_tiled_matches_reference(setup, W, dilations, B, T, gc,
                                              bf16):
-    """csrc/fused_stack_tiled.cu at R = D = 128, 256 (the sharded width)
-    and 384 against the plain versions in both modes: T not a multiple
-    of the 64-row tile, B 1 and 3 (row tiles that cross batch rows), a
-    dilation of several tiles, ``add`` per batch row (gc) or one for all
-    rows; forward, backward and the op, each output held as
+    """csrc/fused_stack_tiled.cu against the plain versions in both modes
+    at R = D = 128, 256 (the sharded width) and 384, and at the widths
+    whose tiles are ragged (W = (R, D): R != D, and R = D in 1, 2, 4, the
+    route's "tiled" there; at a width that is not a multiple of 64 the
+    kernel checks every edge and copies 4 bytes at a time, so the operand
+    rows may start off 16 bytes, as at R = 6, 3 and R = D = 1, 2): T not
+    a multiple of the 64-row tile, B 1 and 3 (row tiles that cross batch
+    rows), a dilation of several tiles, ``add`` per batch row (gc) or one
+    for all rows; forward, backward and the op, each output held as
     test_fused_stack_mma_width64 holds it; launches_by counts the mode
     that ran; repeats are bitwise equal."""
     c32, c, args, dy, dz = _tiled_case(W, dilations, B, T, gc, bf16)

@@ -52,11 +52,11 @@ def _width(W, **kw):
 
 @pytest.mark.parametrize("W,want", [(8, "simt"), (16, "simt"), (32, "mma"),
                                     (64, "mma"), (128, "tiled"),
-                                    ((128, 64), None)])
+                                    ((128, 64), "tiled"), (48, None)])
 def test_stack_kernel_plan(W, want):
     c = _width(W)
     if want is None:
-        with pytest.raises(NotImplementedError, match="R == D.*a4"):
+        with pytest.raises(NotImplementedError, match="TPU kernel's widths"):
             tfs.stack_kernel_plan(c)
     else:
         assert tfs.stack_kernel_plan(c) == want
@@ -75,8 +75,7 @@ def test_stack_kernel_plan_dtype_and_unequal_widths():
                for a, b in zip(out, want))
     c = TConfig(dilations=(1, 2), residual_channels=32, dilation_channels=16,
                 skip_channels=16, quantization_channels=32)
-    with pytest.raises(NotImplementedError, match="R == D"):
-        tfs.stack_kernel_plan(c)
+    assert tfs.stack_kernel_plan(c) == "tiled"    # R != D: the tiled kernel
 
 
 def _spread(n, seed):

@@ -1,8 +1,9 @@
-"""The fused stack at the tiled kernel's widths (R = D = 128 and 256)
-against the JAX package's TPU kernel pair.
+"""The fused stack at the tiled kernel's widths R = D = 128 and 256
+against the JAX package's TPU kernel pair (its ragged widths:
+``test_torch_stack_ragged.py``, ``test_torch_stack_tiny.py``).
 
-``stack_kernel_plan`` sends R == D a multiple of 128 to
-``csrc/fused_stack_tiled.cu`` on the card; on the CPU the same calls run
+``stack_kernel_plan`` sends R == D a multiple of 128 (and R != D, and
+R == D in 1, 2, 4) to ``csrc/fused_stack_tiled.cu`` on the card; on the CPU the same calls run
 the plain versions (``fused_stack_forward_reference`` /
 ``fused_stack_backward_reference``), which are the kernel's plain version
 there. Here they are held against ``wavenet_tpu.kernels.fused_stack3``
@@ -185,19 +186,25 @@ def test_backward_matches_jax_grad(W, gc, dtype):
 
 @pytest.mark.parametrize("R,D,want", [
     (128, 128, "tiled"), (256, 256, "tiled"), (384, 384, "tiled"),
-    (128, 64, None), (256, 128, None), (64, 128, None)])
+    (128, 64, "tiled"), (256, 128, "tiled"), (64, 128, "tiled"),
+    (16, 8, "tiled"), (6, 16, "tiled"), (1, 1, "tiled"), (2, 2, "tiled"),
+    (4, 4, "tiled"), (8, 8, "simt"), (32, 32, "mma"), (64, 48, None)])
 @DTYPES
 def test_stack_kernel_plan_routes_tiled(R, D, want, dtype):
+    """Every width the TPU kernel takes routes to a kernel: R != D and
+    R == D in 1, 2, 4 to the tiled one; a D its records cannot pack
+    raises."""
     c = TConfig(dilations=(1, 2), residual_channels=R, dilation_channels=D,
                 skip_channels=16, quantization_channels=32,
                 compute_dtype=dtype)
+    assert tfs.supports(c) is (want is not None)
     if want is None:
-        with pytest.raises(NotImplementedError, match="a4 step 2"):
+        with pytest.raises(NotImplementedError, match="TPU kernel's widths"):
             tfs.stack_kernel_plan(c)
         return
     assert tfs.stack_kernel_plan(c) == want
     assert tfs.launch_key(want, c) == (
-        "tiled_bf16" if dtype == "bfloat16" else "tiled")
+        f"{want}_bf16" if dtype == "bfloat16" else want)
 
 
 # The sharded config's shape (mu-law, R = D = 256, S = 512) cut to 3

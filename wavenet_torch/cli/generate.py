@@ -11,7 +11,8 @@ port's ``ckpt-STEP/`` (a directory of them, or one of them), read with
 decode kernel on the card (``sampler_cluster``, ``sampler_tiles`` or
 ``sampler_decode``, as ``kernels.sampler.cluster_plan`` and ``tile_plan``
 route; their plain version on the CPU), or the scan sampler with
-``--sampler scan``. ``--sampler_precision bfloat16`` decodes with bf16
+``--sampler scan`` and where the JAX ladder offers no kernel (the sharded
+config: ``sampler_select.jax_ladder_offers``). ``--sampler_precision bfloat16`` decodes with bf16
 weights (the bf16 mode of the routed kernel), on the fast and the
 ``--save_every`` paths, as the JAX CLI does; the scan and slow paths
 ignore it. The params format, as the JAX CLI's, has no
@@ -341,7 +342,8 @@ def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
                            wavenet_params, lc=None):
     """--save_every: generate in segments, rewriting the partial wav after
     each; resumable decode-kernel segments, or the scan sampler with
-    ``--sampler scan``. An LC stream is refined once, whole, then sliced
+    ``--sampler scan`` and where the JAX ladder offers no kernel
+    (``sampler_select.sampler_attempts``). An LC stream is refined once, whole, then sliced
     per segment, so that segment boundaries see their full context."""
     if lc is not None and config.lc_refine_width:
         import torch
@@ -349,7 +351,13 @@ def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
         from wavenet_torch.models.wavenet import refine_lc
         with torch.no_grad():
             lc = refine_lc(params, config, lc)
-    if args.sampler in ("auto", "pallas") and config.filter_width == 2:
+    from wavenet_torch.sampler_select import sampler_attempts
+
+    n_forced = (config.receptive_field if seed_codes is None
+                else int(seed_codes.shape[1]))
+    if sampler_attempts(config, args.sampler, args.sampler_precision,
+                        batch_size=args.batch_size,
+                        n_total=args.samples + n_forced):
         return _generate_chunked_pallas(params, config, args, seed, gc_ids,
                                         seed_codes, wavenet_params, lc)
     return _generate_chunked_scan(params, config, args, seed, gc_ids,

@@ -1,13 +1,16 @@
 // fused_stack_tiled: the whole dilated stack of a training step, forward
-// and backward, on Hopper's tensor cores (filter_width 2), at the widths
-// whose weights do not stay in shared memory: R = D = 128, 256 and any
-// other multiple of 64 (the widths are runtime arguments; the tiles are
-// fixed). Two modes of one source, the precision a template parameter:
+// and backward, on Hopper's tensor cores (filter_width 2), at every width
+// the TPU kernel takes whose weights the route does not keep in shared
+// memory: R = D = 128, 256 and any multiple of 128, R != D, and R = D in
+// {1, 2, 4} (the widths are runtime arguments; the tiles are fixed and
+// their ragged edges masked). Two modes of one source, the precision a
+// template parameter:
 // - f32 (float32 parity, 3xTF32; records float32): fused_stack_tiled_*_f32;
 // - bf16 (bf16 operands, float32 accumulation and residual; fg and z
 //   records bf16): fused_stack_tiled_*_bf16.
-// The C entry points return kUnsupportedWidth at a width they do not take
-// (fused_stack_tiled_supports_width says which).
+// The C entry points take any R >= 1 and the D of the TPU kernel's
+// supports (1, 2, 4, ..., 64 or a multiple of 128) and return
+// kUnsupportedWidth at any other width (fused_stack_tiled_supports_width).
 //
 // Replaces, at those widths, the TPU (Pallas) kernel pair of the JAX
 // package
@@ -38,7 +41,10 @@
 // cannot stay resident as the narrower kernels keep them: every product is
 // a tiled matrix product whose operands stream through shared memory in
 // k-tiles, and each layer is a few such products of GEMM shape (M = B*T
-// rows, K and N the widths).
+// rows, K and N the widths). At a width that is not a multiple of the
+// tile the padding is work that no bound counts (at R = D = 1 a tile
+// computes one of its 4,096 outputs); no config of the repo has such a
+// width, so the tiles stay those of the wide ones.
 //
 // Design: one tiled kernel template (tiled_kernel) and one operation
 // struct per product, which says where an operand tile's rows come from
@@ -46,9 +52,24 @@
 // epilogue does. A block computes a 64 x 64 tile of the output with 4 warps
 // (2 x 2, each 32 x 32: two m16 by four n8 mma.sync tiles), over k-tiles of
 // 32 that cp.async brings into a 3-stage ring of shared memory, zero-filled
-// where a row lies outside its batch row, its chunk or [0, T). Operands
-// stay float32 in shared memory; the f32 mode splits each fragment into
-// TF32 hi/lo as it loads (tf32_mma.cuh) and runs three mma.sync m16n8k8
+// where a row lies outside its batch row, its chunk or [0, T), and past
+// the operand's edge. Every grid is a ceiling of its extent over the tile,
+// so a width that is not a multiple of 64 (or of 32, the gate's pairs)
+// leaves a ragged last tile: its rows, columns and k past an edge load as
+// zeros, and its epilogue stores and column sums stop at the edge. A
+// launch takes one of two edge modes (kEdge, from R and D): at R and D
+// multiples of 64 only the rows of B*T and a contraction's chunk end cut
+// a tile, so the other edges go unchecked and a cp.async copies 16 bytes
+// (checking every edge slowed the sharded width's forward by 2-4% on an
+// H100); at every other width (R = 48, R = 6, R = D = 1, ...) every edge
+// is checked and a cp.async copies 4 bytes, so that no row start need be
+// aligned (these widths are in no config of the repo, and this mode is
+// right, not fast). Each epilogue stores a thread's
+// two adjacent columns together (the second skipped at an odd edge):
+// storing them apart slowed the sharded width's backward by 3-4% on an
+// H100. Operands stay
+// float32 in shared memory; the f32 mode splits each fragment into TF32
+// hi/lo as it loads (tf32_mma.cuh) and runs three mma.sync m16n8k8
 // passes, the bf16 mode rounds and pairs it (bf16_mma.cuh) for one
 // mma.sync m16n8k16 pass. The tensor core sums one k-tile in a zeroed
 // accumulator, which a float32 add takes into the block's sum (the row
@@ -60,9 +81,11 @@
 //   [x(t-d) | x(t)] from the layer's input; a block owns 32 filter columns
 //   and the 32 gate columns that pair with them, a warp 16 of each, so the
 //   gate is the epilogue, which writes the fg and z records (and, in bf16,
-//   z as float32 for (F2)). (F2) x' = x + z @ wd + bd, reading z from the
-//   record (f32) or its float copy (bf16: the rounded z that the TPU kernel
-//   multiplies); y is the running x, updated in place.
+//   z as float32 for (F2)); at D < 32, or D not a multiple of 32, the last
+//   block masks both halves at the same filter column. (F2) x' = x + z @
+//   wd + bd, reading z from the record (f32) or its float copy (bf16: the
+//   rounded z that the TPU kernel multiplies); y is the running x, updated
+//   in place.
 // - Backward, seven launches a layer: (A) dz_tot = dz + dx_{l+1} @ wd^T,
 //   epilogue da = dz_tot * dz/dfg and z from the fg record, both to scratch;
 //   (X) x_l = (x_{l+1} - z @ wd) - bd in place; (W1) dwd = z^T @ dx_{l+1}
@@ -185,6 +208,25 @@ __device__ __forceinline__ void mma_n(float (&c)[4][4], const Bf16Frag& a,
   mma_bf16_n<4>(c, a, b);
 }
 
+// 4 bytes from global to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src));
+}
+
+// 4 consecutive floats of a tile, 4 bytes a copy: at(e) the source of
+// float e, or nullptr for a zero.
+template <class F>
+__device__ __forceinline__ void fill4(float* dst, F at) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* p = at(e);
+    if (p) cp_async4(dst + e, p);
+    else dst[e] = 0.f;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The tiled product. Op says:
 //   kAT / kBT: the tile forms of A and B (see load_a, load_b);
@@ -193,17 +235,30 @@ __device__ __forceinline__ void mma_n(float (&c)[4][4], const Bf16Frag& a,
 //     halves of a gate);
 //   kColSum: the blocks of the first row of the grid also sum B's columns
 //     over their rows (the bias gradients), in row order;
-//   k_range(kb, ke): the k extent of this block (a product's depth, or a
-//     row contraction's chunk of one batch row);
-//   a_src(m, k, ke): the 4 floats A[m][k..k+3] (kAT false) or
-//     A[m..m+3][k] (kAT true), or nullptr for zeros; b_src(k, n, ke)
-//     likewise for B;
-//   store(m, n, v0, v1) the outputs (m, n), (m, n + 1); with kPair
-//     store_pair(m, j, f0, f1, g0, g1), j the filter column;
-//   col_sums(n, s) with kColSum.
+//   M, N: the output's extent, rows and columns (with kPair, N is D, the
+//     filter columns: GEMM column n is filter column pair_col(n) of the
+//     filter or the gate half);
+//   kChunk, k_range(kb, ke): the k extent of this block (a product's depth,
+//     or with kChunk a row contraction's chunk of one batch row);
+//   a_src(m, k): the address of A[m][k], or nullptr where the gather gives
+//     a zero; called for m < M, k < ke only (the kernel zero-fills the
+//     rest). Without kEdge it stands for A[m][k..k+3] (kAT false) or
+//     A[m..m+3][k] (kAT true). b_src(k, n) likewise for B[k][n], n < N;
+//   store(m, n, v0, v1, two) the outputs (m, n) and, if two, (m, n + 1) (n
+//     even); with kPair store_pair(m, j, f0, f1, g0, g1, two), j the
+//     filter column; col_sums(n, s) with kColSum.
 // ---------------------------------------------------------------------------
 
-template <class P, class Op>
+// The filter column of GEMM column n of a kPair product.
+__device__ __forceinline__ int pair_col(int n) {
+  return n / BN * (BN / 2) + n % (BN / 2);
+}
+
+// kEdge (ragged(R, D)): a width is not a multiple of 64, so every edge is
+// checked and copied 4 bytes at a time. Without it R and D are multiples
+// of 64: every group of four floats that the tiles load is whole (inside
+// or outside every edge and every gather's split) and starts on 16 bytes.
+template <class P, class Op, bool kEdge>
 __global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -217,10 +272,31 @@ __global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
 
   auto tile_a = [&](int kt) { return smem + (kt % NSTAGE) * 2 * kTileFloats; };
   auto tile_b = [&](int kt) { return tile_a(kt) + kTileFloats; };
-  // 16 bytes from src, or zeros where there is no src.
-  auto copy = [](float* dst, const float* src) {
-    if (src) cp_async16(dst, src, true);
-    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The edges a tile can cross: always the rows of B*T and a chunk's end;
+  // the others only where a width is not a multiple of 64 (kEdge).
+  auto m_in = [&](int m) { return (Op::kChunk && !kEdge) || m < op.M; };
+  auto k_in = [&](int k) { return (!Op::kChunk && !kEdge) || k < ke; };
+  auto n_in = [&](int n) {
+    if constexpr (!kEdge) return true;
+    else if constexpr (Op::kPair) return pair_col(n) < op.N;
+    else return n < op.N;
+  };
+  auto a_at = [&](int m, int k) {
+    return m_in(m) && k_in(k) ? op.a_src(m, k) : nullptr;
+  };
+  auto b_at = [&](int k, int n) {
+    return k_in(k) && n_in(n) ? op.b_src(k, n) : nullptr;
+  };
+  // 4 floats of a tile: fill4's four copies, or without kEdge one 16-byte
+  // copy of at(0).
+  auto load4 = [](float* dst, auto at) {
+    if constexpr (kEdge) {
+      fill4(dst, at);
+    } else {
+      const float* p = at(0);
+      if (p) cp_async16(dst, p, true);
+      else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   };
   auto issue = [&](int kt) {
     const int k0 = kb + kt * BK;
@@ -229,17 +305,21 @@ __global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
     for (int c = tid; c < BM * BK / 4; c += NT) {
       if constexpr (Op::kAT) {
         const int kr = c >> 4, mq = (c & 15) * 4;
-        copy(sa + kr * ST + mq, op.a_src(m0 + mq, k0 + kr, ke));
+        load4(sa + kr * ST + mq,
+              [&](int e) { return a_at(m0 + mq + e, k0 + kr); });
       } else {
         const int r = c >> 3, kq = (c & 7) * 4;
-        copy(sa + r * SA + kq, op.a_src(m0 + r, k0 + kq, ke));
+        load4(sa + r * SA + kq,
+              [&](int e) { return a_at(m0 + r, k0 + kq + e); });
       }
       if constexpr (Op::kBT) {
         const int n = c >> 3, kq = (c & 7) * 4;
-        copy(sb + n * SA + kq, op.b_src(k0 + kq, n0 + n, ke));
+        load4(sb + n * SA + kq,
+              [&](int e) { return b_at(k0 + kq + e, n0 + n); });
       } else {
         const int kr = c >> 4, nq = (c & 15) * 4;
-        copy(sb + kr * ST + nq, op.b_src(k0 + kr, n0 + nq, ke));
+        load4(sb + kr * ST + nq,
+              [&](int e) { return b_at(k0 + kr, n0 + nq + e); });
       }
     }
   };
@@ -295,24 +375,31 @@ __global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
   cp_async_wait<0>();
 
   if constexpr (Op::kColSum) {
-    if (colsum && tid < BN) op.col_sums(n0 + tid, cs);
+    if (colsum && tid < BN && n_in(n0 + tid)) op.col_sums(n0 + tid, cs);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int m = m0 + 32 * wm + 16 * i + g + 8 * half;
+      if (!m_in(m)) continue;
       if constexpr (Op::kPair) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          op.store_pair(m, blockIdx.x * (BN / 2) + 16 * wn + 8 * j + 2 * q,
-                        acc[i][j][2 * half], acc[i][j][2 * half + 1],
-                        acc[i][j + 2][2 * half], acc[i][j + 2][2 * half + 1]);
+        for (int j = 0; j < 2; ++j) {
+          const int col = blockIdx.x * (BN / 2) + 16 * wn + 8 * j + 2 * q;
+          if (kEdge && col >= op.N) continue;
+          op.store_pair(m, col, acc[i][j][2 * half], acc[i][j][2 * half + 1],
+                        acc[i][j + 2][2 * half], acc[i][j + 2][2 * half + 1],
+                        !kEdge || col + 1 < op.N);
+        }
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          op.store(m, n0 + 8 * ntile(j) + 2 * q, acc[i][j][2 * half],
-                   acc[i][j][2 * half + 1]);
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * ntile(j) + 2 * q;
+          if (!n_in(n)) continue;
+          op.store(m, n, acc[i][j][2 * half], acc[i][j][2 * half + 1],
+                   n_in(n + 1));
+        }
       }
     }
   }
@@ -320,7 +407,8 @@ __global__ void __launch_bounds__(NT) tiled_kernel(const Op op) {
 
 // Rows of a row-major [B*T] operand, as a GEMM's M.
 struct RowsOp {
-  int M, K;
+  static constexpr bool kChunk = false;
+  int M, N, K;
   __device__ void k_range(int& kb, int& ke) const {
     kb = 0;
     ke = K;
@@ -328,7 +416,7 @@ struct RowsOp {
 };
 
 // (F1): fg = [x(t-d) | x(t)] @ w_fg + add, z = tanh(f) sigmoid(g). The
-// GEMM's N order is the blocks' (filter 32, gate 32) pairs.
+// GEMM's N order is the blocks' (filter 32, gate 32) pairs; N = D.
 template <class P>
 struct FwdGateOp : RowsOp {
   static constexpr bool kAT = false, kBT = false, kPair = true,
@@ -342,25 +430,22 @@ struct FwdGateOp : RowsOp {
   float* zf;             // bf16: z rounded, as float [B*T, D]
   int T, R, D, d;
   size_t fg_ld, z_ld;
-  __device__ const float* a_src(int m, int k, int) const {
-    if (m >= M) return nullptr;
+  __device__ const float* a_src(int m, int k) const {
     if (k >= R) return x + (size_t)m * R + (k - R);
     return m % T >= d ? x + (size_t)(m - d) * R + k : nullptr;
   }
-  __device__ const float* b_src(int k, int n, int) const {
-    const int blk = n / BN, nl = n % BN;
-    const int col = nl < BN / 2 ? blk * (BN / 2) + nl
-                                : D + blk * (BN / 2) + nl - BN / 2;
-    return w + (size_t)k * 2 * D + col;
+  __device__ const float* b_src(int k, int n) const {
+    const int col = pair_col(n);
+    return w + (size_t)k * 2 * D + (n % BN < BN / 2 ? col : D + col);
   }
   __device__ void store_pair(int m, int j, float f0, float f1, float g0,
-                             float g1) const {
-    if (m >= M) return;
+                             float g1, bool two) const {
     const float* ab = add + (size_t)(m / T) * 2 * D;
-    const float fv[2] = {f0 + ab[j], f1 + ab[j + 1]};
-    const float gv[2] = {g0 + ab[D + j], g1 + ab[D + j + 1]};
+    const float fv[2] = {f0 + ab[j], two ? f1 + ab[j + 1] : 0.f};
+    const float gv[2] = {g0 + ab[D + j], two ? g1 + ab[D + j + 1] : 0.f};
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
+      if (c && !two) break;
       const float zv = tanhf(fv[c]) * sigmoidf(gv[c]);
       put(fg + (size_t)m * fg_ld + j + c, fv[c]);
       put(fg + (size_t)m * fg_ld + D + j + c, gv[c]);
@@ -372,7 +457,7 @@ struct FwdGateOp : RowsOp {
 };
 
 // (F2): x' = x + (z @ wd + bd) (f32) or (x + z @ wd) + bd (bf16, the TPU
-// kernel's order); x' may be x.
+// kernel's order); x' may be x. N = R.
 template <class P>
 struct FwdResOp : RowsOp {
   static constexpr bool kAT = false, kBT = false, kPair = false,
@@ -382,30 +467,27 @@ struct FwdResOp : RowsOp {
   const float* bd;       // bd[l] [R]
   const float* xin;      // [B*T, R]
   float* xout;
-  int R;
   size_t z_ld;
-  __device__ const float* a_src(int m, int k, int) const {
-    return m < M ? zs + (size_t)m * z_ld + k : nullptr;
+  __device__ const float* a_src(int m, int k) const {
+    return zs + (size_t)m * z_ld + k;
   }
-  __device__ const float* b_src(int k, int n, int) const {
-    return wd + (size_t)k * R + n;
+  __device__ const float* b_src(int k, int n) const {
+    return wd + (size_t)k * N + n;
   }
-  __device__ void store(int m, int n, float v0, float v1) const {
-    if (m >= M) return;
-    const size_t o = (size_t)m * R + n;
-    const float x0 = xin[o], x1 = xin[o + 1];
-    if constexpr (P::kBf16) {
-      xout[o] = (x0 + v0) + bd[n];
-      xout[o + 1] = (x1 + v1) + bd[n + 1];
-    } else {
-      xout[o] = x0 + (v0 + bd[n]);
-      xout[o + 1] = x1 + (v1 + bd[n + 1]);
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
+    const size_t o = (size_t)m * N + n;
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (c && !two) break;
+      if constexpr (P::kBf16) xout[o + c] = (xin[o + c] + v[c]) + bd[n + c];
+      else xout[o + c] = xin[o + c] + (v[c] + bd[n + c]);
     }
   }
 };
 
 // (A): dz_tot = dz + dx_{l+1} @ wd^T; da = dz_tot * d z / d fg, and z from
-// the fg record, both float32 to scratch.
+// the fg record, both float32 to scratch. N = D.
 template <class P>
 struct BwdGateOp : RowsOp {
   static constexpr bool kAT = false, kBT = true, kPair = false,
@@ -419,17 +501,17 @@ struct BwdGateOp : RowsOp {
   float* zs;             // [B*T, D]
   int R, D;
   size_t fg_ld, z_ld;
-  __device__ const float* a_src(int m, int k, int) const {
-    return m < M ? dc + (size_t)m * R + k : nullptr;
+  __device__ const float* a_src(int m, int k) const {
+    return dc + (size_t)m * R + k;
   }
-  __device__ const float* b_src(int k, int n, int) const {
+  __device__ const float* b_src(int k, int n) const {
     return wd + (size_t)n * R + k;
   }
-  __device__ void store(int m, int n, float v0, float v1) const {
-    if (m >= M) return;
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
     const float v[2] = {v0, v1};
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
+      if (c && !two) break;
       const int j = n + c;
       const float dzt = tof(dz[(size_t)m * z_ld + j]) + v[c];
       const float th = tanhf(tof(fg[(size_t)m * fg_ld + j]));
@@ -441,7 +523,7 @@ struct BwdGateOp : RowsOp {
   }
 };
 
-// (X): x_l = (x_{l+1} - z @ wd) - bd; x_l may be x_{l+1}.
+// (X): x_l = (x_{l+1} - z @ wd) - bd; x_l may be x_{l+1}. N = R.
 struct BwdInputOp : RowsOp {
   static constexpr bool kAT = false, kBT = false, kPair = false,
                         kColSum = false;
@@ -450,23 +532,22 @@ struct BwdInputOp : RowsOp {
   const float* bd;       // bd[l] [R]
   const float* xin;
   float* xout;
-  int R, D;
-  __device__ const float* a_src(int m, int k, int) const {
-    return m < M ? zs + (size_t)m * D + k : nullptr;
+  int D;
+  __device__ const float* a_src(int m, int k) const {
+    return zs + (size_t)m * D + k;
   }
-  __device__ const float* b_src(int k, int n, int) const {
-    return wd + (size_t)k * R + n;
+  __device__ const float* b_src(int k, int n) const {
+    return wd + (size_t)k * N + n;
   }
-  __device__ void store(int m, int n, float v0, float v1) const {
-    if (m >= M) return;
-    const size_t o = (size_t)m * R + n;
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
+    const size_t o = (size_t)m * N + n;
     xout[o] = (xin[o] - v0) - bd[n];
-    xout[o + 1] = (xin[o + 1] - v1) - bd[n + 1];
+    if (two) xout[o + 1] = (xin[o + 1] - v1) - bd[n + 1];
   }
 };
 
 // (DX): dx_l = dx_{l+1} + [da(t) | da(t+d)] @ [w_fg[R:]^T ; w_fg[:R]^T]
-// (da(t+d) = 0 past the batch row's end); dx_l may be dx_{l+1}.
+// (da(t+d) = 0 past the batch row's end); dx_l may be dx_{l+1}. N = R.
 struct BwdDxOp : RowsOp {
   static constexpr bool kAT = false, kBT = true, kPair = false,
                         kColSum = false;
@@ -474,36 +555,33 @@ struct BwdDxOp : RowsOp {
   const float* w;        // w_fg[l] [2R][2D]
   const float* din;
   float* dout;
-  int T, R, D, d;
-  __device__ const float* a_src(int m, int k, int) const {
-    if (m >= M) return nullptr;
+  int T, D, d;
+  __device__ const float* a_src(int m, int k) const {
     if (k < 2 * D) return da + (size_t)m * 2 * D + k;
     return m % T + d < T ? da + (size_t)(m + d) * 2 * D + (k - 2 * D)
                          : nullptr;
   }
-  __device__ const float* b_src(int k, int n, int) const {
-    return k < 2 * D ? w + (size_t)(R + n) * 2 * D + k
+  __device__ const float* b_src(int k, int n) const {
+    return k < 2 * D ? w + (size_t)(N + n) * 2 * D + k
                      : w + (size_t)n * 2 * D + (k - 2 * D);
   }
-  __device__ void store(int m, int n, float v0, float v1) const {
-    if (m >= M) return;
-    const size_t o = (size_t)m * R + n;
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
+    const size_t o = (size_t)m * N + n;
     dout[o] = din[o] + v0;
-    dout[o + 1] = din[o + 1] + v1;
+    if (two) dout[o + 1] = din[o + 1] + v1;
   }
 };
 
-// A row contraction C[K1][N] = sum over rows of U[row]^T V[row], over the
+// A row contraction C[M][N] = sum over rows of U[row]^T V[row], over the
 // chunk of one batch row's rows that blockIdx.z names (z = b * nchunk + c,
-// rows [c * rpc, min(T, (c + 1) * rpc))): a partial [K1][N] per z, and the
+// rows [c * rpc, min(T, (c + 1) * rpc))): a partial [M][N] per z, and the
 // column sums of V.
 struct ContractOp {
   static constexpr bool kAT = true, kBT = false, kPair = false,
-                        kColSum = true;
-  int T, nchunk, rpc, N;
-  float* part;           // [B * nchunk][K1][N]
+                        kColSum = true, kChunk = true;
+  int M, N, T, nchunk, rpc;
+  float* part;           // [B * nchunk][M][N]
   float* csum;           // [B * nchunk][N]
-  size_t part_stride;    // K1 * N
   __device__ size_t row0() const {
     return (size_t)(blockIdx.z / nchunk) * T;
   }
@@ -512,41 +590,39 @@ struct ContractOp {
     kb = c * rpc;
     ke = min(T, kb + rpc);
   }
-  __device__ void store(int m, int n, float v0, float v1) const {
-    float* p = part + blockIdx.z * part_stride + (size_t)m * N + n;
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
+    float* p = part + ((size_t)blockIdx.z * M + m) * N + n;
     p[0] = v0;
-    p[1] = v1;
+    if (two) p[1] = v1;
   }
   __device__ void col_sums(int n, float s) const {
     csum[(size_t)blockIdx.z * N + n] = s;
   }
 };
 
-// (W1): dwd = z^T @ dx_{l+1}, dbd = sum dx_{l+1}.
+// (W1): dwd = z^T @ dx_{l+1}, dbd = sum dx_{l+1}. M = D, N = R.
 struct DwdOp : ContractOp {
   const float* zs;       // [B*T, D]
   const float* dc;       // [B*T, R]
-  int D;
-  __device__ const float* a_src(int m, int t, int te) const {
-    return t < te ? zs + (row0() + t) * D + m : nullptr;
+  __device__ const float* a_src(int m, int t) const {
+    return zs + (row0() + t) * M + m;
   }
-  __device__ const float* b_src(int t, int n, int te) const {
-    return t < te ? dc + (row0() + t) * N + n : nullptr;
+  __device__ const float* b_src(int t, int n) const {
+    return dc + (row0() + t) * N + n;
   }
 };
 
-// (W2): dw_fg = [x(t-d) | x(t)]^T @ da, dadd = sum_t da.
+// (W2): dw_fg = [x(t-d) | x(t)]^T @ da, dadd = sum_t da. M = 2R, N = 2D.
 struct DwfgOp : ContractOp {
   const float* x;        // x_l [B*T, R]
   const float* da;       // [B*T, 2D]
   int R, d;
-  __device__ const float* a_src(int m, int t, int te) const {
-    if (t >= te) return nullptr;
+  __device__ const float* a_src(int m, int t) const {
     if (m >= R) return x + (row0() + t) * R + (m - R);
     return t >= d ? x + (row0() + t - d) * R + m : nullptr;
   }
-  __device__ const float* b_src(int t, int n, int te) const {
-    return t < te ? da + (row0() + t) * N + n : nullptr;
+  __device__ const float* b_src(int t, int n) const {
+    return da + (row0() + t) * N + n;
   }
 };
 
@@ -576,9 +652,12 @@ __global__ void __launch_bounds__(256) reduce_kernel(
 // Host side
 // ---------------------------------------------------------------------------
 
+// The edge mode of every launch of a call at R, D (tiled_kernel's kEdge).
+bool ragged(int r, int d) { return r % 64 != 0 || d % 64 != 0; }
+
 template <class P, class Op>
-cudaError_t launch(dim3 grid, const Op& op, cudaStream_t st) {
-  auto* k = &tiled_kernel<P, Op>;
+cudaError_t launch(dim3 grid, const Op& op, bool edge, cudaStream_t st) {
+  auto* k = edge ? &tiled_kernel<P, Op, true> : &tiled_kernel<P, Op, false>;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return e;
@@ -595,16 +674,17 @@ cudaError_t launch_reduce(const float* part, const float* csum, float* out,
   return cudaGetLastError();
 }
 
-int row_tiles(int M) { return (M + BM - 1) / BM; }
+// Tiles of t over an extent n (the last ragged).
+int tiles(int n, int t) { return (n + t - 1) / t; }
 
 // A row contraction's chunks of one batch row: as many as bring the grid
-// (tiles output tiles a chunk, B batch rows) to kContractBlocks, each a
+// (ntile output tiles a chunk, B batch rows) to kContractBlocks, each a
 // whole number of k-tiles. Fixed by the shape alone.
 struct Chunks {
   int nchunk, rpc;
 };
-Chunks contract_chunks(int B, int T, int tiles) {
-  int want = (kContractBlocks + tiles * B - 1) / (tiles * B);
+Chunks contract_chunks(int B, int T, int ntile) {
+  int want = (kContractBlocks + ntile * B - 1) / (ntile * B);
   if (want < 1) want = 1;
   int rpc = (T + want - 1) / want;
   rpc = (rpc + BK - 1) / BK * BK;
@@ -613,8 +693,11 @@ Chunks contract_chunks(int B, int T, int tiles) {
 
 constexpr int kUnsupportedWidth = 1000;
 
+// The TPU kernel's widths: any R; D whose 128-lane records pack (D and 2D
+// divide 128 or are multiples of it: D in 1, 2, 4, ..., 64 or a multiple
+// of 128).
 bool supported(int r, int d) {
-  return r == d && r > 0 && r % 64 == 0;
+  return r > 0 && d > 0 && (128 % d == 0 || d % 128 == 0);
 }
 
 template <class P>
@@ -622,12 +705,14 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
                  typename P::Rec* fg, typename P::Rec* z, float* xbuf, int B,
                  int T, int L, int R, int D, cudaStream_t st) {
-  const int M = B * T;
+  const int M = B * T, rows = tiles(M, BM);
+  const bool edge = ragged(R, D);
   const size_t fg_ld = (size_t)L * 2 * D, z_ld = (size_t)L * D;
   for (int l = 0; l < L; ++l) {
     const float* xin = l == 0 ? x : y;
     FwdGateOp<P> f1;
     f1.M = M;
+    f1.N = D;
     f1.K = 2 * R;
     f1.x = xin;
     f1.w = w_fg + (size_t)l * 2 * R * 2 * D;
@@ -641,10 +726,11 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
     f1.d = dil[l];
     f1.fg_ld = fg_ld;
     f1.z_ld = z_ld;
-    cudaError_t e = launch<P>(dim3(2 * D / BN, row_tiles(M)), f1, st);
+    cudaError_t e = launch<P>(dim3(tiles(D, BN / 2), rows), f1, edge, st);
     if (e != cudaSuccess) return (int)e;
     FwdResOp<P> f2;
     f2.M = M;
+    f2.N = R;
     f2.K = D;
     if constexpr (P::kBf16) {
       f2.zs = xbuf;
@@ -657,8 +743,7 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
     f2.bd = bd + (size_t)l * R;
     f2.xin = xin;
     f2.xout = y;
-    f2.R = R;
-    e = launch<P>(dim3(R / BN, row_tiles(M)), f2, st);
+    e = launch<P>(dim3(tiles(R, BN), rows), f2, edge, st);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
@@ -673,8 +758,8 @@ struct BwdScratch {
 BwdScratch bwd_scratch(int B, int T, int R, int D) {
   BwdScratch s;
   const size_t M = (size_t)B * T;
-  s.c1 = contract_chunks(B, T, (D / BM) * (R / BN));
-  s.c2 = contract_chunks(B, T, (2 * R / BM) * (2 * D / BN));
+  s.c1 = contract_chunks(B, T, tiles(D, BM) * tiles(R, BN));
+  s.c2 = contract_chunks(B, T, tiles(2 * R, BM) * tiles(2 * D, BN));
   const size_t n1 = (size_t)B * s.c1.nchunk, n2 = (size_t)B * s.c2.nchunk;
   s.xs = 0;
   s.zs = s.xs + M * R;
@@ -694,7 +779,8 @@ int backward_impl(const float* y, const float* dy,
                   const int* dil, float* dx, float* dw_fg, float* dwd,
                   float* dadd, float* dbd, float* scratch, int B, int T,
                   int L, int R, int D, cudaStream_t st) {
-  const int M = B * T;
+  const int M = B * T, rows = tiles(M, BM);
+  const bool edge = ragged(R, D);
   const BwdScratch s = bwd_scratch(B, T, R, D);
   float* xs = scratch + s.xs;
   float* zs = scratch + s.zs;
@@ -710,6 +796,7 @@ int backward_impl(const float* y, const float* dy,
 
     BwdGateOp<P> a;
     a.M = M;
+    a.N = D;
     a.K = R;
     a.dc = dc;
     a.wd = wdl;
@@ -721,63 +808,63 @@ int backward_impl(const float* y, const float* dy,
     a.D = D;
     a.fg_ld = fg_ld;
     a.z_ld = z_ld;
-    cudaError_t e = launch<P>(dim3(D / BN, row_tiles(M)), a, st);
+    cudaError_t e = launch<P>(dim3(tiles(D, BN), rows), a, edge, st);
     if (e != cudaSuccess) return (int)e;
 
     BwdInputOp xo;
     xo.M = M;
+    xo.N = R;
     xo.K = D;
     xo.zs = zs;
     xo.wd = wdl;
     xo.bd = bd + (size_t)l * R;
     xo.xin = x_next;
     xo.xout = xs;
-    xo.R = R;
     xo.D = D;
-    e = launch<P>(dim3(R / BN, row_tiles(M)), xo, st);
+    e = launch<P>(dim3(tiles(R, BN), rows), xo, edge, st);
     if (e != cudaSuccess) return (int)e;
 
     DwdOp w1;
+    w1.M = D;
+    w1.N = R;
     w1.T = T;
     w1.nchunk = s.c1.nchunk;
     w1.rpc = s.c1.rpc;
-    w1.N = R;
     w1.part = scratch + s.p1;
     w1.csum = scratch + s.s1;
-    w1.part_stride = (size_t)D * R;
     w1.zs = zs;
     w1.dc = dc;
-    w1.D = D;
-    e = launch<P>(dim3(R / BN, D / BM, n1), w1, st);
+    e = launch<P>(dim3(tiles(R, BN), tiles(D, BM), n1), w1, edge, st);
     if (e != cudaSuccess) return (int)e;
 
     DwfgOp w2;
+    w2.M = 2 * R;
+    w2.N = 2 * D;
     w2.T = T;
     w2.nchunk = s.c2.nchunk;
     w2.rpc = s.c2.rpc;
-    w2.N = 2 * D;
     w2.part = scratch + s.p2;
     w2.csum = scratch + s.s2;
-    w2.part_stride = (size_t)4 * R * D;
     w2.x = xs;
     w2.da = da;
     w2.R = R;
     w2.d = d;
-    e = launch<P>(dim3(2 * D / BN, 2 * R / BM, n2), w2, st);
+    e = launch<P>(dim3(tiles(2 * D, BN), tiles(2 * R, BM), n2), w2, edge,
+                  st);
     if (e != cudaSuccess) return (int)e;
 
     BwdDxOp x2;
     x2.M = M;
+    x2.N = R;
     x2.K = 4 * D;
     x2.da = da;
     x2.w = wl;
     x2.din = dc;
     x2.dout = dx;
     x2.T = T;
-    x2.R = R;
     x2.D = D;
     x2.d = d;
-    e = launch<P>(dim3(R / BN, row_tiles(M)), x2, st);
+    e = launch<P>(dim3(tiles(R, BN), rows), x2, edge, st);
     if (e != cudaSuccess) return (int)e;
 
     e = launch_reduce(scratch + s.p1, scratch + s.s1, dwd + (size_t)l * D * R,
@@ -796,7 +883,8 @@ int backward_impl(const float* y, const float* dy,
 
 extern "C" {
 
-// 1 where the kernels take R = r, D = d (R == D, a multiple of 64), else 0.
+// 1 where the kernels take R = r, D = d (the TPU kernel's widths: any
+// R >= 1; D in 1, 2, 4, ..., 64 or a multiple of 128), else 0.
 int fused_stack_tiled_supports_width(int r, int d) { return supported(r, d); }
 
 // Floats of scratch device memory the backward needs (either mode); -1 at
@@ -809,7 +897,8 @@ long long fused_stack_tiled_bwd_scratch_floats(int B, int T, int L, int r,
 }
 
 // Forward launches (2L of them); the arguments of fused_stack_fwd_f32
-// (fused_stack.cu): xbuf [2, B, T, R] floats. Returns 0 or a CUDA error
+// (fused_stack.cu), but xbuf is the bf16 mode's scratch, [B, T, D] floats
+// (the f32 mode writes none: xbuf may be null). Returns 0 or a CUDA error
 // code.
 int fused_stack_tiled_fwd_f32(const float* x, const float* w_fg,
                               const float* wd, const float* add,

@@ -23,9 +23,11 @@ R == D in (32, 64), with every weight of a layer resident in shared
 memory; ``csrc/fused_stack.cu`` ("simt") multiplies on the FP32 cores at
 R == D in (8, 16, 32); ``csrc/fused_stack_tiled.cu`` ("tiled") runs each
 layer as tiled matrix products on the tensor cores whose weights stream
-through shared memory, at R == D a multiple of 64 (routed at 128 and
-above, where the weights no longer fit). ``stack_kernel_plan`` (pure)
-picks one. ``forward`` and ``backward`` run the routed kernel, or the one
+through shared memory, with ragged edges masked, at every width the TPU
+kernel takes (any R, D in 1, 2, 4, ..., 64 or a multiple of 128; routed
+wherever the other two are not built: R == D a multiple of 128, where
+the weights no longer fit, R != D, and R == D in 1, 2, 4).
+``stack_kernel_plan`` (pure) picks one. ``forward`` and ``backward`` run the routed kernel, or the one
 that ``kernel=`` pins, for CUDA tensors and the plain versions for CPU
 tensors; each counts its kernel launches in ``forward.launches`` /
 ``backward.launches`` (one per call: the call runs L kernels forward and
@@ -65,10 +67,9 @@ _LANE = 128
 
 #: ``kernel=`` values of ``forward``, ``backward`` and ``fused_stack3``.
 KERNEL_CHOICES = ("auto", "mma", "simt", "tiled")
-#: Widths (R == D) each kernel source is built for, in either mode. The
-#: tiled kernel takes more (its library says which); the route sends it
-#: R == D a multiple of 128, the widths above 64 that the TPU kernel's
-#: 128-lane records take.
+#: Widths (R == D) the mma and simt sources are built for, in either
+#: mode. The tiled kernel takes every width ``supports`` takes (its
+#: library says which); the route sends it the rest of them.
 MMA_WIDTHS = (32, 64)
 SIMT_WIDTHS = (8, 16, 32)
 #: The compute dtypes of a stack, and the record dtype of each.
@@ -110,11 +111,12 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
     compute dtype. At float32: "mma" at R == D in ``MMA_WIDTHS`` (the
     paper and gc widths, where the chip run timed it faster than "simt"
     in both directions, and the wide width, which "simt" lacks), "simt"
-    at the other widths ``csrc/fused_stack.cu`` is built for, "tiled" at
-    R == D a multiple of 128 (the sharded config's 256; weights too large
-    to stay in shared memory). At bfloat16 the same kernels in their bf16
-    mode. Raises for any other width: R != D (ROADMAP.md queue 2, a4 step
-    2) and R == D in (1, 2, 4) (a4 step 4). Each library's own
+    at the other widths ``csrc/fused_stack.cu`` is built for (R == D in
+    8, 16), and "tiled" at every other width ``supports`` takes: R == D a
+    multiple of 128 (the sharded config's 256; weights too large to stay
+    in shared memory), R != D, and R == D in (1, 2, 4). At bfloat16 the
+    same kernels in their bf16 mode. Raises at a width ``supports``
+    refuses (the TPU kernel's records do not pack it). Each library's own
     ``*_supports_width`` ("simt", "tiled") is asked again at launch."""
     R, D = config.residual_channels, config.dilation_channels
     record_dtype(config)    # raises at a compute dtype the stack lacks
@@ -122,13 +124,11 @@ def stack_kernel_plan(config: WaveNetConfig) -> str:
         return "mma"
     if R == D and R in SIMT_WIDTHS:
         return "simt"
-    if R == D and R % _LANE == 0:
-        return "tiled"
-    step = " step 2" if R != D else " step 4"
-    raise NotImplementedError(
-        f"the fused_stack kernels take R == D in "
-        f"{tuple(sorted(set(SIMT_WIDTHS + MMA_WIDTHS)))} or a multiple of "
-        f"{_LANE}; got R={R}, D={D} (ROADMAP.md queue 2, a4{step})")
+    if not (_lane_alignable(2 * D) and _lane_alignable(D)):
+        raise NotImplementedError(
+            f"the fused_stack kernels take the TPU kernel's widths: D in "
+            f"1, 2, 4, ..., 64 or a multiple of {_LANE}; got D={D}")
+    return "tiled"
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +316,9 @@ def _route(kernel: str, config: WaveNetConfig):
     c = config
     if not supports(c):
         raise NotImplementedError(
-            "fused_stack needs filter_width=2 and max dilation <= "
-            f"{_T_TILE_BWD}")
+            "fused_stack needs filter_width=2, max dilation <= "
+            f"{_T_TILE_BWD} and D in 1, 2, 4, ..., 64 or a multiple of "
+            f"{_LANE} (the TPU kernel's supports)")
     used = stack_kernel_plan(c) if kernel == "auto" else kernel
     bf16 = record_dtype(c) == torch.bfloat16
     lib, prefix = _lib(used)
@@ -326,8 +327,8 @@ def _route(kernel: str, config: WaveNetConfig):
              else getattr(lib, f"{prefix}_supports_width")(R, D))
     if not built:
         raise NotImplementedError(
-            f"{prefix}: not built for R={R}, D={D} (R == D, see "
-            "stack_kernel_plan; ROADMAP.md queue 2, a4)")
+            f"{prefix}: not built for R={R}, D={D} (see stack_kernel_plan: "
+            "the tiled kernel takes every width the route sends it)")
     return used, lib, prefix, "bf16" if bf16 else "f32"
 
 
@@ -344,6 +345,15 @@ def _check_weights(config: WaveNetConfig, x: torch.Tensor, w_fg, wd, bd):
     _check("wd", wd, (L, D, R), dev)
     _check("bd", bd, (L, 1, R), dev)
     return (ctypes.c_int * L)(*c.dilations)
+
+
+def _xbuf_shape(kernel: str, B: int, T: int, R: int, D: int, mode: str):
+    """The forward's float32 scratch, by what each kernel writes there: the
+    mma and simt kernels' two [B, T, R] layer buffers; the tiled kernel's
+    bf16 mode z as float, [B, T, D] (its f32 mode writes none)."""
+    if kernel != "tiled":
+        return (2, B, T, R)
+    return (B, T, D) if mode == "bf16" else (0,)
 
 
 def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
@@ -368,7 +378,8 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
     y = torch.empty_like(x)
     fg = torch.empty((B, T, L * 2 * D), **rec)
     z = torch.empty((B, T, L * D), **rec)
-    xbuf = torch.empty((2, B, T, R), dtype=torch.float32, device=x.device)
+    xbuf = torch.empty(_xbuf_shape(used, B, T, R, D, mode),
+                       dtype=torch.float32, device=x.device)
     err = getattr(lib, f"{prefix}_fwd_{mode}")(
         x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
         bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),

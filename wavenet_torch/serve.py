@@ -1,7 +1,10 @@
 """HTTP generation server on the port (counterpart of ``wavenet_tpu/serve.py``).
 
-Loads weights once, warms the decode kernel, then serves generation
-requests with the device serialized behind a lock.
+Loads weights once, warms the sampler, then serves generation requests
+with the device serialized behind a lock. The sampler is
+``sampler_select.generate_with_fallback``'s, as in the JAX server: a
+decode kernel, or the scan sampler where the JAX ladder offers no kernel
+(the sharded config); /healthz names the last one that ran.
 
     python -m wavenet_torch.serve --params_npz params.npz \
         --wavenet_params wavenet_params.json [--port 8765] \
@@ -57,7 +60,7 @@ import torch
 
 
 class GenerationService:
-    """Weights + warm decode kernel + device lock."""
+    """Weights + warm sampler + device lock."""
 
     #: /generate_batch JSON "codes" responses are capped at this many
     #: total ints (batch * samples); larger results must use "wav_b64".
@@ -73,7 +76,7 @@ class GenerationService:
         from wavenet_torch import resolve_device
         from wavenet_torch.models.config import WaveNetConfig
         from wavenet_torch.params import load_npz
-        from wavenet_torch.sampler_select import sampler_name
+        from wavenet_torch.sampler_select import sampler_attempts
 
         self.device = resolve_device(device)
         with open(wavenet_params) as f:
@@ -83,8 +86,12 @@ class GenerationService:
             raw, gc_channels=gc_channels, gc_cardinality=gc_cardinality)
         self.params = load_npz(params_npz, self.device)
         self.max_batch = max_batch
-        self.sampler_name = sampler_name(self.device,
-                                         lc=self.config.lc_enabled)
+        # What a b1 request of the smallest bucket runs; every request
+        # then names the sampler it ran (the sharded config's: scan).
+        first = sampler_attempts(
+            self.config, device=self.device, lc=self.config.lc_enabled,
+            n_total=self.config.receptive_field + self.bucket_samples(1))
+        self.sampler_name = first[0][0] if first else "scan"
         self._lock = threading.Lock()
         # Optional speculative decoding: a draft turns every /generate
         # into draft-propose / target-verify (``speculative.py``).
@@ -127,7 +134,7 @@ class GenerationService:
     def _decode(self, n_samples: int, batch: int, gc_ids, temperature,
                 seed, lc=None) -> np.ndarray:
         from wavenet_torch.audio import mu_law_decode_np
-        from wavenet_torch.kernels.sampler import generate_cuda
+        from wavenet_torch.sampler_select import generate_with_fallback
 
         if not temperature > 0:
             raise ValueError(f"temperature must be > 0, got {temperature}")
@@ -135,11 +142,13 @@ class GenerationService:
         if self.draft_params is not None:
             return self._decode_speculative(n_samples, n_bucket, gc_ids,
                                             temperature, seed)
+        if gc_ids is not None:
+            gc_ids = gc_ids.to(self.device)
         with self._lock:
-            codes = generate_cuda(
+            codes, self.sampler_name, _ = generate_with_fallback(
                 self.params, self.config, n_bucket, seed=seed,
                 batch_size=batch, gc_ids=gc_ids, temperature=temperature,
-                prefill=True, lc=lc)
+                lc=lc, log=lambda msg: None)
             codes = codes[:, :n_samples].cpu().numpy()
         return mu_law_decode_np(codes, self.config.quantization_channels)
 
