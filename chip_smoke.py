@@ -114,9 +114,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (128, 64), b8 x 16,000, 4 steps each dtype, finite losses, every stack
    call on the tiled mode (the ``fused_stack_tiled_r_ne_d*`` rows'
    launches, counted from 0). Then the sharded config's generation, where
-   the JAX ladder offers no Pallas rung: the generate CLI runs the scan
-   sampler and launches no decode kernel (the server's route is
-   ``tests/test_torch_gpu.py``'s ``test_sharded_generation_runs_scan``).
+   the JAX ladder's TPU VMEM budget offers no Pallas rung and the port's
+   route (``decode_route``) runs ``sampler_decode``: the generate CLI at
+   b1 x 64 on it (one launch, counted from 0; the server's route is
+   ``tests/test_torch_gpu.py``'s
+   ``test_sharded_generation_runs_sampler_decode``), the kernel at full
+   depth against ``decode_reference`` at b1 and b4 in both weight modes,
+   and each route's step (``sampler_decode``, the scan sampler) at b1 and
+   b64 over 200 steps behind a spin.
 6. Generation, at full width: kernel 4's route (``decode_sequential``:
    a receptive field of random codes, or amplitudes for the scalar-input
    wide config, stepped from a zero ring, then 256 sampled steps) at the
@@ -223,7 +228,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``fused_dilated_layer`` stack under autograd in each mode, its
    launches counted from 0 by mode: at float32 against kernel 5, at bf16
    each call on its own input and the whole against the plain bf16 layer
-   stack, its distance from kernel 5's bf16 mode recorded.
+   stack, its distance from kernel 5's bf16 mode recorded; then kernel 8
+   at (64, 64), (48, 128) and (256, 256) on ``fused_stack_tiled``'s layer
+   entries (gc b8 length, dilation 4) in both modes against its plain
+   versions, bitwise repeatable, timed, the op's launches counted from 0.
+   (e) The v1 stack where the carry kernel is not built, on kernel 5's
+   kernels (the wide config b8 on ``mma``, the sharded config b1 on the
+   tiled kernel's v1 entries): forward and backward against v1's plain
+   versions in each mode (f32 at phase 5's tolerances, bf16 on bf16's
+   gap), bitwise kernel 5's own launches on the same inputs, repeats
+   bitwise, timed beside the plain versions; then 3 Adam steps at
+   versions 3 and 1 in each dtype, v1's losses against v3's by the rules
+   above, launches ``v1_mma`` / ``v1_tiled`` counted from 0.
 
 8. The probes (TPU kernels 9-10): the r2 and r2b tools' kernels on the
    FP32 cores (``fwd_bisect``) and on the tensor cores
@@ -271,7 +287,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    x 1,024 with k = 8 (well-formed codes, every proposal accepted from the
    identical draft, no decode kernel launched, /generate_batch refused);
    ``python -m wavenet_torch.cli.generate --draft_checkpoint`` from the gc
-   checkpoint at b1 x 800 and in ``--save_every 200`` segments (equal to
+   checkpoint at b1 x 400 and in ``--save_every 100`` segments (equal to
    the single run); ``distill.distill_draft`` at the tiny config for 4
    steps (finite loss, the draft on the card). Prints the scored audio s
    per wall s, the speculative samples/s and the mean accepted length.
@@ -471,8 +487,27 @@ RAGGED_STEPS, RAGGED_SPEAKERS = 4, 8
 # Phase 5r: the samples of the sharded config's generate CLI run, on the
 # scan sampler.
 SHARDED_GEN_SAMPLES = 64
+# Phase 5r's decode at the sharded config, at full depth: sampler_decode
+# held teacher-forced at these batches and steps, then each route's step
+# (sampler_decode, the scan sampler) timed at SHARDED_TIMED_BATCHES over
+# SHARDED_TIMED_STEPS steps (decode, scan, decode), queued behind a spin
+# of SPIN_CYCLES (~0.25 s at an H100's ~1.98 GHz) so that the host's
+# launches run ahead of the card.
+SHARDED_HOLD_BATCHES, SHARDED_HOLD_STEPS = (1, 4), 32
+SHARDED_TIMED_BATCHES, SHARDED_TIMED_STEPS = (1, 64), 200
+SPIN_CYCLES = 500_000_000
 # Phase 7: Adam steps per pallas_stack_version on the retired stacks.
 CARRY_TRAIN_STEPS = 4
+# Phase 7 (e): the retired v1 stack where the carry kernel is not built,
+# on kernel 5's kernels: (config, batch, samples, the kernel v1's route
+# takes), V1_STEPS Adam steps a version and dtype.
+V1_CASES = (("wide", TRAIN_BATCH, TRAIN_SAMPLES, "mma"),
+            ("sharded", TILED_BATCH, TILED_SAMPLES, "tiled"))
+V1_STEPS = 3
+# Phase 7 (c): kernel 8 at widths the layer kernel is not built for, on
+# fused_stack_tiled's layer entries, at the gc config's train shape.
+LAYER_WIDE = ((64, 64), (48, 128), (256, 256))
+LAYER_WIDE_DILATION = 4
 # Phase 9: the bench's generation rows by payload key (config, batch, bf16
 # weights, LC, the wrapper that the row's route launches), the main
 # payload's and each config row's.
@@ -672,6 +707,15 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def randn_cuda(rng, *shape):
+    """N(0, 1) float32 of ``shape`` drawn on the card from a generator
+    seeded by ``rng``: the stack phases' cotangents hold up to hundreds of
+    millions of values, which numpy takes seconds to draw."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    return torch.randn(shape, generator=gen, device="cuda")
 
 
 def setup(c, B: int, rng, seed_len: int, extra: int):
@@ -1070,8 +1114,7 @@ def phase_stack_kernels(cfgs, params, rng, gpu):
         T = args[0].shape[1]
         dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
                              device="cuda")
-        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                             device="cuda")
+        dz = randn_cuda(rng, B, T, L * D)
         w_fg, wd, _, bd = args[1:]
         out_p = fs.fused_stack_forward_reference(*args, c)
         y, fg = out_p[0], out_p[1]
@@ -1253,8 +1296,7 @@ def phase_stack_bf16(name, c, params, rng, gpu):
     T = args[0].shape[1]
     w_fg, wd, _, bd = args[1:]
     dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
-    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                         device="cuda").to(torch.bfloat16)
+    dz = randn_cuda(rng, B, T, L * D).to(torch.bfloat16)
     out_p = fs.fused_stack_forward_reference(*args, c16)
     y, fg = out_p[0], out_p[1]
     grads_p = fs.fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
@@ -1926,8 +1968,7 @@ def tiled_stack_check(name, c32, B, samples, rng, gpu):
     dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
     # dz in bf16's values, so that the float32 gradients are the bf16
     # gradients' yardstick on the same cotangent.
-    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                         device="cuda").to(torch.bfloat16)
+    dz = randn_cuda(rng, B, T, L * D).to(torch.bfloat16)
     dz32 = dz.float()
     row = {"phase": "stack_tiled", "config": name, "batch": B,
            "positions": T, "layers": L, "residual_channels": R,
@@ -2170,21 +2211,34 @@ def phase_train_cli_w128(wide, corpus, tmp, gpu):
 
 
 def phase_sharded_generation(gpu):
-    """Generation at the sharded config (80 layers, R = D = 256), where
-    the JAX ladder offers no Pallas rung at any batch: the generate CLI
-    (b1 x SHARDED_GEN_SAMPLES) runs the scan sampler and launches no
-    decode kernel (counted from 0). The server's route is left to
-    ``tests/test_torch_gpu.py``'s ``test_sharded_generation_runs_scan``: a
-    request steps its whole bucket of 1,024 samples, ~38 s on the scan
-    sampler."""
+    """Phase 5r's generation at the sharded config (80 layers, R = D =
+    256), where the JAX ladder's TPU VMEM budget offers no Pallas rung and
+    the port's route (``decode_route``, from the card's opt-in shared
+    memory) runs ``sampler_decode`` at every batch: the generate CLI (b1 x
+    SHARDED_GEN_SAMPLES) on that route, its decode launches counted from
+    0; at full depth ``sampler_decode`` against ``decode_reference``
+    teacher-forced for SHARDED_HOLD_STEPS steps at each of
+    SHARDED_HOLD_BATCHES in both weight modes (float32 at the decode
+    tolerances, bf16 one step a launch by ``bf16_hold``); and the step
+    time of each route at SHARDED_TIMED_BATCHES over SHARDED_TIMED_STEPS
+    steps from a prefilled state, behind a spin: ``sampler_decode`` (one
+    launch) against the scan sampler (``sample.generate_codes``). Returns
+    the kernels line's numbers."""
+    import numpy as np
+    import torch
+    from wavenet_torch import sample as tsample
+    from wavenet_torch.kernels import bf16_hold
     from wavenet_torch.kernels import sampler as ks
     from wavenet_torch.models.config import sharded_config
     from wavenet_torch.sampler_select import sampler_attempts
 
+    t0 = time.perf_counter()
     c = sharded_config()
-    check(not sampler_attempts(c, batch_size=1,
-                               n_total=c.receptive_field + GEN_SAMPLES),
-          "the sampler ladder offers a decode kernel at the sharded config")
+    route = {B: ks.device_decode_route(c, B)
+             for B in SHARDED_HOLD_BATCHES + SHARDED_TIMED_BATCHES}
+    check(set(route.values()) == {"decode"} and sampler_attempts(c),
+          f"the sharded config's decode route is {route}, not "
+          "sampler_decode")
     tmp = tempfile.mkdtemp(prefix="wavenet_torch_sharded_gen_")
     params = seeded_params(c, 9, "cpu")
     root = os.path.join(tmp, "ckpt")
@@ -2196,18 +2250,131 @@ def phase_sharded_generation(gpu):
         [root, "--wavenet_params", pfile, "--samples",
          str(SHARDED_GEN_SAMPLES), "--wav_out_path", wav, "--seed", "1",
          "--device", "cuda"])
-    check("Using scan sampler." in out and "Finished generating." in out,
-          "the sharded generate CLI did not run the scan sampler")
+    check("Using CUDA (prefill + " in out and "Finished generating." in out,
+          "the sharded generate CLI did not run a decode kernel")
     read_wavs(wav, 1, SHARDED_GEN_SAMPLES)
     launched = (ks.decode.launches, ks.decode_sequential.launches,
                 dict(ks.decode.launches_by))
-    check(launched == (0, 0, {}),
-          f"sharded generation launched decode kernels: {launched}")
-    emit({"phase": "sharded_generation", "sampler": "scan",
-          "samples": SHARDED_GEN_SAMPLES, "cli_seconds": seconds,
-          "samples_per_s": SHARDED_GEN_SAMPLES / seconds,
-          "decode_launches": 0, "gpu": gpu})
+    check(launched == (1, 0, {"decode": 1}),
+          f"sharded generation launched {launched}, not sampler_decode once")
+    row = {"phase": "sharded_generation", "sampler": "sampler_decode",
+           "samples": SHARDED_GEN_SAMPLES, "cli_seconds": seconds,
+           "cli_samples_per_s": SHARDED_GEN_SAMPLES / seconds,
+           "decode_launches_by": launched[2], "gpu": gpu}
     shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds_cli"] = time.perf_counter() - t0
+
+    params = {k: v.to("cuda") for k, v in params.items()}
+    rng = np.random.RandomState(21)
+    err = 0.0
+    for B in SHARDED_HOLD_BATCHES:
+        codes, _ = setup(c, B, rng, 70, SHARDED_HOLD_STEPS)
+        carry = ks.prefill_carry(params, c, codes[:, :70], None)
+        pk32 = ks.pack_sampler_weights(params, c, B, None)
+        pk16 = ks.pack_sampler_weights(params, c, B, None,
+                                       weight_dtype=torch.bfloat16)
+        forced = codes[:, 69:69 + SHARDED_HOLD_STEPS].contiguous()
+        n = forced.shape[1]
+        rk, ck = carry.ring.clone(), carry.causal.clone()
+        rr, cr = carry.ring.clone(), carry.causal.clone()
+        _, lk = ks.decode(pk32, c, rk, ck, forced, n, carry.t_abs, 3,
+                          collect_logits=True, kernel="decode")
+        _, lr = ks.decode_reference(pk32, c, rr, cr, forced, n,
+                                    carry.t_abs, 3, collect_logits=True)
+        torch.cuda.synchronize()
+        for label, a, b in (("logits", lk, lr), ("ring", rk, rr)):
+            e = (a - b).abs().max().item()
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"sharded b{B} sampler_decode {label}: {e} from "
+                  "decode_reference")
+            row[f"max_abs_err_{label}_b{B}"] = e
+            err = max(err, e)
+
+        def step(ring, causal, x, t):
+            return ks.decode(pk16, c, ring, causal, x, 1, t, 3,
+                             collect_logits=True, kernel="decode")[1]
+
+        rc = ks.chain_rounded("decode", B)
+        ring, causal = carry.ring.clone(), carry.causal.clone()
+        got = bf16_hold.stepwise(c, pk16, pk32, ring, causal, forced,
+                                 carry.t_abs, 3, rc, step)
+        torch.cuda.synchronize()
+        if not rc:      # b1: the chain float32, the tight rule
+            row[f"bf16_b{B}"] = bf16_hold.hold(f"sharded bf16 b{B}",
+                                               *got[:3])
+            bf16_hold.hold(f"sharded bf16 b{B} ring", *got[3:])
+        else:
+            # 80 rounded layers: held as far as the plain version lies
+            # from itself summed on the CPU (bf16_hold's docstring).
+            ring, causal = carry.ring.clone(), carry.causal.clone()
+            cpu = bf16_hold.stepwise(c, pk16, pk32, ring, causal, forced,
+                                     carry.t_abs, 3, rc,
+                                     bf16_hold.cpu_launch(c, pk16, 3, rc))
+            for i, what in ((0, ""), (3, " ring")):
+                kern = bf16_hold.ratios(*got[i:i + 3])
+                plain = bf16_hold.ratios(*cpu[i:i + 3])
+                limits = bf16_hold.hold_as_plain(
+                    f"sharded bf16 b{B}{what}", kern, plain)
+                row[f"bf16_b{B}{what.replace(' ', '_')}"] = {
+                    "kernel": kern, "plain_cpu": plain, "limits": limits}
+            del cpu
+        del carry, pk32, pk16, rk, rr, ring, got
+    torch.cuda.empty_cache()
+    row["seconds_held"] = time.perf_counter() - t0 - row["seconds_cli"]
+
+    # Each route's step, behind a spin that lets the host queue its work.
+    n = SHARDED_TIMED_STEPS
+    times = {}
+    for B in SHARDED_TIMED_BATCHES:
+        codes, _ = setup(c, B, rng, 70, n)
+        carry = ks.prefill_carry(params, c, codes[:, :70], None)
+        pk = ks.pack_sampler_weights(params, c, B, None)
+        first = codes[:, 69:70].contiguous()
+        x0 = tsample._featurize(codes[:, 69], c)
+        for name in ("decode", "scan", "decode"):
+            if name == "decode":
+                ring, causal = carry.ring.clone(), carry.causal.clone()
+                fn = (lambda: ks.decode(pk, c, ring, causal, first, n,
+                                        carry.t_abs, 3, kernel="decode"))
+            else:
+                st = tsample.prefill_state(params, c, codes[:, :69])
+                key = torch.Generator(device="cuda").manual_seed(3)
+                fn = (lambda: tsample.generate_codes(
+                    params, c, st, x0, n, key))
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            times.setdefault((name, B), []).append(cuda_ms_unsynced(fn) / n)
+        del carry, pk, ring, causal, st
+        torch.cuda.empty_cache()
+    for (name, B), v in times.items():
+        row[f"{name}_ms_per_step_b{B}"] = float(np.mean(v))
+    for B in SHARDED_TIMED_BATCHES:
+        row[f"decode_speedup_over_scan_b{B}"] = (
+            row[f"scan_ms_per_step_b{B}"] / row[f"decode_ms_per_step_b{B}"])
+    bound, by = bound_per_step(c, 1, n)
+    row.update({"seconds": time.perf_counter() - t0,
+                "bound_ms_per_step_b1": bound, "bound_by_b1": by,
+                "weight_stream_bound_ms_per_step":
+                    weight_stream_bound_per_step(c, 1)[0]})
+    emit(row)
+    return dict(launches=launched[2]["decode"], max_abs_err=err,
+                ms=row["decode_ms_per_step_b1"],
+                plain_ms=row["scan_ms_per_step_b1"], bound_ms=bound,
+                bound_by=by, ms_b64=row["decode_ms_per_step_b64"],
+                scan_ms_b64=row["scan_ms_per_step_b64"])
+
+
+def cuda_ms_unsynced(fn) -> float:
+    """CUDA-event ms of ``fn`` queued now, without a synchronize first
+    (so that work queued behind a spin is timed from the spin's end)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def phase_lc_train(gpu):
@@ -3359,8 +3526,7 @@ def phase_carry_stacks(cfgs, params, rng, gpu):
         B, T = args[0].shape[:2]
         dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
                              device="cuda")
-        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                             device="cuda")
+        dz = randn_cuda(rng, B, T, L * D)
         w_fg, wd, _, bd = args[1:]
         y1, fg1 = fs1.fused_stack_forward(*args, c)
         y2, fg2, z2 = fs2.fused_stack2_forward(*args, c)
@@ -3473,8 +3639,7 @@ def phase_carry_bf16(cfgs, params, rng, gpu):
         w_fg, wd, _, bd = args[1:]
         dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"),
                              device="cuda")
-        dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                             device="cuda").to(torch.bfloat16)
+        dz = randn_cuda(rng, B, T, L * D).to(torch.bfloat16)
         dz32 = dz.float()
         yp, fgp, zp = out_p = fs2.fused_stack2_forward_reference(*args, c16)
         out32 = fs2.fused_stack2_forward_reference(*args, c)
@@ -3676,6 +3841,335 @@ def phase_carry_train(c, params, rng, gpu):
         for d in ("float32", "bfloat16")}
 
 
+def v1_stack_check(name, c32, B, samples, kernel, rng, gpu):
+    """The retired v1 stack at the ``name`` config (where the carry kernel
+    is not built) on the kernel 5 kernel its route takes (``kernel``), at
+    the train shape B x (receptive field + ``samples`` - 1), in each mode:
+    v1's forward (y, fg) and backward against v1's plain versions on the
+    same inputs (f32 within phase 5's tolerances and slices; bf16 on the
+    scale of bf16's distance from the plain float32 versions), bitwise
+    equal to kernel 5's own launches on those inputs, repeats bitwise
+    equal; each direction timed beside v1's bound (no z record written)
+    and the plain version's time. One ``v1_stack`` row; returns {(mode,
+    kind): the kernels line's numbers}."""
+    import dataclasses
+    import torch
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.utils.flops import (H100_BF16_FLOPS,
+                                           H100_TF32X3_FLOPS, bound_ms,
+                                           fused_stack_cost)
+
+    t0 = time.perf_counter()
+    c16 = dataclasses.replace(c32, compute_dtype="bfloat16")
+    cfg = {"f32": c32, "bf16": c16}
+    peak = {"f32": H100_TF32X3_FLOPS, "bf16": H100_BF16_FLOPS}
+    L, R, D = c32.num_layers, c32.residual_channels, c32.dilation_channels
+    check(all(fs1.v1_kernel_plan(c) == kernel for c in cfg.values()),
+          f"v1's route does not send {name} to {kernel}")
+    args = stack_inputs(c32, seeded_params(c32, 6, "cuda"), rng, B, samples)
+    T = args[0].shape[1]
+    w_fg, wd, _, bd = args[1:]
+    # dz in bf16's values, so that the float32 gradients are the bf16
+    # gradients' yardstick on the same cotangent.
+    dy = randn_cuda(rng, B, T, R)
+    dz = randn_cuda(rng, B, T, L * D).to(torch.bfloat16).float()
+    row = {"phase": "v1_stack", "config": name, "kernel": kernel,
+           "batch": B, "positions": T, "layers": L, "gpu": gpu}
+    ref32 = {}
+    results = {}
+    for m, c in cfg.items():
+        y_p, fg_p = fs1.fused_stack_forward_reference(*args, c)
+        g_p = fs1.fused_stack_backward_reference(y_p, fg_p, dz, dy, w_fg, wd,
+                                                 bd, c)
+        out = [fs1.fused_stack_forward(*args, c) for _ in range(2)]
+        g = [fs1.fused_stack_backward(y_p, fg_p, dz, dy, w_fg, wd, bd, c)
+             for _ in range(2)]
+        torch.cuda.synchronize()
+        err = {}
+        if m == "f32":
+            err["fwd"] = max(hold(row, f"{n}_f32", a, b, FWD_RTOL, FWD_ATOL)
+                             for n, a, b in zip(("y", "fg"), out[0],
+                                                (y_p, fg_p)))
+            err["bwd"] = max(
+                hold(row, f"{n}_f32", a.reshape(b.shape), b, GRAD_RTOL,
+                     GRAD_ATOL, lead)
+                for n, a, b, lead in zip(GRAD_NAMES, g[0], g_p, GRAD_LEADS))
+            ref32 = {"fwd": (y_p, fg_p), "bwd": g_p}
+        else:
+            err["fwd"] = max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                             zip(("y", "fg"), out[0], (y_p, fg_p),
+                                 ref32["fwd"]))
+            err["bwd"] = max(hold_bf16(row, n, a, b, r) for n, a, b, r in
+                             zip(GRAD_NAMES, g[0], g_p, ref32["bwd"]))
+        y5, fg5, _ = fs.forward(*args, c, kernel=kernel)
+        g5 = fs.backward(y_p, dy, fg_p, dz, w_fg, wd, bd, c, kernel=kernel)
+        torch.cuda.synchronize()
+        check(torch.equal(out[0][0], y5) and torch.equal(out[0][1], fg5)
+              and all(torch.equal(a.reshape(b.shape), b)
+                      for a, b in zip(g[0], g5)),
+              f"{name} v1 {m}: outputs differ from kernel 5's {kernel}")
+        check(all(torch.equal(a, b) for a, b in zip(*out))
+              and all(torch.equal(a, b) for a, b in zip(*g)),
+              f"{name} v1 {m}: two calls on the same inputs differ")
+        del out, g, g5, y5, fg5
+        calls = {"fwd": lambda: fs1.fused_stack_forward(*args, c),
+                 "bwd": lambda: fs1.fused_stack_backward(
+                     y_p, fg_p, dz, dy, w_fg, wd, bd, c)}
+        plain = {"fwd": lambda: fs1.fused_stack_forward_reference(*args, c),
+                 "bwd": lambda: fs1.fused_stack_backward_reference(
+                     y_p, fg_p, dz, dy, w_fg, wd, bd, c)}
+        for kind in ("fwd", "bwd"):
+            t = median_cuda_ms(calls[kind], reps=3)
+            t_p = median_cuda_ms(plain[kind], reps=3)
+            flops, nbytes = fused_stack_cost(c, B, T, backward=kind == "bwd",
+                                             emit_z=False)
+            bound, by = bound_ms(flops, nbytes, peak[m])
+            row.update({f"{kind}_ms_{m}": t, f"{kind}_plain_ms_{m}": t_p,
+                        f"{kind}_bound_ms_{m}": bound,
+                        f"{kind}_bound_by_{m}": by})
+            results[m, kind] = dict(
+                config=name, batch=B, positions=T, ms=t, bound_ms=bound,
+                bound_by=by, max_abs_err=err[kind], plain_ms=t_p)
+        del y_p, fg_p, g_p
+        torch.cuda.empty_cache()
+    row.update({"bitwise_kernel5": True, "bitwise_repeat": True,
+                "seconds": time.perf_counter() - t0})
+    emit(row)
+    del args, dy, dz, ref32
+    torch.cuda.empty_cache()
+    return results
+
+
+def v1_batches(c, rng, B: int, samples: int, n_steps: int):
+    """``n_steps`` batches of B rows of seeded sines plus noise, rf +
+    ``samples`` long, and GC ids (None without GC)."""
+    import torch
+    n = c.receptive_field + samples
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / c.sample_rate
+    out = []
+    for _ in range(n_steps):
+        freqs = torch.as_tensor(rng.uniform(100, 400, (B, 1)).astype(
+            "float32"), device="cuda")
+        noise = torch.as_tensor(rng.randn(B, n).astype("float32"),
+                                device="cuda")
+        ids = (torch.as_tensor(rng.randint(0, c.gc_cardinality, (B,)),
+                               device="cuda") if c.gc_enabled else None)
+        out.append((0.5 * torch.sin(2 * 3.14159265 * freqs * t)
+                    + 0.05 * noise, ids))
+    return out
+
+
+def phase_v1_train(rng, gpu):
+    """Phase 7 (e), the main path of v1 at full width: at each of
+    V1_CASES, V1_STEPS Adam steps through ``train_lib.make_train_step``
+    with ``pallas_stack_version`` 1 and 3, from the same params and
+    batches, at float32 and at bf16; each v1 run's losses against v3's by
+    ``phase_carry_train``'s rules (finite, and the last below the first;
+    f32: the first within 1e-5 and every step within 1e-4 relative; bf16:
+    every step within bf16's own gap, the largest distance of v3's bf16
+    losses from its float32 ones), every v1 stack call on its route's
+    kernel (``launches_by`` "v1_<kernel>[_bf16]", counted from 0) and none
+    counted on kernel 5's wrappers; the middle step timed. Returns
+    {(config, mode): {"fwd": launches, "bwd": launches}}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.experiments import fused_stack as fs1
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.models.config import sharded_config, wide_config
+
+    cfgs = {"wide": wide_config(), "sharded": sharded_config()}
+    wrappers = (fs1.fused_stack_forward, fs1.fused_stack_backward,
+                fs.forward, fs.backward)
+    out = {}
+    for name, B, samples, kernel in V1_CASES:
+        c = cfgs[name]
+        params = seeded_params(c, 7, "cuda")
+        batches = v1_batches(c, rng, B, samples, V1_STEPS)
+        losses, times = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            for version in (3, 1):
+                cfg = dataclasses.replace(c, use_pallas_stack=True,
+                                          pallas_stack_version=version,
+                                          compute_dtype=dtype)
+                state = tl.train_state_from_params(
+                    params, tl.make_optimizer("adam", 1e-3))
+                step = tl.make_train_step(cfg)
+                for w in wrappers:
+                    w.launches = 0                 # the main path starts
+                    w.launches_by.clear()
+                run = (dtype, version)
+                losses[run], times[run] = [], []
+                for audio, ids in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, audio, ids)
+                    losses[run].append(m["loss"].item())
+                    times[run].append(1e3 * (time.perf_counter() - t0))
+                del state, step
+                torch.cuda.empty_cache()
+                n1 = [dict(w.launches_by) for w in wrappers[:2]]
+                n3 = [w.launches for w in wrappers[2:]]
+                if version == 1:
+                    key = fs.launch_key(f"v1_{kernel}", cfg)
+                    check(n1 == [{key: V1_STEPS}] * 2 and n3 == [0, 0],
+                          f"{name} {dtype} v1: stack launches {n1}, kernel "
+                          f"5 counted {n3}; expected {V1_STEPS} {key} "
+                          "each way")
+                    out[name, "bf16" if dtype == "bfloat16" else "f32"] = {
+                        "fwd": n1[0][key], "bwd": n1[1][key]}
+                else:
+                    check(n3 == [V1_STEPS] * 2, f"{name} {dtype} v3: "
+                          f"kernel 5 launches {n3}")
+        got, want = losses[("float32", 1)], losses[("float32", 3)]
+        check(all(np.isfinite(got)), f"{name} v1: non-finite loss {got}")
+        check(got[-1] < got[0], f"{name} v1: loss did not fall: {got}")
+        check(abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
+              and all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, want)),
+              f"{name} v1: losses {got} against version 3's {want}")
+        l16_3 = losses[("bfloat16", 3)]
+        gap = max(abs(a - b) for a, b in zip(l16_3, want))
+        got16 = losses[("bfloat16", 1)]
+        dist = max(abs(a - b) for a, b in zip(got16, l16_3))
+        check(all(np.isfinite(got16)), f"{name} bf16 v1: non-finite loss "
+              f"{got16}")
+        check(got16[-1] < got16[0], f"{name} bf16 v1: loss did not fall: "
+              f"{got16}")
+        check(dist <= gap, f"{name} bf16 v1: losses {got16} lie {dist} from "
+              f"version 3's bf16 losses {l16_3}, beyond bf16's own gap "
+              f"{gap} (version 3 at float32: {want})")
+        tag = {"float32": "", "bfloat16": "_bf16"}
+        emit({"phase": "v1_train", "config": name, "batch": B,
+              "audio_samples": c.receptive_field + samples,
+              "kernel": kernel,
+              "losses": {f"v{v}{tag[d]}": losses[(d, v)] for d, v in losses},
+              "step_ms": {f"v{v}{tag[d]}": times[(d, v)] for d, v in times},
+              "middle_step_ms": {f"v{v}{tag[d]}": times[(d, v)][1]
+                                 for d, v in times},
+              "bf16_gap_of_v3": gap, "bf16_loss_distance_v1_from_v3": dist,
+              "launches": {f"{k}_{m}": v for (n_, m), r in out.items()
+                           if n_ == name for k, v in r.items()},
+              "gpu": gpu})
+        del params, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dilated_layer_wide(c, rng, gpu):
+    """Phase 7 (c) at the widths the layer kernel is not built for: kernel
+    8 on ``fused_stack_tiled``'s layer entries at each of LAYER_WIDE, at
+    the gc config's train shape (b8 x receptive field + 16,000 - 1),
+    dilation LAYER_WIDE_DILATION, in each mode: forward and backward
+    against the plain versions (bf16 by the layer's rule, on bf16's gap
+    from the plain float32 versions), repeats bitwise equal, timed in
+    turns (f32, bf16, bf16, f32) beside the plain versions and the bounds;
+    then the op (``fused_dilated_layer`` under autograd) once a mode, its
+    launches counted from 0. Returns {(R, D, mode, kind): the kernels
+    line's numbers}."""
+    import numpy as np
+    import torch
+    from wavenet_torch.experiments import dilated_layer as dl
+    from wavenet_torch.utils.flops import (H100_BF16_FLOPS,
+                                           H100_TF32X3_FLOPS, bound_ms,
+                                           dilated_layer_cost)
+
+    B, T, d = TRAIN_BATCH, c.receptive_field + TRAIN_SAMPLES - 1, \
+        LAYER_WIDE_DILATION
+    modes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    peak = {"f32": H100_TF32X3_FLOPS, "bf16": H100_BF16_FLOPS}
+    names = ("y", "z", "dx_local", "dpast", "dw", "dwd", "dadd", "dbd")
+    out = {}
+    for R, D in LAYER_WIDE:
+        check(dl.layer_kernel_plan(R, D) == "tiled",
+              f"the layer route does not send ({R}, {D}) to the tiled "
+              "kernel")
+
+        def rn(*shape, scale=1.0):
+            return randn_cuda(rng, *shape) * scale
+
+        ws = lambda fan: 0.3 * min(1.0, (32 / fan) ** 0.5)  # noqa: E731
+        lay = (rn(B, T, R, scale=0.5), rn(2, R, 2 * D, scale=ws(R)),
+               rn(D, R, scale=ws(D)), rn(B, 2 * D, scale=0.1),
+               rn(1, R, scale=0.1))
+        dy, dz = rn(B, T, R), rn(B, T, D)
+        row = {"phase": "dilated_layer_wide", "config": f"gc r{R} d{D}",
+               "batch": B, "positions": T, "dilation": d, "gpu": gpu}
+        refs = {}
+        worst = {}
+        for m, cd in modes.items():
+            yz = [dl.forward(*lay, d, cd) for _ in range(2)]
+            g = [dl.backward(*lay[:4], dy, dz, d, cd) for _ in range(2)]
+            refs[m] = (dl.fused_dilated_layer_reference(
+                *lay, d, compute_dtype=cd)
+                + dl.fused_dilated_layer_backward_reference(
+                    *lay[:4], dy, dz, d, compute_dtype=cd))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*yz))
+                  and all(torch.equal(a, b) for a, b in zip(*g)),
+                  f"dilated_layer ({R}, {D}) {m}: two calls differ")
+            got = tuple(yz[0]) + tuple(g[0])
+            if m == "f32":
+                errs = [hold(row, n, a, b, FWD_RTOL if i < 2 else GRAD_RTOL,
+                             FWD_ATOL if i < 2 else GRAD_ATOL)
+                        for i, (n, a, b) in enumerate(zip(names, got,
+                                                          refs[m]))]
+            else:
+                hrow = {"config": row["config"]}
+                errs = [hold_bf16(hrow, n, a, b, r) for n, a, b, r in
+                        zip(names, got, refs[m], refs["f32"])]
+                row.update({f"{k}_bf16": v for k, v in hrow.items()
+                            if k != "config"})
+            worst[m, "fwd"], worst[m, "bwd"] = max(errs[:2]), max(errs[2:])
+            del yz, g
+        row["bitwise_repeat"] = True
+        for kind in ("fwd", "bwd"):
+            t = {m: [] for m in modes}
+            for m in ("f32", "bf16", "bf16", "f32"):
+                cd = modes[m]
+                fn = ((lambda: dl.forward(*lay, d, cd)) if kind == "fwd" else
+                      (lambda: dl.backward(*lay[:4], dy, dz, d, cd)))
+                t[m].append(median_cuda_ms(fn, reps=3))
+            flops, nbytes = dilated_layer_cost(R, D, B, T,
+                                               backward=kind == "bwd")
+            for m, cd in modes.items():
+                tp = median_cuda_ms(
+                    (lambda: dl.fused_dilated_layer_reference(
+                        *lay, d, compute_dtype=cd)) if kind == "fwd" else
+                    (lambda: dl.fused_dilated_layer_backward_reference(
+                        *lay[:4], dy, dz, d, compute_dtype=cd)), reps=3)
+                bound, by = bound_ms(flops, nbytes, peak[m])
+                ms = float(np.mean(t[m]))
+                row.update({f"{kind}_ms_{m}": ms, f"{kind}_plain_ms_{m}": tp,
+                            f"{kind}_bound_ms_{m}": bound,
+                            f"{kind}_bound_by_{m}": by})
+                out[R, D, m, kind] = dict(max_abs_err=worst[m, kind], ms=ms,
+                                          plain_ms=tp, bound_ms=bound,
+                                          bound_by=by)
+        for m, cd in modes.items():
+            dl.forward.launches = dl.backward.launches = 0   # the main path
+            dl.forward.launches_by.clear()
+            dl.backward.launches_by.clear()
+            leaves = [t.clone().requires_grad_(True) for t in lay]
+            y, z = dl.fused_dilated_layer(*leaves, d, compute_dtype=cd)
+            ((y * dy).sum() + (z * dz).sum()).backward()
+            torch.cuda.synchronize()
+            by = {"fwd": dict(dl.forward.launches_by),
+                  "bwd": dict(dl.backward.launches_by)}
+            want = {f"tiled_{m}": 1}
+            check(by == {"fwd": want, "bwd": want},
+                  f"dilated_layer ({R}, {D}) {m} op launched {by}")
+            row[f"op_launches_{m}"] = by
+            for kind in ("fwd", "bwd"):
+                out[R, D, m, kind]["launches"] = by[kind][f"tiled_{m}"]
+            del leaves, y, z
+        emit(row)
+        del lay, dy, dz, refs
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dilated_layer(c, params, rng, gpu):
     """Phase 7 (c): kernel 8 in each mode (3xTF32, or one bf16 pass a
     product) at each distinct dilation against its plain versions (bf16:
@@ -3699,8 +4193,7 @@ def phase_dilated_layer(c, params, rng, gpu):
     x, w_fg, wd, add, bd = stack_inputs(c, params, rng)
     B, T = x.shape[:2]
     dy = torch.as_tensor(rng.randn(B, T, R).astype("float32"), device="cuda")
-    dz = torch.as_tensor(rng.randn(B, T, L * D).astype("float32"),
-                         device="cuda")
+    dz = randn_cuda(rng, B, T, L * D)
     row = {"phase": "dilated_layer", "config": "gc", "batch": B,
            "positions": T, "gpu": gpu}
     modes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -4888,7 +5381,7 @@ def main() -> int:
     import numpy as np
     from wavenet_torch.kernels import _build
     from wavenet_torch.models.config import (
-        gc_config, paper_config, tiny_config, wide_config)
+        gc_config, paper_config, sharded_config, tiny_config, wide_config)
 
     # Phase 1: device and build (one nvcc per source, all at once).
     t_start = time.perf_counter()
@@ -4954,10 +5447,11 @@ def main() -> int:
           "script_seconds": time.perf_counter() - t_start})
 
     # Phase 5r: kernel 5 at R != D on fused_stack_tiled (ragged tiles),
-    # and the sharded config's generation on the scan sampler.
+    # and the sharded config's generation on sampler_decode, timed beside
+    # the scan sampler.
     t5r = time.perf_counter()
     ragged, ragged_launches = phase_stack_ragged(gen_cfgs["wide"], rng, gpu)
-    phase_sharded_generation(gpu)
+    sharded_gen = phase_sharded_generation(gpu)
     emit({"phase": "ragged_training", "seconds": time.perf_counter() - t5r,
           "script_seconds": time.perf_counter() - t_start})
 
@@ -5005,6 +5499,18 @@ def main() -> int:
     carry_bf16 = phase_carry_bf16(cfgs, params, rng, gpu)
     carry_launches = phase_carry_train(cfgs["gc"], params["gc"], rng, gpu)
     layer = phase_dilated_layer(cfgs["gc"], params["gc"], rng, gpu)
+    layer_wide = phase_dilated_layer_wide(cfgs["gc"], rng, gpu)
+    # Phase 7 (e): the retired v1 stack at full width.
+    t7e = time.perf_counter()
+    v1 = {}
+    for name, B, samples, kernel in V1_CASES:
+        c = gen_cfgs["wide"] if name == "wide" else sharded_config()
+        for (m, kind), v in v1_stack_check(name, c, B, samples, kernel,
+                                           rng, gpu).items():
+            v1[name, m, kind] = v
+    v1_launches = phase_v1_train(rng, gpu)
+    emit({"phase": "v1_full_width", "seconds": time.perf_counter() - t7e,
+          "script_seconds": time.perf_counter() - t_start})
     emit({"phase": "retired_stacks", "seconds": time.perf_counter() - t7,
           "script_seconds": time.perf_counter() - t_start})
 
@@ -5432,6 +5938,76 @@ def main() -> int:
                             "launches_on": "30-call fused_dilated_layer "
                                            "stack at bf16, phase 7 (c)"})
             kernels.append(row)
+    # Kernel 8 at the widths the layer kernel lacks (phase 7 (c)), on
+    # fused_stack_tiled's layer entries: the (256, 256) numbers, the other
+    # widths' beside them; launches those of the op's call in each mode.
+    for mode in ("f32", "bf16"):
+        for kind, line in (("fwd", 68), ("bwd", 82)):
+            m = layer_wide[256, 256, mode, kind]
+            row = {
+                "name": f"dilated_layer_tiled_{mode}_{kind}",
+                "route": "cuda",
+                "source": "wavenet_torch/csrc/fused_stack_tiled.cu",
+                "replaces": f"wavenet_tpu/experiments/dilated_layer.py:{line}",
+                "config": "gc length, R = D = 256", "batch": TRAIN_BATCH,
+                "mode": mode, "launches": m["launches"],
+                "launches_on": "fused_dilated_layer under autograd, phase "
+                               "7 (c)",
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": None,
+                "unit": "per call (one layer)", "gpu": gpu}
+            for R, D in LAYER_WIDE[:-1]:
+                w = layer_wide[R, D, mode, kind]
+                row.update({f"{k}_r{R}_d{D}": w[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "max_abs_err",
+                    "launches")})
+            kernels.append(row)
+    # The retired v1 stack where the carry kernel is not built (phase 7
+    # (e)): kernel 5's mma kernel at wide b8 and the tiled kernel's v1
+    # entries (no z record) at sharded b1, in each mode: max_abs_err
+    # against v1's plain versions, plain_ms theirs, ms and the bound v1's
+    # own, on the same inputs (v1_stack_check); launches those of the v1
+    # train steps. library_ms is null, as for kernel 5's.
+    for name, B, samples, kernel in V1_CASES:
+        for mode in ("f32", "bf16"):
+            for kind, line in (("fwd", 69), ("bwd", 170)):
+                m = v1[name, mode, kind]
+                kernels.append({
+                    "name": f"v1_{kernel}_{mode}_{kind}", "route": "cuda",
+                    "source": ("wavenet_torch/csrc/fused_stack_mma.cu"
+                               if kernel == "mma" else
+                               "wavenet_torch/csrc/fused_stack_tiled.cu"),
+                    "replaces":
+                        f"wavenet_tpu/experiments/fused_stack.py:{line}",
+                    "config": name, "batch": B, "positions": m["positions"],
+                    "mode": mode,
+                    "launches": v1_launches[name, mode][kind],
+                    "launches_on": f"make_train_step v1, {name}, phase 7 "
+                                   "(e)",
+                    "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": m["bound_by"], "library_ms": None,
+                    "unit": "per call (one train step's stack)",
+                    "gpu": gpu})
+    # sampler_decode at the sharded config (phase 5r): the step at b1 and
+    # b64 beside the scan sampler's (plain_ms: the scan sampler, the route
+    # it replaced there); launches those of the generate CLI's run.
+    kernels.append({
+        "name": "sampler_decode_sharded", "route": "cuda",
+        "source": "wavenet_torch/csrc/sampler_decode.cu",
+        "replaces": "wavenet_tpu/kernels/sampler.py:234",
+        "config": "sharded", "batch": 1,
+        "launches": sharded_gen["launches"],
+        "launches_on": "generate CLI, sharded b1, phase 5r",
+        "max_abs_err": sharded_gen["max_abs_err"], "ms": sharded_gen["ms"],
+        "plain_ms": sharded_gen["plain_ms"],
+        "plain_is": "the scan sampler's step",
+        "bound_ms": sharded_gen["bound_ms"],
+        "bound_by": sharded_gen["bound_by"],
+        "ms_b64": sharded_gen["ms_b64"],
+        "plain_ms_b64": sharded_gen["scan_ms_b64"], "library_ms": None,
+        "unit": "per decode step", "gpu": gpu})
     # The probes (phase 8): one row per probe kernel, the other variants
     # on the phase's "probe" lines. library_ms is null: no single PyTorch
     # call computes a gated layer stack, a decode step or a dependent

@@ -265,17 +265,21 @@ def test_scalar_resumable_segments_equal_one_run(setup, B):
 
 
 @pytest.mark.gpu
-def test_sharded_generation_runs_scan(setup, tmp_path, capsys):
-    """At the sharded config (80 layers, R = D = 256) the JAX ladder
-    offers no Pallas rung, so the generate CLI and the server run the scan
-    sampler, name it, and launch no decode kernel."""
+def test_sharded_generation_runs_sampler_decode(setup, tmp_path, capsys):
+    """At the sharded config (80 layers, R = D = 256), where the JAX
+    ladder's TPU VMEM budget offers no Pallas rung, the port routes by its
+    own kernels: the generate CLI and the server run ``sampler_decode``,
+    name it, and launch it once a request (counted by ``decode``)."""
     import json
+    from wavenet_torch import sampler_select
     from wavenet_torch import train_lib as tl
     from wavenet_torch.cli import generate as cli
     from wavenet_torch.models.config import sharded_config
     from wavenet_torch.params import save_npz
     from wavenet_torch.serve import GenerationService
     c = sharded_config()
+    assert ks.device_decode_route(c, 1) == "decode"
+    assert sampler_select.decode_offered(c, 1, "cuda")
     params = init_params(0, c, device="cpu")
     logdir = str(tmp_path / "logdir")
     tl.save_checkpoint(logdir, tl.train_state_from_params(
@@ -285,19 +289,121 @@ def test_sharded_generation_runs_scan(setup, tmp_path, capsys):
     npz = str(tmp_path / "sharded.npz")
     save_npz(npz, params)
     before = (ks.decode.launches, ks.decode_sequential.launches,
-              dict(ks.decode.launches_by))
+              ks.decode.launches_by["decode"])
     assert cli.main([logdir, "--wavenet_params", str(pfile), "--samples",
                      "16", "--wav_out_path", str(tmp_path / "out.wav"),
                      "--device", "cuda"]) == 0
-    assert "Using scan sampler." in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "Using CUDA (prefill + " in out and "scan" not in out
     service = GenerationService(npz, str(pfile), warm_samples=0,
                                 device="cuda")
-    assert service.sampler_name == "scan"
+    assert "CUDA" in service.sampler_name
     wave = service.generate(16, seed=2)
     assert wave.shape == (16,) and np.isfinite(wave).all()
-    assert service.sampler_name == "scan"
+    assert "CUDA" in service.sampler_name
     assert (ks.decode.launches, ks.decode_sequential.launches,
-            dict(ks.decode.launches_by)) == before
+            ks.decode.launches_by["decode"]) == (before[0] + 2, before[1],
+                                                 before[2] + 2)
+
+
+def _sharded_decode_case(B, seed=0):
+    """(config, params, packed, prefilled carry, 65 teacher-forced inputs)
+    at the sharded widths (R = D = 256, S = 512) with 4 layers."""
+    from wavenet_torch.models.config import sharded_config
+    c = sharded_config(dilations=(1, 2, 4, 8))
+    params = _seeded_params(c, seed)
+    rng = np.random.RandomState(seed + B)
+    x = torch.as_tensor(rng.randint(0, c.quantization_channels, (B, 135)),
+                        dtype=torch.int32, device="cuda")
+    carry = ks.prefill_carry(params, c, x[:, :70], None)
+    packed = ks.pack_sampler_weights(params, c, B, None)
+    return c, params, packed, carry, x[:, 69:].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_sampler_decode_holds_the_sharded_width(setup, B, bf16):
+    """``sampler_decode`` at the sharded widths (R = D = 256, S = 512; 4
+    layers), the kernel the route gives that config at every batch,
+    teacher-forced for 64 steps against ``decode_reference``: float32
+    weights at TOL, bf16 weights one step a launch by ``bf16_hold`` (at b3,
+    where the chain is rounded, as far as the plain version lies from
+    itself stepped on the CPU: ``hold_as_plain``)."""
+    c, params, packed, carry, forced = _sharded_decode_case(B)
+    assert ks.device_decode_route(c, B) == "decode"
+    forced = forced[:, :64].contiguous()
+    if not bf16:
+        rk, ck = carry.ring.clone(), carry.causal.clone()
+        rr, cr = carry.ring.clone(), carry.causal.clone()
+        before = ks.decode.launches_by["decode"]
+        kk, lk = ks.decode(packed, c, rk, ck, forced, 64, carry.t_abs, 3,
+                           collect_logits=True)
+        kr, lr = ks.decode_reference(packed, c, rr, cr, forced, 64,
+                                     carry.t_abs, 3, collect_logits=True)
+        torch.cuda.synchronize()
+        assert ks.decode.launches_by["decode"] == before + 1
+        torch.testing.assert_close(lk, lr, **TOL)
+        torch.testing.assert_close(rk, rr, **TOL)
+        assert torch.equal(ck, cr)
+        assert torch.equal(kk[:, :-1], forced[:, 1:])
+        return
+    pk16 = packed._replace(**{k: getattr(packed, k).to(torch.bfloat16)
+                              for k in ks.WEIGHT_FIELDS})
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    before = ks.decode.launches_by["decode_bf16"]
+    _, lk = ks.decode(pk16, c, rk, ck, forced, 64, carry.t_abs, 3,
+                      collect_logits=True)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by["decode_bf16"] == before + 1
+
+    def step(ring, causal, x, t):
+        return ks.decode(pk16, c, ring, causal, x, 1, t, 3,
+                         collect_logits=True)[1]
+
+    rc = ks.chain_rounded("decode", B)
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    if not rc:      # b1: the chain float32, the tight rule
+        lg = _bf16_stepwise(f"sharded B={B}", c, pk16, packed, ring, causal,
+                            forced, carry.t_abs, 3, rc, step)
+        assert torch.equal(lg, lk) and torch.equal(ring, rk)
+        return
+    # The chain rounded at every layer: held as far as the plain version
+    # lies from itself summed on the CPU (bf16_hold's docstring).
+    got = bf16_hold.stepwise(c, pk16, packed, ring, causal, forced,
+                             carry.t_abs, 3, rc, step)
+    assert torch.equal(got[0], lk) and torch.equal(ring, rk)
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    cpu = bf16_hold.stepwise(c, pk16, packed, ring, causal, forced,
+                             carry.t_abs, 3, rc,
+                             bf16_hold.cpu_launch(c, pk16, 3, rc))
+    torch.cuda.synchronize()
+    for i in (0, 3):
+        bf16_hold.hold_as_plain(f"sharded B={B} {i}",
+                                bf16_hold.ratios(*got[i:i + 3]),
+                                bf16_hold.ratios(*cpu[i:i + 3]))
+
+
+@pytest.mark.gpu
+def test_decode_smem_bytes_match_library(setup):
+    """``decode_smem_bytes`` (the route's copy) against the library's
+    ``sampler_decode_smem_bytes`` at every config of the repo, LC too, at
+    each rows-a-block the kernel takes."""
+    from wavenet_torch.kernels import _build
+    from wavenet_torch.models import config as mc
+    lib = _build.load("sampler_decode")
+    ks._bind(lib)
+    cfgs = [getattr(mc, n)() for n in ("tiny_config", "paper_config",
+                                       "gc_config", "wide_config",
+                                       "sharded_config")]
+    cfgs.append(mc.paper_config(lc_channels=80))
+    for c in cfgs:
+        for rb in (1, 2, 4, 8):
+            assert lib.sampler_decode_smem_bytes(
+                c.num_layers, c.residual_channels, c.dilation_channels,
+                c.skip_channels, c.quantization_channels, ks.causal_width(c),
+                c.lc_channels if c.lc_enabled else 0, rb) == (
+                    ks.decode_smem_bytes(c, rb)), (c, rb)
 
 
 # Fused stack: another summation order; gradients also rebuild each
@@ -1346,6 +1452,7 @@ def test_new_wrappers_reject_bad_inputs(setup, wrapper):
                 if wrapper == "layer_fwd" else
                 (lambda x_: dl.backward(x_, w, wd, add, dy, dz, 3)))
         lead = x
+        # R = 8, D = 16: the route runs it on the tiled layer entries.
         wide = lambda: dl.forward(x, torch.zeros((2, 8, 32), device="cuda"),
                                   torch.zeros((16, 8), device="cuda"),
                                   torch.zeros((2, 32), device="cuda"), bd, 3)
@@ -1357,13 +1464,21 @@ def test_new_wrappers_reject_bad_inputs(setup, wrapper):
         odd = WaveNetConfig(dilations=(1, 2), residual_channels=8,
                             dilation_channels=16, skip_channels=16,
                             quantization_channels=32)
-        wide = lambda: fs1.fused_stack_forward(*args, odd)
+        # v1's route runs R != D on kernel 5's kernels; the carry kernel
+        # pinned refuses it.
+        wide = lambda: fs1.fused_stack_forward(*args, odd, kernel="carry")
     with pytest.raises(ValueError, match="float32"):
         call(lead.double())
     with pytest.raises(ValueError, match="contiguous"):
         call(lead.transpose(0, 1).contiguous().transpose(0, 1))
-    with pytest.raises(NotImplementedError, match="R == D"):
-        wide()
+    if wrapper.startswith("layer"):
+        n = dl.forward.launches_by["tiled_f32"]
+        y, z = wide()
+        assert y.shape == x.shape and z.shape == x.shape[:2] + (16,)
+        assert dl.forward.launches_by["tiled_f32"] == n + 1
+    else:
+        with pytest.raises(NotImplementedError, match="R == D"):
+            wide()
 
 
 # ---------------------------------------------------------------------------
@@ -3127,3 +3242,196 @@ def test_speculative_on_card_accepts_an_identical_draft(setup):
     ref = ts.prefill_state(pc, c, stream, embed_gc(pc, c, gid.cpu()))
     np.testing.assert_allclose(t_st.layer_bufs.cpu().numpy(),
                                ref.layer_bufs.numpy(), rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The retired v1 stack at every width (kernel 5's kernels behind it where
+# the carry kernel is not built) and kernel 8 at every width (the tiled
+# kernel's layer entries)
+# ---------------------------------------------------------------------------
+
+V1_WIDE_CASES = [
+    (64, (1, 64, 2, 33, 512, 7), 2, 700, True, "mma"),
+    (256, (1, 33, 4, 128), 1, 700, False, "tiled"),
+    ((48, 128), (1, 65, 2), 3, 700, True, "tiled"),
+    ((24, 48), (1, 2, 4), 2, 150, True, "tiled"),     # D 48: no TPU record
+    ((5, 3), (1, 2, 4), 2, 150, False, "tiled"),      # odd, off 8 bytes
+    ((16, 8), (1, 2, 4), 2, 150, True, "tiled"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("W,dilations,B,T,gc,kernel", V1_WIDE_CASES)
+def test_v1_stack_matches_reference_at_every_width(setup, W, dilations, B, T,
+                                                   gc, kernel, bf16):
+    """v1's wrappers where the carry kernel is not built, routed by
+    ``v1_kernel_plan`` to kernel 5's kernels (the tiled kernel's v1
+    entries, with no z record, at every width, the D of 48 and 3 that its
+    TPU records cannot pack included): y, fg and every gradient against
+    the plain versions (bf16 on the gap from float32), counted under
+    ``v1_<kernel>``; y and fg bitwise kernel 5's own launch where kernel 5
+    takes the width; repeats bitwise equal; the op's gradients are the
+    backward's."""
+    c32, c, args, dy, dz = _tiled_case(W, dilations, B, T, gc, bf16)
+    assert fs1.v1_kernel_plan(c) == kernel
+    key = f"v1_{kernel}" + ("_bf16" if bf16 else "")
+    f0 = fs1.fused_stack_forward.launches_by[key]
+    b0 = fs1.fused_stack_backward.launches_by[key]
+    k0 = (fs.forward.launches, fs.backward.launches)
+    out = fs1.fused_stack_forward(*args, c)
+    ref = fs1.fused_stack_forward_reference(*args, c)
+    ref32 = fs1.fused_stack_forward_reference(*args, c32)
+    w_fg, wd, _, bd = args[1:]
+    yr, fgr = ref
+    grads = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c)
+    gref = fs.fused_stack_backward_reference(yr, dy, fgr, dz, w_fg, wd, bd, c)
+    gref32 = fs.fused_stack_backward_reference(ref32[0], dy, ref32[1], dz,
+                                               w_fg, wd, bd, c32)
+    torch.cuda.synchronize()
+    assert fs1.fused_stack_forward.launches_by[key] == f0 + 1
+    assert fs1.fused_stack_backward.launches_by[key] == b0 + 1
+    assert (fs.forward.launches, fs.backward.launches) == k0
+    L, R = c.num_layers, c.residual_channels
+    grads = (grads[0], grads[1].reshape(L, 2 * R, -1)) + tuple(grads[2:])
+    _hold_tiled(out, ref, ref32, grads, gref, gref32, bf16)
+    again = fs1.fused_stack_forward(*args, c)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    again = fs1.fused_stack_backward(yr, fgr, dz, dy, w_fg, wd, bd, c)
+    assert torch.equal(again[1].reshape(L, 2 * R, -1), grads[1])
+    assert all(torch.equal(a, b) for a, b in zip(
+        (grads[0],) + grads[2:], (again[0],) + tuple(again[2:])))
+    if fs._lane_alignable(c.dilation_channels) and fs._lane_alignable(
+            2 * c.dilation_channels):
+        y5, fg5, _ = fs.forward(*args, c, kernel=kernel)
+        assert torch.equal(y5, out[0]) and torch.equal(fg5, out[1])
+
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y, z = fs1.fused_stack(*leaves, c)
+    assert z.dtype == torch.float32
+    (y * dy).sum().add((z * dz).sum()).backward()
+    y1, fg1 = fs1.fused_stack_forward(*args, c)
+    want = fs1.fused_stack_backward(y1, fg1, dz, dy, w_fg, wd, bd, c)
+    want = (want[0], want[1].reshape(L, 2 * R, -1)) + tuple(want[2:])
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.gpu
+def test_v1_stack_pins_and_refusals(setup):
+    """A pinned kernel raises at a width it lacks, with nothing launched:
+    ``kernel="carry"`` at R = D = 64 and at (24, 48); ``kernel="stack"``
+    at R = D = 16 runs kernel 5's simt kernel, "auto" the carry kernel; a
+    kernel name v1 lacks is refused."""
+    n = (fs1.fused_stack_forward.launches, fs1.fused_stack_backward.launches)
+    for W in (64, (24, 48)):
+        c, args, (dy, dz) = _stack_inputs(W, (1, 2), 2, 64)
+        with pytest.raises(NotImplementedError, match="fused_stack_carry"):
+            fs1.fused_stack_forward(*args, c, kernel="carry")
+        y, fg = fs1.fused_stack_forward_reference(*args, c)
+        with pytest.raises(NotImplementedError, match="fused_stack_carry"):
+            fs1.fused_stack_backward(y, fg, dz, dy, args[1], args[2],
+                                     args[4], c, kernel="carry")
+    with pytest.raises(ValueError, match="kernel"):
+        fs1.fused_stack_forward(*args, c, kernel="mma")
+    assert (fs1.fused_stack_forward.launches,
+            fs1.fused_stack_backward.launches) == n
+    c, args, _ = _stack_inputs(16, (1, 2), 2, 64)
+    assert fs1.v1_kernel_plan(c) == "carry"
+    assert fs1.v1_kernel_plan(c, "stack") == "simt"
+    s0 = fs1.fused_stack_forward.launches_by["v1_simt"]
+    c0 = fs1.fused_stack_forward.launches_by["carry"]
+    a = fs1.fused_stack_forward(*args, c, kernel="stack")
+    b = fs1.fused_stack_forward(*args, c)
+    torch.cuda.synchronize()
+    assert fs1.fused_stack_forward.launches_by["v1_simt"] == s0 + 1
+    assert fs1.fused_stack_forward.launches_by["carry"] == c0 + 1
+    for got, want in zip(a, b):
+        torch.testing.assert_close(got, want, **FWD_TOL)
+
+
+def _layer_inputs_rd(R, D, B, T, seed=0):
+    """A layer's inputs and cotangents at widths R, D, the weights shrunk
+    with the fan-in above 32 (as ``_stack_inputs``)."""
+    rng = np.random.RandomState(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale,
+                               device="cuda")
+
+    def ws(fan):
+        return 0.3 * min(1.0, (32 / fan) ** 0.5)
+
+    return ((rn(B, T, R, scale=0.5), rn(2, R, 2 * D, scale=ws(R)),
+             rn(D, R, scale=ws(D)), rn(B, 2 * D, scale=0.1),
+             rn(1, R, scale=0.1)), (rn(B, T, R), rn(B, T, D)))
+
+
+LAYER_WIDE_CASES = [
+    ((64, 64), 4, 2, 700), ((64, 64), 1, 3, 150),
+    ((48, 128), 4, 2, 300), ((16, 8), 1, 2, 150), ((5, 3), 4, 2, 150),
+    ((256, 256), 4, 1, 500), ((256, 256), 300, 2, 300),   # d = T
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("RD,d,B,T", LAYER_WIDE_CASES)
+def test_dilated_layer_tiled_matches_reference(setup, RD, d, B, T, mode):
+    """Kernel 8 on the tiled kernel's layer entries (every width the layer
+    kernel lacks) against the plain versions in each mode (bf16 by the
+    layer's rule: x, dy and dz rounded; held on the gap from float32),
+    counted under ``tiled_<mode>``; the backward bitwise repeatable; the
+    op's gradients are the backward's, dpast shift-added."""
+    R, D = RD
+    (x, w, wd, add, bd), (dy, dz) = _layer_inputs_rd(R, D, B, T)
+    cd = {"f32": torch.float32, "bf16": torch.bfloat16}[mode]
+    key = f"tiled_{mode}"
+    assert dl.layer_kernel_plan(R, D) == "tiled"
+    m0 = dl.forward.launches_by[key], dl.backward.launches_by[key]
+    y, z = dl.forward(x, w, wd, add, bd, d, cd)
+    got = dl.backward(x, w, wd, add, dy, dz, d, cd)
+    again = dl.backward(x, w, wd, add, dy, dz, d, cd)
+    yr, zr = dl.fused_dilated_layer_reference(x, w, wd, add, bd, d,
+                                              compute_dtype=cd)
+    ref = dl.fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz, d,
+                                                    compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert (dl.forward.launches_by[key],
+            dl.backward.launches_by[key]) == (m0[0] + 1, m0[1] + 2)
+    names = ("y", "z", "dx_local", "dpast", "dw", "dwd", "dadd", "dbd")
+    outs, refs = (y, z) + tuple(got), (yr, zr) + tuple(ref)
+    if mode == "f32":
+        for i, (name, g, r) in enumerate(zip(names, outs, refs)):
+            _hold_scaled(g, r, FWD_TOL if i < 2 else GRAD_TOL, 0, name)
+    else:
+        ref32 = dl.fused_dilated_layer_reference(x, w, wd, add, bd, d) + \
+            dl.fused_dilated_layer_backward_reference(x, w, wd, add, dy, dz,
+                                                      d)
+        for name, g, r, r32 in zip(names, outs, refs, ref32):
+            assert g.dtype == torch.float32, name
+            _hold_bf16(g, r, r32, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, wd, add, bd)]
+    yo, zo = dl.fused_dilated_layer(*leaves, d, compute_dtype=cd)
+    (yo * dy).sum().add((zo * dz).sum()).backward()
+    assert torch.equal(yo.detach(), y) and torch.equal(zo.detach(), z)
+    dx = dl._shift_left_add(got[0], got[1], d)
+    for t, g in zip(leaves, (dx,) + tuple(got[2:])):
+        assert torch.equal(t.grad, g)
+
+
+@pytest.mark.gpu
+def test_dilated_layer_route_takes_the_library_widths(setup):
+    """``layer_kernel_plan`` sends to the layer kernel exactly the widths
+    its library is built for (``dilated_layer_supports_width``), every
+    other width to the tiled layer entries, whose library takes it."""
+    lib = dl._lib()
+    tiled = dl._tiled_lib()
+    for R in (1, 3, 4, 8, 16, 24, 32, 48, 64, 128, 256):
+        for D in (1, 3, 4, 8, 16, 32, 64, 128, 256):
+            used = dl.layer_kernel_plan(R, D)
+            assert bool(lib.dilated_layer_supports_width(R, D)) == (
+                used == "layer"), (R, D)
+            if used == "tiled":
+                assert tiled.fused_stack_tiled_layer_scratch_floats(
+                    0, 0, 2, 64, R, D) >= 0, (R, D)

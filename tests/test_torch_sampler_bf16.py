@@ -370,6 +370,47 @@ def test_bf16_hold_catches_one_row_fault(fault_row, rng):
         bf16_hold.hold("fault ring", rk, r16, r32)
 
 
+def test_hold_as_plain_rejects_float32_weights(rng):
+    """``kernels.bf16_hold.hold_as_plain``, the rule of the chain rounded at
+    many wide layers, run here with plain versions standing in for the
+    kernel: float32 weights planted in the bf16 mode lie bf16's whole gap
+    from the plain bf16 version (every ratio 1), and the hold rejects
+    them, even beside a plain version that lies as far from itself; the
+    plain bf16 version itself passes."""
+    from wavenet_torch.kernels import bf16_hold
+    _, tc, _, tp = _pair(SMALL, gc=True)
+    B = 8
+    rc = ts.chain_rounded("decode", B)
+    assert rc
+    gids = torch.as_tensor(rng.randint(0, 4, (B,)))
+    codes = _t(rng.randint(0, 32, (B, tc.receptive_field + 12)), torch.int32)
+    carry = ts.prefill_carry(tp, tc, codes[:, :-11], gids)
+    emb = tw.embed_gc(tp, tc, gids)
+    pk32 = ts.pack_sampler_weights(tp, tc, B, emb)
+    pk16 = ts.pack_sampler_weights(tp, tc, B, emb, weight_dtype=BF16)
+    forced = codes[:, -12:].contiguous()
+
+    def run(pk):
+        def launch(ring, causal, x, t):
+            return ts.decode_reference(pk, tc, ring, causal, x, 1, t, 0,
+                                       collect_logits=True,
+                                       round_chain=rc)[1]
+        got = bf16_hold.stepwise(tc, pk16, pk32, carry.ring.clone(),
+                                 carry.causal.clone(), forced, carry.t_abs,
+                                 0, rc, launch)
+        return bf16_hold.ratios(*got[:3]), bf16_hold.ratios(*got[3:])
+
+    for planted in run(pk32):
+        for k in ("median_ratio", "row_median_ratio", "mean_ratio"):
+            assert planted[k] == pytest.approx(1.0), k
+        for plain in (planted, {k: 0.0 for k in planted}):
+            with pytest.raises(AssertionError, match="past their limits"):
+                bf16_hold.hold_as_plain("planted", planted, plain)
+    for sound in run(pk16):
+        assert sound["max_abs_err"] == 0
+        bf16_hold.hold_as_plain("sound", sound, {k: 0.0 for k in sound})
+
+
 # An H100 SXM: opt-in shared memory per block and resident clusters (those
 # of tests/test_torch_sampler_tiles.py).
 H100_SMEM = 232448

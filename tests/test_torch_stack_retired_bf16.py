@@ -39,6 +39,7 @@ return the bf16 z record), v1's does not (5.2e-5 apart; JAX: 5.1e-5).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +60,7 @@ from wavenet_torch.models.config import WaveNetConfig as TConfig
 from wavenet_torch.params import params_from_numpy
 
 from test_torch_bf16 import BASE, BIAS_GAP_FRACTION, GAP_FRACTION, GC
-from test_torch_stack_bf16 import _bf16_ulp
+from test_torch_stack_bf16 import WIDE_MAX_RATIO, WIDE_MEAN_RATIO, _bf16_ulp
 from test_torch_stack_v1 import B, T, TILE, _setup
 
 torch.set_num_threads(1)
@@ -333,3 +334,73 @@ def test_train_step_bf16_retired_stack(version):
     assert np.all(np.isfinite(losses))
     assert all(v.dtype == torch.float32 for v in state.params.values())
     assert [w.launches for w in wrappers] == before
+
+
+# The wide width (R = D = 64, 4 layers), where v1 runs kernel 5's mma
+# kernel on the card: loss_fn and every gradient against JAX's v1 at
+# float32 (rtol 1e-5 on the loss, the stack's gradient tolerances) and at
+# bf16 by this file's model rule for the loss and the biases, the weights'
+# gradients by test_torch_stack_bf16.py's wide rule (mean error within half
+# the mean gap, the worst within 1.5 of the worst gap). The model rule's
+# head exception (one bf16 ulp) does not hold there: the products sum 128
+# terms, the other float32 order flips bf16 roundings of several fg record
+# values, and the head carries each flip into its gradients by more than
+# one ulp (measured: postprocess2's gradient 0.45 of the worst gap at one
+# point, 0.026 of the mean gap on average; the loss 0.05 of its gap; the
+# other weights within 0.07 of theirs, the biases within 0.99).
+W64 = dict(BASE, dilations=(1, 2, 4, 8), residual_channels=64,
+           dilation_channels=64)
+
+
+@functools.lru_cache(maxsize=None)
+def _w64_run(dtype: str):
+    d = dict(W64, **GC, compute_dtype=dtype, use_pallas_stack=True,
+             pallas_stack_version=1)
+    jc, tc = JConfig(**d), TConfig(**d)
+    jp = {k: np.asarray(v)
+          for k, v in jw.init_params(jax.random.PRNGKey(4), jc).items()}
+    rng = np.random.RandomState(4)
+    for k in sorted(jp):
+        if k.endswith("_bias"):
+            jp[k] = (0.1 * rng.randn(*jp[k].shape)).astype(np.float32)
+    ids = np.array([1, 2])
+    n = MODEL_T + jc.receptive_field
+    audio = (0.5 * np.sin(np.arange(n)[None] * np.array([[0.07], [0.13]]))
+             + 0.05 * rng.randn(2, n)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: jw.loss_fn(p, jc, jnp.asarray(audio), jnp.asarray(ids)),
+            has_aux=True)({k: jnp.asarray(v) for k, v in jp.items()})
+    leaves = {k: v.clone().requires_grad_(True)
+              for k, v in params_from_numpy(jp, "cpu").items()}
+    before = tfs1.fused_stack_forward.launches
+    tloss, _ = tw.loss_fn(leaves, tc, torch.from_numpy(audio),
+                          torch.as_tensor(ids))
+    tloss.backward()
+    assert tfs1.fused_stack_forward.launches == before   # the plain one
+    return (float(loss), {k: np.asarray(v) for k, v in grads.items()},
+            float(tloss.detach()), {k: v.grad.numpy()
+                                    for k, v in leaves.items()})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v1_loss_and_grads_match_jax_at_width_64(dtype):
+    j_loss, j_g, t_loss, t_g = _w64_run(dtype)
+    assert set(t_g) == set(j_g)
+    if dtype == "float32":
+        np.testing.assert_allclose(t_loss, j_loss, rtol=1e-5)
+        for k in sorted(j_g):
+            np.testing.assert_allclose(t_g[k], j_g[k], rtol=2e-4, atol=1e-5,
+                                       err_msg=k)
+        return
+    j32_loss, j32_g = _w64_run("float32")[:2]
+    assert abs(j_loss - j32_loss) > 1e-6 * abs(j32_loss)   # bf16 in play
+    _hold_model(np.float32(t_loss), np.float32(j_loss), np.float32(j32_loss),
+                GAP_FRACTION, "loss")
+    for k in sorted(j_g):
+        if k.endswith("_bias"):
+            _hold_model(t_g[k], j_g[k], j32_g[k], BIAS_GAP_FRACTION, k)
+            continue
+        err, gap = np.abs(t_g[k] - j_g[k]), np.abs(j_g[k] - j32_g[k])
+        assert err.mean() <= WIDE_MEAN_RATIO * gap.mean(), k
+        assert err.max() <= WIDE_MAX_RATIO * gap.max(), k

@@ -11,10 +11,10 @@ port's ``ckpt-STEP/`` (a directory of them, or one of them), read with
 decode kernel on the card (``sampler_cluster``, ``sampler_tiles`` or
 ``sampler_decode``, as ``kernels.sampler.cluster_plan`` and ``tile_plan``
 route; their plain version on the CPU), or the scan sampler with
-``--sampler scan`` and where the JAX ladder offers no kernel (the sharded
-config: ``sampler_select.jax_ladder_offers``). ``--sampler_precision bfloat16`` decodes with bf16
-weights (the bf16 mode of the routed kernel), on the fast and the
-``--save_every`` paths, as the JAX CLI does; the scan and slow paths
+``--sampler scan`` and where no decode kernel can launch
+(``sampler_select.decode_offered``). ``--sampler_precision bfloat16``
+decodes with bf16 weights (the bf16 mode of the routed kernel), on the
+fast and the ``--save_every`` paths, as the JAX CLI does; the scan and slow paths
 ignore it. The params format, as the JAX CLI's, has no
 ``compute_dtype``: the config is float32 whatever the file says (a bf16
 config object generates at float32 through ``generate_with_fallback``,
@@ -342,7 +342,7 @@ def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
                            wavenet_params, lc=None):
     """--save_every: generate in segments, rewriting the partial wav after
     each; resumable decode-kernel segments, or the scan sampler with
-    ``--sampler scan`` and where the JAX ladder offers no kernel
+    ``--sampler scan`` and where no decode kernel can launch
     (``sampler_select.sampler_attempts``). An LC stream is refined once, whole, then sliced
     per segment, so that segment boundaries see their full context."""
     if lc is not None and config.lc_refine_width:
@@ -353,11 +353,8 @@ def _generate_fast_chunked(params, config, args, seed, gc_ids, seed_codes,
             lc = refine_lc(params, config, lc)
     from wavenet_torch.sampler_select import sampler_attempts
 
-    n_forced = (config.receptive_field if seed_codes is None
-                else int(seed_codes.shape[1]))
     if sampler_attempts(config, args.sampler, args.sampler_precision,
-                        batch_size=args.batch_size,
-                        n_total=args.samples + n_forced):
+                        device=args.device, batch_size=args.batch_size):
         return _generate_chunked_pallas(params, config, args, seed, gc_ids,
                                         seed_codes, wavenet_params, lc)
     return _generate_chunked_scan(params, config, args, seed, gc_ids,

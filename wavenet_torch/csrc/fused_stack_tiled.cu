@@ -18,7 +18,14 @@
 //   wavenet_tpu/kernels/fused_stack3.py:276  _bwd_kernel
 // in both of its compute dtypes, beside fused_stack_mma.cu (R = D = 32,
 // 64) and fused_stack.cu (8, 16), whose weights stay resident in shared
-// memory. It computes what they compute: per layer l with dilation d,
+// memory. The same products also serve, at every width R, D >= 1:
+//   wavenet_tpu/experiments/fused_stack.py:69, :170 (the retired v1
+//     stack: the fused_stack_tiled_v1_* entries, no z record) wherever
+//     fused_stack_carry.cu is not built, and
+//   wavenet_tpu/experiments/dilated_layer.py:68, :82 (one gated layer:
+//     the fused_stack_tiled_layer_* entries, below) wherever
+//     dilated_layer.cu is not built.
+// It computes what they compute: per layer l with dilation d,
 //   fg = [x(t-d) | x(t)] @ w_fg[l] + add[l, b]      (x(t-d) = 0 for t < d)
 //   z  = tanh(fg_f) * sigmoid(fg_g)
 //   x' = x + (z @ wd[l] + bd[l])                    (bf16: (x + z @ wd) + bd)
@@ -126,6 +133,7 @@ constexpr int kContractBlocks = 264;
 // Rec: the element of the fg and z records.
 struct F32 {
   static constexpr bool kBf16 = false;
+  static constexpr bool kLayer = false;
   static constexpr int KS = 8;
   using A = Tf32Frag;
   using Bf = uint4;                        // {hi(b0), hi(b1), lo(b0), lo(b1)}
@@ -134,10 +142,23 @@ struct F32 {
 
 struct BF16 {
   static constexpr bool kBf16 = true;
+  static constexpr bool kLayer = false;
   static constexpr int KS = 16;
   using A = Bf16Frag;
   using Bf = uint2;                        // {b0, b1}: bf16 pairs along k
   using Rec = __nv_bfloat16;
+};
+
+// TPU kernel 8, one gated layer (the layer entries below): the products of
+// F32 or BF16, float32 fg and z (the forward writes z alone, the backward's
+// recompute fg alone: a null record is not written), and in bf16 the
+// layer's own rule, which rounds its inputs x, dy and dz to bf16 first.
+struct F32Layer : F32 {
+  static constexpr bool kLayer = true;
+};
+struct BF16Layer : BF16 {
+  static constexpr bool kLayer = true;
+  using Rec = float;
 };
 
 __device__ __forceinline__ float tof(float v) { return v; }
@@ -427,7 +448,7 @@ struct FwdGateOp : RowsOp {
   const float* add;      // add[l] [B][2D]
   Rec* fg;               // the layer's fg record columns, row stride fg_ld
   Rec* z;                // the layer's z record columns, row stride z_ld
-  float* zf;             // bf16: z rounded, as float [B*T, D]
+  float* zf;             // bf16 stack: z rounded, as float [B*T, D]
   int T, R, D, d;
   size_t fg_ld, z_ld;
   __device__ const float* a_src(int m, int k) const {
@@ -447,10 +468,12 @@ struct FwdGateOp : RowsOp {
     for (int c = 0; c < 2; ++c) {
       if (c && !two) break;
       const float zv = tanhf(fv[c]) * sigmoidf(gv[c]);
-      put(fg + (size_t)m * fg_ld + j + c, fv[c]);
-      put(fg + (size_t)m * fg_ld + D + j + c, gv[c]);
-      put(z + (size_t)m * z_ld + j + c, zv);
-      if constexpr (P::kBf16)
+      if (!P::kLayer || fg) {
+        put(fg + (size_t)m * fg_ld + j + c, fv[c]);
+        put(fg + (size_t)m * fg_ld + D + j + c, gv[c]);
+      }
+      if (!P::kLayer || z) put(z + (size_t)m * z_ld + j + c, zv);
+      if constexpr (P::kBf16 && !P::kLayer)
         zf[(size_t)m * D + j + c] = __bfloat162float(__float2bfloat16_rn(zv));
     }
   }
@@ -572,6 +595,29 @@ struct BwdDxOp : RowsOp {
   }
 };
 
+// (layer) One tap of a layer's input gradient: dx_local = dy + da @ w[1]^T,
+// or dpast = da @ w[0]^T (din null). N = R, K = 2D.
+struct TapDxOp : RowsOp {
+  static constexpr bool kAT = false, kBT = true, kPair = false,
+                        kColSum = false;
+  const float* da;       // [B*T, 2D]
+  const float* w;        // w[tap] [R][2D]: B[k][n] = w[n][k]
+  const float* din;      // [B*T, R] or null
+  float* dout;
+  int D;
+  __device__ const float* a_src(int m, int k) const {
+    return da + (size_t)m * 2 * D + k;
+  }
+  __device__ const float* b_src(int k, int n) const {
+    return w + (size_t)n * 2 * D + k;
+  }
+  __device__ void store(int m, int n, float v0, float v1, bool two) const {
+    const size_t o = (size_t)m * N + n;
+    dout[o] = din ? din[o] + v0 : v0;
+    if (two) dout[o + 1] = din ? din[o + 1] + v1 : v1;
+  }
+};
+
 // A row contraction C[M][N] = sum over rows of U[row]^T V[row], over the
 // chunk of one batch row's rows that blockIdx.z names (z = b * nchunk + c,
 // rows [c * rpc, min(T, (c + 1) * rpc))): a partial [M][N] per z, and the
@@ -648,6 +694,14 @@ __global__ void __launch_bounds__(256) reduce_kernel(
   cs_out[f] = s;
 }
 
+// (layer, bf16) out = in rounded to bf16 (to nearest even), as float.
+__global__ void __launch_bounds__(256) round_bf16_kernel(
+    const float* __restrict__ in, float* __restrict__ out, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * 256)
+    out[i] = __bfloat162float(__float2bfloat16_rn(in[i]));
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -700,15 +754,19 @@ bool supported(int r, int d) {
   return r > 0 && d > 0 && (128 % d == 0 || d % 128 == 0);
 }
 
+// z_record false (v1): z is one layer's [B*T, D], which each layer
+// overwrites, not the record.
 template <class P>
 int forward_impl(const float* x, const float* w_fg, const float* wd,
                  const float* add, const float* bd, const int* dil, float* y,
                  typename P::Rec* fg, typename P::Rec* z, float* xbuf, int B,
-                 int T, int L, int R, int D, cudaStream_t st) {
+                 int T, int L, int R, int D, cudaStream_t st,
+                 bool z_record = true) {
   const int M = B * T, rows = tiles(M, BM);
   const bool edge = ragged(R, D);
-  const size_t fg_ld = (size_t)L * 2 * D, z_ld = (size_t)L * D;
+  const size_t fg_ld = (size_t)L * 2 * D, z_ld = z_record ? (size_t)L * D : D;
   for (int l = 0; l < L; ++l) {
+    typename P::Rec* zl = z + (z_record ? (size_t)l * D : 0);
     const float* xin = l == 0 ? x : y;
     FwdGateOp<P> f1;
     f1.M = M;
@@ -718,7 +776,7 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
     f1.w = w_fg + (size_t)l * 2 * R * 2 * D;
     f1.add = add + (size_t)l * B * 2 * D;
     f1.fg = fg + (size_t)l * 2 * D;
-    f1.z = z + (size_t)l * D;
+    f1.z = zl;
     f1.zf = xbuf;
     f1.T = T;
     f1.R = R;
@@ -736,7 +794,7 @@ int forward_impl(const float* x, const float* w_fg, const float* wd,
       f2.zs = xbuf;
       f2.z_ld = D;
     } else {
-      f2.zs = z + (size_t)l * D;
+      f2.zs = zl;
       f2.z_ld = z_ld;
     }
     f2.wd = wd + (size_t)l * D * R;
@@ -879,6 +937,208 @@ int backward_impl(const float* y, const float* dy,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// TPU kernel 8: one gated layer (x [B, T, R], w [2, R, 2D] = [2R][2D] as
+// w_fg, wd [D, R], add [B, 2D], bd [R], dilation d), from the products
+// above. Forward: (F1) into z alone, (F2) y = x + z @ wd + bd. Backward,
+// from the inputs: (F1) recomputes fg, (A) da and z, (W1), (W2) the weight
+// gradients (dw [2R][2D], dadd [B][2D]), and two taps of the input
+// gradient apart, dx_local = dy + da @ w[1]^T and dpast = da @ w[0]^T (the
+// caller shift-adds dpast, as the TPU kernel's wrapper does). In bf16 (the
+// layer's own rule, BF16Layer) x, dy and dz are first rounded to bf16 into
+// scratch, so that the residual, dbd and dx_local see them rounded.
+// ---------------------------------------------------------------------------
+
+cudaError_t launch_round(const float* in, float* out, size_t n,
+                         cudaStream_t st) {
+  const size_t blocks = (n + 255) / 256;
+  round_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                      st>>>(in, out, n);
+  return cudaGetLastError();
+}
+
+// The layer's scratch, in floats: the rounded inputs (bf16: x forward; x,
+// dy, dz backward), then backward fg, da, z and the partials of the two
+// row contractions.
+struct LayerScratch {
+  Chunks c1, c2;
+  size_t xr, dyr, dzr, fg, da, zs, p1, s1, p2, s2, total;
+};
+LayerScratch layer_scratch(bool backward, bool bf16, int B, int T, int R,
+                           int D) {
+  LayerScratch s{};
+  const size_t M = (size_t)B * T;
+  s.xr = 0;
+  s.dyr = s.xr + (bf16 ? M * R : 0);
+  if (!backward) {
+    s.total = s.dyr;
+    return s;
+  }
+  s.c1 = contract_chunks(B, T, tiles(D, BM) * tiles(R, BN));
+  s.c2 = contract_chunks(B, T, tiles(2 * R, BM) * tiles(2 * D, BN));
+  const size_t n1 = (size_t)B * s.c1.nchunk, n2 = (size_t)B * s.c2.nchunk;
+  s.dzr = s.dyr + (bf16 ? M * R : 0);
+  s.fg = s.dzr + (bf16 ? M * D : 0);
+  s.da = s.fg + M * 2 * D;
+  s.zs = s.da + M * 2 * D;
+  s.p1 = s.zs + M * D;
+  s.s1 = s.p1 + n1 * D * R;
+  s.p2 = s.s1 + n1 * R;
+  s.s2 = s.p2 + n2 * 4 * R * D;
+  s.total = s.s2 + n2 * 2 * D;
+  return s;
+}
+
+// (F1) of the layer: fg (or null) and z (or null), float32.
+template <class P>
+cudaError_t layer_gate(const float* x, const float* w, const float* add,
+                       float* fg, float* z, int B, int T, int R, int D, int d,
+                       cudaStream_t st) {
+  FwdGateOp<P> f1;
+  f1.M = B * T;
+  f1.N = D;
+  f1.K = 2 * R;
+  f1.x = x;
+  f1.w = w;
+  f1.add = add;
+  f1.fg = fg;
+  f1.z = z;
+  f1.zf = nullptr;
+  f1.T = T;
+  f1.R = R;
+  f1.D = D;
+  f1.d = d;
+  f1.fg_ld = (size_t)2 * D;
+  f1.z_ld = D;
+  return launch<P>(dim3(tiles(D, BN / 2), tiles(B * T, BM)), f1,
+                   ragged(R, D), st);
+}
+
+template <class P>
+int layer_forward_impl(const float* x, const float* w, const float* wd,
+                       const float* add, const float* bd, float* y, float* z,
+                       float* scratch, int B, int T, int R, int D, int d,
+                       cudaStream_t st) {
+  const LayerScratch s = layer_scratch(false, P::kBf16, B, T, R, D);
+  const float* xin = x;
+  if constexpr (P::kBf16) {
+    cudaError_t e = launch_round(x, scratch + s.xr, (size_t)B * T * R, st);
+    if (e != cudaSuccess) return (int)e;
+    xin = scratch + s.xr;
+  }
+  cudaError_t e = layer_gate<P>(xin, w, add, nullptr, z, B, T, R, D, d, st);
+  if (e != cudaSuccess) return (int)e;
+  FwdResOp<P> f2;
+  f2.M = B * T;
+  f2.N = R;
+  f2.K = D;
+  f2.zs = z;
+  f2.z_ld = D;
+  f2.wd = wd;
+  f2.bd = bd;
+  f2.xin = xin;
+  f2.xout = y;
+  return (int)launch<P>(dim3(tiles(R, BN), tiles(B * T, BM)), f2,
+                        ragged(R, D), st);
+}
+
+template <class P>
+int layer_backward_impl(const float* x, const float* w, const float* wd,
+                        const float* add, const float* dy, const float* dz,
+                        float* dx_local, float* dpast, float* dw, float* dwd,
+                        float* dadd, float* dbd, float* scratch, int B, int T,
+                        int R, int D, int d, cudaStream_t st) {
+  const int M = B * T, rows = tiles(M, BM);
+  const bool edge = ragged(R, D);
+  const LayerScratch s = layer_scratch(true, P::kBf16, B, T, R, D);
+  const float *xin = x, *dyin = dy, *dzin = dz;
+  cudaError_t e;
+  if constexpr (P::kBf16) {
+    if ((e = launch_round(x, scratch + s.xr, (size_t)M * R, st)) ||
+        (e = launch_round(dy, scratch + s.dyr, (size_t)M * R, st)) ||
+        (e = launch_round(dz, scratch + s.dzr, (size_t)M * D, st)))
+      return (int)e;
+    xin = scratch + s.xr;
+    dyin = scratch + s.dyr;
+    dzin = scratch + s.dzr;
+  }
+  float* fg = scratch + s.fg;
+  float* da = scratch + s.da;
+  float* zs = scratch + s.zs;
+  e = layer_gate<P>(xin, w, add, fg, nullptr, B, T, R, D, d, st);
+  if (e != cudaSuccess) return (int)e;
+
+  BwdGateOp<P> a;
+  a.M = M;
+  a.N = D;
+  a.K = R;
+  a.dc = dyin;
+  a.wd = wd;
+  a.fg = fg;
+  a.dz = dzin;
+  a.da = da;
+  a.zs = zs;
+  a.R = R;
+  a.D = D;
+  a.fg_ld = (size_t)2 * D;
+  a.z_ld = D;
+  e = launch<P>(dim3(tiles(D, BN), rows), a, edge, st);
+  if (e != cudaSuccess) return (int)e;
+
+  const int n1 = B * s.c1.nchunk, n2 = B * s.c2.nchunk;
+  DwdOp w1;
+  w1.M = D;
+  w1.N = R;
+  w1.T = T;
+  w1.nchunk = s.c1.nchunk;
+  w1.rpc = s.c1.rpc;
+  w1.part = scratch + s.p1;
+  w1.csum = scratch + s.s1;
+  w1.zs = zs;
+  w1.dc = dyin;
+  e = launch<P>(dim3(tiles(R, BN), tiles(D, BM), n1), w1, edge, st);
+  if (e != cudaSuccess) return (int)e;
+
+  DwfgOp w2;
+  w2.M = 2 * R;
+  w2.N = 2 * D;
+  w2.T = T;
+  w2.nchunk = s.c2.nchunk;
+  w2.rpc = s.c2.rpc;
+  w2.part = scratch + s.p2;
+  w2.csum = scratch + s.s2;
+  w2.x = xin;
+  w2.da = da;
+  w2.R = R;
+  w2.d = d;
+  e = launch<P>(dim3(tiles(2 * D, BN), tiles(2 * R, BM), n2), w2, edge, st);
+  if (e != cudaSuccess) return (int)e;
+
+  for (int tap = 1; tap >= 0; --tap) {
+    TapDxOp t;
+    t.M = M;
+    t.N = R;
+    t.K = 2 * D;
+    t.da = da;
+    t.w = w + (size_t)tap * R * 2 * D;
+    t.din = tap ? dyin : nullptr;
+    t.dout = tap ? dx_local : dpast;
+    t.D = D;
+    e = launch<P>(dim3(tiles(R, BN), rows), t, edge, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+
+  e = launch_reduce(scratch + s.p1, scratch + s.s1, dwd, dbd, n1, D * R, R,
+                    1, n1, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_reduce(scratch + s.p2, scratch + s.s2, dw, dadd, n2,
+                            4 * R * D, 2 * D, B, s.c2.nchunk, st);
+}
+
+// The retired v1 stack and the layer take every width >= 1: the v1 records
+// (fg [B, T, L*2D], no z record) and the layer's outputs pack no lanes.
+bool any_width(int r, int d) { return r > 0 && d > 0; }
+
 }  // namespace
 
 extern "C" {
@@ -954,6 +1214,133 @@ int fused_stack_tiled_bwd_bf16(const float* y, const float* dy,
   return backward_impl<BF16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
                              dwd, dadd, dbd, scratch, B, T, L, r, d,
                              (cudaStream_t)stream);
+}
+
+// TPU kernel 7 (the retired v1 stack) at every width the route sends here
+// (R, D >= 1; fused_stack_tiled_v1_supports_width): the arguments of
+// fused_stack_tiled_fwd_f32, but z is one layer's [B, T, D] in the record
+// dtype, which each layer overwrites (v1 emits no z record; its op computes
+// z from fg). The products, and so y and fg, are kernel 5's.
+int fused_stack_tiled_v1_supports_width(int r, int d) {
+  return any_width(r, d);
+}
+
+int fused_stack_tiled_v1_fwd_f32(const float* x, const float* w_fg,
+                                 const float* wd, const float* add,
+                                 const float* bd, const int* dil, float* y,
+                                 float* fg, float* z, float* xbuf, int B,
+                                 int T, int L, int r, int d, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return forward_impl<F32>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
+                           L, r, d, (cudaStream_t)stream, false);
+}
+
+int fused_stack_tiled_v1_fwd_bf16(const float* x, const float* w_fg,
+                                  const float* wd, const float* add,
+                                  const float* bd, const int* dil, float* y,
+                                  __nv_bfloat16* fg, __nv_bfloat16* z,
+                                  float* xbuf, int B, int T, int L, int r,
+                                  int d, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return forward_impl<BF16>(x, w_fg, wd, add, bd, dil, y, fg, z, xbuf, B, T,
+                            L, r, d, (cudaStream_t)stream, false);
+}
+
+// v1's backward: kernel 5's (fused_stack_tiled_bwd_*) at every width.
+long long fused_stack_tiled_v1_bwd_scratch_floats(int B, int T, int L, int r,
+                                                  int d) {
+  (void)L;
+  if (!any_width(r, d)) return -1;
+  return (long long)bwd_scratch(B, T, r, d).total;
+}
+
+int fused_stack_tiled_v1_bwd_f32(const float* y, const float* dy,
+                                 const float* fg, const float* dz,
+                                 const float* w_fg, const float* wd,
+                                 const float* bd, const int* dil, float* dx,
+                                 float* dw_fg, float* dwd, float* dadd,
+                                 float* dbd, float* scratch, int B, int T,
+                                 int L, int r, int d, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return backward_impl<F32>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg, dwd,
+                            dadd, dbd, scratch, B, T, L, r, d,
+                            (cudaStream_t)stream);
+}
+
+int fused_stack_tiled_v1_bwd_bf16(const float* y, const float* dy,
+                                  const __nv_bfloat16* fg,
+                                  const __nv_bfloat16* dz, const float* w_fg,
+                                  const float* wd, const float* bd,
+                                  const int* dil, float* dx, float* dw_fg,
+                                  float* dwd, float* dadd, float* dbd,
+                                  float* scratch, int B, int T, int L, int r,
+                                  int d, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return backward_impl<BF16>(y, dy, fg, dz, w_fg, wd, bd, dil, dx, dw_fg,
+                             dwd, dadd, dbd, scratch, B, T, L, r, d,
+                             (cudaStream_t)stream);
+}
+
+// TPU kernel 8 (one gated layer) at every width R, D >= 1, both modes
+// (bf16: the layer's rule, BF16Layer). Scratch floats of a direction
+// (backward 0 or 1) in a mode (bf16 0 or 1); -1 at a width not taken.
+long long fused_stack_tiled_layer_scratch_floats(int backward, int bf16,
+                                                 int B, int T, int r, int d) {
+  if (!any_width(r, d)) return -1;
+  return (long long)layer_scratch(backward, bf16, B, T, r, d).total;
+}
+
+// Forward: x [B, T, R], w [2, R, 2D], wd [D, R], add [B, 2D], bd [R] ->
+// y [B, T, R], z [B, T, D], all float32. Returns 0 or a CUDA error code.
+int fused_stack_tiled_layer_fwd_f32(const float* x, const float* w,
+                                    const float* wd, const float* add,
+                                    const float* bd, float* y, float* z,
+                                    float* scratch, int B, int T, int r,
+                                    int d, int dilation, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return layer_forward_impl<F32Layer>(x, w, wd, add, bd, y, z, scratch, B, T,
+                                      r, d, dilation, (cudaStream_t)stream);
+}
+
+int fused_stack_tiled_layer_fwd_bf16(const float* x, const float* w,
+                                     const float* wd, const float* add,
+                                     const float* bd, float* y, float* z,
+                                     float* scratch, int B, int T, int r,
+                                     int d, int dilation, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return layer_forward_impl<BF16Layer>(x, w, wd, add, bd, y, z, scratch, B,
+                                       T, r, d, dilation,
+                                       (cudaStream_t)stream);
+}
+
+// Backward from the inputs and (dy, dz) -> dx_local, dpast [B, T, R], dw
+// [2, R, 2D], dwd [D, R], dadd [B, 2D], dbd [R], all float32, the weight
+// gradients summed in a fixed order. Returns 0 or a CUDA error code.
+int fused_stack_tiled_layer_bwd_f32(const float* x, const float* w,
+                                    const float* wd, const float* add,
+                                    const float* dy, const float* dz,
+                                    float* dx_local, float* dpast, float* dw,
+                                    float* dwd, float* dadd, float* dbd,
+                                    float* scratch, int B, int T, int r,
+                                    int d, int dilation, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return layer_backward_impl<F32Layer>(x, w, wd, add, dy, dz, dx_local, dpast,
+                                       dw, dwd, dadd, dbd, scratch, B, T, r,
+                                       d, dilation, (cudaStream_t)stream);
+}
+
+int fused_stack_tiled_layer_bwd_bf16(const float* x, const float* w,
+                                     const float* wd, const float* add,
+                                     const float* dy, const float* dz,
+                                     float* dx_local, float* dpast, float* dw,
+                                     float* dwd, float* dadd, float* dbd,
+                                     float* scratch, int B, int T, int r,
+                                     int d, int dilation, void* stream) {
+  if (!any_width(r, d)) return kUnsupportedWidth;
+  return layer_backward_impl<BF16Layer>(x, w, wd, add, dy, dz, dx_local,
+                                        dpast, dw, dwd, dadd, dbd, scratch, B,
+                                        T, r, d, dilation,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

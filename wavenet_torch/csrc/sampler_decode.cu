@@ -192,6 +192,23 @@ int run(const WT* causal_w, const WT* layer_w, const float* layer_add,
 
 }  // namespace
 
+// Dynamic shared memory of one block at rb rows at these widths (C_lc 0
+// without local conditioning): smem_bytes, for the route's Python copy
+// (kernels/sampler.py decode_smem_bytes) to be held against.
+extern "C" long long sampler_decode_smem_bytes(int L, int R, int D, int S,
+                                               int Q, int causal_width,
+                                               int C_lc, int rb) {
+  DecodeArgsT<float> a;
+  a.L = L;
+  a.R = R;
+  a.D = D;
+  a.S = S;
+  a.Q = Q;
+  a.KC = causal_width;
+  a.C_lc = C_lc;
+  return (long long)smem_bytes(a, rb);
+}
+
 extern "C" int sampler_decode_f32(
     const float* causal_w, const float* layer_w, const float* layer_add,
     const float* dense_w, const float* dense_add, const float* skip_w,

@@ -17,10 +17,16 @@ XLA. The kernel reads x(t - d) from device memory; the JAX wrapper's
 materialised ``past`` tensor exists only because a TPU BlockSpec cannot
 express a halo, and the port builds none.
 
-``forward`` and ``backward`` run the kernel (``csrc/dilated_layer.cu``,
-3xTF32 on the tensor cores) for CUDA tensors and the plain versions for
-CPU tensors; each counts its launches in ``.launches``, and by mode
-("f32", "bf16") in ``.launches_by``.
+``forward`` and ``backward`` run a CUDA kernel for CUDA tensors and the
+plain versions for CPU tensors. JAX's op takes every width, and so does
+the port, by width (``layer_kernel_plan``, pure): ``csrc/dilated_layer.cu``
+("layer", 3xTF32 on the tensor cores, every weight resident in shared
+memory) at R == D in 8, 16, 32, and the layer entries of
+``csrc/fused_stack_tiled.cu`` ("tiled": kernel 5's tiled products, the
+weights streamed through shared memory, ragged edges masked) at every
+other width. Each wrapper counts its launches in ``.launches``, and by
+kernel and mode ("f32", "bf16" for the layer kernel; "tiled_f32", "tiled_bf16")
+in ``.launches_by``.
 
 At ``compute_dtype=torch.bfloat16`` (the JAX op's ``compute_dtype=
 jnp.bfloat16``) the layer rounds where the JAX wrapper and TPU kernels do:
@@ -53,10 +59,14 @@ _OP = "dilated_layer"
 
 __all__ = ["fused_dilated_layer", "fused_dilated_layer_reference",
            "fused_dilated_layer_backward_reference", "forward", "backward",
+           "layer_kernel_plan", "LAYER_WIDTHS",
            "TM", "LayerTiling", "layer_tiling", "device_layer_tiling"]
 
-#: Time steps of one batch row in a tile of the kernel.
+#: Time steps of one batch row in a tile of the layer kernel.
 TM = 128
+#: The widths (R == D) ``csrc/dilated_layer.cu`` is built for
+#: (``dilated_layer_supports_width``).
+LAYER_WIDTHS = (8, 16, 32)
 #: The compute dtypes of the layer, by their ``launches_by`` key.
 MODES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -67,6 +77,12 @@ def _mode(compute_dtype) -> str:
     except KeyError:
         raise ValueError(f"{_OP}: compute_dtype {compute_dtype}: one of "
                          f"{tuple(MODES)}") from None
+
+
+def layer_kernel_plan(R: int, D: int) -> str:
+    """The kernel that runs a layer of widths R, D on the card: "layer"
+    at R == D in ``LAYER_WIDTHS``, "tiled" at every other width."""
+    return "layer" if R == D and R in LAYER_WIDTHS else "tiled"
 
 
 def _shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -205,16 +221,42 @@ def _lib():
     return lib
 
 
-def _check_call(lib, x, w, wd, add, dilation: int):
+_TILED = None
+
+
+def _tiled_lib():
+    """``fused_stack_tiled``'s library with its layer entries bound."""
+    global _TILED
+    if _TILED is not None:
+        return _TILED
+    from wavenet_torch.kernels import _build
+    lib = _build.load("fused_stack_tiled")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_stack_tiled_layer_scratch_floats.argtypes = [i] * 6
+    lib.fused_stack_tiled_layer_scratch_floats.restype = ctypes.c_longlong
+    for mode in MODES.values():
+        fwd = getattr(lib, f"fused_stack_tiled_layer_fwd_{mode}")
+        fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        fwd.restype = i
+        bwd = getattr(lib, f"fused_stack_tiled_layer_bwd_{mode}")
+        bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+        bwd.restype = i
+    _TILED = lib
+    return lib
+
+
+def _route(x, wd):
+    """(kernel run, its library) for this call."""
+    used = layer_kernel_plan(x.shape[-1], wd.shape[0])
+    return used, _tiled_lib() if used == "tiled" else _lib()
+
+
+def _check_call(x, w, wd, add, dilation: int):
     """Check the layer's inputs -> (B, T, R, D)."""
     B, T, R = x.shape
     D = wd.shape[0]
     if dilation < 1:
         raise ValueError(f"{_OP}: dilation must be >= 1, got {dilation}")
-    if not lib.dilated_layer_supports_width(R, D):
-        raise NotImplementedError(
-            f"the dilated_layer kernel is built for R == D in (8, 16, 32); "
-            f"got R={R}, D={D}")
     if T < 1:
         raise ValueError(f"{_OP}: x has no time steps")
     dev = x.device
@@ -235,31 +277,51 @@ def _check_aligned(**tensors):
                              "boundary")
 
 
+def _key(used: str, mode: str) -> str:
+    return mode if used == "layer" else f"{used}_{mode}"
+
+
+def _tiled_scratch(lib, backward: bool, mode: str, B, T, R, D, device):
+    n = lib.fused_stack_tiled_layer_scratch_floats(
+        int(backward), int(mode == "bf16"), B, T, R, D)
+    if n < 0:
+        raise RuntimeError(f"fused_stack_tiled layer scratch: width R={R}, "
+                           f"D={D} refused")
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
 def forward(x, w, wd, add, bd, dilation: int, compute_dtype=torch.float32):
     """Layer forward -> (y [B,T,R], z [B,T,D]), float32, every input
     float32 (rounded in the kernel at bf16).
 
     CPU tensors run ``fused_dilated_layer_reference``; CUDA tensors launch
-    the kernel's mode of ``compute_dtype`` or raise."""
+    the mode of ``compute_dtype`` of the kernel that ``layer_kernel_plan``
+    names, or raise."""
     mode = _mode(compute_dtype)
     if not _launch.use_kernel(_OP, x):
         with torch.no_grad():
             return fused_dilated_layer_reference(
                 x, w, wd, add, bd, dilation, compute_dtype=compute_dtype)
-    lib = _lib()
-    B, T, R, D = _check_call(lib, x, w, wd, add, dilation)
+    used, lib = _route(x, wd)
+    B, T, R, D = _check_call(x, w, wd, add, dilation)
     _launch.check(_OP, "bd", bd, (1, R), x.device)
     y = torch.empty_like(x)
     z = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
-    err = getattr(lib, f"dilated_layer_fwd_{mode}")(
-        x.data_ptr(), w.data_ptr(), wd.data_ptr(), add.data_ptr(),
-        bd.data_ptr(), y.data_ptr(), z.data_ptr(), B, T, R, D, dilation,
-        _launch.stream(x.device))
+    ptrs = (x.data_ptr(), w.data_ptr(), wd.data_ptr(), add.data_ptr(),
+            bd.data_ptr(), y.data_ptr(), z.data_ptr())
+    if used == "tiled":
+        scratch = _tiled_scratch(lib, False, mode, B, T, R, D, x.device)
+        err = getattr(lib, f"fused_stack_tiled_layer_fwd_{mode}")(
+            *ptrs, scratch.data_ptr(), B, T, R, D, dilation,
+            _launch.stream(x.device))
+    else:
+        err = getattr(lib, f"dilated_layer_fwd_{mode}")(
+            *ptrs, B, T, R, D, dilation, _launch.stream(x.device))
     if err != 0:
-        raise RuntimeError(f"dilated_layer forward ({mode}) launch failed: "
+        raise RuntimeError(f"{_OP} forward ({used}, {mode}) launch failed: "
                            f"CUDA error {err}")
     forward.launches += 1
-    forward.launches_by[mode] += 1
+    forward.launches_by[_key(used, mode)] += 1
     return y, z
 
 
@@ -270,15 +332,15 @@ def backward(x, w, wd, add, dy, dz, dilation: int,
     kernel at bf16).
 
     CPU tensors run ``fused_dilated_layer_backward_reference``; CUDA
-    tensors launch the kernel's mode of ``compute_dtype`` or raise. The
-    kernel sums the weight gradients in a fixed order: repeated calls are
-    bitwise equal."""
+    tensors launch the routed kernel's mode of ``compute_dtype``, as
+    ``forward`` does, or raise. Both kernels sum the weight gradients in a
+    fixed order: repeated calls are bitwise equal."""
     mode = _mode(compute_dtype)
     if not _launch.use_kernel(_OP, x):
         return fused_dilated_layer_backward_reference(
             x, w, wd, add, dy, dz, dilation, compute_dtype=compute_dtype)
-    lib = _lib()
-    B, T, R, D = _check_call(lib, x, w, wd, add, dilation)
+    used, lib = _route(x, wd)
+    B, T, R, D = _check_call(x, w, wd, add, dilation)
     dev = x.device
     _launch.check(_OP, "dy", dy, (B, T, R), dev)
     _launch.check(_OP, "dz", dz, (B, T, D), dev)
@@ -290,27 +352,33 @@ def backward(x, w, wd, add, dy, dz, dilation: int,
     dwd = torch.empty((D, R), **f32)
     dadd = torch.empty((B, 2 * D), **f32)
     dbd = torch.empty((1, R), **f32)
-    n_scratch = lib.dilated_layer_bwd_scratch_floats(B, T, R, D,
-                                                     int(mode == "bf16"))
-    if n_scratch < 0:
-        raise RuntimeError(f"dilated_layer backward: scratch size failed: "
-                           f"CUDA error {-n_scratch}")
-    scratch = torch.empty((n_scratch,), **f32)
-    err = getattr(lib, f"dilated_layer_bwd_{mode}")(
+    if used == "tiled":
+        scratch = _tiled_scratch(lib, True, mode, B, T, R, D, dev)
+        fn = getattr(lib, f"fused_stack_tiled_layer_bwd_{mode}")
+    else:
+        n_scratch = lib.dilated_layer_bwd_scratch_floats(
+            B, T, R, D, int(mode == "bf16"))
+        if n_scratch < 0:
+            raise RuntimeError(f"dilated_layer backward: scratch size "
+                               f"failed: CUDA error {-n_scratch}")
+        scratch = torch.empty((n_scratch,), **f32)
+        fn = getattr(lib, f"dilated_layer_bwd_{mode}")
+    err = fn(
         x.data_ptr(), w.data_ptr(), wd.data_ptr(), add.data_ptr(),
         dy.data_ptr(), dz.data_ptr(), dx_local.data_ptr(), dpast.data_ptr(),
         dw.data_ptr(), dwd.data_ptr(), dadd.data_ptr(), dbd.data_ptr(),
         scratch.data_ptr(), B, T, R, D, dilation, _launch.stream(dev))
     if err != 0:
-        raise RuntimeError(f"dilated_layer backward ({mode}) launch failed: "
+        raise RuntimeError(f"{_OP} backward ({used}, {mode}) launch failed: "
                            f"CUDA error {err}")
     backward.launches += 1
-    backward.launches_by[mode] += 1
+    backward.launches_by[_key(used, mode)] += 1
     return dx_local, dpast, dw, dwd, dadd, dbd
 
 
 #: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),
-#: in all and by mode ("f32", "bf16").
+#: in all and by kernel and mode ("f32", "bf16", "tiled_f32",
+#: "tiled_bf16").
 forward.launches = 0
 backward.launches = 0
 forward.launches_by = collections.Counter()

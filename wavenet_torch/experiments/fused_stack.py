@@ -9,13 +9,23 @@ forward emits y and the gate preactivations fg, and z = tanh(fg_f) *
 sigmoid(fg_g) is computed from fg outside the kernel (``_fg_to_z``), as
 in JAX. The backward takes dz and is recompute-free.
 
-``fused_stack_forward`` and ``fused_stack_backward`` run the carry kernel
-(``csrc/fused_stack_carry.cu``, shared with v2: ``carry_forward``,
-``carry_backward``) for CUDA tensors and the plain versions for CPU
-tensors; each counts its launches in ``.launches`` and by mode in
-``.launches_by`` ("carry", "carry_bf16"). The kernel runs a wavefront
-across time tiles on a grid (nchunk, B) that ``carry_plan`` sizes from
-the blocks the card keeps resident.
+``fused_stack_forward`` and ``fused_stack_backward`` run a CUDA kernel
+for CUDA tensors and the plain versions for CPU tensors. JAX's v1 takes
+every width (its ``supports`` checks only the filter width and the
+largest dilation), and so does the port, by width (``v1_kernel_plan``,
+pure): the carry kernel (``csrc/fused_stack_carry.cu``, shared with v2:
+``carry_forward``, ``carry_backward``; a wavefront across time tiles on a
+grid (nchunk, B) that ``carry_plan`` sizes from the blocks the card keeps
+resident) where it is built (R == D in 8, 16, 32 and at most 256 layers),
+and kernel 5's kernels elsewhere, as ``kernels/fused_stack.py`` routes
+its widths: ``fused_stack_mma.cu`` at R == D == 64 (and 32 beyond 256
+layers), ``fused_stack.cu`` at R == D in 8, 16 beyond 256 layers, and
+``fused_stack_tiled.cu``'s v1 entries at every other width, including
+the D its TPU records cannot pack (e.g. 48, 3): the same products, with
+no z record. ``kernel="carry"`` or ``"stack"`` pins one of the two and
+raises at a width it lacks. Each wrapper counts its launches in
+``.launches`` and by kernel and mode in ``.launches_by`` ("carry",
+"carry_bf16", "v1_mma", "v1_simt", "v1_tiled" and their "_bf16" forms).
 
 At ``compute_dtype="bfloat16"`` the stack rounds where the TPU kernels do
 at ``kernel_dtype = bfloat16`` (``kernels/fused_stack.py``'s plain versions
@@ -48,17 +58,60 @@ __all__ = ["supports", "fused_stack_forward_reference",
            "fused_stack_backward_reference", "fused_stack_forward",
            "fused_stack_backward", "fused_stack", "carry_forward",
            "carry_backward", "CarryPlan", "carry_plan", "device_carry_plan",
+           "carry_supports", "v1_kernel_plan",
            "carry_scratch_floats", "carry_key", "CARRY_TILE",
            "pack_stack_weights", "tap_offsets"]
 
 #: Time steps of one tile of the carry kernel (csrc/fused_stack_carry.cu).
 CARRY_TILE = 128
+#: The carry kernel's shapes (``fused_stack_carry_supports`` in its
+#: source): R == D in ``CARRY_WIDTHS``, 1..``CARRY_MAX_LAYERS`` layers.
+CARRY_WIDTHS = (8, 16, 32)
+CARRY_MAX_LAYERS = 256
+#: ``kernel=`` values of v1's wrappers and op.
+KERNEL_CHOICES = ("auto", "carry", "stack")
 
 
 def supports(config: WaveNetConfig, t_tile: int = _T_TILE) -> bool:
     """Mirror of the JAX kernel's ``supports``: filter_width 2 and max
     dilation <= the tile."""
     return config.filter_width == 2 and max(config.dilations) <= t_tile
+
+
+def carry_supports(config: WaveNetConfig) -> bool:
+    """Whether the carry kernel is built for the config's shape (the
+    library's ``fused_stack_carry_supports``, which it asks again)."""
+    c = config
+    return (c.residual_channels == c.dilation_channels
+            and c.residual_channels in CARRY_WIDTHS
+            and 1 <= c.num_layers <= CARRY_MAX_LAYERS)
+
+
+def _stack_kernel(config: WaveNetConfig) -> str:
+    """The kernel 5 kernel that runs v1 at the config's width: "mma" or
+    "simt" where kernel 5's route takes them, "tiled" (its v1 entries, at
+    every width) elsewhere."""
+    R, D = config.residual_channels, config.dilation_channels
+    if R == D and R in _stack.MMA_WIDTHS:
+        return "mma"
+    if R == D and R in _stack.SIMT_WIDTHS:
+        return "simt"
+    return "tiled"
+
+
+def v1_kernel_plan(config: WaveNetConfig, kernel: str = "auto") -> str:
+    """The kernel that runs a v1 stack of ``config`` on the card: "carry"
+    where ``carry_supports`` holds, else the kernel 5 kernel of
+    ``_stack_kernel`` ("mma", "simt" or "tiled"). ``kernel`` "carry" or
+    "stack" pins one side (the carry kernel raises at launch at a shape
+    it lacks)."""
+    if kernel not in KERNEL_CHOICES:
+        raise ValueError(f"fused_stack v1: kernel={kernel!r}: one of "
+                         f"{KERNEL_CHOICES}")
+    _stack.record_dtype(config)    # raises at a compute dtype it lacks
+    if kernel == "carry" or (kernel == "auto" and carry_supports(config)):
+        return "carry"
+    return _stack_kernel(config)
 
 
 def _dw_split(dw_fg: torch.Tensor, config: WaveNetConfig) -> torch.Tensor:
@@ -218,7 +271,9 @@ def _check_call(lib, config: WaveNetConfig, lead: torch.Tensor, w_fg, wd,
     if not lib.fused_stack_carry_supports(R, D, L):
         raise NotImplementedError(
             "the fused_stack_carry kernel is built for R == D in (8, 16, 32) "
-            f"and 1..256 layers; got R={R}, D={D}, L={L}")
+            f"and 1..256 layers; got R={R}, D={D}, L={L} (v1's route, "
+            "kernel=\"auto\", runs every other width on kernel 5's "
+            "kernels; v2 has no other)")
     dev = lead.device
     _launch.check(_OP, "w_fg", w_fg, (L, 2 * R, 2 * D), dev)
     _launch.check(_OP, "wd", wd, (L, D, R), dev)
@@ -311,40 +366,60 @@ def carry_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
 # ---------------------------------------------------------------------------
 
 def fused_stack_forward(x, w_fg, wd, add, bd, config: WaveNetConfig,
-                        _plan: Optional[CarryPlan] = None):
+                        _plan: Optional[CarryPlan] = None,
+                        kernel: str = "auto"):
     """Whole stack -> (y [B,T,R], fg [B,T,L*2D]).
 
     CPU tensors run ``fused_stack_forward_reference``; CUDA tensors launch
-    the carry kernel (without z; ``_plan`` pins its grid) or raise."""
+    the kernel ``v1_kernel_plan(config, kernel)`` names (the carry kernel
+    without z, ``_plan`` pinning its grid; or kernel 5's, its z not kept)
+    or raise."""
+    used = v1_kernel_plan(config, kernel)
     if not _launch.use_kernel(_OP, x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
-    y, fg, _ = carry_forward(x, w_fg, wd, add, bd, config, emit_z=False,
-                             _plan=_plan)
+    if used == "carry":
+        y, fg, _ = carry_forward(x, w_fg, wd, add, bd, config, emit_z=False,
+                                 _plan=_plan)
+        key = carry_key(config)
+    else:
+        y, fg, _, key = _stack.launch_forward(x, w_fg, wd, add, bd, config,
+                                              used, v1=True)
+        key = "v1_" + key
     fused_stack_forward.launches += 1
-    fused_stack_forward.launches_by[carry_key(config)] += 1
+    fused_stack_forward.launches_by[key] += 1
     return y, fg
 
 
 def fused_stack_backward(y, fg, dz, dy, w_fg, wd, bd,
                          config: WaveNetConfig,
-                         _plan: Optional[CarryPlan] = None):
+                         _plan: Optional[CarryPlan] = None,
+                         kernel: str = "auto"):
     """VJP of the stack from saved (y, fg) -> (dx, dw [L,2,R,2D], dwd,
     dadd [L,B,2D], dbd [L,1,R]) (the JAX argument order).
 
     CPU tensors run ``fused_stack_backward_reference``; CUDA tensors
-    launch the carry kernel (``_plan`` pins its grid) or raise."""
+    launch the kernel ``v1_kernel_plan(config, kernel)`` names (``_plan``
+    pins the carry kernel's grid) or raise."""
+    used = v1_kernel_plan(config, kernel)
     if not _launch.use_kernel(_OP, y):
         return fused_stack_backward_reference(y, fg, dz, dy, w_fg, wd, bd,
                                               config)
-    dx, dw_fg, dwd, dadd, dbd = carry_backward(y, dy, fg, dz, w_fg, wd, bd,
-                                               config, _plan=_plan)
+    if used == "carry":
+        dx, dw_fg, dwd, dadd, dbd = carry_backward(
+            y, dy, fg, dz, w_fg, wd, bd, config, _plan=_plan)
+        key = carry_key(config)
+    else:
+        dx, dw_fg, dwd, dadd, dbd, key = _stack.launch_backward(
+            y, dy, fg, dz, w_fg, wd, bd, config, used, v1=True)
+        key = "v1_" + key
     fused_stack_backward.launches += 1
-    fused_stack_backward.launches_by[carry_key(config)] += 1
+    fused_stack_backward.launches_by[key] += 1
     return dx, _dw_split(dw_fg, config), dwd, dadd, dbd
 
 
 #: Kernel launches made by each wrapper (read by chip_smoke.py), in all
-#: and by mode ("carry", "carry_bf16").
+#: and by kernel and mode ("carry", "carry_bf16", "v1_mma", "v1_tiled",
+#: ..., as ``fused_stack``'s module docstring lists them).
 fused_stack_forward.launches = 0
 fused_stack_backward.launches = 0
 fused_stack_forward.launches_by = collections.Counter()
@@ -354,11 +429,11 @@ fused_stack_backward.launches_by = collections.Counter()
 class _FusedStack(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w_fg, wd, add, bd, config):
+    def forward(ctx, x, w_fg, wd, add, bd, config, kernel):
         y, fg = fused_stack_forward(x.contiguous(), w_fg.contiguous(),
                                     wd.contiguous(), add.contiguous(),
-                                    bd.contiguous(), config)
-        ctx.config = config
+                                    bd.contiguous(), config, kernel=kernel)
+        ctx.config, ctx.kernel = config, kernel
         ctx.save_for_backward(y, fg, w_fg, wd, bd)
         # JAX computes z in float32 from the fg record (bf16 at bf16).
         return y, _fg_to_z(fg.float(), config)
@@ -369,13 +444,16 @@ class _FusedStack(torch.autograd.Function):
         c = ctx.config
         dx, dw, dwd, dadd, dbd = fused_stack_backward(
             y, fg, dz.contiguous(), dy.contiguous(), w_fg.contiguous(),
-            wd.contiguous(), bd.contiguous(), c)
+            wd.contiguous(), bd.contiguous(), c, kernel=ctx.kernel)
         # dw [L, 2, R, 2D] is the packed w_fg layout [L, 2R, 2D].
         return (dx, dw.reshape(c.num_layers, 2 * c.residual_channels, -1),
-                dwd, dadd, dbd, None)
+                dwd, dadd, dbd, None, None)
 
 
-def fused_stack(x, w_fg, wd, add, bd, config: WaveNetConfig):
+def fused_stack(x, w_fg, wd, add, bd, config: WaveNetConfig,
+                kernel: str = "auto"):
     """Differentiable whole-stack op: (y [B,T,R], z [B,T,L*D]); z is
-    float32 in both compute dtypes, computed from the fg record."""
-    return _FusedStack.apply(x, w_fg, wd, add, bd, config)
+    float32 in both compute dtypes, computed from the fg record;
+    ``kernel`` as in ``v1_kernel_plan``."""
+    v1_kernel_plan(config, kernel)
+    return _FusedStack.apply(x, w_fg, wd, add, bd, config, kernel)

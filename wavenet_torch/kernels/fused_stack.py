@@ -272,13 +272,15 @@ def mma3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib(kernel: str):
+def _lib(kernel: str, v1: bool = False):
     """The loaded library of ``kernel`` ("mma", "simt" or "tiled") and
     the prefix of its C functions; every mode takes the same arguments
-    (the ``_bf16`` entry points take bf16 fg and z records)."""
+    (the ``_bf16`` entry points take bf16 fg and z records). ``v1``: the
+    tiled library's entries of the retired v1 stack
+    (``fused_stack_tiled_v1_*``: every width, no z record)."""
     from wavenet_torch.kernels import _build
-    name = _SOURCES[kernel]
-    lib = _build.load(name)
+    lib = _build.load(_SOURCES[kernel])
+    name = _SOURCES[kernel] + ("_v1" if v1 and kernel == "tiled" else "")
     p, i = ctypes.c_void_p, ctypes.c_int
     if kernel in ("simt", "tiled"):
         getattr(lib, f"{name}_supports_width").argtypes = [i, i]
@@ -307,21 +309,26 @@ def launch_key(kernel: str, config: WaveNetConfig) -> str:
                      else "")
 
 
-def _route(kernel: str, config: WaveNetConfig):
+def _route(kernel: str, config: WaveNetConfig, v1: bool = False):
     """The kernel a call runs (``stack_kernel_plan``'s for "auto", else the
     pinned one), its library and the C function of its mode (e.g.
     ``fused_stack_mma_fwd_bf16`` without the direction); raises at a width
     or dtype the kernel is not built for (the simt and tiled libraries say
-    which widths), with no fallback to another kernel."""
+    which widths), with no fallback to another kernel. ``v1``: a launch
+    for the retired v1 stack (``experiments/fused_stack.py``), whose route
+    has chosen ``kernel``; its tiled entries take every width."""
     c = config
-    if not supports(c):
+    if v1:
+        if c.filter_width != 2:
+            raise NotImplementedError("the v1 stack needs filter_width=2")
+    elif not supports(c):
         raise NotImplementedError(
             "fused_stack needs filter_width=2, max dilation <= "
             f"{_T_TILE_BWD} and D in 1, 2, 4, ..., 64 or a multiple of "
             f"{_LANE} (the TPU kernel's supports)")
     used = stack_kernel_plan(c) if kernel == "auto" else kernel
     bf16 = record_dtype(c) == torch.bfloat16
-    lib, prefix = _lib(used)
+    lib, prefix = _lib(used, v1)
     R, D = c.residual_channels, c.dilation_channels
     built = (R == D and R in MMA_WIDTHS if used == "mma"
              else getattr(lib, f"{prefix}_supports_width")(R, D))
@@ -356,6 +363,36 @@ def _xbuf_shape(kernel: str, B: int, T: int, R: int, D: int, mode: str):
     return (B, T, D) if mode == "bf16" else (0,)
 
 
+def launch_forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel: str,
+                   v1: bool = False):
+    """One forward launch on CUDA tensors, uncounted -> (y, fg, z, the
+    ``launch_key`` of the kernel run); raises where it cannot launch.
+    ``v1`` (the retired v1 stack's route, which counts its own launches):
+    the tiled kernel's v1 entries, at every width, whose z is one layer's
+    scratch [B, T, D] rather than the record."""
+    c = config
+    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
+    B, T = x.shape[:2]
+    used, lib, prefix, mode = _route(kernel, c, v1)
+    dil = _check_weights(c, x, w_fg, wd, bd)
+    _check("x", x, (B, T, R), x.device)
+    _check("add", add, (L, B, 2 * D), x.device)
+    rec = dict(dtype=record_dtype(c), device=x.device)
+    y = torch.empty_like(x)
+    fg = torch.empty((B, T, L * 2 * D), **rec)
+    z = torch.empty((B, T, D if v1 and used == "tiled" else L * D), **rec)
+    xbuf = torch.empty(_xbuf_shape(used, B, T, R, D, mode),
+                       dtype=torch.float32, device=x.device)
+    err = getattr(lib, f"{prefix}_fwd_{mode}")(
+        x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
+        bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
+        z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _launch.stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"{prefix} forward launch failed: CUDA error "
+                           f"{err}")
+    return y, fg, z, launch_key(used, c)
+
+
 def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
     """Stack forward -> (y [B,T,R], fg [B,T,L*2D], z [B,T,L*D]); fg and z
     in the record dtype (``record_dtype``), every input float32 (the
@@ -367,49 +404,22 @@ def forward(x, w_fg, wd, add, bd, config: WaveNetConfig, kernel="auto"):
     _check_kernel(kernel)
     if not _launch.use_kernel("fused_stack", x):
         return fused_stack_forward_reference(x, w_fg, wd, add, bd, config)
-    c = config
-    L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
-    B, T = x.shape[:2]
-    used, lib, prefix, mode = _route(kernel, c)
-    dil = _check_weights(c, x, w_fg, wd, bd)
-    _check("x", x, (B, T, R), x.device)
-    _check("add", add, (L, B, 2 * D), x.device)
-    rec = dict(dtype=record_dtype(c), device=x.device)
-    y = torch.empty_like(x)
-    fg = torch.empty((B, T, L * 2 * D), **rec)
-    z = torch.empty((B, T, L * D), **rec)
-    xbuf = torch.empty(_xbuf_shape(used, B, T, R, D, mode),
-                       dtype=torch.float32, device=x.device)
-    err = getattr(lib, f"{prefix}_fwd_{mode}")(
-        x.data_ptr(), w_fg.data_ptr(), wd.data_ptr(), add.data_ptr(),
-        bd.data_ptr(), ctypes.addressof(dil), y.data_ptr(), fg.data_ptr(),
-        z.data_ptr(), xbuf.data_ptr(), B, T, L, R, D, _launch.stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"{prefix} forward launch failed: CUDA error "
-                           f"{err}")
+    y, fg, z, key = launch_forward(x, w_fg, wd, add, bd, config, kernel)
     forward.launches += 1
-    forward.launches_by[launch_key(used, c)] += 1
+    forward.launches_by[key] += 1
     return y, fg, z
 
 
-def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
-             kernel="auto"):
-    """Stack VJP -> (dx, dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
-    dbd [L,1,R]), all float32; fg in the record dtype, dz read in it (a
-    float32 dz is rounded to bf16 at bf16, as the TPU kernel reads it).
-
-    CPU tensors run ``fused_stack_backward_reference`` whatever ``kernel``
-    says; CUDA tensors launch the routed or pinned kernel, as ``forward``
-    does, or raise. Every kernel sums the weight gradients in a fixed order
-    (no atomics): repeated calls are bitwise equal."""
-    _check_kernel(kernel)
-    if not _launch.use_kernel("fused_stack", y):
-        return fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
-                                              config)
+def launch_backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
+                    kernel: str, v1: bool = False):
+    """One backward launch on CUDA tensors, uncounted -> (dx, dw_fg, dwd,
+    dadd, dbd, the ``launch_key`` of the kernel run); ``v1`` as in
+    ``launch_forward`` (the v1 entries' backward is kernel 5's, at every
+    width)."""
     c = config
     L, R, D = c.num_layers, c.residual_channels, c.dilation_channels
     B, T = y.shape[:2]
-    used, lib, prefix, mode = _route(kernel, c)
+    used, lib, prefix, mode = _route(kernel, c, v1)
     dil = _check_weights(c, y, w_fg, wd, bd)
     dev = y.device
     rec = record_dtype(c)
@@ -436,9 +446,27 @@ def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
     if err != 0:
         raise RuntimeError(f"{prefix} backward launch failed: CUDA error "
                            f"{err}")
+    return dx, dw_fg, dwd, dadd, dbd, launch_key(used, c)
+
+
+def backward(y, dy, fg, dz, w_fg, wd, bd, config: WaveNetConfig,
+             kernel="auto"):
+    """Stack VJP -> (dx, dw_fg [L,2R,2D], dwd [L,D,R], dadd [L,B,2D],
+    dbd [L,1,R]), all float32; fg in the record dtype, dz read in it (a
+    float32 dz is rounded to bf16 at bf16, as the TPU kernel reads it).
+
+    CPU tensors run ``fused_stack_backward_reference`` whatever ``kernel``
+    says; CUDA tensors launch the routed or pinned kernel, as ``forward``
+    does, or raise. Every kernel sums the weight gradients in a fixed order
+    (no atomics): repeated calls are bitwise equal."""
+    _check_kernel(kernel)
+    if not _launch.use_kernel("fused_stack", y):
+        return fused_stack_backward_reference(y, dy, fg, dz, w_fg, wd, bd,
+                                              config)
+    *grads, key = launch_backward(y, dy, fg, dz, w_fg, wd, bd, config, kernel)
     backward.launches += 1
-    backward.launches_by[launch_key(used, c)] += 1
-    return dx, dw_fg, dwd, dadd, dbd
+    backward.launches_by[key] += 1
+    return tuple(grads)
 
 
 #: Kernel launches made by ``forward`` / ``backward`` (read by chip_smoke.py),

@@ -732,6 +732,82 @@ def tile_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
     return None
 
 
+#: The opt-in shared memory of a block on an H100 SXM (the constant of the
+#: kernels' shared-memory asserts): what the route assumes of a card it
+#: cannot ask, on the CPU, so that the choice there is the card's.
+H100_SMEM_OPTIN = 232448
+
+
+def decode_smem_bytes(config: WaveNetConfig, rb: int) -> int:
+    """Dynamic shared memory of one ``sampler_decode`` block at ``rb`` rows:
+    the carve-up at the top of its kernel (``smem_bytes`` in
+    ``csrc/sampler_step.cuh``, exported as ``sampler_decode_smem_bytes``
+    for the card's tests to hold this copy against). The weights stay in
+    device memory; a row holds its activations, and an LC config's also
+    its layers' LC terms and the step's feature row."""
+    c = config
+    L, R, D, S, Q = (c.num_layers, c.residual_channels, c.dilation_channels,
+                     c.skip_channels, c.quantization_channels)
+    warps = THREADS // 32
+    lc = c.lc_channels + 2 * L * D if c.lc_enabled else 0
+    floats = (rb * (causal_width(c) + Q + 3 * (R + D + S) + THREADS + 1 + lc)
+              + warps)
+    ints = warps + 2 * L + rb
+    return 4 * (floats + ints)
+
+
+def can_decode(config: WaveNetConfig, smem_optin: int) -> bool:
+    """Whether a decode kernel launches for this config at every batch on
+    a device with ``smem_optin`` bytes of opt-in shared memory a block:
+    filter_width 2, and one row of ``sampler_decode`` (``route_plan``'s
+    last resort, which serves any batch a row a block) within the opt-in.
+    No config of the repo comes near it: the sharded config's row is ~16
+    KB."""
+    return (config.filter_width == 2
+            and decode_smem_bytes(config, 1) <= smem_optin)
+
+
+def route_plan(config: WaveNetConfig, batch_size: int, smem_optin: int,
+               cluster_resident: Callable[[int, int, int], int],
+               tile_resident: Callable[[int, int, int], int],
+               weight_dtype: torch.dtype = torch.float32,
+               kernel: str = "auto"):
+    """The decode route, pure: (kernel, plan) that ``decode(kernel=...)``
+    launches for this config and batch on a device with ``smem_optin``
+    bytes of opt-in shared memory a block that keeps ``cluster_resident``
+    / ``tile_resident`` clusters of either cluster kernel resident:
+    ("cluster", its plan) where ``cluster_plan`` finds a launch, ("tiles",
+    its plan) where ``tile_plan`` does, ("decode", None) where
+    ``can_decode``; a pinned ``kernel`` tries only its own rung. (None,
+    None) where none can launch."""
+    c = config
+    if c.filter_width != 2 or batch_size < 1:
+        return None, None
+    if kernel in ("auto", "cluster"):
+        plan = cluster_plan(c, batch_size, smem_optin, cluster_resident)
+        if plan is not None:
+            return "cluster", plan
+    if kernel in ("auto", "tiles"):
+        plan = tile_plan(c, batch_size, smem_optin, tile_resident,
+                         cluster_resident, weight_dtype)
+        if plan is not None:
+            return "tiles", plan
+    if kernel in ("auto", "decode") and can_decode(c, smem_optin):
+        return "decode", None
+    return None, None
+
+
+def decode_route(config: WaveNetConfig, batch_size: int, smem_optin: int,
+                 cluster_resident: Callable[[int, int, int], int],
+                 tile_resident: Callable[[int, int, int], int],
+                 weight_dtype: torch.dtype = torch.float32
+                 ) -> Optional[str]:
+    """The kernel that ``decode(kernel="auto")`` launches ("cluster",
+    "tiles", "decode"), or None where none can: ``route_plan``'s name."""
+    return route_plan(config, batch_size, smem_optin, cluster_resident,
+                      tile_resident, weight_dtype)[0]
+
+
 KERNEL_CHOICES = ("auto", "cluster", "tiles", "decode")
 
 
@@ -755,6 +831,8 @@ def _bind(lib) -> None:
                                           + [ctypes.c_void_p])
     lib.sampler_decode_lc_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND + _LC
                                            + [ctypes.c_void_p])
+    lib.sampler_decode_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.sampler_decode_smem_bytes.restype = ctypes.c_longlong
     for fn in (lib.sampler_decode_f32, lib.sampler_decode_bf16,
                lib.sampler_decode_lc_f32, lib.sampler_decode_lc_bf16):
         fn.restype = ctypes.c_int
@@ -888,6 +966,17 @@ def device_tile_plan(config: WaveNetConfig, batch_size: int, device=None,
                      d.cluster_resident, weight_dtype)
 
 
+def device_decode_route(config: WaveNetConfig, batch_size: int,
+                        device=None,
+                        weight_dtype: torch.dtype = torch.float32
+                        ) -> Optional[str]:
+    """``decode_route`` with the opt-in shared memory and the counts of
+    resident clusters of the current CUDA device."""
+    d = _device(device)
+    return decode_route(config, batch_size, d.smem_optin, d.cluster_resident,
+                        d.tile_resident, weight_dtype)
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.dtype != dtype or t.device != device or tuple(t.shape) != shape:
         raise ValueError(
@@ -1004,11 +1093,8 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     from wavenet_torch.kernels import _build
     if plan is None and kernel != "decode":
         d = _device(dev)
-        if kernel in ("auto", "cluster"):
-            plan = cluster_plan(c, B, d.smem_optin, d.cluster_resident)
-        if plan is None and kernel in ("auto", "tiles"):
-            plan = tile_plan(c, B, d.smem_optin, d.tile_resident,
-                             d.cluster_resident, wt)
+        plan = route_plan(c, B, d.smem_optin, d.cluster_resident,
+                          d.tile_resident, wt, kernel)[1]
     if kernel == "decode":
         plan = None
     elif plan is None and kernel != "auto":

@@ -86,11 +86,10 @@ class GenerationService:
             raw, gc_channels=gc_channels, gc_cardinality=gc_cardinality)
         self.params = load_npz(params_npz, self.device)
         self.max_batch = max_batch
-        # What a b1 request of the smallest bucket runs; every request
-        # then names the sampler it ran (the sharded config's: scan).
-        first = sampler_attempts(
-            self.config, device=self.device, lc=self.config.lc_enabled,
-            n_total=self.config.receptive_field + self.bucket_samples(1))
+        # What a b1 request runs; every request then names the sampler it
+        # ran.
+        first = sampler_attempts(self.config, device=self.device,
+                                 lc=self.config.lc_enabled)
         self.sampler_name = first[0][0] if first else "scan"
         self._lock = threading.Lock()
         # Optional speculative decoding: a draft turns every /generate

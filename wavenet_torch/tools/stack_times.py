@@ -14,6 +14,9 @@ names every tree since the layer kernel has) at each distinct dilation of
 the config, with the mean over them, in the modes of ``--modes`` (f32 by
 default: a tree before the layer kernel's bf16 mode has no other).
 ``--modes f32`` compares a tree whose kernel has no bf16 mode yet.
+``--width R D`` replaces the config's residual and dilation channels (the
+ragged widths of the tiled kernel, e.g. 128 64 or 6 16 at the wide
+config's depth).
 
     python -m wavenet_torch.tools.stack_times --config gc \\
         --trees parent/ . . parent/
@@ -25,6 +28,8 @@ default: a tree before the layer kernel's bf16 mode has no other).
         --modes f32 --trees parent/ . . parent/
     python -m wavenet_torch.tools.stack_times --stack tiled --config sharded
     python -m wavenet_torch.tools.stack_times --stack tiled --config w128
+    python -m wavenet_torch.tools.stack_times --stack tiled --config wide \
+        --width 6 16 --trees parent/ .
 
 Each tree runs in a process of its own whose working directory and
 ``PYTHONPATH`` are that tree, so it imports and builds that tree's
@@ -59,7 +64,7 @@ def _digest(t) -> str:
 
 
 def _time_tree(label: str, config: str, reps: int, stack: str,
-               modes=("f32", "bf16")) -> dict:
+               modes=("f32", "bf16"), width=None) -> dict:
     """In the tree's own process: the medians of each direction and mode."""
     import dataclasses
 
@@ -77,6 +82,9 @@ def _time_tree(label: str, config: str, reps: int, stack: str,
         c32 = cfgs.wide_config(residual_channels=128, dilation_channels=128)
     else:
         c32 = getattr(cfgs, f"{config}_config")()
+    if width:
+        c32 = dataclasses.replace(c32, residual_channels=width[0],
+                                  dilation_channels=width[1])
     B = 1 if stack == "tiled" else 8
     T = c32.receptive_field + 16000 - 1
     L, R, D = c32.num_layers, c32.residual_channels, c32.dilation_channels
@@ -108,7 +116,8 @@ def _time_tree(label: str, config: str, reps: int, stack: str,
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
-    row = {"tree": label, "stack": stack, "config": config, "batch": B,
+    row = {"tree": label, "stack": stack, "config": config,
+           "residual_channels": R, "dilation_channels": D, "batch": B,
            "positions": T, "gpu": torch.cuda.get_device_name(0)}
     if stack == "layer":
         return _time_layers(row, c32, x, w_fg, wd, add, bd, dy,
@@ -256,18 +265,23 @@ def main(argv=None) -> int:
                     default=None, help="modes of mma, simt, tiled and layer "
                     "(default: f32 and bf16; layer: f32)")
     ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--width", nargs=2, type=int, default=None,
+                    metavar=("R", "D"),
+                    help="the config's residual and dilation channels")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     modes = args.modes or (["f32"] if args.stack == "layer"
                            else ["f32", "bf16"])
     if args.child is not None:   # inside one tree's process
         print(json.dumps(_time_tree(args.child, args.config, args.reps,
-                                    args.stack, modes)), flush=True)
+                                    args.stack, modes, args.width)),
+              flush=True)
         return 0
     from wavenet_torch.tools import run_in_trees
+    width = ["--width", *map(str, args.width)] if args.width else []
     return run_in_trees(__file__, args.trees,
                         ["--config", args.config, "--reps", str(args.reps),
-                         "--stack", args.stack, "--modes", *modes])
+                         "--stack", args.stack, "--modes", *modes, *width])
 
 
 if __name__ == "__main__":
