@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the ``sampler_decode``, ``sampler_cluster`` (float32, bf16,
    local-conditioning and bf16 local-conditioning modes, four libraries),
    ``sampler_tiles`` (float32
-   and bf16 modes, two libraries), ``fused_stack``, ``fused_stack_mma``,
+   and bf16 modes, two libraries), the seven bf16-ring libraries of the
+   three (``*_ring16``), ``fused_stack``, ``fused_stack_mma``,
    ``fused_stack_carry``, ``dilated_layer`` and probe kernels built from
    ``wavenet_torch/csrc``, one nvcc each, in parallel, with their ptxas
    lines.
@@ -198,6 +199,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
    wavenet_torch.cli.generate --lc_channels 80 --lc_file ... --lc_hop 200
    --sampler_precision bfloat16`` at b1 x 16,000, b64 x 4,000
    (``--save_every`` equal to the single run) and b256 x 2,000.
+6e. The bf16 ring (TPU kernels 1-3 at ``state_dtype=bfloat16``): the
+   bf16-ring mode of each kernel at each weight type, pinned at the main
+   path's shapes (``sampler_cluster`` at paper b1 and paper-LC b1,
+   ``sampler_tiles`` at gc b128 and b512, ``sampler_decode`` at gc b600
+   and paper-LC b256), from a prefill whose ring is rounded to bf16,
+   teacher-forced over 16 steps in one launch (same-seed repeats bitwise,
+   counted under the ``_ring16`` names) and one step a launch from the
+   kernel's own state (bitwise the one launch), each step held against
+   ``decode_reference`` from that state: at float32 weights the logits
+   within rtol 1e-4, atol 1e-5 and the written rows bitwise but for
+   ``bf16_hold.hold_ring16``'s flips, at bf16 weights both on
+   ``bf16_hold``'s gap rule; one step of each timed in turns with the same
+   mode at a float32 ring (float32, bf16, bf16, float32 ring), each
+   launch queued behind a ``torch.cuda._sleep`` spin, beside the plain
+   version's step and the bound at 2-byte ring rows; then the main path,
+   its launches counted from 0: ``generate_cuda(state_dtype=bfloat16)``
+   at each weight type at paper b1 x 16,000, gc b512 x 4,000, gc b600 x
+   1,000, paper-LC b1 x 4,000 and b256 x 1,000, and ``prefill=False`` at
+   paper b1 x 4,000, each repeated bitwise with the same seed.
 7. The retired training stacks (TPU kernels 6-8; 6-7 also at bf16), at
    the paper and gc configs' full width, b8 x (receptive field + 16,000):
    the ``fused_stack_carry`` kernel behind generations v1 and v2 (a wavefront
@@ -340,7 +360,10 @@ TIMED_STEPS = {("paper", 1): 2048, ("gc", 1): 2048, ("gc", 64): 1024,
                ("gc", 512): 512}
 KERNELS = ("sampler_decode", "sampler_cluster", "sampler_cluster_bf16",
            "sampler_cluster_lc", "sampler_cluster_lc_bf16", "sampler_tiles",
-           "sampler_tiles_bf16",
+           "sampler_tiles_bf16", "sampler_decode_ring16",
+           "sampler_cluster_ring16", "sampler_cluster_bf16_ring16",
+           "sampler_cluster_lc_ring16", "sampler_cluster_lc_bf16_ring16",
+           "sampler_tiles_ring16", "sampler_tiles_bf16_ring16",
            "fused_stack", "fused_stack_mma", "fused_stack_tiled",
            "fused_stack_carry", "dilated_layer")
 # The decode kernels by the name their wrappers count them under.
@@ -467,6 +490,30 @@ LC_BF16_CLI_RUNS = (("b1", 1, GEN_SAMPLES, [], "cluster_bf16_lc", 1),
                     ("b256", 256, 2000, [], "decode_bf16_lc", 1))
 LC_BF16_SOURCES = {"cluster": "sampler_cluster_lc_bf16",
                    "decode": "sampler_decode_lc_bf16"}
+# Phase 6e: the bf16 ring. The pinned cases (kernel, config, batch; "lc"
+# is phase 6c's paper-LC config), each at both weight types, held one step
+# a launch over RING16_STEPS steps (float32 weights: logits within
+# RING16_TOL, a float32 step's tolerance, since a ring row is stored after
+# it is read); their timed steps a launch, each launch behind a spin of
+# RING16_SPIN cycles (~25 ms on an H100, time for the host to queue it);
+# the main path's generate_cuda runs (config, batch, samples, prefill).
+RING16_CASES = (("cluster", "paper", 1), ("tiles", "gc", 128),
+                ("tiles", "gc", 512), ("decode", "gc", 600),
+                ("cluster", "lc", 1), ("decode", "lc", 256))
+RING16_STEPS = 16
+RING16_TOL = dict(rtol=1e-4, atol=1e-5)
+RING16_TIMED_STEPS = {1: 2048, 128: 1024, 256: 512, 512: 512, 600: 512}
+RING16_SPIN = 50_000_000
+RING16_GEN = (("paper", 1, GEN_SAMPLES, True), ("gc", 512, 4000, True),
+              ("gc", 600, 1000, True), ("lc", 1, 4000, True),
+              ("lc", 256, 1000, True), ("paper", 1, 4000, False))
+# The TPU kernel each bf16-ring mode's row stands for, by its case.
+RING16_REPLACES = {
+    ("cluster", 1): "wavenet_tpu/kernels/sampler.py:234",
+    ("tiles", 128): "wavenet_tpu/kernels/sampler.py:1308",
+    ("tiles", 512): "wavenet_tpu/kernels/sampler_packed.py:142",
+    ("decode", 600): "wavenet_tpu/kernels/sampler.py:1308",
+    ("decode", 256): "wavenet_tpu/kernels/sampler.py:1308"}
 # Phase 5's LC training check: the train CLI's steps a run, and the
 # speakers of its corpus (two 2-second utterances each, log-mel sidecars).
 LC_TRAIN_STEPS, LC_TRAIN_SPEAKERS = 4, 4
@@ -635,14 +682,16 @@ def weight_bytes(c, wbytes: int = 4) -> int:
 
 
 def bound_per_step(c, B: int, steps: int, wbytes: int = 4,
-                   round_chain: bool = True):
+                   round_chain: bool = True, ring_bytes: int = 4):
     """Least time per step of one decode launch: every input read once and
     every output written once (weights at ``wbytes`` each, per-row adds,
-    ring and causal in and out, forced in, codes out, an LC config's
-    stream of B x C_lc floats a step in), or its operations at their peaks
+    ring (``ring_bytes`` an element: 2 for a bf16 ring) and causal in and
+    out, forced in, codes out, an LC config's stream of B x C_lc floats a
+    step in), or its operations at their peaks
     (``ops_seconds_per_row_step``)."""
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
-    state = 4 * B * (sum(c.dilations) * c.residual_channels + Q)
+    state = B * (ring_bytes * sum(c.dilations) * c.residual_channels
+                 + 4 * Q)
     lc_stream = 4 * B * (c.lc_channels or 0) * steps
     nbytes = (weight_bytes(c, wbytes) + 4 * L * B * 2 * D + 2 * state + 4 * B
               + 4 * B * steps + lc_stream)
@@ -3505,6 +3554,221 @@ def phase_lc_bf16_main_path(c, p, gpu):
     return launches
 
 
+def ring16_key(kernel: str, bf16: bool, lc: bool) -> str:
+    """The name a bf16-ring launch is counted under: the kernel, "_bf16"
+    at bf16 weights, "_lc" with LC, then "_ring16"."""
+    return (kernel + ("_bf16" if bf16 else "") + ("_lc" if lc else "")
+            + "_ring16")
+
+
+def phase_ring16_decode(cfgs, params, c_lc, p_lc, rng, gpu):
+    """The bf16-ring modes of the decode kernels (TPU kernels 1-3 at
+    state_dtype=bfloat16), pinned (RING16_CASES) at each weight type: a
+    prefill whose ring is rounded to bf16, then a teacher-forced window in
+    one launch (same-seed repeats bitwise; counted under the ``_ring16``
+    name) and one step a launch from the kernel's own state (bitwise the
+    one launch), each step held against ``decode_reference`` from that
+    state (float32 weights: logits within RING16_TOL, rows by
+    ``bf16_hold.hold_ring16``; bf16 weights: both by ``bf16_hold.hold``);
+    then one step timed in turns with the same mode at a float32 ring,
+    the plain version's step and the bound at 2-byte ring rows. Results by
+    launch name."""
+    import torch
+    from wavenet_torch.kernels import bf16_hold
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.wavenet import embed_gc
+
+    results = {}
+    n = RING16_STEPS
+    for kernel, name, B in RING16_CASES:
+        c, p = (c_lc, p_lc) if name == "lc" else (cfgs[name], params[name])
+        lc_on = c.lc_enabled
+        codes, gc_ids = setup(c, B, rng, PREFILL, n)
+        stream = lc = lc_t = None
+        steps = RING16_TIMED_STEPS[B]
+        if lc_on:
+            stream = torch.as_tensor(
+                rng.uniform(-1, 1, (B, PREFILL - 1 + n, LC_CHANNELS)),
+                dtype=torch.float32, device="cuda")
+            lc = stream[:, PREFILL - 1:].transpose(0, 1).contiguous()
+            lc_t = torch.as_tensor(
+                rng.uniform(-1, 1, (steps, B, LC_CHANNELS)),
+                dtype=torch.float32, device="cuda")
+        carry = ks.prefill_carry(
+            p, c, codes[:, :PREFILL], gc_ids,
+            lc=None if stream is None else stream[:, :PREFILL - 1])
+        ring16 = carry.ring.to(torch.bfloat16)
+        gc_emb = None if gc_ids is None else embed_gc(p, c, gc_ids)
+        forced = codes[:, PREFILL - 1:PREFILL - 1 + n].contiguous()
+        pk32 = ks.pack_sampler_weights(p, c, B, gc_emb)
+        rule = ks.chain_rounded("decode", B, lc_on)
+        for bf16 in (False, True):
+            pk = (ks.pack_sampler_weights(p, c, B, gc_emb,
+                                          weight_dtype=torch.bfloat16)
+                  if bf16 else pk32)
+            key = ring16_key(kernel, bf16, lc_on)
+            where = f"sampler_{key} {name} B={B}"
+            runs = []
+            for _ in range(2):
+                ring, causal = ring16.clone(), carry.causal.clone()
+                before = dict(ks.decode.launches_by)
+                out = ks.decode(pk, c, ring, causal, forced, n, carry.t_abs,
+                                11, collect_logits=True, kernel=kernel,
+                                lc=lc)
+                torch.cuda.synchronize()
+                ran = {k: v - before.get(k, 0)
+                       for k, v in ks.decode.launches_by.items()
+                       if v != before.get(k, 0)}
+                check(ran == {key: 1}, f"{where}: launches counted as {ran}")
+                runs.append(out + (ring, causal))
+            (codes_k, lg_k, ring_k, causal_k), again = runs
+            check(all(torch.equal(a, b) for a, b in zip(runs[0], again)),
+                  f"{where}: same-seed runs differ")
+            check(ring_k.dtype == torch.bfloat16, f"{where}: ring type")
+            check(torch.equal(codes_k[:, :-1], forced[:, 1:]),
+                  f"{where}: forced codes not emitted")
+
+            def step(ring, causal, x, t):
+                i = t - carry.t_abs
+                return ks.decode(pk, c, ring, causal, x, 1, t, 11,
+                                 collect_logits=True, kernel=kernel,
+                                 lc=None if lc is None else lc[i:i + 1])[1]
+
+            ring, causal = ring16.clone(), carry.causal.clone()
+            lg_s, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+                c, pk, pk32 if bf16 else pk, ring, causal, forced,
+                carry.t_abs, 11, rule, step, lc=lc)
+            check(torch.equal(lg_s, lg_k) and torch.equal(ring, ring_k)
+                  and torch.equal(causal, causal_k),
+                  f"{where}: one step a launch differs from one launch")
+            held = None
+            if bf16:
+                held = bf16_hold.hold(where, lg_s, lg16, lg32)
+                rows = bf16_hold.hold(f"{where} ring", rk, r16, r32)
+                err = held["max_abs_err"]
+            else:
+                err = (lg_s - lg16).abs().max().item()
+                check(torch.allclose(lg_s, lg16, **RING16_TOL),
+                      f"{where}: logits differ from decode_reference "
+                      f"(max |d| {err})")
+                rows = bf16_hold.hold_ring16(f"{where} ring", rk, r16)
+            # One step in turns: the same mode at a float32 and a bf16
+            # ring, each launch behind a spin that lets the host queue it.
+            fk = forced[:, :1].contiguous()
+            timed = {torch.float32: [], torch.bfloat16: []}
+            for dt in (torch.float32, torch.bfloat16, torch.bfloat16,
+                       torch.float32):
+                ring = carry.ring.to(dt, copy=True)
+                causal = carry.causal.clone()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(RING16_SPIN)
+                timed[dt].append(cuda_ms_unsynced(lambda: ks.decode(
+                    pk, c, ring, causal, fk, steps, carry.t_abs, 5,
+                    kernel=kernel, lc=lc_t)) / steps)
+            n_plain = min(4, steps)
+            rp, cp = ring16.clone(), carry.causal.clone()
+            plain_ms = cuda_ms(lambda: ks.decode_reference(
+                pk, c, rp, cp, fk, n_plain, carry.t_abs, 5,
+                lc=None if lc_t is None else lc_t[:n_plain])) / n_plain
+            bound, by = bound_per_step(c, B, steps, wbytes=2 if bf16 else 4,
+                                       round_chain=rule, ring_bytes=2)
+            ms = float(min(timed[torch.bfloat16]))
+            f32_ms = float(min(timed[torch.float32]))
+            results.setdefault(key, {})[(name, B)] = dict(
+                kernel=kernel, max_abs_err=err, ms=ms, f32_ring_ms=f32_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                rows=rows)
+            emit({"phase": "ring16_decode", "kernel": f"sampler_{kernel}",
+                  "mode": key, "config": name, "batch": B, "steps": n,
+                  "round_chain": rule, "max_abs_err_vs_plain": err,
+                  "logits_err_over_bf16_gap": held,
+                  "ring_rows": rows, "stepwise_equals_one_launch": True,
+                  "bitwise_repeat": True, "ms_per_step": ms,
+                  "ms_per_step_runs": timed[torch.bfloat16],
+                  "f32_ring_ms_per_step_runs": timed[torch.float32],
+                  "over_f32_ring": ms / f32_ms,
+                  "plain_ms_per_step": plain_ms, "bound_ms_per_step": bound,
+                  "bound_by": by, "timed_steps": steps, "gpu": gpu})
+            del runs, lg_k, lg_s, lg16, lg32, rk, r16, r32, ring, causal
+        del carry, ring16, pk32, pk, stream, lc, lc_t
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ring16_main_path(cfgs, params, c_lc, p_lc, rng, gpu):
+    """The main path of generation at a bf16 ring, its launches counted
+    from 0: ``generate_cuda(state_dtype=torch.bfloat16)`` at each weight
+    type at RING16_GEN's shapes (the prefill route: the prefilled ring
+    rounded once; ``prefill=False``: a zero bf16 ring), each run twice with
+    the same seed (bitwise equal), its codes in range and its last logits
+    finite; then, outside the count, paper b1 at a float32 ring, whose
+    logits the bf16 ring's must not equal. Returns the launches by name."""
+    import torch
+    from wavenet_torch.kernels import sampler as ks
+
+    seqs = {}
+    for name, B, n, prefill in RING16_GEN:
+        c = c_lc if name == "lc" else cfgs[name]
+        if c.lc_enabled and (name, B) not in seqs:
+            seqs[(name, B)] = torch.as_tensor(
+                rng.uniform(-1, 1, (B, n, LC_CHANNELS)), dtype=torch.float32,
+                device="cuda")
+    counters = (ks.decode, ks.decode_sequential)
+    for f in counters:                       # the main path
+        f.launches = 0
+        f.launches_by.clear()
+    rates, last = {}, {}
+    for name, B, n, prefill in RING16_GEN:
+        c, p = (c_lc, p_lc) if name == "lc" else (cfgs[name], params[name])
+        ids = (torch.arange(B, device="cuda") % c.gc_cardinality
+               if c.gc_enabled else None)
+        for wt in (torch.float32, torch.bfloat16):
+            label = (f"{name}_b{B}_{n}_{'prefill' if prefill else 'seq'}_"
+                     f"{'bf16' if wt == torch.bfloat16 else 'f32'}")
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs.append(ks.generate_cuda(
+                    p, c, n, 7, B, gc_ids=ids, collect_logits=8,
+                    weight_dtype=wt, prefill=prefill,
+                    lc=seqs.get((name, B)), state_dtype=torch.bfloat16))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            (codes, lg), (codes2, lg2) = runs
+            check(torch.equal(codes, codes2) and torch.equal(lg, lg2),
+                  f"bf16-ring generation {label}: same-seed runs differ")
+            check(codes.shape == (B, n) and int(codes.min()) >= 0
+                  and int(codes.max()) < c.quantization_channels
+                  and torch.isfinite(lg).all().item(),
+                  f"bf16-ring generation {label}: codes out of range or "
+                  "logits not finite")
+            rates[label] = B * n / seconds
+            last[label] = lg
+            emit({"phase": "ring16_generate", "run": label, "config": name,
+                  "batch": B, "samples": n, "prefill": prefill,
+                  "seconds": seconds, "samples_per_s": rates[label],
+                  "distinct_codes": int(torch.unique(codes).numel()),
+                  "gpu": gpu})
+    launches = {f.__name__: dict(f.launches_by) for f in counters}
+    merged = {}
+    for by in launches.values():
+        for k, v in by.items():
+            merged[k] = merged.get(k, 0) + v
+    want = {ring16_key(kernel, bf16, name == "lc")
+            for kernel, name, _ in RING16_CASES for bf16 in (False, True)}
+    check(set(merged) == want,
+          f"the bf16-ring main path launched {merged}, not {sorted(want)}")
+    # Outside the count: the float32 ring at paper b1 moves the logits.
+    c, p = cfgs["paper"], params["paper"]
+    _, lg32 = ks.generate_cuda(p, c, GEN_SAMPLES, 7, 1, collect_logits=8)
+    check(not torch.equal(lg32, last[f"paper_b1_{GEN_SAMPLES}_prefill_f32"]),
+          "bf16-ring generation equals the float32 ring's")
+    emit({"phase": "ring16_generate", "launches_by_kernel": launches,
+          "samples_per_s": rates, "gpu": gpu})
+    return merged
+
+
 def phase_carry_stacks(cfgs, params, rng, gpu):
     """Phase 7 (a): the carry kernel behind v1 and v2 (a wavefront across
     time tiles on the grid that ``carry_plan`` sizes from the card's
@@ -5493,6 +5757,14 @@ def main() -> int:
           "seconds": time.perf_counter() - t6d,
           "script_seconds": time.perf_counter() - t_start})
 
+    # Phase 6e: the bf16 ring (TPU kernels 1-3 at state_dtype=bfloat16).
+    t6e = time.perf_counter()
+    ring16 = phase_ring16_decode(cfgs, params, c_lc, p_lc, rng, gpu)
+    ring16_launches = phase_ring16_main_path(cfgs, params, c_lc, p_lc, rng,
+                                             gpu)
+    emit({"phase": "ring16_generation", "seconds": time.perf_counter() - t6e,
+          "script_seconds": time.perf_counter() - t_start})
+
     # Phase 7: the retired training stacks (TPU kernels 6-8).
     t7 = time.perf_counter()
     carry = phase_carry_stacks(cfgs, params, rng, gpu)
@@ -5861,6 +6133,37 @@ def main() -> int:
             row.update({f"{key}_b{B}": mo[key] for key in
                         ("ms", "bound_ms", "plain_ms", "f32_lc_ms",
                          "bf16_ms", "max_abs_err")})
+        kernels.append(row)
+    # The bf16-ring modes (phase 6e): one row a mode, its time pinned in
+    # this run at its main-path shape (the last of its RING16_CASES), in
+    # turns with the same mode at a float32 ring, the other shape's beside
+    # it; launches those of phase 6e's main path. The bound counts the
+    # ring's rows at 2 bytes. library_ms is null for the reason above.
+    for key, by_case in sorted(ring16.items()):
+        (name, B), m = list(by_case.items())[-1]
+        kernel, lc = m["kernel"], key.endswith("_lc_ring16")
+        bf16 = "_bf16" in key
+        lib = ("sampler_decode" if kernel == "decode" else
+               f"sampler_{kernel}{'_lc' if lc else ''}"
+               f"{'_bf16' if bf16 else ''}") + "_ring16"
+        row = {
+            "name": f"sampler_{key}", "route": "cuda",
+            "source": f"wavenet_torch/csrc/{lib}.cu",
+            "replaces": RING16_REPLACES[(kernel, B)]
+            + " (state_dtype=bfloat16)",
+            "mode": key, "config": name, "batch": B,
+            "launches": ring16_launches.get(key, 0),
+            "launches_on": "generate_cuda(state_dtype=bfloat16)",
+            "max_abs_err": max(v["max_abs_err"] for v in by_case.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "f32_ring_ms": m["f32_ring_ms"], "library_ms": None,
+            "unit": "per decode step", "gpu": gpu}
+        for (other, Bo), mo in by_case.items():
+            if (other, Bo) != (name, B):
+                row.update({f"{k}_b{Bo}": mo[k] for k in (
+                    "ms", "f32_ring_ms", "plain_ms", "bound_ms",
+                    "bound_by")})
         kernels.append(row)
     # Kernel 4's route: the decode kernel that the route takes, launched
     # from a zero ring. Its library_ms is null for the reason above.

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (``sampler_decode`` and ``sampler_cluster`` on
 their prefill and sequential routes, mu-law and scalar input, in float32
 and in their bf16 modes, ``sampler_tiles`` at the paper/gc widths in both
-modes, and the route between them;
+modes, each also at a bf16 ring, and the route between them;
 ``fused_stack`` (the 3xTF32 "mma" kernel, the FP32-core "simt" one and
 the "tiled" one of the other widths: 128 and up, R != D, 1, 2, 4);
 ``fused_stack_carry`` behind the retired stack generations v1 and v2;
@@ -3435,3 +3435,247 @@ def test_dilated_layer_route_takes_the_library_widths(setup):
             if used == "tiled":
                 assert tiled.fused_stack_tiled_layer_scratch_floats(
                     0, 0, 2, 64, R, D) >= 0, (R, D)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 ring (the JAX kernels at state_dtype=bfloat16): each layer's past
+# row read widened, its input stored rounded to nearest even, on the three
+# kernels at either weight type, with LC where the kernel has it
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# One step's logits at float32 weights: a ring row is stored after it is
+# read, so the float32 tolerance holds whatever the ring's type.
+RING16_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _ring16_case(width, B, wdt, lc, seed=0):
+    """(config, packed weights at ``wdt``, float32 packed weights, carry
+    with its ring rounded to bf16, teacher-forced inputs, LC stream or
+    None): ``_cluster_case`` or, with ``lc``, ``_lc_case``."""
+    if lc:
+        c, _, pk32, carry, forced, stream = _lc_case(width, B, seed)
+    else:
+        c, _, pk32, carry, forced = _cluster_case(width, B, seed)
+        stream = None
+    fields = ks.WEIGHT_FIELDS + (("lc_w",) if lc else ())
+    pk = (pk32 if wdt == "f32" else
+          pk32._replace(**{k: getattr(pk32, k).to(BF16) for k in fields}))
+    carry = carry._replace(ring=carry.ring.to(BF16))
+    return c, pk, pk32, carry, forced, stream
+
+
+def _ring16_stepwise(where, c, pk, pk32, ring, causal, forced, t0, seed,
+                     round_chain, launch, lc=None):
+    """``bf16_hold.stepwise`` from a bf16 ring. At float32 weights each
+    step's logits within RING16_TOL of the plain version's, and the rows
+    each step writes bitwise the plain version's but for ``hold_ring16``'s
+    flips (which a truncating store would exceed); at bf16 weights both on
+    ``bf16_hold.hold``'s gap rule, since a flipped operand rounding moves
+    the later layers' rows by more than an ulp (``bf16_hold``'s
+    docstring). Returns (the kernel's logits [B, n, Q], the rows' hold)."""
+    bf16 = ks.weight_dtype_of(pk) == BF16
+    lg, lg16, lg32, rk, r16, r32 = bf16_hold.stepwise(
+        c, pk, pk32 if bf16 else pk, ring, causal, forced, t0, seed,
+        round_chain, launch, lc=lc)
+    torch.cuda.synchronize()
+    if bf16:
+        bf16_hold.hold(where, lg, lg16, lg32)
+        return lg, bf16_hold.hold(f"{where} ring", rk, r16, r32)
+    torch.testing.assert_close(lg, lg16, **RING16_TOL)
+    return lg, bf16_hold.hold_ring16(f"{where} ring", rk, r16)
+
+
+RING16_CASES = [("cluster", "paper", 1, False), ("cluster", "paper", 64, False),
+                ("cluster", "scalar_wide", 4, False),
+                ("cluster", "paper", 1, True), ("cluster", "small", 4, True),
+                ("tiles", "paper", 128, False), ("tiles", "paper", 512, False),
+                ("decode", "paper", 600, False),
+                ("decode", "scalar_wide", 5, False),
+                ("decode", "paper", 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel,width,B,lc", RING16_CASES)
+def test_ring16_kernel_matches_reference_stepwise(setup, kernel, width, B, lc,
+                                                  wdt):
+    """Each kernel's bf16-ring mode, pinned, teacher-forced from a prefilled
+    ring rounded to bf16: the window in one launch (counted under its
+    ``_ring16`` name) equals it one step a launch, and each step is held
+    against ``decode_reference`` from the kernel's own bf16 ring."""
+    c, pk, pk32, carry, forced, stream = _ring16_case(width, B, wdt, lc)
+    n = 16
+    forced = forced[:, :n].contiguous()
+    stream = None if stream is None else stream[:n].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    key = (kernel + ("_bf16" if wdt == "bf16" else "") + ("_lc" if lc else "")
+           + "_ring16")
+    before = ks.decode.launches_by[key]
+    kk, lk = ks.decode(pk, c, rk, ck, forced, n, carry.t_abs, 3,
+                       collect_logits=True, kernel=kernel, lc=stream)
+    torch.cuda.synchronize()
+    assert ks.decode.launches_by[key] == before + 1
+    assert rk.dtype == BF16
+    assert torch.equal(kk[:, :-1], ks.mu_law_encode_f(
+        forced[:, 1:], c.quantization_channels) if c.scalar_input
+        else forced[:, 1:])
+
+    def step(ring, causal, x, t):
+        i = t - carry.t_abs
+        return ks.decode(pk, c, ring, causal, x, 1, t, 3, collect_logits=True,
+                         kernel=kernel,
+                         lc=None if stream is None else stream[i:i + 1])[1]
+
+    ring, causal = carry.ring.clone(), carry.causal.clone()
+    lg, _ = _ring16_stepwise(f"{key} {width} B={B}", c, pk, pk32, ring,
+                             causal, forced, carry.t_abs, 3,
+                             ks.chain_rounded("decode", B, lc), step,
+                             lc=stream)
+    assert torch.equal(lg, lk) and torch.equal(ring, rk)
+    assert torch.equal(causal, ck)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,B", [("cluster", 4), ("tiles", 128),
+                                      ("decode", 5)])
+def test_ring16_window_holds_on_the_ring_gap(setup, kernel, B):
+    """A teacher-forced window of 30 steps in one launch from a bf16 ring
+    at float32 weights, held against the plain version from the same ring
+    on the scale of the plain version's distance from itself at a float32
+    ring (the same values, widened). A stored row's rounding flips where
+    another sum order moves its input across a rounding boundary, and the
+    flip carries on through the ring: over 30 steps at b128 the plain
+    version in float64 read a row's median 0.34 of that row's median gap
+    from itself in float32 (on the CPU), so the window is held as the
+    plain version holds itself (``bf16_hold.hold_as_plain``, the plain
+    version stepped on the CPU standing for another sum order). A kernel
+    that stored the ring at float32 would read the whole gap, 1.
+    (At bf16 weights the weights' flips carry on further than that gap:
+    a bf16 window is held a step a launch.)"""
+    c, pk, _, carry, forced, _ = _ring16_case("paper", B, "f32", False)
+    n = 30
+    forced = forced[:, :n].contiguous()
+    rk, ck = carry.ring.clone(), carry.causal.clone()
+    _, lk = ks.decode(pk, c, rk, ck, forced, n, carry.t_abs, 5,
+                      collect_logits=True, kernel=kernel)
+    ref = {}
+    for dt in (BF16, torch.float32):
+        ring, causal = carry.ring.to(dt, copy=True), carry.causal.clone()
+        ref[dt] = ks.decode_reference(pk, c, ring, causal, forced, n,
+                                      carry.t_abs, 5, collect_logits=True)[1]
+    cpu = type(pk)(*[t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in pk])
+    plain = ks.decode_reference(cpu, c, carry.ring.cpu(), carry.causal.cpu(),
+                                forced.cpu(), n, carry.t_abs, 5,
+                                collect_logits=True)[1].cuda()
+    torch.cuda.synchronize()
+    assert not torch.equal(ref[BF16], ref[torch.float32])
+    bf16_hold.hold_as_plain(
+        f"{kernel} B={B} window",
+        bf16_hold.ratios(lk, ref[BF16], ref[torch.float32]),
+        bf16_hold.ratios(plain, ref[BF16], ref[torch.float32]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel,B", [("cluster", 1), ("tiles", 200),
+                                      ("decode", 3)])
+def test_ring16_kernel_is_deterministic(setup, kernel, B, wdt):
+    """Same seed, same codes, logits and bf16 ring, sampled over 40 steps
+    from a prefilled ring. The bf16 ring's logits are not the float32
+    ring's, but where bf16 weights round the chain (B > 1): there the fg
+    product rounds each past row to bf16 as its operand anyway, and
+    rounding twice to nearest even is rounding once, so the two rings
+    compute the same bits."""
+    c, pk, _, carry, _, _ = _ring16_case("paper", B, wdt, False, seed=1)
+    x = carry.last[:, None].contiguous()
+    runs = []
+    for dt in (BF16, BF16, torch.float32):
+        ring, causal = carry.ring.to(dt, copy=True), carry.causal.clone()
+        runs.append(ks.decode(pk, c, ring, causal, x, 40, carry.t_abs, 9,
+                              collect_logits=True, kernel=kernel) + (ring,))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    same = wdt == "bf16" and ks.chain_rounded("decode", B)
+    assert torch.equal(runs[0][1], runs[2][1]) == same
+    assert torch.equal(runs[0][0], runs[2][0]) or not same
+    assert len(torch.unique(runs[0][0])) > 8
+
+
+@pytest.mark.gpu
+def test_ring16_generation_routes_as_float32(setup):
+    """``generate_cuda(state_dtype=bfloat16)`` on both routes: each launch
+    the float32 ring's kernel, named with "_ring16"; the prefill route
+    from the prefilled ring rounded once, the sequential one from a zero
+    bf16 ring; same seeds repeat bitwise."""
+    from wavenet_torch.models.config import gc_config
+    c = gc_config(gc_cardinality=8)
+    params = _seeded_params(c)
+    for B, kernel in ((1, "cluster"), (128, "tiles"), (600, "decode")):
+        for prefill, counter in ((True, ks.decode),
+                                 (False, ks.decode_sequential)):
+            ids = torch.arange(B, device="cuda") % 8
+            before = dict(counter.launches_by)
+            runs = [ks.generate_cuda(params, c, 24, 3, B, gc_ids=ids,
+                                     collect_logits=True, prefill=prefill,
+                                     state_dtype=BF16) for _ in range(2)]
+            torch.cuda.synchronize()
+            ran = {k: v - before.get(k, 0)
+                   for k, v in counter.launches_by.items()
+                   if v != before.get(k, 0)}
+            assert ran == {f"{kernel}_ring16": 2}, (B, prefill, ran)
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with pytest.raises(ValueError, match="state_dtype"):
+        ks.generate_cuda(params, c, 4, 3, 1, gc_ids=torch.zeros(
+            1, dtype=torch.int64, device="cuda"), state_dtype=torch.float16)
+
+
+@pytest.mark.gpu
+def test_ring16_without_its_library_raises(setup, monkeypatch):
+    """A bf16-ring request whose library cannot be built raises: nothing
+    stands in for it, neither the float32 ring nor the plain version."""
+    from wavenet_torch.kernels import _build
+    load = _build.load
+
+    def no_ring16(name):
+        if name.endswith("_ring16"):
+            raise RuntimeError(f"nvcc failed to build {name}")
+        return load(name)
+
+    monkeypatch.setattr(_build, "load", no_ring16)
+    for kernel in ("cluster", "tiles", "decode"):
+        B = 128 if kernel == "tiles" else 1
+        c, pk, _, carry, forced, _ = _ring16_case("paper", B, "f32", False)
+        before = dict(ks.decode.launches_by)
+        ring = carry.ring.clone()
+        with pytest.raises(RuntimeError, match="_ring16"):
+            ks.decode(pk, c, ring, carry.causal.clone(),
+                      forced[:, :2].contiguous(), 2, carry.t_abs, 0,
+                      kernel=kernel)
+        assert dict(ks.decode.launches_by) == before
+        assert torch.equal(ring, carry.ring)
+
+
+@pytest.mark.gpu
+def test_ring16_tiles_libraries_match_the_plan(setup):
+    """The bf16-ring tiles libraries' shared memory and resident clusters
+    at every row count are the float32 library's, which the plan takes."""
+    import ctypes
+    from wavenet_torch.kernels import _build
+    libs = [_build.load(n) for n in ("sampler_tiles", "sampler_tiles_ring16",
+                                     "sampler_tiles_bf16_ring16")]
+    for lib in libs:
+        lib.sampler_tiles_smem_bytes.argtypes = [ctypes.c_int]
+        lib.sampler_tiles_smem_bytes.restype = ctypes.c_longlong
+        lib.sampler_tiles_max_clusters.argtypes = [ctypes.c_int,
+                                                   ctypes.c_void_p]
+        lib.sampler_tiles_max_clusters.restype = ctypes.c_int
+    for rb in ks.TILE_ROWS:
+        counts = []
+        for lib in libs:
+            assert lib.sampler_tiles_smem_bytes(rb) == ks.tile_smem_bytes(rb)
+            n = ctypes.c_int(0)
+            assert lib.sampler_tiles_max_clusters(rb, ctypes.byref(n)) == 0
+            counts.append(n.value)
+        assert counts[0] == counts[1] == counts[2] > 0, (rb, counts)

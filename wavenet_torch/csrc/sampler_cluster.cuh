@@ -3,11 +3,16 @@
 // shared memory of a thread-block cluster, for NVIDIA Hopper (sm_90a).
 //
 // The kernel, its launch and its C entry points' body, templated on the
-// weights' type and on local conditioning; sampler_cluster.cu builds the
-// float32 mode (and the route's device queries), sampler_cluster_bf16.cu
-// the bf16 mode, sampler_cluster_lc.cu the local-conditioning mode and
-// sampler_cluster_lc_bf16.cu that mode at bf16 weights, each its own
-// library, so that the four build in parallel.
+// weights' type, on local conditioning and on the ring's type;
+// sampler_cluster.cu builds the float32 mode (and the route's device
+// queries), sampler_cluster_bf16.cu the bf16 mode, sampler_cluster_lc.cu the
+// local-conditioning mode and sampler_cluster_lc_bf16.cu that mode at bf16
+// weights, each its own library, so that the four build in parallel; the
+// four *_ring16.cu build the same four modes at a bf16 ring (ST, the JAX
+// kernel's state_dtype: each past row widened exactly as it is read, each
+// layer's float32 input rounded to nearest even as it goes to the ring;
+// sampler_step.cuh's ring_load, ring_store). The ring stays in device
+// memory, so both ring types take one plan and one shared-memory carve-up.
 //
 // Replaces the JAX package's all-VMEM decode kernel, whose weights and
 // ring stay on chip for the whole launch (its b1 production path):
@@ -377,7 +382,7 @@ __device__ __forceinline__ float widen(__nv_bfloat16 w) {
 }
 
 template <int RB, int kFixed, typename WT, bool kLc = false,
-          unsigned kMask = kFullStep>
+          unsigned kMask = kFullStep, typename ST = float>
 __global__ void __launch_bounds__(kThreads, 1)
 sampler_cluster_kernel(const ClusterArgs<WT> ca) {
   constexpr bool kSkip = !(kMask & kNoSkip), kDense = !(kMask & kNoDense);
@@ -532,7 +537,8 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       const int row = row0 + r;
       const int pos = meta[j] + (int)(step % (long long)meta[NL + j]);
       past[(r * NL + j) * R + q] = opnd<WT>(
-          row < B ? a.ring[((size_t)pos * B + row) * R + q] : 0.f,
+          row < B ? ring_load<ST>(a.ring, ((size_t)pos * B + row) * R + q)
+                  : 0.f,
           kFg && rc);
     }
     if (rank == 0) {
@@ -686,7 +692,8 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
       const int row = row0 + r;
       const int pos = meta[j] + (int)(step % (long long)meta[NL + j]);
       if (row < B)
-        a.ring[((size_t)pos * B + row) * R + q] = ins[(r * NL + j) * R + q];
+        ring_store<ST>(a.ring, ((size_t)pos * B + row) * R + q,
+                       ins[(r * NL + j) * R + q]);
     }
     if (kFeat && rank == 0) {
       // The next step's causal product, off the chain.
@@ -913,10 +920,10 @@ sampler_cluster_kernel(const ClusterArgs<WT> ca) {
 // The launch of `clusters` clusters of cs CTAs, `bytes` of shared memory
 // each, with the kernel's attributes set for it.
 template <int RB, int kFixed, typename WT, bool kLc = false,
-          unsigned kMask = kFullStep>
+          unsigned kMask = kFullStep, typename ST = float>
 cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  auto kernel = sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask>;
+  auto kernel = sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask, ST>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -940,16 +947,16 @@ cudaError_t configure(int cs, size_t bytes, int clusters, cudaStream_t stream,
 }
 
 template <int RB, int kFixed, typename WT, bool kLc,
-          unsigned kMask = kFullStep>
+          unsigned kMask = kFullStep, typename ST = float>
 cudaError_t launch(const ClusterArgs<WT>& ca, size_t bytes,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<RB, kFixed, WT, kLc, kMask>(
+  cudaError_t e = configure<RB, kFixed, WT, kLc, kMask, ST>(
       ca.cs, bytes, (ca.a.B + RB - 1) / RB, stream, cfg, attr);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(
-      &cfg, sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask>, ca);
+      &cfg, sampler_cluster_kernel<RB, kFixed, WT, kLc, kMask, ST>, ca);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1020,15 +1027,16 @@ int cluster_prepare(ClusterArgs<WT>& ca, int cs, int rb,
 }
 
 // The body of the C entry points: the arguments of sampler_decode_f32 with
-// WT weights, round_chain (bf16 only, as DecodeArgsT's), then the plan: cs
-// CTAs a cluster, rb rows a cluster, layer_begin[cs + 1] (host memory) the
-// layer ranges; in the LC mode (kLc) last lc_w, the stream and C_lc.
-template <typename WT, bool kLc = false>
+// WT weights and a ring of type ST, round_chain (bf16 only, as
+// DecodeArgsT's), then the plan: cs CTAs a cluster, rb rows a cluster,
+// layer_begin[cs + 1] (host memory) the layer ranges; in the LC mode (kLc)
+// last lc_w, the stream and C_lc.
+template <typename WT, bool kLc = false, typename ST = float>
 int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
                 const WT* dense_w, const float* dense_add, const WT* skip_w,
                 const float* skip_b, const WT* post1_w, const float* post1_b,
                 const WT* post2_w, const float* post2_b, const int* ring_meta,
-                float* ring, float* causal, const void* forced, int* codes,
+                ST* ring, float* causal, const void* forced, int* codes,
                 float* logits, float* next_amp, int B, int L, int R, int D,
                 int S, int Q, int n_total, int n_forced, int n_log,
                 int scalar_input, int causal_width, long long t0,
@@ -1087,15 +1095,15 @@ int cluster_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
     using F1 = Fixed<1>;
     using F2 = Fixed<2>;
     if (R == F1::R && D == F1::D && S == F1::S && Q == F1::Q && cs == F1::CS)
-      return launch<RB, 1, WT, kLc>(ca, bytes, s);
+      return launch<RB, 1, WT, kLc, kFullStep, ST>(ca, bytes, s);
     // The LC mode compiles the paper/gc widths only; the wide config's
     // LC runs the kernel of runtime widths.
     if constexpr (!kLc) {
       if (R == F2::R && D == F2::D && S == F2::S && Q == F2::Q &&
           cs == F2::CS)
-        return launch<RB, 2, WT, kLc>(ca, bytes, s);
+        return launch<RB, 2, WT, kLc, kFullStep, ST>(ca, bytes, s);
     }
-    return launch<RB, 0, WT, kLc>(ca, bytes, s);
+    return launch<RB, 0, WT, kLc, kFullStep, ST>(ca, bytes, s);
   });
 }
 

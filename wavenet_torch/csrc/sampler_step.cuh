@@ -27,9 +27,16 @@
 //          terms of all L layers are computed at the top of the step, off
 //          the layer chain (lc_terms). With bf16 weights lc_w is bf16 and
 //          lc_t is rounded to bf16 at every B, round_chain or not.
-// sampler_decode.cu instantiates <RB, kFullStep, float>,
-// <RB, kFullStep, __nv_bfloat16>, <RB, kFullStep, float, true> and
-// <RB, kFullStep, __nv_bfloat16, true>.
+//   ST     the ring's type (the JAX kernels' state_dtype): float, or
+//          __nv_bfloat16, whose past rows are widened exactly to float as
+//          they are read and whose new rows are the layers' float32 inputs
+//          rounded to nearest even as they are stored (ring_load,
+//          ring_store below; sampler_cluster.cuh and sampler_tiles.cuh take
+//          the same parameter). The step's own input enters [past | current]
+//          unrounded; the causal register and every sum stay float32.
+// sampler_decode.cu instantiates <RB, kFullStep, WT, kLc> at both weight
+// types, with and without LC (ST float); sampler_decode_ring16.cu the same
+// four at ST = __nv_bfloat16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,7 +84,8 @@ struct DecodeArgsT {
   const WT* post2_w;       // [S, Q]
   const float* post2_b;    // [Q]
   const int* ring_meta;    // [2L]: ring row offsets, then dilations
-  float* ring;             // [sum_d, B, R], updated in place
+  void* ring;              // [sum_d, B, R] at the ring's type (float or
+                           // bf16), updated in place
   float* causal;           // [B, KC], updated in place
   const void* forced;      // [B, n_forced] int32, or float32 when scalar
   int* codes;              // [B, n_total]
@@ -103,6 +111,41 @@ struct DecodeArgsT {
 __device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
+}
+
+// Element i of a ring of type ST as float: exact (a bf16 row widens).
+template <typename ST>
+__device__ __forceinline__ float ring_load(const void* ring, size_t i) {
+  if constexpr (sizeof(ST) == sizeof(float))
+    return static_cast<const float*>(ring)[i];
+  else
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(ring)[i]);
+}
+
+// Stores v as element i of a ring of type ST: a bf16 ring rounds it to
+// nearest even (the JAX kernels' current.astype(ring_ref.dtype)).
+template <typename ST>
+__device__ __forceinline__ void ring_store(void* ring, size_t i, float v) {
+  if constexpr (sizeof(ST) == sizeof(float))
+    static_cast<float*>(ring)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(ring)[i] = __float2bfloat16_rn(v);
+}
+
+// Stores elements i .. i + 3 (i a multiple of 4) of a ring of type ST in
+// one access: a 16-byte store of float, an 8-byte store of 4 bf16 (each
+// rounded to nearest even, the first in the lowest half).
+template <typename ST>
+__device__ __forceinline__ void ring_store4(void* ring, size_t i, float4 v) {
+  if constexpr (sizeof(ST) == sizeof(float)) {
+    *reinterpret_cast<float4*>(static_cast<float*>(ring) + i) = v;
+  } else {
+    const auto bits = [](float x) {
+      return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+    };
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(ring) + i) =
+        make_uint2(bits(v.x) | bits(v.y) << 16, bits(v.z) | bits(v.w) << 16);
+  }
 }
 
 // An activation as the operand of a product with WT weights: rounded to
@@ -262,7 +305,8 @@ __device__ __forceinline__ int mu_law_encode(float amp, float mu) {
                         0.5f);
 }
 
-template <int RB, unsigned kMask, typename WT, bool kLc = false>
+template <int RB, unsigned kMask, typename WT, bool kLc = false,
+          typename ST = float>
 __global__ void __launch_bounds__(kThreads)
 sampler_decode_kernel(const DecodeArgsT<WT> a) {
   constexpr bool kSkip = !(kMask & kNoSkip), kDense = !(kMask & kNoDense);
@@ -357,8 +401,8 @@ sampler_decode_kernel(const DecodeArgsT<WT> a) {
           p = 0.f;
           if (row < B) {
             const size_t idx = ((size_t)pos * B + row) * R + j;
-            p = a.ring[idx];
-            a.ring[idx] = c;
+            p = ring_load<ST>(a.ring, idx);
+            ring_store<ST>(a.ring, idx, c);
           }
         }
         xcat[r * 2 * R + j] = p;

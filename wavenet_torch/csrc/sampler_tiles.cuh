@@ -4,7 +4,12 @@
 // weights in shared memory, and each CTA runs its products as register-tiled
 // outer products over tens of rows at once. sampler_tiles.cu is its float32
 // mode (and the route's device queries), sampler_tiles_bf16.cu its bf16-weight
-// mode, each its own library.
+// mode, sampler_tiles_ring16.cu and sampler_tiles_bf16_ring16.cu the two at a
+// bf16 ring (the template parameter ST, the JAX kernels' state_dtype: each
+// past row widened exactly as it is read, each layer's float32 input
+// rounded to nearest even as it goes to the ring, four values an 8-byte
+// store; sampler_step.cuh's ring_load, ring_store4), each its own library.
+// The ring stays in device memory, so both ring types take one plan.
 //
 // Replaces the JAX package's large-batch decode kernels, which stream the
 // weights from HBM with the ring in HBM rows or quad-packed:
@@ -348,7 +353,7 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, const float4& v,
       : "memory");
 }
 
-template <int RT, typename WT>
+template <int RT, typename WT, typename ST = float>
 __global__ void __launch_bounds__(kThreads, 1)
 sampler_tiles_kernel(const TileArgs<WT> ta) {
   constexpr int RBP = 8 * RT;
@@ -452,7 +457,8 @@ sampler_tiles_kernel(const TileArgs<WT> ta) {
         pv[u] = 0.f;
         if (j < nl && r < nrows) {
           const int pos = meta[j] + (int)(step % (long long)meta[kNL + j]);
-          pv[u] = a.ring[((size_t)pos * B + row0 + r) * kR + q];
+          pv[u] =
+              ring_load<ST>(a.ring, ((size_t)pos * B + row0 + r) * kR + q);
         }
       }
 #pragma unroll
@@ -597,9 +603,8 @@ sampler_tiles_kernel(const TileArgs<WT> ta) {
       const int j = i / (nrows * kR / 4), r = (i / (kR / 4)) % nrows;
       const int q = 4 * (i % (kR / 4));
       const int pos = meta[j] + (int)(step % (long long)meta[kNL + j]);
-      *reinterpret_cast<float4*>(
-          a.ring + ((size_t)pos * B + row0 + r) * kR + q) =
-          ld4(past + r * kPS + j * kR + q);
+      ring_store4<ST>(a.ring, ((size_t)pos * B + row0 + r) * kR + q,
+                      ld4(past + r * kPS + j * kR + q));
     }
 
     {
@@ -908,11 +913,11 @@ sampler_tiles_kernel(const TileArgs<WT> ta) {
 
 // The launch of `clusters` clusters of 8 CTAs, `bytes` of shared memory
 // each, with the kernel's attributes set for it.
-template <int RT, typename WT>
+template <int RT, typename WT, typename ST = float>
 cudaError_t configure(size_t bytes, int clusters, cudaStream_t stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
   cudaError_t e = cudaFuncSetAttribute(
-      sampler_tiles_kernel<RT, WT>,
+      sampler_tiles_kernel<RT, WT, ST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   cfg = cudaLaunchConfig_t{};
@@ -942,8 +947,9 @@ cudaError_t with_rows(int rt, F f) {
 }
 
 // Clusters of 8 CTAs at rb rows a cluster that the current device keeps
-// resident at once (tile_plan's residency).
-template <typename WT>
+// resident at once (tile_plan's residency), of the kernel at WT weights and
+// a ring of type ST.
+template <typename WT, typename ST = float>
 int tiles_max_clusters(int rb, int* n) {
   *n = 0;
   if (rb < 1 || rb > kMaxRows) return (int)cudaErrorInvalidValue;
@@ -952,22 +958,23 @@ int tiles_max_clusters(int rb, int* n) {
     constexpr int RT = decltype(k)::value;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    cudaError_t e = configure<RT, WT>(bytes, 1, nullptr, cfg, attr);
+    cudaError_t e = configure<RT, WT, ST>(bytes, 1, nullptr, cfg, attr);
     if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveClusters(n, sampler_tiles_kernel<RT, WT>,
-                                          &cfg);
+    return cudaOccupancyMaxActiveClusters(
+        n, sampler_tiles_kernel<RT, WT, ST>, &cfg);
   });
 }
 
-// The arguments of sampler_decode_f32 / _bf16 with WT weights, round_chain
-// (bf16 only, as DecodeArgsT's), then the plan: cs (8) CTAs a cluster, rb
-// rows a cluster, layer_begin[cs + 1] (host memory) the layer ranges.
-template <typename WT>
+// The arguments of sampler_decode_f32 / _bf16 with WT weights and a ring
+// of type ST, round_chain (bf16 only, as DecodeArgsT's), then the plan: cs
+// (8) CTAs a cluster, rb rows a cluster, layer_begin[cs + 1] (host memory)
+// the layer ranges.
+template <typename WT, typename ST = float>
 int tiles_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
               const WT* dense_w, const float* dense_add, const WT* skip_w,
               const float* skip_b, const WT* post1_w, const float* post1_b,
               const WT* post2_w, const float* post2_b, const int* ring_meta,
-              float* ring, float* causal, const void* forced, int* codes,
+              ST* ring, float* causal, const void* forced, int* codes,
               float* logits, float* next_amp, int B, int L, int R, int D,
               int S, int Q, int n_total, int n_forced, int n_log,
               int scalar_input, int causal_width, long long t0,
@@ -1035,9 +1042,10 @@ int tiles_run(const WT* causal_w, const WT* layer_w, const float* layer_add,
     constexpr int RT = decltype(k)::value;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    cudaError_t e = configure<RT, WT>(bytes, (B + rb - 1) / rb, s, cfg, attr);
+    cudaError_t e =
+        configure<RT, WT, ST>(bytes, (B + rb - 1) / rb, s, cfg, attr);
     if (e != cudaSuccess) return e;
-    e = cudaLaunchKernelEx(&cfg, sampler_tiles_kernel<RT, WT>, ta);
+    e = cudaLaunchKernelEx(&cfg, sampler_tiles_kernel<RT, WT, ST>, ta);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   });

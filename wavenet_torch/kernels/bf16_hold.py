@@ -29,6 +29,24 @@ above, and never past PLAIN_CAP of the gap: a kernel that ignored its
 bf16 weights lies the whole gap away (every ratio 1).
 ``wavenet_torch/tools/bf16_spread.py`` takes the readings behind both
 constants.
+
+A bf16 ring (``state_dtype=torch.bfloat16``) changes no step's logits:
+a ring row is stored after it is read. What it changes is the rows a step
+writes, each layer's float32 input rounded to nearest even. At float32
+weights a kernel's input to a layer lies within float32 round-off of the
+plain version's, so its rounded row equals the plain version's but where
+that input lies within those last bits of a rounding boundary:
+:func:`hold_ring16` allows RING16_FLIP_SHARE of the elements to differ,
+each by one bf16 ulp or, where a sum cancels to near zero, by
+RING16_ATOL. A kernel that truncated instead of rounding would differ in
+about half of them. On the CPU, the plain version with its products
+summed in float64 against itself in float32 (gc widths, b16, 12 steps
+from a bf16 ring) differed in at most 0.052% of the stored elements, by
+one ulp or (values near 1e-5) by up to 8 ulps, 2e-6. At bf16 weights a
+rounding flip of one operand moves the later layers' inputs, and their
+roundings flip in turn: there the same runs differed in up to 3.0% of the
+elements, by up to 0.031, yet within :func:`hold`'s limits (mean ratio
+0.047, worst 1.0), so rows at bf16 weights are held by :func:`hold`.
 """
 
 from __future__ import annotations
@@ -51,13 +69,16 @@ def ratios(got: torch.Tensor, ref: torch.Tensor,
     err, gap = (got - ref).abs(), (ref - ref32).abs()
     row_err = err.flatten(1).median(dim=1).values
     row_gap = gap.flatten(1).median(dim=1).values
+    # A zero gap (a bf16 ring where both plain versions round alike) over
+    # a zero error reads 0, over any error a huge ratio.
     tiny = torch.finfo(torch.float32).tiny
     return {"max_abs_err": err.max().item(),
-            "median_ratio": (err.median() / gap.median()).item(),
+            "median_ratio": (err.median() / gap.median().clamp_min(tiny))
+            .item(),
             "row_median_ratio": (row_err / row_gap.clamp_min(tiny))
             .max().item(),
-            "mean_ratio": (err.mean() / gap.mean()).item(),
-            "max_ratio": (err.max() / gap.max()).item()}
+            "mean_ratio": (err.mean() / gap.mean().clamp_min(tiny)).item(),
+            "max_ratio": (err.max() / gap.max().clamp_min(tiny)).item()}
 
 
 def hold(where: str, got: torch.Tensor, ref: torch.Tensor,
@@ -94,13 +115,16 @@ def stepwise(c, pk16, pk32, ring, causal, forced, t0, seed, round_chain,
     version at bf16 and at float32 weights from the same state, so no
     rounding flip of an earlier step carries into a later one. An LC
     config's stream ``lc`` [n, B, C_lc] conditions the window (row t of it
-    step ``t0 + t``; ``launch`` takes the same row). Raises
-    AssertionError where the kernel's causal register differs from the
-    plain one's or it changed a ring row that the step does not write.
-    Returns (logits: kernel, bf16 plain, float32 plain, each [B, n, Q];
-    the ring positions each step wrote: kernel, bf16 plain, float32
-    plain, each [B, P, R])."""
+    step ``t0 + t``; ``launch`` takes the same row). The ring is float32
+    or bf16 (its type is ``ring``'s; the plain versions step from the same
+    ring). Raises AssertionError where the kernel's causal register
+    differs from the plain one's or it changed a ring row that the step
+    does not write. Returns (logits: kernel, bf16 plain, float32 plain,
+    each [B, n, Q]; the ring positions each step wrote: kernel, bf16
+    plain, float32 plain, each [B, P, R] float32, a bf16 ring's rows
+    widened). At float32 weights pass the same packed weights twice."""
     out = [[] for _ in range(6)]
+    offs = ks.ring_offsets(c)
     for t in range(forced.shape[1]):
         x = forced[:, t:t + 1].contiguous()
         ring0, causal0 = ring.clone(), causal.clone()
@@ -115,14 +139,57 @@ def stepwise(c, pk16, pk32, ring, causal, forced, t0, seed, round_chain,
             rings.append(r)
             if k == 1 and not torch.equal(cz, causal):
                 raise AssertionError("bf16 step: causal register differs")
-        wrote = (rings[0] != ring0) | (rings[1] != ring0)
-        if not torch.equal(ring[~wrote], ring0[~wrote]):
+        step_rows = torch.zeros(ring.shape[0], dtype=torch.bool,
+                                device=ring.device)
+        step_rows[[o + (t0 + t) % d for o, d in zip(offs, c.dilations)]] = (
+            True)
+        if not torch.equal(ring[~step_rows], ring0[~step_rows]):
             raise AssertionError("bf16 step: ring values outside the step "
                                  "changed")
-        pos = wrote.flatten(1).any(1)
+        pos = ((ring != ring0) | (rings[0] != ring0)
+               | (rings[1] != ring0)).flatten(1).any(1)
         for k, r in ((3, ring), (4, rings[0]), (5, rings[1])):
-            out[k].append(r[pos].transpose(0, 1))
+            out[k].append(r[pos].transpose(0, 1).float())
     return [torch.cat(v, dim=1) for v in out]
+
+
+#: :func:`hold_ring16`'s limit on the share of a bf16 ring's elements that
+#: may differ from the plain version's, and how far each may: one bf16 ulp,
+#: or RING16_ATOL (a sum that cancels to near zero keeps float32's absolute
+#: round-off, many ulps of its small value).
+RING16_FLIP_SHARE, RING16_ATOL = 0.005, 1e-5
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps, elementwise, of bf16 values (bf16 tensors or
+    float32 ones holding bf16 values): the distance of their bit patterns
+    on the number line, so that -0 and +0 are 0 apart."""
+    def line(x):
+        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(a) - line(b)).abs()
+
+
+def hold_ring16(where: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Hold a kernel's bf16 ring rows ``got`` against the plain version's
+    ``ref`` from the same state at float32 weights: equal, but for at most
+    RING16_FLIP_SHARE of the elements, each one bf16 ulp or RING16_ATOL
+    apart. Raises AssertionError past either limit; returns
+    {"differ_share", "max_ulps", "max_abs_err", "far"} (far: elements
+    past both the ulp and RING16_ATOL)."""
+    if not torch.isfinite(got).all().item():
+        raise AssertionError(f"{where}: non-finite ring values")
+    d = bf16_ulps(got, ref)
+    err = (got.float() - ref.float()).abs()
+    out = {"differ_share": (d > 0).float().mean().item(),
+           "max_ulps": int(d.max().item()), "max_abs_err": err.max().item(),
+           "far": int(((d > 1) & (err > RING16_ATOL)).sum().item())}
+    if out["far"] or out["differ_share"] > RING16_FLIP_SHARE:
+        raise AssertionError(
+            f"{where}: bf16 ring rows {out['differ_share']:.4g} of the "
+            f"elements differ (limit {RING16_FLIP_SHARE}), {out['far']} "
+            f"more than one ulp and {RING16_ATOL} apart")
+    return out
 
 
 #: :func:`hold_as_plain`'s factor on the plain version's own distance, and

@@ -54,9 +54,20 @@ own library, and ``sampler_decode_bf16``), on the float32 mode's plans, so
 the route's ranges are the same at either weight type. The weights are
 widened to float32 and each product's activation operand is rounded to
 bf16 first, at the JAX kernels' points (``decode_reference`` says where);
-the ring, the causal register and every sum stay float32. Generation from
+the causal register and every sum stay float32. Generation from
 a config whose ``compute_dtype`` is bfloat16 prefills at float32 and
 decodes at the requested weight type, as the JAX package does.
+
+The ring is float32, or bf16 (``state_dtype=torch.bfloat16``, the JAX
+package's ``state_dtype=jnp.bfloat16`` of kernels 1-3): each layer reads
+its past row widened exactly to float32 and stores its float32 input
+rounded to nearest even, at either weight type, with or without LC. A
+bf16 ring runs the bf16-ring version of each mode
+(``csrc/sampler_decode_ring16.cu``, ``csrc/sampler_cluster*_ring16.cu``,
+``csrc/sampler_tiles*_ring16.cu``, each its own library, built the first
+time a bf16 ring asks for it), on the float32 ring's plans: the ring
+stays in device memory in every kernel, so the route does not depend on
+its type.
 
 Local conditioning (an LC config and an ``lc`` stream, the JAX kernels'
 ``has_lc`` mode) runs the LC mode of ``sampler_cluster``
@@ -128,7 +139,7 @@ KERNEL_FIELDS = tuple(f for f in PackedSampler._fields if f != "lc_w")
 
 class StreamSamplerCarry(NamedTuple):
     """Decode state: what ``decode`` resumes from."""
-    ring: torch.Tensor         # [sum_d, B, R] float32
+    ring: torch.Tensor         # [sum_d, B, R] float32 (or bf16: RING_DTYPES)
     causal: torch.Tensor       # [B, (kw_in - 1) * C_in] float32 register
     t_abs: int                 # absolute steps completed (ring phase)
     last: torch.Tensor         # [B] the first decode input: int32 code, or
@@ -140,17 +151,34 @@ def causal_width(config: WaveNetConfig) -> int:
     return (_input_kernel_width(config) - 1) * config.input_channels
 
 
+#: The ring types a decode takes (the JAX kernels' ``state_dtype``): float32,
+#: or bfloat16, whose past rows are read widened to float32 and whose new
+#: rows are stored rounded to nearest even.
+RING_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_state_dtype(state_dtype, name: str = "state_dtype") -> None:
+    """Raise ValueError unless ``state_dtype`` (of ``name``) is one of
+    RING_DTYPES."""
+    if state_dtype not in RING_DTYPES:
+        raise ValueError(f"{name} of type {state_dtype}: float32 or "
+                         "bfloat16")
+
+
 def input_dtype(config: WaveNetConfig) -> torch.dtype:
     """Forced inputs and seeds: float32 amplitudes in scalar mode, else
     int32 mu-law codes."""
     return torch.float32 if config.scalar_input else torch.int32
 
 
-def zero_state(config: WaveNetConfig, batch_size: int, device=None):
-    """(ring, causal) of a run that starts from silence: all zeros."""
+def zero_state(config: WaveNetConfig, batch_size: int, device=None,
+               dtype: torch.dtype = torch.float32):
+    """(ring, causal) of a run that starts from silence: all zeros, the
+    ring at ``dtype`` (float32, or bfloat16 for a bf16 ring), the causal
+    register float32."""
     c = config
     ring = torch.zeros((sum(c.dilations), batch_size, c.residual_channels),
-                       dtype=torch.float32, device=device)
+                       dtype=dtype, device=device)
     causal = torch.zeros((batch_size, causal_width(c)), dtype=torch.float32,
                          device=device)
     return ring, causal
@@ -432,16 +460,18 @@ def weight_dtype_of(packed: PackedSampler) -> torch.dtype:
     return packed.layer_w.dtype
 
 
-def chain_rounded(route: str, B: int, lc: bool = False) -> bool:
+def chain_rounded(route: str, B: int, lc: bool = False,
+                  ring16: bool = False) -> bool:
     """Whether a bf16 decode rounds the layer chain's inputs to bf16: on
     ``route`` "decode" (:func:`decode`, the JAX package's prefill route,
     kernels 1-3) unless B == 1, where JAX multiplies float32 activations by
     the widened weights (its VPU chain); on "sequential"
     (:func:`decode_sequential`, kernel 4, which has no b1 branch) at every
-    B. With local conditioning (``lc``) the sequential route follows the
-    decode rule: kernel 4 takes no LC, and JAX runs an LC run from a zero
-    ring on kernel 1 or 2, whose b1 branch is the VPU chain."""
-    if route == "decode" or (route == "sequential" and lc):
+    B. With local conditioning (``lc``) or a bf16 ring (``ring16``) the
+    sequential route follows the decode rule: kernel 4 takes neither, and
+    JAX runs such a run from a zero ring on kernel 1 or 2, whose b1 branch
+    is the VPU chain."""
+    if route == "decode" or (route == "sequential" and (lc or ring16)):
         return B != 1
     if route == "sequential":
         return True
@@ -465,7 +495,8 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     torch.bfloat16)``) it computes what the JAX kernels compute at
     ``weight_dtype=bfloat16``: the weights are widened to float32 and the
     activation operand of a product is rounded to bf16 first; products,
-    sums, adds, tanh, the ring and the causal register stay float32. The
+    sums, adds, tanh and the causal register stay float32 (the ring too,
+    unless it is bf16: see below). The
     causal window and the head's two inputs are always rounded; the layer
     chain's three inputs (filter/gate ``[past | current]``, dense, skip)
     only where ``round_chain`` is true; ``None`` takes :func:`decode`'s
@@ -473,6 +504,13 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     whatever ``round_chain`` says: the JAX kernels cast it to ``lc_w``'s
     type before either of their branches, the b1 VPU chain included.
     Float32 weights ignore ``round_chain``.
+
+    A bf16 ``ring`` (the JAX kernels at ``state_dtype=bfloat16``) holds
+    each layer's past inputs rounded: a layer reads its past row widened
+    exactly to float32, and stores its float32 input rounded to nearest
+    even; the input enters ``[past | current]`` unrounded, and everything
+    else stays as at a float32 ring. This is the plain version of every
+    bf16-ring mode of the three kernels.
     """
     c = config
     L, D, Q = c.num_layers, c.dilation_channels, c.quantization_channels
@@ -484,6 +522,7 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
     log_from = n_total - n_log
     inv_t = float(np.float32(1.0 / temperature))
     bf16 = weight_dtype_of(packed) == torch.bfloat16
+    check_state_dtype(ring.dtype, "sampler_decode: ring")
     check_lc(c, lc)
     _check_lc_operands(packed, c, lc, n_total, B, dev)
     if round_chain is None:
@@ -516,8 +555,8 @@ def decode_reference(packed: PackedSampler, config: WaveNetConfig,
             skip = None
             for l in range(L):
                 pos = offs[l] + (t0 + t) % dil[l]
-                past = ring[pos].clone()
-                ring[pos] = cur
+                past = ring[pos].to(torch.float32, copy=True)
+                ring[pos] = cur            # a bf16 ring rounds to nearest even
                 fg = (chain_in(torch.cat([past, cur], dim=-1)) @ w.layer_w[l]
                       + w.layer_add[l])
                 if lc is not None:
@@ -838,12 +877,6 @@ def _bind(lib) -> None:
         fn.restype = ctypes.c_int
 
 
-def _bind_cluster_bf16(lib) -> None:
-    lib.sampler_cluster_bf16.argtypes = (_DECODE_ARGTYPES + _ROUND + _PLAN
-                                         + [ctypes.c_void_p])
-    lib.sampler_cluster_bf16.restype = ctypes.c_int
-
-
 def _bind_cluster_lc(lib, bf16: bool = False) -> None:
     """Bind an LC cluster library: ``sampler_cluster_lc``
     (``sampler_cluster_lc_f32``) or, with ``bf16``,
@@ -874,6 +907,28 @@ def _bind_cluster(lib) -> None:
     lib.sampler_cluster_max_clusters.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.sampler_cluster_max_clusters.restype = ctypes.c_int
+
+
+def _entry(used: str, bf16: bool, lc: bool, ring16: bool):
+    """The C entry point of one mode of a decode kernel (``used``: "decode",
+    "cluster" or "tiles"), bound: ``sampler_<kernel>[_lc]_<f32|bf16>``, with
+    ``_ring16`` at a bf16 ring, from the library of that mode (built from
+    ``csrc/<library>.cu`` at first use): ``sampler_<kernel>[_lc][_bf16]``,
+    ``sampler_decode`` for all four of its modes, each with ``_ring16`` at
+    a bf16 ring. It takes the decode arguments, then ``round_chain`` (bf16
+    weights), the LC operands (LC), the plan (cluster, tiles), the
+    stream."""
+    from wavenet_torch.kernels import _build
+    mode = ("_lc" if lc else "") + ("_bf16" if bf16 else "_f32")
+    r16 = "_ring16" if ring16 else ""
+    lib = ("sampler_decode" if used == "decode"
+           else f"sampler_{used}{mode}".replace("_f32", "")) + r16
+    fn = getattr(_build.load(lib), f"sampler_{used}{mode}{r16}")
+    fn.argtypes = (_DECODE_ARGTYPES + (_ROUND if bf16 else [])
+                   + (_LC if lc else []) + (_PLAN if used != "decode" else [])
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _bind_tiles(lib, bf16: bool = False) -> None:
@@ -1052,10 +1107,12 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
     :func:`chain_rounded` says so for ``route`` ("decode" or
     "sequential", the caller's; see :func:`decode_reference`). An ``lc``
     stream launches the LC mode of the cluster or decode kernel, at bf16
-    weights its bf16 LC mode. Returns
-    ``(codes, logits, kernel launched)``, the kernel's name with "_bf16"
-    in the bf16 mode and "_lc" in the LC mode; raises if the launch is
-    refused."""
+    weights its bf16 LC mode. A bf16 ``ring`` launches the bf16-ring
+    version of that mode, on the same plan (the ring stays in device
+    memory in every kernel). Returns ``(codes, logits, kernel launched)``,
+    the kernel's name with "_bf16" in the bf16 mode, "_lc" in the LC mode
+    and "_ring16" last at a bf16 ring; raises if the launch is refused
+    (no other mode or ring type stands in)."""
     _check_kernel(kernel, packed, config, lc)
     c = config
     if c.filter_width != 2:
@@ -1083,14 +1140,14 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
                         ("post2_b", (1, Q))):
         _check(name, getattr(packed, name),
                wt if name in WEIGHT_FIELDS else f32, shape, dev)
-    _check("ring", ring, f32, (sum(c.dilations), B, R), dev)
+    check_state_dtype(ring.dtype, "sampler_decode: ring")
+    _check("ring", ring, ring.dtype, (sum(c.dilations), B, R), dev)
     _check("causal", causal, f32, (B, KC), dev)
     _check("forced", forced, input_dtype(c), (B, n_forced), dev)
     if next_amp is not None:
         _check("next_amp", next_amp, f32, (B,), dev)
     _check_lc_operands(packed, c, lc, n_total, B, dev)
 
-    from wavenet_torch.kernels import _build
     if plan is None and kernel != "decode":
         d = _device(dev)
         plan = route_plan(c, B, d.smem_optin, d.cluster_resident,
@@ -1128,45 +1185,24 @@ def _launch(packed: PackedSampler, config: WaveNetConfig, ring: torch.Tensor,
             or any(b <= a for a, b in zip(plan.layer_begin,
                                           plan.layer_begin[1:]))):
         raise ValueError(f"sampler_{used}: bad plan {plan}")
-    rnd = (int(chain_rounded(route, B, lc is not None)),) if bf16 else ()
+    ring16 = ring.dtype == torch.bfloat16
+    rnd = ((int(chain_rounded(route, B, lc is not None, ring16)),) if bf16
+           else ())
     lc_args = (() if lc is None else
                (packed.lc_w.data_ptr(), lc.data_ptr(), c.lc_channels))
-    if used == "tiles":
-        if plan.CS != TILE_CS or plan.RB not in TILE_ROWS:
-            raise ValueError(f"sampler_tiles: bad plan {plan}")
-        lib = _build.load("sampler_tiles_bf16" if bf16 else "sampler_tiles")
-        _bind_tiles(lib, bf16)
-        fn = lib.sampler_tiles_bf16 if bf16 else lib.sampler_tiles_f32
-        begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
-        err = fn(*args, *rnd, plan.CS, plan.RB, begin, stream)
-    elif used == "cluster":
-        if S % plan.CS or Q % (4 * plan.CS) or plan.RB not in CLUSTER_ROWS:
-            raise ValueError(f"sampler_cluster: bad plan {plan}")
-        begin = (ctypes.c_int * len(plan.layer_begin))(*plan.layer_begin)
-        if lc is not None:
-            lib = _build.load("sampler_cluster_lc_bf16" if bf16
-                              else "sampler_cluster_lc")
-            _bind_cluster_lc(lib, bf16)
-            fn = (lib.sampler_cluster_lc_bf16 if bf16
-                  else lib.sampler_cluster_lc_f32)
-        elif bf16:
-            lib = _build.load("sampler_cluster_bf16")
-            _bind_cluster_bf16(lib)
-            fn = lib.sampler_cluster_bf16
-        else:
-            lib = _build.load("sampler_cluster")
-            _bind_cluster(lib)
-            fn = lib.sampler_cluster_f32
-        err = fn(*args, *rnd, *lc_args, plan.CS, plan.RB, begin, stream)
-    else:
-        lib = _build.load("sampler_decode")
-        _bind(lib)
-        fn = {(False, False): lib.sampler_decode_f32,
-              (True, False): lib.sampler_decode_bf16,
-              (False, True): lib.sampler_decode_lc_f32,
-              (True, True): lib.sampler_decode_lc_bf16}[bf16, lc is not None]
-        err = fn(*args, *rnd, *lc_args, stream)
-    name = used + ("_bf16" if bf16 else "") + ("" if lc is None else "_lc")
+    plan_args = ()
+    if used == "tiles" and (plan.CS != TILE_CS or plan.RB not in TILE_ROWS):
+        raise ValueError(f"sampler_tiles: bad plan {plan}")
+    if used == "cluster" and (S % plan.CS or Q % (4 * plan.CS)
+                              or plan.RB not in CLUSTER_ROWS):
+        raise ValueError(f"sampler_cluster: bad plan {plan}")
+    if plan is not None:
+        plan_args = (plan.CS, plan.RB, (ctypes.c_int * len(plan.layer_begin))(
+            *plan.layer_begin))
+    fn = _entry(used, bf16, lc is not None, ring16)
+    err = fn(*args, *rnd, *lc_args, *plan_args, stream)
+    name = (used + ("_bf16" if bf16 else "") + ("" if lc is None else "_lc")
+            + ("_ring16" if ring16 else ""))
     if err != 0:
         raise RuntimeError(f"sampler_{name} launch failed: CUDA error {err}")
     return codes, logits, name
@@ -1185,9 +1221,10 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
            *, kernel: str = "auto", lc: Optional[torch.Tensor] = None):
     """Run ``n_total`` decode steps for every row in one kernel launch.
 
-    ``ring`` [sum_d, B, R] and ``causal`` [B, (kw_in-1)*C_in] (float32)
-    are the state to resume from at absolute step ``t0``; both are
-    updated in place. ``forced`` [B, n_forced] (int32 codes, or float32
+    ``ring`` [sum_d, B, R] (float32, or bfloat16: the JAX kernels'
+    ``state_dtype``, each stored row rounded to nearest even) and
+    ``causal`` [B, (kw_in-1)*C_in] (float32) are the state to resume from
+    at absolute step ``t0``; both are updated in place. ``forced`` [B, n_forced] (int32 codes, or float32
     amplitudes in scalar mode): input 0 is forced[:, 0], and inputs
     1..n_forced-1 are forced too; later inputs are the sampled codes.
     Returns ``codes`` [B, n_total] int32 (code t is input t+1, a forced
@@ -1206,7 +1243,9 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
     for this route (unless B == 1). An LC config takes ``lc`` [n_total,
     B, C_lc] float32 (row t conditions step t, already refined) and runs
     the LC mode of the cluster or decode kernel, at either weight type
-    (at bf16 the LC row rounded to bf16 at every B).
+    (at bf16 the LC row rounded to bf16 at every B). A bf16 ring runs the
+    bf16-ring version of the routed mode (its name ends in "_ring16"), on
+    the float32 ring's plan.
     """
     _check_kernel(kernel, packed, config, lc)
     if _device_type(ring) == "cpu":
@@ -1226,7 +1265,7 @@ def decode(packed: PackedSampler, config: WaveNetConfig,
 #: "tiles", "decode", and "cluster_bf16", "tiles_bf16", "decode_bf16" for
 #: the bf16 modes, "cluster_lc", "decode_lc" for the LC modes,
 #: "cluster_bf16_lc", "decode_bf16_lc" for the LC modes at bf16 weights;
-#: read by chip_smoke.py).
+#: each of these with "_ring16" at a bf16 ring; read by chip_smoke.py).
 decode.launches = 0
 decode.launches_by = collections.Counter()
 
@@ -1235,7 +1274,8 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
                       forced: torch.Tensor, n_total: int, seed: int,
                       temperature: float = 1.0, collect_logits=False, *,
                       kernel: str = "auto",
-                      lc: Optional[torch.Tensor] = None):
+                      lc: Optional[torch.Tensor] = None,
+                      state_dtype: torch.dtype = torch.float32):
     """Kernel 4's route: one launch from a zero ring and causal register.
 
     The whole forced prefix ``forced`` [B, n_forced] is stepped inside
@@ -1250,16 +1290,23 @@ def decode_sequential(packed: PackedSampler, config: WaveNetConfig,
     ``lc`` [n_total, B, C_lc] conditions every step, the forced ones
     included, as in :func:`decode` (the JAX package's
     ``generate_pallas(prefill=False)`` on kernel 1 takes LC; its HBM-ring
-    variant does not).
+    variant does not). ``state_dtype=torch.bfloat16`` starts from a zero
+    bf16 ring (the JAX package's ``generate_pallas(prefill=False,
+    state_dtype=bfloat16)``, kernel 1 or 2 from a zero ring; kernel 4 takes
+    no state dtype), so bf16 weights then round the chain as on the decode
+    route.
     """
     _check_kernel(kernel, packed, config, lc)
-    ring, causal = zero_state(config, forced.shape[0], forced.device)
+    check_state_dtype(state_dtype)
+    ring, causal = zero_state(config, forced.shape[0], forced.device,
+                              state_dtype)
     if _device_type(forced) == "cpu":
         return decode_reference(
             packed, config, ring, causal, forced, n_total, 0, seed,
             temperature, collect_logits,
             round_chain=chain_rounded("sequential", forced.shape[0],
-                                      lc is not None), lc=lc)
+                                      lc is not None,
+                                      state_dtype == torch.bfloat16), lc=lc)
     codes, logits, used = _launch(
         packed, config, ring, causal, forced, n_total, 0, seed, temperature,
         collect_logits, route="sequential", kernel=kernel, lc=lc)
@@ -1326,7 +1373,8 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
                   temperature: float = 1.0,
                   seed_codes: Optional[torch.Tensor] = None,
                   collect_logits=False, weight_dtype=torch.float32,
-                  prefill: bool = True, lc=None, lc_prime=None):
+                  prefill: bool = True, lc=None, lc_prime=None,
+                  state_dtype: torch.dtype = torch.float32):
     """Generate mu-law codes [B, n_samples] with one decode launch.
 
     ``seed_codes`` [B, T_seed] teacher-forces the start (int codes, or
@@ -1347,10 +1395,17 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
 
     ``weight_dtype=torch.bfloat16`` packs the matmul weights in bf16 and
     decodes in the kernels' bf16 mode (the JAX package's
-    ``weight_dtype=jnp.bfloat16``); the prefill and the ring stay float32,
-    and a config's ``compute_dtype`` changes neither. Returns ``codes`` or
-    ``(codes, logits [B, n_log, Q])``. The device is the parameters'
-    device.
+    ``weight_dtype=jnp.bfloat16``); the prefill stays float32, and a
+    config's ``compute_dtype`` changes neither. ``state_dtype`` is the
+    ring's type (the JAX package's ``state_dtype``): float32, or bfloat16,
+    whose rows are stored rounded to nearest even and read widened, on
+    either route: the prefilled ring is rounded once before the launch
+    (``sampler.py:963-964`` there), the sequential route starts from a zero
+    bf16 ring. Any other type raises ValueError. (JAX's prefill route
+    first tries its all-VMEM kernel at a float32 ring, whatever
+    ``state_dtype`` says, a TPU VMEM budget choice the port does not copy.)
+    Returns ``codes`` or ``(codes, logits [B, n_log, Q])``. The device is
+    the parameters' device.
 
     Local conditioning (an LC config; either weight type), with the scan
     sampler's conventions: ``lc`` [B, n_samples, C_lc] conditions the
@@ -1363,6 +1418,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
     """
     c = config
     _check_generation(c, lc)
+    check_state_dtype(state_dtype)
     B = batch_size
     packed, gc_ids, dev = _packed_for(params, c, B, gc_ids, weight_dtype)
     seed_codes = _seed_inputs(c, B, seed, seed_codes, dev)
@@ -1379,7 +1435,8 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
     if prefill:
         carry = prefill_carry(params, c, seed_codes, gc_ids, lc=lc_p)
         forced = carry.last[:, None].contiguous()
-        codes, logits = decode(packed, c, carry.ring, carry.causal, forced,
+        ring = carry.ring.to(state_dtype)
+        codes, logits = decode(packed, c, ring, carry.causal, forced,
                                n_samples, carry.t_abs, seed, temperature,
                                collect_logits, lc=_time_major(lc))
     else:
@@ -1388,7 +1445,7 @@ def generate_cuda(params: Params, config: WaveNetConfig, n_samples: int,
                    torch.cat([lc_p, lc], dim=1)[:, :n_total])
         codes, logits = decode_sequential(
             packed, c, seed_codes, n_total, seed, temperature,
-            collect_logits, lc=_time_major(lc_full))
+            collect_logits, lc=_time_major(lc_full), state_dtype=state_dtype)
         codes = codes[:, n_forced - 1:]
     if collect_logits:
         return codes, logits

@@ -15,7 +15,11 @@ b1-b28 on an H100), ``sampler_tiles`` (paper/gc b121-b525) or
 ``sampler_decode`` (the rest, the sharded config at every batch among
 them). ``precision="bfloat16"`` forwards ``weight_dtype=torch.bfloat16``,
 as the JAX ladder's first rung does: the bf16 mode of the same kernel
-runs, the ring stays float32. A local-conditioning stream (``lc``) runs
+runs, the ring stays float32. The JAX ladder reaches its bf16-ring rungs
+(``state_dtype=bfloat16``) only after that rung fails to compile; the
+port has one rung, which raises instead, so the CLI and the server never
+ask for a bf16 ring (``generate_cuda(state_dtype=torch.bfloat16)`` takes
+one). A local-conditioning stream (``lc``) runs
 the LC modes of ``sampler_cluster`` and ``sampler_decode``, at either
 precision (the tiles kernel has none, so LC above the cluster range runs
 ``sampler_decode``). On a GPU a failure raises; there is no fallback. On
