@@ -255,3 +255,164 @@ def test_speculative_service(tmp_path):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+# ---------------------------------------------------------------------------
+# --checkpoint, --sampler and --draft_checkpoint (tests/test_serve.py's
+# service from a saved checkpoint on the scan sampler)
+# ---------------------------------------------------------------------------
+
+def _checkpoint(tmp, cfg, name="ckpt", step=2):
+    """A train-CLI checkpoint directory (``ckpt-<step>/``) of the seeded
+    weights ``_write`` saves, and the params JSON."""
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.params import load_npz
+
+    npz, js = _write(tmp, cfg, name)
+    state = tl.train_state_from_params(load_npz(npz, "cpu"),
+                                       tl.make_optimizer("adam", 1e-3),
+                                       step=step)
+    tl.save_checkpoint(str(tmp / name), state)
+    return str(tmp / name), js, npz
+
+
+@pytest.fixture(scope="module")
+def scan_server(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_serve_ckpt")
+    ckpt, js, npz = _checkpoint(tmp, WaveNetConfig(**TINY))
+    svc = GenerationService(None, js, checkpoint=ckpt, sampler="scan",
+                            warm_samples=8, device="cpu")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield svc, f"http://127.0.0.1:{httpd.server_address[1]}", npz
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def test_checkpoint_scan_healthz_and_replies(scan_server):
+    svc, url, _ = scan_server
+    with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+        assert json.loads(r.read())["sampler"] == "scan"
+    status, _, body = _post(url + "/generate",
+                            {"samples": 24, "seed": 5, "format": "codes"})
+    assert status == 200
+    reply = json.loads(body)
+    assert reply["sampler"] == "scan" and len(reply["codes"]) == 24
+    status, _, body = _post(url + "/generate_batch",
+                            {"samples": 16, "batch": 2, "seed": 5})
+    assert status == 200 and json.loads(body)["sampler"] == "scan"
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps({"samples": 16}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert resp.headers.get("X-Sampler") == "scan"
+        assert resp.read()[:4] == b"RIFF"
+
+
+def test_checkpoint_scan_is_the_scan_sampler_on_the_saved_weights(
+        scan_server):
+    """The served codes are ``sample.generate``'s on the checkpoint's
+    weights with the seed's generator (over the bucket, then trimmed)."""
+    from wavenet_torch.audio import mu_law_encode_np
+    from wavenet_torch.params import load_npz
+    from wavenet_torch.sample import generate
+
+    svc, _, npz = scan_server
+    wave, name = svc.generate(40, seed=7, return_sampler=True)
+    assert name == "scan"
+    cfg = WaveNetConfig(**TINY)
+    ref = generate(load_npz(npz, "cpu"), cfg,
+                   GenerationService.bucket_samples(40),
+                   torch.Generator().manual_seed(7))[0, :40].numpy()
+    np.testing.assert_array_equal(mu_law_encode_np(wave, 32), ref)
+
+
+def test_reply_names_the_routed_sampler(server, service):
+    status, _, body = _post(server + "/generate",
+                            {"samples": 16, "seed": 1, "format": "codes"})
+    assert status == 200
+    assert "decode_reference" in json.loads(body)["sampler"]
+    status, _, body = _post(server + "/generate_batch",
+                            {"samples": 16, "batch": 2,
+                             "format": "wav_b64"})
+    assert status == 200
+    assert json.loads(body)["sampler"] == service.sampler_name
+
+
+@pytest.mark.parametrize("sampler", ["auto", "pallas"])
+def test_checkpoint_kernel_samplers_equal_the_npz_service(tmp_path, sampler,
+                                                          service):
+    """auto and pallas route to the decode kernel (its plain version on
+    the CPU) and serve the npz service's codes from the same weights."""
+    ckpt, js, _ = _checkpoint(tmp_path, WaveNetConfig(**TINY))
+    svc = GenerationService(None, js, checkpoint=ckpt, sampler=sampler,
+                            warm_samples=0, device="cpu")
+    wave, name = svc.generate(32, seed=5, return_sampler=True)
+    assert name == service.sampler_name and "decode_reference" in name
+    np.testing.assert_array_equal(wave, service.generate(32, seed=5))
+
+
+def test_missing_checkpoint_refused(tmp_path):
+    _, js = _write(tmp_path, WaveNetConfig(**TINY))
+    with pytest.raises(FileNotFoundError, match="no checkpoint in"):
+        GenerationService(None, js, checkpoint=str(tmp_path / "empty"),
+                          warm_samples=0, device="cpu")
+
+
+def test_weights_from_exactly_one_source(tmp_path):
+    ckpt, js, npz = _checkpoint(tmp_path, WaveNetConfig(**TINY))
+    with pytest.raises(ValueError, match="exactly one"):
+        GenerationService(npz, js, checkpoint=ckpt, warm_samples=0,
+                          device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        GenerationService(None, js, warm_samples=0, device="cpu")
+    with pytest.raises(ValueError, match="sampler"):
+        GenerationService(npz, js, sampler="fast", warm_samples=0,
+                          device="cpu")
+
+
+def test_main_requires_one_weight_flag(tmp_path):
+    from wavenet_torch.serve import main
+
+    ckpt, js, npz = _checkpoint(tmp_path, WaveNetConfig(**TINY))
+    with pytest.raises(SystemExit):
+        main(["--wavenet_params", js, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        main(["--checkpoint", ckpt, "--params_npz", npz,
+              "--wavenet_params", js, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        main(["--checkpoint", ckpt, "--sampler", "fast",
+              "--wavenet_params", js, "--device", "cpu"])
+
+
+def test_draft_checkpoint_serves_speculative(tmp_path):
+    """--draft_checkpoint is the draft's counterpart of --checkpoint: the
+    same speculative service as a draft npz of the same weights."""
+    ckpt, js, npz = _checkpoint(tmp_path, WaveNetConfig(**TINY))
+    svc = GenerationService(None, js, checkpoint=ckpt,
+                            draft_checkpoint=ckpt, speculative_k=3,
+                            warm_samples=0, device="cpu")
+    wave, name = svc.generate(24, seed=4, return_sampler=True)
+    assert name == "speculative (k=3)"
+    ref = GenerationService(npz, js, draft_params_npz=npz, speculative_k=3,
+                            warm_samples=0, device="cpu")
+    np.testing.assert_array_equal(wave, ref.generate(24, seed=4))
+    with pytest.raises(FileNotFoundError, match="no draft checkpoint in"):
+        GenerationService(None, js, checkpoint=ckpt,
+                          draft_checkpoint=str(tmp_path / "none"),
+                          warm_samples=0, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        GenerationService(None, js, checkpoint=ckpt, draft_checkpoint=ckpt,
+                          draft_params_npz=npz, warm_samples=0,
+                          device="cpu")
+
+
+def test_draft_checkpoint_refused_for_lc(tmp_path):
+    """An LC model with a draft checkpoint: the JAX server's ValueError,
+    before the draft is read."""
+    ckpt, js, _ = _checkpoint(tmp_path, WaveNetConfig(**TINY, lc_channels=2))
+    with pytest.raises(ValueError, match="speculative"):
+        GenerationService(None, js, checkpoint=ckpt,
+                          draft_checkpoint=str(tmp_path / "none"),
+                          warm_samples=0, device="cpu")

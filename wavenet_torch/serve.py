@@ -2,17 +2,24 @@
 
 Loads weights once, warms the sampler, then serves generation requests
 with the device serialized behind a lock. The sampler is
-``sampler_select.generate_with_fallback``'s, as in the JAX server: a
-decode kernel, or the scan sampler where the JAX ladder offers no kernel
-(the sharded config); /healthz names the last one that ran.
+``sampler_select.generate_with_fallback``'s, as in the JAX server: with
+``--sampler auto`` (or ``pallas``) the decode kernel that the route names,
+with ``--sampler scan`` the scan sampler (on the card too); /healthz names
+the last one that ran, and every reply names the one that ran for it (a
+``"sampler"`` field in JSON, an ``X-Sampler`` header on a wav).
 
-    python -m wavenet_torch.serve --params_npz params.npz \
+    python -m wavenet_torch.serve --checkpoint LOGDIR \
         --wavenet_params wavenet_params.json [--port 8765] \
+        [--sampler auto|pallas|scan] \
         [--gc_channels 32 --gc_cardinality 109] \
-        [--draft_params_npz draft.npz --speculative_k 8]
+        [--draft_checkpoint DRAFT_LOGDIR --speculative_k 8]
 
-Weights are an npz of the flat parameter dict (``wavenet_torch.params``;
-the JAX package's params saved with ``np.savez`` load unchanged).
+Weights come from exactly one of ``--checkpoint`` (a directory of the
+train CLI's ``ckpt-STEP/`` checkpoints, the newest restored through
+``train_lib.restore_params_only``; none there is a FileNotFoundError, as
+in the JAX server) and ``--params_npz`` (an npz of the flat parameter
+dict, ``wavenet_torch.params``; the JAX package's params saved with
+``np.savez`` load unchanged).
 
 API (stdlib-only server, JSON in / WAV or JSON out):
   GET  /healthz         -> {"status": "ok", "sampler", "sample_rate", "config"}
@@ -20,9 +27,11 @@ API (stdlib-only server, JSON in / WAV or JSON out):
                          "seed": 7, "lc": [[...], ...], "lc_hop": 200,
                          "lc_upsample": "repeat" | "linear",
                          "format": "wav" | "codes"}
+      -> audio/wav, or {"codes": [...], "sampler": ...}
   POST /generate_batch  {"samples": 16000, "batch": 64 | "gc_ids": [...],
                          "temperature": 0.9, "seed": 7,
                          "format": "codes" | "wav_b64"}
+      -> {"codes" | "wavs_b64": [...], "sampler": ...}
       B streams from one decode launch. Bounds: batch <= --max_batch
       (default 1024); "codes" responses are capped at CODES_RESPONSE_CAP
       total ints. No "lc" here, as in the JAX server.
@@ -34,8 +43,8 @@ already be at sample rate. The stream is cropped or edge-extended to the
 request, then to its bucket, and decoded by the LC modes of
 ``sampler_cluster`` and ``sampler_decode``.
 
-Speculative decoding (``--draft_params_npz``, an npz of the draft's
-weights, with ``--draft_wavenet_params`` for its config, default the
+Speculative decoding (``--draft_checkpoint``, a directory of the draft's
+checkpoints, or ``--draft_params_npz``, an npz of its weights, with ``--draft_wavenet_params`` for its config, default the
 target's, and ``--speculative_k``): every /generate runs
 ``speculative.generate_speculative`` (the draft proposes k codes a
 segment, the target verifies them in one window pass; the codes are
@@ -66,29 +75,34 @@ class GenerationService:
     #: total ints (batch * samples); larger results must use "wav_b64".
     CODES_RESPONSE_CAP = 4 * 1024 * 1024
 
-    def __init__(self, params_npz: str, wavenet_params: str,
+    def __init__(self, params_npz: Optional[str], wavenet_params: str,
                  gc_channels: Optional[int] = None,
                  gc_cardinality: Optional[int] = None,
                  warm_samples: int = 256, max_batch: int = 1024,
                  draft_params_npz: Optional[str] = None, device=None,
                  draft_wavenet_params: Optional[str] = None,
-                 speculative_k: int = 8):
+                 speculative_k: int = 8, checkpoint: Optional[str] = None,
+                 sampler: str = "auto",
+                 draft_checkpoint: Optional[str] = None):
         from wavenet_torch import resolve_device
         from wavenet_torch.models.config import WaveNetConfig
-        from wavenet_torch.params import load_npz
         from wavenet_torch.sampler_select import sampler_attempts
 
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
         self.device = resolve_device(device)
         with open(wavenet_params) as f:
             raw = json.load(f)
         self.sample_rate = raw["sample_rate"]
         self.config = WaveNetConfig.from_json(
             raw, gc_channels=gc_channels, gc_cardinality=gc_cardinality)
-        self.params = load_npz(params_npz, self.device)
+        self.params = _load_weights(params_npz, checkpoint, self.device,
+                                    "")
         self.max_batch = max_batch
+        self.sampler = sampler
         # What a b1 request runs; every request then names the sampler it
         # ran.
-        first = sampler_attempts(self.config, device=self.device,
+        first = sampler_attempts(self.config, sampler, device=self.device,
                                  lc=self.config.lc_enabled)
         self.sampler_name = first[0][0] if first else "scan"
         self._lock = threading.Lock()
@@ -97,20 +111,21 @@ class GenerationService:
         self.draft_params = None
         self.draft_config = None
         self.speculative_k = speculative_k
-        if draft_params_npz:
+        if draft_params_npz or draft_checkpoint:
             from wavenet_torch.speculative import check_models
             if self.config.lc_enabled:
                 raise ValueError(
                     "speculative serving does not support lc-trained "
                     "models (speculative.py carries no feature stream); "
-                    "serve without --draft_params_npz")
+                    "serve without --draft_checkpoint/--draft_params_npz")
             with open(draft_wavenet_params or wavenet_params) as f:
                 draw = json.load(f)
             self.draft_config = WaveNetConfig.from_json(
                 draw, gc_channels=gc_channels,
                 gc_cardinality=gc_cardinality)
             check_models(self.config, self.draft_config)
-            self.draft_params = load_npz(draft_params_npz, self.device)
+            self.draft_params = _load_weights(
+                draft_params_npz, draft_checkpoint, self.device, "draft ")
             self.sampler_name = f"speculative (k={speculative_k})"
         if warm_samples:
             # An LC model warms on a zero stream.
@@ -131,7 +146,8 @@ class GenerationService:
         return b
 
     def _decode(self, n_samples: int, batch: int, gc_ids, temperature,
-                seed, lc=None) -> np.ndarray:
+                seed, lc=None):
+        """-> (waveforms [batch, n_samples], the sampler that ran)."""
         from wavenet_torch.audio import mu_law_decode_np
         from wavenet_torch.sampler_select import generate_with_fallback
 
@@ -144,15 +160,17 @@ class GenerationService:
         if gc_ids is not None:
             gc_ids = gc_ids.to(self.device)
         with self._lock:
-            codes, self.sampler_name, _ = generate_with_fallback(
+            codes, name, _ = generate_with_fallback(
                 self.params, self.config, n_bucket, seed=seed,
                 batch_size=batch, gc_ids=gc_ids, temperature=temperature,
-                lc=lc, log=lambda msg: None)
+                lc=lc, sampler=self.sampler, log=lambda msg: None)
+            self.sampler_name = name
             codes = codes[:, :n_samples].cpu().numpy()
-        return mu_law_decode_np(codes, self.config.quantization_channels)
+        return (mu_law_decode_np(codes, self.config.quantization_channels),
+                name)
 
     def _decode_speculative(self, n_samples: int, n_bucket: int, gc_ids,
-                            temperature, seed) -> np.ndarray:
+                            temperature, seed):
         from wavenet_torch.audio import mu_law_decode_np
         from wavenet_torch.speculative import generate_speculative
 
@@ -166,12 +184,15 @@ class GenerationService:
                 temperature=temperature, gc_ids=gc_ids,
                 draft_gc_ids=gc_ids)
             codes = codes[:, :n_samples].cpu().numpy()
-        return mu_law_decode_np(codes, self.config.quantization_channels)
+        return (mu_law_decode_np(codes, self.config.quantization_channels),
+                self.sampler_name)
 
     def generate(self, n_samples: int, gc_id: Optional[int] = None,
                  temperature: float = 1.0, seed: int = 0,
-                 lc: Optional[np.ndarray] = None) -> np.ndarray:
-        """-> float waveform [n_samples] in [-1, 1].
+                 lc: Optional[np.ndarray] = None,
+                 return_sampler: bool = False):
+        """-> float waveform [n_samples] in [-1, 1] (with
+        ``return_sampler``, also the name of the sampler that ran).
 
         ``lc``: sample-rate conditioning [n_samples, lc_channels] (the
         handler upsamples frames), required by an LC model; it is
@@ -192,14 +213,17 @@ class GenerationService:
         gc_ids = None
         if gc_id is not None and c.gc_enabled:
             gc_ids = torch.tensor([int(gc_id)], dtype=torch.int64)
-        return self._decode(n_samples, 1, gc_ids, temperature, seed, lc)[0]
+        waves, name = self._decode(n_samples, 1, gc_ids, temperature, seed,
+                                   lc)
+        return (waves[0], name) if return_sampler else waves[0]
 
     def generate_batch(self, n_samples: int, batch: Optional[int] = None,
                        gc_ids: Optional[list] = None,
                        temperature: float = 1.0,
-                       seed: int = 0) -> np.ndarray:
+                       seed: int = 0, return_sampler: bool = False):
         """-> float waveforms [B, n_samples] in [-1, 1] from one decode
-        launch. ``batch`` or ``len(gc_ids)`` sets B; one ``seed`` covers
+        launch (with ``return_sampler``, also the name of the sampler that
+        ran). ``batch`` or ``len(gc_ids)`` sets B; one ``seed`` covers
         the launch and rows draw independent Philox streams. Local
         conditioning is a single-stream feature, refused here as in the
         JAX server, and so is a draft model."""
@@ -226,7 +250,31 @@ class GenerationService:
                              f"--max_batch {self.max_batch}")
         gc = (torch.tensor([int(g) for g in gc_ids], dtype=torch.int64)
               if gc_ids is not None else None)
-        return self._decode(n_samples, batch, gc, temperature, seed)
+        waves, name = self._decode(n_samples, batch, gc, temperature, seed)
+        return (waves, name) if return_sampler else waves
+
+
+#: The server's ``--sampler`` choices (the JAX server's).
+SAMPLERS = ("auto", "pallas", "scan")
+
+
+def _load_weights(params_npz: Optional[str], checkpoint: Optional[str],
+                  device, what: str):
+    """The flat params of exactly one of an npz and a checkpoint
+    directory (its newest ``ckpt-STEP/``); ``what`` names the model in
+    the errors ("" or "draft ")."""
+    from wavenet_torch.params import load_npz
+    from wavenet_torch.train_lib import restore_params_only
+
+    if (params_npz is None) == (checkpoint is None):
+        raise ValueError(f"give exactly one of the {what}checkpoint and "
+                         f"the {what}params npz")
+    if params_npz is not None:
+        return load_npz(params_npz, device)
+    params = restore_params_only(checkpoint, device=device)
+    if params is None:
+        raise FileNotFoundError(f"no {what}checkpoint in {checkpoint}")
+    return params
 
 
 def _wav_bytes(waveform: np.ndarray, sample_rate: int) -> bytes:
@@ -300,21 +348,24 @@ def make_handler(service: GenerationService):
                             lc, int(hop),
                             mode=req.get("lc_upsample", "repeat"))
                     lc = fit_lc_to_length(lc, n)
-                wave = service.generate(
+                wave, sampler = service.generate(
                     n, gc_id=req.get("gc_id"),
                     temperature=float(req.get("temperature", 1.0)),
-                    seed=int(req.get("seed", 0)), lc=lc)
+                    seed=int(req.get("seed", 0)), lc=lc,
+                    return_sampler=True)
             except (ValueError, KeyError, TypeError,
                     json.JSONDecodeError) as e:
                 self._json(400, {"error": str(e)})
                 return
             if req.get("format", "wav") == "codes":
-                self._json(200, {"codes": mu_law_encode_np(wave, Q).tolist()})
+                self._json(200, {"codes": mu_law_encode_np(wave, Q).tolist(),
+                                 "sampler": sampler})
                 return
             body = _wav_bytes(wave, service.sample_rate)
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
             self.send_header("Content-Length", str(len(body)))
+            self.send_header("X-Sampler", sampler)
             self.end_headers()
             self.wfile.write(body)
 
@@ -334,10 +385,10 @@ def make_handler(service: GenerationService):
                         f"(cap {service.CODES_RESPONSE_CAP}); use "
                         '"format": "wav_b64" or request fewer '
                         "samples/streams")
-                waves = service.generate_batch(
+                waves, sampler = service.generate_batch(
                     n, batch=batch, gc_ids=gc_ids,
                     temperature=float(req.get("temperature", 1.0)),
-                    seed=int(req.get("seed", 0)))
+                    seed=int(req.get("seed", 0)), return_sampler=True)
             except (ValueError, KeyError, TypeError,
                     json.JSONDecodeError) as e:
                 self._json(400, {"error": str(e)})
@@ -346,9 +397,10 @@ def make_handler(service: GenerationService):
                 self._json(200, {"wavs_b64": [
                     base64.b64encode(
                         _wav_bytes(w, service.sample_rate)).decode()
-                    for w in waves]})
+                    for w in waves], "sampler": sampler})
                 return
-            self._json(200, {"codes": mu_law_encode_np(waves, Q).tolist()})
+            self._json(200, {"codes": mu_law_encode_np(waves, Q).tolist(),
+                             "sampler": sampler})
 
     return Handler
 
@@ -356,20 +408,32 @@ def make_handler(service: GenerationService):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="WaveNet generation server "
                                              "(PyTorch/CUDA port)")
-    ap.add_argument("--params_npz", required=True,
-                    help="npz of the flat parameter dict")
+    weights = ap.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--checkpoint", default=None,
+                         help="Directory of the train CLI's ckpt-STEP "
+                              "checkpoints (the newest is served).")
+    weights.add_argument("--params_npz", default=None,
+                         help="npz of the flat parameter dict")
     ap.add_argument("--wavenet_params", default="./wavenet_params.json")
     ap.add_argument("--port", type=int, default=8765)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--gc_channels", type=int, default=None)
     ap.add_argument("--gc_cardinality", type=int, default=None)
+    ap.add_argument("--sampler", default="auto", choices=SAMPLERS,
+                    help="auto/pallas: the decode kernel the route names "
+                         "(the scan sampler where it names none); scan: "
+                         "the scan sampler.")
     ap.add_argument("--max_batch", type=int, default=1024,
                     help="Largest /generate_batch batch accepted "
                          "(requests past it get a 400).")
-    ap.add_argument("--draft_params_npz", default=None,
-                    help="npz of a draft model's weights: serve with "
-                         "speculative decoding (target-exact "
-                         "distribution).")
+    draft = ap.add_mutually_exclusive_group()
+    draft.add_argument("--draft_checkpoint", default=None,
+                       help="Directory of a draft model's checkpoints: "
+                            "serve with speculative decoding "
+                            "(target-exact distribution).")
+    draft.add_argument("--draft_params_npz", default=None,
+                       help="npz of a draft model's weights, in place of "
+                            "--draft_checkpoint.")
     ap.add_argument("--draft_wavenet_params", default=None,
                     help="Model params JSON of the draft (defaults to "
                          "--wavenet_params).")
@@ -385,7 +449,8 @@ def main(argv=None):
         args.gc_cardinality, max_batch=args.max_batch, device=args.device,
         draft_params_npz=args.draft_params_npz,
         draft_wavenet_params=args.draft_wavenet_params,
-        speculative_k=args.speculative_k)
+        speculative_k=args.speculative_k, checkpoint=args.checkpoint,
+        sampler=args.sampler, draft_checkpoint=args.draft_checkpoint)
     server = ThreadingHTTPServer((args.host, args.port),
                                  make_handler(service))
     print(f"Serving on http://{args.host}:{args.port} "
