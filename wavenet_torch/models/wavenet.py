@@ -22,8 +22,12 @@ dict of weights runs in both packages (see ``wavenet_torch.params``).
 
 Every layer keeps the full time axis (causal left padding), and the skip
 projections are deferred to one matmul over all layers' gate outputs, as
-in the JAX package. With ``use_pallas_stack`` (the JAX flag's name) the
-dilated stack runs through a hand-written CUDA kernel pair:
+in the JAX package. ``tp`` (a ``parallel.tensor.TensorParallel``) runs
+the forward on this rank's shards of model-sharded params, with the
+collectives of tensor parallelism (``parallel/tensor.py``); None (the
+default) is the single-device forward. With ``use_pallas_stack`` (the
+JAX flag's name) the dilated stack runs through a hand-written CUDA
+kernel pair:
 ``kernels/fused_stack.py`` (``pallas_stack_version`` 3) or one of the
 retired generations in ``experiments/`` (versions 1 and 2). A local
 conditioning stream ``lc`` [B, T, C_lc] sends the stack to the plain
@@ -261,7 +265,7 @@ def forward(params: Params, config: WaveNetConfig,
             gc_embedding: Optional[torch.Tensor] = None,
             head_from: int = 0,
             collect_layer_inputs: Optional[Tuple[int, ...]] = None,
-            lc: Optional[torch.Tensor] = None):
+            lc: Optional[torch.Tensor] = None, tp=None):
     """Full-length forward pass: [B, T, C_in] -> logits [B, T, Q].
 
     Output position t is the prediction for input position t+1. With
@@ -279,14 +283,30 @@ def forward(params: Params, config: WaveNetConfig,
         _maybe_cast(network_input.to(torch.float32), config),
         _maybe_cast(params["causal_filter"], config), dilation=1)
     return _dilated_stack(params, config, current, gc_embedding, head_from,
-                          collect_layer_inputs, lc)
+                          collect_layer_inputs, lc, tp)
+
+
+class _Local:
+    """The single-device forward's collectives: none."""
+
+    @staticmethod
+    def copy(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    reduce = copy
+
+
+_LOCAL = _Local()
 
 
 def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
                    gc_embedding: Optional[torch.Tensor], head_from: int = 0,
                    collect_layer_inputs: Optional[Tuple[int, ...]] = None,
-                   lc: Optional[torch.Tensor] = None):
-    """Gated dilation layers + deferred skip head + postprocessing."""
+                   lc: Optional[torch.Tensor] = None, tp=None):
+    """Gated dilation layers + deferred skip head + postprocessing. Under
+    ``tp`` the filter/gate products are column-parallel (their input
+    enters through ``tp.copy``) and the dense products row-parallel
+    (``tp.reduce``, then the bias)."""
     lc_c = None
     if lc is not None:
         if lc.shape[1] != current.shape[1]:
@@ -295,16 +315,24 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
                 f"{current.shape[1]} (one conditioning vector per input "
                 "position)")
         lc_c = _maybe_cast(lc.to(torch.float32), c)
+        if tp is not None:
+            lc_c = tp.copy(lc_c)
     # The stack kernels take no per-position stream: LC runs the plain
     # route, as in JAX.
     if c.use_pallas_stack and collect_layer_inputs is None and lc_c is None:
         if c.filter_width != 2:
             raise NotImplementedError(
                 "use_pallas_stack requires filter_width=2")
+        if tp is not None:
+            # The kernel on the gathered weights, as GSPMD runs JAX's
+            # (parallel/tensor.py).
+            params = tp.gather_params(params)
         return _dilated_stack_pallas(params, c, current, gc_embedding,
                                      head_from)
-    D = c.dilation_channels
-    gc = None if gc_embedding is None else _maybe_cast(gc_embedding, c)
+    tp = _LOCAL if tp is None else tp
+    D = params["filter"].shape[-1]          # this rank's share under tp
+    gc = None if gc_embedding is None else tp.copy(
+        _maybe_cast(gc_embedding, c))
 
     def p(key, i):
         return _maybe_cast(params[key][i], c)
@@ -312,13 +340,14 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
     def layer_fn(current, i):
         dilation = c.dilations[i]
         w_f, w_g = p("filter", i), p("gate", i)
+        x = tp.copy(current)
         if c.merged_filter_gate:
-            conv_fg = causal_conv_padded(current, torch.cat([w_f, w_g], -1),
+            conv_fg = causal_conv_padded(x, torch.cat([w_f, w_g], -1),
                                          dilation)
             conv_filter, conv_gate = conv_fg[..., :D], conv_fg[..., D:]
         else:
-            conv_filter = causal_conv_padded(current, w_f, dilation)
-            conv_gate = causal_conv_padded(current, w_g, dilation)
+            conv_filter = causal_conv_padded(x, w_f, dilation)
+            conv_gate = causal_conv_padded(x, w_g, dilation)
         if gc is not None:
             conv_filter = conv_filter + (gc @ p("gc_filter", i))[:, None, :]
             conv_gate = conv_gate + (gc @ p("gc_gate", i))[:, None, :]
@@ -329,7 +358,7 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
             conv_filter = conv_filter + p("filter_bias", i)
             conv_gate = conv_gate + p("gate_bias", i)
         out = _gate(conv_filter, conv_gate)
-        transformed = conv1x1(out, p("dense", i))
+        transformed = tp.reduce(conv1x1(out, p("dense", i)))
         if c.use_biases:
             transformed = transformed + p("dense_bias", i)
         return current + transformed, out
@@ -352,28 +381,32 @@ def _dilated_stack(params: Params, c: WaveNetConfig, current: torch.Tensor,
             gate_outs.append(out)
     if collect_layer_inputs is not None:
         return layer_inputs
-    return _head(params, c, torch.cat(gate_outs, dim=-1), head_from)
+    return _head(params, c, torch.cat(gate_outs, dim=-1), head_from, tp)
 
 
 def _head(params: Params, c: WaveNetConfig, all_outs: torch.Tensor,
-          head_from: int) -> torch.Tensor:
+          head_from: int, tp=None) -> torch.Tensor:
     """Deferred skip head: one matmul over all layers' gate outputs
     ``all_outs [B, T, L*D]``, then relu, 1x1, relu, 1x1; float32 logits.
     At bf16 the gate outputs (the kernel's z records too) and the weights
-    are bf16, as in both JAX routes."""
-    L, D, S = c.num_layers, c.dilation_channels, c.skip_channels
+    are bf16, as in both JAX routes. Under ``tp`` each rank holds the
+    D/tp columns of every layer in ``all_outs`` and the matching rows of
+    ``skip``; skip and postprocess2 are row-parallel, postprocess1
+    column-parallel."""
+    tp = _LOCAL if tp is None else tp
+    S = c.skip_channels
     if head_from:
         all_outs = all_outs[:, head_from:]
-    skip_sum = _maybe_cast(all_outs, c) @ _maybe_cast(
-        params["skip"].reshape(L * D, S), c)
+    skip_sum = tp.reduce(_maybe_cast(all_outs, c) @ _maybe_cast(
+        params["skip"].reshape(-1, S), c))
     if c.use_biases:
         skip_sum = skip_sum + _maybe_cast(params["skip_bias"].sum(dim=0), c)
-    h = torch.relu(skip_sum)
+    h = tp.copy(torch.relu(skip_sum))
     h = conv1x1(h, _maybe_cast(params["postprocess1"], c))
     if c.use_biases:
         h = h + _maybe_cast(params["postprocess1_bias"], c)
     h = torch.relu(h)
-    h = conv1x1(h, _maybe_cast(params["postprocess2"], c))
+    h = tp.reduce(conv1x1(h, _maybe_cast(params["postprocess2"], c)))
     if c.use_biases:
         h = h + _maybe_cast(params["postprocess2_bias"], c)
     return h.to(torch.float32)
@@ -416,7 +449,7 @@ def forward_codes(params: Params, config: WaveNetConfig,
                   gc_embedding: Optional[torch.Tensor] = None,
                   head_from: int = 0,
                   collect_layer_inputs: Optional[Tuple[int, ...]] = None,
-                  lc: Optional[torch.Tensor] = None):
+                  lc: Optional[torch.Tensor] = None, tp=None):
     """Forward pass from integer mu-law codes [B, T] (no one-hot tensor).
 
     The causal layer over one-hot input is a row gather of the filter:
@@ -442,7 +475,7 @@ def forward_codes(params: Params, config: WaveNetConfig,
                              current[:, shift:] + tap], dim=1)
     current = _maybe_cast(current, c)
     return _dilated_stack(params, c, current, gc_embedding, head_from,
-                          collect_layer_inputs, lc)
+                          collect_layer_inputs, lc, tp)
 
 
 def predict_proba(params: Params, config: WaveNetConfig,
@@ -471,7 +504,7 @@ def loss_fn(params: Params, config: WaveNetConfig,
             audio_batch: torch.Tensor,
             gc_ids: Optional[torch.Tensor] = None,
             l2_regularization_strength: Optional[float] = None,
-            lc: Optional[torch.Tensor] = None):
+            lc: Optional[torch.Tensor] = None, tp=None):
     """Teacher-forced cross-entropy, as the JAX package's ``loss_fn``.
 
     ``audio_batch``: float waveform [B, T], left-padded with
@@ -486,6 +519,9 @@ def loss_fn(params: Params, config: WaveNetConfig,
     the prediction of sample t). It is refined over the whole timeline
     (``maybe_refine_lc``, so its gradients reach the refiner), then the
     forward, whose output j predicts input j+1, takes ``lc[:, 1:]``.
+
+    ``tp``: this rank's shards of model-sharded params (the forward's
+    ``tp``); the loss and its L2 term are those of the whole model.
     """
     c = config
     rf = c.receptive_field
@@ -504,10 +540,10 @@ def loss_fn(params: Params, config: WaveNetConfig,
     if c.scalar_input:
         network_input = audio_batch[:, :-1, None].to(torch.float32)
         prediction = forward(params, c, network_input, gc_emb,
-                             head_from=rf - 1, lc=lc_in)
+                             head_from=rf - 1, lc=lc_in, tp=tp)
     else:
         prediction = forward_codes(params, c, encoded[:, :-1], gc_emb,
-                                   head_from=rf - 1, lc=lc_in)
+                                   head_from=rf - 1, lc=lc_in, tp=tp)
     target = encoded[:, rf:]
     logp = torch.log_softmax(prediction, dim=-1)
     oh = one_hot(target, c.quantization_channels)
@@ -516,8 +552,9 @@ def loss_fn(params: Params, config: WaveNetConfig,
     aux = {"ce_loss": ce}
     total = ce
     if l2_regularization_strength:
-        l2 = sum(0.5 * torch.sum(torch.square(v)) for k, v in params.items()
-                 if not k.endswith("_bias"))
+        l2 = (tp.l2_loss(params) if tp is not None else
+              sum(0.5 * torch.sum(torch.square(v)) for k, v in params.items()
+                  if not k.endswith("_bias")))
         aux["l2_loss"] = l2
         total = ce + l2_regularization_strength * l2
     aux["total_loss"] = total
