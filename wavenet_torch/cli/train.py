@@ -14,6 +14,22 @@ with ``--lc_hop`` trains with local conditioning from ``<stem>.lc.npy``
 sidecars: the reader ships frame windows that the step upsamples on the
 device, or with ``--lc_host_upsample`` the upsampled stream.
 
+Several processes (one per device) train one model over a ``(data,
+model)`` mesh (``wavenet_torch/parallel``): launch each with
+``--coordinator_address HOST:PORT --num_processes N --process_id I`` (or
+an init-method URL, ``file:///path``, as the address), or under
+``torchrun`` (its ``MASTER_ADDR``/``RANK``/``WORLD_SIZE`` environment).
+NCCL runs on ``cuda``, gloo on ``cpu``. ``--model_parallelism M`` puts
+M consecutive ranks on one model replica (tensor parallel over D and S);
+the other factor of N is the data axis. ``--batch_size`` is the batch
+of one data rank (the global batch is ``batch_size`` x N / M), as the
+JAX CLI's is the batch of one host. Each rank's reader is seeded by its
+data rank (``--seed`` + data rank), so the model ranks of one data index
+read the same batches (under ``--model_parallelism`` > 1 an unseeded run
+broadcasts rank 0's draw of a seed, and the reader takes one thread).
+Only global rank 0 prints, logs and writes checkpoints (gathered, in the
+one-process format, which one process and the server restore).
+
 Flags whose path is not ported yet raise NotImplementedError naming the
 ROADMAP.md queue that owns them. ``--compilation_cache`` is accepted and
 has no effect: PyTorch compiles nothing ahead of a step.
@@ -112,8 +128,12 @@ def get_arguments(argv=None):
                              "the loss is still printed per step, "
                              "checkpoints land on call boundaries and "
                              "--num_steps is exact.")
-    parser.add_argument("--model_parallelism", type=int, default=1)
-    parser.add_argument("--coordinator_address", type=str, default=None)
+    parser.add_argument("--model_parallelism", type=int, default=1,
+                        help="Processes (devices) a model replica is "
+                             "split over (tensor parallel).")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="Rank 0's host:port (or an init-method URL) "
+                             "for a multi-process run.")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--compute_dtype", type=str, default="float32",
@@ -136,12 +156,6 @@ def get_arguments(argv=None):
 def check_ported(args) -> None:
     """Raise NotImplementedError for flags whose path the port lacks."""
     unported = [
-        (args.model_parallelism > 1, "--model_parallelism > 1",
-         "queue 1, item 9"),
-        (args.coordinator_address is not None
-         or args.num_processes is not None or args.process_id is not None,
-         "--coordinator_address/--num_processes/--process_id",
-         "queue 1, item 9"),
         (args.store_metadata, "--store_metadata", "queue 1, item 10"),
         (args.histograms, "--histograms", "queue 1, item 10"),
     ]
@@ -193,12 +207,36 @@ def main(argv=None):
         return 1
 
     import torch
+    import torch.distributed as dist
+
+    from wavenet_torch import resolve_device
+    from wavenet_torch.parallel.distributed import initialize_multihost
+
+    resolve_device(args.device)
+    joined = dist.is_initialized()
+    initialize_multihost(args.coordinator_address, args.num_processes,
+                         args.process_id, device=args.device)
+    started = dist.is_initialized() and not joined
+    try:
+        return _train(args, directories)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, directories):
+    import torch
+    import torch.distributed as dist
 
     from wavenet_torch import resolve_device
     from wavenet_torch.data.prefetch import DevicePrefetcher, to_device
     from wavenet_torch.data.reader import AudioReader
     from wavenet_torch.lc import LCFrameChunk
     from wavenet_torch.models.config import WaveNetConfig
+    from wavenet_torch.parallel.distributed import (
+        global_batch_from_local, make_global_mesh)
+    from wavenet_torch.parallel.sharding import (
+        DATA_AXIS, axis_index, make_mesh, shard_train_state)
     from wavenet_torch.train_lib import (
         StepTimer, audio_seconds_per_second, create_train_state,
         make_optimizer, make_train_multistep, make_train_step,
@@ -209,6 +247,26 @@ def main(argv=None):
     # f32 parity: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if dist.is_initialized():
+        mesh = make_global_mesh(args.model_parallelism, device.type)
+    else:
+        mesh = make_mesh(model_parallelism=args.model_parallelism)
+    chief = mesh is None or dist.get_rank() == 0
+    log = print if chief else (lambda *a, **k: None)
+    seed = args.seed
+    if args.model_parallelism > 1:
+        # The model ranks of one data index must read the same batches:
+        # one seed for all, one reader thread (threads interleave).
+        if args.num_threads != 1:
+            print("Some arguments are wrong:\n--model_parallelism > 1 "
+                  "needs --num_threads 1 (the model ranks of a data index "
+                  "read the same batches).")
+            return 1
+        if seed is None:
+            drawn = [int(np.random.randint(2 ** 31)) if chief else 0]
+            dist.broadcast_object_list(drawn, src=0)
+            seed = drawn[0]
 
     logdir = directories["logdir"]
     restore_from = directories["restore_from"]
@@ -230,7 +288,10 @@ def main(argv=None):
         sample_size=args.sample_size,
         silence_threshold=(args.silence_threshold
                            if args.silence_threshold > 0 else None),
-        seed=args.seed,
+        # Disjoint streams per data rank under a fixed seed (sampling with
+        # replacement makes any per-rank offset valid).
+        seed=(seed + axis_index(mesh, DATA_AXIS)
+              if seed is not None else None),
         num_threads=args.num_threads,
         lc_enabled=lc_enabled,
         lc_channels=args.lc_channels,
@@ -255,18 +316,26 @@ def main(argv=None):
     state = create_train_state(args.seed if args.seed is not None else 0,
                                config, optimizer, device)
     if restore_checkpoint(restore_from, state) is not None:
-        print(f"Restored model from step {state.step}")
+        log(f"Restored model from step {state.step}")
     else:
-        print("No checkpoint found; starting new training.")
+        log("No checkpoint found; starting new training.")
+    state = shard_train_state(state, config, mesh)
 
     dispatch_k = max(1, args.steps_per_dispatch)
-    lc_kw = dict(lc_hop=args.lc_hop, lc_upsample=args.lc_upsample)
+    lc_kw = dict(lc_hop=args.lc_hop, lc_upsample=args.lc_upsample,
+                 mesh=mesh)
     train_step = (make_train_multistep(config, l2, dispatch_k, **lc_kw)
                   if dispatch_k > 1 else make_train_step(config, l2, **lc_kw))
     single_step = train_step if dispatch_k == 1 else None
 
-    os.makedirs(logdir, exist_ok=True)
-    writer = SummaryWriter(logdir)
+    def save():
+        save_checkpoint(logdir, state, args.max_checkpoints,
+                        use_async=args.async_checkpoint, mesh=mesh,
+                        config=config)
+
+    if chief:
+        os.makedirs(logdir, exist_ok=True)
+    writer = SummaryWriter(logdir) if chief else None
     reader.start_threads()
 
     def fill(k=dispatch_k, stacked=dispatch_k > 1):
@@ -291,6 +360,7 @@ def main(argv=None):
         else:
             audio, gc_ids = auds[0], (gcs[0] if gc_enabled else None)
             lc = lcs[0] if lc_enabled else None
+        audio, gc_ids, lc = global_batch_from_local(audio, mesh, gc_ids, lc)
         n_samples = int(np.prod(audio.shape[-2:]))   # per train step
         return (to_device(audio, device),
                 None if gc_ids is None else to_device(gc_ids, device),
@@ -322,9 +392,11 @@ def main(argv=None):
             s = s0 + i
             loss_value = float(loss_value)
             if not np.isfinite(loss_value):
-                print(f"step {s} - NON-FINITE loss ({loss_value}); "
-                      "stopping without saving the poisoned state.")
+                log(f"step {s} - NON-FINITE loss ({loss_value}); "
+                    "stopping without saving the poisoned state.")
                 return True
+            if not chief:
+                continue
             aps = audio_seconds_per_second(
                 n_samples, wavenet_params["sample_rate"], duration)
             print(f"step {s} - loss = {loss_value:.3f}, "
@@ -371,8 +443,7 @@ def main(argv=None):
                 poisoned = handle((first, metrics, n_samples))
                 if poisoned:
                     break
-                save_checkpoint(logdir, state, args.max_checkpoints,
-                                use_async=args.async_checkpoint)
+                save()
                 last_saved_step = step
             else:
                 pending = (first, metrics, n_samples)
@@ -385,11 +456,11 @@ def main(argv=None):
         if pending is not None and not poisoned:
             poisoned = handle(pending)
         if step > last_saved_step and not poisoned:
-            save_checkpoint(logdir, state, args.max_checkpoints,
-                            use_async=args.async_checkpoint)
+            save()
         wait_for_checkpoints()
         reader.stop_threads()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return 0
 
 

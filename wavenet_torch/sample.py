@@ -24,8 +24,14 @@ backward over the priming region unless ``lc_prime`` is given.
 ``extend_state`` advances a state by a window of known inputs in one
 parallel pass (the verifier of ``speculative.py`` and the streaming
 scorer of ``score.py``). Unlike ``sampler_step`` it leaves the state it is
-given as it is: the committed ring is a new tensor. ``generate_sharded``
-is queued in ROADMAP.md.
+given as it is: the committed ring is a new tensor.
+
+``generate_sharded`` runs the scan sampler over a ``(data, model)`` mesh
+of processes (``parallel/sharding.py``): each rank advances its data rows
+with its model shard of the weights (the collectives of
+``parallel/tensor.py``), and every rank draws each step's whole noise
+block from the same generator and keeps its rows, so its codes equal
+``generate``'s for the same generator.
 """
 
 from __future__ import annotations
@@ -86,9 +92,11 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
                  x: torch.Tensor,
                  gc_embedding: Optional[torch.Tensor] = None,
                  lc_t: Optional[torch.Tensor] = None,
-                 collect_layer_inputs: bool = False):
+                 collect_layer_inputs: bool = False, tp=None):
     """One incremental network evaluation: ``x`` [B, C_in] (one-hot, or
     the amplitude [B, 1] in scalar mode) -> (new_state, logits [B, Q]).
+    ``tp``: ``params`` are this rank's model shards (``forward``'s ``tp``;
+    dense, skip and postprocess2 are reduced over the group).
     ``lc_t`` [B, C_lc] conditions the sample this step predicts. The
     state's ring is updated in place. With ``collect_layer_inputs`` a
     third result is each layer's input (the residual stream), stacked
@@ -125,6 +133,8 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
         out = torch.tanh(conv_f) * torch.sigmoid(conv_g)
         transformed = out @ params["dense"][i]
         skip_c = out @ params["skip"][i]
+        if tp is not None:
+            transformed, skip_c = tp.reduce(transformed), tp.reduce(skip_c)
         if c.use_biases:
             transformed = transformed + params["dense_bias"][i]
             skip_c = skip_c + params["skip_bias"][i]
@@ -137,6 +147,8 @@ def sampler_step(params: Params, config: WaveNetConfig, state: SamplerState,
         h = h + params["postprocess1_bias"]
     h = torch.relu(h)
     h = h @ params["postprocess2"]
+    if tp is not None:
+        h = tp.reduce(h)
     if c.use_biases:
         h = h + params["postprocess2_bias"]
     new_state = SamplerState(state.t + 1, window[:, 1:], bufs)
@@ -202,7 +214,8 @@ def ring_slot_blocks(layer_ins: Sequence[torch.Tensor],
 def prefill_state(params: Params, config: WaveNetConfig,
                   waveform: torch.Tensor,
                   gc_embedding: Optional[torch.Tensor] = None,
-                  lc: Optional[torch.Tensor] = None) -> SamplerState:
+                  lc: Optional[torch.Tensor] = None,
+                  tp=None) -> SamplerState:
     """:func:`prime_state` from zero in one parallel forward: each layer's
     queue after teacher-forcing ``waveform`` [B, T] (conditioned by ``lc``
     [B, T, C_lc], as there) is the residual stream entering that layer at
@@ -221,10 +234,11 @@ def prefill_state(params: Params, config: WaveNetConfig,
             layer_ins = forward(params, c,
                                 waveform[..., None].to(torch.float32),
                                 gc_embedding, collect_layer_inputs=keep,
-                                lc=lc)
+                                lc=lc, tp=tp)
         else:
             layer_ins = forward_codes(params, c, waveform, gc_embedding,
-                                      collect_layer_inputs=keep, lc=lc)
+                                      collect_layer_inputs=keep, lc=lc,
+                                      tp=tp)
         blocks = [F.pad(w, (0, 0, 0, 0, 0, max_d - d))
                   for d, w in zip(c.dilations,
                                   ring_slot_blocks(layer_ins, c.dilations,
@@ -427,6 +441,65 @@ def unseeded_prime(config: WaveNetConfig, batch_size: int,
     first = torch.randint(0, c.quantization_channels, (batch_size,),
                           generator=key, device=dev, dtype=torch.int32)
     return silence, first
+
+
+def generate_sharded(params: Params, config: WaveNetConfig, n_samples: int,
+                     key: torch.Generator, mesh, batch_size: int,
+                     gc_ids: Optional[torch.Tensor] = None,
+                     temperature: float = 1.0,
+                     seed_codes: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Batched scan-sampler generation over a ``(data, model)`` mesh of
+    processes (the JAX package's ``generate_sharded``) -> codes [B, n]
+    on every rank.
+
+    Every rank calls this with the whole ``params`` and the same ``key``
+    state. The ring's batch is split over "data" and the weights over
+    "model" (``parallel.sharding.shard_params``; the products of each
+    step reduced over the model group). The priming recipe is
+    ``generate``'s; each rank draws the whole first-code draw and every
+    step's whole [B, Q] noise block from ``key`` and keeps its rows, so a
+    row's draws do not depend on the split and the codes equal
+    ``generate(params, config, n_samples, key, batch_size, ...)``'s (up
+    to the order of the reduced sums). No LC, as in JAX."""
+    import torch.distributed as dist
+
+    from wavenet_torch.parallel.sharding import (
+        DATA_AXIS, axis_size, data_rows, shard_params)
+    from wavenet_torch.parallel.tensor import tensor_parallel
+
+    c = config
+    _check_config(c)
+    rows = data_rows(batch_size, mesh)
+    local = shard_params(params, c, mesh)
+    tp = tensor_parallel(mesh, c)
+    dev = key.device
+    gc_emb = (embed_gc(local, c, torch.as_tensor(gc_ids, device=dev)[rows])
+              if gc_ids is not None else None)
+    if seed_codes is None:
+        prime, first = unseeded_prime(c, batch_size, key)
+    else:
+        prime, first = seed_codes[:, :-1], seed_codes[:, -1]
+    state = prefill_state(local, c, prime[rows], gc_emb, tp=tp)
+    x = _featurize(first[rows], c)
+    Q = c.quantization_channels
+    codes = []
+    with torch.no_grad():
+        for _ in range(n_samples):
+            state, logits = sampler_step(local, c, state, x, gc_emb, tp=tp)
+            noise = sample_gumbel(key, (batch_size, Q))[rows]
+            code = torch.argmax(logits / temperature + noise, dim=-1)
+            codes.append(code.to(torch.int32))
+            x = _code_to_input(code, c)
+    out = (torch.stack(codes, dim=1) if codes else
+           torch.empty((rows.stop - rows.start, 0), dtype=torch.int32,
+                       device=dev))
+    if mesh is None:
+        return out
+    parts = [torch.empty_like(out)
+             for _ in range(axis_size(mesh, DATA_AXIS))]
+    dist.all_gather(parts, out.contiguous(), group=mesh.get_group(DATA_AXIS))
+    return torch.cat(parts, dim=0)
 
 
 def lc_for_prime(lc: Optional[torch.Tensor],

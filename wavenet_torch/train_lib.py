@@ -12,6 +12,13 @@ npz ``python -m wavenet_torch.serve --params_npz`` reads), ``optimizer.pt``
 temporary directory and renames it when complete, so a kill mid-save
 never leaves a partial ``ckpt-STEP`` and the newest complete one stays
 loadable. The JAX package writes orbax directories instead.
+
+On a ``(data, model)`` mesh of processes (``parallel/sharding.py``) the
+state holds this rank's shards (``parallel.sharding.shard_train_state``),
+the step runs the tensor-parallel forward, averages the gradients over
+"data" and updates the shards, and a save gathers the whole state and
+writes it from global rank 0 in the same unsharded format, which one
+process and the server restore.
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ def _lc_stream(lc, lc_hop: Optional[int], lc_upsample: str, width: int):
 def make_train_step(config: WaveNetConfig,
                     l2_regularization_strength: Optional[float] = None,
                     lc_hop: Optional[int] = None,
-                    lc_upsample: str = "repeat"):
+                    lc_upsample: str = "repeat", mesh=None):
     """(state, audio [B, T], gc_ids [B] | None, lc | None) ->
     (state, metrics).
 
@@ -107,7 +114,17 @@ def make_train_step(config: WaveNetConfig,
     zero one, as in the JAX step, so every optimizer state advances.
     At bf16 (``config.compute_dtype``) the params, their gradients and the
     optimizer state stay float32; only the model's products and
-    activations are bf16 (``models.wavenet._maybe_cast``)."""
+    activations are bf16 (``models.wavenet._maybe_cast``).
+
+    ``mesh``: ``state`` holds this rank's shards and ``audio`` its data
+    rows; the forward is tensor-parallel where the model axis has more
+    than one rank, the gradients (one flat all-reduce) and the loss
+    metrics are averaged over "data", and the grad norm is the whole
+    model's."""
+    from wavenet_torch.parallel.tensor import (
+        all_reduce_mean_, tensor_parallel)
+
+    tp = tensor_parallel(mesh, config)
 
     def train_step(state: TrainState, audio: torch.Tensor,
                    gc_ids: Optional[torch.Tensor] = None, lc=None):
@@ -116,7 +133,7 @@ def make_train_step(config: WaveNetConfig,
             p.grad = None
         with matmul_precision(config):
             total, aux = loss_fn(state.params, config, audio, gc_ids,
-                                 l2_regularization_strength, lc)
+                                 l2_regularization_strength, lc, tp=tp)
             total.backward()
         grads = []
         for k in sorted(state.params):
@@ -124,12 +141,18 @@ def make_train_step(config: WaveNetConfig,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        grad_norm = _global_norm(grads)
+        all_reduce_mean_(grads, mesh)
+        grad_norm = (_global_norm(grads) if tp is None else torch.sqrt(
+            tp.sum_of_squares({k: state.params[k].grad
+                               for k in state.params})))
         state.optimizer.step()
         state.step += 1
         metrics = {"loss": total.detach(),
-                   **{k: v.detach() for k, v in aux.items()},
-                   "grad_norm": grad_norm}
+                   **{k: v.detach() for k, v in aux.items()}}
+        if mesh is not None:
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            all_reduce_mean_(metrics.values(), mesh)
+        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return train_step
@@ -139,12 +162,13 @@ def make_train_multistep(config: WaveNetConfig,
                          l2_regularization_strength: Optional[float] = None,
                          steps_per_dispatch: int = 1,
                          lc_hop: Optional[int] = None,
-                         lc_upsample: str = "repeat"):
+                         lc_upsample: str = "repeat", mesh=None):
     """K train steps per call: audio [K, B, T], gc_ids [K, B] | None, lc
     (a stream [K, B, T, C] or an ``LCFrameChunk`` whose fields lead with
-    K) | None -> (state, metrics with every entry stacked [K])."""
+    K) | None -> (state, metrics with every entry stacked [K]). ``mesh``
+    as ``make_train_step``'s."""
     step = make_train_step(config, l2_regularization_strength, lc_hop,
-                           lc_upsample)
+                           lc_upsample, mesh)
 
     def train_multistep(state: TrainState, audio: torch.Tensor,
                         gc_ids: Optional[torch.Tensor] = None, lc=None):
@@ -242,23 +266,66 @@ class _AsyncCheckpointer:
 _ASYNC = _AsyncCheckpointer()
 
 
+def _gathered(state: TrainState, config: WaveNetConfig, mesh):
+    """(params, optimizer state dict) of the whole model from this rank's
+    shards (a collective over the model group, on every rank)."""
+    import torch.distributed as dist
+
+    from wavenet_torch.parallel.sharding import MODEL_AXIS, shard_dims
+    group = mesh.get_group(MODEL_AXIS)
+    n = dist.get_world_size(group)
+    dims = shard_dims(config, state.params)
+    keys = sorted(state.params)
+
+    def whole(x, dim):
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.detach().contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    params = {k: whole(v, dims[k]) if dims[k] is not None else v.detach()
+              for k, v in state.params.items()}
+    opt = state.optimizer.state_dict()
+    opt["state"] = {
+        i: {name: (whole(v, dims[keys[i]])
+                   if dims[keys[i]] is not None and isinstance(v, torch.Tensor)
+                   and v.shape == state.params[keys[i]].shape else v)
+            for name, v in s.items()}
+        for i, s in opt["state"].items()}
+    return params, opt
+
+
 def save_checkpoint(directory: str, state: TrainState,
                     max_to_keep: Optional[int] = None,
-                    use_async: bool = False) -> None:
+                    use_async: bool = False, mesh=None,
+                    config: Optional[WaveNetConfig] = None) -> None:
     """Write ``directory/ckpt-<step>/``, then prune to ``max_to_keep``.
 
     ``use_async``: copy the state to the host now (training goes on
     updating it in place), write it in a background thread; a later save
     first waits for this one. Call :func:`wait_for_checkpoints` before
-    exiting."""
+    exiting.
+
+    ``mesh`` (with the ``config`` the shards are laid out by): every rank
+    calls this; the whole state is gathered over the model group and only
+    global rank 0 writes it."""
+    import torch.distributed as dist
+
+    params, opt_state = state.params, None
+    if mesh is not None:
+        from wavenet_torch.parallel.sharding import MODEL_AXIS, axis_size
+        if axis_size(mesh, MODEL_AXIS) > 1:
+            params, opt_state = _gathered(state, config, mesh)
+        if dist.get_rank() != 0:
+            return
     root = os.path.abspath(directory)
     os.makedirs(root, exist_ok=True)
     # Copies: on the CPU, .numpy() would share memory with parameters
     # that the next step updates in place while a background save runs.
     snapshot = {"step": int(state.step),
                 "params": {k: v.numpy() for k, v in
-                           _to_cpu(state.params).items()},
-                "opt_state": _to_cpu(state.optimizer.state_dict())}
+                           _to_cpu(params).items()},
+                "opt_state": _to_cpu(opt_state if opt_state is not None
+                                     else state.optimizer.state_dict())}
     if use_async:
         _ASYNC.save(root, snapshot, max_to_keep)
     else:
