@@ -311,6 +311,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the single run); ``distill.distill_draft`` at the tiny config for 4
    steps (finite loss, the draft on the card). Prints the scored audio s
    per wall s, the speculative samples/s and the mean accepted length.
+11. Parallelism on ``torch.distributed`` at a world size of 1 over NCCL
+   (one card; collectives over several devices are held on the CPU over
+   gloo, tests/test_torch_sharding.py) and the server's flags: (a) the
+   train CLI at the gc config on phase 5's corpus, b8 x 16,000, with
+   ``--coordinator_address 127.0.0.1:<free port> --num_processes 1
+   --process_id 0``, plain and with ``--use_pallas_stack``
+   (``fused_stack_mma``, its launches counted from 0): its losses bitwise
+   the one-process CLI's from the same seed (a plain run here, phase 5's
+   first steps for the fused one; the mean of one rank is exact); (b)
+   ``make_time_sharded_grad_fn`` with one time rank against ``loss_fn``'s
+   loss and gradients at the gc config, b2 x (receptive field + 4,000)
+   (loss within rtol 1e-5, each gradient within 1e-4 of its max |ref|:
+   another summation order); (c) ``sample.generate_sharded`` against
+   ``sample.generate`` at the gc config, b4 x 32: equal codes; (d) a
+   ``GenerationService`` from ``--checkpoint`` (phase 5's gc logdir)
+   under ``--sampler auto`` (the reply names the CUDA route, one decode
+   launch) and ``--sampler scan`` (the reply names ``scan``, no launch).
 
 The line before the last holds the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU or
@@ -376,6 +393,12 @@ GEN_SAMPLES = 16000
 # Phase 5: the JAX package's train_b8 shape (bench.py).
 TRAIN_BATCH, TRAIN_SAMPLES = 8, 16000
 TRAIN_STEPS, RESUME_STEPS = 8, 10
+# Phase 11: the steps of each multi-process train CLI run (one dispatch of
+# phase 5's run), and the shapes of its time-sharded and sharded sampling
+# checks.
+PARALLEL_STEPS = 4
+TIMESHARD_BATCH, TIMESHARD_SAMPLES = 2, 4000
+SHARDED_GEN_BATCH, SHARDED_GEN_STEPS = 4, 32
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 # The two stack kernels ("mma": csrc/fused_stack_mma.cu, 3xTF32 on the
@@ -5628,6 +5651,191 @@ def phase_distill(gpu):
     return row
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counts_apart(*wrappers):
+    """Zero the wrappers' launch counts for the block, then put back what
+    they held before it (later phases read their own counts)."""
+    saved = [(w.launches, dict(w.launches_by)) for w in wrappers]
+    for w in wrappers:
+        w.launches = 0
+        w.launches_by.clear()
+    try:
+        yield
+    finally:
+        for w, (n, by) in zip(wrappers, saved):
+            w.launches = n
+            w.launches_by.clear()
+            w.launches_by.update(by)
+
+
+def logged_losses(logdir: str):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [r["value"] for r in map(json.loads, f) if r["tag"] == "loss"]
+
+
+def phase_parallel(c, gc_ckpt, gc_pfile, gpu):
+    """Phase 11 (see the docstring): the train CLI over an NCCL group of
+    one, the time-sharded gradients, generate_sharded, and the server from
+    --checkpoint under --sampler auto and scan."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from wavenet_torch.kernels import fused_stack as fs
+    from wavenet_torch.kernels import sampler as ks
+    from wavenet_torch.models.wavenet import loss_fn
+    from wavenet_torch.parallel import (
+        initialize_multihost, make_global_mesh, make_time_sharded_grad_fn)
+    from wavenet_torch.sample import generate, generate_sharded
+    from wavenet_torch.serve import GenerationService
+
+    t0 = time.perf_counter()
+    logdir5 = os.path.dirname(os.path.normpath(gc_ckpt))
+    corpus = os.path.join(os.path.dirname(logdir5), "corpus")
+    tmp = tempfile.mkdtemp(prefix="wavenet_torch_parallel_")
+    base = ["--data_dir", corpus, "--wavenet_params", gc_pfile,
+            "--gc_channels", str(c.gc_channels), "--batch_size",
+            str(TRAIN_BATCH), "--sample_size", str(TRAIN_SAMPLES),
+            "--checkpoint_every", "4", "--steps_per_dispatch", "4",
+            "--seed", "0", "--device", "cuda", "--num_steps",
+            str(PARALLEL_STEPS)]
+    out = {"phase": "parallel", "world_size": 1, "config": "gc",
+           "batch": TRAIN_BATCH, "steps": PARALLEL_STEPS}
+    parts = {}
+    lap = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - lap[0]
+        lap[0] = now
+
+    # (a) The train CLI over NCCL, plain and fused, against one process.
+    routed = fs.stack_kernel_plan(c)
+    for fused in (False, True):
+        flags = ["--use_pallas_stack"] if fused else []
+        tag = "fused" if fused else "plain"
+        if fused:    # phase 5's run: the same flags, seed and batches
+            single = logged_losses(logdir5)[:PARALLEL_STEPS]
+        else:
+            run_cli(base + flags + ["--logdir", os.path.join(tmp, tag)])
+            single = logged_losses(os.path.join(tmp, tag))
+            part("cli_one_process_plain")
+        dp_dir = os.path.join(tmp, "dp_" + tag)
+        with counts_apart(fs.forward, fs.backward):
+            text = run_cli(base + flags + [
+                "--logdir", dp_dir, "--coordinator_address",
+                f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                "--process_id", "0"])
+            by = {"fwd": dict(fs.forward.launches_by),
+                  "bwd": dict(fs.backward.launches_by)}
+        check(not dist.is_initialized(),
+              "the train CLI left its process group")
+        dp = logged_losses(dp_dir)
+        check(f"step {PARALLEL_STEPS} - loss = " in text,
+              f"the {tag} multi-process CLI did not train")
+        check(dp == single, f"the {tag} multi-process CLI's losses {dp} are "
+              f"not the one-process CLI's {single}")
+        want = {routed: PARALLEL_STEPS} if fused else {}
+        check(by["fwd"] == want and by["bwd"] == want,
+              f"the {tag} multi-process CLI ran the stack kernels {by}, "
+              f"not {want}")
+        out.update({f"losses_{tag}": dp, f"one_process_losses_{tag}": single,
+                    f"bitwise_{tag}": True, f"stack_launches_by_{tag}": by})
+        part(f"cli_nccl_{tag}")
+
+    # (b), (c): one NCCL process, its meshes.
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    part("nccl_init")
+    try:
+        out["backend"] = dist.get_backend()
+        check(out["backend"] == "nccl", f"backend {out['backend']}")
+        params = seeded_params(c, 11, "cuda")
+        rng = np.random.RandomState(11)
+        B, T = TIMESHARD_BATCH, c.receptive_field + TIMESHARD_SAMPLES
+        audio = torch.as_tensor(rng.uniform(-1, 1, (B, T)),
+                                dtype=torch.float32, device="cuda")
+        gc_ids = torch.as_tensor(rng.randint(0, c.gc_cardinality, B),
+                                 device="cuda")
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "time"))
+        fn = make_time_sharded_grad_fn(c, mesh, 0.01, time_axis="time",
+                                       data_axis="data")
+        (total, _), grads = fn(params, audio, gc_ids)
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        ref, _ = loss_fn(leaves, c, audio, gc_ids, 0.01)
+        ref.backward()
+        loss_err = abs(float(total) - float(ref.detach())) / abs(
+            float(ref.detach()))
+        grad_err = max(float((grads[k] - v.grad).abs().max()
+                             / v.grad.abs().max().clamp_min(1e-30))
+                       for k, v in leaves.items())
+        check(loss_err <= 1e-5, f"time-sharded loss off by {loss_err}")
+        check(grad_err <= 1e-4, f"time-sharded gradients off by {grad_err}")
+        out.update({"timeshard_loss_rel_err": loss_err,
+                    "timeshard_grad_max_rel_err": grad_err})
+        part("timeshard")
+
+        mesh = make_global_mesh()
+        key = torch.Generator(device="cuda")
+        codes = generate_sharded(params, c, SHARDED_GEN_STEPS,
+                                 key.manual_seed(5), mesh, SHARDED_GEN_BATCH,
+                                 gc_ids=gc_ids.repeat(2))
+        ref_codes = generate(params, c, SHARDED_GEN_STEPS, key.manual_seed(5),
+                             batch_size=SHARDED_GEN_BATCH,
+                             gc_ids=gc_ids.repeat(2))
+        check(torch.equal(codes, ref_codes),
+              "generate_sharded's codes are not sample.generate's")
+        out["generate_sharded_equal"] = True
+        part("generate_sharded")
+    finally:
+        dist.destroy_process_group()
+    part("nccl_destroy")
+
+    # (d) The server from --checkpoint, on both samplers.
+    for sampler in ("auto", "scan"):
+        service = GenerationService(
+            None, gc_pfile, c.gc_channels, c.gc_cardinality,
+            checkpoint=logdir5, sampler=sampler, warm_samples=0,
+            device="cuda")
+        part(f"server_{sampler}_start")
+        httpd, url = start_server(service)
+        try:
+            with counts_apart(ks.decode):
+                body = post(url + "/generate", {"samples": 1000, "seed": 5,
+                                                "gc_id": 3,
+                                                "format": "codes"})
+                by = dict(ks.decode.launches_by)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        codes = body["codes"]
+        check(len(codes) == 1000 and 0 <= min(codes)
+              and max(codes) < c.quantization_channels
+              and len(set(codes)) > 8,
+              f"--sampler {sampler}: malformed /generate answer")
+        if sampler == "scan":
+            check(body["sampler"] == "scan" and not by,
+                  f"--sampler scan ran {body['sampler']}, launches {by}")
+        else:
+            check("CUDA" in body["sampler"] and sum(by.values()) == 1,
+                  f"--sampler auto ran {body['sampler']}, launches {by}")
+        out.update({f"server_{sampler}_sampler": body["sampler"],
+                    f"server_{sampler}_decode_launches_by": by})
+        part(f"server_{sampler}_request")
+    out.update({"seconds": time.perf_counter() - t0, "seconds_by_part": parts,
+                "gpu": gpu})
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "wavenet_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -5823,6 +6031,11 @@ def main() -> int:
           "mean_accepted_length": {
               k: v["mean_accepted_length"] for k, v in spec.items()},
           "script_seconds": time.perf_counter() - t_start, "gpu": gpu})
+
+    # Phase 11: parallelism (NCCL, world size 1) and the server's flags.
+    parallel = phase_parallel(cfgs["gc"], gc_ckpt, gc_pfile, gpu)
+    emit({"phase": "parallel_done", "seconds": parallel["seconds"],
+          "script_seconds": time.perf_counter() - t_start})
 
     # library_ms is null: no single PyTorch call computes a decode step.
     # The cluster and tiles rows' launches are their kernel's on the serving

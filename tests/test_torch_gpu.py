@@ -3679,3 +3679,86 @@ def test_ring16_tiles_libraries_match_the_plan(setup):
             assert lib.sampler_tiles_max_clusters(rb, ctypes.byref(n)) == 0
             counts.append(n.value)
         assert counts[0] == counts[1] == counts[2] > 0, (rb, counts)
+
+
+# ---------------------------------------------------------------------------
+# Parallelism on the card (torch.distributed over NCCL at world size 1) and
+# the server's scan sampler
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_group(setup, tmp_path):
+    """A one-process NCCL group (file rendezvous), destroyed after."""
+    import torch.distributed as dist
+    from wavenet_torch.parallel import initialize_multihost
+    assert initialize_multihost("file://" + str(tmp_path / "rendezvous"),
+                                1, 0, device="cuda") is False
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_starts(nccl_group):
+    from wavenet_torch.parallel import make_global_mesh
+    dist = nccl_group
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    mesh = make_global_mesh()
+    assert mesh.device_type == "cuda"
+    assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {"data": 1,
+                                                          "model": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pallas", [False, True], ids=["plain", "fused"])
+def test_data_parallel_step_equals_plain_step_on_card(nccl_group, setup,
+                                                      pallas):
+    """The mesh's step (NCCL all-reduces of a world of one) is bitwise the
+    one-process step: the mean of one is exact."""
+    from wavenet_torch import train_lib as tl
+    from wavenet_torch.parallel import make_global_mesh, shard_train_state
+    c = dataclasses.replace(setup[0], use_pallas_stack=pallas)
+    mesh = make_global_mesh()
+    rng = np.random.RandomState(3)
+    batches = [(torch.as_tensor(rng.uniform(-1, 1, (2, c.receptive_field
+                                                    + 64)),
+                                dtype=torch.float32, device="cuda"),
+                torch.as_tensor(rng.randint(0, 4, 2), device="cuda"))
+               for _ in range(2)]
+    runs = []
+    for m in (None, mesh):
+        state = tl.train_state_from_params(
+            init_params(0, c, device="cuda"), tl.make_optimizer("adam", 1e-3))
+        state = shard_train_state(state, c, m)
+        step = tl.make_train_step(c, 0.001, mesh=m)
+        losses = [float(step(state, a, g)[1]["loss"]) for a, g in batches]
+        runs.append((losses, state.params))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+
+@pytest.mark.gpu
+def test_server_scan_sampler_on_card(setup, tmp_path):
+    """--sampler scan serves the scan sampler on the card: its codes are
+    sample.generate's there, and the reply names it."""
+    import json
+    from wavenet_torch.audio import mu_law_encode_np
+    from wavenet_torch.params import save_npz
+    from wavenet_torch.sample import generate
+    from wavenet_torch.serve import GenerationService
+    c, params, _ = setup
+    npz = str(tmp_path / "m.npz")
+    save_npz(npz, params)
+    js = tmp_path / "m.json"
+    js.write_text(json.dumps(c.to_json_dict()))
+    svc = GenerationService(npz, str(js), c.gc_channels, c.gc_cardinality,
+                            sampler="scan", warm_samples=0, device="cuda")
+    wave, name = svc.generate(48, gc_id=1, seed=4, return_sampler=True)
+    assert name == "scan" == svc.sampler_name
+    ref = generate(params, c, GenerationService.bucket_samples(48),
+                   torch.Generator(device="cuda").manual_seed(4),
+                   gc_ids=torch.tensor([1], device="cuda"))[0, :48]
+    np.testing.assert_array_equal(
+        mu_law_encode_np(wave, c.quantization_channels), ref.cpu().numpy())

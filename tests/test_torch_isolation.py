@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
               "tools.r2_fwd_bisect", "tools.r2_fwd_bisect2",
               "tools.r3_b1_bisect", "tools.r4_matvec_probe",
               "tools.tiles_variants", "lc", "features", "bench", "score",
-              "speculative", "distill"):
+              "speculative", "distill", "parallel", "parallel.sharding",
+              "parallel.tensor", "parallel.timeshard",
+              "parallel.distributed"):
         assert f"wavenet_torch.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
@@ -112,3 +114,21 @@ def test_decode_on_an_unsupported_device_raises():
     ring = torch.empty((3, 1, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ks.decode(None, c, ring, None, None, 1, 0, 0)
+
+
+def test_nccl_without_a_gpu_raises(monkeypatch, tmp_path):
+    """A multi-process run on the card does not fall back to gloo."""
+    import torch.distributed as dist
+    from wavenet_torch.cli import train as cli
+    from wavenet_torch.parallel import initialize_multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("file://" + str(tmp_path / "rendezvous"), 1, 0,
+                             device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--data_dir", str(tmp_path), "--logdir",
+                  str(tmp_path / "log"), "--coordinator_address",
+                  "file://" + str(tmp_path / "rendezvous"),
+                  "--num_processes", "1", "--process_id", "0"])
+    assert not dist.is_initialized()

@@ -493,7 +493,14 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     # stops as the JAX CLI does.
     assert cli.main(common + ["--num_steps", "6", "--lc_channels", "4"]) == 1
     assert "--lc_channels requires --lc_hop" in capsys.readouterr().out
-    for flag in (["--model_parallelism", "2"], ["--num_processes", "2"],
-                 ["--store_metadata", "true"], ["--histograms", "true"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag in (["--store_metadata", "true"], ["--histograms", "true"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             cli.main(common + ["--num_steps", "6"] + flag)
+    # Item 9 runs in several processes (tests/test_torch_parallel_cli.py):
+    # one process cannot hold a model split two ways, and an address needs
+    # the process counts.
+    with pytest.raises(ValueError, match="processes"):
+        cli.main(common + ["--num_steps", "6", "--model_parallelism", "2"])
+    with pytest.raises(ValueError, match="num_processes"):
+        cli.main(common + ["--num_steps", "6", "--coordinator_address",
+                           "127.0.0.1:1"])

@@ -48,10 +48,12 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     the backend: NCCL on ``cuda``, gloo on ``cpu``."""
     import torch.distributed as dist
 
+    from wavenet_torch import resolve_device
+
     explicit = coordinator_address is not None
     if not explicit and not _env_configured():
         return False
-    dev = torch.device(device)
+    dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if explicit:
         if num_processes is None or process_id is None:
