@@ -61,6 +61,12 @@ class _ReduceFromGroup(torch.autograd.Function):
         return grad, None
 
 
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group`` (all-reduce); the gradient passes as it is,
+    each rank's own part of the sum."""
+    return _ReduceFromGroup.apply(x, group)
+
+
 class _GatherFromGroup(torch.autograd.Function):
     """Concatenate the group's shards along ``dim``; the gradient of the
     whole (the same on every rank) is sliced back to this rank's shard."""
@@ -93,7 +99,7 @@ class TensorParallel:
         return _CopyToGroup.apply(x, self.group)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromGroup.apply(x, self.group)
+        return reduce_from_group(x, self.group)
 
     def gather_params(self, params) -> dict:
         """Whole params from this rank's shards (differentiable)."""

@@ -30,6 +30,7 @@ from wavenet_torch.audio import mu_law_encode
 from wavenet_torch.models.config import WaveNetConfig
 from wavenet_torch.models.wavenet import embed_gc, forward, forward_codes
 from wavenet_torch.parallel.sharding import axis_index, axis_size, data_rows
+from wavenet_torch.parallel.tensor import reduce_from_group
 
 TIME_AXIS = "time"
 
@@ -89,22 +90,6 @@ def _l2(params) -> torch.Tensor:
                if not k.endswith("_bias"))
 
 
-class _SumOverGroups(torch.autograd.Function):
-    """All-reduce (sum) over each group in turn; the gradient passes as
-    it is (each rank's local part of a summed total)."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        x = x.clone()
-        for g in groups:
-            dist.all_reduce(x, group=g)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _groups(mesh, axes):
     """The groups of the named axes of ``mesh`` (at one rank an
     all-reduce copies, exactly)."""
@@ -136,8 +121,8 @@ def time_sharded_loss(params, config: WaveNetConfig, audio: torch.Tensor,
     gc_emb = embed_gc(params, c, gc_ids) if gc_ids is not None else None
     ce_sum = _local_ce_sum(params, c, halo, audio,
                            axis_index(mesh, axis_name), gc_emb)
-    ce_sum = _SumOverGroups.apply(ce_sum, _groups(mesh,
-                                                  (axis_name, data_axis)))
+    for group in _groups(mesh, (axis_name, data_axis)):
+        ce_sum = reduce_from_group(ce_sum, group)
     n_batch = B * (axis_size(mesh, data_axis) if data_axis else 1)
     n_valid = n_batch * (n_shards * Tl - rf)
     ce = ce_sum / n_valid
